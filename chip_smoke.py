@@ -3,21 +3,31 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, then builds the three Hopper
+1. Prints the card's name and power limit, then builds the four Hopper
    kernels from `src/repro_torch/kernels/csrc/` with nvcc (parallel) and
    prints the build time.
 2. Holds each kernel against its plain PyTorch version on the card over a
-   sweep of shapes and dtypes, printing the max error and the tolerance.
-3. Drives the port's main path at the paper's Fig. 8 size (d = 3072, N = 10
-   nodes, B = 1000 samples per round, ring gossip R = 8), each run with the
-   launch counts set to 0 just before it and read just after:
-   the governed `StreamingDriver` (fused `krasulina_xi_gossip`),
-   `run_dm_krasulina` (`krasulina_xi`) and `run_d_krasulina(fuse_xi=False)`
-   (`krasulina_xi` then `gossip_mix`). Each must end finite with
-   sin^2 < 0.05, and each must have launched its kernels.
-4. Times every kernel at the main path's shapes and at N=16, Bn=4, d=32768,
-   R=8 against its bound, its plain version and (gossip_mix) one dense
-   matmul, and prints one `{"kernels": [...]}` JSON line.
+   sweep of shapes and dtypes, printing the max error and the tolerance, and
+   the whole PCA superstep on the card against the CPU's plain path.
+3. Drives the port's main paths, each run with the launch counts set to 0
+   just before it and read just after:
+   (a)-(c) streaming PCA at the paper's Fig. 8 size (d = 3072, N = 10 nodes,
+   B = 1000 samples per round, ring gossip R = 8): the governed
+   `StreamingDriver` (fused `krasulina_xi_gossip`), `run_dm_krasulina`
+   (`krasulina_xi`) and `run_d_krasulina(fuse_xi=False)` (`krasulina_xi`
+   then `gossip_mix`), each ending finite with sin^2 < 0.05;
+   (d) the governed driver with int8 tile-statistics gossip (`krasulina_xi`
+   then `gossip_mix_quant`, 48 launches each, no fused launch), sin^2 < 0.05;
+   (e) `run_d_krasulina` with sign tile-statistics gossip, sin^2 falling;
+   (f) the convex track at the paper's Fig. 9 size: quantized D-SGD logistic
+   regression (no quantization, int8 and sign tile statistics on the same
+   draws; int8 within 5% and sign within 2x of the unquantized excess
+   risk), `run_dmb` at Fig. 6, and D-SGD over a 6-regular expander beating
+   local SGD.
+4. Times every kernel at the main path's shapes and at a wide shape
+   (N=16, d=32768) against its bound, its plain version and, where one
+   PyTorch call computes the same function, that call; prints one
+   `{"kernels": [...]}` JSON line.
 
 The last line is `{"ok": true, "device": {...}}`. Any mismatch or fault
 raises and exits non-zero; there is no CPU path and no fallback. Without a
@@ -36,11 +46,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-3)}  # (rtol, atol)
+# gossip_mix_quant: the f32 bound of tests/test_consensus_engine.py
+QUANT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-2, 1e-3)}
 HIGHD_N, HIGHD_B, HIGHD_R, HIGHD_K = 10, 1000, 8, 8
 REPLACES = {
     "krasulina_xi": "src/repro/kernels/krasulina_update.py:59",
     "krasulina_xi_gossip": "src/repro/kernels/krasulina_update.py:132",
     "gossip_mix": "src/repro/kernels/consensus.py:52",
+    "gossip_mix_quant": "src/repro/kernels/consensus.py:121",
 }
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 
@@ -50,9 +63,9 @@ def require(cond, msg):
         raise RuntimeError(msg)
 
 
-def compare(name, got, want, dtype_name):
+def compare(name, got, want, dtype_name, tol=TOL):
     """Max |kernel - plain|, held to rtol * max|plain| + atol."""
-    rtol, atol = TOL[dtype_name]
+    rtol, atol = tol[dtype_name]
     err = (got.float() - want.float()).abs().max().item()
     limit = rtol * want.float().abs().max().item() + atol
     ok = math.isfinite(err) and err <= limit
@@ -72,9 +85,13 @@ def main() -> int:
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "src"))
     from repro_torch.configs.base import AveragingConfig, StreamConfig
+    from repro_torch.configs.paper_logreg import FIG6, FIG9
     from repro_torch.configs.paper_pca import HIGHD, PCARunConfig
-    from repro_torch.core import krasulina, mixing, problems
-    from repro_torch.data.synthetic import make_pca_host_sampler, make_pca_stream
+    from repro_torch.core import (averaging, dmb, dsgd, krasulina, mixing,
+                                  problems)
+    from repro_torch.data.synthetic import (make_logreg_stream,
+                                            make_pca_host_sampler,
+                                            make_pca_stream)
     from repro_torch.kernels import _cuda, ops, ref
     from repro_torch.train.driver import EngineConfig, StreamingDriver
 
@@ -152,12 +169,69 @@ def main() -> int:
                         if (dn, n, d, topo, R) == ("float32", 10, 3072,
                                                    "ring", 8):
                             errs["gossip_mix"] = e
+        # path (f)'s wire: N = 16 nodes, d = 21 (Fig. 9's 20 weights and a
+        # bias), ring R = 2
+        x = randn(16, 21, dtype=dtype)
+        sched = mixing.schedule("ring", 16)
+        compare(f"gossip_mix {dn} n=16 d=21 ring R=2",
+                ops.gossip_mix(x, sched, 2), ref.gossip_mix_ref(x, sched, 2), dn)
+        for quant in ("sign", "int8"):
+            compare(f"gossip_mix_quant {quant} {dn} n=16 d=21 block_d=8 ring "
+                    f"R=2", ops.quant_gossip_mix(x, sched, 2, quant, block_d=8),
+                    ref.gossip_mix_quant_ref(x, sched, 2, quant, block_d=8),
+                    dn, QUANT_TOL)
+    for quant in ("sign", "int8"):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            for n in (5, 10, 16):
+                for d in (33, 3072, 32773):
+                    x = randn(n, d, dtype=dtype)
+                    for bd in (16, 512):
+                        for topo in ("ring", "circulant2"):
+                            sched = mixing.schedule(topo, n)
+                            for R in (1, 8):
+                                e = compare(
+                                    f"gossip_mix_quant {quant} {dn} n={n} "
+                                    f"d={d} block_d={bd} {topo} R={R}",
+                                    ops.quant_gossip_mix(x, sched, R, quant,
+                                                         block_d=bd),
+                                    ref.gossip_mix_quant_ref(x, sched, R, quant,
+                                                             block_d=bd),
+                                    dn, QUANT_TOL)
+                                if (quant, dn, n, d, bd, topo, R) == (
+                                        "int8", "float32", 10, 3072, 512,
+                                        "ring", 8):
+                                    errs["gossip_mix_quant"] = e
+    # pad columns past valid_d (zero) stay out of every tile statistic; the
+    # unmasked sign kernel would count them into the mean
+    for quant in ("sign", "int8"):
+        n, d, pad = 8, 40, 9
+        x = randn(n, d + pad)
+        x[:, d:] = 0
+        sched = mixing.schedule("circulant2", n)
+        got = ops.quant_gossip_mix(x, sched, 2, quant, block_d=16, valid_d=d)
+        compare(f"gossip_mix_quant {quant} float32 n={n} d={d + pad} "
+                f"valid_d={d} block_d=16 circulant2 R=2", got,
+                ref.gossip_mix_quant_ref(x, sched, 2, quant, block_d=16,
+                                         valid_d=d), "float32", QUANT_TOL)
+        if quant == "sign":
+            unmasked = ops.quant_gossip_mix(x, sched, 2, quant, block_d=16)
+            differs = not torch.allclose(got[:, :d], unmasked[:, :d], atol=1e-6)
+            print(f"check gossip_mix_quant sign valid_d: unmasked differs "
+                  f"from masked {'ok' if differs else 'FAIL'}")
+            require(differs, "valid_d did not change the sign statistics")
     # the whole superstep on the card agrees with the CPU's plain path on a
-    # small input (exact, fused gossip, unfused gossip)
+    # small input (exact, fused gossip, unfused gossip, quantized gossip)
+    quant_small = dict(mode="gossip", rounds=3, quant_stats="tile",
+                       quant_block_d=16)
     for label, avg, fuse in (
             ("exact", AveragingConfig(mode="exact"), None),
             ("gossip fused", AveragingConfig(mode="gossip", rounds=3), True),
-            ("gossip unfused", AveragingConfig(mode="gossip", rounds=3), False)):
+            ("gossip unfused", AveragingConfig(mode="gossip", rounds=3), False),
+            ("gossip sign tile", AveragingConfig(quantization="sign",
+                                                 **quant_small), None),
+            ("gossip int8 tile", AveragingConfig(quantization="int8",
+                                                 **quant_small), None)):
         zs = randn(3, 4, 5, 70)
         w0 = randn(70)
         outs = []
@@ -184,10 +258,22 @@ def main() -> int:
         return (torch.linalg.vector_norm(w_nodes - wbar, dim=1).max()
                 / torch.linalg.vector_norm(wbar)).item()
 
-    def finish(label, w, w_nodes, sin2_final, rounds, seconds, expect):
+    def take_counts(label, expect, exact=None):
+        """Read the launch counts of the run just driven, add them to the
+        main-path totals, and require the expected kernels."""
         counts = dict(ops.launches)
         for k, v in counts.items():
             launches[k] += v
+        for k in expect:
+            require(counts[k] > 0, f"{label}: kernel {k} was never launched")
+        for k, v in (exact or {}).items():
+            require(counts[k] == v, f"{label}: kernel {k} launched "
+                                    f"{counts[k]} times, expected {v}")
+        return counts
+
+    def finish(label, w, w_nodes, sin2_final, rounds, seconds, expect,
+               exact=None, sin2_below=0.05):
+        counts = take_counts(label, expect, exact)
         finite = bool(torch.isfinite(w_nodes).all())
         spread = spread_of(w_nodes)
         print(f"main {label}: sin2={sin2_final:.5f} consensus_err={spread:.3e} "
@@ -196,9 +282,28 @@ def main() -> int:
               f"launches={json.dumps(counts)}")
         require(finite and tuple(w.shape) == (HIGHD.dim,),
                 f"{label}: state not finite or of the wrong shape")
-        require(sin2_final < 0.05, f"{label}: sin2={sin2_final} not < 0.05")
-        for k in expect:
-            require(counts[k] > 0, f"{label}: kernel {k} was never launched")
+        require(sin2_final < sin2_below,
+                f"{label}: sin2={sin2_final} not < {sin2_below}")
+
+    def superstep_ms(build, avg, supersteps=25, repeats=3):
+        """Time of one round of the superstep on the card, the batch already
+        staged: CUDA events around `supersteps` back-to-back supersteps (the
+        gaps between launches included), the median of `repeats` runs."""
+        step = build(HIGHD_B)
+        probe = krasulina.init_krasulina_state(w0, avg, HIGHD_N, device=dev)
+        probe, _ = step(probe, staged)
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(repeats):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(supersteps):
+                probe, _ = step(probe, staged)
+            end.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(end) / (supersteps * HIGHD_K))
+        return sorted(runs)[repeats // 2]
 
     # (a) governed driver, fused krasulina_xi_gossip
     run_cfg = PCARunConfig(pca=HIGHD, averaging=gossip,
@@ -237,17 +342,10 @@ def main() -> int:
     host_ms = (time.perf_counter() - t0) / HIGHD_K * 1e3
     staged = {"z": torch.from_numpy(np.stack(host)).reshape(
         HIGHD_K, HIGHD_N, HIGHD_B // HIGHD_N, HIGHD.dim).to(dev)}
-    probe = krasulina.init_krasulina_state(w0, gossip, HIGHD_N, device=dev)
-    builder(HIGHD_B)(probe, staged)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        probe, _ = builder(HIGHD_B)(probe, staged)
-    torch.cuda.synchronize()
-    device_ms = (time.perf_counter() - t0) / (3 * HIGHD_K) * 1e3
+    device_ms = superstep_ms(builder, gossip)
     print(f"driver time per round: host sampler {host_ms:.3f} ms "
           f"({HIGHD_B} samples, d={HIGHD.dim}), superstep on the card "
-          f"{device_ms:.4f} ms (launches and host overhead included), "
+          f"{device_ms:.4f} ms (launch gaps included), "
           f"measured wall {seconds / state.t * 1e3:.3f} ms")
 
     # (b) exact DM-Krasulina, krasulina_xi, draws on the card
@@ -272,6 +370,143 @@ def main() -> int:
     finish("run_d_krasulina gossip unfused", res.w, res.w_nodes,
            res.trace_metric[-1].item(), 50, time.perf_counter() - t0,
            ["krasulina_xi", "gossip_mix"])
+
+    # (d) governed driver, int8 tile-statistics gossip: krasulina_xi then
+    # gossip_mix_quant every round, never the fused (exact-wire) kernel
+    int8_tile = AveragingConfig(mode="gossip", rounds=HIGHD_R, topology="ring",
+                                quantization="int8", quant_stats="tile",
+                                quant_block_d=512)
+    builder_q = krasulina.krasulina_superstep_builder(
+        int8_tile, HIGHD_N, step5, metric=sin2, device=dev)
+    state = krasulina.init_krasulina_state(w0, int8_tile, HIGHD_N, device=dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with StreamingDriver(PCARunConfig(pca=HIGHD, averaging=int8_tile,
+                                      stream=run_cfg.stream),
+                         None, state, make_pca_host_sampler(stream),
+                         superstep_builder=builder_q, n_nodes=HIGHD_N,
+                         batch=HIGHD_B, device=dev,
+                         engine=EngineConfig(superstep=HIGHD_K,
+                                             prefetch_depth=2)) as drv:
+        state, history = drv.run(6)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    for rec in history:
+        print(f"  superstep {rec['superstep']}: B={rec['bucket']} "
+              f"mu={rec['plan'].mu} {rec['plan'].regime} "
+              f"sin2={rec['metrics']['metric']:.5f} "
+              f"consensus_err={rec['metrics']['consensus_err']:.3e} "
+              f"rounds_per_s={rec['rounds_per_s']:.2f} "
+              f"samples_per_s={rec['samples_per_s']:.1f}")
+    require(state.t == 6 * HIGHD_K, f"driver int8 ran {state.t} rounds")
+    finish("driver gossip int8 tile", state.w.mean(0), state.w,
+           history[-1]["metrics"]["metric"], state.t, seconds,
+           ["krasulina_xi", "gossip_mix_quant"],
+           exact={"krasulina_xi": state.t, "gossip_mix_quant": state.t,
+                  "krasulina_xi_gossip": 0})
+    # the int8 superstep against the fused one of (a), in the order a, d, d, a
+    per = {"a": [], "d": []}
+    for key in ("a", "d", "d", "a"):
+        per[key].append(superstep_ms(*((builder, gossip) if key == "a"
+                                       else (builder_q, int8_tile))))
+    print(f"driver int8 tile time per round: superstep on the card "
+          f"{sum(per['d']) / 2:.4f} ms (runs {per['d'][0]:.4f}, "
+          f"{per['d'][1]:.4f}) against the fused superstep of (a) "
+          f"{sum(per['a']) / 2:.4f} ms (runs {per['a'][0]:.4f}, "
+          f"{per['a'][1]:.4f}), launch gaps included; measured wall "
+          f"{seconds / state.t * 1e3:.3f} ms")
+
+    # (e) D-Krasulina with sign tile-statistics gossip, draws on the card:
+    # slow and noisy (the reference ends between 0.20 and 0.75 over seeds),
+    # so it is held to falling, not to a band
+    sign_tile = AveragingConfig(mode="gossip", rounds=HIGHD_R, topology="ring",
+                                quantization="sign", quant_stats="tile",
+                                quant_block_d=512)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = krasulina.run_d_krasulina(stream.draw, w0, N=HIGHD_N, B=HIGHD_B,
+                                    steps=48, stepsize=step5,
+                                    averaging=sign_tile, trace_metric=sin2,
+                                    seed=4, device=dev)
+    torch.cuda.synchronize()
+    first = res.trace_metric[0].item()
+    print(f"  sign tile: sin2 after round 1 {first:.5f}, after round 48 "
+          f"{res.trace_metric[-1].item():.5f}")
+    finish("run_d_krasulina gossip sign tile", res.w, res.w_nodes,
+           res.trace_metric[-1].item(), 48, time.perf_counter() - t0,
+           ["krasulina_xi", "gossip_mix_quant"],
+           exact={"krasulina_xi_gossip": 0}, sin2_below=first)
+
+    # (f) the convex track at Fig. 9: quantized decentralized logistic
+    # regression (N = 16, B = 64, ring R = 2, tile width 8, 400 steps,
+    # stepsize 0.5/sqrt(t)), the same draws for every wire
+    n9, b9, r9 = 16, 64, 2
+    lr9 = make_logreg_stream(FIG9, device=dev)
+    xe, ye = lr9.draw(torch.Generator(device=dev).manual_seed(99), 20_000)
+    bayes = problems.logistic_loss(lr9.w_star, xe, ye)
+    excess = lambda w: problems.logistic_loss(w, xe, ye) - bayes
+    w0c = torch.zeros(FIG9.dim + 1, device=dev)
+    risks = {}
+    for quant in ("none", "int8", "sign"):
+        wire = AveragingConfig(mode="gossip", rounds=r9, topology="ring",
+                               quantization=quant, quant_stats="tile",
+                               quant_block_d=8)
+        mix = averaging.make_gossip_mix(wire, n9, device=dev)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = dsgd.run_dsgd(problems.logistic_grad, lr9.draw, w0c, np.eye(n9),
+                            B=b9, rounds=r9, steps=400,
+                            stepsize=lambda t: 0.5 / math.sqrt(t), mix=mix,
+                            seed=7, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = take_counts(f"convex {quant}", ["gossip_mix"] if quant ==
+                             "none" else ["gossip_mix_quant"])
+        risks[quant] = excess(res.w.mean(0)).item()
+        cerr = averaging.consensus_error({"w": res.w}).item()
+        print(f"main convex D-SGD fig9 wire={quant} tile block_d=8: "
+              f"excess_risk={risks[quant]:.5f} consensus_err={cerr:.4f} "
+              f"steps_per_s={400 / seconds:.1f} launches={json.dumps(counts)}")
+        require(bool(torch.isfinite(res.w).all()) and math.isfinite(
+            risks[quant]), f"convex {quant}: not finite")
+    ratio8, ratio1 = risks["int8"] / risks["none"], risks["sign"] / risks["none"]
+    print(f"main convex quantized wire: int8/none={ratio8:.4f} (limit within "
+          f"5%), sign/none={ratio1:.4f} (limit 2)")
+    require(risks["none"] > 0, "convex: unquantized excess risk not > 0")
+    require(abs(ratio8 - 1.0) <= 0.05, "convex: int8 not within 5%")
+    require(ratio1 <= 2.0, "convex: sign more than 2x the unquantized risk")
+    # DMB at Fig. 6 (N = 10, B = 100)
+    lr6 = make_logreg_stream(FIG6, device=dev)
+    t0 = time.perf_counter()
+    res6 = dmb.run_dmb(problems.logistic_grad, lr6.draw,
+                       torch.zeros(FIG6.dim + 1, device=dev), N=10, B=100,
+                       steps=200, stepsize=lambda t: 2.0 / math.sqrt(t),
+                       trace_metric=lambda w: ((w - lr6.w_star) ** 2).sum(),
+                       seed=1, device=dev)
+    err6 = res6.trace_metric
+    print(f"main convex DMB fig6 N=10 B=100: |w - w*|^2 {err6[0].item():.4f} "
+          f"-> {err6[-1].item():.5f} after 200 rounds "
+          f"({200 / (time.perf_counter() - t0):.1f} rounds/s)")
+    require(bool(torch.isfinite(err6).all()) and err6[-1] < err6[0],
+            "DMB fig6 did not end finite and closer to w*")
+    # D-SGD over a 6-regular expander against local SGD (the Fig. 9 N^2
+    # regime of benchmarks/bench_dsgd.py, with R = 2)
+    A = mixing.random_regular_expander(n9, deg=6, seed=0)
+    t_prime = n9 ** 2 * 64
+    bn = max(1, math.ceil(0.1 * math.log(t_prime)
+                          / (0.5 * math.log(1 / mixing.lambda2(A)))))
+    kw = dict(B=bn * n9, steps=t_prime // (bn * n9),
+              stepsize=lambda t: 2.5 / math.sqrt(t), trace_metric=excess,
+              seed=3, device=dev)
+    rd = dsgd.run_dsgd(problems.logistic_grad, lr9.draw, w0c, A, rounds=2,
+                       **kw)
+    rl = dsgd.run_local_sgd(problems.logistic_grad, lr9.draw, w0c, N=n9, **kw)
+    dsgd_risk, local_risk = rd.trace_metric[-1].item(), rl.trace_metric[-1].item()
+    print(f"main convex D-SGD fig9 expander deg 6 R=2 B={kw['B']} "
+          f"steps={kw['steps']}: excess_risk={dsgd_risk:.5f}, local SGD "
+          f"{local_risk:.5f}")
+    require(math.isfinite(dsgd_risk) and dsgd_risk < local_risk,
+            "D-SGD did not beat local SGD")
 
     # ----------------------------------------------------------------- timing
     def time_ms(fn, reps=20, replays=5):
@@ -354,6 +589,32 @@ def main() -> int:
                      "bound_by": main_shape["bound_by"],
                      "library_ms": main_shape["library_ms"],
                      "shape": main_shape["shape"], "wide": wide})
+    timed = {}
+    for quant in ("int8", "sign"):
+        timed[quant] = []
+        for N, d in ((HIGHD_N, HIGHD.dim), (16, 32768)):
+            sched = mixing.schedule("ring", N)
+            x = randn(N, d)
+            timed[quant].append(measure(
+                f"gossip_mix_quant {quant}", f"n={N} d={d} R={HIGHD_R} "
+                f"block_d=512",
+                lambda: ops.quant_gossip_mix(x, sched, HIGHD_R, quant,
+                                             block_d=512),
+                lambda: ref.gossip_mix_quant_ref(x, sched, HIGHD_R, quant,
+                                                 block_d=512),
+                # compression plus (deg + 1) multiply-adds per element-round
+                4 * 2 * N * d, (2 * len(sched) + 4) * HIGHD_R * N * d))
+    main_shape, wide = timed["int8"]
+    rows.append({"name": "gossip_mix_quant", "route": "cuda",
+                 "source": SOURCES["gossip_mix_quant"],
+                 "replaces": REPLACES["gossip_mix_quant"],
+                 "launches": launches["gossip_mix_quant"],
+                 "max_abs_err": errs["gossip_mix_quant"], "ms": main_shape["ms"],
+                 "plain_ms": main_shape["plain_ms"],
+                 "bound_ms": main_shape["bound_ms"],
+                 "bound_by": main_shape["bound_by"], "library_ms": None,
+                 "shape": "int8 " + main_shape["shape"], "wide": wide,
+                 "sign": timed["sign"][0], "sign_wide": timed["sign"][1]})
     # the per-round metric: the excess risk reads the [d, d] covariance, the
     # alignment error two vectors
     wbar = state.w.mean(0)

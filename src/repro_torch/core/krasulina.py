@@ -8,8 +8,10 @@ pseudo-gradients xi as a first-class knob:
   R -> infinity oracle of the gossip variant.
 * **gossip** (`run_d_krasulina` with an `AveragingConfig`): each node keeps its
   own iterate; the xi's are averaged through the consensus engine
-  (`core.mixing.CirculantMixOp`). On the card the per-node xi and all R
-  gossip rounds fuse into one kernel (`kernels.ops.krasulina_xi_gossip`).
+  (`core.mixing.CirculantMixOp`, optionally quantized per Section VI). On
+  the card the per-node xi and all R gossip rounds fuse into one kernel
+  (`kernels.ops.krasulina_xi_gossip`) when the wire is exact; a quantized
+  wire runs `krasulina_xi` and then the `gossip_mix_quant` kernel.
 
 The per-node pseudo-gradient goes through `kernels.ops.krasulina_xi`, so the
 hand-written kernels are on the hot path on the card (the plain PyTorch
@@ -54,18 +56,27 @@ def _resolve_fuse_xi(mix: CirculantMixOp, fuse_xi: Optional[bool],
     keeps the consensus state in shared memory for all R rounds; on the CPU
     the MixOp's composed-schedule impl over the plain xi is the fast path.
     (The reference fuses on TPU only; the port's CUDA branch takes the TPU
-    branch, or the card would never run the fused kernel.)"""
+    branch, or the card would never run the fused kernel.) Quantized configs
+    never fuse, whatever `fuse_xi` asks: the fused kernel mixes an exact
+    wire, and the compressor is nonlinear per round."""
+    if mix.quantization != "none":
+        return False
     if fuse_xi is not None:
         return fuse_xi
     return resolve_device(device).type == "cuda"
 
 
 def _gossip_xi(w: torch.Tensor, z: torch.Tensor, mix: CirculantMixOp,
-               fused: bool) -> torch.Tensor:
-    """Gossip-averaged pseudo-gradients: xi per node, R consensus rounds."""
+               fused: bool, t: int) -> torch.Tensor:
+    """Gossip-averaged pseudo-gradients: xi per node, R consensus rounds.
+    The round counter `t` reaches the MixOp as its key: stochastic
+    compressors fold it into the op's seed, so every step draws fresh
+    per-round noise (deterministic ones ignore it). Quantized configs run
+    `mix(krasulina_xi(w, z))`: on the card, the `krasulina_xi` then the
+    `gossip_mix_quant` kernel."""
     if fused:
         return krasulina_xi_gossip(w, z, mix.sched, mix.rounds)
-    return mix(krasulina_xi(w, z))
+    return mix(krasulina_xi(w, z), key=t)
 
 
 def _check_averaging(averaging: AveragingConfig) -> None:
@@ -129,7 +140,7 @@ def run_d_krasulina(
         if exact:
             h = krasulina_xi(w, z).mean(0)  # steps 3-5, exact averaging (6)
         else:
-            h = _gossip_xi(w, z, mix, fused)  # steps 3-6, consensus form
+            h = _gossip_xi(w, z, mix, fused, t)  # steps 3-6, consensus form
         w.add_(h, alpha=stepsize(t))  # step 7, in place
         metrics.append(metric(w if exact else w.mean(0)))
     if exact:
@@ -210,7 +221,7 @@ def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
             zn = z.reshape(n_nodes, z.shape[0] // n_nodes, -1)
             w.add_(krasulina_xi(w, zn).mean(0), alpha=stepsize(t))  # in place
             return metric_fn(w), torch.zeros((), device=w.device)
-        h = _gossip_xi(w, z, mix, fused)
+        h = _gossip_xi(w, z, mix, fused, t)
         w.add_(h, alpha=stepsize(t))  # in place
         wbar = w.mean(0)
         num = torch.linalg.vector_norm(w - wbar, dim=1).max()

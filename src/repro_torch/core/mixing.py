@@ -1,26 +1,46 @@
-"""Doubly-stochastic mixing schedules for averaging consensus (paper eq. 17
-and Section V), plus the fused circulant consensus engine (`CirculantMixOp`)
-— the static, unquantized part of `repro.core.mixing`.
+"""Doubly-stochastic mixing matrices / topologies for averaging consensus
+(paper eq. 17 and Section V), plus the fused consensus engine (`MixOp`).
 
-`CirculantMixOp` makes R rounds of eq. 17 cost about one: the R-round
-operator is linear, so it is precomputed once outside the step loop (the
-R-fold convolution of the shift schedule) and applied in one pass, or the
-R rounds run inside one kernel on a shared-memory tile (`impl="kernel"`).
+Two representations:
 
-Message quantization (Section VI) and the sharded node axis come with later
-slices of the port; asking for them raises `NotImplementedError` rather than
-running something else. Dense operators (`DenseMixOp`), `ScheduledMixOp`
-and the masked (elastic) forms wait for their slices too; `Membership`
-is here because `core.rates.Plan` carries it.
+* **Dense matrices** (numpy) for the paper-scale experiments — including the
+  6-regular random expanders of Fig. 9 — consumed by `core.dsgd` through
+  `DenseMixOp` (a matmul over the node axis).
+* **Shift schedules** (circulant topologies) for the device gossip path —
+  consumed by `core.averaging` / `core.krasulina` through `CirculantMixOp`.
+
+`MixOp` makes R rounds of eq. 17 cost about one: with no message
+compression the R-round operator is linear, so it is precomputed once
+outside the step loop (`A^R` for dense matrices, the R-fold convolution of
+the shift schedule for circulants) and applied in one pass, or the R rounds
+run inside one kernel on a shared-memory tile (`impl="kernel"`).
+
+Quantized configs (Section VI) are nonlinear per round, so the operator is
+never collapsed; `stats` picks the compressor's statistic granularity:
+
+* "global"  — whole-array scales, the exact per-round loop (the oracle).
+* "segment" — per-leaf-segment scales on a packed flat buffer
+              (`core.packing`).
+* "tile"    — per-[n, block_d]-tile scales: the `gossip_mix_quant` CUDA
+              kernel on the card (one HBM read and write per buffer), its
+              plain version on the CPU.
+* "node"    — sender-local per-[1, block_d] row-tile scales.
+
+The sharded node axis (`impl="shard"`) comes with a later slice of the port
+and raises `NotImplementedError`; `ScheduledMixOp` and the masked (elastic)
+forms wait for the elastic slice. `Membership` is here because
+`core.rates.Plan` carries it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.quantize import (COMPRESSORS, STOCHASTIC, fold_in,
+                                       make_compressor)
 from repro_torch.device import DeviceLike, resolve_device
 
 Schedule = Tuple[Tuple[int, float], ...]  # ((shift, weight), ...) includes shift 0
@@ -131,8 +151,12 @@ class Membership:
 
 
 # ---------------------------------------------------------------------------
-# Dense matrices (analysis)
+# Dense matrices (paper experiments)
 # ---------------------------------------------------------------------------
+
+
+def ring_matrix(n: int, self_weight: float = 0.0) -> np.ndarray:
+    return schedule_matrix(schedule("ring", n, self_weight), n)
 
 
 def metropolis_weights(adj: np.ndarray) -> np.ndarray:
@@ -148,6 +172,34 @@ def metropolis_weights(adj: np.ndarray) -> np.ndarray:
     return A
 
 
+def random_regular_expander(n: int, deg: int = 6, seed: int = 0,
+                            max_tries: int = 50) -> np.ndarray:
+    """Random `deg`-regular graph, Metropolis weights — the paper's Fig. 9
+    topology family. Sampled by double-edge-swap randomization of a circulant
+    `deg`-regular base graph (keeps the graph simple and regular by
+    construction; connectivity is re-checked after mixing). numpy, so the
+    same seed gives the reference's matrix."""
+    if deg >= n:
+        raise ValueError("degree must be < n")
+    rng = np.random.default_rng(seed)
+    for _ in range(max_tries):
+        adj = _circulant_regular(n, deg)
+        edges = [(u, v) for u in range(n) for v in range(u + 1, n) if adj[u, v]]
+        for _ in range(20 * len(edges)):
+            i, j = rng.integers(len(edges)), rng.integers(len(edges))
+            (a, b), (c, d) = edges[i], edges[j]
+            if len({a, b, c, d}) < 4:
+                continue
+            if adj[a, c] or adj[b, d]:
+                continue
+            adj[a, b] = adj[b, a] = adj[c, d] = adj[d, c] = False
+            adj[a, c] = adj[c, a] = adj[b, d] = adj[d, b] = True
+            edges[i], edges[j] = (min(a, c), max(a, c)), (min(b, d), max(b, d))
+        if _connected(adj):
+            return metropolis_weights(adj.astype(float))
+    raise RuntimeError("failed to sample a connected regular graph")
+
+
 def _circulant_regular(n: int, deg: int) -> np.ndarray:
     """Deterministic connected `deg`-regular circulant graph."""
     adj = np.zeros((n, n), dtype=bool)
@@ -160,6 +212,42 @@ def _circulant_regular(n: int, deg: int) -> np.ndarray:
                 raise ValueError("odd-degree regular graph needs even n")
             adj[i, (i + n // 2) % n] = adj[(i + n // 2) % n, i] = True
     return adj
+
+
+def random_geometric(n: int, seed: int = 0, radius: Optional[float] = None,
+                     max_tries: int = 50) -> np.ndarray:
+    """Random geometric graph on the unit square, Metropolis weights — the
+    'spatially clustered' topology family. Nodes are uniform points; edges
+    connect pairs within `radius` (default: the connectivity threshold
+    sqrt(2 ln n / n)). If the sample is disconnected the radius is grown and
+    the points resampled — deterministic for a fixed seed."""
+    if n == 1:
+        return np.ones((1, 1))
+    rng = np.random.default_rng(seed)
+    r = radius if radius is not None else float(
+        np.sqrt(2.0 * np.log(max(n, 2)) / n))
+    for _ in range(max_tries):
+        pts = rng.random((n, 2))
+        d = np.linalg.norm(pts[:, None] - pts[None, :], axis=-1)
+        adj = d <= r
+        np.fill_diagonal(adj, False)
+        if _connected(adj):
+            return metropolis_weights(adj.astype(float))
+        r *= 1.25
+    raise RuntimeError("failed to sample a connected geometric graph")
+
+
+def _connected(adj: np.ndarray) -> bool:
+    n = adj.shape[0]
+    seen = {0}
+    frontier = [0]
+    while frontier:
+        u = frontier.pop()
+        for v in np.nonzero(adj[u])[0]:
+            if v not in seen:
+                seen.add(int(v))
+                frontier.append(int(v))
+    return len(seen) == n
 
 
 def lambda2(A: np.ndarray) -> float:
@@ -181,12 +269,21 @@ def is_doubly_stochastic(A: np.ndarray, tol: float = 1e-8) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def roll_mix(x: torch.Tensor, sched: Schedule) -> torch.Tensor:
-    """One consensus round over axis 0 of x via weighted circular shifts
-    (unquantized: the reference's `compress` is the identity here)."""
+def roll_mix(x: torch.Tensor, sched: Schedule,
+             compress: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+             ) -> torch.Tensor:
+    """One consensus round over axis 0 of x via weighted circular shifts.
+    `compress` models the wire format: applied to every non-self message
+    (None: an exact wire)."""
     out = None
     for shift, w in sched:
-        term = w * (x if shift == 0 else torch.roll(x, shift, 0))
+        if shift == 0:
+            msg = x
+        else:
+            msg = torch.roll(x, shift, 0)
+            if compress is not None:
+                msg = compress(msg)
+        term = w * msg
         out = term if out is None else out + term
     return out
 
@@ -215,19 +312,47 @@ def compose_schedule(sched: Schedule, rounds: int, n: int) -> Schedule:
     return tuple(out)
 
 
-_LATER = {
-    "quantization": "quantized gossip (Section VI) comes with the port's "
-                    "quantized-consensus slice (core/quantize.py and the "
-                    "gossip_mix_quant kernel)",
-    "shard": "the sharded node axis comes with the port's sharded slice",
-}
+@dataclasses.dataclass(frozen=True)
+class DenseMixOp:
+    """Precomputed R-round dense consensus operator (paper eq. 17).
+
+    When `A_eff` is set (the default) the R sequential `A @ h` matmuls
+    collapse to the single matmul `A_eff @ h` with `A_eff = A^R` — computed
+    once at construction, in f32 as the reference does, outside the step
+    loop. With `A_eff=None` the per-round loop is kept (oracle)."""
+
+    A: torch.Tensor  # [N, N] one-round doubly-stochastic matrix, f32
+    A_eff: Optional[torch.Tensor]  # [N, N] A^R, or None (per-round loop)
+    rounds: int
+
+    def __call__(self, h: torch.Tensor) -> torch.Tensor:
+        if self.rounds == 0:
+            return h
+        if self.A_eff is not None:
+            return self.A_eff @ h
+        for _ in range(self.rounds):
+            h = self.A @ h
+        return h
+
+
+def dense_mix_op(A, rounds: int, *, fuse: bool = True,
+                 device: DeviceLike = None) -> DenseMixOp:
+    """Build the dense-path MixOp on `device`; `fuse=False` keeps the
+    per-round loop."""
+    A = torch.as_tensor(np.asarray(A, np.float32) if isinstance(A, np.ndarray)
+                        else A).to(device=resolve_device(device),
+                                   dtype=torch.float32)
+    A_eff = None
+    if fuse and rounds > 0:
+        A_eff = torch.linalg.matrix_power(A, rounds) if rounds > 1 else A
+    return DenseMixOp(A, A_eff, rounds)
 
 
 @dataclasses.dataclass(frozen=True)
 class CirculantMixOp:
     """Precomputed R-round circulant consensus operator (device gossip path).
 
-    `impl` selects the execution strategy:
+    Quantization off: `impl` selects the execution strategy.
 
     * "roll"   — one weighted `torch.roll` pass over `fused_sched` (the R-fold
                  convolution of the one-round schedule).
@@ -242,21 +367,41 @@ class CirculantMixOp:
                  the CPU.
 
     `fused_sched=None` keeps the per-round loop (the `fuse=False` oracle).
+
+    Quantization on: the compressor is nonlinear, so the operator is never
+    collapsed and `impl` plays no part. `stats` picks the statistic
+    granularity: "global" keeps the exact per-round `roll_mix` loop (the
+    oracle); "segment" runs the per-round loop on a packed buffer with
+    per-leaf-segment scales (pass `seg_widths` at call time); "tile" runs
+    `kernels.ops.quant_gossip_mix` — the `gossip_mix_quant` CUDA kernel on
+    the card, its plain tile chain on the CPU; "node" computes sender-local
+    per-row-tile scales (the plain tile chain on every device, as in the
+    reference).
     """
 
     sched: Schedule  # one-round schedule (per-round / kernel path)
     fused_sched: Optional[Schedule]  # R-round schedule; None = per-round loop
+    #   (quantized configs, or fuse=False in `circulant_mix_op`)
     A_eff: Optional[torch.Tensor]  # [n, n] f32 dense fused_sched (matmul impl)
     n: int
     rounds: int
     impl: str = "roll"
+    quantization: str = "none"
+    stats: str = "global"  # quantizer statistics: global | segment | tile | node
+    block_d: int = 512  # tile width for stats="tile" / "node"
+    seed: int = 0  # base key of stochastic compressors
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, *,
+                 seg_widths: Optional[Tuple[int, ...]] = None,
+                 valid_d: Optional[int] = None,
+                 key: Optional[int] = None) -> torch.Tensor:
         if x.shape[0] != self.n:
             raise ValueError(f"MixOp built for n={self.n} applied to node "
                              f"axis {x.shape[0]}")
         if self.rounds == 0 or self.n == 1:
             return x
+        if self.quantization != "none":
+            return self._quantized(x, seg_widths, valid_d, key)
         if self.fused_sched is None:  # fuse=False: per-round oracle loop
             for _ in range(self.rounds):
                 x = roll_mix(x, self.sched)
@@ -272,6 +417,48 @@ class CirculantMixOp:
             raise ValueError(f"unknown MixOp impl {self.impl!r}")
         return roll_mix(x, self.fused_sched)
 
+    def _quantized(self, x, seg_widths, valid_d, key):
+        """Per-round nonlinear consensus. `valid_d` marks trailing flattened
+        columns as padding (masked out of compressor statistics — they must
+        be zero on input). Stochastic compressors draw round r of a call
+        from `fold_in(fold_in(seed, key), r)`: callers in a step loop pass
+        the step counter as `key` so the noise is fresh every step; `key=None`
+        gives the same noise at every call."""
+        key0 = None
+        if self.quantization in STOCHASTIC:
+            key0 = self.seed if key is None else fold_in(self.seed, key)
+        if self.stats in ("tile", "node"):
+            from repro_torch.kernels.ops import quant_gossip_mix
+            return quant_gossip_mix(x, self.sched, self.rounds,
+                                    self.quantization, block_d=self.block_d,
+                                    valid_d=valid_d, key=key0,
+                                    per_node=self.stats == "node")
+        if self.stats == "segment" and seg_widths is not None:
+            # compress-once-broadcast: segment scales are invariant under the
+            # node-axis roll (it permutes rows, the stats reduce over them),
+            # so each round quantizes the buffer ONCE and rolls the
+            # compressed copy
+            for r in range(self.rounds):
+                k = fold_in(key0, r) if key0 is not None else None
+                q = make_compressor(self.quantization, key=k,
+                                    seg_widths=seg_widths)(x)
+                out = None
+                for shift, w in self.sched:
+                    term = w * (x if shift == 0 else torch.roll(q, shift, 0))
+                    out = term if out is None else out + term
+                x = out
+            return x
+        mask = None
+        trailing = int(np.prod(x.shape[1:])) if x.dim() > 1 else 1
+        if valid_d is not None and valid_d < trailing:
+            mask = (torch.arange(trailing, device=x.device)
+                    < valid_d).reshape(x.shape[1:])
+        for r in range(self.rounds):
+            k = fold_in(key0, r) if key0 is not None else None
+            compress = make_compressor(self.quantization, key=k, mask=mask)
+            x = roll_mix(x, self.sched, compress)
+        return x
+
 
 def resolve_auto_impl(device: DeviceLike = None) -> str:
     """Pick the fastest execution strategy for `impl="auto"` on a single
@@ -283,27 +470,35 @@ def resolve_auto_impl(device: DeviceLike = None) -> str:
 
 def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
                      quantization: str = "none", impl: str = "auto",
-                     fuse: bool = True,
+                     fuse: bool = True, stats: str = "global",
+                     block_d: int = 512, seed: int = 0,
                      device: DeviceLike = None) -> CirculantMixOp:
     """Build the circulant-path MixOp from a one-round schedule.
 
     The R-round operator is precomputed here, once, so the per-step cost is
     about one round. `fuse=False` keeps the per-round loop (oracle /
-    baseline). `impl="auto"` resolves via `resolve_auto_impl(device)`.
-    Quantized configs and `impl="shard"` belong to later slices and
-    raise."""
-    if quantization != "none":
-        raise NotImplementedError(_LATER["quantization"])
-    if impl == "shard":
-        raise NotImplementedError(_LATER["shard"])
-    if impl not in ("auto", "roll", "matmul", "kernel"):
+    baseline), as does any quantized config (nonlinear compressor —
+    collapsing would change it); quantized configs pick their statistic
+    granularity via `stats` and the tile width via `block_d`.
+    `impl="auto"` resolves via `resolve_auto_impl(device)`. `impl="shard"`
+    belongs to the sharded slice and raises."""
+    if impl not in ("auto", "roll", "matmul", "kernel", "shard"):
         raise ValueError(f"unknown MixOp impl {impl!r}")
+    if stats not in ("global", "segment", "tile", "node"):
+        raise ValueError(f"unknown quantizer stats mode {stats!r}")
+    if quantization not in COMPRESSORS:
+        raise ValueError(f"unknown quantization {quantization!r}")
+    if impl == "shard":
+        raise NotImplementedError(
+            "the sharded node axis comes with the port's sharded slice")
     if impl == "auto":
         impl = resolve_auto_impl(device)
-    if not fuse:
-        return CirculantMixOp(sched, None, None, n, rounds, impl)
+    if quantization != "none" or not fuse:
+        return CirculantMixOp(sched, None, None, n, rounds, impl,
+                              quantization, stats, block_d, seed)
     fused = compose_schedule(sched, rounds, n) if rounds > 0 else ((0, 1.0),)
     # the dense [n, n] operator is only needed by the matmul impl
     A_eff = (torch.as_tensor(schedule_matrix(fused, n), dtype=torch.float32)
              if impl == "matmul" else None)
-    return CirculantMixOp(sched, fused, A_eff, n, rounds, impl)
+    return CirculantMixOp(sched, fused, A_eff, n, rounds, impl, quantization,
+                          stats, block_d, seed)

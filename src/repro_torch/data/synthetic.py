@@ -1,7 +1,20 @@
-"""The paper's synthetic PCA streams (Figs. 7-8): spiked / power-law
-covariance with lambda_1 = 1 and a prescribed eigengap.
+"""The paper's synthetic data generators.
 
-Two sources of the same stream:
+* Logistic-link labels with standard-normal features (Fig. 6): w* ~ N(0, I),
+  x ~ N(0, I_d), Pr(y=1|x) = sigmoid(w*.x + b*).
+* Conditional Gaussians (Fig. 9): mu_{+-1} ~ N(0, I), x | y ~ N(mu_y,
+  sigma_x^2 I).
+* Spiked / power-law covariance streams for the PCA experiments (Figs.
+  7-8): lambda_1 = 1 and a prescribed eigengap.
+
+Every `draw(generator, n)` draws on the stream's device from an explicit
+`torch.Generator` (the port's stand-in for a threefry key): the same
+distributions as the reference, never the same numbers. The problem itself
+(w*, the class means, the covariance) comes from a `torch.Generator` too;
+`repro_torch.convert` carries the reference's numbers across when both
+packages must learn the same problem.
+
+Two sources of the same PCA stream:
 
 * `PCAStream.draw(generator, n)` draws on the stream's device from an
   explicit `torch.Generator` (the port's stand-in for a threefry key). The
@@ -14,13 +27,64 @@ Two sources of the same stream:
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.configs.paper_logreg import LogRegConfig
 from repro_torch.configs.paper_pca import PCAConfig
 from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LogRegStream:
+    """A logistic-regression stream: `draw(generator, n)` -> (x [n, d],
+    y [n] in {-1, +1}) on the stream's device."""
+
+    cfg: LogRegConfig
+    w_star: torch.Tensor  # [d+1] (weights, bias) ground truth
+    mus: Optional[torch.Tensor] = None  # [2, d] class means (cond_gauss)
+
+    def draw(self, generator: torch.Generator, n: int):
+        dev = self.w_star.device
+        d = self.cfg.dim
+        if self.cfg.generator == "logistic_link":
+            x = torch.randn((n, d), generator=generator, device=dev)
+            logits = x @ self.w_star[:-1] + self.w_star[-1]
+            y = 2.0 * torch.bernoulli(torch.sigmoid(logits),
+                                      generator=generator) - 1.0
+            return x, y
+        y = 2.0 * torch.bernoulli(torch.full((n,), 0.5, device=dev),
+                                  generator=generator) - 1.0
+        mu = torch.where(y[:, None] > 0, self.mus[1], self.mus[0])
+        noise = torch.randn((n, d), generator=generator, device=dev)
+        return mu + self.cfg.noise_var ** 0.5 * noise, y
+
+
+def logreg_w_star(cfg: LogRegConfig, mus: torch.Tensor) -> torch.Tensor:
+    """Bayes-optimal linear separator of the Fig. 9 conditional Gaussians
+    (equal covariances): w* = (mu_1 - mu_0)/sigma^2,
+    b* = -(|mu_1|^2 - |mu_0|^2)/(2 sigma^2)."""
+    w = (mus[1] - mus[0]) / cfg.noise_var
+    b = -((mus[1] ** 2).sum() - (mus[0] ** 2).sum()) / (2 * cfg.noise_var)
+    return torch.cat([w, b.reshape(1)])
+
+
+def make_logreg_stream(cfg: LogRegConfig, *,
+                       device: DeviceLike = None) -> LogRegStream:
+    """The stream of `cfg`, its ground truth drawn from a `torch.Generator`
+    seeded with `cfg.seed` on `device`."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.seed)
+    if cfg.generator == "logistic_link":
+        return LogRegStream(cfg, torch.randn((cfg.dim + 1,), generator=gen,
+                                             device=dev))
+    if cfg.generator != "cond_gauss":
+        raise ValueError(f"unknown generator {cfg.generator!r}")
+    mus = torch.randn((2, cfg.dim), generator=gen, device=dev)  # class -1, +1
+    return LogRegStream(cfg, logreg_w_star(cfg, mus), mus)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,7 +32,8 @@ MAX_TERMS = 32  # kMaxTerms in csrc/common.cuh
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("gossip_mix", "krasulina_xi", "krasulina_xi_gossip")
+SOURCES = ("gossip_mix", "gossip_mix_quant", "krasulina_xi",
+           "krasulina_xi_gossip")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +43,9 @@ _IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
 SIGNATURES = {
     "gossip_mix": ("gossip_mix_launch",
                    [_P, _P, _I, _LL, _I, _I, _I, _I, _IP, _FP, _P]),
+    "gossip_mix_quant": ("gossip_mix_quant_launch",
+                         [_P, _P, _I, _LL, _I, _LL, _I, _I, _I, _I, _IP, _FP,
+                          _P]),
     "krasulina_xi": ("krasulina_xi_launch",
                      [_P, _LL, _P, _I, _I, _LL, _P, _P, _P, _I, _P]),
     "krasulina_xi_gossip": ("krasulina_xi_gossip_launch",

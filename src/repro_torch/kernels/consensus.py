@@ -1,17 +1,28 @@
-"""CUDA kernel for R rounds of circulant gossip consensus (paper eq. 17),
-unquantized: `csrc/gossip_mix.cu`, which replaces the Pallas
-`gossip_mix_pallas` of the JAX package. Each block keeps one [n, bd] column
-tile in shared memory for all R rounds, so the buffer is read once and
-written once whatever R is.
+"""CUDA kernels for R rounds of circulant gossip consensus (paper eq. 17),
+unquantized and quantized.
 
-The quantized kernel (`gossip_mix_quant_pallas`) and the sharded-node-axis
-rules come with later slices of the port.
+* `gossip_mix_cuda` (`csrc/gossip_mix.cu`) replaces the Pallas
+  `gossip_mix_pallas` of the JAX package. Each block keeps one [n, bd]
+  column tile in shared memory for all R rounds, so the buffer is read once
+  and written once whatever R is.
+* `gossip_mix_quant_cuda` (`csrc/gossip_mix_quant.cu`) replaces
+  `gossip_mix_quant_pallas`: the Section VI wire with one sign or int8
+  scale per [n, block_d] column tile, every round compressed and mixed on
+  the resident tile. The stochastic int8 compressor and sender-local
+  (`per_node`) statistics have no kernel, in the reference as here.
+
+The sharded-node-axis rules come with a later slice of the port.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _cuda
+
+QUANT_CODES = {"sign": 0, "int8": 1}  # the C `quant` argument
+_SCRATCH_BYTES = 8 * 33  # the quantized kernel's static reduction scratch
 
 
 def gossip_mix_cuda(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
@@ -33,4 +44,46 @@ def gossip_mix_cuda(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
         _cuda.call("gossip_mix", flat.data_ptr(), out.data_ptr(), n, d, bd,
                    _cuda.DTYPE_CODES[x.dtype], rounds, n_terms, shifts,
                    weights, _cuda.stream_of(x))
+    return out.reshape(x.shape)
+
+
+def gossip_mix_quant_cuda(x: torch.Tensor, sched, rounds: int, quant: str, *,
+                          block_d: int = 512,
+                          valid_d: Optional[int] = None) -> torch.Tensor:
+    """R rounds of quantized gossip with one compressor scale per
+    [n, min(block_d, d)] column tile, on the card. x: [n, ...] contiguous
+    f32/bf16 CUDA tensor (trailing dims are flattened); quant: "sign" |
+    "int8"; flattened columns >= `valid_d` are pad (must be zero) and are
+    left out of the statistics (None: every column is valid). The rounds run
+    in f32 and the output, of x's dtype, is rounded once."""
+    if quant not in QUANT_CODES:
+        raise ValueError(f"the quantized gossip kernel takes sign or int8, "
+                         f"got {quant!r}")
+    if rounds < 0:
+        raise ValueError(f"rounds must be >= 0, got {rounds}")
+    n = x.shape[0]
+    _cuda.check("gossip_mix_quant", x, tuple(x.shape))
+    flat = x.reshape(n, -1)
+    d = flat.shape[1]
+    out = torch.empty_like(flat)
+    if d == 0:
+        return out.reshape(x.shape)
+    dv = d if valid_d is None else int(valid_d)
+    if not 0 <= dv <= d:
+        raise ValueError(f"valid_d={valid_d} outside [0, {d}]")
+    if any(s != 0 and s % n == 0 for s, _ in sched):
+        raise ValueError(f"schedule {sched} has a non-self term that rolls "
+                         f"by a multiple of n={n}")
+    bd = min(block_d, d)
+    if 8 * n * bd > _cuda.SMEM_BYTES - _SCRATCH_BYTES:
+        raise ValueError(
+            f"gossip_mix_quant: two f32 [{n}, {bd}] tiles need {8 * n * bd} "
+            f"bytes of shared memory, more than the "
+            f"{_cuda.SMEM_BYTES - _SCRATCH_BYTES} a block can have; use a "
+            f"smaller quant_block_d")
+    n_terms, shifts, weights = _cuda.schedule_args(sched, n)
+    with torch.cuda.device(x.device):
+        _cuda.call("gossip_mix_quant", flat.data_ptr(), out.data_ptr(), n, d,
+                   bd, dv, QUANT_CODES[quant], _cuda.DTYPE_CODES[x.dtype],
+                   rounds, n_terms, shifts, weights, _cuda.stream_of(x))
     return out.reshape(x.shape)

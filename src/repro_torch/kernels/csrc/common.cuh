@@ -1,5 +1,5 @@
 // Shared device code of the port's Hopper kernels (sm_90a): element
-// conversion, a block-wide sum, the Z w row-dot pass both Krasulina kernels
+// conversion, block-wide reductions, the Z w row-dot pass both Krasulina kernels
 // start with, and the R-round circulant gossip on a shared-memory tile.
 //
 // Every kernel reads f32 or bf16 and does its arithmetic in f32; `dtype`
@@ -47,23 +47,50 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-// Sum of `v` over the block, returned to every thread. `scratch` holds at
-// least 33 floats of shared memory; the call may be repeated.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
+struct SumOp {
+  template <typename T>
+  __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
+};
+struct MaxOp {
+  __device__ __forceinline__ float operator()(float a, float b) const {
+    return fmaxf(a, b);
+  }
+};
+
+// `op` of `v` over the block, returned to every thread, with 0 as the
+// identity (the padding of the last warp's sum). Warp shuffles, then one
+// warp over the per-warp results in `scratch`, which holds at least 33
+// values of T in shared memory; the call may be repeated.
+template <typename T, typename Op>
+__device__ __forceinline__ T block_reduce(T v, T* scratch, Op op) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = (blockDim.x + 31) >> 5;
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1)
+    v = op(v, __shfl_down_sync(0xffffffffu, v, o));
   if (lane == 0) scratch[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < n_warps ? scratch[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    v = lane < n_warps ? scratch[lane] : T(0);
+    for (int o = 16; o > 0; o >>= 1)
+      v = op(v, __shfl_down_sync(0xffffffffu, v, o));
     if (lane == 0) scratch[32] = v;
   }
   __syncthreads();
-  const float total = scratch[32];
+  const T total = scratch[32];
   __syncthreads();
   return total;
+}
+
+// Sum of `v` (float or double) over the block.
+template <typename T>
+__device__ __forceinline__ T block_sum(T v, T* scratch) {
+  return block_reduce(v, scratch, SumOp());
+}
+
+// Maximum of a non-negative `v` over the block. A maximum is exact, so the
+// result does not depend on the order.
+__device__ __forceinline__ float block_max(float v, float* scratch) {
+  return block_reduce(v, scratch, MaxOp());
 }
 
 // Launch 1 of both Krasulina kernels. Grid (B + 1, G): block (b < B, g)

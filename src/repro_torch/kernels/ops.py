@@ -8,18 +8,19 @@ so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.consensus import gossip_mix_cuda
+from repro_torch.kernels.consensus import (gossip_mix_cuda,
+                                           gossip_mix_quant_cuda)
 from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
                                                   krasulina_xi_gossip_cuda)
 
 # kernel launches since the last `reset_launches()`, by kernel name
 launches: Dict[str, int] = {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
-                            "gossip_mix": 0}
+                            "gossip_mix": 0, "gossip_mix_quant": 0}
 
 
 def reset_launches() -> None:
@@ -47,6 +48,30 @@ def gossip_mix(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
         return ref.gossip_mix_ref(x, sched, rounds)
     out = gossip_mix_cuda(x, sched, rounds)
     launches["gossip_mix"] += 1
+    return out
+
+
+def quant_gossip_mix(x: torch.Tensor, sched, rounds: int, quantization: str,
+                     *, block_d: int = 512, valid_d: Optional[int] = None,
+                     key: Optional[int] = None,
+                     per_node: bool = False) -> torch.Tensor:
+    """R rounds of QUANTIZED gossip with per-[n, block_d]-tile compressor
+    statistics (the `stats="tile"` path), one HBM read and one write on the
+    card for sign and int8.
+
+    The stochastic int8 compressor and `per_node=True` (sender-local
+    row-tile statistics, `stats="node"`) take the plain tile chain
+    (`ref.gossip_mix_quant_ref`) on every device: the reference never fuses
+    them either (its `quant_gossip_mix` and `gossip_mix_quant_pallas`), so
+    this is the reference's design, not a fallback. `key` seeds the
+    stochastic compressor's rounds."""
+    if per_node or quantization == "int8_stoch" or not _on_cuda(x):
+        return ref.gossip_mix_quant_ref(x, sched, rounds, quantization,
+                                        block_d=block_d, valid_d=valid_d,
+                                        key=key, per_node=per_node)
+    out = gossip_mix_quant_cuda(x, sched, rounds, quantization,
+                                block_d=block_d, valid_d=valid_d)
+    launches["gossip_mix_quant"] += 1
     return out
 
 

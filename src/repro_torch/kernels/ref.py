@@ -8,6 +8,8 @@ Roll convention: `torch.roll(x, s, 0)[i] == x[(i - s) % n]`, the same as
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -53,3 +55,36 @@ def gossip_mix_ref(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
             out = term if out is None else out + term
         x = out
     return x
+
+
+def gossip_mix_quant_ref(x: torch.Tensor, sched, rounds: int, quant: str, *,
+                         block_d: int = 512, valid_d: Optional[int] = None,
+                         key: Optional[int] = None,
+                         per_node: bool = False) -> torch.Tensor:
+    """R rounds of quantized gossip with per-[n, block_d]-tile compressor
+    statistics — the plain version of `gossip_mix_quant_cuda`, plus the
+    keyed stochastic variant the kernel does not run. Per-round
+    nonlinearity is kept (no operator collapsing); the arithmetic is f32
+    and the result is cast to x's dtype once, at the end.
+
+    Compress-once-broadcast: tile scales are roll-invariant (the roll permutes
+    rows, the stats reduce over them), so each round quantizes the buffer
+    ONCE and rolls the compressed copy; the self term stays uncompressed.
+    Round r of a stochastic compressor draws from `fold_in(key, r)`.
+
+    `per_node=True` selects per-[1, block_d] row-tile statistics
+    (sender-local scales, `stats="node"`)."""
+    from repro_torch.core.quantize import fold_in, tile_compress
+
+    n = x.shape[0]
+    h = x.reshape(n, -1).float()
+    for r in range(rounds):
+        k = fold_in(key, r) if key is not None else None
+        q = tile_compress(h, quant, block_d, valid_d=valid_d, key=k,
+                          per_node=per_node)
+        out = None
+        for shift, w in sched:
+            term = w * (h if shift == 0 else torch.roll(q, shift, 0))
+            out = term if out is None else out + term
+        h = out
+    return h.reshape(x.shape).to(x.dtype)

@@ -16,7 +16,7 @@ import torch
 
 from repro.core import mixing as jmix
 from repro.kernels import ref as jref
-from repro.kernels.consensus import gossip_mix_pallas
+from repro.kernels.consensus import gossip_mix_pallas, gossip_mix_quant_pallas
 from repro.kernels.krasulina_update import (krasulina_xi_gossip_pallas,
                                             krasulina_xi_pallas)
 from repro_torch.core import mixing as tmix
@@ -160,6 +160,110 @@ def test_gossip_mix_bf16_and_trailing_dims():
 
 
 # ---------------------------------------------------------------------------
+# gossip_mix_quant
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+@pytest.mark.parametrize("n,d,block_d", [(8, 64, 64), (8, 130, 32), (5, 33, 16),
+                                         (10, 700, 512)])
+@pytest.mark.parametrize("topo,rounds", [("ring", 3), ("circulant2", 1),
+                                         ("ring", 8)])
+def test_gossip_mix_quant_plain_matches_jax_and_pallas(quant, n, d, block_d,
+                                                       topo, rounds):
+    """The plain version against the reference's tile chain and its Pallas
+    kernel in interpret mode, over the sweep of
+    tests/test_consensus_engine.py: rtol / atol 1e-5 (its bound). int8
+    levels come out identical; sign scales differ by summation order."""
+    jx, tx = _pair((n, d), 20)
+    sched = jmix.schedule(topo, n)
+    got = ops.quant_gossip_mix(tx, tmix.schedule(topo, n), rounds, quant,
+                               block_d=block_d)
+    assert got.dtype == torch.float32 and got.shape == (n, d)
+    for want in (jref.gossip_mix_quant_ref(jx, sched, rounds, quant,
+                                           block_d=block_d),
+                 gossip_mix_quant_pallas(jx, *_split(sched), rounds, quant,
+                                         block_d=block_d, interpret=True)):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+def test_gossip_mix_quant_valid_d_masks_pad_columns(quant):
+    """Zero pad columns past valid_d leave every tile statistic alone: the
+    plain version on the padded buffer equals the reference's (and its
+    kernel's) on the same buffer, and the unmasked form differs (the zeros
+    would enter the mean-|x| count). rtol / atol 1e-5."""
+    n, d, pad = 8, 40, 9
+    sched = jmix.schedule("circulant2", n)
+    jx, tx = _pair((n, d + pad), 21)
+    jx, tx = jx.at[:, d:].set(0), tx.clone()
+    tx[:, d:] = 0
+    got = ops.quant_gossip_mix(tx, tmix.schedule("circulant2", n), 2, quant,
+                               block_d=16, valid_d=d)
+    for want in (jref.gossip_mix_quant_ref(jx, sched, 2, quant, block_d=16,
+                                           valid_d=d),
+                 gossip_mix_quant_pallas(jx, *_split(sched), 2, quant,
+                                         block_d=16, valid_d=d,
+                                         interpret=True)):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+    unmasked = ops.quant_gossip_mix(tx, tmix.schedule("circulant2", n), 2,
+                                    quant, block_d=16)
+    if quant == "sign":
+        assert not np.allclose(_f32(got)[:, :d], _f32(unmasked)[:, :d],
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+@pytest.mark.parametrize("valid_d", [None, 30])
+def test_gossip_mix_quant_per_node_matches_jax(quant, valid_d):
+    """Sender-local row-tile statistics (`stats="node"`): rtol / atol
+    1e-5."""
+    n, d = 6, 37
+    jx, tx = _pair((n, d), 22)
+    if valid_d is not None:
+        jx, tx = jx.at[:, valid_d:].set(0), tx.clone()
+        tx[:, valid_d:] = 0
+    sched = jmix.schedule("ring", n)
+    got = ops.quant_gossip_mix(tx, sched, 3, quant, block_d=8,
+                               valid_d=valid_d, per_node=True)
+    want = jref.gossip_mix_quant_ref(jx, sched, 3, quant, block_d=8,
+                                     valid_d=valid_d, per_node=True)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
+
+
+def test_gossip_mix_quant_bf16_rounds_once():
+    """bf16 in: the rounds run in f32 and the result is rounded to bf16
+    once, so it equals the f32 chain rounded (exactly) and the reference's
+    bf16 chain within one bf16 ulp (rtol 1e-2)."""
+    n = 16
+    jx, tx = _pair((n, 4, 64), 5, "bfloat16")
+    sched = tmix.schedule("ring", n)
+    got = ops.quant_gossip_mix(tx, sched, 4, "int8", block_d=32)
+    assert got.dtype == torch.bfloat16 and got.shape == (n, 4, 64)
+    f32 = ops.quant_gossip_mix(tx.float(), sched, 4, "int8", block_d=32)
+    np.testing.assert_array_equal(_f32(got), _f32(f32.bfloat16()))
+    want = jref.gossip_mix_quant_ref(jx, sched, 4, "int8", block_d=32)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-2, atol=1e-2)
+
+
+def test_gossip_mix_quant_stochastic_is_keyed():
+    """int8_stoch takes the plain chain on every device: the same key gives
+    the same result, another key another; round 1 lands every message on
+    an integer level next to its value."""
+    _, tx = _pair((4, 50), 23)
+    sched = tmix.schedule("ring", 4)
+    a = ops.quant_gossip_mix(tx, sched, 2, "int8_stoch", block_d=16, key=5)
+    assert torch.equal(a, ops.quant_gossip_mix(tx, sched, 2, "int8_stoch",
+                                               block_d=16, key=5))
+    assert not torch.equal(a, ops.quant_gossip_mix(tx, sched, 2, "int8_stoch",
+                                                   block_d=16, key=6))
+    np.testing.assert_allclose(
+        _f32(tref.gossip_mix_quant_ref(tx, sched, 2, "int8_stoch", block_d=16,
+                                       key=5)), _f32(a), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unknown compressor"):
+        ops.quant_gossip_mix(tx, sched, 2, "int4")
+
+
+# ---------------------------------------------------------------------------
 # Dispatch and launch helpers (CPU)
 # ---------------------------------------------------------------------------
 
@@ -170,8 +274,9 @@ def test_cpu_tensors_take_plain_version_and_count_no_launch():
     ops.krasulina_xi(w, z)
     ops.krasulina_xi_gossip(w, z, sched, 2)
     ops.gossip_mix(w, sched, 2)
+    ops.quant_gossip_mix(w, sched, 2, "int8", block_d=4)
     assert ops.launches == {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
-                            "gossip_mix": 0}
+                            "gossip_mix": 0, "gossip_mix_quant": 0}
 
 
 def test_dispatch_refuses_other_devices():
@@ -184,13 +289,18 @@ def test_dispatch_refuses_other_devices():
 def test_kernel_wrappers_refuse_cpu_tensors():
     """Called directly, a kernel wrapper raises on a CPU tensor instead of
     computing anything (no fallback to the plain version)."""
-    from repro_torch.kernels.consensus import gossip_mix_cuda
+    from repro_torch.kernels.consensus import (gossip_mix_cuda,
+                                               gossip_mix_quant_cuda)
     from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
                                                       krasulina_xi_gossip_cuda)
     w, z = torch.randn(3, 8), torch.randn(3, 5, 8)
     sched = tmix.schedule("ring", 3)
     with pytest.raises(ValueError, match="CUDA"):
         gossip_mix_cuda(w, sched, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        gossip_mix_quant_cuda(w, sched, 1, "sign")
+    with pytest.raises(ValueError, match="sign or int8"):
+        gossip_mix_quant_cuda(w, sched, 1, "int8_stoch")
     with pytest.raises(ValueError, match="CUDA"):
         krasulina_xi_cuda(w, z)
     with pytest.raises(ValueError, match="CUDA"):

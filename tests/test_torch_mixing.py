@@ -109,20 +109,126 @@ def test_auto_impl_without_device_needs_the_card():
     ({"impl": "shard"}, "sharded"),
 ])
 def test_later_slices_raise_not_implemented(kwargs, match):
+    """The sharded node axis still raises; quantized ops (ported with the
+    quantized-wire slice) now build and match the reference's per-round
+    global-stats loop at rtol / atol 1e-5."""
     sched = mixing.schedule("ring", 4)
-    with pytest.raises(NotImplementedError, match=match):
-        mixing.circulant_mix_op(sched, 4, 2, device="cpu", **kwargs)
+    if "quantization" not in kwargs:
+        with pytest.raises(NotImplementedError, match=match):
+            mixing.circulant_mix_op(sched, 4, 2, device="cpu", **kwargs)
+        return
+    op = mixing.circulant_mix_op(sched, 4, 2, device="cpu", **kwargs)
+    assert op.fused_sched is None and op.A_eff is None
+    x = np.random.default_rng(2).standard_normal((4, 9)).astype(np.float32)
+    want = jmix.circulant_mix_op(sched, 4, 2, **kwargs)(jnp.asarray(x))
+    np.testing.assert_allclose(op(torch.from_numpy(x)).numpy(),
+                               np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
 def test_make_gossip_mix_refuses_quantized_and_error_feedback():
-    with pytest.raises(NotImplementedError, match="quantized"):
-        averaging.make_gossip_mix(
-            AveragingConfig(mode="gossip", quantization="sign"), 4,
-            device="cpu")
-    with pytest.raises(NotImplementedError, match="LM slice"):
+    """Error feedback still raises (its slice comes later); a quantized
+    config builds the reference's op: the same schedule, quantization,
+    statistics and tile width."""
+    cfg = AveragingConfig(mode="gossip", quantization="sign",
+                          quant_stats="tile", quant_block_d=64)
+    op = averaging.make_gossip_mix(cfg, 4, device="cpu")
+    ref = javg.make_gossip_mix(
+        JAveragingConfig(mode="gossip", quantization="sign",
+                         quant_stats="tile", quant_block_d=64), 4)
+    for field in ("sched", "fused_sched", "n", "rounds", "quantization",
+                  "stats", "block_d", "seed"):
+        assert getattr(op, field) == getattr(ref, field), field
+    with pytest.raises(NotImplementedError, match="error-feedback"):
         averaging.make_gossip_mix(
             AveragingConfig(mode="gossip", quantization="sign",
                             error_feedback="on"), 4, device="cpu")
+
+
+QUANTS = ("sign", "int8")
+
+
+@pytest.mark.parametrize("quant", QUANTS)
+@pytest.mark.parametrize("stats", ["global", "segment", "tile", "node"])
+@pytest.mark.parametrize("topo,n,rounds", [("ring", 8, 3), ("circulant2", 5, 2),
+                                           ("torus", 12, 4)])
+def test_quantized_mix_op_matches_reference(quant, stats, topo, n, rounds):
+    """Every statistic granularity of the quantized `CirculantMixOp`
+    against the reference's, on a buffer whose last 5 columns are pad
+    (`valid_d`) and, for "segment", with the segment widths passed: rtol /
+    atol 1e-5 (the bound of tests/test_consensus_engine.py)."""
+    sched = mixing.schedule(topo, n)
+    x = np.random.default_rng(3).standard_normal((n, 45)).astype(np.float32)
+    x[:, 40:] = 0
+    kw = dict(quantization=quant, stats=stats, block_d=16)
+    op = mixing.circulant_mix_op(sched, n, rounds, device="cpu", **kw)
+    ref = jmix.circulant_mix_op(sched, n, rounds, **kw)
+    call = {"seg_widths": (20, 25)} if stats == "segment" else {"valid_d": 40}
+    np.testing.assert_allclose(op(torch.from_numpy(x), **call).numpy(),
+                               np.asarray(ref(jnp.asarray(x), **call)),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_quantized_mix_op_keeps_per_round_operator():
+    """No collapsing under quantization: the result differs from the linear
+    composed operator's."""
+    n, rounds = 8, 5
+    sched = mixing.schedule("ring", n)
+    op = mixing.circulant_mix_op(sched, n, rounds, quantization="sign",
+                                 device="cpu")
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (n, 16)).astype(np.float32))
+    collapsed = mixing.circulant_mix_op(sched, n, rounds, device="cpu")(x)
+    assert not torch.allclose(op(x), collapsed, atol=1e-4)
+
+
+@pytest.mark.parametrize("stats", ["global", "segment", "tile", "node"])
+def test_stochastic_mix_op_per_step_key(stats):
+    """int8_stoch draws round r from (seed, key, r): the same key gives the
+    same mix, another key (or none) another, and the node mean is kept
+    within the rounding noise."""
+    op = mixing.circulant_mix_op(mixing.schedule("ring", 4), 4, 3,
+                                 quantization="int8_stoch", stats=stats,
+                                 seed=11, device="cpu")
+    x = torch.randn(4, 96, generator=torch.Generator().manual_seed(5))
+    kw = {"seg_widths": (32, 64)} if stats == "segment" else {}
+    a = op(x, key=7, **kw)
+    assert torch.equal(a, op(x, key=7, **kw))
+    assert not torch.equal(a, op(x, key=8, **kw))
+    assert not torch.equal(a, op(x, **kw))
+    assert torch.equal(op(x, **kw), op(x, **kw))
+    np.testing.assert_allclose(a.mean().item(), x.mean().item(), atol=0.05)
+
+
+def test_deterministic_compressors_ignore_the_key():
+    op = mixing.circulant_mix_op(mixing.schedule("ring", 4), 4, 2,
+                                 quantization="int8", device="cpu")
+    x = torch.randn(4, 32, generator=torch.Generator().manual_seed(6))
+    assert torch.equal(op(x), op(x, key=42))
+
+
+def test_circulant_mix_op_checks_its_arguments():
+    sched = mixing.schedule("ring", 4)
+    for kw, match in (({"stats": "leaf"}, "stats"),
+                      ({"quantization": "int4"}, "quantization"),
+                      ({"impl": "gather"}, "impl")):
+        with pytest.raises(ValueError, match=match):
+            mixing.circulant_mix_op(sched, 4, 2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("n,deg,seed", [(16, 6, 0), (8, 4, 1), (12, 3, 2)])
+def test_graph_builders_match_reference(n, deg, seed):
+    """numpy, so the same seed gives the reference's matrices exactly."""
+    np.testing.assert_array_equal(mixing.random_regular_expander(n, deg, seed),
+                                  jmix.random_regular_expander(n, deg, seed))
+    np.testing.assert_array_equal(mixing.random_geometric(n, seed),
+                                  jmix.random_geometric(n, seed))
+    np.testing.assert_array_equal(mixing.ring_matrix(n), jmix.ring_matrix(n))
+    adj = mixing.random_regular_expander(n, deg, seed) > 0
+    assert mixing._connected(adj) and mixing.is_doubly_stochastic(
+        mixing.random_regular_expander(n, deg, seed))
+    with pytest.raises(ValueError, match="degree"):
+        mixing.random_regular_expander(4, 4)
+    assert mixing.random_geometric(1).shape == (1, 1)
 
 
 def test_mix_op_refuses_wrong_node_axis():
