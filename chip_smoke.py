@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, then builds the four Hopper
+1. Prints the card's name and power limit, then builds the five Hopper
    kernels from `src/repro_torch/kernels/csrc/` with nvcc (parallel) and
    prints the build time.
 2. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
-   the whole PCA superstep on the card against the CPU's plain path.
+   the whole PCA superstep on the card against the CPU's plain path;
+   `flash_attention` at the cases of tests/test_kernels.py and granite-8b's
+   prefill shapes, f32 and bf16.
 3. Drives the port's main paths, each run with the launch counts set to 0
    just before it and read just after:
    (a)-(c) streaming PCA at the paper's Fig. 8 size (d = 3072, N = 10 nodes,
@@ -24,10 +26,21 @@
    draws; int8 within 5% and sign within 2x of the unquantized excess
    risk), `run_dmb` at Fig. 6, and D-SGD over a 6-regular expander beating
    local SGD.
+   (g0) a 2-layer reduced granite-8b in f32 served on the card and on the
+   CPU from the same parameters: prefill logits within 1e-3, and equal
+   greedy tokens from `generate` and `ContinuousBatchingEngine` (5 requests
+   of 24 tokens through 2 slots);
+   (g) granite-8b at full width (36 layers, bf16, seeded random weights):
+   (g1) static `generate`, batch 4, prompt 512, 32 new tokens; (g2)
+   `ContinuousBatchingEngine`, 8 slots, 16 requests of 128-512 tokens (200
+   among them), 32 new tokens each, one `swap_params` mid-traffic; every
+   prefill of more than 16 tokens launches `flash_attention` once per
+   layer, and no other kernel runs. Prints tokens/s, ms per decode step and
+   peak memory.
 4. Times every kernel at the main path's shapes and at a wide shape
-   (N=16, d=32768) against its bound, its plain version and, where one
-   PyTorch call computes the same function, that call; prints one
-   `{"kernels": [...]}` JSON line.
+   (N=16, d=32768; flash_attention at S = 512 and 4096) against its bound,
+   its plain version and, where one PyTorch call computes the same
+   function, that call; prints one `{"kernels": [...]}` JSON line.
 
 The last line is `{"ok": true, "device": {...}}`. Any mismatch or fault
 raises and exits non-zero; there is no CPU path and no fallback. Without a
@@ -45,6 +58,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-3)}  # (rtol, atol)
 # gossip_mix_quant: the f32 bound of tests/test_consensus_engine.py
 QUANT_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (5e-2, 1e-3)}
@@ -54,7 +68,22 @@ REPLACES = {
     "krasulina_xi_gossip": "src/repro/kernels/krasulina_update.py:132",
     "gossip_mix": "src/repro/kernels/consensus.py:52",
     "gossip_mix_quant": "src/repro/kernels/consensus.py:121",
+    "flash_attention": "src/repro/kernels/flash_attention.py:92",
 }
+# tests/test_kernels.py:63 CASES, then granite-8b's prefill (H = 32, D = 128):
+# (B, H, Sq, Sk, D, causal, window, chunk)
+FLASH_CASES = [
+    (1, 2, 128, 128, 64, True, 0, 0),
+    (2, 2, 256, 256, 64, True, 0, 0),
+    (1, 1, 256, 256, 128, True, 64, 0),
+    (1, 2, 256, 256, 64, True, 0, 128),
+    (1, 1, 200, 200, 64, True, 0, 0),
+    (1, 1, 128, 384, 64, True, 0, 0),
+    (1, 32, 512, 512, 128, True, 0, 0),
+    (1, 32, 200, 200, 128, True, 0, 0),
+]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:85
+GRANITE_LAYERS, GEN = 36, 32
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 
 
@@ -75,6 +104,19 @@ def compare(name, got, want, dtype_name, tol=TOL):
     return err
 
 
+def compare_close(name, got, want, tol):
+    """|kernel - plain| <= tol + tol * |plain| element by element (the rule
+    of numpy's assert_allclose with rtol = atol = tol)."""
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    excess = (diff - tol * want.float().abs()).max().item()
+    ok = math.isfinite(err) and excess <= tol
+    print(f"check {name}: max_abs_err={err:.3e} (rtol=atol={tol}, element "
+          f"by element) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{name} disagrees with its plain version")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -84,6 +126,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                     "src"))
+    import torch.nn.functional as F
+
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import AveragingConfig, StreamConfig
     from repro_torch.configs.paper_logreg import FIG6, FIG9
     from repro_torch.configs.paper_pca import HIGHD, PCARunConfig
@@ -93,6 +139,8 @@ def main() -> int:
                                             make_pca_host_sampler,
                                             make_pca_stream)
     from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.models import registry
+    from repro_torch.serve import engine
     from repro_torch.train.driver import EngineConfig, StreamingDriver
 
     # a reference states and sets both: full f32 products everywhere
@@ -243,6 +291,18 @@ def main() -> int:
             outs.append(step(st, {"z": zb})[0].w.cpu())
         compare(f"superstep {label} card vs CPU plain path (N=4, Bn=5, d=70, "
                 f"K=3)", outs[0], outs[1], "float32")
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for B, H, Sq, Sk, D, causal, window, chunk in FLASH_CASES:
+            q, k, v = (randn(B, H, S, D, dtype=dtype) for S in (Sq, Sk, Sk))
+            masks = dict(causal=causal, window=window, chunk=chunk)
+            e = compare_close(
+                f"flash_attention {dn} B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
+                f"causal={causal} window={window} chunk={chunk}",
+                ops.attention(q, k, v, **masks),
+                ref.attention_ref(q, k, v, **masks), FLASH_TOL[dn])
+            if (dn, H, Sq) == ("bfloat16", 32, 512):
+                errs["flash_attention"] = e
 
     # -------------------------------------------------------------- main path
     stream = make_pca_stream(HIGHD, device=dev)
@@ -508,7 +568,6 @@ def main() -> int:
     require(math.isfinite(dsgd_risk) and dsgd_risk < local_risk,
             "D-SGD did not beat local SGD")
 
-    # ----------------------------------------------------------------- timing
     def time_ms(fn, reps=20, replays=5):
         """Device time of one call: `reps` calls captured in a CUDA graph,
         replayed `replays` times between two events (no host launch gaps)."""
@@ -535,13 +594,178 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / (reps * replays)
 
-    def bound(bytes_moved, flops):
+    # ------------------------------------------------- the serving path (g)
+    del staged, host, res, res6, rd, rl, xe, ye
+    torch.cuda.empty_cache()
+    cpu = torch.device("cpu")
+
+    # (g0) reduced granite-8b in f32, the same parameters on the card and on
+    # the CPU's plain path
+    cfg_r = reduced(get_config("granite-8b"))
+    p_cpu = registry.init_params(torch.Generator().manual_seed(0), cfg_r)
+    p_dev = convert.tree_map(lambda t: t.to(dev), p_cpu)
+    prompts = np.random.default_rng(0).integers(0, cfg_r.vocab_size, (5, 24))
+    runs = {}
+    for side, d_, params_ in (("card", dev, p_dev), ("cpu", cpu, p_cpu)):
+        toks = torch.from_numpy(prompts).to(d_)
+        ops.reset_launches()
+        logits, _ = registry.prefill(params_, cfg_r, {"tokens": toks},
+                                     registry.init_cache(cfg_r, 5, 32,
+                                                         torch.float32,
+                                                         device=d_))
+        counts = dict(ops.launches)
+        gen_toks = engine.generate(params_, cfg_r, {"tokens": toks}, 32, 8,
+                                   dtype=torch.float32).tolist()
+        eng = engine.ContinuousBatchingEngine(cfg_r, params_, slots=2,
+                                              max_len=32)
+        rids = [eng.submit(p, 8) for p in prompts]
+        eng.drain()
+        runs[side] = (logits.cpu(), gen_toks,
+                         [eng.result(r).tokens for r in rids], counts)
+    err = (runs["card"][0] - runs["cpu"][0]).abs().max().item()
+    same = {"generate": runs["card"][1] == runs["cpu"][1],
+            "engine": runs["card"][2] == runs["cpu"][2],
+            "engine=generate": runs["card"][2] == runs["card"][1]}
+    print(f"main (g0) reduced granite-8b f32 (2 layers) card vs CPU: prefill "
+          f"logits max_abs_err={err:.3e} (limit 1e-3); greedy tokens equal "
+          f"{json.dumps(same)}; card prefill launches "
+          f"{json.dumps(runs['card'][3])}")
+    require(err <= 1e-3, "(g0) prefill logits: card and CPU disagree")
+    require(all(same.values()), "(g0) greedy tokens differ")
+    require(runs["card"][3]["flash_attention"] == cfg_r.num_layers,
+            "(g0) the card's prefill did not launch flash_attention per layer")
+    del p_cpu, p_dev, runs, eng
+
+    # (g) granite-8b at full width: 36 layers, bf16, seeded random weights
+    cfg = get_config("granite-8b")
+    require(cfg.num_layers == GRANITE_LAYERS, "granite-8b depth changed")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = registry.init_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    leaves = []
+    convert.tree_map(leaves.append, params)
+    n_params = sum(t.numel() for t in leaves)
+    del leaves
+    print(f"main (g) granite-8b: {n_params / 1e9:.3f} B parameters, bf16, "
+          f"{n_params * 2 / 1e9:.2f} GB, drawn on the card in "
+          f"{time.perf_counter() - t0:.2f} s; card {smi}")
+    V, others = cfg.vocab_size, [k for k in ops.launches
+                                 if k != "flash_attention"]
+
+    def serve_counts(label, prefills):
+        want = {"flash_attention": GRANITE_LAYERS * prefills}
+        want.update({k: 0 for k in others})
+        return take_counts(label, ["flash_attention"], want)
+
+    # (g1) static generate: batch 4, prompt 512, 32 new tokens; then the same
+    # steps timed apart (prefill, then each decode step)
+    B1, P1 = 4, 512
+    prompt = registry.synth_batch(torch.Generator(device=dev).manual_seed(1),
+                                  cfg, B1, P1, mode="prefill")
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = engine.generate(params, cfg, prompt, P1 + GEN, GEN,
+                          dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    st = engine.init_serve(cfg, B1, P1 + GEN, torch.bfloat16, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = registry.prefill(params, cfg, prompt, st.cache)
+    st = engine.ServeState(cache, logits[:, -1:].argmax(-1), P1)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    toks = [st.last_tokens]
+    t0 = time.perf_counter()
+    for _ in range(GEN - 1):
+        st, t = engine.serve_step(params, cfg, st)
+        toks.append(t)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    last, _ = registry.decode_step(params, cfg, st.last_tokens, st.cache,
+                                   st.index)
+    finite = finite and bool(torch.isfinite(last).all())
+    counts = serve_counts("(g1)", 2)
+    again = torch.cat(toks, dim=1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # the card's own time for the same work: one prefill and one decode step
+    # replayed from a CUDA graph (no host launch gaps); the rest of the wall
+    # time is the host issuing eager operations
+    dev_prefill = time_ms(lambda: registry.prefill(params, cfg, prompt,
+                                                   st.cache), reps=2,
+                          replays=3)
+    dev_step = time_ms(lambda: registry.decode_step(
+        params, cfg, st.last_tokens, st.cache, st.index), reps=5, replays=3)
+    print(f"main (g1) static generate B={B1} prompt={P1} gen={GEN}: "
+          f"generate {gen_s:.3f} s; prefill {prefill_s * 1e3:.2f} ms "
+          f"({B1 * P1 / prefill_s:.1f} tokens/s; card {dev_prefill:.2f} ms), "
+          f"decode {decode_s / (GEN - 1) * 1e3:.3f} ms per step "
+          f"({B1 * (GEN - 1) / decode_s:.1f} tokens/s; card {dev_step:.3f} "
+          f"ms); peak memory {peak:.2f} GiB; logits finite {finite}; repeat "
+          f"equals generate {torch.equal(again, out)}; "
+          f"launches={json.dumps(counts)}")
+    require(finite, "(g1) logits not finite")
+    require(tuple(out.shape) == (B1, GEN) and bool(((out >= 0) & (out < V))
+                                                   .all()),
+            "(g1) tokens of the wrong shape or outside the vocabulary")
+    del st, cache, toks, last
+
+    # (g2) continuous batching: 8 slots, 16 requests, one swap mid-traffic
+    rng = np.random.default_rng(2)
+    lens = rng.integers(128, 513, size=16)
+    lens[3] = 200
+    prompts = [rng.integers(0, V, size=int(n)) for n in lens]
+    swapped = dict(params, blocks=list(params["blocks"]))
+    swapped["blocks"][0] = dict(swapped["blocks"][0], attn=dict(
+        swapped["blocks"][0]["attn"], wo=-params["blocks"][0]["attn"]["wo"]))
+    eng = engine.ContinuousBatchingEngine(cfg, params, slots=8,
+                                          max_len=P1 + GEN,
+                                          dtype=torch.bfloat16)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, GEN) for p in prompts]
+    while eng.n_active or eng.n_queued:
+        eng.step()
+        if eng.decode_steps == 16 and eng.swaps == 0:
+            eng.swap_params(swapped)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = serve_counts("(g2)", len(prompts))
+    done = [eng.result(r) for r in rids]
+    ok = all(len(r.tokens) == GEN and all(0 <= t < V for t in r.tokens)
+             and r.versions == sorted(r.versions) for r in done)
+    spanning = sum(len(set(r.versions)) > 1 for r in done)
+    print(f"main (g2) continuous batching slots=8 requests={len(prompts)} "
+          f"prompts {int(lens.min())}-{int(lens.max())} (sum "
+          f"{int(lens.sum())}) gen={GEN}: {wall:.3f} s, "
+          f"{len(prompts) * GEN / wall:.1f} generated tokens/s, "
+          f"{int(lens.sum()) / wall:.1f} prompt tokens/s, "
+          f"{eng.decode_steps} decode steps "
+          f"({wall / eng.decode_steps * 1e3:.3f} ms per step, prefills "
+          f"included), swaps={eng.swaps}, requests "
+          f"spanning the swap {spanning}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches={json.dumps(counts)}")
+    require(ok, "(g2) a request lost tokens, left the vocabulary or saw "
+                "non-monotone versions")
+    require(eng.swaps == 1 and spanning >= 1, "(g2) the swap did not land "
+                                              "mid-traffic")
+    del params, swapped, eng, prompt, out
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------------- timing
+    def bound(bytes_moved, flops, flops_per_s):
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        t_ops = flops / flops_per_s * 1e3
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
-    def measure(name, shape, kernel, plain, bytes_moved, flops, library=None):
-        b_ms, b_by = bound(bytes_moved, flops)
+    def measure(name, shape, kernel, plain, bytes_moved, flops, library=None,
+                flops_per_s=F32_FLOPS_PER_S):
+        b_ms, b_by = bound(bytes_moved, flops, flops_per_s)
         out = {"shape": shape, "ms": time_ms(kernel),
                "plain_ms": time_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": time_ms(library) if library else None}
@@ -615,6 +839,33 @@ def main() -> int:
                  "bound_by": main_shape["bound_by"], "library_ms": None,
                  "shape": "int8 " + main_shape["shape"], "wide": wide,
                  "sign": timed["sign"][0], "sign_wide": timed["sign"][1]})
+    # flash_attention, bf16 causal at granite-8b's heads: a 512-token prefill
+    # (the main path's shape) and a 4096-token one; the causal products are
+    # 2 B H S^2 D operations, the bytes q, k, v read and out written once
+    timed = []
+    for S in (512, 4096):
+        q, k, v = (randn(1, 32, S, 128, dtype=torch.bfloat16) for _ in range(3))
+        timed.append(measure(
+            "flash_attention", f"bf16 causal B=1 H=32 S={S} D=128",
+            lambda: ops.attention(q, k, v, causal=True),
+            lambda: ref.attention_ref(q, k, v, causal=True),
+            4 * 32 * S * 128 * 2, 2 * 32 * S * S * 128,
+            library=lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True),
+            flops_per_s=BF16_FLOPS_PER_S))
+        del q, k, v
+        torch.cuda.empty_cache()
+    main_shape, wide = timed
+    rows.append({"name": "flash_attention", "route": "cuda",
+                 "source": SOURCES["flash_attention"],
+                 "replaces": REPLACES["flash_attention"],
+                 "launches": launches["flash_attention"],
+                 "max_abs_err": errs["flash_attention"],
+                 "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+                 "bound_ms": main_shape["bound_ms"],
+                 "bound_by": main_shape["bound_by"],
+                 "library_ms": main_shape["library_ms"],
+                 "shape": main_shape["shape"], "wide": wide})
     # the per-round metric: the excess risk reads the [d, d] covariance, the
     # alignment error two vectors
     wbar = state.w.mean(0)

@@ -32,8 +32,8 @@ MAX_TERMS = 32  # kMaxTerms in csrc/common.cuh
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("gossip_mix", "gossip_mix_quant", "krasulina_xi",
-           "krasulina_xi_gossip")
+SOURCES = ("flash_attention", "gossip_mix", "gossip_mix_quant",
+           "krasulina_xi", "krasulina_xi_gossip")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -41,6 +41,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
 # C entry point and argument types of each library
 SIGNATURES = {
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _I, _I, _P]),
     "gossip_mix": ("gossip_mix_launch",
                    [_P, _P, _I, _LL, _I, _I, _I, _I, _IP, _FP, _P]),
     "gossip_mix_quant": ("gossip_mix_quant_launch",

@@ -15,12 +15,15 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.consensus import (gossip_mix_cuda,
                                            gossip_mix_quant_cuda)
+from repro_torch.kernels.flash_attention import (check_masking,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
                                                   krasulina_xi_gossip_cuda)
 
 # kernel launches since the last `reset_launches()`, by kernel name
 launches: Dict[str, int] = {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
-                            "gossip_mix": 0, "gossip_mix_quant": 0}
+                            "gossip_mix": 0, "gossip_mix_quant": 0,
+                            "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -96,4 +99,21 @@ def krasulina_xi_gossip(w: torch.Tensor, z: torch.Tensor, sched,
         return ref.krasulina_xi_gossip_ref(w, z, sched, rounds)
     out = krasulina_xi_gossip_cuda(w, z, sched, rounds)
     launches["krasulina_xi_gossip"] += 1
+    return out
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0,
+              chunk: int = 0) -> torch.Tensor:
+    """Masked attention, q: [B, H, Sq, D], k/v: [B, H, Sk, D] (GQA heads
+    repeated), scale 1/sqrt(D), query and key positions counted from 0;
+    fully masked rows are 0. Unmasked attention takes Sk divisible by
+    min(128, Sk) on every device, as the reference's kernel does."""
+    check_masking(k.shape[2], causal, window, chunk)
+    if not _on_cuda(q, k, v):
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 chunk=chunk)
+    out = flash_attention_cuda(q, k, v, causal=causal, window=window,
+                               chunk=chunk)
+    launches["flash_attention"] += 1
     return out

@@ -8,6 +8,7 @@ Roll convention: `torch.roll(x, s, 0)[i] == x[(i - s) % n]`, the same as
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -88,3 +89,28 @@ def gossip_mix_quant_ref(x: torch.Tensor, sched, rounds: int, quant: str, *,
             out = term if out is None else out + term
         h = out
     return h.reshape(x.shape).to(x.dtype)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, chunk: int = 0,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Dense masked attention in f32 — the plain version of
+    `flash_attention_cuda`. q: [B, H, Sq, D]; k, v: [B, H, Sk, D] (same head
+    count). Query and key positions both count from 0; fully masked rows are
+    0. Returns v's dtype."""
+    Sq, D = q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= kp > qp - window
+    if chunk:
+        mask &= (kp // chunk) == (qp // chunk)
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    p = torch.nan_to_num(p, nan=0.0)  # fully-masked rows
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(v.dtype)

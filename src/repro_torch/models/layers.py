@@ -1,0 +1,351 @@
+"""Core neural layers of the port's dense GQA decoder: norms, RoPE, masked
+blockwise attention (causal / sliding-window / chunked-local), the GQA
+attention block with a KV cache, the vocab projection and the gated FFN.
+
+Weights keep the reference's [in, out] layout (`x @ W`), so carrying them
+across is a copy. Prefill attention of more than 16 tokens goes through
+`kernels.ops.attention` (the Hopper flash kernel on the card); every other
+attention call is the plain `blockwise_attention` below, where the reference
+runs jnp code too. Not ported yet (they raise): MLA, the ring-buffer cache
+and cross-attention.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.common import dense_init, ones_init
+
+Params = Dict[str, Any]
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+FLASH_MIN_SEQ = 17  # prompts of 16 tokens or fewer take the masked dot
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(gen: torch.Generator, dim: int, kind: str,
+              dtype=torch.float32) -> Params:
+    p = {"scale": ones_init(gen, (dim,), dtype)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=dtype, device=gen.device)
+    return p
+
+
+def apply_norm(p: Params, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:  # rmsnorm
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def rms_norm_headdim(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Parameter-free QK-norm over the head dim (Chameleon / Llama-4 style)."""
+    xf = x.float()
+    ms = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return 1.0 / (theta ** exponents)  # [head_dim/2]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: broadcastable to [..., S]."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, device=x.device)
+    angles = positions[..., None].float() * freqs  # [..., S, d/2]
+    cos = torch.cos(angles)[..., None, :]  # [..., S, 1, d/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Masked blockwise attention
+# ---------------------------------------------------------------------------
+
+
+def _mask_block(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+                window: int, chunk: int, kv_valid: Any) -> torch.Tensor:
+    """Boolean [..., q, k] mask from absolute positions. q_pos: [..., q] (a
+    leading batch axis stands in for the reference's vmap over rows);
+    kv_valid: None, an int or a [...] tensor of valid key counts.
+    window/chunk of 0 disable."""
+    qp = q_pos[..., :, None]
+    kp = k_pos
+    m = torch.ones(q_pos.shape + k_pos.shape, dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m = m & (kp <= qp)
+    if window > 0:
+        m = m & (kp > qp - window)
+    if chunk > 0:
+        m = m & ((kp // chunk) == (qp // chunk))
+    if torch.is_tensor(kv_valid):  # [1, q, k] and [B] broadcast to [B, q, k]
+        kv_valid = kv_valid[..., None, None]
+    if kv_valid is not None:
+        m = m & (kp < kv_valid)
+    return m
+
+
+def blockwise_attention(
+    q: torch.Tensor,  # [B, Sq, H, D]
+    k: torch.Tensor,  # [B, Sk, KH, D]
+    v: torch.Tensor,  # [B, Sk, KH, Dv]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 0,
+    q_offset: Any = 0,  # int, 0-dim or [B]: absolute position of q[:, 0]
+    kv_valid: Any = None,  # None, int, 0-dim or [B]: #valid cache slots
+    kv_block: int = 512,
+    softmax_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Online-softmax attention; never materializes [Sq, Sk] for Sk > kv_block.
+
+    The plain PyTorch form of the reference's `blockwise_attention`: q is
+    rounded to k's dtype and p to v's dtype before their products, which
+    accumulate in f32. GQA: head h reads kv head h // G (the reference's
+    `jnp.repeat(axis=2)`), computed on a [B, KH, G, ...] view of q instead of
+    a repeated copy of k and v. Sq <= 16 is one masked dot over all of k;
+    longer queries scan kv blocks of `kv_block`."""
+    B, Sq, H, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KH
+    dev = q.device
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    qg = q.to(k.dtype).float().reshape(B, Sq, KH, G, D).permute(0, 2, 3, 1, 4)
+    # positions stay Python ints where they are: no host-to-device copies
+    q_pos = torch.arange(Sq, device=dev)
+    if torch.is_tensor(q_offset):
+        qp = q_pos[None] + q_offset.reshape(-1, 1)  # [1 or B, Sq]
+    else:
+        qp = (q_pos + q_offset)[None]
+    kvv = Sk if kv_valid is None else kv_valid
+
+    def scores(kblk: torch.Tensor, k0: int) -> torch.Tensor:
+        """Masked f32 scores [B, KH, G, Sq, nk] of keys k0 .. k0 + nk - 1."""
+        kt = kblk.float().permute(0, 2, 3, 1)[:, :, None]  # [B, KH, 1, D, nk]
+        s = (qg @ kt) * scale
+        k_pos = k0 + torch.arange(kblk.shape[1], device=dev)
+        mask = _mask_block(qp, k_pos, causal=causal, window=window,
+                           chunk=chunk, kv_valid=kvv)  # [1 or B, Sq, nk]
+        return s.masked_fill(~mask[:, None, None], NEG_INF)
+
+    def pv(p: torch.Tensor, vblk: torch.Tensor) -> torch.Tensor:
+        vf = vblk.float().permute(0, 2, 1, 3)[:, :, None]  # [B, KH, 1, nk, Dv]
+        return p.to(vblk.dtype).float() @ vf
+
+    def heads(o: torch.Tensor) -> torch.Tensor:  # [B, KH, G, Sq, Dv] ->
+        return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(v.dtype)
+
+    if Sq <= 16:
+        # decode fast path: one masked dot over the whole cache
+        p = torch.softmax(scores(k, 0), dim=-1)
+        return heads(pv(p, v))
+
+    nblocks = max(1, (Sk + kv_block - 1) // kv_block)
+    pad = nblocks * kv_block - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    m = torch.full((B, KH, G, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KH, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KH, G, Sq, Dv), dtype=torch.float32, device=dev)
+    for i in range(nblocks):
+        blk = slice(i * kv_block, (i + 1) * kv_block)
+        s = scores(k[:, blk], i * kv_block)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)  # zero out fully-masked rows later via l
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + pv(p, v[:, blk])
+        m = m_new
+    return heads(acc / l[..., None].clamp_min(1e-30))
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (with optional KV cache)
+# ---------------------------------------------------------------------------
+
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+    return {
+        "wq": dense_init(gen, (d, H * hd), dtype),
+        "wk": dense_init(gen, (d, KH * hd), dtype),
+        "wv": dense_init(gen, (d, KH * hd), dtype),
+        "wo": dense_init(gen, (H * hd, d), dtype, fan_in=H * hd),
+    }
+
+
+def _flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   window: int, chunk: int) -> torch.Tensor:
+    """Causal attention of S fresh positions through `ops.attention`:
+    q [B, S, H, D], k/v [B, S, KH, D] -> [B, S, H, D] in k's dtype."""
+    B, S, H, D = q.shape
+    G = H // k.shape[2]
+    qh = q.to(k.dtype).permute(0, 2, 1, 3).contiguous()
+    kh = k.repeat_interleave(G, dim=2).permute(0, 2, 1, 3).contiguous()
+    vh = v.repeat_interleave(G, dim=2).permute(0, 2, 1, 3).contiguous()
+    out = ops.attention(qh, kh, vh, causal=True, window=window, chunk=chunk)
+    return out.permute(0, 2, 1, 3)
+
+
+def apply_attention(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [B, S] absolute positions
+    *,
+    attn_mode: str = "causal",  # causal | window | chunk | full (encoder)
+    window: int = 0,
+    use_rope: bool = True,
+    cache: Optional[Params] = None,  # {"k","v"} [B, S_max, KH, hd]
+    cache_index: Any = None,  # int or 0-dim (write offset of the batch), or
+    # a [B] vector (per-slot decode, continuous batching; requires S == 1)
+    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (out [B, S, D], cache). The cache is updated IN PLACE (the
+    reference returns a new one) and returned for the caller's convenience.
+
+    Routing, fixed by shape: a call of S > 16 positions with no cache, or
+    with the Python integer cache_index 0 (prefill), runs `ops.attention`
+    on the fresh k/v (the flash kernel on the card, or raise); every other
+    call (decode against the cache, prompts of 16 tokens or fewer, a
+    multi-token call at a non-zero index) runs `blockwise_attention`."""
+    if cross_kv is not None:
+        raise NotImplementedError("cross-attention (encoder-decoder) is not "
+                                  "ported yet")
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, KH = cfg.num_heads, cfg.num_kv_heads
+
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KH, hd)
+    v = (x @ p["wv"]).reshape(B, S, KH, hd)
+    if cfg.use_qk_norm:
+        q, k = rms_norm_headdim(q), rms_norm_headdim(k)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    causal = attn_mode in ("causal", "window", "chunk")
+    eff_window = window if attn_mode == "window" else 0
+    eff_chunk = window if attn_mode == "chunk" else 0
+
+    if (cache is not None and cfg.ring_buffer_cache and attn_mode == "window"
+            and window and cache["k"].shape[1] <= window):
+        raise NotImplementedError("the ring-buffer KV cache is not ported yet")
+    prefill = cache is None or (isinstance(cache_index, int)
+                                and cache_index == 0)
+    if cache is not None:
+        k = k.to(cache["k"].dtype)
+        v = v.to(cache["v"].dtype)
+        if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+            # per-slot decode: row b writes its own position cache_index[b]
+            rows = torch.arange(B, device=x.device)
+            cache["k"][rows, cache_index] = k[:, 0]
+            cache["v"][rows, cache_index] = v[:, 0]
+        else:
+            cache["k"][:, cache_index:cache_index + S] = k
+            cache["v"][:, cache_index:cache_index + S] = v
+
+    if S >= FLASH_MIN_SEQ and prefill and causal:
+        # The reference's prefill attends over the whole max_len cache with
+        # kv_valid = S; the causal mask already excludes every slot at or past
+        # S, so attending over the S fresh (cache-dtype) k/v is the same sum.
+        out = _flash_prefill(q, k, v, window=eff_window, chunk=eff_chunk)
+    elif cache is not None:
+        out = blockwise_attention(q, cache["k"], cache["v"], causal=causal,
+                                  window=eff_window, chunk=eff_chunk,
+                                  q_offset=cache_index,
+                                  kv_valid=cache_index + S)
+    else:
+        out = blockwise_attention(q, k, v, causal=causal, window=eff_window,
+                                  chunk=eff_chunk)
+    out = out.reshape(B, S, H * hd).to(p["wo"].dtype) @ p["wo"]
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Vocab projection
+# ---------------------------------------------------------------------------
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return emb[tokens]
+
+
+def unembed_logits(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """logits = x @ emb^T with the vocab dim padded to a multiple of 16, as in
+    the reference (which pads so the vocab shards evenly); padded entries
+    are NEG_INF so a softmax over them is exact."""
+    V = emb.shape[0]
+    Vp = ((V + 15) // 16) * 16
+    if Vp != V:
+        emb = F.pad(emb, (0, 0, 0, Vp - V))
+    logits = x @ emb.t()
+    if Vp != V:
+        logits[..., V:] = NEG_INF
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+
+def init_ffn(gen: torch.Generator, d_model: int, d_ff: int, kind: str,
+             dtype) -> Params:
+    if kind in ("swiglu", "geglu"):
+        return {
+            "w_gate": dense_init(gen, (d_model, d_ff), dtype),
+            "w_up": dense_init(gen, (d_model, d_ff), dtype),
+            "w_down": dense_init(gen, (d_ff, d_model), dtype, fan_in=d_ff),
+        }
+    return {
+        "w_up": dense_init(gen, (d_model, d_ff), dtype),
+        "w_down": dense_init(gen, (d_ff, d_model), dtype, fan_in=d_ff),
+    }
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind in ("swiglu", "geglu"):
+        act = F.silu if kind == "swiglu" else _gelu
+        h = act(x @ p["w_gate"]) * (x @ p["w_up"])
+    else:
+        h = _gelu(x @ p["w_up"])
+    return h @ p["w_down"]

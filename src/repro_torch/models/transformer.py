@@ -1,0 +1,207 @@
+"""Decoder-only transformer assembly for the dense GQA family.
+
+The reference groups layers into super-blocks and scans over stacked
+super-block parameters (`lax.scan`) to keep compile time O(period). The port
+runs eagerly, so it keeps one parameter dict per layer and one KV-cache dict
+per layer, in the order `layer_specs` gives, and loops over them in Python;
+`convert.lm_params` interleaves the reference's stacked tree into that
+order. `build_plan` keeps the reference's (period, n_repeats, tail) form.
+
+Ported: attention blocks (causal, sliding-window, chunked-local, iRoPE NoPE
+layers) with dense FFNs. Not ported yet (they raise): MLA, MoE, SSD,
+RG-LRU, the modality frontend and the ring-buffer cache. Training (the
+loss and activation checkpointing) comes with the trainer.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.common import embed_init
+
+Params = Dict[str, Any]
+
+
+class LayerSpec(NamedTuple):
+    kind: str  # attn (mla | rglru | ssd are not ported yet)
+    attn_mode: str = "causal"  # causal | window | chunk
+    window: int = 0
+    use_rope: bool = True
+    has_moe: bool = False
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+def build_plan(cfg: ModelConfig, window_override: int = 0
+               ) -> Tuple[Tuple[LayerSpec, ...], int, Tuple[LayerSpec, ...]]:
+    """Returns (period_specs, n_repeats, tail_specs), as the reference."""
+    if cfg.family == "ssm":
+        raise _not_ported("the SSD block (ssm family)")
+    if cfg.rglru is not None:
+        raise _not_ported("the RG-LRU block (hybrid family)")
+    if cfg.mla is not None:
+        raise _not_ported("MLA attention")
+    if cfg.moe is not None:
+        raise _not_ported("the MoE FFN")
+
+    def attn_spec(i: int) -> LayerSpec:
+        mode, win, rope = "causal", 0, True
+        if cfg.sliding_window:
+            mode, win = "window", cfg.sliding_window
+        if cfg.chunk_attn_window:
+            if (i % cfg.global_attn_every) == cfg.global_attn_every - 1:
+                mode, win, rope = "causal", 0, False  # iRoPE global layer: NoPE
+            else:
+                mode, win = "chunk", cfg.chunk_attn_window
+        if window_override and mode == "causal":
+            mode, win = "window", window_override
+        return LayerSpec("attn", mode, win, rope, False)
+
+    if cfg.chunk_attn_window:
+        period = tuple(attn_spec(i) for i in range(cfg.global_attn_every))
+        n = cfg.num_layers // cfg.global_attn_every
+        tail = period[: cfg.num_layers % cfg.global_attn_every]
+        return period, n, tail
+    return (attn_spec(0),), cfg.num_layers, ()
+
+
+def layer_specs(cfg: ModelConfig, window_override: int = 0) -> List[LayerSpec]:
+    """Every layer's spec in the order the forward pass runs them: the
+    period repeated n times, then the tail."""
+    period, n, tail = build_plan(cfg, window_override)
+    return list(period) * n + list(tail)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
+                dtype) -> Params:
+    p: Params = {"norm1": L.init_norm(gen, cfg.d_model, cfg.norm, dtype),
+                 "attn": L.init_attention(gen, cfg, dtype),
+                 "norm2": L.init_norm(gen, cfg.d_model, cfg.norm, dtype)}
+    if cfg.d_ff:
+        p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn, dtype)
+    return p
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
+                window_override: int = 0) -> Params:
+    """Random parameters drawn from `gen`, on the generator's device:
+    {"embed", "final_norm", "blocks": [one dict per layer], "unembed" when
+    the embeddings are not tied}."""
+    specs = layer_specs(cfg, window_override)
+    if cfg.frontend_embed_dim:
+        raise _not_ported("the modality frontend projection")
+    p: Params = {
+        "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
+        "final_norm": L.init_norm(gen, cfg.d_model, cfg.norm, dtype),
+        "blocks": [_init_block(gen, cfg, spec, dtype) for spec in specs],
+    }
+    if not cfg.tie_embeddings:
+        p["unembed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Block application
+# ---------------------------------------------------------------------------
+
+
+def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Params, x, positions,
+                 cache=None, cache_index=None):
+    h = L.apply_norm(p["norm1"], x, cfg.norm)
+    out, new_cache = L.apply_attention(
+        p["attn"], cfg, h, positions, attn_mode=spec.attn_mode,
+        window=spec.window, use_rope=spec.use_rope, cache=cache,
+        cache_index=cache_index)
+    x = x + out
+    if "ffn" in p:
+        h2 = L.apply_norm(p["norm2"], x, cfg.norm)
+        x = x + L.apply_ffn(p["ffn"], h2, cfg.ffn)
+    return x, new_cache
+
+
+def _embed(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
+    if "patches" in batch:
+        raise _not_ported("the modality frontend projection")
+    x = L.embed_lookup(params["embed"], batch["tokens"])
+    return x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt()
+
+
+def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
+    return L.unembed_logits(params.get("unembed", params["embed"]), x)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill), decode
+# ---------------------------------------------------------------------------
+
+
+def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, window_override: int = 0, cache: Optional[List[Params]] = None,
+            cache_index=None):
+    """Returns (logits, aux_loss, cache). `cache` (one {"k", "v"} per layer)
+    is updated in place; `cache_index` is an int (or 0-dim) write offset or
+    a [B] vector of per-row positions (S == 1)."""
+    specs = layer_specs(cfg, window_override)
+    x = _embed(cfg, params, batch)
+    B, Sq = batch["tokens"].shape
+    base = 0 if cache_index is None else cache_index
+    pos = torch.arange(Sq, device=x.device)
+    if torch.is_tensor(base) and base.dim() == 1:
+        positions = pos[None] + base[:, None]  # per-slot decode
+    else:
+        positions = (pos + base)[None].expand(B, Sq)
+    for i, spec in enumerate(specs):
+        x, _ = _apply_block(cfg, spec, params["blocks"][i], x, positions,
+                            cache=None if cache is None else cache[i],
+                            cache_index=cache_index)
+    x = L.apply_norm(params["final_norm"], x, cfg.norm)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _unembed(cfg, params, x), aux, cache
+
+
+# ---------------------------------------------------------------------------
+# KV caches
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, window_override: int = 0, *,
+               device: DeviceLike = None) -> List[Params]:
+    """One zeroed {"k", "v"} [batch, max_len, KH, hd] pair per layer."""
+    dev = resolve_device(device)
+    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    cache = []
+    for spec in layer_specs(cfg, window_override):
+        if cfg.ring_buffer_cache and spec.attn_mode == "window" and spec.window:
+            raise _not_ported("the ring-buffer KV cache")
+        cache.append({name: torch.zeros((batch, max_len, kh, hd), dtype=dtype,
+                                        device=dev) for name in ("k", "v")})
+    return cache
+
+
+def prefill(params: Params, cfg: ModelConfig, batch, cache, *,
+            window_override: int = 0):
+    logits, _, cache = forward(params, cfg, batch, cache=cache, cache_index=0,
+                               window_override=window_override)
+    return logits, cache
+
+
+def decode_step(params: Params, cfg: ModelConfig, tokens, cache, index, *,
+                window_override: int = 0):
+    """tokens: [B, 1]; index: int (current length) or [B] tensor (per-slot
+    lengths, continuous batching). Returns (logits, cache)."""
+    logits, _, cache = forward(params, cfg, {"tokens": tokens}, cache=cache,
+                               cache_index=index,
+                               window_override=window_override)
+    return logits, cache

@@ -137,3 +137,82 @@ def test_cuda_gossip_mix_quant_refuses_tiles_beyond_shared_memory(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         gossip_mix_quant_cuda(x, tmix.schedule("ring", 64), 1, "int8",
                               block_d=512)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (tolerances of tests/test_kernels.py:85: 2e-5 f32, 3e-2
+# bf16, relative and absolute)
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # tests/test_kernels.py CASES: (B, H, Sq, Sk, D, causal, window, chunk)
+    (1, 2, 128, 128, 64, True, 0, 0),
+    (2, 2, 256, 256, 64, True, 0, 0),
+    (1, 1, 256, 256, 128, True, 64, 0),
+    (1, 2, 256, 256, 64, True, 0, 128),
+    (1, 1, 200, 200, 64, True, 0, 0),
+    (1, 1, 128, 384, 64, True, 0, 0),
+    # granite-8b's prefill (H = 32, D = 128), and ragged edges: Sq > Sk with a
+    # window (rows with no live key are 0), odd D, unmasked
+    (1, 32, 512, 512, 128, True, 0, 0),
+    (1, 32, 200, 200, 128, True, 0, 0),
+    (1, 2, 96, 40, 64, True, 16, 0),
+    (2, 3, 70, 70, 40, True, 0, 32),
+    (1, 1, 50, 50, 20, True, 0, 0),
+    (1, 2, 64, 256, 96, False, 0, 0),
+]
+
+
+def _close_attention(got, want, dtype):
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,chunk", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_matches_plain(cuda, B, H, Sq, Sk, D, causal,
+                                            window, chunk, dtype):
+    q = torch.randn((B, H, Sq, D), device=cuda).to(dtype)
+    k = torch.randn((B, H, Sk, D), device=cuda).to(dtype)
+    v = torch.randn((B, H, Sk, D), device=cuda).to(dtype)
+    masks = dict(causal=causal, window=window, chunk=chunk)
+    before = ops.launches["flash_attention"]
+    got = ops.attention(q, k, v, **masks)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close_attention(got, tref.attention_ref(q, k, v, **masks), dtype)
+
+
+def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.randn((1, 1, 32, 64), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention_cuda(*(torch.randn((1, 1, 32, 160), device=cuda),) * 3)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        flash_attention_cuda(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(2, 3), q, q)
+
+
+def test_cuda_model_prefill_takes_the_kernel(cuda):
+    """A reduced granite-8b prefill of 24 tokens on the card launches the
+    kernel once per layer and agrees with the CPU's plain path."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import registry
+    cfg = reduced(get_config("granite-8b"))
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    want, _ = registry.prefill(params, cfg, {"tokens": toks},
+                               registry.init_cache(cfg, 2, 32, torch.float32,
+                                                   device="cpu"))
+    on_card = convert.tree_map(lambda t: t.to(cuda), params)
+    ops.reset_launches()
+    got, _ = registry.prefill(on_card, cfg, {"tokens": toks.to(cuda)},
+                              registry.init_cache(cfg, 2, 32, torch.float32,
+                                                  device=cuda))
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)

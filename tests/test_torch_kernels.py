@@ -275,8 +275,10 @@ def test_cpu_tensors_take_plain_version_and_count_no_launch():
     ops.krasulina_xi_gossip(w, z, sched, 2)
     ops.gossip_mix(w, sched, 2)
     ops.quant_gossip_mix(w, sched, 2, "int8", block_d=4)
+    ops.attention(z[None], z[None], z[None])
     assert ops.launches == {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
-                            "gossip_mix": 0, "gossip_mix_quant": 0}
+                            "gossip_mix": 0, "gossip_mix_quant": 0,
+                            "flash_attention": 0}
 
 
 def test_dispatch_refuses_other_devices():
