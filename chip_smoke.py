@@ -3,14 +3,19 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, then builds the five Hopper
-   kernels from `src/repro_torch/kernels/csrc/` with nvcc (parallel) and
-   prints the build time.
+1. Prints the card's name and power limit, then builds the kernel libraries
+   from `src/repro_torch/kernels/csrc/` with nvcc (one per source, in
+   parallel) and prints the build time.
 2. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
-   `flash_attention` at the cases of tests/test_kernels.py and granite-8b's
-   prefill shapes, f32 and bf16.
+   `gossip_mix` (one pass of the composed schedule) against the round-by-round
+   plain version at n = 1, 5, 10, 16 and 64 nodes and R = 0, 1, 8;
+   `flash_attention` at the cases of tests/test_kernels.py, granite-8b's
+   prefill shapes, every mask kind at D = 128 with Sq and Sk not multiples of
+   128, and a D = 96 case, f32 and bf16, each launch taking the kernel its
+   shape routes to (bf16 D = 64/128: the wgmma kernel; other bf16 head dims:
+   mma.sync; f32: FMAs).
 3. Drives the port's main paths, each run with the launch counts set to 0
    just before it and read just after:
    (a)-(c) streaming PCA at the paper's Fig. 8 size (d = 3072, N = 10 nodes,
@@ -35,12 +40,13 @@
    `ContinuousBatchingEngine`, 8 slots, 16 requests of 128-512 tokens (200
    among them), 32 new tokens each, one `swap_params` mid-traffic; every
    prefill of more than 16 tokens launches `flash_attention` once per
-   layer, and no other kernel runs. Prints tokens/s, ms per decode step and
-   peak memory.
+   layer through the wgmma kernel (72 launches in (g1), 576 in (g2)), and no
+   other kernel runs. Prints tokens/s, ms per decode step and peak memory.
 4. Times every kernel at the main path's shapes and at a wide shape
-   (N=16, d=32768; flash_attention at S = 512 and 4096) against its bound,
-   its plain version and, where one PyTorch call computes the same
-   function, that call; prints one `{"kernels": [...]}` JSON line.
+   (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
+   kernel at the same shapes) against its bound, its plain version and,
+   where one PyTorch call computes the same function, that call; prints one
+   `{"kernels": [...]}` JSON line, a row per kernel with its `design`.
 
 The last line is `{"ok": true, "device": {...}}`. Any mismatch or fault
 raises and exits non-zero; there is no CPU path and no fallback. Without a
@@ -70,7 +76,10 @@ REPLACES = {
     "gossip_mix_quant": "src/repro/kernels/consensus.py:121",
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
 }
-# tests/test_kernels.py:63 CASES, then granite-8b's prefill (H = 32, D = 128):
+# tests/test_kernels.py:63 CASES, then granite-8b's prefill (H = 32, D = 128),
+# every mask kind at D = 128 with Sq and Sk not multiples of the 128-row tiles
+# (unmasked attention needs Sk divisible by min(128, Sk)), B*H > 132 SMs with
+# Sq < Sk, and a head dim the wgmma kernel does not take:
 # (B, H, Sq, Sk, D, causal, window, chunk)
 FLASH_CASES = [
     (1, 2, 128, 128, 64, True, 0, 0),
@@ -81,10 +90,27 @@ FLASH_CASES = [
     (1, 1, 128, 384, 64, True, 0, 0),
     (1, 32, 512, 512, 128, True, 0, 0),
     (1, 32, 200, 200, 128, True, 0, 0),
+    (1, 8, 333, 333, 128, True, 0, 0),
+    (1, 8, 333, 333, 128, True, 100, 0),
+    (1, 8, 333, 333, 128, True, 0, 96),
+    (1, 8, 190, 96, 128, False, 0, 0),
+    (1, 150, 130, 300, 128, True, 0, 0),
+    (1, 2, 64, 256, 96, False, 0, 0),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:85
+GOSSIP_NODES = (1, 5, 10, 16, 64)  # 64: the most the gossip_mix kernel takes
 GRANITE_LAYERS, GEN = 36, 32
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
+# the main path's flash kernel (bf16, D = 128); flash_attention.cu keeps the
+# mma.sync and f32 kernels
+SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+DESIGN = {
+    "krasulina_xi": "two-pass",
+    "krasulina_xi_gossip": "two-pass+resident-rounds",
+    "gossip_mix": "composed",
+    "gossip_mix_quant": "resident-tile",
+    "flash_attention": "wgmma+tma",
+}
 
 
 def require(cond, msg):
@@ -139,6 +165,7 @@ def main() -> int:
                                             make_pca_host_sampler,
                                             make_pca_stream)
     from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.flash_attention import flash_variant
     from repro_torch.models import registry
     from repro_torch.serve import engine
     from repro_torch.train.driver import EngineConfig, StreamingDriver
@@ -205,12 +232,12 @@ def main() -> int:
             ref.krasulina_xi_gossip_ref(w, z, sched, 8), "bfloat16")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for n in (5, 10, 16):
+        for n in GOSSIP_NODES:
             for d in (33, 3072, 32773):
                 x = randn(n, d, dtype=dtype)
                 for topo in ("ring", "circulant2"):
                     sched = mixing.schedule(topo, n)
-                    for R in (1, 8):
+                    for R in (0, 1, 8):
                         e = compare(f"gossip_mix {dn} n={n} d={d} {topo} R={R}",
                                     ops.gossip_mix(x, sched, R),
                                     ref.gossip_mix_ref(x, sched, R), dn)
@@ -296,11 +323,15 @@ def main() -> int:
         for B, H, Sq, Sk, D, causal, window, chunk in FLASH_CASES:
             q, k, v = (randn(B, H, S, D, dtype=dtype) for S in (Sq, Sk, Sk))
             masks = dict(causal=causal, window=window, chunk=chunk)
+            want = flash_variant(dtype, D, True)
+            ops.reset_launches()
+            got = ops.attention(q, k, v, **masks)
+            require(ops.flash_launches[want] == 1, f"flash_attention {dn} D={D} "
+                    f"did not take the {want} kernel: {ops.flash_launches}")
             e = compare_close(
-                f"flash_attention {dn} B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
-                f"causal={causal} window={window} chunk={chunk}",
-                ops.attention(q, k, v, **masks),
-                ref.attention_ref(q, k, v, **masks), FLASH_TOL[dn])
+                f"flash_attention {want} {dn} B={B} H={H} Sq={Sq} Sk={Sk} "
+                f"D={D} causal={causal} window={window} chunk={chunk}",
+                got, ref.attention_ref(q, k, v, **masks), FLASH_TOL[dn])
             if (dn, H, Sq) == ("bfloat16", 32, 512):
                 errs["flash_attention"] = e
 
@@ -613,7 +644,7 @@ def main() -> int:
                                      registry.init_cache(cfg_r, 5, 32,
                                                          torch.float32,
                                                          device=d_))
-        counts = dict(ops.launches)
+        counts = dict(ops.launches, flash_by_kernel=dict(ops.flash_launches))
         gen_toks = engine.generate(params_, cfg_r, {"tokens": toks}, 32, 8,
                                    dtype=torch.float32).tolist()
         eng = engine.ContinuousBatchingEngine(cfg_r, params_, slots=2,
@@ -632,8 +663,10 @@ def main() -> int:
           f"{json.dumps(runs['card'][3])}")
     require(err <= 1e-3, "(g0) prefill logits: card and CPU disagree")
     require(all(same.values()), "(g0) greedy tokens differ")
-    require(runs["card"][3]["flash_attention"] == cfg_r.num_layers,
-            "(g0) the card's prefill did not launch flash_attention per layer")
+    require(runs["card"][3]["flash_attention"] == cfg_r.num_layers
+            and runs["card"][3]["flash_by_kernel"]["f32"] == cfg_r.num_layers,
+            "(g0) the card's f32 prefill did not launch the f32 flash kernel "
+            "per layer")
     del p_cpu, p_dev, runs, eng
 
     # (g) granite-8b at full width: 36 layers, bf16, seeded random weights
@@ -655,9 +688,16 @@ def main() -> int:
                                  if k != "flash_attention"]
 
     def serve_counts(label, prefills):
+        """Every prefill launches the wgmma flash kernel once per layer, and
+        nothing else runs."""
         want = {"flash_attention": GRANITE_LAYERS * prefills}
         want.update({k: 0 for k in others})
-        return take_counts(label, ["flash_attention"], want)
+        variants = dict(ops.flash_launches)
+        require(variants == {"wgmma": GRANITE_LAYERS * prefills,
+                             "mma_sync": 0, "f32": 0},
+                f"{label}: flash launches by kernel {variants}")
+        counts = take_counts(label, ["flash_attention"], want)
+        return dict(counts, flash_by_kernel=variants)
 
     # (g1) static generate: batch 4, prompt 512, 32 new tokens; then the same
     # steps timed apart (prefill, then each decode step)
@@ -802,7 +842,8 @@ def main() -> int:
                 timed.append(measure(
                     name, shape, lambda: ops.gossip_mix(x, sched, HIGHD_R),
                     lambda: ref.gossip_mix_ref(x, sched, HIGHD_R),
-                    4 * 2 * N * d, 2 * terms * HIGHD_R * N * d,
+                    # one multiply-add per tap of the composed schedule
+                    4 * 2 * N * d, 2 * len(fused) * N * d,
                     library=lambda: torch.matmul(A, x.reshape(N, -1))))
         main_shape, wide = timed
         rows.append({"name": name, "route": "cuda", "source": SOURCES[name],
@@ -841,10 +882,24 @@ def main() -> int:
                  "sign": timed["sign"][0], "sign_wide": timed["sign"][1]})
     # flash_attention, bf16 causal at granite-8b's heads: a 512-token prefill
     # (the main path's shape) and a 4096-token one; the causal products are
-    # 2 B H S^2 D operations, the bytes q, k, v read and out written once
+    # 2 B H S^2 D operations, the bytes q, k, v read and out written once.
+    # Beside it, in this run, the mma.sync kernel that the wgmma kernel
+    # replaced on this path, launched through its own entry point.
+    def mma_sync_attention(q, k, v):
+        out = torch.empty_like(q)
+        B, H, S, D = q.shape
+        _cuda.call("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), B * H, S, S, D, 1, 0, 0, 1 / math.sqrt(D),
+                   _cuda.DTYPE_CODES[q.dtype], 1, _cuda.stream_of(q))
+        return out
+
     timed = []
     for S in (512, 4096):
         q, k, v = (randn(1, 32, S, 128, dtype=torch.bfloat16) for _ in range(3))
+        compare_close(f"flash_attention mma_sync bfloat16 B=1 H=32 Sq={S} "
+                      f"Sk={S} D=128 causal=True (timed beside)",
+                      mma_sync_attention(q, k, v),
+                      ops.attention(q, k, v, causal=True), FLASH_TOL["bfloat16"])
         timed.append(measure(
             "flash_attention", f"bf16 causal B=1 H=32 S={S} D=128",
             lambda: ops.attention(q, k, v, causal=True),
@@ -853,6 +908,10 @@ def main() -> int:
             library=lambda: F.scaled_dot_product_attention(q, k, v,
                                                            is_causal=True),
             flops_per_s=BF16_FLOPS_PER_S))
+        timed[-1]["mma_sync_ms"] = time_ms(lambda: mma_sync_attention(q, k, v))
+        print(f"time flash_attention mma_sync kernel S={S}: "
+              f"{timed[-1]['mma_sync_ms']:.5f} ms (wgmma "
+              f"{timed[-1]['ms']:.5f} ms)")
         del q, k, v
         torch.cuda.empty_cache()
     main_shape, wide = timed
@@ -865,7 +924,10 @@ def main() -> int:
                  "bound_ms": main_shape["bound_ms"],
                  "bound_by": main_shape["bound_by"],
                  "library_ms": main_shape["library_ms"],
-                 "shape": main_shape["shape"], "wide": wide})
+                 "shape": main_shape["shape"], "wide": wide,
+                 "mma_sync_ms": main_shape["mma_sync_ms"]})
+    for row in rows:
+        row["design"] = DESIGN[row["name"]]
     # the per-round metric: the excess risk reads the [d, d] covariance, the
     # alignment error two vectors
     wbar = state.w.mean(0)

@@ -358,10 +358,12 @@ class CirculantMixOp:
                  convolution of the one-round schedule).
     * "matmul" — the dense circulant `A_eff` [n, n] as one matmul over the
                  flattened node axis (the fast CPU path).
-    * "kernel" — the hand-written CUDA kernel (`kernels.ops.gossip_mix`): the
-                 node block is tiled into shared memory once and all R rounds
-                 run there, round by round (one HBM read+write per buffer). On
-                 a CPU tensor it runs the kernel's plain per-round version.
+    * "kernel" — the hand-written CUDA kernel (`kernels.ops.gossip_mix`): it
+                 composes the R rounds into one circulant of at most n taps
+                 (`compose_schedule`, once per schedule) and applies it in one
+                 pass over column tiles staged in shared memory (one HBM
+                 read+write per buffer). On a CPU tensor it runs the kernel's
+                 plain per-round version.
     * "auto"   — resolved at build time by `circulant_mix_op` via
                  `resolve_auto_impl(device)`: "kernel" on CUDA, "matmul" on
                  the CPU.

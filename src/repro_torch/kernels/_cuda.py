@@ -4,8 +4,10 @@ interface, loaded with `ctypes`.
 
 The build happens at first use (or through `build_all()`), from the
 package's sources alone, into `kernels/build/` (listed in `.gitignore`). A
-library's file name carries a hash of its sources and flags, so an edited
-source is rebuilt and a stale library is never loaded. All missing
+library's file name carries a hash of its source, of every `csrc/` header
+the source includes (directly or through another header), and of the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. All missing
 libraries are compiled in parallel, one `nvcc` per source.
 
 The launch helpers below check what a kernel takes (device, dtype, rank,
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 import time
@@ -32,8 +35,8 @@ MAX_TERMS = 32  # kMaxTerms in csrc/common.cuh
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
-SOURCES = ("flash_attention", "gossip_mix", "gossip_mix_quant",
-           "krasulina_xi", "krasulina_xi_gossip")
+SOURCES = ("flash_attention", "flash_attention_sm90", "gossip_mix",
+           "gossip_mix_quant", "krasulina_xi", "krasulina_xi_gossip")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,8 +47,11 @@ SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _I, _P]),
+    "flash_attention_sm90": ("flash_attention_sm90_launch",
+                             [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                              ctypes.c_float, _P]),
     "gossip_mix": ("gossip_mix_launch",
-                   [_P, _P, _I, _LL, _I, _I, _I, _I, _IP, _FP, _P]),
+                   [_P, _P, _I, _LL, _I, _I, _I, _IP, _FP, _P]),
     "gossip_mix_quant": ("gossip_mix_quant_launch",
                          [_P, _P, _I, _LL, _I, _LL, _I, _I, _I, _I, _IP, _FP,
                           _P]),
@@ -70,9 +76,26 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_includes(path: Path) -> Tuple[Path, ...]:
+    """`path` and every `csrc/` file it includes with `#include "..."`,
+    directly or through another such file, in a fixed order."""
+    seen, todo = [], [path]
+    while todo:
+        cur = todo.pop(0)
+        if cur in seen:
+            continue
+        seen.append(cur)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(cur.read_text())]
+    return tuple(seen)
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in local_includes(CSRC / f"{name}.cu"):
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

@@ -2,9 +2,11 @@
 unquantized and quantized.
 
 * `gossip_mix_cuda` (`csrc/gossip_mix.cu`) replaces the Pallas
-  `gossip_mix_pallas` of the JAX package. Each block keeps one [n, bd]
-  column tile in shared memory for all R rounds, so the buffer is read once
-  and written once whatever R is.
+  `gossip_mix_pallas` of the JAX package. The rounds are linear, so the
+  wrapper composes the R-round schedule into one circulant of at most n taps
+  (`gossip_taps`, cached); each block stages one [n, bd] column tile in
+  shared memory and writes every element once as its tap sum, so the buffer
+  is read once and written once whatever R is.
 * `gossip_mix_quant_cuda` (`csrc/gossip_mix_quant.cu`) replaces
   `gossip_mix_quant_pallas`: the Section VI wire with one sign or int8
   scale per [n, block_d] column tile, every round compressed and mixed on
@@ -15,7 +17,9 @@ The sharded-node-axis rules come with a later slice of the port.
 """
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,27 +27,71 @@ from repro_torch.kernels import _cuda
 
 QUANT_CODES = {"sign": 0, "int8": 1}  # the C `quant` argument
 _SCRATCH_BYTES = 8 * 33  # the quantized kernel's static reduction scratch
+# kMaxNodes in csrc/gossip_mix.cu: the largest node count that the repository's
+# configs, tests and benchmarks mix over (a composed schedule has <= n taps)
+MAX_GOSSIP_NODES = 64
+_THREADS = 256  # kThreads in csrc/common.cuh
+_ROWS = 4  # kRows in csrc/gossip_mix.cu: output rows per thread
+
+
+@functools.lru_cache(maxsize=256)
+def _compose(sched: Tuple[Tuple[int, float], ...], rounds: int,
+             n: int) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
+    from repro_torch.core.mixing import compose_schedule
+
+    fused = compose_schedule(sched, rounds, n)
+    return (tuple(s % n for s, _ in fused), tuple(w for _, w in fused))
+
+
+def gossip_taps(sched, rounds: int,
+                n: int) -> Tuple[Tuple[int, ...], Tuple[float, ...]]:
+    """The taps of R rounds of the one-round schedule `sched` over n nodes:
+    (shifts in [0, n), weights), at most n of them, composed in f64 once per
+    (schedule, R, n) and cached (the callers pass the same schedule every
+    round). Raises beyond the kernel's MAX_GOSSIP_NODES."""
+    if rounds < 0:
+        raise ValueError(f"rounds must be >= 0, got {rounds}")
+    if not 1 <= n <= MAX_GOSSIP_NODES:
+        raise ValueError(f"gossip_mix: {n} nodes; the kernel takes 1 to "
+                         f"{MAX_GOSSIP_NODES} (one tap per node of the "
+                         f"composed schedule)")
+    key = tuple((int(s), float(w)) for s, w in sched)
+    return _compose(key, int(rounds), int(n))
+
+
+def gossip_tile_width(n: int, d: int) -> int:
+    """Columns per block of the gossip_mix kernel: the widest power of two
+    from 8 to 512 that still gives at least as many column tiles as SMs and
+    fits the block's threads (one per column and group of _ROWS rows) in
+    256. The [n, bd] f32 tile then fits shared memory for every n the kernel
+    takes."""
+    groups = -(-n // _ROWS)
+    bd = 512
+    while bd > 8 and (-(-d // bd) < _cuda.N_SMS or bd * groups > _THREADS):
+        bd //= 2
+    return bd
 
 
 def gossip_mix_cuda(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
-    """R rounds of `sum_s w_s * roll(x, s, axis=0)` on the card. x: [n, ...]
-    contiguous f32/bf16 CUDA tensor (trailing dims are flattened); `sched`:
-    the one-round ((shift, weight), ...) schedule. Output has x's dtype."""
-    if rounds < 0:
-        raise ValueError(f"rounds must be >= 0, got {rounds}")
+    """R rounds of `sum_s w_s * roll(x, s, axis=0)` on the card, as one pass
+    of the composed schedule. x: [n, ...] contiguous f32/bf16 CUDA tensor
+    (trailing dims are flattened); `sched`: the one-round ((shift, weight),
+    ...) schedule. Output has x's dtype; it differs from the round-by-round
+    plain version by f32 reassociation only."""
     n = x.shape[0]
+    shifts, weights = gossip_taps(sched, rounds, n)
     _cuda.check("gossip_mix", x, tuple(x.shape))
     flat = x.reshape(n, -1)
     d = flat.shape[1]
     out = torch.empty_like(flat)
     if d == 0:
         return out.reshape(x.shape)
-    n_terms, shifts, weights = _cuda.schedule_args(sched, n)
-    bd = _cuda.tile_width(n, d)
     with torch.cuda.device(x.device):
-        _cuda.call("gossip_mix", flat.data_ptr(), out.data_ptr(), n, d, bd,
-                   _cuda.DTYPE_CODES[x.dtype], rounds, n_terms, shifts,
-                   weights, _cuda.stream_of(x))
+        _cuda.call("gossip_mix", flat.data_ptr(), out.data_ptr(), n, d,
+                   gossip_tile_width(n, d), _cuda.DTYPE_CODES[x.dtype],
+                   len(shifts), (ctypes.c_int * len(shifts))(*shifts),
+                   (ctypes.c_float * len(weights))(*weights),
+                   _cuda.stream_of(x))
     return out.reshape(x.shape)
 
 

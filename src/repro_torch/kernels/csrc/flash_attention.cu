@@ -4,7 +4,10 @@
 // matrix is ever stored.
 //
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention (the
-// pallas_call at :116, body `_flash_kernel` at :27).
+// pallas_call at :116, body `_flash_kernel` at :27), for f32 and for the
+// bf16 calls that flash_attention_sm90.cu does not take (head dims other
+// than 64 and 128, or pointers not 16-byte aligned); `flash_variant` in
+// kernels/flash_attention.py picks by shape.
 //
 // q, k, v, out: [B*H, S, D] contiguous, f32 or bf16, D <= 128 (GQA heads
 // already repeated by the caller). Query i and key j are positions i and j,
@@ -14,10 +17,10 @@
 // call with Sq > Sk can see, and gives a fully masked row the mean of the
 // visited values.)
 //
-// Bound on the H100: at granite-8b's 512-token prefill (B = 1, H = 32,
-// D = 128, causal) the kernel must read q, k, v and write out, 16.8 MB, or
-// 5.0 us at 3.35 TB/s, against 2.1 GFLOP (2.2 us at 989 TFLOP/s bf16): bytes.
-// At S = 4096 the causal products are 137 GFLOP (139 us) against 134 MB
+// Bound on the H100: at a 512-token causal prefill of 32 heads (D = 128)
+// the kernel must read q, k, v and write out, 16.8 MB, or 5.0 us at
+// 3.35 TB/s, against 2.1 GFLOP (2.2 us at 989 TFLOP/s bf16): bytes. At
+// S = 4096 the causal products are 137 GFLOP (139 us) against 134 MB
 // (40 us): operations on the tensor cores.
 //
 // Design: one block per (b*h, 64-row query tile); a loop inside the block
@@ -36,7 +39,9 @@
 //  * f32: 256 threads, four per query row, plain f32 FMAs (no TF32: the
 //    reference's f32 tolerance is 2e-5). Q, K, V and the probability tile sit
 //    in shared memory.
-// wgmma, TMA and warp specialisation are left to later work.
+// This bf16 path uses Ampere's mma.sync and plain loads between barriers;
+// flash_attention_sm90.cu is the wgmma, TMA and warp-specialised kernel.
+#include "attention.cuh"
 #include "common.cuh"
 
 #include <math.h>
@@ -46,28 +51,6 @@ namespace repro {
 
 constexpr int kTileQ = 64;  // query rows per block
 constexpr int kTileK = 64;  // keys per inner-loop tile
-
-struct Mask {
-  int causal, window, chunk;
-  __device__ __forceinline__ bool live(int qp, int kp, int sk) const {
-    return kp < sk && (!causal || kp <= qp) && (!window || kp > qp - window) &&
-           (!chunk || kp / chunk == qp / chunk);
-  }
-};
-
-// Key tiles [*lo, *hi) that hold a live pair for query rows [q0, q1].
-__device__ __forceinline__ void key_tiles(const Mask& m, int q0, int q1, int sk,
-                                          int* lo, int* hi) {
-  int first = 0, last = sk - 1;
-  if (m.causal) last = min(last, q1);
-  if (m.chunk) {
-    last = min(last, (q1 / m.chunk + 1) * m.chunk - 1);
-    first = max(first, (q0 / m.chunk) * m.chunk);
-  }
-  if (m.window) first = max(first, q0 - m.window + 1);
-  *lo = first / kTileK;
-  *hi = last < first ? *lo : last / kTileK + 1;
-}
 
 // Online-softmax update of one query row: the running max `m`, the new
 // tile's maximum `mx` (already reduced over the row); returns the factor
@@ -84,25 +67,10 @@ __device__ __forceinline__ float prob(float s, float m) {
   return s == -INFINITY ? 0.f : expf(s - m);
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // ---------------------------------------------------------------- bf16 path
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
 }
 
 // d[0..3] += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
@@ -187,7 +155,7 @@ __global__ void __launch_bounds__(128)
   const int qrow[2] = {q0 + wr, q0 + wr + 8};
 
   int lo, hi;
-  key_tiles(mask, q0, min(q0 + kTileQ, Sq) - 1, Sk, &lo, &hi);
+  key_tiles<kTileK>(mask, q0, min(q0 + kTileQ, Sq) - 1, Sk, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kTileK;
     __syncthreads();  // every warp is done with the previous tiles
@@ -308,7 +276,7 @@ __global__ void __launch_bounds__(kF32Threads)
   float m = -INFINITY, l = 0.f;
 
   int lo, hi;
-  key_tiles(mask, q0, min(q0 + kTileQ, Sq) - 1, Sk, &lo, &hi);
+  key_tiles<kTileK>(mask, q0, min(q0 + kTileQ, Sq) - 1, Sk, &lo, &hi);
   for (int kt = lo; kt < hi; ++kt) {
     const int k0 = kt * kTileK;
     __syncthreads();

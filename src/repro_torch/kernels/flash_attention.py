@@ -1,12 +1,21 @@
-"""CUDA kernel for blockwise (flash) attention with causal, sliding-window and
-chunked-local masks: `flash_attention_cuda` (`csrc/flash_attention.cu`)
-replaces the Pallas `flash_attention` of the JAX package.
+"""CUDA kernels for blockwise (flash) attention with causal, sliding-window and
+chunked-local masks: `flash_attention_cuda` replaces the Pallas
+`flash_attention` of the JAX package. It picks one of three kernels by shape
+(`flash_variant`), never because another failed:
 
-One block per (batch*head, 64-row query tile) loops over the key tiles that
-hold a live (query, key) pair, carrying the online-softmax statistics in
-registers; bf16 runs both products on the tensor cores (`mma.sync`, f32
-accumulation), f32 runs plain f32 FMAs. The TPU kernel's lane-replicated
-statistics and sequential kv grid axis are not carried over.
+* "wgmma" (`csrc/flash_attention_sm90.cu`): bf16 with D in {64, 128} and
+  16-byte aligned tensors, every prefill of granite-8b. Warp-specialised for
+  Hopper: one thread of a producer warpgroup streams K and V tiles by TMA
+  into a two-stage ring; two consumer warpgroups run both products with
+  `wgmma` (P from registers).
+* "mma_sync" (`csrc/flash_attention.cu`): bf16 at other head dims, with
+  Ampere's `mma.sync` and plain loads.
+* "f32" (`csrc/flash_attention.cu`): f32, plain FMAs.
+
+Each block owns a query tile and loops over the key tiles that hold a live
+(query, key) pair, carrying the online-softmax statistics in registers. The
+TPU kernel's lane-replicated statistics and sequential kv grid axis are not
+carried over.
 
 Keys at or past Sk are masked and a fully masked row is 0, as in
 `ref.attention_ref`; the Pallas kernel instead pads Sk with zero keys that a
@@ -23,6 +32,29 @@ from repro_torch.kernels import _cuda
 
 MAX_HEAD_DIM = 128
 REF_BLOCK_K = 128  # the Pallas kernel's default block_k
+VARIANTS = ("wgmma", "mma_sync", "f32")
+SM90_HEAD_DIMS = (64, 128)  # the head dims of the wgmma kernel
+
+
+def flash_variant(dtype: torch.dtype, D: int, aligned: bool) -> str:
+    """The kernel that attention of this dtype, head dim and alignment (every
+    pointer 16-byte aligned) launches: "wgmma", "mma_sync" or "f32"."""
+    if dtype == torch.float32:
+        return "f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: dtype {dtype} not supported "
+                        f"(float32 or bfloat16)")
+    return "wgmma" if D in SM90_HEAD_DIMS and aligned else "mma_sync"
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel `flash_attention_cuda` launches for these inputs (its
+    output, newly allocated, is always 16-byte aligned)."""
+    return flash_variant(q.dtype, q.shape[-1], _aligned(q, k, v))
 
 
 def check_masking(sk: int, causal: bool, window: int, chunk: int) -> None:
@@ -60,10 +92,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0 or Sk == 0:
         return out.zero_()
-    vec = D % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H,
+            Sq, Sk, D, int(bool(causal)), int(window), int(chunk),
+            1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
-        _cuda.call("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   out.data_ptr(), B * H, Sq, Sk, D, int(bool(causal)),
-                   int(window), int(chunk), 1.0 / math.sqrt(D),
-                   _cuda.DTYPE_CODES[q.dtype], int(vec), _cuda.stream_of(q))
+        if route(q, k, v) == "wgmma":
+            _cuda.call("flash_attention_sm90", *args, _cuda.stream_of(q))
+        else:
+            vec = D % 8 == 0 and _aligned(q, k, v)
+            _cuda.call("flash_attention", *args, _cuda.DTYPE_CODES[q.dtype],
+                       int(vec), _cuda.stream_of(q))
     return out

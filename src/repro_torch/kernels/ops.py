@@ -15,8 +15,8 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels.consensus import (gossip_mix_cuda,
                                            gossip_mix_quant_cuda)
-from repro_torch.kernels.flash_attention import (check_masking,
-                                                 flash_attention_cuda)
+from repro_torch.kernels.flash_attention import (VARIANTS, check_masking,
+                                                 flash_attention_cuda, route)
 from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
                                                   krasulina_xi_gossip_cuda)
 
@@ -24,11 +24,15 @@ from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
 launches: Dict[str, int] = {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
                             "gossip_mix": 0, "gossip_mix_quant": 0,
                             "flash_attention": 0}
+# flash_attention launches by kernel (`flash_attention.flash_variant`); they
+# add up to launches["flash_attention"]
+flash_launches: Dict[str, int] = {v: 0 for v in VARIANTS}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, flash_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -116,4 +120,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                chunk=chunk)
     launches["flash_attention"] += 1
+    flash_launches[route(q, k, v)] += 1
     return out

@@ -18,6 +18,7 @@ from repro.kernels.flash_attention import flash_attention
 from repro.models.layers import blockwise_attention as jblockwise
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_variant, route
 from repro_torch.models.layers import blockwise_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -138,3 +139,53 @@ def test_flash_wrapper_refuses_cpu_tensors():
     q = torch.randn(1, 1, 32, 16)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_cuda(q, q, q)
+
+
+@pytest.mark.parametrize("dtype,D,aligned,want", [
+    (torch.bfloat16, 128, True, "wgmma"),
+    (torch.bfloat16, 64, True, "wgmma"),
+    (torch.bfloat16, 128, False, "mma_sync"),
+    (torch.bfloat16, 96, True, "mma_sync"),
+    (torch.bfloat16, 40, True, "mma_sync"),
+    (torch.bfloat16, 20, True, "mma_sync"),
+    (torch.float32, 128, True, "f32"),
+    (torch.float32, 64, False, "f32"),
+])
+def test_flash_variant_routes_by_shape(dtype, D, aligned, want):
+    """bf16 at D in {64, 128} and 16-byte aligned goes to the wgmma kernel,
+    other bf16 head dims to mma.sync, f32 to the FMA kernel."""
+    assert flash_variant(dtype, D, aligned) == want
+
+
+def test_flash_variant_refuses_other_dtypes():
+    with pytest.raises(TypeError, match="float16"):
+        flash_variant(torch.float16, 64, True)
+
+
+def test_granite_prefill_routes_to_the_wgmma_kernel():
+    """granite-8b's bf16 prefill (head dim 128) takes the wgmma kernel; its
+    f32 reduced form takes the FMA kernel."""
+    from repro_torch.configs import get_config, reduced
+    cfg = get_config("granite-8b")
+    q = torch.zeros(1, cfg.num_heads, 24, cfg.resolved_head_dim,
+                    dtype=torch.bfloat16)
+    assert route(q, q, q) == "wgmma"
+    qr = torch.zeros(1, 2, 24, reduced(cfg).resolved_head_dim)
+    assert route(qr, qr, qr) == "f32"
+
+
+def test_route_reads_alignment_from_the_tensors():
+    """A view that starts 2 bytes off a 16-byte boundary cannot be read by
+    the TMA, so it routes to the mma.sync kernel."""
+    q = torch.zeros(1, 1, 8, 128, dtype=torch.bfloat16)
+    assert q.data_ptr() % 16 == 0 and route(q, q, q) == "wgmma"
+    off = torch.zeros(1 + 8 * 128, dtype=torch.bfloat16)[1:].view(1, 1, 8, 128)
+    assert route(off, q, q) == "mma_sync" and route(q, q, off) == "mma_sync"
+
+
+def test_cpu_attention_counts_no_launch_by_kernel():
+    ops.reset_launches()
+    (_, _, _), (tq, tk, tv) = _qkv(1, 2, 40, 40, 64, 3, "bfloat16")
+    ops.attention(tq, tk, tv)
+    assert ops.launches["flash_attention"] == 0
+    assert ops.flash_launches == {"wgmma": 0, "mma_sync": 0, "f32": 0}

@@ -67,6 +67,31 @@ def test_cuda_gossip_mix_matches_plain(cuda, dtype, rtol, n, d):
     _close(got, tref.gossip_mix_ref(x, sched, 8), rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gossip_mix_zero_rounds_and_one_node(cuda, dtype):
+    """R = 0 is a copy and n = 1 is x * 1 (one tap, weight 1), each one
+    launch of the kernel."""
+    x = torch.randn((10, 3072), device=cuda).to(dtype)
+    before = ops.launches["gossip_mix"]
+    assert torch.equal(ops.gossip_mix(x, tmix.schedule("ring", 10), 0), x)
+    one = torch.randn((1, 777), device=cuda).to(dtype)
+    assert torch.equal(ops.gossip_mix(one, tmix.schedule("ring", 1), 8), one)
+    torch.cuda.synchronize()
+    assert ops.launches["gossip_mix"] == before + 2
+
+
+@pytest.mark.parametrize("topo", ["ring", "circulant2", "torus"])
+@pytest.mark.parametrize("n", [16, 64])
+def test_cuda_gossip_mix_composed_matches_rounds(cuda, topo, n):
+    """One pass of the composed schedule against the round-by-round plain
+    version, up to the node count the kernel takes."""
+    x = torch.randn((n, 4099), device=cuda)
+    sched = tmix.schedule(topo, n)
+    got = ops.gossip_mix(x, sched, 8)
+    torch.cuda.synchronize()
+    _close(got, tref.gossip_mix_ref(x, sched, 8), 1e-4)
+
+
 def _close_quant(got, want, dtype):
     """The gossip_mix_quant bounds of chip_smoke.py: f32 rtol / atol 1e-5 of
     max|plain| (the bound of tests/test_consensus_engine.py), bf16 5e-2 and
@@ -160,6 +185,14 @@ FLASH_CASES = [
     (2, 3, 70, 70, 40, True, 0, 32),
     (1, 1, 50, 50, 20, True, 0, 0),
     (1, 2, 64, 256, 96, False, 0, 0),
+    # the wgmma kernel's edge tiles: every mask kind at D = 128 with Sq and Sk
+    # not multiples of its 128-row tiles (unmasked attention needs Sk
+    # divisible by min(128, Sk)), and B*H > 132 SMs with Sq < Sk
+    (1, 8, 333, 333, 128, True, 0, 0),
+    (1, 8, 333, 333, 128, True, 100, 0),
+    (1, 8, 333, 333, 128, True, 0, 96),
+    (1, 8, 190, 96, 128, False, 0, 0),
+    (1, 150, 130, 300, 128, True, 0, 0),
 ]
 
 
@@ -182,6 +215,34 @@ def test_cuda_flash_attention_matches_plain(cuda, B, H, Sq, Sk, D, causal,
     assert ops.launches["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     _close_attention(got, tref.attention_ref(q, k, v, **masks), dtype)
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 96, "mma_sync"), (torch.bfloat16, 40, "mma_sync"),
+    (torch.float32, 128, "f32")])
+def test_cuda_flash_attention_counts_launches_by_kernel(cuda, dtype, D, want):
+    """Each launch counts once in launches["flash_attention"] and once under
+    the kernel its shape routes to."""
+    q = torch.randn((1, 2, 130, D), device=cuda).to(dtype)
+    ops.reset_launches()
+    got = ops.attention(q, q, q)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == 1
+    assert ops.flash_launches == {v: int(v == want) for v in ops.flash_launches}
+    _close_attention(got, tref.attention_ref(q, q, q), dtype)
+
+
+def test_cuda_flash_attention_unaligned_bf16_takes_mma_sync(cuda):
+    """A bf16 view 2 bytes off a 16-byte boundary cannot be read by the TMA:
+    it routes to the mma.sync kernel and gives the same answer."""
+    buf = torch.randn(1 + 2 * 64 * 128, device=cuda).to(torch.bfloat16)
+    q = buf[1:].view(1, 2, 64, 128)
+    ops.reset_launches()
+    got = ops.attention(q, q, q)
+    torch.cuda.synchronize()
+    assert ops.flash_launches["mma_sync"] == 1
+    _close_attention(got, tref.attention_ref(q, q, q), torch.bfloat16)
 
 
 def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):

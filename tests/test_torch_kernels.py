@@ -22,6 +22,8 @@ from repro.kernels.krasulina_update import (krasulina_xi_gossip_pallas,
 from repro_torch.core import mixing as tmix
 from repro_torch.kernels import _cuda, ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.consensus import (MAX_GOSSIP_NODES, gossip_mix_cuda,
+                                           gossip_taps, gossip_tile_width)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -157,6 +159,71 @@ def test_gossip_mix_bf16_and_trailing_dims():
     np.testing.assert_allclose(_f32(got), want, rtol=5e-2, atol=5e-2)
     kern = gossip_mix_pallas(jx, *_split(sched), 4, interpret=True)
     np.testing.assert_allclose(_f32(got), _f32(kern), rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("topo", ["ring", "circulant2", "torus"])
+@pytest.mark.parametrize("n", [1, 5, 10, 16, 64])
+@pytest.mark.parametrize("rounds", [0, 1, 8])
+def test_gossip_mix_composed_taps_match_matrix_power(topo, n, rounds):
+    """The taps the gossip_mix wrapper hands its kernel are the circulant of
+    schedule_matrix(sched, n)**R (at most n of them, shifts in [0, n)); one
+    pass over them in f32, as the kernel makes it, agrees with the JAX
+    package's round-by-round gossip at the reference's 1e-5."""
+    sched = tmix.schedule(topo, n)
+    shifts, weights = gossip_taps(sched, rounds, n)
+    assert len(shifts) <= n and all(0 <= s < n for s in shifts)
+    rows = np.arange(n)
+    A = np.zeros((n, n))
+    for s, w in zip(shifts, weights):
+        A[rows, (rows - s) % n] += w
+    want = np.linalg.matrix_power(tmix.schedule_matrix(sched, n), rounds)
+    np.testing.assert_allclose(A, want, rtol=0, atol=1e-12)
+    jx, tx = _pair((n, 33), 9)
+    one_pass = sum(np.float32(w) * np.roll(_f32(tx), s, 0)
+                   for s, w in zip(shifts, weights))
+    np.testing.assert_allclose(
+        one_pass, _f32(jref.gossip_mix_ref(jx, jmix.schedule(topo, n), rounds)),
+        rtol=1e-5, atol=1e-5)
+
+
+def test_gossip_mix_taps_are_composed_once_per_schedule():
+    """The callers pass the same one-round schedule every round: the taps are
+    composed once per (schedule, R, n), whatever sequence type holds it."""
+    sched = tmix.schedule("ring", 10)
+    first = gossip_taps(sched, 8, 10)
+    assert gossip_taps([list(t) for t in sched], 8, 10) is first
+    assert gossip_taps(sched, 7, 10) is not first
+
+
+def test_gossip_mix_refuses_nodes_beyond_its_taps():
+    """The kernel's taps travel in a struct of MAX_GOSSIP_NODES entries; the
+    wrapper refuses more nodes, naming the size, before it touches the
+    tensor."""
+    assert MAX_GOSSIP_NODES == 64
+    assert len(gossip_taps(tmix.schedule("circulant2", 64), 8, 64)[0]) <= 64
+    sched = tmix.schedule("ring", 65)
+    with pytest.raises(ValueError, match="65 nodes"):
+        gossip_taps(sched, 1, 65)
+    with pytest.raises(ValueError, match="65 nodes"):
+        gossip_mix_cuda(torch.zeros(65, 8), sched, 1)
+    with pytest.raises(ValueError, match="rounds"):
+        gossip_taps(sched, -1, 8)
+
+
+@pytest.mark.parametrize("n,d,want", [
+    (10, 3072, 16),     # 192 tiles for 132 SMs
+    (16, 32768, 64),    # 512 tiles of 64 columns x 4 row groups
+    (64, 32773, 16),    # 16 row groups
+    (16, 21, 8),        # the convex track's wire: the narrowest tile
+    (1, 10_000_000, 256),
+])
+def test_gossip_tile_width(n, d, want):
+    """A power of two with at least a tile per SM (or the narrowest), and at
+    most 256 threads to a block: one per column and group of 4 rows."""
+    bd = gossip_tile_width(n, d)
+    assert bd == want and bd & (bd - 1) == 0
+    assert bd == 8 or -(-d // bd) >= _cuda.N_SMS
+    assert bd * -(-n // 4) <= 256 and 4 * n * bd <= _cuda.SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -334,3 +401,31 @@ def test_schedule_args_normalise_shifts():
     np.testing.assert_allclose(list(weights), [1 / 3] * 3, rtol=1e-6)
     with pytest.raises(ValueError, match="terms"):
         _cuda.schedule_args(tuple((s, 0.01) for s in range(40)), 64)
+
+
+def test_every_source_has_an_entry_point():
+    assert set(_cuda.SIGNATURES) == set(_cuda.SOURCES)
+    for name in _cuda.SOURCES:
+        assert (_cuda.CSRC / f"{name}.cu").exists()
+
+
+def test_library_path_hashes_every_included_header(tmp_path, monkeypatch):
+    """A library's name hashes its source and every csrc/ header it includes,
+    directly or through another header, so an edited header rebuilds exactly
+    the libraries that include it."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, csrc)
+    monkeypatch.setattr(_cuda, "CSRC", csrc)
+    assert [p.name for p in _cuda.local_includes(
+        csrc / "flash_attention_sm90.cu")] == [
+        "flash_attention_sm90.cu", "attention.cuh", "common.cuh", "hopper.cuh"]
+    before = {name: _cuda.library_path(name) for name in _cuda.SOURCES}
+    (csrc / "attention.cuh").write_text(
+        (csrc / "attention.cuh").read_text() + "// edited\n")
+    after = {name: _cuda.library_path(name) for name in _cuda.SOURCES}
+    assert sorted(n for n in _cuda.SOURCES if before[n] != after[n]) == [
+        "flash_attention", "flash_attention_sm90"]
+    (csrc / "common.cuh").write_text(
+        (csrc / "common.cuh").read_text() + "// edited\n")
+    assert all(_cuda.library_path(n) != after[n] for n in _cuda.SOURCES)
