@@ -11,6 +11,12 @@
    the whole PCA superstep on the card against the CPU's plain path;
    `gossip_mix` (one pass of the composed schedule) against the round-by-round
    plain version at n = 1, 5, 10, 16 and 64 nodes and R = 0, 1, 8;
+   `gossip_mix_quant` at every cluster size its picker chooses (1 to 16
+   blocks per statistic tile, slices not multiples of 32, d not a multiple
+   of block_d), bit for bit against the one-block-per-tile kernel too,
+   and with valid_d inside one block's slice; `krasulina_xi_gossip` on both
+   sides of the one-read kernel's shared-memory limit (f32 and bf16, R = 0,
+   1, 8, the same bits from two launches);
    `flash_attention` at the cases of tests/test_kernels.py, granite-8b's
    prefill shapes, every mask kind at D = 128 with Sq and Sk not multiples of
    128, and a D = 96 case, f32 and bf16, each launch taking the kernel its
@@ -20,17 +26,19 @@
    just before it and read just after:
    (a)-(c) streaming PCA at the paper's Fig. 8 size (d = 3072, N = 10 nodes,
    B = 1000 samples per round, ring gossip R = 8): the governed
-   `StreamingDriver` (fused `krasulina_xi_gossip`), `run_dm_krasulina`
+   `StreamingDriver` (fused `krasulina_xi_gossip`, every launch through the
+   one-read kernel), `run_dm_krasulina`
    (`krasulina_xi`) and `run_d_krasulina(fuse_xi=False)` (`krasulina_xi`
    then `gossip_mix`), each ending finite with sin^2 < 0.05;
    (d) the governed driver with int8 tile-statistics gossip (`krasulina_xi`
-   then `gossip_mix_quant`, 48 launches each, no fused launch), sin^2 < 0.05;
+   then `gossip_mix_quant`, 48 launches each, no fused launch, every quantized
+   launch with clusters of 16 blocks), sin^2 < 0.05;
    (e) `run_d_krasulina` with sign tile-statistics gossip, sin^2 falling;
    (f) the convex track at the paper's Fig. 9 size: quantized D-SGD logistic
    regression (no quantization, int8 and sign tile statistics on the same
    draws; int8 within 5% and sign within 2x of the unquantized excess
-   risk), `run_dmb` at Fig. 6, and D-SGD over a 6-regular expander beating
-   local SGD.
+   risk; the quantized wire's launches with one block per tile), `run_dmb` at
+   Fig. 6, and D-SGD over a 6-regular expander beating local SGD.
    (g0) a 2-layer reduced granite-8b in f32 served on the card and on the
    CPU from the same parameters: prefill logits within 1e-3, and equal
    greedy tokens from `generate` and `ContinuousBatchingEngine` (5 requests
@@ -45,8 +53,10 @@
 4. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes) against its bound, its plain version and,
-   where one PyTorch call computes the same function, that call; prints one
-   `{"kernels": [...]}` JSON line, a row per kernel with its `design`.
+   where one PyTorch call computes the same function, that call; beside the
+   two kernels redesigned last, their earlier designs in the same run
+   (`gossip_mix_quant` also at R = 0, 1, 8 and at path (f)'s shape); prints
+   one `{"kernels": [...]}` JSON line, a row per kernel with its `design`.
 
 The last line is `{"ok": true, "device": {...}}`. Any mismatch or fault
 raises and exits non-zero; there is no CPU path and no fallback. Without a
@@ -106,11 +116,30 @@ SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 DESIGN = {
     "krasulina_xi": "two-pass",
-    "krasulina_xi_gossip": "two-pass+resident-rounds",
+    "krasulina_xi_gossip": "one-read+composed",
     "gossip_mix": "composed",
-    "gossip_mix_quant": "resident-tile",
+    "gossip_mix_quant": "cluster-tile",
     "flash_attention": "wgmma+tma",
 }
+# gossip_mix_quant, (block_d, d, blocks per statistic tile): every cluster
+# size the picker chooses; d is not a multiple of block_d, and the slices of
+# 50, 50, 38 and 63 columns are not multiples of 32
+QUANT_CLUSTER_CASES = [(24, 100, 1), (100, 250, 2), (200, 1000, 4),
+                       (300, 1000, 8), (512, 3149, 16), (1000, 2500, 16)]
+# krasulina_xi_gossip, (N, Bn, d, dtype, design): both sides of the one-read
+# kernel's shared-memory limit at d = 3072 (f32: N = 17 fits, 18 does not;
+# bf16: 33 and 34), the wide shape, and a row stride the TMA cannot take
+XI_GOSSIP_DESIGN_CASES = [
+    (10, 100, 3072, "float32", "one-read"),
+    (17, 100, 3072, "float32", "one-read"),
+    (18, 100, 3072, "float32", "two-pass"),
+    (16, 4, 32768, "float32", "one-read"),
+    (8, 3, 70, "float32", "two-pass"),
+    (10, 100, 3072, "bfloat16", "one-read"),
+    (33, 100, 3072, "bfloat16", "one-read"),
+    (34, 100, 3072, "bfloat16", "two-pass"),
+    (16, 4, 32768, "bfloat16", "one-read"),
+]
 
 
 def require(cond, msg):
@@ -165,7 +194,10 @@ def main() -> int:
                                             make_pca_host_sampler,
                                             make_pca_stream)
     from repro_torch.kernels import _cuda, ops, ref
+    from repro_torch.kernels.consensus import gossip_mix_quant_cuda
     from repro_torch.kernels.flash_attention import flash_variant
+    from repro_torch.kernels.krasulina_update import (krasulina_xi_gossip_cuda,
+                                                      xi_gossip_route)
     from repro_torch.models import registry
     from repro_torch.serve import engine
     from repro_torch.train.driver import EngineConfig, StreamingDriver
@@ -218,7 +250,7 @@ def main() -> int:
                     for R in (0, 1, 8):
                         e = compare(
                             f"krasulina_xi_gossip float32 N={N} Bn={bn} d={d} "
-                            f"{topo} R={R}",
+                            f"{topo} R={R} {xi_gossip_route(w, z)}",
                             ops.krasulina_xi_gossip(w, z, sched, R),
                             ref.krasulina_xi_gossip_ref(w, z, sched, R),
                             "float32")
@@ -230,6 +262,35 @@ def main() -> int:
     compare("krasulina_xi_gossip bfloat16 N=10 Bn=100 d=3072 ring R=8",
             ops.krasulina_xi_gossip(w, z, sched, 8),
             ref.krasulina_xi_gossip_ref(w, z, sched, 8), "bfloat16")
+    # the design boundary: each design as its picker names it, the same bits
+    # from a second launch (the one-read reduction has a fixed order)
+    for N, bn, d, dn, design in XI_GOSSIP_DESIGN_CASES:
+        dtype = getattr(torch, dn)
+        w, z = randn(N, d, dtype=dtype), randn(N, bn, d, dtype=dtype)
+        sched = mixing.schedule("ring", N)
+        for R in (0, 1, 8):
+            ops.reset_launches()
+            got = ops.krasulina_xi_gossip(w, z, sched, R)
+            again = ops.krasulina_xi_gossip(w, z, sched, R)
+            require(ops.xi_gossip_launches[design] == 2,
+                    f"krasulina_xi_gossip N={N} Bn={bn} d={d} {dn} did not "
+                    f"take {design}: {ops.xi_gossip_launches}")
+            compare(f"krasulina_xi_gossip {dn} N={N} Bn={bn} d={d} ring R={R} "
+                    f"{design}", got,
+                    ref.krasulina_xi_gossip_ref(w, z, sched, R), dn)
+            same = torch.equal(got, again)
+            print(f"check krasulina_xi_gossip {dn} N={N} Bn={bn} d={d} R={R} "
+                  f"{design}: two launches give the same bits "
+                  f"{'ok' if same else 'FAIL'}")
+            require(same, "krasulina_xi_gossip is not deterministic")
+    # the two-pass design that the one-read kernel replaced on path (a),
+    # forced
+    w, z = randn(10, 3072), randn(10, 100, 3072)
+    sched = mixing.schedule("ring", 10)
+    compare("krasulina_xi_gossip float32 N=10 Bn=100 d=3072 ring R=8 two-pass "
+            "(timed beside) against one-read",
+            krasulina_xi_gossip_cuda(w, z, sched, 8, _design="two-pass"),
+            ops.krasulina_xi_gossip(w, z, sched, 8), "float32")
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for n in GOSSIP_NODES:
@@ -277,6 +338,41 @@ def main() -> int:
                                         "int8", "float32", 10, 3072, 512,
                                         "ring", 8):
                                     errs["gossip_mix_quant"] = e
+    # every cluster size, against the plain version and bit for bit against
+    # the resident-tile kernel of one block per tile (both round every
+    # operation alike)
+    for block_d, d, cluster in QUANT_CLUSTER_CASES:
+        for quant in ("sign", "int8"):
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                x = randn(10, d, dtype=dtype)
+                sched = mixing.schedule("ring", 10)
+                ops.reset_launches()
+                got = ops.quant_gossip_mix(x, sched, 8, quant, block_d=block_d)
+                require(ops.quant_launches[cluster] == 1,
+                        f"gossip_mix_quant block_d={block_d} did not take "
+                        f"{cluster} blocks per tile: {ops.quant_launches}")
+                label = (f"gossip_mix_quant {quant} {dn} n=10 d={d} "
+                         f"block_d={block_d} cluster={cluster} ring R=8")
+                compare(label, got, ref.gossip_mix_quant_ref(
+                    x, sched, 8, quant, block_d=block_d), dn, QUANT_TOL)
+                same = torch.equal(got, gossip_mix_quant_cuda(
+                    x, sched, 8, quant, block_d=block_d,
+                    _design="resident-tile"))
+                print(f"check {label}: equals resident-tile bit for bit "
+                      f"{'ok' if same else 'FAIL'}")
+                require(same, f"{label}: cluster-tile and resident-tile differ")
+    # valid_d = 612 inside block 3 of tile 1's cluster of 16 (32 columns each)
+    for quant in ("sign", "int8"):
+        x = randn(10, 1024)
+        x[:, 612:] = 0
+        sched = mixing.schedule("ring", 10)
+        compare(f"gossip_mix_quant {quant} float32 n=10 d=1024 valid_d=612 "
+                f"(inside a block's slice) block_d=512 ring R=8",
+                ops.quant_gossip_mix(x, sched, 8, quant, block_d=512,
+                                     valid_d=612),
+                ref.gossip_mix_quant_ref(x, sched, 8, quant, block_d=512,
+                                         valid_d=612), "float32", QUANT_TOL)
     # pad columns past valid_d (zero) stay out of every tile statistic; the
     # unmasked sign kernel would count them into the mean
     for quant in ("sign", "int8"):
@@ -343,6 +439,8 @@ def main() -> int:
     w0 /= w0.norm()
     gossip = AveragingConfig(mode="gossip", rounds=HIGHD_R, topology="ring")
     launches = {k: 0 for k in ops.launches}
+    by_design = {k: 0 for k in ops.xi_gossip_launches}
+    by_cluster = {k: 0 for k in ops.quant_launches}
 
     def spread_of(w_nodes):
         wbar = w_nodes.mean(0)
@@ -355,11 +453,20 @@ def main() -> int:
         counts = dict(ops.launches)
         for k, v in counts.items():
             launches[k] += v
+        for k, v in ops.xi_gossip_launches.items():
+            by_design[k] += v
+        for k, v in ops.quant_launches.items():
+            by_cluster[k] += v
         for k in expect:
             require(counts[k] > 0, f"{label}: kernel {k} was never launched")
         for k, v in (exact or {}).items():
             require(counts[k] == v, f"{label}: kernel {k} launched "
                                     f"{counts[k]} times, expected {v}")
+        # launches of the two kernels by design and by blocks per tile
+        if counts["krasulina_xi_gossip"]:
+            counts["xi_gossip_by_design"] = dict(ops.xi_gossip_launches)
+        if counts["gossip_mix_quant"]:
+            counts["quant_by_cluster"] = dict(ops.quant_launches)
         return counts
 
     def finish(label, w, w_nodes, sin2_final, rounds, seconds, expect,
@@ -424,6 +531,9 @@ def main() -> int:
     finish("driver gossip fused", state.w.mean(0), state.w,
            history[-1]["metrics"]["metric"], state.t, seconds,
            ["krasulina_xi_gossip"])
+    require(ops.xi_gossip_launches == {"one-read": state.t, "two-pass": 0},
+            f"(a): krasulina_xi_gossip launches by design "
+            f"{ops.xi_gossip_launches}, expected all {state.t} one-read")
     # where the driver's time goes: host synthesis of one round's samples vs
     # one round of the superstep on the card (batch already staged)
     sample = make_pca_host_sampler(stream)
@@ -495,6 +605,10 @@ def main() -> int:
            ["krasulina_xi", "gossip_mix_quant"],
            exact={"krasulina_xi": state.t, "gossip_mix_quant": state.t,
                   "krasulina_xi_gossip": 0})
+    require(ops.quant_launches == {c: state.t * (c == 16)
+                                   for c in ops.quant_launches},
+            f"(d): gossip_mix_quant launches by blocks per tile "
+            f"{ops.quant_launches}, expected all {state.t} with 16")
     # the int8 superstep against the fused one of (a), in the order a, d, d, a
     per = {"a": [], "d": []}
     for key in ("a", "d", "d", "a"):
@@ -527,6 +641,10 @@ def main() -> int:
            res.trace_metric[-1].item(), 48, time.perf_counter() - t0,
            ["krasulina_xi", "gossip_mix_quant"],
            exact={"krasulina_xi_gossip": 0}, sin2_below=first)
+    require(ops.quant_launches == {c: 48 * (c == 16)
+                                   for c in ops.quant_launches},
+            f"(e): gossip_mix_quant launches by blocks per tile "
+            f"{ops.quant_launches}, expected all 48 with 16")
 
     # (f) the convex track at Fig. 9: quantized decentralized logistic
     # regression (N = 16, B = 64, ring R = 2, tile width 8, 400 steps,
@@ -553,6 +671,11 @@ def main() -> int:
         seconds = time.perf_counter() - t0
         counts = take_counts(f"convex {quant}", ["gossip_mix"] if quant ==
                              "none" else ["gossip_mix_quant"])
+        if quant != "none":
+            require(ops.quant_launches == {c: 400 * (c == 1)
+                                           for c in ops.quant_launches},
+                    f"convex {quant}: gossip_mix_quant launches by blocks per "
+                    f"tile {ops.quant_launches}, expected all 400 with 1")
         risks[quant] = excess(res.w.mean(0)).item()
         cerr = averaging.consensus_error({"w": res.w}).item()
         print(f"main convex D-SGD fig9 wire={quant} tile block_d=8: "
@@ -835,6 +958,14 @@ def main() -> int:
                     lambda: ref.krasulina_xi_gossip_ref(w, z, sched, HIGHD_R),
                     4 * (N * bn * d + 2 * N * d),
                     4 * N * bn * d + 2 * terms * HIGHD_R * N * d))
+                # the two-pass design, forced, in the same run
+                timed[-1]["design"] = xi_gossip_route(w, z)
+                timed[-1]["two_pass_ms"] = time_ms(
+                    lambda: krasulina_xi_gossip_cuda(w, z, sched, HIGHD_R,
+                                                     _design="two-pass"))
+                print(f"time krasulina_xi_gossip two-pass kernel {shape}: "
+                      f"{timed[-1]['two_pass_ms']:.5f} ms "
+                      f"({timed[-1]['design']} {timed[-1]['ms']:.5f} ms)")
             else:
                 fused = mixing.compose_schedule(sched, HIGHD_R, N)
                 A = torch.as_tensor(mixing.schedule_matrix(fused, N),
@@ -854,22 +985,47 @@ def main() -> int:
                      "bound_by": main_shape["bound_by"],
                      "library_ms": main_shape["library_ms"],
                      "shape": main_shape["shape"], "wide": wide})
+        if name == "krasulina_xi_gossip":
+            rows[-1]["two_pass_ms"] = main_shape["two_pass_ms"]
+            rows[-1]["launches_by_design"] = dict(by_design)
+    # gossip_mix_quant: the cluster kernel, and the one-block-per-tile
+    # kernel in the same run, at the main path's shape (paths d, e), the wide
+    # one, R = 0, 1, 8 at the main shape (the fixed load and store against
+    # the cost per round) and path (f)'s shape (800 of its launches)
+    def quant_ms(x, sched, R, quant, block_d, design):
+        return time_ms(lambda: gossip_mix_quant_cuda(
+            x, sched, R, quant, block_d=block_d, _design=design))
+
     timed = {}
     for quant in ("int8", "sign"):
         timed[quant] = []
-        for N, d in ((HIGHD_N, HIGHD.dim), (16, 32768)):
+        for N, d, R, bd in ((HIGHD_N, HIGHD.dim, HIGHD_R, 512),
+                            (16, 32768, HIGHD_R, 512), (16, 21, 2, 8)):
             sched = mixing.schedule("ring", N)
             x = randn(N, d)
             timed[quant].append(measure(
-                f"gossip_mix_quant {quant}", f"n={N} d={d} R={HIGHD_R} "
-                f"block_d=512",
-                lambda: ops.quant_gossip_mix(x, sched, HIGHD_R, quant,
-                                             block_d=512),
-                lambda: ref.gossip_mix_quant_ref(x, sched, HIGHD_R, quant,
-                                                 block_d=512),
+                f"gossip_mix_quant {quant}", f"n={N} d={d} R={R} "
+                f"block_d={bd}",
+                lambda: ops.quant_gossip_mix(x, sched, R, quant, block_d=bd),
+                lambda: ref.gossip_mix_quant_ref(x, sched, R, quant,
+                                                 block_d=bd),
                 # compression plus (deg + 1) multiply-adds per element-round
-                4 * 2 * N * d, (2 * len(sched) + 4) * HIGHD_R * N * d))
-    main_shape, wide = timed["int8"]
+                4 * 2 * N * d, (2 * len(sched) + 4) * R * N * d))
+            timed[quant][-1]["resident_tile_ms"] = quant_ms(
+                x, sched, R, quant, bd, "resident-tile")
+            print(f"time gossip_mix_quant {quant} resident-tile kernel "
+                  f"{timed[quant][-1]['shape']}: "
+                  f"{timed[quant][-1]['resident_tile_ms']:.5f} ms "
+                  f"(cluster-tile {timed[quant][-1]['ms']:.5f} ms)")
+        x = randn(HIGHD_N, HIGHD.dim)
+        sched = mixing.schedule("ring", HIGHD_N)
+        split = {design: {R: quant_ms(x, sched, R, quant, 512, design)
+                          for R in (0, 1, 8)}
+                 for design in ("cluster-tile", "resident-tile")}
+        timed[quant][0]["r_split"] = split
+        print(f"time gossip_mix_quant {quant} R-split n={HIGHD_N} "
+              f"d={HIGHD.dim} block_d=512 ms by R: {json.dumps(split)}")
+    main_shape, wide, f_shape = timed["int8"]
     rows.append({"name": "gossip_mix_quant", "route": "cuda",
                  "source": SOURCES["gossip_mix_quant"],
                  "replaces": REPLACES["gossip_mix_quant"],
@@ -878,8 +1034,12 @@ def main() -> int:
                  "plain_ms": main_shape["plain_ms"],
                  "bound_ms": main_shape["bound_ms"],
                  "bound_by": main_shape["bound_by"], "library_ms": None,
+                 "resident_tile_ms": main_shape["resident_tile_ms"],
                  "shape": "int8 " + main_shape["shape"], "wide": wide,
-                 "sign": timed["sign"][0], "sign_wide": timed["sign"][1]})
+                 "f_shape": f_shape, "r_split": main_shape["r_split"],
+                 "sign": timed["sign"][0], "sign_wide": timed["sign"][1],
+                 "sign_f_shape": timed["sign"][2],
+                 "launches_by_cluster": dict(by_cluster)})
     # flash_attention, bf16 causal at granite-8b's heads: a 512-token prefill
     # (the main path's shape) and a 4096-token one; the causal products are
     # 2 B H S^2 D operations, the bytes q, k, v read and out written once.

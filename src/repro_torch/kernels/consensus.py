@@ -9,9 +9,12 @@ unquantized and quantized.
   is read once and written once whatever R is.
 * `gossip_mix_quant_cuda` (`csrc/gossip_mix_quant.cu`) replaces
   `gossip_mix_quant_pallas`: the Section VI wire with one sign or int8
-  scale per [n, block_d] column tile, every round compressed and mixed on
-  the resident tile. The stochastic int8 compressor and sender-local
-  (`per_node`) statistics have no kernel, in the reference as here.
+  scale per [n, block_d] column tile. A thread-block cluster of
+  `quant_cluster_size(block_d)` blocks holds each tile, every block its own
+  columns for all R rounds, and the blocks agree on the tile's scale each
+  round through distributed shared memory. The stochastic int8 compressor
+  and sender-local (`per_node`) statistics have no kernel, in the reference
+  as here.
 
 The sharded-node-axis rules come with a later slice of the port.
 """
@@ -26,7 +29,12 @@ import torch
 from repro_torch.kernels import _cuda
 
 QUANT_CODES = {"sign": 0, "int8": 1}  # the C `quant` argument
-_SCRATCH_BYTES = 8 * 33  # the quantized kernel's static reduction scratch
+# the C `design` argument: a cluster of blocks per statistic tile, or the
+# earlier kernel of one block per tile (timed beside it, never on a path)
+QUANT_DESIGNS = {"cluster-tile": 0, "resident-tile": 1}
+QUANT_CLUSTERS = (16, 8, 4, 2, 1)  # blocks per statistic tile, largest first
+_QUANT_MAX_THREADS, _QUANT_MAX_VALUES = 1024, 16  # csrc/gossip_mix_quant.cu
+_SCRATCH_BYTES = 8 * 33  # the resident-tile kernel's reduction scratch
 # kMaxNodes in csrc/gossip_mix.cu: the largest node count that the repository's
 # configs, tests and benchmarks mix over (a composed schedule has <= n taps)
 MAX_GOSSIP_NODES = 64
@@ -95,15 +103,37 @@ def gossip_mix_cuda(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
+def quant_cluster_size(bd: int) -> int:
+    """Blocks per [n, bd] statistic tile of the quantized gossip kernel: the
+    largest of 16, 8, 4, 2, 1 that leaves each block at least 32 of the
+    tile's columns (a warp across a row)."""
+    return next(c for c in QUANT_CLUSTERS if bd >= 32 * c or c == 1)
+
+
+def quant_slice_columns(bd: int, cluster: int) -> Tuple[int, int]:
+    """(cw, padded): the columns of a tile that one block of the cluster
+    holds, ceil(bd / cluster), and that width padded to the power of two
+    from 8 up that the kernel lays a row out in (2^cw_log in the source)."""
+    cw = -(-bd // cluster)
+    return cw, max(8, 1 << (cw - 1).bit_length())
+
+
+def quant_tile_of(x: torch.Tensor, block_d: int) -> int:
+    """The statistic tile width bd = min(block_d, d) of x [n, ...]."""
+    return min(block_d, x[0].numel())
+
+
 def gossip_mix_quant_cuda(x: torch.Tensor, sched, rounds: int, quant: str, *,
-                          block_d: int = 512,
-                          valid_d: Optional[int] = None) -> torch.Tensor:
+                          block_d: int = 512, valid_d: Optional[int] = None,
+                          _design: str = "cluster-tile") -> torch.Tensor:
     """R rounds of quantized gossip with one compressor scale per
     [n, min(block_d, d)] column tile, on the card. x: [n, ...] contiguous
     f32/bf16 CUDA tensor (trailing dims are flattened); quant: "sign" |
     "int8"; flattened columns >= `valid_d` are pad (must be zero) and are
     left out of the statistics (None: every column is valid). The rounds run
-    in f32 and the output, of x's dtype, is rounded once."""
+    in f32 and the output, of x's dtype, is rounded once. `_design` is for
+    timing the earlier kernel ("resident-tile") beside the cluster kernel;
+    the port's paths never pass it."""
     if quant not in QUANT_CODES:
         raise ValueError(f"the quantized gossip kernel takes sign or int8, "
                          f"got {quant!r}")
@@ -123,15 +153,29 @@ def gossip_mix_quant_cuda(x: torch.Tensor, sched, rounds: int, quant: str, *,
         raise ValueError(f"schedule {sched} has a non-self term that rolls "
                          f"by a multiple of n={n}")
     bd = min(block_d, d)
-    if 8 * n * bd > _cuda.SMEM_BYTES - _SCRATCH_BYTES:
-        raise ValueError(
-            f"gossip_mix_quant: two f32 [{n}, {bd}] tiles need {8 * n * bd} "
-            f"bytes of shared memory, more than the "
-            f"{_cuda.SMEM_BYTES - _SCRATCH_BYTES} a block can have; use a "
-            f"smaller quant_block_d")
+    if _design not in QUANT_DESIGNS:
+        raise ValueError(f"unknown gossip_mix_quant design {_design!r}")
+    if _design == "cluster-tile":
+        cluster = quant_cluster_size(bd)
+        cw, padded = quant_slice_columns(bd, cluster)
+        # a thread holds one column and up to 16 rows; the compressed values
+        # (4 n padded bytes, at most 64 KB) always fit shared memory
+        if padded * -(-n // _QUANT_MAX_VALUES) > _QUANT_MAX_THREADS:
+            raise ValueError(
+                f"gossip_mix_quant: a [{n}, {cw}] slice of a [{n}, {bd}] tile "
+                f"is more than a block holds ({_QUANT_MAX_THREADS} threads of "
+                f"{_QUANT_MAX_VALUES} values); use a smaller quant_block_d")
+    else:
+        cluster = 1
+        if 8 * n * bd > _cuda.SMEM_BYTES - _SCRATCH_BYTES:
+            raise ValueError(
+                f"gossip_mix_quant: two f32 [{n}, {bd}] tiles need "
+                f"{8 * n * bd} bytes of shared memory, more than the "
+                f"{_cuda.SMEM_BYTES - _SCRATCH_BYTES} a block can have")
     n_terms, shifts, weights = _cuda.schedule_args(sched, n)
     with torch.cuda.device(x.device):
         _cuda.call("gossip_mix_quant", flat.data_ptr(), out.data_ptr(), n, d,
                    bd, dv, QUANT_CODES[quant], _cuda.DTYPE_CODES[x.dtype],
-                   rounds, n_terms, shifts, weights, _cuda.stream_of(x))
+                   rounds, n_terms, shifts, weights, cluster,
+                   QUANT_DESIGNS[_design], _cuda.stream_of(x))
     return out.reshape(x.shape)

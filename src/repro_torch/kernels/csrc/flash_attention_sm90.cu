@@ -272,37 +272,10 @@ __global__ void __launch_bounds__(kThreadsSm90, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// (the libraries are not linked against libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A [BH, S, D] bf16 tensor as a 3-D map with 128-row, 64-column boxes and
 // the 128-byte swizzle; elements outside it load as zeros.
-int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH,
-               int S, int D) {
+int encode_map(sm90::EncodeTiled encode, CUtensorMap* map, const void* ptr,
+               int BH, int S, int D) {
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)kBN, 1};
@@ -319,7 +292,7 @@ int encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int BH,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int BH,
            int Sq, int Sk, const Mask& mask, float scale, cudaStream_t stream) {
-  EncodeTiled encode = encode_tiled();
+  sm90::EncodeTiled encode = sm90::encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap tq, tk, tv;
   if (encode_map(encode, &tq, q, BH, Sq, D) ||

@@ -6,19 +6,33 @@ consensus that follows it.
   `krasulina_xi_pallas`: s = Z w, then xi = Z^T s / B - (mean(s^2) /
   ||w||^2) w, for G groups at once (the port's stand-in for `jax.vmap`).
 * `krasulina_xi_gossip_cuda` (`csrc/krasulina_xi_gossip.cu`) replaces
-  `krasulina_xi_gossip_pallas`: per-node xi, then every gossip round on the
-  shared-memory tile before the one write-back.
+  `krasulina_xi_gossip_pallas`: per-node xi, then the R gossip rounds. Its
+  design is picked by shape (`xi_gossip_design`): "one-read", one launch
+  that reads Z once into shared memory, reduces s and ||w||^2 across the
+  grid behind a grid barrier and applies the R rounds as one pass of the
+  composed circulant (`consensus.gossip_taps`); or "two-pass", where the
+  slab does not fit, the row dots then column tiles with every round on
+  the resident tile.
 
-Both are two launches (the row dots s, then the column tiles), because xi
-needs a reduction over all of d before any column of it can be formed and
-Hopper blocks carry nothing across a grid; each source file says why and
-what that costs.
+`krasulina_xi` is two launches (the row dots s, then the column tiles),
+because xi needs a reduction over all of d before any column of it can be
+formed; its source file says what that costs.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
 
 import torch
 
 from repro_torch.kernels import _cuda
+from repro_torch.kernels.consensus import MAX_GOSSIP_NODES, gossip_taps
+
+# the C `design` argument of krasulina_xi_gossip
+XI_GOSSIP_DESIGNS = {"one-read": 0, "two-pass": 1}
+_BOX_MAX = 256  # the most elements along one dimension of a TMA box
+_grid_barriers: Dict[int, torch.Tensor] = {}  # one per device, never reset
 
 
 def krasulina_xi_cuda(w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -47,12 +61,81 @@ def krasulina_xi_cuda(w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return out[0] if single else out
 
 
+def one_read_tile_width(d: int, n_sms: int = _cuda.N_SMS) -> int:
+    """Columns per block of the one-read kernel: the narrowest power of two
+    from 32 up that needs no more column tiles than SMs (one block per SM,
+    all resident at once)."""
+    bd = 32
+    while bd * n_sms < d:
+        bd *= 2
+    return bd
+
+
+def one_read_smem(N: int, Bn: int, bd: int, elem: int) -> int:
+    """Dynamic shared memory of one one-read block, in bytes: the layout of
+    `OneReadLayout` in csrc/krasulina_xi_gossip.cu (N + 1 mbarriers; the w
+    tile and a [Bn, bd] box of Z per node, each 128-byte aligned; f32 xi,
+    the final s padded to 4 per node with ||w||^2, the gossip's weight
+    table) plus 128 bytes to align its base."""
+    up = lambda v, a: -(-v // a) * a
+    loads = up(8 * (N + 1), 128) + up(N * bd * elem, 128) \
+        + N * up(Bn * bd * elem, 128)
+    return loads + 4 * (N * bd + N * up(Bn, 4) + N + 2 * N + 4) + 128
+
+
+def xi_gossip_design(N: int, Bn: int, d: int, dtype: torch.dtype,
+                     n_sms: int = _cuda.N_SMS, aligned: bool = True) -> str:
+    """The krasulina_xi_gossip kernel that w [N, d], z [N, Bn, d] of `dtype`
+    launch on a card of `n_sms` SMs: "one-read" where a block's [N, Bn, bd]
+    slab of Z fits its shared memory with one block per SM, the TMA can
+    take the rows (a 16-byte multiple of a row stride, w and z 16-byte
+    aligned, at most 256 rows and columns to a box) and the composed
+    schedule fits the kernel's taps (N <= MAX_GOSSIP_NODES); else
+    "two-pass"."""
+    elem = dtype.itemsize
+    bd = one_read_tile_width(d, n_sms)
+    fits = (aligned and N <= MAX_GOSSIP_NODES and Bn <= _BOX_MAX
+            and bd <= _BOX_MAX and (d * elem) % 16 == 0
+            and one_read_smem(N, Bn, bd, elem) <= _cuda.SMEM_BYTES)
+    return "one-read" if fits else "two-pass"
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def xi_gossip_route(w: torch.Tensor, z: torch.Tensor) -> str:
+    """The design that krasulina_xi_gossip_cuda(w, z, ...) launches."""
+    N, Bn, d = z.shape
+    return xi_gossip_design(N, Bn, d, z.dtype, _sm_count(z.device.index),
+                            aligned=(z.data_ptr() | w.data_ptr()) % 16 == 0)
+
+
+def _grid_barrier(device: torch.device) -> torch.Tensor:
+    """The one-read kernel's grid-barrier word on `device`: zeroed once, at
+    the first launch, and never reset (each barrier adds 2^31 to it), so a
+    CUDA graph's replay needs no memset."""
+    bar = _grid_barriers.get(device.index)
+    if bar is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("krasulina_xi_gossip: launch the one-read "
+                               "kernel once before capturing it in a CUDA "
+                               "graph (its barrier word is made then)")
+        bar = torch.zeros(1, dtype=torch.int32, device=device)
+        _grid_barriers[device.index] = bar
+    return bar
+
+
 def krasulina_xi_gossip_cuda(w: torch.Tensor, z: torch.Tensor, sched,
-                             rounds: int) -> torch.Tensor:
+                             rounds: int, *,
+                             _design: str = None) -> torch.Tensor:
     """w: [N, d] per-node iterates; z: [N, Bn, d] per-node mini-batches ->
     [N, d] gossip-mixed pseudo-gradients: R rounds of
     `sum_s w_s * roll(xi, s, axis=0)` applied to xi_n = krasulina_xi(w_n,
-    z_n), every round on the resident tile. R = 0 is the plain xi."""
+    z_n). R = 0 is the plain xi. The design follows `xi_gossip_route`;
+    `_design` forces one, for timing the two beside each other (the port's
+    paths never pass it), and raises where "one-read" cannot run."""
     if rounds < 0:
         raise ValueError(f"rounds must be >= 0, got {rounds}")
     if z.dim() != 3:
@@ -64,15 +147,39 @@ def krasulina_xi_gossip_cuda(w: torch.Tensor, z: torch.Tensor, sched,
     if w.dtype != z.dtype:
         raise TypeError(f"krasulina_xi_gossip: w is {w.dtype} but z is "
                         f"{z.dtype}")
-    n_terms, shifts, weights = _cuda.schedule_args(sched, n)
-    # s [N, Bn] and the per-node coefficients share the block's shared memory
-    bd = _cuda.tile_width(n, d, fixed_bytes=4 * (n * bn + n))
-    s = torch.empty((n, bn), dtype=torch.float32, device=z.device)
-    nrm2 = torch.empty((n,), dtype=torch.float32, device=z.device)
+    design = xi_gossip_route(w, z)
+    if _design is not None:
+        if _design not in XI_GOSSIP_DESIGNS:
+            raise ValueError(f"unknown krasulina_xi_gossip design "
+                             f"{_design!r}")
+        if _design == "one-read" and design != "one-read":
+            raise ValueError(f"krasulina_xi_gossip: the one-read kernel "
+                             f"cannot take N={n} Bn={bn} d={d} {z.dtype}")
+        design = _design
     out = torch.empty((n, d), dtype=w.dtype, device=z.device)
+    if design == "one-read":
+        shifts, weights = gossip_taps(sched, rounds, n)
+        n_terms = len(shifts)
+        shifts = (ctypes.c_int * n_terms)(*shifts)
+        weights = (ctypes.c_float * n_terms)(*weights)
+        bd = one_read_tile_width(d, _sm_count(z.device.index))
+        # the partials of 32 tiles side by side for each entry, then the
+        # final values
+        tiles = -(-d // bd)
+        scratch = torch.empty(((-(-tiles // 32) * 32 + 1) * (n * bn + n),),
+                              dtype=torch.float32, device=z.device)
+        bar = _grid_barrier(z.device).data_ptr()
+    else:
+        n_terms, shifts, weights = _cuda.schedule_args(sched, n)
+        # s [N, Bn] and the per-node coefficients share the block's shared
+        # memory
+        bd = _cuda.tile_width(n, d, fixed_bytes=4 * (n * bn + n))
+        scratch = torch.empty((n * bn + n,), dtype=torch.float32,
+                              device=z.device)
+        bar = None
     with torch.cuda.device(z.device):
         _cuda.call("krasulina_xi_gossip", w.data_ptr(), z.data_ptr(), n, bn,
-                   d, bd, s.data_ptr(), nrm2.data_ptr(), out.data_ptr(),
-                   _cuda.DTYPE_CODES[z.dtype], rounds, n_terms, shifts,
-                   weights, _cuda.stream_of(z))
+                   d, bd, scratch.data_ptr(), bar, out.data_ptr(),
+                   _cuda.DTYPE_CODES[z.dtype], XI_GOSSIP_DESIGNS[design],
+                   rounds, n_terms, shifts, weights, _cuda.stream_of(z))
     return out

@@ -13,12 +13,15 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.consensus import (gossip_mix_cuda,
-                                           gossip_mix_quant_cuda)
+from repro_torch.kernels.consensus import (QUANT_CLUSTERS, gossip_mix_cuda,
+                                           gossip_mix_quant_cuda,
+                                           quant_cluster_size, quant_tile_of)
 from repro_torch.kernels.flash_attention import (VARIANTS, check_masking,
                                                  flash_attention_cuda, route)
-from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
-                                                  krasulina_xi_gossip_cuda)
+from repro_torch.kernels.krasulina_update import (XI_GOSSIP_DESIGNS,
+                                                  krasulina_xi_cuda,
+                                                  krasulina_xi_gossip_cuda,
+                                                  xi_gossip_route)
 
 # kernel launches since the last `reset_launches()`, by kernel name
 launches: Dict[str, int] = {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
@@ -27,10 +30,16 @@ launches: Dict[str, int] = {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
 # flash_attention launches by kernel (`flash_attention.flash_variant`); they
 # add up to launches["flash_attention"]
 flash_launches: Dict[str, int] = {v: 0 for v in VARIANTS}
+# krasulina_xi_gossip launches by design (`xi_gossip_route`) and
+# gossip_mix_quant launches by blocks per statistic tile
+# (`quant_cluster_size`); each adds up to its kernel's count in `launches`
+xi_gossip_launches: Dict[str, int] = {v: 0 for v in XI_GOSSIP_DESIGNS}
+quant_launches: Dict[int, int] = {c: 0 for c in QUANT_CLUSTERS}
 
 
 def reset_launches() -> None:
-    for counts in (launches, flash_launches):
+    for counts in (launches, flash_launches, xi_gossip_launches,
+                   quant_launches):
         for name in counts:
             counts[name] = 0
 
@@ -79,6 +88,7 @@ def quant_gossip_mix(x: torch.Tensor, sched, rounds: int, quantization: str,
     out = gossip_mix_quant_cuda(x, sched, rounds, quantization,
                                 block_d=block_d, valid_d=valid_d)
     launches["gossip_mix_quant"] += 1
+    quant_launches[quant_cluster_size(quant_tile_of(x, block_d))] += 1
     return out
 
 
@@ -97,12 +107,14 @@ def krasulina_xi_gossip(w: torch.Tensor, z: torch.Tensor, sched,
                         rounds: int) -> torch.Tensor:
     """Fused D-Krasulina hot path: per-node pseudo-gradients (Alg. 2 steps
     3-5) + ALL R gossip rounds (eq. 17). w: [N, d]; z: [N, Bn, d]. On the
-    card every round runs on the resident tile; on the CPU the plain version
-    applies the composed R-round schedule in one pass."""
+    card the design follows the shape (`xi_gossip_route`); the one-read
+    kernel and the plain version both apply the composed R-round schedule
+    in one pass."""
     if not _on_cuda(w, z):
         return ref.krasulina_xi_gossip_ref(w, z, sched, rounds)
     out = krasulina_xi_gossip_cuda(w, z, sched, rounds)
     launches["krasulina_xi_gossip"] += 1
+    xi_gossip_launches[xi_gossip_route(w, z)] += 1
     return out
 
 

@@ -157,11 +157,170 @@ def test_cuda_gossip_mix_quant_valid_d(cuda, quant):
 
 
 def test_cuda_gossip_mix_quant_refuses_tiles_beyond_shared_memory(cuda):
+    """A cluster of 16 blocks splits a tile 16 ways; a [64, 16384] tile
+    still leaves each block a [64, 1024] slice, more than its 1,024 threads
+    of 16 values hold. The resident-tile kernel, one block per tile, refuses a
+    [64, 1024] tile: two f32 copies exceed its shared memory."""
     from repro_torch.kernels.consensus import gossip_mix_quant_cuda
-    x = torch.randn((64, 1024), device=cuda)
+    sched = tmix.schedule("ring", 64)
+    with pytest.raises(ValueError, match="more than a block holds"):
+        gossip_mix_quant_cuda(torch.randn((64, 16384), device=cuda), sched, 1,
+                              "int8", block_d=16384)
     with pytest.raises(ValueError, match="shared memory"):
-        gossip_mix_quant_cuda(x, tmix.schedule("ring", 64), 1, "int8",
-                              block_d=512)
+        gossip_mix_quant_cuda(torch.randn((64, 1024), device=cuda), sched, 1,
+                              "int8", block_d=512, _design="resident-tile")
+
+
+# (block_d, d, blocks per tile): every cluster size the picker chooses; d is
+# not a multiple of block_d, and the slices of 50, 50, 38 and 63 columns are
+# not multiples of 32
+QUANT_CLUSTER_CASES = [(24, 100, 1), (100, 250, 2), (200, 1000, 4),
+                       (300, 1000, 8), (512, 3149, 16), (1000, 2500, 16)]
+
+
+@pytest.mark.parametrize("block_d,d,cluster", QUANT_CLUSTER_CASES)
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("topo,rounds", [("ring", 8), ("circulant2", 3)])
+def test_cuda_gossip_mix_quant_every_cluster_size(cuda, block_d, d, cluster,
+                                                  quant, dtype, topo, rounds):
+    """Every cluster size against the plain version, and against the
+    one-block-per-tile kernel bit for bit (both round every operation
+    alike); the launch counts under the picker's cluster size."""
+    from repro_torch.kernels.consensus import (gossip_mix_quant_cuda,
+                                               quant_cluster_size)
+    assert quant_cluster_size(block_d) == cluster
+    x = torch.randn((10, d), device=cuda).to(dtype)
+    sched = tmix.schedule(topo, 10)
+    ops.reset_launches()
+    got = ops.quant_gossip_mix(x, sched, rounds, quant, block_d=block_d)
+    old = gossip_mix_quant_cuda(x, sched, rounds, quant, block_d=block_d,
+                                _design="resident-tile")
+    torch.cuda.synchronize()
+    assert ops.quant_launches == {c: int(c == cluster)
+                                  for c in ops.quant_launches}
+    _close_quant(got, tref.gossip_mix_quant_ref(x, sched, rounds, quant,
+                                                block_d=block_d), dtype)
+    assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+def test_cuda_gossip_mix_quant_valid_d_inside_a_slice(cuda, quant):
+    """valid_d = 612 falls inside block 3 of tile 1's cluster of 16 (32
+    columns each), not at a tile or slice edge."""
+    n, d, valid = 10, 1024, 612
+    x = torch.randn((n, d), device=cuda)
+    x[:, valid:] = 0
+    sched = tmix.schedule("ring", n)
+    got = ops.quant_gossip_mix(x, sched, 8, quant, block_d=512,
+                               valid_d=valid)
+    _close_quant(got, tref.gossip_mix_quant_ref(x, sched, 8, quant,
+                                                block_d=512, valid_d=valid),
+                 torch.float32)
+    unmasked = ops.quant_gossip_mix(x, sched, 8, quant, block_d=512)
+    torch.cuda.synchronize()
+    if quant == "sign":
+        assert not torch.allclose(got[:, :valid], unmasked[:, :valid],
+                                  atol=1e-6)
+
+
+def test_cuda_gossip_mix_quant_sign_over_many_exponents(cuda):
+    """A tile whose |h| spans 2^-40 to 2^40: the sign scale is summed in f64
+    and rounded once, so the cluster's partials summed in rank order give
+    the plain version's bits."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((10, 3072), device=cuda, generator=g)
+    x *= torch.exp2(torch.randint(-40, 41, (10, 3072), device=cuda,
+                                  generator=g).float())
+    sched = tmix.schedule("ring", 10)
+    got = ops.quant_gossip_mix(x, sched, 8, "sign", block_d=512)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.gossip_mix_quant_ref(x, sched, 8, "sign",
+                                                      block_d=512))
+
+
+# (N, Bn, d, dtype, design): both sides of the one-read kernel's
+# shared-memory limit at d = 3072 (f32: N = 17 fits, 18 does not; bf16, half
+# the slab: 33 and 34), the wide shape, and a row stride the TMA cannot take
+XI_GOSSIP_DESIGN_CASES = [
+    (10, 100, 3072, torch.float32, "one-read"),
+    (17, 100, 3072, torch.float32, "one-read"),
+    (18, 100, 3072, torch.float32, "two-pass"),
+    (16, 4, 32768, torch.float32, "one-read"),
+    (8, 3, 70, torch.float32, "two-pass"),
+    (10, 100, 3072, torch.bfloat16, "one-read"),
+    (33, 100, 3072, torch.bfloat16, "one-read"),
+    (34, 100, 3072, torch.bfloat16, "two-pass"),
+    (16, 4, 32768, torch.bfloat16, "one-read"),
+    (8, 3, 70, torch.bfloat16, "two-pass"),
+]
+
+
+@pytest.mark.parametrize("N,Bn,d,dtype,design", XI_GOSSIP_DESIGN_CASES)
+@pytest.mark.parametrize("rounds", [0, 1, 8])
+def test_cuda_krasulina_xi_gossip_designs(cuda, N, Bn, d, dtype, design,
+                                          rounds):
+    """Each design against the plain version (f32 within rtol 1e-4 of
+    max|plain| + 1e-5, bf16 5e-2 + 1e-3), the launch counted under the
+    design the picker names, and the same bits from a second launch (the
+    one-read kernel reduces across the grid in a fixed order)."""
+    w = torch.randn((N, d), device=cuda).to(dtype)
+    z = torch.randn((N, Bn, d), device=cuda).to(dtype)
+    sched = tmix.schedule("ring", N)
+    ops.reset_launches()
+    got = ops.krasulina_xi_gossip(w, z, sched, rounds)
+    again = ops.krasulina_xi_gossip(w, z, sched, rounds)
+    torch.cuda.synchronize()
+    assert ops.xi_gossip_launches == {k: 2 * (k == design)
+                                      for k in ops.xi_gossip_launches}
+    assert torch.equal(got, again)
+    want = tref.krasulina_xi_gossip_ref(w, z, sched, rounds)
+    rtol, atol = (1e-4, 1e-5) if dtype == torch.float32 else (5e-2, 1e-3)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= rtol * want.float().abs().max().item() + atol, err
+
+
+def test_cuda_krasulina_xi_gossip_forced_designs(cuda):
+    """The two designs agree at the main shape; the one-read kernel refuses
+    a slab it cannot hold."""
+    from repro_torch.kernels.krasulina_update import krasulina_xi_gossip_cuda
+    w = torch.randn((10, 3072), device=cuda)
+    z = torch.randn((10, 100, 3072), device=cuda)
+    sched = tmix.schedule("ring", 10)
+    one = krasulina_xi_gossip_cuda(w, z, sched, 8)
+    two = krasulina_xi_gossip_cuda(w, z, sched, 8, _design="two-pass")
+    torch.cuda.synchronize()
+    _close(one, two, 1e-4)
+    big = torch.randn((18, 100, 3072), device=cuda)
+    with pytest.raises(ValueError, match="one-read"):
+        krasulina_xi_gossip_cuda(big[:, 0].contiguous(), big,
+                                 tmix.schedule("ring", 18), 8,
+                                 _design="one-read")
+
+
+def test_cuda_redesigned_kernels_replay_from_a_graph(cuda):
+    """The cluster launch and the cooperative one-read launch capture into
+    a CUDA graph, and its replays give the eager results."""
+    x = torch.randn((10, 3072), device=cuda)
+    w = torch.randn((10, 3072), device=cuda)
+    z = torch.randn((10, 100, 3072), device=cuda)
+    sched = tmix.schedule("ring", 10)
+    run = lambda: (ops.quant_gossip_mix(x, sched, 8, "int8", block_d=512),
+                   ops.krasulina_xi_gossip(w, z, sched, 8))
+    eager = run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(eager, captured))
 
 
 # ---------------------------------------------------------------------------

@@ -230,6 +230,66 @@ def test_gossip_tile_width(n, d, want):
 # gossip_mix_quant
 # ---------------------------------------------------------------------------
 
+
+@pytest.mark.parametrize("bd,want", [
+    (512, 16),   # the main path's and the wide shape's block_d: 16 x 32
+    (8, 1),      # path (f)'s tile width
+    (1, 1), (31, 1), (32, 1), (63, 1),
+    (64, 2), (127, 2), (128, 4), (255, 4), (256, 8), (511, 8),
+    (1024, 16), (8192, 16),  # never more than 16 blocks to a cluster
+])
+def test_quant_cluster_size(bd, want):
+    """The largest of 16, 8, 4, 2, 1 blocks per statistic tile that leaves
+    each block at least 32 of the tile's columns (or the whole tile)."""
+    from repro_torch.kernels.consensus import (quant_cluster_size,
+                                               quant_slice_columns)
+    assert quant_cluster_size(bd) == want
+    cw, padded = quant_slice_columns(bd, want)
+    assert cw == -(-bd // want) and (want == 1 or cw >= 32)
+    assert padded >= max(cw, 8) and padded & (padded - 1) == 0
+    assert padded < 2 * max(cw, 8)
+
+
+@pytest.mark.parametrize("N,Bn,d,dtype,want", [
+    (10, 100, 3072, torch.float32, "one-read"),    # HIGHD, path (a)
+    (10, 100, 3072, torch.bfloat16, "one-read"),
+    (16, 4, 32768, torch.float32, "one-read"),     # the wide shape
+    (16, 4, 32768, torch.bfloat16, "one-read"),
+    (17, 100, 3072, torch.float32, "one-read"),    # the last slab that fits
+    (18, 100, 3072, torch.float32, "two-pass"),    # just past shared memory
+    (33, 100, 3072, torch.bfloat16, "one-read"),
+    (34, 100, 3072, torch.bfloat16, "two-pass"),
+    (10, 100, 32768, torch.float32, "two-pass"),   # a 1.0 MB slab per block
+    (8, 3, 70, torch.float32, "two-pass"),         # a row stride of 280 bytes
+    (65, 1, 3072, torch.float32, "two-pass"),      # more nodes than taps
+    (10, 257, 3072, torch.float32, "two-pass"),    # more rows than a TMA box
+    (4, 4, 33793, torch.float32, "two-pass"),      # 512-column tiles
+])
+def test_xi_gossip_design(N, Bn, d, dtype, want):
+    """one-read wherever one block's [N, Bn, bd] slab fits its shared memory
+    and the TMA can take the rows; the tiles then cover d with at most one
+    block per SM."""
+    from repro_torch.kernels.krasulina_update import (one_read_smem,
+                                                      one_read_tile_width,
+                                                      xi_gossip_design)
+    assert xi_gossip_design(N, Bn, d, dtype) == want
+    bd = one_read_tile_width(d)
+    assert bd & (bd - 1) == 0 and -(-d // bd) <= _cuda.N_SMS
+    fits = one_read_smem(N, Bn, bd, dtype.itemsize) <= _cuda.SMEM_BYTES
+    assert fits or want == "two-pass"
+
+
+def test_xi_gossip_design_needs_an_aligned_z_and_enough_sms():
+    from repro_torch.kernels.krasulina_update import xi_gossip_design
+    assert xi_gossip_design(10, 100, 3072, torch.float32,
+                            aligned=False) == "two-pass"
+    # a card with half the SMs takes 64-column tiles: a 265 KB slab at
+    # Bn = 100, 136 KB at Bn = 50
+    assert xi_gossip_design(10, 100, 3072, torch.float32,
+                            n_sms=66) == "two-pass"
+    assert xi_gossip_design(10, 50, 3072, torch.float32,
+                            n_sms=66) == "one-read"
+
 @pytest.mark.parametrize("quant", ["sign", "int8"])
 @pytest.mark.parametrize("n,d,block_d", [(8, 64, 64), (8, 130, 32), (5, 33, 16),
                                          (10, 700, 512)])
