@@ -9,14 +9,20 @@
 2. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
+   `krasulina_xi` through the design its shape routes to and through each
+   design forced where it runs (cluster-slab, two-pass), the same bits from
+   two launches;
    `gossip_mix` (one pass of the composed schedule) against the round-by-round
-   plain version at n = 1, 5, 10, 16 and 64 nodes and R = 0, 1, 8;
+   plain version at n = 1, 5, 10, 16 and 64 nodes and R = 0, 1, 8, and (the
+   one-round schedule R times on a resident tile) at 65, 100 and 256 nodes;
    `gossip_mix_quant` at every cluster size its picker chooses (1 to 16
    blocks per statistic tile, slices not multiples of 32, d not a multiple
    of block_d), bit for bit against the one-block-per-tile kernel too,
-   and with valid_d inside one block's slice; `krasulina_xi_gossip` on both
+   and with valid_d inside one block's slice, and a [300, 48] tile routed to
+   the resident-tile kernel; `krasulina_xi_gossip` on both
    sides of the one-read kernel's shared-memory limit (f32 and bf16, R = 0,
-   1, 8, the same bits from two launches);
+   1, 8, the same bits from two launches), and one-read launches on two
+   streams at once;
    `flash_attention` at the cases of tests/test_kernels.py, granite-8b's
    prefill shapes, every mask kind at D = 128 with Sq and Sk not multiples of
    128, and a D = 96 case, f32 and bf16, each launch taking the kernel its
@@ -34,6 +40,7 @@
    then `gossip_mix_quant`, 48 launches each, no fused launch, every quantized
    launch with clusters of 16 blocks), sin^2 < 0.05;
    (e) `run_d_krasulina` with sign tile-statistics gossip, sin^2 falling;
+   every `krasulina_xi` launch of (b)-(e) through the cluster-slab kernel;
    (f) the convex track at the paper's Fig. 9 size: quantized D-SGD logistic
    regression (no quantization, int8 and sign tile statistics on the same
    draws; int8 within 5% and sign within 2x of the unquantized excess
@@ -54,9 +61,11 @@
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes) against its bound, its plain version and,
    where one PyTorch call computes the same function, that call; beside the
-   two kernels redesigned last, their earlier designs in the same run
-   (`gossip_mix_quant` also at R = 0, 1, 8 and at path (f)'s shape); prints
-   one `{"kernels": [...]}` JSON line, a row per kernel with its `design`.
+   redesigned kernels, their earlier designs in the same run
+   (`gossip_mix_quant` also at R = 0, 1, 8 and at path (f)'s shape;
+   `krasulina_xi` also cold, with a 64 MB buffer written between calls);
+   prints one `{"kernels": [...]}` JSON line, a row per kernel with its
+   `design`.
 
 The last line is `{"ok": true, "device": {...}}`. Any mismatch or fault
 raises and exits non-zero; there is no CPU path and no fallback. Without a
@@ -108,14 +117,16 @@ FLASH_CASES = [
     (1, 2, 64, 256, 96, False, 0, 0),
 ]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:85
-GOSSIP_NODES = (1, 5, 10, 16, 64)  # 64: the most the gossip_mix kernel takes
+# 64: the most the composed gossip_mix kernel takes; beyond, "rounds"
+GOSSIP_NODES = (1, 5, 10, 16, 64)
+GOSSIP_ROUNDS_NODES = (65, 100, 256)
 GRANITE_LAYERS, GEN = 36, 32
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 # the main path's flash kernel (bf16, D = 128); flash_attention.cu keeps the
 # mma.sync and f32 kernels
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 DESIGN = {
-    "krasulina_xi": "two-pass",
+    "krasulina_xi": "cluster-slab",
     "krasulina_xi_gossip": "one-read+composed",
     "gossip_mix": "composed",
     "gossip_mix_quant": "cluster-tile",
@@ -196,8 +207,12 @@ def main() -> int:
     from repro_torch.kernels import _cuda, ops, ref
     from repro_torch.kernels.consensus import gossip_mix_quant_cuda
     from repro_torch.kernels.flash_attention import flash_variant
-    from repro_torch.kernels.krasulina_update import (krasulina_xi_gossip_cuda,
-                                                      xi_gossip_route)
+    from repro_torch.kernels.consensus import gossip_design
+    from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
+                                                      krasulina_xi_gossip_cuda,
+                                                      xi_clusters,
+                                                      xi_gossip_route,
+                                                      xi_route)
     from repro_torch.models import registry
     from repro_torch.serve import engine
     from repro_torch.train.driver import EngineConfig, StreamingDriver
@@ -237,10 +252,33 @@ def main() -> int:
             d = zshape[-1]
             w = randn(zshape[0], d, dtype=dtype) if wkind == "nodes" \
                 else randn(d, dtype=dtype)
-            e = compare(f"krasulina_xi {dn} w{tuple(w.shape)} z{zshape}",
-                        ops.krasulina_xi(w, z), ref.krasulina_xi_ref(w, z), dn)
+            want = ref.krasulina_xi_ref(w, z)
+            route = xi_route(w, z)
+            # the routed launch (counted under its design), then each design
+            # forced where it runs; two launches give the same bits
+            ops.reset_launches()
+            got = ops.krasulina_xi(w, z)
+            require(ops.xi_launches[route] == 1,
+                    f"krasulina_xi {dn} z{zshape} did not take {route}: "
+                    f"{ops.xi_launches}")
+            C = xi_clusters.get((*((1,) if len(zshape) == 2 else ()),
+                                 *zshape, dtype)) if route == "cluster-slab" \
+                else None
+            e = compare(f"krasulina_xi {dn} w{tuple(w.shape)} z{zshape} "
+                        f"{route}" + (f" C={C}" if C else ""), got, want, dn)
             if dn == "float32" and wkind == "nodes" and zshape[1] == 100:
                 errs["krasulina_xi"] = e
+            for design in ("cluster-slab", "two-pass"):
+                if design == "cluster-slab" and route != design:
+                    continue
+                forced = krasulina_xi_cuda(w, z, _design=design)
+                again = krasulina_xi_cuda(w, z, _design=design)
+                compare(f"krasulina_xi {dn} w{tuple(w.shape)} z{zshape} "
+                        f"{design} (forced)", forced, want, dn)
+                same = torch.equal(forced, again)
+                print(f"check krasulina_xi {dn} z{zshape} {design}: two "
+                      f"launches give the same bits {'ok' if same else 'FAIL'}")
+                require(same, f"krasulina_xi {design} is not deterministic")
     for N in (10, 16):
         for bn in (4, 100):
             for d in (70, 3072, 32768):
@@ -291,6 +329,46 @@ def main() -> int:
             "(timed beside) against one-read",
             krasulina_xi_gossip_cuda(w, z, sched, 8, _design="two-pass"),
             ops.krasulina_xi_gossip(w, z, sched, 8), "float32")
+    # one-read launches on two streams at once, each stream with its own
+    # grid-barrier word; both grids (96 small blocks each) fit the card
+    # together, so they can overlap
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    inputs = [(randn(4, 3072), randn(4, 8, 3072)) for _ in streams]
+    sched = mixing.schedule("ring", 4)
+    wants = [ref.krasulina_xi_gossip_ref(w, z, sched, 8) for w, z in inputs]
+    require(all(xi_gossip_route(w, z) == "one-read" for w, z in inputs),
+            "the two-stream case did not route to one-read")
+    torch.cuda.synchronize()
+    outs = ([], [])
+    for _ in range(50):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[k].append(ops.krasulina_xi_gossip(*inputs[k], sched, 8))
+    torch.cuda.synchronize()
+    for k in range(2):
+        err = max((o - wants[k]).abs().max().item() for o in outs[k])
+        limit = 1e-4 * wants[k].abs().max().item() + 1e-5
+        ok = err <= limit
+        print(f"check krasulina_xi_gossip one-read on stream {k + 1} of 2, "
+              f"50 launches each, interleaved: max_abs_err={err:.3e} "
+              f"limit={limit:.3e} {'ok' if ok else 'FAIL'}")
+        require(ok, "one-read launches on two streams disagree")
+    del outs, inputs
+    # above 64 nodes: the one-round schedule R times on a resident tile
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for n in GOSSIP_ROUNDS_NODES:
+            x = randn(n, 4099, dtype=dtype)
+            for topo in ("ring", "circulant2", "torus"):
+                sched = mixing.schedule(topo, n)
+                ops.reset_launches()
+                got = ops.gossip_mix(x, sched, 8)
+                require(ops.gossip_launches == {"composed": 0, "rounds": 1},
+                        f"gossip_mix n={n} did not take rounds: "
+                        f"{ops.gossip_launches}")
+                compare(f"gossip_mix {dn} n={n} d=4099 {topo} R=8 "
+                        f"{gossip_design(n)}", got,
+                        ref.gossip_mix_ref(x, sched, 8), dn)
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for n in GOSSIP_NODES:
@@ -373,6 +451,28 @@ def main() -> int:
                                      valid_d=612),
                 ref.gossip_mix_quant_ref(x, sched, 8, quant, block_d=512,
                                          valid_d=612), "float32", QUANT_TOL)
+    # a [300, 48] tile: one block per tile, 64 padded columns x 19 groups of
+    # 16 rows is more than a cluster-tile block's 1,024 threads, so the
+    # route takes the resident-tile kernel (two f32 copies, 115 KB)
+    for quant in ("sign", "int8"):
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            x = randn(300, 1000, dtype=dtype)
+            sched = mixing.schedule("ring", 300)
+            ops.reset_launches()
+            got = ops.quant_gossip_mix(x, sched, 8, quant, block_d=48)
+            require(ops.quant_launches["resident-tile"] == 1,
+                    f"gossip_mix_quant [300, 48] did not take resident-tile: "
+                    f"{ops.quant_launches}")
+            label = (f"gossip_mix_quant {quant} {dn} n=300 d=1000 block_d=48 "
+                     f"ring R=8 resident-tile (routed)")
+            compare(label, got, ref.gossip_mix_quant_ref(
+                x, sched, 8, quant, block_d=48), dn, QUANT_TOL)
+            same = torch.equal(got, gossip_mix_quant_cuda(
+                x, sched, 8, quant, block_d=48, _design="resident-tile"))
+            print(f"check {label}: equals the forced run bit for bit "
+                  f"{'ok' if same else 'FAIL'}")
+            require(same, f"{label}: routed and forced runs differ")
     # pad columns past valid_d (zero) stay out of every tile statistic; the
     # unmasked sign kernel would count them into the mean
     for quant in ("sign", "int8"):
@@ -441,6 +541,8 @@ def main() -> int:
     launches = {k: 0 for k in ops.launches}
     by_design = {k: 0 for k in ops.xi_gossip_launches}
     by_cluster = {k: 0 for k in ops.quant_launches}
+    xi_by_design = {k: 0 for k in ops.xi_launches}
+    gossip_by_design = {k: 0 for k in ops.gossip_launches}
 
     def spread_of(w_nodes):
         wbar = w_nodes.mean(0)
@@ -457,17 +559,32 @@ def main() -> int:
             by_design[k] += v
         for k, v in ops.quant_launches.items():
             by_cluster[k] += v
+        for k, v in ops.xi_launches.items():
+            xi_by_design[k] += v
+        for k, v in ops.gossip_launches.items():
+            gossip_by_design[k] += v
         for k in expect:
             require(counts[k] > 0, f"{label}: kernel {k} was never launched")
         for k, v in (exact or {}).items():
             require(counts[k] == v, f"{label}: kernel {k} launched "
                                     f"{counts[k]} times, expected {v}")
-        # launches of the two kernels by design and by blocks per tile
+        # launches of the kernels by design and by blocks per tile
+        if counts["krasulina_xi"]:
+            counts["xi_by_design"] = dict(ops.xi_launches)
         if counts["krasulina_xi_gossip"]:
             counts["xi_gossip_by_design"] = dict(ops.xi_gossip_launches)
+        if counts["gossip_mix"]:
+            counts["gossip_by_design"] = dict(ops.gossip_launches)
         if counts["gossip_mix_quant"]:
             counts["quant_by_cluster"] = dict(ops.quant_launches)
         return counts
+
+    def require_slab(label, n):
+        """Every krasulina_xi launch of the run just read went through the
+        cluster-slab kernel."""
+        require(ops.xi_launches == {"cluster-slab": n, "two-pass": 0},
+                f"{label}: krasulina_xi launches by design "
+                f"{ops.xi_launches}, expected all {n} cluster-slab")
 
     def finish(label, w, w_nodes, sin2_final, rounds, seconds, expect,
                exact=None, sin2_below=0.05):
@@ -559,6 +676,7 @@ def main() -> int:
     finish("run_dm_krasulina exact", res.w, res.w[None],
            res.trace_metric[-1].item(), 50, time.perf_counter() - t0,
            ["krasulina_xi"])
+    require_slab("(b)", 50)
 
     # (c) unfused gossip D-Krasulina: krasulina_xi then gossip_mix
     ops.reset_launches()
@@ -571,6 +689,7 @@ def main() -> int:
     finish("run_d_krasulina gossip unfused", res.w, res.w_nodes,
            res.trace_metric[-1].item(), 50, time.perf_counter() - t0,
            ["krasulina_xi", "gossip_mix"])
+    require_slab("(c)", 50)
 
     # (d) governed driver, int8 tile-statistics gossip: krasulina_xi then
     # gossip_mix_quant every round, never the fused (exact-wire) kernel
@@ -609,6 +728,7 @@ def main() -> int:
                                    for c in ops.quant_launches},
             f"(d): gossip_mix_quant launches by blocks per tile "
             f"{ops.quant_launches}, expected all {state.t} with 16")
+    require_slab("(d)", state.t)
     # the int8 superstep against the fused one of (a), in the order a, d, d, a
     per = {"a": [], "d": []}
     for key in ("a", "d", "d", "a"):
@@ -645,6 +765,7 @@ def main() -> int:
                                    for c in ops.quant_launches},
             f"(e): gossip_mix_quant launches by blocks per tile "
             f"{ops.quant_launches}, expected all 48 with 16")
+    require_slab("(e)", 48)
 
     # (f) the convex track at Fig. 9: quantized decentralized logistic
     # regression (N = 16, B = 64, ring R = 2, tile width 8, 400 steps,
@@ -722,9 +843,10 @@ def main() -> int:
     require(math.isfinite(dsgd_risk) and dsgd_risk < local_risk,
             "D-SGD did not beat local SGD")
 
-    def time_ms(fn, reps=20, replays=5):
+    def time_ms(fn, reps=20, replays=5, flush=None):
         """Device time of one call: `reps` calls captured in a CUDA graph,
-        replayed `replays` times between two events (no host launch gaps)."""
+        replayed `replays` times between two events (no host launch gaps);
+        with `flush`, each call follows one of it in the graph."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -736,6 +858,8 @@ def main() -> int:
         torch.cuda.current_stream().wait_stream(side)
         with torch.cuda.graph(graph):
             for _ in range(reps):
+                if flush is not None:
+                    flush()
                 fn()
         graph.replay()
         torch.cuda.synchronize()
@@ -935,6 +1059,15 @@ def main() -> int:
         print(f"time {name} {shape}: " + json.dumps(out))
         return out
 
+    # cold: a 64 MB buffer (more than the 50 MB L2) written before each call
+    # in the graph, its own time taken off
+    scrub = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    scrub_fill = lambda: scrub.fill_(1)
+    scrub_ms = time_ms(lambda: None, flush=scrub_fill)
+
+    def cold_ms(fn):
+        return time_ms(fn, flush=scrub_fill) - scrub_ms
+
     rows = []
     for name in ("krasulina_xi", "krasulina_xi_gossip", "gossip_mix"):
         timed = []
@@ -951,6 +1084,20 @@ def main() -> int:
                     name, shape, lambda: ops.krasulina_xi(w, z),
                     lambda: ref.krasulina_xi_ref(w, z),
                     4 * (N * bn * d + 2 * N * d), 4 * N * bn * d))
+                # cold, and the two-pass design, forced, in the same run
+                two_pass = lambda: krasulina_xi_cuda(w, z, _design="two-pass")
+                timed[-1].update(
+                    design=xi_route(w, z),
+                    cluster=xi_clusters[(N, bn, d, torch.float32)],
+                    cold_ms=cold_ms(lambda: ops.krasulina_xi(w, z)),
+                    two_pass_ms=time_ms(two_pass),
+                    two_pass_cold_ms=cold_ms(two_pass))
+                t = timed[-1]
+                print(f"time krasulina_xi {shape}: {t['design']} with "
+                      f"clusters of {t['cluster']} {t['ms']:.5f} ms warm, "
+                      f"{t['cold_ms']:.5f} ms cold; two-pass kernel "
+                      f"{t['two_pass_ms']:.5f} ms warm, "
+                      f"{t['two_pass_cold_ms']:.5f} ms cold")
             elif name == "krasulina_xi_gossip":
                 timed.append(measure(
                     name, shape,
@@ -988,6 +1135,14 @@ def main() -> int:
         if name == "krasulina_xi_gossip":
             rows[-1]["two_pass_ms"] = main_shape["two_pass_ms"]
             rows[-1]["launches_by_design"] = dict(by_design)
+        if name == "krasulina_xi":
+            for key in ("cluster", "cold_ms", "two_pass_ms",
+                        "two_pass_cold_ms"):
+                rows[-1][key] = main_shape[key]
+            rows[-1]["launches_by_design"] = dict(xi_by_design)
+        if name == "gossip_mix":
+            rows[-1]["launches_by_design"] = dict(gossip_by_design)
+    del scrub
     # gossip_mix_quant: the cluster kernel, and the one-block-per-tile
     # kernel in the same run, at the main path's shape (paths d, e), the wide
     # one, R = 0, 1, 8 at the main shape (the fixed load and store against

@@ -51,12 +51,13 @@ SIGNATURES = {
                              [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               ctypes.c_float, _P]),
     "gossip_mix": ("gossip_mix_launch",
-                   [_P, _P, _I, _LL, _I, _I, _I, _IP, _FP, _P]),
+                   [_P, _P, _I, _LL, _I, _I, _I, _I, _I, _IP, _FP, _P]),
     "gossip_mix_quant": ("gossip_mix_quant_launch",
                          [_P, _P, _I, _LL, _I, _LL, _I, _I, _I, _I, _IP, _FP,
                           _I, _I, _P]),
     "krasulina_xi": ("krasulina_xi_launch",
-                     [_P, _LL, _P, _I, _I, _LL, _P, _P, _P, _I, _P]),
+                     [_P, _LL, _P, _I, _I, _LL, _P, _P, _P, _I, _I, _IP,
+                      _P]),
     "krasulina_xi_gossip": ("krasulina_xi_gossip_launch",
                             [_P, _P, _I, _I, _LL, _I, _P, _P, _P, _I, _I, _I,
                              _I, _IP, _FP, _P]),

@@ -123,6 +123,34 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A [depth, rows, d] tensor of T (f32 or bf16) as a 3-D tensor map with
+// [bd, box_rows, 1] boxes (box_rows = rows where it is 0) and no swizzle;
+// elements outside the tensor load as zeros, and a box always completes its
+// full size in bytes. The TMA takes a row stride that is a multiple of 16
+// bytes, a 16-byte aligned base and at most 256 elements to a box dimension.
+template <typename T>
+inline int encode_rows(CUtensorMap* map, const void* ptr, long long depth,
+                       long long rows, long long d, int bd, int box_rows = 0) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
+                              (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(T),
+                                 (cuuint64_t)rows * d * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)bd,
+                             (cuuint32_t)(box_rows > 0 ? box_rows : rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapDataType type = sizeof(T) == 4
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? (int)cudaSuccess
+             : (int)cudaErrorInvalidValue;
+}
+
 // --------------------------------------------------------------------- wgmma
 
 // Descriptor of a 128-byte-swizzled shared-memory operand starting at byte

@@ -41,9 +41,9 @@
 //      the xi tile (each thread four output rows of one column, each xi
 //      value read once for all four); the tile is written once.
 // The grid barrier (sync.cuh) is one atomic per block on a word that the
-// wrapper allocates once per device and never resets, so a CUDA graph's
-// replay needs no memset; the launcher checks the grid against the
-// occupancy first. tools/xi_gossip_phases.py times each step on the card.
+// wrapper allocates once per stream and never resets, so launches on two
+// streams never share one and a CUDA graph's replay needs no memset; the
+// launcher checks the grid against the occupancy first. tools/xi_gossip_phases.py times each step on the card.
 //
 // two-pass (the earlier design; shapes whose slab does not fit one block's
 // shared memory, more than 64 nodes or 256 rows per node, a row stride the
@@ -293,30 +293,6 @@ __global__ void __launch_bounds__(kOneReadThreads, 1)
   }
 }
 
-// A [depth, rows, d] tensor as a 3-D tensor map with [bd, rows, 1] boxes
-// and no swizzle; elements past d load as zeros.
-template <typename T>
-static int encode_rows(CUtensorMap* map, const void* ptr, int depth, int rows,
-                       long long d, int bd) {
-  sm90::EncodeTiled encode = sm90::encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)rows,
-                              (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(T),
-                                 (cuuint64_t)rows * d * sizeof(T)};
-  const cuuint32_t box[3] = {(cuuint32_t)bd, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapDataType type = sizeof(T) == 4
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? (int)cudaSuccess
-             : (int)cudaErrorInvalidValue;
-}
-
 template <typename T, int BD>
 static int launch_one_read(const void* w, const void* z, int N, int Bn,
                            long long d, float* scratch, unsigned* bar,
@@ -329,8 +305,8 @@ static int launch_one_read(const void* w, const void* z, int N, int Bn,
       ((reinterpret_cast<uintptr_t>(z) | reinterpret_cast<uintptr_t>(w)) & 15))
     return (int)cudaErrorInvalidValue;
   CUtensorMap zmap, wmap;
-  int err = encode_rows<T>(&zmap, z, N, Bn, d, bd);
-  if (err == cudaSuccess) err = encode_rows<T>(&wmap, w, 1, N, d, bd);
+  int err = sm90::encode_rows<T>(&zmap, z, N, Bn, d, bd);
+  if (err == cudaSuccess) err = sm90::encode_rows<T>(&wmap, w, 1, N, d, bd);
   if (err != cudaSuccess) return err;
   const size_t smem = OneReadLayout(N, Bn, bd, sizeof(T)).total + 128;
   static size_t granted = 0;

@@ -8,20 +8,23 @@ so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.consensus import (QUANT_CLUSTERS, gossip_mix_cuda,
+from repro_torch.kernels.consensus import (GOSSIP_DESIGNS, QUANT_CLUSTERS,
+                                           gossip_design, gossip_mix_cuda,
                                            gossip_mix_quant_cuda,
-                                           quant_cluster_size, quant_tile_of)
+                                           quant_cluster_size, quant_route,
+                                           quant_tile_of)
 from repro_torch.kernels.flash_attention import (VARIANTS, check_masking,
                                                  flash_attention_cuda, route)
-from repro_torch.kernels.krasulina_update import (XI_GOSSIP_DESIGNS,
+from repro_torch.kernels.krasulina_update import (XI_DESIGNS,
+                                                  XI_GOSSIP_DESIGNS,
                                                   krasulina_xi_cuda,
                                                   krasulina_xi_gossip_cuda,
-                                                  xi_gossip_route)
+                                                  xi_gossip_route, xi_route)
 
 # kernel launches since the last `reset_launches()`, by kernel name
 launches: Dict[str, int] = {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
@@ -30,16 +33,22 @@ launches: Dict[str, int] = {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
 # flash_attention launches by kernel (`flash_attention.flash_variant`); they
 # add up to launches["flash_attention"]
 flash_launches: Dict[str, int] = {v: 0 for v in VARIANTS}
-# krasulina_xi_gossip launches by design (`xi_gossip_route`) and
-# gossip_mix_quant launches by blocks per statistic tile
-# (`quant_cluster_size`); each adds up to its kernel's count in `launches`
+# krasulina_xi launches by design (`xi_route`), krasulina_xi_gossip
+# launches by design (`xi_gossip_route`), gossip_mix launches by design
+# (`gossip_design`), and gossip_mix_quant launches by blocks per statistic
+# tile of the cluster-tile kernel (`quant_cluster_size`) or under
+# "resident-tile" (`quant_route`); each adds up to its kernel's count in
+# `launches`
+xi_launches: Dict[str, int] = {v: 0 for v in XI_DESIGNS}
 xi_gossip_launches: Dict[str, int] = {v: 0 for v in XI_GOSSIP_DESIGNS}
-quant_launches: Dict[int, int] = {c: 0 for c in QUANT_CLUSTERS}
+gossip_launches: Dict[str, int] = {v: 0 for v in GOSSIP_DESIGNS}
+quant_launches: Dict[Union[int, str], int] = {
+    **{c: 0 for c in QUANT_CLUSTERS}, "resident-tile": 0}
 
 
 def reset_launches() -> None:
-    for counts in (launches, flash_launches, xi_gossip_launches,
-                   quant_launches):
+    for counts in (launches, flash_launches, xi_launches, xi_gossip_launches,
+                   gossip_launches, quant_launches):
         for name in counts:
             counts[name] = 0
 
@@ -58,12 +67,13 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
 
 def gossip_mix(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
     """R rounds of circulant gossip consensus over axis 0 (eq. 17), one HBM
-    read and one write on the card. `sched`: ((shift, weight), ...) one-round
-    schedule."""
+    read and one write on the card, the design following the node count
+    (`gossip_design`). `sched`: ((shift, weight), ...) one-round schedule."""
     if not _on_cuda(x):
         return ref.gossip_mix_ref(x, sched, rounds)
     out = gossip_mix_cuda(x, sched, rounds)
     launches["gossip_mix"] += 1
+    gossip_launches[gossip_design(x.shape[0])] += 1
     return out
 
 
@@ -88,18 +98,21 @@ def quant_gossip_mix(x: torch.Tensor, sched, rounds: int, quantization: str,
     out = gossip_mix_quant_cuda(x, sched, rounds, quantization,
                                 block_d=block_d, valid_d=valid_d)
     launches["gossip_mix_quant"] += 1
-    quant_launches[quant_cluster_size(quant_tile_of(x, block_d))] += 1
+    design = quant_route(x, block_d)
+    quant_launches[quant_cluster_size(quant_tile_of(x, block_d))
+                   if design == "cluster-tile" else design] += 1
     return out
 
 
 def krasulina_xi(w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Mini-batch Krasulina pseudo-gradient (Alg. 2 steps 3-5). w: [d], z:
     [B, d] -> [d]; or batched, w [G, d] (or a shared [d]), z [G, B, d] ->
-    [G, d]."""
+    [G, d]. On the card the design follows the shape (`xi_route`)."""
     if not _on_cuda(w, z):
         return ref.krasulina_xi_ref(w, z)
     out = krasulina_xi_cuda(w, z)
     launches["krasulina_xi"] += 1
+    xi_launches[xi_route(w, z)] += 1
     return out
 
 

@@ -43,6 +43,92 @@ def test_cuda_krasulina_xi_matches_plain(cuda, dtype, rtol, wshape, zshape):
     _close(got, tref.krasulina_xi_ref(w, z), rtol)
 
 
+# chip_smoke.py's krasulina_xi check: (w kind, z shape); one w per call
+# ("shared", also across a batch of groups) or one per group ("groups");
+# B = 300 and d = 257 are ragged
+XI_CASES = [("shared", (1000, 3072)), ("shared", (300, 257)),
+            ("shared", (5, 32768)), ("shared", (10, 100, 3072)),
+            ("groups", (10, 100, 3072)), ("groups", (16, 4, 32768))]
+
+
+@pytest.mark.parametrize("wkind,zshape", XI_CASES)
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("design", ["routed", "cluster-slab", "two-pass"])
+def test_cuda_krasulina_xi_designs(cuda, wkind, zshape, dtype, rtol, design):
+    """Each design, routed and forced, against the plain version, the same
+    bits from a second launch (the cluster-slab kernel sums its cluster's
+    partials in rank order), and the routed launch counted under the design
+    `xi_route` names; forcing cluster-slab where its slab does not fit (B =
+    1000) or the TMA cannot take the rows (d = 257) raises."""
+    from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
+                                                      xi_route)
+    z = torch.randn(zshape, device=cuda).to(dtype)
+    d = zshape[-1]
+    w = torch.randn((zshape[0], d) if wkind == "groups" else (d,),
+                    device=cuda).to(dtype)
+    route = xi_route(w, z)
+    assert route == ("two-pass" if zshape[0] in (1000, 300)
+                     else "cluster-slab")
+    if design == "cluster-slab" and route != "cluster-slab":
+        with pytest.raises(ValueError, match="cluster-slab"):
+            krasulina_xi_cuda(w, z, _design=design)
+        return
+    ops.reset_launches()
+    if design == "routed":
+        got, again = ops.krasulina_xi(w, z), ops.krasulina_xi(w, z)
+        assert ops.xi_launches == {k: 2 * (k == route)
+                                   for k in ops.xi_launches}
+    else:
+        got = krasulina_xi_cuda(w, z, _design=design)
+        again = krasulina_xi_cuda(w, z, _design=design)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert got.shape == ((d,) if len(zshape) == 2 else (zshape[0], d))
+    assert torch.equal(got, again)
+    _close(got, tref.krasulina_xi_ref(w, z), rtol)
+
+
+@pytest.mark.parametrize("G,B,d", [(3, 8, 4800), (2, 5, 32768), (4, 12, 320),
+                                   (1, 3, 8)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 5e-2)])
+def test_cuda_krasulina_xi_cluster_slab_layouts(cuda, G, B, d, dtype, rtol):
+    """The cluster-slab kernel's box layouts against the plain version: two
+    column boxes to a slice (d = 4800), eight of 5 rows (d = 32768),
+    24-column slices with blocks past d (d = 320), and a slice of 8 columns
+    in a cluster of blocks that are almost all past d, its boxes taller than
+    B (d = 8)."""
+    from repro_torch.kernels.krasulina_update import xi_route
+    w = torch.randn((G, d), device=cuda).to(dtype)
+    z = torch.randn((G, B, d), device=cuda).to(dtype)
+    assert xi_route(w, z) == "cluster-slab"
+    got = ops.krasulina_xi(w, z)
+    torch.cuda.synchronize()
+    _close(got, tref.krasulina_xi_ref(w, z), rtol)
+
+
+def test_cuda_krasulina_xi_cluster_slab_replays_from_a_graph(cuda):
+    """The cluster-slab launch captures into a CUDA graph, and its replays
+    give the eager result, bit for bit."""
+    w = torch.randn((10, 3072), device=cuda)
+    z = torch.randn((10, 100, 3072), device=cuda)
+    eager = ops.krasulina_xi(w, z)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.krasulina_xi(w, z)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured = ops.krasulina_xi(w, z)
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(eager, captured)
+
+
 @pytest.mark.parametrize("N,Bn,d", [(10, 100, 3072), (16, 4, 32768),
                                     (8, 3, 70)])
 @pytest.mark.parametrize("rounds", [0, 1, 8])
@@ -90,6 +176,24 @@ def test_cuda_gossip_mix_composed_matches_rounds(cuda, topo, n):
     got = ops.gossip_mix(x, sched, 8)
     torch.cuda.synchronize()
     _close(got, tref.gossip_mix_ref(x, sched, 8), 1e-4)
+
+
+@pytest.mark.parametrize("topo", ["ring", "circulant2", "torus"])
+@pytest.mark.parametrize("n", [65, 100, 256])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 5e-2)])
+def test_cuda_gossip_mix_rounds_beyond_the_taps(cuda, topo, n, dtype, rtol):
+    """Above 64 nodes the launch takes the "rounds" design (the one-round
+    schedule R times on a resident tile) and agrees with the round-by-round
+    plain version."""
+    x = torch.randn((n, 4099), device=cuda).to(dtype)
+    sched = tmix.schedule(topo, n)
+    ops.reset_launches()
+    got = ops.gossip_mix(x, sched, 8)
+    torch.cuda.synchronize()
+    assert ops.gossip_launches == {"composed": 0, "rounds": 1}
+    assert got.dtype == dtype
+    _close(got, tref.gossip_mix_ref(x, sched, 8), rtol)
 
 
 def _close_quant(got, want, dtype):
@@ -159,11 +263,12 @@ def test_cuda_gossip_mix_quant_valid_d(cuda, quant):
 def test_cuda_gossip_mix_quant_refuses_tiles_beyond_shared_memory(cuda):
     """A cluster of 16 blocks splits a tile 16 ways; a [64, 16384] tile
     still leaves each block a [64, 1024] slice, more than its 1,024 threads
-    of 16 values hold. The resident-tile kernel, one block per tile, refuses a
-    [64, 1024] tile: two f32 copies exceed its shared memory."""
+    of 16 values hold, and two f32 copies of the tile exceed a
+    resident-tile block's shared memory: the route names both limits. The
+    resident-tile kernel, forced, refuses a [64, 1024] tile."""
     from repro_torch.kernels.consensus import gossip_mix_quant_cuda
     sched = tmix.schedule("ring", 64)
-    with pytest.raises(ValueError, match="more than a block holds"):
+    with pytest.raises(ValueError, match="fits neither kernel"):
         gossip_mix_quant_cuda(torch.randn((64, 16384), device=cuda), sched, 1,
                               "int8", block_d=16384)
     with pytest.raises(ValueError, match="shared memory"):
@@ -202,6 +307,32 @@ def test_cuda_gossip_mix_quant_every_cluster_size(cuda, block_d, d, cluster,
     _close_quant(got, tref.gossip_mix_quant_ref(x, sched, rounds, quant,
                                                 block_d=block_d), dtype)
     assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_gossip_mix_quant_routes_to_resident_tile(cuda, quant, dtype):
+    """A [300, 48] tile: one block per tile, 64 padded columns x 19 groups of
+    16 rows is more than a cluster-tile block's 1,024 threads, but two f32
+    copies (115 KB) fit a resident-tile block. The launch is counted under
+    "resident-tile", agrees with the plain version and equals the forced
+    resident-tile run bit for bit."""
+    from repro_torch.kernels.consensus import gossip_mix_quant_cuda
+    x = torch.randn((300, 1000), device=cuda).to(dtype)
+    sched = tmix.schedule("ring", 300)
+    ops.reset_launches()
+    got = ops.quant_gossip_mix(x, sched, 8, quant, block_d=48)
+    forced = gossip_mix_quant_cuda(x, sched, 8, quant, block_d=48,
+                                   _design="resident-tile")
+    torch.cuda.synchronize()
+    assert ops.quant_launches == {c: int(c == "resident-tile")
+                                  for c in ops.quant_launches}
+    assert torch.equal(got, forced)
+    _close_quant(got, tref.gossip_mix_quant_ref(x, sched, 8, quant,
+                                                block_d=48), dtype)
+    with pytest.raises(ValueError, match="more than a block holds"):
+        gossip_mix_quant_cuda(x, sched, 8, quant, block_d=48,
+                              _design="cluster-tile")
 
 
 @pytest.mark.parametrize("quant", ["sign", "int8"])
@@ -296,6 +427,30 @@ def test_cuda_krasulina_xi_gossip_forced_designs(cuda):
         krasulina_xi_gossip_cuda(big[:, 0].contiguous(), big,
                                  tmix.schedule("ring", 18), 8,
                                  _design="one-read")
+
+
+def test_cuda_one_read_on_two_streams_at_once(cuda):
+    """One-read krasulina_xi_gossip launches on two streams at once, each
+    with its own grid-barrier word: every result equals the plain version.
+    Both grids (96 small blocks each) fit the card together, so they can
+    overlap."""
+    from repro_torch.kernels.krasulina_update import xi_gossip_route
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    inputs = [(torch.randn((4, 3072), device=cuda),
+               torch.randn((4, 8, 3072), device=cuda)) for _ in streams]
+    sched = tmix.schedule("ring", 4)
+    assert all(xi_gossip_route(w, z) == "one-read" for w, z in inputs)
+    wants = [tref.krasulina_xi_gossip_ref(w, z, sched, 8) for w, z in inputs]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(50):
+        for k, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[k].append(ops.krasulina_xi_gossip(*inputs[k], sched, 8))
+    torch.cuda.synchronize()
+    for k in range(2):
+        for got in outs[k]:
+            _close(got, wants[k], 1e-4)
 
 
 def test_cuda_redesigned_kernels_replay_from_a_graph(cuda):

@@ -22,8 +22,9 @@ from repro.kernels.krasulina_update import (krasulina_xi_gossip_pallas,
 from repro_torch.core import mixing as tmix
 from repro_torch.kernels import _cuda, ops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.consensus import (MAX_GOSSIP_NODES, gossip_mix_cuda,
-                                           gossip_taps, gossip_tile_width)
+from repro_torch.kernels.consensus import (MAX_GOSSIP_NODES, gossip_design,
+                                           gossip_mix_cuda, gossip_taps,
+                                           gossip_tile_width)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -92,6 +93,89 @@ def test_krasulina_xi_batched_matches_vmap(shared_w):
         want = jax.vmap(jref.krasulina_xi_ref)(jw, jz)
     np.testing.assert_allclose(_f32(ops.krasulina_xi(tw, tz)), _f32(want),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shared_w", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_krasulina_xi_batched_matches_vmapped_pallas(shared_w, dtype):
+    """The plain version the cluster-slab kernel is held to on the card,
+    batched over G = 4 groups (B = 12, d = 320), against `jax.vmap` of the
+    Pallas kernel (interpret mode) and of the JAX package's oracle: rtol
+    1e-4 / atol 5e-4 (f32) and 5e-2 (bf16), the reference's bounds."""
+    G, B, d = 4, 12, 320
+    jw, tw = _pair((d,) if shared_w else (G, d), 30, dtype)
+    jz, tz = _pair((G, B, d), 31, dtype)
+    got = ops.krasulina_xi(tw, tz)
+    assert got.dtype == DTYPES[dtype][1] and got.shape == (G, d)
+    if shared_w:
+        kern = jax.vmap(lambda zb: krasulina_xi_pallas(jw, zb))(jz)
+        oracle = jax.vmap(lambda zb: jref.krasulina_xi_ref(jw, zb))(jz)
+    else:
+        kern = jax.vmap(lambda wb, zb: krasulina_xi_pallas(wb, zb))(jw, jz)
+        oracle = jax.vmap(jref.krasulina_xi_ref)(jw, jz)
+    rtol, atol = (1e-4, 5e-4) if dtype == "float32" else (5e-2, 5e-2)
+    for want in (kern, oracle):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("G,B,d,dtype,want", [
+    (10, 100, 3072, torch.float32, "cluster-slab"),   # paths (b)-(e)
+    (10, 100, 3072, torch.bfloat16, "cluster-slab"),
+    (16, 4, 32768, torch.float32, "cluster-slab"),    # the wide shape
+    (16, 4, 32768, torch.bfloat16, "cluster-slab"),
+    (1, 5, 32768, torch.float32, "cluster-slab"),
+    (10, 268, 3072, torch.float32, "cluster-slab"),   # the last slab that fits
+    (10, 269, 3072, torch.float32, "two-pass"),       # just past shared memory
+    (10, 492, 3072, torch.bfloat16, "cluster-slab"),
+    (10, 493, 3072, torch.bfloat16, "two-pass"),
+    (1, 1000, 3072, torch.float32, "two-pass"),       # 768 KB even at C = 16
+    (1, 300, 257, torch.float32, "two-pass"),         # a row stride of 1028 B
+    (4, 12, 320, torch.float32, "cluster-slab"),
+])
+def test_xi_design(G, B, d, dtype, want):
+    """cluster-slab wherever one block's slice of a group at C = 16 fits its
+    shared memory and the TMA can take the rows (a 16-byte multiple of a
+    row stride); its shared memory is then within a block's."""
+    from repro_torch.kernels.krasulina_update import xi_design, xi_slab_smem
+    assert xi_design(G, B, d, dtype) == want
+    fits = xi_slab_smem(B, d, 16, dtype.itemsize) <= _cuda.SMEM_BYTES
+    assert fits == (want == "cluster-slab" or d % 4 != 0)
+
+
+def test_xi_design_needs_aligned_rows():
+    from repro_torch.kernels.krasulina_update import xi_design
+    assert xi_design(10, 100, 3072, torch.float32,
+                     aligned=False) == "two-pass"
+    assert xi_design(10, 100, 3068, torch.bfloat16) == "two-pass"
+
+
+@pytest.mark.parametrize("B,d,C,elem,want,smem", [
+    # the main path: 16 slices of 192 columns, four boxes of 25 rows
+    (100, 3072, 16, 4, (192, 192, 1, 25, 4), 89584),
+    (100, 3072, 16, 2, (192, 192, 1, 25, 4), 50800),
+    # the wide shape: 2,048 columns in eight 256-column boxes of 4 rows
+    (4, 32768, 16, 4, (2048, 256, 8, 4, 1), 41968),
+    (5, 32768, 16, 4, (2048, 256, 8, 5, 1), 50192),
+    # 24-column rows of 96 bytes: boxes of 4 rows keep 128-byte lines
+    (12, 320, 16, 4, (24, 24, 1, 4, 3), 3536),
+    (12, 320, 16, 2, (24, 24, 1, 8, 2), 3152),
+    (1000, 3072, 16, 4, (192, 192, 1, 250, 4), 849184),
+    # two chunks of 152 columns, rows of 608 bytes: boxes of 4 rows
+    (8, 4800, 16, 4, (304, 152, 2, 4, 2), 15872),
+])
+def test_xi_slab_layout(B, d, C, elem, want, smem):
+    """The mirror of the kernel's `slab_args`: the boxes cover the slice
+    (cw C >= d, B rows), stay within the TMA's 256 x 256 and start on
+    128-byte lines; the shared memory adds up as the kernel lays it out."""
+    from repro_torch.kernels.krasulina_update import (xi_slab_shape,
+                                                      xi_slab_smem)
+    cw, bc, nbc, br, nbr = xi_slab_shape(B, d, C, elem)
+    assert (cw, bc, nbc, br, nbr) == want
+    assert cw == nbc * bc and cw * C >= d and cw % 8 == 0
+    assert bc <= 256 and br <= 256 and nbr * br >= B > (nbr - 1) * br
+    assert br * bc * elem % 128 == 0
+    assert xi_slab_smem(B, d, C, elem) == smem
 
 
 # ---------------------------------------------------------------------------
@@ -196,18 +280,52 @@ def test_gossip_mix_taps_are_composed_once_per_schedule():
 
 
 def test_gossip_mix_refuses_nodes_beyond_its_taps():
-    """The kernel's taps travel in a struct of MAX_GOSSIP_NODES entries; the
-    wrapper refuses more nodes, naming the size, before it touches the
-    tensor."""
+    """The composed design's taps travel in a struct of MAX_GOSSIP_NODES
+    entries, so `gossip_taps` refuses more nodes, naming the size; the route
+    takes 65 nodes and more to the "rounds" design instead, which needs no
+    taps, and the wrapper reaches the tensor check (no kernel on the CPU)."""
     assert MAX_GOSSIP_NODES == 64
     assert len(gossip_taps(tmix.schedule("circulant2", 64), 8, 64)[0]) <= 64
     sched = tmix.schedule("ring", 65)
     with pytest.raises(ValueError, match="65 nodes"):
         gossip_taps(sched, 1, 65)
-    with pytest.raises(ValueError, match="65 nodes"):
+    assert gossip_design(64) == "composed" and gossip_design(65) == "rounds"
+    with pytest.raises(ValueError, match="CUDA"):
         gossip_mix_cuda(torch.zeros(65, 8), sched, 1)
     with pytest.raises(ValueError, match="rounds"):
         gossip_taps(sched, -1, 8)
+    with pytest.raises(ValueError, match="rounds"):
+        gossip_mix_cuda(torch.zeros(65, 8), sched, -1)
+
+
+@pytest.mark.parametrize("n,want", [(1, "composed"), (64, "composed"),
+                                    (65, "rounds"), (100, "rounds"),
+                                    (300, "rounds"), (908, "rounds")])
+def test_gossip_design(n, want):
+    """Up to 64 nodes one pass of the composed taps; beyond, the one-round
+    schedule R times on a tile that `_cuda.tile_width` sizes, which takes
+    two f32 [n, 32] tiles up to 908 nodes and refuses 909, naming the
+    size."""
+    assert gossip_design(n) == want
+    if want == "rounds":
+        bd = _cuda.tile_width(n, 3072)
+        assert bd % 32 == 0 and 8 * n * bd <= _cuda.SMEM_BYTES
+    with pytest.raises(ValueError, match="909 rows"):
+        _cuda.tile_width(909, 3072)
+
+
+@pytest.mark.parametrize("n", [65, 100])
+@pytest.mark.parametrize("topo,rounds", [("ring", 8), ("circulant2", 3)])
+def test_gossip_mix_plain_matches_jax_beyond_the_taps(n, topo, rounds):
+    """The plain version the "rounds" kernel is held to on the card, at node
+    counts the composed kernel does not take, against the reference's
+    round-by-round oracle and its Pallas kernel: rtol / atol 1e-5."""
+    jx, tx = _pair((n, 40), 32)
+    sched = jmix.schedule(topo, n)
+    got = ops.gossip_mix(tx, tmix.schedule(topo, n), rounds)
+    for want in (jref.gossip_mix_ref(jx, sched, rounds),
+                 gossip_mix_pallas(jx, *_split(sched), rounds, interpret=True)):
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("n,d,want", [
@@ -248,6 +366,56 @@ def test_quant_cluster_size(bd, want):
     assert cw == -(-bd // want) and (want == 1 or cw >= 32)
     assert padded >= max(cw, 8) and padded & (padded - 1) == 0
     assert padded < 2 * max(cw, 8)
+
+
+@pytest.mark.parametrize("n,d,block_d,want", [
+    (10, 3072, 512, "cluster-tile"),    # paths (d), (e): 16 slices of 32
+    (16, 21, 8, "cluster-tile"),        # path (f)'s wire
+    (64, 3072, 512, "cluster-tile"),
+    (65, 3072, 512, "cluster-tile"),    # 32 columns x 5 groups of 16 rows
+    (300, 3072, 512, "cluster-tile"),   # 32 x 19
+    # one block per tile: 64 padded columns x 19 row groups is more than
+    # 1,024 threads, but two f32 copies (115,200 bytes) fit one block
+    (300, 1000, 48, "resident-tile"),
+    (64, 48, 48, "cluster-tile"),       # 64 x 4 threads
+])
+def test_quant_design(n, d, block_d, want):
+    """cluster-tile where a block of the tile's cluster holds its slice (one
+    thread per padded column and group of up to 16 rows, at most 1,024),
+    else resident-tile where one block holds the tile twice in f32."""
+    from repro_torch.kernels.consensus import (quant_cluster_fits,
+                                               quant_design,
+                                               quant_resident_fits)
+    bd = min(block_d, d)
+    assert quant_design(n, d, block_d) == want
+    assert quant_cluster_fits(n, bd) == (want == "cluster-tile")
+    assert want == "cluster-tile" or quant_resident_fits(n, bd)
+
+
+@pytest.mark.parametrize("n,d,block_d", [(64, 16384, 16384),
+                                         (1000, 3072, 48)])
+def test_quant_design_refuses_what_neither_kernel_holds(n, d, block_d):
+    """The route's error names both limits: a cluster-tile block's 1,024
+    threads of 16 values and a resident-tile block's shared memory."""
+    from repro_torch.kernels.consensus import quant_design
+    with pytest.raises(ValueError, match="fits neither kernel") as err:
+        quant_design(n, d, block_d)
+    assert "1024 threads of 16 values" in str(err.value)
+    assert f"need {8 * n * min(block_d, d)} bytes of shared memory" in str(
+        err.value)
+
+
+def test_launch_counters_name_every_design():
+    """Each kernel's launches by design add up to its count in
+    `ops.launches`: a resident-tile gossip_mix_quant launch counts under its
+    own key, not under one block per tile."""
+    assert set(ops.xi_launches) == {"cluster-slab", "two-pass"}
+    assert set(ops.gossip_launches) == {"composed", "rounds"}
+    assert set(ops.quant_launches) == {16, 8, 4, 2, 1, "resident-tile"}
+    ops.reset_launches()
+    assert all(v == 0 for counts in (ops.xi_launches, ops.gossip_launches,
+                                     ops.quant_launches)
+               for v in counts.values())
 
 
 @pytest.mark.parametrize("N,Bn,d,dtype,want", [
