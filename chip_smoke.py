@@ -57,6 +57,27 @@
    prefill of more than 16 tokens launches `flash_attention` once per
    layer through the wgmma kernel (72 launches in (g1), 576 in (g2)), and no
    other kernel runs. Prints tokens/s, ms per decode step and peak memory.
+   (h0) the decentralized LM trainer (N = 4 nodes, ring R = 2, Adam) on a
+   2-layer reduced granite-8b in f32, 3 rounds on the card and on the CPU
+   from the same state and the same `MarkovTokenStream` draws, on the exact
+   wire (`gossip_mix` once per round) and on the int8 tile wire
+   (`gossip_mix_quant`): losses within rtol 1e-4, the parameters within
+   1e-4 (99.9% of them; every one within 3 lr per round, Adam's reach on a
+   gradient of float noise), each node's wq / wk / wv gradient nonzero and
+   within 1e-4, and no `flash_attention` launch (training differentiates
+   `blockwise_attention`);
+   (h1) granite-8b at full width cut to 2 layers (637.55 M parameters per
+   node, bf16 with f32 masters, Adam at 3e-4) trained by the
+   `StreamingDriver` with the trainer's own builder: 4 supersteps of K = 2
+   rounds, 8 sequences of 512 tokens per round, the packed [4, D] bf16
+   gradient buffer mixed by `gossip_mix` once per round (8 launches, no
+   other kernel); (h2) the same on the int8 tile wire (`gossip_mix_quant`
+   8, `gossip_mix` 0). Each requires finite, falling losses, a consensus
+   error > 0 and a peak under 80 GB, and prints rounds/s, samples/s,
+   tokens/s, the host sampler's ms per round, the card's ms per staged
+   superstep, the card's ms for each step of one more round (each node's
+   forward and backward, the gradient copies, pack, mix, consensus error,
+   Adam) and the peak memory.
 4. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes) against its bound, its plain version and,
@@ -64,14 +85,18 @@
    redesigned kernels, their earlier designs in the same run
    (`gossip_mix_quant` also at R = 0, 1, 8 and at path (f)'s shape;
    `krasulina_xi` also cold, with a 64 MB buffer written between calls);
-   prints one `{"kernels": [...]}` JSON line, a row per kernel with its
-   `design`.
+   `gossip_mix` and `gossip_mix_quant` also at the trainer's shape (the
+   [4, D] bf16 buffer of (h), R = 2), held against the plain version on its
+   first and last columns; prints one `{"kernels": [...]}` JSON line, a row
+   per kernel with its `design` (and, for the two gossip kernels, a
+   `trainer` entry).
 
 The last line is `{"ok": true, "device": {...}}`. Any mismatch or fault
 raises and exits non-zero; there is no CPU path and no fallback. Without a
 CUDA card, or without the repository around it, it exits non-zero and
 prints no result.
 """
+import dataclasses
 import json
 import math
 import os
@@ -121,6 +146,11 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:85
 GOSSIP_NODES = (1, 5, 10, 16, 64)
 GOSSIP_ROUNDS_NODES = (65, 100, 256)
 GRANITE_LAYERS, GEN = 36, 32
+# the trainer path (h): 4 nodes, ring R = 2, K = 2 rounds per superstep,
+# 4 supersteps, 8 sequences of 512 tokens per round, granite-8b cut to 2
+# layers
+TRAIN_N, TRAIN_R, TRAIN_K, TRAIN_SUPERSTEPS = 4, 2, 2, 4
+TRAIN_B, TRAIN_S, TRAIN_LAYERS = 8, 512, 2
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 # the main path's flash kernel (bf16, D = 128); flash_attention.cu keeps the
 # mma.sync and f32 kernels
@@ -196,11 +226,15 @@ def main() -> int:
 
     from repro_torch import convert
     from repro_torch.configs import get_config, reduced
-    from repro_torch.configs.base import AveragingConfig, StreamConfig
+    from repro_torch.configs.base import (SHAPES, AveragingConfig, RunConfig,
+                                          StreamConfig)
     from repro_torch.configs.paper_logreg import FIG6, FIG9
     from repro_torch.configs.paper_pca import HIGHD, PCARunConfig
     from repro_torch.core import (averaging, dmb, dsgd, krasulina, mixing,
                                   problems)
+    from repro_torch.core import packing
+    from repro_torch.core.packing import tree_leaves, tree_map
+    from repro_torch.data.lm import MarkovTokenStream
     from repro_torch.data.synthetic import (make_logreg_stream,
                                             make_pca_host_sampler,
                                             make_pca_stream)
@@ -215,6 +249,8 @@ def main() -> int:
                                                       xi_route)
     from repro_torch.models import registry
     from repro_torch.serve import engine
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train import trainer
     from repro_torch.train.driver import EngineConfig, StreamingDriver
 
     # a reference states and sets both: full f32 products everywhere
@@ -1044,6 +1080,257 @@ def main() -> int:
     del params, swapped, eng, prompt, out
     torch.cuda.empty_cache()
 
+    # ------------------------------------------------ the training path (h)
+    # the decentralized LM trainer: N = 4 nodes on the card, ring gossip of
+    # the packed gradient buffer, R = 2, Adam
+    def on_device(state, d_):
+        """A copy of a TrainState on d_."""
+        to = lambda tree: tree_map(lambda t: t.to(d_, copy=True), tree)
+        return trainer.TrainState(to(state.params), state.opt._replace(
+            m=to(state.opt.m), v=to(state.opt.v),
+            master=to(state.opt.master)))
+
+    def draw_tokens(data, rng, n, seq):
+        toks = data.sample(rng, n, seq + 1)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def attn_grads(run, state, batch):
+        """Each node's wq / wk / wv gradient of every layer at `state`."""
+        out = []
+        for i in range(TRAIN_N):
+            _, _, grads = trainer.loss_and_grad(
+                run, tree_map(lambda p: p[i], state.params),
+                {k: v[i] for k, v in batch.items()})
+            out.append([blk["attn"][w] for blk in grads["blocks"]
+                        for w in ("wq", "wk", "wv")])
+        return out
+
+    def round_phases(run, state, batch):
+        """Card ms of the steps of one train step on `state`, each between
+        two CUDA events, in the trainer's order: each node's forward +
+        backward, its gradients into the [N, ...] tree, the pack, the mix,
+        the consensus error, the optimizer update. Every result is dropped
+        once timed (a second optimizer state would not fit)."""
+        def timed(fn):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = fn()
+            end.record()
+            torch.cuda.synchronize()
+            return result, start.elapsed_time(end)
+
+        params, ms = state.params, {}
+        grads = tree_map(torch.empty_like, params)
+        ms["node_loss_grad"], ms["grad_copy"] = [], []
+        for i in range(TRAIN_N):
+            (_, _, g), t = timed(lambda: trainer.loss_and_grad(
+                run, tree_map(lambda p: p[i], params),
+                {k: v[i] for k, v in batch.items()}))
+            ms["node_loss_grad"].append(t)
+            ms["grad_copy"].append(timed(lambda: [
+                buf[i].copy_(gi) for buf, gi in
+                zip(tree_leaves(grads), tree_leaves(g))])[1])
+            del g
+        (bufs, spec), ms["pack"] = timed(lambda: packing.pack_tree(grads))
+        del grads
+        mix = averaging.make_gossip_mix(run.averaging, TRAIN_N, device=dev)
+        outs, ms["mix"] = timed(lambda: tuple(mix(b) for b in bufs))
+        del bufs
+        pools = trainer.layer_pools(params, run.model)
+        ms["consensus_error"] = timed(lambda: averaging.
+                                      _packed_consensus_error(outs, spec,
+                                                              pools))[1]
+        mixed = packing.unpack_tree(outs, spec)
+        update = make_optimizer(run.optimizer, run.learning_rate)
+        ms["adam"] = timed(lambda: update(mixed, state.opt, params))[1]
+        return ms
+
+    quant_tile = dict(quantization="int8", quant_stats="tile",
+                      quant_block_d=512)
+    wires = (("exact", {}), ("int8", quant_tile))
+    # (h0) reduced granite-8b in f32 on the card and on the CPU from the same
+    # state and the same MarkovTokenStream draws: 3 rounds, Adam at 1e-4
+    H0_LR, H0_ROUNDS = 1e-4, 3
+    for wire, quant in wires:
+        run = RunConfig(model=cfg_r, shape=SHAPES["train_4k"],
+                        averaging=AveragingConfig("gossip", TRAIN_R, "ring",
+                                                  **quant),
+                        optimizer="adam", learning_rate=H0_LR,
+                        param_dtype="float32")
+        base = trainer.replicate_for_nodes(
+            trainer.init_state(run, torch.Generator().manual_seed(0)),
+            TRAIN_N)
+        data, rng = MarkovTokenStream(cfg_r.vocab_size, seed=0), \
+            np.random.default_rng(0)
+        batches = [trainer.make_node_batch(draw_tokens(data, rng, 8, 64),
+                                           TRAIN_N)
+                   for _ in range(H0_ROUNDS)]
+        runs = {}
+        for side, d_ in (("card", dev), ("cpu", cpu)):
+            st = on_device(base, d_)
+            bs = [{k: torch.from_numpy(v).to(d_) for k, v in b.items()}
+                  for b in batches]
+            step = trainer.build_train_step(run, None, n_nodes=TRAIN_N,
+                                            device=d_)
+            ops.reset_launches()
+            grads = attn_grads(run, st, bs[0])
+            losses = []
+            for b in bs:
+                st, m = step(st, b)
+                losses.append(float(m["loss"]))
+            counts = (take_counts(
+                f"(h0) {wire}", [],
+                {"gossip_mix": H0_ROUNDS * (wire == "exact"),
+                 "gossip_mix_quant": H0_ROUNDS * (wire == "int8"),
+                 "flash_attention": 0, "krasulina_xi": 0,
+                 "krasulina_xi_gossip": 0})
+                      if side == "card" else None)
+            runs[side] = (losses, st, grads, counts)
+        (lc, sc, gc, counts), (lp, sp, gp, _) = runs["card"], runs["cpu"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        d = torch.cat([(a.cpu() - b).abs().ravel() for a, b in
+                       zip(tree_leaves(sc.params), tree_leaves(sp.params))])
+        within = float((d <= 1e-4).float().mean())
+        grad_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                       for ga, gb in zip(gc, gp) for a, b in zip(ga, gb))
+        grad_min = min(float(b.abs().max()) for gb in gp for b in gb)
+        grad_card_min = min(float(a.abs().max()) for ga in gc for a in ga)
+        print(f"main (h0) reduced granite-8b f32 (2 layers) N={TRAIN_N} ring "
+              f"R={TRAIN_R} adam {wire} wire, card vs CPU over {H0_ROUNDS} "
+              f"rounds: losses {json.dumps(lc)} (CPU {json.dumps(lp)}, max "
+              f"rel err {loss_err:.2e}, limit 1e-4); parameters within 1e-4: "
+              f"{within:.6f} (limit >= 0.999), max_abs_err "
+              f"{float(d.max()):.3e} (limit {3 * H0_LR * H0_ROUNDS:.1e}, "
+              f"3 lr per round); wq/wk/wv gradients per node: smallest "
+              f"max|g| card {grad_card_min:.3e} CPU {grad_min:.3e}, max rel "
+              f"err {grad_err:.2e} (limit 1e-4); launches={json.dumps(counts)}")
+        require(loss_err <= 1e-4, f"(h0) {wire}: losses disagree")
+        require(within >= 0.999 and float(d.max()) <= 3 * H0_LR * H0_ROUNDS,
+                f"(h0) {wire}: parameters disagree")
+        require(grad_card_min > 0 and grad_min > 0,
+                f"(h0) {wire}: a node's wq/wk/wv gradient is zero")
+        require(grad_err <= 1e-4, f"(h0) {wire}: wq/wk/wv gradients disagree")
+    del base, runs, sc, sp, gc, gp, st
+
+    # (h1)/(h2) granite-8b at full width, depth cut to 2 layers: bf16 params
+    # with f32 masters, Adam at 3e-4, K = 2 rounds per superstep, 4
+    # supersteps, 2 sequences of 512 tokens per node per round, through the
+    # StreamingDriver with the trainer's own builder
+    cfg_h = dataclasses.replace(get_config("granite-8b"),
+                                num_layers=TRAIN_LAYERS)
+    tokens_per_round = TRAIN_B * TRAIN_S
+    flops_per_round = None
+    finals = {}
+    for label, wire, quant in (("(h1)", "exact", {}),
+                               ("(h2)", "int8", quant_tile)):
+        run = RunConfig(model=cfg_h, shape=SHAPES["train_4k"],
+                        averaging=AveragingConfig("gossip", TRAIN_R, "ring",
+                                                  **quant),
+                        optimizer="adam", learning_rate=3e-4,
+                        param_dtype="bfloat16", master_weights=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tstate = trainer.replicate_for_nodes(trainer.init_state(
+            run, torch.Generator(device=dev).manual_seed(0)), TRAIN_N)
+        torch.cuda.synchronize()
+        n_node = sum(t[0].numel() for t in tree_leaves(tstate.params))
+        flops_per_round = 8 * n_node * tokens_per_round  # 6 P T + remat
+        print(f"main {label} granite-8b full width, {TRAIN_LAYERS} layers: "
+              f"{n_node} parameters per node, {TRAIN_N} nodes, state drawn "
+              f"and replicated on the card in {time.perf_counter() - t0:.2f} "
+              f"s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        data = MarkovTokenStream(cfg_h.vocab_size, seed=0)
+        sample = lambda rng, n: draw_tokens(data, rng, n, TRAIN_S)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with StreamingDriver(run, None, tstate, sample, batch=TRAIN_B,
+                             n_nodes=TRAIN_N, device=dev,
+                             engine=EngineConfig(superstep=TRAIN_K,
+                                                 prefetch_depth=2,
+                                                 replan_every=0)) as drv:
+            tstate, history = drv.run(TRAIN_SUPERSTEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        other = {k: 0 for k in ops.launches}
+        kernel = "gossip_mix" if wire == "exact" else "gossip_mix_quant"
+        other[kernel] = TRAIN_K * TRAIN_SUPERSTEPS
+        counts = take_counts(label, [kernel], other)
+        if wire == "exact":
+            require(ops.gossip_launches == {"composed": other[kernel],
+                                            "rounds": 0},
+                    f"{label}: gossip_mix launches by design "
+                    f"{ops.gossip_launches}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # the last round of each superstep, as the driver records it
+        losses = [rec["metrics"]["loss"] for rec in history]
+        cerrs = [rec["metrics"]["consensus_err"] for rec in history]
+        for rec in history:
+            print(f"  superstep {rec['superstep']} round {rec['round']}: "
+                  f"loss {rec['metrics']['loss']:.5f} consensus_err "
+                  f"{rec['metrics']['consensus_err']:.4e} "
+                  f"wall {rec['wall_s']:.4f} s "
+                  f"rounds_per_s={rec['rounds_per_s']:.3f} "
+                  f"samples_per_s={rec['samples_per_s']:.2f}")
+        # steady state: the supersteps after the first (allocator warm-up)
+        steady = history[1:]
+        steady_s = sum(rec["wall_s"] for rec in steady)
+        rounds_s = len(steady) * TRAIN_K / steady_s
+        # the host's share: the token sampler for one round
+        rng = np.random.default_rng(1)
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_K):
+            sample(rng, TRAIN_B)
+        host_ms = (time.perf_counter() - t0) / TRAIN_K * 1e3
+        # the card's time for one staged superstep (CUDA events around it)
+        sup = trainer.build_superstep(run, None, n_nodes=TRAIN_N, device=dev)
+        staged = {k: torch.from_numpy(np.stack([
+            trainer.make_node_batch(sample(rng, TRAIN_B), TRAIN_N)[k]
+            for _ in range(TRAIN_K)])).to(dev) for k in ("tokens", "labels")}
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        tstate, _ = sup(tstate, staged)
+        end.record()
+        torch.cuda.synchronize()
+        card_ms = start.elapsed_time(end)
+        # one more round, cut into its steps
+        phases = round_phases(run, tstate, {k: v[0] for k, v in
+                                            staged.items()})
+        phases["sum"] = sum(sum(v) if isinstance(v, list) else v
+                            for v in phases.values())
+        print(f"main {label} round phases on the card, ms: "
+              f"{json.dumps(phases)}")
+        finite = all(math.isfinite(x) for x in losses + cerrs)
+        finals[label] = losses[-1]
+        card_tflops = flops_per_round / (card_ms / TRAIN_K * 1e-3) / 1e12
+        print(f"main {label} {wire} wire: {TRAIN_K * len(history)} rounds "
+              f"in {wall:.3f} s; loss at round {history[0]['round']} "
+              f"{losses[0]:.5f}, at round {history[-1]['round']} "
+              f"{losses[-1]:.5f}; consensus_err last {cerrs[-1]:.3e}; "
+              f"steady {rounds_s:.4f} rounds/s, "
+              f"{rounds_s * TRAIN_B:.3f} samples/s, "
+              f"{rounds_s * tokens_per_round:.1f} tokens/s; host sampler "
+              f"{host_ms:.3f} ms per round; card {card_ms:.3f} ms per "
+              f"superstep of {TRAIN_K} rounds (CUDA events, batch staged), "
+              f"{card_ms / TRAIN_K:.3f} ms per round = "
+              f"{card_ms / TRAIN_K / (1e3 / rounds_s):.3f} of the steady "
+              f"round; {flops_per_round / 1e12:.2f} TFLOP per round "
+              f"(8 P T), {card_tflops:.1f} TFLOP/s on the card; peak "
+              f"memory {peak:.2f} GB; "
+              f"card {smi}; launches={json.dumps(counts)}")
+        require(finite, f"{label}: a loss or consensus error is not finite")
+        require(losses[-1] < losses[0], f"{label}: the loss did not fall")
+        require(max(cerrs) > 0, f"{label}: consensus_err is 0")
+        require(peak < 80, f"{label}: peak memory {peak:.2f} GB")
+        del tstate, drv, sup, staged
+        torch.cuda.empty_cache()
+    print(f"main (h2) final loss {finals['(h2)']:.5f} beside (h1) "
+          f"{finals['(h1)']:.5f}")
+    train_d = n_node  # the packed gradient buffer's width per node
+
     # ----------------------------------------------------------------- timing
     def bound(bytes_moved, flops, flops_per_s):
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -1241,6 +1528,70 @@ def main() -> int:
                  "library_ms": main_shape["library_ms"],
                  "shape": main_shape["shape"], "wide": wide,
                  "mma_sync_ms": main_shape["mma_sync_ms"]})
+    # both gossip kernels at the trainer's shape (h): the packed bf16
+    # gradient buffer of 4 nodes, ring R = 2, int8 tiles of 512 columns.
+    # CUDA events around a few calls (one call moves 10 GB, so launch gaps
+    # are noise, and a graph of many calls would hold their outputs); the
+    # plain version on the whole buffer too, its error on the first and the
+    # last columns (past element 2^31 of the buffer), cut at tile boundaries
+    def event_ms(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    x = torch.randn((TRAIN_N, train_d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    sched = mixing.schedule("ring", TRAIN_N)
+    shape = f"bf16 n={TRAIN_N} d={train_d} R={TRAIN_R}"
+    cuts = (slice(0, 1 << 20),
+            slice((train_d - (1 << 20)) // 512 * 512, train_d))
+    fused = mixing.compose_schedule(sched, TRAIN_R, TRAIN_N)
+    A = torch.as_tensor(mixing.schedule_matrix(fused, TRAIN_N),
+                        dtype=torch.bfloat16, device=dev)
+    for name, kern, plain, library, flops, tol in (
+            ("gossip_mix", lambda: ops.gossip_mix(x, sched, TRAIN_R),
+             lambda part: ref.gossip_mix_ref(part, sched, TRAIN_R),
+             lambda: torch.matmul(A, x), 2 * len(fused) * x.numel(), TOL),
+            ("gossip_mix_quant",
+             lambda: ops.quant_gossip_mix(x, sched, TRAIN_R, "int8",
+                                          block_d=512),
+             lambda part: ref.gossip_mix_quant_ref(part, sched, TRAIN_R,
+                                                   "int8", block_d=512),
+             None, (2 * len(sched) + 4) * TRAIN_R * x.numel(), QUANT_TOL)):
+        got = kern()
+        err = max(compare(f"{name} {shape} columns {c.start}:{c.stop} "
+                          f"(trainer shape)", got[:, c],
+                          plain(x[:, c].contiguous()), "bfloat16", tol)
+                  for c in cuts)
+        del got
+        b_ms, b_by = bound(2 * x.numel() * x.element_size(), flops,
+                           F32_FLOPS_PER_S)
+        timed = {"shape": shape + (" int8 block_d=512"
+                                   if name == "gossip_mix_quant" else ""),
+                 "ms": event_ms(kern), "plain_ms": event_ms(
+                     lambda: plain(x), reps=1),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": event_ms(library) if library else None,
+                 "max_abs_err": err}
+        if name == "gossip_mix_quant":
+            # the one-block-per-tile design, forced, in the same run
+            timed["resident_tile_ms"] = event_ms(
+                lambda: gossip_mix_quant_cuda(x, sched, TRAIN_R, "int8",
+                                              block_d=512,
+                                              _design="resident-tile"))
+        torch.cuda.empty_cache()
+        print(f"time {name} trainer shape {timed['shape']}: "
+              + json.dumps(timed))
+        next(r for r in rows if r["name"] == name)["trainer"] = timed
+    del x, A
+    torch.cuda.empty_cache()
     for row in rows:
         row["design"] = DESIGN[row["name"]]
     # the per-round metric: the excess risk reads the [d, d] covariance, the

@@ -2,8 +2,9 @@
 both packages can compute the same thing from the same numbers — a
 `KrasulinaState`, a `PCAStream` built from the reference's covariance, a
 `LogRegStream` built from the reference's ground truth, a circulant
-schedule, and LM parameters (`lm_params`, and `lm_tree` back). Nothing here
-imports the JAX package: callers pass `np.asarray(...)` of its arrays.
+schedule, LM parameters (`lm_params`, and `lm_tree` back) and a whole LM
+training state (`train_state`, and `train_tree` back). Nothing here imports
+the JAX package: callers pass `np.asarray(...)` of its arrays.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from repro_torch.core.mixing import Schedule
 from repro_torch.data.synthetic import LogRegStream, PCAStream
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.transformer import build_plan
+from repro_torch.optim import OptState
+from repro_torch.train.trainer import TrainState
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -68,17 +71,22 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
-def lm_params(tree, *, device: DeviceLike = None) -> Dict[str, Any]:
+def lm_params(tree, *, device: DeviceLike = None,
+              node_axis: bool = False) -> Dict[str, Any]:
     """The port's LM parameters from the reference's `init_params` tree with
     numpy leaves: {"embed", "final_norm", "layers": [per period position, a
     dict of leaves stacked [n_rep, ...]], "tail": [dicts]} (+ "unembed").
     Layer r * period + i of the port is `layers[i]` at index r, followed by
-    the tail, the order in which the reference's scan runs them."""
+    the tail, the order in which the reference's scan runs them. With
+    `node_axis`, every leaf leads with the decentralized node axis
+    ([N, n_rep, ...] in "layers"), and so does every port leaf."""
     dev = resolve_device(device)
     conv = lambda a: _tensor(a, dev)
+    ax = 1 if node_axis else 0
     period = tree["layers"]
-    n_rep = len(np.asarray(_first_leaf(period[0]))) if period else 0
-    blocks = [tree_map(lambda a, r=r: conv(np.asarray(a)[r]), spec)
+    n_rep = np.asarray(_first_leaf(period[0])).shape[ax] if period else 0
+    take = lambda a, r: np.take(np.asarray(a), r, axis=ax)
+    blocks = [tree_map(lambda a, r=r: conv(take(a, r)), spec)
               for r in range(n_rep) for spec in period]
     blocks += [tree_map(conv, block) for block in tree["tail"]]
     out = {"embed": conv(tree["embed"]),
@@ -89,15 +97,18 @@ def lm_params(tree, *, device: DeviceLike = None) -> Dict[str, Any]:
 
 
 def lm_tree(params: Dict[str, Any], cfg: ModelConfig,
-            window_override: int = 0) -> Dict[str, Any]:
+            window_override: int = 0, *,
+            node_axis: bool = False) -> Dict[str, Any]:
     """The inverse of `lm_params`: the reference's tree, as numpy, with the
-    period positions stacked again as `cfg`'s plan lays them out."""
+    period positions stacked again as `cfg`'s plan lays them out (after the
+    node axis, with `node_axis`)."""
     period, n_rep, tail = build_plan(cfg, window_override)
     npy = lambda t: t.detach().cpu().numpy()
     blocks = params["blocks"]
     P = len(period)
-    layers = [_stack([tree_map(npy, blocks[r * P + i]) for r in range(n_rep)])
-              for i in range(P)]
+    ax = 1 if node_axis else 0
+    layers = [_stack([tree_map(npy, blocks[r * P + i]) for r in range(n_rep)],
+                     ax) for i in range(P)]
     out = {"embed": npy(params["embed"]),
            "final_norm": tree_map(npy, params["final_norm"]), "layers": layers,
            "tail": [tree_map(npy, b) for b in blocks[P * n_rep:]]}
@@ -106,15 +117,49 @@ def lm_tree(params: Dict[str, Any], cfg: ModelConfig,
     return out
 
 
+def train_state(params_tree, opt_state, cfg: ModelConfig, *,
+                device: DeviceLike = None) -> TrainState:
+    """A `train.trainer.TrainState` from the reference's `TrainState`
+    (`jax.tree.map(np.asarray, ...)` of it): the parameters and the
+    optimizer's `step`, `m`, `v` and `master` (`()` where the reference has
+    none), with or without the leading node axis of a decentralized run
+    (read off `opt_state.step`, which `replicate_for_nodes` stacks too).
+    The port's `torch.Generator` init cannot draw the reference's numbers,
+    so both packages start from these. Error-feedback residuals come with
+    the port's error-feedback slice and are refused."""
+    step = np.asarray(opt_state.step)
+    node_axis = step.ndim > 0
+    if tuple(opt_state.ef_residual) != ():
+        raise NotImplementedError("error-feedback residuals come with the "
+                                  "port's elastic and error-feedback slice")
+    conv = lambda t: (() if isinstance(t, tuple) and t == () else
+                      lm_params(t, device=device, node_axis=node_axis))
+    opt = OptState(int(step.reshape(-1)[0]), conv(opt_state.m),
+                   conv(opt_state.v), conv(opt_state.master))
+    return TrainState(conv(params_tree), opt)
+
+
+def train_tree(state: TrainState, cfg: ModelConfig) -> Dict[str, Any]:
+    """The inverse of `train_state`, as numpy: {"params", "step", "m", "v",
+    "master"} in the reference's layout (`master` is `()` without
+    masters)."""
+    node_axis = state.params["embed"].dim() == 3
+    conv = lambda t: (() if isinstance(t, tuple) and t == () else
+                      lm_tree(t, cfg, node_axis=node_axis))
+    opt = state.opt
+    return {"params": conv(state.params), "step": opt.step, "m": conv(opt.m),
+            "v": conv(opt.v), "master": conv(opt.master)}
+
+
 def _first_leaf(tree):
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
     return tree
 
 
-def _stack(trees):
-    """Stack same-structured trees of numpy leaves along a new axis 0."""
+def _stack(trees, axis: int = 0):
+    """Stack same-structured trees of numpy leaves along a new `axis`."""
     first = trees[0]
     if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return np.stack(trees)
+        return {k: _stack([t[k] for t in trees], axis) for k in first}
+    return np.stack(trees, axis=axis)

@@ -42,6 +42,9 @@ from repro_torch.core.mixing import CirculantMixOp, circulant_mix_op, schedule
 from repro_torch.device import DeviceLike
 
 Tree = Any
+# groups of leaf indices (in packing order) that the consensus error treats
+# as one leaf each; see `_packed_consensus_error`
+Pools = Tuple[Tuple[int, ...], ...]
 
 
 def make_gossip_mix(cfg: AveragingConfig, n_nodes: int, *,
@@ -177,13 +180,15 @@ def average_gradients(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
 
 def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                       pods: int = 1, mix: Optional[CirculantMixOp] = None,
-                      key: Optional[int] = None, device: DeviceLike = None
+                      key: Optional[int] = None, device: DeviceLike = None,
+                      pools: Optional[Pools] = None
                       ) -> Tuple[Tree, torch.Tensor]:
     """Averaging plus the epsilon-consensus diagnostic with ONE pack: the
-    mixed packed buffers feed both the unpack and the error reduction."""
+    mixed packed buffers feed both the unpack and the error reduction.
+    `pools` groups leaves for the diagnostic (`_packed_consensus_error`)."""
     if cfg.mode == "exact":
         mixed = exact_average(tree)
-        return mixed, consensus_error(mixed)
+        return mixed, consensus_error(mixed, pools)
     if cfg.mode not in ("gossip", "hierarchical"):
         raise ValueError(f"unknown averaging mode {cfg.mode!r}")
     if mix is None:
@@ -192,7 +197,7 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
     if not (cfg.packed and _packable(mix)):
         mixed = average_gradients(tree, cfg, n_nodes=n_nodes, pods=pods,
                                   mix=mix, key=key)
-        return mixed, consensus_error(mixed)
+        return mixed, consensus_error(mixed, pools)
     bufs, spec = packing.pack_tree(tree)
     if cfg.mode == "gossip":
         outs = tuple(_apply_mix(mix, spec, g, b, key)
@@ -202,7 +207,7 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
         outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key)
                      for b in bufs)
-    err = _packed_consensus_error(outs, spec)
+    err = _packed_consensus_error(outs, spec, pools)
     return packing.unpack_tree(outs, spec), err
 
 
@@ -215,30 +220,44 @@ def ef_average_and_error(*args, **kwargs):
 
 
 def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
-                            spec: packing.PackSpec) -> torch.Tensor:
-    """max_leaf max_n ||v_n - v_bar|| / ||v_bar|| on the packed buffers: the
-    squared deviations are computed in one pass over [N, D] and summed per
-    leaf segment by `packing.segment_sums`."""
-    errs = []
+                            spec: packing.PackSpec,
+                            pools: Optional[Pools] = None) -> torch.Tensor:
+    """max_leaf max_n ||v_n - v_bar|| / ||v_bar|| on the packed buffers, one
+    leaf segment at a time: the f32 temporaries are the size of one leaf,
+    not of the buffer (an f32 copy of an 8B-class model's [4, D] gradient
+    buffer alone would be 10 GB). `pools` (tuples of leaf indices) makes
+    each pool of leaves count as one leaf, its squares summed over the pool;
+    by default every leaf is its own pool."""
+    d2: dict = {}  # leaf index -> (squared deviations [N], squared mean)
     for g, buf in enumerate(bufs):
-        if buf.shape[-1] == 0:
+        off = 0
+        for i in spec.groups[g]:
+            w = spec.leaf_width(i)
+            seg = buf[..., off:off + w].to(torch.float32, copy=True)
+            off += w
+            if w == 0:
+                continue
+            bar = torch.mean(seg, dim=0, keepdim=True)
+            d2[i] = (seg.sub_(bar).square_().sum(-1), bar.square().sum())
+    errs = []
+    for pool in (pools if pools is not None else [(i,) for i in sorted(d2)]):
+        parts = [d2[i] for i in pool if i in d2]
+        if not parts:
             continue
-        widths = [spec.leaf_width(i) for i in spec.groups[g]]
-        b = buf.float()
-        bar = torch.mean(b, dim=0, keepdim=True)
-        d2 = packing.segment_sums((b - bar) ** 2, widths)  # [N, S]
-        num = torch.sqrt(d2).amax(0)  # [S]
-        den = torch.sqrt(packing.segment_sums(bar[0] ** 2, widths)) + 1e-30
-        errs.append((num / den).amax())
+        num = torch.sqrt(sum(p[0] for p in parts)).amax()
+        den = torch.sqrt(sum(p[1] for p in parts)) + 1e-30
+        errs.append(num / den)
     return torch.stack(errs).amax() if errs else torch.zeros(())
 
 
-def consensus_error(tree: Tree) -> torch.Tensor:
+def consensus_error(tree: Tree, pools: Optional[Pools] = None
+                    ) -> torch.Tensor:
     """max_n ||v_n - v_bar|| / ||v_bar|| across the tree — the paper's
     epsilon-accuracy diagnostic for inexact averaging. Computed on the packed
-    flat buffer (`consensus_error_per_leaf` is the per-leaf oracle)."""
+    flat buffer (`consensus_error_per_leaf` is the per-leaf oracle); `pools`
+    as in `_packed_consensus_error`."""
     bufs, spec = packing.pack_tree(tree)
-    return _packed_consensus_error(bufs, spec)
+    return _packed_consensus_error(bufs, spec, pools)
 
 
 def consensus_error_per_leaf(tree: Tree) -> torch.Tensor:

@@ -137,11 +137,22 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Masked attention, q: [B, H, Sq, D], k/v: [B, H, Sk, D] (GQA heads
     repeated), scale 1/sqrt(D), query and key positions counted from 0;
     fully masked rows are 0. Unmasked attention takes Sk divisible by
-    min(128, Sk) on every device, as the reference's kernel does."""
+    min(128, Sk) on every device, as the reference's kernel does.
+
+    The flash kernel has no backward (the reference's has none either), so
+    on the card a call that autograd would have to differentiate raises:
+    training takes `models.layers.blockwise_attention`
+    (`apply_attention(..., train=True)`)."""
     check_masking(k.shape[2], causal, window, chunk)
     if not _on_cuda(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  chunk=chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "ops.attention: the flash kernel has no backward, and its output "
+            "would carry no gradient to q, k or v; differentiate attention "
+            "through models.layers.blockwise_attention "
+            "(apply_attention(..., train=True), as loss_fn does)")
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                chunk=chunk)
     launches["flash_attention"] += 1

@@ -4,10 +4,11 @@ attention block with a KV cache, the vocab projection and the gated FFN.
 
 Weights keep the reference's [in, out] layout (`x @ W`), so carrying them
 across is a copy. Prefill attention of more than 16 tokens goes through
-`kernels.ops.attention` (the Hopper flash kernel on the card); every other
-attention call is the plain `blockwise_attention` below, where the reference
-runs jnp code too. Not ported yet (they raise): MLA, the ring-buffer cache
-and cross-attention.
+`kernels.ops.attention` (the Hopper flash kernel on the card, which has no
+backward); every other attention call, and every call of the training loss
+(`train=True`), is the plain, differentiable `blockwise_attention` below,
+where the reference runs jnp code too. Not ported yet (they raise): MLA, the
+ring-buffer cache and cross-attention.
 """
 from __future__ import annotations
 
@@ -233,15 +234,20 @@ def apply_attention(
     cache_index: Any = None,  # int or 0-dim (write offset of the batch), or
     # a [B] vector (per-slot decode, continuous batching; requires S == 1)
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (out [B, S, D], cache). The cache is updated IN PLACE (the
     reference returns a new one) and returned for the caller's convenience.
 
-    Routing, fixed by shape: a call of S > 16 positions with no cache, or
-    with the Python integer cache_index 0 (prefill), runs `ops.attention`
-    on the fresh k/v (the flash kernel on the card, or raise); every other
-    call (decode against the cache, prompts of 16 tokens or fewer, a
-    multi-token call at a non-zero index) runs `blockwise_attention`."""
+    Routing, fixed by shape and by `train`: a call of S > 16 positions with
+    no cache, or with the Python integer cache_index 0 (prefill), runs
+    `ops.attention` on the fresh k/v (the flash kernel on the card, or
+    raise); every other call (decode against the cache, prompts of 16
+    tokens or fewer, a multi-token call at a non-zero index) runs
+    `blockwise_attention`. `train=True` (the training loss) always runs
+    `blockwise_attention`, which autograd differentiates: the flash kernel
+    has no backward, in the reference as here, and the reference trains
+    through its jnp `blockwise_attention` too."""
     if cross_kv is not None:
         raise NotImplementedError("cross-attention (encoder-decoder) is not "
                                   "ported yet")
@@ -279,7 +285,7 @@ def apply_attention(
             cache["k"][:, cache_index:cache_index + S] = k
             cache["v"][:, cache_index:cache_index + S] = v
 
-    if S >= FLASH_MIN_SEQ and prefill and causal:
+    if S >= FLASH_MIN_SEQ and prefill and causal and not train:
         # The reference's prefill attends over the whole max_len cache with
         # kv_valid = S; the causal mask already excludes every slot at or past
         # S, so attending over the S fresh (cache-dtype) k/v is the same sum.
@@ -317,6 +323,17 @@ def unembed_logits(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if Vp != V:
         logits[..., V:] = NEG_INF
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean CE over positions with label >= 0, in f32 with the
+    log-sum-exp. The gold score is a gather, where the reference contracts a
+    one-hot to keep its vocab axis sharded: the same number."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""Unified model API of the port (the decoder-only assembly), plus
-`synth_batch`. Encoder-decoder families are not ported yet and raise; the
-reference's `input_specs` (abstract shapes for its multi-pod dry-run) has no
-counterpart on one card.
+"""Unified model API of the port (the decoder-only assembly, its training
+loss included), plus `synth_batch`. Encoder-decoder families are not ported
+yet and raise; the reference's `input_specs` (abstract shapes for its
+multi-pod dry-run) has no counterpart on one card.
 """
 from __future__ import annotations
 
@@ -24,6 +24,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                 window_override: int = 0):
     return _mod(cfg).init_params(gen, cfg, dtype,
                                  window_override=window_override)
+
+
+def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
+            window_override: int = 0):
+    """(loss, {"ce", "aux"}) of a batch {"tokens", "labels"} [B, S]."""
+    return _mod(cfg).loss_fn(params, cfg, batch, remat=remat,
+                             window_override=window_override)
 
 
 def forward(params, cfg: ModelConfig, batch, **kw):

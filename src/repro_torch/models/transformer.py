@@ -8,15 +8,17 @@ per layer, in the order `layer_specs` gives, and loops over them in Python;
 order. `build_plan` keeps the reference's (period, n_repeats, tail) form.
 
 Ported: attention blocks (causal, sliding-window, chunked-local, iRoPE NoPE
-layers) with dense FFNs. Not ported yet (they raise): MLA, MoE, SSD,
-RG-LRU, the modality frontend and the ring-buffer cache. Training (the
-loss and activation checkpointing) comes with the trainer.
+layers) with dense FFNs, and the training loss (`loss_fn`) with activation
+checkpointing per layer. Not ported yet (they raise): MLA, MoE, SSD,
+RG-LRU, the modality frontend and the ring-buffer cache.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -117,12 +119,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 
 def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Params, x, positions,
-                 cache=None, cache_index=None):
+                 cache=None, cache_index=None, train: bool = False):
     h = L.apply_norm(p["norm1"], x, cfg.norm)
     out, new_cache = L.apply_attention(
         p["attn"], cfg, h, positions, attn_mode=spec.attn_mode,
         window=spec.window, use_rope=spec.use_rope, cache=cache,
-        cache_index=cache_index)
+        cache_index=cache_index, train=train)
     x = x + out
     if "ffn" in p:
         h2 = L.apply_norm(p["norm2"], x, cfg.norm)
@@ -142,16 +144,22 @@ def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill), decode
+# Forward / loss (train + prefill), decode
 # ---------------------------------------------------------------------------
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, window_override: int = 0, cache: Optional[List[Params]] = None,
-            cache_index=None):
+            cache_index=None, remat: bool = False, train: bool = False):
     """Returns (logits, aux_loss, cache). `cache` (one {"k", "v"} per layer)
     is updated in place; `cache_index` is an int (or 0-dim) write offset or
-    a [B] vector of per-row positions (S == 1)."""
+    a [B] vector of per-row positions (S == 1).
+
+    `train=True` routes attention through the differentiable
+    `blockwise_attention` (`layers.apply_attention`); `remat=True` (no
+    cache) checkpoints each layer, so the backward recomputes one layer's
+    activations at a time, as the reference's `jax.checkpoint` per
+    super-block of its scan does (granite's super-block is one layer)."""
     specs = layer_specs(cfg, window_override)
     x = _embed(cfg, params, batch)
     B, Sq = batch["tokens"].shape
@@ -162,12 +170,31 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     else:
         positions = (pos + base)[None].expand(B, Sq)
     for i, spec in enumerate(specs):
+        if remat and cache is None:
+            blk = partial(_apply_block, cfg, spec, train=train)
+            x, _ = checkpoint(blk, params["blocks"][i], x, positions,
+                              use_reentrant=False)
+            continue
         x, _ = _apply_block(cfg, spec, params["blocks"][i], x, positions,
                             cache=None if cache is None else cache[i],
-                            cache_index=cache_index)
+                            cache_index=cache_index, train=train)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(cfg, params, x), aux, cache
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            *, remat: bool = True, window_override: int = 0):
+    """The training loss: (loss, {"ce", "aux"}), the mean cross-entropy over
+    labels >= 0 plus the router's auxiliary loss (0 for the dense family),
+    with attention on its differentiable route."""
+    logits, aux, _ = forward(params, cfg, batch, remat=remat, train=True,
+                             window_override=window_override)
+    ce = L.cross_entropy(logits, batch["labels"])
+    aux_w = cfg.moe.router_aux_loss_weight if cfg.moe is not None else 0.0
+    n_layers = max(cfg.num_layers, 1)
+    loss = ce + aux_w * aux / n_layers
+    return loss, {"ce": ce, "aux": aux / n_layers}
 
 
 # ---------------------------------------------------------------------------

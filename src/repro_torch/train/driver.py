@@ -24,8 +24,11 @@ stages:
 Any superstep of signature `superstep(state, batches) -> (state, metrics)`
 (batch leaves [K, ...], metric leaves stacked [K]) plugs in via
 `superstep_fn`, or bucket-keyed via `superstep_builder` (`build(B) ->
-superstep`, e.g. `core.krasulina.krasulina_superstep_builder`). `run_cfg`
-only needs `.stream` and `.averaging` (e.g. `configs.paper_pca.PCARunConfig`).
+superstep`, e.g. `core.krasulina.krasulina_superstep_builder`); when both
+are omitted the LM trainer's builder (`train.trainer.superstep_builder`) is
+built here, as in the reference. `run_cfg` only needs `.stream` and
+`.averaging` (e.g. `configs.paper_pca.PCARunConfig`) when a superstep is
+passed, and is a full `RunConfig` for the LM trainer.
 
 Closing the loop, the driver times every superstep, inverts eq. 4 to get the
 *measured* R_p / R_e (`core.rates.measured_processing_rate`), and re-plans
@@ -54,7 +57,8 @@ from repro_torch.core import rates
 from repro_torch.data.pipeline import (DevicePrefetcher, StreamCounters,
                                        StreamingPipeline, stage_batch)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.train.trainer import make_node_batch
+from repro_torch.train.trainer import (make_node_batch,
+                                       superstep_builder as lm_superstep_builder)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,8 +121,6 @@ class StreamingDriver:
             raise _later("train-to-serve publication", "serving")
         if snapshotter is not None or resume_from is not None:
             raise _later("snapshots and resume", "durability")
-        if superstep_builder is None and superstep_fn is None:
-            raise _later("the LM trainer's superstep", "LM")
         self.device = resolve_device(device)
         self.run_cfg = run_cfg
         self.mesh = mesh
@@ -134,8 +136,15 @@ class StreamingDriver:
             batch=batch, horizon=horizon, seed=seed)
         self.ladder = self._make_ladder(gov)
         self.pipeline.adopt_ladder(self.ladder)
+        # superstep source, most to least specific: an explicit bucket-keyed
+        # builder, a single superstep_fn (served to every bucket), or the LM
+        # trainer's builder
         if superstep_builder is None:
-            superstep_builder = lambda B: superstep_fn
+            if superstep_fn is not None:
+                superstep_builder = lambda B: superstep_fn
+            else:
+                superstep_builder = lm_superstep_builder(
+                    run_cfg, None, n_nodes=self.n_nodes, device=self.device)
         self._builder = superstep_builder
         # one superstep per bucket, built on first visit and reused
         self._built: Dict[int, Callable] = {}

@@ -591,3 +591,127 @@ def test_cuda_model_prefill_takes_the_kernel(cuda):
     torch.cuda.synchronize()
     assert ops.launches["flash_attention"] == cfg.num_layers
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+def test_cuda_attention_refuses_a_differentiable_call(cuda):
+    """The flash kernel has no backward: on the card, a call that autograd
+    would differentiate raises and names the differentiable route; the same
+    call without grad mode launches the kernel."""
+    q = torch.randn((1, 2, 64, 64), device=cuda, requires_grad=True)
+    k, v = torch.randn_like(q), torch.randn_like(q)
+    ops.reset_launches()
+    with pytest.raises(RuntimeError, match="blockwise_attention"):
+        ops.attention(q, k, v)
+    assert ops.launches["flash_attention"] == 0
+    with torch.no_grad():
+        ops.attention(q, k, v)
+    assert ops.launches["flash_attention"] == 1
+
+
+# n = 4 rows of d > 2^31 / n columns: the last row's tail lies past the
+# int32 range of element offsets
+BIG_D = (1 << 29) + 4099
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "sign"])
+def test_cuda_gossip_kernels_past_int32_offsets(cuda, quant):
+    """Both gossip kernels on a bf16 [4, 2^29 + 4099] buffer (4.3 GB; row 3
+    ends past element 2^31) against the plain version on the first and the
+    last columns, cut at statistic tile boundaries (block_d = 512)."""
+    n, rounds = 4, 2
+    sched = tmix.schedule("ring", n)
+    x = torch.randn((n, BIG_D), device=cuda, dtype=torch.bfloat16)
+    if quant is None:
+        got = ops.gossip_mix(x, sched, rounds)
+        plain = lambda part: tref.gossip_mix_ref(part, sched, rounds)
+    else:
+        got = ops.quant_gossip_mix(x, sched, rounds, quant, block_d=512)
+        plain = lambda part: tref.gossip_mix_quant_ref(part, sched, rounds,
+                                                       quant, block_d=512)
+    torch.cuda.synchronize()
+    tail = (BIG_D - 65536) // 512 * 512
+    for cut in (slice(0, 65536), slice(tail, BIG_D)):
+        part = x[:, cut].contiguous()
+        _close(got[:, cut], plain(part), 5e-2)
+    del x, got
+    torch.cuda.empty_cache()
+
+
+def _reduced_training(dev, quant, steps=3):
+    """Reduced granite-8b in f32, N = 4, ring R = 2, Adam: per-round losses,
+    the final state, and the first round's per-node wq / wk / wv
+    gradients, from seed 0 on `dev`."""
+    import numpy as np
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
+    from repro_torch.data.lm import MarkovTokenStream
+    from repro_torch.train import trainer
+    cfg = reduced(get_config("granite-8b"))
+    avg = AveragingConfig("gossip", 2, quantization=quant,
+                          quant_stats="tile", quant_block_d=512)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"], averaging=avg,
+                    optimizer="adam", learning_rate=1e-4,
+                    param_dtype="float32")
+    st = trainer.replicate_for_nodes(
+        trainer.init_state(run, torch.Generator().manual_seed(0)), 4)
+    state = trainer.TrainState(tree_to(st.params, dev), st.opt._replace(
+        m=tree_to(st.opt.m, dev), v=tree_to(st.opt.v, dev)))
+    data = MarkovTokenStream(cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(0)
+    step = trainer.build_train_step(run, None, n_nodes=4, device=dev)
+    losses, first = [], None
+    for s in range(steps):
+        toks = data.sample(rng, 8, 65)
+        b = trainer.make_node_batch({"tokens": toks[:, :-1],
+                                     "labels": toks[:, 1:]}, 4)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        if s == 0:
+            first = [trainer.loss_and_grad(
+                run, tree_index(state.params, i), {k: v[i] for k, v in
+                                                   b.items()})[2]
+                     ["blocks"][0]["attn"] for i in range(4)]
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    return losses, state, first
+
+
+def tree_to(tree, dev):
+    from repro_torch.core.packing import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def tree_index(tree, i):
+    from repro_torch.core.packing import tree_map
+    return tree_map(lambda t: t[i], tree)
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_cuda_training_matches_the_cpu(cuda, quant):
+    """Three rounds on the card and on the CPU from the same state: losses
+    within rtol 1e-4; 99.9% of the parameters within 1e-4 and every one
+    within 3 lr per round (Adam moves an entry whose gradient is float noise
+    by up to its step); each node's wq / wk / wv gradient nonzero and
+    within 1e-4 of its largest entry. The exact wire launches gossip_mix
+    once per round, int8 tile statistics gossip_mix_quant; flash_attention
+    never launches."""
+    import numpy as np
+    from repro_torch.core.packing import tree_leaves
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ops.reset_launches()
+    card_losses, card, card_g = _reduced_training(cuda, quant)
+    counts = dict(ops.launches)
+    cpu_losses, cpu, cpu_g = _reduced_training(torch.device("cpu"), quant)
+    np.testing.assert_allclose(card_losses, cpu_losses, rtol=1e-4)
+    d = torch.cat([(a.cpu() - b).abs().ravel() for a, b in
+                   zip(tree_leaves(card.params), tree_leaves(cpu.params))])
+    assert float((d <= 1e-4).float().mean()) >= 0.999
+    assert float(d.max()) <= 3 * 1e-4 * 3
+    for gc, gp in zip(card_g, cpu_g):
+        for name in ("wq", "wk", "wv"):
+            scale = float(gp[name].abs().max())
+            assert scale > 0
+            assert float((gc[name].cpu() - gp[name]).abs().max()) \
+                <= 1e-4 * scale
+    kernel = "gossip_mix" if quant == "none" else "gossip_mix_quant"
+    assert counts[kernel] == 3 and counts["flash_attention"] == 0
+    assert sum(counts.values()) == 3

@@ -274,12 +274,15 @@ def test_entry_points_without_device_need_the_card():
     ({"publisher": object()}, "serving"),
     ({"snapshotter": object()}, "durability"),
     ({"resume_from": "ckpt"}, "durability"),
-    ({"superstep_fn": None}, "LM"),
+    # no superstep: the LM trainer's builder, which refuses error feedback
+    ({"superstep_fn": None, "run_cfg": PCARunConfig(averaging=AveragingConfig(
+        mode="gossip", error_feedback="grads"))}, "error-feedback"),
 ])
 def test_driver_later_slices_raise(kwargs, match):
-    args = dict(mesh=None, superstep_fn=lambda s, b: (s, {}))
+    args = dict(mesh=None, superstep_fn=lambda s, b: (s, {}),
+                run_cfg=PCARunConfig())
     args.update(kwargs)
-    mesh = args.pop("mesh")
+    mesh, run_cfg = args.pop("mesh"), args.pop("run_cfg")
     with pytest.raises(NotImplementedError, match=match):
-        StreamingDriver(PCARunConfig(), mesh, None, lambda rng, n: {},
+        StreamingDriver(run_cfg, mesh, None, lambda rng, n: {},
                         n_nodes=2, device="cpu", **args)
