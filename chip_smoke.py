@@ -78,6 +78,23 @@
    superstep, the card's ms for each step of one more round (each node's
    forward and backward, the gradient copies, pack, mix, consensus error,
    Adam) and the peak memory.
+   (i) elastic PCA at HIGHD (K = 4, 12 supersteps, ungoverned, numpy
+   draws): the exact and int8 tile wires under `death:3@2-6,flaky:7@3-9p2`
+   (cohorts of 10, 9 and 8 nodes) and the straggler policy "drop" under
+   `slow:2@2-6x4`, each on the card and on the CPU: equal membership events
+   and compiled signatures, each signature built once (a rejoin builds
+   nothing), sin^2 < 0.05, the iterates and sin^2 card vs CPU within f32's
+   bound (exact wire) or a compressor step (int8), launches by node count;
+   (j) the eight registered scenarios through
+   `krasulina_superstep_builder(mix=build_mix(scn))` and the driver with
+   their link faults, card vs CPU: one build each, `krasulina_xi` only;
+   (k0) the trainer's cohort superstep, error feedback (int8) and a
+   scheduled mix on the reduced f32 config, card vs CPU at (h0)'s bounds;
+   (k1) granite-8b at (h1)'s shape under `death:1@1-4` on the exact and
+   int8 wires (the 3-node cohort in place, `gossip_mix` / `gossip_mix_quant`
+   at n = 3, rejoin sync), peak memory < 80 GB; (k2) error feedback on the
+   int8 wire (`ef_rel` printed); (k3) tv_rte/lossy at n = 4 through the
+   scheduled matmul.
 4. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes) against its bound, its plain version and,
@@ -86,10 +103,14 @@
    (`gossip_mix_quant` also at R = 0, 1, 8 and at path (f)'s shape;
    `krasulina_xi` also cold, with a 64 MB buffer written between calls);
    `gossip_mix` and `gossip_mix_quant` also at the trainer's shape (the
-   [4, D] bf16 buffer of (h), R = 2), held against the plain version on its
-   first and last columns; prints one `{"kernels": [...]}` JSON line, a row
-   per kernel with its `design` (and, for the two gossip kernels, a
-   `trainer` entry).
+   [4, D] bf16 buffer of (h), R = 2) and at (k1)'s 3-node cohort, routed,
+   held against the plain version on their first and last columns
+   (`gossip_mix_quant` also forced onto each design, which must give the
+   same bits), and `gossip_mix` on one f32 error-feedback chunk of (k2),
+   held whole; prints one `{"kernels": [...]}` JSON line, a row per kernel
+   with its `design`, its launches by node count (the node-axis kernels)
+   and, for the two gossip kernels, `trainer` and `n3` entries (and
+   `ef_chunk` for `gossip_mix`).
 
 The last line is `{"ok": true, "device": {...}}`. Any mismatch or fault
 raises and exits non-zero; there is no CPU path and no fallback. Without a
@@ -159,7 +180,7 @@ DESIGN = {
     "krasulina_xi": "cluster-slab",
     "krasulina_xi_gossip": "one-read+composed",
     "gossip_mix": "composed",
-    "gossip_mix_quant": "cluster-tile",
+    "gossip_mix_quant": "cluster-tile; resident-tile from 132 tiles at n<=16",
     "flash_attention": "wgmma+tma",
 }
 # gossip_mix_quant, (block_d, d, blocks per statistic tile): every cluster
@@ -226,20 +247,25 @@ def main() -> int:
 
     from repro_torch import convert
     from repro_torch.configs import get_config, reduced
-    from repro_torch.configs.base import (SHAPES, AveragingConfig, RunConfig,
+    from repro_torch.configs.base import (SHAPES, AveragingConfig,
+                                          GovernorConfig, RunConfig,
                                           StreamConfig)
     from repro_torch.configs.paper_logreg import FIG6, FIG9
-    from repro_torch.configs.paper_pca import HIGHD, PCARunConfig
+    from repro_torch.configs.paper_pca import FIG7, HIGHD, PCARunConfig
     from repro_torch.core import (averaging, dmb, dsgd, krasulina, mixing,
-                                  problems)
+                                  problems, scenarios)
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.core.mixing import Membership
     from repro_torch.core import packing
     from repro_torch.core.packing import tree_leaves, tree_map
+    from repro_torch.core.quantize import tile_compress
     from repro_torch.data.lm import MarkovTokenStream
     from repro_torch.data.synthetic import (make_logreg_stream,
                                             make_pca_host_sampler,
                                             make_pca_stream)
     from repro_torch.kernels import _cuda, ops, ref
-    from repro_torch.kernels.consensus import gossip_mix_quant_cuda
+    from repro_torch.kernels.consensus import (gossip_mix_quant_cuda,
+                                               quant_route)
     from repro_torch.kernels.flash_attention import flash_variant
     from repro_torch.kernels.consensus import gossip_design
     from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
@@ -1088,19 +1114,21 @@ def main() -> int:
         to = lambda tree: tree_map(lambda t: t.to(d_, copy=True), tree)
         return trainer.TrainState(to(state.params), state.opt._replace(
             m=to(state.opt.m), v=to(state.opt.v),
-            master=to(state.opt.master)))
+            master=to(state.opt.master),
+            ef_residual=to(state.opt.ef_residual)))
 
     def draw_tokens(data, rng, n, seq):
         toks = data.sample(rng, n, seq + 1)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
-    def attn_grads(run, state, batch):
-        """Each node's wq / wk / wv gradient of every layer at `state`."""
+    def attn_grads(run, state, batch, ids=None):
+        """Each node's wq / wk / wv gradient of every layer at `state` (the
+        nodes `ids`, batch row j for node ids[j]; default all)."""
         out = []
-        for i in range(TRAIN_N):
+        for j, i in enumerate(range(TRAIN_N) if ids is None else ids):
             _, _, grads = trainer.loss_and_grad(
                 run, tree_map(lambda p: p[i], state.params),
-                {k: v[i] for k, v in batch.items()})
+                {k: v[j] for k, v in batch.items()})
             out.append([blk["attn"][w] for blk in grads["blocks"]
                         for w in ("wq", "wk", "wv")])
         return out
@@ -1143,7 +1171,10 @@ def main() -> int:
                                                               pools))[1]
         mixed = packing.unpack_tree(outs, spec)
         update = make_optimizer(run.optimizer, run.learning_rate)
-        ms["adam"] = timed(lambda: update(mixed, state.opt, params))[1]
+        # every node at one step: one update on the stacked leaves, as the
+        # trainer runs it
+        opt = state.opt._replace(step=state.opt.step[0])
+        ms["adam"] = timed(lambda: update(mixed, opt, params))[1]
         return ms
 
     quant_tile = dict(quantization="int8", quant_stats="tile",
@@ -1330,6 +1361,416 @@ def main() -> int:
     print(f"main (h2) final loss {finals['(h2)']:.5f} beside (h1) "
           f"{finals['(h1)']:.5f}")
     train_d = n_node  # the packed gradient buffer's width per node
+
+    # ------------------------------ the elastic and scenario paths (i)-(k)
+    nodes_total = {k: {} for k in ops.node_launches}
+
+    def take_nodes(label):
+        """The launches of the run just read by node count, added to the
+        main-path totals; printed with the phase."""
+        counts = {k: dict(sorted(v.items())) for k, v in
+                  ops.node_launches.items() if v}
+        for k, v in counts.items():
+            for n, c in v.items():
+                nodes_total[k][n] = nodes_total[k].get(n, 0) + c
+        return counts
+
+    class FakeClock:
+        """Advances dt per read: the straggler policy then reads the same
+        round times on the card and on the CPU."""
+
+        def __init__(self, dt):
+            self.t, self.dt = 0.0, dt
+
+        def __call__(self):
+            self.t += self.dt
+            return self.t
+
+    def counting(builder, builds):
+        """`builder` that records the (B, cohort size) of every build."""
+        def build(B, membership=None):
+            builds.append((B, HIGHD_N if membership is None
+                           else membership.n_active))
+            return builder(B, membership)
+        return build
+
+    stream_cpu = dataclasses.replace(
+        stream, cov=stream.cov.cpu(), top_eigvec=stream.top_eigvec.cpu(),
+        sqrt_cov=stream.sqrt_cov.cpu())
+    events_of = lambda drv: [(e["superstep"], e["to"].active_ids,
+                              e["plan"].B) for e in drv.membership_events]
+
+    # (i) elastic PCA at HIGHD (N = 10, B = 1000, ring R = 8), ungoverned so
+    # the plans are the same on the card and on the CPU, numpy host draws
+    # (the same sqrt_cov on both sides), K = 4, 12 supersteps, no prefetch
+    # (the swaps land on a fixed superstep): the exact wire and the int8
+    # tile wire under a death and a flaky node, and the straggler policy
+    # "drop" under a 4x slowdown (a fake clock on both sides)
+    ELASTIC_K, ELASTIC_STEPS = 4, 12
+    for label, avg, spec, gov in (
+            ("(i) exact wire", gossip, "death:3@2-6,flaky:7@3-9p2", {}),
+            ("(i) int8 tile wire", int8_tile, "death:3@2-6,flaky:7@3-9p2",
+             {}),
+            ("(i) straggler drop", gossip, "slow:2@2-6x4",
+             dict(straggler_policy="drop", straggler_slow_factor=2.0,
+                  straggler_patience=2))):
+        sides = {}
+        for side, d_, st in (("card", dev, stream), ("cpu", cpu, stream_cpu)):
+            builds = []
+            metric = lambda w, st=st: problems.sin2_error(w, st.top_eigvec)
+            builder = counting(krasulina.krasulina_superstep_builder(
+                avg, HIGHD_N, step5, metric=metric, device=d_), builds)
+            est = krasulina.init_krasulina_state(w0.to(d_), avg, HIGHD_N,
+                                                 device=d_)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with StreamingDriver(
+                    PCARunConfig(pca=HIGHD, averaging=avg,
+                                 stream=StreamConfig()),
+                    None, est, make_pca_host_sampler(st),
+                    superstep_builder=builder, n_nodes=HIGHD_N,
+                    batch=HIGHD_B, device=d_,
+                    faults=FaultSchedule.parse(spec, HIGHD_N),
+                    clock=FakeClock(0.05) if gov else time.perf_counter,
+                    engine=EngineConfig(superstep=ELASTIC_K,
+                                        prefetch_depth=0, replan_every=0,
+                                        governor=GovernorConfig(**gov))
+                    ) as drv:
+                est, hist = drv.run(ELASTIC_STEPS)
+            if d_.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = nodes = None
+            if side == "card":
+                kernels = (["krasulina_xi_gossip"] if avg is gossip
+                           else ["krasulina_xi", "gossip_mix_quant"])
+                counts = take_counts(label, kernels, {
+                    k: 0 for k in ("gossip_mix", "flash_attention")})
+                nodes = take_nodes(label)
+            sides[side] = dict(state=est, hist=hist, events=events_of(drv),
+                               sigs=drv.compiled_signatures, builds=builds,
+                               counts=counts, nodes=nodes, seconds=seconds)
+        c, p = sides["card"], sides["cpu"]
+        sin2_c = [r["metrics"]["metric"] for r in c["hist"]]
+        sin2_p = [r["metrics"]["metric"] for r in p["hist"]]
+        cohorts = sorted({r["n_active"] for r in c["hist"]})
+        print(f"main {label} HIGHD N={HIGHD_N} B={HIGHD_B} R={HIGHD_R} "
+              f"K={ELASTIC_K}, {ELASTIC_STEPS} supersteps in "
+              f"{c['seconds']:.3f} s on the card ({p['seconds']:.3f} s on "
+              f"the CPU): membership events {json.dumps(c['events'])}, "
+              f"compiled signatures {list(c['sigs'])}, builds "
+              f"{c['builds']}, cohort sizes run {cohorts}; sin2 by "
+              f"superstep card {json.dumps([round(x, 6) for x in sin2_c])} "
+              f"CPU {json.dumps([round(x, 6) for x in sin2_p])}; "
+              f"launches={json.dumps(c['counts'])} by nodes "
+              f"{json.dumps(c['nodes'])}")
+        require(c["events"] == p["events"] and c["events"],
+                f"{label}: membership events differ or none: {c['events']} "
+                f"vs {p['events']}")
+        require(c["sigs"] == p["sigs"], f"{label}: compiled signatures "
+                                        f"differ: {c['sigs']} {p['sigs']}")
+        require(len(c["builds"]) == len(set(c["builds"])) == len(c["sigs"]),
+                f"{label}: a signature was built twice: {c['builds']}")
+        require(len(cohorts) > 1 and (HIGHD_B, HIGHD_N) in c["sigs"],
+                f"{label}: the run never left or never had full membership")
+        require(c["hist"][-1]["n_active"] == HIGHD_N,
+                f"{label}: the run did not rejoin to full membership")
+        require(c["state"].t == p["state"].t == ELASTIC_STEPS * ELASTIC_K,
+                f"{label}: rounds {c['state'].t} vs {p['state'].t}")
+        require(max(sin2_c[-1], sin2_p[-1]) < 0.05,
+                f"{label}: sin2 {sin2_c[-1]} (CPU {sin2_p[-1]}) not < 0.05")
+        if avg is gossip:
+            # the exact wire: kernels and plain versions differ by f32
+            # reassociation only
+            compare(f"{label} iterates card vs CPU", c["state"].w,
+                    p["state"].w.to(dev), "float32")
+            compare(f"{label} sin2 by superstep card vs CPU",
+                    torch.tensor(sin2_c), torch.tensor(sin2_p), "float32")
+            require(set(c["nodes"].get("krasulina_xi_gossip", {})) == set(cohorts),
+                    f"{label}: fused launches by nodes {c['nodes']}")
+        else:
+            # the int8 wire: float noise between the card's and the CPU's xi
+            # moves a value across a rounding boundary now and then, and the
+            # wire value by one step (1/127 of its tile's max), so the
+            # iterates are held to 1e-2 of their largest entry and sin2 to
+            # 5e-3 absolute
+            compare(f"{label} iterates card vs CPU", c["state"].w,
+                    p["state"].w.to(dev), "float32", tol={"float32":
+                                                          (1e-2, 1e-5)})
+            err = max(abs(a - b) for a, b in zip(sin2_c, sin2_p))
+            print(f"check {label} sin2 by superstep card vs CPU: max_abs_err="
+                  f"{err:.3e} limit=5e-3 {'ok' if err <= 5e-3 else 'FAIL'}")
+            require(err <= 5e-3, f"{label}: sin2 card vs CPU {err}")
+            require(set(c["nodes"].get("gossip_mix_quant", {})) == set(cohorts),
+                    f"{label}: quantized launches by nodes {c['nodes']}")
+
+    # (j) the eight registered scenarios (FIG7, N = 8, ring R = 2 as
+    # registered) through krasulina_superstep_builder(mix=build_mix(scn)):
+    # the scheduled operator never fuses, so every round runs krasulina_xi
+    # and then the operator's matmul; the scenario's link faults ride the
+    # driver (non-elastic); card against CPU on the same numpy draws. The
+    # logreg scenario's operator mixes the FIG7 PCA stream (the PCA
+    # superstep takes z)
+    fig7 = make_pca_stream(FIG7, device=dev)
+    fig7_cpu = dataclasses.replace(
+        fig7, cov=fig7.cov.cpu(), top_eigvec=fig7.top_eigvec.cpu(),
+        sqrt_cov=fig7.sqrt_cov.cpu())
+    w7 = randn(FIG7.dim)
+    w7 /= w7.norm()
+    for name in scenarios.scenario_names():
+        scn = scenarios.get_scenario(name)
+        avg = scenarios.averaging_config(scn)
+        links = scenarios.fault_schedule(scn)
+        sides = {}
+        for side, d_, st in (("card", dev, fig7), ("cpu", cpu, fig7_cpu)):
+            sample = (scenarios.build_stream(scn, pca=st).sample
+                      if scn.stream in ("iid_pca", "drift_pca")
+                      else make_pca_host_sampler(st))
+            metric = lambda w, st=st: problems.sin2_error(w, st.top_eigvec)
+            builds = []
+            mix_j = scenarios.build_mix(scn, device=d_)
+            n_phases = mix_j.n_phases
+            base = krasulina.krasulina_superstep_builder(
+                avg, scn.n_nodes, lambda t: 10.0 / t, metric=metric,
+                mix=mix_j, device=d_)
+            ops.reset_launches()
+            with StreamingDriver(
+                    PCARunConfig(pca=FIG7, averaging=avg,
+                                 stream=StreamConfig()),
+                    None, krasulina.init_krasulina_state(
+                        w7.to(d_), avg, scn.n_nodes, device=d_),
+                    sample, superstep_builder=lambda B, mem=None, b=base,
+                    builds=builds: builds.append(B) or b(B, mem),
+                    n_nodes=scn.n_nodes, batch=10 * scn.n_nodes,
+                    faults=links, device=d_,
+                    engine=EngineConfig(superstep=4, prefetch_depth=0,
+                                        replan_every=0)) as drv:
+                jst, hist = drv.run(8)
+            counts = (take_counts(f"(j) {name}", ["krasulina_xi"], {
+                k: 0 for k in ops.launches if k != "krasulina_xi"})
+                      if side == "card" else None)
+            sides[side] = (jst, hist, builds, counts)
+        (jc, hc, bc, counts), (jp, hp, bp, _) = sides["card"], sides["cpu"]
+        drops = sum(len(r.get("link_drops", ())) for r in hc)
+        print(f"main (j) scenario {name}: period {scenarios.scenario_period(scn)}"
+              f" rounds, {n_phases} phases, 32 rounds, sin2 "
+              f"{hc[-1]['metrics']['metric']:.5f} (CPU "
+              f"{hp[-1]['metrics']['metric']:.5f}), consensus_err "
+              f"{hc[-1]['metrics']['consensus_err']:.3e}, link drops seen "
+              f"{drops}, builds {bc}; launches={json.dumps(counts)}")
+        require(bc == bp == [10 * scn.n_nodes],
+                f"(j) {name}: built {bc} (CPU {bp}), expected one build")
+        require([r.get("link_drops") for r in hc]
+                == [r.get("link_drops") for r in hp],
+                f"(j) {name}: link drops differ card vs CPU")
+        compare(f"(j) {name} iterates card vs CPU", jc.w, jp.w.to(dev),
+                "float32")
+        require(math.isfinite(hc[-1]["metrics"]["metric"]),
+                f"(j) {name}: sin2 not finite")
+
+    # (k) the trainer's elastic, error-feedback and scheduled paths
+    lossy4 = scenarios.make_scenario("tv_rte", "lossy", "iid_pca",
+                                     n_nodes=TRAIN_N, rounds=TRAIN_R)
+    # (k0) reduced granite-8b in f32 on the card and on the CPU from the
+    # same state and draws, 3 rounds of each path, at (h0)'s tolerances:
+    # the cohort superstep (node 1 dropped, exact wire), error feedback on
+    # the int8 wire, and the scheduled mix of tv_rte/lossy at n = 4
+    cohort_ids = (0, 2, 3)
+    for path in ("cohort", "error feedback", "scheduled"):
+        quant = dict(quant_tile, error_feedback="grads") \
+            if path == "error feedback" else {}
+        run = RunConfig(model=cfg_r, shape=SHAPES["train_4k"],
+                        averaging=AveragingConfig("gossip", TRAIN_R, "ring",
+                                                  **quant),
+                        optimizer="adam", learning_rate=H0_LR,
+                        param_dtype="float32")
+        base = trainer.replicate_for_nodes(
+            trainer.init_state(run, torch.Generator().manual_seed(0)),
+            TRAIN_N)
+        data, rng = MarkovTokenStream(cfg_r.vocab_size, seed=0), \
+            np.random.default_rng(0)
+        m = len(cohort_ids) if path == "cohort" else TRAIN_N
+        batches = {k: np.stack([trainer.make_node_batch(
+            draw_tokens(data, rng, 2 * m, 64), m)[k]
+            for _ in range(H0_ROUNDS)]) for k in ("tokens", "labels")}
+        runs = {}
+        for side, d_ in (("card", dev), ("cpu", cpu)):
+            st = on_device(base, d_)
+            bs = {k: torch.from_numpy(v).to(d_) for k, v in batches.items()}
+            if path == "scheduled":
+                build = trainer.superstep_builder(
+                    run, None, n_nodes=TRAIN_N, device=d_,
+                    mix=scenarios.build_mix(lossy4, device=d_))
+            else:
+                build = trainer.superstep_builder(run, None, n_nodes=TRAIN_N,
+                                                  device=d_)
+            ops.reset_launches()
+            if path == "cohort":
+                grads = attn_grads(run, st, {k: v[0] for k, v in bs.items()},
+                                   cohort_ids)
+                fn = build(2 * m, Membership.full(TRAIN_N).drop(1))
+                st, mets = fn(st, cohort_ids, bs)
+            else:
+                grads = attn_grads(run, st, {k: v[0] for k, v in bs.items()})
+                st, mets = build(2 * m)(st, bs)
+            counts = (take_counts(
+                f"(k0) {path}", [],
+                {"gossip_mix": H0_ROUNDS * (path != "scheduled"),
+                 "gossip_mix_quant": 0, "flash_attention": 0,
+                 "krasulina_xi": 0, "krasulina_xi_gossip": 0})
+                      if side == "card" else None)
+            nodes = take_nodes(f"(k0) {path}") if side == "card" else None
+            runs[side] = ([float(x) for x in mets["loss"]], st, grads,
+                          counts, nodes, mets)
+        (lc, sc, gc, counts, nodes, mc), (lp, sp, gp, _, _, mp) = \
+            runs["card"], runs["cpu"]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+        d = torch.cat([(a.cpu() - b).abs().ravel() for a, b in
+                       zip(tree_leaves(sc.params), tree_leaves(sp.params))])
+        within = float((d <= 1e-4).float().mean())
+        grad_err = max(float((a.cpu() - b).abs().max() / b.abs().max())
+                       for ga, gb in zip(gc, gp) for a, b in zip(ga, gb))
+        grad_min = min(float(b.abs().max()) for gb in gp for b in gb)
+        extra = ""
+        if path == "error feedback":
+            extra = (f"; ef_rel card {json.dumps([float(x) for x in mc['ef_rel']])}"
+                     f" CPU {json.dumps([float(x) for x in mp['ef_rel']])}")
+        print(f"main (k0) reduced granite-8b f32 N={TRAIN_N} {path}, card vs "
+              f"CPU over {H0_ROUNDS} rounds: losses {json.dumps(lc)} (CPU "
+              f"{json.dumps(lp)}, max rel err {loss_err:.2e}, limit 1e-4); "
+              f"parameters within 1e-4: {within:.6f} (limit >= 0.999), "
+              f"max_abs_err {float(d.max()):.3e} (limit "
+              f"{3 * H0_LR * H0_ROUNDS:.1e}); wq/wk/wv gradients: smallest "
+              f"max|g| {grad_min:.3e}, max rel err {grad_err:.2e} (limit "
+              f"1e-4){extra}; launches={json.dumps(counts)} by nodes "
+              f"{json.dumps(nodes)}")
+        require(loss_err <= 1e-4, f"(k0) {path}: losses disagree")
+        require(within >= 0.999 and float(d.max()) <= 3 * H0_LR * H0_ROUNDS,
+                f"(k0) {path}: parameters disagree")
+        require(grad_min > 0 and grad_err <= 1e-4,
+                f"(k0) {path}: wq/wk/wv gradients zero or disagree")
+        if path == "cohort":
+            require(nodes.get("gossip_mix") == {len(cohort_ids): H0_ROUNDS},
+                    f"(k0) cohort: gossip_mix by nodes {nodes}")
+            same = all(torch.equal(a[1].cpu(), b[1].cpu()) for a, b in zip(
+                tree_leaves(sc.params), tree_leaves(base.params)))
+            require(same, "(k0) cohort: the dropped node's row changed")
+    del base, runs, sc, sp, gc, gp, st
+
+    def full_width_run(label, quant, *, spec=None, mix_scn=None,
+                       supersteps=TRAIN_SUPERSTEPS):
+        """granite-8b at full width cut to 2 layers, N = 4, through the
+        driver (no prefetch, so membership swaps land on fixed supersteps);
+        returns the history, the peak memory and the launch counts."""
+        run = RunConfig(model=cfg_h, shape=SHAPES["train_4k"],
+                        averaging=AveragingConfig("gossip", TRAIN_R, "ring",
+                                                  **quant),
+                        optimizer="adam", learning_rate=3e-4,
+                        param_dtype="bfloat16", master_weights=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tstate = trainer.replicate_for_nodes(trainer.init_state(
+            run, torch.Generator(device=dev).manual_seed(0)), TRAIN_N)
+        data = MarkovTokenStream(cfg_h.vocab_size, seed=0)
+        sample = lambda rng, n: draw_tokens(data, rng, n, TRAIN_S)
+        faults = None
+        builder = None
+        if spec is not None:
+            faults = FaultSchedule.parse(spec, TRAIN_N)
+        if mix_scn is not None:
+            faults = scenarios.fault_schedule(mix_scn)
+            builder = trainer.superstep_builder(
+                run, None, n_nodes=TRAIN_N, device=dev,
+                mix=scenarios.build_mix(mix_scn, device=dev))
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with StreamingDriver(run, None, tstate, sample, batch=TRAIN_B,
+                             n_nodes=TRAIN_N, device=dev, faults=faults,
+                             superstep_builder=builder,
+                             engine=EngineConfig(superstep=TRAIN_K,
+                                                 prefetch_depth=0,
+                                                 replan_every=0)) as drv:
+            tstate, history = drv.run(supersteps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        events = events_of(drv)
+        del tstate, drv, builder
+        torch.cuda.empty_cache()
+        losses = [r["metrics"]["loss"] for r in history]
+        for r in history:
+            extra = "".join(f" {k} {r['metrics'][k]:.4e}" for k in
+                            ("ef_norm", "ef_rel") if k in r["metrics"])
+            if "link_drops" in r:
+                extra += f" link_drops {list(r['link_drops'])}"
+            print(f"  superstep {r['superstep']} round {r['round']}: nodes "
+                  f"{r['n_active']} B={r['bucket']} loss "
+                  f"{r['metrics']['loss']:.5f} consensus_err "
+                  f"{r['metrics']['consensus_err']:.4e}{extra} wall "
+                  f"{r['wall_s']:.4f} s")
+        require(all(math.isfinite(x) for x in losses),
+                f"{label}: a loss is not finite")
+        require(losses[-1] < losses[0], f"{label}: the loss did not fall")
+        steady = history[1:]
+        rounds_s = len(steady) * TRAIN_K / sum(r["wall_s"] for r in steady)
+        return history, peak, wall, rounds_s, events
+
+    # (k1) the exact and int8 wires under death:1@1-4 with rejoin sync:
+    # supersteps 1-3 train the 3-node cohort in place (gossip_mix and
+    # gossip_mix_quant at n = 3), superstep 4 rejoins node 1 at the
+    # cohort's mean
+    for wire, quant, kernel in (("exact", {}, "gossip_mix"),
+                                ("int8", quant_tile, "gossip_mix_quant")):
+        label = f"(k1) {wire} wire death:1@1-4"
+        hist, peak, wall, rounds_s, events = full_width_run(
+            label, quant, spec="death:1@1-4", supersteps=5)
+        other = {k: 0 for k in ops.launches}
+        other[kernel] = 5 * TRAIN_K
+        counts = take_counts(label, [kernel], other)
+        nodes = take_nodes(label)
+        print(f"main {label}: granite-8b full width, {TRAIN_LAYERS} layers, "
+              f"N={TRAIN_N}; membership events {json.dumps(events)}; "
+              f"{5 * TRAIN_K} rounds in {wall:.3f} s, steady "
+              f"{rounds_s:.4f} rounds/s; peak memory {peak:.2f} GB (limit "
+              f"80); launches={json.dumps(counts)} by nodes "
+              f"{json.dumps(nodes)}; card {smi}")
+        require(nodes.get(kernel) == {3: 3 * TRAIN_K, TRAIN_N: 2 * TRAIN_K},
+                f"{label}: {kernel} launches by nodes {nodes}")
+        require([e[:2] for e in events] == [(1, cohort_ids),
+                                            (4, (0, 1, 2, 3))],
+                f"{label}: membership events {events}")
+        require(peak < 80, f"{label}: peak memory {peak:.2f} GB")
+
+    # (k2) error feedback on the int8 wire at full membership: one
+    # compression per round outside the operator, the linear mix of the
+    # compressed buffer through gossip_mix a column chunk at a time
+    label = "(k2) error feedback int8"
+    hist, peak, wall, rounds_s, _ = full_width_run(
+        label, dict(quant_tile, error_feedback="grads"), supersteps=3)
+    counts = take_counts(label, ["gossip_mix"], {
+        "gossip_mix_quant": 0, "flash_attention": 0, "krasulina_xi": 0,
+        "krasulina_xi_gossip": 0})
+    nodes = take_nodes(label)
+    ef_rel = [r["metrics"]["ef_rel"] for r in hist]
+    print(f"main {label}: ef_rel by superstep {json.dumps(ef_rel)}; "
+          f"{3 * TRAIN_K} rounds in {wall:.3f} s, steady {rounds_s:.4f} "
+          f"rounds/s; peak memory {peak:.2f} GB; launches="
+          f"{json.dumps(counts)} by nodes {json.dumps(nodes)}")
+    require(all(0 < x < 1 for x in ef_rel), f"{label}: ef_rel {ef_rel}")
+
+    # (k3) tv_rte/lossy re-rooted to n = 4: the scheduled operator's matmul
+    # (a phase per round picked on the card), the link drops in the records
+    label = "(k3) scenario tv_rte/lossy n=4"
+    hist, peak, wall, rounds_s, _ = full_width_run(label, {},
+                                                   mix_scn=lossy4,
+                                                   supersteps=3)
+    counts = take_counts(label, [], {k: 0 for k in ops.launches})
+    print(f"main {label}: {3 * TRAIN_K} rounds in {wall:.3f} s, steady "
+          f"{rounds_s:.4f} rounds/s; peak memory {peak:.2f} GB; "
+          f"launches={json.dumps(counts)} (the scheduled matmul is a "
+          f"library call, as in the reference)")
+    require(all("link_drops" in r for r in hist),
+            f"{label}: the records carry no link drops")
 
     # ----------------------------------------------------------------- timing
     def bound(bytes_moved, flops, flops_per_s):
@@ -1529,11 +1970,12 @@ def main() -> int:
                  "shape": main_shape["shape"], "wide": wide,
                  "mma_sync_ms": main_shape["mma_sync_ms"]})
     # both gossip kernels at the trainer's shape (h): the packed bf16
-    # gradient buffer of 4 nodes, ring R = 2, int8 tiles of 512 columns.
-    # CUDA events around a few calls (one call moves 10 GB, so launch gaps
-    # are noise, and a graph of many calls would hold their outputs); the
-    # plain version on the whole buffer too, its error on the first and the
-    # last columns (past element 2^31 of the buffer), cut at tile boundaries
+    # gradient buffer of 4 nodes, and of (k1)'s 3-node cohort (its first 3
+    # rows). CUDA events around a few calls (one call moves 10 GB, so launch
+    # gaps are noise, and a graph of many calls would hold their outputs);
+    # the plain version on the whole buffer too, its error on the first and
+    # the last columns (past element 2^31 of the buffer), cut at tile
+    # boundaries
     def event_ms(fn, reps=3):
         fn()
         torch.cuda.synchronize()
@@ -1546,54 +1988,91 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    x = torch.randn((TRAIN_N, train_d), generator=gen, device=dev,
-                    dtype=torch.bfloat16)
-    sched = mixing.schedule("ring", TRAIN_N)
-    shape = f"bf16 n={TRAIN_N} d={train_d} R={TRAIN_R}"
     cuts = (slice(0, 1 << 20),
             slice((train_d - (1 << 20)) // 512 * 512, train_d))
-    fused = mixing.compose_schedule(sched, TRAIN_R, TRAIN_N)
-    A = torch.as_tensor(mixing.schedule_matrix(fused, TRAIN_N),
-                        dtype=torch.bfloat16, device=dev)
-    for name, kern, plain, library, flops, tol in (
-            ("gossip_mix", lambda: ops.gossip_mix(x, sched, TRAIN_R),
-             lambda part: ref.gossip_mix_ref(part, sched, TRAIN_R),
-             lambda: torch.matmul(A, x), 2 * len(fused) * x.numel(), TOL),
-            ("gossip_mix_quant",
-             lambda: ops.quant_gossip_mix(x, sched, TRAIN_R, "int8",
-                                          block_d=512),
-             lambda part: ref.gossip_mix_quant_ref(part, sched, TRAIN_R,
-                                                   "int8", block_d=512),
-             None, (2 * len(sched) + 4) * TRAIN_R * x.numel(), QUANT_TOL)):
+
+    def at_shape(name, xs, cols=cuts, note="trainer shape"):
+        """`name` on the n nodes' rows xs (ring R = TRAIN_R; int8 tiles of
+        512 columns for gossip_mix_quant), routed, against its plain version
+        on the columns `cols`; timed beside the plain version on all of xs
+        and, for gossip_mix, the matmul by the composed operator. For
+        gossip_mix_quant also forced onto each design, which must give the
+        same bits."""
+        n, dt = xs.shape[0], str(xs.dtype).split(".")[-1]
+        sched = mixing.schedule("ring", n)
+        if name == "gossip_mix":
+            fused = mixing.compose_schedule(sched, TRAIN_R, n)
+            A = torch.as_tensor(mixing.schedule_matrix(fused, n),
+                                dtype=xs.dtype, device=dev)
+            kern = lambda: ops.gossip_mix(xs, sched, TRAIN_R)
+            plain = lambda part: ref.gossip_mix_ref(part, sched, TRAIN_R)
+            library = lambda: torch.matmul(A, xs)
+            flops, tol, wire = 2 * len(fused) * xs.numel(), TOL, ""
+        else:
+            kern = lambda: ops.quant_gossip_mix(xs, sched, TRAIN_R, "int8",
+                                                block_d=512)
+            plain = lambda part: ref.gossip_mix_quant_ref(
+                part, sched, TRAIN_R, "int8", block_d=512)
+            library = None
+            flops = (2 * len(sched) + 4) * TRAIN_R * xs.numel()
+            tol, wire = QUANT_TOL, " int8 block_d=512"
+        shape = f"{dt} n={n} d={xs.shape[1]} R={TRAIN_R}{wire}"
         got = kern()
         err = max(compare(f"{name} {shape} columns {c.start}:{c.stop} "
-                          f"(trainer shape)", got[:, c],
-                          plain(x[:, c].contiguous()), "bfloat16", tol)
-                  for c in cuts)
+                          f"({note})", got[:, c],
+                          plain(xs[:, c].contiguous()), dt, tol)
+                  for c in cols)
         del got
-        b_ms, b_by = bound(2 * x.numel() * x.element_size(), flops,
+        b_ms, b_by = bound(2 * xs.numel() * xs.element_size(), flops,
                            F32_FLOPS_PER_S)
-        timed = {"shape": shape + (" int8 block_d=512"
-                                   if name == "gossip_mix_quant" else ""),
-                 "ms": event_ms(kern), "plain_ms": event_ms(
-                     lambda: plain(x), reps=1),
+        timed = {"shape": shape, "ms": event_ms(kern),
+                 "plain_ms": event_ms(lambda: plain(xs), reps=1),
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": event_ms(library) if library else None,
                  "max_abs_err": err}
         if name == "gossip_mix_quant":
-            # the one-block-per-tile design, forced, in the same run
-            timed["resident_tile_ms"] = event_ms(
-                lambda: gossip_mix_quant_cuda(x, sched, TRAIN_R, "int8",
-                                              block_d=512,
-                                              _design="resident-tile"))
+            timed["route"] = quant_route(xs, 512)
+            out = {}
+            for design in ("resident-tile", "cluster-tile"):
+                fn = lambda: gossip_mix_quant_cuda(
+                    xs, sched, TRAIN_R, "int8", block_d=512, _design=design)
+                timed[design.replace("-", "_") + "_ms"] = event_ms(fn)
+                out[design] = fn()
+            same = torch.equal(out["resident-tile"], out["cluster-tile"])
+            del out
+            print(f"check gossip_mix_quant {shape} ({note}) resident-tile "
+                  f"vs cluster-tile: {'same bits' if same else 'DIFFER'}")
+            require(same, f"gossip_mix_quant {shape}: the two designs give "
+                          f"different bits")
         torch.cuda.empty_cache()
-        print(f"time {name} trainer shape {timed['shape']}: "
-              + json.dumps(timed))
-        next(r for r in rows if r["name"] == name)["trainer"] = timed
-    del x, A
+        print(f"time {name} {note} {shape}: " + json.dumps(timed))
+        return timed
+
+    x = torch.randn((TRAIN_N, train_d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    for name in ("gossip_mix", "gossip_mix_quant"):
+        row = next(r for r in rows if r["name"] == name)
+        row["trainer"] = at_shape(name, x)
+        row["n3"] = at_shape(name, x[:3])
+    del x
+    torch.cuda.empty_cache()
+    # (k2)'s linear mix: one error-feedback column chunk, f32 [4, width],
+    # holding the int8 tile wire's values, held whole against the plain
+    # version
+    width = averaging.ef_chunk_width(TRAIN_N, train_d, 512)
+    q = tile_compress(torch.randn((TRAIN_N, width), generator=gen,
+                                  device=dev), "int8", 512,
+                      per_node=True).contiguous()
+    next(r for r in rows if r["name"] == "gossip_mix")["ef_chunk"] = \
+        at_shape("gossip_mix", q, cols=(slice(0, width),),
+                 note="error-feedback chunk")
+    del q
     torch.cuda.empty_cache()
     for row in rows:
         row["design"] = DESIGN[row["name"]]
+        if row["name"] in nodes_total:
+            row["launches_by_nodes"] = {
+                str(n): c for n, c in sorted(nodes_total[row["name"]].items())}
     # the per-round metric: the excess risk reads the [d, d] covariance, the
     # alignment error two vectors
     wbar = state.w.mean(0)

@@ -3,7 +3,8 @@ both packages can compute the same thing from the same numbers — a
 `KrasulinaState`, a `PCAStream` built from the reference's covariance, a
 `LogRegStream` built from the reference's ground truth, a circulant
 schedule, LM parameters (`lm_params`, and `lm_tree` back) and a whole LM
-training state (`train_state`, and `train_tree` back). Nothing here imports
+training state, error-feedback residuals included (`train_state`, and
+`train_tree` back). Nothing here imports
 the JAX package: callers pass `np.asarray(...)` of its arrays.
 """
 from __future__ import annotations
@@ -121,34 +122,34 @@ def train_state(params_tree, opt_state, cfg: ModelConfig, *,
                 device: DeviceLike = None) -> TrainState:
     """A `train.trainer.TrainState` from the reference's `TrainState`
     (`jax.tree.map(np.asarray, ...)` of it): the parameters and the
-    optimizer's `step`, `m`, `v` and `master` (`()` where the reference has
-    none), with or without the leading node axis of a decentralized run
-    (read off `opt_state.step`, which `replicate_for_nodes` stacks too).
-    The port's `torch.Generator` init cannot draw the reference's numbers,
-    so both packages start from these. Error-feedback residuals come with
-    the port's error-feedback slice and are refused."""
+    optimizer's `step`, `m`, `v`, `master` and `ef_residual` (`()` where the
+    reference has none), with or without the leading node axis of a
+    decentralized run (read off `opt_state.step`, which
+    `replicate_for_nodes` stacks too: the port's state then keeps a tuple
+    of the nodes' steps). The port's `torch.Generator` init cannot draw the
+    reference's numbers, so both packages start from these."""
     step = np.asarray(opt_state.step)
     node_axis = step.ndim > 0
-    if tuple(opt_state.ef_residual) != ():
-        raise NotImplementedError("error-feedback residuals come with the "
-                                  "port's elastic and error-feedback slice")
     conv = lambda t: (() if isinstance(t, tuple) and t == () else
                       lm_params(t, device=device, node_axis=node_axis))
-    opt = OptState(int(step.reshape(-1)[0]), conv(opt_state.m),
-                   conv(opt_state.v), conv(opt_state.master))
+    opt = OptState(tuple(int(s) for s in step) if node_axis else int(step),
+                   conv(opt_state.m),
+                   conv(opt_state.v), conv(opt_state.master),
+                   conv(opt_state.ef_residual))
     return TrainState(conv(params_tree), opt)
 
 
 def train_tree(state: TrainState, cfg: ModelConfig) -> Dict[str, Any]:
     """The inverse of `train_state`, as numpy: {"params", "step", "m", "v",
-    "master"} in the reference's layout (`master` is `()` without
-    masters)."""
+    "master", "ef_residual"} in the reference's layout (`master` and
+    `ef_residual` are `()` where the state has none)."""
     node_axis = state.params["embed"].dim() == 3
     conv = lambda t: (() if isinstance(t, tuple) and t == () else
                       lm_tree(t, cfg, node_axis=node_axis))
     opt = state.opt
-    return {"params": conv(state.params), "step": opt.step, "m": conv(opt.m),
-            "v": conv(opt.v), "master": conv(opt.master)}
+    return {"params": conv(state.params), "step": np.asarray(opt.step),
+            "m": conv(opt.m), "v": conv(opt.v), "master": conv(opt.master),
+            "ef_residual": conv(opt.ef_residual)}
 
 
 def _first_leaf(tree):

@@ -27,8 +27,12 @@ the exact per-leaf oracle semantics (never packed), "segment" reproduces
 per-leaf scales on the packed buffer in one pass, "tile" takes the
 `gossip_mix_quant` kernel.
 
-Error-feedback compression (`ef_average_and_error`) comes with the port's
-elastic and error-feedback slice.
+Error feedback (`ef_average_and_error`) instead compresses ONCE per step
+outside the operator and mixes the compressed buffer linearly (the
+`gossip_mix` kernel on the card), carrying the compression error as a
+residual. A time-varying `core.mixing.ScheduledMixOp` (scenario harness)
+takes the round counter `t` wherever a static op takes its key
+(`_mix_call`).
 """
 from __future__ import annotations
 
@@ -38,10 +42,15 @@ import torch
 
 from repro_torch.configs.base import AveragingConfig
 from repro_torch.core import packing
-from repro_torch.core.mixing import CirculantMixOp, circulant_mix_op, schedule
+from repro_torch.core.mixing import (CirculantMixOp, ScheduledMixOp,
+                                     circulant_mix_op, schedule)
+from repro_torch.core.quantize import fold_in, tile_compress
 from repro_torch.device import DeviceLike
 
 Tree = Any
+# the consensus engine: a static CirculantMixOp or a time-varying
+# ScheduledMixOp (scenario harness), both called through `_mix_call`
+MixOp = Any
 # groups of leaf indices (in packing order) that the consensus error treats
 # as one leaf each; see `_packed_consensus_error`
 Pools = Tuple[Tuple[int, ...], ...]
@@ -55,15 +64,14 @@ def make_gossip_mix(cfg: AveragingConfig, n_nodes: int, *,
 
     `impl="auto"` resolves per device (`core.mixing.resolve_auto_impl`): the
     CUDA kernel on the card, the dense circulant matmul on the CPU. The
-    quantization, its statistics and tile width come from `cfg`. Error
-    feedback belongs to a later slice and raises."""
-    if cfg.error_feedback != "off":
-        raise NotImplementedError(
-            "error-feedback compressed gossip comes with the port's elastic "
-            "and error-feedback slice")
+    quantization, its statistics and tile width come from `cfg`; with error
+    feedback on, the per-round compressor is dropped (`ef_average_and_error`
+    compresses once per step outside the operator, and the rounds are exact
+    and linear)."""
     sched = schedule(cfg.topology, n_nodes, cfg.self_weight)
+    quantization = "none" if cfg.error_feedback != "off" else cfg.quantization
     return circulant_mix_op(sched, n_nodes, cfg.rounds,
-                            quantization=cfg.quantization, impl=impl,
+                            quantization=quantization, impl=impl,
                             stats=cfg.quant_stats, block_d=cfg.quant_block_d,
                             device=device)
 
@@ -75,35 +83,48 @@ def resolve_packed(cfg: AveragingConfig) -> bool:
     return True if cfg.packed == "auto" else bool(cfg.packed)
 
 
-def _packable(mix: CirculantMixOp) -> bool:
+def _packable(mix: MixOp) -> bool:
     """Quantized global-stats configs pin per-leaf statistics (the oracle),
     so they keep the per-leaf dispatch; everything else packs."""
     return not (mix.quantization != "none" and mix.stats == "global")
 
 
-def _apply_mix(mix: CirculantMixOp, spec: packing.PackSpec, g: int,
-               buf: torch.Tensor, key: Optional[int] = None) -> torch.Tensor:
+def _mix_call(mix: MixOp, x: torch.Tensor, *, key: Optional[int] = None,
+              t=None, **kw) -> torch.Tensor:
+    """Uniform call: a scheduled (time-varying) op takes the round counter
+    `t` to pick its phase; a static op takes the compressor key."""
+    if isinstance(mix, ScheduledMixOp):
+        return mix(x, t=t, **kw)
+    return mix(x, key=key, **kw)
+
+
+def _apply_mix(mix: MixOp, spec: packing.PackSpec, g: int,
+               buf: torch.Tensor, key: Optional[int] = None,
+               t=None) -> torch.Tensor:
     if mix.quantization != "none" and mix.stats == "segment":
         widths = tuple(spec.leaf_width(i) for i in spec.groups[g])
-        return mix(buf, key=key, seg_widths=widths)
-    return mix(buf, key=key)
+        return _mix_call(mix, buf, key=key, t=t, seg_widths=widths)
+    return _mix_call(mix, buf, key=key, t=t)
 
 
 def gossip_average(tree: Tree, n_nodes: int, cfg: AveragingConfig,
-                   mix: Optional[CirculantMixOp] = None, *,
-                   key: Optional[int] = None,
+                   mix: Optional[MixOp] = None, *,
+                   key: Optional[int] = None, t=None,
                    device: DeviceLike = None) -> Tree:
     """R rounds of doubly-stochastic consensus over the leading node axis —
     one packed pass per dtype group by default, per-leaf when `cfg.packed`
     is off or the quantized global-stats oracle is selected. `key`
     (optional) is the per-step integer stochastic compressors fold into the
-    op's seed — see `CirculantMixOp._quantized`."""
+    op's seed — see `CirculantMixOp._quantized`; `t` (optional) is the round
+    counter a `ScheduledMixOp` picks its phase by."""
     if mix is None:
         mix = make_gossip_mix(cfg, n_nodes, device=device)
     if not (cfg.packed and _packable(mix)):
-        return packing.tree_map(lambda g: mix(g, key=key), tree)
+        return packing.tree_map(lambda g: _mix_call(mix, g, key=key, t=t),
+                                tree)
     bufs, spec = packing.pack_tree(tree)
-    outs = tuple(_apply_mix(mix, spec, g, b, key) for g, b in enumerate(bufs))
+    outs = tuple(_apply_mix(mix, spec, g, b, key, t)
+                 for g, b in enumerate(bufs))
     return packing.unpack_tree(outs, spec)
 
 
@@ -113,7 +134,7 @@ def exact_average(tree: Tree) -> Tree:
 
 
 def _hmix_buffer(g: torch.Tensor, pods: int, per_pod: int,
-                 mix: CirculantMixOp, key: Optional[int] = None
+                 mix: MixOp, key: Optional[int] = None, t=None
                  ) -> torch.Tensor:
     """Reduce-scatter hierarchical consensus on one [N, ...] buffer/leaf."""
     shp = g.shape
@@ -127,15 +148,16 @@ def _hmix_buffer(g: torch.Tensor, pods: int, per_pod: int,
     scattered = pod_mean.reshape(pods, per_pod, chunk)  # ... scatter
     # cross-pod gossip, one chunk per lane; pad columns sit at the tail of
     # the flattened layout and are masked out of compressor statistics
-    mixed = mix(scattered, valid_d=f if pad else None, key=key)
+    mixed = _mix_call(mix, scattered, valid_d=f if pad else None, key=key,
+                      t=t)
     gathered = mixed.reshape(pods, 1, chunk * per_pod)[..., :f]  # all-gather
     return gathered.expand(pods, per_pod, f).reshape(shp)
 
 
 def hierarchical_average(tree: Tree, pods: int, per_pod: int,
                          cfg: AveragingConfig,
-                         mix: Optional[CirculantMixOp] = None, *,
-                         key: Optional[int] = None,
+                         mix: Optional[MixOp] = None, *,
+                         key: Optional[int] = None, t=None,
                          device: DeviceLike = None) -> Tree:
     """Exact averaging within each pod, gossip across pods — in
     reduce-scatter form: lane j of each pod owns chunk j of the pod mean,
@@ -150,7 +172,7 @@ def hierarchical_average(tree: Tree, pods: int, per_pod: int,
         mix = make_gossip_mix(cfg, pods, device=device)
 
     def hmix(g):
-        return _hmix_buffer(g, pods, per_pod, mix, key)
+        return _hmix_buffer(g, pods, per_pod, mix, key, t)
 
     if not (cfg.packed and _packable(mix)):
         return packing.tree_map(hmix, tree)
@@ -159,28 +181,31 @@ def hierarchical_average(tree: Tree, pods: int, per_pod: int,
 
 
 def average_gradients(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
-                      pods: int = 1, mix: Optional[CirculantMixOp] = None,
-                      key: Optional[int] = None,
+                      pods: int = 1, mix: Optional[MixOp] = None,
+                      key: Optional[int] = None, t=None,
                       device: DeviceLike = None) -> Tree:
     """Dispatch on the paper's averaging mode. `tree` leaves: [n_nodes, ...].
 
     `mix` is the prebuilt consensus engine (gossip: over `n_nodes`;
-    hierarchical: over `pods`); built from `cfg` on `device` when omitted."""
+    hierarchical: over `pods`); built from `cfg` on `device` when omitted.
+    `t` is the round counter of a time-varying `ScheduledMixOp`."""
     if cfg.mode == "exact":
         return exact_average(tree)
     if cfg.mode == "gossip":
-        return gossip_average(tree, n_nodes, cfg, mix, key=key, device=device)
+        return gossip_average(tree, n_nodes, cfg, mix, key=key, t=t,
+                              device=device)
     if cfg.mode == "hierarchical":
         if n_nodes % pods:
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
         return hierarchical_average(tree, pods, n_nodes // pods, cfg, mix,
-                                    key=key, device=device)
+                                    key=key, t=t, device=device)
     raise ValueError(f"unknown averaging mode {cfg.mode!r}")
 
 
 def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
-                      pods: int = 1, mix: Optional[CirculantMixOp] = None,
-                      key: Optional[int] = None, device: DeviceLike = None,
+                      pods: int = 1, mix: Optional[MixOp] = None,
+                      key: Optional[int] = None, t=None,
+                      device: DeviceLike = None,
                       pools: Optional[Pools] = None
                       ) -> Tuple[Tree, torch.Tensor]:
     """Averaging plus the epsilon-consensus diagnostic with ONE pack: the
@@ -196,27 +221,113 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                               else n_nodes, device=device)
     if not (cfg.packed and _packable(mix)):
         mixed = average_gradients(tree, cfg, n_nodes=n_nodes, pods=pods,
-                                  mix=mix, key=key)
+                                  mix=mix, key=key, t=t)
         return mixed, consensus_error(mixed, pools)
     bufs, spec = packing.pack_tree(tree)
     if cfg.mode == "gossip":
-        outs = tuple(_apply_mix(mix, spec, g, b, key)
+        outs = tuple(_apply_mix(mix, spec, g, b, key, t)
                      for g, b in enumerate(bufs))
     else:
         if n_nodes % pods:
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
-        outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key)
+        outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key, t)
                      for b in bufs)
     err = _packed_consensus_error(outs, spec, pools)
     return packing.unpack_tree(outs, spec), err
 
 
-def ef_average_and_error(*args, **kwargs):
-    """Error-feedback compressed gossip: comes with the port's elastic and
-    error-feedback slice."""
-    raise NotImplementedError(
-        "error-feedback compressed gossip comes with the port's elastic and "
-        "error-feedback slice")
+# f32 temporaries of error feedback: at most this many entries each
+# (256 MiB; at 2^28 entries the 8B-class trainer peaked at 77 GB of 80)
+EF_CHUNK_ENTRIES = 1 << 26
+
+
+def ef_chunk_width(n: int, d: int, block_d: int) -> int:
+    """Columns of the packed [n, d] buffer that `ef_average_and_error`
+    treats at a time: a multiple of `block_d` (so every statistic tile lies
+    inside one chunk and the result does not depend on the chunking), as
+    wide as keeps an f32 [n, width] temporary within EF_CHUNK_ENTRIES."""
+    width = max(block_d, EF_CHUNK_ENTRIES // max(n, 1) // block_d * block_d)
+    return min(width, max(d, 1))
+
+
+def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
+                         n_nodes: int, mix: Optional[MixOp] = None,
+                         key: Optional[int] = None, t=None,
+                         device: DeviceLike = None,
+                         pools: Optional[Pools] = None
+                         ) -> Tuple[Tree, Tree, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Error-feedback compressed gossip: ONE pack, ONE compression, exact
+    linear consensus rounds.
+
+    Per step, on the packed [N, D] buffers: v = g + e (the residual-corrected
+    gradient, f32), q = C(v) with sender-local per-node tile statistics
+    (`quantize.tile_compress(per_node=True)`), mixed = the R-round LINEAR
+    consensus of q (on the card the `gossip_mix` kernel), e' = v - q. The
+    buffers are treated `ef_chunk_width` columns at a time, so the f32
+    temporaries stay within 256 MiB each at any width (at an 8B-class
+    model's width one f32 [4, D] copy alone would be 10 GB); a chunk starts
+    on a tile boundary, so the statistics, and the result, are those of the
+    whole buffer. The new residual is written into the packed residual
+    buffer, in `ef`'s dtype.
+
+    With `cfg.quantization == "none"` the wire is exact: q = v, e' stays
+    zero, and the result equals plain packed linear gossip of g + e.
+
+    Returns (mixed, new_ef, consensus_err, ef_norm, ef_rel): `ef_norm` is
+    the global L2 norm of the new residual, `ef_rel` its ratio to ||v||.
+    `key` seeds the stochastic compressor (folded with the buffer index);
+    `pools` groups leaves for the consensus error."""
+    if mix is None:
+        mix = make_gossip_mix(cfg, n_nodes, device=device)
+    if getattr(mix, "quantization", "none") != "none":
+        raise ValueError(
+            "error feedback needs a LINEAR consensus operator — build it via "
+            "make_gossip_mix, which drops the per-round compressor when "
+            "cfg.error_feedback is on")
+    bufs, spec = packing.pack_tree(tree)
+    ebufs, espec = packing.pack_tree(ef)
+    # the new residual is written into the packed residual buffer: a copy,
+    # unless the group holds a single leaf, which the pack only reshapes
+    ebufs = tuple(e.clone() if len(espec.groups[g]) == 1 else e
+                  for g, e in enumerate(ebufs))
+    outs = []
+    v2 = e2 = None
+    for g, (b, e) in enumerate(zip(bufs, ebufs)):
+        out = torch.empty_like(b)
+        d = b.shape[-1]
+        k = fold_in(key, g) if key is not None else None
+        width = ef_chunk_width(b.shape[0], d, cfg.quant_block_d)
+        for a in range(0, d, width):
+            cols = slice(a, min(a + width, d))
+            v = b[:, cols].to(torch.float32, copy=True)
+            v.add_(e[:, cols].float())
+            if cfg.quantization == "none":
+                q = v
+            else:
+                q = tile_compress(v, cfg.quantization, cfg.quant_block_d,
+                                  key=k, per_node=True)
+            # (a ragged last tile leaves tile_compress's output a strided
+            # view; the kernel takes contiguous rows)
+            out[:, cols] = _mix_call(mix, q.contiguous(), t=t)
+            vv = v.square().sum()
+            v2 = vv if v2 is None else v2 + vv
+            if q is not v:
+                v.sub_(q)  # v is now the residual e' = v - q
+            else:
+                v.zero_()
+            e[:, cols] = v
+            del v, q
+            rr = e[:, cols].float().square().sum()  # of the stored residual
+            e2 = rr if e2 is None else e2 + rr
+        outs.append(out)
+    dev = bufs[0].device if bufs else None
+    zero = torch.zeros((), device=dev)
+    ef_norm = torch.sqrt(zero if e2 is None else e2)
+    ef_rel = ef_norm / (torch.sqrt(zero if v2 is None else v2) + 1e-30)
+    err = _packed_consensus_error(tuple(outs), spec, pools)
+    return (packing.unpack_tree(tuple(outs), spec),
+            packing.unpack_tree(tuple(ebufs), espec), err, ef_norm, ef_rel)
 
 
 def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],

@@ -11,7 +11,9 @@ pseudo-gradients xi as a first-class knob:
   (`core.mixing.CirculantMixOp`, optionally quantized per Section VI). On
   the card the per-node xi and all R gossip rounds fuse into one kernel
   (`kernels.ops.krasulina_xi_gossip`) when the wire is exact; a quantized
-  wire runs `krasulina_xi` and then the `gossip_mix_quant` kernel.
+  wire runs `krasulina_xi` and then the `gossip_mix_quant` kernel, and a
+  time-varying or dense operator (`ScheduledMixOp`, `DenseMixOp`: the
+  scenario harness) runs `krasulina_xi` and then its matmul.
 
 The per-node pseudo-gradient goes through `kernels.ops.krasulina_xi`, so the
 hand-written kernels are on the hot path on the card (the plain PyTorch
@@ -32,7 +34,8 @@ import torch
 
 from repro_torch.configs.base import AveragingConfig
 from repro_torch.core.averaging import make_gossip_mix
-from repro_torch.core.mixing import CirculantMixOp
+from repro_torch.core.mixing import (CirculantMixOp, DenseMixOp,
+                                     ScheduledMixOp)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import krasulina_xi, krasulina_xi_gossip
 
@@ -58,7 +61,11 @@ def _resolve_fuse_xi(mix: CirculantMixOp, fuse_xi: Optional[bool],
     (The reference fuses on TPU only; the port's CUDA branch takes the TPU
     branch, or the card would never run the fused kernel.) Quantized configs
     never fuse, whatever `fuse_xi` asks: the fused kernel mixes an exact
-    wire, and the compressor is nonlinear per round."""
+    wire, and the compressor is nonlinear per round; nor do time-varying
+    (`ScheduledMixOp`) or dense (`DenseMixOp`) operators, which have no
+    circulant schedule for the kernel to take."""
+    if isinstance(mix, (ScheduledMixOp, DenseMixOp)):
+        return False
     if mix.quantization != "none":
         return False
     if fuse_xi is not None:
@@ -71,12 +78,18 @@ def _gossip_xi(w: torch.Tensor, z: torch.Tensor, mix: CirculantMixOp,
     """Gossip-averaged pseudo-gradients: xi per node, R consensus rounds.
     The round counter `t` reaches the MixOp as its key: stochastic
     compressors fold it into the op's seed, so every step draws fresh
-    per-round noise (deterministic ones ignore it). Quantized configs run
-    `mix(krasulina_xi(w, z))`: on the card, the `krasulina_xi` then the
-    `gossip_mix_quant` kernel."""
+    per-round noise (deterministic ones ignore it). A time-varying
+    `ScheduledMixOp` takes `t` itself as its schedule clock. Quantized
+    configs run `mix(krasulina_xi(w, z))`: on the card, the `krasulina_xi`
+    then the `gossip_mix_quant` kernel."""
     if fused:
         return krasulina_xi_gossip(w, z, mix.sched, mix.rounds)
-    return mix(krasulina_xi(w, z), key=t)
+    h = krasulina_xi(w, z)
+    if isinstance(mix, ScheduledMixOp):
+        return mix(h, t=t)
+    if isinstance(mix, DenseMixOp):
+        return mix(h)  # linear only, no key to thread
+    return mix(h, key=t)
 
 
 def _check_averaging(averaging: AveragingConfig) -> None:
@@ -107,6 +120,7 @@ def run_d_krasulina(
     steps: int,
     stepsize: Callable,  # stepsize(t) -> eta_t (Thm 5: c/(Q+t))
     averaging: Optional[AveragingConfig] = None,  # None -> exact (DM-Krasulina)
+    mix=None,  # prebuilt consensus engine override
     trace_metric: Optional[Callable] = None,
     fuse_xi: Optional[bool] = None,  # None -> auto (fused kernel on CUDA)
     seed: int = 0,
@@ -129,7 +143,8 @@ def run_d_krasulina(
     gen.manual_seed(seed)
     w0 = torch.as_tensor(w0, device=dev)
     if not exact:
-        mix = make_gossip_mix(averaging, N, device=dev)
+        if mix is None:
+            mix = make_gossip_mix(averaging, N, device=dev)
         fused = _resolve_fuse_xi(mix, fuse_xi, dev)
     # the iterate is updated in place below (the reference donates its scan
     # carry); clone so the caller keeps w0
@@ -197,6 +212,7 @@ def init_krasulina_state(w0, averaging: AveragingConfig, n_nodes: int, *,
 def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
                               stepsize: Callable, *,
                               metric: Optional[Callable] = None,
+                              mix=None,
                               fuse_xi: Optional[bool] = None,
                               device: DeviceLike = None) -> Callable:
     """The PCA superstep consumed by `train.driver.StreamingDriver` (pass it
@@ -208,12 +224,15 @@ def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
     stacked [K], on the device. Metrics: `metric` of the node-mean iterate
     (or zeros) and the consensus spread max_n ||w_n - w_bar|| / ||w_bar||.
     `state.w` is updated in place (the reference donates its carry) and
-    returned in the new state."""
+    returned in the new state. `mix` overrides the consensus engine built
+    from `averaging` (a `ScheduledMixOp` of the scenario harness, or a
+    `DenseMixOp`)."""
     _check_averaging(averaging)
     dev = resolve_device(device)
     exact = averaging.mode == "exact"
     metric_fn = metric or _zero_metric
-    mix = None if exact else make_gossip_mix(averaging, n_nodes, device=dev)
+    if not exact and mix is None:
+        mix = make_gossip_mix(averaging, n_nodes, device=dev)
     fused = False if exact else _resolve_fuse_xi(mix, fuse_xi, dev)
 
     def round_fn(w: torch.Tensor, t: int, z: torch.Tensor):
@@ -245,6 +264,7 @@ def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
 def krasulina_superstep_builder(averaging: AveragingConfig, n_nodes: int,
                                 stepsize: Callable, *,
                                 metric: Optional[Callable] = None,
+                                mix=None,
                                 fuse_xi: Optional[bool] = None,
                                 device: DeviceLike = None,
                                 ) -> Callable[..., Callable]:
@@ -254,18 +274,26 @@ def krasulina_superstep_builder(averaging: AveragingConfig, n_nodes: int,
     superstep serves all buckets (docs/DESIGN.md §Adaptive batch buckets).
 
     `build(B, membership=None)`: a partial `core.mixing.Membership` asks for
-    the cohort superstep, which comes with the port's elastic slice and
-    raises here."""
+    the cohort superstep — the same loop built (once per cohort size, then
+    cached) at n_nodes = n_active, with the gossip schedule recomposed over
+    the active cohort (docs/DESIGN.md §Elastic membership); the driver wraps
+    it with the full-axis gather/scatter (`train.driver.elastic_superstep`).
+    The prebuilt `mix` override only applies at full membership, since its
+    operator is sized for the full node axis."""
     full = build_krasulina_superstep(averaging, n_nodes, stepsize,
-                                     metric=metric, fuse_xi=fuse_xi,
+                                     metric=metric, mix=mix, fuse_xi=fuse_xi,
                                      device=device)
+    cohort_cache = {n_nodes: full}
 
     def build(B: int, membership=None) -> Callable:
-        if membership is not None and not membership.is_full:
-            raise NotImplementedError(
-                "cohort supersteps (partial membership) come with the port's "
-                "elastic slice")
-        return full
+        m = n_nodes if membership is None else membership.n_active
+        fn = cohort_cache.get(m)
+        if fn is None:
+            fn = build_krasulina_superstep(averaging, m, stepsize,
+                                           metric=metric, fuse_xi=fuse_xi,
+                                           device=device)
+            cohort_cache[m] = fn
+        return fn
 
     return build
 

@@ -26,10 +26,13 @@ never collapsed; `stats` picks the compressor's statistic granularity:
               plain version on the CPU.
 * "node"    — sender-local per-[1, block_d] row-tile scales.
 
+Elastic membership degrades the operator to the active cohort
+(`masked_schedule` on the circulant path, `masked_matrix` on a dense
+matrix), and the scenario harness's time-varying graphs (eq. 17's
+B-connected sequences) run through `ScheduledMixOp`: a stack of dense
+per-phase operators on the device, the phase picked per round as data.
 The sharded node axis (`impl="shard"`) comes with a later slice of the port
-and raises `NotImplementedError`; `ScheduledMixOp` and the masked (elastic)
-forms wait for the elastic slice. `Membership` is here because
-`core.rates.Plan` carries it.
+and raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -99,8 +102,6 @@ class Membership:
     over a recomposed operator that is doubly stochastic over the cohort.
     Hashable so it can key superstep registries; equality is by value, so
     rejoining to full membership compares equal to the never-left mask.
-    This slice carries it for `core.rates.Plan`; the cohort paths come with
-    the elastic slice.
     """
 
     n: int
@@ -148,6 +149,52 @@ class Membership:
     @classmethod
     def from_json(cls, state: dict) -> "Membership":
         return cls(int(state["n"]), tuple(bool(a) for a in state["active"]))
+
+
+def masked_schedule(topology: str, membership: Membership,
+                    self_weight: float = 0.0) -> Schedule:
+    """Circulant schedule over the *relabeled* active cohort.
+
+    The cohort superstep works on a dense [m, ...] block of the active rows,
+    so the cohort is itself a circulant ring/expander of size m = n_active
+    and the ordinary schedule construction applies verbatim. Full membership
+    returns exactly `schedule(topology, n)` — a node that leaves and rejoins
+    gets back the operator it had before leaving."""
+    return schedule(topology, membership.n_active, self_weight)
+
+
+def masked_matrix(A: np.ndarray, membership: Membership) -> np.ndarray:
+    """Degrade a dense one-round mixing matrix to a membership mask.
+
+    Returns a full [n, n] doubly-stochastic matrix: dropped rows/columns are
+    identity (self-weight 1 — the node holds its state, sends and receives
+    nothing), and the active block is re-derived by Metropolis reweighting of
+    the subgraph that `A`'s off-diagonal support induces on the active cohort.
+    Full membership returns `A` unchanged (a rejoin gets the same operator).
+
+    A drop set that *disconnects* the induced subgraph (e.g. every other
+    node of a ring) would leave a non-contracting block (lambda_2 = 1); then
+    the survivors are relabeled onto their own circulant ring
+    (`masked_schedule`'s semantics densified), which is always connected."""
+    n = A.shape[0]
+    if membership.n != n:
+        raise ValueError(f"membership n={membership.n} vs matrix n={n}")
+    if membership.is_full:
+        return A
+    ids = list(membership.active_ids)
+    out = np.eye(n, dtype=A.dtype)
+    if len(ids) == 1:
+        return out
+    sub_adj = (np.abs(A[np.ix_(ids, ids)]) > 0).astype(float)
+    np.fill_diagonal(sub_adj, 0.0)
+    if not _connected(sub_adj > 0):
+        block = ring_matrix(len(ids)).astype(A.dtype)
+    else:
+        block = metropolis_weights(sub_adj)
+        if len(ids) > 1 and lambda2(block) >= 1.0 - 1e-9:
+            block = ring_matrix(len(ids)).astype(A.dtype)
+    out[np.ix_(ids, ids)] = block
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -504,3 +551,115 @@ def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
              if impl == "matmul" else None)
     return CirculantMixOp(sched, fused, A_eff, n, rounds, impl, quantization,
                           stats, block_d, seed)
+
+
+# ---------------------------------------------------------------------------
+# Time-varying operators (ScheduledMixOp — scenario harness, eq. 17's
+# B-connected graph sequences)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScheduledMixOp:
+    """Time-varying R-round consensus operator: a stack of precomputed
+    per-phase effective operators plus a round->phase lookup table, both
+    tensors on the op's device. The active phase is picked on the device
+    (`index_select` of the table, then of the stack), so switching topology
+    or a lossy-link realization rebuilds nothing and syncs nothing with the
+    host; the product is one `torch.matmul` of the [n, n] operator (in x's
+    dtype, as the reference casts it) over the flattened node axis, as the
+    reference's plain `jnp` product outside any Pallas kernel.
+
+    `A_stack` [P, n, n] holds each phase's R-round operator, built as the
+    static ops build theirs (`schedule_matrix(compose_schedule(...))` for
+    circulant phases, `matrix_power` for dense ones); `phase_by_round`
+    [period] maps the round counter t (mod period) to a phase.
+
+    Linear only: `quantization` is always "none", and `key`, `seg_widths`
+    and `valid_d` are accepted and ignored so the op is call-compatible with
+    `CirculantMixOp` in `core.averaging` and `core.krasulina`. Callers pass
+    the round counter `t` (the Krasulina carry's round index, or the
+    optimizer step on the LM path) as an int or a 0-dim tensor on the op's
+    device; `t=None` pins phase 0."""
+
+    A_stack: torch.Tensor  # [P, n, n] f32 per-phase R-round operators
+    phase_by_round: torch.Tensor  # [period] int64 round -> phase
+    n: int
+    rounds: int
+    period: int
+    quantization: str = "none"
+    stats: str = "global"
+
+    def operator(self, t=None, phase=None) -> torch.Tensor:
+        """The [n, n] operator of round t (or of `phase`), on the device."""
+        if phase is None:
+            if t is None:
+                return self.A_stack[0]
+            if isinstance(t, torch.Tensor):
+                idx = torch.remainder(t.reshape(1).long(), self.period)
+            else:  # a host int: the slice is a view, no transfer
+                idx = int(t) % self.period
+                idx = slice(idx, idx + 1)
+            phase = self.phase_by_round[idx]
+        elif not isinstance(phase, torch.Tensor):
+            return self.A_stack[int(phase)]
+        return self.A_stack.index_select(0, phase.reshape(1))[0]
+
+    def __call__(self, x: torch.Tensor, *, t=None, phase=None,
+                 seg_widths: Optional[Tuple[int, ...]] = None,
+                 valid_d: Optional[int] = None, key=None) -> torch.Tensor:
+        del seg_widths, valid_d, key  # linear: no compressor statistics
+        if x.shape[0] != self.n:
+            raise ValueError(f"MixOp built for n={self.n} applied to node "
+                             f"axis {x.shape[0]}")
+        if self.rounds == 0 or self.n == 1:
+            return x
+        A = self.operator(t, phase).to(device=x.device, dtype=x.dtype)
+        flat = x.reshape(self.n, -1)
+        return (A @ flat).reshape(x.shape)
+
+    @property
+    def n_phases(self) -> int:
+        return int(self.A_stack.shape[0])
+
+    def phase_at(self, t: int) -> int:
+        """Host-side phase lookup (tests / observability)."""
+        return int(self.phase_by_round[int(t) % self.period])
+
+
+def scheduled_mix_op(phases, n: int, rounds: int, phase_by_round=None, *,
+                     device: DeviceLike = None) -> ScheduledMixOp:
+    """Build a time-varying MixOp on `device` from per-phase one-round
+    operators. Each entry of `phases` is a circulant `Schedule` (tuple of
+    (shift, weight)) or a dense [n, n] doubly-stochastic matrix; its R-round
+    operator is precomputed here, once, the way the static factories do
+    (`compose_schedule` + `schedule_matrix` in f64 then f32 for circulants,
+    f32 `matrix_power` for dense). `phase_by_round` maps round t -> phase
+    index, cyclic with its length (default: round-robin over the phases)."""
+    if not phases:
+        raise ValueError("need at least one phase")
+    mats = []
+    for p in phases:
+        if isinstance(p, tuple):  # circulant schedule
+            eff = compose_schedule(p, rounds, n) if rounds > 0 else ((0, 1.0),)
+            mats.append(torch.as_tensor(
+                np.asarray(schedule_matrix(eff, n), np.float32)))
+        else:
+            A = torch.as_tensor(np.asarray(p, np.float32))
+            if tuple(A.shape) != (n, n):
+                raise ValueError(f"phase matrix shape {tuple(A.shape)} != "
+                                 f"({n}, {n})")
+            mats.append(torch.linalg.matrix_power(A, rounds)
+                        if rounds > 1 else A)
+    if phase_by_round is None:
+        phase_by_round = tuple(range(len(mats)))
+    lut = np.asarray(phase_by_round, np.int64)
+    if lut.ndim != 1 or lut.size == 0:
+        raise ValueError("phase_by_round must be a non-empty 1D sequence")
+    if lut.min() < 0 or lut.max() >= len(mats):
+        raise ValueError(f"phase ids must be in [0, {len(mats)}); got "
+                         f"[{lut.min()}, {lut.max()}]")
+    dev = resolve_device(device)
+    return ScheduledMixOp(torch.stack(mats).to(dev),
+                          torch.as_tensor(lut).to(dev), n, rounds,
+                          int(lut.size))

@@ -16,7 +16,10 @@ unquantized and quantized.
   `quant_cluster_size(block_d)` blocks per tile, every block its own columns
   for all R rounds, the blocks agreeing on the tile's scale each round
   through distributed shared memory; or "resident-tile", one block per tile
-  holding two f32 copies of it, where a cluster block cannot hold its slice.
+  holding two f32 copies of it, where a cluster block cannot hold its slice
+  or where there are enough tiles to fill the card with one block each (at
+  up to 16 nodes its blocks are wide enough to beat clusters of one-warp
+  blocks there: `PERF.md` §6 row 2).
   The stochastic int8 compressor and sender-local (`per_node`) statistics
   have no kernel, in the reference as here.
 
@@ -42,6 +45,9 @@ QUANT_DESIGNS = {"cluster-tile": 0, "resident-tile": 1}
 QUANT_CLUSTERS = (16, 8, 4, 2, 1)  # blocks per statistic tile, largest first
 _QUANT_MAX_THREADS, _QUANT_MAX_VALUES = 1024, 16  # csrc/gossip_mix_quant.cu
 _SCRATCH_BYTES = 8 * 33  # the resident-tile kernel's reduction scratch
+# up to this many nodes, a buffer of at least N_SMS tiles takes the
+# resident-tile kernel (`quant_design`); the node counts measured
+QUANT_RESIDENT_MAX_NODES = 16
 # kMaxNodes in csrc/gossip_mix.cu: the largest node count that the repository's
 # configs, tests and benchmarks mix over (a composed schedule has <= n taps)
 MAX_GOSSIP_NODES = 64
@@ -165,11 +171,19 @@ def quant_resident_fits(n: int, bd: int) -> bool:
 
 def quant_design(n: int, d: int, block_d: int) -> str:
     """The gossip_mix_quant kernel that an [n, d] buffer with statistic
-    tiles of min(block_d, d) columns launches: "cluster-tile" where a block
-    of the cluster holds its slice of a tile, else "resident-tile" where one
-    block holds the whole tile twice in f32. Raises, naming both limits,
-    where neither does."""
+    tiles of min(block_d, d) columns launches. "resident-tile" (one block
+    holds the whole tile twice in f32) at up to QUANT_RESIDENT_MAX_NODES
+    nodes once the tiles are at least as many as the card's SMs: one block
+    per tile then fills the card, and the cluster-tile design's blocks, of
+    one warp each at such n, cost 2-8x more (measured at n = 3 to 16, from
+    512 tiles up, by tools/quant_route_probe.py). Otherwise "cluster-tile"
+    where a block of the cluster holds its slice of a tile (few tiles: the
+    cluster spreads each over up to 16 SMs), else "resident-tile". Raises,
+    naming both limits, where neither kernel holds the tile."""
     bd = min(block_d, d)
+    if (n <= QUANT_RESIDENT_MAX_NODES and -(-d // bd) >= _cuda.N_SMS
+            and quant_resident_fits(n, bd)):
+        return "resident-tile"
     if quant_cluster_fits(n, bd):
         return "cluster-tile"
     if quant_resident_fits(n, bd):

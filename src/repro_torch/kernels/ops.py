@@ -44,6 +44,12 @@ xi_gossip_launches: Dict[str, int] = {v: 0 for v in XI_GOSSIP_DESIGNS}
 gossip_launches: Dict[str, int] = {v: 0 for v in GOSSIP_DESIGNS}
 quant_launches: Dict[Union[int, str], int] = {
     **{c: 0 for c in QUANT_CLUSTERS}, "resident-tile": 0}
+# the node-axis kernels' launches by node count (groups for krasulina_xi:
+# 1 for an unbatched call), as an elastic run's cohorts change it; each
+# adds up to its kernel's count in `launches`
+node_launches: Dict[str, Dict[int, int]] = {
+    k: {} for k in ("krasulina_xi", "krasulina_xi_gossip", "gossip_mix",
+                    "gossip_mix_quant")}
 
 
 def reset_launches() -> None:
@@ -51,6 +57,13 @@ def reset_launches() -> None:
                    gossip_launches, quant_launches):
         for name in counts:
             counts[name] = 0
+    for counts in node_launches.values():
+        counts.clear()
+
+
+def _count_nodes(name: str, n: int) -> None:
+    counts = node_launches[name]
+    counts[n] = counts.get(n, 0) + 1
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -74,6 +87,7 @@ def gossip_mix(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
     out = gossip_mix_cuda(x, sched, rounds)
     launches["gossip_mix"] += 1
     gossip_launches[gossip_design(x.shape[0])] += 1
+    _count_nodes("gossip_mix", x.shape[0])
     return out
 
 
@@ -101,6 +115,7 @@ def quant_gossip_mix(x: torch.Tensor, sched, rounds: int, quantization: str,
     design = quant_route(x, block_d)
     quant_launches[quant_cluster_size(quant_tile_of(x, block_d))
                    if design == "cluster-tile" else design] += 1
+    _count_nodes("gossip_mix_quant", x.shape[0])
     return out
 
 
@@ -113,6 +128,7 @@ def krasulina_xi(w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     out = krasulina_xi_cuda(w, z)
     launches["krasulina_xi"] += 1
     xi_launches[xi_route(w, z)] += 1
+    _count_nodes("krasulina_xi", z.shape[0] if z.dim() == 3 else 1)
     return out
 
 
@@ -128,6 +144,7 @@ def krasulina_xi_gossip(w: torch.Tensor, z: torch.Tensor, sched,
     out = krasulina_xi_gossip_cuda(w, z, sched, rounds)
     launches["krasulina_xi_gossip"] += 1
     xi_gossip_launches[xi_gossip_route(w, z)] += 1
+    _count_nodes("krasulina_xi_gossip", z.shape[0])
     return out
 
 

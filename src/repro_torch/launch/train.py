@@ -4,19 +4,30 @@ the closed-loop (B, mu) governor, over a `MarkovTokenStream`. Runs on the
 CUDA card unless `--device cpu` is given; `--reduced` trains the
 smoke-test-sized member of the architecture.
 
-One device is one node, as the reference's host mesh gives on one device:
-`--averaging gossip` then mixes over a single node. Several nodes on one
-card go through the API's `n_nodes` (`train.trainer.build_train_step`,
-`StreamingDriver(..., n_nodes=N)`).
+One device is one node by default, as the reference's host mesh gives on
+one device: `--averaging gossip` then mixes over a single node. `--nodes N`
+emulates N nodes on the one device, as `StreamingDriver(..., n_nodes=N)`
+does (the port's own flag: the reference reads its node count off the
+mesh, and a fault schedule or a scenario over one node has nothing to
+drop or mix).
+
+Elastic membership and the scenario harness, as in the reference:
+`--faults` scripts node faults (`core/faults.py`: death, slow, flaky) and
+link faults; `--straggler-policy drop|deadline` evicts slow nodes;
+`--scenario NAME` replaces --topology/--rounds with the scenario's
+time-varying mixing schedule (re-rooted to the run's node count) and adds
+its link model to the faults. All need `--averaging gossip`. Error
+feedback has no flag, as in the reference: it is
+`AveragingConfig(error_feedback="grads")` through
+`train.trainer.superstep_builder` or `StreamingDriver`.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite-8b \
       --reduced --device cpu --steps 4 --superstep 2 --averaging gossip \
-      --rounds 2
+      --rounds 2 --nodes 4 --faults death:1@1-2
 
 The reference's flags of later slices are declared and raise
-`NotImplementedError`: --faults, --scenario and a non-`wait`
---straggler-policy (elastic), --publish (serving), --checkpoint*, --resume
+`NotImplementedError`: --publish (serving), --checkpoint*, --resume
 (durability) and --production-mesh (sharded). --compilation-cache-dir and
 --no-env-tuning are not taken: they set up `launch/env.py`'s XLA flags and
 compilation cache, which have no counterpart here.
@@ -24,6 +35,7 @@ compilation cache, which have no counterpart here.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -32,14 +44,16 @@ import torch
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.configs.base import (SHAPES, AveragingConfig, GovernorConfig,
                                       RunConfig, StreamConfig)
+from repro_torch.core import scenarios as scenario_lib
+from repro_torch.core.faults import FaultSchedule
 from repro_torch.data.lm import MarkovTokenStream
 from repro_torch.device import resolve_device
 from repro_torch.train.driver import EngineConfig, StreamingDriver
-from repro_torch.train.trainer import init_state, replicate_for_nodes
+from repro_torch.train.trainer import (init_state, replicate_for_nodes,
+                                       superstep_builder)
 
 # flags of later slices: (dest, default, the slice they come with)
-_LATER = (("faults", "", "elastic"), ("scenario", "", "elastic"),
-          ("publish", False, "serving"), ("publish_budget", 0.05, "serving"),
+_LATER = (("publish", False, "serving"), ("publish_budget", 0.05, "serving"),
           ("checkpoint", "", "durability"),
           ("checkpoint_every", 0, "durability"),
           ("keep_last", 3, "durability"),
@@ -62,6 +76,9 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["exact", "gossip", "hierarchical"])
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--topology", default="ring")
+    ap.add_argument("--nodes", type=int, default=1,
+                    help="nodes emulated on the one device (default 1: one "
+                         "device, one node)")
     ap.add_argument("--streaming-rate", type=float, default=0.0)
     ap.add_argument("--processing-rate", type=float, default=0.0)
     ap.add_argument("--comms-rate", type=float, default=0.0)
@@ -92,17 +109,28 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--horizon", type=float, default=0.0,
                     help="sample horizon t' for Theorem 4's B <= sqrt(t') "
                          "bucket ceiling (0 = no ceiling)")
+    ap.add_argument("--faults", default="",
+                    help="fault-injection spec for elastic membership, e.g. "
+                         "'death:1@5-12,slow:0@3-9x4' (see core/faults.py; "
+                         "needs --averaging gossip)")
+    ap.add_argument("--scenario", default="",
+                    help="named scenario from core/scenarios.py: replaces "
+                         "--topology/--rounds with the scenario's "
+                         "time-varying mixing schedule and adds its link "
+                         "model (loss/bandwidth) to --faults; the stream "
+                         "stays the LM token stream; needs --averaging "
+                         "gossip")
     ap.add_argument("--straggler-policy", default="wait",
                     choices=["wait", "drop", "deadline"],
-                    help="straggler handling; only wait (lockstep) is "
-                         "ported, drop and deadline come with the elastic "
-                         "slice")
+                    help="straggler handling: wait (lockstep), drop "
+                         "(exclude nodes slower than --straggler-factor x "
+                         "median), deadline (--straggler-deadline seconds)")
     ap.add_argument("--straggler-factor", type=float, default=2.0)
     ap.add_argument("--straggler-deadline", type=float, default=0.0)
-    ap.add_argument("--no-rejoin-sync", action="store_true")
+    ap.add_argument("--no-rejoin-sync", action="store_true",
+                    help="keep a rejoining node's stale iterate instead of "
+                         "syncing it to the cohort mean")
     # later slices (they raise)
-    ap.add_argument("--faults", default="", help="elastic slice")
-    ap.add_argument("--scenario", default="", help="elastic slice")
     ap.add_argument("--publish", action="store_true", help="serving slice")
     ap.add_argument("--publish-budget", type=float, default=0.05,
                     help="serving slice")
@@ -120,24 +148,32 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    args = _parser().parse_args(argv)
+    ap = _parser()
+    args = ap.parse_args(argv)
     for dest, default, slice_name in _LATER:
         if getattr(args, dest) != default:
             raise NotImplementedError(
                 f"--{dest.replace('_', '-')} comes with the port's "
                 f"{slice_name} slice")
-    if args.straggler_policy != "wait":
-        raise NotImplementedError("--straggler-policy drop/deadline comes "
-                                  "with the port's elastic slice")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_cfg(cfg)
     dev = resolve_device(args.device)
-    n_nodes = 1  # one device, one node
+    n_nodes = args.nodes
+    averaging = AveragingConfig(args.averaging, args.rounds, args.topology)
+    scenario = None
+    if args.scenario:
+        if args.averaging != "gossip":
+            ap.error("--scenario needs --averaging gossip")
+        scenario = scenario_lib.get_scenario(args.scenario)
+        if scenario.n_nodes != n_nodes:
+            # scenarios are registered at their canonical size; re-root the
+            # schedule on this run's node axis (link endpoints must fit)
+            scenario = dataclasses.replace(scenario, n_nodes=n_nodes)
+        averaging = scenario_lib.averaging_config(scenario)
     run = RunConfig(
-        model=cfg, shape=SHAPES["train_4k"],
-        averaging=AveragingConfig(args.averaging, args.rounds, args.topology),
+        model=cfg, shape=SHAPES["train_4k"], averaging=averaging,
         stream=StreamConfig(args.streaming_rate, args.processing_rate,
                             args.comms_rate),
         optimizer=args.optimizer, learning_rate=args.lr,
@@ -150,6 +186,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                               straggler_slow_factor=args.straggler_factor,
                               straggler_deadline_s=args.straggler_deadline,
                               sync_on_rejoin=not args.no_rejoin_sync)
+    # the scenario's link model rides the same fault schedule as any node
+    # faults from --faults (link windows index consensus rounds, node
+    # windows supersteps — core/faults.py)
+    fault_spec = ",".join(
+        s for s in (args.faults, scenario.links if scenario else "") if s)
+    faults = (FaultSchedule.parse(fault_spec, n_nodes,
+                                  seed=scenario.seed if scenario else 0)
+              if fault_spec else None)
+    builder = (superstep_builder(run, None, n_nodes=n_nodes, device=dev,
+                                 mix=scenario_lib.build_mix(scenario,
+                                                            device=dev))
+               if scenario is not None else None)
     engine = EngineConfig(superstep=args.superstep,
                           prefetch_depth=args.prefetch,
                           replan_every=args.replan_every, governor=governor)
@@ -162,15 +210,23 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.averaging != "exact":
         state = replicate_for_nodes(state, n_nodes)
     with StreamingDriver(run, None, state, sample_fn, engine=engine,
-                         batch=args.batch, n_nodes=n_nodes,
-                         horizon=args.horizon or None,
-                         device=dev) as driver:
+                         superstep_builder=builder, batch=args.batch,
+                         n_nodes=n_nodes, horizon=args.horizon or None,
+                         faults=faults, device=dev) as driver:
         plan = driver.pipeline.plan
         print(f"plan: B={plan.B} mu={plan.mu} regime={plan.regime} "
               f"nodes={n_nodes} K={engine.superstep} "
               f"prefetch={engine.prefetch_depth} "
               f"buckets={list(driver.ladder.buckets)} device={dev}")
+        if scenario is not None:
+            print(f"scenario: {scenario.name} n={scenario.n_nodes} "
+                  f"R={scenario.rounds} links={scenario.links or 'clean'}")
+        if faults is not None:
+            print(f"faults: {faults}")
         driver.run(supersteps, log_fn=_log, log_every=args.log_every)
+        for ev in driver.membership_events:
+            print(f"membership superstep {ev['superstep']}: "
+                  f"{ev['to'].active_ids} B={ev['plan'].B}")
 
 
 def _log(rec):
@@ -183,8 +239,11 @@ def _log(rec):
     if "est_Rc" in rec:
         rc = rec["est_Rc"]
         gov += f" est_Rc={'inf' if rc <= 0 else f'{rc:.3g}'}"
+    if "link_drops" in rec:
+        gov += f" drops={list(rec['link_drops'])} bw={rec['bw_factor']:g}"
     print(f"round {rec['round']:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
           f"consensus_err {m['consensus_err']:.2e} "
+          f"nodes={rec['n_active']} "
           f"t'={c.samples_arrived} B={rec['bucket']} mu={plan.mu} "
           f"{plan.regime}{gov} "
           f"({rec['rounds_per_s']:.1f} rounds/s, "

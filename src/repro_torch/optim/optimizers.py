@@ -14,7 +14,7 @@ never waits for the card.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,13 +25,16 @@ Tree = Any
 
 
 class OptState(NamedTuple):
-    step: int
+    # the update's own step is an int; a state with the decentralized node
+    # axis keeps one per node (`train.trainer.replicate_for_nodes`)
+    step: Union[int, Tuple[int, ...]]
     m: Tree  # momentum / first moment / Nesterov v
     v: Tree  # second moment (Adam) or unused
     master: Tree = ()  # f32 master weights (mixed-precision training)
-    # per-node error-feedback residuals for compressed gossip; () unless
-    # AveragingConfig.error_feedback is on, which comes with the port's
-    # elastic and error-feedback slice. The update rules never touch it.
+    # per-node error-feedback residuals for compressed gossip
+    # (`core.averaging.ef_average_and_error`), in the gradient dtype; ()
+    # unless AveragingConfig.error_feedback is on. The update rules never
+    # touch it: the trainer attaches the new residual each step.
     ef_residual: Tree = ()
 
 
@@ -40,18 +43,19 @@ def _zeros_like_f32(params: Tree) -> Tree:
                                           device=p.device), params)
 
 
-def init_optimizer(name: str, params: Tree, *,
-                   master_weights: bool = False) -> OptState:
-    """The reference's `error_feedback=True` (residuals in `ef_residual`)
-    comes with the port's error-feedback slice."""
+def init_optimizer(name: str, params: Tree, *, master_weights: bool = False,
+                   error_feedback: bool = False) -> OptState:
+    """Moments (and masters) in f32; with `error_feedback`, zero residuals
+    in the parameters' dtype, which they pack beside the gradients in."""
     master = (tree_map(lambda p: p.to(torch.float32, copy=True), params)
               if master_weights else ())
+    ef = tree_map(torch.zeros_like, params) if error_feedback else ()
     if name == "accel":
         # v iterate initialized at params (f32)
         v0 = tree_map(lambda p: p.to(torch.float32, copy=True), params)
-        return OptState(0, v0, _zeros_like_f32(params), master)
+        return OptState(0, v0, _zeros_like_f32(params), master, ef)
     return OptState(0, _zeros_like_f32(params), _zeros_like_f32(params),
-                    master)
+                    master, ef)
 
 
 def _f32(x: float) -> float:

@@ -13,17 +13,34 @@
   at a time). `core.averaging.average_and_error` then mixes the packed
   gradient buffer (the `gossip_mix` kernel on the card, or
   `gossip_mix_quant` for tile statistics) and each node applies its own
-  optimizer update: the update is elementwise and every node shares the
-  step, so it runs once on the stacked [N, ...] leaves.
+  optimizer update. The update is elementwise, so it runs once on the
+  stacked rows of each contiguous run of nodes at one optimizer step: once
+  on the whole [N, ...] leaves while every node is at the same step.
 
 Gradients come from `torch.autograd.grad` of `models.registry.loss_fn`,
 whose attention takes the differentiable `blockwise_attention` route (the
 flash kernel has no backward, in the reference as here). The optimizer's
 step is the round clock `t`: the stochastic int8 compressor folds it into
-its key, so its noise matches the reference's in distribution only.
+its key (so its noise matches the reference's in distribution only), and a
+time-varying `ScheduledMixOp` (the scenario harness's `mix` override) picks
+its phase by it.
 
-Not here yet (they raise, naming their slice): a device mesh, cohort
-supersteps (elastic membership), error-feedback compression and the
+Error feedback (`AveragingConfig.error_feedback`, gossip only) compresses
+the residual-corrected gradients once per step and mixes them linearly
+(`core.averaging.ef_average_and_error`), carrying the residual in
+`OptState.ef_residual`.
+
+A cohort superstep (elastic membership) runs the same step on the active
+rows of the full [N, ...] state in place — each active node's loss and
+gradient, the mix over the m-node cohort, and the optimizer update on row
+views (contiguous runs of rows) — so the state is never gathered: at an
+8B-class width one node's weights, masters and moments are 9 GB. It equals
+the reference's gather, run and scatter, the optimizer step included: a
+state with the node axis keeps one step per node (a tuple of ints), and
+only the active nodes' steps advance, so a node that rejoins without a
+sync takes Adam's bias correction at its own step, as in the reference.
+
+Not here yet (they raise, naming their slice): a device mesh and the
 publisher's `publish_extract`.
 """
 from __future__ import annotations
@@ -34,8 +51,10 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.averaging import (average_and_error, make_gossip_mix,
+from repro_torch.core.averaging import (average_and_error,
+                                        ef_average_and_error, make_gossip_mix,
                                         resolve_packed)
+from repro_torch.core.mixing import ScheduledMixOp
 from repro_torch.core.packing import tree_leaves, tree_map
 from repro_torch.core.quantize import STOCHASTIC
 from repro_torch.device import DeviceLike, resolve_device
@@ -59,31 +78,38 @@ def _later(what: str, slice_name: str) -> NotImplementedError:
 def _check_supported(run, mesh) -> None:
     if mesh is not None:
         raise _later("training on a device mesh", "sharded")
-    if run.averaging.error_feedback != "off":
-        raise _later("error-feedback compressed gossip",
-                     "elastic and error-feedback")
+    if run.averaging.error_feedback != "off" and run.averaging.mode != "gossip":
+        raise ValueError(f"error-feedback compression (error_feedback="
+                         f"{run.averaging.error_feedback!r}) requires "
+                         f"averaging mode 'gossip' (got "
+                         f"{run.averaging.mode!r})")
 
 
 def init_state(run, gen: torch.Generator) -> TrainState:
     """Parameters drawn from `gen` (on its device) and the optimizer state:
     f32 masters when the parameters are not f32 and `run.master_weights`;
-    moments f32."""
-    _check_supported(run, None)
+    moments f32; error-feedback residuals (zero, the gradient dtype) when
+    `run.averaging.error_feedback` is on in gossip mode."""
     dtype = getattr(torch, run.param_dtype)
     params = registry.init_params(gen, run.model, dtype)
     use_master = run.master_weights and dtype != torch.float32
+    use_ef = (run.averaging.error_feedback != "off"
+              and run.averaging.mode == "gossip")
     return TrainState(params, init_optimizer(run.optimizer, params,
-                                             master_weights=use_master))
+                                             master_weights=use_master,
+                                             error_feedback=use_ef))
 
 
 def replicate_for_nodes(state: TrainState, n_nodes: int) -> TrainState:
     """Attach the decentralized node axis: n identical copies of every
-    tensor (copies, not a broadcast view: the updates write in place)."""
+    tensor (copies, not a broadcast view: the updates write in place) and
+    one optimizer step per node."""
     rep = lambda t: t.unsqueeze(0).repeat(n_nodes, *([1] * t.dim()))
     opt = state.opt
     return TrainState(tree_map(rep, state.params), opt._replace(
-        m=tree_map(rep, opt.m), v=tree_map(rep, opt.v),
-        master=tree_map(rep, opt.master)))
+        step=(opt.step,) * n_nodes, m=tree_map(rep, opt.m), v=tree_map(rep, opt.v),
+        master=tree_map(rep, opt.master),
+        ef_residual=tree_map(rep, opt.ef_residual)))
 
 
 def _rebuild(like: Tree, leaves) -> Tree:
@@ -145,110 +171,183 @@ def _split(batch: Dict[str, torch.Tensor], parts: int, j: int):
             for k, v in batch.items()}
 
 
+def _row_runs(ids: Tuple[int, ...],
+              steps: Tuple[int, ...]) -> List[Tuple[int, int, int]]:
+    """Maximal runs of consecutive node ids at one optimizer step: (first
+    cohort row, first node, end node), so rows j0.. of the cohort's buffers
+    are nodes a..end-1."""
+    runs: List[Tuple[int, int, int]] = []
+    for j, i in enumerate(ids):
+        if runs and runs[-1][2] == i and steps[i] == steps[i - 1]:
+            j0, a, _ = runs[-1]
+            runs[-1] = (j0, a, i + 1)
+        else:
+            runs.append((j, i, i + 1))
+    return runs
+
+
 def build_train_step(run, mesh=None, *, n_nodes: Optional[int] = None,
+                     mix: Optional[Any] = None,
                      device: DeviceLike = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     Exact mode: batch leaves [B, ...]. Decentralized: [N, B/N, ...], state
     leaves [N, ...]. `n_nodes` is the decentralized node count (default 1,
     what the reference's host mesh gives on one device); passing N emulates
-    the paper's N-node network on one card; the consensus engine is built
-    from `run.averaging` on `device` (the reference's `mix` override serves
-    the scenario harness and comes with it). The state's tensors are
-    updated in place and returned in the new state; metrics are 0-dim
-    tensors on the device ({"ce", "aux", "loss", "consensus_err"})."""
+    the paper's N-node network on one card. `mix` overrides the consensus
+    engine built from `run.averaging` on `device`: the scenario harness
+    passes a time-varying `ScheduledMixOp`, whose phase clock is the
+    optimizer step; scheduled operators are linear, so a quantized config
+    refuses one. The state's tensors are updated in place and returned in
+    the new state; metrics are 0-dim tensors on the device ({"ce", "aux",
+    "loss", "consensus_err"}, plus "ef_norm" and "ef_rel" with error
+    feedback)."""
     _check_supported(run, mesh)
+    if run.averaging.mode == "exact":
+        return _build_exact_step(run, device)
+    n = n_nodes or 1
+    step = _build_node_step(run, n, mix, device)
+    every = tuple(range(n))
+    return lambda state, batch: step(state, batch, every, None)
+
+
+def _build_exact_step(run, device: DeviceLike) -> Callable:
     dev = resolve_device(device)
-    avg = dataclasses.replace(run.averaging,
-                              packed=resolve_packed(run.averaging))
     update = make_optimizer(run.optimizer, run.learning_rate,
                             weight_decay=run.weight_decay)
 
-    if avg.mode == "exact":
-        def train_step(state: TrainState, batch):
-            mb = run.microbatches
-            if mb > 1:
-                # gradient accumulation: the local mini-batch in `mb`
-                # sequential slices (paper Section II-C, compute-limited)
-                grads = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device),
-                    state.params)
-                loss = torch.zeros((), device=dev)
-                metrics = {"ce": torch.zeros((), device=dev),
-                           "aux": torch.zeros((), device=dev)}
-                for j in range(mb):
-                    l, m, g = loss_and_grad(run, state.params,
-                                             _split(batch, mb, j))
-                    for acc, gj in zip(tree_leaves(grads), tree_leaves(g)):
-                        acc.add_(gj.float() / mb)
-                    del g
-                    loss = loss + l / mb
-                    metrics = {k: metrics[k] + m[k] / mb for k in metrics}
-            else:
-                loss, metrics, grads = loss_and_grad(run, state.params,
-                                                      batch)
-            params, opt = update(grads, state.opt, state.params)
-            metrics = dict(metrics, loss=loss,
-                           consensus_err=torch.zeros((), device=loss.device))
-            return TrainState(params, opt), metrics
-        return train_step
-
-    n_nodes = n_nodes or 1
-    pods = 1  # one card: the reference's mesh without a pod axis
-    mix = make_gossip_mix(avg, pods if avg.mode == "hierarchical"
-                          else n_nodes, device=dev)
-    stochastic = avg.quantization in STOCHASTIC
-    pools: List[Optional[tuple]] = [None]  # from the first state's tree
-
     def train_step(state: TrainState, batch):
-        params = state.params
-        if pools[0] is None:
-            pools[0] = layer_pools(params, run.model)
-        # the nodes' gradients, [N, ...] per leaf, one node at a time
-        grads = tree_map(torch.empty_like, params)
-        losses, node_metrics = [], []
-        for i in range(n_nodes):
-            l, m, g = loss_and_grad(run, tree_map(lambda p: p[i], params),
-                                     {k: v[i] for k, v in batch.items()})
-            for buf, gi in zip(tree_leaves(grads), tree_leaves(g)):
-                buf[i].copy_(gi)
-            del g
-            losses.append(l)
-            node_metrics.append(m)
-        # the optimizer's step is the round clock: the stochastic compressor
-        # folds it into its key, so every round draws fresh noise
-        t = state.opt.step
-        mixed, cerr = average_and_error(grads, avg, n_nodes=n_nodes,
-                                        pods=pods, mix=mix,
-                                        key=t if stochastic else None,
-                                        pools=pools[0])
-        del grads  # the unpacked gradients; `mixed` views the mixed buffer
-        params, opt = update(mixed, state.opt, params)
-        metrics = {k: torch.stack([m[k] for m in node_metrics]).mean()
-                   for k in node_metrics[0]}
-        metrics = dict(metrics, loss=torch.stack(losses).mean(),
-                       consensus_err=cerr)
+        mb = run.microbatches
+        if mb > 1:
+            # gradient accumulation: the local mini-batch in `mb`
+            # sequential slices (paper Section II-C, compute-limited)
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device),
+                state.params)
+            loss = torch.zeros((), device=dev)
+            metrics = {"ce": torch.zeros((), device=dev),
+                       "aux": torch.zeros((), device=dev)}
+            for j in range(mb):
+                l, m, g = loss_and_grad(run, state.params,
+                                         _split(batch, mb, j))
+                for acc, gj in zip(tree_leaves(grads), tree_leaves(g)):
+                    acc.add_(gj.float() / mb)
+                del g
+                loss = loss + l / mb
+                metrics = {k: metrics[k] + m[k] / mb for k in metrics}
+        else:
+            loss, metrics, grads = loss_and_grad(run, state.params, batch)
+        params, opt = update(grads, state.opt, state.params)
+        metrics = dict(metrics, loss=loss,
+                       consensus_err=torch.zeros((), device=loss.device))
         return TrainState(params, opt), metrics
 
     return train_step
 
 
-def build_superstep(run, mesh=None, *, n_nodes: Optional[int] = None,
-                    device: DeviceLike = None) -> Callable:
-    """The K-round superstep: K consecutive train steps in one call (the
-    reference's `lax.scan`; paper Fig. 4's amortization of fixed per-round
-    costs). `superstep(state, batches) -> (state, metrics)`: batch leaves
-    carry a leading K axis ([K, B, ...] exact / [K, N, B/N, ...]
-    decentralized) and metric leaves come back stacked [K], on the device,
-    so the driver pays one metric fetch per K rounds."""
-    train_step = build_train_step(run, mesh, n_nodes=n_nodes, device=device)
+def _build_node_step(run, n_nodes: int, mix: Optional[Any],
+                     device: DeviceLike) -> Callable:
+    """The decentralized step over `n_nodes` nodes:
+    step(state, batch, ids, idx) -> (state, metrics). `ids` are the n_nodes
+    node ids that take part (batch row j belongs to node ids[j]); the rest
+    of the state's rows are left as they are. `idx` is `ids` as a tensor on
+    the device where they are not every row of the state (an elastic run's
+    cohort), else None."""
+    dev = resolve_device(device)
+    avg = dataclasses.replace(run.averaging,
+                              packed=resolve_packed(run.averaging))
+    update = make_optimizer(run.optimizer, run.learning_rate,
+                            weight_decay=run.weight_decay)
+    ef_on = avg.error_feedback != "off"
+    pods = 1  # one card: the reference's mesh without a pod axis
+    if mix is None:
+        mix = make_gossip_mix(avg, pods if avg.mode == "hierarchical"
+                              else n_nodes, device=dev)
+    elif isinstance(mix, ScheduledMixOp) and avg.quantization != "none":
+        raise ValueError("ScheduledMixOp is linear-only: quantized averaging "
+                         "configs keep their static per-round operator")
+    stochastic = avg.quantization in STOCHASTIC
+    pools: List[Optional[tuple]] = [None]  # from the first state's tree
 
+    def step(state: TrainState, batch, ids: Tuple[int, ...],
+             idx: Optional[torch.Tensor]):
+        params, opt = state.params, state.opt
+        if pools[0] is None:
+            pools[0] = layer_pools(params, run.model)
+        steps = opt.step  # one per node (`replicate_for_nodes`)
+        # the nodes' gradients, [n_nodes, ...] per leaf, one node at a time
+        grads = tree_map(lambda p: p.new_empty((n_nodes, *p.shape[1:])),
+                         params)
+        losses, node_metrics = [], []
+        for j, i in enumerate(ids):
+            l, m, g = loss_and_grad(run, tree_map(lambda p: p[i], params),
+                                     {k: v[j] for k, v in batch.items()})
+            for buf, gi in zip(tree_leaves(grads), tree_leaves(g)):
+                buf[j].copy_(gi)
+            del g
+            losses.append(l)
+            node_metrics.append(m)
+        # the first active node's optimizer step is the round clock: the
+        # stochastic compressor folds it into its key, and a ScheduledMixOp
+        # picks its phase by it
+        t = steps[ids[0]]
+        key = t if stochastic else None
+        extra = {}
+        if ef_on:
+            ef = opt.ef_residual
+            if idx is not None:
+                ef = tree_map(lambda e: e.index_select(0, idx), ef)
+            mixed, new_ef, cerr, ef_norm, ef_rel = ef_average_and_error(
+                grads, ef, avg, n_nodes=n_nodes, mix=mix, key=key, t=t,
+                pools=pools[0])
+            # into the state's residual tensors, in place (the update rules
+            # never touch them), so the packed residual buffer is freed
+            # before the update's temporaries and a caller still holding
+            # the state does not keep the old residual alive
+            for e, ne in zip(tree_leaves(opt.ef_residual),
+                             tree_leaves(new_ef)):
+                if idx is None:
+                    e.copy_(ne)
+                else:
+                    e.index_copy_(0, idx, ne)
+            del ef, new_ef
+            extra = {"ef_norm": ef_norm, "ef_rel": ef_rel}
+        else:
+            mixed, cerr = average_and_error(grads, avg, n_nodes=n_nodes,
+                                            pods=pods, mix=mix, key=key, t=t,
+                                            pools=pools[0])
+        del grads  # the unpacked gradients; `mixed` views the mixed buffer
+        # the update is elementwise: run it in place on row views of each
+        # contiguous run of nodes at one step (the whole leaves while every
+        # node is at the same step)
+        new_steps = list(steps)
+        for j0, a, b in _row_runs(ids, steps):
+            rows_of = lambda tree, a=a, b=b: tree_map(lambda x: x[a:b], tree)
+            sub = opt._replace(step=steps[a], m=rows_of(opt.m),
+                               v=rows_of(opt.v), master=rows_of(opt.master))
+            _, new = update(
+                tree_map(lambda g, j0=j0, w=b - a: g[j0:j0 + w], mixed),
+                sub, rows_of(params))
+            new_steps[a:b] = [new.step] * (b - a)
+        opt = opt._replace(step=tuple(new_steps))
+        metrics = {k: torch.stack([m[k] for m in node_metrics]).mean()
+                   for k in node_metrics[0]}
+        metrics = dict(metrics, loss=torch.stack(losses).mean(),
+                       consensus_err=cerr, **extra)
+        return TrainState(params, opt), metrics
+
+    return step
+
+
+def _loop(step: Callable) -> Callable:
+    """K consecutive calls of step(state, batch) over the leading K axis of
+    the batch leaves; the metrics stacked [K]."""
     def superstep(state: TrainState, batches):
         K = next(iter(batches.values())).shape[0]
         rounds = []
         for j in range(K):
-            state, metrics = train_step(state, {k: v[j] for k, v in
-                                                batches.items()})
+            state, metrics = step(state, {k: v[j] for k, v in
+                                          batches.items()})
             rounds.append(metrics)
         return state, {k: torch.stack([m[k] for m in rounds])
                        for k in rounds[0]}
@@ -256,25 +355,71 @@ def build_superstep(run, mesh=None, *, n_nodes: Optional[int] = None,
     return superstep
 
 
+def build_superstep(run, mesh=None, *, n_nodes: Optional[int] = None,
+                    mix: Optional[Any] = None,
+                    device: DeviceLike = None) -> Callable:
+    """The K-round superstep: K consecutive train steps in one call (the
+    reference's `lax.scan`; paper Fig. 4's amortization of fixed per-round
+    costs). `superstep(state, batches) -> (state, metrics)`: batch leaves
+    carry a leading K axis ([K, B, ...] exact / [K, N, B/N, ...]
+    decentralized) and metric leaves come back stacked [K], on the device,
+    so the driver pays one metric fetch per K rounds. `mix` as in
+    `build_train_step`."""
+    return _loop(build_train_step(run, mesh, n_nodes=n_nodes, mix=mix,
+                                  device=device))
+
+
+def build_cohort_superstep(run, n_active: int, *,
+                           device: DeviceLike = None) -> Callable:
+    """The K-round superstep of an m-node cohort of an elastic run:
+    `superstep(state, ids, batches)` with the full [N, ...] state, the m
+    active node ids and batch leaves [K, m, B/m, ...]; it trains the active
+    rows in place (no gather of the state) with the gossip schedule
+    recomposed over the cohort, and leaves the others as they are. Marked
+    `takes_ids`, so `train.driver.elastic_superstep` hands it the full
+    state."""
+    _check_supported(run, None)
+    dev = resolve_device(device)
+    step = _build_node_step(run, n_active, None, dev)
+    ef_on = run.averaging.error_feedback != "off"
+
+    def superstep(state: TrainState, ids, batches):
+        ids = tuple(int(i) for i in ids)
+        # the rows of the residual to gather, once a superstep
+        idx = torch.as_tensor(ids, device=dev) if ef_on else None
+        return _loop(lambda s, b: step(s, b, ids, idx))(state, batches)
+
+    superstep.takes_ids = True
+    return superstep
+
+
 def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
+                      mix: Optional[Any] = None,
                       device: DeviceLike = None) -> Callable[..., Callable]:
     """Bucket-keyed superstep factory for the adaptive-B governor
     (`train.driver.StreamingDriver`): `build(B) -> superstep`. The K-round
     loop reads K, B and the node split from its batch shapes, so one
-    superstep serves every bucket; it is built on the first call.
+    superstep serves every bucket; it is built on first use, once per
+    cohort size.
 
-    `build(B, membership)` with a partial `core.mixing.Membership` (a
-    cohort superstep) comes with the port's elastic slice and raises."""
+    `build(B, membership)` with a partial `core.mixing.Membership` gives the
+    cohort superstep (`build_cohort_superstep`), its gossip operator
+    recomposed over the active cohort. The `mix` override (scenario harness)
+    only applies at full membership: its operator is sized for the full
+    node axis."""
     _check_supported(run, mesh)
-    built = []
+    n_full = n_nodes or 1
+    cohort_cache: Dict[int, Callable] = {}
 
     def build(B: int, membership=None) -> Callable:
-        if membership is not None and not membership.is_full:
-            raise _later("cohort supersteps (elastic membership)", "elastic")
-        if not built:
-            built.append(build_superstep(run, mesh, n_nodes=n_nodes,
-                                         device=device))
-        return built[0]
+        m = n_full if membership is None else membership.n_active
+        fn = cohort_cache.get(m)
+        if fn is None:
+            fn = (build_superstep(run, mesh, n_nodes=n_full, mix=mix,
+                                  device=device) if m == n_full else
+                  build_cohort_superstep(run, m, device=device))
+            cohort_cache[m] = fn
+        return fn
 
     return build
 

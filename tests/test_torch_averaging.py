@@ -193,7 +193,16 @@ def test_stochastic_key_reaches_the_compressor():
 
 
 def test_resolve_packed_and_error_feedback_refusal():
+    """Error feedback refuses a nonlinear (per-round quantized) operator, as
+    the reference does; its outputs are held against the reference's in
+    tests/test_torch_error_feedback.py."""
     assert tavg.resolve_packed(AveragingConfig())
     assert not tavg.resolve_packed(AveragingConfig(packed=False))
-    with pytest.raises(NotImplementedError, match="error-feedback"):
-        tavg.ef_average_and_error({}, {}, AveragingConfig(), n_nodes=4)
+    quantized = tavg.make_gossip_mix(
+        AveragingConfig(mode="gossip", quantization="sign"), 4,
+        device="cpu")
+    tree = {"a": torch.ones(4, 3)}
+    with pytest.raises(ValueError, match="LINEAR"):
+        tavg.ef_average_and_error(tree, tree, AveragingConfig(
+            mode="gossip", quantization="sign", error_feedback="grads"),
+            n_nodes=4, mix=quantized)

@@ -715,3 +715,150 @@ def test_cuda_training_matches_the_cpu(cuda, quant):
     kernel = "gossip_mix" if quant == "none" else "gossip_mix_quant"
     assert counts[kernel] == 3 and counts["flash_attention"] == 0
     assert sum(counts.values()) == 3
+
+
+# ---------------------------------------------------------------------------
+# The elastic slice's cohort shapes: a death on the PCA path leaves 9 or 8
+# of 10 nodes (B = 1000 snapped onto the cohort's ladder: Bn = 112 or 125;
+# 111 for a ladder that rounds down), one in the trainer leaves 3 of 4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [3, 8, 9])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("d", [3072, 1 << 18])
+def test_cuda_gossip_mix_at_cohort_sizes(cuda, n, dtype, rtol, d):
+    x = torch.randn((n, d), device=cuda).to(dtype)
+    sched = tmix.schedule("ring", n)
+    for rounds in (2, 8):
+        got = ops.gossip_mix(x, sched, rounds)
+        torch.cuda.synchronize()
+        _close(got, tref.gossip_mix_ref(x, sched, rounds), rtol)
+
+
+@pytest.mark.parametrize("n", [3, 8, 9])
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3072, 1 << 18])
+def test_cuda_gossip_mix_quant_at_cohort_sizes(cuda, n, quant, dtype, d):
+    """Against the plain version, routed as `quant_route` names (3072
+    columns: 6 tiles, cluster-tile; 2^18: 512 tiles, resident-tile), the
+    launch counted under that design."""
+    from repro_torch.kernels.consensus import quant_cluster_size, quant_route
+    x = torch.randn((n, d), device=cuda).to(dtype)
+    sched = tmix.schedule("ring", n)
+    route = quant_route(x, 512)
+    assert route == ("cluster-tile" if d == 3072 else "resident-tile")
+    ops.reset_launches()
+    got = ops.quant_gossip_mix(x, sched, 2, quant, block_d=512)
+    torch.cuda.synchronize()
+    key = quant_cluster_size(512) if route == "cluster-tile" else route
+    assert ops.quant_launches[key] == 1
+    _close_quant(got, tref.gossip_mix_quant_ref(x, sched, 2, quant,
+                                                block_d=512), dtype)
+
+
+@pytest.mark.parametrize("n", [3, 4])
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [3072, 1 << 18])
+def test_cuda_gossip_mix_quant_routes_agree_bit_for_bit(cuda, n, quant,
+                                                        dtype, d):
+    """The trainer's node counts: the cluster-tile and resident-tile
+    kernels give the same bits (both round every operation alike), so the
+    tile-count route changes the time, not the answer."""
+    from repro_torch.kernels.consensus import gossip_mix_quant_cuda
+    x = torch.randn((n, d), device=cuda).to(dtype)
+    sched = tmix.schedule("ring", n)
+    a = gossip_mix_quant_cuda(x, sched, 2, quant, block_d=512,
+                              _design="cluster-tile")
+    b = gossip_mix_quant_cuda(x, sched, 2, quant, block_d=512,
+                              _design="resident-tile")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,Bn", [(9, 111), (9, 112), (8, 125)])
+@pytest.mark.parametrize("rounds", [2, 8])
+def test_cuda_krasulina_xi_gossip_at_cohort_sizes(cuda, N, Bn, rounds):
+    """The PCA cohorts' shapes through the routed (one-read) kernel, then a
+    second call on another stream, which takes that stream's own
+    grid-barrier word: both agree with the plain version and with each
+    other bit for bit."""
+    from repro_torch.kernels.krasulina_update import xi_gossip_route
+    w = torch.randn((N, 3072), device=cuda)
+    z = torch.randn((N, Bn, 3072), device=cuda)
+    sched = tmix.schedule("ring", N)
+    assert xi_gossip_route(w, z) == "one-read"
+    ops.reset_launches()
+    first = ops.krasulina_xi_gossip(w, z, sched, rounds)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        second = ops.krasulina_xi_gossip(w, z, sched, rounds)
+    torch.cuda.synchronize()
+    assert ops.xi_gossip_launches["one-read"] == 2
+    _close(first, tref.krasulina_xi_gossip_ref(w, z, sched, rounds), 1e-4)
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("G,Bn", [(9, 111), (9, 112), (8, 125)])
+def test_cuda_krasulina_xi_at_cohort_sizes(cuda, dtype, rtol, G, Bn):
+    w = torch.randn((G, 3072), device=cuda).to(dtype)
+    z = torch.randn((G, Bn, 3072), device=cuda).to(dtype)
+    got = ops.krasulina_xi(w, z)
+    torch.cuda.synchronize()
+    _close(got, tref.krasulina_xi_ref(w, z), rtol)
+
+
+@pytest.mark.parametrize("name", ["tv_rte/clean/iid_pca", "ring/lossy/iid_pca",
+                                  "geometric/lossy/skew_logreg"])
+def test_cuda_scheduled_mix_matches_the_cpu(cuda, name):
+    """The scenario's `ScheduledMixOp` on the card (its tables there, the
+    round index an int or a 0-dim card tensor) against the same op on the
+    CPU, f32, at every round of its period."""
+    from repro_torch.core import scenarios
+    scn = scenarios.get_scenario(name)
+    on_card = scenarios.build_mix(scn, device=cuda)
+    on_cpu = scenarios.build_mix(scn, device="cpu")
+    assert on_card.A_stack.is_cuda and on_card.phase_by_round.is_cuda
+    x = torch.randn((scn.n_nodes, 4099))
+    xc = x.to(cuda)
+    for t in range(1, on_cpu.period + 2):
+        want = on_cpu(x, t=t)
+        for tt in (t, torch.tensor(t, device=cuda)):
+            got = on_card(xc, t=tt)
+            torch.cuda.synchronize()
+            _close(got.cpu(), want, 1e-5)
+
+
+@pytest.mark.parametrize("quant", ["none", "sign", "int8"])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 5e-2)])
+def test_cuda_error_feedback_matches_the_cpu(cuda, quant, dtype, rtol):
+    """`ef_average_and_error` on the card (the linear mix through the
+    gossip_mix kernel, a ragged last tile, three chunks of columns) against
+    the same call on the CPU: the mixed tree and the new residual."""
+    from repro_torch.configs.base import AveragingConfig
+    from repro_torch.core import averaging
+    from repro_torch.core.packing import tree_leaves
+    cfg = AveragingConfig(mode="gossip", rounds=2, quantization=quant,
+                          quant_block_d=64, error_feedback="grads")
+    g = {"a": torch.randn(4, 100).to(dtype), "b": torch.randn(4, 7, 33)
+         .to(dtype)}
+    e = {k: 0.1 * torch.randn(v.shape).to(dtype) for k, v in g.items()}
+    old = averaging.EF_CHUNK_ENTRIES
+    averaging.EF_CHUNK_ENTRIES = 4 * 128  # chunks of 128 columns
+    try:
+        outs = [averaging.ef_average_and_error(
+            {k: v.to(d) for k, v in g.items()},
+            {k: v.to(d) for k, v in e.items()}, cfg, n_nodes=4, device=d)
+            for d in (cuda, torch.device("cpu"))]
+    finally:
+        averaging.EF_CHUNK_ENTRIES = old
+    torch.cuda.synchronize()
+    for part in (0, 1):
+        for a, b in zip(tree_leaves(outs[0][part]), tree_leaves(outs[1][part])):
+            _close(a.cpu(), b, rtol)

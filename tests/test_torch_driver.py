@@ -32,6 +32,7 @@ from repro_torch.configs.base import (AveragingConfig, GovernorConfig,
                                       StreamConfig)
 from repro_torch.configs.paper_pca import FIG7, PCARunConfig
 from repro_torch.core import krasulina, problems
+from repro_torch.core.faults import FaultSchedule
 from repro_torch.data.pipeline import DevicePrefetcher, StreamingPipeline
 from repro_torch.data.synthetic import make_pca_host_sampler, make_pca_stream
 from repro_torch.train.driver import EngineConfig, StreamingDriver
@@ -268,21 +269,28 @@ def test_entry_points_without_device_need_the_card():
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"mesh": object()}, "sharded"),
-    ({"faults": object()}, "elastic"),
+    # elastic membership (faults, a straggler policy) needs gossip averaging
+    ({"faults": FaultSchedule.parse("death:1@1", 2)}, "elastic"),
     ({"engine": EngineConfig(governor=GovernorConfig(
-        straggler_policy="evict"))}, "elastic"),
+        straggler_policy="drop"))}, "elastic"),
     ({"publisher": object()}, "serving"),
     ({"snapshotter": object()}, "durability"),
     ({"resume_from": "ckpt"}, "durability"),
-    # no superstep: the LM trainer's builder, which refuses error feedback
+    # no superstep: the LM trainer's builder, whose error feedback needs
+    # gossip averaging
     ({"superstep_fn": None, "run_cfg": PCARunConfig(averaging=AveragingConfig(
-        mode="gossip", error_feedback="grads"))}, "error-feedback"),
+        mode="exact", error_feedback="grads"))}, "error-feedback"),
 ])
 def test_driver_later_slices_raise(kwargs, match):
+    """Later slices raise NotImplementedError naming theirs; the elastic
+    slice's configurations that the reference refuses raise its
+    ValueError."""
     args = dict(mesh=None, superstep_fn=lambda s, b: (s, {}),
                 run_cfg=PCARunConfig())
     args.update(kwargs)
     mesh, run_cfg = args.pop("mesh"), args.pop("run_cfg")
-    with pytest.raises(NotImplementedError, match=match):
+    later = match in ("sharded", "serving", "durability")
+    with pytest.raises(NotImplementedError if later else ValueError,
+                       match=match):
         StreamingDriver(run_cfg, mesh, None, lambda rng, n: {},
                         n_nodes=2, device="cpu", **args)

@@ -392,6 +392,31 @@ def test_quant_design(n, d, block_d, want):
     assert want == "cluster-tile" or quant_resident_fits(n, bd)
 
 
+@pytest.mark.parametrize("n,d,want", [
+    (3, 637_554_688, "resident-tile"),   # the trainer's cohort, path (k1)
+    (4, 637_554_688, "resident-tile"),   # the trainer, paths (h2), (k1)
+    (16, 637_554_688, "resident-tile"),
+    (4, 132 * 512, "resident-tile"),     # one tile per SM
+    (4, 131 * 512, "cluster-tile"),
+    (9, 3072, "cluster-tile"),           # the PCA cohorts, path (i)
+    (8, 3072, "cluster-tile"),
+    (16, 1 << 18, "resident-tile"),
+    (17, 1 << 18, "cluster-tile"),       # beyond the node counts measured
+])
+def test_quant_design_by_tile_count(n, d, want):
+    """At up to 16 nodes a buffer of at least as many [n, 512] tiles as the
+    card has SMs takes the resident-tile kernel (one block per tile fills
+    the card); fewer tiles keep the cluster-tile kernel."""
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels.consensus import (QUANT_RESIDENT_MAX_NODES,
+                                               quant_cluster_fits,
+                                               quant_design)
+    assert quant_design(n, d, 512) == want
+    assert quant_cluster_fits(n, 512)
+    assert (want == "resident-tile") == (
+        n <= QUANT_RESIDENT_MAX_NODES and -(-d // 512) >= _cuda.N_SMS)
+
+
 @pytest.mark.parametrize("n,d,block_d", [(64, 16384, 16384),
                                          (1000, 3072, 48)])
 def test_quant_design_refuses_what_neither_kernel_holds(n, d, block_d):

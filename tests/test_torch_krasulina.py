@@ -171,8 +171,9 @@ def test_guards_and_later_slices():
     build = krasulina.krasulina_superstep_builder(
         AveragingConfig(mode="gossip"), 4, step, device="cpu")
     assert build(40) is build(80, Membership.full(4))
-    with pytest.raises(NotImplementedError, match="elastic"):
-        build(40, Membership.full(4).drop(1))
+    # a cohort superstep (elastic membership) is built once per cohort size
+    cohort = build(39, Membership.full(4).drop(1))
+    assert cohort is build(42, Membership.full(4).drop(2)) is not build(40)
     with pytest.raises(ValueError, match="split evenly"):
         krasulina.run_d_krasulina(lambda g, n: None, torch.zeros(3), N=4,
                                   B=10, steps=1, stepsize=step, device="cpu")

@@ -126,9 +126,10 @@ def test_later_slices_raise_not_implemented(kwargs, match):
 
 
 def test_make_gossip_mix_refuses_quantized_and_error_feedback():
-    """Error feedback still raises (its slice comes later); a quantized
-    config builds the reference's op: the same schedule, quantization,
-    statistics and tile width."""
+    """A quantized config builds the reference's op: the same schedule,
+    quantization, statistics and tile width; with error feedback on, both
+    packages drop the per-round compressor (the rounds are linear, the
+    compression happens once per step outside the op)."""
     cfg = AveragingConfig(mode="gossip", quantization="sign",
                           quant_stats="tile", quant_block_d=64)
     op = averaging.make_gossip_mix(cfg, 4, device="cpu")
@@ -138,10 +139,15 @@ def test_make_gossip_mix_refuses_quantized_and_error_feedback():
     for field in ("sched", "fused_sched", "n", "rounds", "quantization",
                   "stats", "block_d", "seed"):
         assert getattr(op, field) == getattr(ref, field), field
-    with pytest.raises(NotImplementedError, match="error-feedback"):
-        averaging.make_gossip_mix(
-            AveragingConfig(mode="gossip", quantization="sign",
-                            error_feedback="on"), 4, device="cpu")
+    op = averaging.make_gossip_mix(
+        AveragingConfig(mode="gossip", quantization="sign",
+                        error_feedback="on"), 4, device="cpu")
+    ref = javg.make_gossip_mix(
+        JAveragingConfig(mode="gossip", quantization="sign",
+                         error_feedback="on"), 4)
+    assert op.quantization == ref.quantization == "none"
+    for field in ("sched", "fused_sched", "n", "rounds", "stats", "block_d"):
+        assert getattr(op, field) == getattr(ref, field), field
 
 
 QUANTS = ("sign", "int8")

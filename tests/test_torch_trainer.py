@@ -50,6 +50,11 @@ from repro_torch.launch import train as launch_train
 from repro_torch.train import trainer
 from repro_torch.train.driver import EngineConfig, StreamingDriver
 
+# one intra-op thread: pytest-xdist runs several workers on the machine's
+# cores, and a thread pool of every core in each of them oversubscribes
+# the cores (a reduced-granite step then takes tens of times longer)
+torch.set_num_threads(1)
+
 N, B, S = 4, 8, 64
 
 
@@ -153,7 +158,8 @@ def test_train_step_matches_reference(mode, quant, optimizer, mb):
                     rtol=METRIC_TOL[quant != "none"][k])
     want = jax.tree.map(np.asarray, js)
     got = convert.train_tree(ts, trun.model)
-    assert got["step"] == 3 and (np.asarray(want.opt.step) == 3).all()
+    np.testing.assert_array_equal(got["step"], np.asarray(want.opt.step))
+    assert (got["step"] == 3).all()
     lr = trun.learning_rate
     if quant != "none":
         _agree(got["params"], want.params, 1e-5, frac=0.99, bound=1e-2)
@@ -181,7 +187,7 @@ def test_superstep_matches_reference_and_steps():
         js, jm = jsup(js, {k: jnp.asarray(v) for k, v in b.items()})
     sup = trainer.build_superstep(trun, None, n_nodes=N, device="cpu")
     ts, tm = sup(ts, {k: torch.from_numpy(v) for k, v in b.items()})
-    assert tm["loss"].shape == (2,) and ts.opt.step == 2
+    assert tm["loss"].shape == (2,) and ts.opt.step == (2,) * N
     for k in ("loss", "consensus_err"):
         np.testing.assert_allclose(tm[k].numpy(), np.asarray(jm[k]),
                                    rtol=1e-5)
@@ -219,7 +225,7 @@ def test_driver_builds_the_trainer_and_matches_reference():
                          engine=EngineConfig(superstep=2, prefetch_depth=2,
                                              replan_every=0)) as drv:
         ts, hist = drv.run(2)
-    assert [r["round"] for r in hist] == [2, 4] and ts.opt.step == 4
+    assert [r["round"] for r in hist] == [2, 4] and ts.opt.step == (4,) * N
     for r, jr in zip(hist, jhist, strict=True):
         for k in ("loss", "consensus_err"):
             np.testing.assert_allclose(r["metrics"][k], jr["metrics"][k],
@@ -300,16 +306,24 @@ def test_init_state_masters_and_replication():
 
 
 def test_later_slices_raise():
+    """A device mesh still raises; error feedback (gossip only, as in the
+    reference) and cohort supersteps build: the cohort's takes the active
+    ids and works on the full state (tests/test_torch_elastic.py holds it
+    against the reference)."""
     _, trun = _runs("gossip", "none", "adam")
     ef = dataclasses.replace(trun, averaging=dataclasses.replace(
         trun.averaging, error_feedback="grads"))
-    with pytest.raises(NotImplementedError, match="error-feedback"):
-        trainer.superstep_builder(ef, None, n_nodes=N, device="cpu")
+    assert callable(trainer.superstep_builder(ef, None, n_nodes=N,
+                                              device="cpu")(B))
+    hier = dataclasses.replace(ef, averaging=dataclasses.replace(
+        ef.averaging, mode="hierarchical"))
+    with pytest.raises(ValueError, match="error-feedback"):
+        trainer.superstep_builder(hier, None, n_nodes=N, device="cpu")
     with pytest.raises(NotImplementedError, match="sharded"):
         trainer.build_train_step(trun, object(), n_nodes=N, device="cpu")
     build = trainer.superstep_builder(trun, None, n_nodes=N, device="cpu")
-    with pytest.raises(NotImplementedError, match="elastic"):
-        build(B, Membership.full(N).drop(1))
+    cohort = build(B, Membership.full(N).drop(1))
+    assert cohort.takes_ids and cohort is build(B, Membership.full(N).drop(2))
     assert build(B, Membership.full(N)) is build(2 * B)
 
 
@@ -324,8 +338,11 @@ def test_launcher_runs_on_the_cpu(capsys):
     assert "plan: B=8 mu=0" in out and "nodes=1 K=2" in out
     rounds = [line for line in out.splitlines() if line.startswith("round")]
     assert len(rounds) == 2 and "consensus_err" in rounds[0]
-    for flag in (["--faults", "death:1@5-12"], ["--publish"],
-                 ["--straggler-policy", "drop"]):
-        with pytest.raises(NotImplementedError):
+    # later slices still raise; a fault on a node the run does not have,
+    # and elastic membership without gossip averaging, are refused
+    for flag, exc in ((["--publish"], NotImplementedError),
+                      (["--faults", "death:1@5-12"], ValueError),
+                      (["--straggler-policy", "drop"], ValueError)):
+        with pytest.raises(exc):
             launch_train.main(["--arch", "granite-8b", "--reduced",
                                "--device", "cpu", *flag])
