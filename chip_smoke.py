@@ -95,6 +95,28 @@
    at n = 3, rejoin sync), peak memory < 80 GB; (k2) error feedback on the
    int8 wire (`ef_rel` printed); (k3) tv_rte/lossy at n = 4 through the
    scheduled matmul.
+   (l0) durability on the main path: (a)'s governed driver at HIGHD
+   (prefetch depth 2, a fake clock) on the exact and int8 wires, 6
+   supersteps uninterrupted, then 3 with a `RunSnapshotter` and 3 from a
+   fresh driver resumed from its root: the final iterate equal bit for bit,
+   the counters and rounds equal, no failed save, the launches by design of
+   (a) and (d); then (i)'s churn at prefetch depth 0, cut at superstep 4
+   mid-shrink: bit-identical iterates, the same membership events, no
+   superstep built twice after the resume. Prints the snapshot's dispatch
+   ms, the writer's ms per save and the bytes per save.
+   (l1) train-to-serve at (h1)'s shape with a governed `SnapshotPublisher`:
+   after each superstep a `ContinuousBatchingEngine` (bf16, 4 slots) polls
+   it and takes 2 requests of 128-512 prompt tokens, 16 new tokens each;
+   versions strictly increasing, every request complete, the last
+   published params within one bf16 step of the nodes' f32 mean,
+   `gossip_mix` 8 and `flash_attention` once per layer per prefill (wgmma),
+   peak < 80 GB; prints the publish's dispatch and card ms, the staleness
+   and rounds/s beside (h1)'s.
+   (l2) resume across devices: (h0)'s reduced f32 trainer snapshotted on
+   the card at superstep 2 of 4, resumed on the CPU and on the card: the
+   continuations within (h0)'s bounds, and the card resume equal to the
+   uninterrupted card run bit for bit where two uninterrupted card runs
+   repeat their bits.
 4. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes) against its bound, its plain version and,
@@ -112,15 +134,17 @@
    and, for the two gossip kernels, `trainer` and `n3` entries (and
    `ef_chunk` for `gossip_mix`).
 
-The last line is `{"ok": true, "device": {...}}`. Any mismatch or fault
-raises and exits non-zero; there is no CPU path and no fallback. Without a
-CUDA card, or without the repository around it, it exits non-zero and
-prints no result.
+The line before the kernels line gives the run's seconds from the start
+of the build. The last line is `{"ok": true, "device": {...}}`. Any
+mismatch or fault raises and exits non-zero; there is no CPU path and no
+fallback. Without a CUDA card, or without the repository around it, it
+exits non-zero and prints no result.
 """
 import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -289,7 +313,7 @@ def main() -> int:
     print(f"nvidia-smi: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     per_lib = _cuda.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + " ".join(f"{k}={v:.1f}s" for k, v in per_lib.items()))
@@ -1252,7 +1276,7 @@ def main() -> int:
                                 num_layers=TRAIN_LAYERS)
     tokens_per_round = TRAIN_B * TRAIN_S
     flops_per_round = None
-    finals = {}
+    finals, h_rounds, h_peak = {}, {}, {}
     for label, wire, quant in (("(h1)", "exact", {}),
                                ("(h2)", "int8", quant_tile)):
         run = RunConfig(model=cfg_h, shape=SHAPES["train_4k"],
@@ -1336,6 +1360,7 @@ def main() -> int:
               f"{json.dumps(phases)}")
         finite = all(math.isfinite(x) for x in losses + cerrs)
         finals[label] = losses[-1]
+        h_rounds[label], h_peak[label] = rounds_s, peak
         card_tflops = flops_per_round / (card_ms / TRAIN_K * 1e-3) / 1e12
         print(f"main {label} {wire} wire: {TRAIN_K * len(history)} rounds "
               f"in {wall:.3f} s; loss at round {history[0]['round']} "
@@ -1772,6 +1797,361 @@ def main() -> int:
     require(all("link_drops" in r for r in hist),
             f"{label}: the records carry no link drops")
 
+    # ---------------------- durability and train-to-serve publication (l)
+    from repro_torch.serve.publisher import SnapshotPublisher
+    from repro_torch.train import checkpoint
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    ck_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           ".smoke_ckpt")
+    shutil.rmtree(ck_root, ignore_errors=True)
+
+    def advanced(dt, reads):
+        """A fake clock where an uninterrupted run's stood after `reads`
+        reads (the driver reads it twice per superstep)."""
+        clk = FakeClock(dt)
+        for _ in range(reads):
+            clk()
+        return clk
+
+    def snap_line(sn):
+        """The snapshotter's training-thread dispatch ms, writer ms per
+        save and bytes per save."""
+        st = sn.stats
+        return (f"snapshot dispatch {st.total_cost_s / st.dispatches * 1e3:.3f}"
+                f" ms, writer {st.write_s / max(st.saves, 1) * 1e3:.3f} ms "
+                f"per save, {st.bytes_per_save} bytes per save, saves "
+                f"{st.saves}, failures {st.failures}")
+
+    # (l0) resume on the main path at HIGHD: (a)'s governed driver (K = 8,
+    # prefetch depth 2) on a fake clock, on the exact and int8 wires: 6
+    # supersteps uninterrupted, then 3 with a blocking snapshot each, the
+    # driver dropped, and 3 more from a fresh driver resumed from the root
+    L0_TOTAL, L0_CUT, L0_DT = 6, 3, 1e-3
+    for wire, avg, kernels in (("exact", gossip, ["krasulina_xi_gossip"]),
+                               ("int8", int8_tile, ["krasulina_xi",
+                                                    "gossip_mix_quant"])):
+        label = f"(l0) {wire} wire"
+        root = os.path.join(ck_root, f"l0_{wire}")
+        l_builder = krasulina.krasulina_superstep_builder(
+            avg, HIGHD_N, step5, metric=sin2, device=dev)
+        l_cfg = PCARunConfig(pca=HIGHD, averaging=avg, stream=run_cfg.stream)
+
+        def l0_driver(clock, **kw):
+            return StreamingDriver(
+                l_cfg, None,
+                krasulina.init_krasulina_state(w0, avg, HIGHD_N, device=dev),
+                make_pca_host_sampler(stream), superstep_builder=l_builder,
+                n_nodes=HIGHD_N, batch=HIGHD_B, device=dev, clock=clock,
+                engine=EngineConfig(superstep=HIGHD_K, prefetch_depth=2), **kw)
+
+        ops.reset_launches()
+        with l0_driver(FakeClock(L0_DT)) as drv:
+            ref_state, ref_hist = drv.run(L0_TOTAL)
+        sn = RunSnapshotter(root, every=1, overhead_budget=0, block=True)
+        with l0_driver(FakeClock(L0_DT), snapshotter=sn) as drv:
+            drv.run(L0_CUT)
+        with l0_driver(advanced(L0_DT, 2 * L0_CUT),
+                       resume_from=root) as drv:
+            resumed_from = drv.resumed_from
+            res_state, res_hist = drv.run(L0_TOTAL - L0_CUT)
+        torch.cuda.synchronize()
+        rounds = (L0_TOTAL + L0_TOTAL) * HIGHD_K
+        exact = ({"krasulina_xi_gossip": rounds, "krasulina_xi": 0,
+                  "gossip_mix_quant": 0} if wire == "exact" else
+                 {"krasulina_xi": rounds, "gossip_mix_quant": rounds,
+                  "krasulina_xi_gossip": 0})
+        exact.update(gossip_mix=0, flash_attention=0)
+        counts = take_counts(label, kernels, exact)
+        nodes = take_nodes(label)
+        if wire == "exact":
+            require(ops.xi_gossip_launches == {"one-read": rounds,
+                                               "two-pass": 0},
+                    f"{label}: launches by design {ops.xi_gossip_launches}")
+        else:
+            require_slab(label, rounds)
+            require(ops.quant_launches == {c: rounds * (c == 16)
+                                           for c in ops.quant_launches},
+                    f"{label}: launches by cluster {ops.quant_launches}")
+        same = torch.equal(res_state.w, ref_state.w)
+        tail = [(r["round"], tuple(r["counters"]), r["plan"].mu)
+                for r in ref_hist[L0_CUT:]]
+        got = [(r["round"], tuple(r["counters"]), r["plan"].mu)
+               for r in res_hist]
+        print(f"main {label} HIGHD N={HIGHD_N} B={HIGHD_B} R={HIGHD_R} "
+              f"K={HIGHD_K} prefetch 2, governed, fake clock: resumed from "
+              f"{os.path.basename(resumed_from)} at superstep {L0_CUT} of "
+              f"{L0_TOTAL}; final iterate equals the uninterrupted run bit "
+              f"for bit: {same}; (round, counters, mu) after the cut "
+              f"{json.dumps(got)}; sin2 {res_hist[-1]['metrics']['metric']:.5f};"
+              f" {snap_line(sn)}; launches={json.dumps(counts)} by nodes "
+              f"{json.dumps(nodes)}; card {smi}")
+        require(same, f"{label}: the resumed iterate differs")
+        require(got == tail, f"{label}: counters or rounds differ: {got} vs "
+                             f"{tail}")
+        require(res_state.t == ref_state.t == L0_TOTAL * HIGHD_K,
+                f"{label}: rounds {res_state.t} vs {ref_state.t}")
+        require(sn.stats.failures == 0 and sn.stats.saves == L0_CUT,
+                f"{label}: snapshotter {sn.stats}")
+
+    # (l0) under (i)'s churn at prefetch depth 0, cut at superstep 4 while
+    # node 3 is out (the 9-node cohort), both wires
+    L0C_TOTAL, L0C_CUT = 8, 4
+    spec = "death:3@2-6,flaky:7@3-9p2"
+    for wire, avg in (("exact", gossip), ("int8", int8_tile)):
+        label = f"(l0) {wire} wire under {spec}"
+        root = os.path.join(ck_root, f"l0c_{wire}")
+
+        def l0c_driver(clock, builds, **kw):
+            builder = counting(krasulina.krasulina_superstep_builder(
+                avg, HIGHD_N, step5, metric=sin2, device=dev), builds)
+            return StreamingDriver(
+                PCARunConfig(pca=HIGHD, averaging=avg, stream=StreamConfig()),
+                None,
+                krasulina.init_krasulina_state(w0, avg, HIGHD_N, device=dev),
+                make_pca_host_sampler(stream), superstep_builder=builder,
+                n_nodes=HIGHD_N, batch=HIGHD_B, device=dev, clock=clock,
+                faults=FaultSchedule.parse(spec, HIGHD_N),
+                engine=EngineConfig(superstep=ELASTIC_K, prefetch_depth=0,
+                                    replan_every=0), **kw)
+
+        ops.reset_launches()
+        ref_builds, cut_builds, res_builds = [], [], []
+        with l0c_driver(FakeClock(L0_DT), ref_builds) as drv:
+            ref_state, ref_hist = drv.run(L0C_TOTAL)
+            ref_events = events_of(drv)
+        sn = RunSnapshotter(root, every=1, overhead_budget=0, block=True)
+        with l0c_driver(FakeClock(L0_DT), cut_builds, snapshotter=sn) as drv:
+            drv.run(L0C_CUT)
+            cut_cohort = drv.membership.n_active
+        with l0c_driver(advanced(L0_DT, 2 * L0C_CUT), res_builds,
+                        resume_from=root) as drv:
+            res_state, res_hist = drv.run(L0C_TOTAL - L0C_CUT)
+            res_events = events_of(drv)
+        torch.cuda.synchronize()
+        counts = take_counts(label, ["krasulina_xi_gossip"] if avg is gossip
+                             else ["krasulina_xi", "gossip_mix_quant"],
+                             {"gossip_mix": 0, "flash_attention": 0})
+        nodes = take_nodes(label)
+        same = torch.equal(res_state.w, ref_state.w)
+        want_events = [e for e in ref_events if e[0] >= L0C_CUT]
+        eras = [(r["bucket"], r["n_active"]) for r in res_hist]
+        print(f"main {label} HIGHD K={ELASTIC_K}: cut at superstep "
+              f"{L0C_CUT} with {cut_cohort} nodes active; resumed iterate "
+              f"equals the uninterrupted run bit for bit: {same}; "
+              f"membership events after the cut {json.dumps(res_events)} "
+              f"(uninterrupted {json.dumps(want_events)}); eras "
+              f"{json.dumps(eras)}; builds uninterrupted {ref_builds}, "
+              f"before the cut {cut_builds}, after it {res_builds}; "
+              f"{snap_line(sn)}; launches={json.dumps(counts)} by nodes "
+              f"{json.dumps(nodes)}")
+        require(cut_cohort < HIGHD_N, f"{label}: the cut is not mid-shrink")
+        require(same, f"{label}: the resumed iterate differs")
+        require(res_events == want_events and res_events,
+                f"{label}: membership events differ")
+        require(eras == [(r["bucket"], r["n_active"])
+                         for r in ref_hist[L0C_CUT:]], f"{label}: eras")
+        require(len(res_builds) == len(set(res_builds)),
+                f"{label}: a superstep was built twice after the resume: "
+                f"{res_builds}")
+        require(sn.stats.failures == 0, f"{label}: snapshotter {sn.stats}")
+
+    # (l1) train-to-serve at (h1)'s shape: granite-8b full width, 2 layers,
+    # bf16 with f32 masters, N = 4, ring R = 2, K = 2, 4 supersteps, Adam,
+    # the exact wire, a governed SnapshotPublisher (budget 0.05); after each
+    # superstep a ContinuousBatchingEngine on the card polls it and takes 2
+    # new requests of 128-512 prompt tokens and 16 new tokens each
+    label = "(l1) train-to-serve"
+    L1_GEN, L1_SLOTS = 16, 4
+    run = RunConfig(model=cfg_h, shape=SHAPES["train_4k"],
+                    averaging=AveragingConfig("gossip", TRAIN_R, "ring"),
+                    optimizer="adam", learning_rate=3e-4,
+                    param_dtype="bfloat16", master_weights=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tstate = trainer.replicate_for_nodes(trainer.init_state(
+        run, torch.Generator(device=dev).manual_seed(0)), TRAIN_N)
+    data = MarkovTokenStream(cfg_h.vocab_size, seed=0)
+    sample = lambda rng, n: draw_tokens(data, rng, n, TRAIN_S)
+    rng = np.random.default_rng(4)
+    lens = rng.integers(128, 513, size=2 * TRAIN_SUPERSTEPS)
+    prompts = [rng.integers(0, cfg_h.vocab_size, size=int(n)) for n in lens]
+    pub = SnapshotPublisher(overhead_budget=0.05)
+    eng, rids, versions, staleness = None, [], [], []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with StreamingDriver(run, None, tstate, sample, batch=TRAIN_B,
+                         n_nodes=TRAIN_N, device=dev, publisher=pub,
+                         engine=EngineConfig(superstep=TRAIN_K,
+                                             prefetch_depth=2,
+                                             replan_every=0)) as drv:
+        for i in range(TRAIN_SUPERSTEPS):
+            tstate, history = drv.run(1)
+            versions.append(history[-1]["published_version"])
+            staleness.append(pub.staleness(drv._supersteps_done))
+            if eng is None:
+                eng = engine.ContinuousBatchingEngine(
+                    cfg_h, pub.snapshot().params, slots=L1_SLOTS,
+                    max_len=512 + L1_GEN, dtype=torch.bfloat16)
+            eng.poll(pub)
+            rids += [eng.submit(p, L1_GEN) for p in prompts[2 * i:2 * i + 2]]
+            for _ in range(L1_GEN // 2):
+                eng.step()
+        mask = drv._publish_aux()
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    other = {k: 0 for k in ops.launches}
+    other.update(gossip_mix=TRAIN_K * TRAIN_SUPERSTEPS,
+                 flash_attention=TRAIN_LAYERS * len(prompts))
+    counts = take_counts(label, ["gossip_mix", "flash_attention"], other)
+    counts["flash_by_kernel"] = dict(ops.flash_launches)
+    nodes = take_nodes(label)
+    require(ops.flash_launches == {"wgmma": TRAIN_LAYERS * len(prompts),
+                                   "mma_sync": 0, "f32": 0},
+            f"{label}: flash launches by kernel {ops.flash_launches}")
+    done = [eng.result(r) for r in rids]
+    complete = all(r is not None and len(r.tokens) == L1_GEN and all(
+        0 <= t < cfg_h.vocab_size for t in r.tokens) for r in done)
+    spanning = sum(len(set(r.versions)) > 1 for r in done)
+    published = [v for v in versions if v is not None]
+    # the last published params against the plain f32 mean of the nodes,
+    # cast to bf16: within one bf16 step (ordered bit patterns)
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    steps = max(int((ordered(p) - ordered(
+        (q.float().sum(0) / TRAIN_N).to(torch.bfloat16))).abs().max())
+        for p, q in zip(tree_leaves(pub.snapshot().params),
+                        tree_leaves(tstate.params)))
+    # the publish's card time (events) for the same extract and copy
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    extra = pub._copy(tstate, mask)
+    end.record()
+    torch.cuda.synchronize()
+    pub_card_ms = start.elapsed_time(end)
+    del extra
+    steady = history  # drv.run(1) returns the whole history
+    steady_rs = (len(steady) - 1) * TRAIN_K / sum(r["wall_s"]
+                                                   for r in steady[1:])
+    print(f"main {label} granite-8b full width, {TRAIN_LAYERS} layers, "
+          f"N={TRAIN_N}, {TRAIN_SUPERSTEPS} supersteps: published versions "
+          f"{json.dumps(versions)} (publisher v{pub.version}, engine "
+          f"v{eng.version}, swaps {eng.swaps}); staleness after each "
+          f"superstep {json.dumps([s['supersteps'] for s in staleness])} "
+          f"supersteps; publish dispatch "
+          f"{pub.stats.total_cost_s / pub.stats.publishes * 1e3:.3f} ms (EWMA "
+          f"{pub.stats.cost_ewma_s * 1e3:.3f}), card {pub_card_ms:.3f} ms "
+          f"(CUDA events); last published params vs the f32 node mean in "
+          f"bf16: at most {steps} bf16 step(s); {len(done)} requests, "
+          f"prompts {int(lens.min())}-{int(lens.max())}, all {L1_GEN} tokens "
+          f"each: {complete}, spanning a swap {spanning}; steady "
+          f"{steady_rs:.4f} rounds/s (h1 in this run "
+          f"{h_rounds['(h1)']:.4f}); {wall:.3f} s in all; peak memory "
+          f"{peak:.2f} GB (h1 {h_peak['(h1)']:.2f}); "
+          f"launches={json.dumps(counts)} by nodes {json.dumps(nodes)}; "
+          f"card {smi}")
+    require(published and all(b > a for a, b in zip(published,
+                                                     published[1:])),
+            f"{label}: versions not strictly increasing: {versions}")
+    require(eng.version == pub.version, f"{label}: engine at v{eng.version}, "
+                                        f"publisher at v{pub.version}")
+    require(versions[-1] is not None, f"{label}: the last superstep was not "
+                                      f"published")
+    require(complete, f"{label}: a request lost tokens")
+    require(steps <= 1, f"{label}: published params {steps} bf16 steps from "
+                        f"the node mean")
+    require(peak < 80, f"{label}: peak memory {peak:.2f} GB")
+    del tstate, drv, eng, pub
+    torch.cuda.empty_cache()
+
+    # (l2) resume across devices: the reduced f32 granite of (h0), N = 4,
+    # ring R = 2, Adam at 1e-4, K = 1, 8 x 64 tokens per round; a
+    # RunSnapshotter on the card writes superstep 2 of 4, and a CPU driver
+    # and a card driver each resume from it
+    label = "(l2) resume across devices"
+    L2_TOTAL, L2_CUT = 4, 2
+    root = os.path.join(ck_root, "l2")
+    run = RunConfig(model=cfg_r, shape=SHAPES["train_4k"],
+                    averaging=AveragingConfig("gossip", TRAIN_R, "ring"),
+                    optimizer="adam", learning_rate=H0_LR,
+                    param_dtype="float32")
+    base = trainer.replicate_for_nodes(
+        trainer.init_state(run, torch.Generator().manual_seed(0)), TRAIN_N)
+    data = MarkovTokenStream(cfg_r.vocab_size, seed=0)
+    sample = lambda rng, n: draw_tokens(data, rng, n, 64)
+
+    def l2_driver(d_, **kw):
+        return StreamingDriver(run, None, on_device(base, d_), sample,
+                               batch=8, n_nodes=TRAIN_N, device=d_,
+                               engine=EngineConfig(superstep=1,
+                                                   prefetch_depth=0,
+                                                   replan_every=0), **kw)
+
+    ops.reset_launches()
+    whole = []
+    for _ in range(2):
+        with l2_driver(dev) as drv:
+            st, hist = drv.run(L2_TOTAL)
+        whole.append((st, [r["metrics"]["loss"] for r in hist]))
+    sn = RunSnapshotter(root, every=1, overhead_budget=0, block=True)
+    with l2_driver(dev, snapshotter=sn) as drv:
+        drv.run(L2_CUT)
+    res = {}
+    for side, d_ in (("card", dev), ("cpu", cpu)):
+        with l2_driver(d_, resume_from=root) as drv:
+            st, hist = drv.run(L2_TOTAL - L2_CUT)
+        res[side] = (st, [r["metrics"]["loss"] for r in hist])
+    torch.cuda.synchronize()
+    counts = take_counts(label, ["gossip_mix"], {
+        "gossip_mix": 2 * L2_TOTAL + L2_CUT + (L2_TOTAL - L2_CUT),
+        "gossip_mix_quant": 0, "flash_attention": 0})
+    nodes = take_nodes(label)
+
+    def agree(a, b):
+        """(h0)'s bounds: (max rel loss err, share of parameters within
+        1e-4, max abs err)."""
+        (sa, la), (sb, lb) = a, b
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(la, lb))
+        d = torch.cat([(x.cpu() - y.cpu()).abs().ravel() for x, y in
+                       zip(tree_leaves(sa.params), tree_leaves(sb.params))])
+        return loss_err, float((d <= 1e-4).float().mean()), float(d.max())
+
+    repeat = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(whole[0][0].params), tree_leaves(whole[1][0].params)))
+    card_cpu = agree(res["card"], res["cpu"])
+    same_card = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(res["card"][0].params), tree_leaves(whole[0][0].params)))
+    card_whole = agree(res["card"], (whole[0][0], whole[0][1][L2_CUT:]))
+    print(f"main {label} reduced granite-8b f32 N={TRAIN_N} ring R={TRAIN_R} "
+          f"adam, snapshot at superstep {L2_CUT} of {L2_TOTAL} on the card: "
+          f"two uninterrupted card runs give the same bits: {repeat}; card "
+          f"resume vs CPU resume: losses {json.dumps(res['card'][1])} (CPU "
+          f"{json.dumps(res['cpu'][1])}), max rel err {card_cpu[0]:.2e} "
+          f"(limit 1e-4), parameters within 1e-4 {card_cpu[1]:.6f} (limit "
+          f">= 0.999), max_abs_err {card_cpu[2]:.3e}; card resume vs the "
+          f"uninterrupted card run: same bits {same_card}, max rel loss err "
+          f"{card_whole[0]:.2e}, within 1e-4 {card_whole[1]:.6f}; "
+          f"{snap_line(sn)}; launches={json.dumps(counts)} by nodes "
+          f"{json.dumps(nodes)}")
+    require(card_cpu[0] <= 1e-4 and card_cpu[1] >= 0.999,
+            f"{label}: the card and CPU continuations disagree")
+    if repeat:
+        require(same_card, f"{label}: the card resume differs from the "
+                           f"uninterrupted card run, which repeats bit for bit")
+    else:
+        print(f"note {label}: two uninterrupted card runs differ in their "
+              f"bits, so the card resume is held to (h0)'s bounds")
+        require(card_whole[0] <= 1e-4 and card_whole[1] >= 0.999,
+                f"{label}: the card resume and the uninterrupted run disagree")
+    require(sn.stats.failures == 0, f"{label}: snapshotter {sn.stats}")
+    del base, whole, res, st
+    shutil.rmtree(ck_root, ignore_errors=True)
+
     # ----------------------------------------------------------------- timing
     def bound(bytes_moved, flops, flops_per_s):
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
@@ -2080,6 +2460,8 @@ def main() -> int:
                           wbar, stream.cov, stream.lambda1)),
                       ("sin2_error", lambda: sin2(wbar))):
         print(f"time metric {label} d={HIGHD.dim}: {time_ms(fn):.5f} ms")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+          f"start of the build")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,7 +17,7 @@ one tree repacks trees of any node count.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +66,20 @@ def tree_map(fn, tree: Tree) -> Tree:
     leaves: List[torch.Tensor] = []
     treedef = _flatten(tree, leaves)
     return _unflatten(treedef, iter([fn(x) for x in leaves]))
+
+
+def map_tensors(fn: Callable, tree: Tree) -> Tree:
+    """`fn` on every tensor of a tree of NamedTuples, dicts, lists and
+    tuples; other leaves (a Python round counter) pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_tensors(fn, x) for x in tree))
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, x) for x in tree)
+    return tree
 
 
 def _dtype_name(dtype: torch.dtype) -> str:

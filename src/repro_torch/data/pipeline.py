@@ -26,8 +26,9 @@ Streaming-engine extensions (see train.driver for the full picture):
 * **Checkpoint continuity** — the splitter's exact stream position
   (counter quad + PRNG bit-generator state + live plan) is exported by
   `splitter_state()` / restored by `load_splitter_state()` (both from
-  `GovernedPlanMixin`); the checkpointing that uses it comes with the
-  durability slice (docs/DESIGN.md §Fault-tolerant streaming).
+  `GovernedPlanMixin`); the driver's prefetch `meta` carries it with each
+  staged superstep for `train.snapshot`
+  (docs/DESIGN.md §Fault-tolerant streaming).
 * **Adaptive B** — `update_plan` may move B between the buckets of an adopted
   `core.rates.BucketLadder` mid-stream
   (docs/DESIGN.md §Adaptive batch buckets). The plan is latched once per

@@ -26,11 +26,19 @@ Example:
       --reduced --device cpu --steps 4 --superstep 2 --averaging gossip \
       --rounds 2 --nodes 4 --faults death:1@1-2
 
-The reference's flags of later slices are declared and raise
-`NotImplementedError`: --publish (serving), --checkpoint*, --resume
-(durability) and --production-mesh (sharded). --compilation-cache-dir and
---no-env-tuning are not taken: they set up `launch/env.py`'s XLA flags and
-compilation cache, which have no counterpart here.
+Durability and publication, as in the reference: `--publish` attaches a
+`serve.publisher.SnapshotPublisher` (its governor's budget
+`--publish-budget`) that publishes the consensus iterate at superstep
+boundaries; `--checkpoint DIR` saves the final state there, or with
+`--checkpoint-every K` is the root of async snapshots every K supersteps
+(`train.snapshot.RunSnapshotter`, `--keep-last`, `--checkpoint-budget`);
+`--resume DIR` continues from the newest valid snapshot under DIR (or one
+step directory). The checkpoints are in the reference's layout.
+
+--production-mesh is declared and raises `NotImplementedError` (the
+sharded slice). --compilation-cache-dir and --no-env-tuning are not taken:
+they set up `launch/env.py`'s XLA flags and compilation cache, which have
+no counterpart here.
 """
 from __future__ import annotations
 
@@ -43,23 +51,20 @@ import torch
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.configs.base import (SHAPES, AveragingConfig, GovernorConfig,
-                                      RunConfig, StreamConfig)
+                                      PublishConfig, RunConfig, StreamConfig)
 from repro_torch.core import scenarios as scenario_lib
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.data.lm import MarkovTokenStream
 from repro_torch.device import resolve_device
+from repro_torch.serve.publisher import SnapshotPublisher
+from repro_torch.train import checkpoint
 from repro_torch.train.driver import EngineConfig, StreamingDriver
+from repro_torch.train.snapshot import RunSnapshotter
 from repro_torch.train.trainer import (init_state, replicate_for_nodes,
                                        superstep_builder)
 
 # flags of later slices: (dest, default, the slice they come with)
-_LATER = (("publish", False, "serving"), ("publish_budget", 0.05, "serving"),
-          ("checkpoint", "", "durability"),
-          ("checkpoint_every", 0, "durability"),
-          ("keep_last", 3, "durability"),
-          ("checkpoint_budget", 0.05, "durability"),
-          ("resume", "", "durability"),
-          ("production_mesh", False, "sharded"))
+_LATER = (("production_mesh", False, "sharded"),)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -130,18 +135,30 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-rejoin-sync", action="store_true",
                     help="keep a rejoining node's stale iterate instead of "
                          "syncing it to the cohort mean")
-    # later slices (they raise)
-    ap.add_argument("--publish", action="store_true", help="serving slice")
+    ap.add_argument("--publish", action="store_true",
+                    help="publish consensus param snapshots at superstep "
+                         "boundaries (serve/publisher.py) for a serving "
+                         "replica to adopt")
     ap.add_argument("--publish-budget", type=float, default=0.05,
-                    help="serving slice")
-    ap.add_argument("--checkpoint", default="", help="durability slice")
+                    help="publish-governor overhead budget: max fraction of "
+                         "train wall time spent on snapshot copies")
+    ap.add_argument("--checkpoint", default="",
+                    help="checkpoint directory; with --checkpoint-every 0 a "
+                         "single end-of-run save, otherwise the root for "
+                         "step_NNNNNNNN/ async snapshots")
     ap.add_argument("--checkpoint-every", type=int, default=0,
-                    help="durability slice")
+                    help="async snapshot cadence in supersteps (0 = only the "
+                         "end-of-run save); requires --checkpoint")
     ap.add_argument("--keep-last", type=int, default=3,
-                    help="durability slice")
+                    help="checkpoints retained under the root (the newest "
+                         "VALID one is never pruned)")
     ap.add_argument("--checkpoint-budget", type=float, default=0.05,
-                    help="durability slice")
-    ap.add_argument("--resume", default="", help="durability slice")
+                    help="snapshot-governor overhead budget: max fraction of "
+                         "train wall time spent dispatching snapshot copies")
+    ap.add_argument("--resume", default="",
+                    help="resume from this checkpoint root (newest valid "
+                         "step) or a specific step_NNNNNNNN directory")
+    # a later slice (it raises)
     ap.add_argument("--production-mesh", action="store_true",
                     help="sharded slice")
     return ap
@@ -206,13 +223,35 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     data = MarkovTokenStream(cfg.vocab_size, seed=0)
     sample_fn = lambda rng, n: _draw(data, rng, n, args.seq)
 
+    publisher = None
+    if args.publish:
+        pub_cfg = PublishConfig(enabled=True,
+                                overhead_budget=args.publish_budget)
+        publisher = SnapshotPublisher(
+            overhead_budget=pub_cfg.overhead_budget,
+            min_interval_s=pub_cfg.min_interval_s, block=pub_cfg.block)
+    snapshotter = None
+    if args.checkpoint_every > 0:
+        if not args.checkpoint:
+            ap.error("--checkpoint-every needs --checkpoint DIR as the root")
+        snapshotter = RunSnapshotter(args.checkpoint,
+                                     every=args.checkpoint_every,
+                                     keep_last=args.keep_last,
+                                     overhead_budget=args.checkpoint_budget)
+
     state = init_state(run, torch.Generator(device=dev).manual_seed(run.seed))
     if args.averaging != "exact":
         state = replicate_for_nodes(state, n_nodes)
     with StreamingDriver(run, None, state, sample_fn, engine=engine,
                          superstep_builder=builder, batch=args.batch,
                          n_nodes=n_nodes, horizon=args.horizon or None,
-                         faults=faults, device=dev) as driver:
+                         faults=faults, publisher=publisher,
+                         snapshotter=snapshotter,
+                         resume_from=args.resume or None,
+                         device=dev) as driver:
+        if driver.resumed_from:
+            print(f"resumed: {driver.resumed_from} "
+                  f"(superstep {driver._supersteps_done})")
         plan = driver.pipeline.plan
         print(f"plan: B={plan.B} mu={plan.mu} regime={plan.regime} "
               f"nodes={n_nodes} K={engine.superstep} "
@@ -223,10 +262,35 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                   f"R={scenario.rounds} links={scenario.links or 'clean'}")
         if faults is not None:
             print(f"faults: {faults}")
-        driver.run(supersteps, log_fn=_log, log_every=args.log_every)
+        state, _ = driver.run(supersteps, log_fn=_log,
+                              log_every=args.log_every)
         for ev in driver.membership_events:
             print(f"membership superstep {ev['superstep']}: "
                   f"{ev['to'].active_ids} B={ev['plan'].B}")
+    if publisher is not None:
+        st = publisher.stats
+        stale = publisher.staleness(supersteps)
+        print(f"publisher: v{publisher.version} publishes={st.publishes} "
+              f"skipped(budget={st.skipped_budget} "
+              f"interval={st.skipped_interval}) "
+              f"cost_ewma={st.cost_ewma_s * 1e3:.2f}ms "
+              f"total_cost={st.total_cost_s:.3f}s "
+              f"staleness={stale['supersteps']} supersteps "
+              f"/ {stale['wall_s']:.2f}s")
+    if snapshotter is not None:
+        st = snapshotter.stats
+        print(f"snapshotter: saves={st.saves} "
+              f"skipped(cadence={st.skipped_cadence} "
+              f"budget={st.skipped_budget} busy={st.skipped_busy}) "
+              f"failures={st.failures} "
+              f"cost_ewma={st.cost_ewma_s * 1e3:.2f}ms "
+              f"total_cost={st.total_cost_s:.3f}s -> {args.checkpoint}")
+    elif args.checkpoint:
+        checkpoint.save(args.checkpoint, state,
+                        step=supersteps * engine.superstep,
+                        meta={"arch": args.arch, "reduced": args.reduced},
+                        model=cfg)
+        print(f"checkpoint -> {args.checkpoint}")
 
 
 def _log(rec):

@@ -54,8 +54,17 @@ itself (the LM trainer's, whose state is too large to gather). Link faults
 alone (loss, bandwidth) keep the full node axis and add `bw_factor` and
 `link_drops` to the history records.
 
-Train-to-serve publication, snapshots and resume come with later slices and
-raise `NotImplementedError`.
+Train-to-serve publication (docs/DESIGN.md §Train-to-serve publication):
+a `serve.publisher.SnapshotPublisher` passed as `publisher=` is offered the
+state at every superstep boundary, after the timed window; it publishes the
+consensus mean over the active nodes (`train.trainer.publish_extract`)
+under its own cost governor. Fault tolerance (docs/DESIGN.md
+§Fault-tolerant streaming): a `train.snapshot.RunSnapshotter` passed as
+`snapshotter=` runs after the publisher at the same boundary, and
+`resume_from=` (a snapshot root or one step directory) restores the state,
+the splitter's stream position, the governor, the membership and the
+publisher's version before the first superstep, so the resumed run deals
+and trains what the uninterrupted one would have.
 """
 from __future__ import annotations
 
@@ -74,7 +83,7 @@ from repro_torch.core.mixing import Membership
 from repro_torch.data.pipeline import (DevicePrefetcher, StreamCounters,
                                        StreamingPipeline, stage_batch)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.train.trainer import (make_node_batch,
+from repro_torch.train.trainer import (make_node_batch, publish_extract,
                                        superstep_builder as lm_superstep_builder)
 
 
@@ -201,10 +210,6 @@ class StreamingDriver:
             raise _later("driving a device mesh", "sharded")
         if n_nodes is None:
             raise ValueError("pass n_nodes when driving without a mesh")
-        if publisher is not None:
-            raise _later("train-to-serve publication", "serving")
-        if snapshotter is not None or resume_from is not None:
-            raise _later("snapshots and resume", "durability")
         self.device = resolve_device(device)
         self.run_cfg = run_cfg
         self.mesh = mesh
@@ -288,7 +293,26 @@ class StreamingDriver:
         self._estimator = (rates.RoundTimeEstimator(
             self.n_nodes, run_cfg.averaging.rounds, window=gov.window)
             if gov.estimate_rates else None)
+        # train-to-serve publication: offered the state at the superstep
+        # boundary, after the timed window — its cost is engine bookkeeping
+        # the publisher's own governor budgets, not stream processing
+        self._publisher = publisher
+        if publisher is not None:
+            publisher.configure(extract=publish_extract(
+                self.n_nodes if self.decentralized else None))
+        self._pub_masks: Dict[Optional[Membership], torch.Tensor] = {}
         self.history: List[Dict[str, Any]] = []
+        # fault tolerance: the snapshotter runs at the superstep boundary,
+        # after publication. `_last_splitter_state` is the splitter snapshot
+        # that rode the prefetch `meta` with the superstep just consumed:
+        # restoring it re-deals the staged-but-unconsumed supersteps a crash
+        # threw away
+        self._snapshotter = snapshotter
+        self._last_splitter_state: Optional[dict] = None
+        self.resumed_from: Optional[str] = None
+        if resume_from is not None:
+            from repro_torch.train import snapshot as _snapshot
+            self.resumed_from = _snapshot.restore_driver(self, resume_from)
 
     def _make_ladder(self, gov: GovernorConfig) -> rates.BucketLadder:
         """Resolve the governor's B ladder: explicit buckets (clipped to the
@@ -370,7 +394,11 @@ class StreamingDriver:
             self._prefetcher = DevicePrefetcher(
                 self._host_superstep, device=self.device,
                 counters=self.pipeline.counters,
-                meta=lambda: self.pipeline.last_superstep_plan,
+                # the plan that dealt the superstep and the splitter's
+                # post-deal stream position, so a snapshot pins exactly
+                # what was consumed
+                meta=lambda: (self.pipeline.last_superstep_plan,
+                              self.pipeline.splitter_state()),
                 depth=self.engine.prefetch_depth)
         source = self._prefetcher
         for i in range(supersteps):
@@ -387,11 +415,14 @@ class StreamingDriver:
             if source is not None:
                 staged = next(source)
                 counters = source.counters
-                used_plan = source.meta
+                used_plan, split_state = source.meta or (None, None)
             else:
                 staged = stage_batch(self._host_superstep(), self.device)
                 counters = self.pipeline.counters()
                 used_plan = self.pipeline.last_superstep_plan
+                split_state = self.pipeline.splitter_state()
+            if split_state is not None:
+                self._last_splitter_state = split_state
             # after a bucket or membership switch the ring may still drain
             # supersteps dealt at the old width/cohort: each runs through the
             # superstep of the (bucket, cohort) that DEALT it (their samples
@@ -409,9 +440,32 @@ class StreamingDriver:
             metrics = dict(zip(names, fetched))
             wall_s = max(self.clock() - t0, 1e-12)
             rec = self._observe(metrics, wall_s, counters, used_plan)
+            if self._publisher is not None:
+                snap = self._publisher.maybe_publish(
+                    self.state, self._supersteps_done, aux=self._publish_aux())
+                rec["published_version"] = snap.version if snap else None
+            if self._snapshotter is not None:
+                ck = self._snapshotter.maybe_snapshot(self)
+                rec["checkpoint"] = ck["step"] if ck else None
             if log_fn and (i % log_every == 0 or i == supersteps - 1):
                 log_fn(rec)
         return self.state, self.history
+
+    def _publish_aux(self) -> Optional[torch.Tensor]:
+        """The publisher extract's aux: a [N] f32 membership mask on the
+        device for decentralized runs (consensus mean over *active* nodes),
+        None in exact mode. Cached per membership."""
+        if not self.decentralized:
+            return None
+        mem = self._membership
+        mask = self._pub_masks.get(mem)
+        if mask is None:
+            mask = (torch.ones(self.n_nodes, dtype=torch.float32)
+                    if mem is None else torch.as_tensor(
+                        np.asarray(mem.active, np.float32)))
+            mask = mask.to(self.device)
+            self._pub_masks[mem] = mask
+        return mask
 
     # ---------------------------------------------------------- membership
 
@@ -490,10 +544,13 @@ class StreamingDriver:
             self.state = self.state._replace(opt=opt._replace(step=steps))
 
     def close(self) -> None:
-        """Stop the prefetch thread (idempotent)."""
+        """Stop the prefetch thread and flush/stop the snapshot writer
+        (idempotent)."""
         if self._prefetcher is not None:
             self._prefetcher.close()
             self._prefetcher = None
+        if self._snapshotter is not None:
+            self._snapshotter.close()
 
     def __enter__(self) -> "StreamingDriver":
         return self

@@ -40,8 +40,9 @@ state with the node axis keeps one step per node (a tuple of ints), and
 only the active nodes' steps advance, so a node that rejoins without a
 sync takes Adam's bias correction at its own step, as in the reference.
 
-Not here yet (they raise, naming their slice): a device mesh and the
-publisher's `publish_extract`.
+`publish_extract` maps the live state to the params a serving replica
+loads (`serve.publisher.SnapshotPublisher`): the consensus mean over the
+active nodes. A device mesh is not here yet (it raises, naming its slice).
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ from repro_torch.core.averaging import (average_and_error,
                                         ef_average_and_error, make_gossip_mix,
                                         resolve_packed)
 from repro_torch.core.mixing import ScheduledMixOp
-from repro_torch.core.packing import tree_leaves, tree_map
+from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
 from repro_torch.core.quantize import STOCHASTIC
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import registry
@@ -110,6 +111,42 @@ def replicate_for_nodes(state: TrainState, n_nodes: int) -> TrainState:
         step=(opt.step,) * n_nodes, m=tree_map(rep, opt.m), v=tree_map(rep, opt.v),
         master=tree_map(rep, opt.master),
         ef_residual=tree_map(rep, opt.ef_residual)))
+
+
+def publish_extract(n_nodes: Optional[int] = None) -> Callable:
+    """Extract fn for `serve.publisher.SnapshotPublisher`: map the live
+    state to the params a serving replica should load, in the port's own
+    parameter structure (`ContinuousBatchingEngine.poll` serves it as it
+    is).
+
+    Exact-averaging runs (`n_nodes=None`) publish `state.params` as they
+    are. A decentralized run passes `n_nodes` and a [N] float membership
+    mask as the publisher's `aux`: every tensor leaf whose leading dimension
+    is N is reduced to the *consensus iterate*, the mask-weighted mean over
+    the active nodes (what eq. 17's averaging drives every node toward), so
+    dropped nodes' stale rows never reach the served weights. The mean
+    accumulates in f32 and is cast to the leaf's dtype, as the reference's
+    `tensordot(w_f32, p).astype(p.dtype)`; it runs leaf by leaf and node by
+    node, so its f32 temporary is one node's row of one leaf."""
+    @torch.no_grad()
+    def extract(state, mask=None):
+        params = state.params if hasattr(state, "params") else state
+        if n_nodes is None or mask is None:
+            return params
+        w = mask.float() / mask.float().sum()
+
+        def consensus(p):
+            if p.dim() == 0 or p.shape[0] != n_nodes:
+                return p
+            acc = torch.zeros(p.shape[1:], dtype=torch.float32,
+                              device=p.device)
+            for i in range(n_nodes):
+                acc.addcmul_(p[i], w[i])
+            return acc.to(p.dtype)
+
+        return map_tensors(consensus, params)
+
+    return extract
 
 
 def _rebuild(like: Tree, leaves) -> Tree:

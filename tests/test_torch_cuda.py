@@ -862,3 +862,125 @@ def test_cuda_error_feedback_matches_the_cpu(cuda, quant, dtype, rtol):
     for part in (0, 1):
         for a, b in zip(tree_leaves(outs[0][part]), tree_leaves(outs[1][part])):
             _close(a.cpu(), b, rtol)
+
+
+# ---------------------------------------------------------------------------
+# Durability and publication on the card: the snapshotter's pinned staging
+# and the publisher's copies, ordered on the training stream
+# ---------------------------------------------------------------------------
+
+def _stub_driver(state, step=1):
+    """What `RunSnapshotter.maybe_snapshot` reads of a driver."""
+    import types
+
+    import numpy as np
+
+    from repro_torch.configs.base import StreamConfig
+    from repro_torch.core import rates
+    from repro_torch.data.pipeline import StreamingPipeline
+
+    pipe = StreamingPipeline(
+        lambda rng, n: {"x": np.zeros((n, 2), np.float32)},
+        StreamConfig(), n_nodes=1, rounds_R=1, batch=4)
+    return types.SimpleNamespace(
+        state=state, pipeline=pipe, _supersteps_done=step,
+        _last_splitter_state=None, _last_round_s=None, _sig_seen={},
+        _hysteresis=rates.BucketHysteresis(2), _estimator=None,
+        _straggler=None, _membership=None, _publisher=None)
+
+
+def test_cuda_snapshot_holds_the_values_from_before_an_in_place_update(
+        cuda, tmp_path):
+    """The D2H copy of a 256 MB leaf is still in flight when an in-place
+    update of it is enqueued on the same stream: the checkpoint holds the
+    values from before the update."""
+    from repro_torch.train import checkpoint
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    w = torch.randn(64 << 20, device=cuda)
+    before = w.to("cpu", copy=True)
+    d = _stub_driver({"w": w})
+    with RunSnapshotter(str(tmp_path), every=1, overhead_budget=0) as sn:
+        assert sn.maybe_snapshot(d) is not None
+        w.mul_(0.0).add_(7.0)
+        sn.flush()
+    assert sn.stats.failures == 0 and sn.stats.saves == 1
+    out = checkpoint.restore(checkpoint.step_dir(str(tmp_path), 1),
+                             {"w": torch.zeros_like(w)})
+    assert out["w"].device.type == "cuda"
+    assert torch.equal(out["w"].cpu(), before)
+    assert bool((w == 7.0).all())
+
+
+def test_cuda_published_snapshot_is_not_changed_by_the_next_superstep(cuda):
+    """An exact-mode LM run (the optimizer writes the parameters in place)
+    publishes its parameters through the clone; the next superstep leaves
+    the published tensors as they were."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.data.lm import MarkovTokenStream
+    from repro_torch.serve.publisher import SnapshotPublisher
+    from repro_torch.train import trainer
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    cfg = dataclasses.replace(reduced(get_config("granite-8b"), layers=1,
+                                      d_model=64), vocab_size=64)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                    averaging=AveragingConfig("exact", 1), optimizer="adam",
+                    learning_rate=1e-2, param_dtype="float32")
+    state = trainer.init_state(run, torch.Generator(device=cuda).manual_seed(0))
+    data = MarkovTokenStream(64, seed=0)
+
+    def sample(rng, n):
+        toks = data.sample(rng, n, 17)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    pub = SnapshotPublisher(overhead_budget=0.0)
+    with StreamingDriver(run, None, state, sample, batch=4, n_nodes=1,
+                         publisher=pub, device=cuda,
+                         engine=EngineConfig(superstep=1, prefetch_depth=1,
+                                             replan_every=0)) as drv:
+        state, _ = drv.run(1)
+        snap = pub.snapshot()
+        kept = [t.clone() for t in tree_leaves(snap.params)]
+        live = tree_leaves(state.params)
+        assert all(a.data_ptr() != b.data_ptr() for a, b in
+                   zip(tree_leaves(snap.params), live))
+        state, _ = drv.run(1)
+    torch.cuda.synchronize()
+    assert pub.version == 2 and pub._back is snap
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(snap.params), kept))
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(kept, tree_leaves(state.params)))
+
+
+def test_cuda_bf16_leaf_round_trips_through_pinned_staging(cuda, tmp_path):
+    """A bf16 leaf (every finite pattern's neighbours, infinities, a NaN)
+    goes card -> pinned host buffer -> `<V2` file -> card bit for bit."""
+    import numpy as np
+
+    from repro_torch.train import checkpoint
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    w = bits.view(torch.bfloat16).to(cuda).reshape(256, 256)
+    d = _stub_driver({"w": w, "t": 3})
+    with RunSnapshotter(str(tmp_path), every=1, overhead_budget=0,
+                        block=True) as sn:
+        sn.maybe_snapshot(d)
+    path = checkpoint.step_dir(str(tmp_path), 1)
+    ent = checkpoint.load_manifest(path)["leaves"]["w"]
+    assert ent["dtype"] == "bfloat16" and ent["shape"] == [256, 256]
+    raw = np.load(f"{path}/{ent['file']}")
+    assert raw.dtype == np.dtype("V2")
+    assert raw.tobytes() == bits.numpy().tobytes()
+    out = checkpoint.restore(path, {"w": torch.zeros_like(w), "t": 0})
+    assert out["t"] == 3
+    assert torch.equal(out["w"].view(torch.int16).cpu(),
+                       bits.reshape(256, 256))

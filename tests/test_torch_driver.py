@@ -35,7 +35,10 @@ from repro_torch.core import krasulina, problems
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.data.pipeline import DevicePrefetcher, StreamingPipeline
 from repro_torch.data.synthetic import make_pca_host_sampler, make_pca_stream
+from repro_torch.serve.publisher import SnapshotPublisher
+from repro_torch.train import checkpoint
 from repro_torch.train.driver import EngineConfig, StreamingDriver
+from repro_torch.train.snapshot import RunSnapshotter
 
 
 class _FakeClock:
@@ -267,29 +270,78 @@ def test_entry_points_without_device_need_the_card():
             call()
 
 
+def _pca_driver(**kw):
+    """FIG7 D-Krasulina on the driver, N = 2, ring R = 1, K = 2."""
+    avg = AveragingConfig(mode="gossip", rounds=1)
+    w0 = np.random.default_rng(0).standard_normal(FIG7.dim)
+    w0 = (w0 / np.linalg.norm(w0)).astype(np.float32)
+    return StreamingDriver(
+        PCARunConfig(averaging=avg), None,
+        krasulina.init_krasulina_state(w0, avg, 2, device="cpu"),
+        make_pca_host_sampler(make_pca_stream(FIG7, device="cpu")),
+        superstep_builder=krasulina.krasulina_superstep_builder(
+            avg, 2, lambda t: 10.0 / t, device="cpu"),
+        n_nodes=2, batch=10, device="cpu",
+        engine=EngineConfig(superstep=2, prefetch_depth=0), **kw)
+
+
+def _snapshot_at(root, supersteps):
+    with _pca_driver(snapshotter=RunSnapshotter(
+            root, every=1, overhead_budget=0, block=True)) as drv:
+        drv.run(supersteps)
+    return root
+
+
+def _takes_effect(name, value):
+    with _pca_driver(**{name: value}) as drv:
+        if name == "resume_from":
+            assert drv.resumed_from == checkpoint.step_dir(value, 1)
+            assert drv._supersteps_done == 1 and drv.state.t == 2
+        state, hist = drv.run(2)
+    if name == "publisher":
+        assert [r["published_version"] for r in hist] == [1, 2]
+        torch.testing.assert_close(value.snapshot().params.w,
+                                   state.w.mean(0))
+    elif name == "snapshotter":
+        assert [r["checkpoint"] for r in hist] == [1, 2]
+        assert checkpoint.list_steps(value.root) == [1, 2]
+        assert value._closed  # the driver's close() closed it
+    else:
+        assert state.t == 6 and [r["round"] for r in hist] == [4, 6]
+
+
 @pytest.mark.parametrize("kwargs,match", [
     ({"mesh": object()}, "sharded"),
     # elastic membership (faults, a straggler policy) needs gossip averaging
     ({"faults": FaultSchedule.parse("death:1@1", 2)}, "elastic"),
     ({"engine": EngineConfig(governor=GovernorConfig(
         straggler_policy="drop"))}, "elastic"),
-    ({"publisher": object()}, "serving"),
-    ({"snapshotter": object()}, "durability"),
-    ({"resume_from": "ckpt"}, "durability"),
+    # the serving and durability slices' arguments: they take effect now
+    ({"publisher": lambda root: SnapshotPublisher(overhead_budget=0.0)},
+     "serving"),
+    ({"snapshotter": lambda root: RunSnapshotter(
+        root, every=1, overhead_budget=0, block=True)}, "durability"),
+    ({"resume_from": lambda root: _snapshot_at(root, 1)}, "durability"),
     # no superstep: the LM trainer's builder, whose error feedback needs
     # gossip averaging
     ({"superstep_fn": None, "run_cfg": PCARunConfig(averaging=AveragingConfig(
         mode="exact", error_feedback="grads"))}, "error-feedback"),
 ])
-def test_driver_later_slices_raise(kwargs, match):
+def test_driver_later_slices_raise(kwargs, match, tmp_path):
     """Later slices raise NotImplementedError naming theirs; the elastic
     slice's configurations that the reference refuses raise its
-    ValueError."""
+    ValueError. The serving and durability arguments (`publisher`,
+    `snapshotter`, `resume_from`), refused until their slice, are built
+    here and checked to take effect."""
+    if match in ("serving", "durability"):
+        (name, make), = kwargs.items()
+        _takes_effect(name, make(str(tmp_path)))
+        return
     args = dict(mesh=None, superstep_fn=lambda s, b: (s, {}),
                 run_cfg=PCARunConfig())
     args.update(kwargs)
     mesh, run_cfg = args.pop("mesh"), args.pop("run_cfg")
-    later = match in ("sharded", "serving", "durability")
+    later = match == "sharded"
     with pytest.raises(NotImplementedError if later else ValueError,
                        match=match):
         StreamingDriver(run_cfg, mesh, None, lambda rng, n: {},

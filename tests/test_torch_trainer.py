@@ -47,7 +47,7 @@ from repro_torch.core.mixing import Membership
 from repro_torch.core.packing import tree_leaves
 from repro_torch.data.lm import MarkovTokenStream
 from repro_torch.launch import train as launch_train
-from repro_torch.train import trainer
+from repro_torch.train import checkpoint, trainer
 from repro_torch.train.driver import EngineConfig, StreamingDriver
 
 # one intra-op thread: pytest-xdist runs several workers on the machine's
@@ -338,11 +338,50 @@ def test_launcher_runs_on_the_cpu(capsys):
     assert "plan: B=8 mu=0" in out and "nodes=1 K=2" in out
     rounds = [line for line in out.splitlines() if line.startswith("round")]
     assert len(rounds) == 2 and "consensus_err" in rounds[0]
-    # later slices still raise; a fault on a node the run does not have,
+    # --publish publishes every superstep (the governor is off at budget 0)
+    launch_train.main(["--arch", "granite-8b", "--reduced", "--device", "cpu",
+                       "--steps", "4", "--superstep", "2", "--averaging",
+                       "gossip", "--rounds", "2", "--batch", "8", "--seq",
+                       "16", "--publish", "--publish-budget", "0"])
+    out = capsys.readouterr().out
+    assert "publisher: v2 publishes=2 skipped(budget=0 interval=0)" in out
+    # a later slice still raises; a fault on a node the run does not have,
     # and elastic membership without gossip averaging, are refused
-    for flag, exc in ((["--publish"], NotImplementedError),
+    for flag, exc in ((["--production-mesh"], NotImplementedError),
                       (["--faults", "death:1@5-12"], ValueError),
                       (["--straggler-policy", "drop"], ValueError)):
         with pytest.raises(exc):
             launch_train.main(["--arch", "granite-8b", "--reduced",
                                "--device", "cpu", *flag])
+
+
+def test_launcher_checkpoint_and_resume(tmp_path, capsys):
+    """`--checkpoint DIR --checkpoint-every 1 --checkpoint-budget 0` for 2
+    supersteps, then `--resume DIR` for 2 more: the resumed rounds print
+    the uninterrupted run's losses, and a `resumed:` line. Without
+    `--checkpoint-every`, `--checkpoint` saves the final state once."""
+    base = ["--arch", "granite-8b", "--reduced", "--device", "cpu",
+            "--superstep", "2", "--averaging", "gossip", "--rounds", "2",
+            "--nodes", "2", "--batch", "4", "--seq", "16",
+            "--replan-every", "0"]
+    root = str(tmp_path / "ck")
+
+    def rounds(out):
+        return [line.split("(")[0] for line in out.splitlines()
+                if line.startswith("round")]
+
+    launch_train.main(base + ["--steps", "8"])
+    whole = rounds(capsys.readouterr().out)
+    launch_train.main(base + ["--steps", "4", "--checkpoint", root,
+                              "--checkpoint-every", "1",
+                              "--checkpoint-budget", "0"])
+    out = capsys.readouterr().out
+    assert "snapshotter: saves=2" in out and "failures=0" in out
+    launch_train.main(base + ["--steps", "4", "--resume", root])
+    out = capsys.readouterr().out
+    assert f"resumed: {root}/step_00000002 (superstep 2)" in out
+    assert len(whole) == 4 and rounds(out) == whole[2:]
+    final = str(tmp_path / "final")
+    launch_train.main(base + ["--steps", "2", "--checkpoint", final])
+    assert f"checkpoint -> {final}" in capsys.readouterr().out
+    assert checkpoint.loaded_step(final) == 2 and checkpoint.is_valid(final)
