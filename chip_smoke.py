@@ -117,6 +117,30 @@
    continuations within (h0)'s bounds, and the card resume equal to the
    uninterrupted card run bit for bit where two uninterrupted card runs
    repeat their bits.
+   (m0) the six attention-based archs beside granite-8b (phi4-mini-3.8b,
+   starcoder2-15b, chameleon-34b, minicpm3-4b, qwen2-moe-a2.7b,
+   llama4-scout-17b-a16e; llama4 with 4 layers, its iRoPE period), reduced
+   and in f32 with the same parameters on the card and on the CPU: prefill
+   logits within 1e-3, greedy tokens equal over 8 steps, `loss_fn`'s ce and
+   aux within rtol 1e-4, the f32 flash kernel once per layer per prefill
+   (none for minicpm3, whose MLA attends through `blockwise_attention`);
+   (m1) qwen2-moe-a2.7b at full width and depth (24 layers, 14.00 B
+   parameters, bf16, seeded random weights): static `generate` at batch 4,
+   prompt 512, 32 new tokens, then 16 requests through 8 slots of the
+   continuous engine; 24 wgmma flash launches per prefill, finite logits,
+   tokens in the vocabulary; prints prefill tokens/s, decode ms per step
+   (wall, and the card's from a graph), peak GiB, and one prefill layer's
+   attention and MoE FFN on the card;
+   (m2) phi4-mini-3.8b (32 layers) and minicpm3-4b (62, no flash launch)
+   at full depth, batch 4, prompt 512; starcoder2-15b cut to 2 layers,
+   batch 1, prompt 4608, with the ring cache and with the full cache (the
+   same greedy tokens over 16 decode steps); llama4-scout cut to 4 layers,
+   batch 1, prompt 8704; chameleon-34b cut to 2 layers, batch 4, prompt
+   512; each at full width in bf16, a wgmma flash launch per GQA layer per
+   prefill;
+   (m3) (h0)'s trainer on reduced qwen2-moe in f32 (4 nodes, ring R = 2,
+   Adam, 3 rounds) on the card and on the CPU: (h0)'s bounds, 3
+   `gossip_mix` launches, the router's aux loss > 0.
 4. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes) against its bound, its plain version and,
@@ -191,6 +215,16 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:85
 GOSSIP_NODES = (1, 5, 10, 16, 64)
 GOSSIP_ROUNDS_NODES = (65, 100, 256)
 GRANITE_LAYERS, GEN = 36, 32
+# the attention model families (m0)-(m3): the six archs beside granite-8b,
+# and (m2)'s (arch, layers or 0 for full depth, batch, prompt): prompts past
+# starcoder2's 4096-token window and llama4's 8192-token chunk
+M_ARCHS = ("phi4-mini-3.8b", "starcoder2-15b", "chameleon-34b", "minicpm3-4b",
+           "qwen2-moe-a2.7b", "llama4-scout-17b-a16e")
+M2_CASES = [("phi4-mini-3.8b", 0, 4, 512), ("minicpm3-4b", 0, 4, 512),
+            ("starcoder2-15b", 2, 1, 4608),
+            ("llama4-scout-17b-a16e", 4, 1, 8704),
+            ("chameleon-34b", 2, 4, 512)]
+M2_GEN = 17  # the prefill's token and 16 decode steps
 # the trainer path (h): 4 nodes, ring R = 2, K = 2 rounds per superstep,
 # 4 supersteps, 8 sequences of 512 tokens per round, granite-8b cut to 2
 # layers
@@ -297,6 +331,8 @@ def main() -> int:
                                                       xi_clusters,
                                                       xi_gossip_route,
                                                       xi_route)
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
     from repro_torch.models import registry
     from repro_torch.serve import engine
     from repro_torch.optim import make_optimizer
@@ -2151,6 +2187,312 @@ def main() -> int:
     require(sn.stats.failures == 0, f"{label}: snapshotter {sn.stats}")
     del base, whole, res, st
     shutil.rmtree(ck_root, ignore_errors=True)
+
+    # ------------------------------- the attention model families (m0)-(m3)
+    def model_params(params):
+        return sum(t.numel() for t in tree_leaves(params))
+
+    def layers_flash(cfg_):
+        """Flash launches of one prefill of more than 16 tokens: one per GQA
+        layer (MLA attends through `blockwise_attention`)."""
+        return 0 if cfg_.mla is not None else cfg_.num_layers
+
+    # (m0) each arch reduced, in f32, the same parameters on the card and on
+    # the CPU's plain path (llama4: 4 layers, its iRoPE period, so that the
+    # NoPE global layer runs)
+    for arch in M_ARCHS:
+        cfg_m = reduced(get_config(arch), layers=4 if arch.startswith(
+            "llama4") else 2)
+        p_cpu = registry.init_params(torch.Generator().manual_seed(0), cfg_m)
+        p_dev = convert.tree_map(lambda t: t.to(dev), p_cpu)
+        batch = registry.synth_batch(torch.Generator().manual_seed(1), cfg_m,
+                                     2, 24, mode="train")
+        runs = {}
+        for side, d_, params_ in (("card", dev, p_dev), ("cpu", cpu, p_cpu)):
+            b = {k: v.to(d_) for k, v in batch.items()}
+            ops.reset_launches()
+            logits, _ = registry.prefill(
+                params_, cfg_m, {"tokens": b["tokens"]},
+                registry.init_cache(cfg_m, 2, 32, torch.float32, device=d_))
+            toks = engine.generate(params_, cfg_m, {"tokens": b["tokens"]},
+                                   32, 8, dtype=torch.float32).tolist()
+            _, met = registry.loss_fn(params_, cfg_m, b)
+            flash = (layers_flash(cfg_m) * 2, dict(ops.flash_launches))
+            counts = (take_counts(f"(m0) {arch}", [], {
+                "flash_attention": flash[0], "gossip_mix": 0,
+                "gossip_mix_quant": 0, "krasulina_xi": 0,
+                "krasulina_xi_gossip": 0}) if side == "card" else None)
+            runs[side] = (logits.cpu(), toks, float(met["ce"]),
+                          float(met["aux"]), counts, flash)
+        (lc, tc_, cc, ac, counts, flash), (lp, tp_, cp, ap, _, _) = \
+            runs["card"], runs["cpu"]
+        err = (lc - lp).abs().max().item()
+        ce_err, aux_err = abs(cc - cp) / abs(cp), abs(ac - ap) / max(
+            abs(ap), 1e-30)
+        print(f"main (m0) {arch} reduced f32 ({cfg_m.num_layers} layers) card "
+              f"vs CPU: prefill logits max_abs_err={err:.3e} (limit 1e-3); "
+              f"greedy tokens equal over 8 steps {tc_ == tp_}; loss ce "
+              f"{cc:.6f} (CPU {cp:.6f}, rel err {ce_err:.2e}) aux {ac:.6f} "
+              f"(CPU {ap:.6f}, rel err {aux_err:.2e}) (limit 1e-4); flash "
+              f"launches {counts['flash_attention']} = "
+              f"{layers_flash(cfg_m)} x 2 prefills, by kernel "
+              f"{json.dumps(flash[1])}")
+        require(err <= 1e-3, f"(m0) {arch}: prefill logits disagree")
+        require(tc_ == tp_, f"(m0) {arch}: greedy tokens differ")
+        require(ce_err <= 1e-4 and aux_err <= 1e-4,
+                f"(m0) {arch}: loss_fn disagrees")
+        require(flash[1]["f32"] == flash[0], f"(m0) {arch}: flash launches "
+                                             f"by kernel {flash[1]}")
+        require((ac > 0) == (cfg_m.moe is not None), f"(m0) {arch}: aux {ac}")
+        del p_cpu, p_dev, runs
+
+    def serve_arch(label, cfg_s, B, P, gen, *, dtype=torch.bfloat16,
+                   card_time=False, params=None):
+        """Seeded random weights, a static prefill of B prompts of P tokens
+        and gen - 1 greedy decode steps (the `generate` path, timed apart);
+        every prefill launches the wgmma flash kernel once per GQA layer and
+        nothing else runs. Returns (params, tokens [B, gen], stats)."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if params is None:
+            params = registry.init_params(
+                torch.Generator(device=dev).manual_seed(0), cfg_s, dtype)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = model_params(params)
+        prompt = registry.synth_batch(torch.Generator(device=dev).manual_seed(
+            1), cfg_s, B, P, mode="prefill")
+        ops.reset_launches()
+        st = engine.init_serve(cfg_s, B, P + gen, dtype, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = registry.prefill(params, cfg_s, prompt, st.cache)
+        st = engine.ServeState(cache, logits[:, -1:].argmax(-1), P)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        del logits
+        toks = [st.last_tokens]
+        t0 = time.perf_counter()
+        for _ in range(gen - 1):
+            st, t = engine.serve_step(params, cfg_s, st)
+            toks.append(t)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        out = torch.cat(toks, dim=1)
+        n_flash = layers_flash(cfg_s)
+        counts = take_counts(label, ["flash_attention"] if n_flash else [], {
+            "flash_attention": n_flash, "gossip_mix": 0,
+            "gossip_mix_quant": 0, "krasulina_xi": 0,
+            "krasulina_xi_gossip": 0})
+        variants = dict(ops.flash_launches)
+        require(variants == {"wgmma": n_flash, "mma_sync": 0, "f32": 0},
+                f"{label}: flash launches by kernel {variants}")
+        stats = {"params_B": n_params / 1e9, "init_s": init_s,
+                 "prefill_ms": prefill_s * 1e3,
+                 "prefill_tokens_per_s": B * P / prefill_s,
+                 "decode_ms_per_step": decode_s / max(gen - 1, 1) * 1e3,
+                 "decode_tokens_per_s": B * (gen - 1) / decode_s,
+                 "flash_by_kernel": variants, "launches": counts}
+        if card_time:
+            # the card's own time: one prefill and one decode step replayed
+            # from a CUDA graph (no host launch gaps)
+            stats["card_prefill_ms"] = time_ms(lambda: registry.prefill(
+                params, cfg_s, prompt, st.cache), reps=2, replays=3)
+            stats["card_decode_ms"] = time_ms(lambda: registry.decode_step(
+                params, cfg_s, st.last_tokens, st.cache, st.index), reps=5,
+                replays=3)
+            ops.reset_launches()  # the graph's captures are timing, not path
+        stats["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        ok_toks = tuple(out.shape) == (B, gen) and bool(
+            ((out >= 0) & (out < cfg_s.vocab_size)).all())
+        require(finite, f"{label}: prefill logits not finite")
+        require(ok_toks, f"{label}: tokens of the wrong shape or outside the "
+                         f"vocabulary")
+        del st, cache, toks, prompt
+        return params, out, stats
+
+    def fmt(stats):
+        return " ".join(f"{k}={v:.6g}" if isinstance(v, float) else
+                        f"{k}={json.dumps(v)}" for k, v in stats.items())
+
+    # (m1) qwen2-moe-a2.7b at full width and depth, bf16, seeded weights:
+    # static generate, then the continuous engine
+    cfg_q = get_config("qwen2-moe-a2.7b")
+    require(cfg_q.num_layers == 24, "qwen2-moe-a2.7b depth changed")
+    params, out, stats = serve_arch("(m1) static", cfg_q, 4, 512, GEN,
+                                    card_time=True)
+    print(f"main (m1) qwen2-moe-a2.7b: {stats['params_B']:.3f} B "
+          f"parameters, bf16, {cfg_q.num_layers} layers, static generate B=4 "
+          f"prompt=512 gen={GEN}: {fmt(stats)}; card {smi}")
+    require(abs(stats["params_B"] - 14.004) < 0.01,
+            f"(m1) {stats['params_B']} B parameters, expected 14.00")
+    # where one prefill's time goes: layer 0's attention and MoE FFN at the
+    # prefill's shape, and the vocab projection, each replayed from a graph
+    blk = params["blocks"][0]
+    h = torch.randn(4, 512, cfg_q.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.arange(512, device=dev)[None].expand(4, 512)
+    phases = {
+        "attention": time_ms(lambda: L.apply_attention(blk["attn"], cfg_q, h,
+                                                       pos), reps=5),
+        "moe": time_ms(lambda: M.apply_moe(blk["ffn"], cfg_q, h), reps=5),
+        "norms": 2 * time_ms(lambda: L.apply_norm(blk["norm1"], h,
+                                                  cfg_q.norm), reps=5),
+        "unembed": time_ms(lambda: L.unembed_logits(
+            params.get("unembed", params["embed"]), h), reps=2),
+    }
+    # the MoE FFN cut into its parts: the router (logits, softmax, top-k),
+    # the routed experts' three batched matmuls over every capacity slot,
+    # and the shared experts; the rest of `apply_moe` dispatches and
+    # combines
+    ffn, m_q = blk["ffn"], cfg_q.moe
+    T = 4 * 512
+    E, K, G = m_q.num_experts, m_q.top_k, T // M.group_size(T)
+    C = M.capacity(m_q, M.group_size(T))
+    xt = h.reshape(T, cfg_q.d_model)
+    xe = torch.randn(E, G * C, cfg_q.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    parts = {
+        "router": time_ms(lambda: torch.topk(torch.softmax(
+            xt.float() @ ffn["router"].to(h.dtype).float(), -1), K, -1),
+            reps=5),
+        "experts": time_ms(lambda: torch.bmm(F.silu(torch.bmm(
+            xe, ffn["we_gate"])) * torch.bmm(xe, ffn["we_up"]),
+            ffn["we_down"]), reps=5),
+        "shared": time_ms(lambda: L.apply_ffn(ffn["shared"], h, "swiglu"),
+                          reps=5),
+    }
+    parts["dispatch_combine"] = phases["moe"] - sum(parts.values())
+    eff = m_q.expert_d_ff
+    expert_flops = 2 * 3 * E * G * C * cfg_q.d_model * eff
+    ops.reset_launches()
+    layer_ms = phases["attention"] + phases["moe"] + phases["norms"]
+    print(f"main (m1) prefill phases on the card, ms (B=4 S=512, one layer of "
+          f"24; CUDA graph replays): {json.dumps(phases)}; per layer "
+          f"{layer_ms:.4f}, x 24 + unembed = "
+          f"{24 * layer_ms + phases['unembed']:.3f} against the card's "
+          f"prefill {stats['card_prefill_ms']:.3f}; the MoE FFN's parts "
+          f"{json.dumps(parts)} (C={C} slots of {E} experts for {T * K} "
+          f"assignments; the experts' matmuls {expert_flops / 1e9:.1f} GFLOP, "
+          f"{expert_flops / parts['experts'] / 1e9:.1f} TFLOP/s, bound "
+          f"{expert_flops / BF16_FLOPS_PER_S * 1e3:.4f} ms)")
+    del h, pos, blk, ffn, xt, xe
+    rng = np.random.default_rng(2)
+    lens = rng.integers(128, 513, size=16)
+    prompts = [rng.integers(0, cfg_q.vocab_size, size=int(n)) for n in lens]
+    torch.cuda.reset_peak_memory_stats()
+    eng = engine.ContinuousBatchingEngine(cfg_q, params, slots=8,
+                                          max_len=512 + GEN,
+                                          dtype=torch.bfloat16)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, GEN) for p in prompts]
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = take_counts("(m1) continuous", ["flash_attention"], {
+        "flash_attention": 24 * len(prompts), "gossip_mix": 0,
+        "gossip_mix_quant": 0, "krasulina_xi": 0, "krasulina_xi_gossip": 0})
+    variants = dict(ops.flash_launches)
+    done = [eng.result(r) for r in rids]
+    ok = all(len(r.tokens) == GEN and all(0 <= t < cfg_q.vocab_size
+                                          for t in r.tokens) for r in done)
+    print(f"main (m1) continuous batching slots=8 requests={len(prompts)} "
+          f"prompts {int(lens.min())}-{int(lens.max())} (sum "
+          f"{int(lens.sum())}) gen={GEN}: {wall:.3f} s, "
+          f"{len(prompts) * GEN / wall:.1f} generated tokens/s, "
+          f"{eng.decode_steps} decode steps ({wall / eng.decode_steps * 1e3:.3f}"
+          f" ms per step, prefills included); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches={json.dumps(counts)} by kernel {json.dumps(variants)}")
+    require(ok, "(m1) a request lost tokens or left the vocabulary")
+    require(variants == {"wgmma": 24 * len(prompts), "mma_sync": 0, "f32": 0},
+            f"(m1) continuous: flash launches by kernel {variants}")
+    del params, out, eng, done
+    torch.cuda.empty_cache()
+
+    # (m2) the other five at full width: phi4-mini and minicpm3 at full
+    # depth, starcoder2 (ring and full cache), llama4-scout (one iRoPE
+    # period) and chameleon cut in depth, each prompt past its window or
+    # chunk
+    for arch, layers, B, P in M2_CASES:
+        cfg_s = get_config(arch)
+        if layers:
+            cfg_s = dataclasses.replace(cfg_s, num_layers=layers)
+        label = f"(m2) {arch}"
+        params, out, stats = serve_arch(label, cfg_s, B, P, M2_GEN)
+        print(f"main {label}: {cfg_s.num_layers} layers, "
+              f"{stats['params_B']:.3f} B parameters, bf16, B={B} prompt={P} "
+              f"gen={M2_GEN}: {fmt(stats)}")
+        if arch == "starcoder2-15b":
+            ring_cfg = dataclasses.replace(cfg_s, ring_buffer_cache=True)
+            _, ring_out, ring_stats = serve_arch(f"{label} ring", ring_cfg,
+                                                 B, P, M2_GEN, params=params)
+            cache_len = registry.init_cache(ring_cfg, 1, P + M2_GEN,
+                                            device=dev)[0]["k"].shape[1]
+            same = torch.equal(ring_out, out)
+            print(f"main {label} ring cache ({cache_len} slots of "
+                  f"{P + M2_GEN}): {fmt(ring_stats)}; greedy tokens equal to "
+                  f"the full cache's over {M2_GEN} steps: {same}")
+            require(cache_len == cfg_s.sliding_window,
+                    f"{label}: ring of {cache_len} slots")
+            require(same, f"{label}: the ring and the full cache give "
+                          f"different tokens")
+            del ring_out
+        del params, out
+        torch.cuda.empty_cache()
+
+    # (m3) the decentralized trainer on reduced qwen2-moe in f32: (h0)'s run
+    # (4 nodes, ring R = 2, Adam at 1e-4, 3 rounds) on the card and on the
+    # CPU from the same state and draws, on the exact wire
+    cfg_r3 = reduced(get_config("qwen2-moe-a2.7b"))
+    run = RunConfig(model=cfg_r3, shape=SHAPES["train_4k"],
+                    averaging=AveragingConfig("gossip", TRAIN_R, "ring"),
+                    optimizer="adam", learning_rate=H0_LR,
+                    param_dtype="float32")
+    base = trainer.replicate_for_nodes(
+        trainer.init_state(run, torch.Generator().manual_seed(0)), TRAIN_N)
+    data, rng = MarkovTokenStream(cfg_r3.vocab_size, seed=0), \
+        np.random.default_rng(0)
+    batches = [trainer.make_node_batch(draw_tokens(data, rng, 8, 64), TRAIN_N)
+               for _ in range(H0_ROUNDS)]
+    runs = {}
+    for side, d_ in (("card", dev), ("cpu", cpu)):
+        st = on_device(base, d_)
+        step = trainer.build_train_step(run, None, n_nodes=TRAIN_N, device=d_)
+        ops.reset_launches()
+        losses, auxes = [], []
+        for b in batches:
+            st, m = step(st, {k: torch.from_numpy(v).to(d_)
+                              for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            auxes.append(float(m["aux"]))
+        counts = (take_counts("(m3)", ["gossip_mix"], {
+            "gossip_mix": H0_ROUNDS, "gossip_mix_quant": 0,
+            "flash_attention": 0, "krasulina_xi": 0,
+            "krasulina_xi_gossip": 0}) if side == "card" else None)
+        if side == "card":
+            counts["by_nodes"] = take_nodes("(m3)")
+        runs[side] = (losses, auxes, st, counts)
+    (lc, ac, sc, counts), (lp, ap, sp, _) = runs["card"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    d = torch.cat([(a.cpu() - b).abs().ravel() for a, b in
+                   zip(tree_leaves(sc.params), tree_leaves(sp.params))])
+    within = float((d <= 1e-4).float().mean())
+    print(f"main (m3) reduced qwen2-moe f32 (2 layers) N={TRAIN_N} ring "
+          f"R={TRAIN_R} adam exact wire, card vs CPU over {H0_ROUNDS} rounds: "
+          f"losses {json.dumps(lc)} (CPU {json.dumps(lp)}, max rel err "
+          f"{loss_err:.2e}, limit 1e-4); aux {json.dumps(ac)}; parameters "
+          f"within 1e-4: {within:.6f} (limit >= 0.999), max_abs_err "
+          f"{float(d.max()):.3e} (limit {3 * H0_LR * H0_ROUNDS:.1e}); "
+          f"launches={json.dumps(counts)}")
+    require(loss_err <= 1e-4, "(m3) losses disagree")
+    require(within >= 0.999 and float(d.max()) <= 3 * H0_LR * H0_ROUNDS,
+            "(m3) parameters disagree")
+    require(min(ac) > 0, "(m3) the router's aux loss is not > 0")
+    del base, runs, sc, sp, st
 
     # ----------------------------------------------------------------- timing
     def bound(bytes_moved, flops, flops_per_s):

@@ -1,7 +1,9 @@
 """Configs of the port: `base` (copied whole), the paper's PCA and logistic
 regression experiments, and the architecture registry: ``--arch <id>``
 resolves through :func:`get_config`. Every architecture id of the reference
-is known; only the ported ones resolve, the others raise
+is known; the seven attention-based archs resolve (the dense GQA, MLA, MoE
+and early-fusion families), and the SSD, RG-LRU and encoder-decoder archs
+(`mamba2-2.7b`, `recurrentgemma-9b`, `seamless-m4t-medium`) raise
 `NotImplementedError` until their families are ported."""
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ _ARCH_MODULES = {
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "mamba2-2.7b": "mamba2_2_7b",
 }
-_PORTED = ("granite-8b",)
+_PORTED = ("granite-8b", "phi4-mini-3.8b", "starcoder2-15b", "chameleon-34b",
+           "minicpm3-4b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 

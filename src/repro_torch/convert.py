@@ -72,6 +72,10 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+# the optional top-level leaves of an LM tree, beside embed and final_norm
+_TOP_LEAVES = ("frontend_proj", "unembed")
+
+
 def lm_params(tree, *, device: DeviceLike = None,
               node_axis: bool = False) -> Dict[str, Any]:
     """The port's LM parameters from the reference's `init_params` tree with
@@ -80,7 +84,8 @@ def lm_params(tree, *, device: DeviceLike = None,
     Layer r * period + i of the port is `layers[i]` at index r, followed by
     the tail, the order in which the reference's scan runs them. With
     `node_axis`, every leaf leads with the decentralized node axis
-    ([N, n_rep, ...] in "layers"), and so does every port leaf."""
+    ([N, n_rep, ...] in "layers"), and so does every port leaf. The leaves
+    keep their dtypes (a MoE router stays f32 in a bf16 model)."""
     dev = resolve_device(device)
     conv = lambda a: _tensor(a, dev)
     ax = 1 if node_axis else 0
@@ -92,8 +97,9 @@ def lm_params(tree, *, device: DeviceLike = None,
     blocks += [tree_map(conv, block) for block in tree["tail"]]
     out = {"embed": conv(tree["embed"]),
            "final_norm": tree_map(conv, tree["final_norm"]), "blocks": blocks}
-    if "unembed" in tree:
-        out["unembed"] = conv(tree["unembed"])
+    for name in _TOP_LEAVES:
+        if name in tree:
+            out[name] = conv(tree[name])
     return out
 
 
@@ -113,8 +119,9 @@ def lm_tree(params: Dict[str, Any], cfg: ModelConfig,
     out = {"embed": npy(params["embed"]),
            "final_norm": tree_map(npy, params["final_norm"]), "layers": layers,
            "tail": [tree_map(npy, b) for b in blocks[P * n_rep:]]}
-    if "unembed" in params:
-        out["unembed"] = npy(params["unembed"])
+    for name in _TOP_LEAVES:
+        if name in params:
+            out[name] = npy(params[name])
     return out
 
 

@@ -1,1 +1,2 @@
-"""The port's LM assembly: dense GQA decoder (layers, transformer, registry)."""
+"""The port's LM assembly: the attention-based decoders (layers, moe,
+transformer, registry)."""

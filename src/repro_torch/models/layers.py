@@ -1,14 +1,15 @@
-"""Core neural layers of the port's dense GQA decoder: norms, RoPE, masked
-blockwise attention (causal / sliding-window / chunked-local), the GQA
-attention block with a KV cache, the vocab projection and the gated FFN.
+"""Core neural layers of the port's decoders: norms, RoPE, masked blockwise
+attention (causal / sliding-window / chunked-local), the GQA attention block
+with a KV cache (full, or a W-slot ring for sliding-window layers), the MLA
+block with its latent cache, the vocab projection and the gated FFN.
 
 Weights keep the reference's [in, out] layout (`x @ W`), so carrying them
-across is a copy. Prefill attention of more than 16 tokens goes through
+across is a copy. GQA prefill attention of more than 16 tokens goes through
 `kernels.ops.attention` (the Hopper flash kernel on the card, which has no
-backward); every other attention call, and every call of the training loss
-(`train=True`), is the plain, differentiable `blockwise_attention` below,
-where the reference runs jnp code too. Not ported yet (they raise): MLA, the
-ring-buffer cache and cross-attention.
+backward); every other attention call, MLA's included, and every call of
+the training loss (`train=True`), is the plain, differentiable
+`blockwise_attention` below, where the reference runs jnp code too.
+Cross-attention (encoder-decoder) is not ported yet: it raises.
 """
 from __future__ import annotations
 
@@ -230,7 +231,7 @@ def apply_attention(
     attn_mode: str = "causal",  # causal | window | chunk | full (encoder)
     window: int = 0,
     use_rope: bool = True,
-    cache: Optional[Params] = None,  # {"k","v"} [B, S_max, KH, hd]
+    cache: Optional[Params] = None,  # {"k","v"} [B, S_max or W, KH, hd]
     cache_index: Any = None,  # int or 0-dim (write offset of the batch), or
     # a [B] vector (per-slot decode, continuous batching; requires S == 1)
     cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -247,7 +248,9 @@ def apply_attention(
     `blockwise_attention`. `train=True` (the training loss) always runs
     `blockwise_attention`, which autograd differentiates: the flash kernel
     has no backward, in the reference as here, and the reference trains
-    through its jnp `blockwise_attention` too."""
+    through its jnp `blockwise_attention` too. A sliding-window layer whose
+    cache is a ring of W <= window slots (`cfg.ring_buffer_cache`) takes
+    `_ring_attention`."""
     if cross_kv is not None:
         raise NotImplementedError("cross-attention (encoder-decoder) is not "
                                   "ported yet")
@@ -270,7 +273,8 @@ def apply_attention(
 
     if (cache is not None and cfg.ring_buffer_cache and attn_mode == "window"
             and window and cache["k"].shape[1] <= window):
-        raise NotImplementedError("the ring-buffer KV cache is not ported yet")
+        out = _ring_attention(q, k, v, cache, cache_index, window=window)
+        return out.reshape(B, S, H * hd).to(p["wo"].dtype) @ p["wo"], cache
     prefill = cache is None or (isinstance(cache_index, int)
                                 and cache_index == 0)
     if cache is not None:
@@ -300,6 +304,132 @@ def apply_attention(
                                   chunk=eff_chunk)
     out = out.reshape(B, S, H * hd).to(p["wo"].dtype) @ p["wo"]
     return out, cache
+
+
+def _ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cache: Params, cache_index: Any, *,
+                    window: int) -> torch.Tensor:
+    """Attention of a sliding-window layer through its W-slot ring cache
+    (W = min(max_len, window)): position p lives in slot p % W. RoPE is
+    applied before the write, so a slot needs no position and validity is a
+    count. One token (decode, a scalar or a per-slot [B] index) is written
+    to its slot and attends to the min(index + 1, W) valid slots, unmasked.
+    More tokens are a prefill from position 0, as in the reference (which
+    assumes it): causal windowed attention over the fresh k/v, the flash
+    kernel's route for S > 16, then the last W positions stored, rolled by
+    (S - W) % W so that each sits in its slot. Returns [B, S, H, hd]."""
+    B, S = q.shape[:2]
+    W = cache["k"].shape[1]
+    if S == 1:
+        slot = cache_index % W
+        if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+            rows = torch.arange(B, device=q.device)
+            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        else:
+            cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
+            cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
+        kvv = (torch.clamp(cache_index + 1, max=W)
+               if torch.is_tensor(cache_index) else min(cache_index + 1, W))
+        return blockwise_attention(q, cache["k"], cache["v"], causal=False,
+                                   kv_valid=kvv)
+    if S >= FLASH_MIN_SEQ:
+        out = _flash_prefill(q, k, v, window=window, chunk=0)
+    else:
+        out = blockwise_attention(q, k, v, causal=True, window=window)
+    if S >= W:
+        shift = (S - W) % W
+        cache["k"].copy_(torch.roll(k[:, -W:], shift, dims=1))
+        cache["v"].copy_(torch.roll(v[:, -W:], shift, dims=1))
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# MLA (Multi-head Latent Attention) block
+# ---------------------------------------------------------------------------
+
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(gen, (d, m.q_lora_rank), dtype),
+        "wq_b": dense_init(gen, (m.q_lora_rank, H * qk), dtype),
+        "wkv_a": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                            dtype),
+        "wkv_b": dense_init(gen, (m.kv_lora_rank,
+                                  H * (m.qk_nope_head_dim + m.v_head_dim)),
+                            dtype),
+        "wo": dense_init(gen, (H * m.v_head_dim, d), dtype,
+                         fan_in=H * m.v_head_dim),
+        "norm_kv": ones_init(gen, (m.kv_lora_rank,), dtype),
+    }
+
+
+def apply_mla(
+    p: Params,
+    cfg: ModelConfig,
+    x: torch.Tensor,  # [B, S, D]
+    positions: torch.Tensor,  # [B, S]
+    *,
+    attn_mode: str = "causal",
+    window: int = 0,
+    cache: Optional[Params] = None,  # {"ckv": [B,S,rank], "krope": [B,S,1,rope]}
+    cache_index: Any = None,  # as apply_attention's
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Returns (out [B, S, D], cache), the cache updated in place.
+
+    The latent ckv is rms-normed in f32, cast back and scaled by `norm_kv`;
+    the cache holds it and the roped shared key, and every call re-expands
+    the whole cache through `wkv_b` (as the reference does) and attends
+    through `blockwise_attention` with scale 1/sqrt(qk_nope + qk_rope)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    qk_n, qk_r, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(B, S, H, qk_n + qk_r)
+    q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    kv = x @ p["wkv_a"]
+    ckv, k_rope = kv[..., :m.kv_lora_rank], kv[..., m.kv_lora_rank:]
+    ckvf = ckv.float()
+    ckv = (ckvf * torch.rsqrt(ckvf.square().mean(-1, keepdim=True) + 1e-6)
+           ).to(x.dtype) * p["norm_kv"]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+
+    kv_valid, q_offset = None, 0
+    if cache is not None:
+        ckv = ckv.to(cache["ckv"].dtype)
+        k_rope = k_rope.to(cache["krope"].dtype)
+        if torch.is_tensor(cache_index) and cache_index.dim() == 1:
+            # per-slot decode (S == 1): row b writes its own position
+            rows = torch.arange(B, device=x.device)
+            cache["ckv"][rows, cache_index] = ckv[:, 0]
+            cache["krope"][rows, cache_index] = k_rope[:, 0]
+        else:
+            cache["ckv"][:, cache_index:cache_index + S] = ckv
+            cache["krope"][:, cache_index:cache_index + S] = k_rope
+        ckv, k_rope = cache["ckv"], cache["krope"]
+        kv_valid, q_offset = cache_index + S, cache_index
+
+    Sk = ckv.shape[1]
+    dt = torch.promote_types(ckv.dtype, p["wkv_b"].dtype)  # jnp's promotion
+    kv_up = (ckv.to(dt) @ p["wkv_b"].to(dt)).reshape(B, Sk, H, qk_n + dv)
+    k_nope, v = kv_up[..., :qk_n], kv_up[..., qk_n:]
+    k = torch.cat([k_nope, k_rope.expand(B, Sk, H, qk_r).to(k_nope.dtype)],
+                  dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    out = blockwise_attention(qfull, k, v, causal=True,
+                              window=window if attn_mode == "window" else 0,
+                              q_offset=q_offset, kv_valid=kv_valid,
+                              softmax_scale=1.0 / math.sqrt(qk_n + qk_r))
+    return out.reshape(B, S, H * dv).to(p["wo"].dtype) @ p["wo"], cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Unified model API of the port (the decoder-only assembly, its training
-loss included), plus `synth_batch`. Encoder-decoder families are not ported
-yet and raise; the reference's `input_specs` (abstract shapes for its
-multi-pod dry-run) has no counterpart on one card.
+"""Unified model API of the port (the decoder-only assembly of the
+attention-based families, its training loss included), plus `synth_batch`.
+Encoder-decoder families are not ported yet and raise; the reference's
+`input_specs` (abstract shapes for its multi-pod dry-run) has no
+counterpart on one card.
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import transformer
+
+# Early-fusion image prefix length for VLM/early-fusion train batches.
+IMG_PREFIX = 256
 
 
 def _mod(cfg: ModelConfig):
@@ -28,7 +32,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
             window_override: int = 0):
-    """(loss, {"ce", "aux"}) of a batch {"tokens", "labels"} [B, S]."""
+    """(loss, {"ce", "aux"}) of a batch {"tokens", "labels"} [B, S] (and
+    "patches" [B, n, frontend_embed_dim] for early fusion)."""
     return _mod(cfg).loss_fn(params, cfg, batch, remat=remat,
                              window_override=window_override)
 
@@ -60,10 +65,9 @@ def synth_batch(gen: torch.Generator, cfg: ModelConfig, shape_or_batch,
                 seq_len: Optional[int] = None,
                 mode: str = "train") -> Dict[str, torch.Tensor]:
     """Random tokens (and labels for "train") drawn from `gen`, on its
-    device."""
+    device; an early-fusion arch's "train" batch also gets standard-normal
+    "patches" [B, min(IMG_PREFIX, S), frontend_embed_dim] in f32."""
     _mod(cfg)  # refuses encoder-decoder configs
-    if cfg.frontend_embed_dim:
-        raise NotImplementedError("the modality frontend is not ported yet")
     if isinstance(shape_or_batch, ShapeConfig):
         B, S, mode = (shape_or_batch.global_batch, shape_or_batch.seq_len,
                       shape_or_batch.mode)
@@ -74,4 +78,8 @@ def synth_batch(gen: torch.Generator, cfg: ModelConfig, shape_or_batch,
     batch = {"tokens": draw()}
     if mode == "train":
         batch["labels"] = draw()
+    if cfg.frontend_embed_dim and mode == "train":
+        batch["patches"] = torch.randn(
+            (B, min(IMG_PREFIX, S), cfg.frontend_embed_dim), generator=gen,
+            device=gen.device)
     return batch

@@ -1,4 +1,5 @@
-"""Decoder-only transformer assembly for the dense GQA family.
+"""Decoder-only transformer assembly for the attention-based families:
+dense GQA, MLA, MoE and early fusion.
 
 The reference groups layers into super-blocks and scans over stacked
 super-block parameters (`lax.scan`) to keep compile time O(period). The port
@@ -7,10 +8,12 @@ per layer, in the order `layer_specs` gives, and loops over them in Python;
 `convert.lm_params` interleaves the reference's stacked tree into that
 order. `build_plan` keeps the reference's (period, n_repeats, tail) form.
 
-Ported: attention blocks (causal, sliding-window, chunked-local, iRoPE NoPE
-layers) with dense FFNs, and the training loss (`loss_fn`) with activation
-checkpointing per layer. Not ported yet (they raise): MLA, MoE, SSD,
-RG-LRU, the modality frontend and the ring-buffer cache.
+Ported: GQA attention blocks (causal, sliding-window with a full or a
+ring-buffer cache, chunked-local, iRoPE NoPE layers) and MLA blocks, with
+dense or MoE FFNs (the layers' aux losses summed); the early-fusion
+frontend projection of precomputed patch embeddings; and the training loss
+(`loss_fn`) with activation checkpointing per layer. Not ported yet (they
+raise): the SSD (ssm family) and RG-LRU (hybrid family) blocks.
 """
 from __future__ import annotations
 
@@ -23,13 +26,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import embed_init
+from repro_torch.models import moe as M
+from repro_torch.models.common import dense_init, embed_init
 
 Params = Dict[str, Any]
 
 
 class LayerSpec(NamedTuple):
-    kind: str  # attn (mla | rglru | ssd are not ported yet)
+    kind: str  # attn | mla (rglru | ssd are not ported yet)
     attn_mode: str = "causal"  # causal | window | chunk
     window: int = 0
     use_rope: bool = True
@@ -47,12 +51,9 @@ def build_plan(cfg: ModelConfig, window_override: int = 0
         raise _not_ported("the SSD block (ssm family)")
     if cfg.rglru is not None:
         raise _not_ported("the RG-LRU block (hybrid family)")
-    if cfg.mla is not None:
-        raise _not_ported("MLA attention")
-    if cfg.moe is not None:
-        raise _not_ported("the MoE FFN")
 
     def attn_spec(i: int) -> LayerSpec:
+        kind = "mla" if cfg.mla is not None else "attn"
         mode, win, rope = "causal", 0, True
         if cfg.sliding_window:
             mode, win = "window", cfg.sliding_window
@@ -63,7 +64,8 @@ def build_plan(cfg: ModelConfig, window_override: int = 0
                 mode, win = "chunk", cfg.chunk_attn_window
         if window_override and mode == "causal":
             mode, win = "window", window_override
-        return LayerSpec("attn", mode, win, rope, False)
+        has_moe = cfg.moe is not None and (i % cfg.moe.every == 0)
+        return LayerSpec(kind, mode, win, rope, has_moe)
 
     if cfg.chunk_attn_window:
         period = tuple(attn_spec(i) for i in range(cfg.global_attn_every))
@@ -87,10 +89,13 @@ def layer_specs(cfg: ModelConfig, window_override: int = 0) -> List[LayerSpec]:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                 dtype) -> Params:
+    init_attn = L.init_mla if spec.kind == "mla" else L.init_attention
     p: Params = {"norm1": L.init_norm(gen, cfg.d_model, cfg.norm, dtype),
-                 "attn": L.init_attention(gen, cfg, dtype),
+                 "attn": init_attn(gen, cfg, dtype),
                  "norm2": L.init_norm(gen, cfg.d_model, cfg.norm, dtype)}
-    if cfg.d_ff:
+    if spec.has_moe:
+        p["ffn"] = M.init_moe(gen, cfg, dtype)
+    elif cfg.d_ff:
         p["ffn"] = L.init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.ffn, dtype)
     return p
 
@@ -98,16 +103,18 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
                 window_override: int = 0) -> Params:
     """Random parameters drawn from `gen`, on the generator's device:
-    {"embed", "final_norm", "blocks": [one dict per layer], "unembed" when
-    the embeddings are not tied}."""
+    {"embed", "final_norm", "blocks": [one dict per layer], "frontend_proj"
+    [frontend_embed_dim, d_model] for early fusion, "unembed" when the
+    embeddings are not tied}."""
     specs = layer_specs(cfg, window_override)
-    if cfg.frontend_embed_dim:
-        raise _not_ported("the modality frontend projection")
     p: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
         "final_norm": L.init_norm(gen, cfg.d_model, cfg.norm, dtype),
         "blocks": [_init_block(gen, cfg, spec, dtype) for spec in specs],
     }
+    if cfg.frontend_embed_dim:
+        p["frontend_proj"] = dense_init(gen, (cfg.frontend_embed_dim,
+                                              cfg.d_model), dtype)
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)
     return p
@@ -120,23 +127,38 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 
 def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Params, x, positions,
                  cache=None, cache_index=None, train: bool = False):
+    """Returns (x, cache, aux): the layer's MoE aux loss, else None."""
     h = L.apply_norm(p["norm1"], x, cfg.norm)
-    out, new_cache = L.apply_attention(
-        p["attn"], cfg, h, positions, attn_mode=spec.attn_mode,
-        window=spec.window, use_rope=spec.use_rope, cache=cache,
-        cache_index=cache_index, train=train)
+    if spec.kind == "mla":
+        out, new_cache = L.apply_mla(
+            p["attn"], cfg, h, positions, attn_mode=spec.attn_mode,
+            window=spec.window, cache=cache, cache_index=cache_index)
+    else:
+        out, new_cache = L.apply_attention(
+            p["attn"], cfg, h, positions, attn_mode=spec.attn_mode,
+            window=spec.window, use_rope=spec.use_rope, cache=cache,
+            cache_index=cache_index, train=train)
     x = x + out
+    aux = None
     if "ffn" in p:
         h2 = L.apply_norm(p["norm2"], x, cfg.norm)
-        x = x + L.apply_ffn(p["ffn"], h2, cfg.ffn)
-    return x, new_cache
+        if spec.has_moe:
+            out2, aux = M.apply_moe(p["ffn"], cfg, h2)
+        else:
+            out2 = L.apply_ffn(p["ffn"], h2, cfg.ffn)
+        x = x + out2
+    return x, new_cache, aux
 
 
 def _embed(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    if "patches" in batch:
-        raise _not_ported("the modality frontend projection")
     x = L.embed_lookup(params["embed"], batch["tokens"])
-    return x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt()
+    x = x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt()
+    if cfg.frontend_embed_dim and "patches" in batch:
+        # early fusion: precomputed modality embeddings [B, n, F] take the
+        # place of the first n positions (the frontend itself is stubbed)
+        pe = batch["patches"].to(x.dtype) @ params["frontend_proj"]
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
 
 
 def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
@@ -151,9 +173,10 @@ def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, window_override: int = 0, cache: Optional[List[Params]] = None,
             cache_index=None, remat: bool = False, train: bool = False):
-    """Returns (logits, aux_loss, cache). `cache` (one {"k", "v"} per layer)
-    is updated in place; `cache_index` is an int (or 0-dim) write offset or
-    a [B] vector of per-row positions (S == 1).
+    """Returns (logits, aux_loss, cache): the aux loss is the sum of the MoE
+    layers' (0 without MoE). `cache` (one dict per layer) is updated in
+    place; `cache_index` is an int (or 0-dim) write offset or a [B] vector
+    of per-row positions (S == 1).
 
     `train=True` routes attention through the differentiable
     `blockwise_attention` (`layers.apply_attention`); `remat=True` (no
@@ -169,25 +192,29 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         positions = pos[None] + base[:, None]  # per-slot decode
     else:
         positions = (pos + base)[None].expand(B, Sq)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, spec in enumerate(specs):
         if remat and cache is None:
             blk = partial(_apply_block, cfg, spec, train=train)
-            x, _ = checkpoint(blk, params["blocks"][i], x, positions,
-                              use_reentrant=False)
-            continue
-        x, _ = _apply_block(cfg, spec, params["blocks"][i], x, positions,
-                            cache=None if cache is None else cache[i],
-                            cache_index=cache_index, train=train)
+            x, _, a = checkpoint(blk, params["blocks"][i], x, positions,
+                                 use_reentrant=False)
+        else:
+            x, _, a = _apply_block(cfg, spec, params["blocks"][i], x,
+                                   positions,
+                                   cache=None if cache is None else cache[i],
+                                   cache_index=cache_index, train=train)
+        if a is not None:
+            aux = aux + a
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _unembed(cfg, params, x), aux, cache
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             *, remat: bool = True, window_override: int = 0):
     """The training loss: (loss, {"ce", "aux"}), the mean cross-entropy over
-    labels >= 0 plus the router's auxiliary loss (0 for the dense family),
-    with attention on its differentiable route."""
+    labels >= 0 plus the routers' auxiliary loss weighted by
+    `router_aux_loss_weight` over the layer count (0 without MoE), with
+    attention on its differentiable route."""
     logits, aux, _ = forward(params, cfg, batch, remat=remat, train=True,
                              window_override=window_override)
     ce = L.cross_entropy(logits, batch["labels"])
@@ -205,15 +232,26 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, window_override: int = 0, *,
                device: DeviceLike = None) -> List[Params]:
-    """One zeroed {"k", "v"} [batch, max_len, KH, hd] pair per layer."""
+    """One zeroed cache per layer: {"k", "v"} [batch, L, KH, hd] for GQA,
+    L = max_len, or min(max_len, W) for a sliding-window layer with
+    `cfg.ring_buffer_cache`; {"ckv" [batch, max_len, kv_lora_rank],
+    "krope" [batch, max_len, 1, qk_rope_head_dim]} for MLA."""
     dev = resolve_device(device)
-    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     cache = []
     for spec in layer_specs(cfg, window_override):
+        if spec.kind == "mla":
+            m = cfg.mla
+            cache.append({"ckv": zeros(batch, max_len, m.kv_lora_rank),
+                          "krope": zeros(batch, max_len, 1,
+                                         m.qk_rope_head_dim)})
+            continue
+        eff = max_len
         if cfg.ring_buffer_cache and spec.attn_mode == "window" and spec.window:
-            raise _not_ported("the ring-buffer KV cache")
-        cache.append({name: torch.zeros((batch, max_len, kh, hd), dtype=dtype,
-                                        device=dev) for name in ("k", "v")})
+            eff = min(max_len, spec.window)
+        kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        cache.append({"k": zeros(batch, eff, kh, hd),
+                      "v": zeros(batch, eff, kh, hd)})
     return cache
 
 

@@ -38,8 +38,9 @@ def init_serve(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> ServeState:
     cache = registry.init_cache(cfg, batch, max_len, dtype,
                                 window_override=window_override, device=device)
-    last = torch.zeros((batch, 1), dtype=torch.long,
-                       device=cache[0]["k"].device)
+    # the device of the cache's first tensor, whatever the layer's kind
+    first = next(iter(cache[0].values()))
+    last = torch.zeros((batch, 1), dtype=torch.long, device=first.device)
     return ServeState(cache, last, 0)
 
 
@@ -134,7 +135,9 @@ def _decode_fn(cfg: ModelConfig, window_override: int, params, last, cache,
 def _insert_fn(cache, pcache, slot: int) -> None:
     """Copy a batch=1 prefilled cache into row `slot` of the pooled cache, in
     place (the reference builds a new tree with `dynamic_update_index_in_dim`).
-    The whole row is overwritten, the positions past the prompt with zeros."""
+    The whole row of every layer's tensors is overwritten, whatever their
+    names (GQA's k/v, full or ring; MLA's ckv/krope), the positions past the
+    prompt with zeros."""
     for dst, src in zip(cache, pcache):
         for name in dst:
             dst[name][slot].copy_(src[name][0])

@@ -59,11 +59,18 @@ def model():
 # configs
 # ---------------------------------------------------------------------------
 
-def test_arch_registry_mirrors_reference():
+PORTED = ["granite-8b", "phi4-mini-3.8b", "starcoder2-15b", "chameleon-34b",
+          "minicpm3-4b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_arch_registry_mirrors_reference(arch):
+    """Each ported arch resolves to the reference's config, field for
+    field; an unported family still raises, an unknown id is refused."""
     from repro.configs import ARCH_IDS as JARCH
     assert ARCH_IDS == JARCH
-    assert (dataclasses.asdict(get_config("granite-8b"))
-            == dataclasses.asdict(jget_config("granite-8b")))
+    assert (dataclasses.asdict(get_config(arch))
+            == dataclasses.asdict(jget_config(arch)))
     with pytest.raises(NotImplementedError, match="not ported"):
         get_config("mamba2-2.7b")
     with pytest.raises(KeyError, match="unknown arch"):
@@ -71,14 +78,17 @@ def test_arch_registry_mirrors_reference():
 
 
 def test_unported_blocks_raise():
+    """The SSD, RG-LRU and encoder-decoder families raise, as do their
+    archs; the ring-buffer cache is ported (tests/test_torch_archs.py holds
+    it against the reference's ring)."""
     cfg = reduced(get_config("granite-8b"))
     gen = torch.Generator().manual_seed(0)
     for change in (dict(family="ssm"), dict(encoder_layers=2)):
         with pytest.raises(NotImplementedError, match="not ported"):
             registry.init_params(gen, dataclasses.replace(cfg, **change))
-    ring = dataclasses.replace(cfg, ring_buffer_cache=True, sliding_window=8)
-    with pytest.raises(NotImplementedError, match="ring-buffer"):
-        registry.init_cache(ring, 1, 8, device="cpu")
+    for arch in ("mamba2-2.7b", "recurrentgemma-9b", "seamless-m4t-medium"):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
 
 
 # ---------------------------------------------------------------------------

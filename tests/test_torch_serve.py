@@ -252,3 +252,21 @@ def test_launch_serve_runs_on_cpu(mode, capsys):
     assert ("continuous decode:" if mode == "continuous" else "prefill:") in out
     assert "sample token ids:" in out
     assert ops.launches["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("arch", [
+    "phi4-mini-3.8b", "starcoder2-15b", "chameleon-34b", "minicpm3-4b",
+    "qwen2-moe-a2.7b", "llama4-scout-17b-a16e"])
+def test_launch_serve_takes_every_ported_arch(arch, capsys):
+    """`--arch` resolves each ported arch: a reduced static batch and the
+    continuous engine run on the CPU; an unported family still raises."""
+    base = ["--arch", arch, "--reduced", "--device", "cpu", "--prompt-len",
+            "20", "--gen", "4"]
+    launch_serve.main(base + ["--batch", "2"])
+    launch_serve.main(base + ["--continuous", "--slots", "2",
+                              "--requests", "3"])
+    out = capsys.readouterr().out
+    assert out.count(f"arch={arch}") == 2 and "continuous decode:" in out
+    with pytest.raises(NotImplementedError, match="not ported"):
+        launch_serve.main(["--arch", "recurrentgemma-9b", "--reduced",
+                           "--device", "cpu"])
