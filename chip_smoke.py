@@ -27,7 +27,15 @@
    prefill shapes, every mask kind at D = 128 with Sq and Sk not multiples of
    128, and a D = 96 case, f32 and bf16, each launch taking the kernel its
    shape routes to (bf16 D = 64/128: the wgmma kernel; other bf16 head dims:
-   mma.sync; f32: FMAs).
+   mma.sync; f32: FMAs); at D = 256 (recurrentgemma-9b's local attention:
+   mma.sync in bf16, the FMA kernel in f32) every mask kind with Sq and Sk
+   not multiples of 64, Sq < Sk unmasked, and unmasked over Sk = 200;
+   seamless-m4t-medium's encoder and cross-attention shapes at D = 64
+   (wgmma, unmasked) at 4096 and 200 frames; and recurrentgemma's own
+   prefill shape (B = 2, H = 16, S = 4096, window 2048, its one KV head
+   broadcast as the model's `_flash` does). These bf16 cases are held to
+   the bound of bf16 rounding (`compare_bf16_attention`), the others to
+   tests/test_kernels.py's tolerances.
 3. Drives the port's main paths, each run with the launch counts set to 0
    just before it and read just after:
    (a)-(c) streaming PCA at the paper's Fig. 8 size (d = 3072, N = 10 nodes,
@@ -141,9 +149,30 @@
    (m3) (h0)'s trainer on reduced qwen2-moe in f32 (4 nodes, ring R = 2,
    Adam, 3 rounds) on the card and on the CPU: (h0)'s bounds, 3
    `gossip_mix` launches, the router's aux loss > 0.
+   (n0) the recurrent and encoder-decoder families reduced, in f32, the
+   same parameters on the card and on the CPU (mamba2-2.7b 2 layers,
+   recurrentgemma-9b 5: one (rglru, rglru, local attention) period and a
+   tail, seamless-m4t-medium 2 + 2 over 200 frames): prefill logits
+   within 1e-3, greedy tokens equal over 8 steps, the decoded tokens equal
+   to the argmax of a prefill of the extended prompt, `loss_fn`'s ce
+   within rtol 1e-4, the
+   f32 flash kernel once per attention layer per prefill (none for
+   mamba2; encoder, self and cross layers for seamless);
+   (n1) recurrentgemma-9b whole (38 layers, 9.396 B tensors' entries,
+   8.52 B by the reference's `param_count()`, bf16): a prefill of
+   2 x 4096 tokens (past its 2048 window) with 12 mma.sync flash launches
+   at D = 256, 16 greedy decode steps, and 8 requests through 4 slots of
+   the continuous engine; one prefill layer of each kind timed apart;
+   (n2) mamba2-2.7b whole (64 layers, 4 x 512, 16 decode steps, 16
+   requests through 8 slots, no flash launch) and seamless-m4t-medium
+   whole (4 x 4096 frames, a 4 x 64 decoder prompt, 16 greedy steps
+   through `generate`: 24 unmasked and 12 causal wgmma launches at D = 64
+   per prefill). Each prints prefill ms on the card and on the wall,
+   decode ms per step and peak memory.
 4. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
-   kernel at the same shapes) against its bound, its plain version and,
+   kernel at the same shapes, and at recurrentgemma-9b's prefill shape at
+   D = 256) against its bound, its plain version and,
    where one PyTorch call computes the same function, that call; beside the
    redesigned kernels, their earlier designs in the same run
    (`gossip_mix_quant` also at R = 0, 1, 8 and at path (f)'s shape;
@@ -190,9 +219,8 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:92",
 }
 # tests/test_kernels.py:63 CASES, then granite-8b's prefill (H = 32, D = 128),
-# every mask kind at D = 128 with Sq and Sk not multiples of the 128-row tiles
-# (unmasked attention needs Sk divisible by min(128, Sk)), B*H > 132 SMs with
-# Sq < Sk, and a head dim the wgmma kernel does not take:
+# every mask kind at D = 128 with Sq and Sk not multiples of the 128-row tiles,
+# B*H > 132 SMs with Sq < Sk, and a head dim the wgmma kernel does not take:
 # (B, H, Sq, Sk, D, causal, window, chunk)
 FLASH_CASES = [
     (1, 2, 128, 128, 64, True, 0, 0),
@@ -210,6 +238,27 @@ FLASH_CASES = [
     (1, 150, 130, 300, 128, True, 0, 0),
     (1, 2, 64, 256, 96, False, 0, 0),
 ]
+# their own generator's draws, so that the main path's stay the same: D =
+# 256 (recurrentgemma-9b): every mask kind, ragged, Sq < Sk unmasked, and
+# unmasked over a ragged key count; seamless-m4t-medium's encoder and
+# cross-attention shapes, at 4096 frames and at 200 (ragged)
+FLASH_CASES_NEW = [
+    (1, 4, 333, 333, 256, True, 0, 0),
+    (1, 4, 333, 333, 256, True, 100, 0),
+    (1, 4, 333, 333, 256, True, 0, 96),
+    (1, 4, 190, 96, 256, False, 0, 0),
+    (2, 3, 72, 256, 256, False, 0, 0),
+    (1, 4, 200, 200, 256, False, 0, 0),
+    (2, 3, 72, 200, 256, False, 0, 0),
+    (1, 16, 4096, 4096, 64, False, 0, 0),
+    (4, 16, 64, 4096, 64, False, 0, 0),
+    (2, 16, 200, 200, 64, False, 0, 0),
+    (2, 16, 24, 200, 64, False, 0, 0),
+]
+# (n0)'s seamless frames: a count that is not a multiple of 64 or 128
+N0_FRAMES = 200
+# recurrentgemma-9b's prefill at D = 256: (B, H, S, window), one KV head
+RG_FLASH = (2, 16, 4096, 2048)
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}  # tests/test_kernels.py:85
 # 64: the most the composed gossip_mix kernel takes; beyond, "rounds"
 GOSSIP_NODES = (1, 5, 10, 16, 64)
@@ -225,6 +274,11 @@ M2_CASES = [("phi4-mini-3.8b", 0, 4, 512), ("minicpm3-4b", 0, 4, 512),
             ("llama4-scout-17b-a16e", 4, 1, 8704),
             ("chameleon-34b", 2, 4, 512)]
 M2_GEN = 17  # the prefill's token and 16 decode steps
+# the recurrent and encoder-decoder families (n0)-(n2): (n0)'s reduced
+# depths (recurrentgemma: one period and a tail), and (n2)'s seamless
+# shape (batch, frames, decoder prompt)
+N_ARCHS = {"mamba2-2.7b": 2, "recurrentgemma-9b": 5, "seamless-m4t-medium": 2}
+SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_P = 4, 4096, 64
 # the trainer path (h): 4 nodes, ring R = 2, K = 2 rounds per superstep,
 # 4 supersteps, 8 sequences of 512 tokens per round, granite-8b cut to 2
 # layers
@@ -292,6 +346,31 @@ def compare_close(name, got, want, tol):
     return err
 
 
+def compare_bf16_attention(name, got, q, k, v, masks):
+    """bf16 attention held to the bound of bf16 rounding (unit roundoff u =
+    2^-8), element by element: |kernel - plain| <= 2^-6 |plain| + 2^-8
+    (P |v|). Each side rounds its output to bf16 (u |out| each: 2u, here
+    taken twice over), and the kernel rounds each softmax weight p to bf16
+    before the P V product, which moves an output by at most u sum_j p_j
+    |v_j| (all roundings of one sign); P |v| is the plain attention of |v|
+    in f32. Prints the largest error and its largest share of the limit."""
+    import torch
+
+    from repro_torch.kernels import ref
+    want = ref.attention_ref(q, k, v, **masks).float()
+    mag = ref.attention_ref(q, k, v.float().abs(), **masks)
+    diff = (got.float() - want).abs()
+    limit = 2.0 ** -6 * want.abs() + 2.0 ** -8 * mag
+    err = diff.max().item()
+    share = (diff / limit.clamp_min(torch.finfo(torch.float32).tiny)).max()
+    ok = math.isfinite(err) and bool((diff <= limit).all())
+    print(f"check {name}: max_abs_err={err:.3e}, largest share of the limit "
+          f"2^-6|plain| + 2^-8 P|v| = {share.item():.3f} (bf16 rounding, "
+          f"element by element) {'ok' if ok else 'FAIL'}")
+    require(ok, f"{name} disagrees with its plain version")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -325,6 +404,7 @@ def main() -> int:
     from repro_torch.kernels.consensus import (gossip_mix_quant_cuda,
                                                quant_route)
     from repro_torch.kernels.flash_attention import flash_variant
+    from repro_torch.kernels.flash_attention import route as flash_route
     from repro_torch.kernels.consensus import gossip_design
     from repro_torch.kernels.krasulina_update import (krasulina_xi_cuda,
                                                       krasulina_xi_gossip_cuda,
@@ -636,20 +716,28 @@ def main() -> int:
             outs.append(step(st, {"z": zb})[0].w.cpu())
         compare(f"superstep {label} card vs CPU plain path (N=4, Bn=5, d=70, "
                 f"K=3)", outs[0], outs[1], "float32")
+    gen_new = torch.Generator(device=dev).manual_seed(22)
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for B, H, Sq, Sk, D, causal, window, chunk in FLASH_CASES:
-            q, k, v = (randn(B, H, S, D, dtype=dtype) for S in (Sq, Sk, Sk))
+        for case in FLASH_CASES + FLASH_CASES_NEW:
+            B, H, Sq, Sk, D, causal, window, chunk = case
+            g_ = gen if case in FLASH_CASES else gen_new
+            q, k, v = (torch.randn((B, H, S, D), generator=g_, device=dev)
+                       .to(dtype) for S in (Sq, Sk, Sk))
             masks = dict(causal=causal, window=window, chunk=chunk)
             want = flash_variant(dtype, D, True)
             ops.reset_launches()
             got = ops.attention(q, k, v, **masks)
             require(ops.flash_launches[want] == 1, f"flash_attention {dn} D={D} "
                     f"did not take the {want} kernel: {ops.flash_launches}")
-            e = compare_close(
-                f"flash_attention {want} {dn} B={B} H={H} Sq={Sq} Sk={Sk} "
-                f"D={D} causal={causal} window={window} chunk={chunk}",
-                got, ref.attention_ref(q, k, v, **masks), FLASH_TOL[dn])
+            label = (f"flash_attention {want} {dn} B={B} H={H} Sq={Sq} "
+                     f"Sk={Sk} D={D} causal={causal} window={window} "
+                     f"chunk={chunk}")
+            if case in FLASH_CASES_NEW and dtype == torch.bfloat16:
+                e = compare_bf16_attention(label, got, q, k, v, masks)
+            else:
+                e = compare_close(label, got, ref.attention_ref(
+                    q, k, v, **masks), FLASH_TOL[dn])
             if (dn, H, Sq) == ("bfloat16", 32, 512):
                 errs["flash_attention"] = e
 
@@ -661,6 +749,7 @@ def main() -> int:
     w0 /= w0.norm()
     gossip = AveragingConfig(mode="gossip", rounds=HIGHD_R, topology="ring")
     launches = {k: 0 for k in ops.launches}
+    flash_total = {k: 0 for k in ops.flash_launches}  # by kernel
     by_design = {k: 0 for k in ops.xi_gossip_launches}
     by_cluster = {k: 0 for k in ops.quant_launches}
     xi_by_design = {k: 0 for k in ops.xi_launches}
@@ -677,6 +766,8 @@ def main() -> int:
         counts = dict(ops.launches)
         for k, v in counts.items():
             launches[k] += v
+        for k, v in ops.flash_launches.items():
+            flash_total[k] += v
         for k, v in ops.xi_gossip_launches.items():
             by_design[k] += v
         for k, v in ops.quant_launches.items():
@@ -2247,10 +2338,11 @@ def main() -> int:
         del p_cpu, p_dev, runs
 
     def serve_arch(label, cfg_s, B, P, gen, *, dtype=torch.bfloat16,
-                   card_time=False, params=None):
+                   card_time=False, params=None, flash=None, prompt=None):
         """Seeded random weights, a static prefill of B prompts of P tokens
-        and gen - 1 greedy decode steps (the `generate` path, timed apart);
-        every prefill launches the wgmma flash kernel once per GQA layer and
+        (or `prompt`) and gen - 1 greedy decode steps (the `generate` path,
+        timed apart); the prefill launches the flash kernel `flash` = (n,
+        kernel) times, by default the wgmma kernel once per GQA layer, and
         nothing else runs. Returns (params, tokens [B, gen], stats)."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -2261,8 +2353,9 @@ def main() -> int:
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = model_params(params)
-        prompt = registry.synth_batch(torch.Generator(device=dev).manual_seed(
-            1), cfg_s, B, P, mode="prefill")
+        if prompt is None:
+            prompt = registry.synth_batch(torch.Generator(
+                device=dev).manual_seed(1), cfg_s, B, P, mode="prefill")
         ops.reset_launches()
         st = engine.init_serve(cfg_s, B, P + gen, dtype, device=dev)
         torch.cuda.synchronize()
@@ -2281,13 +2374,14 @@ def main() -> int:
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
         out = torch.cat(toks, dim=1)
-        n_flash = layers_flash(cfg_s)
+        n_flash, kind = flash or (layers_flash(cfg_s), "wgmma")
+        variants = dict(ops.flash_launches)
         counts = take_counts(label, ["flash_attention"] if n_flash else [], {
             "flash_attention": n_flash, "gossip_mix": 0,
             "gossip_mix_quant": 0, "krasulina_xi": 0,
             "krasulina_xi_gossip": 0})
-        variants = dict(ops.flash_launches)
-        require(variants == {"wgmma": n_flash, "mma_sync": 0, "f32": 0},
+        require(variants == {k: n_flash if k == kind else 0
+                             for k in variants},
                 f"{label}: flash launches by kernel {variants}")
         stats = {"params_B": n_params / 1e9, "init_s": init_s,
                  "prefill_ms": prefill_s * 1e3,
@@ -2316,6 +2410,50 @@ def main() -> int:
     def fmt(stats):
         return " ".join(f"{k}={v:.6g}" if isinstance(v, float) else
                         f"{k}={json.dumps(v)}" for k, v in stats.items())
+
+    def serve_engine(label, cfg_e, params, slots, prompts, per_prefill, kind,
+                     gen=M2_GEN):
+        """`prompts` through `slots` slots of the continuous engine (bf16),
+        `gen` tokens each (the prefill's, then decode steps); every prefill
+        launches the flash kernel `kind` `per_prefill` times."""
+        torch.cuda.reset_peak_memory_stats()
+        eng = engine.ContinuousBatchingEngine(
+            cfg_e, params, slots=slots,
+            max_len=max(len(p) for p in prompts) + gen,
+            dtype=torch.bfloat16)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, gen) for p in prompts]
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = per_prefill * len(prompts)
+        variants = dict(ops.flash_launches)
+        counts = take_counts(label, ["flash_attention"] if n else [], {
+            "flash_attention": n, "gossip_mix": 0, "gossip_mix_quant": 0,
+            "krasulina_xi": 0, "krasulina_xi_gossip": 0})
+        done = [eng.result(r) for r in rids]
+        ok = all(len(r.tokens) == gen and all(
+            0 <= t < cfg_e.vocab_size for t in r.tokens) for r in done)
+        lens = [len(p) for p in prompts]
+        print(f"main {label}: slots={slots} requests={len(prompts)} prompts "
+              f"{min(lens)}-{max(lens)} (sum {sum(lens)}) gen={gen}: "
+              f"{wall:.3f} s, {len(prompts) * gen / wall:.1f} generated "
+              f"tokens/s, {eng.decode_steps} decode steps "
+              f"({wall / eng.decode_steps * 1e3:.3f} ms per step, prefills "
+              f"included); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches={json.dumps(counts)} by kernel "
+              f"{json.dumps(variants)}")
+        require(ok, f"{label}: a request lost tokens or left the vocabulary")
+        require(variants == {k: n if k == kind else 0 for k in variants},
+                f"{label}: flash launches by kernel {variants}")
+        del eng, done
+
+    def engine_prompts(cfg_e, n, seed):
+        rng = np.random.default_rng(seed)
+        return [rng.integers(0, cfg_e.vocab_size, size=int(m))
+                for m in rng.integers(128, 513, size=n)]
 
     # (m1) qwen2-moe-a2.7b at full width and depth, bf16, seeded weights:
     # static generate, then the continuous engine
@@ -2379,38 +2517,9 @@ def main() -> int:
           f"{expert_flops / parts['experts'] / 1e9:.1f} TFLOP/s, bound "
           f"{expert_flops / BF16_FLOPS_PER_S * 1e3:.4f} ms)")
     del h, pos, blk, ffn, xt, xe
-    rng = np.random.default_rng(2)
-    lens = rng.integers(128, 513, size=16)
-    prompts = [rng.integers(0, cfg_q.vocab_size, size=int(n)) for n in lens]
-    torch.cuda.reset_peak_memory_stats()
-    eng = engine.ContinuousBatchingEngine(cfg_q, params, slots=8,
-                                          max_len=512 + GEN,
-                                          dtype=torch.bfloat16)
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, GEN) for p in prompts]
-    eng.drain()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = take_counts("(m1) continuous", ["flash_attention"], {
-        "flash_attention": 24 * len(prompts), "gossip_mix": 0,
-        "gossip_mix_quant": 0, "krasulina_xi": 0, "krasulina_xi_gossip": 0})
-    variants = dict(ops.flash_launches)
-    done = [eng.result(r) for r in rids]
-    ok = all(len(r.tokens) == GEN and all(0 <= t < cfg_q.vocab_size
-                                          for t in r.tokens) for r in done)
-    print(f"main (m1) continuous batching slots=8 requests={len(prompts)} "
-          f"prompts {int(lens.min())}-{int(lens.max())} (sum "
-          f"{int(lens.sum())}) gen={GEN}: {wall:.3f} s, "
-          f"{len(prompts) * GEN / wall:.1f} generated tokens/s, "
-          f"{eng.decode_steps} decode steps ({wall / eng.decode_steps * 1e3:.3f}"
-          f" ms per step, prefills included); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
-          f"launches={json.dumps(counts)} by kernel {json.dumps(variants)}")
-    require(ok, "(m1) a request lost tokens or left the vocabulary")
-    require(variants == {"wgmma": 24 * len(prompts), "mma_sync": 0, "f32": 0},
-            f"(m1) continuous: flash launches by kernel {variants}")
-    del params, out, eng, done
+    serve_engine("(m1) continuous batching", cfg_q, params, 8,
+                 engine_prompts(cfg_q, 16, 2), 24, "wgmma", gen=GEN)
+    del params, out
     torch.cuda.empty_cache()
 
     # (m2) the other five at full width: phi4-mini and minicpm3 at full
@@ -2493,6 +2602,191 @@ def main() -> int:
             "(m3) parameters disagree")
     require(min(ac) > 0, "(m3) the router's aux loss is not > 0")
     del base, runs, sc, sp, st
+
+    # ----------- the recurrent and encoder-decoder families (n0)-(n2)
+    def n_flash(cfg_):
+        """(flash launches of one prefill of more than 16 tokens, the
+        kernel) for these families in bf16: one per local-attention layer
+        (recurrentgemma, D = 256: mma.sync), three per decoder layer pair
+        of encoder, self and cross attention (seamless, D = 64: wgmma),
+        none for the SSD."""
+        if cfg_.is_encdec:
+            return cfg_.encoder_layers + 2 * cfg_.num_layers, "wgmma"
+        if cfg_.rglru is not None:
+            from repro_torch.models.transformer import layer_specs
+            return sum(sp.kind == "attn" for sp in layer_specs(cfg_)), \
+                "mma_sync"
+        return 0, "wgmma"
+
+    # (n0) each family reduced, in f32, the same parameters on the card and
+    # on the CPU's plain path; the decoded tokens against a prefill of the
+    # extended prompt
+    for arch, layers in N_ARCHS.items():
+        cfg_n = reduced(get_config(arch), layers=layers)
+        p_cpu = registry.init_params(torch.Generator().manual_seed(0), cfg_n)
+        p_dev = convert.tree_map(lambda t: t.to(dev), p_cpu)
+        g_n = torch.Generator().manual_seed(1)
+        batch = registry.synth_batch(g_n, cfg_n, 2, 24, mode="train")
+        if cfg_n.is_encdec:  # unmasked attention over a ragged key count
+            batch["frames"] = torch.randn(
+                (2, N0_FRAMES, cfg_n.frontend_embed_dim), generator=g_n)
+        runs = {}
+        for side, d_, params_ in (("card", dev, p_dev), ("cpu", cpu, p_cpu)):
+            b = {k: v.to(d_) for k, v in batch.items()}
+            prompt = {k: v for k, v in b.items() if k != "labels"}
+            ops.reset_launches()
+            logits, _ = registry.prefill(
+                params_, cfg_n, prompt,
+                registry.init_cache(cfg_n, 2, 32, torch.float32, device=d_))
+            toks = engine.generate(params_, cfg_n, prompt, 32, 8,
+                                   dtype=torch.float32)
+            ext = dict(prompt, tokens=torch.cat([prompt["tokens"], toks], 1))
+            ext_logits, _ = registry.prefill(
+                params_, cfg_n, ext,
+                registry.init_cache(cfg_n, 2, 32, torch.float32, device=d_))
+            same = torch.equal(ext_logits[:, 23:31].argmax(-1), toks)
+            _, met = registry.loss_fn(params_, cfg_n, b)
+            per_prefill = n_flash(cfg_n)[0]
+            flash = (per_prefill * 3, dict(ops.flash_launches))
+            counts = (take_counts(f"(n0) {arch}", [], {
+                "flash_attention": flash[0], "gossip_mix": 0,
+                "gossip_mix_quant": 0, "krasulina_xi": 0,
+                "krasulina_xi_gossip": 0}) if side == "card" else None)
+            runs[side] = (logits.cpu(), toks.tolist(), same,
+                          float(met["ce"]), counts, flash)
+        (lc, tc_, sc_, cc, counts, flash), (lp, tp_, sp_, cp, _, _) = \
+            runs["card"], runs["cpu"]
+        err = (lc - lp).abs().max().item()
+        ce_err = abs(cc - cp) / abs(cp)
+        print(f"main (n0) {arch} reduced f32 ({cfg_n.num_layers} layers) card "
+              f"vs CPU: prefill logits max_abs_err={err:.3e} (limit 1e-3); "
+              f"greedy tokens equal over 8 steps {tc_ == tp_}; decoded "
+              f"tokens = the extended prompt's prefill argmax: card {sc_}, "
+              f"CPU {sp_}; loss ce {cc:.6f} (CPU {cp:.6f}, rel err "
+              f"{ce_err:.2e}, limit 1e-4); flash launches "
+              f"{counts['flash_attention']} = {n_flash(cfg_n)[0]} x 3 "
+              f"prefills, by kernel {json.dumps(flash[1])}")
+        require(err <= 1e-3, f"(n0) {arch}: prefill logits disagree")
+        require(tc_ == tp_, f"(n0) {arch}: greedy tokens differ")
+        require(sc_ and sp_, f"(n0) {arch}: decode differs from the prefill "
+                             f"of the extended prompt")
+        require(ce_err <= 1e-4, f"(n0) {arch}: loss_fn disagrees")
+        require(flash[1]["f32"] == flash[0], f"(n0) {arch}: flash launches "
+                                             f"by kernel {flash[1]}")
+        del p_cpu, p_dev, runs
+
+    # (n1) recurrentgemma-9b whole: a 2 x 4096 prefill past its 2048-token
+    # window, 16 greedy steps, then 8 requests through 4 slots
+    cfg_g = get_config("recurrentgemma-9b")
+    require(cfg_g.num_layers == 38, "recurrentgemma-9b depth changed")
+    params, out, stats = serve_arch("(n1) static", cfg_g, 2, 4096, M2_GEN,
+                                    card_time=True, flash=n_flash(cfg_g))
+    print(f"main (n1) recurrentgemma-9b: {stats['params_B']:.3f} B "
+          f"parameters, bf16, {cfg_g.num_layers} layers, static generate B=2 "
+          f"prompt=4096 gen={M2_GEN}: {fmt(stats)}; card {smi}")
+    # every tensor counted: 9.396 B; the reference's `param_count()` (8.52)
+    # leaves out the RG-LRU's two [W, W] gate matrices
+    require(abs(stats["params_B"] - 9.396) < 0.001,
+            f"(n1) {stats['params_B']} B parameters, expected 9.396 "
+            f"(param_count() {cfg_g.param_count() / 1e9:.3f})")
+    # where one prefill's time goes: an RG-LRU layer's mixer (its doubling
+    # scan apart), a local-attention layer's (the flash kernel inside), the
+    # GeGLU FFN and the vocab projection, each replayed from a graph at the
+    # prefill's shape
+    from repro_torch.models import rglru as R
+    blk_r, blk_a = params["blocks"][0], params["blocks"][2]
+    h = torch.randn(2, 4096, cfg_g.d_model, generator=gen, device=dev).to(
+        torch.bfloat16)
+    pos = torch.arange(4096, device=dev)[None].expand(2, 4096)
+    xf = torch.randn(2, 4096, cfg_g.d_model, generator=gen, device=dev)
+    gates = torch.rand(2, 4096, cfg_g.d_model, generator=gen, device=dev)
+    phases = {
+        "rglru": time_ms(lambda: R.apply_rglru(blk_r["attn"], cfg_g, h),
+                         reps=2),
+        "rglru_scan": time_ms(lambda: R._rglru_scan(
+            xf, gates, gates, blk_r["attn"]["lam"], None), reps=2),
+        "attention": time_ms(lambda: L.apply_attention(
+            blk_a["attn"], cfg_g, h, pos, attn_mode="window",
+            window=cfg_g.rglru.local_window), reps=2),
+        "ffn": time_ms(lambda: L.apply_ffn(blk_r["ffn"], h, cfg_g.ffn),
+                       reps=2),
+        "unembed": time_ms(lambda: L.unembed_logits(params["embed"], h),
+                           reps=1),
+    }
+    ops.reset_launches()  # the graphs' captures are timing, not path
+    layers_ms = 26 * (phases["rglru"] + phases["ffn"]) + 12 * (
+        phases["attention"] + phases["ffn"])
+    print(f"main (n1) prefill phases on the card, ms (B=2 S=4096, one layer "
+          f"each; CUDA graph replays): {json.dumps(phases)}; 26 RG-LRU and "
+          f"12 attention layers with their FFNs + unembed = "
+          f"{layers_ms + phases['unembed']:.3f} against the card's prefill "
+          f"{stats['card_prefill_ms']:.3f}")
+    del h, pos, xf, gates, blk_r, blk_a
+    torch.cuda.empty_cache()
+    serve_engine("(n1) continuous", cfg_g, params, 4,
+                 engine_prompts(cfg_g, 8, 3), *n_flash(cfg_g))
+    del params, out
+    torch.cuda.empty_cache()
+
+    # (n2) mamba2-2.7b whole (4 x 512, 16 steps, 16 requests through 8
+    # slots), then seamless-m4t-medium whole (4 x 4096 frames, a 4 x 64
+    # decoder prompt, 16 greedy steps, then `generate` itself)
+    cfg_b = get_config("mamba2-2.7b")
+    require(cfg_b.num_layers == 64, "mamba2-2.7b depth changed")
+    params, out, stats = serve_arch("(n2) mamba2 static", cfg_b, 4, 512,
+                                    M2_GEN, card_time=True,
+                                    flash=n_flash(cfg_b))
+    print(f"main (n2) mamba2-2.7b: {stats['params_B']:.3f} B parameters, "
+          f"bf16, {cfg_b.num_layers} layers, static generate B=4 prompt=512 "
+          f"gen={M2_GEN}: {fmt(stats)}")
+    require(abs(stats["params_B"] - 2.703) < 0.001,
+            f"(n2) {stats['params_B']} B parameters, expected 2.703 "
+            f"(param_count() {cfg_b.param_count() / 1e9:.3f})")
+    serve_engine("(n2) mamba2 continuous", cfg_b, params, 8,
+                 engine_prompts(cfg_b, 16, 4), *n_flash(cfg_b))
+    del params, out
+    torch.cuda.empty_cache()
+    cfg_e = get_config("seamless-m4t-medium")
+    require((cfg_e.encoder_layers, cfg_e.num_layers) == (12, 12),
+            "seamless-m4t-medium depth changed")
+    g_e = torch.Generator(device=dev).manual_seed(1)
+    prompt = {"frames": torch.randn(
+                  (SEAMLESS_B, SEAMLESS_FRAMES, cfg_e.frontend_embed_dim),
+                  generator=g_e, device=dev),
+              "tokens": torch.randint(0, cfg_e.vocab_size,
+                                      (SEAMLESS_B, SEAMLESS_P), generator=g_e,
+                                      device=dev)}
+    params, out, stats = serve_arch(
+        "(n2) seamless static", cfg_e, SEAMLESS_B, SEAMLESS_P, M2_GEN,
+        card_time=True, flash=n_flash(cfg_e), prompt=prompt)
+    print(f"main (n2) seamless-m4t-medium: {stats['params_B']:.3f} B "
+          f"parameters, bf16, {cfg_e.encoder_layers} + {cfg_e.num_layers} "
+          f"layers, B={SEAMLESS_B} frames={SEAMLESS_FRAMES} decoder "
+          f"prompt={SEAMLESS_P} gen={M2_GEN}: {fmt(stats)}")
+    # every tensor counted: 0.615 B; `param_count()` (0.564) leaves out the
+    # cross-attention's weights
+    require(abs(stats["params_B"] - 0.615) < 0.001,
+            f"(n2) {stats['params_B']} B parameters, expected 0.615 "
+            f"(param_count() {cfg_e.param_count() / 1e9:.3f})")
+    ops.reset_launches()
+    gen_toks = engine.generate(params, cfg_e, prompt,
+                               SEAMLESS_P + M2_GEN, M2_GEN)
+    torch.cuda.synchronize()
+    counts = take_counts("(n2) seamless generate", ["flash_attention"], {
+        "flash_attention": n_flash(cfg_e)[0], "gossip_mix": 0,
+        "gossip_mix_quant": 0, "krasulina_xi": 0, "krasulina_xi_gossip": 0})
+    variants = dict(ops.flash_launches)
+    # the 12 causal launches are the decoder's self-attention prefill
+    print(f"main (n2) seamless generate: tokens equal to the static path's "
+          f"{torch.equal(gen_toks, out)}; launches={json.dumps(counts)} by "
+          f"kernel {json.dumps(variants)} ({cfg_e.encoder_layers} encoder + "
+          f"{cfg_e.num_layers} cross unmasked, {cfg_e.num_layers} causal)")
+    require(torch.equal(gen_toks, out), "(n2) seamless: generate differs "
+                                        "from the static path")
+    require(variants["wgmma"] == n_flash(cfg_e)[0],
+            f"(n2) seamless generate: flash launches by kernel {variants}")
+    del params, out, gen_toks, prompt
+    torch.cuda.empty_cache()
 
     # ----------------------------------------------------------------- timing
     def bound(bytes_moved, flops, flops_per_s):
@@ -2680,6 +2974,40 @@ def main() -> int:
         del q, k, v
         torch.cuda.empty_cache()
     main_shape, wide = timed
+    # recurrentgemma-9b's prefill at D = 256 (the mma.sync kernel): its one
+    # KV head broadcast as the model's `_flash` does, causal with a window
+    # of 2048 over 4096 tokens. The operations are 4 B H D per live (q, k)
+    # pair; the bytes the kernel's q, k, v read and out written once. SDPA
+    # takes the window as a boolean mask.
+    B_, H_, S_, W_ = RG_FLASH
+    q = randn(B_, S_, H_, 256, dtype=torch.bfloat16)
+    k1, v1 = (randn(B_, S_, 1, 256, dtype=torch.bfloat16) for _ in range(2))
+    qh, kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(H_ // t.shape[2], 1)
+                  .contiguous() for t in (q, k1, v1))
+    e = compare_bf16_attention(
+        f"flash_attention mma_sync bfloat16 B={B_} H={H_} Sq={S_} Sk={S_} "
+        f"D=256 causal=True window={W_} (recurrentgemma-9b prefill, the "
+        f"model's MQA broadcast)", L._flash(q, k1, v1, window=W_)
+        .permute(0, 2, 1, 3), qh, kh, vh, dict(causal=True, window=W_))
+    pos = torch.arange(S_, device=dev)
+    band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - W_)
+    pairs = int(band.sum())
+    d256 = measure(
+        "flash_attention", f"bf16 causal window={W_} B={B_} H={H_} S={S_} "
+        f"D=256 (recurrentgemma-9b)",
+        lambda: ops.attention(qh, kh, vh, causal=True, window=W_),
+        lambda: ref.attention_ref(qh, kh, vh, causal=True, window=W_),
+        4 * qh.numel() * 2, 4 * B_ * H_ * 256 * pairs,
+        library=lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=band),
+        flops_per_s=BF16_FLOPS_PER_S)
+    d256.update(kernel=flash_route(qh, kh, vh),
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                max_abs_err=e,
+                launches=flash_total["mma_sync"],
+                launches_by_kernel=dict(flash_total))
+    del q, k1, v1, qh, kh, vh, band
+    torch.cuda.empty_cache()
     rows.append({"name": "flash_attention", "route": "cuda",
                  "source": SOURCES["flash_attention"],
                  "replaces": REPLACES["flash_attention"],
@@ -2690,7 +3018,8 @@ def main() -> int:
                  "bound_by": main_shape["bound_by"],
                  "library_ms": main_shape["library_ms"],
                  "shape": main_shape["shape"], "wide": wide,
-                 "mma_sync_ms": main_shape["mma_sync_ms"]})
+                 "mma_sync_ms": main_shape["mma_sync_ms"], "d256": d256,
+                 "launches_by_kernel": dict(flash_total)})
     # both gossip kernels at the trainer's shape (h): the packed bf16
     # gradient buffer of 4 nodes, and of (k1)'s 3-node cohort (its first 3
     # rows). CUDA events around a few calls (one call moves 10 GB, so launch

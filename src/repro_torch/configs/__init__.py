@@ -1,10 +1,9 @@
 """Configs of the port: `base` (copied whole), the paper's PCA and logistic
 regression experiments, and the architecture registry: ``--arch <id>``
 resolves through :func:`get_config`. Every architecture id of the reference
-is known; the seven attention-based archs resolve (the dense GQA, MLA, MoE
-and early-fusion families), and the SSD, RG-LRU and encoder-decoder archs
-(`mamba2-2.7b`, `recurrentgemma-9b`, `seamless-m4t-medium`) raise
-`NotImplementedError` until their families are ported."""
+is known and resolves: the dense GQA, MLA, MoE and early-fusion families,
+the SSD (`mamba2-2.7b`), RG-LRU hybrid (`recurrentgemma-9b`) and
+encoder-decoder (`seamless-m4t-medium`) ones."""
 from __future__ import annotations
 
 import importlib
@@ -24,7 +23,8 @@ _ARCH_MODULES = {
     "mamba2-2.7b": "mamba2_2_7b",
 }
 _PORTED = ("granite-8b", "phi4-mini-3.8b", "starcoder2-15b", "chameleon-34b",
-           "minicpm3-4b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e")
+           "minicpm3-4b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+           "mamba2-2.7b", "recurrentgemma-9b", "seamless-m4t-medium")
 
 ARCH_IDS = tuple(_ARCH_MODULES)
 

@@ -26,7 +26,11 @@ from repro_torch.train.trainer import TrainState
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, copy=True), device=device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":  # numpy's bf16 extension type: by its bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
+            device)
+    return torch.as_tensor(a, device=device)
 
 
 def krasulina_state(w, t, *, device: DeviceLike = None) -> KrasulinaState:
@@ -82,16 +86,29 @@ def lm_params(tree, *, device: DeviceLike = None,
     numpy leaves: {"embed", "final_norm", "layers": [per period position, a
     dict of leaves stacked [n_rep, ...]], "tail": [dicts]} (+ "unembed").
     Layer r * period + i of the port is `layers[i]` at index r, followed by
-    the tail, the order in which the reference's scan runs them. With
-    `node_axis`, every leaf leads with the decentralized node axis
-    ([N, n_rep, ...] in "layers"), and so does every port leaf. The leaves
-    keep their dtypes (a MoE router stays f32 in a bf16 model)."""
+    the tail, the order in which the reference's scan runs them. An
+    encoder-decoder's tree {"embed", "frontend_proj", "encoder", "decoder",
+    "final_norm"}, each stack [n_layers, ...], becomes a list of per-layer
+    dicts under "encoder" and "decoder". With `node_axis`, every leaf leads
+    with the decentralized node axis ([N, n_rep, ...] in "layers"), and so
+    does every port leaf. The leaves keep their dtypes (a MoE router, an
+    SSD's A_log, D and dt_bias, an RG-LRU's lam stay f32 in a bf16
+    model)."""
     dev = resolve_device(device)
     conv = lambda a: _tensor(a, dev)
     ax = 1 if node_axis else 0
+    take = lambda a, r: np.take(np.asarray(a), r, axis=ax)
+    unstack = lambda stack: [
+        tree_map(lambda a, r=r: conv(take(a, r)), stack)
+        for r in range(np.asarray(_first_leaf(stack)).shape[ax])]
+    if "encoder" in tree:
+        return {"embed": conv(tree["embed"]),
+                "frontend_proj": conv(tree["frontend_proj"]),
+                "encoder": unstack(tree["encoder"]),
+                "decoder": unstack(tree["decoder"]),
+                "final_norm": tree_map(conv, tree["final_norm"])}
     period = tree["layers"]
     n_rep = np.asarray(_first_leaf(period[0])).shape[ax] if period else 0
-    take = lambda a, r: np.take(np.asarray(a), r, axis=ax)
     blocks = [tree_map(lambda a, r=r: conv(take(a, r)), spec)
               for r in range(n_rep) for spec in period]
     blocks += [tree_map(conv, block) for block in tree["tail"]]
@@ -109,11 +126,18 @@ def lm_tree(params: Dict[str, Any], cfg: ModelConfig,
     """The inverse of `lm_params`: the reference's tree, as numpy, with the
     period positions stacked again as `cfg`'s plan lays them out (after the
     node axis, with `node_axis`)."""
-    period, n_rep, tail = build_plan(cfg, window_override)
     npy = lambda t: t.detach().cpu().numpy()
+    ax = 1 if node_axis else 0
+    if "encoder" in params:
+        stack = lambda blocks: _stack([tree_map(npy, b) for b in blocks], ax)
+        return {"embed": npy(params["embed"]),
+                "frontend_proj": npy(params["frontend_proj"]),
+                "encoder": stack(params["encoder"]),
+                "decoder": stack(params["decoder"]),
+                "final_norm": tree_map(npy, params["final_norm"])}
+    period, n_rep, tail = build_plan(cfg, window_override)
     blocks = params["blocks"]
     P = len(period)
-    ax = 1 if node_axis else 0
     layers = [_stack([tree_map(npy, blocks[r * P + i]) for r in range(n_rep)],
                      ax) for i in range(P)]
     out = {"embed": npy(params["embed"]),

@@ -9,7 +9,7 @@
 // than 64 and 128, or pointers not 16-byte aligned); `flash_variant` in
 // kernels/flash_attention.py picks by shape.
 //
-// q, k, v, out: [B*H, S, D] contiguous, f32 or bf16, D <= 128 (GQA heads
+// q, k, v, out: [B*H, S, D] contiguous, f32 or bf16, D <= 256 (GQA heads
 // already repeated by the caller). Query i and key j are positions i and j,
 // both counted from 0 (a prefix alignment when Sq < Sk). Keys at or past Sk
 // are masked, and a row whose keys are all masked outputs 0, as in
@@ -21,7 +21,10 @@
 // the kernel must read q, k, v and write out, 16.8 MB, or 5.0 us at
 // 3.35 TB/s, against 2.1 GFLOP (2.2 us at 989 TFLOP/s bf16): bytes. At
 // S = 4096 the causal products are 137 GFLOP (139 us) against 134 MB
-// (40 us): operations on the tensor cores.
+// (40 us): operations on the tensor cores. recurrentgemma-9b's local
+// attention (B = 2, 16 heads, D = 256, S = 4096, window 2048) is operations
+// too: 4 * B * H * D flops for each of ~6.3M live (q, k) pairs, 0.21
+// TFLOP (0.21 ms at 989 TFLOP/s), against 268 MB (80 us).
 //
 // Design: one block per (b*h, 64-row query tile); a loop inside the block
 // over 64-key tiles takes the place of the TPU's sequential kv grid axis
@@ -34,11 +37,18 @@
 //    cores with `mma.sync.m16n8k16` (bf16 inputs, f32 accumulation); the
 //    score fragment is rescaled and exponentiated in registers and rounded
 //    to bf16 as the A operand of P v (as `blockwise_attention` rounds p to
-//    v's dtype). K is staged in shared memory row-major, V transposed, both
-//    with padded rows so that the fragment loads hit distinct banks.
+//    v's dtype). K is staged in (dynamic) shared memory row-major, V
+//    transposed, both with padded rows so that the fragment loads hit
+//    distinct banks. Up to D = 128 the Q fragments stay in registers; at
+//    D = 256 the output accumulator alone takes 128 f32 registers a
+//    thread, so Q stays in shared memory and each 16-deep slice of its
+//    fragment is loaded where the Q k^T loop needs it (104 KB of shared
+//    memory a block, above the 48 KB static limit: the launch sets the
+//    dynamic limit).
 //  * f32: 256 threads, four per query row, plain f32 FMAs (no TF32: the
 //    reference's f32 tolerance is 2e-5). Q, K, V and the probability tile sit
-//    in shared memory.
+//    in shared memory (209 KB at D = 256, with the dynamic limit set); the
+//    output accumulator is sized by the head-dim bucket (128 or 256).
 // This bf16 path uses Ampere's mma.sync and plain loads between barriers;
 // flash_attention_sm90.cu is the wgmma, TMA and warp-specialised kernel.
 #include "attention.cuh"
@@ -115,6 +125,31 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* __restrict__ src,
   }
 }
 
+// The bf16 kernel's layout for the head-dim bucket DP: K rows at stride
+// DP + 8, V transposed at stride kTileK + 8, and (DP > 128) Q rows at
+// stride DP + 8 for the whole block's life.
+template <int DP>
+struct Bf16Smem {
+  static constexpr int kStr = DP + 8;       // K (and Q) row stride
+  static constexpr int vStr = kTileK + 8;   // transposed V row stride
+  static constexpr bool kQInSmem = DP > 128;
+  static constexpr int kElems = kTileK * kStr;
+  static constexpr int vElems = DP * vStr;
+  static constexpr int qElems = kQInSmem ? kTileQ * kStr : 0;
+  static constexpr size_t kBytes =
+      sizeof(__nv_bfloat16) * (size_t)(kElems + vElems + qElems);
+};
+
+// The A fragment of Q's 16-deep slice `s` for the warp's rows wr, wr + 8.
+__device__ __forceinline__ void q_fragment(const __nv_bfloat16* tile,
+                                           int stride, int wr, int tig, int s,
+                                           uint32_t* a) {
+  a[0] = ld32(tile + wr * stride + s * 16 + tig * 2);
+  a[1] = ld32(tile + (wr + 8) * stride + s * 16 + tig * 2);
+  a[2] = ld32(tile + wr * stride + s * 16 + 8 + tig * 2);
+  a[3] = ld32(tile + (wr + 8) * stride + s * 16 + 8 + tig * 2);
+}
+
 template <int DP>
 __global__ void __launch_bounds__(128)
     flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
@@ -122,12 +157,14 @@ __global__ void __launch_bounds__(128)
                       const __nv_bfloat16* __restrict__ v,
                       __nv_bfloat16* __restrict__ out, int Sq, int Sk, int D,
                       Mask mask, float scale, int vec) {
-  constexpr int kStr = DP + 8;       // K (and staged Q) row stride
-  constexpr int vStr = kTileK + 8;   // transposed V row stride
+  using L = Bf16Smem<DP>;
+  constexpr int kStr = L::kStr, vStr = L::vStr;
   constexpr int kSteps = DP / 16;    // 16-deep slices of the head dim
   constexpr int nTiles = DP / 8;     // 8-wide output column tiles
-  __shared__ __align__(16) __nv_bfloat16 ks[kTileK * kStr];
-  __shared__ __align__(16) __nv_bfloat16 vt[DP * vStr];
+  extern __shared__ __align__(16) unsigned char flash_smem[];
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(flash_smem);
+  __nv_bfloat16* vt = ks + L::kElems;
+  __nv_bfloat16* qs = L::kQInSmem ? vt + L::vElems : ks;
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTileQ;  // longest rows first
@@ -135,17 +172,15 @@ __global__ void __launch_bounds__(128)
   const int g = lane >> 2, tig = lane & 3;
   const long long qoff = (long long)bh * Sq * D, koff = (long long)bh * Sk * D;
 
-  // Q fragments (A operand, 16 rows per warp) stay in registers throughout.
-  load_tile<DP>(q + qoff, Sq, q0, D, vec, ks, kStr, false);
+  // Q fragments (A operand, 16 rows per warp): in registers throughout up
+  // to DP = 128 (staged through the K tile), else read from qs per slice.
+  load_tile<DP>(q + qoff, Sq, q0, D, vec, qs, kStr, false);
   __syncthreads();
-  uint32_t qf[kSteps][4];
   const int wr = warp * 16 + g;
+  uint32_t qf[L::kQInSmem ? 1 : kSteps][4];
+  if constexpr (!L::kQInSmem) {
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    qf[s][0] = ld32(ks + wr * kStr + s * 16 + tig * 2);
-    qf[s][1] = ld32(ks + (wr + 8) * kStr + s * 16 + tig * 2);
-    qf[s][2] = ld32(ks + wr * kStr + s * 16 + 8 + tig * 2);
-    qf[s][3] = ld32(ks + (wr + 8) * kStr + s * 16 + 8 + tig * 2);
+    for (int s = 0; s < kSteps; ++s) q_fragment(qs, kStr, wr, tig, s, qf[s]);
   }
 
   float o[nTiles][4];
@@ -169,10 +204,18 @@ __global__ void __launch_bounds__(128)
     for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int st = 0; st < kSteps; ++st) {
+      uint32_t qa[4];
+      const uint32_t* a = qf[0];
+      if constexpr (L::kQInSmem) {
+        q_fragment(qs, kStr, wr, tig, st, qa);
+        a = qa;
+      } else {
+        a = qf[st];
+      }
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const __nv_bfloat16* kr = ks + (n * 8 + g) * kStr + st * 16 + tig * 2;
-        mma_bf16(s[n], qf[st], ld32(kr), ld32(kr + 8));
+        mma_bf16(s[n], a, ld32(kr), ld32(kr + 8));
       }
     }
     // scale and mask; element e of tile n is row qrow[e >> 1], key
@@ -251,10 +294,13 @@ __device__ __forceinline__ void load_rows_f32(const float* __restrict__ src,
   }
 }
 
+// DMAX: the head-dim bucket (128 or 256), which sizes the accumulator.
+template <int DMAX>
 __global__ void __launch_bounds__(kF32Threads)
     flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
                      int Sq, int Sk, int D, Mask mask, float scale) {
+  constexpr int kCols = DMAX / 4;  // output columns a thread owns
   extern __shared__ float smem[];
   const int qkStr = D + 1;  // odd stride: the rows of a warp hit distinct banks
   float* qs = smem;                      // [64][D + 1]
@@ -270,9 +316,9 @@ __global__ void __launch_bounds__(kF32Threads)
 
   load_rows_f32(q + qoff, Sq, q0, D, qs, qkStr);
   // thread (r, c4) owns scores of keys c4 + 4j and output columns c4 + 4i
-  float o[32];
+  float o[kCols];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < kCols; ++i) o[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   int lo, hi;
@@ -302,7 +348,7 @@ __global__ void __launch_bounds__(kF32Threads)
     const float corr = rescale(&m, quad_max(mx));
     l *= corr;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= corr;
+    for (int i = 0; i < kCols; ++i) o[i] *= corr;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const float p = prob(s[j], m);
@@ -313,19 +359,20 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int kk = 0; kk < kTileK; ++kk) {
       const float p = ps[r * (kTileK + 1) + kk];
 #pragma unroll
-      for (int i = 0; i < 32; ++i)
+      for (int i = 0; i < kCols; ++i)
         if (c4 + 4 * i < D) o[i] = fmaf(p, vs[kk * D + c4 + 4 * i], o[i]);
     }
   }
   const float denom = fmaxf(quad_sum(l), 1e-30f);
   if (qp < Sq) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
+    for (int i = 0; i < kCols; ++i)
       if (c4 + 4 * i < D)
         out[qoff + (long long)qp * D + c4 + 4 * i] = o[i] / denom;
   }
 }
 
+template <int DMAX>
 static int launch_f32(const void* q, const void* k, const void* v, void* out,
                       int BH, int Sq, int Sk, int D, const Mask& mask,
                       float scale, cudaStream_t stream) {
@@ -333,10 +380,10 @@ static int launch_f32(const void* q, const void* k, const void* v, void* out,
       sizeof(float) * (2ull * kTileQ * (D + 1) + kTileK * D +
                        kTileQ * (kTileK + 1));
   static size_t granted = 0;
-  cudaError_t err = allow_smem(flash_f32_kernel, smem, &granted);
+  cudaError_t err = allow_smem(flash_f32_kernel<DMAX>, smem, &granted);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(BH, (Sq + kTileQ - 1) / kTileQ);
-  flash_f32_kernel<<<grid, kF32Threads, smem, stream>>>(
+  flash_f32_kernel<DMAX><<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), Sq, Sk, D, mask,
       scale);
@@ -347,8 +394,12 @@ template <int DP>
 static int launch_bf16(const void* q, const void* k, const void* v, void* out,
                        int BH, int Sq, int Sk, int D, const Mask& mask,
                        float scale, int vec, cudaStream_t stream) {
+  static size_t granted = 0;
+  cudaError_t err =
+      allow_smem(flash_bf16_kernel<DP>, Bf16Smem<DP>::kBytes, &granted);
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid(BH, (Sq + kTileQ - 1) / kTileQ);
-  flash_bf16_kernel<DP><<<grid, 128, 0, stream>>>(
+  flash_bf16_kernel<DP><<<grid, 128, Bf16Smem<DP>::kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq,
       Sk, D, mask, scale, vec);
@@ -365,13 +416,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Sk, int D, int causal, int window,
                                       int chunk, float scale, int dtype,
                                       int vec, void* stream) {
-  if (BH < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 128 || window < 0 ||
+  if (BH < 1 || Sq < 1 || Sk < 1 || D < 1 || D > 256 || window < 0 ||
       chunk < 0 || (Sq + repro::kTileQ - 1) / repro::kTileQ > 65535)
     return (int)cudaErrorInvalidValue;
   const repro::Mask mask{causal != 0, window, chunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return repro::launch_f32(q, k, v, out, BH, Sq, Sk, D, mask, scale, s);
+    return D <= 128
+               ? repro::launch_f32<128>(q, k, v, out, BH, Sq, Sk, D, mask,
+                                        scale, s)
+               : repro::launch_f32<256>(q, k, v, out, BH, Sq, Sk, D, mask,
+                                        scale, s);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (D <= 32)
     return repro::launch_bf16<32>(q, k, v, out, BH, Sq, Sk, D, mask, scale,
@@ -379,6 +434,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (D <= 64)
     return repro::launch_bf16<64>(q, k, v, out, BH, Sq, Sk, D, mask, scale,
                                   vec, s);
-  return repro::launch_bf16<128>(q, k, v, out, BH, Sq, Sk, D, mask, scale,
+  if (D <= 128)
+    return repro::launch_bf16<128>(q, k, v, out, BH, Sq, Sk, D, mask, scale,
+                                   vec, s);
+  return repro::launch_bf16<256>(q, k, v, out, BH, Sq, Sk, D, mask, scale,
                                  vec, s);
 }

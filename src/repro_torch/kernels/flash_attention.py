@@ -8,9 +8,10 @@ chunked-local masks: `flash_attention_cuda` replaces the Pallas
   Hopper: one thread of a producer warpgroup streams K and V tiles by TMA
   into a two-stage ring; two consumer warpgroups run both products with
   `wgmma` (P from registers).
-* "mma_sync" (`csrc/flash_attention.cu`): bf16 at other head dims, with
-  Ampere's `mma.sync` and plain loads.
-* "f32" (`csrc/flash_attention.cu`): f32, plain FMAs.
+* "mma_sync" (`csrc/flash_attention.cu`): bf16 at other head dims (up to
+  256: recurrentgemma-9b's local attention), with Ampere's `mma.sync` and
+  plain loads.
+* "f32" (`csrc/flash_attention.cu`): f32, plain FMAs, D up to 256.
 
 Each block owns a query tile and loops over the key tiles that hold a live
 (query, key) pair, carrying the online-softmax statistics in registers. The
@@ -18,9 +19,10 @@ TPU kernel's lane-replicated statistics and sequential kv grid axis are not
 carried over.
 
 Keys at or past Sk are masked and a fully masked row is 0, as in
-`ref.attention_ref`; the Pallas kernel instead pads Sk with zero keys that a
-causal call with Sq > Sk can attend to, and gives a fully masked row the
-mean of the values it visited.
+`ref.attention_ref`, so any Sk is taken with any mask; the Pallas kernel
+instead pads Sk with zero keys that a causal call with Sq > Sk can attend
+to (and so refuses unmasked attention unless Sk is a multiple of its key
+block), and gives a fully masked row the mean of the values it visited.
 """
 from __future__ import annotations
 
@@ -30,8 +32,7 @@ import torch
 
 from repro_torch.kernels import _cuda
 
-MAX_HEAD_DIM = 128
-REF_BLOCK_K = 128  # the Pallas kernel's default block_k
+MAX_HEAD_DIM = 256
 VARIANTS = ("wgmma", "mma_sync", "f32")
 SM90_HEAD_DIMS = (64, 128)  # the head dims of the wgmma kernel
 
@@ -57,20 +58,12 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return flash_variant(q.dtype, q.shape[-1], _aligned(q, k, v))
 
 
-def check_masking(sk: int, causal: bool, window: int, chunk: int) -> None:
-    """The reference's rule: unmasked attention needs Sk divisible by its key
-    block, min(128, Sk). Kept so that both packages take the same inputs."""
-    bk = min(REF_BLOCK_K, sk)
-    if sk % bk and not (causal or window or chunk):
-        raise ValueError("unmasked attention requires Sk divisible by block_k")
-
-
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0,
                          chunk: int = 0) -> torch.Tensor:
     """Masked attention on the card. q: [B, H, Sq, D]; k, v: [B, H, Sk, D]
     (GQA heads repeated by the caller); contiguous CUDA tensors of one dtype,
-    f32 or bf16, D <= 128. Scale 1/sqrt(D); query and key positions both
+    f32 or bf16, D <= 256. Scale 1/sqrt(D); query and key positions both
     count from 0. Returns [B, H, Sq, D] in q's dtype."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention: q must be [B, H, Sq, D], got "
@@ -88,7 +81,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"[1, {MAX_HEAD_DIM}]")
     if window < 0 or chunk < 0:
         raise ValueError(f"window={window} and chunk={chunk} must be >= 0")
-    check_masking(Sk, causal, window, chunk)
     out = torch.empty_like(q)
     if out.numel() == 0 or Sk == 0:
         return out.zero_()

@@ -18,7 +18,7 @@ from repro_torch.kernels.consensus import (GOSSIP_DESIGNS, QUANT_CLUSTERS,
                                            gossip_mix_quant_cuda,
                                            quant_cluster_size, quant_route,
                                            quant_tile_of)
-from repro_torch.kernels.flash_attention import (VARIANTS, check_masking,
+from repro_torch.kernels.flash_attention import (VARIANTS,
                                                  flash_attention_cuda, route)
 from repro_torch.kernels.krasulina_update import (XI_DESIGNS,
                                                   XI_GOSSIP_DESIGNS,
@@ -153,14 +153,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               chunk: int = 0) -> torch.Tensor:
     """Masked attention, q: [B, H, Sq, D], k/v: [B, H, Sk, D] (GQA heads
     repeated), scale 1/sqrt(D), query and key positions counted from 0;
-    fully masked rows are 0. Unmasked attention takes Sk divisible by
-    min(128, Sk) on every device, as the reference's kernel does.
+    fully masked rows are 0. Any Sk is taken with any mask, on every device
+    (the reference's Pallas kernel refuses unmasked attention unless Sk is
+    a multiple of min(128, Sk), because it pads keys; the port masks them).
 
     The flash kernel has no backward (the reference's has none either), so
     on the card a call that autograd would have to differentiate raises:
     training takes `models.layers.blockwise_attention`
     (`apply_attention(..., train=True)`)."""
-    check_masking(k.shape[2], causal, window, chunk)
     if not _on_cuda(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  chunk=chunk)

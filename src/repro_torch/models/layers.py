@@ -4,12 +4,13 @@ with a KV cache (full, or a W-slot ring for sliding-window layers), the MLA
 block with its latent cache, the vocab projection and the gated FFN.
 
 Weights keep the reference's [in, out] layout (`x @ W`), so carrying them
-across is a copy. GQA prefill attention of more than 16 tokens goes through
+across is a copy. GQA attention of more than 16 fresh query positions
+(a causal prefill, an encoder's full attention, a decoder's
+cross-attention into its encoder memory) goes through
 `kernels.ops.attention` (the Hopper flash kernel on the card, which has no
 backward); every other attention call, MLA's included, and every call of
 the training loss (`train=True`), is the plain, differentiable
 `blockwise_attention` below, where the reference runs jnp code too.
-Cross-attention (encoder-decoder) is not ported yet: it raises.
 """
 from __future__ import annotations
 
@@ -209,16 +210,17 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     }
 
 
-def _flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   window: int, chunk: int) -> torch.Tensor:
-    """Causal attention of S fresh positions through `ops.attention`:
-    q [B, S, H, D], k/v [B, S, KH, D] -> [B, S, H, D] in k's dtype."""
-    B, S, H, D = q.shape
-    G = H // k.shape[2]
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool = True, window: int = 0,
+           chunk: int = 0) -> torch.Tensor:
+    """Attention of fresh k/v through `ops.attention`, positions of q and k
+    both counted from 0: q [B, Sq, H, D], k/v [B, Sk, KH, D] -> [B, Sq, H,
+    D] in k's dtype."""
+    G = q.shape[2] // k.shape[2]
     qh = q.to(k.dtype).permute(0, 2, 1, 3).contiguous()
     kh = k.repeat_interleave(G, dim=2).permute(0, 2, 1, 3).contiguous()
     vh = v.repeat_interleave(G, dim=2).permute(0, 2, 1, 3).contiguous()
-    out = ops.attention(qh, kh, vh, causal=True, window=window, chunk=chunk)
+    out = ops.attention(qh, kh, vh, causal=causal, window=window, chunk=chunk)
     return out.permute(0, 2, 1, 3)
 
 
@@ -243,33 +245,41 @@ def apply_attention(
     Routing, fixed by shape and by `train`: a call of S > 16 positions with
     no cache, or with the Python integer cache_index 0 (prefill), runs
     `ops.attention` on the fresh k/v (the flash kernel on the card, or
-    raise); every other call (decode against the cache, prompts of 16
-    tokens or fewer, a multi-token call at a non-zero index) runs
-    `blockwise_attention`. `train=True` (the training loss) always runs
-    `blockwise_attention`, which autograd differentiates: the flash kernel
-    has no backward, in the reference as here, and the reference trains
-    through its jnp `blockwise_attention` too. A sliding-window layer whose
-    cache is a ring of W <= window slots (`cfg.ring_buffer_cache`) takes
-    `_ring_attention`."""
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention (encoder-decoder) is not "
-                                  "ported yet")
+    raise), masked or not, at any key count; every other call (decode
+    against the cache, prompts of 16 tokens or fewer, a multi-token call at
+    a non-zero index) runs `blockwise_attention`. `train=True` (the training loss)
+    always runs `blockwise_attention`, which autograd differentiates: the
+    flash kernel has no backward, in the reference as here, and the
+    reference trains through its jnp `blockwise_attention` too. A
+    sliding-window layer whose cache is a ring of W <= window slots
+    (`cfg.ring_buffer_cache`) takes `_ring_attention`.
+
+    Cross-attention (`cross_kv`: the encoder memory's k/v [B, Sk, KH, hd])
+    attends without a mask, RoPE, a qk-norm on k or a cache write; it is
+    fresh whatever the cache, so it routes as a prefill does."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KH = cfg.num_heads, cfg.num_kv_heads
 
     q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KH, hd)
-    v = (x @ p["wv"]).reshape(B, S, KH, hd)
+    if cross_kv is None:
+        k = (x @ p["wk"]).reshape(B, S, KH, hd)
+        v = (x @ p["wv"]).reshape(B, S, KH, hd)
+    else:
+        k, v = cross_kv
     if cfg.use_qk_norm:
-        q, k = rms_norm_headdim(q), rms_norm_headdim(k)
-    if use_rope:
+        q = rms_norm_headdim(q)
+        if cross_kv is None:
+            k = rms_norm_headdim(k)
+    if use_rope and cross_kv is None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    causal = attn_mode in ("causal", "window", "chunk")
+    causal = attn_mode in ("causal", "window", "chunk") and cross_kv is None
     eff_window = window if attn_mode == "window" else 0
     eff_chunk = window if attn_mode == "chunk" else 0
+    if cross_kv is not None:
+        cache = None
 
     if (cache is not None and cfg.ring_buffer_cache and attn_mode == "window"
             and window and cache["k"].shape[1] <= window):
@@ -289,11 +299,12 @@ def apply_attention(
             cache["k"][:, cache_index:cache_index + S] = k
             cache["v"][:, cache_index:cache_index + S] = v
 
-    if S >= FLASH_MIN_SEQ and prefill and causal and not train:
+    if S >= FLASH_MIN_SEQ and prefill and not train:
         # The reference's prefill attends over the whole max_len cache with
         # kv_valid = S; the causal mask already excludes every slot at or past
         # S, so attending over the S fresh (cache-dtype) k/v is the same sum.
-        out = _flash_prefill(q, k, v, window=eff_window, chunk=eff_chunk)
+        out = _flash(q, k, v, causal=causal, window=eff_window,
+                     chunk=eff_chunk)
     elif cache is not None:
         out = blockwise_attention(q, cache["k"], cache["v"], causal=causal,
                                   window=eff_window, chunk=eff_chunk,
@@ -334,7 +345,7 @@ def _ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return blockwise_attention(q, cache["k"], cache["v"], causal=False,
                                    kv_valid=kvv)
     if S >= FLASH_MIN_SEQ:
-        out = _flash_prefill(q, k, v, window=window, chunk=0)
+        out = _flash(q, k, v, window=window)
     else:
         out = blockwise_attention(q, k, v, causal=True, window=window)
     if S >= W:

@@ -1,6 +1,6 @@
-"""Unified model API of the port (the decoder-only assembly of the
-attention-based families, its training loss included), plus `synth_batch`.
-Encoder-decoder families are not ported yet and raise; the reference's
+"""Unified model API of the port over the decoder-only assembly
+(`models/transformer.py`) and the encoder-decoder one (`models/encdec.py`),
+their training losses included, plus `synth_batch`. The reference's
 `input_specs` (abstract shapes for its multi-pod dry-run) has no
 counterpart on one card.
 """
@@ -12,16 +12,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import DeviceLike
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
+# Encoder memory length of an encoder-decoder's cache (the stubbed
+# frontend's frames), as in the reference.
+ENC_LEN = 4096
 # Early-fusion image prefix length for VLM/early-fusion train batches.
 IMG_PREFIX = 256
 
 
 def _mod(cfg: ModelConfig):
-    if cfg.is_encdec:
-        raise NotImplementedError("encoder-decoder families are not ported yet")
-    return transformer
+    return encdec if cfg.is_encdec else transformer
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
@@ -33,7 +34,8 @@ def init_params(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32,
 def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = True,
             window_override: int = 0):
     """(loss, {"ce", "aux"}) of a batch {"tokens", "labels"} [B, S] (and
-    "patches" [B, n, frontend_embed_dim] for early fusion)."""
+    "patches" [B, n, frontend_embed_dim] for early fusion, "frames" [B, Se,
+    frontend_embed_dim] for an encoder-decoder)."""
     return _mod(cfg).loss_fn(params, cfg, batch, remat=remat,
                              window_override=window_override)
 
@@ -45,8 +47,13 @@ def forward(params, cfg: ModelConfig, batch, **kw):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, window_override: int = 0, *,
                device: DeviceLike = None):
-    return _mod(cfg).init_cache(cfg, batch, max_len, dtype,
-                                window_override=window_override, device=device)
+    if cfg.is_encdec:
+        return encdec.init_cache(cfg, batch, max_len, dtype, enc_len=ENC_LEN,
+                                 window_override=window_override,
+                                 device=device)
+    return transformer.init_cache(cfg, batch, max_len, dtype,
+                                  window_override=window_override,
+                                  device=device)
 
 
 def prefill(params, cfg: ModelConfig, batch, cache, *,
@@ -65,9 +72,10 @@ def synth_batch(gen: torch.Generator, cfg: ModelConfig, shape_or_batch,
                 seq_len: Optional[int] = None,
                 mode: str = "train") -> Dict[str, torch.Tensor]:
     """Random tokens (and labels for "train") drawn from `gen`, on its
-    device; an early-fusion arch's "train" batch also gets standard-normal
-    "patches" [B, min(IMG_PREFIX, S), frontend_embed_dim] in f32."""
-    _mod(cfg)  # refuses encoder-decoder configs
+    device; an encoder-decoder's batch also gets standard-normal "frames"
+    [B, min(ENC_LEN, S), frontend_embed_dim] in f32, an early-fusion arch's
+    "train" batch standard-normal "patches" [B, min(IMG_PREFIX, S),
+    frontend_embed_dim] in f32."""
     if isinstance(shape_or_batch, ShapeConfig):
         B, S, mode = (shape_or_batch.global_batch, shape_or_batch.seq_len,
                       shape_or_batch.mode)
@@ -78,7 +86,11 @@ def synth_batch(gen: torch.Generator, cfg: ModelConfig, shape_or_batch,
     batch = {"tokens": draw()}
     if mode == "train":
         batch["labels"] = draw()
-    if cfg.frontend_embed_dim and mode == "train":
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn(
+            (B, min(ENC_LEN, S), cfg.frontend_embed_dim), generator=gen,
+            device=gen.device)
+    elif cfg.frontend_embed_dim and mode == "train":
         batch["patches"] = torch.randn(
             (B, min(IMG_PREFIX, S), cfg.frontend_embed_dim), generator=gen,
             device=gen.device)

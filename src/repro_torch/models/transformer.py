@@ -1,19 +1,23 @@
-"""Decoder-only transformer assembly for the attention-based families:
-dense GQA, MLA, MoE and early fusion.
+"""Decoder-only transformer assembly of the port: the dense GQA, MLA, MoE,
+early-fusion, SSD (ssm) and RG-LRU hybrid families.
 
 The reference groups layers into super-blocks and scans over stacked
 super-block parameters (`lax.scan`) to keep compile time O(period). The port
 runs eagerly, so it keeps one parameter dict per layer and one KV-cache dict
 per layer, in the order `layer_specs` gives, and loops over them in Python;
 `convert.lm_params` interleaves the reference's stacked tree into that
-order. `build_plan` keeps the reference's (period, n_repeats, tail) form.
+order. `build_plan` keeps the reference's (period, n_repeats, tail) form:
+(ssd,) x 64 for the ssm family, and for the hybrid family its period
+(rglru, rglru, local attention) repeated, plus a tail of the period's
+first layers.
 
-Ported: GQA attention blocks (causal, sliding-window with a full or a
-ring-buffer cache, chunked-local, iRoPE NoPE layers) and MLA blocks, with
-dense or MoE FFNs (the layers' aux losses summed); the early-fusion
-frontend projection of precomputed patch embeddings; and the training loss
-(`loss_fn`) with activation checkpointing per layer. Not ported yet (they
-raise): the SSD (ssm family) and RG-LRU (hybrid family) blocks.
+Blocks: GQA attention (causal, sliding-window with a full or a
+ring-buffer cache, chunked-local, iRoPE NoPE layers) and MLA, with dense
+or MoE FFNs (the layers' aux losses summed); the Mamba-2 SSD block
+(`models/ssm.py`, no FFN) and the RG-LRU block (`models/rglru.py`), whose
+caches are per-layer recurrent states; the early-fusion frontend
+projection of precomputed patch embeddings; and the training loss
+(`loss_fn`) with activation checkpointing per layer.
 """
 from __future__ import annotations
 
@@ -27,30 +31,24 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as SSM
 from repro_torch.models.common import dense_init, embed_init
 
 Params = Dict[str, Any]
 
 
 class LayerSpec(NamedTuple):
-    kind: str  # attn | mla (rglru | ssd are not ported yet)
+    kind: str  # attn | mla | rglru | ssd
     attn_mode: str = "causal"  # causal | window | chunk
     window: int = 0
     use_rope: bool = True
     has_moe: bool = False
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet")
-
-
 def build_plan(cfg: ModelConfig, window_override: int = 0
                ) -> Tuple[Tuple[LayerSpec, ...], int, Tuple[LayerSpec, ...]]:
     """Returns (period_specs, n_repeats, tail_specs), as the reference."""
-    if cfg.family == "ssm":
-        raise _not_ported("the SSD block (ssm family)")
-    if cfg.rglru is not None:
-        raise _not_ported("the RG-LRU block (hybrid family)")
 
     def attn_spec(i: int) -> LayerSpec:
         kind = "mla" if cfg.mla is not None else "attn"
@@ -67,6 +65,17 @@ def build_plan(cfg: ModelConfig, window_override: int = 0
         has_moe = cfg.moe is not None and (i % cfg.moe.every == 0)
         return LayerSpec(kind, mode, win, rope, has_moe)
 
+    if cfg.family == "ssm":
+        return (LayerSpec("ssd"),), cfg.num_layers, ()
+    if cfg.rglru is not None:
+        r = cfg.rglru
+        period = tuple(
+            LayerSpec("attn", "window", r.local_window, True,
+                      cfg.moe is not None)
+            if i in r.attn_positions else LayerSpec("rglru")
+            for i in range(r.pattern_period))
+        return (period, cfg.num_layers // r.pattern_period,
+                period[: cfg.num_layers % r.pattern_period])
     if cfg.chunk_attn_window:
         period = tuple(attn_spec(i) for i in range(cfg.global_attn_every))
         n = cfg.num_layers // cfg.global_attn_every
@@ -87,12 +96,19 @@ def layer_specs(cfg: ModelConfig, window_override: int = 0) -> List[LayerSpec]:
 # ---------------------------------------------------------------------------
 
 
+_INIT_MIXER = {"attn": L.init_attention, "mla": L.init_mla,
+               "rglru": R.init_rglru, "ssd": SSM.init_ssd}
+
+
 def _init_block(gen: torch.Generator, cfg: ModelConfig, spec: LayerSpec,
                 dtype) -> Params:
-    init_attn = L.init_mla if spec.kind == "mla" else L.init_attention
+    """{"norm1", "attn" (the mixer: attention, MLA, RG-LRU or SSD), "norm2",
+    "ffn"}; an SSD block is the whole layer (no norm2, no FFN)."""
     p: Params = {"norm1": L.init_norm(gen, cfg.d_model, cfg.norm, dtype),
-                 "attn": init_attn(gen, cfg, dtype),
-                 "norm2": L.init_norm(gen, cfg.d_model, cfg.norm, dtype)}
+                 "attn": _INIT_MIXER[spec.kind](gen, cfg, dtype)}
+    if spec.kind == "ssd":
+        return p
+    p["norm2"] = L.init_norm(gen, cfg.d_model, cfg.norm, dtype)
     if spec.has_moe:
         p["ffn"] = M.init_moe(gen, cfg, dtype)
     elif cfg.d_ff:
@@ -133,6 +149,10 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Params, x, positions,
         out, new_cache = L.apply_mla(
             p["attn"], cfg, h, positions, attn_mode=spec.attn_mode,
             window=spec.window, cache=cache, cache_index=cache_index)
+    elif spec.kind == "rglru":
+        out, new_cache = R.apply_rglru(p["attn"], cfg, h, state=cache)
+    elif spec.kind == "ssd":
+        out, new_cache = SSM.apply_ssd(p["attn"], cfg, h, state=cache)
     else:
         out, new_cache = L.apply_attention(
             p["attn"], cfg, h, positions, attn_mode=spec.attn_mode,
@@ -225,7 +245,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 
 # ---------------------------------------------------------------------------
-# KV caches
+# KV caches and recurrent states
 # ---------------------------------------------------------------------------
 
 
@@ -235,11 +255,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """One zeroed cache per layer: {"k", "v"} [batch, L, KH, hd] for GQA,
     L = max_len, or min(max_len, W) for a sliding-window layer with
     `cfg.ring_buffer_cache`; {"ckv" [batch, max_len, kv_lora_rank],
-    "krope" [batch, max_len, 1, qk_rope_head_dim]} for MLA."""
+    "krope" [batch, max_len, 1, qk_rope_head_dim]} for MLA; the recurrent
+    state {"h" (f32), "conv"} of an RG-LRU or SSD layer."""
     dev = resolve_device(device)
     zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
     cache = []
     for spec in layer_specs(cfg, window_override):
+        if spec.kind == "rglru":
+            cache.append(R.init_rglru_state(cfg, batch, dtype, device=dev))
+            continue
+        if spec.kind == "ssd":
+            cache.append(SSM.init_ssd_state(cfg, batch, dtype, device=dev))
+            continue
         if spec.kind == "mla":
             m = cfg.mla
             cache.append({"ckv": zeros(batch, max_len, m.kv_lora_rank),

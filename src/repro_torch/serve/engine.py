@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import registry
 
 Tree = Any
@@ -36,11 +36,10 @@ class ServeState(NamedTuple):
 def init_serve(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, window_override: int = 0, *,
                device: DeviceLike = None) -> ServeState:
+    dev = resolve_device(device)
     cache = registry.init_cache(cfg, batch, max_len, dtype,
-                                window_override=window_override, device=device)
-    # the device of the cache's first tensor, whatever the layer's kind
-    first = next(iter(cache[0].values()))
-    last = torch.zeros((batch, 1), dtype=torch.long, device=first.device)
+                                window_override=window_override, device=dev)
+    last = torch.zeros((batch, 1), dtype=torch.long, device=dev)
     return ServeState(cache, last, 0)
 
 
@@ -136,8 +135,9 @@ def _insert_fn(cache, pcache, slot: int) -> None:
     """Copy a batch=1 prefilled cache into row `slot` of the pooled cache, in
     place (the reference builds a new tree with `dynamic_update_index_in_dim`).
     The whole row of every layer's tensors is overwritten, whatever their
-    names (GQA's k/v, full or ring; MLA's ckv/krope), the positions past the
-    prompt with zeros."""
+    names (GQA's k/v, full or ring; MLA's ckv/krope; the recurrent h and
+    conv tail of an SSD or RG-LRU layer), the positions past the prompt with
+    zeros."""
     for dst, src in zip(cache, pcache):
         for name in dst:
             dst[name][slot].copy_(src[name][0])
@@ -155,8 +155,10 @@ class ContinuousBatchingEngine:
       steps: a host-side reference assignment, with zero in-flight request
       loss — slots keep their cache rows and continue under the new weights
       at the next step.
-    * Greedy decode only (the benchmark/contract path). Encoder-decoder
-      families are not supported.
+    * Greedy decode only (the benchmark/contract path). The recurrent
+      families (SSD, RG-LRU) ride the same slot plumbing: their per-layer
+      states are slot rows like a KV cache's. Encoder-decoder families are
+      refused, as in the reference: they are served by `generate`.
     """
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
@@ -164,8 +166,8 @@ class ContinuousBatchingEngine:
                  window_override: int = 0, version: int = 0):
         if cfg.is_encdec:
             raise NotImplementedError(
-                "continuous batching is decoder-only; encoder-decoder "
-                "families are not ported yet")
+                "continuous batching is decoder-only; serve encoder-decoder "
+                "families with generate")
         if slots < 1 or max_len < 2:
             raise ValueError(f"bad pool: slots={slots} max_len={max_len}")
         self.cfg = cfg

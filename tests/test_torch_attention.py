@@ -1,8 +1,8 @@
 """The port's attention against the JAX package, on identical numpy inputs:
 `kernels.ref.attention_ref` and `kernels.ops.attention` (its CPU path) are
 held against the JAX `attention_ref` and the Pallas `flash_attention` in
-interpret mode on `tests/test_kernels.py`'s cases, at its tolerances (2e-5
-f32, 3e-2 bf16), and the plain model path against the JAX
+interpret mode on `tests/test_kernels.py`'s cases and at head dim 256, at
+its tolerances (2e-5 f32, 3e-2 bf16), and the plain model path against the JAX
 `blockwise_attention` at 2e-4 (`tests/test_kernels.py:90`).
 
 The hand-written kernel itself is held against `attention_ref` on the card
@@ -72,6 +72,37 @@ def test_attention_matches_jax_ref_and_pallas(B, H, Sq, Sk, D, causal, window,
         np.testing.assert_allclose(_f32(got), _f32(other), rtol=tol, atol=tol)
 
 
+# head dim 256 (recurrentgemma-9b's local attention), each mask kind, Sq
+# and Sk not multiples of 64, and Sq < Sk unmasked (a cross-attention)
+D256_CASES = [
+    (1, 2, 136, 136, 256, True, 0, 0),
+    (1, 1, 200, 200, 256, True, 64, 0),   # sliding window that binds
+    (1, 2, 150, 150, 256, True, 0, 64),   # chunked-local
+    (1, 2, 128, 128, 256, False, 0, 0),   # unmasked (an encoder)
+    (2, 1, 72, 256, 256, False, 0, 0),    # cross-attention: Sq < Sk
+    (1, 1, 40, 104, 256, False, 0, 0),    # one ragged block of keys
+]
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,chunk", D256_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_dim_256_matches_jax_ref_and_pallas(B, H, Sq, Sk, D, causal,
+                                                 window, chunk, dtype):
+    """The plain path at D = 256 against the JAX `attention_ref` and the
+    Pallas kernel (which takes any D) in interpret mode, at the tolerances
+    above; the kernel's route at this head dim is mma.sync (bf16) or the
+    f32 kernel."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, H, Sq, Sk, D, 9, dtype)
+    masks = dict(causal=causal, window=window, chunk=chunk)
+    got = ops.attention(tq, tk, tv, **masks)
+    assert got.shape == (B, H, Sq, D)
+    tol = TOL[dtype]
+    for other in (jref.attention_ref(jq, jk, jv, **masks),
+                  flash_attention(jq, jk, jv, interpret=True, **masks)):
+        np.testing.assert_allclose(_f32(got), _f32(other), rtol=tol, atol=tol)
+    assert route(tq, tk, tv) == ("f32" if dtype == "float32" else "mma_sync")
+
+
 def test_plain_path_matches_model_blockwise():
     """The port's attention (plain path and its model-side
     `blockwise_attention`) against the JAX `blockwise_attention`, in its
@@ -118,13 +149,18 @@ def test_ragged_rows_follow_attention_ref(Sq, Sk, window):
 
 
 def test_unmasked_ragged_keys_refused_like_the_reference():
-    """Both packages refuse unmasked attention when Sk is not a multiple of
-    min(128, Sk), on every device of the port."""
+    """The reference's Pallas kernel refuses unmasked attention when Sk is
+    not a multiple of min(128, Sk), because it pads keys with zeros that
+    an unmasked row would attend to. The port masks keys at or past Sk, so
+    it takes any Sk and gives the JAX `attention_ref`'s value there (an
+    encoder or a cross-attention over 200 frames)."""
     (jq, jk, jv), (tq, tk, tv) = _qkv(1, 1, 64, 200, 32, 6)
     with pytest.raises(ValueError, match="divisible"):
         flash_attention(jq, jk, jv, causal=False, interpret=True)
-    with pytest.raises(ValueError, match="divisible"):
-        ops.attention(tq, tk, tv, causal=False)
+    np.testing.assert_allclose(
+        _f32(ops.attention(tq, tk, tv, causal=False)),
+        _f32(jref.attention_ref(jq, jk, jv, causal=False)), rtol=2e-5,
+        atol=2e-5)
     (jq, jk, jv), (tq, tk, tv) = _qkv(1, 1, 64, 96, 32, 6)  # one 96-key block
     np.testing.assert_allclose(
         _f32(ops.attention(tq, tk, tv, causal=False)),
@@ -150,10 +186,13 @@ def test_flash_wrapper_refuses_cpu_tensors():
     (torch.bfloat16, 20, True, "mma_sync"),
     (torch.float32, 128, True, "f32"),
     (torch.float32, 64, False, "f32"),
+    (torch.bfloat16, 256, True, "mma_sync"),
+    (torch.float32, 256, True, "f32"),
 ])
 def test_flash_variant_routes_by_shape(dtype, D, aligned, want):
     """bf16 at D in {64, 128} and 16-byte aligned goes to the wgmma kernel,
-    other bf16 head dims to mma.sync, f32 to the FMA kernel."""
+    other bf16 head dims (256 among them) to mma.sync, f32 to the FMA
+    kernel."""
     assert flash_variant(dtype, D, aligned) == want
 
 

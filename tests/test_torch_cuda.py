@@ -500,19 +500,50 @@ FLASH_CASES = [
     (1, 1, 50, 50, 20, True, 0, 0),
     (1, 2, 64, 256, 96, False, 0, 0),
     # the wgmma kernel's edge tiles: every mask kind at D = 128 with Sq and Sk
-    # not multiples of its 128-row tiles (unmasked attention needs Sk
-    # divisible by min(128, Sk)), and B*H > 132 SMs with Sq < Sk
+    # not multiples of its 128-row tiles, and B*H > 132 SMs with Sq < Sk
     (1, 8, 333, 333, 128, True, 0, 0),
     (1, 8, 333, 333, 128, True, 100, 0),
     (1, 8, 333, 333, 128, True, 0, 96),
     (1, 8, 190, 96, 128, False, 0, 0),
     (1, 150, 130, 300, 128, True, 0, 0),
+    # D = 256 (recurrentgemma-9b's local attention: the mma.sync kernel with
+    # its Q tile in shared memory, the f32 kernel's wider accumulator):
+    # every mask kind with Sq and Sk not multiples of 64, Sq < Sk unmasked,
+    # and unmasked over a ragged key count
+    (1, 4, 333, 333, 256, True, 0, 0),
+    (1, 4, 333, 333, 256, True, 100, 0),
+    (1, 4, 333, 333, 256, True, 0, 96),
+    (1, 4, 190, 96, 256, False, 0, 0),
+    (2, 3, 72, 256, 256, False, 0, 0),
+    (1, 4, 200, 200, 256, False, 0, 0),
+    (2, 3, 72, 200, 256, False, 0, 0),
+    # seamless-m4t-medium's cross-attention shape (wgmma, unmasked, Sq < Sk),
+    # and its encoder and cross-attention over 200 frames (ragged)
+    (4, 16, 64, 4096, 64, False, 0, 0),
+    (2, 16, 200, 200, 64, False, 0, 0),
+    (2, 16, 24, 200, 64, False, 0, 0),
 ]
 
 
 def _close_attention(got, want, dtype):
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _close_bf16_rounding(got, q, k, v, masks):
+    """bf16 attention within the bound of bf16 rounding (unit roundoff u =
+    2^-8), element by element: |kernel - plain| <= 2^-6 |plain| + 2^-8
+    (P |v|). Each side rounds its output to bf16 (u |out| each: 2u, taken
+    twice over), and the kernel rounds each softmax weight to bf16 before
+    the P V product, which moves an output by at most u sum_j p_j |v_j|.
+    P |v| is the plain attention of |v| in f32."""
+    want = tref.attention_ref(q, k, v, **masks).float()
+    mag = tref.attention_ref(q, k, v.float().abs(), **masks)
+    diff = (got.float() - want).abs()
+    limit = 2.0 ** -6 * want.abs() + 2.0 ** -8 * mag
+    assert bool((diff <= limit).all()), (
+        f"max |kernel - plain| {diff.max().item():.3e}, largest share of "
+        f"the bound {(diff / limit.clamp_min(1e-30)).max().item():.3f}")
 
 
 @pytest.mark.parametrize("B,H,Sq,Sk,D,causal,window,chunk", FLASH_CASES)
@@ -528,13 +559,17 @@ def test_cuda_flash_attention_matches_plain(cuda, B, H, Sq, Sk, D, causal,
     torch.cuda.synchronize()
     assert ops.launches["flash_attention"] == before + 1
     assert got.dtype == dtype and got.shape == q.shape
-    _close_attention(got, tref.attention_ref(q, k, v, **masks), dtype)
+    if dtype == torch.bfloat16 and (D == 256 or Sk == 200):
+        _close_bf16_rounding(got, q, k, v, masks)
+    else:
+        _close_attention(got, tref.attention_ref(q, k, v, **masks), dtype)
 
 
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 96, "mma_sync"), (torch.bfloat16, 40, "mma_sync"),
-    (torch.float32, 128, "f32")])
+    (torch.float32, 128, "f32"), (torch.bfloat16, 256, "mma_sync"),
+    (torch.float32, 256, "f32")])
 def test_cuda_flash_attention_counts_launches_by_kernel(cuda, dtype, D, want):
     """Each launch counts once in launches["flash_attention"] and once under
     the kernel its shape routes to."""
@@ -563,7 +598,7 @@ def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     q = torch.randn((1, 1, 32, 64), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        flash_attention_cuda(*(torch.randn((1, 1, 32, 160), device=cuda),) * 3)
+        flash_attention_cuda(*(torch.randn((1, 1, 32, 264), device=cuda),) * 3)
     with pytest.raises(TypeError, match="dtypes differ"):
         flash_attention_cuda(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="contiguous"):
@@ -590,6 +625,64 @@ def test_cuda_model_prefill_takes_the_kernel(cuda):
                                                   device=cuda))
     torch.cuda.synchronize()
     assert ops.launches["flash_attention"] == cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mqa_window_prefill_at_head_dim_256(cuda, dtype):
+    """recurrentgemma-9b's local attention on the model's route
+    (`layers._flash`: one KV head broadcast to 16, causal, window 256 over
+    600 tokens) against the plain version of the broadcast heads."""
+    from repro_torch.models import layers as L
+    q = torch.randn((1, 600, 16, 256), device=cuda).to(dtype)
+    k, v = (torch.randn((1, 600, 1, 256), device=cuda).to(dtype)
+            for _ in range(2))
+    ops.reset_launches()
+    got = L._flash(q, k, v, window=256).transpose(1, 2)
+    torch.cuda.synchronize()
+    want_kind = "f32" if dtype == torch.float32 else "mma_sync"
+    assert ops.flash_launches[want_kind] == 1
+    heads = lambda t: t.transpose(1, 2).expand(1, 16, 600, 256).contiguous()
+    qh, kh, vh = q.transpose(1, 2), heads(k), heads(v)
+    masks = dict(causal=True, window=256)
+    if dtype == torch.bfloat16:
+        _close_bf16_rounding(got, qh, kh, vh, masks)
+    else:
+        _close_attention(got, tref.attention_ref(qh, kh, vh, **masks), dtype)
+
+
+@pytest.mark.parametrize("arch,layers,per_prefill,frames", [
+    ("mamba2-2.7b", 2, 0, 0), ("recurrentgemma-9b", 5, 1, 0),
+    ("seamless-m4t-medium", 2, 6, 0), ("seamless-m4t-medium", 2, 6, 200)])
+def test_cuda_recurrent_and_encdec_families_match_the_cpu(cuda, arch, layers,
+                                                          per_prefill,
+                                                          frames):
+    """Each family reduced, in f32, the same parameters on the card and the
+    CPU: prefill logits within 1e-3 and the f32 flash kernel once per
+    attention layer (none for the SSD; encoder, self and cross layers for
+    the encoder-decoder, also over 200 frames: unmasked attention over a
+    key count that is not a multiple of 64 or 128)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import registry
+    cfg = reduced(get_config(arch), layers=layers)
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    batch = registry.synth_batch(gen, cfg, 2, 24, mode="prefill")
+    if frames:
+        batch["frames"] = torch.randn((2, frames, cfg.frontend_embed_dim),
+                                      generator=gen)
+    want, _ = registry.prefill(params, cfg, batch, registry.init_cache(
+        cfg, 2, 32, torch.float32, device="cpu"))
+    on_card = convert.tree_map(lambda t: t.to(cuda), params)
+    ops.reset_launches()
+    got, _ = registry.prefill(on_card, cfg,
+                              {k: v.to(cuda) for k, v in batch.items()},
+                              registry.init_cache(cfg, 2, 32, torch.float32,
+                                                  device=cuda))
+    torch.cuda.synchronize()
+    assert ops.flash_launches == {"wgmma": 0, "mma_sync": 0,
+                                  "f32": per_prefill}
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
 
 

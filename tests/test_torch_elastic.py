@@ -507,25 +507,41 @@ def test_lm_rejoin_matches_reference_driver(sync):
     at superstep 2, with rejoin sync on and off. Without the sync node 1
     re-enters one optimizer step behind the others, so its Adam bias
     correction runs at its own step, as in the reference. Equal membership
-    events and per-node steps; losses within rtol 1e-5; parameters within
-    the Adam bounds of tests/test_torch_trainer.py (99.9% of the entries
-    within 1e-5, all within 6 lr)."""
+    events and per-node steps; losses within rtol 1e-5; every parameter
+    within 6 lr. With the sync 99.9% of the entries lie within 1e-5, the
+    Adam bound of tests/test_torch_trainer.py. Without it the share outside
+    1e-5 may be at most twice the reference's own share against itself when
+    its initial parameters move by one ulp: Adam's first steps amplify
+    float noise into O(lr) moves of the entries whose gradients are near
+    zero, and the node a step behind amplifies more of them (about 0.116%
+    of the entries move in the reference itself, the port's share is the
+    same). The Adam moments m and v are held at 99.9% within 1e-5, all
+    within 1e-4, in both cases.
+    With the sync that measured bound (about 0.12%) would be looser than
+    the fixed 0.1%, so the fixed one stays."""
     from test_torch_trainer import (B, JEngineConfig, JStreamingDriver,
-                                    _agree, _draw, _runs, _states)
+                                    _agree, _draw, _flat, _runs, _states)
 
     jrun, trun = _runs("gossip", "none", "adam")
     mesh, rules, js, ts = _states(jrun, trun)
     sample = lambda rng, n: _draw(rng, n)
     spec = "death:1@1-2"
-    with rules():
-        with JStreamingDriver(
-                jrun, mesh, js, sample, batch=B, n_nodes=4,
-                faults=jfaults.FaultSchedule.parse(spec, 4),
-                engine=JEngineConfig(superstep=1, prefetch_depth=0,
-                                     replan_every=0,
-                                     governor=JGovernorConfig(
-                                         sync_on_rejoin=sync))) as jdrv:
-            js, jhist = jdrv.run(3)
+
+    def reference(state):
+        with rules():
+            with JStreamingDriver(
+                    jrun, mesh, state, sample, batch=B, n_nodes=4,
+                    faults=jfaults.FaultSchedule.parse(spec, 4),
+                    engine=JEngineConfig(superstep=1, prefetch_depth=0,
+                                         replan_every=0,
+                                         governor=JGovernorConfig(
+                                             sync_on_rejoin=sync))) as jdrv:
+                state, jhist = jdrv.run(3)
+        return state, jhist, jdrv
+
+    # the driver donates its state: keep a host copy for the ulp run
+    start = jax.tree.map(np.asarray, js)
+    js, jhist, jdrv = reference(js)
     with driver.StreamingDriver(
             trun, None, ts, sample, batch=B, n_nodes=4, device="cpu",
             faults=faults.FaultSchedule.parse(spec, 4),
@@ -545,8 +561,24 @@ def test_lm_rejoin_matches_reference_driver(sync):
     np.testing.assert_array_equal(got["step"], np.asarray(js.opt.step))
     np.testing.assert_array_equal(got["step"],
                                   [3, 3, 3, 3] if sync else [3, 2, 3, 3])
-    _agree(got["params"], jax.tree.map(np.asarray, js.params), 1e-5,
-           frac=0.999, bound=6 * trun.learning_rate)
+    want = jax.tree.map(np.asarray, js.params)
+    frac = 0.999
+    if not sync:
+        up = lambda a: np.nextafter(a, np.float32(np.inf)).astype(a.dtype)
+        moved = start._replace(params=jax.tree.map(up, start.params))
+        js2, _, _ = reference(jax.tree.map(jnp.asarray, moved))
+        g, w = _flat(js2.params), _flat(want)
+        ref_miss = np.mean(np.abs(g - w) > 1e-5 + 1e-5 * np.abs(w))
+        assert 0 < ref_miss < 0.01, ref_miss
+        frac = 1 - 2 * ref_miss
+    _agree(got["params"], want, 1e-5, frac=frac,
+           bound=6 * trun.learning_rate)
+    # the rejoined node's Adam moments carry no fault of their own: they
+    # agree as closely as the reference's own under the ulp move
+    # (largest gaps ~1.7e-5 in m, ~1.6e-7 in v)
+    for k in ("m", "v"):
+        _agree(got[k], jax.tree.map(np.asarray, getattr(js.opt, k)), 1e-5,
+               frac=0.999, bound=1e-4)
 
 
 # ---------------------------------------------------------------------------

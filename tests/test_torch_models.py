@@ -60,35 +60,40 @@ def model():
 # ---------------------------------------------------------------------------
 
 PORTED = ["granite-8b", "phi4-mini-3.8b", "starcoder2-15b", "chameleon-34b",
-          "minicpm3-4b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e"]
+          "minicpm3-4b", "qwen2-moe-a2.7b", "llama4-scout-17b-a16e",
+          "mamba2-2.7b", "recurrentgemma-9b", "seamless-m4t-medium"]
 
 
 @pytest.mark.parametrize("arch", PORTED)
 def test_arch_registry_mirrors_reference(arch):
-    """Each ported arch resolves to the reference's config, field for
-    field; an unported family still raises, an unknown id is refused."""
+    """Every arch resolves to the reference's config, field for field, and
+    with it the reference's parameter count; an unknown id is refused."""
     from repro.configs import ARCH_IDS as JARCH
-    assert ARCH_IDS == JARCH
+    assert ARCH_IDS == JARCH and sorted(PORTED) == sorted(ARCH_IDS)
     assert (dataclasses.asdict(get_config(arch))
             == dataclasses.asdict(jget_config(arch)))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("mamba2-2.7b")
+    assert get_config(arch).param_count() == jget_config(arch).param_count()
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("gpt-5")
 
 
 def test_unported_blocks_raise():
-    """The SSD, RG-LRU and encoder-decoder families raise, as do their
-    archs; the ring-buffer cache is ported (tests/test_torch_archs.py holds
-    it against the reference's ring)."""
-    cfg = reduced(get_config("granite-8b"))
+    """Every block family is ported now: the SSD, RG-LRU and
+    encoder-decoder archs build through the registry (their numbers are
+    held against the reference by tests/test_torch_ssm.py,
+    test_torch_rglru.py and test_torch_encdec.py). What still raises is
+    training any of the three through the trainer's launcher: the streaming
+    trainer is not held against the reference's driver on them."""
+    from repro_torch.launch import train as launch_train
     gen = torch.Generator().manual_seed(0)
-    for change in (dict(family="ssm"), dict(encoder_layers=2)):
+    for arch, key in (("mamba2-2.7b", "blocks"),
+                      ("recurrentgemma-9b", "blocks"),
+                      ("seamless-m4t-medium", "encoder")):
+        p = registry.init_params(gen, reduced(get_config(arch)))
+        assert key in p
         with pytest.raises(NotImplementedError, match="not ported"):
-            registry.init_params(gen, dataclasses.replace(cfg, **change))
-    for arch in ("mamba2-2.7b", "recurrentgemma-9b", "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
+            launch_train.main(["--arch", arch, "--reduced", "--device",
+                               "cpu"])
 
 
 # ---------------------------------------------------------------------------
