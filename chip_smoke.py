@@ -26,16 +26,18 @@
    `flash_attention` at the cases of tests/test_kernels.py, granite-8b's
    prefill shapes, every mask kind at D = 128 with Sq and Sk not multiples of
    128, and a D = 96 case, f32 and bf16, each launch taking the kernel its
-   shape routes to (bf16 D = 64/128: the wgmma kernel; other bf16 head dims:
-   mma.sync; f32: FMAs); at D = 256 (recurrentgemma-9b's local attention:
-   mma.sync in bf16, the FMA kernel in f32) every mask kind with Sq and Sk
-   not multiples of 64, Sq < Sk unmasked, and unmasked over Sk = 200;
-   seamless-m4t-medium's encoder and cross-attention shapes at D = 64
-   (wgmma, unmasked) at 4096 and 200 frames; and recurrentgemma's own
-   prefill shape (B = 2, H = 16, S = 4096, window 2048, its one KV head
-   broadcast as the model's `_flash` does). These bf16 cases are held to
-   the bound of bf16 rounding (`compare_bf16_attention`), the others to
-   tests/test_kernels.py's tolerances.
+   shape routes to (bf16 D = 64/128/256: the wgmma kernel; other bf16 head
+   dims: mma.sync; f32: FMAs); at D = 256 (recurrentgemma-9b's local
+   attention: wgmma in bf16, the FMA kernel in f32) every mask kind with Sq
+   and Sk not multiples of 64, Sq < Sk unmasked, unmasked over Sk = 200, a
+   fully masked row and B*H = 150, each bf16 case also through the mma.sync
+   kernel, forced; seamless-m4t-medium's encoder and cross-attention shapes
+   at D = 64 (wgmma, unmasked) at 4096 and 200 frames; and recurrentgemma's
+   own prefill shape (B = 2, H = 16, S = 4096, window 2048, its one KV head
+   broadcast as the model's `_flash` does; wgmma, and mma.sync forced).
+   These bf16 cases are held to the bound of bf16 rounding
+   (`compare_bf16_attention`), the others to tests/test_kernels.py's
+   tolerances.
 3. Drives the port's main paths, each run with the launch counts set to 0
    just before it and read just after:
    (a)-(c) streaming PCA at the paper's Fig. 8 size (d = 3072, N = 10 nodes,
@@ -160,7 +162,7 @@
    mamba2; encoder, self and cross layers for seamless);
    (n1) recurrentgemma-9b whole (38 layers, 9.396 B tensors' entries,
    8.52 B by the reference's `param_count()`, bf16): a prefill of
-   2 x 4096 tokens (past its 2048 window) with 12 mma.sync flash launches
+   2 x 4096 tokens (past its 2048 window) with 12 wgmma flash launches
    at D = 256, 16 greedy decode steps, and 8 requests through 4 slots of
    the continuous engine; one prefill layer of each kind timed apart;
    (n2) mamba2-2.7b whole (64 layers, 4 x 512, 16 decode steps, 16
@@ -172,9 +174,10 @@
 4. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes, and at recurrentgemma-9b's prefill shape at
-   D = 256) against its bound, its plain version and,
-   where one PyTorch call computes the same function, that call; beside the
-   redesigned kernels, their earlier designs in the same run
+   D = 256, beside the mma.sync kernel there too) against its bound, its
+   plain version and, where one PyTorch call computes the same function,
+   that call; beside the redesigned kernels, their earlier designs in the
+   same run
    (`gossip_mix_quant` also at R = 0, 1, 8 and at path (f)'s shape;
    `krasulina_xi` also cold, with a 64 MB buffer written between calls);
    `gossip_mix` and `gossip_mix_quant` also at the trainer's shape (the
@@ -241,7 +244,8 @@ FLASH_CASES = [
 # their own generator's draws, so that the main path's stay the same: D =
 # 256 (recurrentgemma-9b): every mask kind, ragged, Sq < Sk unmasked, and
 # unmasked over a ragged key count; seamless-m4t-medium's encoder and
-# cross-attention shapes, at 4096 frames and at 200 (ragged)
+# cross-attention shapes, at 4096 frames and at 200 (ragged); D = 256 with
+# fully masked rows (Sq > Sk under a window) and with B*H > 132 SMs
 FLASH_CASES_NEW = [
     (1, 4, 333, 333, 256, True, 0, 0),
     (1, 4, 333, 333, 256, True, 100, 0),
@@ -254,6 +258,8 @@ FLASH_CASES_NEW = [
     (4, 16, 64, 4096, 64, False, 0, 0),
     (2, 16, 200, 200, 64, False, 0, 0),
     (2, 16, 24, 200, 64, False, 0, 0),
+    (1, 2, 96, 40, 256, True, 16, 0),
+    (1, 150, 130, 300, 256, True, 0, 0),
 ]
 # (n0)'s seamless frames: a count that is not a multiple of 64 or 128
 N0_FRAMES = 200
@@ -285,8 +291,8 @@ SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_P = 4, 4096, 64
 TRAIN_N, TRAIN_R, TRAIN_K, TRAIN_SUPERSTEPS = 4, 2, 2, 4
 TRAIN_B, TRAIN_S, TRAIN_LAYERS = 8, 512, 2
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
-# the main path's flash kernel (bf16, D = 128); flash_attention.cu keeps the
-# mma.sync and f32 kernels
+# the main path's flash kernel (bf16, D = 64, 128 and 256); flash_attention.cu
+# keeps the mma.sync and f32 kernels
 SOURCES["flash_attention"] = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 DESIGN = {
     "krasulina_xi": "cluster-slab",
@@ -716,6 +722,17 @@ def main() -> int:
             outs.append(step(st, {"z": zb})[0].w.cpu())
         compare(f"superstep {label} card vs CPU plain path (N=4, Bn=5, d=70, "
                 f"K=3)", outs[0], outs[1], "float32")
+    def mma_sync_attention(q, k, v, causal=True, window=0, chunk=0):
+        """bf16 attention through the mma.sync kernel's own entry point,
+        whatever the shape routes to."""
+        out = torch.empty_like(q)
+        B, H, Sq, D = q.shape
+        _cuda.call("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   out.data_ptr(), B * H, Sq, k.shape[2], D, int(causal),
+                   window, chunk, 1 / math.sqrt(D), _cuda.DTYPE_CODES[q.dtype],
+                   1, _cuda.stream_of(q))
+        return out
+
     gen_new = torch.Generator(device=dev).manual_seed(22)
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
@@ -735,6 +752,10 @@ def main() -> int:
                      f"chunk={chunk}")
             if case in FLASH_CASES_NEW and dtype == torch.bfloat16:
                 e = compare_bf16_attention(label, got, q, k, v, masks)
+                if D == 256:
+                    compare_bf16_attention(
+                        label.replace(f" {want} ", " mma_sync (forced) "),
+                        mma_sync_attention(q, k, v, **masks), q, k, v, masks)
             else:
                 e = compare_close(label, got, ref.attention_ref(
                     q, k, v, **masks), FLASH_TOL[dn])
@@ -2449,6 +2470,7 @@ def main() -> int:
         require(variants == {k: n if k == kind else 0 for k in variants},
                 f"{label}: flash launches by kernel {variants}")
         del eng, done
+        return counts
 
     def engine_prompts(cfg_e, n, seed):
         rng = np.random.default_rng(seed)
@@ -2607,7 +2629,7 @@ def main() -> int:
     def n_flash(cfg_):
         """(flash launches of one prefill of more than 16 tokens, the
         kernel) for these families in bf16: one per local-attention layer
-        (recurrentgemma, D = 256: mma.sync), three per decoder layer pair
+        (recurrentgemma, D = 256: wgmma), three per decoder layer pair
         of encoder, self and cross attention (seamless, D = 64: wgmma),
         none for the SSD."""
         if cfg_.is_encdec:
@@ -2615,7 +2637,7 @@ def main() -> int:
         if cfg_.rglru is not None:
             from repro_torch.models.transformer import layer_specs
             return sum(sp.kind == "attn" for sp in layer_specs(cfg_)), \
-                "mma_sync"
+                "wgmma"
         return 0, "wgmma"
 
     # (n0) each family reduced, in f32, the same parameters on the card and
@@ -2681,6 +2703,8 @@ def main() -> int:
     require(cfg_g.num_layers == 38, "recurrentgemma-9b depth changed")
     params, out, stats = serve_arch("(n1) static", cfg_g, 2, 4096, M2_GEN,
                                     card_time=True, flash=n_flash(cfg_g))
+    # (n1)'s flash launches, all at D = 256, for the kernels line
+    d256_launches = stats["launches"]["flash_attention"]
     print(f"main (n1) recurrentgemma-9b: {stats['params_B']:.3f} B "
           f"parameters, bf16, {cfg_g.num_layers} layers, static generate B=2 "
           f"prompt=4096 gen={M2_GEN}: {fmt(stats)}; card {smi}")
@@ -2723,8 +2747,9 @@ def main() -> int:
           f"{stats['card_prefill_ms']:.3f}")
     del h, pos, xf, gates, blk_r, blk_a
     torch.cuda.empty_cache()
-    serve_engine("(n1) continuous", cfg_g, params, 4,
-                 engine_prompts(cfg_g, 8, 3), *n_flash(cfg_g))
+    d256_launches += serve_engine("(n1) continuous", cfg_g, params, 4,
+                                  engine_prompts(cfg_g, 8, 3),
+                                  *n_flash(cfg_g))["flash_attention"]
     del params, out
     torch.cuda.empty_cache()
 
@@ -2944,13 +2969,6 @@ def main() -> int:
     # 2 B H S^2 D operations, the bytes q, k, v read and out written once.
     # Beside it, in this run, the mma.sync kernel that the wgmma kernel
     # replaced on this path, launched through its own entry point.
-    def mma_sync_attention(q, k, v):
-        out = torch.empty_like(q)
-        B, H, S, D = q.shape
-        _cuda.call("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                   out.data_ptr(), B * H, S, S, D, 1, 0, 0, 1 / math.sqrt(D),
-                   _cuda.DTYPE_CODES[q.dtype], 1, _cuda.stream_of(q))
-        return out
 
     timed = []
     for S in (512, 4096):
@@ -2974,9 +2992,10 @@ def main() -> int:
         del q, k, v
         torch.cuda.empty_cache()
     main_shape, wide = timed
-    # recurrentgemma-9b's prefill at D = 256 (the mma.sync kernel): its one
-    # KV head broadcast as the model's `_flash` does, causal with a window
-    # of 2048 over 4096 tokens. The operations are 4 B H D per live (q, k)
+    # recurrentgemma-9b's prefill at D = 256 (the wgmma kernel): its one KV
+    # head broadcast as the model's `_flash` does, causal with a window of
+    # 2048 over 4096 tokens; beside it the mma.sync kernel, forced, held to
+    # the same bound and timed. The operations are 4 B H D per live (q, k)
     # pair; the bytes the kernel's q, k, v read and out written once. SDPA
     # takes the window as a boolean mask.
     B_, H_, S_, W_ = RG_FLASH
@@ -2984,27 +3003,42 @@ def main() -> int:
     k1, v1 = (randn(B_, S_, 1, 256, dtype=torch.bfloat16) for _ in range(2))
     qh, kh, vh = (t.permute(0, 2, 1, 3).repeat_interleave(H_ // t.shape[2], 1)
                   .contiguous() for t in (q, k1, v1))
-    e = compare_bf16_attention(
-        f"flash_attention mma_sync bfloat16 B={B_} H={H_} Sq={S_} Sk={S_} "
-        f"D=256 causal=True window={W_} (recurrentgemma-9b prefill, the "
-        f"model's MQA broadcast)", L._flash(q, k1, v1, window=W_)
-        .permute(0, 2, 1, 3), qh, kh, vh, dict(causal=True, window=W_))
+    rg_masks = dict(causal=True, window=W_)
+    shape = (f"bfloat16 B={B_} H={H_} Sq={S_} Sk={S_} D=256 causal=True "
+             f"window={W_} (recurrentgemma-9b prefill")
+    ops.reset_launches()
+    got = L._flash(q, k1, v1, window=W_).permute(0, 2, 1, 3)
+    require(ops.flash_launches["wgmma"] == 1 and flash_route(qh, kh, vh)
+            == "wgmma", f"recurrentgemma's shape did not take the wgmma "
+                        f"kernel: {ops.flash_launches}")
+    e = compare_bf16_attention(f"flash_attention wgmma {shape}, the model's "
+                               f"MQA broadcast)", got, qh, kh, vh, rg_masks)
+    compare_bf16_attention(f"flash_attention mma_sync (forced) {shape})",
+                           mma_sync_attention(qh, kh, vh, **rg_masks), qh, kh,
+                           vh, rg_masks)
+    del got
     pos = torch.arange(S_, device=dev)
     band = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None] - W_)
     pairs = int(band.sum())
     d256 = measure(
         "flash_attention", f"bf16 causal window={W_} B={B_} H={H_} S={S_} "
         f"D=256 (recurrentgemma-9b)",
-        lambda: ops.attention(qh, kh, vh, causal=True, window=W_),
-        lambda: ref.attention_ref(qh, kh, vh, causal=True, window=W_),
+        lambda: ops.attention(qh, kh, vh, **rg_masks),
+        lambda: ref.attention_ref(qh, kh, vh, **rg_masks),
         4 * qh.numel() * 2, 4 * B_ * H_ * 256 * pairs,
         library=lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                        attn_mask=band),
         flops_per_s=BF16_FLOPS_PER_S)
+    d256["mma_sync_ms"] = time_ms(lambda: mma_sync_attention(qh, kh, vh,
+                                                             **rg_masks))
+    print(f"time flash_attention D=256 (recurrentgemma-9b): wgmma "
+          f"{d256['ms']:.5f} ms, mma.sync {d256['mma_sync_ms']:.5f} ms, SDPA "
+          f"{d256['library_ms']:.5f} ms, bound {d256['bound_ms']:.5f} ms "
+          f"({d256['bound_by']})")
     d256.update(kernel=flash_route(qh, kh, vh),
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                max_abs_err=e,
-                launches=flash_total["mma_sync"],
+                design="wgmma+tma, 64-key tiles",
+                source="src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+                max_abs_err=e, launches=d256_launches,
                 launches_by_kernel=dict(flash_total))
     del q, k1, v1, qh, kh, vh, band
     torch.cuda.empty_cache()

@@ -6,7 +6,7 @@
 // Replaces: src/repro/kernels/flash_attention.py, flash_attention (the
 // pallas_call at :116, body `_flash_kernel` at :27), for f32 and for the
 // bf16 calls that flash_attention_sm90.cu does not take (head dims other
-// than 64 and 128, or pointers not 16-byte aligned); `flash_variant` in
+// than 64, 128 and 256, or pointers not 16-byte aligned); `flash_variant` in
 // kernels/flash_attention.py picks by shape.
 //
 // q, k, v, out: [B*H, S, D] contiguous, f32 or bf16, D <= 256 (GQA heads
@@ -50,7 +50,9 @@
 //    in shared memory (209 KB at D = 256, with the dynamic limit set); the
 //    output accumulator is sized by the head-dim bucket (128 or 256).
 // This bf16 path uses Ampere's mma.sync and plain loads between barriers;
-// flash_attention_sm90.cu is the wgmma, TMA and warp-specialised kernel.
+// flash_attention_sm90.cu is the wgmma, TMA and warp-specialised kernel, and
+// takes every aligned bf16 call at D = 64, 128 and 256 (recurrentgemma-9b's
+// among them): here D = 256 serves unaligned tensors only.
 #include "attention.cuh"
 #include "common.cuh"
 

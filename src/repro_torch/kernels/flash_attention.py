@@ -3,14 +3,16 @@ chunked-local masks: `flash_attention_cuda` replaces the Pallas
 `flash_attention` of the JAX package. It picks one of three kernels by shape
 (`flash_variant`), never because another failed:
 
-* "wgmma" (`csrc/flash_attention_sm90.cu`): bf16 with D in {64, 128} and
-  16-byte aligned tensors, every prefill of granite-8b. Warp-specialised for
-  Hopper: one thread of a producer warpgroup streams K and V tiles by TMA
-  into a two-stage ring; two consumer warpgroups run both products with
+* "wgmma" (`csrc/flash_attention_sm90.cu`): bf16 with D in {64, 128, 256}
+  and 16-byte aligned tensors: every prefill of granite-8b, of the attention
+  families and of seamless-m4t-medium, and recurrentgemma-9b's local
+  attention (D = 256). Warp-specialised for Hopper: one thread of a producer
+  warpgroup streams K and V tiles by TMA into a two-stage ring (128 keys a
+  tile, 64 at D = 256); two consumer warpgroups run both products with
   `wgmma` (P from registers).
-* "mma_sync" (`csrc/flash_attention.cu`): bf16 at other head dims (up to
-  256: recurrentgemma-9b's local attention), with Ampere's `mma.sync` and
-  plain loads.
+* "mma_sync" (`csrc/flash_attention.cu`): bf16 at other head dims up to 256,
+  and bf16 tensors that are not 16-byte aligned, with Ampere's `mma.sync`
+  and plain loads.
 * "f32" (`csrc/flash_attention.cu`): f32, plain FMAs, D up to 256.
 
 Each block owns a query tile and loops over the key tiles that hold a live
@@ -34,7 +36,7 @@ from repro_torch.kernels import _cuda
 
 MAX_HEAD_DIM = 256
 VARIANTS = ("wgmma", "mma_sync", "f32")
-SM90_HEAD_DIMS = (64, 128)  # the head dims of the wgmma kernel
+SM90_HEAD_DIMS = (64, 128, 256)  # the head dims of the wgmma kernel
 
 
 def flash_variant(dtype: torch.dtype, D: int, aligned: bool) -> str:

@@ -90,8 +90,8 @@ def test_head_dim_256_matches_jax_ref_and_pallas(B, H, Sq, Sk, D, causal,
                                                  window, chunk, dtype):
     """The plain path at D = 256 against the JAX `attention_ref` and the
     Pallas kernel (which takes any D) in interpret mode, at the tolerances
-    above; the kernel's route at this head dim is mma.sync (bf16) or the
-    f32 kernel."""
+    above; the kernel's route at this head dim is wgmma (bf16, aligned) or
+    the f32 kernel."""
     (jq, jk, jv), (tq, tk, tv) = _qkv(B, H, Sq, Sk, D, 9, dtype)
     masks = dict(causal=causal, window=window, chunk=chunk)
     got = ops.attention(tq, tk, tv, **masks)
@@ -100,7 +100,7 @@ def test_head_dim_256_matches_jax_ref_and_pallas(B, H, Sq, Sk, D, causal,
     for other in (jref.attention_ref(jq, jk, jv, **masks),
                   flash_attention(jq, jk, jv, interpret=True, **masks)):
         np.testing.assert_allclose(_f32(got), _f32(other), rtol=tol, atol=tol)
-    assert route(tq, tk, tv) == ("f32" if dtype == "float32" else "mma_sync")
+    assert route(tq, tk, tv) == ("f32" if dtype == "float32" else "wgmma")
 
 
 def test_plain_path_matches_model_blockwise():
@@ -186,13 +186,15 @@ def test_flash_wrapper_refuses_cpu_tensors():
     (torch.bfloat16, 20, True, "mma_sync"),
     (torch.float32, 128, True, "f32"),
     (torch.float32, 64, False, "f32"),
-    (torch.bfloat16, 256, True, "mma_sync"),
+    (torch.bfloat16, 256, True, "wgmma"),
     (torch.float32, 256, True, "f32"),
+    (torch.bfloat16, 256, False, "mma_sync"),
+    (torch.float32, 256, False, "f32"),
 ])
 def test_flash_variant_routes_by_shape(dtype, D, aligned, want):
-    """bf16 at D in {64, 128} and 16-byte aligned goes to the wgmma kernel,
-    other bf16 head dims (256 among them) to mma.sync, f32 to the FMA
-    kernel."""
+    """bf16 at D in {64, 128, 256} and 16-byte aligned goes to the wgmma
+    kernel, other bf16 head dims and unaligned bf16 to mma.sync, f32 to the
+    FMA kernel."""
     assert flash_variant(dtype, D, aligned) == want
 
 

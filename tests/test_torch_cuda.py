@@ -8,12 +8,15 @@ fixture, never at import. This file imports neither jax nor the JAX
 package, so it runs on the machine with the card:
 `PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py`.
 """
+import math
+
 import pytest
 import torch
 
 from repro_torch.core import mixing as tmix
-from repro_torch.kernels import ops
+from repro_torch.kernels import _cuda, ops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import route
 
 
 @pytest.fixture
@@ -506,10 +509,10 @@ FLASH_CASES = [
     (1, 8, 333, 333, 128, True, 0, 96),
     (1, 8, 190, 96, 128, False, 0, 0),
     (1, 150, 130, 300, 128, True, 0, 0),
-    # D = 256 (recurrentgemma-9b's local attention: the mma.sync kernel with
-    # its Q tile in shared memory, the f32 kernel's wider accumulator):
-    # every mask kind with Sq and Sk not multiples of 64, Sq < Sk unmasked,
-    # and unmasked over a ragged key count
+    # D = 256 (recurrentgemma-9b's local attention: the wgmma kernel with
+    # 64-key tiles, the f32 kernel's wider accumulator): every mask kind
+    # with Sq and Sk not multiples of 64, Sq < Sk unmasked, and unmasked
+    # over a ragged key count
     (1, 4, 333, 333, 256, True, 0, 0),
     (1, 4, 333, 333, 256, True, 100, 0),
     (1, 4, 333, 333, 256, True, 0, 96),
@@ -517,6 +520,10 @@ FLASH_CASES = [
     (2, 3, 72, 256, 256, False, 0, 0),
     (1, 4, 200, 200, 256, False, 0, 0),
     (2, 3, 72, 200, 256, False, 0, 0),
+    # D = 256 with rows that have no live key (Sq > Sk under a window: 0),
+    # and with B*H > 132 SMs
+    (1, 2, 96, 40, 256, True, 16, 0),
+    (1, 150, 130, 300, 256, True, 0, 0),
     # seamless-m4t-medium's cross-attention shape (wgmma, unmasked, Sq < Sk),
     # and its encoder and cross-attention over 200 frames (ragged)
     (4, 16, 64, 4096, 64, False, 0, 0),
@@ -530,17 +537,23 @@ def _close_attention(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-def _close_bf16_rounding(got, q, k, v, masks):
-    """bf16 attention within the bound of bf16 rounding (unit roundoff u =
-    2^-8), element by element: |kernel - plain| <= 2^-6 |plain| + 2^-8
+def _bf16_rounding_limit(q, k, v, masks):
+    """The plain attention in f32, and the bound of bf16 rounding around it
+    (unit roundoff u = 2^-8), element by element: 2^-6 |plain| + 2^-8
     (P |v|). Each side rounds its output to bf16 (u |out| each: 2u, taken
     twice over), and the kernel rounds each softmax weight to bf16 before
     the P V product, which moves an output by at most u sum_j p_j |v_j|.
     P |v| is the plain attention of |v| in f32."""
     want = tref.attention_ref(q, k, v, **masks).float()
     mag = tref.attention_ref(q, k, v.float().abs(), **masks)
+    return want, 2.0 ** -6 * want.abs() + 2.0 ** -8 * mag
+
+
+def _close_bf16_rounding(got, q, k, v, masks):
+    """bf16 attention within the bound of bf16 rounding of the plain version,
+    element by element (`_bf16_rounding_limit`)."""
+    want, limit = _bf16_rounding_limit(q, k, v, masks)
     diff = (got.float() - want).abs()
-    limit = 2.0 ** -6 * want.abs() + 2.0 ** -8 * mag
     assert bool((diff <= limit).all()), (
         f"max |kernel - plain| {diff.max().item():.3e}, largest share of "
         f"the bound {(diff / limit.clamp_min(1e-30)).max().item():.3f}")
@@ -554,10 +567,12 @@ def test_cuda_flash_attention_matches_plain(cuda, B, H, Sq, Sk, D, causal,
     k = torch.randn((B, H, Sk, D), device=cuda).to(dtype)
     v = torch.randn((B, H, Sk, D), device=cuda).to(dtype)
     masks = dict(causal=causal, window=window, chunk=chunk)
-    before = ops.launches["flash_attention"]
+    kind = route(q, k, v)
+    before = ops.launches["flash_attention"], ops.flash_launches[kind]
     got = ops.attention(q, k, v, **masks)
     torch.cuda.synchronize()
-    assert ops.launches["flash_attention"] == before + 1
+    assert (ops.launches["flash_attention"],
+            ops.flash_launches[kind]) == (before[0] + 1, before[1] + 1)
     assert got.dtype == dtype and got.shape == q.shape
     if dtype == torch.bfloat16 and (D == 256 or Sk == 200):
         _close_bf16_rounding(got, q, k, v, masks)
@@ -568,7 +583,7 @@ def test_cuda_flash_attention_matches_plain(cuda, B, H, Sq, Sk, D, causal,
 @pytest.mark.parametrize("dtype,D,want", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 96, "mma_sync"), (torch.bfloat16, 40, "mma_sync"),
-    (torch.float32, 128, "f32"), (torch.bfloat16, 256, "mma_sync"),
+    (torch.float32, 128, "f32"), (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 256, "f32")])
 def test_cuda_flash_attention_counts_launches_by_kernel(cuda, dtype, D, want):
     """Each launch counts once in launches["flash_attention"] and once under
@@ -592,6 +607,36 @@ def test_cuda_flash_attention_unaligned_bf16_takes_mma_sync(cuda):
     torch.cuda.synchronize()
     assert ops.flash_launches["mma_sync"] == 1
     _close_attention(got, tref.attention_ref(q, q, q), torch.bfloat16)
+
+
+def _mma_sync_attention(q, k, v, causal=True, window=0, chunk=0):
+    """bf16 attention through the mma.sync kernel's own entry point, whatever
+    the shape routes to."""
+    out = torch.empty_like(q)
+    B, H, Sq, D = q.shape
+    _cuda.call("flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+               out.data_ptr(), B * H, Sq, k.shape[2], D, int(causal), window,
+               chunk, 1 / math.sqrt(D), _cuda.DTYPE_CODES[q.dtype], 1,
+               _cuda.stream_of(q))
+    return out
+
+
+def test_cuda_flash_wgmma_and_mma_sync_agree_at_head_dim_256(cuda):
+    """The same inputs through the mma.sync kernel's entry point and through
+    the wgmma kernel that their shape routes to agree within the bound of
+    bf16 rounding (each is also within it of the plain version)."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((1, 4, 333, 256), generator=gen, device=cuda)
+               .bfloat16() for _ in range(3))
+    masks = dict(causal=True, window=100, chunk=0)
+    ops.reset_launches()
+    wgmma = ops.attention(q, k, v, **masks)
+    mma = _mma_sync_attention(q, k, v, **masks)
+    torch.cuda.synchronize()
+    assert ops.flash_launches["wgmma"] == 1
+    _, limit = _bf16_rounding_limit(q, k, v, masks)
+    assert bool(((wgmma.float() - mma.float()).abs() <= limit).all())
+    _close_bf16_rounding(mma, q, k, v, masks)
 
 
 def test_cuda_flash_attention_refuses_what_it_does_not_take(cuda):
@@ -628,23 +673,27 @@ def test_cuda_model_prefill_takes_the_kernel(cuda):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-3, atol=1e-3)
 
 
+@pytest.mark.parametrize("B,S,window", [(1, 600, 256), (2, 4096, 2048)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_mqa_window_prefill_at_head_dim_256(cuda, dtype):
+def test_cuda_mqa_window_prefill_at_head_dim_256(cuda, dtype, B, S, window):
     """recurrentgemma-9b's local attention on the model's route
-    (`layers._flash`: one KV head broadcast to 16, causal, window 256 over
-    600 tokens) against the plain version of the broadcast heads."""
+    (`layers._flash`: one KV head broadcast to 16, causal, with a window;
+    600 tokens, and the model's own prefill of 2 x 4096 past its 2048
+    window) against the plain version of the broadcast heads, through the
+    wgmma kernel in bf16."""
     from repro_torch.models import layers as L
-    q = torch.randn((1, 600, 16, 256), device=cuda).to(dtype)
-    k, v = (torch.randn((1, 600, 1, 256), device=cuda).to(dtype)
+    q = torch.randn((B, S, 16, 256), device=cuda).to(dtype)
+    k, v = (torch.randn((B, S, 1, 256), device=cuda).to(dtype)
             for _ in range(2))
     ops.reset_launches()
-    got = L._flash(q, k, v, window=256).transpose(1, 2)
+    got = L._flash(q, k, v, window=window).transpose(1, 2)
     torch.cuda.synchronize()
-    want_kind = "f32" if dtype == torch.float32 else "mma_sync"
-    assert ops.flash_launches[want_kind] == 1
-    heads = lambda t: t.transpose(1, 2).expand(1, 16, 600, 256).contiguous()
+    want_kind = "f32" if dtype == torch.float32 else "wgmma"
+    assert ops.flash_launches == {v: int(v == want_kind)
+                                  for v in ops.flash_launches}
+    heads = lambda t: t.transpose(1, 2).expand(B, 16, S, 256).contiguous()
     qh, kh, vh = q.transpose(1, 2), heads(k), heads(v)
-    masks = dict(causal=True, window=256)
+    masks = dict(causal=True, window=window)
     if dtype == torch.bfloat16:
         _close_bf16_rounding(got, qh, kh, vh, masks)
     else:
