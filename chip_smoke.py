@@ -6,7 +6,32 @@
 1. Prints the card's name and power limit, then builds the kernel libraries
    from `src/repro_torch/kernels/csrc/` with nvcc (one per source, in
    parallel) and prints the build time.
-2. Holds each kernel against its plain PyTorch version on the card over a
+2. (s0)-(s2), the sharded node axis: five rank processes share the card in
+   one gloo group (NCCL refuses two ranks on one device; subgroups of 2
+   and 4 carry the smaller worlds), each keeping its rows of the node axis
+   on the card, the halo rows and reductions staged through pinned host
+   buffers. (s0) the shard rules on each rank's rows against the plain
+   per-round path over the whole axis on the card: exact gossip at
+   tests/shard_worker.py's shape (n = 16, d = 4096, ring, R = 3) on 2 and
+   4 ranks and at HIGHD's (n = 10, d = 3072, ring, R = 8) on 2 and 5, bit
+   for bit; sign (bit for bit) and int8 (f32 round-off) per-node wires at
+   block_d 512; xi + gossip at N = 10, Bn = 100 (one `krasulina_xi`
+   launch a rank); n = 10 on 4 ranks through the gather-roll. (s1) the
+   governed PCA driver at HIGHD on 2 ranks, 48 rounds on a fake clock,
+   exact and int8 (per-node) wires, against the single-process card run
+   forced to impl="roll" (the same plan history, sin^2 < 0.05, the exact
+   wire's iterate within 1e-5 rel + 1e-5 of its largest entry). (s2a)
+   the reduced granite trainer (f32, Adam), 4 ranks x 1 node, exact and
+   gossip modes, 3 rounds, against the single-process card run at
+   n_nodes = 4, impl="roll" ((h0)'s bounds; exact consensus error 0,
+   gossip's above 0). (s2b) granite-8b at its published widths cut to 2
+   layers, 4 ranks x 1 node, 2 x 512 tokens per node, R = 2, 2 rounds per
+   mode through the `StreamingDriver` (training takes the plain attention,
+   which has a backward: the sharded path launches no flash kernel, and
+   (s2b) requires 0). Prints the time per call,
+   rounds/s, the bytes staged per round, each rank's peak memory and
+   launches, and the phases' seconds.
+3. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
    `krasulina_xi` through the design its shape routes to and through each
@@ -38,7 +63,7 @@
    These bf16 cases are held to the bound of bf16 rounding
    (`compare_bf16_attention`), the others to tests/test_kernels.py's
    tolerances.
-3. Drives the port's main paths, each run with the launch counts set to 0
+4. Drives the port's main paths, each run with the launch counts set to 0
    just before it and read just after:
    (a)-(c) streaming PCA at the paper's Fig. 8 size (d = 3072, N = 10 nodes,
    B = 1000 samples per round, ring gossip R = 8): the governed
@@ -171,7 +196,7 @@
    through `generate`: 24 unmasked and 12 causal wgmma launches at D = 64
    per prefill). Each prints prefill ms on the card and on the wall,
    decode ms per step and peak memory.
-4. Times every kernel at the main path's shapes and at a wide shape
+5. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes, and at recurrentgemma-9b's prefill shape at
    D = 256, beside the mma.sync kernel there too) against its bound, its
@@ -188,7 +213,10 @@
    held whole; prints one `{"kernels": [...]}` JSON line, a row per kernel
    with its `design`, its launches by node count (the node-axis kernels)
    and, for the two gossip kernels, `trainer` and `n3` entries (and
-   `ef_chunk` for `gossip_mix`).
+   `ef_chunk` for `gossip_mix`); the ranks' `krasulina_xi` and
+   `flash_attention` launches of (s0)-(s2) are in their `launches` and,
+   by phase and rank, under an "s" key of `launches_by_nodes` and
+   `launches_by_kernel`.
 
 The line before the kernels line gives the run's seconds from the start
 of the build. The last line is `{"ok": true, "device": {...}}`. Any
@@ -377,6 +405,589 @@ def compare_bf16_attention(name, got, q, k, v, masks):
     return err
 
 
+# (s0)-(s2) the sharded node axis: S_WORLD rank processes share the card in
+# one gloo group (NCCL refuses two ranks on one device), spawned once by
+# `shard_phases`; subgroups of 2 and 4 ranks carry the smaller worlds. Each
+# rank keeps its node rows and computes on the card; halo rows and
+# reductions cross between ranks staged through pinned host buffers
+S_WORLD, S_TIMEOUT = 5, 420
+S_LR = 1e-4  # (s2a): (h0)'s Adam rate
+S1_SUPERSTEPS, S1_DT = 6, 1e-3  # (s1): 48 rounds on a fake clock
+# (s0): (label, ranks, n, d, R, topology self-weight, kind)
+S0_CASES = [
+    ("shard_worker", 2, 16, 4096, 3, 0.5, "exact"),
+    ("shard_worker", 4, 16, 4096, 3, 0.5, "exact"),
+    ("shard_worker", 4, 16, 4096, 3, 0.5, "sign"),
+    ("shard_worker", 4, 16, 4096, 3, 0.5, "int8"),
+    ("HIGHD", 2, HIGHD_N, 3072, HIGHD_R, 0.0, "exact"),
+    ("HIGHD", 5, HIGHD_N, 3072, HIGHD_R, 0.0, "exact"),
+    ("HIGHD", 2, HIGHD_N, 3072, HIGHD_R, 0.0, "sign"),
+    ("HIGHD", 2, HIGHD_N, 3072, HIGHD_R, 0.0, "int8"),
+    ("HIGHD", 2, HIGHD_N, 3072, HIGHD_R, 0.0, "xi_gossip"),
+    ("HIGHD uncovered", 4, HIGHD_N, 3072, HIGHD_R, 0.0, "exact"),
+]
+
+
+def _s_decisions(history):
+    return [(rec["bucket"], rec["plan"].mu, rec["plan"].regime,
+             tuple(rec["counters"])) for rec in history]
+
+
+class _SClock:
+    """Advances dt per read: the governor reads the same round times in
+    every run."""
+
+    def __init__(self, dt):
+        self.t, self.dt = 0.0, dt
+
+    def __call__(self):
+        self.t += self.dt
+        return self.t
+
+
+def s_rank(rank: int, store: str, workdir: str) -> int:
+    """One rank of (s0)-(s2): `python3 chip_smoke.py --s-rank RANK STORE
+    DIR`. Saves its results to DIR/rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch import convert, dist as rdist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.paper_pca import HIGHD, PCARunConfig
+    from repro_torch.core import krasulina, mixing, problems
+    from repro_torch.core.packing import tree_leaves, tree_map
+    from repro_torch.data.lm import MarkovTokenStream
+    from repro_torch.data.synthetic import make_pca_host_sampler
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import trainer
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=S_WORLD,
+                            timeout=datetime.timedelta(seconds=180))
+    groups = {2: dist.new_group([0, 1]), 4: dist.new_group([0, 1, 2, 3]),
+              S_WORLD: None}
+    meshes = {E: make_host_mesh(group=g) for E, g in groups.items()
+              if rank < E}
+    res = {"seconds": {}}
+
+    def sync_ms(fn, reps=3):
+        """Wall ms per call of fn, synchronized (the halo messages block the
+        host, so a card-only timer would miss them), median of reps."""
+        fn()
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        return sorted(runs)[reps // 2]
+
+    # (s0) the shard rules on the card, each against the port's plain
+    # per-round path over the whole node axis, this rank's rows
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    s0 = []
+    for idx, (label, E, n, d, R, sw, kind) in enumerate(S0_CASES):
+        if E not in meshes:
+            continue
+        mesh = meshes[E]
+        rows = rdist.node_rows(mesh, n)
+        sched = mixing.schedule("ring", n, sw)
+        gen.manual_seed(100 + idx)
+        x = torch.randn((n, d), generator=gen, device=dev)
+        mine = x[rows].contiguous()
+        if kind == "xi_gossip":
+            w = torch.randn((n, d), generator=gen, device=dev)
+            z = torch.randn((n, 100, d), generator=gen, device=dev)
+            wl, zl = w[rows].contiguous(), z[rows].contiguous()
+            call = lambda: ops.sharded_krasulina_xi_gossip(wl, zl, sched, R,
+                                                           mesh)
+            want = ref.gossip_mix_ref(ref.krasulina_xi_ref(w, z), sched,
+                                      R)[rows]
+            impl = "shard"
+        else:
+            quant = "none" if kind == "exact" else kind
+            op = mixing.circulant_mix_op(
+                sched, n, R, quantization=quant, stats="node", block_d=512,
+                mesh=mesh, device=dev)
+            impl = op.impl
+            call = lambda: op(mine)
+            want = (ref.gossip_mix_ref(x, sched, R) if quant == "none" else
+                    ref.gossip_mix_quant_ref(x, sched, R, quant, block_d=512,
+                                             per_node=True))[rows]
+        ops.reset_launches()
+        rdist.reset_stats()
+        got = call()
+        torch.cuda.synchronize()
+        staged = rdist.stats["staged_bytes"] / max(R, 1)
+        launches = dict(ops.launches)
+        err = (got - want).abs().max().item()
+        s0.append({"label": label, "ranks": E, "n": n, "d": d, "R": R,
+                   "kind": kind, "impl": impl, "rows": (rows.start, rows.stop),
+                   "equal": bool(torch.equal(got, want)), "max_abs_err": err,
+                   "max_plain": want.abs().max().item(),
+                   "staged_bytes_per_round": staged,
+                   "ms": sync_ms(call), "launches": launches})
+    res["s0"] = s0
+    dist.barrier()
+    res["seconds"]["s0"] = time.perf_counter() - t_phase
+
+    # (s1) the governed PCA driver at HIGHD on 2 ranks, exact and int8
+    # (per-node statistics, the shard rule's wire)
+    t_phase = time.perf_counter()
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+    if 2 in meshes:
+        mesh = meshes[2]
+        stream = convert.pca_stream(inp["cov"], inp["sqrt_cov"], inp["top"],
+                                    HIGHD.lambda1, HIGHD.eigengap,
+                                    device=dev)
+        sin2 = lambda w: problems.sin2_error(w, stream.top_eigvec)
+        res["s1"] = {}
+        for wire, avg in s1_wires():
+            cfg = PCARunConfig(pca=HIGHD, averaging=avg, stream=s1_stream())
+            build = krasulina.krasulina_superstep_builder(
+                avg, HIGHD_N, lambda t: 5.0 / t, metric=sin2, device=dev,
+                mesh=mesh)
+            state = krasulina.init_krasulina_state(inp["w0"], avg, HIGHD_N,
+                                                   device=dev, mesh=mesh)
+            ops.reset_launches()
+            rdist.reset_stats()
+            t0 = time.perf_counter()
+            with StreamingDriver(cfg, mesh, state,
+                                 make_pca_host_sampler(stream),
+                                 superstep_builder=build, n_nodes=HIGHD_N,
+                                 batch=HIGHD_B, clock=_SClock(S1_DT),
+                                 device=dev,
+                                 engine=EngineConfig(superstep=HIGHD_K,
+                                                     prefetch_depth=2)) as drv:
+                state, hist = drv.run(S1_SUPERSTEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            res["s1"][wire] = {
+                "decisions": _s_decisions(hist), "w": state.w.cpu(),
+                "rows": (rdist.node_rows(mesh, HIGHD_N).start,
+                         rdist.node_rows(mesh, HIGHD_N).stop),
+                "sin2": hist[-1]["metrics"]["metric"],
+                "consensus_err": hist[-1]["metrics"]["consensus_err"],
+                "rounds": state.t, "rounds_per_s": state.t / wall,
+                "launches": dict(ops.launches),
+                "xi_by_design": dict(ops.xi_launches),
+                "staged_bytes_per_round":
+                    rdist.stats["staged_bytes"] / state.t,
+                "finite": bool(torch.isfinite(state.w).all())}
+        del stream
+    dist.barrier()
+    res["seconds"]["s1"] = time.perf_counter() - t_phase
+
+    # (s2a) reduced granite-8b in f32, 4 ranks x 1 node, 3 rounds per mode
+    t_phase = time.perf_counter()
+    cfg_r = reduced(get_config("granite-8b"))
+    if 4 in meshes:
+        mesh = meshes[4]
+        res["s2a"] = {}
+        for mode in ("exact", "gossip"):
+            run = s2_run(cfg_r, mode, "float32")
+            st = trainer.init_state(run, torch.Generator().manual_seed(0))
+            if mode == "gossip":
+                st = trainer.replicate_for_nodes(st, 1)
+            to = lambda tree: tree_map(lambda t: t.to(dev), tree)
+            st = trainer.TrainState(to(st.params), st.opt._replace(
+                m=to(st.opt.m), v=to(st.opt.v), master=to(st.opt.master)))
+            step = trainer.build_train_step(run, mesh, device=dev)
+            ops.reset_launches()
+            losses, cerrs = [], []
+            for b in s2a_batches(cfg_r):
+                b = {k: torch.from_numpy(v) for k, v in b.items()}
+                if mode == "gossip":
+                    b = {k: v.reshape(4, 2, -1)[rank:rank + 1]
+                         for k, v in b.items()}
+                else:
+                    b = {k: v[2 * rank:2 * rank + 2] for k, v in b.items()}
+                st, m = step(st, {k: v.to(dev) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+                cerrs.append(float(m["consensus_err"]))
+            res["s2a"][mode] = {
+                "losses": losses, "consensus_errs": cerrs,
+                "params": [p.cpu() for p in tree_leaves(st.params)],
+                "launches": dict(ops.launches)}
+            del st
+    dist.barrier()
+    res["seconds"]["s2a"] = time.perf_counter() - t_phase
+
+    # (s2b) granite-8b at its published widths, 2 layers, 4 ranks x 1
+    # node, 2 x 512 tokens per node per round, through the StreamingDriver
+    # with the trainer's builder (training takes the plain attention, which
+    # has a backward: no flash launch)
+    t_phase = time.perf_counter()
+    if 4 in meshes:
+        mesh = meshes[4]
+        cfg_h = dataclasses.replace(get_config("granite-8b"),
+                                    num_layers=TRAIN_LAYERS)
+        data = MarkovTokenStream(cfg_h.vocab_size, seed=0)
+
+        def sample(rng, n):
+            toks = data.sample(rng, n, TRAIN_S + 1)
+            return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        res["s2b"] = {}
+        for mode in ("exact", "gossip"):
+            run = s2_run(cfg_h, mode, "bfloat16")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            st = trainer.init_state(run, torch.Generator(device=dev)
+                                    .manual_seed(0))
+            if mode == "gossip":
+                # the rank's one node: views of the state just drawn (a
+                # copy would hold the state twice while the four ranks
+                # draw theirs at once)
+                one = lambda tree: tree_map(lambda t: t.unsqueeze(0), tree)
+                st = trainer.TrainState(one(st.params), st.opt._replace(
+                    step=(st.opt.step,), m=one(st.opt.m), v=one(st.opt.v),
+                    master=one(st.opt.master),
+                    ef_residual=one(st.opt.ef_residual)))
+            ops.reset_launches()
+            rdist.reset_stats()
+            t0 = time.perf_counter()
+            with StreamingDriver(run, mesh, st, sample, batch=2 * 4,
+                                 device=dev,
+                                 engine=EngineConfig(superstep=1,
+                                                     prefetch_depth=2,
+                                                     replan_every=0)) as drv:
+                st, hist = drv.run(2)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            train_launches = dict(ops.launches)
+            staged = rdist.stats["staged_bytes"] / len(hist)
+            peak = torch.cuda.max_memory_allocated()
+            n_params = sum(p[0].numel() if mode == "gossip" else p.numel()
+                           for p in tree_leaves(st.params))
+            res["s2b"][mode] = {
+                "losses": [rec["metrics"]["loss"] for rec in hist],
+                "consensus_errs": [rec["metrics"]["consensus_err"]
+                                   for rec in hist],
+                "round_s": [rec["wall_s"] for rec in hist],
+                "rounds_per_s": hist[-1]["rounds_per_s"], "wall_s": wall,
+                "peak_bytes": peak, "staged_bytes_per_round": staged,
+                "n_params": n_params, "launches": train_launches}
+            del st, drv
+    dist.barrier()
+    res["seconds"]["s2b"] = time.perf_counter() - t_phase
+    torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def s1_wires():
+    """(s1)'s wires: exact gossip, and int8 with per-node statistics."""
+    from repro_torch.configs.base import AveragingConfig
+
+    return (("exact", AveragingConfig(mode="gossip", rounds=HIGHD_R,
+                                      topology="ring")),
+            ("int8", AveragingConfig(mode="gossip", rounds=HIGHD_R,
+                                     topology="ring", quantization="int8",
+                                     quant_stats="node",
+                                     quant_block_d=512)))
+
+
+def s1_stream():
+    """(a)'s stream rates."""
+    from repro_torch.configs.base import StreamConfig
+
+    return StreamConfig(streaming_rate=5e3, processing_rate=1e6,
+                        comms_rate=1e4)
+
+
+def s2_run(cfg, mode, dtype):
+    """(s2)'s run: ring R = TRAIN_R, Adam; (s2a) f32 at (h0)'s rate, (s2b)
+    bf16 with f32 masters at (h1)'s."""
+    from repro_torch.configs.base import SHAPES, AveragingConfig, RunConfig
+
+    lr = S_LR if dtype == "float32" else 3e-4
+    return RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                     averaging=AveragingConfig(mode, TRAIN_R, "ring"),
+                     optimizer="adam", learning_rate=lr, param_dtype=dtype,
+                     master_weights=dtype != "float32")
+
+
+def s2a_batches(cfg):
+    """(s2a)'s 3 rounds of 8 x 64 tokens, (h0)'s draws."""
+    from repro_torch.data.lm import MarkovTokenStream
+
+    data, rng = MarkovTokenStream(cfg.vocab_size, seed=0), \
+        np.random.default_rng(0)
+    out = []
+    for _ in range(3):
+        toks = data.sample(rng, 8, 65)
+        out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return out
+
+
+def shard_phases(dev) -> dict:
+    """(s0)-(s2) on the card: the single-process references first, then
+    S_WORLD rank processes (`s_rank`), joined under a deadline; prints each
+    check and returns the ranks' krasulina_xi and flash_attention launches
+    by phase, for the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.paper_pca import HIGHD, PCARunConfig
+    from repro_torch.core import averaging, krasulina, problems
+    from repro_torch.core.packing import tree_leaves, tree_map
+    from repro_torch.data.synthetic import (make_pca_host_sampler,
+                                            make_pca_stream)
+    from repro_torch.train import trainer
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "shard")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    stream = make_pca_stream(HIGHD, device=dev)
+    sin2 = lambda w: problems.sin2_error(w, stream.top_eigvec)
+    w0 = np.random.default_rng(7).standard_normal(HIGHD.dim).astype(
+        np.float32)
+    w0 /= np.linalg.norm(w0)
+    torch.save({"cov": stream.cov.cpu(), "sqrt_cov": stream.sqrt_cov.cpu(),
+                "top": stream.top_eigvec.cpu(), "w0": w0},
+               os.path.join(work, "inputs.pt"))
+    # (s1)'s single-process card run (exact wire forced to
+    # impl="roll", the xi then the op), (s2a)'s at n_nodes = 4
+    # (impl="roll")
+    ref1 = {}
+    for wire, avg in s1_wires():
+        mix = (averaging.make_gossip_mix(avg, HIGHD_N, impl="roll",
+                                         device=dev)
+               if wire == "exact" else None)
+        build = krasulina.krasulina_superstep_builder(
+            avg, HIGHD_N, lambda t: 5.0 / t, metric=sin2, mix=mix,
+            fuse_xi=False, device=dev)
+        with StreamingDriver(
+                PCARunConfig(pca=HIGHD, averaging=avg, stream=s1_stream()),
+                None, krasulina.init_krasulina_state(w0, avg, HIGHD_N,
+                                                     device=dev),
+                make_pca_host_sampler(stream), superstep_builder=build,
+                n_nodes=HIGHD_N, batch=HIGHD_B, clock=_SClock(S1_DT),
+                device=dev, engine=EngineConfig(superstep=HIGHD_K,
+                                                prefetch_depth=0)) as drv:
+            state, hist = drv.run(S1_SUPERSTEPS)
+        ref1[wire] = (_s_decisions(hist), state.w.cpu(),
+                      hist[-1]["metrics"]["metric"])
+    del stream, state
+    cfg_r = reduced(get_config("granite-8b"))
+    ref2 = {}
+    for mode in ("exact", "gossip"):
+        run = s2_run(cfg_r, mode, "float32")
+        st = trainer.init_state(run, torch.Generator().manual_seed(0))
+        mix = None
+        if mode == "gossip":
+            st = trainer.replicate_for_nodes(st, 4)
+            mix = averaging.make_gossip_mix(run.averaging, 4, impl="roll",
+                                            device=dev)
+        to = lambda tree: tree_map(lambda t: t.to(dev), tree)
+        st = trainer.TrainState(to(st.params), st.opt._replace(
+            m=to(st.opt.m), v=to(st.opt.v), master=to(st.opt.master)))
+        step = trainer.build_train_step(run, None, n_nodes=4, mix=mix,
+                                        device=dev)
+        losses, cerrs = [], []
+        for b in s2a_batches(cfg_r):
+            if mode == "gossip":
+                b = trainer.make_node_batch(b, 4)
+            st, m = step(st, {k: torch.from_numpy(v).to(dev)
+                              for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            cerrs.append(float(m["consensus_err"]))
+        ref2[mode] = (losses, cerrs,
+                      [t.cpu() for t in tree_leaves(st.params)])
+        del st
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_all
+    # the ranks
+    store = os.path.join(work, "store")
+    procs = []
+    for r in range(S_WORLD):
+        log = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--s-rank", str(r),
+             store, work], stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + S_TIMEOUT
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        print(f"(s) rank {r} exited {procs[r][0].returncode}:\n{tail}")
+    require(not failed, f"(s): ranks {failed} failed or overran "
+                        f"{S_TIMEOUT} s")
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(S_WORLD)]
+    t_ranks = time.perf_counter() - t_all - t_ref
+
+    # (s0)
+    by_case = {}
+    for r, rr in enumerate(res):
+        for case in rr["s0"]:
+            key = (case["label"], case["ranks"], case["kind"])
+            by_case.setdefault(key, []).append(case)
+    for (label, E, kind), cases in by_case.items():
+        c0 = cases[0]
+        require(len(cases) == E, f"(s0) {label} {kind}: {len(cases)} ranks "
+                                 f"reported, expected {E}")
+        bit = all(c["equal"] for c in cases)
+        err = max(c["max_abs_err"] for c in cases)
+        scale = max(c["max_plain"] for c in cases)
+        exact_bits = kind in ("exact", "sign") and c0["impl"] == "shard"
+        limit = 0.0 if exact_bits else (
+            QUANT_TOL["float32"][0] * scale + QUANT_TOL["float32"][1]
+            if kind == "int8" else
+            TOL["float32"][0] * scale + TOL["float32"][1])
+        ok = bit if exact_bits else err <= limit
+        print(f"check (s0) {label} {kind} ranks={E} n={c0['n']} d={c0['d']} "
+              f"R={c0['R']} impl={c0['impl']}: bit for bit {bit}, "
+              f"max_abs_err={err:.3e} limit={limit:.3e}; ms per call by rank "
+              f"{[round(c['ms'], 3) for c in cases]}; bytes staged per round "
+              f"by rank {[int(c['staged_bytes_per_round']) for c in cases]}; "
+              f"krasulina_xi by rank "
+              f"{[c['launches']['krasulina_xi'] for c in cases]} "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"(s0) {label} {kind} ranks={E} disagrees with the "
+                    f"plain per-round path")
+        require(c0["impl"] == ("roll" if "uncovered" in label else "shard"),
+                f"(s0) {label}: impl {c0['impl']}")
+        require(all(c["launches"]["gossip_mix"] == 0 and
+                    c["launches"]["gossip_mix_quant"] == 0 for c in cases),
+                f"(s0) {label}: a node-axis kernel ran on the sharded path")
+        if kind == "xi_gossip":
+            require(all(c["launches"]["krasulina_xi"] == 1 for c in cases),
+                    f"(s0) {label}: krasulina_xi launches by rank")
+
+    # (s1)
+    for wire, (want_dec, want_w, want_sin2) in ref1.items():
+        runs = [rr["s1"][wire] for rr in res[:2]]
+        same = all(r["decisions"] == want_dec for r in runs)
+        w = torch.cat([r["w"] for r in sorted(runs, key=lambda r: r["rows"])])
+        d = (w - want_w).abs()
+        bound = 1e-5 * want_w.abs() + 1e-5 * want_w.abs().max()
+        within = bool((d <= bound).all())
+        print(f"main (s1) driver HIGHD N={HIGHD_N} B={HIGHD_B} ring "
+              f"R={HIGHD_R} K={HIGHD_K} {wire} wire on 2 ranks: sin2 "
+              f"{[round(r['sin2'], 5) for r in runs]} (single process "
+              f"{want_sin2:.5f}), plan history equal to the single "
+              f"process's: {same} ({len(want_dec)} supersteps, mu "
+              f"{[dd[1] for dd in runs[0]['decisions']]}), iterate vs the "
+              f"single-process roll run: max_abs_err {d.max().item():.3e}, "
+              f"within 1e-5 rel + 1e-5 max: {within}; rounds_per_s by rank "
+              f"{[round(r['rounds_per_s'], 2) for r in runs]}; krasulina_xi "
+              f"launches by rank {[r['launches']['krasulina_xi'] for r in runs]}"
+              f" {json.dumps(runs[0]['xi_by_design'])}; launches "
+              f"{json.dumps(runs[0]['launches'])}; bytes staged per round by "
+              f"rank {[int(r['staged_bytes_per_round']) for r in runs]}")
+        require(same, f"(s1) {wire}: plan history differs from the single "
+                      f"process's")
+        require(all(r["finite"] and r["sin2"] < 0.05 for r in runs),
+                f"(s1) {wire}: sin2 not < 0.05")
+        require(all(r["launches"]["krasulina_xi"] == r["rounds"]
+                    for r in runs), f"(s1) {wire}: krasulina_xi launches")
+        if wire == "exact":
+            require(within, "(s1) exact: the iterate disagrees with the "
+                            "single-process run")
+
+    # (s2a)
+    for mode, (want_l, want_c, want_p) in ref2.items():
+        runs = [rr["s2a"][mode] for rr in res[:4]]
+        loss_err = max(abs(a - b) / abs(b) for r in runs
+                       for a, b in zip(r["losses"], want_l))
+        if mode == "gossip":  # rank r holds node r
+            got = [torch.cat([r["params"][i] for r in runs])
+                   for i in range(len(want_p))]
+        else:
+            got = runs[0]["params"]
+        d = torch.cat([(a - b).abs().ravel() for a, b in zip(got, want_p)])
+        within = float((d <= 1e-4).float().mean())
+        cerr = runs[0]["consensus_errs"]
+        print(f"main (s2a) reduced granite-8b f32, 4 ranks x 1 node, ring "
+              f"R={TRAIN_R}, adam, {mode}: losses {json.dumps(runs[0]['losses'])}"
+              f" (single process n_nodes=4 impl=roll "
+              f"{json.dumps(want_l)}, max rel err {loss_err:.2e}, limit "
+              f"1e-5); parameters within 1e-4: {within:.6f} (limit >= "
+              f"0.999), max_abs_err {d.max().item():.3e}; consensus_err "
+              f"{json.dumps(cerr)}; launches {json.dumps(runs[0]['launches'])}")
+        require(loss_err <= 1e-5, f"(s2a) {mode}: losses disagree")
+        require(within >= 0.999 and d.max().item() <= 3 * S_LR * 3,
+                f"(s2a) {mode}: parameters disagree")
+        require(all(c == 0 for c in cerr) if mode == "exact"
+                else all(c > 0 for c in cerr),
+                f"(s2a) {mode}: consensus error {cerr}")
+        require(all(r["launches"]["gossip_mix"] == 0 for r in runs),
+                f"(s2a) {mode}: gossip_mix ran on the sharded path")
+
+    # (s2b)
+    flash = []
+    for mode in ("exact", "gossip"):
+        runs = [rr["s2b"][mode] for rr in res[:4]]
+        r0 = runs[0]
+        finite = all(math.isfinite(x) for r in runs for x in r["losses"])
+        print(f"main (s2b) granite-8b full width, {TRAIN_LAYERS} layers, "
+              f"{r0['n_params']} parameters per node, 4 ranks x 1 node, "
+              f"2 x {TRAIN_S} tokens per node per round, ring R={TRAIN_R}, "
+              f"{mode}: losses {json.dumps(r0['losses'])}, consensus_err "
+              f"{json.dumps(r0['consensus_errs'])}; s per round by rank "
+              f"{[[round(x, 3) for x in r['round_s']] for r in runs]}; "
+              f"rounds_per_s (last) by rank "
+              f"{[round(r['rounds_per_s'], 4) for r in runs]}; peak memory "
+              f"by rank GB {[round(r['peak_bytes'] / 1e9, 2) for r in runs]};"
+              f" bytes staged per round by rank "
+              f"{[int(r['staged_bytes_per_round']) for r in runs]}; "
+              f"launches {json.dumps(r0['launches'])}")
+        require(finite, f"(s2b) {mode}: losses not finite")
+        require(all(r["launches"]["gossip_mix"] == 0 and
+                    r["launches"]["gossip_mix_quant"] == 0 and
+                    r["launches"]["flash_attention"] == 0 for r in runs),
+                f"(s2b) {mode}: a kernel ran in training on the sharded "
+                f"path")
+        require(all(r["peak_bytes"] < 80e9 / 4 for r in runs),
+                f"(s2b) {mode}: a rank's peak is a quarter of the card or "
+                f"more")
+        require(all(c > 0 for c in r0["consensus_errs"]) if mode == "gossip"
+                else all(c == 0 for c in r0["consensus_errs"]),
+                f"(s2b) {mode}: consensus error {r0['consensus_errs']}")
+        flash.append([r["launches"]["flash_attention"] for r in runs])
+    seconds = res[0]["seconds"]
+    print(f"main (s) seconds: references {t_ref:.1f}, ranks "
+          f"{t_ranks:.1f} (rank 0: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in seconds.items()) +
+          f"), all {time.perf_counter() - t_all:.1f}")
+    shutil.rmtree(work, ignore_errors=True)
+    xi = {"s0": [sum(c["launches"]["krasulina_xi"] for c in rr["s0"])
+                 for rr in res],
+          "s1": [sum(rr["s1"][w]["launches"]["krasulina_xi"]
+                     for w in rr["s1"]) if "s1" in rr else 0 for rr in res]}
+    return {"krasulina_xi": xi,
+            "flash_attention": {"s2": [sum(f[r] for f in flash)
+                                       for r in range(4)]}}
+
+
 def main() -> int:
     import torch
 
@@ -439,6 +1050,8 @@ def main() -> int:
     per_lib = _cuda.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s wall "
           + " ".join(f"{k}={v:.1f}s" for k, v in per_lib.items()))
+    # (s0)-(s2): the sharded node axis, rank processes sharing the card
+    s_launches = shard_phases(dev)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3158,6 +3771,15 @@ def main() -> int:
         if row["name"] in nodes_total:
             row["launches_by_nodes"] = {
                 str(n): c for n, c in sorted(nodes_total[row["name"]].items())}
+    # the ranks' launches of (s0)-(s2), by phase and rank, under "s"
+    for row in rows:
+        by_phase = s_launches.get(row["name"])
+        if by_phase is None:
+            continue
+        row["launches"] += sum(sum(v) for v in by_phase.values())
+        key = ("launches_by_kernel" if row["name"] == "flash_attention"
+               else "launches_by_nodes")
+        row.setdefault(key, {})["s"] = by_phase
     # the per-round metric: the excess risk reads the [d, d] covariance, the
     # alignment error two vectors
     wbar = state.w.mean(0)
@@ -3175,4 +3797,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--s-rank"]:
+        sys.exit(s_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

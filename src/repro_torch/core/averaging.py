@@ -33,19 +33,29 @@ outside the operator and mixes the compressed buffer linearly (the
 residual. A time-varying `core.mixing.ScheduledMixOp` (scenario harness)
 takes the round counter `t` wherever a static op takes its key
 (`_mix_call`).
+
+Over a mesh that splits the node axis across ranks (`repro_torch/dist.py`),
+each rank holds its rows [n_local, ...] of every leaf: the gossip op
+(built with the mesh) mixes them with the shard rules, and the exact
+average, the consensus error and the node means reduce across ranks with
+all-reduces (`repro_torch/dist.py`). The hierarchical mode and error
+feedback on a sharded axis are not ported yet (ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
 from typing import Any, Optional, Tuple
 
 import torch
+from torch.distributed import ReduceOp
 
+from repro_torch import dist as rdist
 from repro_torch.configs.base import AveragingConfig
 from repro_torch.core import packing
 from repro_torch.core.mixing import (CirculantMixOp, ScheduledMixOp,
                                      circulant_mix_op, schedule)
 from repro_torch.core.quantize import fold_in, tile_compress
 from repro_torch.device import DeviceLike
+from repro_torch.dist import is_sharded
 
 Tree = Any
 # the consensus engine: a static CirculantMixOp or a time-varying
@@ -57,8 +67,8 @@ Pools = Tuple[Tuple[int, ...], ...]
 
 
 def make_gossip_mix(cfg: AveragingConfig, n_nodes: int, *,
-                    impl: str = "auto",
-                    device: DeviceLike = None) -> CirculantMixOp:
+                    impl: str = "auto", device: DeviceLike = None,
+                    mesh: Any = None) -> CirculantMixOp:
     """Build the consensus engine for a config — once, outside the step loop.
     For `mode="hierarchical"` pass the pod count as `n_nodes`.
 
@@ -67,19 +77,22 @@ def make_gossip_mix(cfg: AveragingConfig, n_nodes: int, *,
     quantization, its statistics and tile width come from `cfg`; with error
     feedback on, the per-round compressor is dropped (`ef_average_and_error`
     compresses once per step outside the operator, and the rounds are exact
-    and linear)."""
+    and linear). Pass the `mesh` the op runs under: on a sharded node axis
+    it takes each rank's rows, and "auto" picks the shard rule."""
     sched = schedule(cfg.topology, n_nodes, cfg.self_weight)
     quantization = "none" if cfg.error_feedback != "off" else cfg.quantization
     return circulant_mix_op(sched, n_nodes, cfg.rounds,
                             quantization=quantization, impl=impl,
                             stats=cfg.quant_stats, block_d=cfg.quant_block_d,
-                            device=device)
+                            device=device, mesh=mesh)
 
 
-def resolve_packed(cfg: AveragingConfig) -> bool:
+def resolve_packed(cfg: AveragingConfig, mesh: Any = None) -> bool:
     """Resolve the tri-state `AveragingConfig.packed`. The reference's "auto"
     packs everywhere except meshes that shard leaves over a model axis; the
-    port runs on one device, where "auto" always packs."""
+    port's meshes have no model axis (`repro_torch.dist.check_mesh`), so "auto"
+    always packs."""
+    del mesh
     return True if cfg.packed == "auto" else bool(cfg.packed)
 
 
@@ -128,9 +141,35 @@ def gossip_average(tree: Tree, n_nodes: int, cfg: AveragingConfig,
     return packing.unpack_tree(outs, spec)
 
 
-def exact_average(tree: Tree) -> Tree:
+def _node_sum(g: torch.Tensor, mesh: Any) -> torch.Tensor:
+    """The f32 sum over every node's row of g (this rank's rows [n_local,
+    ...]), all-reduced over the mesh's ranks: [1, ...]."""
+    total = g.float().sum(0, keepdim=True)
+    return rdist.all_reduce_(total, mesh)
+
+
+def exact_average(tree: Tree, mesh: Any = None,
+                  n_nodes: Optional[int] = None) -> Tree:
+    """The mean over the node axis, broadcast back to it. On a sharded
+    `mesh` each rank holds its rows of the `n_nodes`-node axis and the mean
+    is an all-reduce (in f32, cast to the leaf's dtype)."""
+    if not is_sharded(mesh):
+        return packing.tree_map(
+            lambda g: torch.mean(g, dim=0, keepdim=True).expand(g.shape),
+            tree)
     return packing.tree_map(
-        lambda g: torch.mean(g, dim=0, keepdim=True).expand(g.shape), tree)
+        lambda g: (_node_sum(g, mesh) / n_nodes).to(g.dtype).expand(g.shape),
+        tree)
+
+
+def check_sharded_mode(cfg: AveragingConfig, mesh: Any) -> None:
+    """Refuse the hierarchical mode on a sharded node axis: its pods would
+    take the mesh's "pod" axis, with an exact mean within each pod's ranks
+    and gossip between pods, which is not ported yet (ROADMAP.md)."""
+    if cfg.mode == "hierarchical" and is_sharded(mesh):
+        raise NotImplementedError(
+            "hierarchical averaging on a sharded node axis is not ported "
+            "yet (ROADMAP.md)")
 
 
 def _hmix_buffer(g: torch.Tensor, pods: int, per_pod: int,
@@ -183,15 +222,21 @@ def hierarchical_average(tree: Tree, pods: int, per_pod: int,
 def average_gradients(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                       pods: int = 1, mix: Optional[MixOp] = None,
                       key: Optional[int] = None, t=None,
-                      device: DeviceLike = None) -> Tree:
-    """Dispatch on the paper's averaging mode. `tree` leaves: [n_nodes, ...].
+                      device: DeviceLike = None, mesh: Any = None) -> Tree:
+    """Dispatch on the paper's averaging mode. `tree` leaves: [n_nodes, ...]
+    (on a sharded `mesh`, this rank's rows of them).
 
-    `mix` is the prebuilt consensus engine (gossip: over `n_nodes`;
-    hierarchical: over `pods`); built from `cfg` on `device` when omitted.
-    `t` is the round counter of a time-varying `ScheduledMixOp`."""
+    `mix` is the prebuilt consensus engine (gossip: over `n_nodes`, built
+    with the mesh; hierarchical: over `pods`, on one rank); built from
+    `cfg` on `device` when omitted. `t` is the round counter of a
+    time-varying `ScheduledMixOp`."""
+    check_sharded_mode(cfg, mesh)
     if cfg.mode == "exact":
-        return exact_average(tree)
+        return exact_average(tree, mesh, n_nodes)
     if cfg.mode == "gossip":
+        if mix is None:
+            mix = make_gossip_mix(cfg, n_nodes, device=device,
+                                  mesh=mesh if is_sharded(mesh) else None)
         return gossip_average(tree, n_nodes, cfg, mix, key=key, t=t,
                               device=device)
     if cfg.mode == "hierarchical":
@@ -206,23 +251,30 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                       pods: int = 1, mix: Optional[MixOp] = None,
                       key: Optional[int] = None, t=None,
                       device: DeviceLike = None,
-                      pools: Optional[Pools] = None
+                      pools: Optional[Pools] = None, mesh: Any = None
                       ) -> Tuple[Tree, torch.Tensor]:
     """Averaging plus the epsilon-consensus diagnostic with ONE pack: the
     mixed packed buffers feed both the unpack and the error reduction.
-    `pools` groups leaves for the diagnostic (`_packed_consensus_error`)."""
+    `pools` groups leaves for the diagnostic (`_packed_consensus_error`).
+    On a sharded `mesh` the leaves are this rank's rows, `mix` is built
+    with the mesh, and the diagnostic reduces across ranks."""
+    check_sharded_mode(cfg, mesh)
+    if not is_sharded(mesh):
+        mesh = None
     if cfg.mode == "exact":
-        mixed = exact_average(tree)
-        return mixed, consensus_error(mixed, pools)
+        mixed = exact_average(tree, mesh, n_nodes)
+        return mixed, consensus_error(mixed, pools, mesh=mesh,
+                                      n_nodes=n_nodes)
     if cfg.mode not in ("gossip", "hierarchical"):
         raise ValueError(f"unknown averaging mode {cfg.mode!r}")
     if mix is None:
         mix = make_gossip_mix(cfg, pods if cfg.mode == "hierarchical"
-                              else n_nodes, device=device)
+                              else n_nodes, device=device, mesh=mesh)
     if not (cfg.packed and _packable(mix)):
         mixed = average_gradients(tree, cfg, n_nodes=n_nodes, pods=pods,
-                                  mix=mix, key=key, t=t)
-        return mixed, consensus_error(mixed, pools)
+                                  mix=mix, key=key, t=t, mesh=mesh)
+        return mixed, consensus_error(mixed, pools, mesh=mesh,
+                                      n_nodes=n_nodes)
     bufs, spec = packing.pack_tree(tree)
     if cfg.mode == "gossip":
         outs = tuple(_apply_mix(mix, spec, g, b, key, t)
@@ -232,7 +284,7 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
         outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key, t)
                      for b in bufs)
-    err = _packed_consensus_error(outs, spec, pools)
+    err = _packed_consensus_error(outs, spec, pools, mesh, n_nodes)
     return packing.unpack_tree(outs, spec), err
 
 
@@ -332,13 +384,17 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
 
 def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
                             spec: packing.PackSpec,
-                            pools: Optional[Pools] = None) -> torch.Tensor:
+                            pools: Optional[Pools] = None, mesh: Any = None,
+                            n_nodes: Optional[int] = None) -> torch.Tensor:
     """max_leaf max_n ||v_n - v_bar|| / ||v_bar|| on the packed buffers, one
     leaf segment at a time: the f32 temporaries are the size of one leaf,
     not of the buffer (an f32 copy of an 8B-class model's [4, D] gradient
     buffer alone would be 10 GB). `pools` (tuples of leaf indices) makes
     each pool of leaves count as one leaf, its squares summed over the pool;
-    by default every leaf is its own pool."""
+    by default every leaf is its own pool. On a sharded `mesh` the buffers
+    are this rank's rows of the `n_nodes`-node axis: each leaf's mean is an
+    all-reduce, and the max over nodes one more (over the pools' values)."""
+    sharded = is_sharded(mesh)
     d2: dict = {}  # leaf index -> (squared deviations [N], squared mean)
     for g, buf in enumerate(bufs):
         off = 0
@@ -348,7 +404,10 @@ def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
             off += w
             if w == 0:
                 continue
-            bar = torch.mean(seg, dim=0, keepdim=True)
+            if sharded:
+                bar = _node_sum(seg, mesh).div_(n_nodes)
+            else:
+                bar = torch.mean(seg, dim=0, keepdim=True)
             d2[i] = (seg.sub_(bar).square_().sum(-1), bar.square().sum())
     errs = []
     for pool in (pools if pools is not None else [(i,) for i in sorted(d2)]):
@@ -358,17 +417,24 @@ def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
         num = torch.sqrt(sum(p[0] for p in parts)).amax()
         den = torch.sqrt(sum(p[1] for p in parts)) + 1e-30
         errs.append(num / den)
-    return torch.stack(errs).amax() if errs else torch.zeros(())
+    if not errs:
+        return torch.zeros(())
+    errs = torch.stack(errs)
+    if sharded:
+        rdist.all_reduce_(errs, mesh, ReduceOp.MAX)
+    return errs.amax()
 
 
-def consensus_error(tree: Tree, pools: Optional[Pools] = None
-                    ) -> torch.Tensor:
+def consensus_error(tree: Tree, pools: Optional[Pools] = None, *,
+                    mesh: Any = None,
+                    n_nodes: Optional[int] = None) -> torch.Tensor:
     """max_n ||v_n - v_bar|| / ||v_bar|| across the tree — the paper's
     epsilon-accuracy diagnostic for inexact averaging. Computed on the packed
     flat buffer (`consensus_error_per_leaf` is the per-leaf oracle); `pools`
-    as in `_packed_consensus_error`."""
+    as in `_packed_consensus_error`; on a sharded `mesh` the leaves are
+    this rank's rows of the `n_nodes`-node axis."""
     bufs, spec = packing.pack_tree(tree)
-    return _packed_consensus_error(bufs, spec, pools)
+    return _packed_consensus_error(bufs, spec, pools, mesh, n_nodes)
 
 
 def consensus_error_per_leaf(tree: Tree) -> torch.Tensor:

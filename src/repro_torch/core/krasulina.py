@@ -24,6 +24,12 @@ versions serve the CPU).
 governed splitter / prefetch ring / closed-loop (B, mu) governor (Fig. 3(c),
 eq. 4). Where the reference scans a donated carry, the port loops in Python
 and updates the iterate in place; each such place says so.
+
+Over a mesh that splits the node axis across ranks (`repro_torch/dist.py`),
+the superstep runs on each rank's node rows: w, the samples and the iterate
+are [n_local, ...], xi stays node-local, the gossip rounds exchange halo
+rows (`kernels.ops.sharded_krasulina_xi_gossip`), and the exact mean, the
+node-mean iterate and the consensus spread are all-reduces.
 """
 from __future__ import annotations
 
@@ -31,13 +37,17 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.distributed import ReduceOp
 
+from repro_torch import dist as rdist
 from repro_torch.configs.base import AveragingConfig
 from repro_torch.core.averaging import make_gossip_mix
 from repro_torch.core.mixing import (CirculantMixOp, DenseMixOp,
                                      ScheduledMixOp)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.ops import krasulina_xi, krasulina_xi_gossip
+from repro_torch.dist import is_sharded, n_local
+from repro_torch.kernels.ops import (krasulina_xi, krasulina_xi_gossip,
+                                     sharded_krasulina_xi_gossip)
 
 
 class KrasulinaResult(NamedTuple):
@@ -81,7 +91,14 @@ def _gossip_xi(w: torch.Tensor, z: torch.Tensor, mix: CirculantMixOp,
     per-round noise (deterministic ones ignore it). A time-varying
     `ScheduledMixOp` takes `t` itself as its schedule clock. Quantized
     configs run `mix(krasulina_xi(w, z))`: on the card, the `krasulina_xi`
-    then the `gossip_mix_quant` kernel."""
+    then the `gossip_mix_quant` kernel. On a sharded node axis the fused
+    form is the shard rule (`sharded_krasulina_xi_gossip`: xi per rank,
+    then the halo rounds), where it covers the layout."""
+    if fused and getattr(mix, "mesh", None) is not None:
+        if mix.impl == "shard":
+            return sharded_krasulina_xi_gossip(w, z, mix.sched, mix.rounds,
+                                               mix.mesh)
+        fused = False  # a layout the rule does not cover: the op gathers
     if fused:
         return krasulina_xi_gossip(w, z, mix.sched, mix.rounds)
     h = krasulina_xi(w, z)
@@ -199,13 +216,15 @@ class KrasulinaState(NamedTuple):
 
 
 def init_krasulina_state(w0, averaging: AveragingConfig, n_nodes: int, *,
-                         device: DeviceLike = None) -> KrasulinaState:
+                         device: DeviceLike = None,
+                         mesh=None) -> KrasulinaState:
     """Initial superstep carry on `device`: exact mode shares one iterate,
-    gossip mode replicates it per node. Always a fresh copy of w0, because
-    the superstep updates `w` in place."""
+    gossip mode replicates it per node (on a sharded `mesh`, this rank's
+    rows of the node axis). Always a fresh copy of w0, because the
+    superstep updates `w` in place."""
     w0 = torch.as_tensor(w0, device=resolve_device(device)).clone()
     if averaging.mode != "exact":
-        w0 = w0.unsqueeze(0).repeat(n_nodes, 1)
+        w0 = w0.unsqueeze(0).repeat(n_local(mesh, n_nodes), 1)
     return KrasulinaState(w0, 0)
 
 
@@ -214,7 +233,8 @@ def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
                               metric: Optional[Callable] = None,
                               mix=None,
                               fuse_xi: Optional[bool] = None,
-                              device: DeviceLike = None) -> Callable:
+                              device: DeviceLike = None,
+                              mesh=None) -> Callable:
     """The PCA superstep consumed by `train.driver.StreamingDriver` (pass it
     as `superstep_fn`).
 
@@ -226,24 +246,39 @@ def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
     `state.w` is updated in place (the reference donates its carry) and
     returned in the new state. `mix` overrides the consensus engine built
     from `averaging` (a `ScheduledMixOp` of the scenario harness, or a
-    `DenseMixOp`)."""
+    `DenseMixOp`).
+
+    On a sharded `mesh` the batches and the iterate are this rank's rows:
+    [K, B * n_local / N, d] in exact mode (`w` is every rank's copy of the
+    one iterate), [K, n_local, B/N, d] decentralized."""
     _check_averaging(averaging)
     dev = resolve_device(device)
     exact = averaging.mode == "exact"
     metric_fn = metric or _zero_metric
+    sharded = is_sharded(mesh)
+    rows = n_local(mesh, n_nodes)
     if not exact and mix is None:
-        mix = make_gossip_mix(averaging, n_nodes, device=dev)
+        mix = make_gossip_mix(averaging, n_nodes, device=dev,
+                              mesh=mesh if sharded else None)
     fused = False if exact else _resolve_fuse_xi(mix, fuse_xi, dev)
+
+    def node_mean(x: torch.Tensor) -> torch.Tensor:
+        """The mean over all nodes of x [rows, ...]."""
+        if not sharded:
+            return x.mean(0)
+        return rdist.all_reduce_(x.sum(0), mesh).div_(n_nodes)
 
     def round_fn(w: torch.Tensor, t: int, z: torch.Tensor):
         if exact:
-            zn = z.reshape(n_nodes, z.shape[0] // n_nodes, -1)
-            w.add_(krasulina_xi(w, zn).mean(0), alpha=stepsize(t))  # in place
+            zn = z.reshape(rows, z.shape[0] // rows, -1)
+            w.add_(node_mean(krasulina_xi(w, zn)), alpha=stepsize(t))
             return metric_fn(w), torch.zeros((), device=w.device)
         h = _gossip_xi(w, z, mix, fused, t)
         w.add_(h, alpha=stepsize(t))  # in place
-        wbar = w.mean(0)
+        wbar = node_mean(w)
         num = torch.linalg.vector_norm(w - wbar, dim=1).max()
+        if sharded:
+            num = rdist.all_reduce_(num.reshape(1), mesh, ReduceOp.MAX)[0]
         spread = num / (torch.linalg.vector_norm(wbar) + 1e-30)
         return metric_fn(wbar), spread
 
@@ -267,7 +302,7 @@ def krasulina_superstep_builder(averaging: AveragingConfig, n_nodes: int,
                                 mix=None,
                                 fuse_xi: Optional[bool] = None,
                                 device: DeviceLike = None,
-                                ) -> Callable[..., Callable]:
+                                mesh=None) -> Callable[..., Callable]:
     """Bucket-keyed PCA superstep factory for the adaptive-B governor,
     consumable as `StreamingDriver(superstep_builder=...)`. The K-round loop
     derives every shape (K, the per-node share B/N) from its batch, so one
@@ -279,15 +314,21 @@ def krasulina_superstep_builder(averaging: AveragingConfig, n_nodes: int,
     the active cohort (docs/DESIGN.md §Elastic membership); the driver wraps
     it with the full-axis gather/scatter (`train.driver.elastic_superstep`).
     The prebuilt `mix` override only applies at full membership, since its
-    operator is sized for the full node axis."""
+    operator is sized for the full node axis. On a sharded `mesh` only the
+    full membership is built: churn on a sharded node axis is not ported
+    yet (ROADMAP.md)."""
     full = build_krasulina_superstep(averaging, n_nodes, stepsize,
                                      metric=metric, mix=mix, fuse_xi=fuse_xi,
-                                     device=device)
+                                     device=device, mesh=mesh)
     cohort_cache = {n_nodes: full}
 
     def build(B: int, membership=None) -> Callable:
         m = n_nodes if membership is None else membership.n_active
         fn = cohort_cache.get(m)
+        if fn is None and is_sharded(mesh):
+            raise NotImplementedError(
+                "elastic membership on a sharded node axis is not ported "
+                "yet (ROADMAP.md)")
         if fn is None:
             fn = build_krasulina_superstep(averaging, m, stepsize,
                                            metric=metric, fuse_xi=fuse_xi,

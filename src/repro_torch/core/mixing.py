@@ -31,13 +31,17 @@ Elastic membership degrades the operator to the active cohort
 matrix), and the scenario harness's time-varying graphs (eq. 17's
 B-connected sequences) run through `ScheduledMixOp`: a stack of dense
 per-phase operators on the device, the phase picked per round as data.
-The sharded node axis (`impl="shard"`) comes with a later slice of the port
-and raises `NotImplementedError`.
+
+On a node axis split over the ranks of a mesh (`repro_torch/dist.py`), a
+`CirculantMixOp` built with the mesh takes each rank's rows: `impl="shard"`
+runs the reference's partitioning rule (`kernels.consensus`: halo messages
+and a slice sum per round), and a layout the rule does not cover gathers
+the node axis, mixes it and keeps the rank's rows.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +49,8 @@ import torch
 from repro_torch.core.quantize import (COMPRESSORS, STOCHASTIC, fold_in,
                                        make_compressor)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import (all_gather_rows, check_mesh, is_sharded,
+                              n_local, node_rows)
 
 Schedule = Tuple[Tuple[int, float], ...]  # ((shift, weight), ...) includes shift 0
 
@@ -411,11 +417,24 @@ class CirculantMixOp:
                  pass over column tiles staged in shared memory (one HBM
                  read+write per buffer). On a CPU tensor it runs the kernel's
                  plain per-round version.
+    * "shard"  — the node axis is split over the ranks of `mesh`, and the
+                 op takes each rank's rows [n_local, ...]: per round, halo
+                 messages carry only the rows the schedule reaches and the
+                 local mix is a slice sum (`kernels.ops.sharded_gossip_mix`).
+                 PER-ROUND semantics: bit for bit the rows of the fuse=False
+                 loop. The builder keeps it only where the rule covers the
+                 (n, schedule, split).
     * "auto"   — resolved at build time by `circulant_mix_op` via
-                 `resolve_auto_impl(device)`: "kernel" on CUDA, "matmul" on
-                 the CPU.
+                 `resolve_auto_impl(device, mesh)`: "shard" on a sharded
+                 node axis, else "kernel" on CUDA, "matmul" on the CPU.
 
     `fused_sched=None` keeps the per-round loop (the `fuse=False` oracle).
+
+    With a sharded `mesh`, any configuration the shard rules do not run (a
+    layout they do not cover, where the builder picks "roll"; quantized
+    statistics other than "node") gathers the node axis from every rank,
+    applies the op as an unsharded one and keeps the rank's rows: the
+    reference's sharding-safe roll, correct on every layout.
 
     Quantization on: the compressor is nonlinear, so the operator is never
     collapsed and `impl` plays no part. `stats` picks the statistic
@@ -425,7 +444,8 @@ class CirculantMixOp:
     `kernels.ops.quant_gossip_mix` — the `gossip_mix_quant` CUDA kernel on
     the card, its plain tile chain on the CPU; "node" computes sender-local
     per-row-tile scales (the plain tile chain on every device, as in the
-    reference).
+    reference); on a sharded mesh with `impl="shard"`, the quantized shard
+    rule (`kernels.ops.sharded_quant_gossip_mix`).
     """
 
     sched: Schedule  # one-round schedule (per-round / kernel path)
@@ -439,16 +459,20 @@ class CirculantMixOp:
     stats: str = "global"  # quantizer statistics: global | segment | tile | node
     block_d: int = 512  # tile width for stats="tile" / "node"
     seed: int = 0  # base key of stochastic compressors
+    mesh: Any = None  # a sharded `dist.Mesh`: x is this rank's rows
 
     def __call__(self, x: torch.Tensor, *,
                  seg_widths: Optional[Tuple[int, ...]] = None,
                  valid_d: Optional[int] = None,
                  key: Optional[int] = None) -> torch.Tensor:
-        if x.shape[0] != self.n:
-            raise ValueError(f"MixOp built for n={self.n} applied to node "
-                             f"axis {x.shape[0]}")
+        rows = n_local(self.mesh, self.n)
+        if x.shape[0] != rows:
+            raise ValueError(f"MixOp built for n={self.n} ({rows} rows on "
+                             f"this rank) applied to node axis {x.shape[0]}")
         if self.rounds == 0 or self.n == 1:
             return x
+        if self.mesh is not None:
+            return self._sharded(x, seg_widths, valid_d, key)
         if self.quantization != "none":
             return self._quantized(x, seg_widths, valid_d, key)
         if self.fused_sched is None:  # fuse=False: per-round oracle loop
@@ -466,6 +490,31 @@ class CirculantMixOp:
             raise ValueError(f"unknown MixOp impl {self.impl!r}")
         return roll_mix(x, self.fused_sched)
 
+    def _key0(self, key: Optional[int]) -> Optional[int]:
+        """The base key of a stochastic compressor for a call with `key`."""
+        if self.quantization not in STOCHASTIC:
+            return None
+        return self.seed if key is None else fold_in(self.seed, key)
+
+    def _sharded(self, x, seg_widths, valid_d, key):
+        """This rank's rows x of a node axis split over `mesh`: the shard
+        rules where they run, else gather, mix as an unsharded op, and keep
+        this rank's rows."""
+        from repro_torch.kernels import ops
+
+        if self.impl == "shard" and self.quantization == "none":
+            return ops.sharded_gossip_mix(x, self.sched, self.rounds,
+                                          self.mesh)
+        if self.impl == "shard" and self.stats == "node":
+            return ops.sharded_quant_gossip_mix(
+                x, self.sched, self.rounds, self.quantization, self.mesh,
+                block_d=self.block_d, valid_d=valid_d, key=self._key0(key))
+        full = all_gather_rows(x, self.mesh, self.n)
+        impl = "roll" if self.impl == "shard" else self.impl
+        whole = dataclasses.replace(self, mesh=None, impl=impl)
+        out = whole(full, seg_widths=seg_widths, valid_d=valid_d, key=key)
+        return out[node_rows(self.mesh, self.n)].contiguous()
+
     def _quantized(self, x, seg_widths, valid_d, key):
         """Per-round nonlinear consensus. `valid_d` marks trailing flattened
         columns as padding (masked out of compressor statistics — they must
@@ -473,9 +522,7 @@ class CirculantMixOp:
         from `fold_in(fold_in(seed, key), r)`: callers in a step loop pass
         the step counter as `key` so the noise is fresh every step; `key=None`
         gives the same noise at every call."""
-        key0 = None
-        if self.quantization in STOCHASTIC:
-            key0 = self.seed if key is None else fold_in(self.seed, key)
+        key0 = self._key0(key)
         if self.stats in ("tile", "node"):
             from repro_torch.kernels.ops import quant_gossip_mix
             return quant_gossip_mix(x, self.sched, self.rounds,
@@ -509,11 +556,15 @@ class CirculantMixOp:
         return x
 
 
-def resolve_auto_impl(device: DeviceLike = None) -> str:
-    """Pick the fastest execution strategy for `impl="auto"` on a single
-    device: the fused CUDA kernel on the card, the dense circulant matmul on
-    the CPU. (The reference picks its kernel on TPU only; on the card the
-    kernel is the point of the port, so the CUDA branch takes it.)"""
+def resolve_auto_impl(device: DeviceLike = None, mesh: Any = None) -> str:
+    """Pick the fastest execution strategy for `impl="auto"`: "shard" (the
+    partitioning rule) when `mesh` splits the node axis over more than one
+    rank; otherwise, on a single device, the fused CUDA kernel on the card
+    and the dense circulant matmul on the CPU. (The reference picks its
+    kernel on TPU only; on the card the kernel is the point of the port, so
+    the CUDA branch takes it.)"""
+    if is_sharded(mesh):
+        return "shard"
     return "kernel" if resolve_device(device).type == "cuda" else "matmul"
 
 
@@ -521,7 +572,8 @@ def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
                      quantization: str = "none", impl: str = "auto",
                      fuse: bool = True, stats: str = "global",
                      block_d: int = 512, seed: int = 0,
-                     device: DeviceLike = None) -> CirculantMixOp:
+                     device: DeviceLike = None,
+                     mesh: Any = None) -> CirculantMixOp:
     """Build the circulant-path MixOp from a one-round schedule.
 
     The R-round operator is precomputed here, once, so the per-step cost is
@@ -529,28 +581,39 @@ def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
     baseline), as does any quantized config (nonlinear compressor —
     collapsing would change it); quantized configs pick their statistic
     granularity via `stats` and the tile width via `block_d`.
-    `impl="auto"` resolves via `resolve_auto_impl(device)`. `impl="shard"`
-    belongs to the sharded slice and raises."""
+    `impl="auto"` resolves via `resolve_auto_impl(device, mesh)`.
+
+    `mesh` (a `repro_torch.dist.Mesh`) splits the node axis over its ranks: the
+    op then takes and returns each rank's rows. `impl="shard"` keeps the
+    partitioning rule where it covers the (n, schedule, split)
+    (`kernels.ops.node_shard_info`) and falls back to "roll" elsewhere (on
+    a sharded mesh: gather, roll, keep the rank's rows), as the reference
+    does; it keeps per-round semantics, so it carries no fused schedule."""
+    if mesh is not None:
+        check_mesh(mesh)
+        if not is_sharded(mesh):
+            mesh = None  # one rank holds every row: the unsharded op
     if impl not in ("auto", "roll", "matmul", "kernel", "shard"):
         raise ValueError(f"unknown MixOp impl {impl!r}")
     if stats not in ("global", "segment", "tile", "node"):
         raise ValueError(f"unknown quantizer stats mode {stats!r}")
     if quantization not in COMPRESSORS:
         raise ValueError(f"unknown quantization {quantization!r}")
-    if impl == "shard":
-        raise NotImplementedError(
-            "the sharded node axis comes with the port's sharded slice")
     if impl == "auto":
-        impl = resolve_auto_impl(device)
-    if quantization != "none" or not fuse:
+        impl = resolve_auto_impl(device, mesh)
+    if impl == "shard":
+        from repro_torch.kernels.ops import node_shard_info
+        if node_shard_info(mesh, n, sched) is None:
+            impl = "roll"  # the rule does not cover this layout
+    if quantization != "none" or not fuse or impl == "shard":
         return CirculantMixOp(sched, None, None, n, rounds, impl,
-                              quantization, stats, block_d, seed)
+                              quantization, stats, block_d, seed, mesh)
     fused = compose_schedule(sched, rounds, n) if rounds > 0 else ((0, 1.0),)
     # the dense [n, n] operator is only needed by the matmul impl
     A_eff = (torch.as_tensor(schedule_matrix(fused, n), dtype=torch.float32)
              if impl == "matmul" else None)
     return CirculantMixOp(sched, fused, A_eff, n, rounds, impl, quantization,
-                          stats, block_d, seed)
+                          stats, block_d, seed, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,10 @@ Streaming-engine extensions (see train.driver for the full picture):
   ring keep their old width (their samples were drawn — dropping them would
   lose stream samples) and drain through the old bucket's superstep, while
   each staged item's `meta` snapshot tells the consumer which plan dealt it.
+* **Sharded node axis** — over a mesh that splits the nodes across ranks,
+  every rank runs the same seeded splitter and keeps its own rows of the
+  node axis (`shard_batch`): the reference's `P(None, dp)` batch sharding,
+  in SPMD form.
 """
 from __future__ import annotations
 
@@ -114,6 +118,47 @@ class StreamingPipeline(GovernedPlanMixin):
         out = {key: np.stack([r[key] for r in rounds]) for key in rounds[0]}
         self._last_superstep_plan = plan
         return out
+
+
+def exact_split_error(B: int, n_nodes: int, ranks: int) -> Optional[str]:
+    """Why a B-sample exact-mode batch of `n_nodes` nodes does not split
+    evenly over `ranks` ranks (None when it does): each rank must hold the
+    same share, whole nodes of equal runs, as the reference's
+    `P(None, dp)` refuses an uneven split rather than train on part of
+    the batch or weight the ranks unequally."""
+    if n_nodes % ranks:
+        return f"{n_nodes} nodes do not split evenly over {ranks} ranks"
+    if B % n_nodes:
+        return f"a batch of {B} samples does not split evenly over " \
+               f"{n_nodes} nodes"
+    return None
+
+
+def shard_batch(batch: Dict[str, Any], mesh, n_nodes: int, *,
+                node_axis: bool) -> Dict[str, Any]:
+    """This rank's part of a superstep batch on a `mesh` that splits
+    `n_nodes` nodes over its ranks (the whole batch without one). With
+    `node_axis` the leaves are [K, n_nodes, B/n_nodes, ...] and the rank
+    keeps its node rows; without (the exact mode), they are [K, B, ...],
+    node j's samples the j-th of n_nodes equal runs, and the rank keeps
+    its nodes' runs, an equal share: an uneven split raises ValueError
+    (`exact_split_error`)."""
+    from repro_torch.dist import is_sharded, n_data_nodes, node_rows
+
+    if not is_sharded(mesh):
+        return batch
+    rows = node_rows(mesh, n_nodes)
+    if node_axis:
+        return {k: v[:, rows] for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        B = v.shape[1]
+        why = exact_split_error(B, n_nodes, n_data_nodes(mesh))
+        if why:
+            raise ValueError(f"exact mode on a sharded node axis: {why}")
+        per = B // n_nodes
+        out[k] = v[:, rows.start * per:rows.stop * per]
+    return out
 
 
 class _Stop:

@@ -3,7 +3,10 @@ compiled by `nvcc` for `sm_90a` into its own shared library with a plain C
 interface, loaded with `ctypes`.
 
 The build happens at first use (or through `build_all()`), from the
-package's sources alone, into `kernels/build/` (listed in `.gitignore`). A
+package's sources alone, into `build_dir()`: `kernels/build/` (listed in
+`.gitignore`), or the directory named by the environment variable
+`REPRO_TORCH_KERNEL_BUILD_DIR` (the launchers' `--compilation-cache-dir`,
+`launch/env.py`). A
 library's file name carries a hash of its source, of every `csrc/` header
 the source includes (directly or through another header), and of the flags,
 so an edited source or header is rebuilt and a stale library is never
@@ -34,7 +37,8 @@ N_SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_TERMS = 32  # kMaxTerms in csrc/common.cuh
 
 CSRC = Path(__file__).with_name("csrc")
-BUILD_DIR = Path(__file__).with_name("build")
+BUILD_DIR = Path(__file__).with_name("build")  # the default build_dir()
+BUILD_DIR_ENV = "REPRO_TORCH_KERNEL_BUILD_DIR"  # launch/env.KERNEL_BUILD_ENV
 SOURCES = ("flash_attention", "flash_attention_sm90", "gossip_mix",
            "gossip_mix_quant", "krasulina_xi", "krasulina_xi_gossip")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -93,21 +97,27 @@ def local_includes(path: Path) -> Tuple[Path, ...]:
     return tuple(seen)
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and loaded from: $REPRO_TORCH_KERNEL_BUILD_DIR
+    when it is set, else `kernels/build/`."""
+    return Path(os.environ.get(BUILD_DIR_ENV) or BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
     for part in local_includes(CSRC / f"{name}.cu"):
         h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> Dict[str, float]:
     """Compile every library that is not built yet, all `nvcc`s at once.
     Returns the wall seconds of the build by library (0.0 for a library that
     was already there). Raises with nvcc's output if any compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    build_dir().mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
     for name in SOURCES:

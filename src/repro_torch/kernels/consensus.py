@@ -23,16 +23,22 @@ unquantized and quantized.
   The stochastic int8 compressor and sender-local (`per_node`) statistics
   have no kernel, in the reference as here.
 
-The sharded-node-axis rules come with a later slice of the port.
+The sharded-node-axis rules (`gossip_mix_shard`, `gossip_mix_quant_shard`)
+replace both kernels where the node axis is split over the ranks of a mesh
+(`repro_torch/dist.py`, which also carries the messages). They have no Pallas
+body in the reference either (its shard_map rules are plain `jnp`), so the
+per-round slice sum is plain PyTorch on the card; only the halo rows cross
+between ranks.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
+from repro_torch import dist as rdist
 from repro_torch.kernels import _cuda
 
 QUANT_CODES = {"sign": 0, "int8": 1}  # the C `quant` argument
@@ -260,4 +266,176 @@ def gossip_mix_quant_cuda(x: torch.Tensor, sched, rounds: int, quant: str, *,
                    bd, dv, QUANT_CODES[quant], _cuda.DTYPE_CODES[x.dtype],
                    rounds, n_terms, shifts, weights, cluster,
                    QUANT_DESIGNS[design], _cuda.stream_of(x))
+    return out.reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Partitioning rules for a sharded node axis
+#
+# A roll over a node axis split across ranks would move every row. These
+# rules exchange only the halo rows the schedule reaches, per round, as
+# point-to-point messages between ring neighbours (one hop per n_local rows
+# of reach, as the reference's `_gather_halo` ppermutes), build the
+# halo-extended local tile, and apply the round as a weighted sum of
+# contiguous row slices: no wraparound. Per-round semantics are kept, term
+# for term in the schedule's order, so the exact rule equals the plain
+# per-round path (`ref.gossip_mix_ref`) bit for bit. The columns are
+# independent, so all R rounds run on one column chunk
+# (`rdist.column_chunks`) at a time: the halo messages and the
+# temporaries stay within `rdist.STAGE_BYTES` per row block at any width.
+# ---------------------------------------------------------------------------
+
+_TAG_UP, _TAG_DOWN = 1 << 10, 2 << 10  # + hop: one tag per message
+
+
+def centered_shift(s: int, n: int) -> int:
+    """Canonical shift representative in (-n/2, n/2]."""
+    s = s % n
+    return s if s <= n // 2 else s - n
+
+
+def halo_reach(sched, n: int) -> Tuple[int, int]:
+    """(rows needed from preceding shards, rows from following shards) for
+    one round of `sched` on an [n, ...] buffer: roll by +s pulls rows from s
+    above."""
+    up = max((centered_shift(s, n) for s, _ in sched
+              if centered_shift(s, n) > 0), default=0)
+    down = max((-centered_shift(s, n) for s, _ in sched
+                if centered_shift(s, n) < 0), default=0)
+    return up, down
+
+
+def shard_compatible(sched, n: int, extent: int) -> bool:
+    """True when the halo rules cover this (schedule, split): even row tiles
+    and a one-round reach that neighbours can serve without wrapping onto
+    the resident shard."""
+    if extent <= 1 or n % extent:
+        return False
+    ru, rd = halo_reach(sched, n)
+    return ru + rd <= n - n // extent
+
+
+def _halo(h: torch.Tensor, ru: int, rd: int, mesh,
+          n_local: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The `ru` rows preceding this shard and the `rd` rows following it,
+    from ring neighbours: one whole-tile hop per n_local rows of reach, all
+    hops of both directions posted in one exchange."""
+    E, i = rdist.n_data_nodes(mesh), rdist.node_index(mesh)
+    up: List[torch.Tensor] = []
+    down: List[torch.Tensor] = []
+    sends, recvs = [], []
+    need, hop = ru, 1
+    while need > 0:  # rows preceding: the tail rows of shard i - hop
+        take = min(need, n_local)
+        buf = h.new_empty((take, h.shape[1]))
+        sends.append(((i + hop) % E, h[n_local - take:], _TAG_UP + hop))
+        recvs.append(((i - hop) % E, buf, _TAG_UP + hop))
+        up.insert(0, buf)
+        need -= take
+        hop += 1
+    need, hop = rd, 1
+    while need > 0:  # rows following: the head rows of shard i + hop
+        take = min(need, n_local)
+        buf = h.new_empty((take, h.shape[1]))
+        sends.append(((i - hop) % E, h[:take], _TAG_DOWN + hop))
+        recvs.append(((i + hop) % E, buf, _TAG_DOWN + hop))
+        down.append(buf)
+        need -= take
+        hop += 1
+    rdist.exchange(sends, recvs, mesh)
+    return up, down
+
+
+def _ext_tile(h: torch.Tensor, ru: int, rd: int, mesh,
+              n_local: int) -> torch.Tensor:
+    up, down = _halo(h, ru, rd, mesh, n_local)
+    return torch.cat(up + [h] + down, dim=0) if (up or down) else h
+
+
+def _slice_round(ext: torch.Tensor, sched, n: int, ru: int, n_local: int,
+                 self_term: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One gossip round as a weighted sum of contiguous row slices of the
+    halo-extended tile, in the schedule's order. `self_term` (optional)
+    takes the place of the s == 0 source: the quantized wire keeps the
+    resident rows uncompressed for themselves."""
+    acc = None
+    for s, w in sched:
+        sc = centered_shift(s, n)
+        if sc == 0 and self_term is not None:
+            t = w * self_term
+        else:
+            t = w * ext[ru - sc:ru - sc + n_local]
+        acc = t if acc is None else acc + t
+    return acc
+
+
+def gossip_mix_shard(x: torch.Tensor, sched, rounds: int,
+                     mesh) -> torch.Tensor:
+    """R rounds of circulant gossip over an n-node axis split evenly over
+    the node axes of `mesh`. x: this rank's rows [n / E, ...] (E =
+    `n_data_nodes(mesh)`); returns its rows after the R rounds, bit for bit
+    the rows of the plain per-round path over the whole axis."""
+    E = rdist.n_data_nodes(mesh)
+    n_local = x.shape[0]
+    n = n_local * E
+    sched = tuple(sched)
+    ru, rd = halo_reach(sched, n)
+    h = x.reshape(n_local, -1)
+    out = torch.empty_like(h)
+    chunks = rdist.column_chunks(h.shape[1], n_local, h.element_size())
+    for c0, c1 in chunks:
+        hc = h[:, c0:c1]
+        for _ in range(rounds):
+            ext = _ext_tile(hc, ru, rd, mesh, n_local)
+            hc = _slice_round(ext, sched, n, ru, n_local)
+            del ext
+        out[:, c0:c1] = hc
+    return out.reshape(x.shape)
+
+
+def gossip_mix_quant_shard(x: torch.Tensor, sched, rounds: int, quant: str,
+                           mesh, *, block_d: int = 512,
+                           valid_d: Optional[int] = None,
+                           key: Optional[int] = None) -> torch.Tensor:
+    """Quantized per-round gossip on a sharded node axis with per-node tile
+    statistics (`quantize.tile_compress(per_node=True)`): each node scales
+    its outgoing message from its own rows, the statistic a real sender
+    computes locally, so the wire values do not depend on the split and the
+    rows equal those of the plain per-node path
+    (`ref.gossip_mix_quant_ref(per_node=True)`). The rounds run in f32 and
+    the result is cast to x's dtype once. A stochastic compressor folds
+    this rank's node shard into `key` (as the reference folds its
+    `axis_index`), then the round, then the column chunk: deterministic,
+    but layout-dependent noise; sign and int8 do not depend on the
+    layout."""
+    from repro_torch.core.quantize import STOCHASTIC, fold_in, tile_compress
+
+    E = rdist.n_data_nodes(mesh)
+    n_local = x.shape[0]
+    n = n_local * E
+    sched = tuple(sched)
+    ru, rd = halo_reach(sched, n)
+    h = x.reshape(n_local, -1)
+    d = h.shape[1]
+    k0 = key
+    if quant in STOCHASTIC and k0 is not None:
+        k0 = fold_in(k0, rdist.node_index(mesh))
+    out = torch.empty_like(h)
+    # chunks on statistic-tile boundaries, so each tile lies in one chunk
+    chunks = rdist.column_chunks(d, n_local, 4, multiple=min(block_d, d))
+    for j, (c0, c1) in enumerate(chunks):
+        hc = h[:, c0:c1].float()
+        dv = None if valid_d is None else min(max(valid_d - c0, 0), c1 - c0)
+        for r in range(rounds):
+            k = None
+            if k0 is not None:
+                k = fold_in(k0, r)
+                if len(chunks) > 1:
+                    k = fold_in(k, j)
+            q = tile_compress(hc, quant, block_d, valid_d=dv, key=k,
+                              per_node=True)
+            ext = _ext_tile(q, ru, rd, mesh, n_local)
+            hc = _slice_round(ext, sched, n, ru, n_local, self_term=hc)
+            del ext, q
+        out[:, c0:c1] = hc.to(x.dtype)
     return out.reshape(x.shape)

@@ -293,3 +293,25 @@ def krasulina_xi_gossip_cuda(w: torch.Tensor, z: torch.Tensor, sched,
                    _cuda.DTYPE_CODES[z.dtype], XI_GOSSIP_DESIGNS[design],
                    rounds, n_terms, shifts, weights, _cuda.stream_of(z))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Partitioning rule for a sharded node axis
+# ---------------------------------------------------------------------------
+
+
+def krasulina_xi_gossip_shard(w: torch.Tensor, z: torch.Tensor, sched,
+                              rounds: int, mesh) -> torch.Tensor:
+    """Fused xi + R-round gossip over a node axis split evenly over the
+    node axes of `mesh`. w: this rank's rows [n / E, d]; z: its samples
+    [n / E, B, d]. The xi pass (Alg. 2 step 4) is node-local, so each rank
+    computes its own rows' pseudo-gradients without any exchange (through
+    `kernels.ops.krasulina_xi`: the `krasulina_xi` kernel on the card); only
+    the consensus rounds communicate, as the halo rounds of
+    `consensus.gossip_mix_shard`. Equals the strict per-round form
+    `gossip_mix_ref(krasulina_xi_ref(w, z), sched, rounds)` on the rank's
+    rows to f32 round-off (bit for bit on the CPU)."""
+    from repro_torch.kernels.consensus import gossip_mix_shard
+    from repro_torch.kernels.ops import krasulina_xi
+
+    return gossip_mix_shard(krasulina_xi(w, z), sched, rounds, mesh)

@@ -5,6 +5,12 @@ CUDA tensor launches the hand-written kernel, or the call raises — there is
 no fallback from a failed build or launch to the plain version. Each wrapper
 adds one to `launches[name]` where it launches its kernel and nowhere else,
 so a run can show that it went through the kernels.
+
+On a node axis split over the ranks of a mesh, the shard rules
+(`sharded_gossip_mix`, `sharded_quant_gossip_mix`,
+`sharded_krasulina_xi_gossip`) take the node-axis kernels' place, as in the
+reference: halo messages between ranks and a plain slice sum per round;
+`sharded_krasulina_xi_gossip` runs each rank's xi through `krasulina_xi`.
 """
 from __future__ import annotations
 
@@ -12,18 +18,22 @@ from typing import Dict, Optional, Union
 
 import torch
 
+from repro_torch.dist import data_axes, n_data_nodes
 from repro_torch.kernels import ref
 from repro_torch.kernels.consensus import (GOSSIP_DESIGNS, QUANT_CLUSTERS,
                                            gossip_design, gossip_mix_cuda,
                                            gossip_mix_quant_cuda,
+                                           gossip_mix_quant_shard,
+                                           gossip_mix_shard,
                                            quant_cluster_size, quant_route,
-                                           quant_tile_of)
+                                           quant_tile_of, shard_compatible)
 from repro_torch.kernels.flash_attention import (VARIANTS,
                                                  flash_attention_cuda, route)
 from repro_torch.kernels.krasulina_update import (XI_DESIGNS,
                                                   XI_GOSSIP_DESIGNS,
                                                   krasulina_xi_cuda,
                                                   krasulina_xi_gossip_cuda,
+                                                  krasulina_xi_gossip_shard,
                                                   xi_gossip_route, xi_route)
 
 # kernel launches since the last `reset_launches()`, by kernel name
@@ -76,6 +86,75 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"tensors on devices {sorted(kinds)}: the kernels take "
                      f"all-CUDA (kernel) or all-CPU (plain version) inputs")
+
+
+def node_shard_info(mesh, n: int, sched=None):
+    """(node_axes, ring_axis) when the shard rules cover mixing an [n, ...]
+    node axis on this mesh, else None: the node axes ("pod"/"data") split
+    it with exactly one nontrivial axis (the ring), in even row tiles, and,
+    when `sched` is given, with a one-round halo reach that neighbours can
+    serve."""
+    if mesh is None:
+        return None
+    node_axes = data_axes(mesh)
+    sizes = [int(mesh.shape[a]) for a in node_axes]
+    live = [a for a, s in zip(node_axes, sizes) if s > 1]
+    if len(live) != 1:
+        return None  # unsharded, or a ring spanning two mesh axes
+    extent = sizes[node_axes.index(live[0])]
+    if n % extent or extent > n:
+        return None
+    if sched is not None and not shard_compatible(sched, n, extent):
+        return None
+    return node_axes, live[0]
+
+
+def _covered(x: torch.Tensor, sched, mesh) -> None:
+    """Raise unless the shard rules cover this rank's rows x of a node axis
+    split evenly over `mesh` (`node_shard_info`); `core.mixing`'s op
+    gathers the layouts they do not cover."""
+    n = x.shape[0] * n_data_nodes(mesh)
+    if node_shard_info(mesh, n, tuple(sched)) is None:
+        raise ValueError(f"the shard rules do not cover mixing {n} nodes in "
+                         f"rows of {x.shape[0]} over a {mesh.sizes} mesh "
+                         f"with the schedule {tuple(sched)}")
+
+
+def sharded_gossip_mix(x: torch.Tensor, sched, rounds: int,
+                       mesh) -> torch.Tensor:
+    """R rounds of gossip on a node axis split evenly over `mesh` (where
+    `node_shard_info` covers it, else ValueError; the ring runs over every
+    rank): per-round halo messages and a slice sum on this rank's rows
+    x [n / E, ...], the reference's shard_map rule
+    (`consensus.gossip_mix_shard`). Bit for bit the plain per-round path's
+    rows."""
+    _covered(x, sched, mesh)
+    return gossip_mix_shard(x, sched, rounds, mesh)
+
+
+def sharded_quant_gossip_mix(x: torch.Tensor, sched, rounds: int,
+                             quantization: str, mesh, *, block_d: int = 512,
+                             valid_d: Optional[int] = None,
+                             key: Optional[int] = None) -> torch.Tensor:
+    """Quantized gossip on a sharded node axis with per-node tile
+    statistics (`stats="node"`, sender-local scales: the only granularity
+    that does not depend on the split), where `node_shard_info` covers the
+    layout. Equals `ref.gossip_mix_quant_ref(..., per_node=True)` on this
+    rank's rows."""
+    _covered(x, sched, mesh)
+    return gossip_mix_quant_shard(x, sched, rounds, quantization, mesh,
+                                  block_d=block_d, valid_d=valid_d, key=key)
+
+
+def sharded_krasulina_xi_gossip(w: torch.Tensor, z: torch.Tensor, sched,
+                                rounds: int, mesh) -> torch.Tensor:
+    """xi + R-round gossip on a sharded node axis, where `node_shard_info`
+    covers the layout: xi node-local on each rank (`krasulina_xi`, the
+    kernel on the card), only the consensus rounds communicate. Equals
+    `gossip_mix_ref(krasulina_xi_ref(w, z), ...)` on this rank's rows to
+    f32 round-off."""
+    _covered(w, sched, mesh)
+    return krasulina_xi_gossip_shard(w, z, sched, rounds, mesh)
 
 
 def gossip_mix(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:

@@ -8,10 +8,15 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
       --reduced --device cpu --batch 4 --prompt-len 64 --gen 32
 
-The reference's `--no-env-tuning` flag is not taken: it skips
-`launch/env.py`, which sets XLA flags and has no counterpart here.
+`launch/env.py` is applied before `import torch` unless `--no-env-tuning`
+is given. Serving has no mesh, in the reference either.
 """
 from __future__ import annotations
+
+# perf hygiene before the torch import; `--no-env-tuning` skips it
+from repro_torch.launch import env as _env
+
+_env.apply_from_argv()
 
 import argparse
 import time
@@ -50,6 +55,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="KV slot pool size for --continuous")
     ap.add_argument("--requests", type=int, default=16,
                     help="synthetic requests to serve with --continuous")
+    ap.add_argument("--no-env-tuning", action="store_true",
+                    help="skip the launcher perf hygiene (launch/env.py); "
+                         "applied at import time, declared here for --help")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)

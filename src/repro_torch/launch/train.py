@@ -35,19 +35,39 @@ boundaries; `--checkpoint DIR` saves the final state there, or with
 `--resume DIR` continues from the newest valid snapshot under DIR (or one
 step directory). The checkpoints are in the reference's layout.
 
---production-mesh is declared and raises `NotImplementedError` (the
-sharded slice). --compilation-cache-dir and --no-env-tuning are not taken:
-they set up `launch/env.py`'s XLA flags and compilation cache, which have
-no counterpart here.
+Under `torchrun` (WORLD_SIZE > 1) every rank runs this launcher: it joins
+the process group (gloo on the CPU and where ranks share one card, nccl
+where every rank has a card of its own), builds `make_host_mesh()` over
+the ranks (or the reference's production mesh with `--production-mesh`,
+which needs 256 ranks and a model axis: queue 1 item 3) and trains its
+rows of the node axis, one node per rank unless `--nodes` says otherwise:
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch granite-8b --reduced --device cpu --steps 4 --superstep 2 \
+      --averaging gossip --rounds 2
+Faults, scenarios, publication and checkpoints on a sharded node axis are
+not ported yet and raise. Alone (no WORLD_SIZE) it runs as before.
+
+`launch/env.py` is applied before `import torch` unless `--no-env-tuning`
+is given; `--compilation-cache-dir DIR` is the directory the kernels are
+built into (a restart that points at it skips the build).
 """
 from __future__ import annotations
 
+# perf hygiene before the torch import; `--no-env-tuning` skips it
+from repro_torch.launch import env as _env
+
+_env.apply_from_argv()
+
 import argparse
 import dataclasses
+import datetime
+import os
+import sys
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.configs.base import (SHAPES, AveragingConfig, GovernorConfig,
@@ -56,6 +76,8 @@ from repro_torch.core import scenarios as scenario_lib
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.data.lm import MarkovTokenStream
 from repro_torch.device import resolve_device
+from repro_torch.dist import n_data_nodes, n_local
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.serve.publisher import SnapshotPublisher
 from repro_torch.train import checkpoint
 from repro_torch.train.driver import EngineConfig, StreamingDriver
@@ -63,8 +85,8 @@ from repro_torch.train.snapshot import RunSnapshotter
 from repro_torch.train.trainer import (init_state, replicate_for_nodes,
                                        superstep_builder)
 
-# flags of later slices: (dest, default, the slice they come with)
-_LATER = (("production_mesh", False, "sharded"),)
+# how long a rank waits on a collective before the run fails
+DIST_TIMEOUT_S = 600
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -81,9 +103,10 @@ def _parser() -> argparse.ArgumentParser:
                     choices=["exact", "gossip", "hierarchical"])
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--topology", default="ring")
-    ap.add_argument("--nodes", type=int, default=1,
-                    help="nodes emulated on the one device (default 1: one "
-                         "device, one node)")
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="nodes of the node axis (default: one per rank, "
+                         "one on a single process; more emulate several "
+                         "nodes per device)")
     ap.add_argument("--streaming-rate", type=float, default=0.0)
     ap.add_argument("--processing-rate", type=float, default=0.0)
     ap.add_argument("--comms-rate", type=float, default=0.0)
@@ -158,21 +181,62 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", default="",
                     help="resume from this checkpoint root (newest valid "
                          "step) or a specific step_NNNNNNNN directory")
-    # a later slice (it raises)
     ap.add_argument("--production-mesh", action="store_true",
-                    help="sharded slice")
+                    help="the reference's 16x16 mesh (needs 256 ranks; its "
+                         "model axis is not ported yet)")
+    ap.add_argument("--no-env-tuning", action="store_true",
+                    help="skip the launcher perf hygiene (launch/env.py); "
+                         "applied at import time, declared here for --help")
+    ap.add_argument("--compilation-cache-dir", default="",
+                    help="directory the kernel libraries are built into and "
+                         "loaded from (launch/env.py; applied at import "
+                         "time)")
     return ap
+
+
+def _join_group(device: Optional[str]) -> str:
+    """Under torchrun: join the process group and return this rank's device
+    name. gloo on the CPU and where ranks share a card (NCCL refuses two
+    ranks on one device), nccl where every rank has a card of its own."""
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", 1))
+    on_cpu = device is not None and torch.device(device).type == "cpu"
+    backend = "gloo"
+    if not on_cpu:
+        cards = torch.cuda.device_count()
+        if cards >= local_world:
+            backend = "nccl"
+        device = f"cuda:{local % max(cards, 1)}"
+        if cards:
+            torch.cuda.set_device(torch.device(device))
+    dist.init_process_group(
+        backend, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+    return device
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = _parser()
     args = ap.parse_args(argv)
-    for dest, default, slice_name in _LATER:
-        if getattr(args, dest) != default:
-            raise NotImplementedError(
-                f"--{dest.replace('_', '-')} comes with the port's "
-                f"{slice_name} slice")
+    distributed = int(os.environ.get("WORLD_SIZE", 1)) > 1
+    if distributed and not dist.is_initialized():
+        args.device = _join_group(args.device)
+    try:
+        _train(ap, args, distributed)
+    finally:
+        if distributed and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _train(ap, args, distributed: bool) -> None:
+    mesh = None
+    if distributed or args.production_mesh:
+        mesh = make_production_mesh() if args.production_mesh \
+            else make_host_mesh()
+        if args.scenario or args.faults or args.publish or args.checkpoint \
+                or args.resume or args.straggler_policy != "wait":
+            raise NotImplementedError(
+                "scenarios, faults, publication and checkpoints on a sharded "
+                "node axis are not ported yet (ROADMAP.md)")
     cfg = get_config(args.arch)
     if cfg.family in ("ssm", "hybrid") or cfg.is_encdec:
         # their loss_fn is ported and held on the CPU, the streaming trainer
@@ -183,7 +247,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.reduced:
         cfg = reduce_cfg(cfg)
     dev = resolve_device(args.device)
-    n_nodes = args.nodes
+    n_nodes = args.nodes or (n_data_nodes(mesh) if mesh is not None else 1)
     averaging = AveragingConfig(args.averaging, args.rounds, args.topology)
     scenario = None
     if args.scenario:
@@ -247,8 +311,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     state = init_state(run, torch.Generator(device=dev).manual_seed(run.seed))
     if args.averaging != "exact":
-        state = replicate_for_nodes(state, n_nodes)
-    with StreamingDriver(run, None, state, sample_fn, engine=engine,
+        state = replicate_for_nodes(state, n_local(mesh, n_nodes))
+    with StreamingDriver(run, mesh, state, sample_fn, engine=engine,
                          superstep_builder=builder, batch=args.batch,
                          n_nodes=n_nodes, horizon=args.horizon or None,
                          faults=faults, publisher=publisher,
@@ -259,10 +323,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             print(f"resumed: {driver.resumed_from} "
                   f"(superstep {driver._supersteps_done})")
         plan = driver.pipeline.plan
-        print(f"plan: B={plan.B} mu={plan.mu} regime={plan.regime} "
-              f"nodes={n_nodes} K={engine.superstep} "
-              f"prefetch={engine.prefetch_depth} "
-              f"buckets={list(driver.ladder.buckets)} device={dev}")
+        ranks = (f" rank={mesh.rank}/{mesh.size} "
+                 f"local_nodes={n_local(mesh, n_nodes)}"
+                 if mesh is not None else "")
+        _say(f"plan: B={plan.B} mu={plan.mu} regime={plan.regime} "
+             f"nodes={n_nodes} K={engine.superstep} "
+             f"prefetch={engine.prefetch_depth} "
+             f"buckets={list(driver.ladder.buckets)} device={dev}{ranks}")
         if scenario is not None:
             print(f"scenario: {scenario.name} n={scenario.n_nodes} "
                   f"R={scenario.rounds} links={scenario.links or 'clean'}")
@@ -311,13 +378,21 @@ def _log(rec):
         gov += f" est_Rc={'inf' if rc <= 0 else f'{rc:.3g}'}"
     if "link_drops" in rec:
         gov += f" drops={list(rec['link_drops'])} bw={rec['bw_factor']:g}"
-    print(f"round {rec['round']:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
-          f"consensus_err {m['consensus_err']:.2e} "
-          f"nodes={rec['n_active']} "
-          f"t'={c.samples_arrived} B={rec['bucket']} mu={plan.mu} "
-          f"{plan.regime}{gov} "
-          f"({rec['rounds_per_s']:.1f} rounds/s, "
-          f"{rec['samples_per_s']:.0f} samples/s)", flush=True)
+    _say(f"round {rec['round']:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
+         f"consensus_err {m['consensus_err']:.2e} "
+         f"nodes={rec['n_active']} "
+         f"t'={c.samples_arrived} B={rec['bucket']} mu={plan.mu} "
+         f"{plan.regime}{gov} "
+         f"({rec['rounds_per_s']:.1f} rounds/s, "
+         f"{rec['samples_per_s']:.0f} samples/s)")
+
+
+def _say(line: str) -> None:
+    """`line` and its newline in one write, flushed: under torchrun the
+    ranks share stdout, and where it is unbuffered `print` writes the
+    newline apart, so another rank's line could land before it."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
 
 
 def _draw(data: MarkovTokenStream, rng: np.random.Generator, n: int, seq: int):

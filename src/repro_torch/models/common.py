@@ -2,10 +2,12 @@
 `torch.Generator` on the device where the parameters live.
 
 The reference's mesh-aware sharding constraints (`pshard`, `set_mesh_rules`,
-`mesh_rules`, `current_mesh`) do not apply on one card and are not ported:
-every tensor here lives whole on one device. `stack_init` is not ported
-either: the port keeps one parameter dict per layer instead of stacked
-super-blocks (`models/transformer.py`).
+`mesh_rules`, `current_mesh`) are not ported: every tensor here lives whole
+on one device. A sharded node axis needs none of them (each rank holds its
+nodes' parameters whole, `repro_torch/dist.py`); they shard a model axis, which
+waits for ROADMAP.md queue 1 item 3. `stack_init` is not ported either: the
+port keeps one parameter dict per layer instead of stacked super-blocks
+(`models/transformer.py`).
 """
 from __future__ import annotations
 

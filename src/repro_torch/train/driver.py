@@ -65,6 +65,21 @@ under its own cost governor. Fault tolerance (docs/DESIGN.md
 the splitter's stream position, the governor, the membership and the
 publisher's version before the first superstep, so the resumed run deals
 and trains what the uninterrupted one would have.
+
+Sharded node axis: with a `repro_torch.dist.Mesh` that splits the nodes over
+the ranks of a process group, every rank runs this driver (SPMD): the same
+seeded splitter deals every rank the same stream, and each keeps its own
+rows of the node axis, or in the exact mode its nodes' equal share of the
+batch (`data.pipeline.shard_batch`; buckets that do not split evenly over
+the ranks raise). The governor re-plans from measured round times, which
+differ between ranks; so rank 0's clock is the one that counts: its
+superstep time is broadcast before the governor reads it, and the governor,
+deterministic in it, makes the same plan on every rank, so the shapes every
+rank deals never diverge (the reference has one controller and one clock).
+The splitter runs synchronously on a sharded axis (no prefetch ring): a
+superstep dealt ahead under a plan that another rank has already replaced
+would deal different widths on different ranks. Churn, publication and
+snapshots on a sharded axis are not ported yet (ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -76,13 +91,16 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import dist as rdist
 from repro_torch.configs.base import GovernorConfig
 from repro_torch.core import rates
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.core.mixing import Membership
 from repro_torch.data.pipeline import (DevicePrefetcher, StreamCounters,
-                                       StreamingPipeline, stage_batch)
+                                       StreamingPipeline, exact_split_error,
+                                       shard_batch, stage_batch)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import check_mesh, is_sharded, n_data_nodes
 from repro_torch.train.trainer import (make_node_batch, publish_extract,
                                        superstep_builder as lm_superstep_builder)
 
@@ -177,18 +195,15 @@ class EngineConfig:
     governor: GovernorConfig = GovernorConfig()
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with the port's {slice_name} "
-                               f"slice")
-
-
 class StreamingDriver:
     """Owns the three-stage loop: governed splitter -> prefetch ring ->
     K-round superstep on the device, plus the closed-loop (B, mu) governor.
 
-    This slice drives one device with an explicit `n_nodes` (`mesh` must be
-    None). `clock` is injectable so tests can fake slow hardware and watch
-    the governor raise mu.
+    Without a `mesh` it drives one device with an explicit `n_nodes`. With
+    one (`repro_torch.dist.Mesh`), every rank of its group runs the driver
+    on its rows of the node axis; `n_nodes` defaults to `n_data_nodes(mesh)`
+    (one node per rank). `clock` is injectable so tests can fake slow
+    hardware and watch the governor raise mu.
     """
 
     def __init__(self, run_cfg, mesh, state: Any,
@@ -207,9 +222,25 @@ class StreamingDriver:
         if engine.superstep < 1:
             raise ValueError("superstep K must be >= 1")
         if mesh is not None:
-            raise _later("driving a device mesh", "sharded")
+            check_mesh(mesh)
         if n_nodes is None:
-            raise ValueError("pass n_nodes when driving without a mesh")
+            if mesh is None:
+                raise ValueError("pass n_nodes when driving without a mesh")
+            n_nodes = n_data_nodes(mesh)
+        self._sharded = is_sharded(mesh)
+        if self._sharded:
+            for what, arg in (("elastic membership (faults)", faults),
+                              ("publication", publisher),
+                              ("snapshots", snapshotter),
+                              ("resuming", resume_from)):
+                if arg is not None:
+                    raise NotImplementedError(
+                        f"{what} on a sharded node axis is not ported yet "
+                        f"(ROADMAP.md)")
+            if engine.governor.straggler_policy != "wait":
+                raise NotImplementedError(
+                    "a straggler policy on a sharded node axis is not "
+                    "ported yet (ROADMAP.md)")
         self.device = resolve_device(device)
         self.run_cfg = run_cfg
         self.mesh = mesh
@@ -247,6 +278,13 @@ class StreamingDriver:
             sample_fn, run_cfg.stream, self.n_nodes, run_cfg.averaging.rounds,
             batch=batch, horizon=horizon, seed=seed)
         self.ladder = self._make_ladder(gov)
+        if self._sharded and not self.decentralized:
+            # every rank takes an equal share of each batch (`shard_batch`)
+            for B in self.ladder.buckets:
+                why = exact_split_error(B, self.n_nodes, n_data_nodes(mesh))
+                if why:
+                    raise ValueError(f"exact mode on a sharded node axis: "
+                                     f"{why}")
         self.pipeline.adopt_ladder(self.ladder)
         # cohort ladders always derive from the FULL-membership base ladder,
         # so a rejoin to a previously seen cohort size restores that cohort's
@@ -268,7 +306,7 @@ class StreamingDriver:
                 superstep_builder = lambda B: superstep_fn
             else:
                 superstep_builder = lm_superstep_builder(
-                    run_cfg, None, n_nodes=self.n_nodes, device=self.device)
+                    run_cfg, mesh, n_nodes=self.n_nodes, device=self.device)
         self._builder = superstep_builder
         # membership-aware builders take (B, membership); single-argument
         # builders (and the superstep_fn adapter above) take B alone and can
@@ -369,13 +407,15 @@ class StreamingDriver:
     def _host_superstep(self) -> Dict[str, np.ndarray]:
         """Stage 1: K governed splitter rounds, stacked [K, B, ...] (exact)
         or split [K, m, B/m, ...] over the *active cohort* (decentralized
-        node axis; the latched plan's membership decides the split)."""
+        node axis; the latched plan's membership decides the split). On a
+        sharded mesh, this rank's rows of it (`shard_batch`)."""
         batch = self.pipeline.next_superstep(self.engine.superstep)
         if self.decentralized:
             p = self.pipeline.last_superstep_plan
             m = self.n_nodes if p.membership is None else p.membership.n_active
             batch = make_node_batch(batch, m, axis=1)
-        return batch
+        return shard_batch(batch, self.mesh, self.n_nodes,
+                           node_axis=self.decentralized)
 
     # ------------------------------------------------------------- main loop
 
@@ -390,7 +430,8 @@ class StreamingDriver:
         runs, bounded at `prefetch_depth`), so a warm-up `run()` leaves the
         ring hot for a subsequent timed one; call `close()` (or use the
         driver as a context manager) when done."""
-        if self.engine.prefetch_depth > 0 and self._prefetcher is None:
+        if (self.engine.prefetch_depth > 0 and self._prefetcher is None
+                and not self._sharded):
             self._prefetcher = DevicePrefetcher(
                 self._host_superstep, device=self.device,
                 counters=self.pipeline.counters,
@@ -439,6 +480,11 @@ class StreamingDriver:
             fetched = torch.stack([metrics[k] for k in names]).cpu().numpy()
             metrics = dict(zip(names, fetched))
             wall_s = max(self.clock() - t0, 1e-12)
+            if self._sharded:
+                # rank 0's clock plans for every rank: the governor is
+                # deterministic in the wall time, so every rank then makes
+                # rank 0's plan
+                wall_s = rdist.broadcast_object(wall_s, self.mesh)
             rec = self._observe(metrics, wall_s, counters, used_plan)
             if self._publisher is not None:
                 snap = self._publisher.maybe_publish(

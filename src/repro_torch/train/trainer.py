@@ -42,7 +42,20 @@ sync takes Adam's bias correction at its own step, as in the reference.
 
 `publish_extract` maps the live state to the params a serving replica
 loads (`serve.publisher.SnapshotPublisher`): the consensus mean over the
-active nodes. A device mesh is not here yet (it raises, naming its slice).
+active nodes.
+
+Over a mesh that splits the node axis across the ranks of a process group
+(`repro_torch/dist.py`), each rank runs the step on its rows. On the
+decentralized modes it steps its n_local nodes and mixes through the
+mesh's gossip op (the shard rules: halo rows between ranks,
+`core.mixing.CirculantMixOp(impl="shard")`). On the exact mode each rank
+keeps a replica of the parameters, takes the gradient of its share of the
+global batch and all-reduces the mean gradient (in f32), so every replica
+takes the same update; the reference's ZeRO-1 layout holds the same
+numbers in less memory and comes with the model axis (ROADMAP.md queue 1
+item 3). The metrics are means over all nodes. The hierarchical mode,
+error feedback and cohort supersteps on a sharded axis are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -52,13 +65,17 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import dist as rdist
 from repro_torch.core.averaging import (average_and_error,
+                                        check_sharded_mode,
                                         ef_average_and_error, make_gossip_mix,
                                         resolve_packed)
 from repro_torch.core.mixing import ScheduledMixOp
 from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
 from repro_torch.core.quantize import STOCHASTIC
+from repro_torch.data.pipeline import exact_split_error
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import check_mesh, is_sharded, n_data_nodes, n_local
 from repro_torch.models import registry
 from repro_torch.models.transformer import build_plan
 from repro_torch.optim import OptState, init_optimizer, make_optimizer
@@ -71,14 +88,13 @@ class TrainState(NamedTuple):
     opt: OptState
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with the port's {slice_name} "
-                               f"slice")
-
-
 def _check_supported(run, mesh) -> None:
     if mesh is not None:
-        raise _later("training on a device mesh", "sharded")
+        check_mesh(mesh)
+    check_sharded_mode(run.averaging, mesh)
+    if is_sharded(mesh) and run.averaging.error_feedback != "off":
+        raise NotImplementedError("error feedback on a sharded node axis is "
+                                  "not ported yet (ROADMAP.md)")
     if run.averaging.error_feedback != "off" and run.averaging.mode != "gossip":
         raise ValueError(f"error-feedback compression (error_feedback="
                          f"{run.averaging.error_feedback!r}) requires "
@@ -223,15 +239,26 @@ def _row_runs(ids: Tuple[int, ...],
     return runs
 
 
+def _mean_over_ranks(values: List[torch.Tensor], mesh,
+                     weight: float) -> List[torch.Tensor]:
+    """`values` (0-dim) summed over the mesh's ranks, times `weight`, in one
+    all-reduce."""
+    total = torch.stack([v.float() for v in values])
+    return list((rdist.all_reduce_(total, mesh) * weight).unbind())
+
+
 def build_train_step(run, mesh=None, *, n_nodes: Optional[int] = None,
                      mix: Optional[Any] = None,
                      device: DeviceLike = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     Exact mode: batch leaves [B, ...]. Decentralized: [N, B/N, ...], state
-    leaves [N, ...]. `n_nodes` is the decentralized node count (default 1,
-    what the reference's host mesh gives on one device); passing N emulates
-    the paper's N-node network on one card. `mix` overrides the consensus
+    leaves [N, ...]. `n_nodes` is the decentralized node count (default: one
+    per rank of `mesh`, 1 without one, what the reference's host mesh gives
+    on one device); passing N emulates the paper's N-node network. On a
+    `mesh` that splits the node axis over ranks, the batch and the state
+    are this rank's rows ([n_local, ...]; exact mode: its share of the
+    batch, and a replica of the state). `mix` overrides the consensus
     engine built from `run.averaging` on `device`: the scenario harness
     passes a time-varying `ScheduledMixOp`, whose phase clock is the
     optimizer step; scheduled operators are linear, so a quantized config
@@ -240,18 +267,32 @@ def build_train_step(run, mesh=None, *, n_nodes: Optional[int] = None,
     "loss", "consensus_err"}, plus "ef_norm" and "ef_rel" with error
     feedback)."""
     _check_supported(run, mesh)
+    mesh = mesh if is_sharded(mesh) else None
     if run.averaging.mode == "exact":
-        return _build_exact_step(run, device)
-    n = n_nodes or 1
-    step = _build_node_step(run, n, mix, device)
-    every = tuple(range(n))
+        return _build_exact_step(run, device, mesh)
+    n = n_nodes or (n_data_nodes(mesh) if mesh is not None else 1)
+    step = _build_node_step(run, n, mix, device, mesh)
+    every = tuple(range(n_local(mesh, n)))
     return lambda state, batch: step(state, batch, every, None)
 
 
-def _build_exact_step(run, device: DeviceLike) -> Callable:
+def _build_exact_step(run, device: DeviceLike, mesh=None) -> Callable:
     dev = resolve_device(device)
     update = make_optimizer(run.optimizer, run.learning_rate,
                             weight_decay=run.weight_decay)
+
+    # every rank holds an equal share of the batch (`shard_batch` refuses
+    # an uneven split), so the mean of the ranks' means is the batch mean
+    E = n_data_nodes(mesh) if mesh is not None else 1
+
+    def all_reduce_mean(grads: Tree) -> Tree:
+        """Each rank's gradient of its share of the batch -> the mean over
+        ranks, reduced in f32 and cast back, leaf by leaf."""
+        def mean(g):
+            g32 = g.float().contiguous()
+            rdist.all_reduce_(g32, mesh).div_(E)
+            return g32.to(g.dtype)
+        return tree_map(mean, grads)
 
     def train_step(state: TrainState, batch):
         mb = run.microbatches
@@ -274,6 +315,11 @@ def _build_exact_step(run, device: DeviceLike) -> Callable:
                 metrics = {k: metrics[k] + m[k] / mb for k in metrics}
         else:
             loss, metrics, grads = loss_and_grad(run, state.params, batch)
+        if mesh is not None:
+            grads = all_reduce_mean(grads)
+            loss, ce, aux = _mean_over_ranks(
+                [loss, metrics["ce"], metrics["aux"]], mesh, 1.0 / E)
+            metrics = {"ce": ce, "aux": aux}
         params, opt = update(grads, state.opt, state.params)
         metrics = dict(metrics, loss=loss,
                        consensus_err=torch.zeros((), device=loss.device))
@@ -283,23 +329,26 @@ def _build_exact_step(run, device: DeviceLike) -> Callable:
 
 
 def _build_node_step(run, n_nodes: int, mix: Optional[Any],
-                     device: DeviceLike) -> Callable:
+                     device: DeviceLike, mesh=None) -> Callable:
     """The decentralized step over `n_nodes` nodes:
-    step(state, batch, ids, idx) -> (state, metrics). `ids` are the n_nodes
-    node ids that take part (batch row j belongs to node ids[j]); the rest
-    of the state's rows are left as they are. `idx` is `ids` as a tensor on
-    the device where they are not every row of the state (an elastic run's
-    cohort), else None."""
+    step(state, batch, ids, idx) -> (state, metrics). `ids` are the state
+    rows that take part (batch row j belongs to row ids[j]): every row, or
+    an elastic run's cohort; the rest of the state's rows are left as they
+    are. `idx` is `ids` as a tensor on the device where they are not every
+    row of the state (an elastic run's cohort), else None. On a sharded
+    `mesh` the state's rows are this rank's n_local nodes of the n_nodes."""
     dev = resolve_device(device)
     avg = dataclasses.replace(run.averaging,
-                              packed=resolve_packed(run.averaging))
+                              packed=resolve_packed(run.averaging, mesh))
     update = make_optimizer(run.optimizer, run.learning_rate,
                             weight_decay=run.weight_decay)
     ef_on = avg.error_feedback != "off"
-    pods = 1  # one card: the reference's mesh without a pod axis
+    # the reference's pods: its mesh's "pod" axis, 1 on one rank (on a
+    # sharded axis the hierarchical mode raises, `check_sharded_mode`)
+    pods = 1
     if mix is None:
         mix = make_gossip_mix(avg, pods if avg.mode == "hierarchical"
-                              else n_nodes, device=dev)
+                              else n_nodes, device=dev, mesh=mesh)
     elif isinstance(mix, ScheduledMixOp) and avg.quantization != "none":
         raise ValueError("ScheduledMixOp is linear-only: quantized averaging "
                          "configs keep their static per-round operator")
@@ -312,8 +361,8 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
         if pools[0] is None:
             pools[0] = layer_pools(params, run.model)
         steps = opt.step  # one per node (`replicate_for_nodes`)
-        # the nodes' gradients, [n_nodes, ...] per leaf, one node at a time
-        grads = tree_map(lambda p: p.new_empty((n_nodes, *p.shape[1:])),
+        # the nodes' gradients, [len(ids), ...] per leaf, one node at a time
+        grads = tree_map(lambda p: p.new_empty((len(ids), *p.shape[1:])),
                          params)
         losses, node_metrics = [], []
         for j, i in enumerate(ids):
@@ -352,7 +401,7 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
         else:
             mixed, cerr = average_and_error(grads, avg, n_nodes=n_nodes,
                                             pods=pods, mix=mix, key=key, t=t,
-                                            pools=pools[0])
+                                            pools=pools[0], mesh=mesh)
         del grads  # the unpacked gradients; `mixed` views the mixed buffer
         # the update is elementwise: run it in place on row views of each
         # contiguous run of nodes at one step (the whole leaves while every
@@ -367,10 +416,18 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
                 sub, rows_of(params))
             new_steps[a:b] = [new.step] * (b - a)
         opt = opt._replace(step=tuple(new_steps))
-        metrics = {k: torch.stack([m[k] for m in node_metrics]).mean()
-                   for k in node_metrics[0]}
-        metrics = dict(metrics, loss=torch.stack(losses).mean(),
-                       consensus_err=cerr, **extra)
+        names = list(node_metrics[0])
+        if mesh is None:
+            metrics = {k: torch.stack([m[k] for m in node_metrics]).mean()
+                       for k in names}
+            loss = torch.stack(losses).mean()
+        else:  # the mean over every rank's nodes
+            sums = _mean_over_ranks(
+                [torch.stack(losses).sum()] +
+                [torch.stack([m[k] for m in node_metrics]).sum()
+                 for k in names], mesh, 1.0 / n_nodes)
+            loss, metrics = sums[0], dict(zip(names, sums[1:]))
+        metrics = dict(metrics, loss=loss, consensus_err=cerr, **extra)
         return TrainState(params, opt), metrics
 
     return step
@@ -443,14 +500,25 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
     cohort superstep (`build_cohort_superstep`), its gossip operator
     recomposed over the active cohort. The `mix` override (scenario harness)
     only applies at full membership: its operator is sized for the full
-    node axis."""
+    node axis. On a sharded `mesh` (`n_nodes` default: one node per rank)
+    only the full membership is built: churn on a sharded node axis is not
+    ported yet (ROADMAP.md); and in the exact mode a B that does not split
+    evenly over the ranks raises."""
     _check_supported(run, mesh)
-    n_full = n_nodes or 1
+    n_full = n_nodes or (n_data_nodes(mesh) if mesh is not None else 1)
     cohort_cache: Dict[int, Callable] = {}
 
     def build(B: int, membership=None) -> Callable:
+        if run.averaging.mode == "exact" and is_sharded(mesh):
+            why = exact_split_error(B, n_full, n_data_nodes(mesh))
+            if why:
+                raise ValueError(f"exact mode on a sharded node axis: {why}")
         m = n_full if membership is None else membership.n_active
         fn = cohort_cache.get(m)
+        if fn is None and m != n_full and is_sharded(mesh):
+            raise NotImplementedError(
+                "elastic membership on a sharded node axis is not ported "
+                "yet (ROADMAP.md)")
         if fn is None:
             fn = (build_superstep(run, mesh, n_nodes=n_full, mix=mix,
                                   device=device) if m == n_full else

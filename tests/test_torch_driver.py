@@ -35,6 +35,7 @@ from repro_torch.core import krasulina, problems
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.data.pipeline import DevicePrefetcher, StreamingPipeline
 from repro_torch.data.synthetic import make_pca_host_sampler, make_pca_stream
+from repro_torch.dist import Mesh
 from repro_torch.serve.publisher import SnapshotPublisher
 from repro_torch.train import checkpoint
 from repro_torch.train.driver import EngineConfig, StreamingDriver
@@ -311,7 +312,9 @@ def _takes_effect(name, value):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"mesh": object()}, "sharded"),
+    # a mesh with a model axis: the sharded model layouts wait for queue 1
+    # item 3 (a node-only mesh drives: tests/test_torch_shard.py)
+    ({"mesh": Mesh((1, 2), ("data", "model"))}, "sharded"),
     # elastic membership (faults, a straggler policy) needs gossip averaging
     ({"faults": FaultSchedule.parse("death:1@1", 2)}, "elastic"),
     ({"engine": EngineConfig(governor=GovernorConfig(
@@ -328,7 +331,8 @@ def _takes_effect(name, value):
         mode="exact", error_feedback="grads"))}, "error-feedback"),
 ])
 def test_driver_later_slices_raise(kwargs, match, tmp_path):
-    """Later slices raise NotImplementedError naming theirs; the elastic
+    """Later slices raise NotImplementedError naming theirs (a mesh with a
+    model axis: the sharded model layouts of queue 1 item 3); the elastic
     slice's configurations that the reference refuses raise its
     ValueError. The serving and durability arguments (`publisher`,
     `snapshotter`, `resume_from`), refused until their slice, are built

@@ -80,9 +80,11 @@ def test_port_tests_import_no_triton():
 
 def test_layout_mirrors_reference():
     """Every port module has its counterpart in `src/repro` (the port-only
-    modules excepted), so a reader can find each reference."""
+    modules excepted), so a reader can find each reference. `dist` is the
+    port's own: the reference's kernels take `jax.sharding.Mesh` and its
+    collectives, where the port's take its mesh and messages."""
     own = {"repro_torch.device", "repro_torch.convert",
-           "repro_torch.kernels._cuda"}
+           "repro_torch.kernels._cuda", "repro_torch.dist"}
     missing = []
     for mod in _port_modules():
         if mod in own:

@@ -12,6 +12,7 @@ from repro.core import averaging as javg
 from repro.core import mixing as jmix
 from repro_torch.configs.base import AveragingConfig
 from repro_torch.core import averaging, mixing
+from repro_torch.dist import Mesh
 
 TOPOS = ("ring", "circulant2", "torus")
 
@@ -106,16 +107,27 @@ def test_auto_impl_without_device_needs_the_card():
 @pytest.mark.parametrize("kwargs,match", [
     ({"quantization": "sign"}, "quantized"),
     ({"quantization": "int8"}, "quantized"),
-    ({"impl": "shard"}, "sharded"),
+    ({"impl": "shard", "mesh": Mesh((1, 2), ("data", "model"))}, "sharded"),
 ])
 def test_later_slices_raise_not_implemented(kwargs, match):
-    """The sharded node axis still raises; quantized ops (ported with the
-    quantized-wire slice) now build and match the reference's per-round
+    """A mesh with a model axis still raises (the sharded model layouts of
+    queue 1 item 3); `impl="shard"` without a mesh falls back to the roll,
+    as the reference's does (a node-only mesh takes the shard rule:
+    tests/test_torch_shard.py); quantized ops (ported with the
+    quantized-wire slice) build and match the reference's per-round
     global-stats loop at rtol / atol 1e-5."""
     sched = mixing.schedule("ring", 4)
     if "quantization" not in kwargs:
         with pytest.raises(NotImplementedError, match=match):
             mixing.circulant_mix_op(sched, 4, 2, device="cpu", **kwargs)
+        op = mixing.circulant_mix_op(sched, 4, 2, device="cpu", impl="shard")
+        jop = jmix.circulant_mix_op(sched, 4, 2, impl="shard")
+        assert op.impl == jop.impl == "roll" and op.mesh is None
+        x = np.random.default_rng(2).standard_normal((4, 9)).astype(
+            np.float32)
+        np.testing.assert_allclose(op(torch.from_numpy(x)).numpy(),
+                                   np.asarray(jop(jnp.asarray(x))),
+                                   rtol=1e-5, atol=1e-6)
         return
     op = mixing.circulant_mix_op(sched, 4, 2, device="cpu", **kwargs)
     assert op.fused_sched is None and op.A_eff is None

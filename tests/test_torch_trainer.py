@@ -46,6 +46,7 @@ from repro_torch.core import averaging
 from repro_torch.core.mixing import Membership
 from repro_torch.core.packing import tree_leaves
 from repro_torch.data.lm import MarkovTokenStream
+from repro_torch.dist import Mesh
 from repro_torch.launch import train as launch_train
 from repro_torch.train import checkpoint, trainer
 from repro_torch.train.driver import EngineConfig, StreamingDriver
@@ -306,7 +307,9 @@ def test_init_state_masters_and_replication():
 
 
 def test_later_slices_raise():
-    """A device mesh still raises; error feedback (gossip only, as in the
+    """A mesh with a model axis still raises (the sharded model layouts of
+    queue 1 item 3; a node-only mesh trains: tests/test_torch_trainer_dist.py);
+    error feedback (gossip only, as in the
     reference) and cohort supersteps build: the cohort's takes the active
     ids and works on the full state (tests/test_torch_elastic.py holds it
     against the reference)."""
@@ -320,7 +323,8 @@ def test_later_slices_raise():
     with pytest.raises(ValueError, match="error-feedback"):
         trainer.superstep_builder(hier, None, n_nodes=N, device="cpu")
     with pytest.raises(NotImplementedError, match="sharded"):
-        trainer.build_train_step(trun, object(), n_nodes=N, device="cpu")
+        trainer.build_train_step(trun, Mesh((1, 2), ("data", "model")),
+                                 n_nodes=N, device="cpu")
     build = trainer.superstep_builder(trun, None, n_nodes=N, device="cpu")
     cohort = build(B, Membership.full(N).drop(1))
     assert cohort.takes_ids and cohort is build(B, Membership.full(N).drop(2))
@@ -345,9 +349,9 @@ def test_launcher_runs_on_the_cpu(capsys):
                        "16", "--publish", "--publish-budget", "0"])
     out = capsys.readouterr().out
     assert "publisher: v2 publishes=2 skipped(budget=0 interval=0)" in out
-    # a later slice still raises; a fault on a node the run does not have,
-    # and elastic membership without gossip averaging, are refused
-    for flag, exc in ((["--production-mesh"], NotImplementedError),
+    # the production mesh needs 256 ranks; a fault on a node the run does
+    # not have, and elastic membership without gossip averaging, are refused
+    for flag, exc in ((["--production-mesh"], ValueError),
                       (["--faults", "death:1@5-12"], ValueError),
                       (["--straggler-policy", "drop"], ValueError)):
         with pytest.raises(exc):
