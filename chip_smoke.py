@@ -195,7 +195,18 @@
    whole (4 x 4096 frames, a 4 x 64 decoder prompt, 16 greedy steps
    through `generate`: 24 unmasked and 12 causal wgmma launches at D = 64
    per prefill). Each prints prefill ms on the card and on the wall,
-   decode ms per step and peak memory.
+   decode ms per step and peak memory (and the prefill's own peak).
+   (p) the planner against the card (`launch/dryrun.py`, meta traces on
+   the host, no card work, no kernel launch): (p1) the plans on a 1 x 1
+   mesh of (h1)'s round (2 layers, 4 nodes, 2 x 512 tokens a node, Adam
+   with f32 masters, gossip R = 2) and of (g1)'s, (m1)'s and (n1)'s
+   prefills beside the peak their phases measured ((h1): the phase;
+   the serving phases: the prefill's own, their phase peak printed
+   beside), each within 15%; (p2) (s2b)'s planned node-axis wire on a
+   4 x 1 mesh, exact and gossip, counted as `dist.stats` counts it,
+   within 1% of what each rank staged; (p3) the H100 roofline's step
+   bound and implied MFU of (h1)'s round and (g1)'s prefill beside their
+   card times (printed only).
 5. Times every kernel at the main path's shapes and at a wide shape
    (N=16, d=32768; flash_attention at S = 512 and 4096, beside the mma.sync
    kernel at the same shapes, and at recurrentgemma-9b's prefill shape at
@@ -318,6 +329,8 @@ SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_P = 4, 4096, 64
 # layers
 TRAIN_N, TRAIN_R, TRAIN_K, TRAIN_SUPERSTEPS = 4, 2, 2, 4
 TRAIN_B, TRAIN_S, TRAIN_LAYERS = 8, 512, 2
+# (p1): each plan's peak within this share of the measured (PERF.md, section 6)
+P1_BOUND = 0.15
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
 # the main path's flash kernel (bf16, D = 64, 128 and 256); flash_attention.cu
 # keeps the mma.sync and f32 kernels
@@ -985,7 +998,11 @@ def shard_phases(dev) -> dict:
                      for w in rr["s1"]) if "s1" in rr else 0 for rr in res]}
     return {"krasulina_xi": xi,
             "flash_attention": {"s2": [sum(f[r] for f in flash)
-                                       for r in range(4)]}}
+                                       for r in range(4)]},
+            # (p2) holds the planned gossip wire against these
+            "s2b_staged": {mode: [rr["s2b"][mode]["staged_bytes_per_round"]
+                                  for rr in res[:4]]
+                           for mode in ("exact", "gossip")}}
 
 
 def main() -> int:
@@ -999,11 +1016,11 @@ def main() -> int:
                                     "src"))
     import torch.nn.functional as F
 
-    from repro_torch import convert
+    from repro_torch import convert, roofline
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import (SHAPES, AveragingConfig,
                                           GovernorConfig, RunConfig,
-                                          StreamConfig)
+                                          ShapeConfig, StreamConfig)
     from repro_torch.configs.paper_logreg import FIG6, FIG9
     from repro_torch.configs.paper_pca import FIG7, HIGHD, PCARunConfig
     from repro_torch.core import (averaging, dmb, dsgd, krasulina, mixing,
@@ -1020,6 +1037,7 @@ def main() -> int:
     from repro_torch.kernels import _cuda, ops, ref
     from repro_torch.kernels.consensus import (gossip_mix_quant_cuda,
                                                quant_route)
+    from repro_torch.launch import dryrun
     from repro_torch.kernels.flash_attention import flash_variant
     from repro_torch.kernels.flash_attention import route as flash_route
     from repro_torch.kernels.consensus import gossip_design
@@ -1052,6 +1070,9 @@ def main() -> int:
           + " ".join(f"{k}={v:.1f}s" for k, v in per_lib.items()))
     # (s0)-(s2): the sharded node axis, rank processes sharing the card
     s_launches = shard_phases(dev)
+    s2b_staged = s_launches.pop("s2b_staged")
+    # what phase (p) holds its plans against: peaks, card times
+    p_measured = {}
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -1806,11 +1827,15 @@ def main() -> int:
     gen_s = time.perf_counter() - t0
     st = engine.init_serve(cfg, B1, P1 + GEN, torch.bfloat16, device=dev)
     torch.cuda.synchronize()
+    # the prefill's own peak for (p1), the phase's kept across the reset
+    phase_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     logits, cache = registry.prefill(params, cfg, prompt, st.cache)
     st = engine.ServeState(cache, logits[:, -1:].argmax(-1), P1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated() / 2**30
     finite = bool(torch.isfinite(logits).all())
     del logits
     toks = [st.last_tokens]
@@ -1825,7 +1850,7 @@ def main() -> int:
     finite = finite and bool(torch.isfinite(last).all())
     counts = serve_counts("(g1)", 2)
     again = torch.cat(toks, dim=1)
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(phase_peak, torch.cuda.max_memory_allocated()) / 2**30
     # the card's own time for the same work: one prefill and one decode step
     # replayed from a CUDA graph (no host launch gaps); the rest of the wall
     # time is the host issuing eager operations
@@ -1839,9 +1864,12 @@ def main() -> int:
           f"({B1 * P1 / prefill_s:.1f} tokens/s; card {dev_prefill:.2f} ms), "
           f"decode {decode_s / (GEN - 1) * 1e3:.3f} ms per step "
           f"({B1 * (GEN - 1) / decode_s:.1f} tokens/s; card {dev_step:.3f} "
-          f"ms); peak memory {peak:.2f} GiB; logits finite {finite}; repeat "
+          f"ms); peak memory {peak:.2f} GiB (the prefill's own "
+          f"{prefill_peak:.2f}); logits finite {finite}; repeat "
           f"equals generate {torch.equal(again, out)}; "
           f"launches={json.dumps(counts)}")
+    p_measured["(g1)"] = {"peak_GiB": peak, "prefill_peak_GiB": prefill_peak,
+                          "card_ms": dev_prefill}
     require(finite, "(g1) logits not finite")
     require(tuple(out.shape) == (B1, GEN) and bool(((out >= 0) & (out < V))
                                                    .all()),
@@ -2037,7 +2065,7 @@ def main() -> int:
                                 num_layers=TRAIN_LAYERS)
     tokens_per_round = TRAIN_B * TRAIN_S
     flops_per_round = None
-    finals, h_rounds, h_peak = {}, {}, {}
+    finals, h_rounds, h_peak, h_card = {}, {}, {}, {}
     for label, wire, quant in (("(h1)", "exact", {}),
                                ("(h2)", "int8", quant_tile)):
         run = RunConfig(model=cfg_h, shape=SHAPES["train_4k"],
@@ -2122,6 +2150,7 @@ def main() -> int:
         finite = all(math.isfinite(x) for x in losses + cerrs)
         finals[label] = losses[-1]
         h_rounds[label], h_peak[label] = rounds_s, peak
+        h_card[label] = card_ms / TRAIN_K
         card_tflops = flops_per_round / (card_ms / TRAIN_K * 1e-3) / 1e12
         print(f"main {label} {wire} wire: {TRAIN_K * len(history)} rounds "
               f"in {wall:.3f} s; loss at round {history[0]['round']} "
@@ -2993,11 +3022,15 @@ def main() -> int:
         ops.reset_launches()
         st = engine.init_serve(cfg_s, B, P + gen, dtype, device=dev)
         torch.cuda.synchronize()
+        # the prefill's own peak, the phase's kept across the reset
+        phase_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         logits, cache = registry.prefill(params, cfg_s, prompt, st.cache)
         st = engine.ServeState(cache, logits[:, -1:].argmax(-1), P)
         torch.cuda.synchronize()
         prefill_s = time.perf_counter() - t0
+        prefill_peak = torch.cuda.max_memory_allocated() / 2**30
         finite = bool(torch.isfinite(logits).all())
         del logits
         toks = [st.last_tokens]
@@ -3032,7 +3065,9 @@ def main() -> int:
                 params, cfg_s, st.last_tokens, st.cache, st.index), reps=5,
                 replays=3)
             ops.reset_launches()  # the graph's captures are timing, not path
-        stats["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        stats["peak_GiB"] = max(phase_peak,
+                                torch.cuda.max_memory_allocated()) / 2**30
+        stats["prefill_peak_GiB"] = prefill_peak
         ok_toks = tuple(out.shape) == (B, gen) and bool(
             ((out >= 0) & (out < cfg_s.vocab_size)).all())
         require(finite, f"{label}: prefill logits not finite")
@@ -3096,6 +3131,7 @@ def main() -> int:
     require(cfg_q.num_layers == 24, "qwen2-moe-a2.7b depth changed")
     params, out, stats = serve_arch("(m1) static", cfg_q, 4, 512, GEN,
                                     card_time=True)
+    p_measured["(m1)"] = stats
     print(f"main (m1) qwen2-moe-a2.7b: {stats['params_B']:.3f} B "
           f"parameters, bf16, {cfg_q.num_layers} layers, static generate B=4 "
           f"prompt=512 gen={GEN}: {fmt(stats)}; card {smi}")
@@ -3316,6 +3352,7 @@ def main() -> int:
     require(cfg_g.num_layers == 38, "recurrentgemma-9b depth changed")
     params, out, stats = serve_arch("(n1) static", cfg_g, 2, 4096, M2_GEN,
                                     card_time=True, flash=n_flash(cfg_g))
+    p_measured["(n1)"] = stats
     # (n1)'s flash launches, all at D = 256, for the kernels line
     d256_launches = stats["launches"]["flash_attention"]
     print(f"main (n1) recurrentgemma-9b: {stats['params_B']:.3f} B "
@@ -3425,6 +3462,84 @@ def main() -> int:
             f"(n2) seamless generate: flash launches by kernel {variants}")
     del params, out, gen_toks, prompt
     torch.cuda.empty_cache()
+
+    # ------------------------------------- the planner against the card (p)
+    # (p1) each plan on a 1 x 1 mesh (`launch/dryrun.py`: meta traces on the
+    # host, no card work) beside the peak its phase measured: (h1)'s whole
+    # phase, and the serving phases' own prefill (their phase peak, which
+    # adds decode steps and the CUDA-graph timing's pool, printed beside);
+    # (p2) (s2b)'s planned node-axis wire on a 4 x 1 mesh beside the bytes
+    # its ranks staged (`dist.stats`); (p3) the H100 roofline's step bound
+    # and implied MFU for (h1)'s round and (g1)'s prefill beside their card
+    # times. No kernel launches.
+    ops.reset_launches()
+    t_p = time.perf_counter()
+    one = dryrun.parse_mesh("1x1")
+    cfg_p = dataclasses.replace(get_config("granite-8b"),
+                                num_layers=TRAIN_LAYERS)
+    p_shapes = {"(h1)": ShapeConfig("(h1)", TRAIN_S, TRAIN_B, "train")}
+    plans = {"(h1)": dryrun.plan(
+        "granite-8b", "train_4k", one, averaging="gossip", rounds=TRAIN_R,
+        cfg=cfg_p, shape=p_shapes["(h1)"], n_nodes=TRAIN_N,
+        master_weights=True)}
+    for label, (arch, b, p) in (("(g1)", ("granite-8b", B1, P1)),
+                                ("(m1)", ("qwen2-moe-a2.7b", 4, 512)),
+                                ("(n1)", ("recurrentgemma-9b", 2, 4096))):
+        p_shapes[label] = ShapeConfig(label, p, b, "prefill")
+        plans[label] = dryrun.plan(arch, "prefill_32k", one,
+                                   shape=p_shapes[label])
+    p_measured["(h1)"] = {"peak_GiB": h_peak["(h1)"] * 1e9 / 2**30,
+                          "card_ms": h_card["(h1)"]}
+    for label, rec in plans.items():
+        m, mem = p_measured[label], rec["memory"]
+        own = "prefill_peak_GiB" in m
+        held = m["prefill_peak_GiB"] if own else m["peak_GiB"]
+        ratio = mem["peak_gib"] / held
+        print(f"main (p1) {label} plan on 1x1: peak {mem['peak_gib']:.3f} "
+              f"GiB (arguments {mem['argument_gib']:.3f}, temporaries "
+              f"{mem['temp_gib']:.3f}, outputs {mem['output_gib']:.3f}, in "
+              f"place {mem['alias_gib']:.3f}); measured "
+              f"{'the prefill' if own else 'the phase'} {held:.3f} GiB; "
+              f"plan/measured {ratio:.4f} (bound 1 +- {P1_BOUND}); the "
+              f"phase's peak {m['peak_GiB']:.3f} GiB "
+              f"({mem['peak_gib'] / m['peak_GiB']:.4f}); "
+              f"{rec['cost']['flops'] / 1e12:.3f} TFLOP counted; traced in "
+              f"{rec['trace_s']} s")
+        require(abs(ratio - 1) <= P1_BOUND,
+                f"(p1) {label}: the plan's peak is {ratio:.4f} of the "
+                f"measured")
+    for mode in ("exact", "gossip"):
+        rec = dryrun.plan("granite-8b", "train_4k", dryrun.parse_mesh("4x1"),
+                          averaging=mode, rounds=TRAIN_R, cfg=cfg_p,
+                          shape=ShapeConfig("(s2b)", TRAIN_S, 2 * 4, "train"),
+                          master_weights=True)
+        planned, got = rec["staged_bytes"], s2b_staged[mode]
+        err = max(abs(planned / g - 1) for g in got)
+        coll = {k: v for k, v in rec["collectives"].items()
+                if k != "hbm_bytes_est"}
+        print(f"main (p2) (s2b) {mode} wire on a 4x1 mesh: planned "
+              f"{planned / 1e9:.4f} GB staged a round a rank "
+              f"{json.dumps(coll)}; measured by rank "
+              f"{[round(g / 1e9, 4) for g in got]} GB; max rel err "
+              f"{err:.2e} (limit 1e-2)")
+        require(err <= 1e-2, f"(p2) {mode}: the planned wire is off by "
+                             f"{err:.2e}")
+    for label in ("(h1)", "(g1)"):
+        rf = roofline.analyze(plans[label], cfg=cfg_p if label == "(h1)"
+                              else None, shape=p_shapes[label])
+        card_ms = p_measured[label]["card_ms"]
+        mfu = rf.model_flops / (card_ms * 1e-3 * roofline.PEAK_FLOPS)
+        print(f"main (p3) {label} roofline ({roofline.CARD}; card {smi}): "
+              f"compute {rf.compute_s * 1e3:.3f} ms, memory "
+              f"{rf.memory_s * 1e3:.3f} ms, collective "
+              f"{rf.collective_s * 1e3:.3f} ms; step bound "
+              f"{rf.step_time_s * 1e3:.3f} ms ({rf.dominant}), implied MFU "
+              f"{rf.mfu:.4f}; measured on the card {card_ms:.3f} ms, MFU "
+              f"{mfu:.4f}, {card_ms * 1e-3 / rf.step_time_s:.3f}x the bound")
+    take_counts("(p)", [], {k: 0 for k in ops.launches})
+    require(not any(ops.flash_launches.values()), "(p): a kernel launched")
+    print(f"main (p) seconds: {time.perf_counter() - t_p:.1f}")
+    del plans
 
     # ----------------------------------------------------------------- timing
     def bound(bytes_moved, flops, flops_per_s):

@@ -560,12 +560,14 @@ def resolve_auto_impl(device: DeviceLike = None, mesh: Any = None) -> str:
     """Pick the fastest execution strategy for `impl="auto"`: "shard" (the
     partitioning rule) when `mesh` splits the node axis over more than one
     rank; otherwise, on a single device, the fused CUDA kernel on the card
-    and the dense circulant matmul on the CPU. (The reference picks its
-    kernel on TPU only; on the card the kernel is the point of the port, so
-    the CUDA branch takes it.)"""
+    (and on the meta device, whose trace stands for the card: the kernel's
+    wrapper takes its footprint there) and the dense circulant matmul on
+    the CPU. (The reference picks its kernel on TPU only; on the card the
+    kernel is the point of the port, so the CUDA branch takes it.)"""
     if is_sharded(mesh):
         return "shard"
-    return "kernel" if resolve_device(device).type == "cuda" else "matmul"
+    return ("kernel" if resolve_device(device).type in ("cuda", "meta")
+            else "matmul")
 
 
 def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,

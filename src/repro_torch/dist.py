@@ -12,9 +12,10 @@ contiguous runs of rows, the port's form of the reference's
 
 The kernels, the core algorithms, the data pipeline and the trainer take a
 `Mesh` from here; `launch/mesh.py` builds one over a process group. A
-model axis of extent above 1 (tensor-parallel and ZeRO-1 layouts) is not
-ported yet (ROADMAP.md queue 1 item 3): `check_mesh` refuses it with
-NotImplementedError.
+model axis of extent above 1 (tensor-parallel and ZeRO-1 layouts) is
+planned, not executed: the planner (`launch/dryrun.py`) takes one on a
+mesh that no group backs (`launch/mesh.py` `abstract_mesh`), and
+`check_mesh` refuses it wherever a mesh executes (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -50,13 +51,16 @@ class Mesh:
 
 
 def check_mesh(mesh: Mesh) -> None:
-    """Refuse a model axis of extent above 1 (queue 1 item 3)."""
+    """Refuse a model axis of extent above 1 where a mesh executes: the
+    sharded model layouts are planned (`launch/dryrun.py`), not
+    executed."""
     model = mesh.shape.get("model", 1)
     if model > 1:
         raise NotImplementedError(
             f"a model axis of extent {model}: the sharded model layouts "
-            f"(tensor parallelism, ZeRO-1) are not ported yet (ROADMAP.md "
-            f"queue 1 item 3); the port shards the node axis only")
+            f"(tensor parallelism, ZeRO-1) are planned, not executed yet "
+            f"(ROADMAP.md queue 1 item 3); the port shards the node axis "
+            f"only")
 
 
 def data_axes(mesh: Mesh) -> tuple:
@@ -129,9 +133,10 @@ def n_local(mesh, n: int) -> int:
 
 
 STAGE_BYTES = 64 << 20  # the most bytes one staged message chunk holds
-# bytes staged (device to host plus host to device) and messages sent
-# since the last `reset_stats()`
-stats: Dict[str, int] = {"staged_bytes": 0, "messages": 0}
+# bytes staged (device to host plus host to device), the same count of the
+# messages' payloads on any device (out plus in: what staging moves on a
+# card), and messages sent, since the last `reset_stats()`
+stats: Dict[str, int] = {"staged_bytes": 0, "wire_bytes": 0, "messages": 0}
 # pinned host buffers, reused across calls: (role, slot) -> uint8 buffer
 _pinned: Dict[Tuple[str, int], torch.Tensor] = {}
 
@@ -220,6 +225,8 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor, int]],
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         stats["messages"] += len(sends)
+        stats["wire_bytes"] += sum(b.numel() * b.element_size()
+                                   for b in out_bufs + in_bufs)
         for (_, t, _), b in zip(recvs, in_bufs):
             t[:, c0:c1].copy_(b, non_blocking=cuda)
             if cuda:
@@ -232,6 +239,7 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh,
     on CUDA). Returns `t`."""
     if not t.is_contiguous():
         raise ValueError("all_reduce_ takes a contiguous tensor")
+    stats["wire_bytes"] += 2 * t.numel() * t.element_size()
     if not _staged(mesh, t):
         dist.all_reduce(t, op=op, group=mesh.group)
         stats["messages"] += 1
@@ -276,6 +284,9 @@ def all_gather_rows(x: torch.Tensor, mesh: Mesh, n: int) -> torch.Tensor:
         outs = [torch.empty_like(src) for _ in range(E)]
         dist.all_gather(outs, src, group=mesh.group)
         stats["messages"] += 1
+        stats["wire_bytes"] += part.numel() * part.element_size() + sum(
+            (b - a) * o.shape[1] * o.element_size()
+            for (a, b), o in zip(ranges, outs))
         for (a, b), o in zip(ranges, outs):
             full[a:b, c0:c1].copy_(o[:b - a])
             if cuda:

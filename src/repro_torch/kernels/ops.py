@@ -6,6 +6,12 @@ no fallback from a failed build or launch to the plain version. Each wrapper
 adds one to `launches[name]` where it launches its kernel and nowhere else,
 so a run can show that it went through the kernels.
 
+A meta tensor (the planner's trace, `launch/dryrun.py`, which stands for
+the card) takes the kernel's footprint: an empty meta tensor of the
+kernel's output shape and dtype. It computes nothing and counts no launch;
+it hands the kernel's operation count to every function in `meta_hooks`,
+because the trace cannot see inside a kernel.
+
 On a node axis split over the ranks of a mesh, the shard rules
 (`sharded_gossip_mix`, `sharded_quant_gossip_mix`,
 `sharded_krasulina_xi_gossip`) take the node-axis kernels' place, as in the
@@ -14,7 +20,7 @@ reference: halo messages between ranks and a plain slice sum per round;
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -62,6 +68,10 @@ node_launches: Dict[str, Dict[int, int]] = {
                     "gossip_mix_quant")}
 
 
+# called as hook(kernel name, operations) by a wrapper given meta tensors
+meta_hooks: List[Callable[[str, float], None]] = []
+
+
 def reset_launches() -> None:
     for counts in (launches, flash_launches, xi_launches, xi_gossip_launches,
                    gossip_launches, quant_launches):
@@ -74,6 +84,40 @@ def reset_launches() -> None:
 def _count_nodes(name: str, n: int) -> None:
     counts = node_launches[name]
     counts[n] = counts.get(n, 0) + 1
+
+
+def _on_meta(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the meta device (mixed devices go on
+    to `_on_cuda`, which refuses them)."""
+    return all(t.device.type == "meta" for t in tensors)
+
+
+def _footprint(name: str, flops: float, shape, dtype) -> torch.Tensor:
+    """The kernel's output for a meta input: empty, and no launch counted;
+    `flops` goes to `meta_hooks`."""
+    for hook in meta_hooks:
+        hook(name, float(flops))
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def _mix_flops(x: torch.Tensor, sched, rounds: int) -> float:
+    """A multiply and an add per schedule term, entry and round."""
+    return 2.0 * rounds * len(tuple(sched)) * x.numel()
+
+
+def attention_pairs(Sq: int, Sk: int, *, causal: bool = True,
+                    window: int = 0, chunk: int = 0) -> int:
+    """The (query, key) pairs that `attention`'s mask keeps (positions from
+    0, as `ref.attention_ref` masks them)."""
+    i = torch.arange(Sq, dtype=torch.int64)
+    hi = torch.minimum(i, torch.tensor(Sk - 1)) if causal else torch.full_like(
+        i, Sk - 1)
+    lo = (i - window + 1).clamp_min(0) if window else torch.zeros_like(i)
+    if chunk:
+        start = (i // chunk) * chunk
+        lo = torch.maximum(lo, start)
+        hi = torch.minimum(hi, start + chunk - 1)
+    return int((hi - lo + 1).clamp_min(0).sum())
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -161,6 +205,9 @@ def gossip_mix(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
     """R rounds of circulant gossip consensus over axis 0 (eq. 17), one HBM
     read and one write on the card, the design following the node count
     (`gossip_design`). `sched`: ((shift, weight), ...) one-round schedule."""
+    if _on_meta(x):
+        return _footprint("gossip_mix", _mix_flops(x, sched, rounds),
+                          x.shape, x.dtype)
     if not _on_cuda(x):
         return ref.gossip_mix_ref(x, sched, rounds)
     out = gossip_mix_cuda(x, sched, rounds)
@@ -184,6 +231,9 @@ def quant_gossip_mix(x: torch.Tensor, sched, rounds: int, quantization: str,
     them either (its `quant_gossip_mix` and `gossip_mix_quant_pallas`), so
     this is the reference's design, not a fallback. `key` seeds the
     stochastic compressor's rounds."""
+    if _on_meta(x):
+        return _footprint("gossip_mix_quant", _mix_flops(x, sched, rounds),
+                          x.shape, x.dtype)
     if per_node or quantization == "int8_stoch" or not _on_cuda(x):
         return ref.gossip_mix_quant_ref(x, sched, rounds, quantization,
                                         block_d=block_d, valid_d=valid_d,
@@ -202,6 +252,9 @@ def krasulina_xi(w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Mini-batch Krasulina pseudo-gradient (Alg. 2 steps 3-5). w: [d], z:
     [B, d] -> [d]; or batched, w [G, d] (or a shared [d]), z [G, B, d] ->
     [G, d]. On the card the design follows the shape (`xi_route`)."""
+    if _on_meta(w, z):
+        shape = z.shape[:-2] + z.shape[-1:]
+        return _footprint("krasulina_xi", 4.0 * z.numel(), shape, w.dtype)
     if not _on_cuda(w, z):
         return ref.krasulina_xi_ref(w, z)
     out = krasulina_xi_cuda(w, z)
@@ -218,6 +271,10 @@ def krasulina_xi_gossip(w: torch.Tensor, z: torch.Tensor, sched,
     card the design follows the shape (`xi_gossip_route`); the one-read
     kernel and the plain version both apply the composed R-round schedule
     in one pass."""
+    if _on_meta(w, z):
+        return _footprint("krasulina_xi_gossip",
+                          4.0 * z.numel() + _mix_flops(w, sched, rounds),
+                          w.shape, w.dtype)
     if not _on_cuda(w, z):
         return ref.krasulina_xi_gossip_ref(w, z, sched, rounds)
     out = krasulina_xi_gossip_cuda(w, z, sched, rounds)
@@ -240,7 +297,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     on the card a call that autograd would have to differentiate raises:
     training takes `models.layers.blockwise_attention`
     (`apply_attention(..., train=True)`)."""
-    if not _on_cuda(q, k, v):
+    meta = _on_meta(q, k, v)
+    if not meta and not _on_cuda(q, k, v):
         return ref.attention_ref(q, k, v, causal=causal, window=window,
                                  chunk=chunk)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -249,6 +307,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "would carry no gradient to q, k or v; differentiate attention "
             "through models.layers.blockwise_attention "
             "(apply_attention(..., train=True), as loss_fn does)")
+    if meta:
+        B, H, Sq, D = q.shape
+        pairs = attention_pairs(Sq, k.shape[2], causal=causal,
+                                window=window, chunk=chunk)
+        return _footprint("flash_attention", 4.0 * B * H * D * pairs,
+                          q.shape[:3] + v.shape[3:], v.dtype)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window,
                                chunk=chunk)
     launches["flash_attention"] += 1

@@ -7,9 +7,13 @@ which the kernels and the trainer use; this module builds a mesh over an
 initialised group and re-exports the reference's `data_axes` and
 `n_data_nodes`.
 
-A model axis of extent above 1 (tensor-parallel and ZeRO-1 layouts) is not
-ported yet (ROADMAP.md queue 1 item 3): every constructor refuses it with
-NotImplementedError.
+A model axis of extent above 1 (tensor-parallel and ZeRO-1 layouts) is
+planned, not executed: `abstract_mesh` names any grid, the reference's
+16 x 16 and 2 x 16 x 16 production meshes included, for the planner
+(`launch/sharding.py`, `launch/dryrun.py`), which reads only its shape and
+axis names; every constructor over a process group refuses a model extent
+above 1 with NotImplementedError (`check_mesh`), as do the trainer and the
+driver.
 
 Constructors are functions, so importing this module never touches
 `torch.distributed` state: `make_mesh` and friends need an initialised
@@ -50,13 +54,30 @@ def make_mesh(shape: tuple, axes: tuple, *, group=None) -> Mesh:
     return mesh
 
 
+def abstract_mesh(shape: tuple, axes: tuple) -> Mesh:
+    """A mesh of `shape` over `axes` that no process group backs, for
+    planning: the sharding rules and the dry-run read its `.shape` and
+    `.axis_names`, and nothing executes on it. A model extent above 1 is
+    allowed here (planned, not executed)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    return Mesh(shape, axes)
+
+
+def production_shape(multi_pod: bool = False) -> Tuple[tuple, tuple]:
+    """(shape, axes) of the reference's production mesh."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False, group=None) -> Mesh:
     """The reference's production mesh: data 16 x model 16, or pod 2 x data
     16 x model 16. It needs 256 (512) ranks, as the reference needs that
-    many devices, and its model axis waits for queue 1 item 3."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, group=group)
+    many devices, and its model axis is planned, not executed (the
+    planner takes `abstract_mesh(*production_shape(...))`)."""
+    return make_mesh(*production_shape(multi_pod), group=group)
 
 
 def make_host_mesh(model: int = 1, *, group=None) -> Mesh:

@@ -1,8 +1,8 @@
 """Unified model API of the port over the decoder-only assembly
 (`models/transformer.py`) and the encoder-decoder one (`models/encdec.py`),
-their training losses included, plus `synth_batch`. The reference's
-`input_specs` (abstract shapes for its multi-pod dry-run) has no
-counterpart on one card.
+their training losses included, plus `input_specs` (meta tensors standing
+for a shape's inputs, the planner's, `launch/dryrun.py`) and
+`synth_batch`.
 """
 from __future__ import annotations
 
@@ -66,6 +66,30 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, index, *,
                 window_override: int = 0):
     return _mod(cfg).decode_step(params, cfg, tokens, cache, index,
                                  window_override=window_override)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """Meta tensors of a shape's model inputs, the reference's shapes and
+    dtypes: train and prefill take the whole sequence's tokens (and labels
+    to train), an encoder-decoder bf16 "frames" [B, min(ENC_LEN, S),
+    frontend_embed_dim], an early-fusion arch's train batch bf16 "patches"
+    [B, IMG_PREFIX, frontend_embed_dim]; decode takes ONE new token (its
+    seq_len cache is built apart). Tokens are int32, as the reference's
+    (the port's own batches carry int64 ids)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    if shape.mode == "decode":
+        return {"tokens": meta((B, 1), torch.int32)}
+    specs = {"tokens": meta((B, S), torch.int32)}
+    if shape.mode == "train":
+        specs["labels"] = meta((B, S), torch.int32)
+    if cfg.is_encdec:
+        specs["frames"] = meta((B, min(ENC_LEN, S), cfg.frontend_embed_dim),
+                               torch.bfloat16)
+    elif cfg.frontend_embed_dim and shape.mode == "train":
+        specs["patches"] = meta((B, IMG_PREFIX, cfg.frontend_embed_dim),
+                                torch.bfloat16)
+    return specs
 
 
 def synth_batch(gen: torch.Generator, cfg: ModelConfig, shape_or_batch,

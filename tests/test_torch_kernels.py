@@ -602,10 +602,15 @@ def test_cpu_tensors_take_plain_version_and_count_no_launch():
 
 
 def test_dispatch_refuses_other_devices():
-    """Only all-CPU (plain) or all-CUDA (kernel) inputs are taken."""
+    """Only all-CPU (plain), all-CUDA (kernel) or all-meta (the kernel's
+    footprint, for the planner) inputs are taken; mixed devices are
+    refused."""
     x = torch.empty((4, 8), device="meta")
+    out = ops.gossip_mix(x, tmix.schedule("ring", 4), 1)
+    assert out.device.type == "meta" and out.shape == x.shape
     with pytest.raises(ValueError, match="devices"):
-        ops.gossip_mix(x, tmix.schedule("ring", 4), 1)
+        ops.krasulina_xi(torch.empty((8,), device="meta"),
+                         torch.zeros((5, 8)))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

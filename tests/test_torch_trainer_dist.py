@@ -13,6 +13,8 @@ and the training launcher under `torchrun`.
   gradients disagree (consensus error > 0) and its parameters drift apart
   (0 < spread < 0.5); 8 rounds give a tighter consensus than 2; gossip
   ends within 20% of exact in loss.
+* The dry-run's planned messages and payload bytes of a step
+  (`repro_torch.launch.dryrun`) equal what each rank sent.
 * `torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.train
   ... --device cpu` prints one plan and falling losses on each rank, and
   `--production-mesh` (256 ranks) is refused on 2.
@@ -41,7 +43,12 @@ from repro_torch import convert
 from repro_torch.configs import get_config, reduced
 from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
 from repro_torch.core.packing import tree_leaves
+from repro_torch.core.packing import tree_map
 from repro_torch.data.lm import MarkovTokenStream
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.models import registry
+from repro_torch.models.common import MetaGenerator
 from torch_dist_worker import SRC, spawn
 
 torch.set_num_threads(1)
@@ -130,6 +137,32 @@ def test_sharded_trainer_matches_reference(runs, mode):
     np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-5)
     if mode == "gossip":
         assert want_metrics[-1]["consensus_err"] > 0
+
+
+@pytest.mark.parametrize("mode", ["exact", "gossip"])
+def test_planned_wire_matches_the_ranks(runs, mode):
+    """The dry-run's planned node-axis messages
+    (`repro_torch.launch.dryrun.node_axis_collectives`, on an abstract 4 x 1
+    mesh, from meta parameters) at this configuration (chip_smoke.py's
+    (s2a): reduced granite, f32, 4 ranks x 1 node, ring R = 2): each rank
+    sent that many messages and payload bytes (`dist.stats`, out plus in)
+    in each of the 3 steps above."""
+    res, _ = runs
+    _, trun = _runs(mode)
+    params = registry.init_params(MetaGenerator(), trun.model, torch.float32)
+    if mode == "gossip":  # the rank's one node
+        params = tree_map(lambda t: t[None], params)
+    coll = dryrun.node_axis_collectives(
+        trun, params, abstract_mesh((N, 1), ("data", "model")), N)
+    kinds = {"exact": {"all-reduce"},
+             "gossip": {"all-reduce", "collective-permute"}}[mode]
+    assert {k for k in coll if not k.endswith(".count")} == kinds
+    messages = sum(v for k, v in coll.items() if k.endswith(".count"))
+    for r in res:
+        wire = r["compare"][mode]["wire"]
+        assert wire["messages"] == STEPS * messages
+        assert wire["wire_bytes"] == STEPS * dryrun.staged_bytes(coll)
+        assert wire["staged_bytes"] == 0  # CPU tensors go unstaged
 
 
 def _contract(runs, mode, rounds):

@@ -209,9 +209,10 @@ def _local_state(state, rows: slice):
 def trainer(mesh, inp):
     """The reduced granite trainer on this rank's rows: (1) from the states
     and batches the parent converted from the JAX package's, 3 SGD steps
-    per mode; (2) tests/test_trainer_dist.py's contracts, 12 Adam steps of
+    per mode, with the messages they sent (`dist.stats`); (2) tests/test_trainer_dist.py's contracts, 12 Adam steps of
     16 x 64 tokens per mode (exact, gossip R = 2, gossip R = 8) from the
     port's own seeded init."""
+    from repro_torch import dist as rdist
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
     from repro_torch.core import averaging
@@ -232,6 +233,7 @@ def trainer(mesh, inp):
             state = _local_state(state, rows)
         step = tr.build_train_step(run, mesh, device="cpu")
         metrics = []
+        rdist.reset_stats()
         for b in case["batches"]:  # [B, S] leaves, node split by the rank
             b = {k: torch.from_numpy(v)[None] for k, v in b.items()}
             if decentralized:
@@ -242,7 +244,8 @@ def trainer(mesh, inp):
             metrics.append({k: float(v) for k, v in m.items()})
         out["compare"][mode] = {
             "params": [p.numpy() for p in tree_leaves(state.params)],
-            "step": state.opt.step, "metrics": metrics}
+            "step": state.opt.step, "metrics": metrics,
+            "wire": dict(rdist.stats)}
     cfg = reduced(get_config("granite-8b"))
     data = MarkovTokenStream(cfg.vocab_size, seed=0)
     for mode, rounds in (("exact", 2), ("gossip", 2), ("gossip", 8)):
