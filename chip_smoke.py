@@ -1005,6 +1005,440 @@ def shard_phases(dev) -> dict:
                            for mode in ("exact", "gossip")}}
 
 
+# (t) the model axis: T_WORLD rank processes share the card in one gloo
+# group (`model_axis_phases`, spawned after (s)'s ranks have exited), on a
+# 2 x 2 mesh (2 node shards; tensor-parallel and, in the exact mode, ZeRO-1
+# over 2) and a 1 x 4 one (tensor-parallel over 4, every node local); the
+# model and data groups are subgroups of it
+T_WORLD, T_TIMEOUT = 4, 420
+T_MESHES = {"gossip": (1, 4), "exact": (2, 2)}  # (t1), (t2): mode -> mesh
+T2_ROUNDS = 2
+T0_TOL, T2_LOSS_TOL = 1e-5, 1e-2
+
+
+def t_cfgs():
+    """(t0)'s reduced granite-8b at d_model 512 (8 heads, 2 KV heads);
+    (t1)'s, with 4 KV heads (2 do not split over 4); (t2)'s granite-8b at
+    its published widths cut to TRAIN_LAYERS layers."""
+    from repro_torch.configs import get_config, reduced
+
+    granite = get_config("granite-8b")
+    r = reduced(granite, d_model=512)
+    return (r, dataclasses.replace(r, num_kv_heads=4),
+            dataclasses.replace(granite, num_layers=TRAIN_LAYERS))
+
+
+def t_tokens(cfg, rounds, batch, seq, seed):
+    """`rounds` batches of `batch` x `seq` tokens (numpy)."""
+    from repro_torch.data.lm import MarkovTokenStream
+
+    data, rng = MarkovTokenStream(cfg.vocab_size, seed=0), \
+        np.random.default_rng(seed)
+    out = []
+    for _ in range(rounds):
+        toks = data.sample(rng, batch, seq + 1)
+        out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    return out
+
+
+def t_rank(rank: int, store: str, workdir: str) -> int:
+    """One rank of (t0)-(t2): `python3 chip_smoke.py --t-rank RANK STORE
+    DIR`. Saves its results to DIR/rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import tree_leaves, tree_map
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer
+    from repro_torch.models.common import mesh_rules
+    from repro_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=T_WORLD,
+                            timeout=datetime.timedelta(seconds=180))
+    meshes = {shape: make_host_mesh(model=shape[1])
+              for shape in sorted(set(T_MESHES.values()))}
+    cfg0, cfg1, cfg2 = t_cfgs()
+    res = {"seconds": {}}
+    to_dev = lambda tree: tree_map(lambda t: t.to(dev), tree)
+
+    def on_card(st):
+        return trainer.TrainState(to_dev(st.params), st.opt._replace(
+            m=to_dev(st.opt.m), v=to_dev(st.opt.v),
+            master=to_dev(st.opt.master)))
+
+    def batch_of(b, mesh, mode):
+        """This rank's part of a [B, S] batch (the node axis split for
+        the gossip mode), on the card."""
+        b = {k: torch.from_numpy(v)[None] for k, v in b.items()}
+        if mode != "exact":
+            b = trainer.make_node_batch(b, TRAIN_N, axis=1)
+        b = shard_batch(b, mesh, TRAIN_N, node_axis=mode != "exact")
+        return {k: v[0].to(dev) for k, v in b.items()}
+
+    # (t0) the tensor-parallel layers over a model axis of 2: the loss,
+    # the logits (gathered over the vocab) and every gradient (gathered)
+    t_phase = time.perf_counter()
+    mesh = meshes[(2, 2)]
+    spec = trainer.rest_specs(cfg0, mesh, exact=False)
+    whole = registry.init_params(torch.Generator().manual_seed(0), cfg0,
+                                 torch.float32)
+    local = to_dev(shlib.shard_tree(whole, spec, mesh))
+    del whole
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in t_tokens(cfg0, 1, 2, 64, 5)[0].items()}
+    live = [p.detach().requires_grad_() for p in tree_leaves(local)]
+    it = iter(live)
+    params = tree_map(lambda _: next(it), local)
+    rdist.reset_stats()
+    with mesh_rules(mesh):
+        loss, _ = registry.loss_fn(params, cfg0, batch, remat=True)
+        grads = torch.autograd.grad(loss, live)
+        with torch.no_grad():
+            logits = transformer.forward(params, cfg0, batch, train=True)[0]
+    it = iter(grads)
+    grads = shlib.gather_tree(tree_map(lambda _: next(it), local), spec,
+                              mesh)
+    res["t0"] = {"loss": float(loss.detach()),
+                 "logits": rdist.all_gather_dim(logits.contiguous(), mesh,
+                                                2, "model").cpu(),
+                 "grads": [g.cpu() for g in tree_leaves(grads)],
+                 "model_messages": rdist.stats["model_messages"]}
+    del params, live, grads, logits, local
+    dist.barrier()
+    res["seconds"]["t0"] = time.perf_counter() - t_phase
+
+    # (t1) the reduced granite trainer in f32, 3 rounds a mode
+    t_phase = time.perf_counter()
+    res["t1"] = {}
+    for mode, shape in T_MESHES.items():
+        mesh = meshes[shape]
+        run = s2_run(cfg1, mode, "float32")
+        st = on_card(trainer.init_state(run, torch.Generator().manual_seed(0),
+                                        mesh))
+        if mode != "exact":
+            st = trainer.replicate_for_nodes(st, rdist.n_local(mesh, TRAIN_N))
+        step = trainer.build_train_step(run, mesh, n_nodes=TRAIN_N,
+                                        device=dev)
+        ops.reset_launches()
+        losses, cerrs = [], []
+        for b in s2a_batches(cfg1):
+            st, m = step(st, batch_of(b, mesh, mode))
+            losses.append(float(m["loss"]))
+            cerrs.append(float(m["consensus_err"]))
+        launches = dict(ops.launches)
+        params = shlib.gather_tree(st.params, trainer.rest_specs(
+            cfg1, mesh, mode == "exact", node_axis=mode != "exact"), mesh)
+        res["t1"][mode] = {
+            "losses": losses, "consensus_errs": cerrs,
+            "rows": (rdist.node_rows(mesh, TRAIN_N).start,
+                     rdist.node_rows(mesh, TRAIN_N).stop),
+            "params": [p.cpu() for p in tree_leaves(params)],
+            "launches": launches}
+        del st, step, params
+    dist.barrier()
+    res["seconds"]["t1"] = time.perf_counter() - t_phase
+
+    # (t2) granite-8b at its published widths, TRAIN_LAYERS layers, bf16
+    # with f32 masters, 2 x TRAIN_S tokens a node, T2_ROUNDS rounds a mode
+    t_phase = time.perf_counter()
+    res["t2"] = {}
+    for mode, shape in T_MESHES.items():
+        mesh = meshes[shape]
+        run = s2_run(cfg2, mode, "bfloat16")
+        torch.cuda.empty_cache()
+        st = trainer.init_state(run, torch.Generator(device=dev)
+                                .manual_seed(0), mesh)
+        if mode != "exact":
+            st = trainer.replicate_for_nodes(st, rdist.n_local(mesh, TRAIN_N))
+        opt = st.opt
+        at_rest = sum(t.numel() * t.element_size()
+                      for tree in (st.params, opt.m, opt.v, opt.master)
+                      for t in tree_leaves(tree))
+        step = trainer.build_train_step(run, mesh, n_nodes=TRAIN_N,
+                                        device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        rounds = []
+        for b in t_tokens(cfg2, T2_ROUNDS, TRAIN_B, TRAIN_S, 2):
+            b = batch_of(b, mesh, mode)
+            rdist.reset_stats()
+            t0 = time.perf_counter()
+            st, m = step(st, b)
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            rounds.append({"s": time.perf_counter() - t0, "loss": loss,
+                           "stats": dict(rdist.stats)})
+        res["t2"][mode] = {"rounds": rounds, "at_rest": at_rest,
+                           "peak_bytes": torch.cuda.max_memory_allocated(),
+                           "launches": dict(ops.launches)}
+        del st, step, opt
+    dist.barrier()
+    res["seconds"]["t2"] = time.perf_counter() - t_phase
+    torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def model_axis_phases(dev) -> dict:
+    """(t0)-(t2) on the card: the single-process references and the
+    plans first, then T_WORLD rank processes (`t_rank`), joined under a
+    deadline; prints each check and returns the ranks' gossip_mix
+    launches by phase, for the kernels line."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.packing import tree_leaves, tree_map
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import registry, transformer
+    from repro_torch.train import trainer
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "model_axis")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg0, cfg1, cfg2 = t_cfgs()
+    to_dev = lambda tree: tree_map(lambda t: t.to(dev), tree)
+    # (t0)'s whole model on one process
+    params = to_dev(registry.init_params(torch.Generator().manual_seed(0),
+                                         cfg0, torch.float32))
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in t_tokens(cfg0, 1, 2, 64, 5)[0].items()}
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(live)
+    tree = tree_map(lambda _: next(it), params)
+    loss, _ = registry.loss_fn(tree, cfg0, batch, remat=True)
+    ref0 = {"loss": float(loss.detach()),
+            "grads": [g.cpu() for g in torch.autograd.grad(loss, live)]}
+    with torch.no_grad():
+        ref0["logits"] = transformer.forward(tree, cfg0, batch,
+                                             train=True)[0].cpu()
+    del params, live, tree, loss
+    # (t1)'s single-process card run at n_nodes = 4
+    ref1 = {}
+    for mode in T_MESHES:
+        run = s2_run(cfg1, mode, "float32")
+        st = trainer.init_state(run, torch.Generator().manual_seed(0))
+        if mode != "exact":
+            st = trainer.replicate_for_nodes(st, TRAIN_N)
+        st = trainer.TrainState(to_dev(st.params), st.opt._replace(
+            m=to_dev(st.opt.m), v=to_dev(st.opt.v),
+            master=to_dev(st.opt.master)))
+        step = trainer.build_train_step(run, None, n_nodes=TRAIN_N,
+                                        device=dev)
+        losses = []
+        for b in s2a_batches(cfg1):
+            if mode != "exact":
+                b = trainer.make_node_batch(b, TRAIN_N)
+            st, m = step(st, {k: torch.from_numpy(v).to(dev)
+                              for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        ref1[mode] = (losses, [t.cpu() for t in tree_leaves(st.params)])
+        del st, step
+    # (t2)'s first-round loss on one process from the same draws: the
+    # mean of each node's loss (gossip), the batch's loss (exact)
+    params = registry.init_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg2, torch.bfloat16)
+    first = t_tokens(cfg2, 1, TRAIN_B, TRAIN_S, 2)[0]
+    ref2 = {}
+    with torch.no_grad():
+        b = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+        ref2["exact"] = float(registry.loss_fn(params, cfg2, b)[0])
+        nodes = trainer.make_node_batch(b, TRAIN_N)
+        ref2["gossip"] = float(torch.stack([registry.loss_fn(
+            params, cfg2, {k: v[j] for k, v in nodes.items()})[0]
+            for j in range(TRAIN_N)]).mean())
+    del params, b, nodes
+    torch.cuda.empty_cache()
+    # (t2)'s plans: bytes at rest, peak, messages by axis (meta traces)
+    plans = {}
+    for mode, shape in T_MESHES.items():
+        amesh = abstract_mesh(shape, ("data", "model"))
+        kw = dict(cfg=cfg2, shape=ShapeConfig("(t2)", TRAIN_S, TRAIN_B,
+                                              "train"),
+                  n_nodes=TRAIN_N, microbatches=1)
+        low = dryrun.build_lowerable("granite-8b", "train_4k", amesh, mode,
+                                     TRAIN_R, **kw)
+        rec = dryrun.plan("granite-8b", "train_4k", amesh, averaging=mode,
+                          rounds=TRAIN_R, master_weights=True, **kw)
+        count = lambda coll: sum(v for k, v in coll.items()
+                                 if k.endswith(".count"))
+        model = rec["collectives_model"]
+        plans[mode] = {
+            "at_rest": shlib.local_bytes(low.planned[0], low.specs[0], amesh),
+            "peak": rec["memory"]["peak_gib"] * 2 ** 30,
+            "model_messages": count(model),
+            "model_bytes": dryrun.staged_bytes(model),
+            "data_messages": count(rec["collectives"]) - count(model),
+            "data_bytes": rec["staged_bytes"] - dryrun.staged_bytes(model),
+            "unsplit": rec["temp_unsplit_over_model"]}
+        del low
+    t_ref = time.perf_counter() - t_all
+    # the ranks
+    store = os.path.join(work, "store")
+    procs = []
+    for r in range(T_WORLD):
+        log = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--t-rank", str(r),
+             store, work], stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + T_TIMEOUT
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        print(f"(t) rank {r} exited {procs[r][0].returncode}:\n{tail}")
+    require(not failed, f"(t): ranks {failed} failed or overran "
+                        f"{T_TIMEOUT} s")
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(T_WORLD)]
+    t_ranks = time.perf_counter() - t_all - t_ref
+
+    def within_leaf(got, want, tol):
+        """max |got - want| over tol x the leaf's largest |want|, leaf by
+        leaf (the worst)."""
+        return max(((a - b).abs().max() / (tol * b.abs().max())).item()
+                   for a, b in zip(got, want, strict=True))
+
+    # (t0)
+    for r, rr in enumerate(res):
+        got = rr["t0"]
+        loss_err = abs(got["loss"] - ref0["loss"]) / abs(ref0["loss"])
+        share = within_leaf(got["grads"] + [got["logits"]],
+                            ref0["grads"] + [ref0["logits"]], T0_TOL)
+        print(f"main (t0) reduced granite-8b d_model 512 f32, the "
+              f"tensor-parallel layers over a model axis of 2 (rank {r}): "
+              f"loss {got['loss']:.7f} (one process {ref0['loss']:.7f}, rel "
+              f"err {loss_err:.2e}); logits and {len(got['grads'])} "
+              f"gradients, worst share of {T0_TOL} x the leaf's largest "
+              f"entry {share:.3f}; model-axis messages "
+              f"{got['model_messages']}")
+        require(loss_err <= T0_TOL and share <= 1.0,
+                f"(t0) rank {r}: the tensor-parallel layers disagree with "
+                f"the whole model")
+
+    # (t1)
+    for mode, (want_l, want_p) in ref1.items():
+        runs = [rr["t1"][mode] for rr in res]
+        loss_err = max(abs(a - b) / abs(b) for r in runs
+                       for a, b in zip(r["losses"], want_l))
+        by_rows = {}
+        for r in runs:
+            by_rows.setdefault(r["rows"], r["params"])
+        parts = [by_rows[k] for k in sorted(by_rows)]
+        got = [torch.cat(p) for p in zip(*parts)] if mode != "exact" \
+            else parts[0]
+        d = torch.cat([(a - b).abs().ravel() for a, b in zip(got, want_p)])
+        within = float((d <= 1e-4).float().mean())
+        cerr = runs[0]["consensus_errs"]
+        launches = [r["launches"]["gossip_mix"] for r in runs]
+        print(f"main (t1) reduced granite-8b d_model 512 (4 KV heads) f32, "
+              f"adam, {TRAIN_N} nodes, ring R={TRAIN_R}, {mode} on "
+              f"{'x'.join(map(str, T_MESHES[mode]))}: losses "
+              f"{json.dumps(runs[0]['losses'])} (one process "
+              f"{json.dumps(want_l)}, max rel err {loss_err:.2e}, limit "
+              f"1e-4); parameters within 1e-4: {within:.6f} (limit >= "
+              f"0.999), max_abs_err {d.max().item():.3e}; consensus_err "
+              f"{json.dumps(cerr)}; gossip_mix launches by rank {launches}")
+        require(loss_err <= 1e-4, f"(t1) {mode}: losses disagree")
+        require(within >= 0.999, f"(t1) {mode}: parameters disagree")
+        if mode == "exact":
+            require(all(c == 0 for c in cerr), f"(t1) exact: consensus "
+                                               f"error {cerr}")
+        else:
+            require(all(n > 0 for n in launches),
+                    f"(t1) gossip: gossip_mix launches by rank {launches}")
+
+    # (t2)
+    for mode, plan in plans.items():
+        runs = [rr["t2"][mode] for rr in res]
+        first = [r["rounds"][0]["loss"] for r in runs]
+        loss_err = max(abs(x - ref2[mode]) / abs(ref2[mode]) for x in first)
+        per = lambda key: [[rd["stats"][key] for rd in r["rounds"]]
+                           for r in runs]
+        peaks = [r["peak_bytes"] for r in runs]
+        peak_ratio = [plan["peak"] / p for p in peaks]
+        print(f"main (t2) granite-8b full width, {TRAIN_LAYERS} layers, bf16 "
+              f"+ f32 masters, adam, {TRAIN_N} nodes x 2 x {TRAIN_S} tokens, "
+              f"ring R={TRAIN_R}, {mode} on "
+              f"{'x'.join(map(str, T_MESHES[mode]))}: losses by rank "
+              f"{[[round(rd['loss'], 5) for rd in r['rounds']] for r in runs]}"
+              f" (round 1 on one process {ref2[mode]:.5f}, max rel err "
+              f"{loss_err:.2e}, limit {T2_LOSS_TOL}); s per round by rank "
+              f"{[[round(rd['s'], 3) for rd in r['rounds']] for r in runs]}; "
+              f"bytes staged per round, model axis {per('model_staged_bytes')}"
+              f" (planned {int(plan['model_bytes'])}), data axis "
+              f"{per('data_staged_bytes')} (planned "
+              f"{int(plan['data_bytes'])}); messages per round, model axis "
+              f"{per('model_messages')} (planned {plan['model_messages']}), "
+              f"data axis {per('data_messages')} (planned "
+              f"{plan['data_messages']}); bytes at rest by rank "
+              f"{[r['at_rest'] for r in runs]} (planned {plan['at_rest']}); "
+              f"peak memory by rank GB {[round(p / 1e9, 3) for p in peaks]}, "
+              f"plan over measured {[round(x, 4) for x in peak_ratio]}; "
+              f"launches by rank "
+              f"{[json.dumps(r['launches']) for r in runs]}")
+        require(all(math.isfinite(rd["loss"]) for r in runs
+                    for rd in r["rounds"]), f"(t2) {mode}: losses not finite")
+        require(loss_err <= T2_LOSS_TOL, f"(t2) {mode}: round 1's loss "
+                                         f"disagrees with one process's")
+        require(not plan["unsplit"], f"(t2) {mode}: the plan kept the model "
+                                     f"axis unsplit")
+        require(all(r["at_rest"] == plan["at_rest"] for r in runs),
+                f"(t2) {mode}: bytes at rest differ from the plan's")
+        require(all(abs(x - 1) <= P1_BOUND for x in peak_ratio),
+                f"(t2) {mode}: a rank's peak is not within {P1_BOUND} of "
+                f"the plan's")
+        for key, want in (("model_messages", plan["model_messages"]),
+                          ("model_staged_bytes", plan["model_bytes"]),
+                          ("data_messages", plan["data_messages"]),
+                          ("data_staged_bytes", plan["data_bytes"])):
+            require(all(x == want for xs in per(key) for x in xs),
+                    f"(t2) {mode}: {key} {per(key)} differ from the "
+                    f"plan's {want}")
+        if mode != "exact":
+            require(all(r["launches"]["gossip_mix"] > 0 for r in runs),
+                    f"(t2) {mode}: gossip_mix did not launch on every rank")
+    seconds = res[0]["seconds"]
+    print(f"main (t) seconds: references and plans {t_ref:.1f}, ranks "
+          f"{t_ranks:.1f} (rank 0: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in seconds.items()) +
+          f"), all {time.perf_counter() - t_all:.1f}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"gossip_mix": {
+        phase: [sum(rr[phase][m]["launches"]["gossip_mix"] for m in T_MESHES)
+                for rr in res] for phase in ("t1", "t2")}}
+
+
 def main() -> int:
     import torch
 
@@ -1071,6 +1505,8 @@ def main() -> int:
     # (s0)-(s2): the sharded node axis, rank processes sharing the card
     s_launches = shard_phases(dev)
     s2b_staged = s_launches.pop("s2b_staged")
+    # (t): the model axis, rank processes sharing the card
+    t_launches = model_axis_phases(dev)
     # what phase (p) holds its plans against: peaks, card times
     p_measured = {}
 
@@ -3895,6 +4331,12 @@ def main() -> int:
         key = ("launches_by_kernel" if row["name"] == "flash_attention"
                else "launches_by_nodes")
         row.setdefault(key, {})["s"] = by_phase
+    # the ranks' launches of (t1)-(t2), by phase and rank, under "t"
+    for row in rows:
+        by_phase = t_launches.get(row["name"])
+        if by_phase is not None:
+            row["launches"] += sum(sum(v) for v in by_phase.values())
+            row.setdefault("launches_by_nodes", {})["t"] = by_phase
     # the per-round metric: the excess risk reads the [d, d] covariance, the
     # alignment error two vectors
     wbar = state.w.mean(0)
@@ -3914,4 +4356,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--s-rank"]:
         sys.exit(s_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--t-rank"]:
+        sys.exit(t_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -4,8 +4,10 @@ both packages can compute the same thing from the same numbers — a
 `LogRegStream` built from the reference's ground truth, a circulant
 schedule, LM parameters (`lm_params`, and `lm_tree` back) and a whole LM
 training state, error-feedback residuals included (`train_state`, and
-`train_tree` back). Nothing here imports
-the JAX package: callers pass `np.asarray(...)` of its arrays.
+`train_tree` back). Over a mesh with a model axis, `lm_params` and
+`train_state` give this rank's blocks of the reference's whole tree and
+`train_tree` gathers them again. Nothing here imports the JAX package:
+callers pass `np.asarray(...)` of its arrays.
 """
 from __future__ import annotations
 
@@ -20,9 +22,11 @@ from repro_torch.core.krasulina import KrasulinaState
 from repro_torch.core.mixing import Schedule
 from repro_torch.data.synthetic import LogRegStream, PCAStream
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import model_extent
+from repro_torch.launch.sharding import gather_tree, shard_tree
 from repro_torch.models.transformer import build_plan
 from repro_torch.optim import OptState
-from repro_torch.train.trainer import TrainState
+from repro_torch.train.trainer import TrainState, rest_specs
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -80,8 +84,9 @@ def tree_map(fn: Callable, tree):
 _TOP_LEAVES = ("frontend_proj", "unembed")
 
 
-def lm_params(tree, *, device: DeviceLike = None,
-              node_axis: bool = False) -> Dict[str, Any]:
+def lm_params(tree, *, device: DeviceLike = None, node_axis: bool = False,
+              mesh=None, cfg: ModelConfig = None,
+              zero1: bool = False) -> Dict[str, Any]:
     """The port's LM parameters from the reference's `init_params` tree with
     numpy leaves: {"embed", "final_norm", "layers": [per period position, a
     dict of leaves stacked [n_rep, ...]], "tail": [dicts]} (+ "unembed").
@@ -93,8 +98,16 @@ def lm_params(tree, *, device: DeviceLike = None,
     with the decentralized node axis ([N, n_rep, ...] in "layers"), and so
     does every port leaf. The leaves keep their dtypes (a MoE router, an
     SSD's A_log, D and dt_bias, an RG-LRU's lam stay f32 in a bf16
-    model)."""
-    dev = resolve_device(device)
+    model). Over a `mesh` with a model axis (and the tree's `cfg`): this
+    rank's blocks (`train.trainer.rest_specs`: the model shards, or the
+    ZeRO-1 blocks with `zero1`)."""
+    whole = _lm_params(tree, resolve_device(device), node_axis)
+    if model_extent(mesh) == 1:
+        return whole
+    return shard_tree(whole, rest_specs(cfg, mesh, zero1, node_axis), mesh)
+
+
+def _lm_params(tree, dev: torch.device, node_axis: bool) -> Dict[str, Any]:
     conv = lambda a: _tensor(a, dev)
     ax = 1 if node_axis else 0
     take = lambda a, r: np.take(np.asarray(a), r, axis=ax)
@@ -150,7 +163,7 @@ def lm_tree(params: Dict[str, Any], cfg: ModelConfig,
 
 
 def train_state(params_tree, opt_state, cfg: ModelConfig, *,
-                device: DeviceLike = None) -> TrainState:
+                device: DeviceLike = None, mesh=None) -> TrainState:
     """A `train.trainer.TrainState` from the reference's `TrainState`
     (`jax.tree.map(np.asarray, ...)` of it): the parameters and the
     optimizer's `step`, `m`, `v`, `master` and `ef_residual` (`()` where the
@@ -158,11 +171,14 @@ def train_state(params_tree, opt_state, cfg: ModelConfig, *,
     decentralized run (read off `opt_state.step`, which
     `replicate_for_nodes` stacks too: the port's state then keeps a tuple
     of the nodes' steps). The port's `torch.Generator` init cannot draw the
-    reference's numbers, so both packages start from these."""
+    reference's numbers, so both packages start from these. Over a `mesh`
+    with a model axis, this rank's blocks: ZeRO-1 in the exact mode (no
+    node axis), the model shards of every node otherwise."""
     step = np.asarray(opt_state.step)
     node_axis = step.ndim > 0
     conv = lambda t: (() if isinstance(t, tuple) and t == () else
-                      lm_params(t, device=device, node_axis=node_axis))
+                      lm_params(t, device=device, node_axis=node_axis,
+                                mesh=mesh, cfg=cfg, zero1=not node_axis))
     opt = OptState(tuple(int(s) for s in step) if node_axis else int(step),
                    conv(opt_state.m),
                    conv(opt_state.v), conv(opt_state.master),
@@ -170,13 +186,22 @@ def train_state(params_tree, opt_state, cfg: ModelConfig, *,
     return TrainState(conv(params_tree), opt)
 
 
-def train_tree(state: TrainState, cfg: ModelConfig) -> Dict[str, Any]:
+def train_tree(state: TrainState, cfg: ModelConfig,
+               mesh=None) -> Dict[str, Any]:
     """The inverse of `train_state`, as numpy: {"params", "step", "m", "v",
     "master", "ef_residual"} in the reference's layout (`master` and
-    `ef_residual` are `()` where the state has none)."""
+    `ef_residual` are `()` where the state has none). Over a `mesh` with a
+    model axis the rank's blocks are gathered first (on every rank)."""
     node_axis = state.params["embed"].dim() == 3
-    conv = lambda t: (() if isinstance(t, tuple) and t == () else
-                      lm_tree(t, cfg, node_axis=node_axis))
+    spec = (rest_specs(cfg, mesh, not node_axis, node_axis)
+            if model_extent(mesh) > 1 else None)
+
+    def conv(t):
+        if isinstance(t, tuple) and t == ():
+            return ()
+        if spec is not None:
+            t = gather_tree(t, spec, mesh)
+        return lm_tree(t, cfg, node_axis=node_axis)
     opt = state.opt
     return {"params": conv(state.params), "step": np.asarray(opt.step),
             "m": conv(opt.m), "v": conv(opt.v), "master": conv(opt.master),

@@ -38,7 +38,12 @@ Over a mesh that splits the node axis across ranks (`repro_torch/dist.py`),
 each rank holds its rows [n_local, ...] of every leaf: the gossip op
 (built with the mesh) mixes them with the shard rules, and the exact
 average, the consensus error and the node means reduce across ranks with
-all-reduces (`repro_torch/dist.py`). The hierarchical mode and error
+all-reduces over the data group (`repro_torch/dist.py`). Over a model
+axis each rank holds its model shard's block of every leaf: the mixing is
+linear per column, so each model index mixes its own columns over the node
+axis (unpacked, as the reference's "auto" is there), and the consensus
+error sums each leaf's squares over the model group, a leaf replicated
+over the model axis counted once. The hierarchical mode and error
 feedback on a sharded axis are not ported yet (ROADMAP.md) and raise.
 """
 from __future__ import annotations
@@ -55,7 +60,7 @@ from repro_torch.core.mixing import (CirculantMixOp, ScheduledMixOp,
                                      circulant_mix_op, schedule)
 from repro_torch.core.quantize import fold_in, tile_compress
 from repro_torch.device import DeviceLike
-from repro_torch.dist import is_sharded
+from repro_torch.dist import is_sharded, model_extent
 
 Tree = Any
 # the consensus engine: a static CirculantMixOp or a time-varying
@@ -88,12 +93,12 @@ def make_gossip_mix(cfg: AveragingConfig, n_nodes: int, *,
 
 
 def resolve_packed(cfg: AveragingConfig, mesh: Any = None) -> bool:
-    """Resolve the tri-state `AveragingConfig.packed`. The reference's "auto"
-    packs everywhere except meshes that shard leaves over a model axis; the
-    port's meshes have no model axis (`repro_torch.dist.check_mesh`), so "auto"
-    always packs."""
-    del mesh
-    return True if cfg.packed == "auto" else bool(cfg.packed)
+    """Resolve the tri-state `AveragingConfig.packed`. "auto" packs
+    everywhere except meshes that split leaves over a model axis, as the
+    reference's does."""
+    if cfg.packed == "auto":
+        return model_extent(mesh) == 1
+    return bool(cfg.packed)
 
 
 def _packable(mix: MixOp) -> bool:
@@ -143,7 +148,7 @@ def gossip_average(tree: Tree, n_nodes: int, cfg: AveragingConfig,
 
 def _node_sum(g: torch.Tensor, mesh: Any) -> torch.Tensor:
     """The f32 sum over every node's row of g (this rank's rows [n_local,
-    ...]), all-reduced over the mesh's ranks: [1, ...]."""
+    ...]), all-reduced over the mesh's data group: [1, ...]."""
     total = g.float().sum(0, keepdim=True)
     return rdist.all_reduce_(total, mesh)
 
@@ -251,20 +256,23 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                       pods: int = 1, mix: Optional[MixOp] = None,
                       key: Optional[int] = None, t=None,
                       device: DeviceLike = None,
-                      pools: Optional[Pools] = None, mesh: Any = None
+                      pools: Optional[Pools] = None, mesh: Any = None,
+                      model_split: Optional[Tuple[bool, ...]] = None
                       ) -> Tuple[Tree, torch.Tensor]:
     """Averaging plus the epsilon-consensus diagnostic with ONE pack: the
     mixed packed buffers feed both the unpack and the error reduction.
     `pools` groups leaves for the diagnostic (`_packed_consensus_error`).
     On a sharded `mesh` the leaves are this rank's rows, `mix` is built
-    with the mesh, and the diagnostic reduces across ranks."""
+    with the mesh, and the diagnostic reduces across ranks; over a model
+    axis they are its model shard's blocks, and `model_split` says which
+    leaves (in packing order) the model axis splits."""
     check_sharded_mode(cfg, mesh)
-    if not is_sharded(mesh):
+    if mesh is not None and not is_sharded(mesh) and model_extent(mesh) == 1:
         mesh = None
+    err_kw = dict(mesh=mesh, n_nodes=n_nodes, model_split=model_split)
     if cfg.mode == "exact":
         mixed = exact_average(tree, mesh, n_nodes)
-        return mixed, consensus_error(mixed, pools, mesh=mesh,
-                                      n_nodes=n_nodes)
+        return mixed, consensus_error(mixed, pools, **err_kw)
     if cfg.mode not in ("gossip", "hierarchical"):
         raise ValueError(f"unknown averaging mode {cfg.mode!r}")
     if mix is None:
@@ -273,8 +281,7 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
     if not (cfg.packed and _packable(mix)):
         mixed = average_gradients(tree, cfg, n_nodes=n_nodes, pods=pods,
                                   mix=mix, key=key, t=t, mesh=mesh)
-        return mixed, consensus_error(mixed, pools, mesh=mesh,
-                                      n_nodes=n_nodes)
+        return mixed, consensus_error(mixed, pools, **err_kw)
     bufs, spec = packing.pack_tree(tree)
     if cfg.mode == "gossip":
         outs = tuple(_apply_mix(mix, spec, g, b, key, t)
@@ -284,7 +291,8 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
         outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key, t)
                      for b in bufs)
-    err = _packed_consensus_error(outs, spec, pools, mesh, n_nodes)
+    err = _packed_consensus_error(outs, spec, pools, mesh, n_nodes,
+                                  model_split)
     return packing.unpack_tree(outs, spec), err
 
 
@@ -385,7 +393,9 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
 def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
                             spec: packing.PackSpec,
                             pools: Optional[Pools] = None, mesh: Any = None,
-                            n_nodes: Optional[int] = None) -> torch.Tensor:
+                            n_nodes: Optional[int] = None,
+                            model_split: Optional[Tuple[bool, ...]] = None
+                            ) -> torch.Tensor:
     """max_leaf max_n ||v_n - v_bar|| / ||v_bar|| on the packed buffers, one
     leaf segment at a time: the f32 temporaries are the size of one leaf,
     not of the buffer (an f32 copy of an 8B-class model's [4, D] gradient
@@ -393,22 +403,46 @@ def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
     each pool of leaves count as one leaf, its squares summed over the pool;
     by default every leaf is its own pool. On a sharded `mesh` the buffers
     are this rank's rows of the `n_nodes`-node axis: each leaf's mean is an
-    all-reduce, and the max over nodes one more (over the pools' values)."""
+    all-reduce, and the max over nodes one more (over the pools' values).
+    Over a model axis the leaves that `model_split` marks sum their squares
+    over the model group (one all-reduce)."""
+    def segments():
+        for g, buf in enumerate(bufs):
+            off = 0
+            for i in spec.groups[g]:
+                w = spec.leaf_width(i)
+                yield i, buf[..., off:off + w]
+                off += w
+
+    return _consensus_of(segments(), pools, mesh, n_nodes, model_split)
+
+
+def _consensus_of(segments, pools: Optional[Pools], mesh: Any,
+                  n_nodes: Optional[int],
+                  model_split: Optional[Tuple[bool, ...]]) -> torch.Tensor:
+    """The consensus error of (leaf index, [n_local, w] rows) segments."""
     sharded = is_sharded(mesh)
     d2: dict = {}  # leaf index -> (squared deviations [N], squared mean)
-    for g, buf in enumerate(bufs):
+    for i, rows in segments:
+        if rows.shape[-1] == 0:
+            continue
+        seg = rows.to(torch.float32, copy=True)
+        if sharded:
+            bar = _node_sum(seg, mesh).div_(n_nodes)
+        else:
+            bar = torch.mean(seg, dim=0, keepdim=True)
+        d2[i] = (seg.sub_(bar).square_().sum(-1), bar.square().sum())
+    split = [i for i in sorted(d2) if model_split and model_split[i]]
+    if split and model_extent(mesh) > 1:
+        # the split leaves' squares, summed over the model group at once
+        flat = rdist.all_reduce_(torch.cat(
+            [torch.cat([d2[i][0], d2[i][1].reshape(1)]) for i in split]),
+            mesh, axis="model")
         off = 0
-        for i in spec.groups[g]:
-            w = spec.leaf_width(i)
-            seg = buf[..., off:off + w].to(torch.float32, copy=True)
-            off += w
-            if w == 0:
-                continue
-            if sharded:
-                bar = _node_sum(seg, mesh).div_(n_nodes)
-            else:
-                bar = torch.mean(seg, dim=0, keepdim=True)
-            d2[i] = (seg.sub_(bar).square_().sum(-1), bar.square().sum())
+        for i in split:
+            n = d2[i][0].numel()
+            d2[i] = (flat[off:off + n], flat[off + n])
+            off += n + 1
     errs = []
     for pool in (pools if pools is not None else [(i,) for i in sorted(d2)]):
         parts = [d2[i] for i in pool if i in d2]
@@ -426,15 +460,19 @@ def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
 
 
 def consensus_error(tree: Tree, pools: Optional[Pools] = None, *,
-                    mesh: Any = None,
-                    n_nodes: Optional[int] = None) -> torch.Tensor:
+                    mesh: Any = None, n_nodes: Optional[int] = None,
+                    model_split: Optional[Tuple[bool, ...]] = None
+                    ) -> torch.Tensor:
     """max_n ||v_n - v_bar|| / ||v_bar|| across the tree — the paper's
-    epsilon-accuracy diagnostic for inexact averaging. Computed on the packed
-    flat buffer (`consensus_error_per_leaf` is the per-leaf oracle); `pools`
-    as in `_packed_consensus_error`; on a sharded `mesh` the leaves are
-    this rank's rows of the `n_nodes`-node axis."""
-    bufs, spec = packing.pack_tree(tree)
-    return _packed_consensus_error(bufs, spec, pools, mesh, n_nodes)
+    epsilon-accuracy diagnostic for inexact averaging, leaf by leaf in
+    packing order (`consensus_error_per_leaf` is the per-leaf oracle);
+    `pools` as in `_packed_consensus_error`; on a sharded `mesh` the leaves
+    are this rank's rows of the `n_nodes`-node axis, and over a model axis
+    its blocks (`model_split` as in `average_and_error`)."""
+    leaves = packing.tree_leaves(tree)
+    return _consensus_of(((i, x.reshape(x.shape[0], -1))
+                          for i, x in enumerate(leaves)), pools, mesh,
+                         n_nodes, model_split)
 
 
 def consensus_error_per_leaf(tree: Tree) -> torch.Tensor:

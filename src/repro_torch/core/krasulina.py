@@ -45,7 +45,7 @@ from repro_torch.core.averaging import make_gossip_mix
 from repro_torch.core.mixing import (CirculantMixOp, DenseMixOp,
                                      ScheduledMixOp)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist import is_sharded, n_local
+from repro_torch.dist import check_mesh, is_sharded, n_local
 from repro_torch.kernels.ops import (krasulina_xi, krasulina_xi_gossip,
                                      sharded_krasulina_xi_gossip)
 
@@ -316,7 +316,9 @@ def krasulina_superstep_builder(averaging: AveragingConfig, n_nodes: int,
     The prebuilt `mix` override only applies at full membership, since its
     operator is sized for the full node axis. On a sharded `mesh` only the
     full membership is built: churn on a sharded node axis is not ported
-    yet (ROADMAP.md)."""
+    yet (ROADMAP.md). A model axis is refused: the PCA path has none."""
+    if mesh is not None:
+        check_mesh(mesh, "the PCA path")
     full = build_krasulina_superstep(averaging, n_nodes, stepsize,
                                      metric=metric, mix=mix, fuse_xi=fuse_xi,
                                      device=device, mesh=mesh)

@@ -49,8 +49,7 @@ import torch
 from repro_torch.core.quantize import (COMPRESSORS, STOCHASTIC, fold_in,
                                        make_compressor)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist import (all_gather_rows, check_mesh, is_sharded,
-                              n_local, node_rows)
+from repro_torch.dist import all_gather_rows, is_sharded, n_local, node_rows
 
 Schedule = Tuple[Tuple[int, float], ...]  # ((shift, weight), ...) includes shift 0
 
@@ -590,11 +589,12 @@ def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
     partitioning rule where it covers the (n, schedule, split)
     (`kernels.ops.node_shard_info`) and falls back to "roll" elsewhere (on
     a sharded mesh: gather, roll, keep the rank's rows), as the reference
-    does; it keeps per-round semantics, so it carries no fused schedule."""
-    if mesh is not None:
-        check_mesh(mesh)
-        if not is_sharded(mesh):
-            mesh = None  # one rank holds every row: the unsharded op
+    does; it keeps per-round semantics, so it carries no fused schedule.
+    Over a model axis each model index mixes its own columns: the halo
+    rows go between the node shards' ranks at this rank's model index, and
+    with one node shard every row is local (the unsharded op)."""
+    if mesh is not None and not is_sharded(mesh):
+        mesh = None  # one node shard holds every row: the unsharded op
     if impl not in ("auto", "roll", "matmul", "kernel", "shard"):
         raise ValueError(f"unknown MixOp impl {impl!r}")
     if stats not in ("global", "segment", "tile", "node"):

@@ -142,7 +142,8 @@ def shard_batch(batch: Dict[str, Any], mesh, n_nodes: int, *,
     keeps its node rows; without (the exact mode), they are [K, B, ...],
     node j's samples the j-th of n_nodes equal runs, and the rank keeps
     its nodes' runs, an equal share: an uneven split raises ValueError
-    (`exact_split_error`)."""
+    (`exact_split_error`). The split is over the node (data) axes only:
+    the ranks of one model group take the same rows."""
     from repro_torch.dist import is_sharded, n_data_nodes, node_rows
 
     if not is_sharded(mesh):

@@ -10,12 +10,17 @@ are a leading node axis split over the node axes ("pod", "data") in
 contiguous runs of rows, the port's form of the reference's
 `P(("pod", "data"))`: rank i holds rows `node_rows(mesh, n)`.
 
-The kernels, the core algorithms, the data pipeline and the trainer take a
-`Mesh` from here; `launch/mesh.py` builds one over a process group. A
-model axis of extent above 1 (tensor-parallel and ZeRO-1 layouts) is
-planned, not executed: the planner (`launch/dryrun.py`) takes one on a
-mesh that no group backs (`launch/mesh.py` `abstract_mesh`), and
-`check_mesh` refuses it wherever a mesh executes (ROADMAP.md queue 1).
+A model axis of extent m above 1 splits the mesh's ranks two ways: the m
+ranks of one node shard form its *model group* (they hold the model
+shards of the same nodes), and the ranks of one model index form its
+*data group* (they hold the same model shard of every node shard).
+`launch/mesh.py` builds both with `dist.new_group`. Every message names
+the axis it crosses: a node-axis message (halo rows, node means, the
+ZeRO-1 gathers and reduce-scatters) goes over the data group, a
+tensor-parallel reduction over the model group, and `stats` counts the
+two axes apart. The LM trainer's dense family executes a model axis
+(`train/trainer.py`, `models/common.py`); `check_mesh` refuses one on the
+paths that do not (the PCA and convex drivers).
 """
 from __future__ import annotations
 
@@ -39,6 +44,11 @@ class Mesh:
     axis_names: Tuple[str, ...]
     rank: int = 0
     group: Any = None
+    # over a model axis of extent above 1: this rank's model group (the
+    # ranks of its node shard) and data group (the ranks of its model
+    # index), `launch/mesh.py` `make_mesh`
+    model_group: Any = None
+    data_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -50,17 +60,31 @@ class Mesh:
         return math.prod(self.sizes)
 
 
-def check_mesh(mesh: Mesh) -> None:
-    """Refuse a model axis of extent above 1 where a mesh executes: the
-    sharded model layouts are planned (`launch/dryrun.py`), not
-    executed."""
-    model = mesh.shape.get("model", 1)
+def check_mesh(mesh: Mesh, what: str) -> None:
+    """Refuse a model axis of extent above 1 on `what`, a path that does
+    not execute one: only the LM trainer's dense family does (tensor
+    parallelism and ZeRO-1, `train/trainer.py`)."""
+    model = model_extent(mesh)
     if model > 1:
         raise NotImplementedError(
-            f"a model axis of extent {model}: the sharded model layouts "
-            f"(tensor parallelism, ZeRO-1) are planned, not executed yet "
-            f"(ROADMAP.md queue 1 item 3); the port shards the node axis "
-            f"only")
+            f"a model axis of extent {model} on {what}: planned, not "
+            f"executed there; the sharded model layouts execute in the LM "
+            f"trainer's dense family only (ROADMAP.md queue 1 item 1)")
+
+
+def model_extent(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("model", 1)
+
+
+def model_index(mesh) -> int:
+    """This rank's position along the model axis."""
+    return 0 if mesh is None else mesh.rank % model_extent(mesh)
+
+
+def multi_rank(mesh) -> bool:
+    """Whether the mesh spans more than one rank (a split node axis, a
+    model axis, or both): its ranks then plan and step in lockstep."""
+    return mesh is not None and mesh.size > 1
 
 
 def data_axes(mesh: Mesh) -> tuple:
@@ -81,8 +105,8 @@ def is_sharded(mesh) -> bool:
 
 def node_index(mesh: Mesh) -> int:
     """This rank's position along the node axes (row-major over "pod",
-    "data"): with no model axis to split, the rank itself."""
-    return mesh.rank // mesh.shape.get("model", 1)
+    "data"), its node shard."""
+    return mesh.rank // model_extent(mesh)
 
 
 def row_range(mesh: Mesh, n: int, index: int = None) -> Tuple[int, int]:
@@ -110,7 +134,7 @@ def n_local(mesh, n: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Messages between the ranks of a mesh, over its process group
+# Messages between the ranks of a mesh, over its process groups
 #
 # The ranks of one card share it in a gloo group (NCCL refuses two ranks on
 # one device), and gloo moves host memory: a CUDA tensor is staged
@@ -129,21 +153,61 @@ def n_local(mesh, n: int) -> int:
 # Every message of one exchange is posted in one `batch_isend_irecv` with a
 # tag of its own, so two ranks that are each other's up and down neighbours
 # never deadlock; a collective that hangs fails at the group's `timeout`.
+#
+# On the meta device (the planner's trace, `launch/dryrun.py`) every
+# collective is a shape-only no-op that counts the messages and bytes it
+# would move on the card, chunks and staging included.
 # ---------------------------------------------------------------------------
 
 
 STAGE_BYTES = 64 << 20  # the most bytes one staged message chunk holds
-# bytes staged (device to host plus host to device), the same count of the
-# messages' payloads on any device (out plus in: what staging moves on a
-# card), and messages sent, since the last `reset_stats()`
-stats: Dict[str, int] = {"staged_bytes": 0, "wire_bytes": 0, "messages": 0}
+AXES = ("model", "data")
+# since the last `reset_stats()`: bytes staged (device to host plus host to
+# device), the same count of the messages' payloads on any device (out plus
+# in: what staging moves on a card) and messages sent, in all and per axis
+# ("model_messages", "data_wire_bytes", ...)
+stats: Dict[str, int] = {}
+# (axis, kind) -> [messages, wire bytes], the reference's kind names
+log: Dict[Tuple[str, str], List[int]] = {}
 # pinned host buffers, reused across calls: (role, slot) -> uint8 buffer
 _pinned: Dict[Tuple[str, int], torch.Tensor] = {}
 
 
 def reset_stats() -> None:
-    for k in stats:
+    stats.clear()
+    for k in ("staged_bytes", "wire_bytes", "messages"):
         stats[k] = 0
+        for a in AXES:
+            stats[f"{a}_{k}"] = 0
+    log.clear()
+
+
+reset_stats()
+
+
+def _count(axis: str, kind: str, messages: int, wire: int,
+           staged: int) -> None:
+    for prefix in ("", axis + "_"):
+        stats[prefix + "messages"] += messages
+        stats[prefix + "wire_bytes"] += wire
+        stats[prefix + "staged_bytes"] += staged
+    entry = log.setdefault((axis, kind), [0, 0])
+    entry[0] += messages
+    entry[1] += wire
+
+
+def axis_extent(mesh: Mesh, axis: str) -> int:
+    """The ranks a message over `axis` ("model" or "data") reaches."""
+    return model_extent(mesh) if axis == "model" else n_data_nodes(mesh)
+
+
+def axis_group(mesh: Mesh, axis: str):
+    """The process group of this rank's `axis` ("model": its node shard's
+    ranks; "data": its model index's ranks, every rank without a model
+    axis)."""
+    if model_extent(mesh) == 1:
+        return mesh.group
+    return mesh.model_group if axis == "model" else mesh.data_group
 
 
 def _buffer(role: str, slot: int, nbytes: int) -> torch.Tensor:
@@ -160,17 +224,22 @@ def _view(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 def _peer(mesh: Mesh, shard: int) -> int:
-    """The global rank of node shard `shard` (a rank of mesh.group)."""
+    """The global rank of node shard `shard` at this rank's model index."""
+    r = shard * model_extent(mesh) + model_index(mesh)
     if mesh.group is None:
-        return shard
-    return dist.get_global_rank(mesh.group, shard)
+        return r
+    return dist.get_global_rank(mesh.group, r)
 
 
-def _staged(mesh: Mesh, t: torch.Tensor) -> bool:
+def _staged(group, t: torch.Tensor) -> bool:
     """Whether `t` goes through pinned host buffers: a CUDA tensor on a
     group that moves host memory (every backend but nccl)."""
     return (t.device.type == "cuda"
-            and dist.get_backend(mesh.group) != dist.Backend.NCCL)
+            and dist.get_backend(group) != dist.Backend.NCCL)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def column_chunks(d: int, rows: int, elem: int,
@@ -188,27 +257,33 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor, int]],
              mesh: Mesh) -> None:
     """Post every send (node shard, [rows, d] tensor, tag) and receive
     (node shard, [rows, d] output, tag) in one batch and wait for all of
-    them. The tensors share d and a device; on CUDA each is staged through
-    its own pinned buffer, column chunk by column chunk."""
+    them; the peers are the node shards' ranks at this rank's model index.
+    The tensors share d and a device; on CUDA each is staged through its
+    own pinned buffer, column chunk by column chunk."""
     tensors = [t for _, t, _ in sends] + [t for _, t, _ in recvs]
     if not tensors:
         return
     d = tensors[0].shape[1]
     if d == 0:
         return
-    cuda = _staged(mesh, tensors[0])
+    meta = tensors[0].device.type == "meta"
+    cuda = meta or _staged(mesh.group, tensors[0])
     rows = max(t.shape[0] for t in tensors)
-    stream = torch.cuda.current_stream(tensors[0].device) if cuda else None
-    for c0, c1 in column_chunks(d, rows, tensors[0].element_size()):
+    elem = tensors[0].element_size()
+    stream = (torch.cuda.current_stream(tensors[0].device)
+              if cuda and not meta else None)
+    for c0, c1 in column_chunks(d, rows, elem):
+        wire = sum(t.shape[0] * (c1 - c0) * elem for t in tensors)
+        if meta:
+            _count("data", "collective-permute", len(sends), wire, wire)
+            continue
         if cuda:
             out_bufs = []
             for j, (_, t, _) in enumerate(sends):
                 part = t[:, c0:c1]
-                buf = _view(_buffer("send", j, part.numel() *
-                                    part.element_size()), part)
+                buf = _view(_buffer("send", j, _nbytes(part)), part)
                 buf.copy_(part, non_blocking=True)
                 out_bufs.append(buf)
-                stats["staged_bytes"] += part.numel() * part.element_size()
             in_bufs = [_view(_buffer("recv", j, t[:, c0:c1].numel() *
                                      t.element_size()), t[:, c0:c1])
                        for j, (_, t, _) in enumerate(recvs)]
@@ -224,79 +299,165 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor, int]],
                 for (p, _, tag), b in zip(recvs, in_bufs)])
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        stats["messages"] += len(sends)
-        stats["wire_bytes"] += sum(b.numel() * b.element_size()
-                                   for b in out_bufs + in_bufs)
+        _count("data", "collective-permute", len(sends), wire,
+               wire if cuda else 0)
         for (_, t, _), b in zip(recvs, in_bufs):
             t[:, c0:c1].copy_(b, non_blocking=cuda)
-            if cuda:
-                stats["staged_bytes"] += b.numel() * b.element_size()
 
 
-def all_reduce_(t: torch.Tensor, mesh: Mesh,
-                op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In-place all-reduce of `t` over the mesh's ranks (staged in chunks
-    on CUDA). Returns `t`."""
+def all_reduce_(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM,
+                axis: str = "data") -> torch.Tensor:
+    """In-place all-reduce of `t` over this rank's `axis` group ("data":
+    the node axis; "model": the model axis), staged in chunks on CUDA.
+    Returns `t`; no message where the axis has one rank."""
     if not t.is_contiguous():
         raise ValueError("all_reduce_ takes a contiguous tensor")
-    stats["wire_bytes"] += 2 * t.numel() * t.element_size()
-    if not _staged(mesh, t):
-        dist.all_reduce(t, op=op, group=mesh.group)
-        stats["messages"] += 1
+    if axis_extent(mesh, axis) == 1:
+        return t
+    nbytes = _nbytes(t)
+    if t.device.type == "meta":
+        _count(axis, "all-reduce", max(1, -(-nbytes // STAGE_BYTES)),
+               2 * nbytes, 2 * nbytes)
+        return t
+    group = axis_group(mesh, axis)
+    if not _staged(group, t):
+        dist.all_reduce(t, op=op, group=group)
+        _count(axis, "all-reduce", 1, 2 * nbytes, 0)
         return t
     flat = t.view(-1)
     step = max(STAGE_BYTES // t.element_size(), 1)
     stream = torch.cuda.current_stream(t.device)
     for c0 in range(0, flat.numel(), step):
         part = flat[c0:c0 + step]
-        buf = _view(_buffer("reduce", 0, part.numel() * part.element_size()),
-                    part)
+        buf = _view(_buffer("reduce", 0, _nbytes(part)), part)
         buf.copy_(part, non_blocking=True)
         stream.synchronize()
-        dist.all_reduce(buf, op=op, group=mesh.group)
+        dist.all_reduce(buf, op=op, group=group)
         part.copy_(buf)  # synchronous: the buffer is refilled next chunk
-        stats["staged_bytes"] += 2 * part.numel() * part.element_size()
-        stats["messages"] += 1
+        _count(axis, "all-reduce", 1, 2 * _nbytes(part), 2 * _nbytes(part))
     return t
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh, n: int) -> torch.Tensor:
-    """The full [n, ...] node axis from every rank's rows of it (contiguous
-    runs, `row_range`), on x's device."""
+    """The full [n, ...] node axis from every node shard's rows of it
+    (contiguous runs, `row_range`), on x's device."""
     E = n_data_nodes(mesh)
     ranges = [row_range(mesh, n, i) for i in range(E)]
     top = max(b - a for a, b in ranges)
     flat = x.reshape(x.shape[0], -1)
     d = flat.shape[1]
     full = flat.new_empty((n, d))
-    padded = flat.new_zeros((top, d))
-    padded[:flat.shape[0]] = flat
-    cuda = _staged(mesh, x)
-    for c0, c1 in column_chunks(d, top, x.element_size()):
+    elem = x.element_size()
+    meta = x.device.type == "meta"
+    group = axis_group(mesh, "data")
+    cuda = meta or _staged(group, x)
+    padded = None if meta else flat.new_zeros((top, d))
+    if padded is not None:
+        padded[:flat.shape[0]] = flat
+    for c0, c1 in column_chunks(d, top, elem):
+        wire = (top + n) * (c1 - c0) * elem
+        if meta:
+            _count("data", "all-gather", 1, wire, wire)
+            continue
         part = padded[:, c0:c1].contiguous()
         if cuda:
-            src = _view(_buffer("send", 0, part.numel() *
-                                part.element_size()), part)
+            src = _view(_buffer("send", 0, _nbytes(part)), part)
             src.copy_(part)
-            stats["staged_bytes"] += part.numel() * part.element_size()
         else:
             src = part
         outs = [torch.empty_like(src) for _ in range(E)]
-        dist.all_gather(outs, src, group=mesh.group)
-        stats["messages"] += 1
-        stats["wire_bytes"] += part.numel() * part.element_size() + sum(
-            (b - a) * o.shape[1] * o.element_size()
-            for (a, b), o in zip(ranges, outs))
+        dist.all_gather(outs, src, group=group)
+        _count("data", "all-gather", 1, wire, wire if cuda else 0)
         for (a, b), o in zip(ranges, outs):
             full[a:b, c0:c1].copy_(o[:b - a])
-            if cuda:
-                stats["staged_bytes"] += (b - a) * o.shape[1] * o.element_size()
     return full.reshape(n, *x.shape[1:])
 
 
+def all_gather_dim(t: torch.Tensor, mesh: Mesh, dim: int,
+                   axis: str = "data") -> torch.Tensor:
+    """The blocks of every rank of this rank's `axis` group, joined along
+    `dim` in the group's order (the ZeRO-1 all-gather of a parameter: its
+    data-axis blocks; a model-split leaf's blocks). Returns `t` where the
+    axis has one rank."""
+    E = axis_extent(mesh, axis)
+    if E == 1:
+        return t
+    flat = t.reshape(-1)
+    n = flat.numel()
+    out = t.new_empty((E, n))
+    elem = t.element_size()
+    meta = t.device.type == "meta"
+    group = axis_group(mesh, axis)
+    cuda = meta or _staged(group, t)
+    for c0, c1 in column_chunks(n, E, elem):
+        wire = (1 + E) * (c1 - c0) * elem  # the block out, E blocks in
+        if meta:
+            _count(axis, "all-gather", 1, wire, wire)
+            continue
+        part = flat[c0:c1]
+        if cuda:
+            src = _view(_buffer("send", 0, _nbytes(part)), part)
+            src.copy_(part)
+            dst = _view(_buffer("recv", 0, E * _nbytes(part)),
+                        out[:, c0:c1])
+        else:
+            src, dst = part.contiguous(), out.new_empty((E, c1 - c0))
+        dist.all_gather(list(dst.unbind(0)), src, group=group)
+        out[:, c0:c1].copy_(dst)
+        _count(axis, "all-gather", 1, wire, wire if cuda else 0)
+    shape = list(t.shape)
+    full = out.reshape(E, *shape).movedim(0, dim)
+    shape[dim] *= E
+    return full.reshape(shape)
+
+
+def reduce_scatter_dim(t: torch.Tensor, mesh: Mesh, dim: int,
+                       axis: str = "data") -> torch.Tensor:
+    """This rank's block (the group's order, along `dim`) of the sum of
+    every rank of its `axis` group's `t`: the ZeRO-1 reduce-scatter of a
+    gradient. An all-to-all sends block j to rank j, and each rank sums the
+    blocks it receives in the group's order. Returns `t` where the axis has
+    one rank."""
+    E = axis_extent(mesh, axis)
+    if E == 1:
+        return t
+    shape = list(t.shape)
+    if shape[dim] % E:
+        raise ValueError(f"dim {dim} of {tuple(shape)} does not split over "
+                         f"{E} ranks")
+    shape[dim] //= E
+    blocks = t.reshape(*shape[:dim], E, *shape[dim:]).movedim(dim, 0)
+    rows = blocks.reshape(E, -1)
+    n = rows.shape[1]
+    out = t.new_empty(n)
+    elem = t.element_size()
+    meta = t.device.type == "meta"
+    group = axis_group(mesh, axis)
+    cuda = meta or _staged(group, t)
+    for c0, c1 in column_chunks(n, E, elem):
+        wire = 2 * E * (c1 - c0) * elem  # E blocks out, E in
+        if meta:
+            _count(axis, "reduce-scatter", 1, wire, wire)
+            continue
+        if cuda:
+            src = _view(_buffer("send", 0, E * (c1 - c0) * elem),
+                        rows[:, c0:c1])
+            src.copy_(rows[:, c0:c1])
+            dst = _view(_buffer("recv", 0, E * (c1 - c0) * elem), src)
+        else:
+            src = rows[:, c0:c1].contiguous()
+            dst = torch.empty_like(src)
+        dist.all_to_all_single(dst, src, group=group)
+        out[c0:c1] = dst.to(t.device).sum(0)
+        _count(axis, "reduce-scatter", 1, wire, wire if cuda else 0)
+    return out.reshape(shape)
+
+
 def broadcast_object(obj, mesh: Mesh, src: int = 0):
-    """`obj` as node shard `src` holds it, on every rank."""
+    """`obj` as rank `src` of the mesh holds it, on every rank."""
     box = [obj]
-    dist.broadcast_object_list(box, src=_peer(mesh, src), group=mesh.group)
+    root = src if mesh.group is None else dist.get_global_rank(mesh.group,
+                                                               src)
+    dist.broadcast_object_list(box, src=root, group=mesh.group)
     stats["messages"] += 1
     return box[0]

@@ -319,7 +319,10 @@ def _halo(h: torch.Tensor, ru: int, rd: int, mesh,
           n_local: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """The `ru` rows preceding this shard and the `rd` rows following it,
     from ring neighbours: one whole-tile hop per n_local rows of reach, all
-    hops of both directions posted in one exchange."""
+    hops of both directions posted in one exchange. The neighbours are the
+    node shards' ranks at this rank's model index (`dist.exchange`), so
+    over a model axis each model index mixes its own columns inside its
+    data group."""
     E, i = rdist.n_data_nodes(mesh), rdist.node_index(mesh)
     up: List[torch.Tensor] = []
     down: List[torch.Tensor] = []

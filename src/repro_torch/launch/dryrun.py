@@ -25,18 +25,27 @@ parameters and optimizer state whole on each rank in the exact mode (the
 port keeps replicas), this rank's rows of the node axis in the
 decentralized mode, and the batch and cache split over the data axes. The
 argument bytes are those of the planned placements (ZeRO-1 and the model
-axis included), and the temporaries those of the trace: on a model axis of
-extent above 1, which the trace cannot split, `temp_gib` is the unsplit
-upper bound and the record says so (`temp_unsplit_over_model`).
+axis included).
 
-Collectives are derived, not traced: what `dist.py` moves on each rank for
-the step on the node axis (the exact mode's f32 gradient all-reduce; the
-gossip mode's R rounds of halo rows to both neighbours, then the consensus
-error's reductions; the metrics' reduction), under the reference's kind
-names, counted as messages the way `dist.stats` counts them. On a model
-axis of extent above 1 the two activation all-reduces per layer forward
-of a Megatron split of the placements are planned (`collectives_planned`),
-not executed.
+On a model axis of extent above 1 the train step of the dense family is
+traced as each rank runs it (`train/trainer.py`): the rank's blocks of the
+state at rest (ZeRO-1 in the exact mode, the model shards of its node rows
+in the decentralized one), its tensor-parallel layers, and every message
+of both axes through `dist.py`, whose collectives are shape-only no-ops on
+meta that count what they would move on the card (`dist.log`); the record
+carries those counts (`collectives`, the model axis's apart in
+`collectives_model`). Every other step on a model axis (the families and
+wires the trainer refuses there, and serving) keeps the model axis
+planned, not executed: its temporaries are the unsplit upper bound
+(`temp_unsplit_over_model`), the Megatron split's activation all-reduces
+are planned (`collectives_planned`), and `model_axis_refused` says why.
+
+On the node axis alone collectives are derived: what `dist.py` moves on
+each rank for the step (the exact mode's f32 gradient all-reduce; the
+gossip mode's R rounds of halo rows to both neighbours, then the
+consensus error's reductions; the metrics' reduction), under the
+reference's kind names, counted as messages the way `dist.stats` counts
+them.
 """
 from __future__ import annotations
 
@@ -229,12 +238,14 @@ def _data_only(spec) -> tuple:
     return tuple(keep(d) for d in spec)
 
 
-def _local_meta(tree: Tree, specs: Tree, mesh) -> Tree:
-    """Meta tensors of the blocks one rank holds over the data axes."""
+def _local_meta(tree: Tree, specs: Tree, mesh, model: bool = False) -> Tree:
+    """Meta tensors of the blocks one rank holds over the data axes (and
+    the model axis with `model`)."""
     def make(path, leaf, spec):
         if not isinstance(leaf, torch.Tensor):
             return leaf
-        shape = shlib.local_shape(tuple(leaf.shape), _data_only(spec), mesh)
+        shape = shlib.local_shape(tuple(leaf.shape),
+                                  spec if model else _data_only(spec), mesh)
         return torch.empty(shape, dtype=leaf.dtype, device=META)
     return shlib.map_with_path(make, tree, specs)
 
@@ -244,24 +255,6 @@ def _tokens_long(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     reference's int32)."""
     return {k: (torch.empty(v.shape, dtype=torch.long, device=META)
                 if v.dtype == torch.int32 else v) for k, v in batch.items()}
-
-
-def state_specs(state: trainer.TrainState, mesh, *,
-                node_axes: Optional[tuple] = None,
-                n_stacked: Optional[int] = None) -> trainer.TrainState:
-    """The reference's train-state placements (`repro.train.trainer.
-    _state_specs`): FSDP parameters and ZeRO-1 moments and masters in the
-    exact mode; the node axis over the data axes in the decentralized
-    mode."""
-    z = lambda tree: (shlib.zero1_specs(tree, mesh, node_axes=node_axes,
-                                        n_stacked=n_stacked)
-                      if tree != () else ())
-    pspec = z(state.params)
-    opt = state.opt
-    step = tuple(() for _ in opt.step) if isinstance(opt.step, tuple) else ()
-    return trainer.TrainState(pspec, opt._replace(
-        step=step, m=z(opt.m), v=z(opt.v), master=z(opt.master),
-        ef_residual=z(opt.ef_residual)))
 
 
 def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
@@ -298,28 +291,40 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
         state = trainer.init_state(run, MetaGenerator())
         batch = _tokens_long(registry.input_specs(cfg, shape))
         N = n_nodes or ndp
-        info.update(run=run, n_nodes=N)
+        refused = model_axis_refusal(run, mesh)
+        tp = mesh.shape.get("model", 1) > 1 and refused is None
+        info.update(run=run, n_nodes=N, refused=refused, executed=tp)
         if decentralized:
             if N % ndp:
                 raise ValueError(f"{N} nodes do not split evenly over the "
                                  f"data extent {ndp}")
             n_local = N // ndp
             full = trainer.replicate_for_nodes(state, N)
-            sspec = state_specs(full, mesh, node_axes=dp,
-                                n_stacked=n_stacked)
+            sspec = shlib.train_state_specs(full, mesh, node_axes=dp,
+                                            n_stacked=n_stacked)
             gbatch = trainer.make_node_batch(batch, N)
             bspec = shlib.batch_specs(gbatch, mesh, shape, node_axis=True)
-            tstate = trainer.replicate_for_nodes(state, n_local)
             tbatch = _local_meta(gbatch, bspec, mesh)
-            fn = trainer.build_train_step(run, None, n_nodes=n_local,
-                                          device=META)
+            if tp:
+                tstate = _local_meta(full, sspec, mesh, model=True)
+                fn = trainer.build_train_step(run, mesh, n_nodes=N,
+                                              device=META)
+            else:
+                tstate = trainer.replicate_for_nodes(state, n_local)
+                fn = trainer.build_train_step(run, None, n_nodes=n_local,
+                                              device=META)
         else:
             full = state
-            sspec = state_specs(full, mesh, n_stacked=n_stacked)
+            sspec = shlib.train_state_specs(full, mesh, n_stacked=n_stacked)
             bspec = shlib.batch_specs(batch, mesh, shape)
             gbatch = batch
-            tstate, tbatch = state, _local_meta(batch, bspec, mesh)
-            fn = trainer.build_train_step(run, None, device=META)
+            tbatch = _local_meta(batch, bspec, mesh)
+            if tp:
+                tstate = _local_meta(full, sspec, mesh, model=True)
+                fn = trainer.build_train_step(run, mesh, device=META)
+            else:
+                tstate = state
+                fn = trainer.build_train_step(run, None, device=META)
         return Lowerable(fn, (tstate, tbatch), (full, gbatch),
                          (sspec, bspec), info)
 
@@ -355,6 +360,19 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
 
     return Lowerable(decode_step, (params, tst), (params, st),
                      (pspec, sspec), info)
+
+
+def model_axis_refusal(run: RunConfig, mesh) -> Optional[str]:
+    """Why the trainer does not execute `run` over `mesh`'s model axis
+    (its NotImplementedError's message), or None where it does or the
+    mesh has no model axis."""
+    if mesh.shape.get("model", 1) <= 1:
+        return None
+    try:
+        trainer.check_supported(run, mesh)
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
 def _cache_len(cache) -> int:
@@ -471,16 +489,34 @@ def staged_bytes(coll: dict) -> float:
     return 2.0 * sum(coll.get(k, 0.0) for k in KINDS)
 
 
-def model_axis_collectives(info: dict) -> dict:
-    """The activation all-reduces that a Megatron split of the placements
-    over a model axis of extent above 1 needs: two per layer forward
-    (after the attention or mixer output projection, after the FFN down
-    projection) of this rank's [tokens, d_model] in bf16; training adds
-    the backward's two and remat's recomputed forward's two. Planned, not
-    executed."""
+def traced_collectives(log: dict, axis: Optional[str] = None) -> dict:
+    """The messages that a traced step sent (`dist.log`, over both axes
+    or `axis`): {kind: half the bytes it stages out and in (an
+    all-reduce's tensor once), kind + ".count": messages}."""
+    coll: dict = {}
+    for (ax, kind), (messages, wire) in sorted(log.items()):
+        if axis is None or ax == axis:
+            _add(coll, kind, wire / 2, messages)
+    return coll
+
+
+def model_axis_collectives(info: dict, log: Optional[dict] = None) -> dict:
+    """The model axis's messages of one step on a mesh whose model extent
+    is above 1. Where the trainer executes it (`log`: the trace's
+    `dist.log`), what the traced step sent over the model group: the
+    row splits' f32 all-reduces (each layer's two forward, the one remat
+    recomputes, the column splits' two backward), the vocab split's
+    (the embedding's, the loss's max and its sums, the unembedding's
+    backward) and the consensus error's. Elsewhere the two activation
+    all-reduces per layer forward that a Megatron split of the
+    placements needs, of this rank's [tokens, d_model] in bf16; training
+    adds the backward's two and remat's recomputed forward's two: planned,
+    not executed."""
     mesh, cfg, shape = info["mesh"], info["cfg"], info["shape"]
     if mesh.shape.get("model", 1) <= 1:
         return {}
+    if log is not None:
+        return traced_collectives(log, "model")
     ndp = rdist.n_data_nodes(mesh)
     B = shape.global_batch
     b_local = B if B < mesh.shape["data"] else -(-B // ndp)
@@ -509,8 +545,11 @@ def trace(low: Lowerable) -> dict:
     t0 = time.perf_counter()
     grad = (contextlib.nullcontext() if low.info["mode"] == "train"
             else torch.no_grad())
+    rdist.reset_stats()
     with grad, mode:
         out = low.fn(*low.args)
+    log = {k: list(v) for k, v in rdist.log.items()}
+    rdist.reset_stats()
     seconds = time.perf_counter() - t0
     alias_ids = set()
     new_out = 0
@@ -521,7 +560,7 @@ def trace(low: Lowerable) -> dict:
         else:
             new_out += t.untyped_storage().nbytes()
     return {"mode": mode, "alias_ids": alias_ids, "new_out": new_out,
-            "seconds": seconds}
+            "seconds": seconds, "log": log}
 
 
 def _alias_bytes(low: Lowerable, alias_ids: set) -> int:
@@ -589,11 +628,12 @@ def plan(arch: str, shape_name: str, mesh, *, averaging: str = "exact",
     low, tr = once(master)
     mem = _memory(low, tr)
     model = mesh.shape.get("model", 1)
-    if (shape.mode == "train" and master_weights is None and model == 1
+    if (shape.mode == "train" and master_weights is None
+            and (model == 1 or low.info["executed"])
             and mem["peak_gib"] * GIB > card):
         # f32 masters do not fit beside this model: bf16 weight updates
-        # (on a model axis the temporaries are an unsplit upper bound, too
-        # loose to decide by)
+        # (on a model axis that is only planned the temporaries are an
+        # unsplit upper bound, too loose to decide by)
         master = False
         low, tr = once(False)
         mem = _memory(low, tr)
@@ -604,14 +644,26 @@ def plan(arch: str, shape_name: str, mesh, *, averaging: str = "exact",
     rec["memory"] = mem
     rec["card_memory_gib"] = card / GIB
     rec["fits"] = mem["peak_gib"] * GIB <= card
-    rec["temp_unsplit_over_model"] = model > 1
+    executed = low.info.get("executed", False)
+    rec["temp_unsplit_over_model"] = model > 1 and not executed
     rec["cost"] = {"flops": mode.flops, "bytes": mode.bytes}
-    coll = (node_axis_collectives(low.info["run"], low.args[0].params,
-                                  mesh, low.info["n_nodes"])
-            if shape.mode == "train" else {})
+    if executed:
+        coll = traced_collectives(tr["log"])
+    elif shape.mode == "train":
+        coll = node_axis_collectives(low.info["run"], low.args[0].params,
+                                     mesh, low.info["n_nodes"])
+    else:
+        coll = {}
     coll["hbm_bytes_est"] = mode.hbm_bytes_est
     rec["collectives"] = coll
-    planned = model_axis_collectives(low.info)
+    if executed:
+        rec["collectives_model"] = model_axis_collectives(low.info,
+                                                          tr["log"])
+    elif model > 1:
+        rec["model_axis_refused"] = (low.info.get("refused")
+                                     or "serving on a model axis is "
+                                        "planned, not executed")
+    planned = {} if executed else model_axis_collectives(low.info)
     if shape.mode == "train":
         for k, v in planned_hierarchical(low.info,
                                          low.args[0].params).items():

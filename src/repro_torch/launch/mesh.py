@@ -7,13 +7,13 @@ which the kernels and the trainer use; this module builds a mesh over an
 initialised group and re-exports the reference's `data_axes` and
 `n_data_nodes`.
 
-A model axis of extent above 1 (tensor-parallel and ZeRO-1 layouts) is
-planned, not executed: `abstract_mesh` names any grid, the reference's
-16 x 16 and 2 x 16 x 16 production meshes included, for the planner
-(`launch/sharding.py`, `launch/dryrun.py`), which reads only its shape and
-axis names; every constructor over a process group refuses a model extent
-above 1 with NotImplementedError (`check_mesh`), as do the trainer and the
-driver.
+Over a model axis of extent above 1, `make_mesh` also builds the model
+and data subgroups (`repro_torch.dist`), on which the LM trainer executes
+its tensor-parallel and ZeRO-1 layouts. `abstract_mesh` names any grid,
+the reference's 16 x 16 and 2 x 16 x 16 production meshes included, for
+the planner (`launch/sharding.py`, `launch/dryrun.py`), which reads only
+its shape and axis names and traces on the meta device, where every
+collective is a shape-only no-op.
 
 Constructors are functions, so importing this module never touches
 `torch.distributed` state: `make_mesh` and friends need an initialised
@@ -27,7 +27,7 @@ from typing import Tuple
 import torch.distributed as dist
 
 # data_axes and n_data_nodes are the reference's names in this module
-from repro_torch.dist import Mesh, check_mesh, data_axes, n_data_nodes
+from repro_torch.dist import Mesh, data_axes, n_data_nodes
 
 
 def _world(group=None) -> Tuple[int, int]:
@@ -39,8 +39,9 @@ def _world(group=None) -> Tuple[int, int]:
 def make_mesh(shape: tuple, axes: tuple, *, group=None) -> Mesh:
     """A mesh of `shape` over the ranks of `group` (None: the default group,
     or this one process when none is initialised). Raises unless the shape
-    covers every rank, and (NotImplementedError) on a model extent above
-    1."""
+    covers every rank. With a model extent above 1 it builds the model and
+    data subgroups (`dist.new_group`, which every rank of the default group
+    enters, in the same order: call it on every rank)."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
@@ -49,16 +50,28 @@ def make_mesh(shape: tuple, axes: tuple, *, group=None) -> Mesh:
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
                          f"{math.prod(shape)} ranks; the process group has "
                          f"{world}")
-    mesh = Mesh(shape, axes, rank, group)
-    check_mesh(mesh)
-    return mesh
+    model = dict(zip(axes, shape)).get("model", 1)
+    if model == 1:
+        return Mesh(shape, axes, rank, group)
+    ranks = [r if group is None else dist.get_global_rank(group, r)
+             for r in range(world)]
+    shards = world // model
+    model_groups = [dist.new_group([ranks[i * model + j]
+                                    for j in range(model)])
+                    for i in range(shards)]
+    data_groups = [dist.new_group([ranks[i * model + j]
+                                   for i in range(shards)])
+                   for j in range(model)]
+    return Mesh(shape, axes, rank, group, model_groups[rank // model],
+                data_groups[rank % model])
 
 
 def abstract_mesh(shape: tuple, axes: tuple) -> Mesh:
     """A mesh of `shape` over `axes` that no process group backs, for
     planning: the sharding rules and the dry-run read its `.shape` and
     `.axis_names`, and nothing executes on it. A model extent above 1 is
-    allowed here (planned, not executed)."""
+    allowed here: the planner traces on the meta device, where the
+    collectives are no-ops."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
@@ -75,8 +88,8 @@ def production_shape(multi_pod: bool = False) -> Tuple[tuple, tuple]:
 def make_production_mesh(*, multi_pod: bool = False, group=None) -> Mesh:
     """The reference's production mesh: data 16 x model 16, or pod 2 x data
     16 x model 16. It needs 256 (512) ranks, as the reference needs that
-    many devices, and its model axis is planned, not executed (the
-    planner takes `abstract_mesh(*production_shape(...))`)."""
+    many devices (the planner takes `abstract_mesh(*production_shape(...))`
+    without them)."""
     return make_mesh(*production_shape(multi_pod), group=group)
 
 

@@ -7,9 +7,11 @@ name, or a tuple of axis names (the dim split over their product): the
 port's form of the reference's `PartitionSpec`. The rules read only a
 mesh's `.shape` (axis name -> extent) and `.axis_names`, so they plan
 meshes that no process group backs (`launch/mesh.py` `abstract_mesh`).
-Nothing here executes a split: the planner (`launch/dryrun.py`) turns the
-placements into the block of each leaf that one rank holds (`local_shape`,
-`local_bytes`).
+The planner (`launch/dryrun.py`) turns the placements into the block of
+each leaf that one rank holds (`local_shape`, `local_bytes`); on a mesh
+over a process group `shard_tree` cuts those blocks out of whole leaves
+(the trainer's state at rest, `train/trainer.py`) and `gather_tree` joins
+them again.
 
 Layout: the port keeps one parameter dict per layer (`models/transformer.py`)
 where the reference stacks the layers of each period position into one
@@ -214,6 +216,22 @@ def zero1_specs(params: Tree, mesh, *,
     return map_with_path(add_dp, params, base)
 
 
+def train_state_specs(state, mesh, *, node_axes: Optional[Tuple[str, ...]] = None,
+                      n_stacked: Optional[int] = None):
+    """The reference's train-state placements (`repro.train.trainer.
+    _state_specs`) of a `train.trainer.TrainState` of whole leaves: FSDP
+    parameters and ZeRO-1 moments and masters in the exact mode; the node
+    axis over `node_axes` in the decentralized mode."""
+    z = lambda tree: (zero1_specs(tree, mesh, node_axes=node_axes,
+                                  n_stacked=n_stacked)
+                      if tree != () else ())
+    opt = state.opt
+    step = tuple(() for _ in opt.step) if isinstance(opt.step, tuple) else ()
+    return type(state)(z(state.params), opt._replace(
+        step=step, m=z(opt.m), v=z(opt.v), master=z(opt.master),
+        ef_residual=z(opt.ef_residual)))
+
+
 def activation_rules(mesh, shape: ShapeConfig,
                      node_axis: bool = False) -> Dict[str, Placement]:
     """The reference's logical activation rules (its `pshard` names). The
@@ -348,3 +366,68 @@ def local_bytes(tree: Tree, specs: Tree, mesh) -> int:
 
     map_with_path(add, tree, specs)
     return total[0]
+
+
+def leaf_specs(tree: Tree, specs: Tree) -> list:
+    """The placements of `tree`'s tensors, in packing order
+    (`core.packing.tree_leaves`: dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaf_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t, sp in zip(tree, specs) for x in leaf_specs(t, sp)]
+    return [specs]
+
+
+def _axis_index(mesh, d) -> int:
+    """This rank's index along the axes of placement entry `d`
+    (row-major over them, as the mesh's ranks are)."""
+    coords, r = {}, mesh.rank
+    for a, size in reversed(tuple(zip(mesh.axis_names, mesh.sizes))):
+        coords[a] = r % size
+        r //= size
+    idx = 0
+    for a in (d if isinstance(d, tuple) else (d,)):
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
+
+
+def local_block(leaf, spec: Placement, mesh):
+    """This rank's block of a whole `leaf` placed by `spec` (a view): each
+    split dim's slice at the rank's index along its axes."""
+    for dim, d in enumerate(spec):
+        if d is None:
+            continue
+        n = _axis_size(mesh, d)
+        if leaf.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not "
+                             f"split over {d} ({n} ranks)")
+        size = leaf.shape[dim] // n
+        leaf = leaf.narrow(dim, _axis_index(mesh, d) * size, size)
+    return leaf
+
+
+def shard_tree(tree: Tree, specs: Tree, mesh) -> Tree:
+    """This rank's blocks of a tree of whole leaves (`local_block`), each a
+    copy of its own, so the whole tree can be freed."""
+    return map_with_path(
+        lambda path, leaf, spec: (local_block(leaf, spec, mesh).clone()
+                                  if hasattr(leaf, "shape") else leaf),
+        tree, specs)
+
+
+def gather_tree(tree: Tree, specs: Tree, mesh) -> Tree:
+    """The inverse of `shard_tree` on every rank: each split dim's blocks
+    all-gathered over its axis (the model group for the model axis, the
+    data group for the data axes)."""
+    from repro_torch.dist import all_gather_dim
+
+    def gather(path, leaf, spec):
+        if not hasattr(leaf, "shape"):
+            return leaf
+        for dim, d in enumerate(spec):
+            if d is not None:
+                leaf = all_gather_dim(leaf, mesh, dim,
+                                      "model" if d == M else "data")
+        return leaf
+
+    return map_with_path(gather, tree, specs)

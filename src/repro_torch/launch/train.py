@@ -38,9 +38,12 @@ step directory). The checkpoints are in the reference's layout.
 Under `torchrun` (WORLD_SIZE > 1) every rank runs this launcher: it joins
 the process group (gloo on the CPU and where ranks share one card, nccl
 where every rank has a card of its own), builds `make_host_mesh()` over
-the ranks (or the reference's production mesh with `--production-mesh`,
-which needs 256 ranks and a model axis: queue 1 item 3) and trains its
-rows of the node axis, one node per rank unless `--nodes` says otherwise:
+the ranks, as the reference's launcher does (or the reference's
+production mesh with `--production-mesh`, which needs 256 ranks; its model
+axis of 16 executes for a dense arch whose heads, KV heads, FFN width and
+vocab 16 divides, and granite-8b's 8 KV heads raise NotImplementedError)
+and trains its rows of the node axis, one node per rank unless `--nodes`
+says otherwise:
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --arch granite-8b --reduced --device cpu --steps 4 --superstep 2 \
       --averaging gossip --rounds 2
@@ -182,8 +185,9 @@ def _parser() -> argparse.ArgumentParser:
                     help="resume from this checkpoint root (newest valid "
                          "step) or a specific step_NNNNNNNN directory")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="the reference's 16x16 mesh (needs 256 ranks; its "
-                         "model axis is not ported yet)")
+                    help="the reference's 16x16 mesh (needs 256 ranks; "
+                         "its model axis of 16 executes for a dense arch "
+                         "whose heads, KV heads, FFN and vocab it splits)")
     ap.add_argument("--no-env-tuning", action="store_true",
                     help="skip the launcher perf hygiene (launch/env.py); "
                          "applied at import time, declared here for --help")
@@ -309,7 +313,9 @@ def _train(ap, args, distributed: bool) -> None:
                                      keep_last=args.keep_last,
                                      overhead_budget=args.checkpoint_budget)
 
-    state = init_state(run, torch.Generator(device=dev).manual_seed(run.seed))
+    # over a model axis, this rank's blocks of the state (`init_state`)
+    state = init_state(run, torch.Generator(device=dev).manual_seed(run.seed),
+                       mesh)
     if args.averaging != "exact":
         state = replicate_for_nodes(state, n_local(mesh, n_nodes))
     with StreamingDriver(run, mesh, state, sample_fn, engine=engine,

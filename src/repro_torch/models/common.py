@@ -1,23 +1,31 @@
 """Parameter initializers of the port's models, drawing from an explicit
 `torch.Generator` on the device where the parameters live, or from
 `MetaGenerator` for a shape-only init on the meta device (the planner's,
-`launch/dryrun.py`).
+`launch/dryrun.py`); and the executing mesh of a model axis.
 
-The reference's mesh-aware sharding constraints (`pshard`, `set_mesh_rules`,
-`mesh_rules`, `current_mesh`) are not ported: every tensor here lives whole
-on one device. A sharded node axis needs none of them (each rank holds its
-nodes' parameters whole, `repro_torch/dist.py`); they shard a model axis,
-which `launch/sharding.py` and `launch/dryrun.py` plan but nothing executes
-yet (ROADMAP.md queue 1). `stack_init` is not ported either: the port keeps
-one parameter dict per layer instead of stacked super-blocks
-(`models/transformer.py`).
+The reference's `mesh_rules` installs a mesh and its logical activation
+rules, and `pshard` constrains each named activation to its rule, for
+GSPMD to place. The port runs SPMD by hand: `mesh_rules(mesh)` installs
+the mesh whose model axis the layers execute, and each rank's parameters
+are its blocks (`launch/sharding.py` `shard_tree`), so an activation's
+placement follows from the weights it is computed with and no `pshard` is
+needed. Under an installed model axis the layers
+(`models/layers.py`) hold their heads, FFN columns and vocab rows of the
+rank's model index and cross the axis only through the Megatron pair
+below: `copy_to_model` where a replicated activation enters a column
+split, `reduce_from_model` where a row split's partial sums leave it.
+`stack_init` is not ported: the port keeps one parameter dict per layer
+instead of stacked super-blocks (`models/transformer.py`).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
+
+from repro_torch import dist as rdist
 
 
 class MetaGenerator:
@@ -52,3 +60,74 @@ def embed_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
 
 def ones_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return torch.ones(tuple(shape), dtype=dtype, device=gen.device)
+
+
+# ---------------------------------------------------------------------------
+# the executing model axis
+# ---------------------------------------------------------------------------
+
+_MESH = [None]  # the mesh `mesh_rules` installed, when its model axis > 1
+
+
+@contextlib.contextmanager
+def mesh_rules(mesh):
+    """Run the layers under `mesh`'s model axis (nothing changes on a mesh
+    without one, or with None); the previous mesh is restored on exit."""
+    prev = _MESH[0]
+    _MESH[0] = mesh if rdist.model_extent(mesh) > 1 else None
+    try:
+        yield
+    finally:
+        _MESH[0] = prev
+
+
+def current_mesh():
+    """The installed mesh with a model axis above 1, else None."""
+    return _MESH[0]
+
+
+def _model_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of x over the mesh's model group, in an f32 copy (each
+    rank's partial once, cast once by the caller)."""
+    return rdist.all_reduce_(x.to(torch.float32, memory_format=torch.
+                                  contiguous_format, copy=True),
+                             mesh, axis="model")
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over the model group
+    backward: a replicated activation that feeds a column split."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _model_sum(g, ctx.mesh).to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The sum over the model group forward, in f32; identity backward: a
+    row split's partial sums."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _model_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    mesh = current_mesh()
+    return x if mesh is None else _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """x summed over the model group, in f32 (x itself, in its dtype,
+    without a model axis)."""
+    mesh = current_mesh()
+    return x if mesh is None else _ReduceFromModel.apply(x, mesh)

@@ -11,6 +11,16 @@ cross-attention into its encoder memory) goes through
 backward); every other attention call, MLA's included, and every call of
 the training loss (`train=True`), is the plain, differentiable
 `blockwise_attention` below, where the reference runs jnp code too.
+
+Under a model axis (`models/common.py` `mesh_rules`) each rank holds its
+model index's blocks, in the Megatron split of the reference's placements
+(`launch/sharding.py` `_NAME_SPECS`): the column-split wq, wk, wv, w_gate
+and w_up give the rank's heads (KV heads alike, so a GQA group stays on
+its rank) and FFN columns; the row-split wo and w_down give partial sums,
+added over the model group in f32 and cast once; the vocab-parallel
+embedding holds the rank's vocab rows (`embed_lookup`, `unembed_logits`)
+and `cross_entropy` reduces its log-sum-exp and gold logit over the
+group.
 """
 from __future__ import annotations
 
@@ -19,10 +29,14 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed import ReduceOp
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import all_reduce_, model_index
 from repro_torch.kernels import ops
-from repro_torch.models.common import dense_init, ones_init
+from repro_torch.models.common import (copy_to_model, current_mesh,
+                                       dense_init, ones_init,
+                                       reduce_from_model)
 
 Params = Dict[str, Any]
 
@@ -259,7 +273,9 @@ def apply_attention(
     fresh whatever the cache, so it routes as a prefill does."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    H, KH = cfg.num_heads, cfg.num_kv_heads
+    # the rank's heads and KV heads (every head without a model axis)
+    H, KH = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    x = copy_to_model(x)
 
     q = (x @ p["wq"]).reshape(B, S, H, hd)
     if cross_kv is None:
@@ -284,7 +300,8 @@ def apply_attention(
     if (cache is not None and cfg.ring_buffer_cache and attn_mode == "window"
             and window and cache["k"].shape[1] <= window):
         out = _ring_attention(q, k, v, cache, cache_index, window=window)
-        return out.reshape(B, S, H * hd).to(p["wo"].dtype) @ p["wo"], cache
+        return _row_split(out.reshape(B, S, H * hd).to(p["wo"].dtype),
+                          p["wo"]), cache
     prefill = cache is None or (isinstance(cache_index, int)
                                 and cache_index == 0)
     if cache is not None:
@@ -313,8 +330,18 @@ def apply_attention(
     else:
         out = blockwise_attention(q, k, v, causal=causal, window=eff_window,
                                   chunk=eff_chunk)
-    out = out.reshape(B, S, H * hd).to(p["wo"].dtype) @ p["wo"]
+    out = _row_split(out.reshape(B, S, H * hd).to(p["wo"].dtype), p["wo"])
     return out, cache
+
+
+def _row_split(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h @ w, w row-split over an installed model axis: each rank's f32
+    partial product, summed over the model group and cast once (a bf16
+    partial per rank would round twice)."""
+    if current_mesh() is None:
+        return h @ w
+    out = reduce_from_model(h.float() @ w.float())
+    return out.to(torch.promote_types(h.dtype, w.dtype))
 
 
 def _ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -449,13 +476,28 @@ def apply_mla(
 
 
 def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return emb[tokens]
+    """The embeddings of `tokens`. Under a model axis emb holds the rank's
+    vocab rows: the tokens outside them take zeros, and the rows sum over
+    the model group (one rank holds each token's row)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return emb[tokens]
+    V = emb.shape[0]
+    local = tokens - model_index(mesh) * V
+    inside = (local >= 0) & (local < V)
+    rows = torch.where(inside[..., None], emb[local.clamp(0, V - 1)],
+                       torch.zeros((), dtype=emb.dtype, device=emb.device))
+    return reduce_from_model(rows).to(emb.dtype)
 
 
 def unembed_logits(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """logits = x @ emb^T with the vocab dim padded to a multiple of 16, as in
     the reference (which pads so the vocab shards evenly); padded entries
-    are NEG_INF so a softmax over them is exact."""
+    are NEG_INF so a softmax over them is exact. Under a model axis, the
+    rank's vocab columns (its rows of emb, which the split divides: no
+    padding)."""
+    if current_mesh() is not None:
+        return copy_to_model(x) @ emb.t()
     V = emb.shape[0]
     Vp = ((V + 15) // 16) * 16
     if Vp != V:
@@ -469,12 +511,51 @@ def unembed_logits(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean CE over positions with label >= 0, in f32 with the
     log-sum-exp. The gold score is a gather, where the reference contracts a
-    one-hot to keep its vocab axis sharded: the same number."""
+    one-hot to keep its vocab axis sharded: the same number. Under a model
+    axis the logits are the rank's vocab columns (`_VocabParallelCE`)."""
+    mesh = current_mesh()
+    if mesh is not None:
+        return _VocabParallelCE.apply(logits, labels, mesh)
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)
     gold = lf.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
     mask = (labels >= 0).float()
     return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """`cross_entropy` over vocab-split logits [..., V / m]: the max, then
+    the sum of exponentials and the gold logit (each rank's share: zero
+    where the label is not among its columns), all-reduced over the model
+    group in f32; the gradient is (softmax - one-hot) on the rank's
+    columns."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, mesh):
+        lf = logits.float()
+        V = lf.shape[-1]
+        m = all_reduce_(lf.amax(-1).contiguous(), mesh, ReduceOp.MAX,
+                        axis="model")
+        e = torch.exp(lf - m[..., None])
+        local = labels.long() - model_index(mesh) * V
+        inside = (local >= 0) & (local < V) & (labels >= 0)
+        local = local.clamp(0, V - 1)
+        gold = torch.where(inside, lf.gather(-1, local[..., None])[..., 0],
+                           torch.zeros((), device=lf.device))
+        sums = all_reduce_(torch.stack([e.sum(-1), gold]), mesh,
+                           axis="model")
+        mask = (labels >= 0).float()
+        weight = mask / mask.sum().clamp_min(1.0)
+        ctx.save_for_backward(e, sums[0], local, inside, weight)
+        ctx.dtype = logits.dtype
+        return ((m + torch.log(sums[0]) - sums[1]) * weight).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        e, sumexp, local, inside, weight = ctx.saved_tensors
+        p = e / sumexp[..., None]
+        p.scatter_add_(-1, local[..., None], -inside.float()[..., None])
+        return (p * (weight * g)[..., None]).to(ctx.dtype), None, None
 
 
 # ---------------------------------------------------------------------------
@@ -501,9 +582,11 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Under a model axis: the rank's FFN columns, then `_row_split`."""
+    x = copy_to_model(x)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = _gelu(x @ p["w_up"])
-    return h @ p["w_down"]
+    return _row_split(h, p["w_down"])

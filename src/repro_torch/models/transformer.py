@@ -18,6 +18,12 @@ or MoE FFNs (the layers' aux losses summed); the Mamba-2 SSD block
 caches are per-layer recurrent states; the early-fusion frontend
 projection of precomputed patch embeddings; and the training loss
 (`loss_fn`) with activation checkpointing per layer.
+
+Under an installed model axis (`models/common.py` `mesh_rules`) the
+forward and the loss run on the rank's blocks through the layers'
+tensor-parallel forms (`models/layers.py`): the dense family only, whose
+limits `check_model_axis` states; a checkpointed layer recomputes its
+forward, its two model-group reductions included, in the backward.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist import model_extent
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
@@ -89,6 +96,46 @@ def layer_specs(cfg: ModelConfig, window_override: int = 0) -> List[LayerSpec]:
     period repeated n times, then the tail."""
     period, n, tail = build_plan(cfg, window_override)
     return list(period) * n + list(tail)
+
+
+def check_model_axis(cfg: ModelConfig, mesh) -> None:
+    """Refuse, with NotImplementedError naming it, what the port does not
+    execute over `mesh`'s model axis: every family but the dense one
+    (MoE experts, MLA's wq_b / wkv_b, SSD, RG-LRU and encoder-decoder
+    leaves, early fusion's frontend_proj), and a split that does not
+    divide the heads, the KV heads (the reference then splits inside a
+    head), the FFN width or the vocab (the reference then falls back to
+    `_ALT_SPECS`)."""
+    m = model_extent(mesh)
+    if m == 1:
+        return
+    not_yet = "are not split over a model axis yet"
+    what = None
+    if cfg.is_encdec:
+        what = f"the encoder-decoder's leaves {not_yet}"
+    elif cfg.family == "ssm":
+        what = f"the SSD leaves {not_yet}"
+    elif cfg.rglru is not None:
+        what = f"the RG-LRU leaves {not_yet}"
+    elif cfg.mla is not None:
+        what = f"MLA's wq_b and wkv_b {not_yet}"
+    elif cfg.moe is not None:
+        what = f"MoE experts (we_gate, we_up, we_down) {not_yet}"
+    elif cfg.frontend_embed_dim:
+        what = f"early fusion's frontend_proj and its activations {not_yet}"
+    elif cfg.num_heads % m or cfg.num_kv_heads % m:
+        what = (f"it does not divide num_heads {cfg.num_heads} and "
+                f"num_kv_heads {cfg.num_kv_heads} (the reference then splits "
+                f"inside a head)")
+    elif cfg.d_ff % m:
+        what = f"it does not divide the FFN width {cfg.d_ff}"
+    elif cfg.vocab_size % m:
+        what = (f"it does not divide the vocab of {cfg.vocab_size} (the "
+                f"reference then falls back to _ALT_SPECS, the d_model dim)")
+    if what is not None:
+        raise NotImplementedError(
+            f"{cfg.name} on a model axis of extent {m}: {what} (ROADMAP.md "
+            f"queue 1 item 1)")
 
 
 # ---------------------------------------------------------------------------

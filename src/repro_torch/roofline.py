@@ -151,15 +151,18 @@ def _model_extent(rec: dict) -> int:
 def analyze(rec: dict, cfg: Optional[ModelConfig] = None,
             shape: Optional[ShapeConfig] = None) -> Roofline:
     """The three terms of a record, per rank: the trace's counts need no
-    trip scaling (it runs every layer); they are one data rank's share,
-    unsplit over a model axis, so the memory term takes the HBM estimate
-    split evenly over that axis (planned) and the trace's total FLOPs are
-    its count times the data extent. The compute term takes the analytic
+    trip scaling (it runs every layer); they are one rank's, except where
+    the model axis is only planned (`temp_unsplit_over_model`): there they
+    are one data rank's share, unsplit over the model axis, so the memory
+    term takes the HBM estimate split evenly over that axis and the
+    trace's total FLOPs are its count times the data extent. The compute term takes the analytic
     hardware FLOPs (the trace's own total is `useful_ratio`'s
     denominator), and the collective term the node-axis messages and the
     planned model-axis ones."""
     chips = _chips(rec)
-    model = _model_extent(rec)
+    # a trace of one rank's blocks where the model axis executes
+    model = (_model_extent(rec) if rec.get("temp_unsplit_over_model", True)
+             else 1)
     scale = rec.get("trips", {}).get("scale", 1)
     hbm = rec.get("collectives", {}).get("hbm_bytes_est", 0.0)
     bytes_dev = (hbm if hbm else rec["cost"]["bytes"] * scale) / model

@@ -100,7 +100,8 @@ from repro_torch.data.pipeline import (DevicePrefetcher, StreamCounters,
                                        StreamingPipeline, exact_split_error,
                                        shard_batch, stage_batch)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist import check_mesh, is_sharded, n_data_nodes
+from repro_torch.dist import (check_mesh, is_sharded, multi_rank,
+                              n_data_nodes)
 from repro_torch.train.trainer import (make_node_batch, publish_extract,
                                        superstep_builder as lm_superstep_builder)
 
@@ -202,8 +203,11 @@ class StreamingDriver:
     Without a `mesh` it drives one device with an explicit `n_nodes`. With
     one (`repro_torch.dist.Mesh`), every rank of its group runs the driver
     on its rows of the node axis; `n_nodes` defaults to `n_data_nodes(mesh)`
-    (one node per rank). `clock` is injectable so tests can fake slow
-    hardware and watch the governor raise mu.
+    (one node per rank). Over a model axis (the LM trainer's only: another
+    run config refuses one) the ranks of a model group take the same rows
+    and hold their blocks of them; every rank steps in lockstep on rank 0's
+    plan. `clock` is injectable so tests can fake slow hardware and watch
+    the governor raise mu.
     """
 
     def __init__(self, run_cfg, mesh, state: Any,
@@ -221,13 +225,14 @@ class StreamingDriver:
                  device: DeviceLike = None):
         if engine.superstep < 1:
             raise ValueError("superstep K must be >= 1")
-        if mesh is not None:
-            check_mesh(mesh)
+        if mesh is not None and getattr(run_cfg, "model", None) is None:
+            check_mesh(mesh, "a driver without an LM trainer")
         if n_nodes is None:
             if mesh is None:
                 raise ValueError("pass n_nodes when driving without a mesh")
             n_nodes = n_data_nodes(mesh)
-        self._sharded = is_sharded(mesh)
+        # the ranks of a split node axis or of a model axis step in lockstep
+        self._sharded = multi_rank(mesh)
         if self._sharded:
             for what, arg in (("elastic membership (faults)", faults),
                               ("publication", publisher),

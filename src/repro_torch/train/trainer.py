@@ -51,11 +51,25 @@ mesh's gossip op (the shard rules: halo rows between ranks,
 `core.mixing.CirculantMixOp(impl="shard")`). On the exact mode each rank
 keeps a replica of the parameters, takes the gradient of its share of the
 global batch and all-reduces the mean gradient (in f32), so every replica
-takes the same update; the reference's ZeRO-1 layout holds the same
-numbers in less memory and comes with the model axis (ROADMAP.md queue 1
-item 3). The metrics are means over all nodes. The hierarchical mode,
-error feedback and cohort supersteps on a sharded axis are not ported yet
-and raise.
+takes the same update (the reference's ZeRO-1 layout holds the same
+numbers in less memory: the port takes it with a model axis). The metrics
+are means over all nodes. The hierarchical mode, error feedback and cohort
+supersteps on a sharded axis are not ported yet and raise.
+
+Over a model axis of extent above 1 (the dense family,
+`models.transformer.check_model_axis`) every rank holds blocks of the
+reference's placements (`launch/sharding.py`), cut by `init_state`, and
+computes its loss and gradient under `models.common.mesh_rules`
+(tensor-parallel layers, a vocab-parallel loss). The exact mode is FSDP
+with ZeRO-1: at rest a rank holds its `zero1_specs` block of the
+parameters, f32 masters and moments; each step all-gathers its model
+shard's parameters over the data group, reduce-scatters the f32 gradient
+(the mean) back to its block (an all-reduce for a leaf that ZeRO-1 leaves
+whole over the data axes) and updates its block. The decentralized mode
+holds `param_specs` blocks of its node rows; each model index mixes its
+own columns over the node axis, leaf by leaf. The quantized and
+error-feedback wires are refused there: their statistic tiles run over
+the whole flattened leaf in the reference.
 """
 from __future__ import annotations
 
@@ -75,9 +89,12 @@ from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
 from repro_torch.core.quantize import STOCHASTIC
 from repro_torch.data.pipeline import exact_split_error
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist import check_mesh, is_sharded, n_data_nodes, n_local
+from repro_torch.dist import (is_sharded, model_extent, multi_rank,
+                              n_data_nodes, n_local)
+from repro_torch.launch import sharding as shlib
 from repro_torch.models import registry
-from repro_torch.models.transformer import build_plan
+from repro_torch.models.common import MetaGenerator, mesh_rules
+from repro_torch.models.transformer import build_plan, check_model_axis
 from repro_torch.optim import OptState, init_optimizer, make_optimizer
 
 Tree = Any
@@ -88,9 +105,23 @@ class TrainState(NamedTuple):
     opt: OptState
 
 
-def _check_supported(run, mesh) -> None:
-    if mesh is not None:
-        check_mesh(mesh)
+def check_supported(run, mesh) -> None:
+    """Raise on what the trainer does not run over `mesh`: a model axis
+    beyond `check_model_axis`, or with a quantized or error-feedback wire;
+    hierarchical averaging and error feedback on a sharded node axis; and
+    error feedback outside the gossip mode (ValueError, as the
+    reference)."""
+    avg = run.averaging
+    if model_extent(mesh) > 1:
+        check_model_axis(run.model, mesh)
+    if model_extent(mesh) > 1 and (avg.quantization != "none"
+                                   or avg.error_feedback != "off"):
+        wire = (f"the {avg.quantization} wire"
+                if avg.quantization != "none" else "error feedback")
+        raise NotImplementedError(
+            f"{wire} on a model axis: its [n, block_d] statistic tiles run "
+            f"over the whole flattened leaf, which a column shard does not "
+            f"hold (ROADMAP.md queue 1 item 1)")
     check_sharded_mode(run.averaging, mesh)
     if is_sharded(mesh) and run.averaging.error_feedback != "off":
         raise NotImplementedError("error feedback on a sharded node axis is "
@@ -102,19 +133,48 @@ def _check_supported(run, mesh) -> None:
                          f"{run.averaging.mode!r})")
 
 
-def init_state(run, gen: torch.Generator) -> TrainState:
+def init_state(run, gen: torch.Generator, mesh=None) -> TrainState:
     """Parameters drawn from `gen` (on its device) and the optimizer state:
     f32 masters when the parameters are not f32 and `run.master_weights`;
     moments f32; error-feedback residuals (zero, the gradient dtype) when
-    `run.averaging.error_feedback` is on in gossip mode."""
+    `run.averaging.error_feedback` is on in gossip mode. Over `mesh`'s
+    model axis, this rank's blocks (`rest_specs`): the parameters are drawn
+    whole, as one process draws them, and cut before the optimizer state
+    is made on the blocks."""
     dtype = getattr(torch, run.param_dtype)
     params = registry.init_params(gen, run.model, dtype)
+    if model_extent(mesh) > 1:
+        check_supported(run, mesh)
+        params = shlib.shard_tree(params, rest_specs(
+            run.model, mesh, run.averaging.mode == "exact"), mesh)
     use_master = run.master_weights and dtype != torch.float32
     use_ef = (run.averaging.error_feedback != "off"
               and run.averaging.mode == "gossip")
     return TrainState(params, init_optimizer(run.optimizer, params,
                                              master_weights=use_master,
                                              error_feedback=use_ef))
+
+
+def state_specs(cfg, mesh) -> Tuple[Tree, Tree, Tree]:
+    """(shape-only parameters, their param_specs, their zero1_specs) of
+    `cfg` on `mesh`, without a node axis."""
+    meta = registry.init_params(MetaGenerator(), cfg)
+    return (meta, shlib.param_specs(meta, mesh),
+            shlib.zero1_specs(meta, mesh,
+                              n_stacked=shlib.stacked_layers(cfg)))
+
+
+def rest_specs(cfg, mesh, exact: bool, node_axis: bool = False) -> Tree:
+    """The placements of a rank's parameters (and optimizer trees) at
+    rest: the exact mode's ZeRO-1 blocks, the decentralized modes' model
+    shards (after the node axis with `node_axis`)."""
+    meta, pspec, zspec = state_specs(cfg, mesh)
+    if exact:
+        return zspec
+    if node_axis:
+        return shlib.map_with_path(lambda _, leaf, sp: (None,) + tuple(sp),
+                                   meta, pspec)
+    return pspec
 
 
 def replicate_for_nodes(state: TrainState, n_nodes: int) -> TrainState:
@@ -129,7 +189,8 @@ def replicate_for_nodes(state: TrainState, n_nodes: int) -> TrainState:
         ef_residual=tree_map(rep, opt.ef_residual)))
 
 
-def publish_extract(n_nodes: Optional[int] = None) -> Callable:
+def publish_extract(n_nodes: Optional[int] = None, *, run=None,
+                    mesh=None) -> Callable:
     """Extract fn for `serve.publisher.SnapshotPublisher`: map the live
     state to the params a serving replica should load, in the port's own
     parameter structure (`ContinuousBatchingEngine.poll` serves it as it
@@ -143,10 +204,21 @@ def publish_extract(n_nodes: Optional[int] = None) -> Callable:
     dropped nodes' stale rows never reach the served weights. The mean
     accumulates in f32 and is cast to the leaf's dtype, as the reference's
     `tensordot(w_f32, p).astype(p.dtype)`; it runs leaf by leaf and node by
-    node, so its f32 temporary is one node's row of one leaf."""
+    node, so its f32 temporary is one node's row of one leaf.
+
+    Over `mesh`'s model axis (with the `run` that placed the state) the
+    rank's blocks are first gathered into whole leaves, over the model
+    group (and the exact mode's data group): every rank then publishes the
+    same parameters."""
+    spec = (rest_specs(run.model, mesh, run.averaging.mode == "exact",
+                       node_axis=n_nodes is not None)
+            if model_extent(mesh) > 1 else None)
+
     @torch.no_grad()
     def extract(state, mask=None):
         params = state.params if hasattr(state, "params") else state
+        if spec is not None:
+            params = shlib.gather_tree(params, spec, mesh)
         if n_nodes is None or mask is None:
             return params
         w = mask.float() / mask.float().sum()
@@ -265,9 +337,11 @@ def build_train_step(run, mesh=None, *, n_nodes: Optional[int] = None,
     refuses one. The state's tensors are updated in place and returned in
     the new state; metrics are 0-dim tensors on the device ({"ce", "aux",
     "loss", "consensus_err"}, plus "ef_norm" and "ef_rel" with error
-    feedback)."""
-    _check_supported(run, mesh)
-    mesh = mesh if is_sharded(mesh) else None
+    feedback). Over a model axis the state is this rank's blocks
+    (`init_state`), the batch its node shard's part, and the metrics are
+    the same on the ranks of a model group."""
+    check_supported(run, mesh)
+    mesh = mesh if multi_rank(mesh) else None
     if run.averaging.mode == "exact":
         return _build_exact_step(run, device, mesh)
     n = n_nodes or (n_data_nodes(mesh) if mesh is not None else 1)
@@ -282,41 +356,64 @@ def _build_exact_step(run, device: DeviceLike, mesh=None) -> Callable:
                             weight_decay=run.weight_decay)
 
     # every rank holds an equal share of the batch (`shard_batch` refuses
-    # an uneven split), so the mean of the ranks' means is the batch mean
+    # an uneven split), so the mean of the node shards' means is the batch
+    # mean
     E = n_data_nodes(mesh) if mesh is not None else 1
+    zero1 = model_extent(mesh) > 1
+    if zero1:
+        # per leaf (packing order): the dim ZeRO-1 puts the data axes on,
+        # or None where it leaves the leaf whole over them
+        meta, pspec, zspec = state_specs(run.model, mesh)
+        zdims = [next((i for i, (a, b) in enumerate(zip(ps, zs)) if a != b),
+                      None)
+                 for ps, zs in zip(shlib.leaf_specs(meta, pspec),
+                                   shlib.leaf_specs(meta, zspec))]
 
-    def all_reduce_mean(grads: Tree) -> Tree:
+    def gather(params: Tree) -> Tree:
+        """The model shard's parameters from the ZeRO-1 blocks."""
+        return _rebuild(params, [
+            p if zd is None else rdist.all_gather_dim(p, mesh, zd)
+            for p, zd in zip(tree_leaves(params), zdims)])
+
+    def reduce_mean(grads: Tree) -> Tree:
         """Each rank's gradient of its share of the batch -> the mean over
-        ranks, reduced in f32 and cast back, leaf by leaf."""
-        def mean(g):
+        the node shards, reduced in f32 and cast back, leaf by leaf: with
+        ZeRO-1, reduce-scattered to the rank's block."""
+        out = []
+        for i, g in enumerate(tree_leaves(grads)):
             g32 = g.float().contiguous()
-            rdist.all_reduce_(g32, mesh).div_(E)
-            return g32.to(g.dtype)
-        return tree_map(mean, grads)
+            if zero1 and zdims[i] is not None:
+                g32 = rdist.reduce_scatter_dim(g32, mesh, zdims[i])
+            else:
+                rdist.all_reduce_(g32, mesh)
+            out.append(g32.div_(E).to(g.dtype))
+        return _rebuild(grads, out)
 
     def train_step(state: TrainState, batch):
+        params = gather(state.params) if zero1 else state.params
         mb = run.microbatches
-        if mb > 1:
-            # gradient accumulation: the local mini-batch in `mb`
-            # sequential slices (paper Section II-C, compute-limited)
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device),
-                state.params)
-            loss = torch.zeros((), device=dev)
-            metrics = {"ce": torch.zeros((), device=dev),
-                       "aux": torch.zeros((), device=dev)}
-            for j in range(mb):
-                l, m, g = loss_and_grad(run, state.params,
-                                         _split(batch, mb, j))
-                for acc, gj in zip(tree_leaves(grads), tree_leaves(g)):
-                    acc.add_(gj.float() / mb)
-                del g
-                loss = loss + l / mb
-                metrics = {k: metrics[k] + m[k] / mb for k in metrics}
-        else:
-            loss, metrics, grads = loss_and_grad(run, state.params, batch)
+        with mesh_rules(mesh):
+            if mb > 1:
+                # gradient accumulation: the local mini-batch in `mb`
+                # sequential slices (paper Section II-C, compute-limited)
+                grads = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+                loss = torch.zeros((), device=dev)
+                metrics = {"ce": torch.zeros((), device=dev),
+                           "aux": torch.zeros((), device=dev)}
+                for j in range(mb):
+                    l, m, g = loss_and_grad(run, params,
+                                             _split(batch, mb, j))
+                    for acc, gj in zip(tree_leaves(grads), tree_leaves(g)):
+                        acc.add_(gj.float() / mb)
+                    del g
+                    loss = loss + l / mb
+                    metrics = {k: metrics[k] + m[k] / mb for k in metrics}
+            else:
+                loss, metrics, grads = loss_and_grad(run, params, batch)
+        del params
         if mesh is not None:
-            grads = all_reduce_mean(grads)
+            grads = reduce_mean(grads)
             loss, ce, aux = _mean_over_ranks(
                 [loss, metrics["ce"], metrics["aux"]], mesh, 1.0 / E)
             metrics = {"ce": ce, "aux": aux}
@@ -354,6 +451,12 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
                          "configs keep their static per-round operator")
     stochastic = avg.quantization in STOCHASTIC
     pools: List[Optional[tuple]] = [None]  # from the first state's tree
+    # per leaf (packing order): whether the model axis splits it
+    model_split = None
+    if model_extent(mesh) > 1:
+        meta, pspec, _ = state_specs(run.model, mesh)
+        model_split = tuple(shlib.M in sp
+                            for sp in shlib.leaf_specs(meta, pspec))
 
     def step(state: TrainState, batch, ids: Tuple[int, ...],
              idx: Optional[torch.Tensor]):
@@ -366,8 +469,9 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
                          params)
         losses, node_metrics = [], []
         for j, i in enumerate(ids):
-            l, m, g = loss_and_grad(run, tree_map(lambda p: p[i], params),
-                                     {k: v[j] for k, v in batch.items()})
+            with mesh_rules(mesh):
+                l, m, g = loss_and_grad(run, tree_map(lambda p: p[i], params),
+                                         {k: v[j] for k, v in batch.items()})
             for buf, gi in zip(tree_leaves(grads), tree_leaves(g)):
                 buf[j].copy_(gi)
             del g
@@ -401,7 +505,8 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
         else:
             mixed, cerr = average_and_error(grads, avg, n_nodes=n_nodes,
                                             pods=pods, mix=mix, key=key, t=t,
-                                            pools=pools[0], mesh=mesh)
+                                            pools=pools[0], mesh=mesh,
+                                            model_split=model_split)
         del grads  # the unpacked gradients; `mixed` views the mixed buffer
         # the update is elementwise: run it in place on row views of each
         # contiguous run of nodes at one step (the whole leaves while every
@@ -472,7 +577,7 @@ def build_cohort_superstep(run, n_active: int, *,
     recomposed over the cohort, and leaves the others as they are. Marked
     `takes_ids`, so `train.driver.elastic_superstep` hands it the full
     state."""
-    _check_supported(run, None)
+    check_supported(run, None)
     dev = resolve_device(device)
     step = _build_node_step(run, n_active, None, dev)
     ef_on = run.averaging.error_feedback != "off"
@@ -504,7 +609,7 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
     only the full membership is built: churn on a sharded node axis is not
     ported yet (ROADMAP.md); and in the exact mode a B that does not split
     evenly over the ranks raises."""
-    _check_supported(run, mesh)
+    check_supported(run, mesh)
     n_full = n_nodes or (n_data_nodes(mesh) if mesh is not None else 1)
     cohort_cache: Dict[int, Callable] = {}
 
@@ -515,7 +620,7 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
                 raise ValueError(f"exact mode on a sharded node axis: {why}")
         m = n_full if membership is None else membership.n_active
         fn = cohort_cache.get(m)
-        if fn is None and m != n_full and is_sharded(mesh):
+        if fn is None and m != n_full and multi_rank(mesh):
             raise NotImplementedError(
                 "elastic membership on a sharded node axis is not ported "
                 "yet (ROADMAP.md)")

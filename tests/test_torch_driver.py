@@ -312,8 +312,9 @@ def _takes_effect(name, value):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    # a mesh with a model axis: the sharded model layouts wait for queue 1
-    # item 3 (a node-only mesh drives: tests/test_torch_shard.py)
+    # a mesh with a model axis under a driver without an LM trainer: the
+    # sharded model layouts execute in the LM trainer only (queue 1 item 1;
+    # a node-only mesh drives: tests/test_torch_shard.py)
     ({"mesh": Mesh((1, 2), ("data", "model"))}, "sharded"),
     # elastic membership (faults, a straggler policy) needs gossip averaging
     ({"faults": FaultSchedule.parse("death:1@1", 2)}, "elastic"),
@@ -332,7 +333,8 @@ def _takes_effect(name, value):
 ])
 def test_driver_later_slices_raise(kwargs, match, tmp_path):
     """Later slices raise NotImplementedError naming theirs (a mesh with a
-    model axis: the sharded model layouts of queue 1 item 3); the elastic
+    model axis under the PCA path: the sharded model layouts execute in
+    the LM trainer only, queue 1 item 1); the elastic
     slice's configurations that the reference refuses raise its
     ValueError. The serving and durability arguments (`publisher`,
     `snapshotter`, `resume_from`), refused until their slice, are built

@@ -280,6 +280,53 @@ def test_model_axis_is_planned_not_executed():
         t.numel() for t in leaves) + 12
 
 
+def test_model_axis_executes_for_the_dense_family():
+    """reduced granite-8b at d_model 512 (8 heads, 2 KV heads) on {data 4,
+    model 2}: the step is traced as each rank runs it, so nothing is
+    planned or unsplit; the model axis's f32 all-reduces come from the
+    trace: per layer the row splits' two forward, the one remat
+    recomputes (the FFN's reduction ends the layer, so its recompute
+    stops before it) and the column splits' two backward, plus the vocab
+    split's four (the embedding, the loss's max and sums, the
+    unembedding's backward); the exact mode's data axis all-gathers and
+    reduce-scatters every leaf (ZeRO-1) and reduces the metrics once."""
+    cfg = reduced(get_config("granite-8b"), d_model=512)
+    mesh = dryrun.parse_mesh("4x2")
+    shape = _tiny("train_4k")
+    rec = dryrun.plan("granite-8b", "train_4k", mesh, cfg=cfg, shape=shape,
+                      microbatches=1)
+    assert rec["temp_unsplit_over_model"] is False
+    assert rec["collectives_planned"] == {} and "model_axis_refused" not in rec
+    model = rec["collectives_model"]
+    assert model["all-reduce.count"] == 5 * cfg.num_layers + 4
+    tokens = shape.global_batch // 4 * shape.seq_len
+    act = 4 * tokens * cfg.d_model  # one f32 activation
+    assert model["all-reduce"] == (5 * cfg.num_layers + 2) * act + 4 * (
+        tokens + 2 * tokens)
+    n_leaves = len(tree_leaves(registry.init_params(MetaGenerator(), cfg)))
+    coll = rec["collectives"]
+    assert coll["all-gather.count"] == coll["reduce-scatter.count"] == \
+        n_leaves
+    assert coll["all-reduce.count"] == model["all-reduce.count"] + 1
+    assert rec["staged_bytes"] == dryrun.staged_bytes(coll)
+    # the arguments are the ZeRO-1 blocks: a quarter of the model shard's
+    one = dryrun.plan("granite-8b", "train_4k", ONE, cfg=cfg, shape=shape,
+                      microbatches=1)
+    state = (one["memory"]["argument_gib"] - rec["memory"]["argument_gib"])
+    assert state > 0 and rec["memory"]["peak_gib"] < one["memory"]["peak_gib"]
+
+
+def test_refused_families_keep_the_model_axis_planned():
+    """A config the trainer refuses over the model axis keeps both flags
+    and says why: reduced granite-8b's one KV head on a model axis of 2."""
+    rec = _plan("granite-8b", "train_4k", dryrun.parse_mesh("4x2"),
+                microbatches=1)
+    assert rec["temp_unsplit_over_model"] is True
+    assert rec["collectives_planned"]["all-reduce.count"] > 0
+    assert "num_kv_heads 1" in rec["model_axis_refused"]
+    assert "collectives_model" not in rec
+
+
 def test_full_width_plan_allocates_nothing():
     """granite-8b's decode_32k on one card at full width: hundreds of GiB
     planned, on meta tensors only."""

@@ -110,16 +110,20 @@ def test_auto_impl_without_device_needs_the_card():
     ({"impl": "shard", "mesh": Mesh((1, 2), ("data", "model"))}, "sharded"),
 ])
 def test_later_slices_raise_not_implemented(kwargs, match):
-    """A mesh with a model axis still raises (the sharded model layouts of
-    queue 1 item 3); `impl="shard"` without a mesh falls back to the roll,
-    as the reference's does (a node-only mesh takes the shard rule:
+    """A mesh with a model axis over one node shard builds the unsharded
+    op (each model index mixes its own columns, every row local: the
+    model axis executes since queue 1 item 1, and nothing of it is
+    "sharded" here); `impl="shard"` without a mesh falls back to the
+    roll, as the reference's does (a node-only mesh takes the shard rule:
     tests/test_torch_shard.py); quantized ops (ported with the
     quantized-wire slice) build and match the reference's per-round
     global-stats loop at rtol / atol 1e-5."""
     sched = mixing.schedule("ring", 4)
     if "quantization" not in kwargs:
-        with pytest.raises(NotImplementedError, match=match):
-            mixing.circulant_mix_op(sched, 4, 2, device="cpu", **kwargs)
+        model_axis = mixing.circulant_mix_op(sched, 4, 2, device="cpu",
+                                             **kwargs)
+        assert model_axis.mesh is None and model_axis.impl == "roll"
+        assert match == "sharded"
         op = mixing.circulant_mix_op(sched, 4, 2, device="cpu", impl="shard")
         jop = jmix.circulant_mix_op(sched, 4, 2, impl="shard")
         assert op.impl == jop.impl == "roll" and op.mesh is None

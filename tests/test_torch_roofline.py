@@ -122,6 +122,19 @@ def test_analyze_charges_the_h100():
     assert one.dominant == "compute"
 
 
+def test_analyze_takes_an_executed_model_axis_per_rank():
+    """A record whose model axis executes (`temp_unsplit_over_model`
+    false) is one rank's trace: its HBM estimate is not split again and
+    its FLOPs count every chip."""
+    rec = _fake_rec()
+    planned = roofline.analyze(dict(rec, temp_unsplit_over_model=True))
+    executed = roofline.analyze(dict(rec, temp_unsplit_over_model=False))
+    assert planned.memory_s == pytest.approx(6.7e12 / 16 / 3.35e12)
+    assert executed.memory_s == pytest.approx(6.7e12 / 3.35e12)
+    assert executed.useful_ratio == pytest.approx(
+        roofline.model_flops_for(rec) / (4e15 * 256))
+
+
 def test_table_and_main_read_artifacts(tmp_path, monkeypatch, capsys):
     for i, mesh in enumerate(("16x16", "1x1")):
         (tmp_path / f"r{i}.json").write_text(json.dumps(_fake_rec(mesh)))

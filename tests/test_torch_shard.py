@@ -180,8 +180,9 @@ def test_node_axis_reductions_over_ranks(ranks):
 
 def test_mesh_constructors_and_rows():
     """One process: the host mesh is (1, 1) and unsharded; a mesh that does
-    not cover the group, the production mesh (256 ranks) and a model axis
-    (queue 1 item 3) are refused; rows split in contiguous runs."""
+    not cover the group and the production mesh (256 ranks) are refused,
+    and a model axis where it does not execute (queue 1 item 1); rows
+    split in contiguous runs."""
     host = meshlib.make_host_mesh()
     assert host.shape == {"data": 1, "model": 1} and host.rank == 0
     assert not rdist.is_sharded(host) and rdist.n_data_nodes(host) == 1
@@ -191,12 +192,13 @@ def test_mesh_constructors_and_rows():
         meshlib.make_production_mesh()
     with pytest.raises(ValueError, match="512 ranks"):
         meshlib.make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        rdist.check_mesh(rdist.Mesh((2, 2), ("data", "model")))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        mixing.circulant_mix_op(mixing.schedule("ring", 4), 4, 1,
-                                mesh=rdist.Mesh((1, 2), ("data", "model")),
-                                device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        rdist.check_mesh(rdist.Mesh((2, 2), ("data", "model")), "the PCA path")
+    # over one node shard each model index mixes its own columns locally
+    op = mixing.circulant_mix_op(mixing.schedule("ring", 4), 4, 1,
+                                 mesh=rdist.Mesh((1, 2), ("data", "model")),
+                                 device="cpu")
+    assert op.mesh is None and op.impl == "matmul"
     four = [rdist.Mesh((4, 1), ("data", "model"), rank=r) for r in range(4)]
     assert [rdist.row_range(m, 10) for m in four] == [
         (0, 3), (3, 6), (6, 8), (8, 10)]

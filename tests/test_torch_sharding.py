@@ -418,6 +418,6 @@ def test_abstract_mesh_plans_what_no_group_executes():
     specs = tsh.zero1_specs({"wq": _tleaf((4096, 4096))}, mesh)
     assert specs["wq"] == (("data",), "model")  # the port keeps the tuple
     with pytest.raises(NotImplementedError, match="planned, not executed"):
-        check_mesh(mesh)
+        check_mesh(mesh, "the PCA path")
     with pytest.raises(ValueError, match="differ in rank"):
         tmesh.abstract_mesh((2, 2), ("data",))

@@ -1,12 +1,14 @@
 """Rank code of the port's multi-rank tests (tests/test_torch_shard.py,
-tests/test_torch_trainer_dist.py); not collected by pytest.
+tests/test_torch_trainer_dist.py, tests/test_torch_model_axis.py); not
+collected by pytest.
 
     python tests/torch_dist_worker.py CASE RANK WORLD STORE OUT [INPUT]
 
 joins a gloo process group of WORLD CPU processes through the FileStore
 at STORE (no TCP port, so parallel test workers never collide), builds
-`make_host_mesh()` over the ranks, runs CASE on this rank's rows and saves
-its results to OUT (`torch.save`). INPUT is a file the parent test wrote
+`make_host_mesh()` over the ranks (the model-axis cases build their own
+meshes with a model axis), runs CASE on this rank's rows and saves its
+results to OUT (`torch.save`). INPUT is a file the parent test wrote
 (inputs it made with numpy from a seed, or a state converted from the JAX
 package's); the ranks import the port only, and the parent holds their
 rows against the reference. `spawn` is the parent's side.
@@ -280,7 +282,116 @@ def trainer(mesh, inp):
     return out
 
 
-CASES = {"rules": rules, "driver": driver, "trainer": trainer}
+def _state_bytes(state) -> int:
+    """The bytes of a TrainState's tensors on this rank."""
+    from repro_torch.core.packing import tree_leaves
+
+    opt = state.opt
+    return sum(t.numel() * t.element_size()
+               for tree in (state.params, opt.m, opt.v, opt.master)
+               if tree != () for t in tree_leaves(tree))
+
+
+def model_layers(mesh, inp):
+    """tests/test_torch_model_axis.py (a): each arch's loss and gradients
+    on a model axis of 2, from the reference's parameters cut to this
+    rank's blocks (`convert.lm_params(mesh=...)`), with and without remat;
+    the gradients gathered whole again (`gather_tree`)."""
+    from repro_torch import convert
+    from repro_torch.core.packing import tree_leaves, tree_map
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.common import mesh_rules
+    from repro_torch.train.trainer import rest_specs
+
+    mesh = make_host_mesh(model=mesh.size)
+    given = torch.load(inp, weights_only=False)
+    out = {}
+    for arch, case in given.items():
+        cfg = case["cfg"]
+        local = convert.lm_params(case["tree"], device="cpu", mesh=mesh,
+                                  cfg=cfg)
+        spec = rest_specs(cfg, mesh, exact=False)
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        for remat in (True, False):
+            live = [p.detach().requires_grad_() for p in tree_leaves(local)]
+            it = iter(live)
+            params = tree_map(lambda _: next(it), local)
+            with mesh_rules(mesh):
+                loss, metrics = registry.loss_fn(params, cfg, batch,
+                                                 remat=remat)
+                grads = torch.autograd.grad(loss, live)
+            it = iter(grads)
+            whole = shlib.gather_tree(tree_map(lambda _: next(it), local),
+                                      spec, mesh)
+            out[(arch, remat)] = {
+                "loss": float(loss), "ce": float(metrics["ce"]),
+                "grads": [g.numpy() for g in tree_leaves(whole)]}
+    return out
+
+
+MODEL_MESHES = {"1x4": 4, "2x2": 2}  # mesh name -> model extent
+
+
+def model_trainer(mesh, inp):
+    """tests/test_torch_model_axis.py (b), (c): the reduced granite
+    trainer on 1 x 4 and 2 x 2 meshes, from the reference's states cut to
+    this rank's blocks (`convert.train_state(mesh=...)`), 3 SGD steps per
+    mode; its bytes at rest and each step's messages by axis
+    (`dist.stats`); the final state gathered over the model axis
+    (`convert.train_tree(mesh=...)`: the node rows stay the rank's), and
+    where every node is local what `publish_extract` serves from it."""
+    from repro_torch import convert, dist as rdist
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.dist import node_rows
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import trainer as tr
+
+    given = torch.load(inp, weights_only=False)
+    meshes = {name: make_host_mesh(model=m)
+              for name, m in MODEL_MESHES.items()}
+    out = {}
+    for (name, mode), case in given.items():
+        mesh, run = meshes[name], case["run"]
+        n = case["n_nodes"]
+        decentralized = mode != "exact"
+        state = convert.train_state(*case["state"], run.model, device="cpu",
+                                    mesh=mesh)
+        if decentralized:
+            state = _local_state(state, node_rows(mesh, n))
+        at_rest = _state_bytes(state)
+        step = tr.build_train_step(run, mesh, n_nodes=n, device="cpu")
+        metrics, wires = [], []
+        for b in case["batches"]:  # [B, S] leaves
+            b = {k: torch.from_numpy(v)[None] for k, v in b.items()}
+            if decentralized:
+                b = tr.make_node_batch(b, n, axis=1)
+            b = {k: v[0] for k, v in shard_batch(
+                b, mesh, n, node_axis=decentralized).items()}
+            rdist.reset_stats()
+            state, m = step(state, b)
+            wires.append(dict(rdist.stats))
+            metrics.append({k: float(v) for k, v in m.items()})
+        tree = convert.train_tree(state, run.model, mesh)
+        published = None
+        if rdist.n_data_nodes(mesh) == 1:  # every node on this rank
+            extract = tr.publish_extract(None if mode == "exact" else n,
+                                         run=run, mesh=mesh)
+            published = [p.numpy() for p in tree_leaves(extract(
+                state, torch.ones(n)))]
+        out[(name, mode)] = {
+            "published": published,
+            "params": tree["params"], "step": state.opt.step,
+            "metrics": metrics, "wire": wires, "at_rest": at_rest,
+            "rows": (node_rows(mesh, n).start, node_rows(mesh, n).stop),
+            "model_index": rdist.model_index(mesh)}
+    return out
+
+
+CASES = {"rules": rules, "driver": driver, "trainer": trainer,
+         "model_layers": model_layers, "model_trainer": model_trainer}
 
 
 def main():
