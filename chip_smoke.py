@@ -196,13 +196,42 @@
    through `generate`: 24 unmasked and 12 causal wgmma launches at D = 64
    per prefill). Each prints prefill ms on the card and on the wall,
    decode ms per step and peak memory (and the prefill's own peak).
+   (u) the last three families through the trainer: (u0) each reduced,
+   in f32 (mamba2-2.7b 2 layers at S = 128, recurrentgemma-9b 5 at S =
+   160, seamless-m4t-medium 2 + 2 at S = 64 over 64 frames), 4 nodes,
+   ring R = 2, Adam, 3 rounds of the exact and the gossip mode on the card
+   and on the CPU from the same state and draws: (h0)'s bounds (the
+   99.9% share within 1e-4 in each leaf too), the consensus errors
+   within 1e-4 relative, `gossip_mix` once per packed buffer per gossip
+   round; (u1) mamba2-2.7b at its published widths cut to 4 layers, 4 nodes, on the
+   gossip_mix and the int8 tile wires; (u2) recurrentgemma-9b cut to 3
+   layers (one period: both RG-LRU layers and the local attention train),
+   2 nodes, the ring's self weight 0.6 (at its default 1/2 two nodes mix
+   to the exact mean); (u3) seamless-m4t-medium whole, 4 nodes, each
+   sample with a [512, 160] standard-normal frame block. Each in bf16
+   with f32 masters (dropped where the round's plan passes 75 GB), Adam
+   at 3e-4 (1e-3 for (u3)), 2 x 512 tokens a node a round, K = 2, 4
+   supersteps through the `StreamingDriver`: finite, falling losses (and
+   one held batch's loss, before the rounds and after, falling by more
+   than 0.026, the spread of (u3)'s superstep losses in an earlier run), a
+   consensus error above 0, a peak under 80 GB, `gossip_mix` (or
+   `gossip_mix_quant`) K x supersteps x packed buffers (2 where the
+   SSD's or the RG-LRU's f32 leaves make a second buffer) and no
+   `flash_attention`. Before the driver, round 1's gradients, packed as
+   the trainer packs them, go through the wire's kernel and its plain
+   version on the card: each buffer at the kernel checks' bound, the two
+   consensus errors within 1e-3 relative (the kernel checks add (u2)'s
+   2-node ring at self weight 0.6). Prints parameters a node, the
+   state's GB, rounds/s, tokens/s, the host sampler's and the card's ms a round, the
+   round's phases, the peaks and the phase's seconds.
    (p) the planner against the card (`launch/dryrun.py`, meta traces on
    the host, no card work, no kernel launch): (p1) the plans on a 1 x 1
    mesh of (h1)'s round (2 layers, 4 nodes, 2 x 512 tokens a node, Adam
-   with f32 masters, gossip R = 2) and of (g1)'s, (m1)'s and (n1)'s
-   prefills beside the peak their phases measured ((h1): the phase;
-   the serving phases: the prefill's own, their phase peak printed
-   beside), each within 15%; (p2) (s2b)'s planned node-axis wire on a
+   with f32 masters, gossip R = 2), of (u1)-(u3)'s rounds (traced in (u))
+   and of (g1)'s, (m1)'s and (n1)'s prefills beside the peak their phases
+   measured ((h1): the phase; (u1)-(u3): their driver runs; the serving
+   phases: the prefill's own, their phase peak printed beside), each
+   within 15%; (p2) (s2b)'s planned node-axis wire on a
    4 x 1 mesh, exact and gossip, counted as `dist.stats` counts it,
    within 1% of what each rank staged; (p3) the H100 roofline's step
    bound and implied MFU of (h1)'s round and (g1)'s prefill beside their
@@ -329,6 +358,33 @@ SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_P = 4, 4096, 64
 # layers
 TRAIN_N, TRAIN_R, TRAIN_K, TRAIN_SUPERSTEPS = 4, 2, 2, 4
 TRAIN_B, TRAIN_S, TRAIN_LAYERS = 8, 512, 2
+# the last three families through the trainer (u): (u0)'s reduced forms,
+# arch: (layers, tokens a sample, frames a sample or 0); the full-width runs,
+# (label, arch, layers or 0 for all, nodes, wires, the ring's self weight or
+# 0 for its default, Adam's rate). Ring gossip over 2 nodes at the default
+# self weight (1/2) is the exact mean, so (u2) weighs its own row 0.6; at
+# 3e-4 seamless's loss, from near ln(vocab), falls by less than its
+# supersteps' own spread in 8 rounds, so (u3) steps at 1e-3.
+U0_CASES = {"mamba2-2.7b": (2, 128, 0), "recurrentgemma-9b": (5, 160, 0),
+            "seamless-m4t-medium": (2, 64, 64)}
+U2_SELF_WEIGHT = 0.6
+U_RUNS = [("(u1)", "mamba2-2.7b", 4, 4, ("exact", "int8"), 0.0, 3e-4),
+          ("(u2)", "recurrentgemma-9b", 3, 2, ("exact",), U2_SELF_WEIGHT,
+           3e-4),
+          ("(u3)", "seamless-m4t-medium", 0, 4, ("exact",), 0.0, 1e-3)]
+# each full-width run's loss on one held batch must fall by more than this
+# over its rounds: the spread of (u3)'s four superstep losses at Adam 3e-4
+# (12.63960 to 12.66556 on an H100, PERF.md section 6)
+U_LOSS_MARGIN = 0.026
+# the packed buffers' mix held against its plain version in column chunks
+# of this many (whole int8 tiles); the two consensus errors within
+# U_CERR_RTOL of each other. Each side rounds its output to bf16 once; at
+# (u2)'s 2 nodes the mix is near the exact mean, so those roundings are a
+# larger share of the deviations the consensus error reads. A wrong weight
+# moves it by its whole size.
+U_MIX_CHUNK, U_CERR_RTOL = 1 << 26, 1e-3
+# (u2) drops its f32 masters where its plan's peak passes this many GB
+U_MASTERS_GB = 75
 # (p1): each plan's peak within this share of the measured (PERF.md, section 6)
 P1_BOUND = 0.15
 SOURCES = {name: f"src/repro_torch/kernels/csrc/{name}.cu" for name in REPLACES}
@@ -368,11 +424,22 @@ def require(cond, msg):
         raise RuntimeError(msg)
 
 
-def compare(name, got, want, dtype_name, tol=TOL):
-    """Max |kernel - plain|, held to rtol * max|plain| + atol."""
+def compare(name, got, want, dtype_name, tol=TOL, chunk=0):
+    """Max |kernel - plain|, held to rtol * max|plain| + atol; with `chunk`,
+    over that many columns at a time (f32 copies of a chunk, not of the
+    whole)."""
     rtol, atol = tol[dtype_name]
-    err = (got.float() - want.float()).abs().max().item()
-    limit = rtol * want.float().abs().max().item() + atol
+    if chunk:
+        err = scale = 0.0
+        for c in range(0, got.shape[-1], chunk):
+            w = want[..., c:c + chunk].float()
+            err = max(err, (got[..., c:c + chunk].float() - w).abs().max()
+                      .item())
+            scale = max(scale, w.abs().max().item())
+    else:
+        err = (got.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+    limit = rtol * scale + atol
     ok = math.isfinite(err) and err <= limit
     print(f"check {name}: max_abs_err={err:.3e} limit={limit:.3e} "
           f"(rtol={rtol}, atol={atol} of max|plain|) {'ok' if ok else 'FAIL'}")
@@ -1661,6 +1728,15 @@ def main() -> int:
                         if (dn, n, d, topo, R) == ("float32", 10, 3072,
                                                    "ring", 8):
                             errs["gossip_mix"] = e
+        # (u2)'s wire: 2 nodes, where the ring's one shift is both +1 and
+        # -1, its own row weighed 0.6, R = 2 (its own generator's draws)
+        g2 = torch.Generator(device=dev).manual_seed(2)
+        sched = mixing.schedule("ring", 2, U2_SELF_WEIGHT)
+        for d in (33, 8192, 32773):
+            x = torch.randn((2, d), generator=g2, device=dev).to(dtype)
+            compare(f"gossip_mix {dn} n=2 d={d} ring self weight "
+                    f"{U2_SELF_WEIGHT} R=2", ops.gossip_mix(x, sched, 2),
+                    ref.gossip_mix_ref(x, sched, 2), dn)
         # path (f)'s wire: N = 16 nodes, d = 21 (Fig. 9's 20 weights and a
         # bias), ring R = 2
         x = randn(16, 21, dtype=dtype)
@@ -2383,11 +2459,12 @@ def main() -> int:
         return out
 
     def round_phases(run, state, batch):
-        """Card ms of the steps of one train step on `state`, each between
-        two CUDA events, in the trainer's order: each node's forward +
-        backward, its gradients into the [N, ...] tree, the pack, the mix,
-        the consensus error, the optimizer update. Every result is dropped
-        once timed (a second optimizer state would not fit)."""
+        """Card ms of the steps of one train step on `state` (of any node
+        count), each between two CUDA events, in the trainer's order: each
+        node's forward + backward, its gradients into the [N, ...] tree,
+        the pack, the mix, the consensus error, the optimizer update.
+        Every result is dropped once timed (a second optimizer state would
+        not fit)."""
         def timed(fn):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -2398,9 +2475,10 @@ def main() -> int:
             return result, start.elapsed_time(end)
 
         params, ms = state.params, {}
+        n_ = len(state.opt.step)
         grads = tree_map(torch.empty_like, params)
         ms["node_loss_grad"], ms["grad_copy"] = [], []
-        for i in range(TRAIN_N):
+        for i in range(n_):
             (_, _, g), t = timed(lambda: trainer.loss_and_grad(
                 run, tree_map(lambda p: p[i], params),
                 {k: v[i] for k, v in batch.items()}))
@@ -2409,15 +2487,16 @@ def main() -> int:
                 buf[i].copy_(gi) for buf, gi in
                 zip(tree_leaves(grads), tree_leaves(g))])[1])
             del g
-        (bufs, spec), ms["pack"] = timed(lambda: packing.pack_tree(grads))
+        # packed as the trainer packs
+        pools = trainer.layer_pools(params, run.model)
+        (bufs, spec), ms["pack"] = timed(lambda: averaging.pack(grads, pools))
         del grads
-        mix = averaging.make_gossip_mix(run.averaging, TRAIN_N, device=dev)
+        mix = averaging.make_gossip_mix(run.averaging, n_, device=dev)
         outs, ms["mix"] = timed(lambda: tuple(mix(b) for b in bufs))
         del bufs
-        pools = trainer.layer_pools(params, run.model)
         ms["consensus_error"] = timed(lambda: averaging.
-                                      _packed_consensus_error(outs, spec,
-                                                              pools))[1]
+                                      packed_consensus_error(outs, spec,
+                                                             pools))[1]
         mixed = packing.unpack_tree(outs, spec)
         update = make_optimizer(run.optimizer, run.learning_rate)
         # every node at one step: one update on the stacked leaves, as the
@@ -2612,6 +2691,7 @@ def main() -> int:
     print(f"main (h2) final loss {finals['(h2)']:.5f} beside (h1) "
           f"{finals['(h1)']:.5f}")
     train_d = n_node  # the packed gradient buffer's width per node
+
 
     # ------------------------------ the elastic and scenario paths (i)-(k)
     nodes_total = {k: {} for k in ops.node_launches}
@@ -3899,10 +3979,334 @@ def main() -> int:
     del params, out, gen_toks, prompt
     torch.cuda.empty_cache()
 
+    # ------------- the last three families through the trainer (u0)-(u3)
+    t_u = time.perf_counter()
+
+    def u_sampler(cfg_, seq, frames):
+        """sample_fn(rng, n): Markov tokens and labels of `seq` tokens and,
+        with `frames`, standard-normal [n, frames, frontend_embed_dim] f32
+        frames (the reference's `synth_batch`), all from `rng`."""
+        data = MarkovTokenStream(cfg_.vocab_size, seed=0)
+
+        def sample(rng, n):
+            out = draw_tokens(data, rng, n, seq)
+            if frames:
+                out["frames"] = rng.standard_normal(
+                    (n, frames, cfg_.frontend_embed_dim)).astype(np.float32)
+            return out
+
+        return sample
+
+    def n_buffers(params):
+        """The packed gradient buffers of a step: one per dtype."""
+        return len({p.dtype for p in tree_leaves(params)})
+
+    def held_mix(label, wire, run, state, batch):
+        """One round's gradients of `state` (node i on batch row i), packed
+        as the trainer packs them and mixed by the routed kernel; each
+        buffer held against the kernel's plain version on the card (column
+        chunks of whole tiles, into one output) at the kernel checks'
+        bound, and the two consensus errors within U_CERR_RTOL of each
+        other (the consensus error reads the deviations from the node
+        mean, which a wrong weight moves where the max-scaled bound may
+        not). Returns the kernel's launches."""
+        params, n_ = state.params, len(state.opt.step)
+        grads = tree_map(torch.empty_like, params)
+        for i in range(n_):
+            _, _, g = trainer.loss_and_grad(
+                run, tree_map(lambda p: p[i], params),
+                {k: v[i] for k, v in batch.items()})
+            for buf, gi in zip(tree_leaves(grads), tree_leaves(g)):
+                buf[i].copy_(gi)
+            del g
+        pools = trainer.layer_pools(params, run.model)
+        bufs, spec = averaging.pack(grads, pools)
+        del grads
+        avg = run.averaging
+        sched = mixing.schedule(avg.topology, n_, avg.self_weight)
+        if wire == "int8":
+            name, tol = "gossip_mix_quant", QUANT_TOL
+            plain = lambda part: ref.gossip_mix_quant_ref(
+                part, sched, avg.rounds, "int8", block_d=avg.quant_block_d)
+        else:
+            # in f32, rounded once to the buffer's dtype, as the kernel
+            # rounds (the int8 chain above rounds so too)
+            name, tol = "gossip_mix", TOL
+            plain = lambda part: ref.gossip_mix_ref(
+                part.float(), sched, avg.rounds).to(part.dtype)
+        mix = averaging.make_gossip_mix(avg, n_, device=dev)
+        ops.reset_launches()
+        outs = tuple(mix(b) for b in bufs)
+        torch.cuda.synchronize()
+        launched = ops.launches[name]
+        plains = []
+        for b, out in zip(bufs, outs):
+            want = torch.empty_like(b)
+            for c in range(0, b.shape[1], U_MIX_CHUNK):
+                want[:, c:c + U_MIX_CHUNK] = plain(
+                    b[:, c:c + U_MIX_CHUNK].contiguous())
+            dt = str(b.dtype).split(".")[-1]
+            compare(f"{name} {label} {wire} wire, round 1's packed {dt} "
+                    f"gradients [{n_}, {b.shape[1]}] ring self weight "
+                    f"{avg.self_weight or 'default'} R={avg.rounds}", out,
+                    want, dt, tol, chunk=U_MIX_CHUNK)
+            plains.append(want)
+        del bufs
+        ce_k, ce_p = (float(averaging.packed_consensus_error(o, spec, pools))
+                      for o in (outs, tuple(plains)))
+        rel = abs(ce_k - ce_p) / ce_p
+        print(f"check {name} {label} {wire} wire: consensus_err of the "
+              f"mixed buffers {ce_k:.6e}, of the plain version's "
+              f"{ce_p:.6e}, rel err {rel:.2e} limit {U_CERR_RTOL} "
+              f"{'ok' if rel <= U_CERR_RTOL else 'FAIL'}")
+        require(rel <= U_CERR_RTOL,
+                f"{label} {wire}: consensus errors of the kernel's and the "
+                f"plain mix disagree")
+        return launched
+
+    def held_loss(run, state, batch):
+        """The mean over nodes of each node's loss on one held batch."""
+        with torch.no_grad():
+            return sum(float(registry.loss_fn(
+                tree_map(lambda p: p[i], state.params), run.model, batch,
+                remat=False)[0]) for i in range(len(state.opt.step))) / len(
+                    state.opt.step)
+
+    # (u0) each family reduced, in f32, 3 rounds of the exact and the gossip
+    # mode from the same state and draws on the card and on the CPU
+    for arch, (layers, seq, frames) in U0_CASES.items():
+        cfg_u = reduced(get_config(arch), layers=layers)
+        sample = u_sampler(cfg_u, seq, frames)
+        rng = np.random.default_rng(0)
+        draws = [sample(rng, 8) for _ in range(H0_ROUNDS)]
+        for mode in ("exact", "gossip"):
+            run = RunConfig(model=cfg_u, shape=SHAPES["train_4k"],
+                            averaging=AveragingConfig(mode, TRAIN_R, "ring"),
+                            optimizer="adam", learning_rate=H0_LR,
+                            param_dtype="float32")
+            base = trainer.init_state(run, torch.Generator().manual_seed(0))
+            batches = draws
+            if mode == "gossip":
+                base = trainer.replicate_for_nodes(base, TRAIN_N)
+                batches = [trainer.make_node_batch(b, TRAIN_N)
+                           for b in draws]
+            mix_launches = (H0_ROUNDS * n_buffers(base.params)
+                            * (mode == "gossip"))
+            runs = {}
+            for side, d_ in (("card", dev), ("cpu", cpu)):
+                st = on_device(base, d_)
+                bs = [{k: torch.from_numpy(v).to(d_) for k, v in b.items()}
+                      for b in batches]
+                step = trainer.build_train_step(run, None, n_nodes=TRAIN_N,
+                                                device=d_)
+                ops.reset_launches()
+                losses, cerrs = [], []
+                for b in bs:
+                    st, m = step(st, b)
+                    losses.append(float(m["loss"]))
+                    cerrs.append(float(m["consensus_err"]))
+                counts = (take_counts(
+                    f"(u0) {arch} {mode}", [], {
+                        "gossip_mix": mix_launches, "gossip_mix_quant": 0,
+                        "flash_attention": 0, "krasulina_xi": 0,
+                        "krasulina_xi_gossip": 0})
+                          if side == "card" else None)
+                runs[side] = (losses, cerrs, st, counts)
+            (lc, cc, sc, counts), (lp, cp, sp, _) = runs["card"], runs["cpu"]
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+            cerr_err = max(abs(a - b) / abs(b) if b else abs(a)
+                           for a, b in zip(cc, cp))
+            diffs = [(a.cpu() - b).abs().ravel() for a, b in zip(
+                tree_leaves(sc.params), tree_leaves(sp.params))]
+            d = torch.cat(diffs)
+            within = float((d <= 1e-4).float().mean())
+            # each leaf apart: a leaf of a few hundred entries (an SSD's
+            # A_log, an RG-LRU's lam) is under the 0.1% the pooled share
+            # lets through
+            leaf_within = min(float((x <= 1e-4).float().mean())
+                              for x in diffs)
+            print(f"main (u0) {arch} reduced f32 ({layers} layers, S={seq}"
+                  f"{f', {frames} frames' if frames else ''}) {mode} mode "
+                  f"N={TRAIN_N} ring R={TRAIN_R} adam, card vs CPU over "
+                  f"{H0_ROUNDS} rounds: losses {json.dumps(lc)} (CPU "
+                  f"{json.dumps(lp)}, max rel err {loss_err:.2e}, limit "
+                  f"1e-4); consensus_err {json.dumps(cc)} (CPU "
+                  f"{json.dumps(cp)}, max rel err {cerr_err:.2e}, limit "
+                  f"1e-4); parameters within 1e-4: {within:.6f}, in the "
+                  f"worst leaf {leaf_within:.6f} (limit >= 0.999 each), "
+                  f"max_abs_err {float(d.max()):.3e} "
+                  f"(limit {3 * H0_LR * H0_ROUNDS:.1e}, 3 lr per round); "
+                  f"launches={json.dumps(counts)}")
+            require(loss_err <= 1e-4, f"(u0) {arch} {mode}: losses disagree")
+            require(within >= 0.999 and leaf_within >= 0.999
+                    and float(d.max()) <= 3 * H0_LR * H0_ROUNDS,
+                    f"(u0) {arch} {mode}: parameters disagree")
+            require((min(cc) > 0) == (mode == "gossip"),
+                    f"(u0) {arch} {mode}: consensus_err {cc}")
+            require(cerr_err <= 1e-4,
+                    f"(u0) {arch} {mode}: consensus errors disagree")
+            del base, runs, sc, sp, st, diffs
+
+    # (u1)-(u3) each family at its published widths: bf16 with f32 masters,
+    # Adam, 2 x 512 tokens a node a round, K = 2, 4 supersteps
+    # through the StreamingDriver. Each round is planned first
+    # (`launch/dryrun.py`, a meta trace on the host; phase (p1) prints the
+    # plans beside the peaks measured here), and (u2) drops its f32 masters
+    # where the plan passes U_MASTERS_GB.
+    one = dryrun.parse_mesh("1x1")
+    u_plans = {}
+    for label, arch, layers, n_u, u_wires, self_w, lr_u in U_RUNS:
+        cfg_u = get_config(arch)
+        if layers:
+            cfg_u = dataclasses.replace(cfg_u, num_layers=layers)
+        b_u = 2 * n_u  # the round's samples, 2 a node
+        shape_u = ShapeConfig(label, TRAIN_S, b_u, "train")
+        plan_kw = dict(averaging="gossip", rounds=TRAIN_R, cfg=cfg_u,
+                       shape=shape_u, n_nodes=n_u)
+        plan_u = dryrun.plan(arch, "train_4k", one, master_weights=True,
+                             **plan_kw)
+        masters = plan_u["memory"]["peak_gib"] * 2**30 / 1e9 <= U_MASTERS_GB
+        planned_gb = plan_u["memory"]["peak_gib"] * 2**30 / 1e9
+        if not masters:
+            plan_u = dryrun.plan(arch, "train_4k", one, master_weights=False,
+                                 **plan_kw)
+        u_plans[label] = plan_u
+        print(f"main {label} {arch} plan with f32 masters: peak "
+              f"{planned_gb:.3f} GB (limit {U_MASTERS_GB} GB): masters "
+              f"{'kept' if masters else 'dropped'}")
+        sample = u_sampler(cfg_u, TRAIN_S,
+                           TRAIN_S if cfg_u.is_encdec else 0)
+        tokens_u = b_u * TRAIN_S
+        for wire in u_wires:
+            quant = quant_tile if wire == "int8" else {}
+            run = RunConfig(model=cfg_u, shape=SHAPES["train_4k"],
+                            averaging=AveragingConfig(
+                                "gossip", TRAIN_R, "ring",
+                                self_weight=self_w, **quant),
+                            optimizer="adam", learning_rate=lr_u,
+                            param_dtype="bfloat16", master_weights=masters)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            tstate = trainer.replicate_for_nodes(trainer.init_state(
+                run, torch.Generator(device=dev).manual_seed(0)), n_u)
+            torch.cuda.synchronize()
+            n_node = sum(t[0].numel() for t in tree_leaves(tstate.params))
+            bufs_u = n_buffers(tstate.params)
+            state_gb = torch.cuda.memory_allocated() / 1e9
+            init_peak = torch.cuda.max_memory_allocated() / 1e9
+            print(f"main {label} {arch} full width, {cfg_u.num_layers}"
+                  f"{f' + {cfg_u.encoder_layers}' if cfg_u.is_encdec else ''}"
+                  f" layers, {wire} wire: {n_node} parameters per node, "
+                  f"{n_u} nodes, bf16 with{'' if masters else 'out'} f32 "
+                  f"masters, Adam at {lr_u:g}, ring R={TRAIN_R} self weight "
+                  f"{self_w or 'default'}, {bufs_u} packed buffers, state "
+                  f"drawn and "
+                  f"replicated on the card in {time.perf_counter() - t0:.2f} "
+                  f"s, {state_gb:.2f} GB (peak {init_peak:.2f})")
+            # round 1's gradients through the kernel against its plain
+            # version, and one held batch's loss before the rounds
+            rng = np.random.default_rng(2)
+            b0 = {k: torch.from_numpy(v).to(dev) for k, v in
+                  trainer.make_node_batch(sample(rng, b_u), n_u).items()}
+            mixes = held_mix(label, wire, run, tstate, b0)
+            require(mixes == bufs_u, f"{label} {wire}: round 1's mix "
+                    f"launched its kernel {mixes} times, not {bufs_u}")
+            del b0
+            held = {k: torch.from_numpy(v).to(dev) for k, v in
+                    sample(np.random.default_rng(3), 2).items()}
+            loss_before = held_loss(run, tstate, held)
+            cmp_peak = torch.cuda.max_memory_allocated() / 1e9
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            with StreamingDriver(run, None, tstate, sample, batch=b_u,
+                                 n_nodes=n_u, device=dev,
+                                 engine=EngineConfig(superstep=TRAIN_K,
+                                                     prefetch_depth=2,
+                                                     replan_every=0)) as drv:
+                tstate, history = drv.run(TRAIN_SUPERSTEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            kernel = "gossip_mix" if wire == "exact" else "gossip_mix_quant"
+            other = {k: 0 for k in ops.launches}
+            other[kernel] = TRAIN_K * TRAIN_SUPERSTEPS * bufs_u
+            counts = take_counts(f"{label} {wire}", [kernel], other)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            loss_after = held_loss(run, tstate, held)
+            losses = [rec["metrics"]["loss"] for rec in history]
+            cerrs = [rec["metrics"]["consensus_err"] for rec in history]
+            for rec in history:
+                print(f"  superstep {rec['superstep']} round {rec['round']}: "
+                      f"loss {rec['metrics']['loss']:.5f} consensus_err "
+                      f"{rec['metrics']['consensus_err']:.4e} "
+                      f"wall {rec['wall_s']:.4f} s")
+            steady = history[1:]
+            rounds_s = len(steady) * TRAIN_K / sum(r["wall_s"] for r in steady)
+            rng = np.random.default_rng(1)
+            t0 = time.perf_counter()
+            draws = [sample(rng, b_u) for _ in range(TRAIN_K)]
+            host_ms = (time.perf_counter() - t0) / TRAIN_K * 1e3
+            sup = trainer.build_superstep(run, None, n_nodes=n_u, device=dev)
+            staged = {k: torch.from_numpy(np.stack([
+                trainer.make_node_batch(b, n_u)[k] for b in draws])).to(dev)
+                for k in draws[0]}
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tstate, _ = sup(tstate, staged)
+            end.record()
+            torch.cuda.synchronize()
+            card_ms = start.elapsed_time(end) / TRAIN_K
+            phases = round_phases(run, tstate, {k: v[0] for k, v in
+                                                staged.items()})
+            phases["sum"] = sum(sum(v) if isinstance(v, list) else v
+                                for v in phases.values())
+            print(f"main {label} round phases on the card, ms: "
+                  f"{json.dumps(phases)}")
+            late_peak = torch.cuda.max_memory_allocated() / 1e9
+            if wire == "exact":
+                p_measured[label] = {"peak_GiB": peak * 1e9 / 2**30,
+                                     "card_ms": card_ms}
+            print(f"main {label} {arch} {wire} wire: {TRAIN_K * len(history)}"
+                  f" rounds in {wall:.3f} s; loss at round "
+                  f"{history[0]['round']} {losses[0]:.5f}, at round "
+                  f"{history[-1]['round']} {losses[-1]:.5f}; held batch's "
+                  f"loss {loss_before:.5f} -> {loss_after:.5f} (fall "
+                  f"{loss_before - loss_after:.5f}, limit > {U_LOSS_MARGIN})"
+                  f"; consensus_err "
+                  f"last {cerrs[-1]:.3e}; steady {rounds_s:.4f} rounds/s, "
+                  f"{rounds_s * tokens_u:.1f} tokens/s; host sampler "
+                  f"{host_ms:.3f} ms per round; card {card_ms:.3f} ms per "
+                  f"round (CUDA events, a staged superstep of {TRAIN_K}) = "
+                  f"{card_ms * rounds_s / 1e3:.3f} of the steady round; peak "
+                  f"memory {peak:.2f} GB (driver), {init_peak:.2f} (state "
+                  f"draw), {cmp_peak:.2f} (round-1 mix check), "
+                  f"{late_peak:.2f} (timing); state {state_gb:.2f} GB; card {smi}; "
+                  f"launches={json.dumps(counts)}")
+            require(all(math.isfinite(x) for x in losses + cerrs),
+                    f"{label} {wire}: a loss or consensus error is not finite")
+            require(losses[-1] < losses[0],
+                    f"{label} {wire}: the loss did not fall")
+            require(loss_before - loss_after > U_LOSS_MARGIN,
+                    f"{label} {wire}: the held batch's loss fell by "
+                    f"{loss_before - loss_after:.5f}, not more than "
+                    f"{U_LOSS_MARGIN}")
+            require(min(cerrs) > 0, f"{label} {wire}: consensus_err is 0")
+            require(max(peak, init_peak, cmp_peak, late_peak) < 80,
+                    f"{label} {wire}: peak memory above 80 GB")
+            del tstate, drv, sup, staged, held
+            torch.cuda.empty_cache()
+    print(f"main (u) seconds: {time.perf_counter() - t_u:.1f}; card {smi}")
+
     # ------------------------------------- the planner against the card (p)
     # (p1) each plan on a 1 x 1 mesh (`launch/dryrun.py`: meta traces on the
     # host, no card work) beside the peak its phase measured: (h1)'s whole
-    # phase, and the serving phases' own prefill (their phase peak, which
+    # phase, (u1)-(u3)'s driver runs on the gossip_mix wire, and the
+    # serving phases' own prefill (their phase peak, which
     # adds decode steps and the CUDA-graph timing's pool, printed beside);
     # (p2) (s2b)'s planned node-axis wire on a 4 x 1 mesh beside the bytes
     # its ranks staged (`dist.stats`); (p3) the H100 roofline's step bound
@@ -3926,6 +4330,8 @@ def main() -> int:
                                    shape=p_shapes[label])
     p_measured["(h1)"] = {"peak_GiB": h_peak["(h1)"] * 1e9 / 2**30,
                           "card_ms": h_card["(h1)"]}
+    # (u1)-(u3)'s rounds, planned in phase (u), beside their drivers' peaks
+    plans.update(u_plans)
     for label, rec in plans.items():
         m, mem = p_measured[label], rec["memory"]
         own = "prefill_peak_GiB" in m

@@ -66,9 +66,18 @@ Tree = Any
 # the consensus engine: a static CirculantMixOp or a time-varying
 # ScheduledMixOp (scenario harness), both called through `_mix_call`
 MixOp = Any
-# groups of leaf indices (in packing order) that the consensus error treats
-# as one leaf each; see `_packed_consensus_error`
+# groups of leaf indices (in the tree's order) that the consensus error
+# treats as one leaf each (`packed_consensus_error`); the packed buffers
+# take the leaves in the pools' order (`pack`)
 Pools = Tuple[Tuple[int, ...], ...]
+
+
+def pack(tree: Tree, pools: Optional[Pools]):
+    """`packing.pack_tree` of `tree`, its leaves in the pools' order where
+    pools are given (the reference's leaf order, `train.trainer.layer_pools`:
+    the quantized wire's tiles then hold the reference's entries)."""
+    order = None if pools is None else [i for pool in pools for i in pool]
+    return packing.pack_tree(tree, order=order)
 
 
 def make_gossip_mix(cfg: AveragingConfig, n_nodes: int, *,
@@ -261,11 +270,12 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                       ) -> Tuple[Tree, torch.Tensor]:
     """Averaging plus the epsilon-consensus diagnostic with ONE pack: the
     mixed packed buffers feed both the unpack and the error reduction.
-    `pools` groups leaves for the diagnostic (`_packed_consensus_error`).
-    On a sharded `mesh` the leaves are this rank's rows, `mix` is built
-    with the mesh, and the diagnostic reduces across ranks; over a model
-    axis they are its model shard's blocks, and `model_split` says which
-    leaves (in packing order) the model axis splits."""
+    `pools` groups leaves for the diagnostic (`packed_consensus_error`)
+    and orders the packed buffers. On a sharded `mesh` the leaves are this
+    rank's rows, `mix` is built with the mesh, and the diagnostic reduces
+    across ranks; over a model axis they are its model shard's blocks, and
+    `model_split` says which leaves (in the tree's order) the model axis
+    splits."""
     check_sharded_mode(cfg, mesh)
     if mesh is not None and not is_sharded(mesh) and model_extent(mesh) == 1:
         mesh = None
@@ -282,7 +292,7 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
         mixed = average_gradients(tree, cfg, n_nodes=n_nodes, pods=pods,
                                   mix=mix, key=key, t=t, mesh=mesh)
         return mixed, consensus_error(mixed, pools, **err_kw)
-    bufs, spec = packing.pack_tree(tree)
+    bufs, spec = pack(tree, pools)
     if cfg.mode == "gossip":
         outs = tuple(_apply_mix(mix, spec, g, b, key, t)
                      for g, b in enumerate(bufs))
@@ -291,7 +301,7 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
         outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key, t)
                      for b in bufs)
-    err = _packed_consensus_error(outs, spec, pools, mesh, n_nodes,
+    err = packed_consensus_error(outs, spec, pools, mesh, n_nodes,
                                   model_split)
     return packing.unpack_tree(outs, spec), err
 
@@ -337,7 +347,8 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
     Returns (mixed, new_ef, consensus_err, ef_norm, ef_rel): `ef_norm` is
     the global L2 norm of the new residual, `ef_rel` its ratio to ||v||.
     `key` seeds the stochastic compressor (folded with the buffer index);
-    `pools` groups leaves for the consensus error."""
+    `pools` groups leaves for the consensus error and orders the packed
+    buffers."""
     if mix is None:
         mix = make_gossip_mix(cfg, n_nodes, device=device)
     if getattr(mix, "quantization", "none") != "none":
@@ -345,8 +356,8 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
             "error feedback needs a LINEAR consensus operator — build it via "
             "make_gossip_mix, which drops the per-round compressor when "
             "cfg.error_feedback is on")
-    bufs, spec = packing.pack_tree(tree)
-    ebufs, espec = packing.pack_tree(ef)
+    bufs, spec = pack(tree, pools)
+    ebufs, espec = pack(ef, pools)
     # the new residual is written into the packed residual buffer: a copy,
     # unless the group holds a single leaf, which the pack only reshapes
     ebufs = tuple(e.clone() if len(espec.groups[g]) == 1 else e
@@ -385,12 +396,12 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
     zero = torch.zeros((), device=dev)
     ef_norm = torch.sqrt(zero if e2 is None else e2)
     ef_rel = ef_norm / (torch.sqrt(zero if v2 is None else v2) + 1e-30)
-    err = _packed_consensus_error(tuple(outs), spec, pools)
+    err = packed_consensus_error(tuple(outs), spec, pools)
     return (packing.unpack_tree(tuple(outs), spec),
             packing.unpack_tree(tuple(ebufs), espec), err, ef_norm, ef_rel)
 
 
-def _packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
+def packed_consensus_error(bufs: Tuple[torch.Tensor, ...],
                             spec: packing.PackSpec,
                             pools: Optional[Pools] = None, mesh: Any = None,
                             n_nodes: Optional[int] = None,
@@ -466,7 +477,7 @@ def consensus_error(tree: Tree, pools: Optional[Pools] = None, *,
     """max_n ||v_n - v_bar|| / ||v_bar|| across the tree — the paper's
     epsilon-accuracy diagnostic for inexact averaging, leaf by leaf in
     packing order (`consensus_error_per_leaf` is the per-leaf oracle);
-    `pools` as in `_packed_consensus_error`; on a sharded `mesh` the leaves
+    `pools` as in `packed_consensus_error`; on a sharded `mesh` the leaves
     are this rank's rows of the `n_nodes`-node axis, and over a model axis
     its blocks (`model_split` as in `average_and_error`)."""
     leaves = packing.tree_leaves(tree)

@@ -17,7 +17,7 @@ one tree repacks trees of any node count.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +55,7 @@ def _unflatten(treedef, leaves) -> Tree:
 
 
 def tree_leaves(tree: Tree) -> List[torch.Tensor]:
-    """The tensors of `tree`, in packing order."""
+    """The tensors of `tree`, in its order (the default packing order)."""
     leaves: List[torch.Tensor] = []
     _flatten(tree, leaves)
     return leaves
@@ -95,8 +95,9 @@ class PackSpec:
     dtypes:    per-leaf dtype name, in leaf order.
     lead:      number of shared leading axes preserved by packing (0 or more).
     groups:    per-buffer tuple of leaf indices; one buffer per distinct dtype,
-               leaves in first-appearance order, so single-dtype trees pack
-               into exactly one ``[*lead, D]`` buffer.
+               leaves in first-appearance order (of the packing order), so
+               single-dtype trees pack into exactly one ``[*lead, D]``
+               buffer.
     """
 
     treedef: Any
@@ -117,9 +118,12 @@ class PackSpec:
         return np.repeat(np.arange(len(widths)), widths).astype(np.int32)
 
 
-def pack_spec(tree: Tree, *, lead: int = 1) -> PackSpec:
+def pack_spec(tree: Tree, *, lead: int = 1,
+              order: Optional[Sequence[int]] = None) -> PackSpec:
     """Build the static segment map for `tree`. All leaves must share their
-    first `lead` axis sizes (the node axis)."""
+    first `lead` axis sizes (the node axis). `order` (a permutation of the
+    leaf indices) is the order the leaves are packed in, and the groups
+    formed in; by default the tree's own."""
     leaves: List[torch.Tensor] = []
     treedef = _flatten(tree, leaves)
     trailing, dtypes = [], []
@@ -135,21 +139,23 @@ def pack_spec(tree: Tree, *, lead: int = 1) -> PackSpec:
         trailing.append(tuple(x.shape[lead:]))
         dtypes.append(_dtype_name(x.dtype))
     groups: dict = {}
-    for i, dt in enumerate(dtypes):
-        groups.setdefault(dt, []).append(i)
+    for i in (range(len(dtypes)) if order is None else order):
+        groups.setdefault(dtypes[i], []).append(i)
     return PackSpec(treedef, tuple(trailing), tuple(dtypes), lead,
                     tuple(tuple(g) for g in groups.values()))
 
 
 def pack_tree(tree: Tree, spec: Optional[PackSpec] = None, *,
-              lead: int = 1) -> Tuple[Tuple[torch.Tensor, ...], PackSpec]:
-    """Flatten `tree` into one contiguous ``[*lead, D]`` buffer per dtype.
+              lead: int = 1, order: Optional[Sequence[int]] = None
+              ) -> Tuple[Tuple[torch.Tensor, ...], PackSpec]:
+    """Flatten `tree` into one contiguous ``[*lead, D]`` buffer per dtype,
+    its leaves in `order` (`pack_spec`).
 
     Returns ``(buffers, spec)``. Pass a previously built `spec` to reuse its
     segment map — the tree must match its structure and trailing shapes;
     leading axis sizes may differ."""
     if spec is None:
-        spec = pack_spec(tree, lead=lead)
+        spec = pack_spec(tree, lead=lead, order=order)
     leaves = tree_leaves(tree)
     if len(leaves) != len(spec.trailing):
         raise ValueError("tree does not match PackSpec leaf count")

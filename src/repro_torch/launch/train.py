@@ -2,7 +2,12 @@
 (`train.driver`): K-round supersteps, the prefetch ring onto the card, and
 the closed-loop (B, mu) governor, over a `MarkovTokenStream`. Runs on the
 CUDA card unless `--device cpu` is given; `--reduced` trains the
-smoke-test-sized member of the architecture.
+smoke-test-sized member of the architecture. Every decoder-only arch
+trains, the ssm and hybrid families (mamba2-2.7b, recurrentgemma-9b)
+included; an encoder-decoder (seamless-m4t-medium) raises ValueError, as
+the reference's launcher cannot feed it either: the token stream carries
+no frames (`train.trainer` and `StreamingDriver` train it with a
+`sample_fn` that returns them).
 
 One device is one node by default, as the reference's host mesh gives on
 one device: `--averaging gossip` then mixes over a single node. `--nodes N`
@@ -242,12 +247,14 @@ def _train(ap, args, distributed: bool) -> None:
                 "scenarios, faults, publication and checkpoints on a sharded "
                 "node axis are not ported yet (ROADMAP.md)")
     cfg = get_config(args.arch)
-    if cfg.family in ("ssm", "hybrid") or cfg.is_encdec:
-        # their loss_fn is ported and held on the CPU, the streaming trainer
-        # on them is not held against the reference's driver yet
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family through the "
-            f"streaming trainer is not ported")
+    if cfg.is_encdec:
+        # the reference's launcher draws the same token stream, and its
+        # encoder-decoder loss then finds no frames
+        raise ValueError(
+            f"{cfg.name}: the launcher's token stream carries no frames, and "
+            f"an encoder-decoder trains on batch['frames']; train it through "
+            f"train.trainer / StreamingDriver with a sample_fn that returns "
+            f"'frames' beside 'tokens' and 'labels'")
     if args.reduced:
         cfg = reduce_cfg(cfg)
     dev = resolve_device(args.device)

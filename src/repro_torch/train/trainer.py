@@ -17,6 +17,15 @@
   stacked rows of each contiguous run of nodes at one optimizer step: once
   on the whole [N, ...] leaves while every node is at the same step.
 
+Every family of the registry trains: the decoder-only assembly (dense,
+MoE, MLA, early fusion, and the SSD and RG-LRU stacks, whose f32 leaves
+pack into a second buffer in a bf16 model) and the encoder-decoder, whose
+batches carry "frames" beside the tokens (the driver deals, splits and
+stacks every leaf its `sample_fn` returns). The port keeps one leaf per
+layer where the reference stacks them; `layer_pools` pools them back, so
+the consensus error is the reference's and the packed buffers hold the
+reference's columns in its order.
+
 Gradients come from `torch.autograd.grad` of `models.registry.loss_fn`,
 whose attention takes the differentiable `blockwise_attention` route (the
 flash kernel has no backward, in the reference as here). The optimizer's
@@ -259,12 +268,17 @@ def loss_and_grad(run, params: Tree, batch: Dict[str, torch.Tensor]):
 
 
 def layer_pools(params: Tree, cfg) -> Tuple[Tuple[int, ...], ...]:
-    """The leaves of `params` (by index, in packing order) that the
-    reference holds as ONE leaf: its scan stacks layer r * period + i of
-    every weight kind into one [n_rep, ...] leaf of period position i, and
+    """The leaves of `params` (by index in `tree_leaves` order) that the
+    reference holds as ONE leaf, one pool per reference leaf in the
+    reference's leaf order, each pool's leaves in stack order. Its scan
+    stacks layer r * period + i of every weight kind into one [n_rep, ...]
+    leaf of period position i (the tail's layers stay apart), an
+    encoder-decoder's "encoder" and "decoder" layers into one leaf each;
     its consensus error is a max over leaves. Pooling the port's per-layer
     leaves the same way (`core.averaging.average_and_error(pools=...)`)
-    gives the reference's number."""
+    gives the reference's number, and packing them in the pools' order
+    gives the reference's packed buffers, column for column (so the
+    quantized wire's [n, block_d] tiles hold the reference's entries)."""
     period, n_rep, _ = build_plan(cfg)
     P = len(period)
     keys: List[tuple] = []
@@ -286,8 +300,12 @@ def layer_pools(params: Tree, cfg) -> Tuple[Tuple[int, ...], ...]:
             layer = path[1]
             path = (("layers", layer % P) if layer < P * n_rep
                     else ("tail", layer - P * n_rep)) + path[2:]
+        elif path[0] in ("encoder", "decoder"):
+            path = path[:1] + path[2:]
         pools.setdefault(path, []).append(idx)
-    return tuple(tuple(v) for v in pools.values())
+    # the reference's paths sort as its tree flattens: dict keys in order,
+    # list positions by index
+    return tuple(tuple(pools[k]) for k in sorted(pools))
 
 
 def _split(batch: Dict[str, torch.Tensor], parts: int, j: int):
@@ -361,7 +379,7 @@ def _build_exact_step(run, device: DeviceLike, mesh=None) -> Callable:
     E = n_data_nodes(mesh) if mesh is not None else 1
     zero1 = model_extent(mesh) > 1
     if zero1:
-        # per leaf (packing order): the dim ZeRO-1 puts the data axes on,
+        # per leaf (`tree_leaves` order): the dim ZeRO-1 puts the data axes on,
         # or None where it leaves the leaf whole over them
         meta, pspec, zspec = state_specs(run.model, mesh)
         zdims = [next((i for i, (a, b) in enumerate(zip(ps, zs)) if a != b),
@@ -451,7 +469,7 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
                          "configs keep their static per-round operator")
     stochastic = avg.quantization in STOCHASTIC
     pools: List[Optional[tuple]] = [None]  # from the first state's tree
-    # per leaf (packing order): whether the model axis splits it
+    # per leaf (`tree_leaves` order): whether the model axis splits it
     model_split = None
     if model_extent(mesh) > 1:
         meta, pspec, _ = state_specs(run.model, mesh)

@@ -14,7 +14,8 @@ tests/test_dryrun_small.py (reduced configs, 256 tokens x 8 sequences).
   are the real CPU state's (and serve state's) bytes exactly; its counted
   FLOPs lie between `roofline.model_flops_for` and twice
   `roofline.analytic_hw_flops`; a model axis is planned (its collectives,
-  the unsplit temporaries' flag); a full-width plan allocates nothing.
+  the unsplit temporaries' flag); a full-width plan allocates nothing;
+  the ssm, hybrid and encoder-decoder families' train rounds are planned.
 * The planned node-axis messages against what CPU ranks send:
   tests/test_torch_trainer_dist.py (it reuses that file's worker run).
 * The sweep's combos are the reference's plus the one-card pass, and one
@@ -242,6 +243,39 @@ def test_argument_bytes_are_the_cpu_state(averaging, n_nodes):
     assert rec["memory"]["alias_gib"] * 2**30 == _nbytes(state)
     assert rec["collectives"] == {"hbm_bytes_est":
                                   rec["collectives"]["hbm_bytes_est"]}
+
+
+@pytest.mark.parametrize("arch,layers,seq", [
+    ("mamba2-2.7b", 2, 128), ("recurrentgemma-9b", 5, 160),
+    ("seamless-m4t-medium", 2, 64)])
+def test_last_families_train_rounds_are_planned(arch, layers, seq):
+    """A gossip round of the ssm, hybrid and encoder-decoder families is
+    traced, not refused: 4 nodes in bf16 with f32 masters at the reduced
+    sizes the trainer is held at (tests/test_torch_family_trainer.py), its
+    arguments the mixed-dtype state (the SSD's and the RG-LRU's f32
+    leaves) and the batch (seamless's frames included) to the byte, and no
+    launch counted."""
+    cfg = reduced(get_config(arch), layers=layers)
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=seq,
+                                global_batch=8)
+    ops.reset_launches()
+    rec = dryrun.plan(arch, "train_4k", ONE, cfg=cfg, shape=shape,
+                      averaging="gossip", rounds=2, n_nodes=4)
+    assert "model_axis_refused" not in rec and rec["n_nodes"] == 4
+    assert rec["master_weights"] is True and rec["cost"]["flops"] > 0
+    assert not any(ops.launches.values())
+    run = RunConfig(model=cfg, shape=shape,
+                    averaging=AveragingConfig("gossip", 2),
+                    param_dtype="bfloat16", master_weights=True)
+    state = trainer.replicate_for_nodes(
+        trainer.init_state(run, torch.Generator().manual_seed(0)), 4)
+    dtypes = {t.dtype for t in tree_leaves(state.params)}
+    assert dtypes == ({torch.bfloat16} if cfg.is_encdec
+                      else {torch.bfloat16, torch.float32})
+    batch = dryrun._tokens_long(registry.input_specs(cfg, shape))
+    assert ("frames" in batch) == cfg.is_encdec
+    assert rec["memory"]["argument_gib"] * 2**30 == _nbytes(state) + \
+        _nbytes(batch)
 
 
 def test_prefill_argument_bytes_are_the_cpu_serve_state():

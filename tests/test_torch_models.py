@@ -81,9 +81,10 @@ def test_unported_blocks_raise():
     """Every block family is ported now: the SSD, RG-LRU and
     encoder-decoder archs build through the registry (their numbers are
     held against the reference by tests/test_torch_ssm.py,
-    test_torch_rglru.py and test_torch_encdec.py). What still raises is
-    training any of the three through the trainer's launcher: the streaming
-    trainer is not held against the reference's driver on them."""
+    test_torch_rglru.py and test_torch_encdec.py) and train
+    (tests/test_torch_family_trainer.py). What still raises is the
+    launcher on the encoder-decoder: its token stream carries no frames,
+    as the reference's launcher's does not."""
     from repro_torch.launch import train as launch_train
     gen = torch.Generator().manual_seed(0)
     for arch, key in (("mamba2-2.7b", "blocks"),
@@ -91,9 +92,9 @@ def test_unported_blocks_raise():
                       ("seamless-m4t-medium", "encoder")):
         p = registry.init_params(gen, reduced(get_config(arch)))
         assert key in p
-        with pytest.raises(NotImplementedError, match="not ported"):
-            launch_train.main(["--arch", arch, "--reduced", "--device",
-                               "cpu"])
+    with pytest.raises(ValueError, match="no frames"):
+        launch_train.main(["--arch", "seamless-m4t-medium", "--reduced",
+                           "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------

@@ -303,7 +303,8 @@ def _model_dtype(params, dtype):
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "llama4-scout-17b-a16e"])
 def test_launch_train_takes_moe_archs(arch, capsys):
     """`launch/train.py --arch` trains a reduced MoE arch, 2 gossip nodes
-    on the CPU; the SSD arch still raises."""
+    on the CPU; the encoder-decoder arch raises (no frames in the token
+    stream, as in the reference's launcher)."""
     from repro_torch.launch import train as launch_train
     launch_train.main(["--arch", arch, "--reduced", "--device", "cpu",
                        "--steps", "2", "--superstep", "2", "--averaging",
@@ -312,9 +313,9 @@ def test_launch_train_takes_moe_archs(arch, capsys):
     rounds = [line for line in capsys.readouterr().out.splitlines()
               if line.startswith("round")]
     assert len(rounds) == 1 and "loss" in rounds[0]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        launch_train.main(["--arch", "mamba2-2.7b", "--reduced", "--device",
-                           "cpu"])
+    with pytest.raises(ValueError, match="no frames"):
+        launch_train.main(["--arch", "seamless-m4t-medium", "--reduced",
+                           "--device", "cpu"])
 
 
 def test_bf16_state_with_f32_router_trains_packs_and_publishes():

@@ -361,15 +361,44 @@ def test_launcher_runs_on_the_cpu(capsys):
                                "--device", "cpu", *flag])
 
 
-def test_launcher_checkpoint_and_resume(tmp_path, capsys):
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b",
+                                  "seamless-m4t-medium"])
+def test_launcher_trains_the_last_families(arch, capsys):
+    """`--arch mamba2-2.7b` and `recurrentgemma-9b` train through the
+    launcher as granite-8b does, with falling losses over 4 nodes;
+    seamless-m4t-medium raises ValueError before any state is drawn: the
+    token stream carries no frames, as in the reference's launcher."""
+    argv = ["--arch", arch, "--reduced", "--device", "cpu", "--steps", "6",
+            "--superstep", "2", "--averaging", "gossip", "--rounds", "2",
+            "--nodes", "4", "--batch", "8", "--seq", "32", "--lr", "3e-3",
+            "--replan-every", "0"]
+    if arch == "seamless-m4t-medium":
+        with pytest.raises(ValueError, match="no frames"):
+            launch_train.main(argv)
+        return
+    launch_train.main(argv)
+    out = capsys.readouterr().out
+    assert "nodes=4 K=2" in out
+    rounds = [line.split() for line in out.splitlines()
+              if line.startswith("round")]
+    losses = [float(r[3]) for r in rounds]
+    assert len(losses) == 3 and losses[-1] < losses[0]
+    assert all(float(r[7]) > 0 for r in rounds)  # consensus_err
+
+
+@pytest.mark.parametrize("arch,dtype", [("granite-8b", "float32"),
+                                        ("mamba2-2.7b", "bfloat16")])
+def test_launcher_checkpoint_and_resume(tmp_path, capsys, arch, dtype):
     """`--checkpoint DIR --checkpoint-every 1 --checkpoint-budget 0` for 2
     supersteps, then `--resume DIR` for 2 more: the resumed rounds print
     the uninterrupted run's losses, and a `resumed:` line. Without
-    `--checkpoint-every`, `--checkpoint` saves the final state once."""
-    base = ["--arch", "granite-8b", "--reduced", "--device", "cpu",
+    `--checkpoint-every`, `--checkpoint` saves the final state once.
+    mamba2-2.7b in bf16: the SSD's f32 leaves are saved as f32 and
+    restored as f32, else the resumed losses would differ."""
+    base = ["--arch", arch, "--reduced", "--device", "cpu",
             "--superstep", "2", "--averaging", "gossip", "--rounds", "2",
             "--nodes", "2", "--batch", "4", "--seq", "16",
-            "--replan-every", "0"]
+            "--replan-every", "0", "--dtype", dtype]
     root = str(tmp_path / "ck")
 
     def rounds(out):
@@ -383,6 +412,13 @@ def test_launcher_checkpoint_and_resume(tmp_path, capsys):
                               "--checkpoint-budget", "0"])
     out = capsys.readouterr().out
     assert "snapshotter: saves=2" in out and "failures=0" in out
+    if arch == "mamba2-2.7b":
+        leaves = checkpoint.load_manifest(
+            checkpoint.step_dir(root, 2))["leaves"]
+        kinds = {k.split("::")[-1]: v["dtype"] for k, v in leaves.items()
+                 if k.startswith(".params::")}
+        assert kinds["A_log"] == kinds["D"] == kinds["dt_bias"] == "float32"
+        assert kinds["w_in"] == "bfloat16"
     launch_train.main(base + ["--steps", "4", "--resume", root])
     out = capsys.readouterr().out
     assert f"resumed: {root}/step_00000002 (superstep 2)" in out
