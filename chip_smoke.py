@@ -16,7 +16,8 @@
    4 ranks and at HIGHD's (n = 10, d = 3072, ring, R = 8) on 2 and 5, bit
    for bit; sign (bit for bit) and int8 (f32 round-off) per-node wires at
    block_d 512; xi + gossip at N = 10, Bn = 100 (one `krasulina_xi`
-   launch a rank); n = 10 on 4 ranks through the gather-roll. (s1) the
+   launch a rank); n = 10 on 4 ranks (3, 3, 2, 2 rows) through the halo
+   rule too, bit for bit. (s1) the
    governed PCA driver at HIGHD on 2 ranks, 48 rounds on a fake clock,
    exact and int8 (per-node) wires, against the single-process card run
    forced to impl="roll" (the same plan history, sin^2 < 0.05, the exact
@@ -31,6 +32,32 @@
    (s2b) requires 0). Prints the time per call,
    rounds/s, the bytes staged per round, each rank's peak memory and
    launches, and the phases' seconds.
+   (v0)-(v4), elastic membership on the sharded node axis, after the
+   model axis's ranks (t): four rank processes in one gloo group (a
+   subgroup of 2 for the 2-rank phases), a cohort's active rows split over
+   them as contiguous, uneven runs (`dist.cohort_rows`; a rank may hold
+   none). (v0) the cohort shard rules at HIGHD's mix (n = 10, d = 3072,
+   ring R = 8) on 2 and 4 ranks (3/3/2/2) with node 0 out, nodes 3 and 4
+   out and every row of one rank out, exact and sign bit for bit, int8
+   at f32 round-off against the plain per-round path over the m cohort
+   rows, and one round's table of ring/lossy/iid_pca's scheduled op within
+   1e-6 of its largest entry; (v1) (s1)'s governed PCA driver on 2 ranks
+   under (i)'s faults (the exact and int8 tile wires under
+   `death:3@2-6,flaky:7@3-9p2`, `slow:2@2-6x4` under the policy "drop"):
+   equal events, signatures and plan histories, sin^2 < 0.05, the exact
+   wire's iterate within 1e-5 rel + 1e-5 max, `krasulina_xi` (and
+   `gossip_mix_quant` on the gathered cohort) once a round a rank; (v2)
+   tv_rte/ratelimited/drift_pca and geometric/lossy/skew_logreg on 2
+   ranks, N = 8, their scheduled operators gathering the node rows; (v3)
+   the reduced granite trainer, 4 ranks x 1 node, under `death:1@1-2`
+   with and without rejoin sync, at (h0)'s bounds; (v4) granite-8b at its
+   published widths cut to 2 layers, (s2b)'s node on each of 4 ranks,
+   under `death:1@1-2` with rejoin sync, one round a superstep (one round
+   at full membership, one in the cohort, one rejoining): the dead node's rows
+   unchanged bit for bit while out, within one bf16 step of the donors'
+   mean after the rejoin, the planned wire equal to the ranks' to the
+   byte; prints s per round at full membership and in the cohort, bytes
+   by route, each rank's peak, the launches and (v)'s seconds.
 3. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
@@ -504,7 +531,7 @@ S0_CASES = [
     ("HIGHD", 2, HIGHD_N, 3072, HIGHD_R, 0.0, "sign"),
     ("HIGHD", 2, HIGHD_N, 3072, HIGHD_R, 0.0, "int8"),
     ("HIGHD", 2, HIGHD_N, 3072, HIGHD_R, 0.0, "xi_gossip"),
-    ("HIGHD uncovered", 4, HIGHD_N, 3072, HIGHD_R, 0.0, "exact"),
+    ("HIGHD uneven", 4, HIGHD_N, 3072, HIGHD_R, 0.0, "exact"),
 ]
 
 
@@ -953,8 +980,7 @@ def shard_phases(dev) -> dict:
               f"{'ok' if ok else 'FAIL'}")
         require(ok, f"(s0) {label} {kind} ranks={E} disagrees with the "
                     f"plain per-round path")
-        require(c0["impl"] == ("roll" if "uncovered" in label else "shard"),
-                f"(s0) {label}: impl {c0['impl']}")
+        require(c0["impl"] == "shard", f"(s0) {label}: impl {c0['impl']}")
         require(all(c["launches"]["gossip_mix"] == 0 and
                     c["launches"]["gossip_mix_quant"] == 0 for c in cases),
                 f"(s0) {label}: a node-axis kernel ran on the sharded path")
@@ -1506,6 +1532,765 @@ def model_axis_phases(dev) -> dict:
                 for rr in res] for phase in ("t1", "t2")}}
 
 
+# (v0)-(v4) elastic membership and the scenario harness on the sharded node
+# axis: V_WORLD rank processes share the card in one gloo group
+# (`elastic_shard_phases`, spawned after (t)'s ranks have exited); a
+# subgroup of 2 ranks carries the 2-rank phases, and (v1)'s runs go to
+# ranks {0, 1} and {2, 3} at once. A cohort's active rows
+# split over the ranks as contiguous, uneven runs (`dist.cohort_rows`; a
+# rank may hold none)
+V_WORLD, V_TIMEOUT = 4, 600
+# (v0): (ranks, nodes dropped) at HIGHD's mix (n = 10, d = 3072, ring,
+# R = 8); on 2 ranks dropping 5..9 puts every cohort row on rank 0 (the
+# ring over them wraps onto its own rows: the op gathers)
+V0_COHORTS = [(2, (0,)), (2, (3, 4)), (2, (5, 6, 7, 8, 9)),
+              (4, (0,)), (4, (3, 4)), (4, (6, 7))]
+V0_KINDS = ("exact", "sign", "int8")
+V0_SCN, V0_T = "ring/lossy/iid_pca", 3  # (v0)'s scheduled op and round
+# (v1): (label, wire, fault spec, governor) on (s1)'s clock and stream;
+# V1_PAIRS: the runs of ranks {0, 1} (which then run (v2)) and of {2, 3}
+V1_PAIRS = (("exact",), ("int8 tile", "straggler drop"))
+V1_RUNS = [("exact", "exact", "death:3@2-6,flaky:7@3-9p2", {}),
+           ("int8 tile", "int8", "death:3@2-6,flaky:7@3-9p2", {}),
+           ("straggler drop", "exact", "slow:2@2-6x4",
+            dict(straggler_policy="drop", straggler_slow_factor=2.0,
+                 straggler_patience=2))]
+# (v2): scenario -> supersteps of V2_K rounds, and whether sin^2 < 0.05 is
+# held: the drifting stream's top direction moves away from the fixed
+# eigenvector the metric reads (its single-process sin^2 rises from 0.12 at
+# 32 rounds to 0.61 at 128), so only its agreement is held
+V2_SCENARIOS = {"tv_rte/ratelimited/drift_pca": (8, False),
+                "geometric/lossy/skew_logreg": (32, True)}
+V2_K = 4
+V3_SPEC, V3_SUPERSTEPS = "death:1@1-2", 3
+# (v4): node 1 out at superstep V4_LEAVE, back at V4_REJOIN, V4_K rounds a
+# superstep: the fewest full-width rounds its checks need (one at full
+# membership, one in the cohort, one rejoining; each costs ~10 s of staged
+# halo bytes), so that (v) stays under 120 s
+V4_LEAVE, V4_REJOIN, V4_K = 1, 2, 1
+V4_SPEC, V4_SUPERSTEPS = f"death:1@{V4_LEAVE}-{V4_REJOIN}", V4_REJOIN + 1
+
+
+def v_wires():
+    """(v1)'s wires: exact gossip and (i)'s int8 tile wire."""
+    from repro_torch.configs.base import AveragingConfig
+
+    return {"exact": AveragingConfig(mode="gossip", rounds=HIGHD_R,
+                                     topology="ring"),
+            "int8": AveragingConfig(mode="gossip", rounds=HIGHD_R,
+                                    topology="ring", quantization="int8",
+                                    quant_stats="tile", quant_block_d=512)}
+
+
+def v_pca_run(dev, mesh, stream, w0, label, wire, spec, gov):
+    """(v1)'s run `label` on `mesh` (None: the single-process reference,
+    its exact wire forced to impl="roll"): (decisions, events, the
+    iterate, the history, the driver, seconds)."""
+    import torch
+
+    from repro_torch.configs.base import GovernorConfig
+    from repro_torch.configs.paper_pca import HIGHD, PCARunConfig
+    from repro_torch.core import averaging, krasulina, problems
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.data.synthetic import make_pca_host_sampler
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    avg = v_wires()[wire]
+    sin2 = lambda w: problems.sin2_error(w, stream.top_eigvec)
+    mix = None
+    if mesh is None and wire == "exact":
+        mix = averaging.make_gossip_mix(avg, HIGHD_N, impl="roll",
+                                        device=dev)
+    build = krasulina.krasulina_superstep_builder(
+        avg, HIGHD_N, lambda t: 5.0 / t, metric=sin2, mix=mix,
+        fuse_xi=False if mesh is None else None, device=dev, mesh=mesh)
+    t0 = time.perf_counter()
+    with StreamingDriver(
+            PCARunConfig(pca=HIGHD, averaging=avg, stream=s1_stream()),
+            mesh, krasulina.init_krasulina_state(w0, avg, HIGHD_N,
+                                                 device=dev, mesh=mesh),
+            make_pca_host_sampler(stream), superstep_builder=build,
+            n_nodes=HIGHD_N, batch=HIGHD_B, clock=_SClock(S1_DT), device=dev,
+            faults=FaultSchedule.parse(spec, HIGHD_N),
+            engine=EngineConfig(superstep=HIGHD_K, prefetch_depth=0,
+                                governor=GovernorConfig(**gov))) as drv:
+        state, hist = drv.run(S1_SUPERSTEPS)
+    torch.cuda.synchronize()
+    events = [(e["superstep"], e["to"].active_ids, e["plan"].B)
+              for e in drv.membership_events]
+    return (_s_decisions(hist), events, state.w.cpu(), hist,
+            drv.compiled_signatures, time.perf_counter() - t0)
+
+
+def v_scenario_run(dev, mesh, fig7, w7, name):
+    """(v2)'s scenario `name` (N = 8, ring R = 2 as registered) on `mesh`
+    (None: the single-process reference), (j)'s settings: (history, the
+    iterate, seconds)."""
+    import torch
+
+    from repro_torch.configs.base import StreamConfig
+    from repro_torch.configs.paper_pca import FIG7, PCARunConfig
+    from repro_torch.core import krasulina, problems, scenarios
+    from repro_torch.data.synthetic import make_pca_host_sampler
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    scn = scenarios.get_scenario(name)
+    avg = scenarios.averaging_config(scn)
+    sample = (scenarios.build_stream(scn, pca=fig7).sample
+              if scn.stream in ("iid_pca", "drift_pca")
+              else make_pca_host_sampler(fig7))
+    metric = lambda w: problems.sin2_error(w, fig7.top_eigvec)
+    build = krasulina.krasulina_superstep_builder(
+        avg, scn.n_nodes, lambda t: 10.0 / t, metric=metric,
+        mix=scenarios.build_mix(scn, device=dev, mesh=mesh), device=dev,
+        mesh=mesh)
+    supersteps = V2_SCENARIOS[name][0]
+    t0 = time.perf_counter()
+    with StreamingDriver(
+            PCARunConfig(pca=FIG7, averaging=avg, stream=StreamConfig()),
+            mesh, krasulina.init_krasulina_state(w7, avg, scn.n_nodes,
+                                                 device=dev, mesh=mesh),
+            sample, superstep_builder=build, n_nodes=scn.n_nodes,
+            batch=10 * scn.n_nodes, faults=scenarios.fault_schedule(scn),
+            device=dev, engine=EngineConfig(superstep=V2_K, prefetch_depth=0,
+                                            replan_every=0)) as drv:
+        state, hist = drv.run(supersteps)
+    torch.cuda.synchronize()
+    return hist, state.w.cpu(), time.perf_counter() - t0
+
+
+def v3_run(dev, mesh, sync: bool, state):
+    """(v3)'s reduced granite-8b (f32, Adam) under V3_SPEC through the
+    driver (K = 1, no prefetch, open loop), 8 x 64 tokens a round, from
+    `state` (this rank's node on `mesh`; every node without one, where the
+    exact wire is forced to impl="roll"): (history, events, state)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import GovernorConfig
+    from repro_torch.core import averaging
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.data.lm import MarkovTokenStream
+    from repro_torch.train import trainer
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    cfg = reduced(get_config("granite-8b"))
+    run = s2_run(cfg, "gossip", "float32")
+    data = MarkovTokenStream(cfg.vocab_size, seed=0)
+
+    def sample(rng, n):
+        toks = data.sample(rng, n, 65)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    builder = None
+    if mesh is None:
+        builder = trainer.superstep_builder(
+            run, None, n_nodes=TRAIN_N, device=dev,
+            mix=averaging.make_gossip_mix(run.averaging, TRAIN_N,
+                                          impl="roll", device=dev))
+    with StreamingDriver(run, mesh, state, sample, batch=8, n_nodes=TRAIN_N,
+                         superstep_builder=builder, device=dev,
+                         faults=FaultSchedule.parse(V3_SPEC, TRAIN_N),
+                         engine=EngineConfig(superstep=1, prefetch_depth=0,
+                                             replan_every=0,
+                                             governor=GovernorConfig(
+                                                 sync_on_rejoin=sync))
+                         ) as drv:
+        state, hist = drv.run(V3_SUPERSTEPS)
+    events = [(e["superstep"], e["to"].active_ids)
+              for e in drv.membership_events]
+    return hist, events, state
+
+
+def v3_state(dev, n_rows: int):
+    """(s2a)'s reduced granite state (f32, Adam, seed 0) at n_rows nodes on
+    the card."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.packing import tree_map
+    from repro_torch.train import trainer
+
+    run = s2_run(reduced(get_config("granite-8b")), "gossip", "float32")
+    st = trainer.replicate_for_nodes(trainer.init_state(
+        run, torch.Generator().manual_seed(0)), n_rows)
+    to = lambda tree: tree_map(lambda t: t.to(dev), tree)
+    return trainer.TrainState(to(st.params), st.opt._replace(
+        m=to(st.opt.m), v=to(st.opt.v), master=to(st.opt.master)))
+
+
+def v_rank(rank: int, store: str, workdir: str) -> int:
+    """One rank of (v0)-(v4): `python3 chip_smoke.py --v-rank RANK STORE
+    DIR`. Saves its results to DIR/rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch import convert, dist as rdist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.paper_pca import FIG7, HIGHD
+    from repro_torch.core import mixing, scenarios
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.core.mixing import Membership
+    from repro_torch.core.packing import tree_leaves, tree_map
+    from repro_torch.data.lm import MarkovTokenStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.common import MetaGenerator
+    from repro_torch.train import trainer
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=V_WORLD,
+                            timeout=datetime.timedelta(seconds=180))
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    groups = {2: pairs[0], V_WORLD: None}
+    meshes = {E: make_host_mesh(group=g) for E, g in groups.items()
+              if rank < E}
+    # (v1)'s runs are dealt over the two pairs of ranks (V1_PAIRS), which
+    # run at once
+    pair = rank // 2
+    pair_mesh = make_host_mesh(group=pairs[pair])
+    res = {"seconds": {}}
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+
+    def launches():
+        out = dict(ops.launches)
+        ops.reset_launches()
+        return out
+
+    # (v0) the cohort shard rules on this rank's active rows, each against
+    # the plain per-round path over the m cohort rows on the card
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    v0 = []
+    for idx, (E, dropped) in enumerate(V0_COHORTS):
+        if E not in meshes:
+            continue
+        mesh = meshes[E]
+        mem = Membership.full(HIGHD_N).drop(*dropped)
+        m = mem.n_active
+        table = rdist.cohort_rows(mesh, mem)
+        a, b = table[rdist.node_index(mesh)]
+        sched = mixing.schedule("ring", m)
+        gen.manual_seed(300 + idx)
+        x = torch.randn((m, 3072), generator=gen, device=dev)
+        mine = x[a:b].contiguous()
+        for kind in V0_KINDS:
+            quant = "none" if kind == "exact" else kind
+            op = mixing.circulant_mix_op(
+                sched, m, HIGHD_R, quantization=quant, stats="node",
+                block_d=512, mesh=mesh, rows=table, device=dev)
+            want = (ref.gossip_mix_ref(x, sched, HIGHD_R) if quant == "none"
+                    else ref.gossip_mix_quant_ref(
+                        x, sched, HIGHD_R, quant, block_d=512,
+                        per_node=True))[a:b]
+            ops.reset_launches()
+            rdist.reset_stats()
+            got = op(mine)
+            torch.cuda.synchronize()
+            v0.append({"ranks": E, "dropped": dropped, "kind": kind,
+                       "impl": op.impl, "table": table, "rows": (a, b),
+                       "equal": bool(torch.equal(got, want)),
+                       "max_abs_err": (got - want).abs().max().item()
+                       if b > a else 0.0,
+                       "max_plain": want.abs().max().item() if b > a
+                       else 0.0,
+                       "staged": rdist.stats["staged_bytes"],
+                       "launches": launches()})
+    # the scheduled op of V0_SCN (n = 8) on 2 and 4 ranks, one round's
+    # table, against the one-process product on the card
+    scn = scenarios.get_scenario(V0_SCN)
+    gen.manual_seed(399)
+    xs = torch.randn((scn.n_nodes, 3072), generator=gen, device=dev)
+    whole = scenarios.build_mix(scn, device=dev)(xs, t=V0_T)
+    for E, mesh in meshes.items():
+        rows = rdist.node_rows(mesh, scn.n_nodes)
+        got = scenarios.build_mix(scn, device=dev, mesh=mesh)(
+            xs[rows].contiguous(), t=V0_T)
+        v0.append({"ranks": E, "dropped": (), "kind": "scheduled",
+                   "impl": "gather", "rows": (rows.start, rows.stop),
+                   "max_abs_err": (got - whole[rows]).abs().max().item(),
+                   "max_plain": whole.abs().max().item(),
+                   "launches": launches()})
+    res["v0"] = v0
+    dist.barrier()
+    res["seconds"]["v0"] = time.perf_counter() - t_phase
+
+    # (v1) the governed PCA driver at HIGHD on 2 ranks under faults
+    t_phase = time.perf_counter()
+    stream = convert.pca_stream(inp["cov"], inp["sqrt_cov"], inp["top"],
+                                HIGHD.lambda1, HIGHD.eigengap, device=dev)
+    res["v1"] = {}
+    for label, wire, spec, gov in V1_RUNS:
+        if label not in V1_PAIRS[pair]:
+            continue
+        ops.reset_launches()
+        rdist.reset_stats()
+        dec, events, w, hist, sigs, secs = v_pca_run(
+            dev, pair_mesh, stream, inp["w0"], label, wire, spec, gov)
+        rows = rdist.node_rows(pair_mesh, HIGHD_N)
+        res["v1"][label] = {
+            "decisions": dec, "events": events, "w": w,
+            "rows": (rows.start, rows.stop), "signatures": sigs,
+            "sin2": hist[-1]["metrics"]["metric"],
+            "finite": bool(torch.isfinite(w).all()),
+            "rounds": len(hist) * HIGHD_K, "seconds": secs,
+            "staged_per_round": rdist.stats["staged_bytes"]
+            / (len(hist) * HIGHD_K),
+            "launches": launches()}
+    del stream
+    res["seconds"]["v1"] = time.perf_counter() - t_phase
+
+    # (v2) two registered scenarios on the PCA driver, 2 ranks, N = 8,
+    # on ranks {0, 1} while {2, 3} finish (v1)
+    t_phase = time.perf_counter()
+    fig7 = convert.pca_stream(inp["fig7_cov"], inp["fig7_sqrt_cov"],
+                              inp["fig7_top"], FIG7.lambda1, FIG7.eigengap,
+                              device=dev)
+    if 2 in meshes:
+        mesh = meshes[2]
+        res["v2"] = {}
+        for name in V2_SCENARIOS:
+            ops.reset_launches()
+            rdist.reset_stats()
+            hist, w, secs = v_scenario_run(dev, mesh, fig7,
+                                           inp["w7"].to(dev), name)
+            rows = rdist.node_rows(mesh, 8)
+            res["v2"][name] = {
+                "w": w, "rows": (rows.start, rows.stop), "seconds": secs,
+                "sin2": hist[-1]["metrics"]["metric"],
+                "consensus_err": [r["metrics"]["consensus_err"]
+                                  for r in hist],
+                "drops": [r.get("link_drops") for r in hist],
+                "bw": [r.get("bw_factor") for r in hist],
+                "staged_per_round": rdist.stats["staged_bytes"]
+                / (len(hist) * V2_K),
+                "launches": launches()}
+    del fig7
+    dist.barrier()
+    res["seconds"]["v2"] = time.perf_counter() - t_phase
+
+    # (v3) the reduced granite trainer, 4 ranks x 1 node, under V3_SPEC
+    t_phase = time.perf_counter()
+    mesh = meshes[V_WORLD]
+    res["v3"] = {}
+    for sync in (True, False):
+        ops.reset_launches()
+        hist, events, st = v3_run(dev, mesh, sync, v3_state(dev, 1))
+        res["v3"][sync] = {
+            "losses": [r["metrics"]["loss"] for r in hist],
+            "n_active": [r["n_active"] for r in hist], "events": events,
+            "steps": st.opt.step,
+            "params": [p.cpu() for p in tree_leaves(st.params)],
+            "launches": launches()}
+        del st
+    dist.barrier()
+    res["seconds"]["v3"] = time.perf_counter() - t_phase
+
+    # (v4) granite-8b at its published widths, 2 layers, (s2b)'s node on
+    # each of 4 ranks, under V4_SPEC with rejoin sync
+    t_phase = time.perf_counter()
+    cfg_h = dataclasses.replace(get_config("granite-8b"),
+                                num_layers=TRAIN_LAYERS)
+    run = s2_run(cfg_h, "gossip", "bfloat16")
+    data = MarkovTokenStream(cfg_h.vocab_size, seed=0)
+
+    def sample(rng, n):
+        toks = data.sample(rng, n, TRAIN_S + 1)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = trainer.init_state(run, torch.Generator(device=dev).manual_seed(0))
+    one = lambda tree: tree_map(lambda t: t.unsqueeze(0), tree)
+    st = trainer.TrainState(one(st.params), st.opt._replace(
+        step=(st.opt.step,), m=one(st.opt.m), v=one(st.opt.v),
+        master=one(st.opt.master), ef_residual=one(st.opt.ef_residual)))
+    # 4096 entries a leaf, spread over it: the rows held against the
+    # donors' mean after the rejoin
+    # (integer steps: an f32 linspace rounds a 201 M-entry leaf's last
+    # index past its end)
+    picks = [torch.arange(4096, device=dev) * (p[0].numel() - 1) // 4095
+             for p in tree_leaves(st.params)]
+    sampled = lambda state: torch.cat([
+        p[0].reshape(-1)[i].double().cpu()
+        for p, i in zip(tree_leaves(state.params), picks)])
+    v4 = {"per_superstep": [], "frozen_equal": None, "sync": None}
+    frozen = {}
+
+    class Driver(StreamingDriver):
+        def _sync_rejoined(self, prev, new):
+            donors = [i for i in prev.active_ids if new.active[i]]
+            mine = sampled(self.state) if rank in donors else None
+            total = (mine if mine is not None else torch.zeros(
+                sum(len(i) for i in picks), dtype=torch.float64))
+            dist.all_reduce(total, group=mesh.group)
+            super()._sync_rejoined(prev, new)
+            if rank == 1:  # node 1 rejoins: within one bf16 step of the mean
+                mean = total / len(donors)
+                got = sampled(self.state)
+                step = (mean.abs().float().to(torch.bfloat16).float()
+                        .clamp_min(2.0 ** -126) * 2.0 ** -7).double()
+                v4["sync"] = {"max_steps": float(((got - mean).abs()
+                                                  / step).max()),
+                              "donors": donors}
+
+    def log_fn(rec):
+        k = rec["superstep"]
+        # node 1's rows as it leaves, kept on the card (two 2.5 GB host
+        # copies would hold every rank up at the next exchange)
+        if rank == 1 and k == V4_LEAVE - 1:
+            frozen["rows"] = [p.clone()
+                              for p in tree_leaves(drv.state.params)]
+        if rank == 1 and k == V4_REJOIN - 1:  # the last superstep it is out
+            v4["frozen_equal"] = all(
+                torch.equal(a, p) for a, p in
+                zip(frozen.pop("rows"), tree_leaves(drv.state.params)))
+        v4["per_superstep"].append({
+            "superstep": k, "n_active": rec["n_active"],
+            "loss": rec["metrics"]["loss"], "wall_s": rec["wall_s"],
+            "staged": rdist.stats["staged_bytes"],
+            "wire": rdist.stats["wire_bytes"],
+            "log": {f"{ax} {kind}": list(v)
+                    for (ax, kind), v in rdist.log.items()}})
+        rdist.reset_stats()
+
+    ops.reset_launches()
+    rdist.reset_stats()
+    t0 = time.perf_counter()
+    with Driver(run, mesh, st, sample, batch=2 * TRAIN_N, n_nodes=TRAIN_N,
+                device=dev, faults=FaultSchedule.parse(V4_SPEC, TRAIN_N),
+                engine=EngineConfig(superstep=V4_K, prefetch_depth=0,
+                                    replan_every=0)) as drv:
+        st, hist = drv.run(V4_SUPERSTEPS, log_fn=log_fn)
+    torch.cuda.synchronize()
+    v4["wall_s"] = time.perf_counter() - t0
+    v4["events"] = [(e["superstep"], e["to"].active_ids, e["plan"].B)
+                    for e in drv.membership_events]
+    v4["peak_bytes"] = torch.cuda.max_memory_allocated()
+    v4["launches"] = launches()
+    # the planner's wire of one round at full membership and in the
+    # cohort, for this rank
+    meta = tree_map(lambda t: t[None], registry.init_params(
+        MetaGenerator(), cfg_h, torch.bfloat16))
+    plans = {label: dryrun.node_axis_collectives(run, meta, mesh, TRAIN_N,
+                                                  membership=mem)
+             for label, mem in (("full", None), ("cohort", Membership.full(
+                 TRAIN_N).drop(1)))}
+    v4["planned"] = {label: dryrun.staged_bytes(coll)
+                     for label, coll in plans.items()}
+    v4["planned_messages"] = {
+        label: sum(v for k, v in coll.items() if k.endswith(".count"))
+        for label, coll in plans.items()}
+    res["v4"] = v4
+    del st, drv
+    dist.barrier()
+    res["seconds"]["v4"] = time.perf_counter() - t_phase
+    torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def elastic_shard_phases(dev) -> dict:
+    """(v0)-(v4) on the card: the single-process references first, then
+    V_WORLD rank processes (`v_rank`), joined under a deadline; prints each
+    check and (v)'s seconds, and returns the ranks' launches by phase and
+    rank, for the kernels line."""
+    import torch
+
+    from repro_torch.configs.paper_pca import FIG7, HIGHD
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.data.synthetic import make_pca_stream
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "elastic_shard")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    stream = make_pca_stream(HIGHD, device=dev)
+    fig7 = make_pca_stream(FIG7, device=dev)
+    rng = np.random.default_rng(7)
+    w0 = rng.standard_normal(HIGHD.dim).astype(np.float32)
+    w0 /= np.linalg.norm(w0)
+    w7 = torch.from_numpy(rng.standard_normal(FIG7.dim).astype(np.float32))
+    w7 /= w7.norm()
+    torch.save({"cov": stream.cov.cpu(), "sqrt_cov": stream.sqrt_cov.cpu(),
+                "top": stream.top_eigvec.cpu(), "w0": w0,
+                "fig7_cov": fig7.cov.cpu(),
+                "fig7_sqrt_cov": fig7.sqrt_cov.cpu(),
+                "fig7_top": fig7.top_eigvec.cpu(), "w7": w7},
+               os.path.join(work, "inputs.pt"))
+    # the ranks, started first: the single-process references run while
+    # they do
+    store = os.path.join(work, "store")
+    # two BLAS threads a rank: (v1)'s ranks each draw the whole stream on
+    # the host (numpy), beside the references, and share the host's cores
+    env = dict(os.environ, OMP_NUM_THREADS="2", OPENBLAS_NUM_THREADS="2",
+               MKL_NUM_THREADS="2")
+    procs = []
+    for r in range(V_WORLD):
+        log = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--v-rank", str(r),
+             store, work], stdout=log, stderr=subprocess.STDOUT, env=env),
+            log))
+    deadline = time.monotonic() + V_TIMEOUT
+    try:
+        # the single-process card runs: (v1) with the exact wire forced to
+        # impl="roll", (v2), (v3) at n_nodes = 4 with impl="roll"
+        ref1 = {label: v_pca_run(dev, None, stream, w0, label, wire, spec,
+                                 gov)
+                for label, wire, spec, gov in V1_RUNS}
+        ref2 = {name: v_scenario_run(dev, None, fig7, w7.to(dev), name)
+                for name in V2_SCENARIOS}
+        ref3 = {}
+        for sync in (True, False):
+            hist, events, st = v3_run(dev, None, sync,
+                                      v3_state(dev, TRAIN_N))
+            ref3[sync] = ([r["metrics"]["loss"] for r in hist], events,
+                          st.opt.step,
+                          [p.cpu() for p in tree_leaves(st.params)])
+            del st
+        del stream, fig7
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_all
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        print(f"(v) rank {r} exited {procs[r][0].returncode}:\n{tail}")
+    require(not failed, f"(v): ranks {failed} failed or overran "
+                        f"{V_TIMEOUT} s")
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(V_WORLD)]
+    t_ranks = time.perf_counter() - t_all
+
+    # (v0)
+    by_case = {}
+    for rr in res:
+        for case in rr["v0"]:
+            key = (case["ranks"], case["dropped"], case["kind"])
+            by_case.setdefault(key, []).append(case)
+    for (E, dropped, kind), cases in by_case.items():
+        c0 = cases[0]
+        require(len(cases) == E, f"(v0) ranks={E} out={dropped} {kind}: "
+                                 f"{len(cases)} ranks reported")
+        err = max(c["max_abs_err"] for c in cases)
+        scale = max(c["max_plain"] for c in cases)
+        if kind == "scheduled":
+            bit, limit = False, 1e-6 * scale
+        else:
+            bit = all(c["equal"] for c in cases)
+            # bit for bit, except the exact wire on the gather route
+            # (impl="roll"): it applies the R rounds composed into one
+            # circulant (`compose_schedule`), whose sums round apart from
+            # the R sequential rounds of the plain path
+            limit = (0.0 if kind == "sign" or (kind == "exact"
+                                               and c0["impl"] == "shard")
+                     else QUANT_TOL["float32"][0] * scale
+                     + QUANT_TOL["float32"][1] if kind == "int8"
+                     else TOL["float32"][0] * scale + TOL["float32"][1])
+        ok = bit if limit == 0.0 else err <= limit
+        print(f"check (v0) HIGHD cohort ranks={E} out={list(dropped)} {kind}"
+              f" impl={c0['impl']} rows by rank "
+              f"{[c['rows'] for c in cases]}: bit for bit {bit}, "
+              f"max_abs_err={err:.3e} limit={limit:.3e}; bytes staged by "
+              f"rank {[c.get('staged') for c in cases]} "
+              f"{'ok' if ok else 'FAIL'}")
+        require(ok, f"(v0) ranks={E} out={dropped} {kind} disagrees with "
+                    f"the plain per-round path over the cohort")
+        require(all(c["launches"]["gossip_mix"] == 0 and
+                    c["launches"]["gossip_mix_quant"] == 0 for c in cases),
+                f"(v0) {kind}: a node-axis kernel ran on the sharded path")
+    require(any(c["equal"] and c["rows"][0] == c["rows"][1]
+                for cs in by_case.values() for c in cs
+                if c["kind"] == "exact" and c["impl"] == "shard"),
+            "(v0): no covered cohort left a rank without a row")
+
+    # (v1)
+    v_launches = {k: {} for k in ("krasulina_xi", "gossip_mix_quant")}
+    for label, wire, spec, _ in V1_RUNS:
+        want_dec, want_ev, want_w, want_hist, want_sigs, want_s = ref1[label]
+        held = [r for r, rr in enumerate(res) if label in rr["v1"]]
+        runs = [res[r]["v1"][label] for r in held]
+        same = len(runs) == 2 and all(
+            r["decisions"] == want_dec and r["events"] == want_ev
+            and r["signatures"] == want_sigs for r in runs)
+        w = torch.cat([r["w"] for r in sorted(runs, key=lambda r: r["rows"])])
+        d = (w - want_w).abs()
+        bound = 1e-5 * want_w.abs() + 1e-5 * want_w.abs().max()
+        within = bool((d <= bound).all())
+        kernel = "gossip_mix_quant" if wire == "int8" else "krasulina_xi"
+        print(f"main (v1) HIGHD N={HIGHD_N} B={HIGHD_B} R={HIGHD_R} "
+              f"K={HIGHD_K} {label} under {spec} on 2 ranks: membership "
+              f"events {json.dumps(runs[0]['events'])} (single process "
+              f"{json.dumps(want_ev)}), signatures {list(runs[0]['signatures'])}"
+              f", plan history and events equal: {same}; sin2 "
+              f"{[round(r['sin2'], 5) for r in runs]} (single process "
+              f"{want_hist[-1]['metrics']['metric']:.5f}); iterate vs the "
+              f"single-process card run: max_abs_err {d.max().item():.3e}, "
+              f"within 1e-5 rel + 1e-5 max: {within}; s by rank "
+              f"{[round(r['seconds'], 3) for r in runs]} (single process "
+              f"{want_s:.3f}); bytes staged per round by rank "
+              f"{[int(r['staged_per_round']) for r in runs]}; launches "
+              f"{json.dumps(runs[0]['launches'])}")
+        require(same, f"(v1) {label}: plans, events or signatures differ")
+        require(runs[0]["events"], f"(v1) {label}: no membership event")
+        require(all(r["finite"] and r["sin2"] < 0.05 for r in runs),
+                f"(v1) {label}: sin2 not < 0.05")
+        if wire == "exact":
+            require(within, f"(v1) {label}: the iterate disagrees with the "
+                            f"single-process run")
+        require(all(r["launches"][kernel] == r["rounds"] for r in runs),
+                f"(v1) {label}: {kernel} launches "
+                f"{[r['launches'][kernel] for r in runs]}")
+        for k in v_launches:
+            v_launches[k].setdefault("v1", [0] * V_WORLD)
+            for r, run in zip(held, runs):
+                v_launches[k]["v1"][r] += run["launches"][k]
+
+    # (v2)
+    for name in V2_SCENARIOS:
+        want_hist, want_w, want_s = ref2[name]
+        runs = [rr["v2"][name] for rr in res[:2]]
+        w = torch.cat([r["w"] for r in sorted(runs, key=lambda r: r["rows"])])
+        d = (w - want_w).abs()
+        bound = 1e-5 * want_w.abs() + 1e-5 * want_w.abs().max()
+        within = bool((d <= bound).all())
+        want_c = np.asarray([r["metrics"]["consensus_err"]
+                             for r in want_hist])
+        cerr = max(float(np.abs(np.asarray(r["consensus_err"]) - want_c).max()
+                         / want_c.max()) for r in runs)
+        drops = all(r["drops"] == [x.get("link_drops") for x in want_hist]
+                    and r["bw"] == [x.get("bw_factor") for x in want_hist]
+                    for r in runs)
+        supersteps, held = V2_SCENARIOS[name]
+        print(f"main (v2) scenario {name} N=8 on 2 ranks, {supersteps} "
+              f"supersteps of K={V2_K}: sin2 "
+              f"{[round(r['sin2'], 5) for r in runs]} (single process "
+              f"{want_hist[-1]['metrics']['metric']:.5f}); iterate max_abs_err"
+              f" {d.max().item():.3e}, within 1e-5 rel + 1e-5 max: {within};"
+              f" consensus errors max rel err {cerr:.2e} (limit 1e-4); link "
+              f"records equal: {drops}; s by rank "
+              f"{[round(r['seconds'], 3) for r in runs]} (single process "
+              f"{want_s:.3f}); bytes staged per round by rank "
+              f"{[int(r['staged_per_round']) for r in runs]}; launches "
+              f"{json.dumps(runs[0]['launches'])}")
+        require(within and cerr <= 1e-4 and drops,
+                f"(v2) {name}: disagrees with the single-process run")
+        require(all(math.isfinite(r["sin2"]) and (r["sin2"] < 0.05
+                                                  or not held)
+                    for r in runs), f"(v2) {name}: sin2 not < 0.05")
+        rounds = supersteps * V2_K
+        require(all(r["launches"]["krasulina_xi"] == rounds for r in runs),
+                f"(v2) {name}: krasulina_xi launches")
+        v_launches["krasulina_xi"].setdefault("v2", [0] * V_WORLD)
+        for r, run in enumerate(runs):
+            v_launches["krasulina_xi"]["v2"][r] += run["launches"][
+                "krasulina_xi"]
+
+    # (v3)
+    for sync, (want_l, want_ev, want_steps, want_p) in ref3.items():
+        runs = [rr["v3"][sync] for rr in res]
+        loss_err = max(abs(a - b) / abs(b) for r in runs
+                       for a, b in zip(r["losses"], want_l))
+        got = [torch.cat([r["params"][i] for r in runs])
+               for i in range(len(want_p))]
+        d = torch.cat([(a - b).abs().ravel() for a, b in zip(got, want_p)])
+        within = float((d <= 1e-4).float().mean())
+        steps = tuple(s for r in runs for s in r["steps"])
+        print(f"main (v3) reduced granite-8b f32 4 ranks x 1 node under "
+              f"{V3_SPEC}, rejoin sync {sync}: membership events "
+              f"{json.dumps(runs[0]['events'])} (single process "
+              f"{json.dumps(want_ev)}), nodes by round {runs[0]['n_active']},"
+              f" steps {steps} (single process {want_steps}); losses "
+              f"{json.dumps(runs[0]['losses'])} max rel err {loss_err:.2e} "
+              f"(limit 1e-5); parameters within 1e-4: {within:.6f} (limit "
+              f">= 0.999), max_abs_err {d.max().item():.3e}; launches "
+              f"{json.dumps(runs[0]['launches'])}")
+        require(all(r["events"] == want_ev for r in runs) and
+                runs[0]["n_active"] == [4, 3, 4] and steps == want_steps,
+                f"(v3) sync {sync}: membership or steps differ")
+        require(loss_err <= 1e-5, f"(v3) sync {sync}: losses disagree")
+        require(within >= 0.999 and d.max().item() <= 3 * S_LR * 3,
+                f"(v3) sync {sync}: parameters disagree")
+        require(all(r["launches"]["gossip_mix"] == 0 for r in runs),
+                f"(v3) sync {sync}: gossip_mix ran on the sharded path")
+
+    # (v4)
+    runs = [rr["v4"] for rr in res]
+    r1 = runs[1]
+    full = [s for s in r1["per_superstep"] if s["n_active"] == TRAIN_N]
+    cohort = [s for s in r1["per_superstep"] if s["n_active"] < TRAIN_N]
+    per_round = lambda recs: [round(s["wall_s"] / V4_K, 3) for s in recs]
+    losses = [s["loss"] for s in runs[0]["per_superstep"]]
+    wire_ok = all(
+        s["wire"] == V4_K * r["planned"]["full" if s["n_active"] == TRAIN_N
+                                     else "cohort"]
+        for r in runs for s in r["per_superstep"]
+        if s["superstep"] < V4_REJOIN)  # the rejoin adds the sync's sum
+    routes = {label: runs[0]["per_superstep"][k]["log"]
+              for label, k in (("full", 0), ("cohort", V4_LEAVE))}
+    print(f"main (v4) granite-8b full width, {TRAIN_LAYERS} layers, 4 ranks "
+          f"x 1 node, 2 x {TRAIN_S} tokens a node, ring R={TRAIN_R}, "
+          f"K={V4_K}, under {V4_SPEC} with rejoin sync: membership events "
+          f"{json.dumps(runs[0]['events'])}; losses {json.dumps(losses)}; "
+          f"node 1's rows unchanged while out: {r1['frozen_equal']}; after "
+          f"the rejoin within {r1['sync']['max_steps']:.3f} bf16 steps of the "
+          f"donors' mean (limit 1); s per round at full membership "
+          f"{per_round(full)}, in the cohort {per_round(cohort)} (rank 1); "
+          f"bytes staged per superstep by rank "
+          f"{[[s['staged'] for s in r['per_superstep']] for r in runs]}; "
+          f"planned a round by rank {[r['planned'] for r in runs]} "
+          f"(messages {[r['planned_messages'] for r in runs]}), equal to the "
+          f"wire of supersteps 0-{V4_REJOIN - 1}: {wire_ok}; rank 0's "
+          f"[messages, bytes] "
+          f"of a superstep by route {json.dumps(routes)}; peak memory by "
+          f"rank GB "
+          f"{[round(r['peak_bytes'] / 1e9, 2) for r in runs]}; wall "
+          f"{runs[0]['wall_s']:.1f} s; launches "
+          f"{json.dumps(runs[0]['launches'])}")
+    require([e[:2] for e in runs[0]["events"]] == [(V4_LEAVE, (0, 2, 3)),
+                                                   (V4_REJOIN, (0, 1, 2, 3))]
+            and all(r["events"] == runs[0]["events"] for r in runs),
+            f"(v4) membership events {runs[0]['events']}")
+    require(r1["frozen_equal"], "(v4): node 1's rows changed while out")
+    require(r1["sync"]["max_steps"] <= 1.0,
+            "(v4): the rejoined rows are not the donors' mean")
+    require(all(math.isfinite(x) for x in losses), "(v4): losses not finite")
+    require(wire_ok, "(v4): the planned wire differs from the ranks'")
+    require(all(r["peak_bytes"] < 80e9 / 4 for r in runs),
+            "(v4): a rank's peak is a quarter of the card or more")
+    seconds = res[0]["seconds"]
+    total = time.perf_counter() - t_all
+    print(f"main (v) seconds: references {t_ref:.1f} (while the ranks "
+          f"run), ranks {t_ranks:.1f} "
+          f"(rank 0: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"), all {total:.1f} (target < 120)")
+    shutil.rmtree(work, ignore_errors=True)
+    require(all(v_launches[k] and any(sum(x) for x in v_launches[k].values())
+                for k in v_launches), f"(v): launches {v_launches}")
+    return v_launches
+
+
 def main() -> int:
     import torch
 
@@ -1574,6 +2359,9 @@ def main() -> int:
     s2b_staged = s_launches.pop("s2b_staged")
     # (t): the model axis, rank processes sharing the card
     t_launches = model_axis_phases(dev)
+    # (v): elastic membership on the sharded node axis, rank processes
+    # sharing the card
+    v_launches = elastic_shard_phases(dev)
     # what phase (p) holds its plans against: peaks, card times
     p_measured = {}
 
@@ -4737,12 +5525,14 @@ def main() -> int:
         key = ("launches_by_kernel" if row["name"] == "flash_attention"
                else "launches_by_nodes")
         row.setdefault(key, {})["s"] = by_phase
-    # the ranks' launches of (t1)-(t2), by phase and rank, under "t"
-    for row in rows:
-        by_phase = t_launches.get(row["name"])
-        if by_phase is not None:
-            row["launches"] += sum(sum(v) for v in by_phase.values())
-            row.setdefault("launches_by_nodes", {})["t"] = by_phase
+    # the ranks' launches of (t1)-(t2) and (v1)-(v2), by phase and rank,
+    # under "t" and "v"
+    for key, phases in (("t", t_launches), ("v", v_launches)):
+        for row in rows:
+            by_phase = phases.get(row["name"])
+            if by_phase is not None:
+                row["launches"] += sum(sum(v) for v in by_phase.values())
+                row.setdefault("launches_by_nodes", {})[key] = by_phase
     # the per-round metric: the excess risk reads the [d, d] covariance, the
     # alignment error two vectors
     wbar = state.w.mean(0)
@@ -4764,4 +5554,6 @@ if __name__ == "__main__":
         sys.exit(s_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--t-rank"]:
         sys.exit(t_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--v-rank"]:
+        sys.exit(v_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -38,7 +38,10 @@ Over a mesh that splits the node axis across ranks (`repro_torch/dist.py`),
 each rank holds its rows [n_local, ...] of every leaf: the gossip op
 (built with the mesh) mixes them with the shard rules, and the exact
 average, the consensus error and the node means reduce across ranks with
-all-reduces over the data group (`repro_torch/dist.py`). Over a model
+all-reduces over the data group (`repro_torch/dist.py`). An elastic run's
+cohort is such a split too (`dist.cohort_rows`): `n_nodes` is then the
+cohort's size m, the reductions run over the active rows of every rank and
+divide by m, and a rank with no active row adds nothing. Over a model
 axis each rank holds its model shard's block of every leaf: the mixing is
 linear per column, so each model index mixes its own columns over the node
 axis (unpacked, as the reference's "auto" is there), and the consensus
@@ -48,6 +51,7 @@ feedback on a sharded axis are not ported yet (ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Tuple
 
 import torch
@@ -82,7 +86,7 @@ def pack(tree: Tree, pools: Optional[Pools]):
 
 def make_gossip_mix(cfg: AveragingConfig, n_nodes: int, *,
                     impl: str = "auto", device: DeviceLike = None,
-                    mesh: Any = None) -> CirculantMixOp:
+                    mesh: Any = None, rows=None) -> CirculantMixOp:
     """Build the consensus engine for a config — once, outside the step loop.
     For `mode="hierarchical"` pass the pod count as `n_nodes`.
 
@@ -92,13 +96,15 @@ def make_gossip_mix(cfg: AveragingConfig, n_nodes: int, *,
     feedback on, the per-round compressor is dropped (`ef_average_and_error`
     compresses once per step outside the operator, and the rounds are exact
     and linear). Pass the `mesh` the op runs under: on a sharded node axis
-    it takes each rank's rows, and "auto" picks the shard rule."""
+    it takes each rank's rows, and "auto" picks the shard rule; `rows` is
+    the split of an elastic run's cohort (`dist.cohort_rows`, n_nodes the
+    cohort's size)."""
     sched = schedule(cfg.topology, n_nodes, cfg.self_weight)
     quantization = "none" if cfg.error_feedback != "off" else cfg.quantization
     return circulant_mix_op(sched, n_nodes, cfg.rounds,
                             quantization=quantization, impl=impl,
                             stats=cfg.quant_stats, block_d=cfg.quant_block_d,
-                            device=device, mesh=mesh)
+                            device=device, mesh=mesh, rows=rows)
 
 
 def resolve_packed(cfg: AveragingConfig, mesh: Any = None) -> bool:
@@ -459,7 +465,10 @@ def _consensus_of(segments, pools: Optional[Pools], mesh: Any,
         parts = [d2[i] for i in pool if i in d2]
         if not parts:
             continue
-        num = torch.sqrt(sum(p[0] for p in parts)).amax()
+        num = torch.sqrt(sum(p[0] for p in parts))
+        # a rank of a split node axis whose cohort rows are all out holds
+        # no deviation: it adds 0 to the max over ranks
+        num = num.amax() if num.numel() else num.new_zeros(())
         den = torch.sqrt(sum(p[1] for p in parts)) + 1e-30
         errs.append(num / den)
     if not errs:
@@ -481,7 +490,8 @@ def consensus_error(tree: Tree, pools: Optional[Pools] = None, *,
     are this rank's rows of the `n_nodes`-node axis, and over a model axis
     its blocks (`model_split` as in `average_and_error`)."""
     leaves = packing.tree_leaves(tree)
-    return _consensus_of(((i, x.reshape(x.shape[0], -1))
+    return _consensus_of(((i, x.reshape(x.shape[0],
+                                        math.prod(x.shape[1:])))
                           for i, x in enumerate(leaves)), pools, mesh,
                          n_nodes, model_split)
 

@@ -29,7 +29,10 @@ Over a mesh that splits the node axis across ranks (`repro_torch/dist.py`),
 the superstep runs on each rank's node rows: w, the samples and the iterate
 are [n_local, ...], xi stays node-local, the gossip rounds exchange halo
 rows (`kernels.ops.sharded_krasulina_xi_gossip`), and the exact mean, the
-node-mean iterate and the consensus spread are all-reduces.
+node-mean iterate and the consensus spread are all-reduces. An elastic
+run's cohort superstep there runs on each rank's active rows (the cohort's
+row table, `dist.cohort_rows`: uneven, and a rank may hold none), with the
+same rules over the m cohort rows and the reductions over the cohort.
 """
 from __future__ import annotations
 
@@ -97,7 +100,7 @@ def _gossip_xi(w: torch.Tensor, z: torch.Tensor, mix: CirculantMixOp,
     if fused and getattr(mix, "mesh", None) is not None:
         if mix.impl == "shard":
             return sharded_krasulina_xi_gossip(w, z, mix.sched, mix.rounds,
-                                               mix.mesh)
+                                               mix.mesh, mix.rows)
         fused = False  # a layout the rule does not cover: the op gathers
     if fused:
         return krasulina_xi_gossip(w, z, mix.sched, mix.rounds)
@@ -234,7 +237,7 @@ def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
                               mix=None,
                               fuse_xi: Optional[bool] = None,
                               device: DeviceLike = None,
-                              mesh=None) -> Callable:
+                              mesh=None, rows=None) -> Callable:
     """The PCA superstep consumed by `train.driver.StreamingDriver` (pass it
     as `superstep_fn`).
 
@@ -250,16 +253,18 @@ def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
 
     On a sharded `mesh` the batches and the iterate are this rank's rows:
     [K, B * n_local / N, d] in exact mode (`w` is every rank's copy of the
-    one iterate), [K, n_local, B/N, d] decentralized."""
+    one iterate), [K, n_local, B/N, d] decentralized. `rows` (a
+    `dist.RowTable`) is the split of an elastic run's m-node cohort
+    (`dist.cohort_rows`, n_nodes = m), where a rank may hold no row."""
     _check_averaging(averaging)
     dev = resolve_device(device)
     exact = averaging.mode == "exact"
     metric_fn = metric or _zero_metric
     sharded = is_sharded(mesh)
-    rows = n_local(mesh, n_nodes)
+    n_rows = n_local(mesh, n_nodes)
     if not exact and mix is None:
         mix = make_gossip_mix(averaging, n_nodes, device=dev,
-                              mesh=mesh if sharded else None)
+                              mesh=mesh if sharded else None, rows=rows)
     fused = False if exact else _resolve_fuse_xi(mix, fuse_xi, dev)
 
     def node_mean(x: torch.Tensor) -> torch.Tensor:
@@ -270,13 +275,15 @@ def build_krasulina_superstep(averaging: AveragingConfig, n_nodes: int,
 
     def round_fn(w: torch.Tensor, t: int, z: torch.Tensor):
         if exact:
-            zn = z.reshape(rows, z.shape[0] // rows, -1)
+            zn = z.reshape(n_rows, z.shape[0] // n_rows, -1)
             w.add_(node_mean(krasulina_xi(w, zn)), alpha=stepsize(t))
             return metric_fn(w), torch.zeros((), device=w.device)
         h = _gossip_xi(w, z, mix, fused, t)
         w.add_(h, alpha=stepsize(t))  # in place
         wbar = node_mean(w)
-        num = torch.linalg.vector_norm(w - wbar, dim=1).max()
+        num = torch.linalg.vector_norm(w - wbar, dim=1)
+        # a rank whose cohort rows are all out adds 0 to the max over ranks
+        num = num.max() if num.numel() else num.new_zeros(())
         if sharded:
             num = rdist.all_reduce_(num.reshape(1), mesh, ReduceOp.MAX)[0]
         spread = num / (torch.linalg.vector_norm(wbar) + 1e-30)
@@ -314,9 +321,10 @@ def krasulina_superstep_builder(averaging: AveragingConfig, n_nodes: int,
     the active cohort (docs/DESIGN.md §Elastic membership); the driver wraps
     it with the full-axis gather/scatter (`train.driver.elastic_superstep`).
     The prebuilt `mix` override only applies at full membership, since its
-    operator is sized for the full node axis. On a sharded `mesh` only the
-    full membership is built: churn on a sharded node axis is not ported
-    yet (ROADMAP.md). A model axis is refused: the PCA path has none."""
+    operator is sized for the full node axis. On a sharded `mesh` a cohort
+    superstep takes each rank's active rows and mixes over the cohort's row
+    table (`dist.cohort_rows`), so it is built once per table, not per
+    size. A model axis is refused: the PCA path has none."""
     if mesh is not None:
         check_mesh(mesh, "the PCA path")
     full = build_krasulina_superstep(averaging, n_nodes, stepsize,
@@ -325,17 +333,19 @@ def krasulina_superstep_builder(averaging: AveragingConfig, n_nodes: int,
     cohort_cache = {n_nodes: full}
 
     def build(B: int, membership=None) -> Callable:
-        m = n_nodes if membership is None else membership.n_active
-        fn = cohort_cache.get(m)
-        if fn is None and is_sharded(mesh):
-            raise NotImplementedError(
-                "elastic membership on a sharded node axis is not ported "
-                "yet (ROADMAP.md)")
+        if membership is None or membership.is_full:
+            return full
+        m = membership.n_active
+        table = (rdist.cohort_rows(mesh, membership) if is_sharded(mesh)
+                 else None)
+        key = m if table is None else table
+        fn = cohort_cache.get(key)
         if fn is None:
             fn = build_krasulina_superstep(averaging, m, stepsize,
                                            metric=metric, fuse_xi=fuse_xi,
-                                           device=device)
-            cohort_cache[m] = fn
+                                           device=device, mesh=mesh,
+                                           rows=table)
+            cohort_cache[key] = fn
         return fn
 
     return build

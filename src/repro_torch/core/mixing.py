@@ -32,11 +32,16 @@ matrix), and the scenario harness's time-varying graphs (eq. 17's
 B-connected sequences) run through `ScheduledMixOp`: a stack of dense
 per-phase operators on the device, the phase picked per round as data.
 
-On a node axis split over the ranks of a mesh (`repro_torch/dist.py`), a
-`CirculantMixOp` built with the mesh takes each rank's rows: `impl="shard"`
-runs the reference's partitioning rule (`kernels.consensus`: halo messages
-and a slice sum per round), and a layout the rule does not cover gathers
-the node axis, mixes it and keeps the rank's rows.
+On a node axis split over the ranks of a mesh (`repro_torch/dist.py`), an
+op built with the mesh takes each rank's rows, split as its row table says
+(`rows`: the even split by default, an elastic run's cohort,
+`dist.cohort_rows`). A `CirculantMixOp` with `impl="shard"` runs the
+reference's partitioning rule (`kernels.consensus`: halo messages and a
+slice sum per round), and a layout the rule does not cover gathers the
+node axis, mixes it and keeps the rank's rows. A `DenseMixOp` or a
+`ScheduledMixOp` (the scenario topologies and link-fault operators)
+gathers the node rows each call and keeps its own rows of the product
+(`_gathered_product`).
 """
 from __future__ import annotations
 
@@ -49,7 +54,8 @@ import torch
 from repro_torch.core.quantize import (COMPRESSORS, STOCHASTIC, fold_in,
                                        make_compressor)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist import all_gather_rows, is_sharded, n_local, node_rows
+from repro_torch.dist import (all_gather_rows, is_sharded, node_index,
+                              row_table)
 
 Schedule = Tuple[Tuple[int, float], ...]  # ((shift, weight), ...) includes shift 0
 
@@ -364,6 +370,33 @@ def compose_schedule(sched: Schedule, rounds: int, n: int) -> Schedule:
     return tuple(out)
 
 
+def _own_rows(mesh, n: int, rows) -> Tuple[int, int]:
+    """[a, b) of the rows that this rank holds of an n-row node axis split
+    as `rows` says (default: `row_table`); every row without a mesh."""
+    if mesh is None:
+        return 0, n
+    return (rows or row_table(mesh, n))[node_index(mesh)]
+
+
+def _check_rows(x: torch.Tensor, mesh, n: int, rows) -> None:
+    a, b = _own_rows(mesh, n, rows)
+    if x.shape[0] != b - a:
+        raise ValueError(f"MixOp built for n={n} ({b - a} rows on this "
+                         f"rank) applied to node axis {x.shape[0]}")
+
+
+def _gathered_product(A: torch.Tensor, x: torch.Tensor, mesh, n: int,
+                      rows) -> torch.Tensor:
+    """This rank's rows of A @ X for a node axis X split over `mesh`: the
+    rows of every rank gathered (`dist.all_gather_rows`), then the rank's
+    rows of A times them. A product over fewer rows than the one-process
+    A @ X may round otherwise in its last bits."""
+    a, b = _own_rows(mesh, n, rows)
+    full = all_gather_rows(x, mesh, n, rows).reshape(n, -1)
+    return (A[a:b].to(device=x.device, dtype=x.dtype) @ full).reshape(
+        b - a, *x.shape[1:])
+
+
 @dataclasses.dataclass(frozen=True)
 class DenseMixOp:
     """Precomputed R-round dense consensus operator (paper eq. 17).
@@ -371,14 +404,26 @@ class DenseMixOp:
     When `A_eff` is set (the default) the R sequential `A @ h` matmuls
     collapse to the single matmul `A_eff @ h` with `A_eff = A^R` — computed
     once at construction, in f32 as the reference does, outside the step
-    loop. With `A_eff=None` the per-round loop is kept (oracle)."""
+    loop. With `A_eff=None` the per-round loop is kept (oracle).
+
+    With a sharded `mesh`, h is this rank's rows (split as `rows` says) and
+    each product gathers the node rows (`_gathered_product`)."""
 
     A: torch.Tensor  # [N, N] one-round doubly-stochastic matrix, f32
     A_eff: Optional[torch.Tensor]  # [N, N] A^R, or None (per-round loop)
     rounds: int
+    mesh: Any = None  # a sharded `dist.Mesh`: h is this rank's rows
+    rows: Any = None  # its `dist.RowTable` (None: `row_table`)
 
     def __call__(self, h: torch.Tensor) -> torch.Tensor:
         if self.rounds == 0:
+            return h
+        if self.mesh is not None:
+            n = self.A.shape[0]
+            _check_rows(h, self.mesh, n, self.rows)
+            for A in ([self.A_eff] if self.A_eff is not None
+                      else [self.A] * self.rounds):
+                h = _gathered_product(A, h, self.mesh, n, self.rows)
             return h
         if self.A_eff is not None:
             return self.A_eff @ h
@@ -388,16 +433,24 @@ class DenseMixOp:
 
 
 def dense_mix_op(A, rounds: int, *, fuse: bool = True,
-                 device: DeviceLike = None) -> DenseMixOp:
+                 device: DeviceLike = None, mesh: Any = None,
+                 rows=None) -> DenseMixOp:
     """Build the dense-path MixOp on `device`; `fuse=False` keeps the
-    per-round loop."""
+    per-round loop. A `mesh` that splits the node axis (as `rows` says)
+    makes the op take each rank's rows."""
     A = torch.as_tensor(np.asarray(A, np.float32) if isinstance(A, np.ndarray)
                         else A).to(device=resolve_device(device),
                                    dtype=torch.float32)
     A_eff = None
     if fuse and rounds > 0:
         A_eff = torch.linalg.matrix_power(A, rounds) if rounds > 1 else A
-    return DenseMixOp(A, A_eff, rounds)
+    return DenseMixOp(A, A_eff, rounds, *_sharded_mesh(mesh, rows))
+
+
+def _sharded_mesh(mesh, rows) -> Tuple[Any, Any]:
+    """(mesh, rows) for an op: both None unless the mesh splits the node
+    axis (one node shard holds every row: the unsharded op)."""
+    return (mesh, rows) if is_sharded(mesh) else (None, None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -459,15 +512,13 @@ class CirculantMixOp:
     block_d: int = 512  # tile width for stats="tile" / "node"
     seed: int = 0  # base key of stochastic compressors
     mesh: Any = None  # a sharded `dist.Mesh`: x is this rank's rows
+    rows: Any = None  # its `dist.RowTable` (None: `row_table(mesh, n)`)
 
     def __call__(self, x: torch.Tensor, *,
                  seg_widths: Optional[Tuple[int, ...]] = None,
                  valid_d: Optional[int] = None,
                  key: Optional[int] = None) -> torch.Tensor:
-        rows = n_local(self.mesh, self.n)
-        if x.shape[0] != rows:
-            raise ValueError(f"MixOp built for n={self.n} ({rows} rows on "
-                             f"this rank) applied to node axis {x.shape[0]}")
+        _check_rows(x, self.mesh, self.n, self.rows)
         if self.rounds == 0 or self.n == 1:
             return x
         if self.mesh is not None:
@@ -503,16 +554,18 @@ class CirculantMixOp:
 
         if self.impl == "shard" and self.quantization == "none":
             return ops.sharded_gossip_mix(x, self.sched, self.rounds,
-                                          self.mesh)
+                                          self.mesh, self.rows)
         if self.impl == "shard" and self.stats == "node":
             return ops.sharded_quant_gossip_mix(
                 x, self.sched, self.rounds, self.quantization, self.mesh,
-                block_d=self.block_d, valid_d=valid_d, key=self._key0(key))
-        full = all_gather_rows(x, self.mesh, self.n)
+                block_d=self.block_d, valid_d=valid_d, key=self._key0(key),
+                rows=self.rows)
+        full = all_gather_rows(x, self.mesh, self.n, self.rows)
         impl = "roll" if self.impl == "shard" else self.impl
-        whole = dataclasses.replace(self, mesh=None, impl=impl)
+        whole = dataclasses.replace(self, mesh=None, rows=None, impl=impl)
         out = whole(full, seg_widths=seg_widths, valid_d=valid_d, key=key)
-        return out[node_rows(self.mesh, self.n)].contiguous()
+        a, b = _own_rows(self.mesh, self.n, self.rows)
+        return out[a:b].contiguous()
 
     def _quantized(self, x, seg_widths, valid_d, key):
         """Per-round nonlinear consensus. `valid_d` marks trailing flattened
@@ -574,7 +627,7 @@ def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
                      fuse: bool = True, stats: str = "global",
                      block_d: int = 512, seed: int = 0,
                      device: DeviceLike = None,
-                     mesh: Any = None) -> CirculantMixOp:
+                     mesh: Any = None, rows=None) -> CirculantMixOp:
     """Build the circulant-path MixOp from a one-round schedule.
 
     The R-round operator is precomputed here, once, so the per-step cost is
@@ -590,11 +643,13 @@ def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
     (`kernels.ops.node_shard_info`) and falls back to "roll" elsewhere (on
     a sharded mesh: gather, roll, keep the rank's rows), as the reference
     does; it keeps per-round semantics, so it carries no fused schedule.
-    Over a model axis each model index mixes its own columns: the halo
-    rows go between the node shards' ranks at this rank's model index, and
-    with one node shard every row is local (the unsharded op)."""
-    if mesh is not None and not is_sharded(mesh):
-        mesh = None  # one node shard holds every row: the unsharded op
+    `rows` (a `dist.RowTable`) is the split when it is not the even one of
+    `dist.row_table`: an elastic run's cohort (`dist.cohort_rows`, n the
+    cohort's size). Over a model axis each model index mixes its own
+    columns: the halo rows go between the node shards' ranks at this
+    rank's model index, and with one node shard every row is local (the
+    unsharded op)."""
+    mesh, rows = _sharded_mesh(mesh, rows)
     if impl not in ("auto", "roll", "matmul", "kernel", "shard"):
         raise ValueError(f"unknown MixOp impl {impl!r}")
     if stats not in ("global", "segment", "tile", "node"):
@@ -605,17 +660,17 @@ def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
         impl = resolve_auto_impl(device, mesh)
     if impl == "shard":
         from repro_torch.kernels.ops import node_shard_info
-        if node_shard_info(mesh, n, sched) is None:
+        if node_shard_info(mesh, n, sched, rows) is None:
             impl = "roll"  # the rule does not cover this layout
     if quantization != "none" or not fuse or impl == "shard":
         return CirculantMixOp(sched, None, None, n, rounds, impl,
-                              quantization, stats, block_d, seed, mesh)
+                              quantization, stats, block_d, seed, mesh, rows)
     fused = compose_schedule(sched, rounds, n) if rounds > 0 else ((0, 1.0),)
     # the dense [n, n] operator is only needed by the matmul impl
     A_eff = (torch.as_tensor(schedule_matrix(fused, n), dtype=torch.float32)
              if impl == "matmul" else None)
     return CirculantMixOp(sched, fused, A_eff, n, rounds, impl, quantization,
-                          stats, block_d, seed, mesh)
+                          stats, block_d, seed, mesh, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -645,7 +700,13 @@ class ScheduledMixOp:
     `CirculantMixOp` in `core.averaging` and `core.krasulina`. Callers pass
     the round counter `t` (the Krasulina carry's round index, or the
     optimizer step on the LM path) as an int or a 0-dim tensor on the op's
-    device; `t=None` pins phase 0."""
+    device; `t=None` pins phase 0.
+
+    With a sharded `mesh`, x is this rank's rows (split as `rows` says) and
+    each call gathers the node rows and keeps this rank's rows of the
+    product (`_gathered_product`). The operator tables are functions of
+    the scenario's seed and the round alone, so every rank builds the same
+    ones and no message carries them."""
 
     A_stack: torch.Tensor  # [P, n, n] f32 per-phase R-round operators
     phase_by_round: torch.Tensor  # [period] int64 round -> phase
@@ -654,6 +715,8 @@ class ScheduledMixOp:
     period: int
     quantization: str = "none"
     stats: str = "global"
+    mesh: Any = None  # a sharded `dist.Mesh`: x is this rank's rows
+    rows: Any = None  # its `dist.RowTable` (None: `row_table`)
 
     def operator(self, t=None, phase=None) -> torch.Tensor:
         """The [n, n] operator of round t (or of `phase`), on the device."""
@@ -674,11 +737,12 @@ class ScheduledMixOp:
                  seg_widths: Optional[Tuple[int, ...]] = None,
                  valid_d: Optional[int] = None, key=None) -> torch.Tensor:
         del seg_widths, valid_d, key  # linear: no compressor statistics
-        if x.shape[0] != self.n:
-            raise ValueError(f"MixOp built for n={self.n} applied to node "
-                             f"axis {x.shape[0]}")
+        _check_rows(x, self.mesh, self.n, self.rows)
         if self.rounds == 0 or self.n == 1:
             return x
+        if self.mesh is not None:
+            return _gathered_product(self.operator(t, phase), x, self.mesh,
+                                     self.n, self.rows)
         A = self.operator(t, phase).to(device=x.device, dtype=x.dtype)
         flat = x.reshape(self.n, -1)
         return (A @ flat).reshape(x.shape)
@@ -693,14 +757,17 @@ class ScheduledMixOp:
 
 
 def scheduled_mix_op(phases, n: int, rounds: int, phase_by_round=None, *,
-                     device: DeviceLike = None) -> ScheduledMixOp:
+                     device: DeviceLike = None, mesh: Any = None,
+                     rows=None) -> ScheduledMixOp:
     """Build a time-varying MixOp on `device` from per-phase one-round
     operators. Each entry of `phases` is a circulant `Schedule` (tuple of
     (shift, weight)) or a dense [n, n] doubly-stochastic matrix; its R-round
     operator is precomputed here, once, the way the static factories do
     (`compose_schedule` + `schedule_matrix` in f64 then f32 for circulants,
     f32 `matrix_power` for dense). `phase_by_round` maps round t -> phase
-    index, cyclic with its length (default: round-robin over the phases)."""
+    index, cyclic with its length (default: round-robin over the phases).
+    A `mesh` that splits the node axis (as `rows` says) makes the op take
+    each rank's rows."""
     if not phases:
         raise ValueError("need at least one phase")
     mats = []
@@ -727,4 +794,5 @@ def scheduled_mix_op(phases, n: int, rounds: int, phase_by_round=None, *,
     dev = resolve_device(device)
     return ScheduledMixOp(torch.stack(mats).to(dev),
                           torch.as_tensor(lut).to(dev), n, rounds,
-                          int(lut.size))
+                          int(lut.size), "none", "global",
+                          *_sharded_mesh(mesh, rows))

@@ -17,6 +17,7 @@ one tree repacks trees of any node count.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -168,7 +169,8 @@ def pack_tree(tree: Tree, spec: Optional[PackSpec] = None, *,
                 raise ValueError(
                     f"leaf {i} trailing shape {tuple(x.shape[spec.lead:])} "
                     f"!= spec {spec.trailing[i]}")
-            parts.append(x.reshape(*x.shape[:spec.lead], -1))
+            parts.append(x.reshape(*x.shape[:spec.lead],
+                                   math.prod(x.shape[spec.lead:])))
         bufs.append(parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1))
     return tuple(bufs), spec
 

@@ -165,8 +165,8 @@ def one_round_matrices(scn: ScenarioConfig) -> list:
     return out
 
 
-def build_mix(scn: ScenarioConfig, *,
-              device: DeviceLike = None) -> ScheduledMixOp:
+def build_mix(scn: ScenarioConfig, *, device: DeviceLike = None,
+              mesh=None) -> ScheduledMixOp:
     """Compile the scenario into one time-varying consensus operator on
     `device`.
 
@@ -175,7 +175,9 @@ def build_mix(scn: ScenarioConfig, *,
     `core.mixing.scheduled_mix_op` — circulant phases as shift schedules,
     realized/dense phases as matrices. The round->phase lookup and the
     operator stack are device tensors: every round of every scenario reuses
-    one built superstep."""
+    one built superstep. On a `mesh` that splits the node axis the op takes
+    each rank's rows (`core.mixing.ScheduledMixOp`): every rank builds the
+    same tables from the scenario's seed."""
     _validate(scn)
     period = scenario_period(scn)
     sched = fault_schedule(scn)
@@ -199,7 +201,7 @@ def build_mix(scn: ScenarioConfig, *,
             phases.append(spec)
         lut.append(index[key])
     return scheduled_mix_op(phases, scn.n_nodes, scn.rounds,
-                            phase_by_round=lut, device=device)
+                            phase_by_round=lut, device=device, mesh=mesh)
 
 
 def window_lambda2(scn: ScenarioConfig, window: Optional[int] = None) -> float:

@@ -135,21 +135,28 @@ def exact_split_error(B: int, n_nodes: int, ranks: int) -> Optional[str]:
 
 
 def shard_batch(batch: Dict[str, Any], mesh, n_nodes: int, *,
-                node_axis: bool) -> Dict[str, Any]:
+                node_axis: bool, membership=None) -> Dict[str, Any]:
     """This rank's part of a superstep batch on a `mesh` that splits
     `n_nodes` nodes over its ranks (the whole batch without one). With
     `node_axis` the leaves are [K, n_nodes, B/n_nodes, ...] and the rank
-    keeps its node rows; without (the exact mode), they are [K, B, ...],
+    keeps its node rows; under a partial `membership` (an elastic run's
+    cohort: `core.mixing.Membership` of the n_nodes) they are
+    [K, m, B/m, ...] over the m active nodes, and the rank keeps its
+    active nodes' cohort rows (`dist.cohort_rows`), which may be none.
+    Without `node_axis` (the exact mode), they are [K, B, ...],
     node j's samples the j-th of n_nodes equal runs, and the rank keeps
     its nodes' runs, an equal share: an uneven split raises ValueError
     (`exact_split_error`). The split is over the node (data) axes only:
     the ranks of one model group take the same rows."""
-    from repro_torch.dist import is_sharded, n_data_nodes, node_rows
+    from repro_torch.dist import (cohort_rows, is_sharded, n_data_nodes,
+                                  node_index, node_rows)
 
     if not is_sharded(mesh):
         return batch
     rows = node_rows(mesh, n_nodes)
     if node_axis:
+        if membership is not None and not membership.is_full:
+            rows = slice(*cohort_rows(mesh, membership)[node_index(mesh)])
         return {k: v[:, rows] for k, v in batch.items()}
     out = {}
     for k, v in batch.items():

@@ -120,6 +120,38 @@ def row_range(mesh: Mesh, n: int, index: int = None) -> Tuple[int, int]:
     return start, start + q + (1 if i < r else 0)
 
 
+RowTable = Tuple[Tuple[int, int], ...]
+
+
+def row_table(mesh: Mesh, n: int) -> RowTable:
+    """[start, stop) of every node shard's rows of an n-row node axis, in
+    shard order (`row_range` of each)."""
+    return tuple(row_range(mesh, n, i) for i in range(n_data_nodes(mesh)))
+
+
+def cohort_rows(mesh: Mesh, membership) -> RowTable:
+    """The cohort rows that every node shard holds of a membership's m
+    active nodes (a `core.mixing.Membership`), in shard order. The cohort
+    is the active ids in ascending order, so shard i's active nodes are
+    the contiguous cohort rows [a_i, b_i), a_i the number of active ids
+    below its first node row; a shard whose nodes are all out holds
+    (a_i, a_i). The full membership gives `row_table`."""
+    out, pos = [], 0
+    for lo, hi in row_table(mesh, membership.n):
+        k = sum(membership.active[lo:hi])
+        out.append((pos, pos + k))
+        pos += k
+    return tuple(out)
+
+
+def local_ids(mesh, membership) -> Tuple[int, ...]:
+    """This rank's active nodes of a membership, as indices into its own
+    node rows (the active ids themselves without a split node axis)."""
+    rows = node_rows(mesh, membership.n)
+    return tuple(i - rows.start for i in membership.active_ids
+                 if rows.start <= i < rows.stop)
+
+
 def node_rows(mesh, n: int) -> slice:
     """This rank's rows of an n-row node axis (every row without a
     sharded mesh)."""
@@ -338,13 +370,15 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM,
     return t
 
 
-def all_gather_rows(x: torch.Tensor, mesh: Mesh, n: int) -> torch.Tensor:
+def all_gather_rows(x: torch.Tensor, mesh: Mesh, n: int,
+                    rows: RowTable = None) -> torch.Tensor:
     """The full [n, ...] node axis from every node shard's rows of it
-    (contiguous runs, `row_range`), on x's device."""
+    (contiguous runs: `rows`, default `row_table`; a cohort's table,
+    `cohort_rows`, may give a shard no row), on x's device."""
     E = n_data_nodes(mesh)
-    ranges = [row_range(mesh, n, i) for i in range(E)]
+    ranges = list(rows or row_table(mesh, n))
     top = max(b - a for a, b in ranges)
-    flat = x.reshape(x.shape[0], -1)
+    flat = x.reshape(x.shape[0], math.prod(x.shape[1:]))
     d = flat.shape[1]
     full = flat.new_empty((n, d))
     elem = x.element_size()

@@ -32,6 +32,7 @@ between ranks.
 """
 from __future__ import annotations
 
+import math
 import ctypes
 import functools
 from typing import List, Optional, Tuple
@@ -274,18 +275,24 @@ def gossip_mix_quant_cuda(x: torch.Tensor, sched, rounds: int, quant: str, *,
 #
 # A roll over a node axis split across ranks would move every row. These
 # rules exchange only the halo rows the schedule reaches, per round, as
-# point-to-point messages between ring neighbours (one hop per n_local rows
-# of reach, as the reference's `_gather_halo` ppermutes), build the
-# halo-extended local tile, and apply the round as a weighted sum of
-# contiguous row slices: no wraparound. Per-round semantics are kept, term
-# for term in the schedule's order, so the exact rule equals the plain
-# per-round path (`ref.gossip_mix_ref`) bit for bit. The columns are
-# independent, so all R rounds run on one column chunk
-# (`rdist.column_chunks`) at a time: the halo messages and the
-# temporaries stay within `rdist.STAGE_BYTES` per row block at any width.
+# point-to-point messages between the shards that hold them (as the
+# reference's `_gather_halo` ppermutes), build the halo-extended local
+# tile, and apply the round as a weighted sum of contiguous row slices: no
+# wraparound. Per-round semantics are kept, term for term in the
+# schedule's order, so the exact rule equals the plain per-round path
+# (`ref.gossip_mix_ref`) bit for bit. The columns are independent, so all R
+# rounds run on one column chunk (`rdist.column_chunks`, one width on every
+# rank) at a time: the halo messages and the temporaries stay within
+# `rdist.STAGE_BYTES` per row block at any width.
+#
+# The rows a shard holds come from a row table (`rdist.RowTable`): the even
+# split of the node axis (`rdist.row_table`), an uneven one, or an elastic
+# run's cohort (`rdist.cohort_rows`), where a shard may hold no row. A hop
+# may then cross shards of different lengths, or shards with no rows; a
+# shard with no row sends and receives nothing.
 # ---------------------------------------------------------------------------
 
-_TAG_UP, _TAG_DOWN = 1 << 10, 2 << 10  # + hop: one tag per message
+_TAG = 1 << 10  # + the piece's index in its receiver's tile: one tag each
 
 
 def centered_shift(s: int, n: int) -> int:
@@ -305,54 +312,71 @@ def halo_reach(sched, n: int) -> Tuple[int, int]:
     return up, down
 
 
-def shard_compatible(sched, n: int, extent: int) -> bool:
-    """True when the halo rules cover this (schedule, split): even row tiles
-    and a one-round reach that neighbours can serve without wrapping onto
-    the resident shard."""
-    if extent <= 1 or n % extent:
+def shard_compatible(sched, rows: rdist.RowTable) -> bool:
+    """True when the halo rules cover this (schedule, row table): more than
+    one shard, and every shard that holds rows takes its one-round reach
+    from the other shards' rows without wrapping onto its own."""
+    if len(rows) <= 1:
         return False
+    n = rows[-1][1]
     ru, rd = halo_reach(sched, n)
-    return ru + rd <= n - n // extent
+    return all(ru + rd + b - a <= n for a, b in rows if b > a)
 
 
-def _halo(h: torch.Tensor, ru: int, rd: int, mesh,
-          n_local: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """The `ru` rows preceding this shard and the `rd` rows following it,
-    from ring neighbours: one whole-tile hop per n_local rows of reach, all
-    hops of both directions posted in one exchange. The neighbours are the
-    node shards' ranks at this rank's model index (`dist.exchange`), so
-    over a model axis each model index mixes its own columns inside its
-    data group."""
-    E, i = rdist.n_data_nodes(mesh), rdist.node_index(mesh)
-    up: List[torch.Tensor] = []
-    down: List[torch.Tensor] = []
-    sends, recvs = [], []
-    need, hop = ru, 1
-    while need > 0:  # rows preceding: the tail rows of shard i - hop
-        take = min(need, n_local)
-        buf = h.new_empty((take, h.shape[1]))
-        sends.append(((i + hop) % E, h[n_local - take:], _TAG_UP + hop))
-        recvs.append(((i - hop) % E, buf, _TAG_UP + hop))
-        up.insert(0, buf)
-        need -= take
-        hop += 1
-    need, hop = rd, 1
-    while need > 0:  # rows following: the head rows of shard i + hop
-        take = min(need, n_local)
-        buf = h.new_empty((take, h.shape[1]))
-        sends.append(((i - hop) % E, h[:take], _TAG_DOWN + hop))
-        recvs.append(((i + hop) % E, buf, _TAG_DOWN + hop))
-        down.append(buf)
-        need -= take
-        hop += 1
+def halo_pieces(rows: rdist.RowTable, ru: int, rd: int
+                ) -> List[List[Tuple[int, int, int]]]:
+    """Per shard, the pieces of its halo-extended tile that other shards
+    hold, in tile order: (source shard, the first of its rows, rows). A
+    shard's tile is the `ru` rows before its first row, its own rows and
+    the `rd` rows after its last, cyclic over the n = rows[-1][1] rows; a
+    shard with no row has no tile."""
+    n = rows[-1][1]
+
+    def pieces(start: int, count: int):
+        out, p = [], 0
+        while p < count:
+            pos = (start + p) % n
+            j = next(j for j, (a, b) in enumerate(rows) if a <= pos < b)
+            take = min(count - p, rows[j][1] - pos)
+            out.append((j, pos - rows[j][0], take))
+            p += take
+        return out
+
+    return [pieces(a - ru, ru) + pieces(b, rd) if b > a else []
+            for a, b in rows]
+
+
+def halo_wire(rows: rdist.RowTable, ru: int, rd: int,
+              index: int) -> Tuple[int, int, int]:
+    """(messages sent, rows sent, rows received) of shard `index` in one
+    halo exchange (`halo_pieces`): what the planner counts per round and
+    column chunk."""
+    plan = halo_pieces(rows, ru, rd)
+    sent = [k for dst in plan for j, _, k in dst if j == index]
+    return len(sent), sum(sent), sum(k for _, _, k in plan[index])
+
+
+def _ext_tile(h: torch.Tensor, plan, ru: int, mesh) -> torch.Tensor:
+    """This shard's halo-extended tile [ru + rows + rd, c] of its rows h:
+    every piece another shard needs from h posted, every piece of its own
+    tile received, in one exchange. The peers are the node shards' ranks
+    at this rank's model index (`dist.exchange`), so over a model axis each
+    model index mixes its own columns inside its data group."""
+    i = rdist.node_index(mesh)
+    sends = [(dst, h[s0:s0 + k], _TAG + t)
+             for dst, tile in enumerate(plan)
+             for t, (j, s0, k) in enumerate(tile) if j == i]
+    bufs = [h.new_empty((k, h.shape[1])) for _, _, k in plan[i]]
+    recvs = [(j, buf, _TAG + t)
+             for t, ((j, _, _), buf) in enumerate(zip(plan[i], bufs))]
     rdist.exchange(sends, recvs, mesh)
-    return up, down
-
-
-def _ext_tile(h: torch.Tensor, ru: int, rd: int, mesh,
-              n_local: int) -> torch.Tensor:
-    up, down = _halo(h, ru, rd, mesh, n_local)
-    return torch.cat(up + [h] + down, dim=0) if (up or down) else h
+    if not bufs:
+        return h
+    up, got = [], 0
+    while got < ru:  # the pieces before the shard's rows come first
+        got += bufs[len(up)].shape[0]
+        up.append(bufs[len(up)])
+    return torch.cat(up + [h] + bufs[len(up):], dim=0)
 
 
 def _slice_round(ext: torch.Tensor, sched, n: int, ru: int, n_local: int,
@@ -372,24 +396,32 @@ def _slice_round(ext: torch.Tensor, sched, n: int, ru: int, n_local: int,
     return acc
 
 
-def gossip_mix_shard(x: torch.Tensor, sched, rounds: int,
-                     mesh) -> torch.Tensor:
-    """R rounds of circulant gossip over an n-node axis split evenly over
-    the node axes of `mesh`. x: this rank's rows [n / E, ...] (E =
-    `n_data_nodes(mesh)`); returns its rows after the R rounds, bit for bit
-    the rows of the plain per-round path over the whole axis."""
-    E = rdist.n_data_nodes(mesh)
+def _table(x: torch.Tensor, mesh, rows) -> rdist.RowTable:
+    """The row table of a rule's call: `rows`, or the even split of
+    x.shape[0] * E rows."""
+    return rows or rdist.row_table(mesh, x.shape[0] * rdist.n_data_nodes(mesh))
+
+
+def gossip_mix_shard(x: torch.Tensor, sched, rounds: int, mesh,
+                     rows: Optional[rdist.RowTable] = None) -> torch.Tensor:
+    """R rounds of circulant gossip over an n-node axis split over the node
+    axes of `mesh` as `rows` says (default: evenly, n = x.shape[0] * E with
+    E = `n_data_nodes(mesh)`). x: this rank's rows; returns its rows after
+    the R rounds, bit for bit the rows of the plain per-round path over the
+    whole axis."""
+    rows = _table(x, mesh, rows)
+    n = rows[-1][1]
     n_local = x.shape[0]
-    n = n_local * E
     sched = tuple(sched)
     ru, rd = halo_reach(sched, n)
-    h = x.reshape(n_local, -1)
+    plan = halo_pieces(rows, ru, rd)
+    h = x.reshape(n_local, math.prod(x.shape[1:]))
     out = torch.empty_like(h)
-    chunks = rdist.column_chunks(h.shape[1], n_local, h.element_size())
-    for c0, c1 in chunks:
+    top = max(b - a for a, b in rows)
+    for c0, c1 in rdist.column_chunks(h.shape[1], top, h.element_size()):
         hc = h[:, c0:c1]
         for _ in range(rounds):
-            ext = _ext_tile(hc, ru, rd, mesh, n_local)
+            ext = _ext_tile(hc, plan, ru, mesh)
             hc = _slice_round(ext, sched, n, ru, n_local)
             del ext
         out[:, c0:c1] = hc
@@ -399,10 +431,13 @@ def gossip_mix_shard(x: torch.Tensor, sched, rounds: int,
 def gossip_mix_quant_shard(x: torch.Tensor, sched, rounds: int, quant: str,
                            mesh, *, block_d: int = 512,
                            valid_d: Optional[int] = None,
-                           key: Optional[int] = None) -> torch.Tensor:
-    """Quantized per-round gossip on a sharded node axis with per-node tile
-    statistics (`quantize.tile_compress(per_node=True)`): each node scales
-    its outgoing message from its own rows, the statistic a real sender
+                           key: Optional[int] = None,
+                           rows: Optional[rdist.RowTable] = None
+                           ) -> torch.Tensor:
+    """Quantized per-round gossip on a sharded node axis (split as `rows`
+    says, default evenly) with per-node tile statistics
+    (`quantize.tile_compress(per_node=True)`): each node scales its
+    outgoing message from its own rows, the statistic a real sender
     computes locally, so the wire values do not depend on the split and the
     rows equal those of the plain per-node path
     (`ref.gossip_mix_quant_ref(per_node=True)`). The rounds run in f32 and
@@ -413,19 +448,21 @@ def gossip_mix_quant_shard(x: torch.Tensor, sched, rounds: int, quant: str,
     layout."""
     from repro_torch.core.quantize import STOCHASTIC, fold_in, tile_compress
 
-    E = rdist.n_data_nodes(mesh)
+    rows = _table(x, mesh, rows)
+    n = rows[-1][1]
     n_local = x.shape[0]
-    n = n_local * E
     sched = tuple(sched)
     ru, rd = halo_reach(sched, n)
-    h = x.reshape(n_local, -1)
+    plan = halo_pieces(rows, ru, rd)
+    h = x.reshape(n_local, math.prod(x.shape[1:]))
     d = h.shape[1]
     k0 = key
     if quant in STOCHASTIC and k0 is not None:
         k0 = fold_in(k0, rdist.node_index(mesh))
     out = torch.empty_like(h)
     # chunks on statistic-tile boundaries, so each tile lies in one chunk
-    chunks = rdist.column_chunks(d, n_local, 4, multiple=min(block_d, d))
+    top = max(b - a for a, b in rows)
+    chunks = rdist.column_chunks(d, top, 4, multiple=min(block_d, d))
     for j, (c0, c1) in enumerate(chunks):
         hc = h[:, c0:c1].float()
         dv = None if valid_d is None else min(max(valid_d - c0, 0), c1 - c0)
@@ -435,9 +472,9 @@ def gossip_mix_quant_shard(x: torch.Tensor, sched, rounds: int, quant: str,
                 k = fold_in(k0, r)
                 if len(chunks) > 1:
                     k = fold_in(k, j)
-            q = tile_compress(hc, quant, block_d, valid_d=dv, key=k,
-                              per_node=True)
-            ext = _ext_tile(q, ru, rd, mesh, n_local)
+            q = (tile_compress(hc, quant, block_d, valid_d=dv, key=k,
+                               per_node=True) if n_local else hc)
+            ext = _ext_tile(q, plan, ru, mesh)
             hc = _slice_round(ext, sched, n, ru, n_local, self_term=hc)
             del ext, q
         out[:, c0:c1] = hc.to(x.dtype)

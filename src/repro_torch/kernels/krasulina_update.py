@@ -24,10 +24,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch import dist as rdist
 from repro_torch.kernels import _cuda
 from repro_torch.kernels.consensus import MAX_GOSSIP_NODES, gossip_taps
 
@@ -301,17 +302,20 @@ def krasulina_xi_gossip_cuda(w: torch.Tensor, z: torch.Tensor, sched,
 
 
 def krasulina_xi_gossip_shard(w: torch.Tensor, z: torch.Tensor, sched,
-                              rounds: int, mesh) -> torch.Tensor:
-    """Fused xi + R-round gossip over a node axis split evenly over the
-    node axes of `mesh`. w: this rank's rows [n / E, d]; z: its samples
-    [n / E, B, d]. The xi pass (Alg. 2 step 4) is node-local, so each rank
-    computes its own rows' pseudo-gradients without any exchange (through
-    `kernels.ops.krasulina_xi`: the `krasulina_xi` kernel on the card); only
-    the consensus rounds communicate, as the halo rounds of
+                              rounds: int, mesh,
+                              rows: Optional[rdist.RowTable] = None
+                              ) -> torch.Tensor:
+    """Fused xi + R-round gossip over a node axis split over the node axes
+    of `mesh` as `rows` says (`consensus.gossip_mix_shard`; default
+    evenly). w: this rank's rows [n_local, d]; z: its samples
+    [n_local, B, d]. The xi pass (Alg. 2 step 4) is node-local, so each
+    rank computes its own rows' pseudo-gradients without any exchange
+    (through `kernels.ops.krasulina_xi`: the `krasulina_xi` kernel on the
+    card); only the consensus rounds communicate, as the halo rounds of
     `consensus.gossip_mix_shard`. Equals the strict per-round form
     `gossip_mix_ref(krasulina_xi_ref(w, z), sched, rounds)` on the rank's
     rows to f32 round-off (bit for bit on the CPU)."""
     from repro_torch.kernels.consensus import gossip_mix_shard
     from repro_torch.kernels.ops import krasulina_xi
 
-    return gossip_mix_shard(krasulina_xi(w, z), sched, rounds, mesh)
+    return gossip_mix_shard(krasulina_xi(w, z), sched, rounds, mesh, rows)

@@ -24,7 +24,7 @@ from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
-from repro_torch.dist import data_axes, n_data_nodes
+from repro_torch.dist import data_axes, n_data_nodes, node_index, row_table
 from repro_torch.kernels import ref
 from repro_torch.kernels.consensus import (GOSSIP_DESIGNS, QUANT_CLUSTERS,
                                            gossip_design, gossip_mix_cuda,
@@ -132,12 +132,14 @@ def _on_cuda(*tensors: torch.Tensor) -> bool:
                      f"all-CUDA (kernel) or all-CPU (plain version) inputs")
 
 
-def node_shard_info(mesh, n: int, sched=None):
+def node_shard_info(mesh, n: int, sched=None, rows=None):
     """(node_axes, ring_axis) when the shard rules cover mixing an [n, ...]
     node axis on this mesh, else None: the node axes ("pod"/"data") split
-    it with exactly one nontrivial axis (the ring), in even row tiles, and,
-    when `sched` is given, with a one-round halo reach that neighbours can
-    serve."""
+    it with exactly one nontrivial axis (the ring), in the contiguous runs
+    of `rows` (`dist.RowTable`, default `dist.row_table(mesh, n)`; uneven,
+    or a cohort's, `dist.cohort_rows`), and, when `sched` is given, with a
+    one-round halo reach that the other shards can serve
+    (`consensus.shard_compatible`)."""
     if mesh is None:
         return None
     node_axes = data_axes(mesh)
@@ -145,60 +147,65 @@ def node_shard_info(mesh, n: int, sched=None):
     live = [a for a, s in zip(node_axes, sizes) if s > 1]
     if len(live) != 1:
         return None  # unsharded, or a ring spanning two mesh axes
-    extent = sizes[node_axes.index(live[0])]
-    if n % extent or extent > n:
-        return None
-    if sched is not None and not shard_compatible(sched, n, extent):
+    rows = rows or row_table(mesh, n)
+    if sched is not None and not shard_compatible(sched, rows):
         return None
     return node_axes, live[0]
 
 
-def _covered(x: torch.Tensor, sched, mesh) -> None:
+def _covered(x: torch.Tensor, sched, mesh, rows) -> None:
     """Raise unless the shard rules cover this rank's rows x of a node axis
-    split evenly over `mesh` (`node_shard_info`); `core.mixing`'s op
-    gathers the layouts they do not cover."""
-    n = x.shape[0] * n_data_nodes(mesh)
-    if node_shard_info(mesh, n, tuple(sched)) is None:
+    split over `mesh` as `rows` says (default evenly; `node_shard_info`);
+    `core.mixing`'s op gathers the layouts they do not cover."""
+    rows = rows or row_table(mesh, x.shape[0] * n_data_nodes(mesh))
+    n = rows[-1][1]
+    if node_shard_info(mesh, n, tuple(sched), rows) is None:
         raise ValueError(f"the shard rules do not cover mixing {n} nodes in "
-                         f"rows of {x.shape[0]} over a {mesh.sizes} mesh "
+                         f"rows {list(rows)} over a {mesh.sizes} mesh "
                          f"with the schedule {tuple(sched)}")
+    a, b = rows[node_index(mesh)]
+    if x.shape[0] != b - a:
+        raise ValueError(f"this rank holds rows [{a}, {b}) of the table, "
+                         f"not {x.shape[0]}")
 
 
 def sharded_gossip_mix(x: torch.Tensor, sched, rounds: int,
-                       mesh) -> torch.Tensor:
-    """R rounds of gossip on a node axis split evenly over `mesh` (where
-    `node_shard_info` covers it, else ValueError; the ring runs over every
-    rank): per-round halo messages and a slice sum on this rank's rows
-    x [n / E, ...], the reference's shard_map rule
+                       mesh, rows=None) -> torch.Tensor:
+    """R rounds of gossip on a node axis split over `mesh` as `rows` says
+    (default evenly; where `node_shard_info` covers it, else ValueError;
+    the ring runs over every rank): per-round halo messages and a slice sum
+    on this rank's rows x, the reference's shard_map rule
     (`consensus.gossip_mix_shard`). Bit for bit the plain per-round path's
     rows."""
-    _covered(x, sched, mesh)
-    return gossip_mix_shard(x, sched, rounds, mesh)
+    _covered(x, sched, mesh, rows)
+    return gossip_mix_shard(x, sched, rounds, mesh, rows)
 
 
 def sharded_quant_gossip_mix(x: torch.Tensor, sched, rounds: int,
                              quantization: str, mesh, *, block_d: int = 512,
                              valid_d: Optional[int] = None,
-                             key: Optional[int] = None) -> torch.Tensor:
+                             key: Optional[int] = None,
+                             rows=None) -> torch.Tensor:
     """Quantized gossip on a sharded node axis with per-node tile
     statistics (`stats="node"`, sender-local scales: the only granularity
     that does not depend on the split), where `node_shard_info` covers the
-    layout. Equals `ref.gossip_mix_quant_ref(..., per_node=True)` on this
-    rank's rows."""
-    _covered(x, sched, mesh)
+    layout (`rows` as in `sharded_gossip_mix`). Equals
+    `ref.gossip_mix_quant_ref(..., per_node=True)` on this rank's rows."""
+    _covered(x, sched, mesh, rows)
     return gossip_mix_quant_shard(x, sched, rounds, quantization, mesh,
-                                  block_d=block_d, valid_d=valid_d, key=key)
+                                  block_d=block_d, valid_d=valid_d, key=key,
+                                  rows=rows)
 
 
 def sharded_krasulina_xi_gossip(w: torch.Tensor, z: torch.Tensor, sched,
-                                rounds: int, mesh) -> torch.Tensor:
+                                rounds: int, mesh, rows=None) -> torch.Tensor:
     """xi + R-round gossip on a sharded node axis, where `node_shard_info`
-    covers the layout: xi node-local on each rank (`krasulina_xi`, the
-    kernel on the card), only the consensus rounds communicate. Equals
-    `gossip_mix_ref(krasulina_xi_ref(w, z), ...)` on this rank's rows to
-    f32 round-off."""
-    _covered(w, sched, mesh)
-    return krasulina_xi_gossip_shard(w, z, sched, rounds, mesh)
+    covers the layout (`rows` as in `sharded_gossip_mix`): xi node-local on
+    each rank (`krasulina_xi`, the kernel on the card), only the consensus
+    rounds communicate. Equals `gossip_mix_ref(krasulina_xi_ref(w, z), ...)`
+    on this rank's rows to f32 round-off."""
+    _covered(w, sched, mesh, rows)
+    return krasulina_xi_gossip_shard(w, z, sched, rounds, mesh, rows)
 
 
 def gossip_mix(x: torch.Tensor, sched, rounds: int) -> torch.Tensor:
@@ -257,6 +264,10 @@ def krasulina_xi(w: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
         return _footprint("krasulina_xi", 4.0 * z.numel(), shape, w.dtype)
     if not _on_cuda(w, z):
         return ref.krasulina_xi_ref(w, z)
+    if z.dim() == 3 and z.shape[0] == 0:
+        # no group: a rank of a split node axis whose cohort rows are all
+        # out (a grid of no blocks is no launch)
+        return w.new_empty((0, z.shape[-1]))
     out = krasulina_xi_cuda(w, z)
     launches["krasulina_xi"] += 1
     xi_launches[xi_route(w, z)] += 1

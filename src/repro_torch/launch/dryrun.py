@@ -70,7 +70,7 @@ from repro_torch.configs.base import (AveragingConfig, ModelConfig,
                                       RunConfig, SHAPES, ShapeConfig)
 from repro_torch.core.packing import tree_leaves
 from repro_torch.kernels import ops
-from repro_torch.kernels.consensus import halo_reach
+from repro_torch.kernels.consensus import halo_reach, halo_wire
 from repro_torch.launch import sharding as shlib
 from repro_torch.launch.mesh import abstract_mesh, production_shape
 from repro_torch.models import registry
@@ -406,14 +406,24 @@ def _reduce_messages(nbytes: int) -> int:
 
 
 def node_axis_collectives(run: RunConfig, params: Tree, mesh,
-                          n_nodes: Optional[int] = None) -> dict:
-    """The payload bytes and messages that `dist.py` moves on each rank for
-    one train step of `run` on the node axis of `mesh`: {kind: payload
-    bytes sent (an all-reduce's tensor once), kind + ".count": messages as
-    `dist.stats` counts them on the card}. `params` are this rank's (its
-    rows [n_local, ...] of the `n_nodes`-node axis, default one node per
-    rank, or the exact mode's replica). Empty where the node axis is not
-    split."""
+                          n_nodes: Optional[int] = None, *,
+                          membership=None, scheduled: bool = False) -> dict:
+    """The payload bytes and messages that `dist.py` moves on this rank of
+    `mesh` (its `rank`) for one train step of `run` on the node axis:
+    {kind: payload bytes (half of what the rank sends and receives; an
+    all-reduce's tensor once), kind + ".count": messages as `dist.stats`
+    counts them on the card}. `params` are this rank's (its rows
+    [n_local, ...] of the `n_nodes`-node axis, default one node per rank,
+    or the exact mode's replica). Empty where the node axis is not split.
+
+    The gossip mode's wire follows `core.mixing`'s routing: the shard
+    rule's halo rows per round (the exact wire, or a quantized one with
+    per-node statistics, f32 on the wire) where it covers the split
+    (`kernels.ops.node_shard_info`), else one gather of the node rows per
+    step. `membership` (a partial `core.mixing.Membership`) plans an
+    elastic run's cohort step: its wire over the cohort's row table
+    (`dist.cohort_rows`). `scheduled` plans a scenario's `ScheduledMixOp`:
+    one gather per step and buffer, and the round clock's all-reduce."""
     coll: dict = {}
     if rdist.n_data_nodes(mesh) <= 1:
         return coll
@@ -427,23 +437,51 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
     avg = run.averaging
     if avg.mode == "hierarchical":
         return {}  # not executed on a split axis: `planned_hierarchical`
-    if (avg.mode != "gossip" or avg.error_feedback != "off"
-            or avg.quantization != "none"):
+    if avg.mode != "gossip" or avg.error_feedback != "off":
         raise NotImplementedError(
-            f"no wire planned for averaging {avg.mode!r} (quantization "
-            f"{avg.quantization!r}, error feedback {avg.error_feedback!r}) "
-            f"on a sharded node axis")
+            f"no wire planned for averaging {avg.mode!r} (error feedback "
+            f"{avg.error_feedback!r}) on a sharded node axis: not executed "
+            f"there (ROADMAP.md queue 1 item 3)")
     from repro_torch.core.mixing import schedule
+    from repro_torch.core.quantize import STOCHASTIC
     leaves = tree_leaves(params)
-    n_local = leaves[0].shape[0]
     n = n_nodes or rdist.n_data_nodes(mesh)
-    ru, rd = halo_reach(schedule(avg.topology, n, avg.self_weight), n)
-    hops = -(-ru // n_local) + -(-rd // n_local)
-    for width, elem in _buffers(leaves):  # R rounds of halo rows
-        chunks = rdist.column_chunks(width, n_local, elem)
-        _add(coll, "collective-permute",
-             avg.rounds * (ru + rd) * width * elem,
-             len(chunks) * avg.rounds * hops)
+    if membership is not None and not membership.is_full:
+        table = rdist.cohort_rows(mesh, membership)
+    else:
+        table = rdist.row_table(mesh, n)
+    m = table[-1][1]
+    top = max(b - a for a, b in table)
+    # a quantized wire with global statistics mixes leaf by leaf
+    packed = not (avg.quantization != "none" and avg.quant_stats == "global")
+    bufs = (_buffers(leaves) if packed else
+            [(p[0].numel(), p.element_size()) for p in leaves])
+    sched = schedule(avg.topology, m, avg.self_weight)
+    # the shard rules run the exact wire and per-node statistics
+    routable = avg.quantization == "none" or avg.quant_stats == "node"
+    halo = (not scheduled and routable and m > 1
+            and ops.node_shard_info(mesh, m, sched, table) is not None)
+    if halo:
+        ru, rd = halo_reach(sched, m)
+        sent, out_rows, in_rows = halo_wire(table, ru, rd,
+                                            rdist.node_index(mesh))
+        quantized = avg.quantization != "none"
+        # a rank with no row of the cohort sends and receives nothing
+        for width, elem in bufs if out_rows + in_rows else ():
+            if quantized:  # f32 on the wire, chunks on tile boundaries
+                elem = 4
+                chunks = rdist.column_chunks(
+                    width, top, elem, multiple=min(avg.quant_block_d, width))
+            else:
+                chunks = rdist.column_chunks(width, top, elem)
+            _add(coll, "collective-permute",
+                 avg.rounds * (out_rows + in_rows) * width * elem / 2,
+                 len(chunks) * avg.rounds * sent)
+    elif m > 1:  # one gather of the node rows a step and buffer
+        for width, elem in bufs:
+            chunks = rdist.column_chunks(width, top, elem)
+            _add(coll, "all-gather", (top + m) * width * elem / 2,
+                 len(chunks))
     for p in leaves:  # each leaf's f32 node mean, for the consensus error
         nbytes = 4 * p[0].numel()
         if nbytes:
@@ -451,6 +489,8 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
     pools = trainer.layer_pools(params, run.model)
     _add(coll, "all-reduce", 4 * len(pools), 1)  # the pools' max
     _add(coll, "all-reduce", 4 * metrics, 1)
+    if scheduled or avg.quantization in STOCHASTIC:
+        _add(coll, "all-reduce", 8, 1)  # the round clock, one int64
     return coll
 
 

@@ -52,8 +52,15 @@ says otherwise:
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --arch granite-8b --reduced --device cpu --steps 4 --superstep 2 \
       --averaging gossip --rounds 2
-Faults, scenarios, publication and checkpoints on a sharded node axis are
-not ported yet and raise. Alone (no WORLD_SIZE) it runs as before.
+`--faults`, `--scenario` and `--straggler-policy drop|deadline` run there
+too, each rank on its rows of the cohort (`train.driver`):
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+      --arch granite-8b --reduced --device cpu --steps 6 --superstep 2 \
+      --averaging gossip --rounds 2 --nodes 4 --faults death:1@1-2 \
+      --scenario ring/lossy/iid_pca
+Publication and checkpoints (`--publish`, `--checkpoint`, `--resume`) on a
+sharded node axis are not ported yet and raise. Alone (no WORLD_SIZE) it
+runs as before.
 
 `launch/env.py` is applied before `import torch` unless `--no-env-tuning`
 is given; `--compilation-cache-dir DIR` is the directory the kernels are
@@ -239,13 +246,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 def _train(ap, args, distributed: bool) -> None:
     mesh = None
     if distributed or args.production_mesh:
+        if args.publish or args.checkpoint or args.resume:
+            raise NotImplementedError(
+                "publication and checkpoints on a sharded node axis are not "
+                "ported yet (ROADMAP.md queue 1 item 3)")
         mesh = make_production_mesh() if args.production_mesh \
             else make_host_mesh()
-        if args.scenario or args.faults or args.publish or args.checkpoint \
-                or args.resume or args.straggler_policy != "wait":
-            raise NotImplementedError(
-                "scenarios, faults, publication and checkpoints on a sharded "
-                "node axis are not ported yet (ROADMAP.md)")
     cfg = get_config(args.arch)
     if cfg.is_encdec:
         # the reference's launcher draws the same token stream, and its
@@ -292,9 +298,9 @@ def _train(ap, args, distributed: bool) -> None:
     faults = (FaultSchedule.parse(fault_spec, n_nodes,
                                   seed=scenario.seed if scenario else 0)
               if fault_spec else None)
-    builder = (superstep_builder(run, None, n_nodes=n_nodes, device=dev,
-                                 mix=scenario_lib.build_mix(scenario,
-                                                            device=dev))
+    builder = (superstep_builder(run, mesh, n_nodes=n_nodes, device=dev,
+                                 mix=scenario_lib.build_mix(
+                                     scenario, device=dev, mesh=mesh))
                if scenario is not None else None)
     engine = EngineConfig(superstep=args.superstep,
                           prefetch_depth=args.prefetch,

@@ -78,8 +78,20 @@ deterministic in it, makes the same plan on every rank, so the shapes every
 rank deals never diverge (the reference has one controller and one clock).
 The splitter runs synchronously on a sharded axis (no prefetch ring): a
 superstep dealt ahead under a plan that another rank has already replaced
-would deal different widths on different ranks. Churn, publication and
-snapshots on a sharded axis are not ported yet (ROADMAP.md) and raise.
+would deal different widths on different ranks.
+
+Elastic membership runs there too. The fault schedule and the straggler
+policy are deterministic in the superstep and in rank 0's round times, so
+every rank resolves the same cohort; each superstep checks that against
+rank 0's (`dist.broadcast_object`) and raises on a rank that diverged,
+which would otherwise hang the group. A cohort's active ids split over the
+ranks as contiguous, uneven runs of cohort rows (`dist.cohort_rows`; a rank
+may hold none, and still joins every message): each rank is dealt its
+active nodes' rows of the batch and hands the cohort superstep its own
+active rows as local indices; a superstep is built per (bucket, cohort row
+table), the compiled signatures staying (bucket, cohort size). A rejoin
+sync all-reduces the donors' f32 sum. Publication, snapshots and resuming
+on a sharded axis are not ported yet (ROADMAP.md) and raise.
 """
 from __future__ import annotations
 
@@ -234,18 +246,13 @@ class StreamingDriver:
         # the ranks of a split node axis or of a model axis step in lockstep
         self._sharded = multi_rank(mesh)
         if self._sharded:
-            for what, arg in (("elastic membership (faults)", faults),
-                              ("publication", publisher),
+            for what, arg in (("publication", publisher),
                               ("snapshots", snapshotter),
                               ("resuming", resume_from)):
                 if arg is not None:
                     raise NotImplementedError(
                         f"{what} on a sharded node axis is not ported yet "
-                        f"(ROADMAP.md)")
-            if engine.governor.straggler_policy != "wait":
-                raise NotImplementedError(
-                    "a straggler policy on a sharded node axis is not "
-                    "ported yet (ROADMAP.md)")
+                        f"(ROADMAP.md queue 1 item 3)")
         self.device = resolve_device(device)
         self.run_cfg = run_cfg
         self.mesh = mesh
@@ -323,8 +330,10 @@ class StreamingDriver:
             self._builder_elastic = False
         # one superstep per (bucket, cohort size), built on first visit and
         # reused on every revisit; the active ids are an argument, so all
-        # same-size memberships share one superstep
-        self._built: Dict[Tuple[int, int], Callable] = {}
+        # same-size memberships share one superstep (on a split axis, per
+        # cohort: see `_superstep_for`)
+        self._built: Dict[Tuple[int, int, Optional[Membership]],
+                          Callable] = {}
         self._prefetcher: Optional[DevicePrefetcher] = None
         self._supersteps_done = 0  # across run() calls
         # governor warm-up gate, per (bucket, cohort) signature: supersteps
@@ -379,7 +388,7 @@ class StreamingDriver:
     def compiled_signatures(self) -> Tuple[Tuple[int, int], ...]:
         """(bucket, cohort size) pairs with a built superstep (the
         reference's compiled executables)."""
-        return tuple(sorted(self._built))
+        return tuple(sorted({key[:2] for key in self._built}))
 
     @property
     def membership(self) -> Optional[Membership]:
@@ -391,7 +400,12 @@ class StreamingDriver:
         mem = p.membership
         partial_cohort = mem is not None and not mem.is_full
         m = mem.n_active if mem is not None else self.n_nodes
-        fn = self._built.get((p.B, m))
+        # on a split axis a cohort's superstep depends on which nodes it
+        # holds (the builder shares one among the cohorts of one row
+        # table); on one process, on its size alone
+        key = (p.B, m, mem if partial_cohort and is_sharded(self.mesh)
+               else None)
+        fn = self._built.get(key)
         if fn is None:
             if self._builder_elastic:
                 fn = self._builder(p.B, mem if partial_cohort else None)
@@ -403,8 +417,9 @@ class StreamingDriver:
             else:
                 fn = self._builder(p.B)
             if partial_cohort:
-                fn = elastic_superstep(fn, self.n_nodes)
-            self._built[(p.B, m)] = fn
+                fn = elastic_superstep(fn, rdist.n_local(self.mesh,
+                                                         self.n_nodes))
+            self._built[key] = fn
         return fn
 
     # ---------------------------------------------------------------- stages
@@ -420,7 +435,9 @@ class StreamingDriver:
             m = self.n_nodes if p.membership is None else p.membership.n_active
             batch = make_node_batch(batch, m, axis=1)
         return shard_batch(batch, self.mesh, self.n_nodes,
-                           node_axis=self.decentralized)
+                           node_axis=self.decentralized,
+                           membership=self.pipeline.last_superstep_plan
+                           .membership)
 
     # ------------------------------------------------------------- main loop
 
@@ -477,7 +494,9 @@ class StreamingDriver:
             fn = self._superstep_for(used_plan)
             mem = used_plan.membership
             if mem is not None and not mem.is_full:
-                self.state, metrics = fn(self.state, mem.active_ids, staged)
+                # this rank's active rows (every active id on one process)
+                self.state, metrics = fn(
+                    self.state, rdist.local_ids(self.mesh, mem), staged)
             else:
                 self.state, metrics = fn(self.state, staged)
             # one host copy per K rounds: the superstep's one sync point
@@ -545,6 +564,16 @@ class StreamingDriver:
                 self._straggler.observe(
                     self._faults.round_s_per_node(step, self._last_round_s))
             desired = self._straggler.propose(desired)
+        if self._sharded:
+            # every rank resolves the cohort from the same schedule and rank
+            # 0's round times; one that did not would deal other rows and
+            # hang the group at its next message
+            first = rdist.broadcast_object(desired, self.mesh)
+            if first != desired:
+                raise RuntimeError(
+                    f"rank {self.mesh.rank} resolved the cohort "
+                    f"{desired.active_ids} at superstep {step}, rank 0 "
+                    f"{first.active_ids}")
         prev = self._membership
         if desired == prev:
             return
@@ -566,21 +595,31 @@ class StreamingDriver:
         dragging the consensus error back up. Once per rejoin, in place,
         one leaf at a time. A trainer state's per-node optimizer steps (a
         tuple of ints) take the donors' mean the same way, truncated as the
-        reference's cast of its f32 mean."""
+        reference's cast of its f32 mean. On a split node axis each rank
+        sums its own donor rows in f32, the sum is all-reduced (every rank
+        takes part, with zeros where it holds no donor) and each rank
+        writes the mean into its own rejoining rows."""
         joined = [i for i in new.active_ids if not prev.active[i]]
         donors = [i for i in prev.active_ids if new.active[i]]
         if not joined or not donors:
             return
-        n = self.n_nodes
+        sharded = is_sharded(self.mesh)
+        local = rdist.node_rows(self.mesh, self.n_nodes)
+        n = local.stop - local.start
+        mine = lambda ids: [i - local.start for i in ids
+                            if local.start <= i < local.stop]
+        here_joined, here_donors = mine(joined), mine(donors)
 
         def fix(p):
             if not _node_rows(p, n):
                 return p
-            mean = p[donors[0]].to(torch.float32, copy=True)
-            for i in donors[1:]:
+            mean = p.new_zeros(p.shape[1:], dtype=torch.float32)
+            for i in here_donors:
                 mean.add_(p[i].float())
+            if sharded:
+                rdist.all_reduce_(mean, self.mesh)
             mean.div_(len(donors))
-            for j in joined:
+            for j in here_joined:
                 p[j].copy_(mean)
             return p
 
@@ -588,9 +627,13 @@ class StreamingDriver:
         opt = getattr(self.state, "opt", None)
         steps = getattr(opt, "step", None)
         if isinstance(steps, tuple) and len(steps) == n:
-            mean = int(np.mean(np.asarray([steps[i] for i in donors],
-                                          np.float32)))
-            steps = tuple(mean if i in joined else s
+            total = sum(steps[i] for i in here_donors)
+            if sharded:
+                total = int(rdist.all_reduce_(
+                    torch.tensor([total], dtype=torch.float64),
+                    self.mesh)[0])
+            mean = int(np.float32(total) / np.float32(len(donors)))
+            steps = tuple(mean if i in here_joined else s
                           for i, s in enumerate(steps))
             self.state = self.state._replace(opt=opt._replace(step=steps))
 

@@ -62,8 +62,14 @@ keeps a replica of the parameters, takes the gradient of its share of the
 global batch and all-reduces the mean gradient (in f32), so every replica
 takes the same update (the reference's ZeRO-1 layout holds the same
 numbers in less memory: the port takes it with a model axis). The metrics
-are means over all nodes. The hierarchical mode, error feedback and cohort
-supersteps on a sharded axis are not ported yet and raise.
+are means over all nodes. A cohort superstep there trains each rank's
+active rows in place and mixes over the cohort's row table
+(`dist.cohort_rows`: uneven, and a rank may hold no active row, which then
+joins every message with nothing of its own); its metrics are means over
+the cohort. The round clock of a stochastic wire or a time-varying
+operator, the first active node's optimizer step, comes from the rank
+that holds that node (one all-reduce a step). The hierarchical mode and
+error feedback on a sharded axis are not ported yet and raise.
 
 Over a model axis of extent above 1 (the dense family,
 `models.transformer.check_model_axis`) every rank holds blocks of the
@@ -443,15 +449,22 @@ def _build_exact_step(run, device: DeviceLike, mesh=None) -> Callable:
     return train_step
 
 
+# the metrics every family's `models.registry.loss_fn` returns, in its order
+LOSS_METRICS = ("ce", "aux")
+
+
 def _build_node_step(run, n_nodes: int, mix: Optional[Any],
-                     device: DeviceLike, mesh=None) -> Callable:
+                     device: DeviceLike, mesh=None, rows=None) -> Callable:
     """The decentralized step over `n_nodes` nodes:
     step(state, batch, ids, idx) -> (state, metrics). `ids` are the state
     rows that take part (batch row j belongs to row ids[j]): every row, or
     an elastic run's cohort; the rest of the state's rows are left as they
     are. `idx` is `ids` as a tensor on the device where they are not every
     row of the state (an elastic run's cohort), else None. On a sharded
-    `mesh` the state's rows are this rank's n_local nodes of the n_nodes."""
+    `mesh` the state's rows are this rank's nodes, and `ids` its rows that
+    take part: every one of its n_local of the n_nodes, or its active rows
+    of an n_nodes-node cohort split as `rows` says (`dist.cohort_rows`),
+    possibly none."""
     dev = resolve_device(device)
     avg = dataclasses.replace(run.averaging,
                               packed=resolve_packed(run.averaging, mesh))
@@ -463,11 +476,18 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
     pods = 1
     if mix is None:
         mix = make_gossip_mix(avg, pods if avg.mode == "hierarchical"
-                              else n_nodes, device=dev, mesh=mesh)
+                              else n_nodes, device=dev, mesh=mesh, rows=rows)
     elif isinstance(mix, ScheduledMixOp) and avg.quantization != "none":
         raise ValueError("ScheduledMixOp is linear-only: quantized averaging "
                          "configs keep their static per-round operator")
     stochastic = avg.quantization in STOCHASTIC
+    # the rank that holds the first node taking part: its optimizer step is
+    # the round clock of every rank where the clock picks something
+    clock_shared = is_sharded(mesh) and (stochastic or
+                                         isinstance(mix, ScheduledMixOp))
+    if clock_shared:
+        table = rows or rdist.row_table(mesh, n_nodes)
+        holder = next(i for i, (a, b) in enumerate(table) if b > a)
     pools: List[Optional[tuple]] = [None]  # from the first state's tree
     # per leaf (`tree_leaves` order): whether the model axis splits it
     model_split = None
@@ -498,7 +518,12 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
         # the first active node's optimizer step is the round clock: the
         # stochastic compressor folds it into its key, and a ScheduledMixOp
         # picks its phase by it
-        t = steps[ids[0]]
+        if clock_shared:
+            t = int(rdist.all_reduce_(torch.tensor(
+                [steps[ids[0]] if rdist.node_index(mesh) == holder else 0],
+                dtype=torch.int64), mesh)[0])
+        else:
+            t = steps[ids[0]] if ids else 0
         key = t if stochastic else None
         extra = {}
         if ef_on:
@@ -539,16 +564,17 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
                 sub, rows_of(params))
             new_steps[a:b] = [new.step] * (b - a)
         opt = opt._replace(step=tuple(new_steps))
-        names = list(node_metrics[0])
+        names = list(node_metrics[0]) if node_metrics else list(LOSS_METRICS)
         if mesh is None:
             metrics = {k: torch.stack([m[k] for m in node_metrics]).mean()
                        for k in names}
             loss = torch.stack(losses).mean()
-        else:  # the mean over every rank's nodes
+        else:  # the mean over every rank's nodes (a rank may hold none)
+            total = lambda xs: (torch.stack(xs).sum() if xs
+                                else torch.zeros((), device=dev))
             sums = _mean_over_ranks(
-                [torch.stack(losses).sum()] +
-                [torch.stack([m[k] for m in node_metrics]).sum()
-                 for k in names], mesh, 1.0 / n_nodes)
+                [total(losses)] + [total([m[k] for m in node_metrics])
+                                   for k in names], mesh, 1.0 / n_nodes)
             loss, metrics = sums[0], dict(zip(names, sums[1:]))
         metrics = dict(metrics, loss=loss, consensus_err=cerr, **extra)
         return TrainState(params, opt), metrics
@@ -587,17 +613,22 @@ def build_superstep(run, mesh=None, *, n_nodes: Optional[int] = None,
 
 
 def build_cohort_superstep(run, n_active: int, *,
-                           device: DeviceLike = None) -> Callable:
+                           device: DeviceLike = None, mesh=None,
+                           rows=None) -> Callable:
     """The K-round superstep of an m-node cohort of an elastic run:
     `superstep(state, ids, batches)` with the full [N, ...] state, the m
     active node ids and batch leaves [K, m, B/m, ...]; it trains the active
     rows in place (no gather of the state) with the gossip schedule
     recomposed over the cohort, and leaves the others as they are. Marked
     `takes_ids`, so `train.driver.elastic_superstep` hands it the full
-    state."""
-    check_supported(run, None)
+    state. On a split node axis (`mesh`) the state is this rank's node
+    rows, `ids` its active rows among them (`dist.local_ids`), the batch
+    its active nodes' rows, and the cohort splits over the ranks as `rows`
+    says (`dist.cohort_rows`)."""
+    check_supported(run, mesh)
+    mesh = mesh if is_sharded(mesh) else None
     dev = resolve_device(device)
-    step = _build_node_step(run, n_active, None, dev)
+    step = _build_node_step(run, n_active, None, dev, mesh, rows)
     ef_on = run.averaging.error_feedback != "off"
 
     def superstep(state: TrainState, ids, batches):
@@ -623,13 +654,14 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
     cohort superstep (`build_cohort_superstep`), its gossip operator
     recomposed over the active cohort. The `mix` override (scenario harness)
     only applies at full membership: its operator is sized for the full
-    node axis. On a sharded `mesh` (`n_nodes` default: one node per rank)
-    only the full membership is built: churn on a sharded node axis is not
-    ported yet (ROADMAP.md); and in the exact mode a B that does not split
+    node axis. On a sharded `mesh` (`n_nodes` default: one node per rank) a
+    cohort superstep is built once per cohort row table
+    (`dist.cohort_rows`), since the split shapes its halo rows; a cohort
+    over a model axis raises; and in the exact mode a B that does not split
     evenly over the ranks raises."""
     check_supported(run, mesh)
     n_full = n_nodes or (n_data_nodes(mesh) if mesh is not None else 1)
-    cohort_cache: Dict[int, Callable] = {}
+    cohort_cache: Dict[Any, Callable] = {}
 
     def build(B: int, membership=None) -> Callable:
         if run.averaging.mode == "exact" and is_sharded(mesh):
@@ -637,16 +669,20 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
             if why:
                 raise ValueError(f"exact mode on a sharded node axis: {why}")
         m = n_full if membership is None else membership.n_active
-        fn = cohort_cache.get(m)
-        if fn is None and m != n_full and multi_rank(mesh):
+        table = (rdist.cohort_rows(mesh, membership)
+                 if m != n_full and is_sharded(mesh) else None)
+        key = m if table is None else table
+        fn = cohort_cache.get(key)
+        if fn is None and m != n_full and model_extent(mesh) > 1:
             raise NotImplementedError(
-                "elastic membership on a sharded node axis is not ported "
-                "yet (ROADMAP.md)")
+                "elastic membership over a model axis is not ported yet "
+                "(ROADMAP.md queue 1 item 1)")
         if fn is None:
             fn = (build_superstep(run, mesh, n_nodes=n_full, mix=mix,
                                   device=device) if m == n_full else
-                  build_cohort_superstep(run, m, device=device))
-            cohort_cache[m] = fn
+                  build_cohort_superstep(run, m, device=device, mesh=mesh,
+                                         rows=table))
+            cohort_cache[key] = fn
         return fn
 
     return build

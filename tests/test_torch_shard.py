@@ -7,8 +7,8 @@ gloo group (`tests/torch_dist_worker.py`, one worker run per world size):
 * exact gossip (tests/shard_worker.py's shape, N = 16, D = 4096, ring,
   R = 3) is bit for bit the port's plain per-round path on each rank's
   rows, and within 1e-6 relative of `gossip_mix_ref`; HIGHD's mix (n = 10,
-  d = 3072, ring R = 8) likewise where 10 rows split evenly, through the
-  gather-roll where they do not;
+  d = 3072, ring R = 8) likewise, on the even split of 2 ranks and the
+  uneven one of 4 (3, 3, 2, 2 rows);
 * the quantized wire with per-node statistics: sign and int8 bit for bit
   against the port's plain per-node version
   (`ref.gossip_mix_quant_ref(per_node=True)`; int8_stoch too, its noise
@@ -18,13 +18,15 @@ gloo group (`tests/torch_dist_worker.py`, one worker run per world size):
   1e-5, int8_stoch (other noise, by design) within one quantization step;
 * the fused xi + gossip rule within 1e-5 relative of
   `gossip_mix_ref(vmap(krasulina_xi_ref))`;
-* a layout the rule does not cover (n not a multiple of the ranks) gathers
-  and stays correct; the consensus error and the exact average reduce over
+* a layout the rule does not cover (a reach that would wrap onto a
+  shard's own rows) gathers and stays correct; the consensus error and the exact average reduce over
   ranks;
 * the governed PCA driver on 2 ranks against the JAX driver (no mesh) at
   tests/test_torch_driver.py's sizes and tolerance, with the same plan
   history on every rank.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +52,7 @@ from repro_torch.core import mixing
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as meshlib
 from torch_dist_worker import (D, DRIVER_CASES, HIGHD_D, HIGHD_N, HIGHD_R, N,
-                               R, FakeClock, decisions, spawn)
+                               R, SMALL_N, FakeClock, decisions, spawn)
 
 
 def _rel(got, want):
@@ -109,17 +111,13 @@ def test_exact_gossip_bit_for_bit_and_matches_reference(ranks):
 
 
 def test_highd_mix_on_every_split(ranks):
-    """n = 10 rows split evenly over 2 ranks take the rule, bit for bit;
-    over 4 ranks (3, 3, 2, 2 rows) the op gathers and rolls."""
+    """n = 10 rows take the rule on every split, bit for bit: even over 2
+    ranks, uneven over 4 (3, 3, 2, 2 rows: a hop spans shards of
+    different lengths)."""
     world, res, data = ranks
     for r in res:
-        assert r["highd_impl"] == ("shard" if HIGHD_N % world == 0
-                                   else "roll")
-        if r["highd_impl"] == "shard":
-            np.testing.assert_array_equal(r["highd"], r["highd_plain"])
-        else:
-            np.testing.assert_allclose(r["highd"], r["highd_plain"],
-                                       rtol=1e-5, atol=1e-6)
+        assert r["highd_impl"] == "shard"
+        np.testing.assert_array_equal(r["highd"], r["highd_plain"])
     want = np.asarray(jref.gossip_mix_ref(
         jnp.asarray(data["xh"]),
         tuple(jmixing.schedule("ring", HIGHD_N)), HIGHD_R))
@@ -155,9 +153,10 @@ def test_krasulina_xi_gossip_shard_matches_per_round_oracle(ranks):
 
 def test_uncovered_layout_gathers_and_stays_correct(ranks):
     world, res, data = ranks
-    n = 6 if world == 4 else 5
+    n = SMALL_N
     want = np.asarray(jref.gossip_mix_ref(
-        jnp.asarray(data["xs"][:n]), tuple(jmixing.schedule("ring", n)), R))
+        jnp.asarray(data["xs"][:n]),
+        tuple(jmixing.schedule("circulant2", n)), R))
     for r in res:
         assert r["small_impl"] == "roll"
     np.testing.assert_allclose(_stitch(res, "small", "small_rows"), want,
@@ -209,7 +208,13 @@ def test_mesh_constructors_and_rows():
     # a ring spanning two mesh axes is not covered: the op gathers
     assert ops.node_shard_info(pods, 8, mixing.schedule("ring", 8)) is None
     assert ops.node_shard_info(four[0], 16, SCHED) == (("data",), "data")
-    assert ops.node_shard_info(four[0], 6, None) is None
+    # uneven splits are covered; a reach that wraps onto a shard's own
+    # rows is not
+    assert ops.node_shard_info(four[0], 6, None) == (("data",), "data")
+    assert ops.node_shard_info(four[0], 6, mixing.schedule("ring", 6)) == (
+        ("data",), "data")
+    assert ops.node_shard_info(four[0], 5, mixing.schedule(
+        "circulant2", 5)) is None
     assert mixing.resolve_auto_impl("cpu", four[0]) == "shard"
     assert mixing.resolve_auto_impl("cpu", host) == "matmul"
 
@@ -257,8 +262,9 @@ def test_exact_mode_batch_splits_evenly_over_ranks(B, n_nodes, why):
 
 
 def test_sharded_refusals_and_rule_coverage():
-    """On a sharded node axis the hierarchical mode raises (its pods on
-    the mesh's "pod" axis are not ported yet), and the shard rules refuse
+    """On a sharded node axis the hierarchical mode and error feedback
+    raise (the trainer's and the planner's; the hierarchical pods on the
+    mesh's "pod" axis are not ported yet), and the shard rules refuse
     a layout that `node_shard_info` does not cover (a ring over two mesh
     axes), which `core.mixing`'s op gathers instead."""
     from repro_torch.configs import get_config, reduced
@@ -277,6 +283,20 @@ def test_sharded_refusals_and_rule_coverage():
     for fn in (averaging.average_gradients, averaging.average_and_error):
         with pytest.raises(NotImplementedError, match="hierarchical"):
             fn(tree, hier, n_nodes=2, mesh=TWO[0])
+    # error feedback stays refused on a split axis, in the trainer and in
+    # the planner (elastic membership and the quantized wires run there)
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.models.common import MetaGenerator
+
+    ef = dataclasses.replace(run, averaging=AveragingConfig(
+        mode="gossip", rounds=2, quantization="int8",
+        error_feedback="grads"))
+    with pytest.raises(NotImplementedError, match="error feedback"):
+        trainer.superstep_builder(ef, TWO[0], device="cpu")
+    params = registry.init_params(MetaGenerator(), ef.model, torch.float32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        dryrun.node_axis_collectives(ef, params, TWO[0], 2)
     pods = rdist.Mesh((2, 2, 1), ("pod", "data", "model"))
     sched = mixing.schedule("ring", 8)
     x = torch.zeros(2, 4)

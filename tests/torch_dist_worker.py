@@ -1,6 +1,7 @@
 """Rank code of the port's multi-rank tests (tests/test_torch_shard.py,
-tests/test_torch_trainer_dist.py, tests/test_torch_model_axis.py); not
-collected by pytest.
+tests/test_torch_trainer_dist.py, tests/test_torch_model_axis.py,
+tests/test_torch_shard_elastic.py, tests/test_torch_shard_elastic_lm.py);
+not collected by pytest.
 
     python tests/torch_dist_worker.py CASE RANK WORLD STORE OUT [INPUT]
 
@@ -29,11 +30,13 @@ TIMEOUT_S = 240  # each rank's deadline; a hung collective fails at 120 s
 # the shard rules' cases: tests/shard_worker.py's shape, and HIGHD's mix
 N, D, R = 16, 1 << 12, 3
 HIGHD_N, HIGHD_D, HIGHD_R = 10, 3072, 8
+SMALL_N = 5  # the rules case's uncovered layout (circulant2 over 5 rows)
 
 
-def spawn(case: str, world: int, tmp_path, inp=None):
+def spawn(case: str, world: int, tmp_path, inp=None, during=None):
     """Run CASE on `world` ranks and return each rank's results. Every rank
-    is joined under a deadline and must exit 0."""
+    is joined under a deadline and must exit 0. `during` (optional) is
+    called while the ranks run, and then (results, its value) returned."""
     store = tmp_path / f"store_{case}_{world}"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, HERE]),
                OMP_NUM_THREADS="1")
@@ -49,6 +52,7 @@ def spawn(case: str, world: int, tmp_path, inp=None):
                                        stderr=subprocess.STDOUT), out, log))
     deadline = time.monotonic() + TIMEOUT_S
     try:
+        extra = during() if during is not None else None
         for p, _, _ in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
     finally:
@@ -60,7 +64,8 @@ def spawn(case: str, world: int, tmp_path, inp=None):
     for r, (p, out, _) in enumerate(procs):
         text = (tmp_path / f"{case}_{world}_{r}.log").read_text()
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{text}"
-    return [torch.load(out, weights_only=False) for _, out, _ in procs]
+    res = [torch.load(out, weights_only=False) for _, out, _ in procs]
+    return res if during is None else (res, extra)
 
 
 def _rows_of(x: np.ndarray, rows: slice) -> torch.Tensor:
@@ -98,8 +103,8 @@ def rules(mesh, inp):
         res[f"{quant}_plain"] = ref.gossip_mix_quant_ref(
             torch.from_numpy(x), sched, R, quant, block_d=512,
             key=opq._key0(None), per_node=True)[rows].numpy()
-    # HIGHD's mix (n = 10, d = 3072, ring R = 8): the rule where 10 rows
-    # split evenly, the gather-roll where they do not
+    # HIGHD's mix (n = 10, d = 3072, ring R = 8): the rule on every split,
+    # even (5 + 5) or not (3 + 3 + 2 + 2)
     hrows = node_rows(mesh, HIGHD_N)
     hs = mixing.schedule("ring", HIGHD_N)
     hop = mixing.circulant_mix_op(hs, HIGHD_N, HIGHD_R, mesh=mesh,
@@ -113,9 +118,11 @@ def rules(mesh, inp):
     res["xi_gossip"] = ops.sharded_krasulina_xi_gossip(
         _rows_of(data["w"], rows), _rows_of(data["z"], rows), sched, R,
         mesh).numpy()
-    # a layout the rule does not cover: n not a multiple of the split
-    n_small = 6 if E == 4 else 5
-    ss = mixing.schedule("ring", n_small)
+    # a layout the rule does not cover: a reach of 2 each way over 5 rows
+    # wraps onto the longest shard's own rows (3 + 2 on 2 ranks, 2 + 1 + 1
+    # + 1 on 4)
+    n_small = SMALL_N
+    ss = mixing.schedule("circulant2", n_small)
     small = mixing.circulant_mix_op(ss, n_small, R, mesh=mesh, device="cpu")
     srows = node_rows(mesh, n_small)
     res["small_impl"] = small.impl
@@ -390,8 +397,331 @@ def model_trainer(mesh, inp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Elastic membership on the split node axis (tests/test_torch_shard_elastic*)
+# ---------------------------------------------------------------------------
+
+# the cohort shard rules: (label, N, dropped nodes, topology, whether the
+# halo rule covers the cohort's split) per world size; every case
+# R = COHORT_R rounds over [m, COHORT_D] rows
+COHORT_CASES = {
+    2: [("uneven", 5, (), "ring", True),          # 3 + 2 rows
+        ("node 0 out", 5, (0,), "ring", True),     # 2 + 2
+        # 3 + 0: the ring over the 3 rows of one rank wraps onto them
+        ("a rank out", 5, (3, 4), "ring", False),
+        ("reach wraps", 10, (3, 4), "circulant2", False)],  # 3 + 5
+    4: [("uneven", 10, (), "ring", True),         # 3 + 3 + 2 + 2
+        ("node 0 out", 10, (0,), "ring", True),    # 2 + 3 + 2 + 2
+        ("nodes 3, 4 out", 10, (3, 4), "ring", True),   # 3 + 1 + 2 + 2
+        ("a rank out", 10, (6, 7), "ring", True),  # 3 + 3 + 0 + 2
+        ("reach over a short shard", 10, (3, 4), "circulant2", True)],
+}
+COHORT_R, COHORT_D = 3, 1024
+COHORT_WIRES = ("sign", "int8", "int8_stoch")
+SCN_T = (1, 2, 3, 5)  # the rounds of the scheduled op's tables checked
+
+
+def cohort_inputs(label: str, m: int):
+    """The seeded numpy rows of a cohort case: x [m, D], w [m, 256] and
+    z [m, 8, 256] for the fused xi + gossip."""
+    rng = np.random.default_rng(sum(map(ord, label)) + m)
+    return (rng.standard_normal((m, COHORT_D)).astype(np.float32),
+            rng.standard_normal((m, 256)).astype(np.float32),
+            rng.standard_normal((m, 8, 256)).astype(np.float32))
+
+
+def scenario_inputs():
+    return np.random.default_rng(11).standard_normal((8, 96)).astype(
+        np.float32)
+
+
+def cohort_rules(mesh, inp=None):
+    """The shard rules over cohorts on this rank's active rows: every
+    wire of the circulant op built with the cohort's row table, the fused
+    xi + gossip, the cohort's reductions, and the port's plain per-round
+    path over the m cohort rows; then a scenario's scheduled op and a
+    dense op on a split axis, against the one-process op."""
+    from repro_torch import dist as rdist
+    from repro_torch.core import averaging, mixing, scenarios
+    from repro_torch.core.mixing import Membership
+    from repro_torch.kernels import ops, ref
+
+    E = rdist.n_data_nodes(mesh)
+    out = {}
+    for label, n, dropped, topo, _ in COHORT_CASES[E]:
+        mem = Membership.full(n).drop(*dropped)
+        m = mem.n_active
+        table = rdist.cohort_rows(mesh, mem)
+        a, b = table[rdist.node_index(mesh)]
+        x, w, z = cohort_inputs(label, m)
+        sched = mixing.schedule(topo, m)
+        mine = lambda v: torch.from_numpy(np.ascontiguousarray(v[a:b]))
+        res = {"table": table, "rows": (a, b), "m": m, "sched": sched,
+               "local_ids": rdist.local_ids(mesh, mem)}
+        op = mixing.circulant_mix_op(sched, m, COHORT_R, mesh=mesh,
+                                     rows=table, device="cpu")
+        res["impl"] = op.impl
+        res["exact"] = op(mine(x)).numpy()
+        res["exact_plain"] = ref.gossip_mix_ref(torch.from_numpy(x), sched,
+                                                COHORT_R)[a:b].numpy()
+        for quant in COHORT_WIRES:
+            opq = mixing.circulant_mix_op(sched, m, COHORT_R,
+                                          quantization=quant, stats="node",
+                                          block_d=512, mesh=mesh, rows=table,
+                                          device="cpu")
+            res[quant] = opq(mine(x)).numpy()
+            res[quant + "_plain"] = ref.gossip_mix_quant_ref(
+                torch.from_numpy(x), sched, COHORT_R, quant, block_d=512,
+                key=opq._key0(None), per_node=True)[a:b].numpy()
+        if op.impl == "shard":
+            res["xi_gossip"] = ops.sharded_krasulina_xi_gossip(
+                mine(w), mine(z), sched, COHORT_R, mesh, table).numpy()
+        tree = {"x": mine(x), "w": mine(w)}
+        res["consensus_err"] = float(averaging.consensus_error(
+            tree, mesh=mesh, n_nodes=m))
+        # a dense op over the cohort (its ring's matrix) on the split axis
+        dense = mixing.dense_mix_op(mixing.ring_matrix(m), COHORT_R,
+                                    mesh=mesh, rows=table, device="cpu")
+        res["dense"] = dense(mine(x)).numpy()
+        out[label] = res
+    # a scenario's time-varying operator (ring/lossy/iid_pca, n = 8) on the
+    # even split of its 8 rows, against the one-process op's rows
+    scn = scenarios.get_scenario("ring/lossy/iid_pca")
+    xs = scenario_inputs()
+    rows = rdist.node_rows(mesh, scn.n_nodes)
+    split = scenarios.build_mix(scn, device="cpu", mesh=mesh)
+    whole = scenarios.build_mix(scn, device="cpu")
+    out["scheduled"] = {
+        "rows": (rows.start, rows.stop),
+        "got": [split(torch.from_numpy(xs[rows]), t=t).numpy()
+                for t in SCN_T],
+        "one_process": [whole(torch.from_numpy(xs), t=t)[rows].numpy()
+                        for t in SCN_T]}
+    return out
+
+
+# the PCA driver's elastic cases on 2 ranks: (fault spec, governor, supersteps)
+PCA_CASES = {
+    "death rejoin": ("death:4@2-5", {}, 8),
+    "death rejoin, no sync": ("death:1@1-3", {"sync_on_rejoin": False}, 5),
+    "flaky share a cohort": ("flaky:1@1-7p2,death:3@7-9", {}, 10),
+    "a rank out": ("death:3@2-5,death:4@3-6", {}, 7),
+    "straggler drop": ("slow:0@2-14x10", {"straggler_policy": "drop",
+                                          "straggler_slow_factor": 2.0,
+                                          "straggler_patience": 2}, 24),
+    "deadline": ("slow:2@1-6x4", {"straggler_policy": "deadline",
+                                  "straggler_deadline_s": 1e-3}, 8),
+}
+PCA_N, PCA_B, PCA_K = 5, 10, 2
+SCENARIO_CASES = ("ring/lossy/iid_pca", "tv_rte/ratelimited/drift_pca")
+
+
+def plan_json(p):
+    return None if p is None else p.to_json()
+
+
+def events(drv):
+    """A driver's membership events as comparable tuples."""
+    return [(e["superstep"], None if e["from"] is None else e["from"].active,
+             e["to"].active, plan_json(e["plan"]))
+            for e in drv.membership_events]
+
+
+def records(drv):
+    """A driver's per-superstep records as comparable tuples."""
+    return [(r["bucket"], r["n_active"], plan_json(r["plan"]),
+             plan_json(r.get("replanned")), r.get("bw_factor"),
+             r.get("link_drops"), tuple(r["counters"]))
+            for r in drv.history]
+
+
+def _pca_run(mesh, w0, n, sample, *, spec=None, gov=None,
+             supersteps=8, mix=None, faults=None):
+    """One elastic PCA driver run on this rank's rows (ring R = 2,
+    K = PCA_K, no prefetch, a re-plan each superstep on a fake clock):
+    what tests/test_torch_shard_elastic.py's `_same` compares."""
+    from repro_torch.configs.base import (AveragingConfig, GovernorConfig,
+                                          StreamConfig)
+    from repro_torch.configs.paper_pca import PCARunConfig
+    from repro_torch.core import faults as tfaults
+    from repro_torch.core import krasulina
+    from repro_torch.dist import node_rows
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    rows = node_rows(mesh, n)
+    cfg = PCARunConfig(averaging=AveragingConfig(mode="gossip", rounds=2),
+                       stream=StreamConfig())
+    if spec:
+        faults = tfaults.FaultSchedule.parse(spec, n)
+    eng = EngineConfig(superstep=PCA_K, prefetch_depth=0, replan_every=1,
+                       warmup_supersteps=0, warmup_per_bucket=0,
+                       governor=GovernorConfig(**(gov or {})))
+    with StreamingDriver(
+            cfg, mesh, krasulina.init_krasulina_state(
+                w0, cfg.averaging, n, device="cpu", mesh=mesh),
+            sample, n_nodes=n, batch=PCA_B if n == PCA_N else 2 * n,
+            seed=1, superstep_builder=krasulina.krasulina_superstep_builder(
+                cfg.averaging, n, lambda t: 10.0 / t, mix=mix, device="cpu",
+                mesh=mesh),
+            faults=faults, clock=FakeClock(1e-3), device="cpu",
+            engine=eng) as drv:
+        state, _ = drv.run(supersteps)
+    return {"events": events(drv), "signatures": drv.compiled_signatures,
+            "records": records(drv),
+            "keys": [sorted(r) for r in drv.history],
+            "consensus_err": [r["metrics"]["consensus_err"]
+                              for r in drv.history],
+            "w": state.w.numpy(), "t": state.t,
+            "rows": (rows.start, rows.stop)}
+
+
+def elastic_driver(mesh, inp):
+    """The governed PCA driver with elastic membership (FIG7, N = 5, ring
+    R = 2, K = 2) and two registered scenarios (N = 8) on this rank's rows,
+    from the reference's stream the parent saved."""
+    from repro_torch import convert
+    from repro_torch.core import scenarios
+    from repro_torch.data.synthetic import make_pca_host_sampler
+
+    data = np.load(inp)
+    ts = convert.pca_stream(data["cov"], data["sqrt_cov"], data["top"],
+                            float(data["lambda1"]), float(data["eigengap"]),
+                            device="cpu")
+    out = {}
+    for name, (spec, gov, steps) in PCA_CASES.items():
+        out[name] = _pca_run(mesh, data["w0"], PCA_N,
+                             make_pca_host_sampler(ts), spec=spec, gov=gov,
+                             supersteps=steps)
+    for name in SCENARIO_CASES:
+        scn = scenarios.get_scenario(name)
+        stream = scenarios.build_stream(scn, pca=ts)
+        out[name] = _pca_run(
+            mesh, data["w0"], scn.n_nodes, stream.sample, supersteps=6,
+            mix=scenarios.build_mix(scn, device="cpu", mesh=mesh),
+            faults=scenarios.fault_schedule(scn))
+    return out
+
+
+# the LM trainer's elastic runs on 4 ranks x 1 node (reduced granite-8b,
+# f32, Adam): (label, quantization, rejoin sync)
+LM_RUNS = [("gossip sync", "none", True), ("gossip no sync", "none", False),
+           ("int8 sync", "int8", True)]
+LM_SPEC, LM_SUPERSTEPS, LM_B, LM_S = "death:1@1-2", 3, 8, 32
+# the planner's probes of one cohort step (4 ranks x 1 node, node 1 out,
+# unless full): (label, quantization, statistics, scheduled, dropped)
+PLAN_PROBES = [("halo", "none", "global", False, (1,)),
+               ("int8 node halo", "int8", "node", False, (1,)),
+               ("int8 node full", "int8", "node", False, ()),
+               ("int8 tile gather", "int8", "tile", False, (1,)),
+               ("scheduled gather", "none", "global", True, ())]
+
+
+def lm_draw(rng, n, seq=LM_S):
+    """tests/test_torch_trainer.py's `_draw`: Markov tokens and labels."""
+    from repro_torch.data.lm import MarkovTokenStream
+
+    toks = MarkovTokenStream(512, seed=0).sample(rng, n, seq + 1)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def elastic_trainer(mesh, inp):
+    """(1) the reduced granite trainer under `death:1@1-2` through the
+    StreamingDriver on this rank's node (`LM_RUNS`), from the state the
+    parent converted from the JAX package's; (2) the planner's probes: one
+    cohort or scenario step's messages (`dist.stats`); (3) the last three
+    families on ranks 0 and 1 (2 nodes, gossip, self weight 0.6), 2 steps
+    from the converted states and batches."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch import convert, dist as rdist
+    from repro_torch.configs.base import AveragingConfig, GovernorConfig
+    from repro_torch.core import faults, scenarios
+    from repro_torch.core.mixing import Membership
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import trainer as tr
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    given = torch.load(inp, weights_only=False)
+    rows = rdist.node_rows(mesh, 4)
+    out = {"runs": {}, "probes": {}, "families": {}}
+    for label, quant, sync in LM_RUNS:
+        run = given["runs"][label]
+        state = _local_state(given["state"], rows)
+        with StreamingDriver(
+                run, mesh, state, lambda rng, n: lm_draw(rng, n),
+                batch=LM_B, n_nodes=4, device="cpu",
+                faults=faults.FaultSchedule.parse(LM_SPEC, 4),
+                engine=EngineConfig(superstep=1, prefetch_depth=0,
+                                    replan_every=0,
+                                    governor=GovernorConfig(
+                                        sync_on_rejoin=sync))) as drv:
+            state, hist = drv.run(LM_SUPERSTEPS)
+        out["runs"][label] = {
+            "events": [(e["superstep"], e["to"].active_ids)
+                       for e in drv.membership_events],
+            "n_active": [r["n_active"] for r in hist],
+            "metrics": [r["metrics"] for r in hist],
+            "tree": convert.train_tree(state, run.model),
+            "rows": (rows.start, rows.stop)}
+    # (2) the planner's probes
+    base = given["runs"]["gossip sync"]
+    rng = np.random.default_rng(3)
+    for label, quant, stats, scheduled, dropped in PLAN_PROBES:
+        run = dataclasses.replace(base, averaging=dataclasses.replace(
+            base.averaging, quantization=quant, quant_stats=stats))
+        mem = Membership.full(4).drop(*dropped)
+        mix = None
+        if scheduled:
+            scn = dataclasses.replace(
+                scenarios.get_scenario("ring/lossy/iid_pca"), n_nodes=4)
+            mix = scenarios.build_mix(scn, device="cpu", mesh=mesh)
+            run = dataclasses.replace(run, averaging=scenarios
+                                      .averaging_config(scn))
+        fn = tr.superstep_builder(run, mesh, n_nodes=4, mix=mix,
+                                  device="cpu")(8, mem)
+        batch = tr.make_node_batch(
+            {k: torch.from_numpy(v)[None] for k, v in
+             lm_draw(rng, 8 if mem.is_full else 9).items()},
+            mem.n_active, axis=1)
+        batch = shard_batch(batch, mesh, 4, node_axis=True, membership=mem)
+        state = _local_state(given["state"], rows)
+        rdist.reset_stats()
+        if mem.is_full:
+            fn(state, batch)
+        else:
+            fn(state, rdist.local_ids(mesh, mem), batch)
+        out["probes"][label] = {"wire": dict(rdist.stats),
+                                "log": {k: list(v) for k, v in
+                                        rdist.log.items()}}
+    # (3) the last three families on a 2-rank subgroup
+    pair = dist.new_group([0, 1])
+    if mesh.rank < 2:
+        mesh2 = make_host_mesh(group=pair)
+        rows2 = rdist.node_rows(mesh2, 2)
+        for arch, case in given["families"].items():
+            run = case["run"]
+            state = _local_state(case["state"], rows2)
+            step = tr.build_train_step(run, mesh2, n_nodes=2, device="cpu")
+            metrics = []
+            for b in case["batches"]:  # [2, B/2, ...] node batches
+                state, m = step(state, {k: torch.from_numpy(v[rows2])
+                                        for k, v in b.items()})
+                metrics.append({k: float(v) for k, v in m.items()})
+            out["families"][arch] = {
+                "metrics": metrics, "tree": convert.train_tree(state,
+                                                               run.model),
+                "rows": (rows2.start, rows2.stop)}
+    dist.barrier()
+    return out
+
+
 CASES = {"rules": rules, "driver": driver, "trainer": trainer,
-         "model_layers": model_layers, "model_trainer": model_trainer}
+         "model_layers": model_layers, "model_trainer": model_trainer,
+         "cohort_rules": cohort_rules, "elastic_driver": elastic_driver,
+         "elastic_trainer": elastic_trainer}
 
 
 def main():
