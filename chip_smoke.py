@@ -58,6 +58,31 @@
    mean after the rejoin, the planned wire equal to the ranks' to the
    byte; prints s per round at full membership and in the cohort, bytes
    by route, each rank's peak, the launches and (v)'s seconds.
+   (w0)-(w4), error feedback, the hierarchical mode, snapshots, resume and
+   publication on the sharded node axis, after (v): four rank processes,
+   one node each, the pod mesh ("pod", "data", "model") = (2, 2, 1) and
+   the snapshot writers' group made at set-up. (w0) the reduced granite
+   trainer (f32, Adam): error feedback on the sign and int8 wires, bit
+   for bit the single-process card run with the plain per-round operator
+   at full membership, and under `death:1@1-2` at (h0)'s bounds; the
+   hierarchical mode, exact and int8 (128-column tiles: the lanes gossip
+   their blocks apart), bit for bit the single-process run at pods = 2,
+   its wire equal to the plan; the int8 run's snapshot restored on one
+   process and the single-process snapshot restored on the ranks, each
+   continued one superstep bit for bit; the published params within f32
+   reassociation of the single process's extract; the governed PCA
+   driver at HIGHD resumed on the ranks bit for bit (`krasulina_xi` on
+   every rank). (w1) granite-8b at its published widths cut to 2 layers,
+   (s2b)'s node on each rank, int8 error feedback for two rounds: s per
+   round, bytes staged a round equal to the plan, `ef_rel` in (0, 1),
+   each peak under a quarter of the card, and the same rounds on one
+   process after the ranks exit within (h0)'s bounds on the f32 masters.
+   (w2) (w1)'s ranks publish after round 1; rank 0's engine greedy-decodes
+   through the wgmma flash kernel, the tokens of a single-process engine
+   on the same weights. (w3) the ranks snapshot (w1)'s state after round
+   1, each its own rows, restore it in place and repeat round 2 bit for
+   bit. (w4) the hierarchical mode at full width on the pod mesh, one
+   round, its bytes staged equal to the plan.
 3. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
@@ -2291,6 +2316,858 @@ def elastic_shard_phases(dev) -> dict:
     return v_launches
 
 
+# ---------------------------------------------------------------------------
+# (w) error feedback, the hierarchical mode, snapshots, resume and
+# publication on the sharded node axis: W_WORLD rank processes share the
+# card in one gloo group (`durable_shard_phases`, spawned after (v)'s ranks
+# have exited), four nodes, one a rank; the pod mesh's pod and lane groups
+# and the snapshot writers' group are made at set-up
+W_WORLD, W_TIMEOUT = 4, 900
+W_POD_MESH = ((2, 2, 1), ("pod", "data", "model"))
+W_SELF_WEIGHT = 0.6  # the ring between 2 pods (at 1/2: the exact mean)
+W0_WIRES = ("sign", "int8")
+W0_SPEC, W0_SUPERSTEPS, W0_FULL = "death:1@1-2", 3, 2
+W0_HIER = ("none", "int8")
+W0_PCA_SUPERSTEPS, W0_PCA_BACK = 2, 1
+# (w1): one round, from the state (w3) snapshots, which (w3)'s resumed
+# round must give again; (w2): greedy requests of W2_PROMPT tokens
+W1_ROUNDS = 1
+W2_PROMPTS, W2_PROMPT, W2_GEN = 3, 64, 8
+
+
+def w_run(cfg, wire, dtype, mode="gossip"):
+    """(s2)'s run with error feedback on `wire` (gossip), or the
+    hierarchical mode's ring between the pods at W_SELF_WEIGHT."""
+    from repro_torch.configs.base import AveragingConfig
+
+    run = s2_run(cfg, mode, dtype)
+    if mode == "hierarchical":
+        # 128-column tiles divide the reduced config's lane blocks (623,232
+        # columns): its int8 wire gossips the lanes apart
+        return dataclasses.replace(run, averaging=AveragingConfig(
+            mode, TRAIN_R, "ring", self_weight=W_SELF_WEIGHT,
+            quantization=wire, quant_stats="tile", quant_block_d=128))
+    return dataclasses.replace(run, averaging=AveragingConfig(
+        mode, TRAIN_R, "ring", quantization=wire, error_feedback="grads"))
+
+
+def w_state(dev, run, n_rows: int):
+    """`run`'s state drawn from seed 0 (on the CPU for a reduced config,
+    the card at full width), n_rows copies of the node, on the card."""
+    import torch
+
+    from repro_torch.core.packing import map_tensors
+    from repro_torch.train import trainer
+
+    st = trainer.init_state(run, torch.Generator(device=dev).manual_seed(0))
+    return map_tensors(lambda t: t.to(dev),
+                       trainer.replicate_for_nodes(st, n_rows))
+
+
+def w_one_mix(dev, run, n: int, shards: int):
+    """The one-process operator whose numbers `shards` ranks' split of n
+    rows gives: the plain per-round loop where the shard rule covers the
+    split, else the fused roll (a linear wire; None for a quantized
+    one)."""
+    from repro_torch import dist as rdist
+    from repro_torch.core import mixing
+    from repro_torch.kernels import ops
+
+    avg = run.averaging
+    if avg.quantization != "none" and avg.error_feedback == "off":
+        return None
+    sched = mixing.schedule(avg.topology, n, avg.self_weight)
+    mesh = rdist.Mesh((shards, 1), ("data", "model"))
+    covered = ops.node_shard_info(mesh, n, sched,
+                                  rdist.row_table(mesh, n)) is not None
+    return mixing.circulant_mix_op(sched, n, avg.rounds, fuse=not covered,
+                                   impl="roll", device=dev)
+
+
+def w_wait(marker: str) -> None:
+    """Wait for the file `marker` (written by the parent process), at most
+    W_TIMEOUT seconds."""
+    deadline = time.monotonic() + W_TIMEOUT
+    while not os.path.exists(marker):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{marker} did not appear")
+        time.sleep(0.05)
+
+
+def w_sample(vocab: int, seq: int):
+    from repro_torch.data.lm import MarkovTokenStream
+
+    data = MarkovTokenStream(vocab, seed=0)
+
+    def sample(rng, n):
+        toks = data.sample(rng, n, seq + 1)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    return sample
+
+
+def w_lm_driver(dev, mesh, run, state, *, seq, supersteps, mix=None,
+                spec=None, publisher=None, resume=None, root=None):
+    """The LM trainer through the driver, K = 1, no prefetch, open loop,
+    8 sequences a round: on `mesh` (this rank's node) or on one process
+    (every node; `mix` at full membership), a blocking snapshot every
+    superstep under `root`: (history, state, driver, events)."""
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.train import trainer
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    builder = (trainer.superstep_builder(run, None, n_nodes=TRAIN_N, mix=mix,
+                                         device=dev)
+               if mesh is None else None)
+    snap = (RunSnapshotter(root, every=1, keep_last=8, block=True,
+                           overhead_budget=0.0) if root else None)
+    with StreamingDriver(
+            run, mesh, state, w_sample(run.model.vocab_size, seq),
+            batch=2 * TRAIN_N, n_nodes=TRAIN_N, device=dev,
+            superstep_builder=builder, publisher=publisher,
+            snapshotter=snap, resume_from=resume,
+            faults=FaultSchedule.parse(spec, TRAIN_N) if spec else None,
+            engine=EngineConfig(superstep=1, prefetch_depth=0,
+                                replan_every=0)) as drv:
+        state, hist = drv.run(supersteps - drv._supersteps_done)
+    events = [(e["superstep"], e["to"].active_ids)
+              for e in drv.membership_events]
+    return hist, state, drv, events
+
+
+def w_pca(dev, mesh, stream, w0, *, root=None, resume=None):
+    """(s1)'s governed PCA driver (HIGHD, exact wire) to W0_PCA_SUPERSTEPS
+    supersteps on this rank's rows, a blocking snapshot every superstep
+    under `root`, or resumed from `resume`: (iterate, records, seconds)."""
+    import torch
+
+    from repro_torch.configs.paper_pca import HIGHD, PCARunConfig
+    from repro_torch.core import krasulina, problems
+    from repro_torch.data.synthetic import make_pca_host_sampler
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    avg = v_wires()["exact"]
+    build = krasulina.krasulina_superstep_builder(
+        avg, HIGHD_N, lambda t: 5.0 / t, device=dev, mesh=mesh,
+        metric=lambda w: problems.sin2_error(w, stream.top_eigvec))
+    snap = (RunSnapshotter(root, every=1, keep_last=8, block=True,
+                           overhead_budget=0.0) if root else None)
+    t0 = time.perf_counter()
+    with StreamingDriver(
+            PCARunConfig(pca=HIGHD, averaging=avg, stream=s1_stream()),
+            mesh, krasulina.init_krasulina_state(w0, avg, HIGHD_N,
+                                                 device=dev, mesh=mesh),
+            make_pca_host_sampler(stream), superstep_builder=build,
+            n_nodes=HIGHD_N, batch=HIGHD_B, clock=_SClock(S1_DT),
+            device=dev, snapshotter=snap, resume_from=resume,
+            engine=EngineConfig(superstep=HIGHD_K, prefetch_depth=0)) as drv:
+        state, hist = drv.run(W0_PCA_SUPERSTEPS - drv._supersteps_done)
+    torch.cuda.synchronize()
+    return (state.w.cpu(), [(r["bucket"], r["plan"].to_json(),
+                             r["metrics"]["metric"]) for r in hist],
+            time.perf_counter() - t0)
+
+
+def w_sampled(state, every: int = 61):
+    """Every `every`-th entry of each parameter and f32 master of a
+    TrainState (its node rows), as f32 copies on the host: what (w1)
+    holds against one process."""
+    import torch
+
+    from repro_torch.core.packing import tree_leaves
+
+    pick = lambda tree: [t.reshape(t.shape[0], -1)[:, ::every].to(
+        "cpu", torch.float32, copy=True) for t in tree_leaves(tree)]
+    return {"params": pick(state.params), "master": pick(state.opt.master)}
+
+
+def w_fingerprint(state):
+    """Two int64 sums over every tensor of a TrainState's bits (plain and
+    position-weighted), per leaf, on the card: equal states give equal
+    lists, and a moved bit moves them."""
+    import torch
+
+    from repro_torch.core.packing import tree_leaves
+
+    out = []
+    opt = state.opt
+    step = 1 << 24  # entries a chunk: int64 temporaries of 128 MB
+    for tree in (state.params, opt.m, opt.v, opt.master, opt.ef_residual):
+        for t in (tree_leaves(tree) if tree != () else ()):
+            flat = t.reshape(-1).view(torch.int16 if t.element_size() == 2
+                                      else torch.int32)
+            plain = weighted = 0
+            for a in range(0, flat.numel(), step):
+                bits = flat[a:a + step].long()
+                pos = (torch.arange(a, a + bits.numel(),
+                                    device=bits.device) % 65521)
+                plain += int(bits.sum())
+                weighted += int((bits * pos).sum())
+            out.append((plain, weighted))
+    return out
+
+
+def w_rank(rank: int, store: str, workdir: str) -> int:
+    """One rank of (w0)-(w4): `python3 chip_smoke.py --w-rank RANK STORE
+    DIR`. Saves its results to DIR/rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch import convert, dist as rdist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.paper_pca import HIGHD
+    from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.common import MetaGenerator
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.publisher import SnapshotPublisher
+    from repro_torch.train import checkpoint, trainer
+    from repro_torch.train.snapshot import RunSnapshotter, restore_driver
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=W_WORLD,
+                            timeout=datetime.timedelta(seconds=300))
+    # every group at set-up, in one order on every rank: the pod mesh's,
+    # and the snapshot writer's of (w3)
+    mesh = make_host_mesh()
+    pod_mesh = make_mesh(*W_POD_MESH)
+    # (w3)'s snapshot blocks until it is written, so that (w1)'s round is
+    # timed alone (a write beside a round slowed it from ~18 to ~32 s)
+    w3_snap = RunSnapshotter(os.path.join(workdir, "w3"), every=1,
+                             keep_last=1, block=True, overhead_budget=0.0)
+    w3_snap.bind(mesh)
+    rows = rdist.node_rows(mesh, TRAIN_N)
+    res = {"seconds": {}, "rows": (rows.start, rows.stop)}
+    inp = torch.load(os.path.join(workdir, "inputs.pt"), weights_only=False)
+
+    def launches():
+        out = dict(ops.launches)
+        ops.reset_launches()
+        return out
+
+    def mine(state):
+        """This rank's node of an all-node state (its rows, copied)."""
+        take = lambda t: t[rows].clone()
+        opt = state.opt
+        return type(state)(tree_map(take, state.params), opt._replace(
+            step=tuple(opt.step[rows]), m=tree_map(take, opt.m),
+            v=tree_map(take, opt.v), master=tree_map(take, opt.master),
+            ef_residual=tree_map(take, opt.ef_residual)))
+
+    def params_of(state):
+        return [p.to("cpu", copy=True) for p in tree_leaves(state.params)]
+
+    # (w0) reduced granite-8b (f32, Adam), one node a rank, against the
+    # one-process port on the card
+    t_phase = time.perf_counter()
+    cfg = reduced(get_config("granite-8b"))
+    w0 = {"ef": {}, "hier": {}}
+    ops.reset_launches()
+    for wire in W0_WIRES:
+        run = w_run(cfg, wire, "float32")
+        start = w_state(dev, run, TRAIN_N)
+        full = w_lm_driver(dev, mesh, run, mine(start), seq=64,
+                           supersteps=W0_FULL,
+                           root=(os.path.join(workdir, "w0_split")
+                                 if wire == "int8" else None),
+                           publisher=(SnapshotPublisher(overhead_budget=0.0)
+                                      if wire == "int8" else None))
+        hist, st, drv, _ = full
+        rec = {"losses": [r["metrics"]["loss"] for r in hist],
+               "ef_rel": [r["metrics"]["ef_rel"] for r in hist],
+               "params": params_of(st),
+               "fingerprint": w_fingerprint(st)}
+        if wire == "int8":
+            rec["published"] = [p.cpu() for p in tree_leaves(
+                drv._publisher.snapshot().params)]
+            rec["version"] = drv._publisher.version
+            # the reverse: the ranks resume from the one process's
+            # snapshot of superstep 1 (written beside the ranks' first
+            # runs) and continue one superstep
+            w_wait(inp["w0_one_root"] + ".ready")
+            _, st2, drv2, _ = w_lm_driver(
+                dev, mesh, run, mine(w_state(dev, run, TRAIN_N)), seq=64,
+                supersteps=W0_FULL,
+                resume=checkpoint.step_dir(inp["w0_one_root"], 1))
+            rec["resumed_fingerprint"] = w_fingerprint(st2)
+            rec["resumed_from"] = drv2.resumed_from
+            del st2, drv2
+        hist, st, _, events = w_lm_driver(
+            dev, mesh, run, mine(start), seq=64, supersteps=W0_SUPERSTEPS,
+            spec=W0_SPEC)
+        rec["death"] = {"losses": [r["metrics"]["loss"] for r in hist],
+                        "n_active": [r["n_active"] for r in hist],
+                        "events": events, "params": params_of(st),
+                        "steps": st.opt.step}
+        w0["ef"][wire] = rec
+        del start, st, drv
+    for wire in W0_HIER:
+        run = w_run(cfg, wire, "float32", "hierarchical")
+        st = mine(w_state(dev, run, TRAIN_N))
+        step = trainer.build_train_step(run, pod_mesh, n_nodes=TRAIN_N,
+                                        device=dev)
+        losses, wires = [], []
+        for b in inp["w0_batches"]:
+            rdist.reset_stats()
+            st, m = step(st, {k: v[rows].to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            wires.append(rdist.stats["wire_bytes"])
+        meta = tree_map(lambda t: t[None], registry.init_params(
+            MetaGenerator(), cfg, torch.float32))
+        w0["hier"][wire] = {
+            "losses": losses, "params": params_of(st), "wire": wires,
+            "planned": dryrun.staged_bytes(dryrun.node_axis_collectives(
+                run, meta, rdist.Mesh(*W_POD_MESH, rank=rank), TRAIN_N))}
+        del st
+    w0["lm_launches"] = launches()
+    # the PCA driver's snapshots and resume on the ranks (HIGHD, exact)
+    stream = convert.pca_stream(inp["cov"], inp["sqrt_cov"], inp["top"],
+                                HIGHD.lambda1, HIGHD.eigengap, device=dev)
+    pca_root = os.path.join(workdir, "w0_pca")
+    w_all, recs, secs = w_pca(dev, mesh, stream, inp["w0"], root=pca_root)
+    w_back, recs_back, _ = w_pca(
+        dev, mesh, stream, inp["w0"],
+        resume=checkpoint.step_dir(pca_root, W0_PCA_BACK))
+    w0["pca"] = {"equal": bool(torch.equal(w_all, w_back)),
+                 "records_equal": recs[W0_PCA_BACK:] == recs_back,
+                 "sin2": recs[-1][2], "seconds": secs,
+                 "launches": launches()}
+    del stream
+    res["w0"] = w0
+    dist.barrier()
+    res["seconds"]["w0"] = time.perf_counter() - t_phase
+
+    # (w1) granite-8b at its published widths, 2 layers, (s2b)'s node on
+    # each rank (bf16, Adam, R = 2), the int8 wire with error feedback,
+    # one round; (w2) it publishes after it; (w3) the state it starts
+    # from is snapshotted first, and its round is what the resumed round
+    # must give
+    t_phase = time.perf_counter()
+    cfg_h = dataclasses.replace(get_config("granite-8b"),
+                                num_layers=TRAIN_LAYERS)
+    run = w_run(cfg_h, "int8", "bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = trainer.init_state(run, torch.Generator(device=dev).manual_seed(0))
+    one = lambda tree: tree_map(lambda t: t.unsqueeze(0), tree)
+    st = trainer.TrainState(one(st.params), st.opt._replace(
+        step=(st.opt.step,), m=one(st.opt.m), v=one(st.opt.v),
+        master=one(st.opt.master), ef_residual=one(st.opt.ef_residual)))
+
+    class Publisher(SnapshotPublisher):
+        """Keeps the bytes its publications stage apart from the
+        round's."""
+
+        staged = 0
+
+        def maybe_publish(self, tree, superstep, *, aux=None):
+            before = rdist.stats["staged_bytes"]
+            t0 = time.perf_counter()
+            snap = super().maybe_publish(tree, superstep, aux=aux)
+            torch.cuda.synchronize()
+            if snap is not None:
+                self.staged += rdist.stats["staged_bytes"] - before
+                self.synced_s = time.perf_counter() - t0
+            return snap
+
+    pub = Publisher(overhead_budget=0.0, min_interval_s=1e9)  # once
+    w1 = {"per_superstep": []}
+
+    def log_fn(rec):
+        k = rec["superstep"]
+        # the round's bytes: the superstep's, less its publication's
+        published = pub.staged - sum(s["published"]
+                                     for s in w1["per_superstep"])
+        w1["per_superstep"].append({
+            "superstep": k, "loss": rec["metrics"]["loss"],
+            "ef_rel": rec["metrics"]["ef_rel"], "wall_s": rec["wall_s"],
+            "staged": rdist.stats["staged_bytes"] - published,
+            "published": published})
+        rdist.reset_stats()
+
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+
+    ops.reset_launches()
+    rdist.reset_stats()
+    sample = w_sample(cfg_h.vocab_size, TRAIN_S)
+    with StreamingDriver(run, mesh, st, sample, batch=2 * TRAIN_N,
+                         n_nodes=TRAIN_N, device=dev, publisher=pub,
+                         engine=EngineConfig(superstep=1, prefetch_depth=0,
+                                             replan_every=0)) as drv:
+        t0 = time.perf_counter()  # (w3) the snapshot of the first state
+        w3_snap.maybe_snapshot(drv)
+        w1["snapshot_s"] = time.perf_counter() - t0
+        rdist.reset_stats()
+        st, hist = drv.run(W1_ROUNDS, log_fn=log_fn)
+    torch.cuda.synchronize()
+    for name in ("write_s", "bytes_per_save", "saves", "last_error"):
+        w1["snapshot_" + name] = getattr(w3_snap.stats, name)
+    w3_snap.close()
+    w3_snap._pinned.clear()  # the host copies go before the restore,
+    torch._C._host_emptyCache()  # back from the pinned cache to the host
+    w1["peak_bytes"] = torch.cuda.max_memory_allocated()
+    w1["launches"] = launches()
+    meta = tree_map(lambda t: t[None], registry.init_params(
+        MetaGenerator(), cfg_h, torch.bfloat16))
+    w1["planned"] = dryrun.staged_bytes(dryrun.node_axis_collectives(
+        run, meta, rdist.Mesh((W_WORLD, 1), ("data", "model"), rank=rank),
+        TRAIN_N))
+    w1["publish_planned"] = dryrun.staged_bytes(dryrun.publish_collectives(
+        meta, rdist.Mesh((W_WORLD, 1), ("data", "model"), rank=rank)))
+    w1["sampled"] = w_sampled(st)
+    w1["fingerprint"] = w_fingerprint(st)
+    res["w1"] = w1
+    res["seconds"]["w1"] = time.perf_counter() - t_phase
+
+    # (w2) the publication: rank 0's engine greedy-decodes from the
+    # published params through the flash kernel
+    t_phase = time.perf_counter()
+    snap = pub.snapshot()
+    w2 = {"version": snap.version, "superstep": snap.superstep,
+          "staleness": pub.staleness(W1_ROUNDS)["supersteps"],
+          "cost_s": pub.stats.total_cost_s,
+          "synced_s": getattr(pub, "synced_s", None),
+          "staged": pub.staged, "planned": w1["publish_planned"]}
+    if rank == 0:
+        torch.save(map_tensors(lambda t: t.cpu(), snap.params),
+                   os.path.join(workdir, "published.pt"))
+        eng = ContinuousBatchingEngine(cfg_h, snap.params, slots=W2_PROMPTS,
+                                       max_len=W2_PROMPT + W2_GEN,
+                                       dtype=torch.bfloat16)
+        ids = [eng.submit(p, W2_GEN) for p in inp["w2_prompts"]]
+        eng.drain()
+        w2["tokens"] = [list(eng.result(i).tokens) for i in ids]
+        del eng
+        w2["launches"] = launches()
+    del snap, pub
+    res["w2"] = w2
+    dist.barrier()
+    res["seconds"]["w2"] = time.perf_counter() - t_phase
+
+    # (w3) the snapshot of (w1)'s first state restored into the state in
+    # place, and (w1)'s round again
+    t_phase = time.perf_counter()
+    path = checkpoint.step_dir(os.path.join(workdir, "w3"), 0)
+    t0 = time.perf_counter()
+    drv = StreamingDriver(run, mesh, st, sample, batch=2 * TRAIN_N,
+                          n_nodes=TRAIN_N, device=dev,
+                          engine=EngineConfig(superstep=1, prefetch_depth=0,
+                                              replan_every=0))
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restore_driver(drv, path)
+    torch.cuda.synchronize()
+    w3 = {"restore_s": time.perf_counter() - t0, "build_s": build_s,
+          "snapshot_s": w1["snapshot_s"], "write_s": w1["snapshot_write_s"],
+          "bytes": w1["snapshot_bytes_per_save"],
+          "saves": w1["snapshot_saves"], "error": w1["snapshot_last_error"]}
+    with drv:
+        st, hist = drv.run(1)
+    w3["loss"] = hist[-1]["metrics"]["loss"]
+    w3["equal"] = w_fingerprint(st) == w1["fingerprint"]
+    w3["launches"] = launches()
+    res["w3"] = w3
+    del drv
+    dist.barrier()
+    res["seconds"]["w3"] = time.perf_counter() - t_phase
+
+    # (w4) the hierarchical mode at full width on the 2 x 2 pod mesh, one
+    # superstep, from (w1)'s parameters and moments
+    t_phase = time.perf_counter()
+    run_h = w_run(cfg_h, "none", "bfloat16", "hierarchical")
+    st = trainer.TrainState(st.params, st.opt._replace(ef_residual=()))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = trainer.build_train_step(run_h, pod_mesh, n_nodes=TRAIN_N,
+                                    device=dev)
+    batch = trainer.make_node_batch(
+        {k: torch.from_numpy(v) for k, v in sample(
+            np.random.default_rng(9), 2 * TRAIN_N).items()}, TRAIN_N)
+    batch = {k: v[rows].to(dev) for k, v in batch.items()}
+    rdist.reset_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, m = step(st, batch)
+    torch.cuda.synchronize()
+    w4 = {"round_s": time.perf_counter() - t0,
+          "staged": rdist.stats["staged_bytes"],
+          "loss": float(m["loss"]), "consensus_err": float(
+              m["consensus_err"]),
+          "planned": dryrun.staged_bytes(dryrun.node_axis_collectives(
+              run_h, meta, rdist.Mesh(*W_POD_MESH, rank=rank), TRAIN_N)),
+          "log": {f"{ax} {kind}": list(v)
+                  for (ax, kind), v in rdist.log.items()},
+          "peak_bytes": torch.cuda.max_memory_allocated(),
+          "launches": launches()}
+    res["w4"] = w4
+    del st, step
+    dist.barrier()
+    res["seconds"]["w4"] = time.perf_counter() - t_phase
+    torch.save(res, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def durable_shard_phases(dev) -> dict:
+    """(w0)-(w4) on the card: W_WORLD rank processes (`w_rank`), joined
+    under a deadline; beside them (w0)'s one-process snapshot first (the
+    ranks wait for its marker before they resume from it), then the other
+    one-process references, and the full-width ones after they exit;
+    prints each check and (w)'s seconds, and returns the ranks' launches
+    by phase and rank, for the kernels line."""
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.paper_pca import HIGHD
+    from repro_torch.core.packing import map_tensors, tree_leaves
+    from repro_torch.data.synthetic import make_pca_stream
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.train import checkpoint, trainer
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "durable_shard")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = reduced(get_config("granite-8b"))
+    cfg_h = dataclasses.replace(get_config("granite-8b"),
+                                num_layers=TRAIN_LAYERS)
+    one_root = os.path.join(work, "w0_one")
+    host = lambda tree: [p.to("cpu", copy=True) for p in tree_leaves(tree)]
+    stream = make_pca_stream(HIGHD, device=dev)
+    rng = np.random.default_rng(11)
+    w0 = rng.standard_normal(HIGHD.dim).astype(np.float32)
+    w0 /= np.linalg.norm(w0)
+    sample = w_sample(cfg.vocab_size, 64)
+    batches = [{k: torch.from_numpy(v) for k, v in trainer.make_node_batch(
+        sample(rng, 2 * TRAIN_N), TRAIN_N).items()} for _ in range(2)]
+    prompts = rng.integers(0, cfg_h.vocab_size, (W2_PROMPTS, W2_PROMPT))
+    torch.save({"cov": stream.cov.cpu(), "sqrt_cov": stream.sqrt_cov.cpu(),
+                "top": stream.top_eigvec.cpu(), "w0": w0,
+                "w0_one_root": one_root, "w0_batches": batches,
+                "w2_prompts": prompts}, os.path.join(work, "inputs.pt"))
+    del stream
+    store = os.path.join(work, "store")
+    procs = []
+    for r in range(W_WORLD):
+        log = open(os.path.join(work, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--w-rank", str(r),
+             store, work], stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + W_TIMEOUT
+    try:
+        # (w0)'s int8 error-feedback run on one process: its snapshot of
+        # superstep 1 is the ranks' resume (they wait for the marker)
+        run8 = w_run(cfg, "int8", "float32")
+        hist, st, _, _ = w_lm_driver(
+            dev, None, run8, w_state(dev, run8, TRAIN_N), seq=64,
+            supersteps=W0_FULL, mix=w_one_mix(dev, run8, TRAIN_N, W_WORLD),
+            root=one_root)
+        open(one_root + ".ready", "w").close()
+        refs = {("ef", "int8"): ([r["metrics"]["loss"] for r in hist],
+                                 host(st.params)),
+                "published": [p.cpu() for p in tree_leaves(
+                    trainer.publish_extract(TRAIN_N)(
+                        st, torch.ones(TRAIN_N, device=dev)))]}
+        # the other one-process card runs of (w0): the sign wire at full
+        # membership (its per-round operator), both wires under W0_SPEC,
+        # the hierarchical mode at pods = 2
+        run = w_run(cfg, "sign", "float32")
+        hist, st, _, _ = w_lm_driver(
+            dev, None, run, w_state(dev, run, TRAIN_N), seq=64,
+            supersteps=W0_FULL, mix=w_one_mix(dev, run, TRAIN_N, W_WORLD))
+        refs["ef", "sign"] = ([r["metrics"]["loss"] for r in hist],
+                              host(st.params))
+        for wire in W0_WIRES:
+            run = w_run(cfg, wire, "float32")
+            hist, st, _, events = w_lm_driver(
+                dev, None, run, w_state(dev, run, TRAIN_N), seq=64,
+                supersteps=W0_SUPERSTEPS, spec=W0_SPEC)
+            refs["death", wire] = ([r["metrics"]["loss"] for r in hist],
+                                   host(st.params), events, st.opt.step)
+        for wire in W0_HIER:
+            run = w_run(cfg, wire, "float32", "hierarchical")
+            st = w_state(dev, run, TRAIN_N)
+            step = trainer.build_train_step(
+                run, None, n_nodes=TRAIN_N, pods=2, device=dev,
+                mix=w_one_mix(dev, run, 2, 2))
+            losses = []
+            for b in batches:
+                st, m = step(st, {k: v.to(dev) for k, v in b.items()})
+                losses.append(float(m["loss"]))
+            refs["hier", wire] = (losses, host(st.params))
+        del st
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t_all
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        with open(os.path.join(work, f"rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        print(f"(w) rank {r} exited {procs[r][0].returncode}:\n{tail}")
+    require(not failed, f"(w): ranks {failed} failed or overran "
+                        f"{W_TIMEOUT} s")
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+           for r in range(W_WORLD)]
+    t_ranks = time.perf_counter() - t_all
+    stitch = lambda lists: [torch.cat(parts) for parts in zip(*lists)]
+
+    def same(got, want):
+        return all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+    # (w0) error feedback
+    for wire in W0_WIRES:
+        runs = [rr["w0"]["ef"][wire] for rr in res]
+        want_l, want_p = refs["ef", wire]
+        got = stitch([r["params"] for r in runs])
+        bit = same(got, want_p)
+        loss_err = max(abs(a - b) / abs(b) for r in runs
+                       for a, b in zip(r["losses"], want_l))
+        ef_rel = [x for r in runs for x in r["ef_rel"]]
+        dl, dp, dev_ev, dsteps = refs["death", wire]
+        death = [r["death"] for r in runs]
+        gd = stitch([r["params"] for r in death])
+        d = torch.cat([(a - b).abs().ravel() for a, b in zip(gd, dp)])
+        within = float((d <= 1e-4).float().mean())
+        dloss = max(abs(a - b) / abs(b) for r in death
+                    for a, b in zip(r["losses"], dl))
+        steps = tuple(s for r in death for s in r["steps"])
+        print(f"main (w0) reduced granite-8b f32 error feedback, {wire} "
+              f"wire, 4 ranks x 1 node: {W0_FULL} supersteps at full "
+              f"membership, parameters bit for bit the one-process card "
+              f"run (its per-round operator): {bit}; losses max rel err "
+              f"{loss_err:.2e}; ef_rel {[round(x, 4) for x in ef_rel]}; "
+              f"under {W0_SPEC}: events {json.dumps(death[0]['events'])} "
+              f"(one process {json.dumps(dev_ev)}), nodes by round "
+              f"{death[0]['n_active']}, steps {steps} (one process "
+              f"{dsteps}), losses max rel err {dloss:.2e} (limit 1e-5), "
+              f"parameters within 1e-4: {within:.6f} (limit >= 0.999), "
+              f"max_abs_err {d.max().item():.3e}")
+        require(bit, f"(w0) EF {wire}: the split run's parameters are not "
+                     f"the one process's")
+        require(loss_err <= 1e-5, f"(w0) EF {wire}: losses disagree")
+        require(all(0 < x < 1 for x in ef_rel), f"(w0) EF {wire}: ef_rel")
+        require(all(r["events"] == dev_ev for r in death)
+                and death[0]["n_active"] == [4, 3, 4] and steps == dsteps,
+                f"(w0) EF {wire}: membership or steps differ")
+        require(dloss <= 1e-5 and within >= 0.999
+                and d.max().item() <= 3 * S_LR * 3,
+                f"(w0) EF {wire} under {W0_SPEC}: parameters disagree")
+    r8 = [rr["w0"]["ef"]["int8"] for rr in res]
+    # the snapshot of the split run, restored on one process
+    run8 = w_run(cfg, "int8", "float32")
+    _, st, drv, _ = w_lm_driver(
+        dev, None, run8, w_state(dev, run8, TRAIN_N), seq=64,
+        supersteps=W0_FULL, mix=w_one_mix(dev, run8, TRAIN_N, W_WORLD),
+        resume=checkpoint.step_dir(os.path.join(work, "w0_split"), 1))
+    one_from_split = same(host(st.params), stitch([r["params"] for r in r8]))
+    del st, drv
+    reverse = all(r["resumed_fingerprint"] == r["fingerprint"] for r in r8)
+    pub = r8[0]["published"]
+    pub_err = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(pub, refs["published"]))
+    pub_same = all(same(r["published"], pub) for r in r8)
+    print(f"main (w0) snapshots and publication of the split int8 EF run: "
+          f"the ranks' snapshot of superstep 1 restored on one process and "
+          f"continued one superstep: bit for bit the uninterrupted ranks' "
+          f"{one_from_split}; the one process's snapshot restored on the "
+          f"ranks ({r8[0]['resumed_from']}) and continued: bit for bit "
+          f"{reverse}; published version {r8[0]['version']} on every rank, "
+          f"the same params on every rank: {pub_same}, against the one "
+          f"process's extract max rel err {pub_err:.2e} (f32 "
+          f"reassociation, limit 1e-6)")
+    require(one_from_split and reverse, "(w0): a resume across the mesh "
+                                        "change is not bit for bit")
+    require(pub_same and pub_err <= 1e-6
+            and all(r["version"] == W0_FULL for r in r8),
+            "(w0): the published params disagree")
+    # (w0) the hierarchical mode
+    for wire in W0_HIER:
+        runs = [rr["w0"]["hier"][wire] for rr in res]
+        want_l, want_p = refs["hier", wire]
+        got = stitch([r["params"] for r in runs])
+        bit = same(got, want_p)
+        loss_err = max(abs(a - b) / abs(b) for r in runs
+                       for a, b in zip(r["losses"], want_l))
+        planned = all(w == r["planned"] for r in runs for w in r["wire"])
+        print(f"main (w0) reduced granite-8b f32 hierarchical, {wire} wire, "
+              f"pods x lanes = 2 x 2 ranks: parameters bit for bit the "
+              f"one-process card run at pods = 2: {bit}; losses max rel "
+              f"err {loss_err:.2e}; wire bytes a step by rank "
+              f"{[r['wire'] for r in runs]}, planned "
+              f"{[r['planned'] for r in runs]}: equal {planned}")
+        require(bit and loss_err <= 1e-5,
+                f"(w0) hierarchical {wire}: disagrees with one process")
+        require(planned, f"(w0) hierarchical {wire}: the planned wire "
+                         f"differs from the ranks'")
+    pca = [rr["w0"]["pca"] for rr in res]
+    print(f"main (w0) the governed PCA driver (HIGHD, exact) on 4 ranks, "
+          f"{W0_PCA_SUPERSTEPS} supersteps of K={HIGHD_K}, resumed from the "
+          f"snapshot of superstep {W0_PCA_BACK}: iterate bit for bit "
+          f"{[p['equal'] for p in pca]}, records equal "
+          f"{[p['records_equal'] for p in pca]}; sin2 {pca[0]['sin2']:.5f};"
+          f" s by rank {[round(p['seconds'], 2) for p in pca]}; launches "
+          f"{json.dumps(pca[0]['launches'])}")
+    require(all(p["equal"] and p["records_equal"] for p in pca),
+            "(w0): the PCA driver's resume differs")
+    require(all(p["launches"]["krasulina_xi"] > 0 for p in pca),
+            "(w0): krasulina_xi did not launch on the ranks")
+
+    # (w1) full width, the error-feedback wire
+    w1 = [rr["w1"] for rr in res]
+    per_round = [[round(s["wall_s"], 3) for s in r["per_superstep"]]
+                 for r in w1]
+    staged = [[s["staged"] for s in r["per_superstep"]] for r in w1]
+    ef_rel = [s["ef_rel"] for r in w1 for s in r["per_superstep"]]
+    planned = all(s == r["planned"] for r, ss in zip(w1, staged)
+                  for s in ss)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = w_run(cfg_h, "int8", "bfloat16")
+    t0 = time.perf_counter()
+    hist, st, _, _ = w_lm_driver(
+        dev, None, run, w_state(dev, run, TRAIN_N), seq=TRAIN_S,
+        supersteps=W1_ROUNDS, mix=w_one_mix(dev, run, TRAIN_N, W_WORLD))
+    one_s = time.perf_counter() - t0
+    one = w_sampled(st)
+    one_l = [r["metrics"]["loss"] for r in hist]
+    del st, hist
+    torch.cuda.empty_cache()
+    # (h0)'s bounds on the f32 masters (the bf16 parameters are their
+    # rounding), every 61st entry of each leaf
+    bit = all(same(stitch([r["sampled"][k] for r in w1]), one[k])
+              for k in ("params", "master"))
+    d = torch.cat([(a - b).abs().ravel() for a, b in zip(
+        stitch([r["sampled"]["master"] for r in w1]), one["master"])])
+    within = float((d <= 1e-4).float().mean())
+    loss_err = max(abs(s["loss"] - b) / abs(b) for r in w1
+                   for s, b in zip(r["per_superstep"], one_l))
+    print(f"main (w1) granite-8b full width, {TRAIN_LAYERS} layers, 4 ranks x "
+          f"1 node, bf16, Adam, ring R={TRAIN_R}, int8 wire with error "
+          f"feedback, {W1_ROUNDS} rounds: s per round by rank {per_round}; "
+          f"bytes staged a round by rank {staged}, planned "
+          f"{[r['planned'] for r in w1]}: equal {planned}; ef_rel "
+          f"{[round(x, 4) for x in ef_rel]}; peak memory by rank GB "
+          f"{[round(r['peak_bytes'] / 1e9, 2) for r in w1]}; against the "
+          f"same rounds on one process ({one_s:.1f} s, after the ranks): "
+          f"losses max rel err {loss_err:.2e} (limit 1e-4), f32 masters "
+          f"within 1e-4: {within:.6f} (limit >= 0.999, every 61st entry), "
+          f"parameters and masters bit for bit {bit}; "
+          f"launches {json.dumps(w1[0]['launches'])}")
+    require(planned, "(w1): the planned wire differs from the ranks'")
+    require(all(0 < x < 1 for x in ef_rel), "(w1): ef_rel not in (0, 1)")
+    require(all(r["peak_bytes"] < 80e9 / W_WORLD for r in w1),
+            "(w1): a rank's peak is a quarter of the card or more")
+    require(loss_err <= 1e-4 and within >= 0.999,
+            "(w1): disagrees with the same rounds on one process")
+
+    # (w2) the publication and rank 0's engine
+    w2 = [rr["w2"] for rr in res]
+    params = map_tensors(lambda t: t.to(dev), torch.load(
+        os.path.join(work, "published.pt"), weights_only=False))
+    eng = ContinuousBatchingEngine(cfg_h, params, slots=W2_PROMPTS,
+                                   max_len=W2_PROMPT + W2_GEN,
+                                   dtype=torch.bfloat16)
+    ids = [eng.submit(p, W2_GEN) for p in prompts]
+    eng.drain()
+    tokens = [list(eng.result(i).tokens) for i in ids]
+    del eng, params
+    torch.cuda.empty_cache()
+    print(f"main (w2) publication after (w1)'s first superstep: version "
+          f"{[w['version'] for w in w2]}, staleness at the end "
+          f"{w2[0]['staleness']} superstep(s); publish cost on the training "
+          f"thread by rank s {[round(w['cost_s'], 3) for w in w2]} "
+          f"(synchronized {[round(w['synced_s'], 3) for w in w2]}); bytes "
+          f"staged {[w['staged'] for w in w2]}, planned "
+          f"{[w['planned'] for w in w2]}; rank 0's engine, {W2_PROMPTS} "
+          f"greedy requests of {W2_PROMPT} + {W2_GEN} tokens through the "
+          f"flash kernel: tokens equal to a one-process engine's on the "
+          f"published weights: {w2[0]['tokens'] == tokens}; launches "
+          f"{json.dumps(w2[0]['launches'])}")
+    require(all(w["version"] == 1 and w["staleness"] == W1_ROUNDS - 1
+                for w in w2), "(w2): version or staleness")
+    require(all(w["staged"] == w["planned"] for w in w2),
+            "(w2): the planned publication differs from the ranks'")
+    require(w2[0]["tokens"] == tokens, "(w2): the served tokens differ")
+    require(w2[0]["launches"]["flash_attention"] > 0,
+            "(w2): the flash kernel did not serve")
+
+    # (w3) the snapshot at full width, restored and continued
+    w3 = [rr["w3"] for rr in res]
+    total = sum(w["bytes"] for w in w3)
+    print(f"main (w3) snapshot of the state (w1) starts from: {total} B "
+          f"({total / 1e9:.2f} GB), bytes by rank {[w['bytes'] for w in w3]}"
+          f"; s by rank on the training thread (blocking) "
+          f"{[round(w['snapshot_s'], 2) for w in w3]}, of them in the "
+          f"writer {[round(w['write_s'], 2) for w in w3]}; a driver built "
+          f"in {[round(w['build_s'], 2) for w in w3]} s and restored into "
+          f"in place (CRC32s checked first) in "
+          f"{[round(w['restore_s'], 2) for w in w3]} s by rank; "
+          f"(w1)'s round again from the restored state: bit for bit the "
+          f"uninterrupted round {[w['equal'] for w in w3]}")
+    require(all(w["saves"] == 1 and w["error"] is None for w in w3),
+            f"(w3): the snapshot failed: {[w['error'] for w in w3]}")
+    require(all(w["equal"] for w in w3), "(w3): the resume is not bit for "
+                                         "bit")
+
+    # (w4) the hierarchical mode at full width
+    w4 = [rr["w4"] for rr in res]
+    print(f"main (w4) granite-8b full width, hierarchical on pods x lanes = "
+          f"2 x 2 ranks, ring between the pods at self weight "
+          f"{W_SELF_WEIGHT}, one round: s by rank "
+          f"{[round(w['round_s'], 3) for w in w4]}; bytes staged by rank "
+          f"{[w['staged'] for w in w4]}, planned "
+          f"{[w['planned'] for w in w4]}; loss {w4[0]['loss']:.4f}, "
+          f"consensus_err {w4[0]['consensus_err']:.3e}; rank 0's [messages,"
+          f" bytes] by route {json.dumps(w4[0]['log'])}; peak memory by "
+          f"rank GB {[round(w['peak_bytes'] / 1e9, 2) for w in w4]}")
+    require(all(w["staged"] == w["planned"] for w in w4),
+            "(w4): the planned wire differs from the ranks'")
+    require(all(math.isfinite(w["loss"]) and w["consensus_err"] > 0
+                for w in w4), "(w4): loss or consensus error")
+    seconds = res[0]["seconds"]
+    print(f"main (w) seconds: references {t_ref:.1f} (while the ranks run),"
+          f" ranks {t_ranks:.1f} (rank 0: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in seconds.items())
+          + f"), all {time.perf_counter() - t_all:.1f} (target < 150)")
+    shutil.rmtree(work, ignore_errors=True)
+    out = {}
+    for name in ("krasulina_xi", "gossip_mix_quant", "flash_attention"):
+        by = {}
+        for phase, get in (("w0", lambda rr: rr["w0"]["lm_launches"]),
+                           ("w0 pca", lambda rr: rr["w0"]["pca"]
+                            ["launches"]),
+                           ("w2", lambda rr: rr["w2"].get("launches", {}))):
+            counts = [get(rr).get(name, 0) for rr in res]
+            if any(counts):
+                by[phase] = counts
+        if by:
+            out[name] = by
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2362,6 +3239,9 @@ def main() -> int:
     # (v): elastic membership on the sharded node axis, rank processes
     # sharing the card
     v_launches = elastic_shard_phases(dev)
+    # (w): error feedback, the hierarchical mode, snapshots, resume and
+    # publication on the sharded node axis, rank processes sharing the card
+    w_launches = durable_shard_phases(dev)
     # what phase (p) holds its plans against: peaks, card times
     p_measured = {}
 
@@ -5525,9 +6405,10 @@ def main() -> int:
         key = ("launches_by_kernel" if row["name"] == "flash_attention"
                else "launches_by_nodes")
         row.setdefault(key, {})["s"] = by_phase
-    # the ranks' launches of (t1)-(t2) and (v1)-(v2), by phase and rank,
-    # under "t" and "v"
-    for key, phases in (("t", t_launches), ("v", v_launches)):
+    # the ranks' launches of (t1)-(t2), (v1)-(v2) and (w0)-(w2), by phase
+    # and rank, under "t", "v" and "w"
+    for key, phases in (("t", t_launches), ("v", v_launches),
+                        ("w", w_launches)):
         for row in rows:
             by_phase = phases.get(row["name"])
             if by_phase is not None:
@@ -5556,4 +6437,6 @@ if __name__ == "__main__":
         sys.exit(t_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--v-rank"]:
         sys.exit(v_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--w-rank"]:
+        sys.exit(w_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -46,11 +46,15 @@ axis each rank holds its model shard's block of every leaf: the mixing is
 linear per column, so each model index mixes its own columns over the node
 axis (unpacked, as the reference's "auto" is there), and the consensus
 error sums each leaf's squares over the model group, a leaf replicated
-over the model axis counted once. The hierarchical mode and error
-feedback on a sharded axis are not ported yet (ROADMAP.md) and raise.
+over the model axis counted once. Error feedback runs there on each rank's
+rows (`ef_average_and_error`), and the hierarchical mode puts its pods on
+the mesh's "pod" axis: the pod mean reduce-scattered over a pod's ranks,
+each lane's block gossiped between the pods, the pod all-gathering the
+result (`_hmix_shard`).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Optional, Tuple
 
@@ -62,7 +66,7 @@ from repro_torch.configs.base import AveragingConfig
 from repro_torch.core import packing
 from repro_torch.core.mixing import (CirculantMixOp, ScheduledMixOp,
                                      circulant_mix_op, schedule)
-from repro_torch.core.quantize import fold_in, tile_compress
+from repro_torch.core.quantize import STOCHASTIC, fold_in, tile_compress
 from repro_torch.device import DeviceLike
 from repro_torch.dist import is_sharded, model_extent
 
@@ -182,23 +186,27 @@ def exact_average(tree: Tree, mesh: Any = None,
         tree)
 
 
-def check_sharded_mode(cfg: AveragingConfig, mesh: Any) -> None:
-    """Refuse the hierarchical mode on a sharded node axis: its pods would
-    take the mesh's "pod" axis, with an exact mean within each pod's ranks
-    and gossip between pods, which is not ported yet (ROADMAP.md)."""
-    if cfg.mode == "hierarchical" and is_sharded(mesh):
-        raise NotImplementedError(
-            "hierarchical averaging on a sharded node axis is not ported "
-            "yet (ROADMAP.md)")
+def pod_mix_mesh(mesh: Any) -> Any:
+    """The mesh the hierarchical mode's gossip between pods runs on: this
+    rank's lane of a node axis split over ranks (`dist.lane_mesh`), None
+    on one process."""
+    return rdist.lane_mesh(mesh) if is_sharded(mesh) else None
 
 
 def _hmix_buffer(g: torch.Tensor, pods: int, per_pod: int,
-                 mix: MixOp, key: Optional[int] = None, t=None
-                 ) -> torch.Tensor:
-    """Reduce-scatter hierarchical consensus on one [N, ...] buffer/leaf."""
+                 mix: MixOp, key: Optional[int] = None, t=None,
+                 mesh: Any = None) -> torch.Tensor:
+    """Reduce-scatter hierarchical consensus on one [N, ...] buffer/leaf
+    (on a sharded `mesh`, this rank's rows of it: `_hmix_shard`). The pod
+    mean is the f32 sum of the pod's rows, added in node order
+    (`dist.row_sum`, which any split of the rows reproduces bit for bit),
+    over per_pod, in the buffer's dtype."""
+    if is_sharded(mesh):
+        return _hmix_shard(g, pods, per_pod, mix, key, t, mesh)
     shp = g.shape
     flat = g.reshape(pods, per_pod, -1)  # [P, M, F]
-    pod_mean = torch.mean(flat, dim=1)  # reduce ...
+    pod_mean = rdist.row_sum(flat.transpose(0, 1)).div_(per_pod).to(
+        g.dtype)  # reduce ...
     f = pod_mean.shape[-1]
     chunk = -(-f // per_pod)
     pad = chunk * per_pod - f
@@ -213,11 +221,70 @@ def _hmix_buffer(g: torch.Tensor, pods: int, per_pod: int,
     return gathered.expand(pods, per_pod, f).reshape(shp)
 
 
+def _hmix_shard(g: torch.Tensor, pods: int, per_pod: int, mix: MixOp,
+                key: Optional[int], t, mesh: Any) -> torch.Tensor:
+    """`_hmix_buffer` on this rank's k rows [k, ...] of a node axis split
+    over a mesh whose "pod" axis holds the pods: pod p's per_pod nodes are
+    the rows of its D lanes (node shards p * D .. p * D + D - 1), k a lane.
+
+    The pod mean is reduce-scattered over the pod's ranks: lane j holds
+    columns [j * k * chunk, (j + 1) * k * chunk) of the zero-padded pod
+    mean, the reference's chunks j * k .. j * k + k - 1, summed from the
+    pod's rows in node order (`dist.reduce_scatter_rows`, the rows in the
+    buffer's dtype on the wire), as one process sums them. Each lane gossips
+    its block between the pods over its lane group (`mix`, built on
+    `pod_mix_mesh`: the shard rule, or a gather of the lane's P rows),
+    masked by its share of `valid_d`, and the pod all-gathers the mixed
+    blocks. A quantized wire whose statistic tiles do not lie inside the
+    lanes' blocks (a block width that is not a multiple of the tile, the
+    global and segment statistics, or a stochastic compressor, whose draws
+    span the whole buffer) gathers every lane's block instead: each rank
+    then holds the scattered pod means of every pod and mixes them as one
+    process does."""
+    k = g.shape[0]
+    lanes = rdist.axis_extent(mesh, "pod")
+    if rdist.n_pods(mesh) != pods or per_pod != lanes * k:
+        raise ValueError(
+            f"the hierarchical mode on a split node axis puts its {pods} "
+            f"pods on the mesh's \"pod\" axis (extent "
+            f"{rdist.n_pods(mesh)}) and each pod's {per_pod} nodes on its "
+            f"{lanes} lanes, {k} a rank: they do not match")
+    shp = g.shape
+    flat = g.reshape(k, -1)
+    f = flat.shape[1]
+    chunk = -(-f // per_pod)
+    width = k * chunk  # this lane's block of the padded pod mean
+    if chunk * per_pod > f:
+        flat = torch.nn.functional.pad(flat, (0, chunk * per_pod - f))
+    block = rdist.reduce_scatter_rows(flat, mesh, axis="pod")
+    block = block.div_(per_pod).to(g.dtype)  # ... scatter
+    quantized = mix.quantization != "none"
+    d = chunk * per_pod
+    if quantized and not (mix.stats in ("tile", "node")
+                          and mix.quantization not in STOCHASTIC
+                          and width % min(mix.block_d, d) == 0):
+        full = rdist.all_gather_rows(block[None], mesh,
+                                     rdist.n_data_nodes(mesh))
+        whole = dataclasses.replace(mix, mesh=None, rows=None)
+        mixed = _mix_call(whole, full.reshape(pods, per_pod, chunk),
+                          valid_d=f if d > f else None, key=key, t=t)
+        mean = mixed[rdist.pod_index(mesh)].reshape(-1)[:f]
+    else:
+        lo = (rdist.node_index(mesh) % lanes) * width
+        valid = min(max(f - lo, 0), width)
+        mixed = _mix_call(mix, block[None],
+                          valid_d=valid if valid < width else None,
+                          key=key, t=t)  # cross-pod gossip of the block
+        mean = rdist.all_gather_dim(mixed[0], mesh, 0, axis="pod")[:f]
+    return mean.expand(k, f).reshape(shp)
+
+
 def hierarchical_average(tree: Tree, pods: int, per_pod: int,
                          cfg: AveragingConfig,
                          mix: Optional[MixOp] = None, *,
                          key: Optional[int] = None, t=None,
-                         device: DeviceLike = None) -> Tree:
+                         device: DeviceLike = None,
+                         mesh: Any = None) -> Tree:
     """Exact averaging within each pod, gossip across pods — in
     reduce-scatter form: lane j of each pod owns chunk j of the pod mean,
     the cross-pod gossip mixes only that chunk, and an intra-pod all-gather
@@ -226,12 +293,14 @@ def hierarchical_average(tree: Tree, pods: int, per_pod: int,
     compressor statistics (`valid_d`, which reaches the `gossip_mix_quant`
     kernel on the card). Quantized segment statistics do not survive the
     chunk-scatter relayout; they degrade to global (masked) statistics
-    over the scattered pod means here."""
+    over the scattered pod means here. On a sharded `mesh` the leaves are
+    this rank's rows and the pods lie on its "pod" axis (`_hmix_shard`)."""
     if mix is None:
-        mix = make_gossip_mix(cfg, pods, device=device)
+        mix = make_gossip_mix(cfg, pods, device=device,
+                              mesh=pod_mix_mesh(mesh))
 
     def hmix(g):
-        return _hmix_buffer(g, pods, per_pod, mix, key, t)
+        return _hmix_buffer(g, pods, per_pod, mix, key, t, mesh)
 
     if not (cfg.packed and _packable(mix)):
         return packing.tree_map(hmix, tree)
@@ -247,10 +316,9 @@ def average_gradients(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
     (on a sharded `mesh`, this rank's rows of them).
 
     `mix` is the prebuilt consensus engine (gossip: over `n_nodes`, built
-    with the mesh; hierarchical: over `pods`, on one rank); built from
-    `cfg` on `device` when omitted. `t` is the round counter of a
-    time-varying `ScheduledMixOp`."""
-    check_sharded_mode(cfg, mesh)
+    with the mesh; hierarchical: over `pods`, built on `pod_mix_mesh`);
+    built from `cfg` on `device` when omitted. `t` is the round counter of
+    a time-varying `ScheduledMixOp`."""
     if cfg.mode == "exact":
         return exact_average(tree, mesh, n_nodes)
     if cfg.mode == "gossip":
@@ -263,7 +331,7 @@ def average_gradients(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
         if n_nodes % pods:
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
         return hierarchical_average(tree, pods, n_nodes // pods, cfg, mix,
-                                    key=key, t=t, device=device)
+                                    key=key, t=t, device=device, mesh=mesh)
     raise ValueError(f"unknown averaging mode {cfg.mode!r}")
 
 
@@ -282,7 +350,6 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
     across ranks; over a model axis they are its model shard's blocks, and
     `model_split` says which leaves (in the tree's order) the model axis
     splits."""
-    check_sharded_mode(cfg, mesh)
     if mesh is not None and not is_sharded(mesh) and model_extent(mesh) == 1:
         mesh = None
     err_kw = dict(mesh=mesh, n_nodes=n_nodes, model_split=model_split)
@@ -292,8 +359,10 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
     if cfg.mode not in ("gossip", "hierarchical"):
         raise ValueError(f"unknown averaging mode {cfg.mode!r}")
     if mix is None:
-        mix = make_gossip_mix(cfg, pods if cfg.mode == "hierarchical"
-                              else n_nodes, device=device, mesh=mesh)
+        mix = (make_gossip_mix(cfg, pods, device=device,
+                               mesh=pod_mix_mesh(mesh))
+               if cfg.mode == "hierarchical" else
+               make_gossip_mix(cfg, n_nodes, device=device, mesh=mesh))
     if not (cfg.packed and _packable(mix)):
         mixed = average_gradients(tree, cfg, n_nodes=n_nodes, pods=pods,
                                   mix=mix, key=key, t=t, mesh=mesh)
@@ -305,8 +374,8 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
     else:
         if n_nodes % pods:
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
-        outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key, t)
-                     for b in bufs)
+        outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key, t,
+                                  mesh) for b in bufs)
     err = packed_consensus_error(outs, spec, pools, mesh, n_nodes,
                                   model_split)
     return packing.unpack_tree(outs, spec), err
@@ -330,7 +399,7 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
                          n_nodes: int, mix: Optional[MixOp] = None,
                          key: Optional[int] = None, t=None,
                          device: DeviceLike = None,
-                         pools: Optional[Pools] = None
+                         pools: Optional[Pools] = None, mesh: Any = None
                          ) -> Tuple[Tree, Tree, torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """Error-feedback compressed gossip: ONE pack, ONE compression, exact
@@ -354,9 +423,22 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
     the global L2 norm of the new residual, `ef_rel` its ratio to ||v||.
     `key` seeds the stochastic compressor (folded with the buffer index);
     `pools` groups leaves for the consensus error and orders the packed
-    buffers."""
+    buffers.
+
+    On a sharded `mesh` the trees are this rank's rows of the
+    `n_nodes`-node axis (split as `mix.rows` says: an elastic run's cohort,
+    `dist.cohort_rows`, possibly none), `mix` is built with the mesh, and
+    the rank compresses its rows (per-node statistics need no message; a
+    stochastic compressor draws its rows' uniforms of the whole axis,
+    `tile_compress(rows=...)`), mixes them through the shard rule or the
+    gather, and keeps its residual rows: bit for bit the one process's
+    rows where the mixes are. The chunks are cut from n_nodes, so every
+    rank walks the same columns and its halo messages pair up; ||e'||^2
+    and ||v||^2 are summed over the ranks in one f32 all-reduce."""
+    sharded = is_sharded(mesh)
     if mix is None:
-        mix = make_gossip_mix(cfg, n_nodes, device=device)
+        mix = make_gossip_mix(cfg, n_nodes, device=device,
+                              mesh=mesh if sharded else None)
     if getattr(mix, "quantization", "none") != "none":
         raise ValueError(
             "error feedback needs a LINEAR consensus operator — build it via "
@@ -368,13 +450,18 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
     # unless the group holds a single leaf, which the pack only reshapes
     ebufs = tuple(e.clone() if len(espec.groups[g]) == 1 else e
                   for g, e in enumerate(ebufs))
+    rows = None  # (this rank's first row, n_nodes) on a sharded mesh
+    if sharded:
+        table = getattr(mix, "rows", None) or rdist.row_table(mesh, n_nodes)
+        rows = (table[rdist.node_index(mesh)][0], n_nodes)
     outs = []
     v2 = e2 = None
     for g, (b, e) in enumerate(zip(bufs, ebufs)):
         out = torch.empty_like(b)
         d = b.shape[-1]
         k = fold_in(key, g) if key is not None else None
-        width = ef_chunk_width(b.shape[0], d, cfg.quant_block_d)
+        width = ef_chunk_width(n_nodes if sharded else b.shape[0], d,
+                               cfg.quant_block_d)
         for a in range(0, d, width):
             cols = slice(a, min(a + width, d))
             v = b[:, cols].to(torch.float32, copy=True)
@@ -383,7 +470,7 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
                 q = v
             else:
                 q = tile_compress(v, cfg.quantization, cfg.quant_block_d,
-                                  key=k, per_node=True)
+                                  key=k, per_node=True, rows=rows)
             # (a ragged last tile leaves tile_compress's output a strided
             # view; the kernel takes contiguous rows)
             out[:, cols] = _mix_call(mix, q.contiguous(), t=t)
@@ -400,9 +487,15 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
         outs.append(out)
     dev = bufs[0].device if bufs else None
     zero = torch.zeros((), device=dev)
-    ef_norm = torch.sqrt(zero if e2 is None else e2)
-    ef_rel = ef_norm / (torch.sqrt(zero if v2 is None else v2) + 1e-30)
-    err = packed_consensus_error(tuple(outs), spec, pools)
+    e2 = zero if e2 is None else e2
+    v2 = zero if v2 is None else v2
+    if sharded:
+        e2, v2 = rdist.all_reduce_(torch.stack([e2, v2]).float(),
+                                   mesh).unbind()
+    ef_norm = torch.sqrt(e2)
+    ef_rel = ef_norm / (torch.sqrt(v2) + 1e-30)
+    err = packed_consensus_error(tuple(outs), spec, pools,
+                                 mesh if sharded else None, n_nodes)
     return (packing.unpack_tree(tuple(outs), spec),
             packing.unpack_tree(tuple(ebufs), espec), err, ef_norm, ef_rel)
 

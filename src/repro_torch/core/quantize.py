@@ -26,7 +26,7 @@ integer seed; `fold_in` derives per-step and per-round keys from it, as
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -169,7 +169,8 @@ def tile_valid_counts(d: int, block_d: int, valid_d: Optional[int] = None
 
 def tile_compress(x: torch.Tensor, name: str, block_d: int, *,
                   valid_d: Optional[int] = None, key: Key = None,
-                  per_node: bool = False) -> torch.Tensor:
+                  per_node: bool = False,
+                  rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Quantize x: [n, D] with one scale per [n, block_d] column tile.
 
     Matches the statistics of `kernels.consensus.gossip_mix_quant_cuda`: f32
@@ -181,7 +182,13 @@ def tile_compress(x: torch.Tensor, name: str, block_d: int, *,
 
     `per_node=True` keeps the node axis out of the statistic: one scale per
     [1, block_d] row tile — the statistic a real sender computes from its
-    own message alone."""
+    own message alone.
+
+    `rows=(start, n_total)` says that x holds rows [start, start + n) of an
+    n_total-row node axis (a rank's rows of a split axis, `per_node=True`):
+    the stochastic compressor then draws the whole axis's uniforms and keeps
+    these rows', so a rank's rows get the numbers that one process draws
+    for them."""
     n, d = x.shape
     bd = min(block_d, d)
     tiles = -(-d // bd)
@@ -196,8 +203,8 @@ def tile_compress(x: torch.Tensor, name: str, block_d: int, *,
         # chain can be captured in a CUDA graph)
         dv = d if valid_d is None else valid_d
         lo = torch.arange(tiles, device=x.device) * bd
-        rows = 1 if per_node else n
-        cnt = (torch.clamp(dv - lo, 0, bd) * rows).clamp_min(1).float()
+        per_tile = 1 if per_node else n
+        cnt = (torch.clamp(dv - lo, 0, bd) * per_tile).clamp_min(1).float()
         # the sum of |x| is taken in f64 and rounded to f32 once, so the
         # scale does not depend on the order of the sum: the CUDA kernel
         # sums in its own order and still gets the same f32 scale, and a
@@ -217,7 +224,11 @@ def tile_compress(x: torch.Tensor, name: str, block_d: int, *,
         if name == "int8":
             out = torch.clamp(torch.round(v), -127, 127) * scale
         elif name == "int8_stoch":
-            u = _uniform(key, v.shape, x.device)
+            if rows is None:
+                u = _uniform(key, v.shape, x.device)
+            else:
+                start, total = rows
+                u = _uniform(key, (total, tiles, bd), x.device)[start:start + n]
             out = torch.clamp(torch.floor(v + u), -127, 127) * scale
         else:
             raise ValueError(f"unknown compressor {name!r}")

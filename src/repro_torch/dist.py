@@ -18,7 +18,11 @@ shards of the same nodes), and the ranks of one model index form its
 the axis it crosses: a node-axis message (halo rows, node means, the
 ZeRO-1 gathers and reduce-scatters) goes over the data group, a
 tensor-parallel reduction over the model group, and `stats` counts the
-two axes apart. The LM trainer's dense family executes a model axis
+two axes apart. A "pod" axis of extent P above 1 splits the node shards
+two ways too: the D node shards of one pod form its *pod group*, and the
+P node shards of one data index its *lane group* (`lane_mesh`), which
+the hierarchical mode's reduce-scatter, all-gather and gossip between
+the pods use; their messages count as node-axis ones. The LM trainer's dense family executes a model axis
 (`train/trainer.py`, `models/common.py`); `check_mesh` refuses one on the
 paths that do not (the PCA and convex drivers).
 """
@@ -49,6 +53,11 @@ class Mesh:
     # index), `launch/mesh.py` `make_mesh`
     model_group: Any = None
     data_group: Any = None
+    # over a "pod" axis of extent above 1: this rank's pod group (the ranks
+    # of its pod, one a data index) and lane group (the ranks of its data
+    # index, one a pod), at its model index, `launch/mesh.py` `make_mesh`
+    pod_group: Any = None
+    lane_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -165,6 +174,19 @@ def n_local(mesh, n: int) -> int:
     return rows.stop - rows.start
 
 
+def node_leaf(leaf) -> bool:
+    """Whether a leaf of a decentralized state on a split node axis holds
+    the rank's rows of the node axis: every tensor of rank >= 1 and every
+    tuple of per-node ints does, since the state is the rank's rows of
+    every leaf (`train.trainer.replicate_for_nodes`,
+    `core.krasulina.init_krasulina_state`); a 0-dim tensor or an int does
+    not. The rule the split checkpoint, the split publication and their
+    plans share: a leaf's local shape cannot tell one row of the node axis
+    from a replicated [1, ...] leaf."""
+    return ((isinstance(leaf, torch.Tensor) and leaf.dim() > 0)
+            or isinstance(leaf, tuple))
+
+
 # ---------------------------------------------------------------------------
 # Messages between the ranks of a mesh, over its process groups
 #
@@ -219,7 +241,9 @@ reset_stats()
 
 def _count(axis: str, kind: str, messages: int, wire: int,
            staged: int) -> None:
-    for prefix in ("", axis + "_"):
+    # the pod and lane groups carry node-axis messages: counted as "data"
+    counted = "model" if axis == "model" else "data"
+    for prefix in ("", counted + "_"):
         stats[prefix + "messages"] += messages
         stats[prefix + "wire_bytes"] += wire
         stats[prefix + "staged_bytes"] += staged
@@ -228,18 +252,47 @@ def _count(axis: str, kind: str, messages: int, wire: int,
     entry[1] += wire
 
 
+def n_pods(mesh) -> int:
+    """The mesh's "pod" extent (1 without one)."""
+    return 1 if mesh is None else mesh.shape.get("pod", 1)
+
+
+def pod_index(mesh: Mesh) -> int:
+    """This rank's pod (its position along the "pod" axis)."""
+    return node_index(mesh) // (n_data_nodes(mesh) // n_pods(mesh))
+
+
 def axis_extent(mesh: Mesh, axis: str) -> int:
-    """The ranks a message over `axis` ("model" or "data") reaches."""
-    return model_extent(mesh) if axis == "model" else n_data_nodes(mesh)
+    """The ranks a message over `axis` reaches: "model", "data" (every node
+    shard), "pod" (the node shards of this rank's pod) or "lane" (one node
+    shard a pod, at this rank's data index)."""
+    if axis == "model":
+        return model_extent(mesh)
+    if axis == "lane":
+        return n_pods(mesh)
+    if axis == "pod":
+        return n_data_nodes(mesh) // n_pods(mesh)
+    return n_data_nodes(mesh)
 
 
 def axis_group(mesh: Mesh, axis: str):
     """The process group of this rank's `axis` ("model": its node shard's
     ranks; "data": its model index's ranks, every rank without a model
-    axis)."""
+    axis; "pod" and "lane": its pod's and its lane's ranks, the data group
+    where the mesh has one pod)."""
+    if axis in ("pod", "lane") and n_pods(mesh) > 1:
+        return mesh.pod_group if axis == "pod" else mesh.lane_group
     if model_extent(mesh) == 1:
         return mesh.group
     return mesh.model_group if axis == "model" else mesh.data_group
+
+
+def lane_mesh(mesh: Mesh) -> Mesh:
+    """A one-axis mesh over this rank's lane group: the pods as its node
+    shards, one row each (the hierarchical mode's gossip between pods,
+    `core.averaging`)."""
+    return Mesh((n_pods(mesh),), ("data",), pod_index(mesh),
+                axis_group(mesh, "lane"))
 
 
 def _buffer(role: str, slot: int, nbytes: int) -> torch.Tensor:
@@ -485,6 +538,56 @@ def reduce_scatter_dim(t: torch.Tensor, mesh: Mesh, dim: int,
         out[c0:c1] = dst.to(t.device).sum(0)
         _count(axis, "reduce-scatter", 1, wire, wire if cuda else 0)
     return out.reshape(shape)
+
+
+def row_sum(rows: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of rows [m, ...] over dim 0, added one row at a time in
+    row order: elementwise adds in a fixed order, so equal rows give equal
+    bits on any device and any split of them (`reduce_scatter_rows`)."""
+    acc = rows[0].to(torch.float32, copy=True)
+    for r in rows[1:]:
+        acc.add_(r)
+    return acc
+
+
+def reduce_scatter_rows(x: torch.Tensor, mesh: Mesh,
+                        axis: str = "data") -> torch.Tensor:
+    """This rank's block (the group's order) of the f32 sum of every row of
+    every rank's x [k, E * w] in its `axis` group: [w]. An all-to-all sends
+    block j of each row to rank j, in x's dtype, and each rank adds the
+    E * k rows it receives with `row_sum`, in the group's order and each
+    rank's row order: one process's `row_sum` of the same rows, bit for
+    bit, on any split. `row_sum(x)` where the axis has one rank."""
+    E = axis_extent(mesh, axis)
+    if E == 1:
+        return row_sum(x)
+    k, d = x.shape
+    if d % E:
+        raise ValueError(f"{d} columns do not split over {E} ranks")
+    w = d // E
+    blocks = x.reshape(k, E, w).transpose(0, 1)  # [E, k, w]
+    out = torch.empty(w, dtype=torch.float32, device=x.device)
+    elem = x.element_size()
+    meta = x.device.type == "meta"
+    group = axis_group(mesh, axis)
+    cuda = meta or _staged(group, x)
+    for c0, c1 in column_chunks(w, E * k, elem):
+        wire = 2 * E * k * (c1 - c0) * elem  # E blocks out, E in
+        if meta:
+            _count(axis, "reduce-scatter", 1, wire, wire)
+            continue
+        part = blocks[:, :, c0:c1]
+        if cuda:
+            src = _view(_buffer("send", 0, _nbytes(part)), part)
+            src.copy_(part)
+            dst = _view(_buffer("recv", 0, _nbytes(part)), src)
+        else:
+            src = part.contiguous()
+            dst = torch.empty_like(src)
+        dist.all_to_all_single(dst, src, group=group)
+        out[c0:c1] = row_sum(dst.to(x.device).reshape(E * k, c1 - c0))
+        _count(axis, "reduce-scatter", 1, wire, wire if cuda else 0)
+    return out
 
 
 def broadcast_object(obj, mesh: Mesh, src: int = 0):

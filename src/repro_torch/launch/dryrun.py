@@ -420,10 +420,17 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
     rule's halo rows per round (the exact wire, or a quantized one with
     per-node statistics, f32 on the wire) where it covers the split
     (`kernels.ops.node_shard_info`), else one gather of the node rows per
-    step. `membership` (a partial `core.mixing.Membership`) plans an
-    elastic run's cohort step: its wire over the cohort's row table
-    (`dist.cohort_rows`). `scheduled` plans a scenario's `ScheduledMixOp`:
-    one gather per step and buffer, and the round clock's all-reduce."""
+    step. Error feedback mixes f32 column chunks of `ef_chunk_width`
+    columns (cut from n_nodes) linearly, each its own call, and sums its
+    two norms in one all-reduce. The hierarchical mode reduce-scatters
+    each pod's rows over the pod's ranks, gossips each lane's block
+    between the pods over its lane (or gathers every block, where a
+    quantized wire's tiles do not lie inside the blocks) and all-gathers
+    the pod's blocks (`core.averaging._hmix_shard`). `membership` (a
+    partial `core.mixing.Membership`) plans an elastic run's cohort step:
+    its wire over the cohort's row table (`dist.cohort_rows`).
+    `scheduled` plans a scenario's `ScheduledMixOp`: one gather per step
+    and buffer, and the round clock's all-reduce."""
     coll: dict = {}
     if rdist.n_data_nodes(mesh) <= 1:
         return coll
@@ -435,14 +442,9 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
         _add(coll, "all-reduce", 4 * metrics, 1)
         return coll
     avg = run.averaging
-    if avg.mode == "hierarchical":
-        return {}  # not executed on a split axis: `planned_hierarchical`
-    if avg.mode != "gossip" or avg.error_feedback != "off":
-        raise NotImplementedError(
-            f"no wire planned for averaging {avg.mode!r} (error feedback "
-            f"{avg.error_feedback!r}) on a sharded node axis: not executed "
-            f"there (ROADMAP.md queue 1 item 3)")
-    from repro_torch.core.mixing import schedule
+    if avg.mode not in ("gossip", "hierarchical"):
+        raise ValueError(f"unknown averaging mode {avg.mode!r}")
+    from repro_torch.core.averaging import ef_chunk_width
     from repro_torch.core.quantize import STOCHASTIC
     leaves = tree_leaves(params)
     n = n_nodes or rdist.n_data_nodes(mesh)
@@ -451,11 +453,47 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
     else:
         table = rdist.row_table(mesh, n)
     m = table[-1][1]
-    top = max(b - a for a, b in table)
     # a quantized wire with global statistics mixes leaf by leaf
     packed = not (avg.quantization != "none" and avg.quant_stats == "global")
     bufs = (_buffers(leaves) if packed else
             [(p[0].numel(), p.element_size()) for p in leaves])
+    if avg.mode == "hierarchical":
+        _hierarchical_wire(coll, avg, mesh, n, bufs,
+                           rdist.n_local(mesh, n))
+    elif avg.error_feedback != "off":
+        # each f32 column chunk of each buffer is one linear mix
+        linear = dataclasses.replace(avg, quantization="none")
+        chunks = [(b - a, 4) for width, _ in bufs
+                  for a, b in _ef_chunks(width, ef_chunk_width(
+                      m, width, avg.quant_block_d))]
+        _gossip_wire(coll, linear, mesh, m, table, chunks)
+        _add(coll, "all-reduce", 8, 1)  # ||e'||^2 and ||v||^2
+    else:
+        _gossip_wire(coll, avg, mesh, m, table, bufs, scheduled)
+    for p in leaves:  # each leaf's f32 node mean, for the consensus error
+        nbytes = 4 * p[0].numel()
+        if nbytes:
+            _add(coll, "all-reduce", nbytes, _reduce_messages(nbytes))
+    pools = trainer.layer_pools(params, run.model)
+    _add(coll, "all-reduce", 4 * len(pools), 1)  # the pools' max
+    _add(coll, "all-reduce", 4 * metrics, 1)
+    if scheduled or avg.quantization in STOCHASTIC:
+        _add(coll, "all-reduce", 8, 1)  # the round clock, one int64
+    return coll
+
+
+def _ef_chunks(d: int, width: int) -> list:
+    return [(a, min(a + width, d)) for a in range(0, d, width)]
+
+
+def _gossip_wire(coll: dict, avg: AveragingConfig, mesh, m: int, table,
+                 bufs, scheduled: bool = False) -> None:
+    """One mix of each (entries a node, bytes an entry) buffer of `bufs`
+    over the m-row node axis split over `mesh` as `table` says: the shard
+    rule's halo rows per round where it covers the split, else one gather
+    of the node rows."""
+    from repro_torch.core.mixing import schedule
+    top = max(b - a for a, b in table)
     sched = schedule(avg.topology, m, avg.self_weight)
     # the shard rules run the exact wire and per-node statistics
     routable = avg.quantization == "none" or avg.quant_stats == "node"
@@ -482,15 +520,71 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
             chunks = rdist.column_chunks(width, top, elem)
             _add(coll, "all-gather", (top + m) * width * elem / 2,
                  len(chunks))
-    for p in leaves:  # each leaf's f32 node mean, for the consensus error
-        nbytes = 4 * p[0].numel()
-        if nbytes:
+
+
+def _hierarchical_wire(coll: dict, avg: AveragingConfig, mesh, n: int,
+                       bufs, k: int) -> None:
+    """The hierarchical mode's messages of one step on this rank (its k
+    rows of n): per buffer of f entries a node, the pod's rows
+    reduce-scattered over its lanes, the lane's block of k * chunk
+    entries gossiped between the pods (or every block gathered), and the
+    pod's all-gather of the mixed blocks."""
+    from repro_torch.core.quantize import STOCHASTIC
+    pods = rdist.n_pods(mesh)
+    lanes = rdist.axis_extent(mesh, "pod")
+    per_pod = n // pods
+    lane = rdist.lane_mesh(mesh)
+    for f, elem in bufs:
+        if not f:
+            continue
+        chunk = -(-f // per_pod)
+        d, width = chunk * per_pod, k * chunk
+        if lanes > 1:  # reduce-scatter of the k rows, in their dtype
+            for a, b in rdist.column_chunks(width, lanes * k, elem):
+                _add(coll, "reduce-scatter", lanes * k * (b - a) * elem, 1)
+        quantized = avg.quantization != "none"
+        if quantized and not (avg.quant_stats in ("tile", "node")
+                              and avg.quantization not in STOCHASTIC
+                              and width % min(avg.quant_block_d, d) == 0):
+            E = rdist.n_data_nodes(mesh)
+            for a, b in rdist.column_chunks(width, 1, elem):
+                _add(coll, "all-gather", (1 + E) * (b - a) * elem / 2, 1)
+            continue
+        if pods > 1:
+            _gossip_wire(coll, avg, lane, pods, rdist.row_table(lane, pods),
+                         [(width, elem)])
+        if lanes > 1:  # the pod's all-gather of the mixed blocks
+            for a, b in rdist.column_chunks(width, lanes, elem):
+                _add(coll, "all-gather", (1 + lanes) * (b - a) * elem / 2,
+                     1)
+
+
+def publish_collectives(params: Tree, mesh) -> dict:
+    """The messages of one publication of a decentralized run's consensus
+    iterate on this rank of a split `mesh` (`train.trainer.publish_extract`
+    over `params`, its [n_local, ...] rows): one f32 all-reduce of each
+    leaf's masked row sum (`dist.node_leaf`: every leaf of the rank's
+    rows); and the broadcast of rank 0's verdict and
+    version (`serve.publisher`), a message without a tensor."""
+    coll: dict = {}
+    if rdist.n_data_nodes(mesh) <= 1:
+        return coll
+    for p in tree_leaves(params):
+        if rdist.node_leaf(p):
+            nbytes = 4 * p[0].numel()
             _add(coll, "all-reduce", nbytes, _reduce_messages(nbytes))
-    pools = trainer.layer_pools(params, run.model)
-    _add(coll, "all-reduce", 4 * len(pools), 1)  # the pools' max
-    _add(coll, "all-reduce", 4 * metrics, 1)
-    if scheduled or avg.quantization in STOCHASTIC:
-        _add(coll, "all-reduce", 8, 1)  # the round clock, one int64
+    _add(coll, "broadcast", 0, 1)
+    return coll
+
+
+def snapshot_collectives(mesh) -> dict:
+    """The training thread's messages of one snapshot on a split `mesh`:
+    the broadcast of rank 0's verdict (`train.snapshot`). The state goes
+    to disk, each rank its own rows, and the writers agree over their own
+    group (file names, CRC32s, the outcome: objects, no tensor)."""
+    coll: dict = {}
+    if rdist.n_data_nodes(mesh) > 1:
+        _add(coll, "broadcast", 0, 1)
     return coll
 
 
@@ -502,24 +596,6 @@ def _buffers(leaves) -> list:
         w = widths.setdefault(p.dtype, [0, p.element_size()])
         w[0] += p[0].numel()
     return [tuple(w) for w in widths.values()]
-
-
-def planned_hierarchical(info: dict, params: Tree) -> dict:
-    """The reference's hierarchical mode on a split node axis, which the
-    port does not execute (it raises there): an exact mean of the packed
-    gradient within each pod (an all-reduce over the pod's ranks), then R
-    rounds of gossip between pods (a halo row to each neighbouring pod).
-    Planned, not executed."""
-    run = info["run"]
-    if (run.averaging.mode != "hierarchical"
-            or rdist.n_data_nodes(info["mesh"]) <= 1):
-        return {}
-    nbytes = sum(w * e for w, e in _buffers(tree_leaves(params)))
-    coll: dict = {}
-    _add(coll, "all-reduce", nbytes, _reduce_messages(nbytes))
-    _add(coll, "collective-permute", run.averaging.rounds * 2 * nbytes,
-         run.averaging.rounds * 2)
-    return coll
 
 
 def staged_bytes(coll: dict) -> float:
@@ -703,12 +779,8 @@ def plan(arch: str, shape_name: str, mesh, *, averaging: str = "exact",
         rec["model_axis_refused"] = (low.info.get("refused")
                                      or "serving on a model axis is "
                                         "planned, not executed")
-    planned = {} if executed else model_axis_collectives(low.info)
-    if shape.mode == "train":
-        for k, v in planned_hierarchical(low.info,
-                                         low.args[0].params).items():
-            planned[k] = planned.get(k, 0) + v
-    rec["collectives_planned"] = planned
+    rec["collectives_planned"] = ({} if executed
+                                  else model_axis_collectives(low.info))
     rec["staged_bytes"] = staged_bytes(coll)
     return rec
 

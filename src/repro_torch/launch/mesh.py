@@ -40,7 +40,8 @@ def make_mesh(shape: tuple, axes: tuple, *, group=None) -> Mesh:
     """A mesh of `shape` over the ranks of `group` (None: the default group,
     or this one process when none is initialised). Raises unless the shape
     covers every rank. With a model extent above 1 it builds the model and
-    data subgroups (`dist.new_group`, which every rank of the default group
+    data subgroups, and with a "pod" extent above 1 the pod and lane
+    subgroups (`dist.new_group`, which every rank of the default group
     enters, in the same order: call it on every rank)."""
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     if len(shape) != len(axes):
@@ -50,20 +51,37 @@ def make_mesh(shape: tuple, axes: tuple, *, group=None) -> Mesh:
         raise ValueError(f"a {'x'.join(map(str, shape))} mesh needs "
                          f"{math.prod(shape)} ranks; the process group has "
                          f"{world}")
-    model = dict(zip(axes, shape)).get("model", 1)
-    if model == 1:
+    extent = dict(zip(axes, shape))
+    model, pods = extent.get("model", 1), extent.get("pod", 1)
+    if model == 1 and pods == 1:
         return Mesh(shape, axes, rank, group)
     ranks = [r if group is None else dist.get_global_rank(group, r)
              for r in range(world)]
     shards = world // model
-    model_groups = [dist.new_group([ranks[i * model + j]
-                                    for j in range(model)])
-                    for i in range(shards)]
-    data_groups = [dist.new_group([ranks[i * model + j]
-                                   for i in range(shards)])
-                   for j in range(model)]
-    return Mesh(shape, axes, rank, group, model_groups[rank // model],
-                data_groups[rank % model])
+    groups = {}
+    if model > 1:
+        model_groups = [dist.new_group([ranks[i * model + j]
+                                        for j in range(model)])
+                        for i in range(shards)]
+        data_groups = [dist.new_group([ranks[i * model + j]
+                                       for i in range(shards)])
+                       for j in range(model)]
+        groups.update(model_group=model_groups[rank // model],
+                      data_group=data_groups[rank % model])
+    if pods > 1:
+        # node shard i = p * lanes + j is pod p's lane j
+        lanes = shards // pods
+        at = lambda p, j, k: ranks[(p * lanes + j) * model + k]
+        pod_groups = {(p, k): dist.new_group([at(p, j, k)
+                                              for j in range(lanes)])
+                      for p in range(pods) for k in range(model)}
+        lane_groups = {(j, k): dist.new_group([at(p, j, k)
+                                               for p in range(pods)])
+                       for j in range(lanes) for k in range(model)}
+        shard, k = divmod(rank, model)
+        groups.update(pod_group=pod_groups[shard // lanes, k],
+                      lane_group=lane_groups[shard % lanes, k])
+    return Mesh(shape, axes, rank, group, **groups)
 
 
 def abstract_mesh(shape: tuple, axes: tuple) -> Mesh:

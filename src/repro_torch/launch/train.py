@@ -58,9 +58,12 @@ too, each rank on its rows of the cohort (`train.driver`):
       --arch granite-8b --reduced --device cpu --steps 6 --superstep 2 \
       --averaging gossip --rounds 2 --nodes 4 --faults death:1@1-2 \
       --scenario ring/lossy/iid_pca
-Publication and checkpoints (`--publish`, `--checkpoint`, `--resume`) on a
-sharded node axis are not ported yet and raise. Alone (no WORLD_SIZE) it
-runs as before.
+`--publish`, `--checkpoint` and `--resume` run there too: each rank writes
+its own rows of one checkpoint in the reference's layout, which any split
+of the same run (or one process, or the JAX package) resumes from, and
+rank 0's publisher decides for every rank (`train.driver`); over a model
+axis checkpoints raise NotImplementedError. Alone (no WORLD_SIZE) it runs
+as before.
 
 `launch/env.py` is applied before `import torch` unless `--no-env-tuning`
 is given; `--compilation-cache-dir DIR` is the directory the kernels are
@@ -91,7 +94,7 @@ from repro_torch.core import scenarios as scenario_lib
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.data.lm import MarkovTokenStream
 from repro_torch.device import resolve_device
-from repro_torch.dist import n_data_nodes, n_local
+from repro_torch.dist import model_extent, n_data_nodes, n_local
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.serve.publisher import SnapshotPublisher
 from repro_torch.train import checkpoint
@@ -246,12 +249,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 def _train(ap, args, distributed: bool) -> None:
     mesh = None
     if distributed or args.production_mesh:
-        if args.publish or args.checkpoint or args.resume:
-            raise NotImplementedError(
-                "publication and checkpoints on a sharded node axis are not "
-                "ported yet (ROADMAP.md queue 1 item 3)")
         mesh = make_production_mesh() if args.production_mesh \
             else make_host_mesh()
+        if model_extent(mesh) > 1 and (args.checkpoint or args.resume):
+            raise NotImplementedError(
+                "checkpoints of a state split over a model axis are not "
+                "ported yet (ROADMAP.md queue 1 item 1)")
     cfg = get_config(args.arch)
     if cfg.is_encdec:
         # the reference's launcher draws the same token stream, and its
@@ -339,8 +342,8 @@ def _train(ap, args, distributed: bool) -> None:
                          resume_from=args.resume or None,
                          device=dev) as driver:
         if driver.resumed_from:
-            print(f"resumed: {driver.resumed_from} "
-                  f"(superstep {driver._supersteps_done})")
+            _say(f"resumed: {driver.resumed_from} "
+                 f"(superstep {driver._supersteps_done})")
         plan = driver.pipeline.plan
         ranks = (f" rank={mesh.rank}/{mesh.size} "
                  f"local_nodes={n_local(mesh, n_nodes)}"
@@ -350,39 +353,42 @@ def _train(ap, args, distributed: bool) -> None:
              f"prefetch={engine.prefetch_depth} "
              f"buckets={list(driver.ladder.buckets)} device={dev}{ranks}")
         if scenario is not None:
-            print(f"scenario: {scenario.name} n={scenario.n_nodes} "
-                  f"R={scenario.rounds} links={scenario.links or 'clean'}")
+            _say(f"scenario: {scenario.name} n={scenario.n_nodes} "
+                 f"R={scenario.rounds} links={scenario.links or 'clean'}")
         if faults is not None:
-            print(f"faults: {faults}")
+            _say(f"faults: {faults}")
         state, _ = driver.run(supersteps, log_fn=_log,
                               log_every=args.log_every)
         for ev in driver.membership_events:
-            print(f"membership superstep {ev['superstep']}: "
-                  f"{ev['to'].active_ids} B={ev['plan'].B}")
+            _say(f"membership superstep {ev['superstep']}: "
+                 f"{ev['to'].active_ids} B={ev['plan'].B}")
     if publisher is not None:
         st = publisher.stats
         stale = publisher.staleness(supersteps)
-        print(f"publisher: v{publisher.version} publishes={st.publishes} "
-              f"skipped(budget={st.skipped_budget} "
-              f"interval={st.skipped_interval}) "
-              f"cost_ewma={st.cost_ewma_s * 1e3:.2f}ms "
-              f"total_cost={st.total_cost_s:.3f}s "
-              f"staleness={stale['supersteps']} supersteps "
-              f"/ {stale['wall_s']:.2f}s")
+        _say(f"publisher: v{publisher.version} publishes={st.publishes} "
+             f"skipped(budget={st.skipped_budget} "
+             f"interval={st.skipped_interval}) "
+             f"cost_ewma={st.cost_ewma_s * 1e3:.2f}ms "
+             f"total_cost={st.total_cost_s:.3f}s "
+             f"staleness={stale['supersteps']} supersteps "
+             f"/ {stale['wall_s']:.2f}s")
     if snapshotter is not None:
         st = snapshotter.stats
-        print(f"snapshotter: saves={st.saves} "
-              f"skipped(cadence={st.skipped_cadence} "
-              f"budget={st.skipped_budget} busy={st.skipped_busy}) "
-              f"failures={st.failures} "
-              f"cost_ewma={st.cost_ewma_s * 1e3:.2f}ms "
-              f"total_cost={st.total_cost_s:.3f}s -> {args.checkpoint}")
+        _say(f"snapshotter: saves={st.saves} "
+             f"skipped(cadence={st.skipped_cadence} "
+             f"budget={st.skipped_budget} busy={st.skipped_busy}) "
+             f"failures={st.failures} "
+             f"cost_ewma={st.cost_ewma_s * 1e3:.2f}ms "
+             f"total_cost={st.total_cost_s:.3f}s -> {args.checkpoint}")
     elif args.checkpoint:
+        # on a split node axis every rank writes its rows of one checkpoint
         checkpoint.save(args.checkpoint, state,
                         step=supersteps * engine.superstep,
                         meta={"arch": args.arch, "reduced": args.reduced},
-                        model=cfg)
-        print(f"checkpoint -> {args.checkpoint}")
+                        model=cfg, mesh=mesh,
+                        n_nodes=n_nodes if args.averaging != "exact"
+                        else None)
+        _say(f"checkpoint -> {args.checkpoint}")
 
 
 def _log(rec):

@@ -38,6 +38,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch import dist as rdist
 from repro_torch.core.packing import map_tensors
 
 Tree = Any
@@ -97,6 +98,7 @@ class SnapshotPublisher:
         self._back: Optional[Snapshot] = None  # double buffer: previous version
         self._version = 0
         self._last_publish_t: Optional[float] = None
+        self._mesh = None  # a split node axis's mesh (`configure`)
 
     def reset_stats(self, *, keep_ewma: bool = True) -> None:
         """Zero the counters for a fresh measurement window. The cost EWMA
@@ -104,12 +106,19 @@ class SnapshotPublisher:
         self.stats = PublisherStats(
             cost_ewma_s=self.stats.cost_ewma_s if keep_ewma else None)
 
-    def configure(self, *, extract: Optional[Callable] = None) -> None:
+    def configure(self, *, extract: Optional[Callable] = None,
+                  mesh: Any = None) -> None:
         """Install an extract fn if none was set (idempotent; the driver calls
         this so a bare `SnapshotPublisher()` publishes the consensus params of
-        whatever workload it is attached to)."""
+        whatever workload it is attached to). `mesh`: the mesh of a run
+        split over ranks, every rank of which runs a publisher; whether to
+        publish and the version are then rank 0's, broadcast (the extract
+        is collective there, and a rank that decided alone would hang the
+        others), and every rank holds the same published params."""
         if extract is not None and self._extract is None:
             self._extract = extract
+        if mesh is not None and rdist.multi_rank(mesh):
+            self._mesh = mesh
 
     # ------------------------------------------------------------- publishing
 
@@ -155,18 +164,31 @@ class SnapshotPublisher:
         """Governed publish: skip when the smoothed publish cost would exceed
         `overhead_budget` as a fraction of the wall time since the last
         publish (or when inside `min_interval_s`). Returns the new Snapshot,
-        or None if skipped."""
+        or None if skipped. Over a split mesh (`configure`), rank 0's
+        verdict and version."""
+        verdict = self._verdict()
+        if self._mesh is not None:
+            verdict, version = rdist.broadcast_object(
+                (verdict, self._version), self._mesh)
+            with self._lock:
+                self._version = version
+        if verdict != "publish":
+            setattr(self.stats, "skipped_" + verdict,
+                    getattr(self.stats, "skipped_" + verdict) + 1)
+            return None
+        return self.publish(tree, superstep, aux=aux)
+
+    def _verdict(self) -> str:
+        """"publish", or why not: "interval" or "budget"."""
         if self._last_publish_t is not None:
             elapsed = max(self.clock() - self._last_publish_t, 1e-12)
             if elapsed < self.min_interval_s:
-                self.stats.skipped_interval += 1
-                return None
+                return "interval"
             ewma = self.stats.cost_ewma_s
             if (self.overhead_budget > 0 and ewma is not None
                     and ewma > self.overhead_budget * elapsed):
-                self.stats.skipped_budget += 1
-                return None
-        return self.publish(tree, superstep, aux=aux)
+                return "budget"
+        return "publish"
 
     # ------------------------------------------------------------ persistence
 

@@ -25,23 +25,50 @@ multi-checkpoint layout the async snapshot subsystem (`train.snapshot`)
 uses: step-numbered subdirectories (`step_00000042/`), `newest_valid`
 scanning that skips torn or corrupt checkpoints, and `prune` retention of
 the last k.
+
+**A node axis split over ranks** (`repro_torch/dist.py`; every rank
+calls, with the same `mesh`). The checkpoint is the same directory, byte
+for byte, as one process writes for the whole state, so it restores on
+one process, on another split, or in the JAX package. Rank 0 writes each
+node-axis leaf's `.npy` header for the full [N, ...] shape and sizes the
+file, and writes the leaves without a node axis; then every rank writes
+its own rows at their offset (no rank stages another's rows) and takes
+the CRC32 of its bytes; rank 0 chains the ranks' CRCs in row order
+(`crc32_combine`) and writes the manifest last. The node-axis leaves are
+those of a decentralized state (`n_nodes` given) that `dist.node_leaf`
+names: every tensor and per-node tuple, since such a state is the rank's
+rows of every leaf; a leaf whose rows are not the rank's raises. A
+restore reads each rank's rows of a node-axis leaf and the whole of the
+others, and the ranks agree on the CRCs the same way before any leaf
+lands. The messages go over `group` (a
+process group of the mesh's ranks: the snapshot writer passes its own),
+default the mesh's. A model axis is not covered (ROADMAP.md queue 1 item
+1).
 """
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import shutil
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch import dist as rdist
 
 Tree = Any
 
 _SEP = "::"
+# files a rank of a split checkpoint reads or writes at a time: one stream
+# leaves a network or host-mediated filesystem idle between requests
+IO_THREADS = 4
 _STEP_DIR_RE = re.compile(r"^step_(\d{8})$")
 
 # a port path element: ("f", name) NamedTuple field, ("k", key) dict key,
@@ -203,10 +230,57 @@ def _write(path: str, arr: np.ndarray, dtype: str) -> None:
         return
     # the reference's np.save of a bf16 array: descr '<V2', raw records
     with open(path, "wb") as f:
-        np.lib.format.write_array_header_1_0(
-            f, {"descr": "<V2", "fortran_order": False,
-                "shape": tuple(arr.shape)})
+        _header(f, arr, dtype, arr.shape)
         f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _header(f, arr: np.ndarray, dtype: str, shape) -> int:
+    """Write the .npy (1.0) header `np.save` writes for a C-order array of
+    arr's dtype (bf16: '<V2') and `shape`; returns its length."""
+    descr = ("<V2" if dtype == "bfloat16"
+             else np.lib.format.dtype_to_descr(arr.dtype))
+    np.lib.format.write_array_header_1_0(
+        f, {"descr": descr, "fortran_order": False, "shape": tuple(shape)})
+    return f.tell()
+
+
+def _gf2_times(mat: List[int], vec: int) -> int:
+    out, i = 0, 0
+    while vec:
+        if vec & 1:
+            out ^= mat[i]
+        vec >>= 1
+        i += 1
+    return out
+
+
+def _gf2_square(mat: List[int]) -> List[int]:
+    return [_gf2_times(mat, m) for m in mat]
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """The CRC32 of A + B from crc1 = CRC32(A), crc2 = CRC32(B) and B's
+    length in bytes (zlib's `crc32_combine`: crc1 run through len2 zero
+    bytes by repeated squaring of the one-bit shift operator over GF(2))."""
+    if len2 <= 0:
+        return crc1
+    odd = [0xEDB88320] + [1 << i for i in range(31)]  # one zero bit
+    even = _gf2_square(odd)  # two
+    odd = _gf2_square(even)  # four
+    while True:
+        even = _gf2_square(odd)  # one zero byte, then 4, 16, ...
+        if len2 & 1:
+            crc1 = _gf2_times(even, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+        odd = _gf2_square(even)
+        if len2 & 1:
+            crc1 = _gf2_times(odd, crc1)
+        len2 >>= 1
+        if not len2:
+            break
+    return (crc1 ^ crc2) & 0xFFFFFFFF
 
 
 def _save_leaf(path: str, arr: np.ndarray, dtype: str, *, retries: int = 0,
@@ -215,10 +289,15 @@ def _save_leaf(path: str, arr: np.ndarray, dtype: str, *, retries: int = 0,
     disk being drained, an NFS blip): up to `retries` retries with
     exponential backoff, then the last error propagates. A partial file from
     a failed attempt is overwritten by the retry."""
+    _retrying(lambda: _write(path, arr, dtype), retries, backoff_s)
+
+
+def _retrying(write: Callable[[], None], retries: int,
+              backoff_s: float) -> None:
     attempt = 0
     while True:
         try:
-            _write(path, arr, dtype)
+            write()
             return
         except OSError:
             if attempt >= retries:
@@ -238,7 +317,8 @@ def _live_files(path: str) -> set:
 
 
 def save(path: str, tree: Tree, *, step: int = 0, meta: Optional[dict] = None,
-         retries: int = 0, backoff_s: float = 0.05, model=None) -> None:
+         retries: int = 0, backoff_s: float = 0.05, model=None,
+         mesh=None, n_nodes: Optional[int] = None, group=None) -> None:
     """Crash-safe save: every leaf .npy is written BEFORE the manifest, and
     the manifest lands via temp file, `fsync` and atomic `os.replace`, so a
     checkpoint directory either has a manifest whose leaves are all complete
@@ -250,24 +330,43 @@ def save(path: str, tree: Tree, *, step: int = 0, meta: Optional[dict] = None,
 
     Each leaf entry carries a CRC32 of the array bytes; `restore` verifies
     them. Tensors on the card are copied to the host leaf by leaf; `model`
-    is the `ModelConfig` of an LM state (see the module docstring)."""
+    is the `ModelConfig` of an LM state (see the module docstring).
+
+    On a `mesh` that splits the node axis over ranks, `tree` is this
+    rank's: its leaves with the node axis (`n_nodes` rows in all; None
+    where no leaf has one, as an exact run's replicas) hold its rows, and
+    the ranks write one checkpoint together (the module docstring)."""
+    if rdist.is_sharded(mesh):
+        return _save_split(path, tree, step, meta, retries, backoff_s,
+                           model, mesh, n_nodes, group)
     os.makedirs(path, exist_ok=True)
     layout, leaves = _layout(tree, model)
     live = _live_files(path)
     manifest = {"step": step, "meta": meta or {}, "leaves": {}}
     for key, entry in layout.items():
         arr, dtype = _entry_array(entry, leaves)
-        base = key.replace("/", "_") + f".{step:08d}"
-        fname = base + ".npy"
-        g = 0
-        while fname in live:
-            g += 1
-            fname = f"{base}.g{g}.npy"
+        fname = _file_name(key, step, live)
         _save_leaf(os.path.join(path, fname), arr, dtype, retries=retries,
                    backoff_s=backoff_s)
         manifest["leaves"][key] = {"file": fname, "dtype": dtype,
                                    "shape": list(arr.shape),
                                    "crc32": _crc32(arr)}
+    _write_manifest(path, manifest)
+
+
+def _file_name(key: str, step: int, live: set) -> str:
+    """A step-versioned leaf file name that the live manifest does not
+    reference."""
+    base = key.replace("/", "_") + f".{step:08d}"
+    fname = base + ".npy"
+    g = 0
+    while fname in live:
+        g += 1
+        fname = f"{base}.g{g}.npy"
+    return fname
+
+
+def _write_manifest(path: str, manifest: dict) -> None:
     tmp = os.path.join(path, "manifest.json.tmp")
     with open(tmp, "w") as f:
         json.dump(manifest, f, indent=1)
@@ -275,6 +374,253 @@ def save(path: str, tree: Tree, *, step: int = 0, meta: Optional[dict] = None,
         os.fsync(f.fileno())
     os.replace(tmp, os.path.join(path, "manifest.json"))
     _clean_orphans(path, manifest)
+
+
+# ---------------------------------------------------------------------------
+# A node axis split over ranks
+# ---------------------------------------------------------------------------
+
+
+def _check_split(mesh) -> None:
+    if rdist.model_extent(mesh) > 1:
+        raise NotImplementedError(
+            "checkpoints of a state split over a model axis are not ported "
+            "yet (ROADMAP.md queue 1 item 1)")
+
+
+def _root(group) -> int:
+    return 0 if group is None else dist.get_global_rank(group, 0)
+
+
+def _bcast(obj, group):
+    """`obj` as the group's rank 0 holds it, on every rank."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=_root(group), group=group)
+    return box[0]
+
+
+def _gather(obj, group) -> list:
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
+
+
+def _combined(parts) -> Tuple[int, int]:
+    """(CRC32, bytes) of the concatenation of (first row, CRC32, bytes)
+    parts, in row order."""
+    crc, total = 0, 0
+    for _, c, nbytes in sorted(parts):
+        crc = crc32_combine(crc, c, nbytes) if total else c
+        total += nbytes
+    return crc, total
+
+
+def _write_rows(fpath: str, offset: int, data, retries: int,
+                backoff_s: float) -> None:
+    """Write `data` at `offset` of an existing file, retried as
+    `_save_leaf` retries."""
+    def write():
+        with open(fpath, "r+b") as f:
+            f.seek(offset)
+            f.write(data)
+
+    _retrying(write, retries, backoff_s)
+
+
+def _save_split(path, tree, step, meta, retries, backoff_s, model, mesh,
+                n_nodes, group) -> None:
+    _check_split(mesh)
+    group = mesh.group if group is None else group
+    lead = dist.get_rank(group) == 0
+    layout, leaves = _layout(tree, model)
+    rows = rdist.node_rows(mesh, n_nodes) if n_nodes else None
+    local = None if rows is None else rows.stop - rows.start
+
+    def node(key: str, count: int) -> bool:
+        """Whether leaf `key` (`count` rows) holds this rank's rows
+        (`dist.node_leaf`); raises where their count is not the rank's."""
+        if local is None or not rdist.node_leaf(leaves[layout[key].paths[0]]):
+            return False
+        if count != local:
+            raise ValueError(f"leaf {key!r} has {count} rows where "
+                             f"this rank holds {local} of the node axis's "
+                             f"{n_nodes}")
+        return True
+
+    error = None
+    # rank 0: the file names, the node-axis leaves' headers and sizes, the
+    # leaves without a node axis
+    plan = {}
+    if lead:
+        try:
+            os.makedirs(path, exist_ok=True)
+            live = _live_files(path)
+            for key, entry in layout.items():
+                fname = _file_name(key, step, live)
+                fpath = os.path.join(path, fname)
+                # the stacked shape, without stacking the node-axis leaves
+                first, dtype = _host(leaves[entry.paths[0]])
+                shape = list(first.shape)
+                if entry.axis is not None:
+                    shape.insert(entry.axis, len(entry.paths))
+                if shape and node(key, shape[0]):
+                    shape[0] = n_nodes
+                    with open(fpath, "wb") as f:
+                        head = _header(f, first, dtype, shape)
+                        f.truncate(head + first.itemsize * math.prod(shape))
+                    plan[key] = (fname, dtype, shape, head, None)
+                else:
+                    arr, dtype = _entry_array(entry, leaves)
+                    _save_leaf(fpath, arr, dtype, retries=retries,
+                               backoff_s=backoff_s)
+                    plan[key] = (fname, dtype, list(arr.shape), None,
+                                 _crc32(arr))
+        except Exception as e:
+            error = f"rank 0: {type(e).__name__}: {e}"
+    plan, error = _bcast((plan, error), group)
+    # every rank: its rows of the node-axis leaves, at their offsets
+    def write(key):
+        fname, _, _, head, _ = plan[key]
+        arr, _ = _entry_array(layout[key], leaves)
+        node(key, arr.shape[0])
+        data = _bytes(arr)
+        row_bytes = data.nbytes // max(local, 1)
+        _write_rows(os.path.join(path, fname),
+                    head + rows.start * row_bytes, data, retries, backoff_s)
+        return rows.start, zlib.crc32(data) & 0xFFFFFFFF, data.nbytes
+
+    crcs = {}
+    if error is None:
+        try:
+            node_keys = [k for k in layout if plan[k][3] is not None]
+            with ThreadPoolExecutor(IO_THREADS) as pool:
+                crcs = dict(zip(node_keys, pool.map(write, node_keys)))
+        except Exception as e:
+            error = f"rank {mesh.rank}: {type(e).__name__}: {e}"
+    parts = _gather((crcs, error), group)
+    errors = [e for _, e in parts if e is not None]
+    if lead and not errors:
+        try:
+            manifest = {"step": step, "meta": meta or {}, "leaves": {}}
+            for key in layout:
+                fname, dtype, shape, head, crc = plan[key]
+                if head is not None:
+                    crc = _combined(c[key] for c, _ in parts)[0]
+                manifest["leaves"][key] = {"file": fname, "dtype": dtype,
+                                           "shape": shape, "crc32": crc}
+            _write_manifest(path, manifest)
+        except Exception as e:
+            errors.append(f"rank 0: {type(e).__name__}: {e}")
+    errors = _bcast(errors, group)
+    if errors:
+        raise OSError(f"split checkpoint save at {path!r} failed: "
+                      f"{'; '.join(errors)}")
+
+
+def _read_split(path: str, layout, leaves, mesh, group, n_nodes,
+                verify: bool, take: Callable) -> List[str]:
+    """Hand this rank's part of each leaf (its rows of a node-axis leaf,
+    the whole of the others) to `take(key, CPU tensor of its manifest
+    dtype)`, leaf by leaf, and return the keys that failed to load or
+    their CRC32 (the ranks' parts chained): the same list on every rank.
+    With `verify` every part is read and checked first, and nothing is
+    handed over unless every leaf passes on every rank; the parts are
+    then read again to land them (as one process's `newest_valid` and
+    `restore` read a checkpoint twice)."""
+    manifest = load_manifest(path)
+    rows = rdist.node_rows(mesh, n_nodes) if n_nodes else None
+
+    def read(key) -> Tuple[np.ndarray, Optional[int]]:
+        """The rank's part of leaf `key` and its first row (None: the
+        whole leaf)."""
+        ent = manifest["leaves"][key]
+        fpath = os.path.join(path, ent["file"])
+        if rows is None or not rdist.node_leaf(leaves[layout[key].paths[0]]):
+            return np.load(fpath), None
+        if ent["shape"][:1] != [n_nodes]:
+            raise ValueError(f"{key!r} has no {n_nodes}-row node axis")
+        return _read_rows(fpath, rows.start, rows.stop), rows.start
+
+    def check(key):
+        """(first row, CRC32, bytes) of the rank's rows, or whether the
+        whole leaf failed, its CRC32 taken on the reading thread."""
+        try:
+            arr, start = read(key)
+        except Exception:
+            return None, True
+        if start is not None:
+            data = _bytes(arr)
+            return (start, zlib.crc32(data) & 0xFFFFFFFF, data.nbytes), False
+        ent = manifest["leaves"][key]
+        return None, "crc32" in ent and _crc32(arr) != ent["crc32"]
+
+    def agree(crcs, bad) -> List[str]:
+        parts = _gather((crcs, bad), group)
+        bad = {k for _, b in parts for k in b}
+        for key in crcs:
+            got = _combined(c[key] for c, _ in parts if key in c)
+            want = manifest["leaves"][key]
+            if got != (want.get("crc32", got[0]), _entry_nbytes(want)):
+                bad.add(key)
+        # every rank computes the same list from the gathered parts
+        return sorted(bad)
+
+    with ThreadPoolExecutor(IO_THREADS) as pool:
+        if verify:
+            crcs, bad = {}, []
+            for key, (crc, failed) in zip(layout, pool.map(check, layout)):
+                if crc is not None:
+                    crcs[key] = crc
+                if failed:
+                    bad.append(key)
+            bad = agree(crcs, bad)
+            if bad:
+                return bad
+        bad = []
+
+        def load(key):
+            try:
+                return read(key)[0]
+            except Exception:
+                return None
+
+        # the reads run ahead of the landing, IO_THREADS files at a time
+        for key, arr in zip(layout, pool.map(load, layout)):
+            if arr is None:
+                bad.append(key)
+            else:
+                take(key, _tensor(arr, manifest["leaves"][key]["dtype"]))
+            del arr
+    return sorted({k for b in _gather(bad, group) for k in b})
+
+
+def _bytes(arr: np.ndarray) -> memoryview:
+    """The bytes of a C-order array, without a copy where it is one."""
+    return memoryview(np.ascontiguousarray(arr).reshape(-1)).cast("B")
+
+
+def _read_rows(fpath: str, start: int, stop: int) -> np.ndarray:
+    """Rows [start, stop) of the .npy array at `fpath`: one read at their
+    offset (a memory map pages them in over the filesystem a page at a
+    time)."""
+    with open(fpath, "rb") as f:
+        version = np.lib.format.read_magic(f)
+        read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                else np.lib.format.read_array_header_2_0)
+        shape, fortran, dtype = read(f)
+        if fortran:
+            raise ValueError(f"{fpath}: a Fortran-order array")
+        out = np.empty((stop - start,) + tuple(shape[1:]), dtype)
+        row = out[0].nbytes if len(out) else 0
+        f.seek(f.tell() + start * row)
+        if f.readinto(_bytes(out)) != out.nbytes:
+            raise ValueError(f"{fpath}: rows {start}-{stop} are cut short")
+    return out
+
+
+def _entry_nbytes(ent: dict) -> int:
+    item = 2 if ent["dtype"] == "bfloat16" else np.dtype(ent["dtype"]).itemsize
+    return item * int(np.prod(ent["shape"], dtype=np.int64))
 
 
 def _clean_orphans(path: str, manifest: dict) -> None:
@@ -336,7 +682,8 @@ def _rebuild(tree: Tree, values: Dict[Path, Any], path: Path = ()) -> Tree:
 
 
 def restore(path: str, like: Tree, *, put: Optional[Callable] = None,
-            verify: bool = True, model=None, into: bool = False) -> Tree:
+            verify: bool = True, model=None, into: bool = False,
+            mesh=None, n_nodes: Optional[int] = None, group=None) -> Tree:
     """Restore into the structure of `like`. Each leaf lands on the device
     and dtype of `like`'s leaf (Python ints stay ints); with `into`, the
     tensors of `like` receive the values in place and the returned tree
@@ -346,7 +693,14 @@ def restore(path: str, like: Tree, *, put: Optional[Callable] = None,
     A structure mismatch between `like` and the checkpoint raises ValueError
     naming the missing and extra leaf keys. With `verify` (default), each
     loaded leaf is checked against its manifest CRC32: a torn or bit-rotted
-    file raises ValueError naming the leaf."""
+    file raises ValueError naming the leaf.
+
+    On a `mesh` that splits the node axis over ranks (every rank calls),
+    `like` is this rank's state (`n_nodes` as in `save`): each rank reads
+    its rows of the node-axis leaves and the whole of the others, and the
+    ranks agree on the CRC32s over `group` (default the mesh's) before any
+    leaf lands, so a failure raises on every rank and leaves `like` as it
+    was."""
     manifest = load_manifest(path)
     layout, leaves = _layout(like, model)
     want, have = set(layout), set(manifest["leaves"])
@@ -358,6 +712,28 @@ def restore(path: str, like: Tree, *, put: Optional[Callable] = None,
             f"missing from checkpoint: {missing or 'none'}; "
             f"present in checkpoint but not in target: {extra or 'none'}")
     values: Dict[Path, Any] = {}
+
+    def land(key: str, value: torch.Tensor) -> None:
+        entry = layout[key]
+        if put is not None:
+            value = put(key, value)
+        if entry.axis is None:
+            values[entry.paths[0]] = _land(value, leaves[entry.paths[0]],
+                                           into)
+        else:
+            for r, p in enumerate(entry.paths):
+                values[p] = _land(value.select(entry.axis, r), leaves[p], into)
+
+    if rdist.is_sharded(mesh):
+        _check_split(mesh)
+        bad = _read_split(path, layout, leaves, mesh,
+                          mesh.group if group is None else group, n_nodes,
+                          verify, land)
+        if bad:
+            raise ValueError(
+                f"checkpoint leaves {bad} at {path!r} are unreadable or "
+                f"failed their CRC32 check: the files are torn or corrupt")
+        return _rebuild(like, values)
     for key, entry in layout.items():
         ent = manifest["leaves"][key]
         fpath = os.path.join(path, ent["file"])
@@ -371,15 +747,7 @@ def restore(path: str, like: Tree, *, put: Optional[Callable] = None,
             raise ValueError(
                 f"checkpoint leaf {key!r} ({ent['file']}) at {path!r} failed "
                 f"its CRC32 check: the file is torn or corrupt")
-        value = _tensor(arr, ent["dtype"])
-        if put is not None:
-            value = put(key, value)
-        if entry.axis is None:
-            values[entry.paths[0]] = _land(value, leaves[entry.paths[0]],
-                                           into)
-        else:
-            for r, p in enumerate(entry.paths):
-                values[p] = _land(value.select(entry.axis, r), leaves[p], into)
+        land(key, _tensor(arr, ent["dtype"]))
     return _rebuild(like, values)
 
 

@@ -91,7 +91,13 @@ active nodes' rows of the batch and hands the cohort superstep its own
 active rows as local indices; a superstep is built per (bucket, cohort row
 table), the compiled signatures staying (bucket, cohort size). A rejoin
 sync all-reduces the donors' f32 sum. Publication, snapshots and resuming
-on a sharded axis are not ported yet (ROADMAP.md) and raise.
+run there too: the publisher's and the snapshotter's decisions are rank
+0's, the published consensus iterate is an all-reduce of the ranks'
+masked row sums (`train.trainer.publish_extract`), every rank writes its
+own rows of one checkpoint in the reference's layout and restores its rows
+from any checkpoint of the same run, split or not (`train.snapshot`).
+Snapshots and resuming over a model axis raise (ROADMAP.md queue 1 item
+1).
 """
 from __future__ import annotations
 
@@ -112,8 +118,8 @@ from repro_torch.data.pipeline import (DevicePrefetcher, StreamCounters,
                                        StreamingPipeline, exact_split_error,
                                        shard_batch, stage_batch)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist import (check_mesh, is_sharded, multi_rank,
-                              n_data_nodes)
+from repro_torch.dist import (check_mesh, is_sharded, model_extent,
+                              multi_rank, n_data_nodes)
 from repro_torch.train.trainer import (make_node_batch, publish_extract,
                                        superstep_builder as lm_superstep_builder)
 
@@ -245,14 +251,13 @@ class StreamingDriver:
             n_nodes = n_data_nodes(mesh)
         # the ranks of a split node axis or of a model axis step in lockstep
         self._sharded = multi_rank(mesh)
-        if self._sharded:
-            for what, arg in (("publication", publisher),
-                              ("snapshots", snapshotter),
+        if model_extent(mesh) > 1:
+            for what, arg in (("snapshots", snapshotter),
                               ("resuming", resume_from)):
                 if arg is not None:
                     raise NotImplementedError(
-                        f"{what} on a sharded node axis is not ported yet "
-                        f"(ROADMAP.md queue 1 item 3)")
+                        f"{what} of a state split over a model axis are not "
+                        f"ported yet (ROADMAP.md queue 1 item 1)")
         self.device = resolve_device(device)
         self.run_cfg = run_cfg
         self.mesh = mesh
@@ -351,7 +356,9 @@ class StreamingDriver:
         self._publisher = publisher
         if publisher is not None:
             publisher.configure(extract=publish_extract(
-                self.n_nodes if self.decentralized else None))
+                self.n_nodes if self.decentralized else None,
+                run=run_cfg if hasattr(run_cfg, "model") else None,
+                mesh=mesh), mesh=mesh)
         self._pub_masks: Dict[Optional[Membership], torch.Tensor] = {}
         self.history: List[Dict[str, Any]] = []
         # fault tolerance: the snapshotter runs at the superstep boundary,
@@ -360,6 +367,8 @@ class StreamingDriver:
         # restoring it re-deals the staged-but-unconsumed supersteps a crash
         # threw away
         self._snapshotter = snapshotter
+        if snapshotter is not None and self._sharded:
+            snapshotter.bind(mesh)
         self._last_splitter_state: Optional[dict] = None
         self.resumed_from: Optional[str] = None
         if resume_from is not None:

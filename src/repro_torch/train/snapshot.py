@@ -44,6 +44,20 @@ with exact counter/plan/cohort continuity: on the deterministic clock in
 exact mode the resumed run is bit-identical to the uninterrupted one. The
 checkpoint is in the reference's layout, so either package resumes from
 the other's.
+
+**A node axis split over ranks.** Every rank runs a snapshotter, bound to
+the driver's mesh (`bind`, which the driver calls on every rank at
+set-up). Each rank copies its own rows, and the writers save one
+checkpoint together (`checkpoint.save(mesh=...)`: each rank writes its
+rows, rank 0 the manifest). The writers' messages go over a process group
+of their own, made at `bind`: gloo does not order two threads' messages
+on one group, and the training thread's go over the mesh's. Whether to
+snapshot is rank 0's decision (cadence, cost governor, a busy writer),
+broadcast to the others, which wait for their own writer where it is
+still finishing: a rank that decided alone would leave the others waiting
+at the writers' messages. A resume restores every rank's rows in place
+and the meta of rank 0's manifest, and needs nothing of the split it was
+written on.
 """
 from __future__ import annotations
 
@@ -54,7 +68,9 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
+from repro_torch import dist as rdist
 from repro_torch.core.mixing import Membership
 from repro_torch.core.packing import map_tensors
 from repro_torch.core.rates import Plan
@@ -119,22 +135,32 @@ def restore_driver(driver, root_or_path: str) -> str:
     and dtype). The driver must be constructed with the same config the
     snapshot was taken under (same N, R, buckets, workload); derived objects
     — cohort ladders, built supersteps — are rebuilt lazily, exactly as the
-    uninterrupted run built them."""
-    if checkpoint.list_steps(root_or_path):
-        path = checkpoint.newest_valid(root_or_path)
-        if path is None:
-            raise FileNotFoundError(
-                f"no valid checkpoint under {root_or_path!r} "
-                f"(every step directory is torn or corrupt)")
-    elif checkpoint.is_valid(root_or_path):
-        path = root_or_path
-    else:
-        raise FileNotFoundError(
-            f"no valid checkpoint at {root_or_path!r}")
+    uninterrupted run built them.
 
+    On a node axis split over ranks every rank calls this (the driver does,
+    on every rank), and each restores its rows of the state. The ranks try
+    rank 0's step directories newest first: a split restore checks every
+    rank's CRC32s before it lands a leaf, so one that fails (on every rank
+    alike) leaves the state as it was, and the next older one is tried."""
+    mesh = getattr(driver, "mesh", None)
+    model = _model_of(driver)
+    if rdist.is_sharded(mesh):
+        path = _restore_split(driver, root_or_path, model, mesh)
+    else:
+        if checkpoint.list_steps(root_or_path):
+            path = checkpoint.newest_valid(root_or_path)
+            if path is None:
+                raise FileNotFoundError(
+                    f"no valid checkpoint under {root_or_path!r} "
+                    f"(every step directory is torn or corrupt)")
+        elif checkpoint.is_valid(root_or_path):
+            path = root_or_path
+        else:
+            raise FileNotFoundError(
+                f"no valid checkpoint at {root_or_path!r}")
+        driver.state = checkpoint.restore(path, driver.state, model=model,
+                                          into=True)
     meta = checkpoint.load_manifest(path)["meta"]
-    driver.state = checkpoint.restore(path, driver.state,
-                                      model=_model_of(driver), into=True)
 
     live_plan = Plan.from_json(meta["live_plan"])
     mem = meta.get("membership")
@@ -161,6 +187,27 @@ def restore_driver(driver, root_or_path: str) -> str:
     if meta.get("publisher") is not None and driver._publisher is not None:
         driver._publisher.load_state_dict(meta["publisher"])
     return path
+
+
+def _restore_split(driver, root_or_path: str, model, mesh) -> str:
+    """`restore_driver`'s checkpoint on a split node axis: the newest of
+    rank 0's step directories under `root_or_path` (or that directory)
+    whose restore passes, restored into this rank's rows."""
+    steps = rdist.broadcast_object(checkpoint.list_steps(root_or_path), mesh)
+    paths = ([checkpoint.step_dir(root_or_path, s) for s in reversed(steps)]
+             if steps else [root_or_path])
+    n_nodes = driver.n_nodes if driver.decentralized else None
+    for path in paths:
+        try:
+            driver.state = checkpoint.restore(path, driver.state, model=model,
+                                              into=True, mesh=mesh,
+                                              n_nodes=n_nodes)
+            return path
+        except (OSError, ValueError):  # torn or corrupt, on every rank
+            continue
+    raise FileNotFoundError(
+        f"no valid checkpoint {'under' if steps else 'at'} "
+        f"{root_or_path!r}")
 
 
 class _Flush:
@@ -203,6 +250,8 @@ class RunSnapshotter:
         self.alpha = alpha
         self.clock = clock
         self.stats = SnapshotStats()
+        self.mesh = None  # a split node axis's mesh (`bind`)
+        self._group = None  # the writers' own process group
         self._pinned: List[torch.Tensor] = []  # host buffers, leaf order
         self._last_dispatch_t: Optional[float] = None
         self._in_flight: Optional[threading.Event] = None  # last save's done
@@ -214,6 +263,24 @@ class RunSnapshotter:
         self._thread = threading.Thread(target=self._worker, daemon=True,
                                         name="snapshot-writer")
         self._thread.start()
+
+    def bind(self, mesh) -> None:
+        """Snapshot a driver whose node axis `mesh` splits over ranks: make
+        the writers' process group (`dist.new_group`, which every rank of
+        the default group enters: call it on every rank, at set-up, in the
+        same order as the other groups). Idempotent; nothing on one
+        process."""
+        if not rdist.multi_rank(mesh) or self.mesh is not None:
+            return
+        if rdist.model_extent(mesh) > 1:
+            raise NotImplementedError(
+                "snapshots of a state split over a model axis are not "
+                "ported yet (ROADMAP.md queue 1 item 1)")
+        world = dist.get_world_size(mesh.group)
+        self._group = dist.new_group(
+            [r if mesh.group is None else dist.get_global_rank(mesh.group, r)
+             for r in range(world)])
+        self.mesh = mesh
 
     # ------------------------------------------------------------- capture
 
@@ -255,34 +322,32 @@ class RunSnapshotter:
         and never raises for I/O trouble — a failed save shows up in
         `stats.failures` and the next cadence hit tries again."""
         step = driver._supersteps_done
-        if step % self.every != 0:
-            self.stats.skipped_cadence += 1
+        verdict = self._verdict(step)
+        if self.mesh is not None:  # rank 0's decision
+            verdict = rdist.broadcast_object(verdict, self.mesh)
+        if verdict != "snapshot":
+            setattr(self.stats, "skipped_" + verdict,
+                    getattr(self.stats, "skipped_" + verdict) + 1)
             return None
-        if self._last_dispatch_t is not None and self.overhead_budget > 0:
-            elapsed = max(self.clock() - self._last_dispatch_t, 1e-12)
-            ewma = self.stats.cost_ewma_s
-            if ewma is not None and ewma > self.overhead_budget * elapsed:
-                self.stats.skipped_budget += 1
-                return None
-        # depth-1 discipline: at most one snapshot in flight — the queue can
-        # be empty while the writer is still mid-save, so busy-ness is the
-        # previous save's done event, not queue occupancy (the pinned
-        # buffers are the writer's until then)
-        if (self._q.full() or
-                (self._in_flight is not None and not self._in_flight.is_set())):
-            self.stats.skipped_busy += 1
-            return None
+        if self.mesh is not None and self._in_flight is not None:
+            self._in_flight.wait()  # this rank's writer, finishing
         t0 = self.clock()
         host, ready, nbytes = self._stage(driver.state)
         meta = capture_meta(driver)
         done = threading.Event()
         path = checkpoint.step_dir(self.root, step)
-        try:
-            self._q.put_nowait((step, host, ready, meta, _model_of(driver),
-                                done))
-        except queue.Full:  # raced with a straggling writer
-            self.stats.skipped_busy += 1
-            return None
+        # the node axis's rows in all (a split axis's checkpoint)
+        n_nodes = (driver.n_nodes if self.mesh is not None
+                   and driver.decentralized else None)
+        item = (step, host, ready, meta, _model_of(driver), n_nodes, done)
+        if self.mesh is not None:  # rank 0 decided: every rank's writer
+            self._q.put(item)  # takes part, once its queue has room
+        else:
+            try:
+                self._q.put_nowait(item)
+            except queue.Full:  # raced with a straggling writer
+                self.stats.skipped_busy += 1
+                return None
         self._in_flight = done
         cost = self.clock() - t0
         st = self.stats
@@ -296,6 +361,24 @@ class RunSnapshotter:
             done.wait()
         return {"step": step, "path": path}
 
+    def _verdict(self, step: int) -> str:
+        """"snapshot", or why not: "cadence", "budget" or "busy"."""
+        if step % self.every != 0:
+            return "cadence"
+        if self._last_dispatch_t is not None and self.overhead_budget > 0:
+            elapsed = max(self.clock() - self._last_dispatch_t, 1e-12)
+            ewma = self.stats.cost_ewma_s
+            if ewma is not None and ewma > self.overhead_budget * elapsed:
+                return "budget"
+        # depth-1 discipline: at most one snapshot in flight — the queue can
+        # be empty while the writer is still mid-save, so busy-ness is the
+        # previous save's done event, not queue occupancy (the pinned
+        # buffers are the writer's until then)
+        if (self._q.full() or
+                (self._in_flight is not None and not self._in_flight.is_set())):
+            return "busy"
+        return "snapshot"
+
     # -------------------------------------------------------------- writer
 
     def _worker(self) -> None:
@@ -306,15 +389,18 @@ class RunSnapshotter:
             if isinstance(item, tuple) and isinstance(item[0], _Flush):
                 item[1].set()
                 continue
-            step, host, ready, meta, model, done = item
+            step, host, ready, meta, model, n_nodes, done = item
             t0 = time.perf_counter()
             try:
                 if ready is not None:
                     ready.synchronize()
                 checkpoint.save(checkpoint.step_dir(self.root, step), host,
                                 step=step, meta=meta, retries=self.retries,
-                                backoff_s=self.backoff_s, model=model)
-                checkpoint.prune(self.root, self.keep_last)
+                                backoff_s=self.backoff_s, model=model,
+                                mesh=self.mesh, n_nodes=n_nodes,
+                                group=self._group)
+                if self.mesh is None or self.mesh.rank == 0:
+                    checkpoint.prune(self.root, self.keep_last)
                 self.stats.saves += 1
             except Exception as e:  # never kill the training thread
                 self.stats.failures += 1

@@ -68,8 +68,11 @@ active rows in place and mixes over the cohort's row table
 joins every message with nothing of its own); its metrics are means over
 the cohort. The round clock of a stochastic wire or a time-varying
 operator, the first active node's optimizer step, comes from the rank
-that holds that node (one all-reduce a step). The hierarchical mode and
-error feedback on a sharded axis are not ported yet and raise.
+that holds that node (one all-reduce a step). Error feedback runs there
+on each rank's rows, its residual kept on them (`ef_average_and_error`);
+the hierarchical mode takes its pods from the mesh's "pod" axis and
+gossips between them over each rank's lane
+(`core.averaging._hmix_shard`).
 
 Over a model axis of extent above 1 (the dense family,
 `models.transformer.check_model_axis`) every rank holds blocks of the
@@ -96,9 +99,8 @@ import torch
 
 from repro_torch import dist as rdist
 from repro_torch.core.averaging import (average_and_error,
-                                        check_sharded_mode,
                                         ef_average_and_error, make_gossip_mix,
-                                        resolve_packed)
+                                        pod_mix_mesh, resolve_packed)
 from repro_torch.core.mixing import ScheduledMixOp
 from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
 from repro_torch.core.quantize import STOCHASTIC
@@ -122,10 +124,9 @@ class TrainState(NamedTuple):
 
 def check_supported(run, mesh) -> None:
     """Raise on what the trainer does not run over `mesh`: a model axis
-    beyond `check_model_axis`, or with a quantized or error-feedback wire;
-    hierarchical averaging and error feedback on a sharded node axis; and
-    error feedback outside the gossip mode (ValueError, as the
-    reference)."""
+    beyond `check_model_axis`, or with a quantized or error-feedback wire,
+    or under the hierarchical mode on a split node axis; and error
+    feedback outside the gossip mode (ValueError, as the reference)."""
     avg = run.averaging
     if model_extent(mesh) > 1:
         check_model_axis(run.model, mesh)
@@ -137,10 +138,12 @@ def check_supported(run, mesh) -> None:
             f"{wire} on a model axis: its [n, block_d] statistic tiles run "
             f"over the whole flattened leaf, which a column shard does not "
             f"hold (ROADMAP.md queue 1 item 1)")
-    check_sharded_mode(run.averaging, mesh)
-    if is_sharded(mesh) and run.averaging.error_feedback != "off":
-        raise NotImplementedError("error feedback on a sharded node axis is "
-                                  "not ported yet (ROADMAP.md)")
+    if (model_extent(mesh) > 1 and is_sharded(mesh)
+            and avg.mode == "hierarchical"):
+        raise NotImplementedError(
+            "the hierarchical mode on a model axis: its pod means are "
+            "reduce-scattered over whole rows, which a column shard does "
+            "not hold (ROADMAP.md queue 1 item 1)")
     if run.averaging.error_feedback != "off" and run.averaging.mode != "gossip":
         raise ValueError(f"error-feedback compression (error_feedback="
                          f"{run.averaging.error_feedback!r}) requires "
@@ -223,11 +226,17 @@ def publish_extract(n_nodes: Optional[int] = None, *, run=None,
 
     Over `mesh`'s model axis (with the `run` that placed the state) the
     rank's blocks are first gathered into whole leaves, over the model
-    group (and the exact mode's data group): every rank then publishes the
+    group (and the exact mode's data group). On a node axis split over
+    the ranks every leaf holds the rank's rows (`dist.node_leaf`; one of
+    other rows raises): the rank sums its masked
+    rows in f32 and one f32 all-reduce a leaf adds the ranks' sums (the
+    one process's sum to f32 reassociation). Every rank then publishes the
     same parameters."""
     spec = (rest_specs(run.model, mesh, run.averaging.mode == "exact",
                        node_axis=n_nodes is not None)
             if model_extent(mesh) > 1 else None)
+    sharded = n_nodes is not None and is_sharded(mesh)
+    rows = rdist.node_rows(mesh, n_nodes) if sharded else slice(0, n_nodes)
 
     @torch.no_grad()
     def extract(state, mask=None):
@@ -236,15 +245,24 @@ def publish_extract(n_nodes: Optional[int] = None, *, run=None,
             params = shlib.gather_tree(params, spec, mesh)
         if n_nodes is None or mask is None:
             return params
-        w = mask.float() / mask.float().sum()
+        w = (mask.float() / mask.float().sum())[rows]
+        local = rows.stop - rows.start
 
         def consensus(p):
-            if p.dim() == 0 or p.shape[0] != n_nodes:
+            # the reference's leaves with the node axis: a leading dim of
+            # N; on a split axis, every leaf holds the rank's rows of it
+            if not (rdist.node_leaf(p) if sharded else
+                    p.dim() and p.shape[0] == n_nodes):
                 return p
+            if p.shape[0] != local:
+                raise ValueError(f"a leaf of {p.shape[0]} rows where this "
+                                 f"rank holds {local} of the node axis")
             acc = torch.zeros(p.shape[1:], dtype=torch.float32,
                               device=p.device)
-            for i in range(n_nodes):
+            for i in range(local):
                 acc.addcmul_(p[i], w[i])
+            if sharded:
+                rdist.all_reduce_(acc, mesh)
             return acc.to(p.dtype)
 
         return map_tensors(consensus, params)
@@ -345,7 +363,8 @@ def _mean_over_ranks(values: List[torch.Tensor], mesh,
 
 def build_train_step(run, mesh=None, *, n_nodes: Optional[int] = None,
                      mix: Optional[Any] = None,
-                     device: DeviceLike = None) -> Callable:
+                     device: DeviceLike = None,
+                     pods: Optional[int] = None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
     Exact mode: batch leaves [B, ...]. Decentralized: [N, B/N, ...], state
@@ -363,13 +382,15 @@ def build_train_step(run, mesh=None, *, n_nodes: Optional[int] = None,
     "loss", "consensus_err"}, plus "ef_norm" and "ef_rel" with error
     feedback). Over a model axis the state is this rank's blocks
     (`init_state`), the batch its node shard's part, and the metrics are
-    the same on the ranks of a model group."""
+    the same on the ranks of a model group. The hierarchical mode's pods
+    are the mesh's "pod" extent, as the reference's (1 without a mesh);
+    `pods` sets them on one process, which emulates the pod mesh."""
     check_supported(run, mesh)
     mesh = mesh if multi_rank(mesh) else None
     if run.averaging.mode == "exact":
         return _build_exact_step(run, device, mesh)
     n = n_nodes or (n_data_nodes(mesh) if mesh is not None else 1)
-    step = _build_node_step(run, n, mix, device, mesh)
+    step = _build_node_step(run, n, mix, device, mesh, pods=pods)
     every = tuple(range(n_local(mesh, n)))
     return lambda state, batch: step(state, batch, every, None)
 
@@ -454,7 +475,8 @@ LOSS_METRICS = ("ce", "aux")
 
 
 def _build_node_step(run, n_nodes: int, mix: Optional[Any],
-                     device: DeviceLike, mesh=None, rows=None) -> Callable:
+                     device: DeviceLike, mesh=None, rows=None,
+                     pods: Optional[int] = None) -> Callable:
     """The decentralized step over `n_nodes` nodes:
     step(state, batch, ids, idx) -> (state, metrics). `ids` are the state
     rows that take part (batch row j belongs to row ids[j]): every row, or
@@ -464,19 +486,22 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
     `mesh` the state's rows are this rank's nodes, and `ids` its rows that
     take part: every one of its n_local of the n_nodes, or its active rows
     of an n_nodes-node cohort split as `rows` says (`dist.cohort_rows`),
-    possibly none."""
+    possibly none. `pods`: as in `build_train_step`."""
     dev = resolve_device(device)
     avg = dataclasses.replace(run.averaging,
                               packed=resolve_packed(run.averaging, mesh))
     update = make_optimizer(run.optimizer, run.learning_rate,
                             weight_decay=run.weight_decay)
     ef_on = avg.error_feedback != "off"
-    # the reference's pods: its mesh's "pod" axis, 1 on one rank (on a
-    # sharded axis the hierarchical mode raises, `check_sharded_mode`)
-    pods = 1
+    # the reference's pods: its mesh's "pod" axis (one rank: 1, or what
+    # the caller emulates); their gossip runs over this rank's lane
+    pods = pods or rdist.n_pods(mesh)
     if mix is None:
-        mix = make_gossip_mix(avg, pods if avg.mode == "hierarchical"
-                              else n_nodes, device=dev, mesh=mesh, rows=rows)
+        mix = (make_gossip_mix(avg, pods, device=dev,
+                               mesh=pod_mix_mesh(mesh))
+               if avg.mode == "hierarchical" else
+               make_gossip_mix(avg, n_nodes, device=dev, mesh=mesh,
+                               rows=rows))
     elif isinstance(mix, ScheduledMixOp) and avg.quantization != "none":
         raise ValueError("ScheduledMixOp is linear-only: quantized averaging "
                          "configs keep their static per-round operator")
@@ -532,7 +557,7 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
                 ef = tree_map(lambda e: e.index_select(0, idx), ef)
             mixed, new_ef, cerr, ef_norm, ef_rel = ef_average_and_error(
                 grads, ef, avg, n_nodes=n_nodes, mix=mix, key=key, t=t,
-                pools=pools[0])
+                pools=pools[0], mesh=mesh)
             # into the state's residual tensors, in place (the update rules
             # never touch them), so the packed residual buffer is freed
             # before the update's temporaries and a caller still holding
@@ -634,7 +659,9 @@ def build_cohort_superstep(run, n_active: int, *,
     def superstep(state: TrainState, ids, batches):
         ids = tuple(int(i) for i in ids)
         # the rows of the residual to gather, once a superstep
-        idx = torch.as_tensor(ids, device=dev) if ef_on else None
+        # (a rank of a split axis may hold no active row: an empty index)
+        idx = (torch.as_tensor(ids, dtype=torch.long, device=dev)
+               if ef_on else None)
         return _loop(lambda s, b: step(s, b, ids, idx))(state, batches)
 
     superstep.takes_ids = True
@@ -679,7 +706,8 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
                 "(ROADMAP.md queue 1 item 1)")
         if fn is None:
             fn = (build_superstep(run, mesh, n_nodes=n_full, mix=mix,
-                                  device=device) if m == n_full else
+                                  device=device)
+                  if m == n_full else
                   build_cohort_superstep(run, m, device=device, mesh=mesh,
                                          rows=table))
             cohort_cache[key] = fn

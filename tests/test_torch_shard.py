@@ -263,40 +263,62 @@ def test_exact_mode_batch_splits_evenly_over_ranks(B, n_nodes, why):
 
 def test_sharded_refusals_and_rule_coverage():
     """On a sharded node axis the hierarchical mode and error feedback
-    raise (the trainer's and the planner's; the hierarchical pods on the
-    mesh's "pod" axis are not ported yet), and the shard rules refuse
-    a layout that `node_shard_info` does not cover (a ring over two mesh
-    axes), which `core.mixing`'s op gathers instead."""
+    build (the trainer's steps and the planner's wire); the hierarchical
+    mode takes its pods from the mesh's "pod" axis and refuses pods that
+    the mesh does not hold; what stays refused is error feedback, the
+    quantized wires and the hierarchical mode over a model axis (queue 1
+    item 1); and the shard rules refuse a layout that `node_shard_info`
+    does not cover (a ring over two mesh axes), which `core.mixing`'s op
+    gathers instead."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
     from repro_torch.core import averaging
+    from repro_torch.core.packing import tree_map
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.models.common import MetaGenerator
     from repro_torch.train import trainer
 
     hier = AveragingConfig(mode="hierarchical", rounds=2)
     run = RunConfig(model=reduced(get_config("granite-8b")),
                     shape=SHAPES["train_4k"], averaging=hier)
+    assert callable(trainer.build_train_step(run, TWO[0], device="cpu"))
+    assert callable(trainer.superstep_builder(run, TWO[0], device="cpu"))
     tree = {"a": torch.zeros(1, 8)}
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        trainer.build_train_step(run, TWO[0], device="cpu")
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        trainer.superstep_builder(run, TWO[0], device="cpu")
+    # two pods over a mesh of one pod: refused before any message
     for fn in (averaging.average_gradients, averaging.average_and_error):
-        with pytest.raises(NotImplementedError, match="hierarchical"):
-            fn(tree, hier, n_nodes=2, mesh=TWO[0])
-    # error feedback stays refused on a split axis, in the trainer and in
-    # the planner (elastic membership and the quantized wires run there)
-    from repro_torch.launch import dryrun
-    from repro_torch.models import registry
-    from repro_torch.models.common import MetaGenerator
-
+        with pytest.raises(ValueError, match="pod"):
+            fn(tree, hier, n_nodes=2, pods=2, mesh=TWO[0], device="cpu")
+    params = registry.init_params(MetaGenerator(), run.model, torch.float32)
+    pod_mesh = rdist.Mesh((2, 2, 1), ("pod", "data", "model"))
+    plan = dryrun.node_axis_collectives(
+        run, tree_map(lambda t: t[None], params), pod_mesh, 4)
+    assert plan["reduce-scatter.count"] and plan["all-gather.count"]
+    # error feedback builds and is planned on a split axis
     ef = dataclasses.replace(run, averaging=AveragingConfig(
         mode="gossip", rounds=2, quantization="int8",
         error_feedback="grads"))
-    with pytest.raises(NotImplementedError, match="error feedback"):
-        trainer.superstep_builder(ef, TWO[0], device="cpu")
-    params = registry.init_params(MetaGenerator(), ef.model, torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dryrun.node_axis_collectives(ef, params, TWO[0], 2)
+    assert callable(trainer.superstep_builder(ef, TWO[0], device="cpu"))
+    plan = dryrun.node_axis_collectives(ef, tree_map(lambda t: t[None],
+                                                     params), TWO[0], 2)
+    assert plan["collective-permute.count"] and plan["all-reduce.count"]
+    # over a model axis they stay refused (a model whose heads, KV heads,
+    # FFN and vocab the axis divides)
+    model2 = rdist.Mesh((2, 2), ("data", "model"))
+    tp = dataclasses.replace(run, model=dataclasses.replace(
+        reduced(get_config("granite-8b"), d_model=512), num_kv_heads=2))
+    trainer.check_supported(dataclasses.replace(
+        tp, averaging=AveragingConfig(mode="gossip", rounds=2)), model2)
+    ef_exact = dataclasses.replace(ef.averaging, quantization="none")
+    for avg, match in ((ef_exact, "error feedback on a model axis"),
+                       (ef.averaging, "the int8 wire on a model axis"),
+                       (AveragingConfig(mode="gossip", rounds=2,
+                                        quantization="sign"),
+                        "the sign wire on a model axis"),
+                       (hier, "the hierarchical mode on a model axis")):
+        with pytest.raises(NotImplementedError, match=match):
+            trainer.check_supported(dataclasses.replace(tp, averaging=avg),
+                                    model2)
     pods = rdist.Mesh((2, 2, 1), ("pod", "data", "model"))
     sched = mixing.schedule("ring", 8)
     x = torch.zeros(2, 4)

@@ -279,16 +279,41 @@ TWO = rdist.Mesh((2, 1), ("data", "model"))
 
 
 @pytest.mark.parametrize("arg", ["publisher", "snapshotter", "resume_from"])
-def test_driver_durability_on_a_split_axis_still_raises(arg):
-    from repro_torch.configs.base import AveragingConfig
+def test_driver_durability_on_a_split_axis_still_raises(arg, tmp_path):
+    """Publication, snapshots and resuming run on a split node axis
+    (tests/test_torch_shard_durability.py runs them on ranks): a publisher
+    binds to the split mesh, and rank 0 decides for the others. What
+    still raises is a snapshot or a resume of a state split over a model
+    axis (ROADMAP.md queue 1 item 1)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
     from repro_torch.core.faults import FaultSchedule
+    from repro_torch.serve.publisher import SnapshotPublisher
+    from repro_torch.train.snapshot import RunSnapshotter
 
-    cfg = PCARunConfig(averaging=AveragingConfig(mode="gossip", rounds=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    if arg == "publisher":
+        pub = SnapshotPublisher()
+        cfg = PCARunConfig(averaging=AveragingConfig(mode="gossip",
+                                                     rounds=2))
         StreamingDriver(cfg, TWO, None, lambda rng, n: {}, n_nodes=2,
                         device="cpu", superstep_fn=lambda s, b: (s, {}),
                         faults=FaultSchedule.parse("death:1@1-2", 2),
-                        **{arg: object()})
+                        publisher=pub)
+        assert pub._mesh is TWO
+        return
+    value = (RunSnapshotter(str(tmp_path)) if arg == "snapshotter"
+             else str(tmp_path))
+    run = RunConfig(model=reduced(get_config("granite-8b")),
+                    shape=SHAPES["train_4k"],
+                    averaging=AveragingConfig(mode="gossip", rounds=2))
+    try:
+        with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+            StreamingDriver(run, rdist.Mesh((1, 2), ("data", "model")), None,
+                            lambda rng, n: {}, n_nodes=2, device="cpu",
+                            **{arg: value})
+    finally:
+        if arg == "snapshotter":
+            value.close()
 
 
 def test_one_process_builds_each_signature_once():
@@ -367,14 +392,29 @@ def test_launcher_scenario_and_faults_under_torchrun():
 @pytest.mark.parametrize("flags", [["--publish"],
                                    ["--checkpoint", "ck"],
                                    ["--resume", "ck"]])
-def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path):
-    """`--publish`, `--checkpoint` and `--resume` under torchrun: the
-    launcher refuses them before it builds the mesh."""
+def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path,
+                                                         monkeypatch):
+    """`--publish` runs under torchrun (2 ranks, rank 0's versions on
+    both; tests/test_torch_shard_durability.py runs `--checkpoint-every`
+    and `--resume` there); `--checkpoint` and `--resume` of a state split
+    over a model axis still raise (ROADMAP.md queue 1 item 1)."""
     from repro_torch.launch import train as launch_train
 
+    if flags == ["--publish"]:
+        p = _torchrun("--steps", "2", "--superstep", "1", "--averaging",
+                      "gossip", "--nodes", "4", "--batch", "8", "--seq",
+                      "16", "--prefetch", "0", "--publish",
+                      "--publish-budget", "0")
+        assert p.returncode == 0, p.stderr[-3000:]
+        pubs = [line.split(" publishes=")[0] for line in
+                p.stdout.splitlines() if line.startswith("publisher:")]
+        assert pubs == ["publisher: v2"] * 2
+        return
     flags = [str(tmp_path / f) if f == "ck" else f for f in flags]
+    monkeypatch.setattr(launch_train, "make_host_mesh", lambda: rdist.Mesh(
+        (1, 2), ("data", "model")))
     ap = launch_train._parser()
     args = ap.parse_args(["--arch", "granite-8b", "--reduced", "--device",
                           "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
         launch_train._train(ap, args, distributed=True)

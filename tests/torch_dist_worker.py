@@ -718,10 +718,361 @@ def elastic_trainer(mesh, inp):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Error feedback and the hierarchical mode on the split node axis
+# (tests/test_torch_shard_ef.py)
+# ---------------------------------------------------------------------------
+
+EF_WIRES = ("sign", "int8", "int8_stoch")
+EF_N, EF_UNEVEN_N, EF_DROPPED = 4, 5, 2
+# the uneven split's error-feedback column chunks: 2^18 // 5 // 64 * 64 =
+# 52,416 columns from the full node count, 24 chunks of a node's 1.25 M
+# (from a rank's 3 or 2 rows: 87,360 or 131,072, and the ranks' halo
+# messages would not pair up)
+UNEVEN_CHUNK_ENTRIES = 1 << 18
+# the hierarchical mode at n_nodes = 4 on a ("pod", "data", "model") =
+# (2, 2, 1) mesh: (label, wire, tile width); a 100-column tile does not
+# divide a lane's block, so its wire gathers the blocks
+HIER_CASES = [("exact", "none", 64), ("int8 lanes", "int8", 64),
+              ("int8 gathered", "int8", 100),
+              ("int8_stoch", "int8_stoch", 64)]
+# and at n_nodes = 8, two rows a rank: a pod's sum then spans each lane's
+# rows and the lanes (held bit for bit against one process only)
+HIER_K2_CASES = [("exact k=2", "none", 64), ("int8 lanes k=2", "int8", 64)]
+HIER_K2_N = 8
+HIER_MESH = ((2, 2, 1), ("pod", "data", "model"))
+
+
+def _wires(step_fn):
+    """Run step_fn() with `dist.stats` and `dist.log` reset: (result, its
+    messages)."""
+    from repro_torch import dist as rdist
+
+    rdist.reset_stats()
+    res = step_fn()
+    return res, {"stats": dict(rdist.stats),
+                 "log": {k: list(v) for k, v in rdist.log.items()}}
+
+
+def _steps(run, mesh, state, batches, n, rows, **kw):
+    """`batches` ([n, B/n, ...] numpy node batches) through the trainer's
+    step on this rank's rows: (state, metrics, each step's messages)."""
+    from repro_torch.train import trainer as tr
+
+    step = tr.build_train_step(run, mesh, n_nodes=n, device="cpu", **kw)
+    metrics, wires = [], []
+    for b in batches:
+        (state, m), w = _wires(lambda: step(state, {
+            k: torch.from_numpy(np.ascontiguousarray(v[rows]))
+            for k, v in b.items()}))
+        metrics.append({k: float(v) for k, v in m.items()})
+        wires.append(w)
+    return state, metrics, wires
+
+
+def shard_ef(mesh, inp):
+    """Error feedback (every wire of EF_WIRES) on this rank's rows of the
+    reduced granite trainer: at full membership (n = EF_N), in a cohort
+    (node EF_DROPPED out, one K-round superstep) and, on 2 ranks, on the
+    uneven split n = EF_UNEVEN_N; on 4 ranks the hierarchical mode on a
+    HIER_MESH mesh (HIER_CASES, HIER_K2_CASES). From the states and
+    batches the parent
+    made; each result the rank's tree (`convert.train_tree`), metrics and
+    messages."""
+    from repro_torch import convert, dist as rdist
+    from repro_torch.core import averaging
+    from repro_torch.core.mixing import Membership
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import trainer as tr
+
+    given = torch.load(inp, weights_only=False)
+    E = rdist.n_data_nodes(mesh)
+    out = {"ef": {}, "cohort": {}, "uneven": {}, "hier": {}}
+    rows = rdist.node_rows(mesh, EF_N)
+    span = (rows.start, rows.stop)
+    for wire in EF_WIRES:
+        case = given["ef"][wire]
+        run = case["run"]
+        st, metrics, wires = _steps(run, mesh,
+                                    _local_state(case["state"], rows),
+                                    case["batches"], EF_N, rows)
+        out["ef"][wire] = {"tree": convert.train_tree(st, run.model),
+                           "rows": span, "metrics": metrics,
+                           "wires": wires}
+        # the cohort: one superstep of K rounds with node EF_DROPPED out
+        mem = Membership.full(EF_N).drop(EF_DROPPED)
+        fn = tr.superstep_builder(run, mesh, n_nodes=EF_N, device="cpu")(
+            case["B"], mem)
+        batch = shard_batch({k: torch.from_numpy(v) for k, v in
+                             case["cohort_batches"].items()}, mesh, EF_N,
+                            node_axis=True, membership=mem)
+        (st, m), w = _wires(lambda: fn(_local_state(case["state"], rows),
+                                       rdist.local_ids(mesh, mem), batch))
+        out["cohort"][wire] = {"tree": convert.train_tree(st, run.model),
+                               "rows": span,
+                               "table": rdist.cohort_rows(mesh, mem),
+                               "loss": m["loss"].numpy(), "wires": [w]}
+        if E == 2:
+            urows = rdist.node_rows(mesh, EF_UNEVEN_N)
+            whole = averaging.EF_CHUNK_ENTRIES
+            averaging.EF_CHUNK_ENTRIES = UNEVEN_CHUNK_ENTRIES
+            st, metrics, wires = _steps(
+                run, mesh, _local_state(case["uneven_state"], urows),
+                case["uneven_batches"], EF_UNEVEN_N, urows)
+            averaging.EF_CHUNK_ENTRIES = whole
+            out["uneven"][wire] = {"tree": convert.train_tree(st,
+                                                              run.model),
+                                   "rows": (urows.start, urows.stop),
+                                   "metrics": metrics, "wires": wires}
+    if E == 4:
+        pmesh = make_mesh(*HIER_MESH)
+        for label, case in given["hier"].items():
+            run = case["run"]
+            prow = rdist.node_rows(pmesh, case["n"])
+            st, metrics, wires = _steps(run, pmesh,
+                                        _local_state(case["state"], prow),
+                                        case["batches"], case["n"], prow)
+            out["hier"][label] = {"tree": convert.train_tree(st, run.model),
+                                  "rows": (prow.start, prow.stop),
+                                  "metrics": metrics, "wires": wires}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Snapshots, resume and publication on the split node axis
+# (tests/test_torch_shard_durability.py), on 2 ranks
+# ---------------------------------------------------------------------------
+
+DUR_N, DUR_B, DUR_S = 4, 8, 32
+DUR_SUPERSTEPS, DUR_BACK = 4, 2  # resumed from the snapshot at DUR_BACK
+DUR_PCA_N, DUR_PCA_SPEC, DUR_PCA_SUPERSTEPS = 4, "death:3@2-4", 6
+DUR_SAVE_STEP = 7
+
+
+def _lm_driver(mesh, run, state, root, *, mix=None, resume=None,
+               publisher=None, every=1):
+    """The reduced granite trainer (gossip, Adam) through the driver on
+    this rank's rows of DUR_N nodes (mesh None: every row, its operator
+    `mix`), K = 1, no prefetch, open loop, a blocking snapshot every
+    `every` supersteps under `root` (None: none)."""
+    from repro_torch.train import trainer as tr
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    snap = (RunSnapshotter(root, every=every, keep_last=10, block=True,
+                           overhead_budget=0.0) if root else None)
+    builder = (tr.superstep_builder(run, None, n_nodes=DUR_N, mix=mix,
+                                    device="cpu") if mesh is None else None)
+    return StreamingDriver(
+        run, mesh, state, lambda rng, n: lm_draw(rng, n, DUR_S),
+        batch=DUR_B, n_nodes=DUR_N, device="cpu", superstep_builder=builder,
+        snapshotter=snap, publisher=publisher, resume_from=resume,
+        engine=EngineConfig(superstep=1, prefetch_depth=0, replan_every=0))
+
+
+def shard_durability(mesh, inp):
+    """(1) the state the parent gave, saved by the ranks as one checkpoint
+    (`checkpoint.save(mesh=...)`), params f32 and bf16; (2) the LM driver
+    uninterrupted for DUR_SUPERSTEPS supersteps with a snapshot every
+    superstep and a publisher (rank 0's engine polls it), then resumed
+    across a mesh change: rank 0 alone (one process) from the 2-rank
+    snapshot at DUR_BACK for one superstep, writing its own snapshot, and
+    both ranks from that one to the end; the publisher's and the
+    snapshotter's messages against the planner; (3) the PCA driver (N =
+    DUR_PCA_N, ring R = 2) under DUR_PCA_SPEC with snapshots, and resumed
+    on the ranks from its middle snapshot."""
+    import torch.distributed as dist
+
+    from repro_torch import convert, dist as rdist
+    from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
+    from repro_torch.serve.engine import ContinuousBatchingEngine
+    from repro_torch.serve.publisher import SnapshotPublisher
+    from repro_torch.train import checkpoint, trainer as tr
+
+    given = torch.load(inp, weights_only=False)
+    work = given["work"]
+    run = given["run"]
+    rows = rdist.node_rows(mesh, DUR_N)
+    out = {"rows": (rows.start, rows.stop)}
+    # (1) the split save
+    local = _local_state(given["state"], rows)
+    for label, state in (("f32", local), ("bf16", local._replace(
+            params=tree_map(lambda t: t.to(torch.bfloat16),
+                            local.params)))):
+        (_, w) = _wires(lambda: checkpoint.save(
+            os.path.join(work, f"split_{label}"), state, step=DUR_SAVE_STEP,
+            meta={"case": label}, model=run.model, mesh=mesh, n_nodes=DUR_N))
+        out[f"save_{label}"] = w
+    # the split restore of the one-process checkpoint
+    like = map_tensors(torch.zeros_like, local)
+    restored = checkpoint.restore(os.path.join(work, "one_f32"), like,
+                                  model=run.model, mesh=mesh, into=True,
+                                  n_nodes=DUR_N)
+    out["restored"] = convert.train_tree(restored, run.model)
+    # (2) the LM driver with snapshots and publication
+    uninterrupted = os.path.join(work, "lm_uninterrupted")
+    pub = SnapshotPublisher(overhead_budget=0.0)
+    with _lm_driver(mesh, run, _local_state(given["state"], rows),
+                    uninterrupted, publisher=pub) as drv:
+        st, hist = drv.run(DUR_SUPERSTEPS)
+        out["lm"] = {"tree": convert.train_tree(st, run.model),
+                     "versions": [r["published_version"] for r in hist],
+                     "checkpoints": [r["checkpoint"] for r in hist],
+                     "published": [p.numpy() for p in
+                                   tree_leaves(pub.snapshot().params)],
+                     "saves": drv._snapshotter.stats.saves,
+                     "failures": drv._snapshotter.stats.failures,
+                     "bytes_per_save": drv._snapshotter.stats.bytes_per_save}
+        # one more publication and snapshot, with their messages
+        _, w = _wires(lambda: pub.maybe_publish(drv.state, DUR_SUPERSTEPS,
+                                                aux=drv._publish_aux()))
+        out["publish_wire"] = w
+        drv._snapshotter.every = 10 ** 6  # a skipped one: the verdict only
+        _, w = _wires(lambda: drv._snapshotter.maybe_snapshot(drv))
+        out["snapshot_wire"] = w
+    if mesh.rank == 0:  # rank 0's engine serves the published params
+        eng = ContinuousBatchingEngine(run.model, pub.snapshot().params,
+                                       slots=1, max_len=16)
+        out["polled"] = eng.poll(pub) and eng.version == pub.version
+        rid = eng.submit(np.arange(5) % run.model.vocab_size, 4)
+        eng.drain()
+        out["tokens"] = list(eng.result(rid).tokens)
+    # the mesh change: rank 0 alone, then both ranks
+    one = os.path.join(work, "lm_one_process")
+    back = checkpoint.step_dir(uninterrupted, DUR_BACK)
+    if mesh.rank == 0:
+        with _lm_driver(None, run, tr.replicate_for_nodes(
+                tr.init_state(run, torch.Generator().manual_seed(1)), DUR_N),
+                one, mix=given["mix"], resume=back) as drv:
+            drv.run(1)
+    dist.barrier()
+    with _lm_driver(mesh, run, _local_state(given["state"], rows), None,
+                    resume=checkpoint.step_dir(one, DUR_BACK + 1)) as drv:
+        st, _ = drv.run(DUR_SUPERSTEPS - DUR_BACK - 1)
+        out["lm_resumed"] = {"tree": convert.train_tree(st, run.model),
+                             "from": drv.resumed_from}
+    # (3) the PCA driver's snapshots and resume on the ranks
+    from repro_torch.data.synthetic import make_pca_host_sampler
+
+    data = given["pca"]
+    ts = convert.pca_stream(data["cov"], data["sqrt_cov"], data["top"],
+                            float(data["lambda1"]), float(data["eigengap"]),
+                            device="cpu")
+    root = os.path.join(work, "pca")
+    out["pca"] = _pca_durable(mesh, data["w0"], make_pca_host_sampler(ts),
+                              root, None)
+    out["pca_resumed"] = _pca_durable(
+        mesh, data["w0"], make_pca_host_sampler(ts), None,
+        checkpoint.step_dir(root, DUR_PCA_SUPERSTEPS // 2))
+    if mesh.rank == 0:  # tear the newest snapshot: rank 1's rows of w
+        newest = checkpoint.step_dir(root, DUR_PCA_SUPERSTEPS)
+        fname = checkpoint.load_manifest(newest)["leaves"][".w"]["file"]
+        with open(os.path.join(newest, fname), "r+b") as f:
+            f.seek(-4, os.SEEK_END)
+            tail = f.read(4)
+            f.seek(-4, os.SEEK_END)
+            f.write(bytes(b ^ 0xFF for b in tail))
+    dist.barrier()
+    # resumed from the root: the torn one is skipped on every rank
+    out["pca_torn"] = _pca_durable(mesh, data["w0"],
+                                   make_pca_host_sampler(ts), None, root)
+    out.update(_node_axis_rule(mesh, work))
+    return out
+
+
+def _node_axis_rule(mesh, work):
+    """(4) At one node a rank (n_nodes = 2): an exact run's replicated
+    [1, 3] leaf is saved whole (and restored); a decentralized state
+    whose leaf is not the rank's rows fails to save on every rank; a
+    restore whose CRC32s fail on rank 1's rows leaves rank 0's state as
+    it was too."""
+    import torch.distributed as dist
+
+    from repro_torch import dist as rdist
+    from repro_torch.train import checkpoint
+
+    out = {}
+    rep = {"c": torch.arange(3.0).reshape(1, 3), "t": 5}
+    checkpoint.save(os.path.join(work, "rep_split"), rep, step=1, mesh=mesh)
+    got = checkpoint.restore(os.path.join(work, "rep_split"),
+                             {"c": torch.zeros(1, 3), "t": 0}, mesh=mesh)
+    out["rep_restored"] = {"c": got["c"].numpy(), "t": got["t"]}
+    rows = rdist.node_rows(mesh, 2)
+    dec = {"w": torch.arange(6.0).reshape(2, 3)[rows].clone(), "t": 5}
+    checkpoint.save(os.path.join(work, "dec_split"), dec, step=1, mesh=mesh,
+                    n_nodes=2)
+    try:
+        checkpoint.save(os.path.join(work, "bad_split"),
+                        dict(dec, c=torch.zeros(2, 3)), step=1, mesh=mesh,
+                        n_nodes=2)
+        out["bad_save"] = None
+    except OSError as e:
+        out["bad_save"] = str(e)
+    dist.barrier()
+    if mesh.rank == 0:  # flip the last bytes of "w": rank 1's row
+        path = os.path.join(work, "dec_split")
+        fname = checkpoint.load_manifest(path)["leaves"]["w"]["file"]
+        with open(os.path.join(path, fname), "r+b") as f:
+            f.seek(-4, os.SEEK_END)
+            tail = f.read(4)
+            f.seek(-4, os.SEEK_END)
+            f.write(bytes(b ^ 0xFF for b in tail))
+    dist.barrier()
+    like = {"w": torch.full((1, 3), -1.0), "t": 0}
+    try:
+        checkpoint.restore(os.path.join(work, "dec_split"), like, into=True,
+                           mesh=mesh, n_nodes=2)
+        out["torn_restore"] = None
+    except ValueError as e:
+        out["torn_restore"] = str(e)
+    out["torn_like"] = like["w"].numpy().copy()
+    return out
+
+
+def _pca_durable(mesh, w0, sample, root, resume):
+    """The PCA driver (DUR_PCA_N nodes, ring R = 2, K = PCA_K) under
+    DUR_PCA_SPEC on this rank's rows to DUR_PCA_SUPERSTEPS supersteps, a
+    blocking snapshot every superstep under `root`, or resumed from
+    `resume`."""
+    from repro_torch.configs.base import (AveragingConfig, GovernorConfig,
+                                          StreamConfig)
+    from repro_torch.configs.paper_pca import PCARunConfig
+    from repro_torch.core import faults as tfaults
+    from repro_torch.core import krasulina
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    n = DUR_PCA_N
+    cfg = PCARunConfig(averaging=AveragingConfig(mode="gossip", rounds=2),
+                       stream=StreamConfig())
+    snap = (RunSnapshotter(root, every=1, keep_last=10, block=True,
+                           overhead_budget=0.0) if root else None)
+    with StreamingDriver(
+            cfg, mesh, krasulina.init_krasulina_state(
+                w0, cfg.averaging, n, device="cpu", mesh=mesh),
+            sample, n_nodes=n, batch=2 * n, seed=1,
+            superstep_builder=krasulina.krasulina_superstep_builder(
+                cfg.averaging, n, lambda t: 10.0 / t, device="cpu",
+                mesh=mesh),
+            faults=tfaults.FaultSchedule.parse(DUR_PCA_SPEC, n),
+            clock=FakeClock(1e-3), device="cpu", snapshotter=snap,
+            resume_from=resume,
+            engine=EngineConfig(superstep=PCA_K, prefetch_depth=0,
+                                replan_every=1, warmup_supersteps=0,
+                                warmup_per_bucket=0,
+                                governor=GovernorConfig())) as drv:
+        state, _ = drv.run(DUR_PCA_SUPERSTEPS - drv._supersteps_done)
+    return {"w": state.w.numpy(), "t": state.t, "events": events(drv),
+            "records": records(drv)[-(DUR_PCA_SUPERSTEPS // 2):],
+            "from": drv.resumed_from}
+
+
 CASES = {"rules": rules, "driver": driver, "trainer": trainer,
          "model_layers": model_layers, "model_trainer": model_trainer,
          "cohort_rules": cohort_rules, "elastic_driver": elastic_driver,
-         "elastic_trainer": elastic_trainer}
+         "elastic_trainer": elastic_trainer, "shard_ef": shard_ef,
+         "shard_durability": shard_durability}
 
 
 def main():
