@@ -83,6 +83,25 @@
    1, each its own rows, restore it in place and repeat round 2 bit for
    bit. (w4) the hierarchical mode at full width on the pod mesh, one
    round, its bytes staged equal to the plan.
+   (x0)-(x1), the dense archs on the production mesh's model axis, after
+   (w): heads and KV heads split inside a head, leaves the extent does
+   not divide kept whole, and durable model-axis runs. (x0) four ranks,
+   reduced granite-8b at d_model 512 in f32: on 1 x 4 the loss and every
+   gradient of three head cases (2 KV heads: half a KV head a rank; 6
+   heads, 2 KV heads: 1.5 heads a rank; d_ff 1022: the FFN whole) against
+   the single-process card run at (t0)'s bounds; the gossip trainer with
+   2 KV heads at (t1)'s (`gossip_mix` on every rank); the exact mode
+   (FSDP + ZeRO-1) on 2 x 2 through the driver, 3 rounds, a blocking
+   snapshot after round 2 byte for byte the one-process save of the
+   gathered state, resumed on 2 x 2 bit for bit, and on 1 x 4 and one
+   process (the single-process card driver, while (x1)'s ranks run): the
+   restored state bit for bit, round 3 at (t1)'s bounds. (x1) sixteen
+   ranks, the production mesh's model extent: granite-8b at its
+   published widths cut to 2 layers on 1 x 16 (each of its 8 KV heads
+   cut in two), 4 nodes, gossip R = 2, bf16 with f32 masters, 2 rounds:
+   round 1 within 1e-2 of one process's, the bytes at rest, messages and
+   bytes staged by axis equal to the planner's trace, each peak within
+   15% of the plan's; prints s per round and (x)'s seconds.
 3. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
@@ -1136,8 +1155,9 @@ T0_TOL, T2_LOSS_TOL = 1e-5, 1e-2
 
 def t_cfgs():
     """(t0)'s reduced granite-8b at d_model 512 (8 heads, 2 KV heads);
-    (t1)'s, with 4 KV heads (2 do not split over 4); (t2)'s granite-8b at
-    its published widths cut to TRAIN_LAYERS layers."""
+    (t1)'s, with 4 KV heads (one a rank on 1 x 4: (x0) runs the 2, each
+    cut in two); (t2)'s granite-8b at its published widths cut to
+    TRAIN_LAYERS layers."""
     from repro_torch.configs import get_config, reduced
 
     granite = get_config("granite-8b")
@@ -3168,6 +3188,606 @@ def durable_shard_phases(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# (x) the dense archs on the production mesh's model axis: heads and KV
+# heads split inside a head, leaves the extent does not divide kept whole,
+# and durable model-axis runs. Rank processes share the card in one gloo
+# group, as (t)'s (`model_axis_heads_phases`, spawned after (w)'s ranks
+# have exited): (x0) X0_WORLD ranks on 1 x 4 and 2 x 2, reduced granite-8b
+# at d_model 512 in f32; (x1) X1_WORLD ranks on 1 x X1_WORLD, X1_ARCH at
+# its published widths cut to TRAIN_LAYERS layers: the production mesh's
+# model extent, which cuts each of granite-8b's 8 KV heads in two
+X0_WORLD, X_TIMEOUT = 4, 300
+X1_ARCH, X1_WORLD, X1_ROUNDS = "granite-8b", 16, 2
+# (x0)'s head cases on 1 x 4: name -> changes to reduced granite-8b at
+# d_model 512 (8 heads, 2 KV heads, head dim 64, d_ff 1024)
+X0_CASES = {
+    "2 KV heads (half a KV head a rank)": {},
+    "6 heads, 2 KV heads (1.5 heads a rank)": {"num_heads": 6,
+                                               "head_dim": 64},
+    "d_ff 1022 (the FFN kept whole)": {"d_ff": 1022},
+}
+# (x0)'s exact-mode driver on 2 x 2: X0_STEPS rounds of 8 x X0_SEQ tokens,
+# a blocking snapshot after round X0_BACK, resumed from it on 2 x 2, 1 x 4
+# and one process
+X0_STEPS, X0_BACK, X0_SEQ = 3, 2, 64
+
+
+def x_cfgs():
+    """(x0)'s head cases by name (the first: 2 KV heads) and (x1)'s
+    X1_ARCH at its published widths cut to TRAIN_LAYERS layers."""
+    from repro_torch.configs import get_config, reduced
+
+    r = reduced(get_config("granite-8b"), d_model=512)
+    return ({name: dataclasses.replace(r, **changes)
+             for name, changes in X0_CASES.items()},
+            dataclasses.replace(get_config(X1_ARCH), num_layers=TRAIN_LAYERS))
+
+
+def x_driver(dev, mesh, run, state, *, root=None, resume=None):
+    """(x0)'s exact-mode trainer through the driver on `mesh` (None: one
+    process), TRAIN_N nodes, 8 sequences of X0_SEQ tokens a round, K = 1,
+    no prefetch, open loop; a blocking snapshot every X0_BACK supersteps
+    under `root`."""
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    snap = (RunSnapshotter(root, every=X0_BACK, keep_last=2, block=True,
+                           overhead_budget=0.0) if root else None)
+    return StreamingDriver(
+        run, mesh, state, w_sample(run.model.vocab_size, X0_SEQ),
+        batch=2 * TRAIN_N, n_nodes=TRAIN_N, device=dev, snapshotter=snap,
+        resume_from=resume, engine=EngineConfig(
+            superstep=1, prefetch_depth=0, replan_every=0))
+
+
+def x_tensors(state) -> list:
+    """A TrainState's tensors: the parameters, moments and masters."""
+    from repro_torch.core.packing import tree_leaves
+
+    opt = state.opt
+    return [t for tree in (state.params, opt.m, opt.v, opt.master)
+            if tree != () for t in tree_leaves(tree)]
+
+
+def x_gathered(state, run, mesh):
+    """A rank's TrainState with its blocks gathered over the model axis
+    (and the exact mode's data axis), on the CPU: the state one process
+    holds (every node's rows are local on the meshes (x0) gathers)."""
+    from repro_torch.core.packing import map_tensors
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.train import trainer
+
+    specs = trainer.state_placements(run, mesh, state)
+    join = lambda tree, spec: (shlib.gather_tree(tree, spec, mesh)
+                               if tree != () else tree)
+    opt = state.opt
+    whole = trainer.TrainState(join(state.params, specs.params), opt._replace(
+        m=join(opt.m, specs.opt.m), v=join(opt.v, specs.opt.v),
+        master=join(opt.master, specs.opt.master)))
+    return map_tensors(lambda t: t.to("cpu", copy=True), whole)
+
+
+def x_same_files(a: str, b: str) -> bool:
+    """Whether checkpoints a and b hold the same manifest entries for
+    their leaves and the same bytes in each leaf file."""
+    import filecmp
+
+    from repro_torch.train import checkpoint
+
+    la = checkpoint.load_manifest(a)["leaves"]
+    return la == checkpoint.load_manifest(b)["leaves"] and all(
+        filecmp.cmp(os.path.join(a, e["file"]), os.path.join(b, e["file"]),
+                    shallow=False) for e in la.values())
+
+
+def x_within(got, want) -> tuple:
+    """(share of entries within 1e-4, max abs err) of two lists of leaves:
+    (t1)'s parameter bound."""
+    import torch
+
+    d = torch.cat([(a.float() - b.float()).abs().ravel()
+                   for a, b in zip(got, want, strict=True)])
+    return float((d <= 1e-4).float().mean()), float(d.max())
+
+
+def x_rank(phase: str, rank: int, world: int, store: str,
+           workdir: str) -> int:
+    """One rank of (x0) or (x1): `python3 chip_smoke.py --x-rank PHASE
+    RANK WORLD STORE DIR`. Saves its results to DIR/PHASE_rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=240))
+    t0 = time.perf_counter()
+    if phase == "x0":
+        res = x0_rank(dev, workdir, make_host_mesh(model=4),
+                      make_host_mesh(model=2))
+    else:
+        res = x1_rank(dev, make_host_mesh(model=world))
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(workdir, f"{phase}_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def x_batch(dev, b, mesh, mode):
+    """This rank's part of a [B, S] numpy batch (the node axis split for
+    the gossip mode), on the card."""
+    import torch
+
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.train import trainer
+
+    b = {k: torch.from_numpy(v)[None] for k, v in b.items()}
+    if mode != "exact":
+        b = trainer.make_node_batch(b, TRAIN_N, axis=1)
+    b = shard_batch(b, mesh, TRAIN_N, node_axis=mode != "exact")
+    return {k: v[0].to(dev) for k, v in b.items()}
+
+
+def x0_rank(dev, workdir: str, m14, m22) -> dict:
+    """(x0) on one rank: each head case's loss and gradients on 1 x 4;
+    the gossip trainer with 2 KV heads on 1 x 4, 3 rounds; the exact-mode
+    driver on 2 x 2 with its snapshot, the one-process save of the
+    gathered state beside it, and the resumes on 2 x 2 and 1 x 4."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.models import registry
+    from repro_torch.models.common import mesh_rules
+    from repro_torch.train import checkpoint, trainer
+
+    cases, _ = x_cfgs()
+    first = m14.rank == 0
+    to_dev = lambda tree: map_tensors(lambda t: t.to(dev), tree)
+    out = {"heads": {}}
+    # the head cases: (t0)'s batch, every gradient gathered
+    for name, cfg in cases.items():
+        spec = trainer.rest_specs(cfg, m14, exact=False)
+        local = to_dev(shlib.shard_tree(registry.init_params(
+            torch.Generator().manual_seed(0), cfg, torch.float32), spec, m14))
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in t_tokens(cfg, 1, 2, 64, 5)[0].items()}
+        live = [p.detach().requires_grad_() for p in tree_leaves(local)]
+        it = iter(live)
+        params = tree_map(lambda _: next(it), local)
+        rdist.reset_stats()
+        with mesh_rules(m14):
+            loss, _ = registry.loss_fn(params, cfg, batch, remat=True)
+            grads = torch.autograd.grad(loss, live)
+        log = {f"{a} {k}": list(v) for (a, k), v in rdist.log.items()}
+        it = iter(grads)
+        whole = shlib.gather_tree(tree_map(lambda _: next(it), local), spec,
+                                  m14)
+        out["heads"][name] = {
+            "loss": float(loss.detach()), "log": log,
+            "grads": [g.cpu() for g in tree_leaves(whole)] if first
+            else None}
+        del params, live, grads, whole, local
+    cfg = next(iter(cases.values()))  # 2 KV heads
+    # the gossip trainer on 1 x 4: (t1)'s rounds with the KV heads cut
+    run = s2_run(cfg, "gossip", "float32")
+    st = to_dev(trainer.replicate_for_nodes(trainer.init_state(
+        run, torch.Generator().manual_seed(0), m14),
+        rdist.n_local(m14, TRAIN_N)))
+    step = trainer.build_train_step(run, m14, n_nodes=TRAIN_N, device=dev)
+    ops.reset_launches()
+    losses = []
+    for b in s2a_batches(cfg):
+        st, m = step(st, x_batch(dev, b, m14, "gossip"))
+        losses.append(float(m["loss"]))
+    params = shlib.gather_tree(st.params, trainer.rest_specs(
+        cfg, m14, False, node_axis=True), m14)  # every rank sends
+    out["gossip"] = {"losses": losses, "launches": dict(ops.launches),
+                     "params": [p.cpu() for p in tree_leaves(params)]
+                     if first else None}
+    del st, step
+    # the exact-mode driver on 2 x 2 (FSDP + ZeRO-1), its snapshot after
+    # round X0_BACK, rank 0's one-process save of the gathered state
+    run = s2_run(cfg, "exact", "float32")
+    blocks = lambda mesh: to_dev(trainer.init_state(
+        run, torch.Generator().manual_seed(0), mesh))
+    root = os.path.join(workdir, "x0_snapshots")
+    ops.reset_launches()
+    with x_driver(dev, m22, run, blocks(m22), root=root) as drv:
+        drv.run(X0_BACK)
+        at_back = x_gathered(drv.state, run, m22)
+        one = os.path.join(workdir, "x0_one_process")
+        if m22.rank == 0:
+            checkpoint.save(one, at_back, step=X0_BACK, model=cfg)
+        dist.barrier()
+        back = checkpoint.step_dir(root, X0_BACK)
+        same = x_same_files(back, one) if m22.rank == 0 else None
+        drv.run(X0_STEPS - X0_BACK)
+        losses = [r["metrics"]["loss"] for r in drv.history]
+        final = [t.clone() for t in x_tensors(drv.state)]
+        final_gathered = x_gathered(drv.state, run, m22)
+        snap = drv._snapshotter.stats
+    out["exact"] = {"losses": losses,
+                    "same_files": same, "saves": snap.saves,
+                    "failures": snap.failures, "error": snap.last_error,
+                    "write_s": snap.write_s, "launches": dict(ops.launches),
+                    "at_back": x_tensors(at_back) if first else None,
+                    "final": x_tensors(final_gathered) if first else None}
+    # resumed on 2 x 2 from zeroed blocks: the last round bit for bit
+    zero = map_tensors(torch.zeros_like, blocks(m22))
+    with x_driver(dev, m22, run, zero, resume=back) as drv:
+        _, h = drv.run(X0_STEPS - X0_BACK)
+        out["exact"]["resumed"] = {
+            "from": drv.resumed_from, "losses": [r["metrics"]["loss"]
+                                                 for r in h],
+            "bitwise": all(torch.equal(a, b) for a, b in zip(
+                x_tensors(drv.state), final, strict=True))}
+    # resumed on 1 x 4: the restored state bit for bit, the last round
+    # within (t1)'s bounds
+    zero = map_tensors(torch.zeros_like, blocks(m14))
+    t0 = time.perf_counter()
+    with x_driver(dev, m14, run, zero, resume=back) as drv:
+        restore_s = time.perf_counter() - t0
+        restored = x_tensors(x_gathered(drv.state, run, m14))
+        _, h = drv.run(X0_STEPS - X0_BACK)
+        out["exact"]["other"] = {
+            "from": drv.resumed_from, "restore_s": restore_s,
+            "losses": [r["metrics"]["loss"] for r in h],
+            "restored_bitwise": all(torch.equal(a, b) for a, b in zip(
+                restored, x_tensors(at_back), strict=True)),
+            "within": x_within(x_tensors(x_gathered(drv.state, run, m14)),
+                               x_tensors(final_gathered))}
+    return out
+
+
+def x1_rank(dev, mesh) -> dict:
+    """(x1) on one rank: (t2)'s gossip round at the model extent of
+    `mesh`, X1_ROUNDS rounds: each round's loss, s, messages and bytes by
+    axis; the bytes at rest, the peak and the launches."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+
+    _, cfg = x_cfgs()
+    run = s2_run(cfg, "gossip", "bfloat16")
+    st = trainer.replicate_for_nodes(trainer.init_state(
+        run, torch.Generator(device=dev).manual_seed(0), mesh),
+        rdist.n_local(mesh, TRAIN_N))
+    opt = st.opt
+    at_rest = sum(t.numel() * t.element_size()
+                  for tree in (st.params, opt.m, opt.v, opt.master)
+                  for t in tree_leaves(tree))
+    del opt
+    step = trainer.build_train_step(run, mesh, n_nodes=TRAIN_N, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rounds = []
+    for b in t_tokens(cfg, X1_ROUNDS, TRAIN_B, TRAIN_S, 2):
+        b = x_batch(dev, b, mesh, "gossip")
+        rdist.reset_stats()
+        t0 = time.perf_counter()
+        st, m = step(st, b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        rounds.append({"s": time.perf_counter() - t0, "loss": loss,
+                       "stats": dict(rdist.stats),
+                       "log": {f"{a} {k}": list(v)
+                               for (a, k), v in rdist.log.items()}})
+    return {"rounds": rounds, "at_rest": at_rest,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": dict(ops.launches)}
+
+
+def x_spawn(phase: str, world: int, work: str):
+    """Start `world` rank processes of `phase`; returns them with their
+    logs."""
+    store = os.path.join(work, f"{phase}_store")
+    procs = []
+    for r in range(world):
+        log = open(os.path.join(work, f"{phase}_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--x-rank", phase,
+             str(r), str(world), store, work], stdout=log,
+            stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def x_join(phase: str, procs, work: str, deadline: float) -> list:
+    """Wait for `phase`'s ranks until `deadline`; a rank that failed or
+    overran fails the run. Returns the ranks' results."""
+    import torch
+
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    failed = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
+    for r in failed:
+        with open(os.path.join(work, f"{phase}_rank{r}.log")) as f:
+            tail = f.read()[-3000:]
+        print(f"({phase}) rank {r} exited {procs[r][0].returncode}:\n{tail}")
+    require(not failed, f"({phase}): ranks {failed} failed or overran "
+                        f"{X_TIMEOUT} s")
+    return [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"),
+                       weights_only=False) for r in range(len(procs))]
+
+
+def model_axis_heads_phases(dev) -> dict:
+    """(x0)-(x1) on the card: (x0)'s ranks spawned first, its one-process
+    references and (x1)'s reference and plan computed while they run;
+    then (x1)'s ranks, and (x0)'s one-process resume from their snapshot
+    while those run. Prints each check and (x)'s seconds; returns the
+    ranks' gossip_mix launches by phase and rank, for the kernels line."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import checkpoint, trainer
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "model_axis_heads")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cases, cfg1 = x_cfgs()
+    cfg = next(iter(cases.values()))
+    procs = x_spawn("x0", X0_WORLD, work)
+    deadline = time.monotonic() + X_TIMEOUT
+    # (x0)'s one-process references on the card, while its ranks run
+    to_dev = lambda tree: map_tensors(lambda t: t.to(dev), tree)
+    ref_heads = {}
+    for name, c in cases.items():
+        params = to_dev(registry.init_params(
+            torch.Generator().manual_seed(0), c, torch.float32))
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in t_tokens(c, 1, 2, 64, 5)[0].items()}
+        live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(live)
+        loss, _ = registry.loss_fn(tree_map(lambda _: next(it), params), c,
+                                   batch, remat=True)
+        ref_heads[name] = (float(loss.detach()),
+                           [g.cpu() for g in torch.autograd.grad(loss, live)])
+        del params, live, loss
+    run = s2_run(cfg, "gossip", "float32")
+    st = to_dev(trainer.replicate_for_nodes(trainer.init_state(
+        run, torch.Generator().manual_seed(0)), TRAIN_N))
+    step = trainer.build_train_step(run, None, n_nodes=TRAIN_N, device=dev)
+    ref_losses = []
+    for b in s2a_batches(cfg):
+        st, m = step(st, {k: torch.from_numpy(v).to(dev) for k, v in
+                          trainer.make_node_batch(b, TRAIN_N).items()})
+        ref_losses.append(float(m["loss"]))
+    ref_gossip = (ref_losses, [p.cpu() for p in tree_leaves(st.params)])
+    del st, step
+    # (x1)'s round-1 loss on one process from the same draws (the mean of
+    # each node's) and its plan on a 1 x X1_WORLD mesh
+    params = registry.init_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg1, torch.bfloat16)
+    with torch.no_grad():
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             t_tokens(cfg1, 1, TRAIN_B, TRAIN_S, 2)[0].items()}
+        nodes = trainer.make_node_batch(b, TRAIN_N)
+        ref1 = float(torch.stack([registry.loss_fn(
+            params, cfg1, {k: v[j] for k, v in nodes.items()})[0]
+            for j in range(TRAIN_N)]).mean())
+    del params, b, nodes
+    torch.cuda.empty_cache()
+    amesh = abstract_mesh((1, X1_WORLD), ("data", "model"))
+    kw = dict(cfg=cfg1, shape=ShapeConfig("(x1)", TRAIN_S, TRAIN_B, "train"),
+              n_nodes=TRAIN_N, microbatches=1)
+    low = dryrun.build_lowerable(X1_ARCH, "train_4k", amesh, "gossip",
+                                 TRAIN_R, **kw)
+    rec = dryrun.plan(X1_ARCH, "train_4k", amesh, averaging="gossip",
+                      rounds=TRAIN_R, master_weights=True, **kw)
+    count = lambda coll: sum(v for k, v in coll.items()
+                             if k.endswith(".count"))
+    model = rec["collectives_model"]
+    plan = {"at_rest": shlib.local_bytes(low.planned[0], low.specs[0], amesh),
+            "peak": rec["memory"]["peak_gib"] * 2 ** 30,
+            "model_messages": count(model),
+            "model_bytes": dryrun.staged_bytes(model),
+            "data_messages": count(rec["collectives"]) - count(model),
+            "data_bytes": rec["staged_bytes"] - dryrun.staged_bytes(model),
+            "kinds": {k: v for k, v in model.items()
+                      if k.endswith(".count")},
+            "unsplit": rec["temp_unsplit_over_model"],
+            "refused": rec.get("model_axis_refused")}
+    del low
+    t_ref0 = time.perf_counter() - t_all
+    res0 = x_join("x0", procs, work, deadline)
+    t_x0 = time.perf_counter() - t_all
+    # (x1)'s ranks; (x0)'s one-process resume beside them
+    procs = x_spawn("x1", X1_WORLD, work)
+    deadline = time.monotonic() + X_TIMEOUT
+    run = s2_run(cfg, "exact", "float32")
+    back = checkpoint.step_dir(os.path.join(work, "x0_snapshots"), X0_BACK)
+    zero = map_tensors(torch.zeros_like, to_dev(trainer.init_state(
+        run, torch.Generator().manual_seed(0))))
+    with x_driver(dev, None, run, zero, resume=back) as drv:
+        restored = [t.to("cpu", copy=True) for t in x_tensors(drv.state)]
+        _, h = drv.run(X0_STEPS - X0_BACK)
+        one = {"from": drv.resumed_from,
+               "losses": [r["metrics"]["loss"] for r in h],
+               "final": [t.to("cpu", copy=True)
+                         for t in x_tensors(drv.state)]}
+    del zero
+    torch.cuda.empty_cache()
+    res1 = x_join("x1", procs, work, deadline)
+    t_x1 = time.perf_counter() - t_all - t_x0
+
+    def within_leaf(got, want, tol):
+        """max |got - want| over tol x the leaf's largest |want|, leaf by
+        leaf (the worst)."""
+        return max(((a - b).abs().max() / (tol * b.abs().max())).item()
+                   for a, b in zip(got, want, strict=True))
+
+    # (x0) the head cases against one process, at (t0)'s bounds
+    for name, (want_loss, want_grads) in ref_heads.items():
+        got = [rr["heads"][name] for rr in res0]
+        loss_err = max(abs(g["loss"] - want_loss) / abs(want_loss)
+                       for g in got)
+        share = within_leaf(got[0]["grads"], want_grads, T0_TOL)
+        print(f"main (x0) reduced granite-8b d_model 512 f32, {name}, on "
+              f"1x4: loss {got[0]['loss']:.7f} (one process "
+              f"{want_loss:.7f}, max rel err over the ranks {loss_err:.2e}, "
+              f"limit {T0_TOL}); {len(want_grads)} gradients, worst share "
+              f"of {T0_TOL} x the leaf's largest entry {share:.3f}; rank "
+              f"0's model-axis [messages, bytes] by kind "
+              f"{json.dumps(got[0]['log'])}")
+        require(loss_err <= T0_TOL and share <= 1.0,
+                f"(x0) {name}: the split heads disagree with one process")
+    cut = res0[0]["heads"][next(iter(cases))]["log"]
+    require("model all-gather" in cut and "model reduce-scatter" in cut,
+            f"(x0): no head pieces crossed the model group: {cut}")
+    # (x0) the gossip trainer with 2 KV heads on 1 x 4, at (t1)'s bounds
+    got = res0[0]["gossip"]
+    loss_err = max(abs(a - b) / abs(b) for rr in res0
+                   for a, b in zip(rr["gossip"]["losses"], ref_gossip[0]))
+    within, err = x_within(got["params"], ref_gossip[1])
+    launches = [rr["gossip"]["launches"].get("gossip_mix", 0) for rr in res0]
+    print(f"main (x0) reduced granite-8b (2 KV heads) f32, adam, {TRAIN_N} "
+          f"nodes, ring R={TRAIN_R}, gossip on 1x4: losses "
+          f"{json.dumps(got['losses'])} (one process "
+          f"{json.dumps(ref_gossip[0])}, max rel err {loss_err:.2e}, limit "
+          f"1e-4); parameters within 1e-4: {within:.6f} (limit >= 0.999), "
+          f"max_abs_err {err:.3e}; gossip_mix launches by rank {launches}")
+    require(loss_err <= 1e-4 and within >= 0.999,
+            "(x0) gossip: the split KV heads disagree with one process")
+    require(all(n > 0 for n in launches),
+            f"(x0) gossip: gossip_mix launches by rank {launches}")
+    # (x0) the exact-mode driver, its snapshot and the resumes
+    ex = [rr["exact"] for rr in res0]
+    e0 = ex[0]
+    other = [e["other"] for e in ex]
+    o_err = max(abs(a - b) / abs(b) for o in other
+                for a, b in zip(o["losses"], e0["losses"][X0_BACK:]))
+    one_err = max(abs(a - b) / abs(b) for a, b in zip(
+        one["losses"], e0["losses"][X0_BACK:]))
+    one_bitwise = all(torch.equal(a, b) for a, b in zip(
+        restored, e0["at_back"], strict=True))
+    one_within = x_within(one["final"], e0["final"])
+    print(f"main (x0) the exact mode (FSDP + ZeRO-1) with 2 KV heads on 2x2,"
+          f" adam, {X0_STEPS} rounds of 8 x {X0_SEQ} tokens: losses "
+          f"{json.dumps(e0['losses'])}; the snapshot after round {X0_BACK} "
+          f"({e0['saves']} saves, {e0['failures']} failures, written in "
+          f"{e0['write_s']:.2f} s) byte for byte the one-process save of "
+          f"the gathered state: {e0['same_files']}; resumed on 2x2, round "
+          f"{X0_STEPS} bit for bit by rank "
+          f"{[e['resumed']['bitwise'] for e in ex]}; resumed on 1x4, the "
+          f"restored state bit for bit by rank "
+          f"{[o['restored_bitwise'] for o in other]} (restored in "
+          f"{max(o['restore_s'] for o in other):.2f} s), round {X0_STEPS} "
+          f"loss max rel err {o_err:.2e} (limit 1e-4), parameters and "
+          f"moments within 1e-4 {min(o['within'][0] for o in other):.6f} "
+          f"(limit >= 0.999); resumed on one process, restored bit for bit "
+          f"{one_bitwise}, round {X0_STEPS} loss rel err {one_err:.2e}, "
+          f"within 1e-4 {one_within[0]:.6f}")
+    require(e0["saves"] == 1 and e0["failures"] == 0,
+            f"(x0) exact: snapshots {e0['saves']}, failures "
+            f"{e0['failures']}: {e0['error']}")
+    require(e0["same_files"] is True, "(x0) exact: the split snapshot is "
+            "not the one-process save of the gathered state")
+    require(all(e["resumed"]["bitwise"] and e["resumed"]["from"] == back
+                and e["resumed"]["losses"] == e0["losses"][X0_BACK:]
+                for e in ex), "(x0) exact: the resume on 2x2 is not the "
+                              "uninterrupted run's bits")
+    require(all(o["restored_bitwise"] for o in other) and one_bitwise,
+            "(x0) exact: a restore onto 1x4 or one process is not the "
+            "snapshot's bits")
+    require(o_err <= 1e-4 and one_err <= 1e-4
+            and min(o["within"][0] for o in other) >= 0.999
+            and one_within[0] >= 0.999,
+            "(x0) exact: a resumed round disagrees beyond (t1)'s bounds")
+    # (x1)
+    first = [rr["rounds"][0]["loss"] for rr in res1]
+    loss_err = max(abs(x - ref1) / abs(ref1) for x in first)
+    per = lambda key: [[rd["stats"][key] for rd in rr["rounds"]]
+                       for rr in res1]
+    peaks = [rr["peak_bytes"] for rr in res1]
+    peak_ratio = [plan["peak"] / p for p in peaks]
+    secs = [[round(rd["s"], 3) for rd in rr["rounds"]] for rr in res1]
+    print(f"main (x1) {X1_ARCH} published widths, {TRAIN_LAYERS} layers, "
+          f"bf16 + f32 masters, adam, {TRAIN_N} nodes x 2 x {TRAIN_S} "
+          f"tokens, ring R={TRAIN_R}, gossip on 1x{X1_WORLD} ({X1_WORLD} "
+          f"ranks on the card): losses by rank 0 "
+          f"{[round(rd['loss'], 5) for rd in res1[0]['rounds']]} (round 1 "
+          f"on one process {ref1:.5f}, max rel err over the ranks "
+          f"{loss_err:.2e}, limit {T2_LOSS_TOL}); s per round by rank "
+          f"{secs}; bytes staged per round, model axis "
+          f"{sorted(set(x for xs in per('model_staged_bytes') for x in xs))}"
+          f" (planned {int(plan['model_bytes'])}), data axis "
+          f"{sorted(set(x for xs in per('data_staged_bytes') for x in xs))}"
+          f" (planned {int(plan['data_bytes'])}); messages per round, model "
+          f"axis {sorted(set(x for xs in per('model_messages') for x in xs))}"
+          f" (planned {plan['model_messages']}: {json.dumps(plan['kinds'])})"
+          f", data axis "
+          f"{sorted(set(x for xs in per('data_messages') for x in xs))} "
+          f"(planned {plan['data_messages']}); bytes at rest by rank "
+          f"{sorted(set(rr['at_rest'] for rr in res1))} (planned "
+          f"{plan['at_rest']}); peak memory by rank GB "
+          f"{[round(p / 1e9, 3) for p in peaks]}, plan over measured "
+          f"{min(peak_ratio):.4f}-{max(peak_ratio):.4f}; launches by rank "
+          f"{[rr['launches'].get('gossip_mix', 0) for rr in res1]} "
+          f"gossip_mix; rank 0's model-axis [messages, bytes] by kind, "
+          f"round 1 {json.dumps(res1[0]['rounds'][0]['log'])}")
+    require(plan["refused"] is None and not plan["unsplit"],
+            f"(x1): the plan kept the model axis unsplit: {plan['refused']}")
+    require(all(math.isfinite(rd["loss"]) for rr in res1
+                for rd in rr["rounds"]), "(x1): losses not finite")
+    require(loss_err <= T2_LOSS_TOL,
+            "(x1): round 1's loss disagrees with one process's")
+    require(all(rr["at_rest"] == plan["at_rest"] for rr in res1),
+            "(x1): bytes at rest differ from the plan's")
+    require(all(abs(x - 1) <= P1_BOUND for x in peak_ratio),
+            f"(x1): a rank's peak is not within {P1_BOUND} of the plan's")
+    for key, want in (("model_messages", plan["model_messages"]),
+                      ("model_staged_bytes", plan["model_bytes"]),
+                      ("data_messages", plan["data_messages"]),
+                      ("data_staged_bytes", plan["data_bytes"])):
+        require(all(x == want for xs in per(key) for x in xs),
+                f"(x1): {key} {per(key)} differ from the plan's {want}")
+    require(all(rr["launches"].get("gossip_mix", 0) > 0 for rr in res1),
+            "(x1): gossip_mix did not launch on every rank")
+    print(f"main (x) seconds: (x0) {t_x0:.1f} (its references and (x1)'s "
+          f"plan {t_ref0:.1f} while its ranks ran; rank 0 "
+          f"{res0[0]['seconds']:.1f}), (x1) {t_x1:.1f} (rank 0 "
+          f"{res1[0]['seconds']:.1f}), all {time.perf_counter() - t_all:.1f}"
+          f" (target < 150)")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"gossip_mix": {
+        "x0": [rr["gossip"]["launches"].get("gossip_mix", 0) for rr in res0],
+        "x1": [rr["launches"].get("gossip_mix", 0) for rr in res1]}}
+
+
 def main() -> int:
     import torch
 
@@ -3242,6 +3862,10 @@ def main() -> int:
     # (w): error feedback, the hierarchical mode, snapshots, resume and
     # publication on the sharded node axis, rank processes sharing the card
     w_launches = durable_shard_phases(dev)
+    # (x): the dense archs on the production mesh's model axis (heads and
+    # KV heads split inside a head) and durable model-axis runs, rank
+    # processes sharing the card
+    x_launches = model_axis_heads_phases(dev)
     # what phase (p) holds its plans against: peaks, card times
     p_measured = {}
 
@@ -5354,8 +5978,9 @@ def main() -> int:
         "experts": time_ms(lambda: torch.bmm(F.silu(torch.bmm(
             xe, ffn["we_gate"])) * torch.bmm(xe, ffn["we_up"]),
             ffn["we_down"]), reps=5),
-        "shared": time_ms(lambda: L.apply_ffn(ffn["shared"], h, "swiglu"),
-                          reps=5),
+        "shared": time_ms(lambda: (F.silu(xt @ ffn["shared"]["w_gate"])
+                                   * (xt @ ffn["shared"]["w_up"]))
+                          @ ffn["shared"]["w_down"], reps=5),
     }
     parts["dispatch_combine"] = phases["moe"] - sum(parts.values())
     eff = m_q.expert_d_ff
@@ -5566,7 +6191,7 @@ def main() -> int:
         "attention": time_ms(lambda: L.apply_attention(
             blk_a["attn"], cfg_g, h, pos, attn_mode="window",
             window=cfg_g.rglru.local_window), reps=2),
-        "ffn": time_ms(lambda: L.apply_ffn(blk_r["ffn"], h, cfg_g.ffn),
+        "ffn": time_ms(lambda: L.apply_ffn(blk_r["ffn"], h, cfg_g),
                        reps=2),
         "unembed": time_ms(lambda: L.unembed_logits(params["embed"], h),
                            reps=1),
@@ -6405,10 +7030,10 @@ def main() -> int:
         key = ("launches_by_kernel" if row["name"] == "flash_attention"
                else "launches_by_nodes")
         row.setdefault(key, {})["s"] = by_phase
-    # the ranks' launches of (t1)-(t2), (v1)-(v2) and (w0)-(w2), by phase
-    # and rank, under "t", "v" and "w"
+    # the ranks' launches of (t1)-(t2), (v1)-(v2), (w0)-(w2) and
+    # (x0)-(x1), by phase and rank, under "t", "v", "w" and "x"
     for key, phases in (("t", t_launches), ("v", v_launches),
-                        ("w", w_launches)):
+                        ("w", w_launches), ("x", x_launches)):
         for row in rows:
             by_phase = phases.get(row["name"])
             if by_phase is not None:
@@ -6439,4 +7064,7 @@ if __name__ == "__main__":
         sys.exit(v_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--w-rank"]:
         sys.exit(w_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--x-rank"]:
+        sys.exit(x_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                        sys.argv[5], sys.argv[6]))
     sys.exit(main())

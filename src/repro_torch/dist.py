@@ -17,20 +17,24 @@ shards of the same nodes), and the ranks of one model index form its
 `launch/mesh.py` builds both with `dist.new_group`. Every message names
 the axis it crosses: a node-axis message (halo rows, node means, the
 ZeRO-1 gathers and reduce-scatters) goes over the data group, a
-tensor-parallel reduction over the model group, and `stats` counts the
-two axes apart. A "pod" axis of extent P above 1 splits the node shards
-two ways too: the D node shards of one pod form its *pod group*, and the
-P node shards of one data index its *lane group* (`lane_mesh`), which
-the hierarchical mode's reduce-scatter, all-gather and gossip between
-the pods use; their messages count as node-axis ones. The LM trainer's dense family executes a model axis
-(`train/trainer.py`, `models/common.py`); `check_mesh` refuses one on the
-paths that do not (the PCA and convex drivers).
+tensor-parallel reduction over the model group, and so do the pieces of
+a head that a column split cuts (`block_all_gather`,
+`block_reduce_scatter`: messages between the ranks of a block that
+share heads); `stats` counts the two axes apart. A "pod" axis of extent
+P above 1 splits the node shards two ways too: the D node shards of one
+pod form its *pod group*, and the P node shards of one data index its
+*lane group* (`lane_mesh`), which the hierarchical mode's
+reduce-scatter, all-gather and gossip between the pods use; their
+messages count as node-axis ones. The LM trainer's dense family
+executes a model axis (`train/trainer.py`, `models/common.py`);
+`check_mesh` refuses one on the paths that do not (the PCA and convex
+drivers).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -310,10 +314,16 @@ def _view(buf: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 def _peer(mesh: Mesh, shard: int) -> int:
     """The global rank of node shard `shard` at this rank's model index."""
-    r = shard * model_extent(mesh) + model_index(mesh)
-    if mesh.group is None:
-        return r
-    return dist.get_global_rank(mesh.group, r)
+    return _global(mesh, shard * model_extent(mesh) + model_index(mesh))
+
+
+def _model_peer(mesh: Mesh, index: int) -> int:
+    """The global rank of model index `index` in this rank's node shard."""
+    return _global(mesh, node_index(mesh) * model_extent(mesh) + index)
+
+
+def _global(mesh: Mesh, r: int) -> int:
+    return r if mesh.group is None else dist.get_global_rank(mesh.group, r)
 
 
 def _staged(group, t: torch.Tensor) -> bool:
@@ -339,12 +349,15 @@ def column_chunks(d: int, rows: int, elem: int,
 
 def exchange(sends: Sequence[Tuple[int, torch.Tensor, int]],
              recvs: Sequence[Tuple[int, torch.Tensor, int]],
-             mesh: Mesh) -> None:
-    """Post every send (node shard, [rows, d] tensor, tag) and receive
-    (node shard, [rows, d] output, tag) in one batch and wait for all of
-    them; the peers are the node shards' ranks at this rank's model index.
-    The tensors share d and a device; on CUDA each is staged through its
-    own pinned buffer, column chunk by column chunk."""
+             mesh: Mesh, axis: str = "data",
+             kind: str = "collective-permute") -> None:
+    """Post every send (peer, [rows, d] tensor, tag) and receive (peer,
+    [rows, d] output, tag) in one batch and wait for all of them; the peers
+    are node shards (their ranks at this rank's model index) over the
+    "data" axis, model indices (their ranks in this rank's node shard) over
+    the "model" axis, and the messages count as `kind` over `axis`. The
+    tensors share d and a device; on CUDA each is staged through its own
+    pinned buffer, column chunk by column chunk."""
     tensors = [t for _, t, _ in sends] + [t for _, t, _ in recvs]
     if not tensors:
         return
@@ -357,10 +370,11 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor, int]],
     elem = tensors[0].element_size()
     stream = (torch.cuda.current_stream(tensors[0].device)
               if cuda and not meta else None)
+    peer = _model_peer if axis == "model" else _peer
     for c0, c1 in column_chunks(d, rows, elem):
         wire = sum(t.shape[0] * (c1 - c0) * elem for t in tensors)
         if meta:
-            _count("data", "collective-permute", len(sends), wire, wire)
+            _count(axis, kind, len(sends), wire, wire)
             continue
         if cuda:
             out_bufs = []
@@ -378,16 +392,58 @@ def exchange(sends: Sequence[Tuple[int, torch.Tensor, int]],
         else:
             out_bufs = [t[:, c0:c1].contiguous() for _, t, _ in sends]
             in_bufs = [torch.empty_like(t[:, c0:c1]) for _, t, _ in recvs]
-        ops = ([dist.P2POp(dist.isend, b, _peer(mesh, p), mesh.group, tag)
+        ops = ([dist.P2POp(dist.isend, b, peer(mesh, p), mesh.group, tag)
                 for (p, _, tag), b in zip(sends, out_bufs)] +
-               [dist.P2POp(dist.irecv, b, _peer(mesh, p), mesh.group, tag)
+               [dist.P2POp(dist.irecv, b, peer(mesh, p), mesh.group, tag)
                 for (p, _, tag), b in zip(recvs, in_bufs)])
         for req in dist.batch_isend_irecv(ops):
             req.wait()
-        _count("data", "collective-permute", len(sends), wire,
-               wire if cuda else 0)
+        _count(axis, kind, len(sends), wire, wire if cuda else 0)
         for (_, t, _), b in zip(recvs, in_bufs):
             t[:, c0:c1].copy_(b, non_blocking=cuda)
+
+
+def model_block(mesh: Mesh, g: int) -> range:
+    """The model indices of this rank's block of `g` consecutive ones (g
+    divides the model extent): the ranks that share a head whose columns
+    the model axis splits over g ranks (`block_all_gather`)."""
+    j0 = model_index(mesh) // g * g
+    return range(j0, j0 + g)
+
+
+def block_all_gather(x: torch.Tensor, mesh: Mesh, g: int) -> torch.Tensor:
+    """[rows, g * c]: the [rows, c] columns x of every rank of this rank's
+    block of g model indices (`model_block`), in their order: an
+    all-gather over the block, sent as messages between its ranks over the
+    model group."""
+    block, me = model_block(mesh, g), model_index(mesh)
+    out = x.new_empty((x.shape[0], g, x.shape[1]))
+    out[:, me - block.start] = x
+    exchange([(j, x, 0) for j in block if j != me],
+             [(j, out[:, j - block.start], 0) for j in block if j != me],
+             mesh, "model", "all-gather")
+    return out.reshape(x.shape[0], g * x.shape[1])
+
+
+def block_reduce_scatter(x: torch.Tensor, mesh: Mesh,
+                         g: int) -> torch.Tensor:
+    """The inverse of `block_all_gather` for its gradient: x [rows, g * c]
+    holds this rank's addends for the columns of every rank of its block;
+    returns the f32 [rows, c] sum of every rank's addends for this rank's
+    columns, added in the block's order (a reduce-scatter over the block,
+    sent as messages between its ranks)."""
+    block, me = model_block(mesh, g), model_index(mesh)
+    rows, c = x.shape[0], x.shape[1] // g
+    parts = x.reshape(rows, g, c)
+    inbox = x.new_empty((g, rows, c))
+    exchange([(j, parts[:, j - block.start], 0) for j in block if j != me],
+             [(j, inbox[j - block.start], 0) for j in block if j != me],
+             mesh, "model", "reduce-scatter")
+    acc = torch.zeros((rows, c), dtype=torch.float32, device=x.device)
+    for j in block:
+        acc.add_(parts[:, j - block.start] if j == me
+                 else inbox[j - block.start])
+    return acc
 
 
 def all_reduce_(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM,
@@ -492,6 +548,32 @@ def all_gather_dim(t: torch.Tensor, mesh: Mesh, dim: int,
         dist.all_gather(list(dst.unbind(0)), src, group=group)
         out[:, c0:c1].copy_(dst)
         _count(axis, "all-gather", 1, wire, wire if cuda else 0)
+    shape = list(t.shape)
+    full = out.reshape(E, *shape).movedim(0, dim)
+    shape[dim] *= E
+    return full.reshape(shape)
+
+
+def gather_dim_to_first(t: torch.Tensor, mesh: Mesh, dim: int,
+                        axis: str = "data") -> Optional[torch.Tensor]:
+    """`all_gather_dim` to one rank: the blocks of every rank of this
+    rank's `axis` group ("data" or "model") joined along `dim` in the
+    group's order on its first rank (index 0 along the axis), which
+    receives them as messages (`exchange`, counted as a "gather"); None on
+    the others, which send it theirs. Returns `t` where the axis has one
+    rank."""
+    E = axis_extent(mesh, axis)
+    if E == 1:
+        return t
+    index = model_index(mesh) if axis == "model" else node_index(mesh)
+    flat = t.reshape(1, -1)
+    if index:
+        exchange([(0, flat, 0)], [], mesh, axis, "gather")
+        return None
+    out = t.new_empty((E, flat.shape[1]))
+    out[0] = flat[0]
+    exchange([], [(j, out[j:j + 1], 0) for j in range(1, E)], mesh, axis,
+             "gather")
     shape = list(t.shape)
     full = out.reshape(E, *shape).movedim(0, dim)
     shape[dim] *= E

@@ -28,10 +28,12 @@ argument bytes are those of the planned placements (ZeRO-1 and the model
 axis included).
 
 On a model axis of extent above 1 the train step of the dense family is
-traced as each rank runs it (`train/trainer.py`): the rank's blocks of the
-state at rest (ZeRO-1 in the exact mode, the model shards of its node rows
-in the decentralized one), its tensor-parallel layers, and every message
-of both axes through `dist.py`, whose collectives are shape-only no-ops on
+traced as each rank runs it (`train/trainer.py`), at any extent that
+divides the vocab (the production 16 x 16 included): the rank's blocks of
+the state at rest (ZeRO-1 in the exact mode, the model shards of its node
+rows in the decentralized one), its tensor-parallel layers (with the
+pieces of the heads a split cuts), and every message of both axes through
+`dist.py`, whose collectives are shape-only no-ops on
 meta that count what they would move on the card (`dist.log`); the record
 carries those counts (`collectives`, the model axis's apart in
 `collectives_model`). Every other step on a model axis (the families and
@@ -581,7 +583,10 @@ def snapshot_collectives(mesh) -> dict:
     """The training thread's messages of one snapshot on a split `mesh`:
     the broadcast of rank 0's verdict (`train.snapshot`). The state goes
     to disk, each rank its own rows, and the writers agree over their own
-    group (file names, CRC32s, the outcome: objects, no tensor)."""
+    group (file names, CRC32s, the outcome: objects, no tensor); over a
+    model axis the writers also send each leaf's blocks to the rank that
+    writes it, over groups of their own (`train.checkpoint`), not the
+    training thread's."""
     coll: dict = {}
     if rdist.n_data_nodes(mesh) > 1:
         _add(coll, "broadcast", 0, 1)
@@ -623,7 +628,9 @@ def model_axis_collectives(info: dict, log: Optional[dict] = None) -> dict:
     row splits' f32 all-reduces (each layer's two forward, the one remat
     recomputes, the column splits' two backward), the vocab split's
     (the embedding's, the loss's max and its sums, the unembedding's
-    backward) and the consensus error's. Elsewhere the two activation
+    backward), the consensus error's, and where the extent cuts a head,
+    its pieces' all-gathers (forward and remat) and reduce-scatters
+    (backward). Elsewhere the two activation
     all-reduces per layer forward that a Megatron split of the
     placements needs, of this rank's [tokens, d_model] in bf16; training
     adds the backward's two and remat's recomputed forward's two: planned,

@@ -11,7 +11,8 @@ The planner (`launch/dryrun.py`) turns the placements into the block of
 each leaf that one rank holds (`local_shape`, `local_bytes`); on a mesh
 over a process group `shard_tree` cuts those blocks out of whole leaves
 (the trainer's state at rest, `train/trainer.py`) and `gather_tree` joins
-them again.
+them again on every rank (`gather_to_first`: on one rank, a leaf at a
+time, as a split checkpoint writes it).
 
 Layout: the port keeps one parameter dict per layer (`models/transformer.py`)
 where the reference stacks the layers of each period position into one
@@ -431,3 +432,19 @@ def gather_tree(tree: Tree, specs: Tree, mesh) -> Tree:
         return leaf
 
     return map_with_path(gather, tree, specs)
+
+
+def gather_to_first(leaf, spec: Placement, mesh):
+    """The whole leaf of this rank's block `leaf` placed by `spec`, joined
+    on the first rank of each group it is split over (index 0 along every
+    axis of `spec`) and None on the others: each split dim's blocks
+    gathered to its axis's first rank (`dist.gather_dim_to_first`), one
+    dim after another, by the ranks that still hold a part. A leaf that
+    `spec` does not split comes back as it is, on every rank."""
+    from repro_torch.dist import gather_dim_to_first
+
+    for dim, d in enumerate(spec):
+        if d is not None and leaf is not None:
+            leaf = gather_dim_to_first(leaf, mesh, dim,
+                                       "model" if d == M else "data")
+    return leaf

@@ -45,10 +45,10 @@ the process group (gloo on the CPU and where ranks share one card, nccl
 where every rank has a card of its own), builds `make_host_mesh()` over
 the ranks, as the reference's launcher does (or the reference's
 production mesh with `--production-mesh`, which needs 256 ranks; its model
-axis of 16 executes for a dense arch whose heads, KV heads, FFN width and
-vocab 16 divides, and granite-8b's 8 KV heads raise NotImplementedError)
-and trains its rows of the node axis, one node per rank unless `--nodes`
-says otherwise:
+axis of 16 executes for a dense arch whose vocab 16 divides, granite-8b's
+8 KV heads split in two included; `--model-axis M` gives the host mesh a
+model axis of M) and trains its rows of the node axis, one node per rank
+unless `--nodes` says otherwise:
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
       --arch granite-8b --reduced --device cpu --steps 4 --superstep 2 \
       --averaging gossip --rounds 2
@@ -62,8 +62,12 @@ too, each rank on its rows of the cohort (`train.driver`):
 its own rows of one checkpoint in the reference's layout, which any split
 of the same run (or one process, or the JAX package) resumes from, and
 rank 0's publisher decides for every rank (`train.driver`); over a model
-axis checkpoints raise NotImplementedError. Alone (no WORLD_SIZE) it runs
-as before.
+axis each rank's blocks are joined into the same checkpoint, and a resume
+cuts them again on any split:
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch granite-8b --reduced --device cpu --steps 4 --superstep 2 \
+      --averaging exact --model-axis 2 --checkpoint /tmp/ck
+Alone (no WORLD_SIZE) it runs as before.
 
 `launch/env.py` is applied before `import torch` unless `--no-env-tuning`
 is given; `--compilation-cache-dir DIR` is the directory the kernels are
@@ -94,14 +98,14 @@ from repro_torch.core import scenarios as scenario_lib
 from repro_torch.core.faults import FaultSchedule
 from repro_torch.data.lm import MarkovTokenStream
 from repro_torch.device import resolve_device
-from repro_torch.dist import model_extent, n_data_nodes, n_local
+from repro_torch.dist import n_data_nodes, n_local
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.serve.publisher import SnapshotPublisher
 from repro_torch.train import checkpoint
 from repro_torch.train.driver import EngineConfig, StreamingDriver
 from repro_torch.train.snapshot import RunSnapshotter
 from repro_torch.train.trainer import (init_state, replicate_for_nodes,
-                                       superstep_builder)
+                                       state_placements, superstep_builder)
 
 # how long a rank waits on a collective before the run fails
 DIST_TIMEOUT_S = 600
@@ -199,10 +203,13 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", default="",
                     help="resume from this checkpoint root (newest valid "
                          "step) or a specific step_NNNNNNNN directory")
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="under torchrun, the host mesh's model extent: "
+                         "(world / M) x M over (data, model)")
     ap.add_argument("--production-mesh", action="store_true",
                     help="the reference's 16x16 mesh (needs 256 ranks; "
                          "its model axis of 16 executes for a dense arch "
-                         "whose heads, KV heads, FFN and vocab it splits)")
+                         "whose vocab it splits)")
     ap.add_argument("--no-env-tuning", action="store_true",
                     help="skip the launcher perf hygiene (launch/env.py); "
                          "applied at import time, declared here for --help")
@@ -250,11 +257,7 @@ def _train(ap, args, distributed: bool) -> None:
     mesh = None
     if distributed or args.production_mesh:
         mesh = make_production_mesh() if args.production_mesh \
-            else make_host_mesh()
-        if model_extent(mesh) > 1 and (args.checkpoint or args.resume):
-            raise NotImplementedError(
-                "checkpoints of a state split over a model axis are not "
-                "ported yet (ROADMAP.md queue 1 item 1)")
+            else make_host_mesh(model=args.model_axis)
     cfg = get_config(args.arch)
     if cfg.is_encdec:
         # the reference's launcher draws the same token stream, and its
@@ -387,7 +390,8 @@ def _train(ap, args, distributed: bool) -> None:
                         meta={"arch": args.arch, "reduced": args.reduced},
                         model=cfg, mesh=mesh,
                         n_nodes=n_nodes if args.averaging != "exact"
-                        else None)
+                        else None,
+                        specs=state_placements(run, mesh, state))
         _say(f"checkpoint -> {args.checkpoint}")
 
 

@@ -10,10 +10,13 @@ the mesh whose model axis the layers execute, and each rank's parameters
 are its blocks (`launch/sharding.py` `shard_tree`), so an activation's
 placement follows from the weights it is computed with and no `pshard` is
 needed. Under an installed model axis the layers
-(`models/layers.py`) hold their heads, FFN columns and vocab rows of the
-rank's model index and cross the axis only through the Megatron pair
-below: `copy_to_model` where a replicated activation enters a column
-split, `reduce_from_model` where a row split's partial sums leave it.
+(`models/layers.py`) hold their columns of wq, wk, wv, w_gate and w_up,
+their rows of wo and w_down, and their vocab rows, and cross the axis only
+through the three pairs below: `copy_to_model` where a replicated
+activation enters a column split, `reduce_from_model` where a row split's
+partial sums leave it, and `gather_from_model` where a column split cut a
+head that a rank needs whole (the pieces joined forward, their gradients
+summed back to their owners).
 `stack_init` is not ported: the port keeps one parameter dict per layer
 instead of stacked super-blocks (`models/transformer.py`).
 """
@@ -121,6 +124,28 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _GatherFromModel(torch.autograd.Function):
+    """The columns of every rank of this rank's block of g model indices
+    forward (`dist.block_all_gather`); backward, each rank's gradient of
+    them summed back to the rank that owns them, in f32 and cast once
+    (`dist.block_reduce_scatter`): pieces of a head that a column split
+    cut, joined on each rank that uses the head."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, g):
+        ctx.mesh, ctx.g = mesh, g
+        flat = x.reshape(-1, x.shape[-1])
+        return rdist.block_all_gather(flat, mesh, g).reshape(
+            *x.shape[:-1], g * x.shape[-1])
+
+    @staticmethod
+    def backward(ctx, grad):
+        flat = grad.reshape(-1, grad.shape[-1])
+        out = rdist.block_reduce_scatter(flat, ctx.mesh, ctx.g)
+        return (out.to(grad.dtype).reshape(*grad.shape[:-1], -1), None,
+                None)
+
+
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     mesh = current_mesh()
     return x if mesh is None else _CopyToModel.apply(x, mesh)
@@ -131,3 +156,10 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     without a model axis)."""
     mesh = current_mesh()
     return x if mesh is None else _ReduceFromModel.apply(x, mesh)
+
+
+def gather_from_model(x: torch.Tensor, g: int) -> torch.Tensor:
+    """x [..., c], this rank's columns -> [..., g * c], the columns of its
+    block of g model indices in their order (x itself where g is 1)."""
+    mesh = current_mesh()
+    return x if mesh is None or g == 1 else _GatherFromModel.apply(x, mesh, g)

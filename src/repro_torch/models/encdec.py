@@ -81,7 +81,7 @@ def _enc_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                                train=train)
     x = x + out
     h = L.apply_norm(p["norm2"], x, cfg.norm)
-    return x + L.apply_ffn(p["ffn"], h, cfg.ffn)
+    return x + L.apply_ffn(p["ffn"], h, cfg)
 
 
 def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
@@ -125,7 +125,7 @@ def _dec_block(cfg: ModelConfig, p: Params, x, positions, memory, cache,
                                train=train)
     x = x + out
     h = L.apply_norm(p["norm2"], x, cfg.norm)
-    return x + L.apply_ffn(p["ffn"], h, cfg.ffn)
+    return x + L.apply_ffn(p["ffn"], h, cfg)
 
 
 def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],

@@ -13,19 +13,28 @@ the training loss (`train=True`), is the plain, differentiable
 `blockwise_attention` below, where the reference runs jnp code too.
 
 Under a model axis (`models/common.py` `mesh_rules`) each rank holds its
-model index's blocks, in the Megatron split of the reference's placements
-(`launch/sharding.py` `_NAME_SPECS`): the column-split wq, wk, wv, w_gate
-and w_up give the rank's heads (KV heads alike, so a GQA group stays on
-its rank) and FFN columns; the row-split wo and w_down give partial sums,
-added over the model group in f32 and cast once; the vocab-parallel
-embedding holds the rank's vocab rows (`embed_lookup`, `unembed_logits`)
-and `cross_entropy` reduces its log-sum-exp and gold logit over the
-group.
+model index's blocks of the reference's placements (`launch/sharding.py`
+`_NAME_SPECS`, sanitized as `_resolve` does): its columns of wq, wk, wv,
+w_gate and w_up and its rows of wo and w_down, or the whole leaf where the
+extent does not divide the dim. The column blocks need not hold whole
+heads (granite-8b's 8 KV heads over 16 ranks give each half a head): a
+rank runs every head that overlaps its rows of wo, and their KV heads,
+whole, gathering the pieces it lacks from the ranks that share the head
+(`_head_split`, `models.common.gather_from_model`) before the head's
+qk-norm and RoPE, which need all of it; it keeps the output columns of its
+wo rows, whose partial sums are added over the model group in f32 and
+cast once (`_row_split`). A head two ranks use runs on both, and its
+gradients are summed back to the ranks that own its columns. Where the
+extent divides the heads and KV heads this is the Megatron split, with no
+gather. An FFN whose width the extent does not divide runs whole on every
+rank, without a message. The vocab-parallel embedding holds the rank's
+vocab rows (`embed_lookup`, `unembed_logits`) and `cross_entropy` reduces
+its log-sum-exp and gold logit over the group.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -35,8 +44,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import all_reduce_, model_index
 from repro_torch.kernels import ops
 from repro_torch.models.common import (copy_to_model, current_mesh,
-                                       dense_init, ones_init,
-                                       reduce_from_model)
+                                       dense_init, gather_from_model,
+                                       ones_init, reduce_from_model)
 
 Params = Dict[str, Any]
 
@@ -238,6 +247,97 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 2, 1, 3)
 
 
+class _Heads(NamedTuple):
+    """One rank's share of a GQA layer whose wq columns (and wo rows) the
+    model axis splits (`_head_split`)."""
+
+    rows: Tuple[int, int]  # its rows of wo: the output columns it keeps
+    q: Tuple[int, int]  # [h0, h1): the heads that overlap them
+    kv: Tuple[int, int]  # [k0, k1): their KV heads
+    g_q: int  # the ranks of the block whose wq columns hold its heads
+    g_kv: int  # the same for wk and wv; 0 where they are kept whole
+
+
+def _is_block(leaf: torch.Tensor, dim: int, whole: int) -> bool:
+    """Whether the rank holds a model-axis block of `leaf` along `dim`
+    (`whole` wide unsplit) and not all of it: `launch/sharding.py` splits
+    the dim where the extent divides it and `_sanitize` keeps the whole
+    leaf where it does not (every leaf is whole without a model axis)."""
+    return leaf.shape[dim] != whole
+
+
+def _head_split(cfg: ModelConfig, mesh, p: Params) -> Optional[_Heads]:
+    """This rank's `_Heads` over `mesh`'s model axis from the blocks of
+    `p` it holds, or None where wq is whole (no model axis, or one whose
+    extent does not divide its H * hd columns: wk, wv and wo are whole
+    too), so every rank runs every head. A split of C columns gives each
+    rank C / m of them; the ranks whose columns share a head form blocks
+    of g = hd / gcd(hd, C / m) consecutive model indices (g divides m),
+    each holding whole heads."""
+    hd, H, KH = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    if not _is_block(p["wq"], -1, H * hd):
+        return None
+    i, width = model_index(mesh), p["wq"].shape[-1]
+    rows = (i * width, (i + 1) * width)
+    h0, h1 = rows[0] // hd, -(-rows[1] // hd)
+    G = H // KH
+    block = lambda w: hd // math.gcd(hd, w)
+    return _Heads(rows, (h0, h1), (h0 // G, (h1 - 1) // G + 1), block(width),
+                  block(p["wk"].shape[-1])
+                  if _is_block(p["wk"], -1, KH * hd) else 0)
+
+
+def _split_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               heads: _Heads) -> Tuple[torch.Tensor, ...]:
+    """q [B, S, h1 - h0, hd] of the rank's heads and k, v [B, S, ., hd] of
+    their KV heads, whole: each projected from the columns the rank holds,
+    the pieces it lacks gathered from its block (`gather_from_model`). k
+    and v kept whole are computed whole, each rank's gradient of them
+    summed over the model group (`copy_to_model` on the product). Where
+    the rank's heads do not read their KV heads as `blockwise_attention`'s
+    h // G' does (G' = its heads over its KV heads), k and v come back one
+    per head."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    i = model_index(current_mesh())
+    xs = copy_to_model(x)
+
+    def take(cols: torch.Tensor, g: int, lo: int, hi: int) -> torch.Tensor:
+        """Heads [lo, hi) of the projection whose [B, S, w] columns the
+        rank holds, its block of g ranks holding them."""
+        start = i // g * g * cols.shape[-1]  # the block's first column
+        full = gather_from_model(cols, g)
+        return full[..., lo * hd - start:hi * hd - start].reshape(B, S, -1,
+                                                                  hd)
+
+    (h0, h1), (k0, k1) = heads.q, heads.kv
+    q = take(xs @ p["wq"], heads.g_q, h0, h1)
+    if heads.g_kv:
+        k = take(xs @ p["wk"], heads.g_kv, k0, k1)
+        v = take(xs @ p["wv"], heads.g_kv, k0, k1)
+    else:
+        whole = lambda w: copy_to_model(x @ w)[..., k0 * hd:k1 * hd].reshape(
+            B, S, -1, hd)
+        k, v = whole(p["wk"]), whole(p["wv"])
+    G = cfg.num_heads // cfg.num_kv_heads
+    reads = [h // G - k0 for h in range(h0, h1)]
+    Gn, rest = divmod(h1 - h0, k1 - k0)
+    if rest or reads != [j // Gn for j in range(h1 - h0)]:
+        idx = torch.tensor(reads, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v
+
+
+def _out_proj(h: torch.Tensor, wo: torch.Tensor,
+              heads: Optional[_Heads], hd: int) -> torch.Tensor:
+    """The attention output [B, S, H' * hd] of the rank's heads through
+    its rows of wo (`_row_split`), or h @ wo where it runs every head."""
+    if heads is None:
+        return h @ wo
+    lo = heads.rows[0] - heads.q[0] * hd
+    return _row_split(h[..., lo:lo + heads.rows[1] - heads.rows[0]], wo)
+
+
 def apply_attention(
     p: Params,
     cfg: ModelConfig,
@@ -273,16 +373,21 @@ def apply_attention(
     fresh whatever the cache, so it routes as a prefill does."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    # the rank's heads and KV heads (every head without a model axis)
-    H, KH = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
-    x = copy_to_model(x)
-
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    if cross_kv is None:
-        k = (x @ p["wk"]).reshape(B, S, KH, hd)
-        v = (x @ p["wv"]).reshape(B, S, KH, hd)
-    else:
-        k, v = cross_kv
+    heads = _head_split(cfg, current_mesh(), p)
+    if heads is not None and cross_kv is not None:
+        raise NotImplementedError(
+            "cross-attention over a model axis that splits the heads")
+    if heads is None:  # every head on this rank
+        H, KH = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+        q = (x @ p["wq"]).reshape(B, S, H, hd)
+        if cross_kv is None:
+            k = (x @ p["wk"]).reshape(B, S, KH, hd)
+            v = (x @ p["wv"]).reshape(B, S, KH, hd)
+        else:
+            k, v = cross_kv
+    else:  # the rank's heads over a model axis
+        q, k, v = _split_qkv(p, cfg, x, heads)
+        H = q.shape[2]
     if cfg.use_qk_norm:
         q = rms_norm_headdim(q)
         if cross_kv is None:
@@ -300,8 +405,8 @@ def apply_attention(
     if (cache is not None and cfg.ring_buffer_cache and attn_mode == "window"
             and window and cache["k"].shape[1] <= window):
         out = _ring_attention(q, k, v, cache, cache_index, window=window)
-        return _row_split(out.reshape(B, S, H * hd).to(p["wo"].dtype),
-                          p["wo"]), cache
+        return _out_proj(out.reshape(B, S, H * hd).to(p["wo"].dtype),
+                         p["wo"], heads, hd), cache
     prefill = cache is None or (isinstance(cache_index, int)
                                 and cache_index == 0)
     if cache is not None:
@@ -330,7 +435,8 @@ def apply_attention(
     else:
         out = blockwise_attention(q, k, v, causal=causal, window=eff_window,
                                   chunk=eff_chunk)
-    out = _row_split(out.reshape(B, S, H * hd).to(p["wo"].dtype), p["wo"])
+    out = _out_proj(out.reshape(B, S, H * hd).to(p["wo"].dtype), p["wo"],
+                    heads, hd)
     return out, cache
 
 
@@ -581,12 +687,16 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def apply_ffn(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    """Under a model axis: the rank's FFN columns, then `_row_split`."""
-    x = copy_to_model(x)
-    if kind in ("swiglu", "geglu"):
-        act = F.silu if kind == "swiglu" else _gelu
+def apply_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The `cfg.ffn` FFN. Under a model axis: the rank's FFN columns, then
+    `_row_split`; where the leaves are whole (the extent does not divide
+    `cfg.d_ff`), the whole FFN on every rank, with no message."""
+    split = _is_block(p["w_down"], 0, cfg.d_ff)
+    if split:
+        x = copy_to_model(x)
+    if cfg.ffn in ("swiglu", "geglu"):
+        act = F.silu if cfg.ffn == "swiglu" else _gelu
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])
     else:
         h = _gelu(x @ p["w_up"])
-    return _row_split(h, p["w_down"])
+    return _row_split(h, p["w_down"]) if split else h @ p["w_down"]

@@ -103,9 +103,10 @@ def check_model_axis(cfg: ModelConfig, mesh) -> None:
     execute over `mesh`'s model axis: every family but the dense one
     (MoE experts, MLA's wq_b / wkv_b, SSD, RG-LRU and encoder-decoder
     leaves, early fusion's frontend_proj), and a split that does not
-    divide the heads, the KV heads (the reference then splits inside a
-    head), the FFN width or the vocab (the reference then falls back to
-    `_ALT_SPECS`)."""
+    divide the vocab (the reference then falls back to `_ALT_SPECS`). Any
+    extent runs the dense family's heads, KV heads and FFN: a split inside
+    a head gathers its pieces, and leaves the extent does not divide stay
+    whole (`models/layers.py`)."""
     m = model_extent(mesh)
     if m == 1:
         return
@@ -123,12 +124,6 @@ def check_model_axis(cfg: ModelConfig, mesh) -> None:
         what = f"MoE experts (we_gate, we_up, we_down) {not_yet}"
     elif cfg.frontend_embed_dim:
         what = f"early fusion's frontend_proj and its activations {not_yet}"
-    elif cfg.num_heads % m or cfg.num_kv_heads % m:
-        what = (f"it does not divide num_heads {cfg.num_heads} and "
-                f"num_kv_heads {cfg.num_kv_heads} (the reference then splits "
-                f"inside a head)")
-    elif cfg.d_ff % m:
-        what = f"it does not divide the FFN width {cfg.d_ff}"
     elif cfg.vocab_size % m:
         what = (f"it does not divide the vocab of {cfg.vocab_size} (the "
                 f"reference then falls back to _ALT_SPECS, the d_model dim)")
@@ -212,7 +207,7 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Params, x, positions,
         if spec.has_moe:
             out2, aux = M.apply_moe(p["ffn"], cfg, h2)
         else:
-            out2 = L.apply_ffn(p["ffn"], h2, cfg.ffn)
+            out2 = L.apply_ffn(p["ffn"], h2, cfg)
         x = x + out2
     return x, new_cache, aux
 

@@ -42,8 +42,22 @@ restore reads each rank's rows of a node-axis leaf and the whole of the
 others, and the ranks agree on the CRCs the same way before any leaf
 lands. The messages go over `group` (a
 process group of the mesh's ranks: the snapshot writer passes its own),
-default the mesh's. A model axis is not covered (ROADMAP.md queue 1 item
-1).
+default the mesh's.
+
+**A model axis** (a mesh whose model extent is above 1; `specs`, the
+placements of the rank's state, `train.trainer.state_placements`). The
+checkpoint is still the one-process file of the gathered state, byte for
+byte. Leaf by leaf, the ranks send their blocks to the rank that writes
+them (`launch/sharding.py` `gather_to_first`): a node-axis leaf's over
+the model group to model index 0, which writes its node shard's rows of
+the whole leaf at their offset, as above (a model block's columns are
+strided in the row-major file, its rows are not); a leaf without a node
+axis (the exact mode's, ZeRO-1 blocks too) to rank 0, over each group
+that splits it in turn, and rank 0 writes it. No other rank builds a
+whole leaf, and a writer frees each once written, so it holds a few
+leaves whole at a time, never the state. A restore reads each rank's rows (or the
+whole leaf) and cuts its blocks out of them (`local_block`), onto any
+split: the one it was written on, another model extent, or one process.
 """
 from __future__ import annotations
 
@@ -62,6 +76,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import dist as rdist
+from repro_torch.launch import sharding as shlib
 
 Tree = Any
 
@@ -318,7 +333,8 @@ def _live_files(path: str) -> set:
 
 def save(path: str, tree: Tree, *, step: int = 0, meta: Optional[dict] = None,
          retries: int = 0, backoff_s: float = 0.05, model=None,
-         mesh=None, n_nodes: Optional[int] = None, group=None) -> None:
+         mesh=None, n_nodes: Optional[int] = None, group=None,
+         specs: Tree = None) -> None:
     """Crash-safe save: every leaf .npy is written BEFORE the manifest, and
     the manifest lands via temp file, `fsync` and atomic `os.replace`, so a
     checkpoint directory either has a manifest whose leaves are all complete
@@ -335,10 +351,12 @@ def save(path: str, tree: Tree, *, step: int = 0, meta: Optional[dict] = None,
     On a `mesh` that splits the node axis over ranks, `tree` is this
     rank's: its leaves with the node axis (`n_nodes` rows in all; None
     where no leaf has one, as an exact run's replicas) hold its rows, and
-    the ranks write one checkpoint together (the module docstring)."""
-    if rdist.is_sharded(mesh):
+    the ranks write one checkpoint together (the module docstring). Over
+    a model axis `specs` gives the placements of the rank's blocks."""
+    if rdist.multi_rank(mesh):
         return _save_split(path, tree, step, meta, retries, backoff_s,
-                           model, mesh, n_nodes, group)
+                           model, mesh, n_nodes, group,
+                           _placements(mesh, specs))
     os.makedirs(path, exist_ok=True)
     layout, leaves = _layout(tree, model)
     live = _live_files(path)
@@ -381,11 +399,31 @@ def _write_manifest(path: str, manifest: dict) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _check_split(mesh) -> None:
-    if rdist.model_extent(mesh) > 1:
-        raise NotImplementedError(
-            "checkpoints of a state split over a model axis are not ported "
-            "yet (ROADMAP.md queue 1 item 1)")
+def _placements(mesh, specs: Tree) -> Optional[Callable[[Path], tuple]]:
+    """path -> the placement of the rank's leaf there, over a model axis
+    (`specs`: a tree shaped as the state), else None."""
+    if rdist.model_extent(mesh) == 1:
+        return None
+    if specs is None:
+        raise ValueError("a state split over a model axis is checkpointed "
+                         "by its placements: pass specs= "
+                         "(train.trainer.state_placements)")
+
+    def at(path: Path) -> tuple:
+        node = specs
+        for kind, k in path:
+            node = getattr(node, k) if kind == "f" else node[k]
+        return node
+
+    return at
+
+
+def _whole_shape(shape, spec, mesh) -> List[int]:
+    """The shape of a leaf whose rank's block is `shape` under `spec`,
+    the node axis's rows aside (the inverse of `local_shape`)."""
+    dims = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return [s if d is None else s * shlib._axis_size(mesh, d)
+            for s, d in zip(shape, dims)]
 
 
 def _root(group) -> int:
@@ -428,13 +466,24 @@ def _write_rows(fpath: str, offset: int, data, retries: int,
 
 
 def _save_split(path, tree, step, meta, retries, backoff_s, model, mesh,
-                n_nodes, group) -> None:
-    _check_split(mesh)
+                n_nodes, group, spec_at) -> None:
     group = mesh.group if group is None else group
     lead = dist.get_rank(group) == 0
+    # the rank that writes its node shard's rows: model index 0
+    writer = rdist.model_index(mesh) == 0
     layout, leaves = _layout(tree, model)
     rows = rdist.node_rows(mesh, n_nodes) if n_nodes else None
     local = None if rows is None else rows.stop - rows.start
+
+    def joined(entry: _Entry) -> Dict[Path, Any]:
+        """The entry's leaves with their model (and ZeRO-1) blocks
+        gathered to the first rank of their groups, None on the others:
+        messages every rank takes part in, in the layout's order."""
+        if spec_at is None:
+            return leaves
+        return {p: (shlib.gather_to_first(leaves[p], spec_at(p), mesh)
+                    if isinstance(leaves[p], torch.Tensor) else leaves[p])
+                for p in entry.paths}
 
     def node(key: str, count: int) -> bool:
         """Whether leaf `key` (`count` rows) holds this rank's rows
@@ -448,8 +497,7 @@ def _save_split(path, tree, step, meta, retries, backoff_s, model, mesh,
         return True
 
     error = None
-    # rank 0: the file names, the node-axis leaves' headers and sizes, the
-    # leaves without a node axis
+    # rank 0: the file names, and the node-axis leaves' headers and sizes
     plan = {}
     if lead:
         try:
@@ -457,31 +505,37 @@ def _save_split(path, tree, step, meta, retries, backoff_s, model, mesh,
             live = _live_files(path)
             for key, entry in layout.items():
                 fname = _file_name(key, step, live)
-                fpath = os.path.join(path, fname)
+                first = leaves[entry.paths[0]]
+                # the dtype from one entry (a model block is not whole)
+                head_arr, dtype = _host(first.reshape(-1)[:1]
+                                        if isinstance(first, torch.Tensor)
+                                        else first)
+                shape = (list(first.shape) if isinstance(first, torch.Tensor)
+                         else list(np.shape(head_arr)))
+                if spec_at is not None and isinstance(first, torch.Tensor):
+                    shape = _whole_shape(shape, spec_at(entry.paths[0]),
+                                         mesh)
                 # the stacked shape, without stacking the node-axis leaves
-                first, dtype = _host(leaves[entry.paths[0]])
-                shape = list(first.shape)
                 if entry.axis is not None:
                     shape.insert(entry.axis, len(entry.paths))
+                head = None
                 if shape and node(key, shape[0]):
                     shape[0] = n_nodes
-                    with open(fpath, "wb") as f:
-                        head = _header(f, first, dtype, shape)
-                        f.truncate(head + first.itemsize * math.prod(shape))
-                    plan[key] = (fname, dtype, shape, head, None)
-                else:
-                    arr, dtype = _entry_array(entry, leaves)
-                    _save_leaf(fpath, arr, dtype, retries=retries,
-                               backoff_s=backoff_s)
-                    plan[key] = (fname, dtype, list(arr.shape), None,
-                                 _crc32(arr))
+                    with open(os.path.join(path, fname), "wb") as f:
+                        head = _header(f, head_arr, dtype, shape)
+                        f.truncate(head + head_arr.itemsize
+                                   * math.prod(shape))
+                plan[key] = (fname, dtype, shape, head)
         except Exception as e:
             error = f"rank 0: {type(e).__name__}: {e}"
     plan, error = _bcast((plan, error), group)
-    # every rank: its rows of the node-axis leaves, at their offsets
-    def write(key):
-        fname, _, _, head, _ = plan[key]
-        arr, _ = _entry_array(layout[key], leaves)
+
+    # every rank, leaf by leaf: the model blocks gathered to the ranks that
+    # write them (messages), then the writers' rows of the node-axis leaves
+    # at their offsets and rank 0's leaves without a node axis, IO_THREADS
+    # files at a time
+    def write_rows(key, arr):
+        fname, _, _, head = plan[key]
         node(key, arr.shape[0])
         data = _bytes(arr)
         row_bytes = data.nbytes // max(local, 1)
@@ -489,23 +543,52 @@ def _save_split(path, tree, step, meta, retries, backoff_s, model, mesh,
                     head + rows.start * row_bytes, data, retries, backoff_s)
         return rows.start, zlib.crc32(data) & 0xFFFFFFFF, data.nbytes
 
-    crcs = {}
+    def write_whole(key, arr):
+        fname, dtype = plan[key][:2]
+        _save_leaf(os.path.join(path, fname), arr, dtype, retries=retries,
+                   backoff_s=backoff_s)
+        return _crc32(arr)
+
+    crcs, whole, pending = {}, {}, []
+
+    def settle(n: int) -> None:
+        """Wait for all but the newest n writes; record their results."""
+        nonlocal error
+        while len(pending) > n:
+            key, fut = pending.pop(0)
+            try:
+                (crcs if plan[key][3] is not None else whole)[key] = \
+                    fut.result()
+            except Exception as e:
+                error = error or f"rank {mesh.rank}: {type(e).__name__}: {e}"
+
     if error is None:
-        try:
-            node_keys = [k for k in layout if plan[k][3] is not None]
-            with ThreadPoolExecutor(IO_THREADS) as pool:
-                crcs = dict(zip(node_keys, pool.map(write, node_keys)))
-        except Exception as e:
-            error = f"rank {mesh.rank}: {type(e).__name__}: {e}"
+        with ThreadPoolExecutor(IO_THREADS) as pool:
+            for key, entry in layout.items():
+                rowed = plan[key][3] is not None
+                try:
+                    got = joined(entry)
+                    if error is not None or not (writer if rowed else lead):
+                        continue
+                    arr, _ = _entry_array(entry, got)
+                except Exception as e:
+                    error = error or (f"rank {mesh.rank}: "
+                                      f"{type(e).__name__}: {e}")
+                    continue
+                pending.append((key, pool.submit(
+                    write_rows if rowed else write_whole, key, arr)))
+                del arr, got
+                settle(IO_THREADS)
+            settle(0)
     parts = _gather((crcs, error), group)
     errors = [e for _, e in parts if e is not None]
     if lead and not errors:
         try:
             manifest = {"step": step, "meta": meta or {}, "leaves": {}}
             for key in layout:
-                fname, dtype, shape, head, crc = plan[key]
-                if head is not None:
-                    crc = _combined(c[key] for c, _ in parts)[0]
+                fname, dtype, shape, head = plan[key]
+                crc = (whole[key] if head is None else
+                       _combined(c[key] for c, _ in parts if key in c)[0])
                 manifest["leaves"][key] = {"file": fname, "dtype": dtype,
                                            "shape": shape, "crc32": crc}
             _write_manifest(path, manifest)
@@ -558,7 +641,8 @@ def _read_split(path: str, layout, leaves, mesh, group, n_nodes,
         parts = _gather((crcs, bad), group)
         bad = {k for _, b in parts for k in b}
         for key in crcs:
-            got = _combined(c[key] for c, _ in parts if key in c)
+            # the ranks of a model group read the same rows: once each
+            got = _combined({c[key] for c, _ in parts if key in c})
             want = manifest["leaves"][key]
             if got != (want.get("crc32", got[0]), _entry_nbytes(want)):
                 bad.add(key)
@@ -683,7 +767,8 @@ def _rebuild(tree: Tree, values: Dict[Path, Any], path: Path = ()) -> Tree:
 
 def restore(path: str, like: Tree, *, put: Optional[Callable] = None,
             verify: bool = True, model=None, into: bool = False,
-            mesh=None, n_nodes: Optional[int] = None, group=None) -> Tree:
+            mesh=None, n_nodes: Optional[int] = None, group=None,
+            specs: Tree = None) -> Tree:
     """Restore into the structure of `like`. Each leaf lands on the device
     and dtype of `like`'s leaf (Python ints stay ints); with `into`, the
     tensors of `like` receive the values in place and the returned tree
@@ -700,7 +785,8 @@ def restore(path: str, like: Tree, *, put: Optional[Callable] = None,
     its rows of the node-axis leaves and the whole of the others, and the
     ranks agree on the CRC32s over `group` (default the mesh's) before any
     leaf lands, so a failure raises on every rank and leaves `like` as it
-    was."""
+    was. Over a model axis each rank cuts its blocks (placed by `specs`,
+    as in `save`) out of what it reads."""
     manifest = load_manifest(path)
     layout, leaves = _layout(like, model)
     want, have = set(layout), set(manifest["leaves"])
@@ -712,20 +798,27 @@ def restore(path: str, like: Tree, *, put: Optional[Callable] = None,
             f"missing from checkpoint: {missing or 'none'}; "
             f"present in checkpoint but not in target: {extra or 'none'}")
     values: Dict[Path, Any] = {}
+    spec_at = _placements(mesh, specs) if rdist.multi_rank(mesh) else None
+
+    def block(p: Path, value: torch.Tensor) -> torch.Tensor:
+        """The rank's block of a leaf it read whole (its node rows)."""
+        if spec_at is None or not isinstance(leaves[p], torch.Tensor):
+            return value
+        return shlib.local_block(value, spec_at(p), mesh)
 
     def land(key: str, value: torch.Tensor) -> None:
         entry = layout[key]
         if put is not None:
             value = put(key, value)
         if entry.axis is None:
-            values[entry.paths[0]] = _land(value, leaves[entry.paths[0]],
-                                           into)
+            p = entry.paths[0]
+            values[p] = _land(block(p, value), leaves[p], into)
         else:
             for r, p in enumerate(entry.paths):
-                values[p] = _land(value.select(entry.axis, r), leaves[p], into)
+                values[p] = _land(block(p, value.select(entry.axis, r)),
+                                  leaves[p], into)
 
-    if rdist.is_sharded(mesh):
-        _check_split(mesh)
+    if rdist.multi_rank(mesh):
         bad = _read_split(path, layout, leaves, mesh,
                           mesh.group if group is None else group, n_nodes,
                           verify, land)

@@ -96,8 +96,8 @@ run there too: the publisher's and the snapshotter's decisions are rank
 masked row sums (`train.trainer.publish_extract`), every rank writes its
 own rows of one checkpoint in the reference's layout and restores its rows
 from any checkpoint of the same run, split or not (`train.snapshot`).
-Snapshots and resuming over a model axis raise (ROADMAP.md queue 1 item
-1).
+Over a model axis the same: each leaf's blocks are joined before their
+rows are written, and cut again from the rows a rank reads.
 """
 from __future__ import annotations
 
@@ -118,8 +118,8 @@ from repro_torch.data.pipeline import (DevicePrefetcher, StreamCounters,
                                        StreamingPipeline, exact_split_error,
                                        shard_batch, stage_batch)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist import (check_mesh, is_sharded, model_extent,
-                              multi_rank, n_data_nodes)
+from repro_torch.dist import (check_mesh, is_sharded, multi_rank,
+                              n_data_nodes)
 from repro_torch.train.trainer import (make_node_batch, publish_extract,
                                        superstep_builder as lm_superstep_builder)
 
@@ -251,13 +251,6 @@ class StreamingDriver:
             n_nodes = n_data_nodes(mesh)
         # the ranks of a split node axis or of a model axis step in lockstep
         self._sharded = multi_rank(mesh)
-        if model_extent(mesh) > 1:
-            for what, arg in (("snapshots", snapshotter),
-                              ("resuming", resume_from)):
-                if arg is not None:
-                    raise NotImplementedError(
-                        f"{what} of a state split over a model axis are not "
-                        f"ported yet (ROADMAP.md queue 1 item 1)")
         self.device = resolve_device(device)
         self.run_cfg = run_cfg
         self.mesh = mesh

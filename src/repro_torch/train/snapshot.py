@@ -51,7 +51,9 @@ set-up). Each rank copies its own rows, and the writers save one
 checkpoint together (`checkpoint.save(mesh=...)`: each rank writes its
 rows, rank 0 the manifest). The writers' messages go over a process group
 of their own, made at `bind`: gloo does not order two threads' messages
-on one group, and the training thread's go over the mesh's. Whether to
+on one group, and the training thread's go over the mesh's; over a model
+axis they also join each leaf's blocks over model and data groups of
+their own (`checkpoint.save(specs=...)`). Whether to
 snapshot is rank 0's decision (cadence, cost governor, a busy writer),
 broadcast to the others, which wait for their own writer where it is
 still finishing: a rank that decided alone would leave the others waiting
@@ -74,6 +76,7 @@ from repro_torch import dist as rdist
 from repro_torch.core.mixing import Membership
 from repro_torch.core.packing import map_tensors
 from repro_torch.core.rates import Plan
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.train import checkpoint
 
 
@@ -124,6 +127,17 @@ def _model_of(driver):
     return getattr(getattr(driver, "run_cfg", None), "model", None)
 
 
+def _specs_of(driver):
+    """The placements of the driver's state over its mesh's model axis
+    (`train.trainer.state_placements`), or None."""
+    mesh = getattr(driver, "mesh", None)
+    if rdist.model_extent(mesh) == 1:
+        return None
+    from repro_torch.train.trainer import state_placements
+
+    return state_placements(driver.run_cfg, mesh, driver.state)
+
+
 def restore_driver(driver, root_or_path: str) -> str:
     """Restore a freshly constructed `StreamingDriver` to the exact point a
     snapshot was taken. `root_or_path` is either a snapshot root (the newest
@@ -144,7 +158,7 @@ def restore_driver(driver, root_or_path: str) -> str:
     alike) leaves the state as it was, and the next older one is tried."""
     mesh = getattr(driver, "mesh", None)
     model = _model_of(driver)
-    if rdist.is_sharded(mesh):
+    if rdist.multi_rank(mesh):
         path = _restore_split(driver, root_or_path, model, mesh)
     else:
         if checkpoint.list_steps(root_or_path):
@@ -190,18 +204,20 @@ def restore_driver(driver, root_or_path: str) -> str:
 
 
 def _restore_split(driver, root_or_path: str, model, mesh) -> str:
-    """`restore_driver`'s checkpoint on a split node axis: the newest of
-    rank 0's step directories under `root_or_path` (or that directory)
-    whose restore passes, restored into this rank's rows."""
+    """`restore_driver`'s checkpoint on a split node axis or a model
+    axis: the newest of rank 0's step directories under `root_or_path`
+    (or that directory) whose restore passes, restored into this rank's
+    rows and blocks."""
     steps = rdist.broadcast_object(checkpoint.list_steps(root_or_path), mesh)
     paths = ([checkpoint.step_dir(root_or_path, s) for s in reversed(steps)]
              if steps else [root_or_path])
     n_nodes = driver.n_nodes if driver.decentralized else None
+    specs = _specs_of(driver)
     for path in paths:
         try:
             driver.state = checkpoint.restore(path, driver.state, model=model,
                                               into=True, mesh=mesh,
-                                              n_nodes=n_nodes)
+                                              n_nodes=n_nodes, specs=specs)
             return path
         except (OSError, ValueError):  # torn or corrupt, on every rank
             continue
@@ -250,8 +266,9 @@ class RunSnapshotter:
         self.alpha = alpha
         self.clock = clock
         self.stats = SnapshotStats()
-        self.mesh = None  # a split node axis's mesh (`bind`)
-        self._group = None  # the writers' own process group
+        self.mesh = None  # a split node axis's or a model axis's mesh
+        self._group = None  # the writers' own process group (`bind`)
+        self._wmesh = None  # the mesh the writers save over (`bind`)
         self._pinned: List[torch.Tensor] = []  # host buffers, leaf order
         self._last_dispatch_t: Optional[float] = None
         self._in_flight: Optional[threading.Event] = None  # last save's done
@@ -272,14 +289,15 @@ class RunSnapshotter:
         process."""
         if not rdist.multi_rank(mesh) or self.mesh is not None:
             return
-        if rdist.model_extent(mesh) > 1:
-            raise NotImplementedError(
-                "snapshots of a state split over a model axis are not "
-                "ported yet (ROADMAP.md queue 1 item 1)")
         world = dist.get_world_size(mesh.group)
         self._group = dist.new_group(
             [r if mesh.group is None else dist.get_global_rank(mesh.group, r)
              for r in range(world)])
+        # over a model axis the writers join the blocks over model and data
+        # groups of their own, beside their own copy of the mesh's
+        self._wmesh = (make_mesh(mesh.sizes, mesh.axis_names,
+                                 group=self._group)
+                       if rdist.model_extent(mesh) > 1 else mesh)
         self.mesh = mesh
 
     # ------------------------------------------------------------- capture
@@ -339,7 +357,8 @@ class RunSnapshotter:
         # the node axis's rows in all (a split axis's checkpoint)
         n_nodes = (driver.n_nodes if self.mesh is not None
                    and driver.decentralized else None)
-        item = (step, host, ready, meta, _model_of(driver), n_nodes, done)
+        item = (step, host, ready, meta, _model_of(driver), n_nodes,
+                _specs_of(driver), done)
         if self.mesh is not None:  # rank 0 decided: every rank's writer
             self._q.put(item)  # takes part, once its queue has room
         else:
@@ -389,7 +408,7 @@ class RunSnapshotter:
             if isinstance(item, tuple) and isinstance(item[0], _Flush):
                 item[1].set()
                 continue
-            step, host, ready, meta, model, n_nodes, done = item
+            step, host, ready, meta, model, n_nodes, specs, done = item
             t0 = time.perf_counter()
             try:
                 if ready is not None:
@@ -397,8 +416,8 @@ class RunSnapshotter:
                 checkpoint.save(checkpoint.step_dir(self.root, step), host,
                                 step=step, meta=meta, retries=self.retries,
                                 backoff_s=self.backoff_s, model=model,
-                                mesh=self.mesh, n_nodes=n_nodes,
-                                group=self._group)
+                                mesh=self._wmesh, n_nodes=n_nodes,
+                                group=self._group, specs=specs)
                 if self.mesh is None or self.mesh.rank == 0:
                     checkpoint.prune(self.root, self.keep_last)
                 self.stats.saves += 1

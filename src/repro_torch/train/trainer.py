@@ -76,18 +76,19 @@ gossips between them over each rank's lane
 
 Over a model axis of extent above 1 (the dense family,
 `models.transformer.check_model_axis`) every rank holds blocks of the
-reference's placements (`launch/sharding.py`), cut by `init_state`, and
-computes its loss and gradient under `models.common.mesh_rules`
-(tensor-parallel layers, a vocab-parallel loss). The exact mode is FSDP
-with ZeRO-1: at rest a rank holds its `zero1_specs` block of the
-parameters, f32 masters and moments; each step all-gathers its model
-shard's parameters over the data group, reduce-scatters the f32 gradient
-(the mean) back to its block (an all-reduce for a leaf that ZeRO-1 leaves
-whole over the data axes) and updates its block. The decentralized mode
-holds `param_specs` blocks of its node rows; each model index mixes its
-own columns over the node axis, leaf by leaf. The quantized and
-error-feedback wires are refused there: their statistic tiles run over
-the whole flattened leaf in the reference.
+reference's placements (`launch/sharding.py`; leaves the extent does not
+divide whole), cut by `init_state`, and computes its loss and gradient
+under `models.common.mesh_rules` (tensor-parallel layers, heads split
+inside a head joined where they are used, a vocab-parallel loss). The
+exact mode is FSDP with ZeRO-1: at rest a rank holds its `zero1_specs`
+block of the parameters, f32 masters and moments; each step all-gathers
+its model shard's parameters over the data group, reduce-scatters the
+f32 gradient (the mean) back to its block (an all-reduce for a leaf
+that ZeRO-1 leaves whole over the data axes) and updates its block. The
+decentralized mode holds `param_specs` blocks of its node rows; each
+model index mixes its own columns over the node axis, leaf by leaf. The
+quantized and error-feedback wires are refused there: their statistic
+tiles run over the whole flattened leaf in the reference.
 """
 from __future__ import annotations
 
@@ -123,10 +124,12 @@ class TrainState(NamedTuple):
 
 
 def check_supported(run, mesh) -> None:
-    """Raise on what the trainer does not run over `mesh`: a model axis
-    beyond `check_model_axis`, or with a quantized or error-feedback wire,
-    or under the hierarchical mode on a split node axis; and error
-    feedback outside the gossip mode (ValueError, as the reference)."""
+    """Raise on what the trainer does not run over `mesh`: on a model
+    axis, the families and the vocab `check_model_axis` refuses (any
+    extent runs the dense family's heads, KV heads and FFN), a quantized
+    or error-feedback wire, or the hierarchical mode on a split node axis;
+    and error feedback outside the gossip mode (ValueError, as the
+    reference)."""
     avg = run.averaging
     if model_extent(mesh) > 1:
         check_model_axis(run.model, mesh)
@@ -193,6 +196,24 @@ def rest_specs(cfg, mesh, exact: bool, node_axis: bool = False) -> Tree:
         return shlib.map_with_path(lambda _, leaf, sp: (None,) + tuple(sp),
                                    meta, pspec)
     return pspec
+
+
+def state_placements(run, mesh, state: TrainState) -> Optional[TrainState]:
+    """The placements of this rank's `state` of `run` over `mesh`'s model
+    axis: a TrainState of placement trees (`rest_specs`: the exact mode's
+    ZeRO-1 blocks, the decentralized modes' model shards after the node
+    axis) for the parameters and every optimizer tree the state holds, by
+    which a split checkpoint gathers and cuts the blocks
+    (`train.checkpoint.save(specs=...)`); None without a model axis."""
+    if model_extent(mesh) == 1:
+        return None
+    exact = run.averaging.mode == "exact"
+    spec = rest_specs(run.model, mesh, exact, node_axis=not exact)
+    opt = state.opt
+    like = lambda tree: spec if tree != () else ()
+    return TrainState(spec, opt._replace(
+        step=(), m=like(opt.m), v=like(opt.v), master=like(opt.master),
+        ef_residual=like(opt.ef_residual)))
 
 
 def replicate_for_nodes(state: TrainState, n_nodes: int) -> TrainState:

@@ -293,14 +293,19 @@ def test_prefill_argument_bytes_are_the_cpu_serve_state():
 
 
 def test_model_axis_is_planned_not_executed():
-    """On a {data 4, model 2} mesh: ZeRO-1 and model placements shrink the
-    arguments, the temporaries are the unsplit bound (flagged), and the
-    Megatron split's activation all-reduces are planned: two per layer
-    forward, times 3 with the backward and remat."""
-    cfg = reduced(get_config("granite-8b"))
-    one = _plan("granite-8b", "train_4k", microbatches=1)
-    rec = _plan("granite-8b", "train_4k", dryrun.parse_mesh("4x2"),
-                microbatches=1)
+    """On a {data 4, model 2} mesh, for a config the trainer refuses there
+    (reduced granite-8b with a vocab of 513, which 2 does not divide: the
+    reference falls back to `_ALT_SPECS`): ZeRO-1 and model placements
+    shrink the arguments, the temporaries are the unsplit bound
+    (flagged), and the Megatron split's activation all-reduces are
+    planned: two per layer forward, times 3 with the backward and
+    remat."""
+    cfg = dataclasses.replace(reduced(get_config("granite-8b")),
+                              vocab_size=513)
+    kw = dict(cfg=cfg, shape=_tiny("train_4k"), microbatches=1)
+    one = dryrun.plan("granite-8b", "train_4k", ONE, **kw)
+    rec = dryrun.plan("granite-8b", "train_4k", dryrun.parse_mesh("4x2"),
+                      **kw)
     assert rec["temp_unsplit_over_model"] is True
     assert rec["memory"]["argument_gib"] < one["memory"]["argument_gib"] / 4
     planned = rec["collectives_planned"]
@@ -352,12 +357,14 @@ def test_model_axis_executes_for_the_dense_family():
 
 def test_refused_families_keep_the_model_axis_planned():
     """A config the trainer refuses over the model axis keeps both flags
-    and says why: reduced granite-8b's one KV head on a model axis of 2."""
-    rec = _plan("granite-8b", "train_4k", dryrun.parse_mesh("4x2"),
+    and says why: reduced qwen2-moe-a2.7b's experts on a model axis of 2
+    (reduced granite-8b's one KV head, refused before heads split inside
+    a head, now executes: tests/test_torch_model_axis_heads.py)."""
+    rec = _plan("qwen2-moe-a2.7b", "train_4k", dryrun.parse_mesh("4x2"),
                 microbatches=1)
     assert rec["temp_unsplit_over_model"] is True
     assert rec["collectives_planned"]["all-reduce.count"] > 0
-    assert "num_kv_heads 1" in rec["model_axis_refused"]
+    assert "MoE experts" in rec["model_axis_refused"]
     assert "collectives_model" not in rec
 
 

@@ -17,13 +17,17 @@ numpy.
   device from the same state (`convert.train_state(mesh=...)` of the
   reference's): tests/test_torch_trainer.py's bounds (parameters within
   rtol = atol = 1e-5, losses and the consensus error within rtol 1e-5).
-  The reduced granite keeps 4 KV heads here: its 2 do not split over 4.
+  The reduced granite keeps 4 KV heads here, one a rank on 1 x 4
+  (tests/test_torch_model_axis_heads.py runs its 2, half a KV head a
+  rank).
 * (c) Each rank's bytes at rest equal the planner's `local_bytes`, and
   each step's messages by axis equal the planner's trace of the same step
   (`repro_torch.launch.dryrun`): the model axis's count and bytes, the
   data axis's count.
 * (d) What the model axis does not execute raises NotImplementedError
-  naming it.
+  naming it; heads, KV heads and FFN widths the extent does not divide
+  execute, and the planner traces the dense archs on the production
+  16 x 16 mesh as executed.
 """
 import dataclasses
 
@@ -275,7 +279,6 @@ def test_publish_extract_gathers_the_model_axis(trained, mode):
 def _refusals():
     gossip = lambda **kw: AveragingConfig("gossip", 2, **kw)
     cases = [  # (arch, config changes, averaging, model extent, match)
-        ("granite-8b", {}, gossip(), 4, "num_kv_heads 2"),
         ("qwen2-moe-a2.7b", {}, gossip(), 2, "MoE experts"),
         ("granite-8b", {}, gossip(quantization="int8"), 2, "int8 wire"),
         ("granite-8b", {}, gossip(error_feedback="grads"), 2,
@@ -308,3 +311,41 @@ def test_model_axis_refusals(arch, changes, avg, model, match):
     with pytest.raises(NotImplementedError, match=match):
         trainer.init_state(run, torch.Generator().manual_seed(0), mesh)
     assert match in dryrun.model_axis_refusal(run, mesh)
+
+
+@pytest.mark.parametrize("changes,model", [
+    ({}, 4),  # 2 KV heads: half a KV head a rank
+    ({"num_heads": 6, "head_dim": 64}, 4),  # 1.5 heads a rank
+    ({"d_ff": 1022}, 4),  # w_gate, w_up and w_down kept whole
+])
+def test_model_axis_executes_heads_the_extent_cuts(changes, model):
+    """What the model axis refused before heads split inside a head now
+    executes: the trainer builds its step and cuts its state, and the
+    planner's record has no refusal."""
+    cfg = dataclasses.replace(reduced(get_config("granite-8b"), d_model=512),
+                              **changes)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                    averaging=AveragingConfig("gossip", 2), optimizer="sgd",
+                    param_dtype="float32")
+    mesh = Mesh((1, model), ("data", "model"))
+    trainer.check_supported(run, mesh)
+    assert dryrun.model_axis_refusal(run, mesh) is None
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "phi4-mini-3.8b",
+                                  "starcoder2-15b", "chameleon-34b"])
+def test_dryrun_traces_dense_archs_on_the_production_mesh(arch):
+    """The planner traces each dense arch (2 layers at its published
+    widths) on the reference's 16 x 16 mesh as each rank runs it: the
+    model axis executed, its KV heads split inside a head, whose pieces
+    cross the model group as all-gathers and reduce-scatters."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    rec = dryrun.plan(arch, "train_4k", mesh, cfg=cfg, microbatches=1,
+                      shape=ShapeConfig("t", 256, 16, "train"))
+    assert rec["temp_unsplit_over_model"] is False
+    assert "model_axis_refused" not in rec
+    assert rec["collectives_planned"] == {}
+    model = rec["collectives_model"]
+    assert model["all-reduce.count"] > 0
+    assert model["all-gather.count"] > 0 and model["reduce-scatter.count"] > 0

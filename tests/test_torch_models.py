@@ -190,7 +190,8 @@ def test_apply_ffn_matches_jax(kind):
     jp = JL.init_ffn(jax.random.PRNGKey(3), 32, 64, kind, jnp.float32)
     tp = jax.tree.map(lambda a: torch.from_numpy(np.asarray(a).copy()), jp)
     jx, tx = _pair((2, 5, 32), 12)
-    _close(TL.apply_ffn(tp, tx, kind), JL.apply_ffn(jp, jx, kind))
+    cfg = _cfgs(ffn=kind, d_model=32, d_ff=64)[1]
+    _close(TL.apply_ffn(tp, tx, cfg), JL.apply_ffn(jp, jx, kind))
 
 
 # ---------------------------------------------------------------------------

@@ -27,9 +27,10 @@ worker run per world size), against the JAX package on one process:
 * two registered scenarios on 2 ranks, N = 8 (ring/lossy/iid_pca and
   tv_rte/ratelimited/drift_pca): the same checks;
 * the launcher under `torchrun` on 2 ranks with `--scenario` and
-  `--faults` together; `--publish`, `--checkpoint` and `--resume` still
-  raise NotImplementedError naming ROADMAP.md, as the driver's publisher,
-  snapshotter and `resume_from` do.
+  `--faults` together, and with `--publish`; `--checkpoint` and
+  `--resume` over a model axis of a family it does not execute raise
+  NotImplementedError naming ROADMAP.md, as the driver's snapshotter and
+  `resume_from` do.
 """
 import os
 import subprocess
@@ -282,9 +283,12 @@ TWO = rdist.Mesh((2, 1), ("data", "model"))
 def test_driver_durability_on_a_split_axis_still_raises(arg, tmp_path):
     """Publication, snapshots and resuming run on a split node axis
     (tests/test_torch_shard_durability.py runs them on ranks): a publisher
-    binds to the split mesh, and rank 0 decides for the others. What
-    still raises is a snapshot or a resume of a state split over a model
-    axis (ROADMAP.md queue 1 item 1)."""
+    binds to the split mesh, and rank 0 decides for the others. Over a
+    model axis they run too for the families it executes
+    (tests/test_torch_model_axis_durability.py); what still raises is a
+    snapshot or a resume of a family it does not execute (the MoE
+    experts: ROADMAP.md queue 1 item 1), before any process group is
+    entered."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
     from repro_torch.core.faults import FaultSchedule
@@ -303,11 +307,11 @@ def test_driver_durability_on_a_split_axis_still_raises(arg, tmp_path):
         return
     value = (RunSnapshotter(str(tmp_path)) if arg == "snapshotter"
              else str(tmp_path))
-    run = RunConfig(model=reduced(get_config("granite-8b")),
+    run = RunConfig(model=reduced(get_config("qwen2-moe-a2.7b")),
                     shape=SHAPES["train_4k"],
                     averaging=AveragingConfig(mode="gossip", rounds=2))
     try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+        with pytest.raises(NotImplementedError, match="MoE experts"):
             StreamingDriver(run, rdist.Mesh((1, 2), ("data", "model")), None,
                             lambda rng, n: {}, n_nodes=2, device="cpu",
                             **{arg: value})
@@ -396,8 +400,10 @@ def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path,
                                                          monkeypatch):
     """`--publish` runs under torchrun (2 ranks, rank 0's versions on
     both; tests/test_torch_shard_durability.py runs `--checkpoint-every`
-    and `--resume` there); `--checkpoint` and `--resume` of a state split
-    over a model axis still raise (ROADMAP.md queue 1 item 1)."""
+    and `--resume` there, tests/test_torch_model_axis_durability.py over
+    a model axis); `--checkpoint` and `--resume` of a family the model
+    axis does not execute still raise (the MoE experts: ROADMAP.md queue
+    1 item 1)."""
     from repro_torch.launch import train as launch_train
 
     if flags == ["--publish"]:
@@ -411,10 +417,10 @@ def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path,
         assert pubs == ["publisher: v2"] * 2
         return
     flags = [str(tmp_path / f) if f == "ck" else f for f in flags]
-    monkeypatch.setattr(launch_train, "make_host_mesh", lambda: rdist.Mesh(
-        (1, 2), ("data", "model")))
+    monkeypatch.setattr(launch_train, "make_host_mesh",
+                        lambda **kw: rdist.Mesh((1, 2), ("data", "model")))
     ap = launch_train._parser()
-    args = ap.parse_args(["--arch", "granite-8b", "--reduced", "--device",
-                          "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    args = ap.parse_args(["--arch", "qwen2-moe-a2.7b", "--reduced",
+                          "--device", "cpu", "--model-axis", "2", *flags])
+    with pytest.raises(NotImplementedError, match="MoE experts"):
         launch_train._train(ap, args, distributed=True)

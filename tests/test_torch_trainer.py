@@ -307,10 +307,10 @@ def test_init_state_masters_and_replication():
 
 
 def test_later_slices_raise():
-    """A model axis that the reduced granite's one KV head does not split
-    raises (queue 1 item 1; one that splits it trains:
-    tests/test_torch_model_axis.py; a node-only mesh trains:
-    tests/test_torch_trainer_dist.py);
+    """A model axis that the reduced granite's vocab does not divide
+    raises (queue 1 item 1; one that divides it trains, its one KV head
+    split inside the head: tests/test_torch_model_axis_heads.py; a
+    node-only mesh trains: tests/test_torch_trainer_dist.py);
     error feedback (gossip only, as in the
     reference) and cohort supersteps build: the cohort's takes the active
     ids and works on the full state (tests/test_torch_elastic.py holds it
@@ -324,8 +324,10 @@ def test_later_slices_raise():
         ef.averaging, mode="hierarchical"))
     with pytest.raises(ValueError, match="error-feedback"):
         trainer.superstep_builder(hier, None, n_nodes=N, device="cpu")
-    with pytest.raises(NotImplementedError, match="num_kv_heads 1"):
-        trainer.build_train_step(trun, Mesh((1, 2), ("data", "model")),
+    odd = dataclasses.replace(trun, model=dataclasses.replace(
+        trun.model, vocab_size=513))
+    with pytest.raises(NotImplementedError, match="_ALT_SPECS"):
+        trainer.build_train_step(odd, Mesh((1, 2), ("data", "model")),
                                  n_nodes=N, device="cpu")
     build = trainer.superstep_builder(trun, None, n_nodes=N, device="cpu")
     cohort = build(B, Membership.full(N).drop(1))

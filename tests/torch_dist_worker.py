@@ -64,7 +64,10 @@ def spawn(case: str, world: int, tmp_path, inp=None, during=None):
     for r, (p, out, _) in enumerate(procs):
         text = (tmp_path / f"{case}_{world}_{r}.log").read_text()
         assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{text}"
-    res = [torch.load(out, weights_only=False) for _, out, _ in procs]
+    res = []
+    for _, out, _ in procs:
+        res.append(torch.load(out, weights_only=False))
+        out.unlink()  # loaded: the disk holds every test's tmp until the end
     return res if during is None else (res, extra)
 
 
@@ -301,19 +304,27 @@ def _state_bytes(state) -> int:
 
 def model_layers(mesh, inp):
     """tests/test_torch_model_axis.py (a): each arch's loss and gradients
-    on a model axis of 2, from the reference's parameters cut to this
-    rank's blocks (`convert.lm_params(mesh=...)`), with and without remat;
-    the gradients gathered whole again (`gather_tree`)."""
-    from repro_torch import convert
+    on a model axis of 2, with and without remat (`_layer_grads`)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    return _layer_grads(torch.load(inp, weights_only=False),
+                        make_host_mesh(model=mesh.size), (True, False))
+
+
+def _layer_grads(given, mesh, remats, lean=False):
+    """Each case's loss and gradients on `mesh`'s model axis, from the
+    reference's parameters cut to this rank's blocks
+    (`convert.lm_params(mesh=...)`), under each of `remats`; the
+    gradients gathered whole again (`gather_tree`; with `lean`, on rank 0
+    only, and their `digest` on every rank), and the model axis's
+    messages of the loss and its gradient (`dist.log`)."""
+    from repro_torch import convert, dist as rdist
     from repro_torch.core.packing import tree_leaves, tree_map
     from repro_torch.launch import sharding as shlib
-    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import registry
     from repro_torch.models.common import mesh_rules
     from repro_torch.train.trainer import rest_specs
 
-    mesh = make_host_mesh(model=mesh.size)
-    given = torch.load(inp, weights_only=False)
     out = {}
     for arch, case in given.items():
         cfg = case["cfg"]
@@ -321,34 +332,63 @@ def model_layers(mesh, inp):
                                   cfg=cfg)
         spec = rest_specs(cfg, mesh, exact=False)
         batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
-        for remat in (True, False):
+        for remat in remats:
             live = [p.detach().requires_grad_() for p in tree_leaves(local)]
             it = iter(live)
             params = tree_map(lambda _: next(it), local)
+            rdist.reset_stats()
             with mesh_rules(mesh):
                 loss, metrics = registry.loss_fn(params, cfg, batch,
                                                  remat=remat)
                 grads = torch.autograd.grad(loss, live)
+            log = {k: list(v) for k, v in rdist.log.items()}
             it = iter(grads)
             whole = shlib.gather_tree(tree_map(lambda _: next(it), local),
                                       spec, mesh)
+            grads = [g.numpy() for g in tree_leaves(whole)]
             out[(arch, remat)] = {
                 "loss": float(loss), "ce": float(metrics["ce"]),
-                "grads": [g.numpy() for g in tree_leaves(whole)]}
+                "grads": None if lean and mesh.rank else grads,
+                "digest": digest(grads), "log": log}
     return out
+
+
+def digest(arrays) -> list:
+    """The CRC32 of each array's bytes: a rank's copy of leaves held
+    against another's, bit for bit, without sending them."""
+    import zlib
+
+    return [zlib.crc32(np.ascontiguousarray(a).tobytes()) for a in arrays]
+
+
+def np_leaves(tree) -> list:
+    """The numpy leaves of a tree of dicts (keys sorted) and lists."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in np_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in np_leaves(t)]
+    return [tree]
 
 
 MODEL_MESHES = {"1x4": 4, "2x2": 2}  # mesh name -> model extent
 
 
 def model_trainer(mesh, inp):
-    """tests/test_torch_model_axis.py (b), (c): the reduced granite
-    trainer on 1 x 4 and 2 x 2 meshes, from the reference's states cut to
-    this rank's blocks (`convert.train_state(mesh=...)`), 3 SGD steps per
-    mode; its bytes at rest and each step's messages by axis
-    (`dist.stats`); the final state gathered over the model axis
-    (`convert.train_tree(mesh=...)`: the node rows stay the rank's), and
-    where every node is local what `publish_extract` serves from it."""
+    """tests/test_torch_model_axis.py (b), (c): `_trainer_runs` of the
+    parent's cases."""
+    return _trainer_runs(torch.load(inp, weights_only=False))
+
+
+def _trainer_runs(given, lean=False):
+    """The reduced granite trainer on 1 x 4 and 2 x 2 meshes, from the
+    reference's states cut to this rank's blocks
+    (`convert.train_state(mesh=...)`), 3 SGD steps per mode; its bytes at
+    rest and each step's messages by axis (`dist.stats`); the final state
+    gathered over the model axis (`convert.train_tree(mesh=...)`: the node
+    rows stay the rank's), and where every node is local what
+    `publish_extract` serves from it. With `lean` the gathered parameters
+    come back from model index 0 only (their `digest` from every rank),
+    and nothing is published."""
     from repro_torch import convert, dist as rdist
     from repro_torch.core.packing import tree_leaves
     from repro_torch.data.pipeline import shard_batch
@@ -356,7 +396,6 @@ def model_trainer(mesh, inp):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import trainer as tr
 
-    given = torch.load(inp, weights_only=False)
     meshes = {name: make_host_mesh(model=m)
               for name, m in MODEL_MESHES.items()}
     out = {}
@@ -383,18 +422,198 @@ def model_trainer(mesh, inp):
             metrics.append({k: float(v) for k, v in m.items()})
         tree = convert.train_tree(state, run.model, mesh)
         published = None
-        if rdist.n_data_nodes(mesh) == 1:  # every node on this rank
+        if rdist.n_data_nodes(mesh) == 1 and not lean:  # every node here
             extract = tr.publish_extract(None if mode == "exact" else n,
                                          run=run, mesh=mesh)
             published = [p.numpy() for p in tree_leaves(extract(
                 state, torch.ones(n)))]
+        first = rdist.model_index(mesh) == 0
         out[(name, mode)] = {
             "published": published,
-            "params": tree["params"], "step": state.opt.step,
+            "params": tree["params"] if first or not lean else None,
+            "digest": digest(np_leaves(tree["params"])),
+            "step": state.opt.step,
             "metrics": metrics, "wire": wires, "at_rest": at_rest,
             "rows": (node_rows(mesh, n).start, node_rows(mesh, n).stop),
             "model_index": rdist.model_index(mesh)}
     return out
+
+
+def model_heads(mesh, inp):
+    """tests/test_torch_model_axis_heads.py: (a) each head case's loss and
+    gradients on 1 x world, with remat (`_layer_grads`); (b), (c) the
+    trainer cases (`_trainer_runs`)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    given = torch.load(inp, weights_only=False)
+    return {"layers": _layer_grads(given["layers"],
+                                   make_host_mesh(model=mesh.size), (True,),
+                                   lean=True),
+            "trainer": _trainer_runs(given["trainer"], lean=True)}
+
+
+def _blocks(state, run, mesh, rows=None):
+    """This rank's blocks of a whole TrainState of `run` over `mesh`'s
+    model axis (its `rows` of the node axis first)."""
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.train import trainer as tr
+
+    specs = tr.state_placements(run, mesh, state)
+    if rows is not None:
+        state = _local_state(state, rows)
+    cut = lambda tree, spec: (shlib.shard_tree(tree, spec, mesh)
+                              if tree != () else tree)
+    opt = state.opt
+    return tr.TrainState(cut(state.params, specs.params), opt._replace(
+        m=cut(opt.m, specs.opt.m), v=cut(opt.v, specs.opt.v),
+        master=cut(opt.master, specs.opt.master)))
+
+
+def _whole(state, run, mesh):
+    """A rank's TrainState gathered over the model axis (and the exact
+    mode's data axis): {"leaves": numpy leaves of the parameters and the
+    moments in `tree_leaves` order, on rank 0 only, "digest": theirs, on
+    every rank}, the node rows the rank's."""
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.train import trainer as tr
+
+    specs = tr.state_placements(run, mesh, state)
+    opt = state.opt
+    leaves = [t.numpy() for tree, spec in ((state.params, specs.params),
+                                           (opt.m, specs.opt.m),
+                                           (opt.v, specs.opt.v))
+              for t in tree_leaves(shlib.gather_tree(tree, spec, mesh))]
+    return {"leaves": None if mesh.rank else leaves,
+            "digest": digest(leaves)}
+
+
+# tests/test_torch_model_axis_durability.py: (mode, mesh name) of the
+# driver runs, MD_SUPERSTEPS of one round, a blocking snapshot after each;
+# the resume from the snapshot after MD_BACK, on the same mesh, and the
+# restore of that snapshot onto the other mesh
+MD_RUNS = (("exact", "2x2"), ("gossip", "1x4"))
+MD_SUPERSTEPS, MD_BACK = 3, 2
+
+
+def _md_driver(mesh, run, state, root, resume=None):
+    """The reduced granite trainer (Adam) through the driver on this
+    rank's blocks, DUR_N nodes, K = 1, no prefetch, open loop, a blocking
+    snapshot every superstep under `root` (None: none)."""
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    snap = (RunSnapshotter(root, every=1, keep_last=10, block=True,
+                           overhead_budget=0.0) if root else None)
+    return StreamingDriver(
+        run, mesh, state, lambda rng, n: lm_draw(rng, n, DUR_S),
+        batch=DUR_B, n_nodes=DUR_N, device="cpu", snapshotter=snap,
+        resume_from=resume,
+        engine=EngineConfig(superstep=1, prefetch_depth=0, replan_every=0))
+
+
+def model_durability(mesh, inp):
+    """tests/test_torch_model_axis_durability.py, per MD_RUNS case: the
+    driver uninterrupted with its snapshots; the state gathered, and
+    rank 0's one-process save of it beside the last snapshot; the resume
+    from the snapshot at MD_BACK on the same mesh; and that snapshot
+    restored onto the other mesh (into zeroed blocks), gathered, then
+    saved there as a split checkpoint of its own."""
+    import torch.distributed as dist
+
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import map_tensors
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import checkpoint, trainer as tr
+
+    given = torch.load(inp, weights_only=False)
+    work = given["work"]
+    meshes = {name: make_host_mesh(model=m)
+              for name, m in MODEL_MESHES.items()}
+    out = {}
+    for mode, name in MD_RUNS:
+        run, whole = given[mode]
+        mesh = meshes[name]
+        node = mode != "exact"
+        rows = rdist.node_rows(mesh, DUR_N) if node else None
+        root = os.path.join(work, f"{mode}_{name}")
+        with _md_driver(mesh, run, _blocks(whole, run, mesh, rows),
+                        root) as drv:
+            st, hist = drv.run(MD_SUPERSTEPS)
+            res = {"losses": [r["metrics"]["loss"] for r in hist],
+                   "saves": drv._snapshotter.stats.saves,
+                   "failures": drv._snapshotter.stats.failures,
+                   "error": drv._snapshotter.stats.last_error,
+                   "state": _whole(st, run, mesh), "model_index":
+                   rdist.model_index(mesh),
+                   "rows": None if rows is None else (rows.start, rows.stop)}
+        final = st
+        # rank 0's one-process save of the gathered state (every node's
+        # rows: on 1 x 4 they are all local)
+        gathered = _gather_state(final, run, mesh)
+        if mesh.rank == 0:
+            checkpoint.save(os.path.join(work, f"{mode}_one"), gathered,
+                            step=MD_SUPERSTEPS, model=run.model)
+        dist.barrier()
+        # the resume on the same mesh, from zeroed blocks
+        zero = map_tensors(torch.zeros_like, _blocks(whole, run, mesh, rows))
+        with _md_driver(mesh, run, zero, None, resume=checkpoint.step_dir(
+                root, MD_BACK)) as drv:
+            st, hist = drv.run(MD_SUPERSTEPS - MD_BACK)
+            res["resumed"] = {
+                "from": drv.resumed_from,
+                "losses": [r["metrics"]["loss"] for r in hist],
+                "bitwise": st.opt.step == final.opt.step and all(
+                    torch.equal(a, b) for a, b in zip(
+                        _tensors_of(st), _tensors_of(final), strict=True))}
+        # the snapshot at MD_BACK onto the other mesh, and saved there
+        other = [n for n in meshes if n != name][0]
+        omesh = meshes[other]
+        orows = rdist.node_rows(omesh, DUR_N) if node else None
+        like = map_tensors(torch.zeros_like,
+                           _blocks(whole, run, omesh, orows))
+        back = checkpoint.step_dir(root, MD_BACK)
+        restored = checkpoint.restore(
+            back, like, model=run.model, into=True, mesh=omesh,
+            n_nodes=DUR_N if node else None,
+            specs=tr.state_placements(run, omesh, like))
+        res["other"] = {"mesh": other, "state": _whole(restored, run, omesh),
+                        "rows": None if orows is None
+                        else (orows.start, orows.stop),
+                        "model_index": rdist.model_index(omesh)}
+        checkpoint.save(os.path.join(work, f"{mode}_{other}"), restored,
+                        step=MD_BACK, model=run.model, mesh=omesh,
+                        n_nodes=DUR_N if node else None,
+                        specs=tr.state_placements(run, omesh, restored))
+        out[mode] = res
+    return out
+
+
+def _tensors_of(state):
+    """A TrainState's tensors, in `tree_leaves` order of each tree."""
+    from repro_torch.core.packing import tree_leaves
+
+    opt = state.opt
+    return [t for tree in (state.params, opt.m, opt.v, opt.master)
+            if tree != () for t in tree_leaves(tree)]
+
+
+def _gather_state(state, run, mesh):
+    """A rank's TrainState with its blocks gathered over the model axis
+    (and the exact mode's data axis): the state one process holds, where
+    every node's rows are the rank's."""
+    from repro_torch import dist as rdist
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.train import trainer as tr
+
+    specs = tr.state_placements(run, mesh, state)
+    assert run.averaging.mode == "exact" or not rdist.is_sharded(mesh)
+    join = lambda tree, spec: (shlib.gather_tree(tree, spec, mesh)
+                               if tree != () else tree)
+    opt = state.opt
+    return tr.TrainState(join(state.params, specs.params), opt._replace(
+        m=join(opt.m, specs.opt.m), v=join(opt.v, specs.opt.v),
+        master=join(opt.master, specs.opt.master)))
 
 
 # ---------------------------------------------------------------------------
@@ -1072,7 +1291,8 @@ CASES = {"rules": rules, "driver": driver, "trainer": trainer,
          "model_layers": model_layers, "model_trainer": model_trainer,
          "cohort_rules": cohort_rules, "elastic_driver": elastic_driver,
          "elastic_trainer": elastic_trainer, "shard_ef": shard_ef,
-         "shard_durability": shard_durability}
+         "shard_durability": shard_durability, "model_heads": model_heads,
+         "model_durability": model_durability}
 
 
 def main():
