@@ -40,7 +40,9 @@
    ring R = 8) on 2 and 4 ranks (3/3/2/2) with node 0 out, nodes 3 and 4
    out and every row of one rank out, exact and sign bit for bit, int8
    at f32 round-off against the plain per-round path over the m cohort
-   rows, and one round's table of ring/lossy/iid_pca's scheduled op within
+   rows (a layout the rule does not cover gathers its rows and mixes them
+   by `gossip_mix`, once a rank, on the exact wire), and one round's
+   table of ring/lossy/iid_pca's scheduled op within
    1e-6 of its largest entry; (v1) (s1)'s governed PCA driver on 2 ranks
    under (i)'s faults (the exact and int8 tile wires under
    `death:3@2-6,flaky:7@3-9p2`, `slow:2@2-6x4` under the policy "drop"):
@@ -102,6 +104,29 @@
    round 1 within 1e-2 of one process's, the bytes at rest, messages and
    bytes staged by axis equal to the planner's trace, each peak within
    15% of the plan's; prints s per round and (x)'s seconds.
+   (y0)-(y1), elastic membership and the vocab fallback over a model
+   axis, after (x): four ranks in one gloo group. (y0) reduced granite-8b
+   at d_model 512 in f32 (Adam, 4 nodes, 3 rounds of 8 x 32 tokens)
+   through the driver under `death:1@1-2`: on 1 x 4 with the rejoin sync
+   and without, on 2 x 2 with it and under the straggler policy "drop"
+   (`slow:2@1-3x10`, a fake clock), each against the single-process card
+   driver (equal membership events and signatures, losses within 1e-5
+   rel, parameters 99.9% within 1e-5 rel + 1e-5 and all within 6 lr); the
+   2 x 2 run's snapshot taken in the cohort resumed there bit for bit;
+   the vocab of 513 (embed split over d_model) on 1 x 4 and 2 x 2, 2 SGD
+   rounds within 1e-5 of one process, its split checkpoint restored bit
+   for bit; `gossip_mix` one launch a leaf a round where the rows are
+   all local (1 x 4) or gathered (2 x 2's cohort rounds), none in 2 x 2's
+   full rounds. (y1) granite-8b at its published widths cut to 2 layers on
+   2 x 2 (bf16 with f32 masters, Adam, 4 nodes of 2 x 512 tokens, ring
+   R = 2) through the driver under `death:1@1-2` with the rejoin sync, 3
+   rounds (one in the 3-node cohort): round 1 within 1e-2 of one
+   process's, the messages and bytes staged a round by axis equal to the
+   planner's traces (full membership and the cohort), the rejoin sync's
+   equal to `dryrun.rejoin_collectives`; prints s a round at full
+   membership and in the cohort, the sync's s and bytes, each rank's peak,
+   its `gossip_mix` launches a round (one a leaf in the cohort round, none
+   in the full rounds, required) and (y)'s seconds.
 3. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
@@ -2162,9 +2187,16 @@ def elastic_shard_phases(dev) -> dict:
               f"{'ok' if ok else 'FAIL'}")
         require(ok, f"(v0) ranks={E} out={dropped} {kind} disagrees with "
                     f"the plain per-round path over the cohort")
-        require(all(c["launches"]["gossip_mix"] == 0 and
+        # the shard rule runs no node-axis kernel; a layout it does not
+        # cover mixes its gathered rows by gossip_mix on every rank (the
+        # quantized per-node tile chain is plain on every device)
+        gathered = int(kind == "exact" and c0["impl"] != "shard")
+        require(all(c["launches"]["gossip_mix"] == gathered and
                     c["launches"]["gossip_mix_quant"] == 0 for c in cases),
-                f"(v0) {kind}: a node-axis kernel ran on the sharded path")
+                f"(v0) {kind} impl={c0['impl']}: gossip_mix launches by "
+                f"rank {[c['launches']['gossip_mix'] for c in cases]}, "
+                f"gossip_mix_quant "
+                f"{[c['launches']['gossip_mix_quant'] for c in cases]}")
     require(any(c["equal"] and c["rows"][0] == c["rows"][1]
                 for cs in by_case.values() for c in cs
                 if c["kind"] == "exact" and c["impl"] == "shard"),
@@ -3532,7 +3564,7 @@ def x_join(phase: str, procs, work: str, deadline: float) -> list:
             tail = f.read()[-3000:]
         print(f"({phase}) rank {r} exited {procs[r][0].returncode}:\n{tail}")
     require(not failed, f"({phase}): ranks {failed} failed or overran "
-                        f"{X_TIMEOUT} s")
+                        f"their deadline")
     return [torch.load(os.path.join(work, f"{phase}_rank{r}.pt"),
                        weights_only=False) for r in range(len(procs))]
 
@@ -3788,6 +3820,585 @@ def model_axis_heads_phases(dev) -> dict:
         "x1": [rr["launches"].get("gossip_mix", 0) for rr in res1]}}
 
 
+# (y) elastic membership and the vocab fallback over a model axis: Y_WORLD
+# rank processes share the card in one gloo group
+# (`model_axis_elastic_phases`, spawned after (x)'s ranks have exited),
+# (y0) then (y1) in one spawn: (y0) on 1 x 4 and 2 x 2, reduced
+# granite-8b at d_model 512 in f32; (y1) on 2 x 2, (t2)'s granite-8b
+Y_WORLD, Y_TIMEOUT = 4, 300
+Y_SPEC, Y_ROUNDS, Y_SEQ = "death:1@1-2", 3, 32  # node 1 out for round 1
+# (y0)'s driver runs (label, mesh, fault spec, governor changes); "2x2
+# sync" takes a blocking snapshot a round and is resumed from the one
+# taken in the cohort, after round Y0_BACK
+Y0_RUNS = [("1x4 sync", (1, 4), Y_SPEC, {}),
+           ("1x4 no sync", (1, 4), Y_SPEC, {"sync_on_rejoin": False}),
+           ("2x2 sync", (2, 2), Y_SPEC, {}),
+           ("2x2 straggler", (2, 2), "slow:2@1-3x10",
+            {"straggler_policy": "drop", "straggler_patience": 1})]
+Y0_BACK, Y0_DT = 2, 1e-3
+# (y0)'s vocab fallback: a vocab no model extent above 1 divides, Y0_VOCAB
+# SGD rounds of 8 x Y_SEQ tokens
+Y0_VOCAB, Y0_VOCAB_ROUNDS = 513, 2
+
+
+class YClock:
+    """(y0)'s fake clock: advances Y0_DT per read."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += Y0_DT
+        return self.t
+
+
+def y_cfgs():
+    """(y0)'s reduced granite-8b at d_model 512 (8 heads, 2 KV heads), its
+    vocab-513 form, and (y1)'s granite-8b cut to TRAIN_LAYERS layers."""
+    from repro_torch.configs import get_config, reduced
+
+    r = reduced(get_config("granite-8b"), d_model=512)
+    return (r, dataclasses.replace(r, vocab_size=Y0_VOCAB),
+            dataclasses.replace(get_config("granite-8b"),
+                                num_layers=TRAIN_LAYERS))
+
+
+def y_vocab_run(cfg):
+    """(y0)'s vocab-fallback run: gossip R = TRAIN_R, SGD at (t1)'s bounds'
+    rate, f32."""
+    from repro_torch.configs.base import SHAPES, AveragingConfig, RunConfig
+
+    return RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                     averaging=AveragingConfig("gossip", TRAIN_R, "ring"),
+                     optimizer="sgd", learning_rate=0.5,
+                     param_dtype="float32")
+
+
+def y_state(dev, run, mesh=None):
+    """`run`'s initial state (seed 0, drawn on the host) at TRAIN_N nodes
+    on the card: this rank's blocks of its node rows over `mesh`, every
+    node's on one process."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import map_tensors
+    from repro_torch.train import trainer
+
+    st = trainer.init_state(run, torch.Generator().manual_seed(0), mesh)
+    st = trainer.replicate_for_nodes(st, rdist.n_local(mesh, TRAIN_N))
+    return map_tensors(lambda t: t.to(dev), st)
+
+
+def y_driver(dev, mesh, run, state, spec, gov, *, root=None, resume=None,
+             seq=Y_SEQ, batch=8, clock=None, cls=None):
+    """The trainer through the driver on `mesh` (None: one process),
+    TRAIN_N nodes under `spec`, K = 1, no prefetch, open loop; a blocking
+    snapshot every round under `root`."""
+    from repro_torch.configs.base import GovernorConfig
+    from repro_torch.core.faults import FaultSchedule
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    snap = (RunSnapshotter(root, every=1, keep_last=Y_ROUNDS, block=True,
+                           overhead_budget=0.0) if root else None)
+    return (cls or StreamingDriver)(
+        run, mesh, state, w_sample(run.model.vocab_size, seq), batch=batch,
+        n_nodes=TRAIN_N, device=dev,
+        faults=FaultSchedule.parse(spec, TRAIN_N), snapshotter=snap,
+        resume_from=resume, clock=clock or YClock(),
+        engine=EngineConfig(superstep=1, prefetch_depth=0, replan_every=0,
+                            governor=GovernorConfig(**gov)))
+
+
+def y_gathered(state, run, mesh):
+    """The rank's node rows of the parameters gathered over the model
+    axis, on the host, on model index 0 (None elsewhere)."""
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.train import trainer
+
+    whole = shlib.gather_tree(state.params, trainer.rest_specs(
+        run.model, mesh, False, node_axis=True), mesh)
+    if rdist.model_index(mesh):
+        return None
+    return [p.cpu() for p in tree_leaves(whole)]
+
+
+def y_agree(got, want) -> tuple:
+    """(share of entries within 1e-5 rel + 1e-5, max abs err) of two lists
+    of leaves: (y0)'s parameter bound, tests/test_torch_elastic.py's."""
+    import torch
+
+    g = torch.cat([a.float().ravel() for a in got])
+    w = torch.cat([b.float().ravel() for b in want])
+    d = (g - w).abs()
+    return (float((d <= 1e-5 + 1e-5 * w.abs()).double().mean()),
+            float(d.max()))
+
+
+def y_mixed(shape, n_active, leaves: int) -> int:
+    """The gossip_mix launches a rank makes in rounds at `n_active` nodes
+    on a (data, model) `shape`: one a leaf a round where its rows are all
+    local (1 x M) or gathered (any 3-node cohort on 2 x 2, a layout the
+    shard rule does not cover), none where the shard rule mixes them (the
+    full membership on 2 x 2)."""
+    return leaves * sum(1 for n in n_active
+                        if shape[0] == 1 or n < TRAIN_N)
+
+
+def y_rank(rank: int, store: str, workdir: str) -> int:
+    """One rank of (y0) and (y1): `python3 chip_smoke.py --y-rank RANK
+    STORE DIR`. Saves its results to DIR/y_rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=Y_WORLD,
+                            timeout=datetime.timedelta(seconds=240))
+    meshes = {shape: make_host_mesh(model=shape[1])
+              for shape in ((1, 4), (2, 2))}
+    res = {"seconds": {}}
+    t0 = time.perf_counter()
+    res["y0"] = y0_rank(dev, workdir, meshes)
+    dist.barrier()
+    res["seconds"]["y0"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["y1"] = y1_rank(dev, meshes[(2, 2)])
+    dist.barrier()
+    res["seconds"]["y1"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(workdir, f"y_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def y0_rank(dev, workdir: str, meshes) -> dict:
+    """(y0) on one rank: Y0_RUNS through the driver (each run's events,
+    signatures, losses and gathered parameters), the "2x2 sync" run's
+    resume from its cohort snapshot, and the vocab fallback's rounds on
+    each mesh with its split checkpoint restored."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import map_tensors, tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.train import checkpoint, trainer
+
+    cfg, vcfg, _ = y_cfgs()
+    run = s2_run(cfg, "gossip", "float32")
+    out = {"runs": {}, "vocab": {}}
+    for label, shape, spec, gov in Y0_RUNS:
+        mesh = meshes[shape]
+        root = (os.path.join(workdir, "y0_snapshots")
+                if label == "2x2 sync" else None)
+        ops.reset_launches()
+        with y_driver(dev, mesh, run, y_state(dev, run, mesh), spec, gov,
+                      root=root) as drv:
+            st, hist = drv.run(Y_ROUNDS)
+            rec = {"events": [(e["superstep"], e["to"].active_ids)
+                              for e in drv.membership_events],
+                   "signatures": drv.compiled_signatures,
+                   "losses": [r["metrics"]["loss"] for r in hist],
+                   "n_active": [r["n_active"] for r in hist],
+                   "launches": dict(ops.launches)}
+        rows = rdist.node_rows(mesh, TRAIN_N)
+        rec.update(rows=(rows.start, rows.stop), steps=st.opt.step,
+                   params=y_gathered(st, run, mesh))
+        if root is not None:
+            zero = map_tensors(torch.zeros_like, y_state(dev, run, mesh))
+            back = checkpoint.step_dir(root, Y0_BACK)
+            with y_driver(dev, mesh, run, zero, spec, gov,
+                          resume=back) as drv:
+                restored = (drv.membership.active_ids, drv.state.opt.step)
+                rs, h = drv.run(Y_ROUNDS - Y0_BACK)
+                rec["resumed"] = {
+                    "from": drv.resumed_from, "restored": restored,
+                    "losses": [r["metrics"]["loss"] for r in h],
+                    "bitwise": rs.opt.step == st.opt.step and all(
+                        torch.equal(a, b) for a, b in zip(
+                            x_tensors(rs), x_tensors(st), strict=True))}
+        out["runs"][label] = rec
+        del st
+    vrun = y_vocab_run(vcfg)
+    for shape, mesh in meshes.items():
+        st = y_state(dev, vrun, mesh)
+        step = trainer.build_train_step(vrun, mesh, n_nodes=TRAIN_N,
+                                        device=dev)
+        rdist.reset_stats()
+        losses = []
+        for b in t_tokens(vcfg, Y0_VOCAB_ROUNDS, 8, Y_SEQ, 7):
+            st, m = step(st, x_batch(dev, b, mesh, "gossip"))
+            losses.append(float(m["loss"]))
+        log = {f"{a} {k}": list(v) for (a, k), v in rdist.log.items()}
+        specs = trainer.state_placements(vrun, mesh, st)
+        path = os.path.join(workdir, f"y0_vocab_{shape[0]}x{shape[1]}")
+        checkpoint.save(path, st, step=Y0_VOCAB_ROUNDS, model=vcfg,
+                        mesh=mesh, n_nodes=TRAIN_N, specs=specs)
+        back = checkpoint.restore(path, map_tensors(torch.zeros_like, st),
+                                  model=vcfg, into=True, mesh=mesh,
+                                  n_nodes=TRAIN_N, specs=specs)
+        rows = rdist.node_rows(mesh, TRAIN_N)
+        out["vocab"][shape] = {
+            "losses": losses, "log": log,
+            "embed": tuple(st.params["embed"].shape),
+            "rows": (rows.start, rows.stop),
+            "params": y_gathered(st, vrun, mesh),
+            "restored": all(torch.equal(a, b) for a, b in zip(
+                x_tensors(back), x_tensors(st), strict=True))}
+        del st, back, step
+    return out
+
+
+def y1_rank(dev, mesh) -> dict:
+    """(y1) on one rank of 2 x 2: (t2)'s granite-8b through the driver
+    under Y_SPEC with the rejoin sync, Y_ROUNDS rounds: each round's loss,
+    s, messages and bytes staged by axis (the rejoin sync's apart, with
+    its s), the peak and the launches."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+    from repro_torch.train.driver import StreamingDriver
+
+    _, _, cfg = y_cfgs()
+    run = s2_run(cfg, "gossip", "bfloat16")
+    st = trainer.replicate_for_nodes(trainer.init_state(
+        run, torch.Generator(device=dev).manual_seed(0), mesh),
+        rdist.n_local(mesh, TRAIN_N))
+    out = {"rounds": [], "sync": None}
+    axis_keys = [f"{a}_{k}" for a in ("model", "data")
+                 for k in ("messages", "staged_bytes", "wire_bytes")]
+
+    class Driver(StreamingDriver):
+        def _sync_rejoined(self, prev, new):
+            torch.cuda.synchronize()
+            rdist.reset_stats()
+            t0 = time.perf_counter()
+            super()._sync_rejoined(prev, new)
+            torch.cuda.synchronize()
+            out["sync"] = {"s": time.perf_counter() - t0,
+                           "stats": {k: rdist.stats[k] for k in axis_keys},
+                           "log": {f"{a} {k}": list(v)
+                                   for (a, k), v in rdist.log.items()}}
+            rdist.reset_stats()
+
+    def log_fn(rec):
+        out["rounds"].append({
+            "n_active": rec["n_active"], "loss": rec["metrics"]["loss"],
+            "s": rec["wall_s"], "gossip_mix": ops.launches["gossip_mix"],
+            "stats": {k: rdist.stats[k] for k in axis_keys},
+            "log": {f"{a} {k}": list(v) for (a, k), v in rdist.log.items()}})
+        rdist.reset_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rdist.reset_stats()
+    with y_driver(dev, mesh, run, st, Y_SPEC, {}, seq=TRAIN_S,
+                  batch=TRAIN_B, clock=time.perf_counter,
+                  cls=Driver) as drv:
+        del st
+        _, hist = drv.run(Y_ROUNDS, log_fn=log_fn)
+        out["events"] = [(e["superstep"], e["to"].active_ids, e["plan"].B)
+                         for e in drv.membership_events]
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["launches"] = dict(ops.launches)
+    return out
+
+
+def model_axis_elastic_phases(dev) -> dict:
+    """(y0)-(y1) on the card: the single-process references first ((y0)'s
+    driver runs and vocab rounds, (y1)'s round-1 loss, each freed), then
+    Y_WORLD rank processes (`y_rank`), the planner's traces of (y1)'s
+    rounds and rejoin sync computed while they run. Prints each check and
+    (y)'s seconds; returns the ranks' gossip_mix launches by phase and
+    rank, for the kernels line."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.mixing import Membership
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import trainer
+    from repro_torch.train.driver import StreamingDriver
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "model_axis_elastic")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg, vcfg, cfg1 = y_cfgs()
+    # (y0)'s one-process driver runs and vocab rounds on the card
+    run = s2_run(cfg, "gossip", "float32")
+    ref0 = {}
+    for label, shape, spec, gov in Y0_RUNS:
+        if label == "2x2 sync":
+            continue  # the 1 x 4 run's
+        with y_driver(dev, None, run, y_state(dev, run), spec, gov) as drv:
+            st, hist = drv.run(Y_ROUNDS)
+            ref0[label] = {
+                "events": [(e["superstep"], e["to"].active_ids)
+                           for e in drv.membership_events],
+                "signatures": drv.compiled_signatures,
+                "losses": [r["metrics"]["loss"] for r in hist],
+                "steps": st.opt.step,
+                "params": [p.cpu() for p in tree_leaves(st.params)]}
+        del st
+    ref0["2x2 sync"] = ref0["1x4 sync"]
+    vrun = y_vocab_run(vcfg)
+    st = y_state(dev, vrun)
+    step = trainer.build_train_step(vrun, None, n_nodes=TRAIN_N, device=dev)
+    vlosses = []
+    for b in t_tokens(vcfg, Y0_VOCAB_ROUNDS, 8, Y_SEQ, 7):
+        st, m = step(st, {k: torch.from_numpy(v).to(dev) for k, v in
+                          trainer.make_node_batch(b, TRAIN_N).items()})
+        vlosses.append(float(m["loss"]))
+    ref_vocab = (vlosses, [p.cpu() for p in tree_leaves(st.params)])
+    del st, step
+    # (y1)'s round 1 on one process: the mean of each node's loss at the
+    # initial parameters on the batch the driver deals first; and the B
+    # it deals the cohort
+    dealt = {}
+
+    def capture(state, *args):  # (state, batches) or (state, ids, batches)
+        dealt.setdefault("first", args[-1])
+        return state, {"loss": torch.zeros(1)}
+
+    capture.takes_ids = True
+    run1 = s2_run(cfg1, "gossip", "bfloat16")
+    with y_driver(dev, None, run1, None, Y_SPEC, {}, seq=TRAIN_S,
+                  batch=TRAIN_B, clock=time.perf_counter,
+                  cls=lambda *a, **kw: StreamingDriver(
+                      *a, superstep_builder=lambda B, membership=None:
+                      capture, **kw)) as drv:
+        drv.run(2)
+        cohort_B = drv.membership_events[0]["plan"].B
+    dealt = dealt["first"]
+    params = registry.init_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg1, torch.bfloat16)
+    y1_leaves = len(tree_leaves(params))
+    with torch.no_grad():
+        ref1 = float(torch.stack([registry.loss_fn(
+            params, cfg1, {k: v[0, j] for k, v in dealt.items()})[0]
+            for j in range(TRAIN_N)]).mean())
+    del params, dealt
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_all
+    # the ranks; the planner's traces of (y1) beside them
+    store = os.path.join(work, "store")
+    procs = []
+    for r in range(Y_WORLD):
+        log = open(os.path.join(work, f"y_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--y-rank", str(r),
+             store, work], stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + Y_TIMEOUT
+    cohort = Membership.full(TRAIN_N).drop(1)
+    count = lambda coll: sum(v for k, v in coll.items()
+                             if k.endswith(".count"))
+    plans = {}
+    for rank in (0, 2):  # model index 0 of each node shard; 1 and 3 mirror
+        amesh = dataclasses.replace(abstract_mesh((2, 2), ("data", "model")),
+                                    rank=rank)
+        plans[rank] = plans[rank + 1] = {}
+        for label, mem, B in (("full", None, TRAIN_B),
+                              ("cohort", cohort, cohort_B)):
+            rec = dryrun.plan(
+                "granite-8b", "train_4k", amesh, averaging="gossip",
+                rounds=TRAIN_R, master_weights=True, cfg=cfg1,
+                shape=ShapeConfig("(y1)", TRAIN_S, B, "train"),
+                n_nodes=TRAIN_N, microbatches=1, membership=mem)
+            model = rec["collectives_model"]
+            plans[rank][label] = {
+                "model_messages": count(model),
+                "model_staged_bytes": dryrun.staged_bytes(model),
+                "data_messages": count(rec["collectives"]) - count(model),
+                "data_staged_bytes": (rec["staged_bytes"]
+                                      - dryrun.staged_bytes(model)),
+                "unsplit": rec["temp_unsplit_over_model"],
+                "peak": rec["memory"]["peak_gib"] * 2 ** 30}
+        low = dryrun.build_lowerable("granite-8b", "train_4k", amesh,
+                                     "gossip", TRAIN_R, cfg=cfg1,
+                                     shape=ShapeConfig("(y1)", TRAIN_S,
+                                                       TRAIN_B, "train"),
+                                     n_nodes=TRAIN_N, microbatches=1)
+        sync = dryrun.rejoin_collectives(low.args[0], amesh, TRAIN_N)
+        plans[rank]["sync"] = {"data_messages": count(sync),
+                               "data_staged_bytes": dryrun.staged_bytes(sync),
+                               "payload": sync.get("all-reduce", 0.0)}
+        del low
+    t_plan = time.perf_counter() - t_all - t_ref
+    res = x_join("y", procs, work, deadline)
+    t_ranks = time.perf_counter() - t_all - t_ref
+
+    # (y0) the driver runs against one process
+    lr = run.learning_rate
+    for label, shape, spec, gov in Y0_RUNS:
+        want = ref0[label]
+        got = [rr["y0"]["runs"][label] for rr in res]
+        loss_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g["losses"], want["losses"],
+                                       strict=True))
+        parts = [g for g in got if g["params"] is not None]
+        within, err = y_agree(
+            [p for g in parts for p in g["params"]],
+            [w[g["rows"][0]:g["rows"][1]] for g in parts
+             for w in want["params"]])
+        steps = sorted({(g["rows"], g["steps"]) for g in got})
+        mixed = y_mixed(shape, got[0]["n_active"], len(want["params"]))
+        print(f"main (y0) reduced granite-8b d_model 512 f32, adam, "
+              f"{TRAIN_N} nodes, {label} under {spec}: events "
+              f"{got[0]['events']} (one process {want['events']}), "
+              f"signatures {list(got[0]['signatures'])}, losses "
+              f"{json.dumps([round(x, 6) for x in got[0]['losses']])}, max "
+              f"rel err {loss_err:.2e} (limit 1e-5); parameters within 1e-5 "
+              f"{within:.6f} (limit >= 0.999), max_abs_err {err:.3e} (limit "
+              f"{6 * lr:.1e}); steps by rows {steps}; gossip_mix launches by "
+              f"rank {[g['launches'].get('gossip_mix', 0) for g in got]} "
+              f"(expected {mixed} a rank)")
+        require(all(g["events"] == want["events"]
+                    and g["signatures"] == want["signatures"] for g in got),
+                f"(y0) {label}: membership events or signatures differ")
+        require(loss_err <= 1e-5 and within >= 0.999 and err <= 6 * lr,
+                f"(y0) {label}: the ranks disagree with one process")
+        require(all(tuple(want["steps"][a:b]) == tuple(s)
+                    for (a, b), s in steps),
+                f"(y0) {label}: per-node steps {steps}")
+        require(all(g["launches"].get("gossip_mix", 0) == mixed
+                    for g in got),
+                f"(y0) {label}: gossip_mix launches by rank "
+                f"{[g['launches'].get('gossip_mix', 0) for g in got]}, "
+                f"expected {mixed} a rank")
+        if label == "2x2 sync":
+            rs = [g["resumed"] for g in got]
+            print(f"main (y0) {label}: the snapshot after round {Y0_BACK} "
+                  f"(node 1 out) restored {rs[0]['restored']}, resumed bit "
+                  f"for bit by rank {[r['bitwise'] for r in rs]}")
+            require(all(r["bitwise"] and r["restored"][0] == (0, 2, 3)
+                        and r["losses"] == g["losses"][Y0_BACK:]
+                        for r, g in zip(rs, got)),
+                    f"(y0) {label}: the cohort snapshot's resume is not the "
+                    f"uninterrupted run's bits")
+    for shape in ((1, 4), (2, 2)):
+        got = [rr["y0"]["vocab"][shape] for rr in res]
+        loss_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g["losses"], ref_vocab[0],
+                                       strict=True))
+        parts = [g for g in got if g["params"] is not None]
+        err = max(float(((p - w[g["rows"][0]:g["rows"][1]]).abs()
+                         / (1e-5 + 1e-5 * w[g["rows"][0]:g["rows"][1]]
+                            .abs())).max())
+                  for g in parts for p, w in zip(g["params"], ref_vocab[1],
+                                                 strict=True))
+        print(f"main (y0) vocab {Y0_VOCAB} on {shape[0]}x{shape[1]}: embed "
+              f"block {got[0]['embed']}, losses {json.dumps(got[0]['losses'])}"
+              f" (one process {json.dumps(ref_vocab[0])}, max rel err "
+              f"{loss_err:.2e}), parameters' worst share of 1e-5 rel + 1e-5 "
+              f"{err:.3f}; split checkpoint restored bit for bit by rank "
+              f"{[g['restored'] for g in got]}; model-axis kinds "
+              f"{sorted(k for k in got[0]['log'] if k.startswith('model'))}")
+        require(all(g["embed"][-1] == cfg.d_model // shape[1] for g in got)
+                and "model all-gather" in got[0]["log"],
+                f"(y0) vocab on {shape}: embed not split over d_model")
+        require(loss_err <= 1e-5 and err <= 1.0
+                and all(g["restored"] for g in got),
+                f"(y0) vocab on {shape}: disagrees with one process")
+    # (y1)
+    y1 = [rr["y1"] for rr in res]
+    first = [g["rounds"][0]["loss"] for g in y1]
+    loss_err = max(abs(x - ref1) / abs(ref1) for x in first)
+    keys = ("model_messages", "model_staged_bytes", "data_messages",
+            "data_staged_bytes")
+    fails = []
+    for rank, g in enumerate(y1):
+        for k, rd in enumerate(g["rounds"]):
+            label = "full" if rd["n_active"] == TRAIN_N else "cohort"
+            want = plans[rank][label]
+            fails += [(rank, k, key, rd["stats"][key], want[key])
+                      for key in keys if rd["stats"][key] != want[key]]
+        sync = g["sync"]
+        fails += [(rank, "sync", key, sync["stats"][key],
+                   plans[rank]["sync"].get(key, 0))
+                  for key in keys if sync["stats"][key]
+                  != plans[rank]["sync"].get(key, 0)]
+    peaks = [g["peak_bytes"] for g in y1]
+    secs = [[round(rd["s"], 3) for rd in g["rounds"]] for g in y1]
+    # gossip_mix launches a round, by rank, and as expected
+    per_round = [[rd["gossip_mix"] - (g["rounds"][k - 1]["gossip_mix"]
+                                      if k else 0)
+                  for k, rd in enumerate(g["rounds"])] for g in y1]
+    want_mix = [y_mixed((2, 2), [rd["n_active"]], y1_leaves)
+                for rd in y1[0]["rounds"]]
+    print(f"main (y1) granite-8b published widths, {TRAIN_LAYERS} layers, "
+          f"bf16 + f32 masters, adam, {TRAIN_N} nodes x 2 x {TRAIN_S} "
+          f"tokens, ring R={TRAIN_R}, gossip on 2x2 under {Y_SPEC} with the "
+          f"rejoin sync ({Y_WORLD} ranks on the card): events "
+          f"{y1[0]['events']}; losses by rank 0 "
+          f"{[round(rd['loss'], 5) for rd in y1[0]['rounds']]} (round 1 on "
+          f"one process {ref1:.5f}, max rel err over the ranks "
+          f"{loss_err:.2e}, limit {T2_LOSS_TOL}); s a round (rank 0's "
+          f"clock) {secs[0]}, n_active "
+          f"{[rd['n_active'] for rd in y1[0]['rounds']]}")
+    for rank, g in enumerate(y1):
+        print(f"main (y1) rank {rank}: per round [model messages, model "
+              f"bytes staged, data messages, data bytes staged] "
+              f"{[[rd['stats'][k] for k in keys] for rd in g['rounds']]}, "
+              f"planned full {[plans[rank]['full'][k] for k in keys]}, "
+              f"cohort {[plans[rank]['cohort'][k] for k in keys]}; the "
+              f"rejoin sync {g['sync']['s']:.3f} s, "
+              f"{g['sync']['stats']['data_messages']} messages, "
+              f"{g['sync']['stats']['data_staged_bytes']} B staged "
+              f"(planned {plans[rank]['sync']['data_messages']}, "
+              f"{int(plans[rank]['sync']['data_staged_bytes'])} B; payload "
+              f"{plans[rank]['sync']['payload'] / 1e9:.3f} GB); peak "
+              f"{peaks[rank] / 1e9:.3f} GB (plan full "
+              f"{plans[rank]['full']['peak'] / 1e9:.3f}, cohort "
+              f"{plans[rank]['cohort']['peak'] / 1e9:.3f}); gossip_mix "
+              f"launches {g['launches'].get('gossip_mix', 0)}, by round "
+              f"{per_round[rank]} (expected {want_mix})")
+    require(all(math.isfinite(rd["loss"]) for g in y1
+                for rd in g["rounds"]), "(y1): losses not finite")
+    require([rd["n_active"] for rd in y1[0]["rounds"]] == [4, 3, 4],
+            f"(y1): rounds at {[rd['n_active'] for rd in y1[0]['rounds']]}"
+            f" nodes")
+    require(loss_err <= T2_LOSS_TOL,
+            "(y1): round 1's loss disagrees with one process's")
+    require(not any(plans[r][lab]["unsplit"] for r in plans
+                    for lab in ("full", "cohort")),
+            "(y1): a plan kept the model axis unsplit")
+    require(not fails, f"(y1): staged messages or bytes differ from the "
+                       f"plan: {fails[:8]}")
+    require(all(r == want_mix for r in per_round),
+            f"(y1): gossip_mix launches by rank and round {per_round}, "
+            f"expected {want_mix}")
+    print(f"main (y) seconds: one-process references {t_ref:.1f}, the "
+          f"plans {t_plan:.1f} while the ranks ran, the ranks "
+          f"{t_ranks:.1f} (rank 0: (y0) "
+          f"{res[0]['seconds']['y0']:.1f}, (y1) "
+          f"{res[0]['seconds']['y1']:.1f}), all "
+          f"{time.perf_counter() - t_all:.1f} (target < 120)")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"gossip_mix": {
+        "y0": [sum(g["launches"].get("gossip_mix", 0)
+                   for g in rr["y0"]["runs"].values()) for rr in res],
+        "y1": [g["launches"].get("gossip_mix", 0) for g in y1]}}
+
+
 def main() -> int:
     import torch
 
@@ -3866,6 +4477,9 @@ def main() -> int:
     # KV heads split inside a head) and durable model-axis runs, rank
     # processes sharing the card
     x_launches = model_axis_heads_phases(dev)
+    # (y): elastic membership and the vocab fallback over a model axis,
+    # rank processes sharing the card
+    y_launches = model_axis_elastic_phases(dev)
     # what phase (p) holds its plans against: peaks, card times
     p_measured = {}
 
@@ -7030,10 +7644,11 @@ def main() -> int:
         key = ("launches_by_kernel" if row["name"] == "flash_attention"
                else "launches_by_nodes")
         row.setdefault(key, {})["s"] = by_phase
-    # the ranks' launches of (t1)-(t2), (v1)-(v2), (w0)-(w2) and
-    # (x0)-(x1), by phase and rank, under "t", "v", "w" and "x"
+    # the ranks' launches of (t1)-(t2), (v1)-(v2), (w0)-(w2), (x0)-(x1)
+    # and (y0)-(y1), by phase and rank, under "t", "v", "w", "x" and "y"
     for key, phases in (("t", t_launches), ("v", v_launches),
-                        ("w", w_launches), ("x", x_launches)):
+                        ("w", w_launches), ("x", x_launches),
+                        ("y", y_launches)):
         for row in rows:
             by_phase = phases.get(row["name"])
             if by_phase is not None:
@@ -7067,4 +7682,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--x-rank"]:
         sys.exit(x_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
                         sys.argv[5], sys.argv[6]))
+    if sys.argv[1:2] == ["--y-rank"]:
+        sys.exit(y_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

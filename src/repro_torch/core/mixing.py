@@ -486,7 +486,9 @@ class CirculantMixOp:
     layout they do not cover, where the builder picks "roll"; quantized
     statistics other than "node") gathers the node axis from every rank,
     applies the op as an unsharded one and keeps the rank's rows: the
-    reference's sharding-safe roll, correct on every layout.
+    reference's sharding-safe roll, correct on every layout. On the card
+    (and the meta device) a linear op's "roll" mixes the gathered rows by
+    the `gossip_mix` kernel; on the CPU by the roll.
 
     Quantization on: the compressor is nonlinear, so the operator is never
     collapsed and `impl` plays no part. `stats` picks the statistic
@@ -562,6 +564,8 @@ class CirculantMixOp:
                 rows=self.rows)
         full = all_gather_rows(x, self.mesh, self.n, self.rows)
         impl = "roll" if self.impl == "shard" else self.impl
+        if impl == "roll" and x.device.type in ("cuda", "meta"):
+            impl = "kernel"  # the card mixes the gathered rows by its kernel
         whole = dataclasses.replace(self, mesh=None, rows=None, impl=impl)
         out = whole(full, seg_widths=seg_widths, valid_d=valid_d, key=key)
         a, b = _own_rows(self.mesh, self.n, self.rows)
@@ -641,8 +645,9 @@ def circulant_mix_op(sched: Schedule, n: int, rounds: int, *,
     op then takes and returns each rank's rows. `impl="shard"` keeps the
     partitioning rule where it covers the (n, schedule, split)
     (`kernels.ops.node_shard_info`) and falls back to "roll" elsewhere (on
-    a sharded mesh: gather, roll, keep the rank's rows), as the reference
-    does; it keeps per-round semantics, so it carries no fused schedule.
+    a sharded mesh: gather, mix, keep the rank's rows, as the reference
+    does; the gathered rows take the kernel on the card); it keeps
+    per-round semantics, so it carries no fused schedule.
     `rows` (a `dist.RowTable`) is the split when it is not the even one of
     `dist.row_table`: an elastic run's cohort (`dist.cohort_rows`, n the
     cohort's size). Over a model axis each model index mixes its own

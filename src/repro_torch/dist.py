@@ -76,13 +76,15 @@ class Mesh:
 def check_mesh(mesh: Mesh, what: str) -> None:
     """Refuse a model axis of extent above 1 on `what`, a path that does
     not execute one: only the LM trainer's dense family does (tensor
-    parallelism and ZeRO-1, `train/trainer.py`)."""
+    parallelism and ZeRO-1, `train/trainer.py`); the PCA and convex
+    paths hold no leaf that the reference's placements split over it."""
     model = model_extent(mesh)
     if model > 1:
         raise NotImplementedError(
             f"a model axis of extent {model} on {what}: planned, not "
             f"executed there; the sharded model layouts execute in the LM "
-            f"trainer's dense family only (ROADMAP.md queue 1 item 1)")
+            f"trainer's dense family only (ROADMAP.md, the model axis's "
+            f"deviations)")
 
 
 def model_extent(mesh) -> int:

@@ -265,11 +265,17 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
                     ring_cache: bool = False, remat: bool = True, *,
                     cfg: Optional[ModelConfig] = None,
                     shape: Optional[ShapeConfig] = None,
-                    n_nodes: Optional[int] = None) -> Lowerable:
+                    n_nodes: Optional[int] = None,
+                    membership=None) -> Lowerable:
     """The step of (arch x shape) on `mesh` and its meta arguments. `cfg`
     and `shape` override the registry's (a cut depth, a reduced size);
     `n_nodes` (default: the mesh's data extent) plans the port's
-    single-process multi-node runs on a 1 x 1 mesh."""
+    single-process multi-node runs on a 1 x 1 mesh. `membership` (a
+    partial `core.mixing.Membership` of the n_nodes) traces an elastic
+    run's cohort step on the mesh's rank `mesh.rank`: its active rows of
+    the state, the cohort's batch ([its active rows, B / m, ...]; B =
+    `shape.global_batch`). Only a decentralized run over a model axis that
+    the trainer executes takes one (ValueError elsewhere)."""
     cfg = cfg or get_config(arch)
     if ring_cache:
         cfg = dataclasses.replace(cfg, ring_buffer_cache=True)
@@ -296,6 +302,11 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
         refused = model_axis_refusal(run, mesh)
         tp = mesh.shape.get("model", 1) > 1 and refused is None
         info.update(run=run, n_nodes=N, refused=refused, executed=tp)
+        cohort = membership is not None and not membership.is_full
+        if cohort and not (decentralized and tp):
+            raise ValueError("a cohort step is traced only for a "
+                             "decentralized run over a model axis the "
+                             "trainer executes")
         if decentralized:
             if N % ndp:
                 raise ValueError(f"{N} nodes do not split evenly over the "
@@ -304,13 +315,18 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
             full = trainer.replicate_for_nodes(state, N)
             sspec = shlib.train_state_specs(full, mesh, node_axes=dp,
                                             n_stacked=n_stacked)
-            gbatch = trainer.make_node_batch(batch, N)
+            gbatch = trainer.make_node_batch(
+                batch, membership.n_active if cohort else N)
             bspec = shlib.batch_specs(gbatch, mesh, shape, node_axis=True)
             tbatch = _local_meta(gbatch, bspec, mesh)
             if tp:
                 tstate = _local_meta(full, sspec, mesh, model=True)
-                fn = trainer.build_train_step(run, mesh, n_nodes=N,
-                                              device=META)
+                if cohort:
+                    fn, tbatch = _cohort_step(run, mesh, N, membership,
+                                              batch)
+                else:
+                    fn = trainer.build_train_step(run, mesh, n_nodes=N,
+                                                  device=META)
             else:
                 tstate = trainer.replicate_for_nodes(state, n_local)
                 fn = trainer.build_train_step(run, None, n_nodes=n_local,
@@ -362,6 +378,23 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
 
     return Lowerable(decode_step, (params, tst), (params, st),
                      (pspec, sspec), info)
+
+
+def _cohort_step(run: RunConfig, mesh, n: int, membership, batch):
+    """The cohort superstep of one round on this rank of `mesh`, as
+    step(state, batch), and this rank's meta batch of it."""
+    ids = rdist.local_ids(mesh, membership)
+    m = membership.n_active
+    cohort = trainer.superstep_builder(run, mesh, n_nodes=n, device=META)(
+        next(iter(batch.values())).shape[0], membership)
+    tbatch = {k: torch.empty((len(ids), v.shape[0] // m, *v.shape[1:]),
+                             dtype=v.dtype, device=META)
+              for k, v in batch.items()}
+
+    def step(state, b):
+        return cohort(state, ids, {k: v[None] for k, v in b.items()})
+
+    return step, tbatch
 
 
 def model_axis_refusal(run: RunConfig, mesh) -> Optional[str]:
@@ -422,7 +455,11 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
     rule's halo rows per round (the exact wire, or a quantized one with
     per-node statistics, f32 on the wire) where it covers the split
     (`kernels.ops.node_shard_info`), else one gather of the node rows per
-    step. Error feedback mixes f32 column chunks of `ef_chunk_width`
+    step. Over a model axis `params` are the rank's blocks of its rows,
+    each model index mixes its own columns leaf by leaf (unpacked, as
+    `core.averaging.resolve_packed` resolves), and only the node axis's
+    messages are planned here (the model group's come from the trace,
+    `plan`). Error feedback mixes f32 column chunks of `ef_chunk_width`
     columns (cut from n_nodes) linearly, each its own call, and sums its
     two norms in one all-reduce. The hierarchical mode reduce-scatters
     each pod's rows over the pod's ranks, gossips each lane's block
@@ -455,8 +492,11 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
     else:
         table = rdist.row_table(mesh, n)
     m = table[-1][1]
-    # a quantized wire with global statistics mixes leaf by leaf
-    packed = not (avg.quantization != "none" and avg.quant_stats == "global")
+    # a quantized wire with global statistics mixes leaf by leaf, and so
+    # does every wire over a model axis
+    from repro_torch.core.averaging import resolve_packed
+    packed = resolve_packed(avg, mesh) and not (
+        avg.quantization != "none" and avg.quant_stats == "global")
     bufs = (_buffers(leaves) if packed else
             [(p[0].numel(), p.element_size()) for p in leaves])
     if avg.mode == "hierarchical":
@@ -576,6 +616,28 @@ def publish_collectives(params: Tree, mesh) -> dict:
             nbytes = 4 * p[0].numel()
             _add(coll, "all-reduce", nbytes, _reduce_messages(nbytes))
     _add(coll, "broadcast", 0, 1)
+    return coll
+
+
+def rejoin_collectives(state, mesh, n_nodes: int) -> dict:
+    """The messages of one rejoin sync on this rank of `mesh`
+    (`train.driver.StreamingDriver._sync_rejoined`), `state` the rank's
+    (its rows [n_local, ...] of the `n_nodes`-node axis, over a model axis
+    its blocks of them): where the node axis is split, one f32
+    all-reduce over the data group of each node leaf's donor sum (one
+    row), and one of the per-node optimizer steps' sum (a float64); none
+    on one node shard (a 1 x M mesh included)."""
+    coll: dict = {}
+    if rdist.n_data_nodes(mesh) <= 1:
+        return coll
+    local = rdist.n_local(mesh, n_nodes)
+    for p in _tensors(state):
+        if p.dim() and p.shape[0] == local:
+            nbytes = 4 * p[0].numel()
+            _add(coll, "all-reduce", nbytes, _reduce_messages(nbytes))
+    steps = getattr(getattr(state, "opt", None), "step", None)
+    if isinstance(steps, tuple) and steps:  # one step a node
+        _add(coll, "all-reduce", 8, 1)
     return coll
 
 
@@ -710,9 +772,11 @@ def plan(arch: str, shape_name: str, mesh, *, averaging: str = "exact",
          master_weights: Optional[bool] = None,
          cfg: Optional[ModelConfig] = None,
          shape: Optional[ShapeConfig] = None,
-         n_nodes: Optional[int] = None) -> dict:
+         n_nodes: Optional[int] = None, membership=None) -> dict:
     """The dry-run record of one combination on `mesh` (`run_dryrun`'s,
-    for any config, shape and mesh). Training starts with f32 masters
+    for any config, shape and mesh); with a partial `membership`, of an
+    elastic run's cohort step on the rank `mesh.rank`, where
+    `build_lowerable` traces one. Training starts with f32 masters
     and drops them, as the reference does, where the planned peak passes
     the card's memory (unless `master_weights` is given, or the mesh has a
     model axis)."""
@@ -739,7 +803,7 @@ def plan(arch: str, shape_name: str, mesh, *, averaging: str = "exact",
            "active_params": cfg.active_param_count(),
            "window_override": wo, "ring_cache": ring_cache}
     card = card_memory_bytes()
-    kw = dict(cfg=cfg, shape=shape, n_nodes=n_nodes)
+    kw = dict(cfg=cfg, shape=shape, n_nodes=n_nodes, membership=membership)
 
     def once(master: bool):
         low = build_lowerable(arch, shape.name, mesh, averaging, rounds,

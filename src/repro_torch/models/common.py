@@ -11,12 +11,15 @@ are its blocks (`launch/sharding.py` `shard_tree`), so an activation's
 placement follows from the weights it is computed with and no `pshard` is
 needed. Under an installed model axis the layers
 (`models/layers.py`) hold their columns of wq, wk, wv, w_gate and w_up,
-their rows of wo and w_down, and their vocab rows, and cross the axis only
-through the three pairs below: `copy_to_model` where a replicated
+their rows of wo and w_down, and their vocab rows (or their d_model
+columns, where the extent does not divide the vocab), and cross the axis
+only through the four pairs below: `copy_to_model` where a replicated
 activation enters a column split, `reduce_from_model` where a row split's
-partial sums leave it, and `gather_from_model` where a column split cut a
+partial sums leave it, `gather_from_model` where a column split cut a
 head that a rank needs whole (the pieces joined forward, their gradients
-summed back to their owners).
+summed back to their owners), and `gather_columns` where a replicated
+activation is made from column blocks (the columns joined forward, the
+rank's columns of the gradient kept).
 `stack_init` is not ported: the port keeps one parameter dict per layer
 instead of stacked super-blocks (`models/transformer.py`).
 """
@@ -146,6 +149,24 @@ class _GatherFromModel(torch.autograd.Function):
                 None)
 
 
+class _GatherColumns(torch.autograd.Function):
+    """The columns of every rank of the model group forward, joined in
+    their order (one all-gather, `dist.all_gather_dim`); backward, the
+    rank's columns of the gradient: the joined activation is replicated,
+    so every rank holds its whole gradient, the same on each."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh, ctx.width = mesh, x.shape[-1]
+        return rdist.all_gather_dim(x.contiguous(), mesh, x.dim() - 1,
+                                    axis="model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        c0 = rdist.model_index(ctx.mesh) * ctx.width
+        return grad[..., c0:c0 + ctx.width], None
+
+
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     mesh = current_mesh()
     return x if mesh is None else _CopyToModel.apply(x, mesh)
@@ -156,6 +177,14 @@ def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
     without a model axis)."""
     mesh = current_mesh()
     return x if mesh is None else _ReduceFromModel.apply(x, mesh)
+
+
+def gather_columns(x: torch.Tensor) -> torch.Tensor:
+    """x [..., c], this rank's columns -> [..., m * c], the columns of
+    every rank of the model group in their order (x itself without a
+    model axis)."""
+    mesh = current_mesh()
+    return x if mesh is None else _GatherColumns.apply(x, mesh)
 
 
 def gather_from_model(x: torch.Tensor, g: int) -> torch.Tensor:

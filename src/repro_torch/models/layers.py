@@ -29,7 +29,11 @@ extent divides the heads and KV heads this is the Megatron split, with no
 gather. An FFN whose width the extent does not divide runs whole on every
 rank, without a message. The vocab-parallel embedding holds the rank's
 vocab rows (`embed_lookup`, `unembed_logits`) and `cross_entropy` reduces
-its log-sum-exp and gold logit over the group.
+its log-sum-exp and gold logit over the group. Where the extent does not
+divide the vocab, the embedding holds the rank's d_model columns (the
+reference's `_ALT_SPECS` fallback): the lookup all-gathers the columns,
+the unembedding sums the columns' partial logits over the group, and the
+loss runs on whole logits (`vocab_split`).
 """
 from __future__ import annotations
 
@@ -44,8 +48,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import all_reduce_, model_index
 from repro_torch.kernels import ops
 from repro_torch.models.common import (copy_to_model, current_mesh,
-                                       dense_init, gather_from_model,
-                                       ones_init, reduce_from_model)
+                                       dense_init, gather_columns,
+                                       gather_from_model, ones_init,
+                                       reduce_from_model)
 
 Params = Dict[str, Any]
 
@@ -581,13 +586,32 @@ def apply_mla(
 # ---------------------------------------------------------------------------
 
 
-def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """The embeddings of `tokens`. Under a model axis emb holds the rank's
-    vocab rows: the tokens outside them take zeros, and the rows sum over
-    the model group (one rank holds each token's row)."""
-    mesh = current_mesh()
-    if mesh is None:
+def vocab_split(emb: torch.Tensor, cfg: ModelConfig) -> Optional[int]:
+    """The dim of a [vocab, d_model] table (embed, unembed) that the
+    installed model axis splits on this rank: 0, its vocab rows (the
+    reference's placement); 1, its d_model columns (`_ALT_SPECS`, where
+    the extent does not divide the vocab); None, the whole table (no
+    model axis, or one whose extent divides neither dim)."""
+    if current_mesh() is None:
+        return None
+    if _is_block(emb, 0, cfg.vocab_size):
+        return 0
+    return 1 if _is_block(emb, 1, cfg.d_model) else None
+
+
+def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor,
+                 split: Optional[int] = None) -> torch.Tensor:
+    """The embeddings of `tokens`, emb split as `split` says
+    (`vocab_split`). Over its vocab rows the tokens outside them take
+    zeros, and the rows sum over the model group (one rank holds each
+    token's row). Over its d_model columns the rank looks up its columns
+    of every token, and one all-gather over the model group joins them
+    (`gather_columns`: the backward keeps the rank's columns)."""
+    if split is None:
         return emb[tokens]
+    if split == 1:
+        return gather_columns(emb[tokens])
+    mesh = current_mesh()
     V = emb.shape[0]
     local = tokens - model_index(mesh) * V
     inside = (local >= 0) & (local < V)
@@ -596,31 +620,44 @@ def embed_lookup(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return reduce_from_model(rows).to(emb.dtype)
 
 
-def unembed_logits(emb: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+def unembed_logits(emb: torch.Tensor, x: torch.Tensor,
+                   split: Optional[int] = None) -> torch.Tensor:
     """logits = x @ emb^T with the vocab dim padded to a multiple of 16, as in
     the reference (which pads so the vocab shards evenly); padded entries
-    are NEG_INF so a softmax over them is exact. Under a model axis, the
-    rank's vocab columns (its rows of emb, which the split divides: no
-    padding)."""
-    if current_mesh() is not None:
+    are NEG_INF so a softmax over them is exact. emb is split as `split`
+    says (`vocab_split`). Over its vocab rows, the rank's vocab columns
+    (the split divides the vocab: no padding). Over its d_model columns,
+    the partial logits of the rank's columns of x, summed over the model
+    group in f32 and cast once (`_row_split`), then padded: whole logits
+    on every rank, x's gradient summed back over the group
+    (`copy_to_model`)."""
+    if split == 0:
         return copy_to_model(x) @ emb.t()
     V = emb.shape[0]
     Vp = ((V + 15) // 16) * 16
     if Vp != V:
         emb = F.pad(emb, (0, 0, 0, Vp - V))
-    logits = x @ emb.t()
+    if split == 1:
+        w = emb.shape[1]
+        c0 = model_index(current_mesh()) * w
+        logits = _row_split(copy_to_model(x)[..., c0:c0 + w], emb.t())
+    else:
+        logits = x @ emb.t()
     if Vp != V:
         logits[..., V:] = NEG_INF
     return logits
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  split: Optional[int] = None) -> torch.Tensor:
     """Mean CE over positions with label >= 0, in f32 with the
     log-sum-exp. The gold score is a gather, where the reference contracts a
-    one-hot to keep its vocab axis sharded: the same number. Under a model
-    axis the logits are the rank's vocab columns (`_VocabParallelCE`)."""
+    one-hot to keep its vocab axis sharded: the same number. With the
+    unembedding split over its vocab rows (`split` 0, `vocab_split`) the
+    logits are the rank's vocab columns (`_VocabParallelCE`); otherwise
+    they are whole on every rank."""
     mesh = current_mesh()
-    if mesh is not None:
+    if split == 0:
         return _VocabParallelCE.apply(logits, labels, mesh)
     lf = logits.float()
     logz = torch.logsumexp(lf, dim=-1)

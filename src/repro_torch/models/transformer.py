@@ -102,35 +102,34 @@ def check_model_axis(cfg: ModelConfig, mesh) -> None:
     """Refuse, with NotImplementedError naming it, what the port does not
     execute over `mesh`'s model axis: every family but the dense one
     (MoE experts, MLA's wq_b / wkv_b, SSD, RG-LRU and encoder-decoder
-    leaves, early fusion's frontend_proj), and a split that does not
-    divide the vocab (the reference then falls back to `_ALT_SPECS`). Any
-    extent runs the dense family's heads, KV heads and FFN: a split inside
-    a head gathers its pieces, and leaves the extent does not divide stay
-    whole (`models/layers.py`)."""
+    leaves, early fusion's frontend_proj), naming its ROADMAP.md item.
+    Any extent runs the dense family's heads, KV heads, FFN and vocab: a
+    split inside a head gathers its pieces, a vocab the extent does not
+    divide splits the embedding's d_model dim as the reference's
+    `_ALT_SPECS` does, and leaves the extent does not divide stay whole
+    (`models/layers.py`)."""
     m = model_extent(mesh)
     if m == 1:
         return
     not_yet = "are not split over a model axis yet"
-    what = None
+    what = item = None
     if cfg.is_encdec:
-        what = f"the encoder-decoder's leaves {not_yet}"
+        what, item = f"the encoder-decoder's leaves {not_yet}", 5
     elif cfg.family == "ssm":
-        what = f"the SSD leaves {not_yet}"
+        what, item = f"the SSD leaves {not_yet}", 5
     elif cfg.rglru is not None:
-        what = f"the RG-LRU leaves {not_yet}"
+        what, item = f"the RG-LRU leaves {not_yet}", 5
     elif cfg.mla is not None:
-        what = f"MLA's wq_b and wkv_b {not_yet}"
+        what, item = f"MLA's wq_b and wkv_b {not_yet}", 4
     elif cfg.moe is not None:
-        what = f"MoE experts (we_gate, we_up, we_down) {not_yet}"
+        what, item = f"MoE experts (we_gate, we_up, we_down) {not_yet}", 4
     elif cfg.frontend_embed_dim:
-        what = f"early fusion's frontend_proj and its activations {not_yet}"
-    elif cfg.vocab_size % m:
-        what = (f"it does not divide the vocab of {cfg.vocab_size} (the "
-                f"reference then falls back to _ALT_SPECS, the d_model dim)")
+        what, item = (f"early fusion's frontend_proj and its activations "
+                      f"{not_yet}", 4)
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name} on a model axis of extent {m}: {what} (ROADMAP.md "
-            f"queue 1 item 1)")
+            f"queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +212,8 @@ def _apply_block(cfg: ModelConfig, spec: LayerSpec, p: Params, x, positions,
 
 
 def _embed(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    x = L.embed_lookup(params["embed"], batch["tokens"])
+    x = L.embed_lookup(params["embed"], batch["tokens"],
+                       L.vocab_split(params["embed"], cfg))
     x = x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt()
     if cfg.frontend_embed_dim and "patches" in batch:
         # early fusion: precomputed modality embeddings [B, n, F] take the
@@ -224,7 +224,8 @@ def _embed(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
 
 
 def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
-    return L.unembed_logits(params.get("unembed", params["embed"]), x)
+    emb = params.get("unembed", params["embed"])
+    return L.unembed_logits(emb, x, L.vocab_split(emb, cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +280,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     attention on its differentiable route."""
     logits, aux, _ = forward(params, cfg, batch, remat=remat, train=True,
                              window_override=window_override)
-    ce = L.cross_entropy(logits, batch["labels"])
+    ce = L.cross_entropy(logits, batch["labels"], L.vocab_split(
+        params.get("unembed", params["embed"]), cfg))
     aux_w = cfg.moe.router_aux_loss_weight if cfg.moe is not None else 0.0
     n_layers = max(cfg.num_layers, 1)
     loss = ce + aux_w * aux / n_layers

@@ -97,7 +97,11 @@ masked row sums (`train.trainer.publish_extract`), every rank writes its
 own rows of one checkpoint in the reference's layout and restores its rows
 from any checkpoint of the same run, split or not (`train.snapshot`).
 Over a model axis the same: each leaf's blocks are joined before their
-rows are written, and cut again from the rows a rank reads.
+rows are written, and cut again from the rows a rank reads. Elastic
+membership runs over a model axis as well: the ranks of a model group
+resolve the same cohort, train their blocks of its rows, and a rejoin
+sync sums each rank's donor rows of its own blocks (one all-reduce over
+the data group, none on one node shard).
 """
 from __future__ import annotations
 
@@ -598,9 +602,15 @@ class StreamingDriver:
         one leaf at a time. A trainer state's per-node optimizer steps (a
         tuple of ints) take the donors' mean the same way, truncated as the
         reference's cast of its f32 mean. On a split node axis each rank
-        sums its own donor rows in f32, the sum is all-reduced (every rank
-        takes part, with zeros where it holds no donor) and each rank
-        writes the mean into its own rejoining rows."""
+        sums its own donor rows in f32, the sum is all-reduced over the
+        data group (`dist.all_reduce_`'s default axis; every rank takes
+        part, with zeros where it holds no donor) and each rank writes the
+        mean into its own rejoining rows; the per-node optimizer steps
+        take one more all-reduce over the data group. Over a model axis a
+        rank's rows are its blocks of them, and it sums and writes its own
+        blocks (a leaf that `_sanitize` keeps whole is whole on every rank
+        and takes the same mean); on one node shard (1 x M) no message is
+        sent."""
         joined = [i for i in new.active_ids if not prev.active[i]]
         donors = [i for i in prev.active_ids if new.active[i]]
         if not joined or not donors:
@@ -630,10 +640,10 @@ class StreamingDriver:
         steps = getattr(opt, "step", None)
         if isinstance(steps, tuple) and len(steps) == n:
             total = sum(steps[i] for i in here_donors)
-            if sharded:
+            if sharded:  # on the state's device: staged as every message
                 total = int(rdist.all_reduce_(
-                    torch.tensor([total], dtype=torch.float64),
-                    self.mesh)[0])
+                    torch.tensor([total], dtype=torch.float64,
+                                 device=self.device), self.mesh)[0])
             mean = int(np.float32(total) / np.float32(len(donors)))
             steps = tuple(mean if i in here_joined else s
                           for i, s in enumerate(steps))

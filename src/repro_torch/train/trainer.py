@@ -86,9 +86,14 @@ its model shard's parameters over the data group, reduce-scatters the
 f32 gradient (the mean) back to its block (an all-reduce for a leaf
 that ZeRO-1 leaves whole over the data axes) and updates its block. The
 decentralized mode holds `param_specs` blocks of its node rows; each
-model index mixes its own columns over the node axis, leaf by leaf. The
-quantized and error-feedback wires are refused there: their statistic
-tiles run over the whole flattened leaf in the reference.
+model index mixes its own columns over the node axis, leaf by leaf. A
+cohort superstep runs there too: each model index mixes its columns over
+the cohort's rows (over `dist.cohort_rows` where the node axis is split),
+the consensus error sums the split leaves' squares over the model group
+and the cohort's rows, and the metrics are means over the cohort, the
+same on every rank of a model group. The quantized and error-feedback
+wires are refused there: their statistic tiles run over the whole
+flattened leaf in the reference.
 """
 from __future__ import annotations
 
@@ -125,11 +130,11 @@ class TrainState(NamedTuple):
 
 def check_supported(run, mesh) -> None:
     """Raise on what the trainer does not run over `mesh`: on a model
-    axis, the families and the vocab `check_model_axis` refuses (any
-    extent runs the dense family's heads, KV heads and FFN), a quantized
-    or error-feedback wire, or the hierarchical mode on a split node axis;
-    and error feedback outside the gossip mode (ValueError, as the
-    reference)."""
+    axis, the families `check_model_axis` refuses (any extent runs the
+    dense family's heads, KV heads, FFN and vocab), a quantized or
+    error-feedback wire, or the hierarchical mode on a split node axis,
+    each naming its ROADMAP.md item; and error feedback outside the
+    gossip mode (ValueError, as the reference)."""
     avg = run.averaging
     if model_extent(mesh) > 1:
         check_model_axis(run.model, mesh)
@@ -140,13 +145,13 @@ def check_supported(run, mesh) -> None:
         raise NotImplementedError(
             f"{wire} on a model axis: its [n, block_d] statistic tiles run "
             f"over the whole flattened leaf, which a column shard does not "
-            f"hold (ROADMAP.md queue 1 item 1)")
+            f"hold (ROADMAP.md queue 1 item 3)")
     if (model_extent(mesh) > 1 and is_sharded(mesh)
             and avg.mode == "hierarchical"):
         raise NotImplementedError(
             "the hierarchical mode on a model axis: its pod means are "
             "reduce-scattered over whole rows, which a column shard does "
-            "not hold (ROADMAP.md queue 1 item 1)")
+            "not hold (ROADMAP.md queue 1 item 3)")
     if run.averaging.error_feedback != "off" and run.averaging.mode != "gossip":
         raise ValueError(f"error-feedback compression (error_feedback="
                          f"{run.averaging.error_feedback!r}) requires "
@@ -507,7 +512,9 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
     `mesh` the state's rows are this rank's nodes, and `ids` its rows that
     take part: every one of its n_local of the n_nodes, or its active rows
     of an n_nodes-node cohort split as `rows` says (`dist.cohort_rows`),
-    possibly none. `pods`: as in `build_train_step`."""
+    possibly none. Over a model axis the state is the rank's blocks of
+    those rows, each leaf's model-shard columns mixed over them. `pods`:
+    as in `build_train_step`."""
     dev = resolve_device(device)
     avg = dataclasses.replace(run.averaging,
                               packed=resolve_packed(run.averaging, mesh))
@@ -670,9 +677,11 @@ def build_cohort_superstep(run, n_active: int, *,
     state. On a split node axis (`mesh`) the state is this rank's node
     rows, `ids` its active rows among them (`dist.local_ids`), the batch
     its active nodes' rows, and the cohort splits over the ranks as `rows`
-    says (`dist.cohort_rows`)."""
+    says (`dist.cohort_rows`). Over a model axis the state is the rank's
+    blocks of its node rows (every node where the node axis is not
+    split), and the layers run under `mesh_rules`."""
     check_supported(run, mesh)
-    mesh = mesh if is_sharded(mesh) else None
+    mesh = mesh if multi_rank(mesh) else None
     dev = resolve_device(device)
     step = _build_node_step(run, n_active, None, dev, mesh, rows)
     ef_on = run.averaging.error_feedback != "off"
@@ -704,9 +713,10 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
     only applies at full membership: its operator is sized for the full
     node axis. On a sharded `mesh` (`n_nodes` default: one node per rank) a
     cohort superstep is built once per cohort row table
-    (`dist.cohort_rows`), since the split shapes its halo rows; a cohort
-    over a model axis raises; and in the exact mode a B that does not split
-    evenly over the ranks raises."""
+    (`dist.cohort_rows`), since the split shapes its halo rows (where the
+    node axis is not split, over a model axis too, once per cohort size);
+    and in the exact mode a B that does not split evenly over the ranks
+    raises."""
     check_supported(run, mesh)
     n_full = n_nodes or (n_data_nodes(mesh) if mesh is not None else 1)
     cohort_cache: Dict[Any, Callable] = {}
@@ -721,10 +731,6 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
                  if m != n_full and is_sharded(mesh) else None)
         key = m if table is None else table
         fn = cohort_cache.get(key)
-        if fn is None and m != n_full and model_extent(mesh) > 1:
-            raise NotImplementedError(
-                "elastic membership over a model axis is not ported yet "
-                "(ROADMAP.md queue 1 item 1)")
         if fn is None:
             fn = (build_superstep(run, mesh, n_nodes=n_full, mix=mix,
                                   device=device)

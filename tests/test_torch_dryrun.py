@@ -294,19 +294,22 @@ def test_prefill_argument_bytes_are_the_cpu_serve_state():
 
 def test_model_axis_is_planned_not_executed():
     """On a {data 4, model 2} mesh, for a config the trainer refuses there
-    (reduced granite-8b with a vocab of 513, which 2 does not divide: the
-    reference falls back to `_ALT_SPECS`): ZeRO-1 and model placements
+    (reduced granite-8b with an early-fusion frontend, whose
+    frontend_proj the model axis does not split yet; a vocab the axis
+    does not divide executes since its embedding splits over d_model):
+    ZeRO-1 and model placements
     shrink the arguments, the temporaries are the unsplit bound
     (flagged), and the Megatron split's activation all-reduces are
     planned: two per layer forward, times 3 with the backward and
     remat."""
     cfg = dataclasses.replace(reduced(get_config("granite-8b")),
-                              vocab_size=513)
+                              frontend_embed_dim=128)
     kw = dict(cfg=cfg, shape=_tiny("train_4k"), microbatches=1)
     one = dryrun.plan("granite-8b", "train_4k", ONE, **kw)
     rec = dryrun.plan("granite-8b", "train_4k", dryrun.parse_mesh("4x2"),
                       **kw)
     assert rec["temp_unsplit_over_model"] is True
+    assert "frontend_proj" in rec["model_axis_refused"]
     assert rec["memory"]["argument_gib"] < one["memory"]["argument_gib"] / 4
     planned = rec["collectives_planned"]
     assert planned["all-reduce.count"] == 2 * 3 * cfg.num_layers

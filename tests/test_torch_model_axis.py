@@ -4,7 +4,9 @@ numpy.
 
 * (a) The tensor-parallel layers on 2 ranks (a model axis of 2): the loss
   and every gradient of reduced granite-8b and phi4-mini-3.8b at d_model
-  512 (8 heads, 2 KV heads), from the reference's parameters cut to each
+  512 (8 heads, 2 KV heads), and of the granite with a vocab of 513, which
+  2 does not divide (its embedding split over d_model, the reference's
+  `_ALT_SPECS`), from the reference's parameters cut to each
   rank's blocks (`convert.lm_params(mesh=...)`), against
   `repro.models.registry.loss_fn` under `jax.value_and_grad` on one
   device, with remat on and off: loss within rtol 1e-5, each gradient
@@ -25,11 +27,12 @@ numpy.
   (`repro_torch.launch.dryrun`): the model axis's count and bytes, the
   data axis's count.
 * (d) What the model axis does not execute raises NotImplementedError
-  naming it; heads, KV heads and FFN widths the extent does not divide
-  execute, and the planner traces the dense archs on the production
-  16 x 16 mesh as executed.
+  naming it and its ROADMAP.md item; heads, KV heads, FFN widths and
+  vocabs the extent does not divide execute, and the planner traces the
+  dense archs on the production 16 x 16 mesh as executed.
 """
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -65,19 +68,22 @@ torch.set_num_threads(1)
 
 B, S, STEPS, N = 8, 64, 3, 4
 S_TRAIN = 32  # the trainer cases' sequences
-ARCHS = ("granite-8b", "phi4-mini-3.8b")
+# (a)'s cases: name -> (arch, vocab or None for the arch's)
+LAYER_CASES = {"granite-8b": ("granite-8b", None),
+               "phi4-mini-3.8b": ("phi4-mini-3.8b", None),
+               "granite-8b vocab 513": ("granite-8b", 513)}
 MODES = ("exact", "gossip")
 
 
-def _cfgs(arch, kv_heads=None):
+def _cfgs(arch, kv_heads=None, vocab=None):
     """The JAX and port configs of `arch` reduced at d_model 512 (8 heads,
-    2 KV heads, or `kv_heads`)."""
+    2 KV heads, or `kv_heads`; the arch's vocab, or `vocab`)."""
     j, t = (jreduced(jget_config(arch), d_model=512),
             reduced(get_config(arch), d_model=512))
-    if kv_heads:
-        j = dataclasses.replace(j, num_kv_heads=kv_heads)
-        t = dataclasses.replace(t, num_kv_heads=kv_heads)
-    return j, t
+    changes = {k: v for k, v in (("num_kv_heads", kv_heads),
+                                 ("vocab_size", vocab)) if v}
+    return (dataclasses.replace(j, **changes),
+            dataclasses.replace(t, **changes))
 
 
 def _batches(vocab, n, seq=S):
@@ -94,8 +100,8 @@ def layers(tmp_path_factory):
     """(a): the 2 ranks' results, and the reference's."""
     tmp = tmp_path_factory.mktemp("model_layers")
     given, want = {}, {}
-    for arch in ARCHS:
-        jcfg, tcfg = _cfgs(arch)
+    for arch, (name, vocab) in LAYER_CASES.items():
+        jcfg, tcfg = _cfgs(name, vocab=vocab)
         assert (tcfg.num_heads, tcfg.num_kv_heads) == (8, 2)
         jp = jreg.init_params(jax.random.PRNGKey(0), jcfg, jnp.float32)
         batch = _batches(tcfg.vocab_size, 1)[0]
@@ -112,11 +118,13 @@ def layers(tmp_path_factory):
                                    [g.numpy() for g in tree_leaves(grads)])
     path = tmp / "given.pt"
     torch.save(given, path)
-    return spawn("model_layers", 2, tmp, path), want
+    res = spawn("model_layers", 2, tmp, path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res, want
 
 
 @pytest.mark.parametrize("remat", [True, False])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(LAYER_CASES))
 def test_tensor_parallel_loss_and_grads_match_reference(layers, arch, remat):
     res, want = layers
     jloss, jce, jgrads = want[(arch, remat)]
@@ -178,7 +186,9 @@ def trained(tmp_path_factory):
                                    "batches": batches, "n_nodes": N}
     path = tmp / "given.pt"
     torch.save(given, path)
-    return spawn("model_trainer", 4, tmp, path), want, whole
+    res = spawn("model_trainer", 4, tmp, path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res, want, whole
 
 
 def _amesh(name):
@@ -290,24 +300,27 @@ def _refusals():
         # early fusion on a dense decoder (llama4-scout's is MoE as well)
         ("granite-8b", {"frontend_embed_dim": 128}, gossip(), 2,
          "frontend_proj"),
-        ("granite-8b", {"vocab_size": 513}, gossip(), 2, "_ALT_SPECS"),
     ]
     return cases
 
 
 @pytest.mark.parametrize("arch,changes,avg,model,match", _refusals())
 def test_model_axis_refusals(arch, changes, avg, model, match):
-    """(d): each refusal names what it refuses, from the trainer, from
-    `init_state` and in the planner's record; a vocab that the model axis
-    does not divide is refused too (the reference falls back to
-    `_ALT_SPECS`, the d_model dim)."""
+    """(d): each refusal names what it refuses and its ROADMAP.md item,
+    from the trainer, from `init_state` and in the planner's record (a
+    vocab the model axis does not divide executes: (a) holds it against
+    the reference)."""
     cfg = dataclasses.replace(reduced(get_config(arch), d_model=512),
                               **changes)
     run = RunConfig(model=cfg, shape=SHAPES["train_4k"], averaging=avg,
                     optimizer="sgd", param_dtype="float32")
     mesh = Mesh((1, model), ("data", "model"))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match=match) as refused:
         trainer.build_train_step(run, mesh, n_nodes=N, device="cpu")
+    item = 3 if avg.quantization != "none" or avg.error_feedback != "off" \
+        else 4 if arch in ("granite-8b", "qwen2-moe-a2.7b", "minicpm3-4b") \
+        else 5
+    assert f"ROADMAP.md queue 1 item {item}" in str(refused.value)
     with pytest.raises(NotImplementedError, match=match):
         trainer.init_state(run, torch.Generator().manual_seed(0), mesh)
     assert match in dryrun.model_axis_refusal(run, mesh)

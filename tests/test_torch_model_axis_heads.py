@@ -29,6 +29,7 @@ gloo group (`tests/torch_dist_worker.py` `model_heads`, one worker run of
   count.
 """
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -178,6 +179,7 @@ def ranks(tmp_path_factory):
     torch.save({"layers": layers, "trainer": trainer_cases}, path)
     res, want = spawn("model_heads", WORLD, tmp, path, during=lambda: (
         _layer_refs(layers), _trainer_refs(inits)))
+    shutil.rmtree(tmp, ignore_errors=True)  # given.pt: ~0.4 GB
     return res, want, whole
 
 

@@ -26,6 +26,7 @@ gloo group (`tests/torch_dist_worker.py`, one worker run per world size):
   history on every rank.
 """
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -72,15 +73,17 @@ def inputs(tmp_path_factory):
         ta=rng.standard_normal((N, 12, 16)).astype(np.float32),
         tb=rng.standard_normal((N, 48)).astype(np.float32))
     np.savez(path, **data)
-    return path, data
+    yield path, data
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
 def ranks(request, inputs, tmp_path_factory):
     path, data = inputs
     world = request.param
-    res = spawn("rules", world, tmp_path_factory.mktemp(f"rules{world}"),
-                path)
+    tmp = tmp_path_factory.mktemp(f"rules{world}")
+    res = spawn("rules", world, tmp, path)
+    shutil.rmtree(tmp, ignore_errors=True)
     return world, res, data
 
 
@@ -180,8 +183,8 @@ def test_node_axis_reductions_over_ranks(ranks):
 def test_mesh_constructors_and_rows():
     """One process: the host mesh is (1, 1) and unsharded; a mesh that does
     not cover the group and the production mesh (256 ranks) are refused,
-    and a model axis where it does not execute (queue 1 item 1); rows
-    split in contiguous runs."""
+    and a model axis where it does not execute (ROADMAP.md's model-axis
+    deviations); rows split in contiguous runs."""
     host = meshlib.make_host_mesh()
     assert host.shape == {"data": 1, "model": 1} and host.rank == 0
     assert not rdist.is_sharded(host) and rdist.n_data_nodes(host) == 1
@@ -191,7 +194,8 @@ def test_mesh_constructors_and_rows():
         meshlib.make_production_mesh()
     with pytest.raises(ValueError, match="512 ranks"):
         meshlib.make_production_mesh(multi_pod=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
+    with pytest.raises(NotImplementedError,
+                       match="the model axis's deviations"):
         rdist.check_mesh(rdist.Mesh((2, 2), ("data", "model")), "the PCA path")
     # over one node shard each model index mixes its own columns locally
     op = mixing.circulant_mix_op(mixing.schedule("ring", 4), 4, 1,
@@ -267,7 +271,7 @@ def test_sharded_refusals_and_rule_coverage():
     mode takes its pods from the mesh's "pod" axis and refuses pods that
     the mesh does not hold; what stays refused is error feedback, the
     quantized wires and the hierarchical mode over a model axis (queue 1
-    item 1); and the shard rules refuse a layout that `node_shard_info`
+    item 3); and the shard rules refuse a layout that `node_shard_info`
     does not cover (a ring over two mesh axes), which `core.mixing`'s op
     gathers instead."""
     from repro_torch.configs import get_config, reduced
@@ -316,7 +320,8 @@ def test_sharded_refusals_and_rule_coverage():
                                         quantization="sign"),
                         "the sign wire on a model axis"),
                        (hier, "the hierarchical mode on a model axis")):
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(NotImplementedError,
+                           match=f"{match}.*queue 1 item 3"):
             trainer.check_supported(dataclasses.replace(tp, averaging=avg),
                                     model2)
     pods = rdist.Mesh((2, 2, 1), ("pod", "data", "model"))
@@ -347,6 +352,7 @@ def driver_runs(tmp_path_factory):
              top=np.asarray(js.top_eigvec), lambda1=js.lambda1,
              eigengap=js.eigengap, w0=w0)
     res = spawn("driver", 2, path.parent, path)
+    shutil.rmtree(path.parent, ignore_errors=True)
     ref = {}
     for mode, dt, buckets in DRIVER_CASES:
         avg = JAveragingConfig(mode=mode, rounds=2)

@@ -35,6 +35,7 @@
 import dataclasses
 import filecmp
 import os
+import shutil
 import subprocess
 import sys
 import types
@@ -102,7 +103,8 @@ def ranks(tmp_path_factory):
     path = tmp / "given.pt"
     torch.save(given, path)
     res = spawn("shard_durability", 2, tmp, path)
-    return res, given, js, ts
+    yield res, given, js, ts
+    shutil.rmtree(tmp, ignore_errors=True)  # the checkpoints under work
 
 
 def _files(path):

@@ -33,6 +33,7 @@ one-process run and the JAX package's trainer:
 """
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -328,6 +329,7 @@ def _spawn(E, tmp, small_chunks):
         return ref
 
     res, ref = spawn("shard_ef", E, tmp, path, during=references)
+    shutil.rmtree(tmp, ignore_errors=True)  # given.pt: ~0.5 GB
     return E, res, ref, given
 
 

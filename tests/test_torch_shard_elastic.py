@@ -33,6 +33,7 @@ worker run per world size), against the JAX package on one process:
   `resume_from` do.
 """
 import os
+import shutil
 import subprocess
 import sys
 
@@ -78,8 +79,10 @@ def _stitch(parts):
 @pytest.fixture(scope="module", params=[2, 4], ids=["2ranks", "4ranks"])
 def cohorts(request, tmp_path_factory):
     world = request.param
-    return world, spawn("cohort_rules", world,
-                        tmp_path_factory.mktemp(f"cohort{world}"))
+    tmp = tmp_path_factory.mktemp(f"cohort{world}")
+    res = spawn("cohort_rules", world, tmp)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return world, res
 
 
 def test_cohort_rows_split_the_active_ids():
@@ -190,6 +193,7 @@ def pca_runs(tmp_path_factory):
              top=np.asarray(js.top_eigvec), lambda1=js.lambda1,
              eigengap=js.eigengap, w0=w0)
     res = spawn("elastic_driver", 2, path.parent, path)
+    shutil.rmtree(path.parent, ignore_errors=True)
     return res, js, w0
 
 
@@ -287,7 +291,7 @@ def test_driver_durability_on_a_split_axis_still_raises(arg, tmp_path):
     model axis they run too for the families it executes
     (tests/test_torch_model_axis_durability.py); what still raises is a
     snapshot or a resume of a family it does not execute (the MoE
-    experts: ROADMAP.md queue 1 item 1), before any process group is
+    experts: ROADMAP.md queue 1 item 4), before any process group is
     entered."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
@@ -403,7 +407,7 @@ def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path,
     and `--resume` there, tests/test_torch_model_axis_durability.py over
     a model axis); `--checkpoint` and `--resume` of a family the model
     axis does not execute still raise (the MoE experts: ROADMAP.md queue
-    1 item 1)."""
+    1 item 4)."""
     from repro_torch.launch import train as launch_train
 
     if flags == ["--publish"]:

@@ -30,6 +30,7 @@ run), against the JAX package on one process:
   bounds.
 """
 import dataclasses
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -214,7 +215,9 @@ def ranks(tmp_path_factory):
             ref["fam"][arch] = (jax.tree.map(np.asarray, fjs), metrics)
         return ref
 
-    return spawn("elastic_trainer", 4, tmp, path, during=references)
+    out = spawn("elastic_trainer", 4, tmp, path, during=references)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def _stitched(res, label):

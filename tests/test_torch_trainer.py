@@ -307,14 +307,15 @@ def test_init_state_masters_and_replication():
 
 
 def test_later_slices_raise():
-    """A model axis that the reduced granite's vocab does not divide
-    raises (queue 1 item 1; one that divides it trains, its one KV head
-    split inside the head: tests/test_torch_model_axis_heads.py; a
-    node-only mesh trains: tests/test_torch_trainer_dist.py);
-    error feedback (gossip only, as in the
-    reference) and cohort supersteps build: the cohort's takes the active
-    ids and works on the full state (tests/test_torch_elastic.py holds it
-    against the reference)."""
+    """What earlier slices refused now builds: a model axis that the
+    reduced granite's vocab does not divide (its embedding split over
+    d_model, as the reference's `_ALT_SPECS`:
+    tests/test_torch_model_axis.py and
+    tests/test_torch_model_axis_elastic.py hold it against the
+    reference), and a cohort over a model axis; error feedback (gossip
+    only, as in the reference) and cohort supersteps build: the cohort's
+    takes the active ids and works on the full state
+    (tests/test_torch_elastic.py holds it against the reference)."""
     _, trun = _runs("gossip", "none", "adam")
     ef = dataclasses.replace(trun, averaging=dataclasses.replace(
         trun.averaging, error_feedback="grads"))
@@ -326,9 +327,13 @@ def test_later_slices_raise():
         trainer.superstep_builder(hier, None, n_nodes=N, device="cpu")
     odd = dataclasses.replace(trun, model=dataclasses.replace(
         trun.model, vocab_size=513))
-    with pytest.raises(NotImplementedError, match="_ALT_SPECS"):
-        trainer.build_train_step(odd, Mesh((1, 2), ("data", "model")),
-                                 n_nodes=N, device="cpu")
+    split = Mesh((1, 2), ("data", "model"))
+    assert callable(trainer.build_train_step(odd, split, n_nodes=N,
+                                             device="cpu"))
+    state = trainer.init_state(odd, torch.Generator().manual_seed(0), split)
+    assert state.params["embed"].shape == (513, trun.model.d_model // 2)
+    assert trainer.superstep_builder(odd, split, n_nodes=N, device="cpu")(
+        B, Membership.full(N).drop(1)).takes_ids
     build = trainer.superstep_builder(trun, None, n_nodes=N, device="cpu")
     cohort = build(B, Membership.full(N).drop(1))
     assert cohort.takes_ids and cohort is build(B, Membership.full(N).drop(2))

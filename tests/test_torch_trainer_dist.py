@@ -21,6 +21,7 @@ and the training launcher under `torchrun`.
 """
 import os
 import re
+import shutil
 import subprocess
 import sys
 
@@ -110,7 +111,9 @@ def runs(tmp_path_factory):
                       metrics)
     path = tmp / "given.pt"
     torch.save(given, path)
-    return spawn("trainer", N, tmp, path), want
+    res = spawn("trainer", N, tmp, path)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res, want
 
 
 @pytest.mark.parametrize("mode", ["exact", "gossip"])

@@ -61,13 +61,18 @@ def spawn(case: str, world: int, tmp_path, inp=None, during=None):
                 p.kill()
                 p.wait()
             log.close()
+    logs = [tmp_path / f"{case}_{world}_{r}.log" for r in range(world)]
     for r, (p, out, _) in enumerate(procs):
-        text = (tmp_path / f"{case}_{world}_{r}.log").read_text()
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{text}"
+        assert p.returncode == 0, (f"rank {r} exited {p.returncode}:\n"
+                                   f"{logs[r].read_text()}")
+    # pytest keeps the base temps of its last runs: what a passing run
+    # leaves behind (results, logs, the FileStore) goes once loaded
     res = []
     for _, out, _ in procs:
         res.append(torch.load(out, weights_only=False))
-        out.unlink()  # loaded: the disk holds every test's tmp until the end
+        out.unlink()
+    for path in logs + [store]:
+        path.unlink(missing_ok=True)
     return res if during is None else (res, extra)
 
 
@@ -1287,12 +1292,197 @@ def _pca_durable(mesh, w0, sample, root, resume):
             "from": drv.resumed_from}
 
 
+# ---------------------------------------------------------------------------
+# Elastic membership and the vocab fallback over a model axis
+# (tests/test_torch_model_axis_elastic.py), on 4 ranks
+# ---------------------------------------------------------------------------
+
+# the driver's runs of reduced granite-8b at d_model 512 (f32, Adam, 4
+# nodes, K = 1, no prefetch, open loop, on a FakeClock of ME_DT):
+# (label, mesh name, fault spec, governor changes). "2x2 sync" also takes
+# a blocking snapshot every superstep and is resumed from the one taken
+# in the cohort (after superstep ME_BACK); the final states of
+# ME_PUBLISHED are published under the partial mask ME_MASK
+ME_SLOW = "slow:2@1-3x10"
+ME_RUNS = [("1x4 sync", "1x4", LM_SPEC, {}),
+           ("1x4 no sync", "1x4", LM_SPEC, {"sync_on_rejoin": False}),
+           ("2x2 sync", "2x2", LM_SPEC, {}),
+           ("2x2 straggler", "2x2", ME_SLOW,
+            {"straggler_policy": "drop", "straggler_patience": 1})]
+ME_DT, ME_BACK, ME_MASK = 1e-3, 2, (1.0, 0.0, 1.0, 1.0)
+ME_PUBLISHED = ("1x4 sync", "2x2 sync")
+# the vocab fallback: reduced granite-8b at d_model 512 with a vocab the
+# model extent does not divide, ME_VOCAB_STEPS gossip steps on each mesh
+ME_VOCAB, ME_VOCAB_STEPS = 513, 2
+
+
+def _me_driver(mesh, run, state, spec, gov, root=None, resume=None):
+    from repro_torch.configs.base import GovernorConfig
+    from repro_torch.core import faults
+    from repro_torch.train.driver import EngineConfig, StreamingDriver
+    from repro_torch.train.snapshot import RunSnapshotter
+
+    snap = (RunSnapshotter(root, every=1, keep_last=10, block=True,
+                           overhead_budget=0.0) if root else None)
+    return StreamingDriver(
+        run, mesh, state, lambda rng, n: lm_draw(rng, n), batch=LM_B,
+        n_nodes=4, device="cpu", faults=faults.FaultSchedule.parse(spec, 4),
+        clock=FakeClock(ME_DT), snapshotter=snap, resume_from=resume,
+        engine=EngineConfig(superstep=1, prefetch_depth=0, replan_every=0,
+                            governor=GovernorConfig(**gov)))
+
+
+def _me_tree(state, run, mesh):
+    """The rank's node rows of the state's parameters and Adam moments
+    gathered over the model axis, shared out between the ranks of its
+    model group to send: {"nodes": the node ids it sends, "params", "m",
+    "v": their rows, one flat f32 tensor a node (which loads faster than
+    numpy), in `jax.tree.leaves` order}, the per-node steps of its rows
+    and the `digest` of the parameter leaves, the same on every rank of
+    the group."""
+    from repro_torch import convert, dist as rdist
+
+    tree = convert.train_tree(state, run.model, mesh)
+    leaves = np_leaves(tree["params"])
+    rows = rdist.node_rows(mesh, 4)
+    mine = range(rdist.model_index(mesh), rows.stop - rows.start,
+                 rdist.model_extent(mesh))
+    flat = lambda xs: [torch.from_numpy(np.concatenate(
+        [x[j].ravel() for x in xs])) for j in mine]
+    out = {"nodes": [rows.start + j for j in mine], "params": flat(leaves),
+           "step": tree["step"], "digest": digest(leaves)}
+    out.update({k: flat(np_leaves(tree[k])) for k in ("m", "v")
+                if tree[k] != ()})
+    return out
+
+
+def model_elastic(mesh, inp):
+    """(1) ME_RUNS through the StreamingDriver on this rank's blocks of
+    its node rows, from the state the parent converted from the JAX
+    package's: membership events, compiled signatures, metrics and the
+    final state; the "2x2 sync" run's resume from its cohort snapshot;
+    the publications of ME_PUBLISHED under ME_MASK. (2) One cohort step (node 1
+    out) and one rejoin sync on each mesh, their messages. (3) The vocab
+    fallback's gossip steps on each mesh, and the final state saved as a
+    split checkpoint beside rank 0's one-process save of it, then
+    restored into zeroed blocks."""
+    import torch.distributed as dist
+
+    from repro_torch import convert, dist as rdist
+    from repro_torch.core.mixing import Membership
+    from repro_torch.core.packing import map_tensors, tree_leaves
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import checkpoint, trainer as tr
+
+    given = torch.load(inp, weights_only=False)
+    meshes = {name: make_host_mesh(model=m)
+              for name, m in MODEL_MESHES.items()}
+    run, work = given["run"], given["work"]
+
+    def whole(run, case):
+        """The 4 nodes' state from one node's."""
+        return tr.replicate_for_nodes(convert.train_state(
+            *case, run.model, device="cpu"), 4)
+
+    start = whole(run, given["state"])
+    blocks = lambda mesh: _blocks(start, run, mesh,
+                                  rdist.node_rows(mesh, 4))
+
+    out = {"runs": {}, "probes": {}, "vocab": {}}
+    for label, name, spec, gov in ME_RUNS:
+        mesh = meshes[name]
+        root = (os.path.join(work, "snapshots") if label == "2x2 sync"
+                else None)
+        with _me_driver(mesh, run, blocks(mesh), spec, gov,
+                        root) as drv:
+            state, hist = drv.run(LM_SUPERSTEPS)
+            res = {"events": [(e["superstep"], e["to"].active_ids)
+                              for e in drv.membership_events],
+                   "n_active": [r["n_active"] for r in hist],
+                   "signatures": drv.compiled_signatures,
+                   "metrics": [r["metrics"] for r in hist]}
+        rows = rdist.node_rows(mesh, 4)
+        res.update(_me_tree(state, run, mesh), rows=(rows.start, rows.stop))
+        if label in ME_PUBLISHED:
+            published = tr.publish_extract(4, run=run, mesh=mesh)(
+                state, torch.tensor(ME_MASK))
+            leaves = tree_leaves(published)
+            res["published"] = None if mesh.rank else leaves
+            res["published_digest"] = digest([p.numpy() for p in leaves])
+        if root is not None:
+            # resumed from the snapshot taken in the cohort, into zeroed
+            # blocks: the last superstep bit for bit
+            zero = map_tensors(torch.zeros_like, blocks(mesh))
+            back = checkpoint.step_dir(root, ME_BACK)
+            with _me_driver(mesh, run, zero, spec, gov, resume=back) as drv:
+                restored = (drv.membership.active_ids, drv.state.opt.step)
+                st, h = drv.run(LM_SUPERSTEPS - ME_BACK)
+                res["resumed"] = {
+                    "from": drv.resumed_from, "restored": restored,
+                    "events": [(e["superstep"], e["to"].active_ids)
+                               for e in drv.membership_events],
+                    "losses": [r["metrics"]["loss"] for r in h],
+                    "bitwise": st.opt.step == state.opt.step and all(
+                        torch.equal(a, b) for a, b in zip(
+                            _tensors_of(st), _tensors_of(state),
+                            strict=True))}
+        out["runs"][label] = res
+    # (2) one cohort step and one rejoin sync per mesh, their messages
+    mem = Membership.full(4).drop(1)
+    for name, mesh in meshes.items():
+        fn = tr.superstep_builder(run, mesh, n_nodes=4, device="cpu")(9, mem)
+        batch = tr.make_node_batch(
+            {k: torch.from_numpy(v)[None] for k, v in
+             lm_draw(np.random.default_rng(3), 9).items()}, 3, axis=1)
+        batch = shard_batch(batch, mesh, 4, node_axis=True, membership=mem)
+        state = blocks(mesh)
+        (_, metrics), step = _wires(lambda: fn(
+            state, rdist.local_ids(mesh, mem), batch))
+        with _me_driver(mesh, run, blocks(mesh), LM_SPEC,
+                        {}) as drv:
+            _, sync = _wires(lambda: drv._sync_rejoined(mem,
+                                                         Membership.full(4)))
+        out["probes"][name] = {"step": step, "sync": sync,
+                               "loss": float(metrics["loss"][0])}
+    # (3) the vocab fallback
+    vrun = given["vocab_run"]
+    vstart = whole(vrun, given["vocab_state"])
+    for name, mesh in meshes.items():
+        rows = rdist.node_rows(mesh, 4)
+        state = _blocks(vstart, vrun, mesh, rows)
+        state, metrics, wires = _steps(vrun, mesh, state,
+                                       given["vocab_batches"], 4, rows)
+        specs = tr.state_placements(vrun, mesh, state)
+        path = os.path.join(work, f"vocab_{name}")
+        checkpoint.save(path, state, step=ME_VOCAB_STEPS, model=vrun.model,
+                        mesh=mesh, n_nodes=4, specs=specs)
+        if name == "1x4":  # every node's rows here: rank 0 saves them whole
+            whole = _gather_state(state, vrun, mesh)
+            if mesh.rank == 0:
+                checkpoint.save(os.path.join(work, "vocab_one"), whole,
+                                step=ME_VOCAB_STEPS, model=vrun.model)
+        dist.barrier()
+        like = map_tensors(torch.zeros_like, state)
+        restored = checkpoint.restore(path, like, model=vrun.model,
+                                      into=True, mesh=mesh, n_nodes=4,
+                                      specs=specs)
+        out["vocab"][name] = dict(
+            _me_tree(state, vrun, mesh), metrics=metrics,
+            embed=tuple(state.params["embed"].shape),
+            rows=(rows.start, rows.stop), log=wires[0]["log"],
+            restored=all(torch.equal(a, b) for a, b in zip(
+                _tensors_of(restored), _tensors_of(state), strict=True)))
+    return out
+
+
 CASES = {"rules": rules, "driver": driver, "trainer": trainer,
          "model_layers": model_layers, "model_trainer": model_trainer,
          "cohort_rules": cohort_rules, "elastic_driver": elastic_driver,
          "elastic_trainer": elastic_trainer, "shard_ef": shard_ef,
          "shard_durability": shard_durability, "model_heads": model_heads,
-         "model_durability": model_durability}
+         "model_durability": model_durability,
+         "model_elastic": model_elastic}
 
 
 def main():
