@@ -4399,6 +4399,554 @@ def model_axis_elastic_phases(dev) -> dict:
         "y1": [g["launches"].get("gossip_mix", 0) for g in y1]}}
 
 
+# (z) the Section VI wires over a model axis: Z_WORLD rank processes share
+# the card in one gloo group (`model_axis_wire_phases`, spawned after (y)'s
+# ranks have exited), (z0) then (z1) in one spawn. (z0): reduced granite-8b
+# at d_model 512 in f32, SGD, Z_STEPS steps of 8 x Y_SEQ tokens, against
+# the port's one-process run on the card (unpacked, as "auto" resolves on a
+# model axis): error feedback, the per-round wires (64-column tiles: wk's
+# and wv's runs of 32 columns a rank straddle them, every other leaf holds
+# whole tiles; 32-column tiles: none straddles), "node" and "global", the
+# hierarchical mode on 2 x 1 x 2 and error feedback in a cohort; (z1):
+# granite-8b at its published widths, TRAIN_LAYERS layers, bf16, one round
+# of the int8 tile wire and of error feedback int8 on 1 x 4
+Z_WORLD, Z_TIMEOUT = 4, 300
+Z_STEPS, Z_BLOCK = 2, 64
+Z_WIRES = {
+    "ef sign": dict(quantization="sign", error_feedback="grads",
+                    quant_stats="tile", quant_block_d=Z_BLOCK),
+    "ef int8": dict(quantization="int8", error_feedback="grads",
+                    quant_stats="tile", quant_block_d=Z_BLOCK),
+    "int8 tile": dict(quantization="int8", quant_stats="tile",
+                      quant_block_d=Z_BLOCK),
+    "sign tile": dict(quantization="sign", quant_stats="tile",
+                      quant_block_d=Z_BLOCK),
+    "int8 tile aligned": dict(quantization="int8", quant_stats="tile",
+                              quant_block_d=32),
+    "int8 node": dict(quantization="int8", quant_stats="node",
+                      quant_block_d=Z_BLOCK),
+    "int8 global": dict(quantization="int8", quant_stats="global"),
+    "hier none": dict(self_weight=0.6),
+    "hier int8": dict(quantization="int8", quant_stats="tile",
+                      quant_block_d=Z_BLOCK, self_weight=0.6),
+}
+# (z0)'s runs: (label, mesh shape: (data, model) or (pod, data, model))
+Z0_RUNS = [("ef sign", (1, 4)), ("ef int8", (1, 4)), ("ef sign", (2, 2)),
+           ("ef int8", (2, 2)), ("int8 tile", (1, 4)), ("sign tile", (1, 4)),
+           ("int8 tile aligned", (1, 4)), ("int8 node", (1, 4)),
+           ("int8 global", (1, 4)), ("hier none", (2, 1, 2)),
+           ("hier int8", (2, 1, 2))]
+Z1_WIRES = {"int8 tile": dict(quantization="int8", quant_stats="tile",
+                              quant_block_d=512),
+            "ef int8": dict(quantization="int8", error_feedback="grads",
+                            quant_stats="tile", quant_block_d=512)}
+
+
+def z_run(cfg, label, dtype="float32", one_process=False, wires=Z_WIRES):
+    """A (z) run: SGD, ring R = TRAIN_R; f32 at lr 0.5 ((z0), the tests'
+    rate) or bf16 without masters at 1e-3 ((z1)). On one process a
+    per-round wire mixes unpacked, as "auto" resolves over a model axis."""
+    from repro_torch.configs.base import SHAPES, AveragingConfig, RunConfig
+
+    wire = dict(wires[label])
+    mode = "hierarchical" if label.startswith("hier") else "gossip"
+    if one_process and "error_feedback" not in wire:
+        wire["packed"] = False
+    return RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                     averaging=AveragingConfig(mode, TRAIN_R, "ring", **wire),
+                     optimizer="sgd",
+                     learning_rate=0.5 if dtype == "float32" else 1e-3,
+                     param_dtype=dtype, master_weights=False)
+
+
+def z_gathered(state, run, mesh):
+    """The rank's node rows of the parameters and residuals gathered over
+    the model axis, on the host, on model index 0 (None elsewhere)."""
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.train import trainer
+
+    spec = trainer.rest_specs(run.model, mesh, False, node_axis=True)
+    out = {}
+    for key, tree in (("params", state.params),
+                      ("residual", state.opt.ef_residual)):
+        if tree == ():
+            continue
+        whole = shlib.gather_tree(tree, spec, mesh)
+        out[key] = [t.cpu() for t in tree_leaves(whole)]
+    return None if rdist.model_index(mesh) else out
+
+
+def z_routes(run, mesh):
+    """(leaves whose local tiles are the reference's, leaves that take
+    the slot kernels) of a "tile" wire on `mesh`: what each step launches
+    of gossip_mix_quant, and of each slot kernel per round."""
+    from repro_torch.core.quantize import Slots, block_maps
+    from repro_torch.dist import model_extent, model_index
+    from repro_torch.models import registry
+    from repro_torch.models.common import MetaGenerator
+    from repro_torch.train import trainer
+
+    lay = trainer.leaf_layout(run.model, mesh)
+    params = registry.init_params(MetaGenerator(), run.model)
+    aligned = straddling = 0
+    for pool in trainer.layer_pools(params, run.model):
+        maps = block_maps([lay[i] for i in pool], model_extent(mesh),
+                          model_index(mesh))
+        width = sum(bm.span for bm in maps)
+        sl = Slots(maps, min(run.averaging.quant_block_d, width), width,
+                   width, index=model_index(mesh))
+        aligned += sum(sl.aligned)
+        straddling += len(pool) - sum(sl.aligned)
+    return aligned, straddling
+
+
+def z_rank(rank: int, store: str, workdir: str) -> int:
+    """One rank of (z0) and (z1): `python3 chip_smoke.py --z-rank RANK
+    STORE DIR`. Saves its results to DIR/z_rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=Z_WORLD,
+                            timeout=datetime.timedelta(seconds=240))
+    meshes = {(1, 4): make_host_mesh(model=4),
+              (2, 2): make_host_mesh(model=2),
+              (2, 1, 2): make_mesh((2, 1, 2), ("pod", "data", "model"))}
+    res = {"seconds": {}}
+    t0 = time.perf_counter()
+    res["z0"] = z0_rank(dev, meshes)
+    dist.barrier()
+    res["seconds"]["z0"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["z1"] = z1_rank(dev, meshes[(1, 4)])
+    dist.barrier()
+    res["seconds"]["z1"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(workdir, f"z_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def z_log():
+    from repro_torch import dist as rdist
+
+    return {f"{a} {k}": list(v) for (a, k), v in rdist.log.items()}
+
+
+def z0_rank(dev, meshes) -> dict:
+    """(z0) on one rank: each Z0_RUNS run's losses, launches, slot
+    messages and gathered rows; the cohort run through the driver."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+
+    cfg, _, _ = y_cfgs()
+    batches = t_tokens(cfg, Z_STEPS, 8, Y_SEQ, 11)
+    out = {"runs": {}}
+    for label, shape in Z0_RUNS:
+        mesh, run = meshes[shape], z_run(cfg, label)
+        st = y_state(dev, run, mesh)
+        step = trainer.build_train_step(run, mesh, n_nodes=TRAIN_N,
+                                        device=dev)
+        ops.reset_launches()
+        rdist.reset_stats()
+        losses = []
+        for b in batches:
+            st, m = step(st, x_batch(dev, b, mesh, "gossip"))
+            losses.append(float(m["loss"]))
+        rows = rdist.node_rows(mesh, TRAIN_N)
+        out["runs"][label, shape] = {
+            "losses": losses, "launches": dict(ops.launches),
+            "log": z_log(), "rows": (rows.start, rows.stop),
+            "tree": z_gathered(st, run, mesh),
+            "routes": z_routes(run, mesh)}
+        del st, step
+    # error feedback int8 in a cohort, through the driver (1 x 4)
+    run = z_run(cfg, "ef int8")
+    with y_driver(dev, meshes[(1, 4)], run, y_state(dev, run, meshes[(1, 4)]),
+                  Y_SPEC, {}) as drv:
+        st, hist = drv.run(Y_ROUNDS)
+        out["cohort"] = {"events": [(e["superstep"], e["to"].active_ids)
+                                    for e in drv.membership_events],
+                         "losses": [r["metrics"]["loss"] for r in hist],
+                         "tree": z_gathered(st, run, meshes[(1, 4)])}
+    return out
+
+
+def z1_rank(dev, mesh) -> dict:
+    """(z1) on one rank of 1 x 4: one round of each Z1_WIRES wire at full
+    width from seed 0's state: its loss, layer 0's wk block after the
+    round, seconds, launches and the model axis's messages."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+
+    _, _, cfg = y_cfgs()
+    b = t_tokens(cfg, 1, TRAIN_B, TRAIN_S, 13)[0]
+    out = {}
+    for label in Z1_WIRES:
+        run = z_run(cfg, label, "bfloat16", wires=Z1_WIRES)
+        st = trainer.replicate_for_nodes(trainer.init_state(
+            run, torch.Generator(device=dev).manual_seed(0), mesh),
+            rdist.n_local(mesh, TRAIN_N))
+        step = trainer.build_train_step(run, mesh, n_nodes=TRAIN_N,
+                                        device=dev)
+        batch = x_batch(dev, b, mesh, "gossip")
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        rdist.reset_stats()
+        t0 = time.perf_counter()
+        st, m = step(st, batch)
+        torch.cuda.synchronize()
+        out[label] = {"s": time.perf_counter() - t0,
+                      "loss": float(m["loss"]),
+                      "launches": dict(ops.launches), "log": z_log(),
+                      "wk": st.params["blocks"][0]["attn"]["wk"].cpu(),
+                      "routes": z_routes(run, mesh),
+                      "peak": torch.cuda.max_memory_allocated()}
+        del st, step, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def z_slot_kernels(dev, cfg1) -> list:
+    """The two slot entry points at (z1)'s straddling shape (rank 1's wk
+    block on 1 x 4: [TRAIN_N, 4096 x 256] f32 under 512-column tiles),
+    each held against its plain version and timed beside it: two rows of
+    the kernels line (their launches are the ranks')."""
+    import torch
+
+    from repro_torch.core.quantize import Slots, block_maps, slot_scales
+    from repro_torch.core import mixing
+    from repro_torch.kernels import ops, ref
+
+    hd = cfg1.head_dim or cfg1.d_model // cfg1.num_heads
+    shape = (cfg1.d_model, cfg1.num_kv_heads * hd)
+    maps = block_maps([(shape, 1), (shape, 1)], 4, 1)
+    width = sum(bm.span for bm in maps)
+    sl = Slots(maps, 512, width, width, index=1)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    h = torch.randn((TRAIN_N, maps[0].size), generator=gen, device=dev)
+    sched = mixing.schedule("ring", TRAIN_N)
+    lo, hi = sl.counted_range(0)
+    bm = maps[0]
+
+    def ms(fn, reps=50):
+        fn()
+        a = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(e) / reps
+
+    rows = []
+    partial = torch.zeros((1, sl.n_slots), dtype=torch.float64, device=dev)
+    want = partial.clone()
+    # these launches compare and time the kernels: not the main path's
+    saved = dict(ops.launches)
+    ops.quant_slot_stats(h, sl, 0, partial, "int8")
+    ref.quant_slot_stats_ref(h, bm.offset, bm.w, bm.L, bm.m, 512, lo, hi,
+                             want, "int8")
+    err = float((partial - want).abs().max())
+    require(err == 0.0, f"quant_slot_stats differs from its plain version "
+                        f"by {err}")
+    n_bytes = h.numel() * 4 + (hi - lo) * 8
+    b_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    scratch = partial.clone()
+    rows.append({"name": "quant_slot_stats", "route": "cuda",
+                 "source": SOURCES["gossip_mix_quant"],
+                 "replaces": REPLACES["gossip_mix_quant"],
+                 "launches": 0, "max_abs_err": err,
+                 "ms": ms(lambda: ops.quant_slot_stats(h, sl, 0, scratch,
+                                                       "int8")),
+                 "plain_ms": ms(lambda: ref.quant_slot_stats_ref(
+                     h, bm.offset, bm.w, bm.L, bm.m, 512, lo, hi, scratch,
+                     "int8"), reps=5),
+                 "bound_ms": max(b_ms, h.numel() / F32_FLOPS_PER_S * 1e3),
+                 "bound_by": "bytes", "library_ms": None,
+                 "shape": f"int8 n={TRAIN_N} block [{shape[0]}, "
+                          f"{bm.w}] of [{shape[0]}, {shape[1]}] "
+                          f"block_d=512"})
+    scale = slot_scales(want.float(), sl, "int8", TRAIN_N)
+    got = ops.quant_slot_round(h, sl, 0, scale, sched, "int8")
+    plain = ref.quant_slot_round_ref(h, bm.offset, bm.w, bm.L, bm.m, 512,
+                                     scale, sched, "int8")
+    err = float((got - plain).abs().max())
+    compare("quant_slot_round (z1) wk block", got, plain, "float32",
+            QUANT_TOL)
+    n_bytes = 2 * h.numel() * 4 + sl.n_slots * 4
+    ops_n = (2 * len(sched) + 4) * h.numel()
+    b_ms, b_by = max((n_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                     (ops_n / F32_FLOPS_PER_S * 1e3, "operations"))
+    rows.append({"name": "quant_slot_round", "route": "cuda",
+                 "source": SOURCES["gossip_mix_quant"],
+                 "replaces": REPLACES["gossip_mix_quant"],
+                 "launches": 0, "max_abs_err": err,
+                 "ms": ms(lambda: ops.quant_slot_round(h, sl, 0, scale, sched,
+                                                       "int8")),
+                 "plain_ms": ms(lambda: ref.quant_slot_round_ref(
+                     h, bm.offset, bm.w, bm.L, bm.m, 512, scale, sched,
+                     "int8"), reps=5),
+                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                 "shape": rows[0]["shape"] + f" ring R=1"})
+    print(f"check quant_slot_stats (z1) wk block: max_abs_err "
+          f"{rows[0]['max_abs_err']} (limit 0) ok")
+    ops.launches.update(saved)
+    for r in rows:
+        print(f"time {r['name']} {r['shape']}: " + json.dumps(
+            {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}))
+    return rows
+
+
+def model_axis_wire_phases(dev) -> dict:
+    """(z0)-(z1) on the card: the one-process references first ((z0)'s
+    runs, the cohort's driver run, (z1)'s rounds, each freed), then
+    Z_WORLD rank processes (`z_rank`), the planner's traces of (z1)'s
+    rounds computed while they run. Prints each check and (z)'s seconds;
+    returns the ranks' launches by kernel and phase, and the slot kernels'
+    rows of the kernels line."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.train import trainer
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "model_axis_wires")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg, _, cfg1 = y_cfgs()
+    batches = t_tokens(cfg, Z_STEPS, 8, Y_SEQ, 11)
+    ref0 = {}
+    for label in sorted({label for label, _ in Z0_RUNS}):
+        run = z_run(cfg, label, one_process=True)
+        st = y_state(dev, run)
+        step = trainer.build_train_step(
+            run, None, n_nodes=TRAIN_N, device=dev,
+            pods=2 if label.startswith("hier") else None)
+        losses = []
+        for b in batches:
+            st, m = step(st, {k: torch.from_numpy(v).to(dev) for k, v in
+                              trainer.make_node_batch(b, TRAIN_N).items()})
+            losses.append(float(m["loss"]))
+        ref0[label] = {"losses": losses,
+                       "params": [p.cpu() for p in tree_leaves(st.params)],
+                       "residual": [e.cpu() for e in
+                                    tree_leaves(st.opt.ef_residual)]}
+        del st, step
+    run = z_run(cfg, "ef int8", one_process=True)
+    with y_driver(dev, None, run, y_state(dev, run), Y_SPEC, {}) as drv:
+        st, hist = drv.run(Y_ROUNDS)
+        ref0["cohort"] = {"events": [(e["superstep"], e["to"].active_ids)
+                                     for e in drv.membership_events],
+                          "losses": [r["metrics"]["loss"] for r in hist],
+                          "params": [p.cpu() for p in tree_leaves(st.params)],
+                          "residual": [e.cpu() for e in
+                                       tree_leaves(st.opt.ef_residual)]}
+    del st
+    # (z1) on one process: each wire's round from the same state and batch
+    b1 = t_tokens(cfg1, 1, TRAIN_B, TRAIN_S, 13)[0]
+    ref1 = {}
+    for label in Z1_WIRES:
+        run = z_run(cfg1, label, "bfloat16", one_process=True,
+                    wires=Z1_WIRES)
+        st = trainer.replicate_for_nodes(trainer.init_state(
+            run, torch.Generator(device=dev).manual_seed(0)), TRAIN_N)
+        step = trainer.build_train_step(run, None, n_nodes=TRAIN_N,
+                                        device=dev)
+        st, m = step(st, {k: torch.from_numpy(v).to(dev) for k, v in
+                          trainer.make_node_batch(b1, TRAIN_N).items()})
+        ref1[label] = {"loss": float(m["loss"]),
+                       "wk": st.params["blocks"][0]["attn"]["wk"].cpu()}
+        del st, step
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_all
+    store = os.path.join(work, "store")
+    procs = []
+    for r in range(Z_WORLD):
+        log = open(os.path.join(work, f"z_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--z-rank", str(r),
+             store, work], stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + Z_TIMEOUT
+    plans = {}
+    for label, wire in Z1_WIRES.items():  # ranks 1-3 send what rank 1 does
+        for rank in (0, 1):
+            amesh = dataclasses.replace(abstract_mesh((1, 4),
+                                                      ("data", "model")),
+                                        rank=rank)
+            rec = dryrun.plan("granite-8b", "train_4k", amesh,
+                              averaging="gossip", rounds=TRAIN_R, cfg=cfg1,
+                              master_weights=False, n_nodes=TRAIN_N,
+                              microbatches=1, wire=wire,
+                              shape=ShapeConfig("(z1)", TRAIN_S, TRAIN_B,
+                                                "train"))
+            model = rec["collectives_model"]
+            plans[label, rank] = [model.get("slot all-reduce.count", 0),
+                                  model.get("slot all-reduce", 0)]
+    t_plan = time.perf_counter() - t_all - t_ref
+    res = x_join("z", procs, work, deadline)
+    t_ranks = time.perf_counter() - t_all - t_ref
+
+    # (z0) against one process
+    fails = []
+    for label, shape in Z0_RUNS:
+        want = ref0[label]
+        got = [rr["z0"]["runs"][label, shape] for rr in res]
+        loss_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g["losses"], want["losses"],
+                                       strict=True))
+        parts = [g for g in got if g["tree"] is not None]
+        within, err = y_agree(
+            [p for g in parts for p in g["tree"]["params"]],
+            [w[g["rows"][0]:g["rows"][1]] for g in parts
+             for w in want["params"]])
+        res_share = None
+        if want["residual"]:
+            res_share, _ = y_agree(
+                [p for g in parts for p in g["tree"]["residual"]],
+                [w[g["rows"][0]:g["rows"][1]] for g in parts
+                 for w in want["residual"]])
+        launches = got[0]["launches"]
+        slot_msgs = [g["log"].get("model slot all-reduce", [0, 0])
+                     for g in got]
+        aligned, straddling = got[0]["routes"]
+        print(f"main (z0) reduced granite-8b d_model 512 f32, sgd, "
+              f"{TRAIN_N} nodes, {label} on "
+              f"{'x'.join(map(str, shape))}: losses "
+              f"{json.dumps([round(x, 6) for x in got[0]['losses']])}, max "
+              f"rel err {loss_err:.2e} (limit 1e-4); parameters within 1e-5 "
+              f"{within:.6f} (limit >= 0.99), max_abs_err {err:.3e} (limit "
+              f"1e-2); residuals within 1e-5 {res_share} (limit >= 0.98); "
+              f"launches rank 0 {json.dumps({k: v for k, v in launches.items() if v})}"
+              f"; slot all-reduces [messages, bytes] by rank {slot_msgs}")
+        if loss_err > 1e-4 or within < 0.99 or err > 1e-2 or (
+                res_share is not None and res_share < 0.98):
+            fails.append((label, shape, "one process"))
+        if label in ("int8 tile", "sign tile", "int8 tile aligned"):
+            want_l = {"gossip_mix_quant": Z_STEPS * aligned,
+                      "quant_slot_stats": Z_STEPS * TRAIN_R * straddling,
+                      "quant_slot_round": Z_STEPS * TRAIN_R * straddling}
+            if any(g["launches"][k] != v for g in got
+                   for k, v in want_l.items()):
+                fails.append((label, shape, f"launches, expected {want_l}"))
+            if (straddling == 0) != all(m[0] == 0 for m in slot_msgs):
+                fails.append((label, shape, "slot messages"))
+        if label == "int8 tile" and not straddling:
+            fails.append((label, shape, "no leaf straddles"))
+        if label == "int8 tile aligned" and straddling:
+            fails.append((label, shape, "a leaf straddles"))
+        if label.startswith("ef") and shape == (1, 4) and not all(
+                g["launches"]["gossip_mix"] > 0 for g in got):
+            fails.append((label, shape, "gossip_mix did not launch"))
+    coh = [rr["z0"]["cohort"] for rr in res]
+    want = ref0["cohort"]
+    loss_err = max(abs(a - b) / abs(b) for g in coh
+                   for a, b in zip(g["losses"], want["losses"], strict=True))
+    parts = [g for g in coh if g["tree"] is not None]
+    within, err = y_agree([p for g in parts for p in g["tree"]["params"]],
+                          want["params"])
+    print(f"main (z0) error feedback int8 in a cohort under {Y_SPEC} on 1x4 "
+          f"through the driver: events {coh[0]['events']} (one process "
+          f"{want['events']}), losses max rel err {loss_err:.2e} (limit "
+          f"1e-4); parameters within 1e-5 {within:.6f} (limit >= 0.99), "
+          f"max_abs_err {err:.3e} (limit 1e-2)")
+    if (coh[0]["events"] != want["events"] or loss_err > 1e-4
+            or within < 0.99 or err > 1e-2):
+        fails.append(("ef int8 cohort", (1, 4), "one process"))
+    # (z1)
+    z1 = [rr["z1"] for rr in res]
+    for label in Z1_WIRES:
+        want = ref1[label]
+        got = [g[label] for g in z1]
+        loss_err = max(abs(g["loss"] - want["loss"]) / abs(want["loss"])
+                       for g in got)
+        # each rank's wk block (its 256 columns a rank) against one
+        # process's: bf16 entries within one bf16 step of their value
+        cols = want["wk"].shape[-1] // 4
+        d = [(g["wk"].float() - want["wk"][..., r * cols:(r + 1) * cols]
+              .float()).abs() for r, g in enumerate(got)]
+        w = want["wk"].float().abs()
+        share = float(torch.cat([(x <= 2 ** -7 * w[..., r * cols:(r + 1)
+                                                   * cols] + 1e-6).float()
+                                 .ravel() for r, x in enumerate(d)]).mean())
+        sent = [g["log"].get("model slot all-reduce", [0, 0]) for g in got]
+        planned = [plans[label, min(r, 1)] for r in range(Z_WORLD)]
+        aligned, straddling = got[0]["routes"]
+        print(f"main (z1) granite-8b published widths, {TRAIN_LAYERS} "
+              f"layers, bf16, sgd, {TRAIN_N} nodes x 2 x {TRAIN_S} tokens, "
+              f"{label} block_d 512 on 1x4 ({Z_WORLD} ranks on the card): "
+              f"loss by rank {[round(g['loss'], 5) for g in got]} (one "
+              f"process {want['loss']:.5f}, max rel err {loss_err:.2e}, "
+              f"limit {T2_LOSS_TOL}); layer 0's wk blocks within a bf16 "
+              f"step {share:.6f} (limit >= 0.99); {aligned} leaves aligned, "
+              f"{straddling} straddling; slot all-reduces [messages, wire "
+              f"bytes] by rank {sent}, planned [messages, payload bytes] "
+              f"{planned}; s {[round(g['s'], 3) for g in got]}, peak "
+              f"{[round(g['peak'] / 1e9, 3) for g in got]} GB; launches "
+              f"rank 0 {json.dumps({k: v for k, v in got[0]['launches'].items() if v})}")
+        if loss_err > T2_LOSS_TOL or share < 0.99:
+            fails.append((label, "(z1)", "one process"))
+        if any(s[0] != p[0] or s[1] != 2 * p[1]
+               for s, p in zip(sent, planned)):
+            fails.append((label, "(z1)", "slot messages differ from the "
+                                         "plan"))
+        if label == "int8 tile" and any(
+                g["launches"]["quant_slot_stats"] != TRAIN_R * straddling
+                or g["launches"]["gossip_mix_quant"] != aligned
+                for g in got):
+            fails.append((label, "(z1)", "launches"))
+    slot_rows = z_slot_kernels(dev, cfg1)
+    by_kernel = {}
+    for name in ("gossip_mix", "gossip_mix_quant", "quant_slot_stats",
+                 "quant_slot_round"):
+        by_kernel[name] = {
+            "z0": [sum(g["launches"].get(name, 0)
+                       for g in rr["z0"]["runs"].values()) for rr in res],
+            "z1": [sum(g["launches"].get(name, 0)
+                       for g in rr["z1"].values()) for rr in res]}
+    for row in slot_rows:
+        row["launches"] = sum(sum(v) for v in by_kernel[row["name"]]
+                              .values())
+        row["launches_by_nodes"] = {"z": by_kernel[row["name"]]}
+        row["design"] = ("one block a slot" if row["name"] ==
+                         "quant_slot_stats" else "one thread an entry")
+    require(all(r["launches"] > 0 for r in slot_rows),
+            "(z): a slot kernel was launched no time")
+    print(f"main (z) seconds: one-process references {t_ref:.1f}, the "
+          f"plans {t_plan:.1f} while the ranks ran, the ranks "
+          f"{t_ranks:.1f} (rank 0: (z0) {res[0]['seconds']['z0']:.1f}, "
+          f"(z1) {res[0]['seconds']['z1']:.1f}), all "
+          f"{time.perf_counter() - t_all:.1f} (target < 100)")
+    require(not fails, f"(z): {fails}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": {k: v for k, v in by_kernel.items()
+                         if k in ("gossip_mix", "gossip_mix_quant")},
+            "rows": slot_rows}
+
+
 def main() -> int:
     import torch
 
@@ -4480,6 +5028,9 @@ def main() -> int:
     # (y): elastic membership and the vocab fallback over a model axis,
     # rank processes sharing the card
     y_launches = model_axis_elastic_phases(dev)
+    # (z): the Section VI wires over a model axis, rank processes sharing
+    # the card
+    z_out = model_axis_wire_phases(dev)
     # what phase (p) holds its plans against: peaks, card times
     p_measured = {}
 
@@ -7648,7 +8199,7 @@ def main() -> int:
     # and (y0)-(y1), by phase and rank, under "t", "v", "w", "x" and "y"
     for key, phases in (("t", t_launches), ("v", v_launches),
                         ("w", w_launches), ("x", x_launches),
-                        ("y", y_launches)):
+                        ("y", y_launches), ("z", z_out["launches"])):
         for row in rows:
             by_phase = phases.get(row["name"])
             if by_phase is not None:
@@ -7661,6 +8212,7 @@ def main() -> int:
                           wbar, stream.cov, stream.lambda1)),
                       ("sin2_error", lambda: sin2(wbar))):
         print(f"time metric {label} d={HIGHD.dim}: {time_ms(fn):.5f} ms")
+    rows += z_out["rows"]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           f"start of the build")
     print(json.dumps({"kernels": rows}))
@@ -7684,4 +8236,6 @@ if __name__ == "__main__":
                         sys.argv[5], sys.argv[6]))
     if sys.argv[1:2] == ["--y-rank"]:
         sys.exit(y_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--z-rank"]:
+        sys.exit(z_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -66,7 +66,10 @@ from repro_torch.configs.base import AveragingConfig
 from repro_torch.core import packing
 from repro_torch.core.mixing import (CirculantMixOp, ScheduledMixOp,
                                      circulant_mix_op, schedule)
-from repro_torch.core.quantize import STOCHASTIC, fold_in, tile_compress
+from repro_torch.core.quantize import (STOCHASTIC, Slots, block_maps,
+                                       complete_slots, fold_in,
+                                       slot_compress, slot_partials,
+                                       slot_scales, tile_compress)
 from repro_torch.device import DeviceLike
 from repro_torch.dist import is_sharded, model_extent
 
@@ -78,6 +81,11 @@ MixOp = Any
 # treats as one leaf each (`packed_consensus_error`); the packed buffers
 # take the leaves in the pools' order (`pack`)
 Pools = Tuple[Tuple[int, ...], ...]
+# per leaf (in the tree's order): the whole leaf's shape without the node
+# axis, and the dim a model axis splits (None: kept whole over it), as
+# `train.trainer` reads them from the reference's placements; None: every
+# leaf whole, of its own shape
+Layout = Optional[Tuple[Tuple[Tuple[int, ...], Optional[int]], ...]]
 
 
 def pack(tree: Tree, pools: Optional[Pools]):
@@ -135,28 +143,236 @@ def _mix_call(mix: MixOp, x: torch.Tensor, *, key: Optional[int] = None,
     return mix(x, key=key, **kw)
 
 
+def _segments(spec: packing.PackSpec, g: int,
+              pools: Optional[Pools]) -> Tuple[int, ...]:
+    """Per leaf of group g (in its order): its reference leaf's index
+    within the group, the pool it belongs to (each leaf its own without
+    pools). The packed buffer holds a pool's leaves side by side, so the
+    reference's leaf segments are the pools' runs."""
+    pool_of = ({i: p for p, pool in enumerate(pools) for i in pool}
+               if pools is not None else {})
+    seg, last = [], None
+    for i in spec.groups[g]:
+        p = pool_of.get(i, ("leaf", i))
+        if p != last:
+            seg.append(len(seg) and seg[-1] + 1)
+        else:
+            seg.append(seg[-1])
+        last = p
+    return tuple(seg)
+
+
 def _apply_mix(mix: MixOp, spec: packing.PackSpec, g: int,
                buf: torch.Tensor, key: Optional[int] = None,
-               t=None) -> torch.Tensor:
+               t=None, pools: Optional[Pools] = None) -> torch.Tensor:
     if mix.quantization != "none" and mix.stats == "segment":
-        widths = tuple(spec.leaf_width(i) for i in spec.groups[g])
-        return _mix_call(mix, buf, key=key, t=t, seg_widths=widths)
+        # one width per reference leaf: a pool's leaves make one segment
+        seg = _segments(spec, g, pools)
+        widths = [0] * (seg[-1] + 1 if seg else 0)
+        for s, i in zip(seg, spec.groups[g]):
+            widths[s] += spec.leaf_width(i)
+        return _mix_call(mix, buf, key=key, t=t, seg_widths=tuple(widths))
     return _mix_call(mix, buf, key=key, t=t)
+
+
+def quant_slot_mix(xs, idxs, mix: MixOp, *, layout: Layout = None,
+                   mesh: Any = None, key: Optional[int] = None,
+                   seg: Optional[Tuple[int, ...]] = None,
+                   width: Optional[int] = None,
+                   valid: Optional[int] = None):
+    """The per-round quantized wire of `mix` on tensors that hold, side by
+    side, the entries of one reference leaf or packed buffer: xs[j]
+    ([rows, entries]: this rank's rows and model block of leaf idxs[j],
+    whose shape and split `layout` gives) in the reference's order. Each
+    round takes the statistics of the round's iterate at the reference's
+    positions (`core.quantize.Slots`: the slots a rank's blocks share over
+    its model group completed by one f32 all-reduce) and mixes as the
+    reference's per-round chain does. `seg` gives each leaf its slot for
+    per-leaf statistics ("global": all 0; "segment": its reference leaf);
+    `width` and `valid` the reference row's entries and its valid ones
+    (default: the leaves' sum, all valid; the hierarchical mode pads its
+    pod means).
+
+    Routes: a leaf whose local tiles are the reference's slots
+    (`Slots.aligned`, "tile" or "node") runs the plain tile wire on its
+    own, the `gossip_mix_quant` kernel on the card for sign and int8
+    "tile"; the rest of "tile" sign and int8 runs round by round through
+    `kernels.ops.quant_slot_stats` and `quant_slot_round` (the card's two
+    entry points of that kernel's file); "node", int8_stoch, "global" and
+    "segment" take the plain chain on every device, as the reference
+    fuses none of them. A node axis split over ranks is gathered first
+    (over the data group, as the split axis's quantized wires gather it)
+    and the rank keeps its rows. int8_stoch draws leaf by leaf, a split
+    leaf's key folding in the model index: deterministic, and the
+    reference's only in distribution."""
+    from repro_torch import dist as rdist
+    from repro_torch.kernels import ops
+
+    if mix.rounds == 0 or mix.n == 1:
+        return list(xs)
+    node_mesh, node_rows, n = mix.mesh, mix.rows, mix.n
+    gathered = node_mesh is not None
+    if gathered:
+        xs = [rdist.all_gather_rows(x, node_mesh, n, node_rows).reshape(
+            n, -1) for x in xs]
+    M = rdist.model_extent(mesh)
+    m = rdist.model_index(mesh)
+    maps = block_maps([layout[i] for i in idxs] if layout is not None
+                      else [(tuple(x.shape[1:]), None) for x in xs], M, m)
+    total = sum(bm.span for bm in maps)
+    width = total if width is None else width
+    valid = total if valid is None else valid
+    per_leaf = mix.stats in ("global", "segment")
+    bd = min(mix.block_d, width) if not per_leaf else 0
+    slots = Slots(maps, bd, width, valid,
+                  seg=(seg or (0,) * len(maps)) if per_leaf else None,
+                  index=m)
+    name, per_node = mix.quantization, mix.stats == "node"
+    key0 = mix._key0(key)
+    rows = xs[0].shape[0] if xs else 0
+
+    def leaf_key(k, j):
+        k = fold_in(k, j)
+        return k if maps[j].whole else fold_in(k, 1 + m)
+
+    outs: list = [None] * len(xs)
+    rest = []
+    for j, x in enumerate(xs):
+        if slots.aligned[j] and not per_leaf:
+            outs[j] = ops.quant_gossip_mix(
+                x.contiguous(), mix.sched, mix.rounds, name, block_d=bd,
+                key=None if key0 is None else leaf_key(key0, j),
+                per_node=per_node)
+        else:
+            rest.append(j)
+    if rest:
+        fused = not per_node and name in ("sign", "int8") and not per_leaf
+        stat = "sum" if name == "sign" else "max"
+        h = {j: xs[j].to(torch.float32, memory_format=torch.contiguous_format,
+                         copy=True) for j in rest}
+        for r in range(mix.rounds):
+            if fused:
+                partial = torch.zeros((1, slots.n_slots), dtype=torch.float64,
+                                      device=xs[rest[0]].device)
+                for j in rest:
+                    ops.quant_slot_stats(h[j], slots, j, partial, name)
+            else:
+                partial = slot_partials([h.get(j) for j in range(len(xs))],
+                                        slots, stat, per_node=per_node)
+            scale = slot_scales(complete_slots(partial, slots, stat, mesh),
+                                slots, name, 1 if per_node else rows)
+            kr = fold_in(key0, r) if key0 is not None else None
+            for j in rest:
+                if fused:
+                    h[j] = ops.quant_slot_round(h[j], slots, j, scale,
+                                                mix.sched, name)
+                    continue
+                q = slot_compress(h[j], slots, j, scale, name,
+                                  key=None if kr is None else leaf_key(kr, j))
+                out = None
+                for shift, w in mix.sched:
+                    term = w * (h[j] if shift == 0
+                                else torch.roll(q, shift, 0))
+                    out = term if out is None else out + term
+                h[j] = out
+        for j in rest:
+            outs[j] = h[j].to(xs[j].dtype)
+    if gathered:
+        from repro_torch.core.mixing import _own_rows
+        a, b = _own_rows(node_mesh, n, node_rows)
+        outs = [o[a:b] for o in outs]
+    return outs
+
+
+def _straddles(xs, mix: MixOp) -> bool:
+    """Whether a statistic slot of the reference's leaf that the layers xs
+    ([rows, entries] each, one process) join into spans two of them: the
+    leaf's statistic for "global" and "segment", a tile that a layer's
+    size does not end ("tile", "node")."""
+    if len(xs) < 2:
+        return False
+    if mix.stats in ("global", "segment"):
+        return True
+    width = sum(x.shape[-1] for x in xs)
+    maps = block_maps([(tuple(x.shape[1:]), None) for x in xs])
+    return not all(Slots(maps, min(mix.block_d, width), width,
+                         width).aligned)
+
+
+def _leaf_views(buf: torch.Tensor, spec: packing.PackSpec, g: int):
+    """The [rows, entries] column views of group g's leaves in `buf`."""
+    out, off = [], 0
+    for i in spec.groups[g]:
+        w = spec.leaf_width(i)
+        out.append(buf[..., off:off + w])
+        off += w
+    return out
+
+
+def _pool_groups(leaves, pools: Optional[Pools]):
+    """The leaf indices of each reference leaf: the pools (every leaf its
+    own without them)."""
+    return pools if pools is not None else tuple((i,) for i in
+                                                 range(len(leaves)))
+
+
+def _model_axis(mesh: Any) -> bool:
+    return mesh is not None and model_extent(mesh) > 1
+
+
+def _pooled(tree: Tree, pools: Optional[Pools], fn) -> Tree:
+    """`fn` on each reference leaf of `tree`: a pool's leaves [N, ...]
+    joined row by row in stack order ([N, sum of their entries], the
+    reference's stacked leaf), then split back."""
+    leaves = packing.tree_leaves(tree)
+    out = list(leaves)
+    for pool in _pool_groups(leaves, pools):
+        parts = [leaves[i].reshape(leaves[i].shape[0], -1) for i in pool]
+        joined = parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+        mixed = fn(joined, pool)
+        off = 0
+        for i, p in zip(pool, parts):
+            out[i] = mixed[:, off:off + p.shape[1]].reshape(leaves[i].shape)
+            off += p.shape[1]
+    it = iter(out)
+    return packing.tree_map(lambda _: next(it), tree)
 
 
 def gossip_average(tree: Tree, n_nodes: int, cfg: AveragingConfig,
                    mix: Optional[MixOp] = None, *,
                    key: Optional[int] = None, t=None,
-                   device: DeviceLike = None) -> Tree:
+                   device: DeviceLike = None, pools: Optional[Pools] = None,
+                   layout: Layout = None, mesh: Any = None) -> Tree:
     """R rounds of doubly-stochastic consensus over the leading node axis —
     one packed pass per dtype group by default, per-leaf when `cfg.packed`
     is off or the quantized global-stats oracle is selected. `key`
     (optional) is the per-step integer stochastic compressors fold into the
     op's seed — see `CirculantMixOp._quantized`; `t` (optional) is the round
-    counter a `ScheduledMixOp` picks its phase by."""
+    counter a `ScheduledMixOp` picks its phase by.
+
+    A quantized wire takes its statistics over the reference's leaves:
+    with `pools` each pool's leaves are one leaf (the reference's stacked
+    layers), and over `mesh`'s model axis (its blocks placed as `layout`
+    says) a rank's blocks are placed in whole leaves (`quant_slot_mix`)."""
     if mix is None:
         mix = make_gossip_mix(cfg, n_nodes, device=device)
+    quantized = mix.quantization != "none"
     if not (cfg.packed and _packable(mix)):
+        if quantized and (pools is not None or _model_axis(mesh)):
+            leaves = packing.tree_leaves(tree)
+            out = list(leaves)
+            for pool in _pool_groups(leaves, pools):
+                xs = [leaves[i].reshape(leaves[i].shape[0], -1)
+                      for i in pool]
+                if _model_axis(mesh) or _straddles(xs, mix):
+                    mixed = quant_slot_mix(xs, pool, mix, layout=layout,
+                                           mesh=mesh, key=key)
+                else:  # each leaf's slots its own (the shard rules too)
+                    mixed = [_mix_call(mix, x, key=key, t=t) for x in xs]
+                for i, x in zip(pool, mixed):
+                    out[i] = x.reshape(leaves[i].shape)
+            it = iter(out)
+            return packing.tree_map(lambda _: next(it), tree)
         return packing.tree_map(lambda g: _mix_call(mix, g, key=key, t=t),
                                 tree)
     bufs, spec = packing.pack_tree(tree)
@@ -195,14 +411,14 @@ def pod_mix_mesh(mesh: Any) -> Any:
 
 def _hmix_buffer(g: torch.Tensor, pods: int, per_pod: int,
                  mix: MixOp, key: Optional[int] = None, t=None,
-                 mesh: Any = None) -> torch.Tensor:
+                 mesh: Any = None, cols=None) -> torch.Tensor:
     """Reduce-scatter hierarchical consensus on one [N, ...] buffer/leaf
     (on a sharded `mesh`, this rank's rows of it: `_hmix_shard`). The pod
     mean is the f32 sum of the pod's rows, added in node order
     (`dist.row_sum`, which any split of the rows reproduces bit for bit),
     over per_pod, in the buffer's dtype."""
     if is_sharded(mesh):
-        return _hmix_shard(g, pods, per_pod, mix, key, t, mesh)
+        return _hmix_shard(g, pods, per_pod, mix, key, t, mesh, cols)
     shp = g.shape
     flat = g.reshape(pods, per_pod, -1)  # [P, M, F]
     pod_mean = rdist.row_sum(flat.transpose(0, 1)).div_(per_pod).to(
@@ -222,7 +438,7 @@ def _hmix_buffer(g: torch.Tensor, pods: int, per_pod: int,
 
 
 def _hmix_shard(g: torch.Tensor, pods: int, per_pod: int, mix: MixOp,
-                key: Optional[int], t, mesh: Any) -> torch.Tensor:
+                key: Optional[int], t, mesh: Any, cols=None) -> torch.Tensor:
     """`_hmix_buffer` on this rank's k rows [k, ...] of a node axis split
     over a mesh whose "pod" axis holds the pods: pod p's per_pod nodes are
     the rows of its D lanes (node shards p * D .. p * D + D - 1), k a lane.
@@ -240,7 +456,14 @@ def _hmix_shard(g: torch.Tensor, pods: int, per_pod: int, mix: MixOp,
     global and segment statistics, or a stochastic compressor, whose draws
     span the whole buffer) gathers every lane's block instead: each rank
     then holds the scattered pod means of every pod and mixes them as one
-    process does."""
+    process does.
+
+    Over a model axis g holds the rank's model blocks of the leaves that
+    `cols` names ((leaf indices, layout, model mesh): the columns of one
+    reference leaf, or of a packed buffer, in order); the gossip between
+    pods is linear per column, and a quantized wire gathers every lane's
+    block and takes the pod means' statistics at their positions in the
+    reference's padded pod-mean row (`quant_slot_mix`)."""
     k = g.shape[0]
     lanes = rdist.axis_extent(mesh, "pod")
     if rdist.n_pods(mesh) != pods or per_pod != lanes * k:
@@ -260,6 +483,26 @@ def _hmix_shard(g: torch.Tensor, pods: int, per_pod: int, mix: MixOp,
     block = block.div_(per_pod).to(g.dtype)  # ... scatter
     quantized = mix.quantization != "none"
     d = chunk * per_pod
+    if quantized and cols is not None:
+        full = rdist.all_gather_rows(block[None], mesh,
+                                     rdist.n_data_nodes(mesh))
+        means = full.reshape(pods, d)[:, :f]
+        idxs, layout, model_mesh = cols
+        maps = block_maps([layout[i] for i in idxs],
+                          model_extent(model_mesh),
+                          rdist.model_index(model_mesh))
+        views, off = [], 0
+        for bm in maps:
+            views.append(means[:, off:off + bm.size])
+            off += bm.size
+        F = sum(bm.span for bm in maps)
+        whole = dataclasses.replace(mix, mesh=None, rows=None)
+        outs = quant_slot_mix(views, idxs, whole, layout=layout,
+                              mesh=model_mesh, key=key,
+                              seg=(0,) * len(idxs),
+                              width=-(-F // per_pod) * per_pod, valid=F)
+        mean = torch.cat(outs, 1)[rdist.pod_index(mesh)]
+        return mean.expand(k, f).reshape(shp)
     if quantized and not (mix.stats in ("tile", "node")
                           and mix.quantization not in STOCHASTIC
                           and width % min(mix.block_d, d) == 0):
@@ -284,7 +527,8 @@ def hierarchical_average(tree: Tree, pods: int, per_pod: int,
                          mix: Optional[MixOp] = None, *,
                          key: Optional[int] = None, t=None,
                          device: DeviceLike = None,
-                         mesh: Any = None) -> Tree:
+                         mesh: Any = None, pools: Optional[Pools] = None,
+                         layout: Layout = None) -> Tree:
     """Exact averaging within each pod, gossip across pods — in
     reduce-scatter form: lane j of each pod owns chunk j of the pod mean,
     the cross-pod gossip mixes only that chunk, and an intra-pod all-gather
@@ -294,31 +538,43 @@ def hierarchical_average(tree: Tree, pods: int, per_pod: int,
     kernel on the card). Quantized segment statistics do not survive the
     chunk-scatter relayout; they degrade to global (masked) statistics
     over the scattered pod means here. On a sharded `mesh` the leaves are
-    this rank's rows and the pods lie on its "pod" axis (`_hmix_shard`)."""
+    this rank's rows and the pods lie on its "pod" axis (`_hmix_shard`).
+    A quantized wire takes its statistics over the reference's leaves: a
+    pool's leaves (`pools`) are joined into one, and over a model axis the
+    rank's blocks are placed as `layout` says."""
     if mix is None:
         mix = make_gossip_mix(cfg, pods, device=device,
                               mesh=pod_mix_mesh(mesh))
+    quantized = mix.quantization != "none"
+    model = mesh if _model_axis(mesh) else None
 
-    def hmix(g):
-        return _hmix_buffer(g, pods, per_pod, mix, key, t, mesh)
+    def hmix(g, idxs=None):
+        cols = (idxs, layout, model) if quantized and model and idxs else None
+        return _hmix_buffer(g, pods, per_pod, mix, key, t, mesh, cols)
 
     if not (cfg.packed and _packable(mix)):
+        if quantized and (pools is not None or model is not None):
+            return _pooled(tree, pools, hmix)
         return packing.tree_map(hmix, tree)
-    bufs, spec = packing.pack_tree(tree)
-    return packing.unpack_tree(tuple(hmix(b) for b in bufs), spec)
+    bufs, spec = pack(tree, pools)
+    return packing.unpack_tree(tuple(hmix(b, spec.groups[g])
+                                     for g, b in enumerate(bufs)), spec)
 
 
 def average_gradients(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                       pods: int = 1, mix: Optional[MixOp] = None,
                       key: Optional[int] = None, t=None,
-                      device: DeviceLike = None, mesh: Any = None) -> Tree:
+                      device: DeviceLike = None, mesh: Any = None,
+                      pools: Optional[Pools] = None,
+                      layout: Layout = None) -> Tree:
     """Dispatch on the paper's averaging mode. `tree` leaves: [n_nodes, ...]
     (on a sharded `mesh`, this rank's rows of them).
 
     `mix` is the prebuilt consensus engine (gossip: over `n_nodes`, built
     with the mesh; hierarchical: over `pods`, built on `pod_mix_mesh`);
     built from `cfg` on `device` when omitted. `t` is the round counter of
-    a time-varying `ScheduledMixOp`."""
+    a time-varying `ScheduledMixOp`. `pools` and `layout` place a
+    quantized wire's statistics (`gossip_average`)."""
     if cfg.mode == "exact":
         return exact_average(tree, mesh, n_nodes)
     if cfg.mode == "gossip":
@@ -326,12 +582,14 @@ def average_gradients(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
             mix = make_gossip_mix(cfg, n_nodes, device=device,
                                   mesh=mesh if is_sharded(mesh) else None)
         return gossip_average(tree, n_nodes, cfg, mix, key=key, t=t,
-                              device=device)
+                              device=device, pools=pools, layout=layout,
+                              mesh=mesh)
     if cfg.mode == "hierarchical":
         if n_nodes % pods:
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
         return hierarchical_average(tree, pods, n_nodes // pods, cfg, mix,
-                                    key=key, t=t, device=device, mesh=mesh)
+                                    key=key, t=t, device=device, mesh=mesh,
+                                    pools=pools, layout=layout)
     raise ValueError(f"unknown averaging mode {cfg.mode!r}")
 
 
@@ -340,16 +598,18 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                       key: Optional[int] = None, t=None,
                       device: DeviceLike = None,
                       pools: Optional[Pools] = None, mesh: Any = None,
-                      model_split: Optional[Tuple[bool, ...]] = None
+                      model_split: Optional[Tuple[bool, ...]] = None,
+                      layout: Layout = None
                       ) -> Tuple[Tree, torch.Tensor]:
     """Averaging plus the epsilon-consensus diagnostic with ONE pack: the
     mixed packed buffers feed both the unpack and the error reduction.
-    `pools` groups leaves for the diagnostic (`packed_consensus_error`)
-    and orders the packed buffers. On a sharded `mesh` the leaves are this
+    `pools` groups leaves for the diagnostic (`packed_consensus_error`),
+    orders the packed buffers and makes the reference's leaves of a
+    quantized wire's statistics. On a sharded `mesh` the leaves are this
     rank's rows, `mix` is built with the mesh, and the diagnostic reduces
-    across ranks; over a model axis they are its model shard's blocks, and
+    across ranks; over a model axis they are its model shard's blocks,
     `model_split` says which leaves (in the tree's order) the model axis
-    splits."""
+    splits, and `layout` where their blocks lie in the whole leaves."""
     if mesh is not None and not is_sharded(mesh) and model_extent(mesh) == 1:
         mesh = None
     err_kw = dict(mesh=mesh, n_nodes=n_nodes, model_split=model_split)
@@ -365,17 +625,27 @@ def average_and_error(tree: Tree, cfg: AveragingConfig, *, n_nodes: int,
                make_gossip_mix(cfg, n_nodes, device=device, mesh=mesh))
     if not (cfg.packed and _packable(mix)):
         mixed = average_gradients(tree, cfg, n_nodes=n_nodes, pods=pods,
-                                  mix=mix, key=key, t=t, mesh=mesh)
+                                  mix=mix, key=key, t=t, mesh=mesh,
+                                  pools=pools, layout=layout)
         return mixed, consensus_error(mixed, pools, **err_kw)
     bufs, spec = pack(tree, pools)
-    if cfg.mode == "gossip":
-        outs = tuple(_apply_mix(mix, spec, g, b, key, t)
+    quantized = mix.quantization != "none"
+    model = mesh if _model_axis(mesh) else None
+    if cfg.mode == "gossip" and quantized and model is not None:
+        outs = tuple(torch.cat(quant_slot_mix(
+            _leaf_views(b, spec, g), spec.groups[g], mix, layout=layout,
+            mesh=model, key=key, seg=_segments(spec, g, pools)), -1)
+            for g, b in enumerate(bufs))
+    elif cfg.mode == "gossip":
+        outs = tuple(_apply_mix(mix, spec, g, b, key, t, pools)
                      for g, b in enumerate(bufs))
     else:
         if n_nodes % pods:
             raise ValueError(f"{n_nodes} nodes do not split into {pods} pods")
-        outs = tuple(_hmix_buffer(b, pods, n_nodes // pods, mix, key, t,
-                                  mesh) for b in bufs)
+        outs = tuple(_hmix_buffer(
+            b, pods, n_nodes // pods, mix, key, t, mesh,
+            (spec.groups[g], layout, model) if quantized and model else None)
+            for g, b in enumerate(bufs))
     err = packed_consensus_error(outs, spec, pools, mesh, n_nodes,
                                   model_split)
     return packing.unpack_tree(outs, spec), err
@@ -395,11 +665,97 @@ def ef_chunk_width(n: int, d: int, block_d: int) -> int:
     return min(width, max(d, 1))
 
 
+class _EFSlots:
+    """Error feedback's per-node tile statistics over a model axis, for
+    one packed group (`ef_average_and_error`): the rank's packed buffer
+    holds its blocks of the group's `leaves`, in order, placed in the
+    reference's packed buffer as `layout` says."""
+
+    def __init__(self, leaves, layout: Layout, mesh: Any,
+                 cfg: AveragingConfig, key: Optional[int], rows):
+        from repro_torch import dist as rdist
+
+        self.m = rdist.model_index(mesh)
+        self.maps = block_maps([layout[i] for i in leaves],
+                               model_extent(mesh), self.m)
+        self.width = sum(bm.span for bm in self.maps)
+        self.bd = min(cfg.quant_block_d, self.width)
+        self.slots = Slots(self.maps, self.bd, self.width, self.width,
+                           index=self.m)
+        self.starts = [0]
+        for bm in self.maps:
+            self.starts.append(self.starts[-1] + bm.size)
+        self.mesh, self.cfg, self.key, self.rows = mesh, cfg, key, rows
+
+    def local(self, p: int) -> int:
+        """The rank's packed columns whose reference position is below p."""
+        return sum(bm.before(p) for bm in self.maps)
+
+    def chunks(self, n: int):
+        """(first, last + 1 local column, reference columns) of each chunk,
+        cut every `ef_chunk_width` reference columns."""
+        width = ef_chunk_width(n, self.width, self.cfg.quant_block_d)
+        return [(self.local(a), self.local(min(a + width, self.width)),
+                 (a, min(a + width, self.width)))
+                for a in range(0, self.width, width)]
+
+    def _segments(self, lo: int, hi: int):
+        """(leaf, first local entry, chunk column, entries) of the leaves
+        in the rank's packed columns [lo, hi)."""
+        for i in range(len(self.maps)):
+            a = max(lo, self.starts[i])
+            b = min(hi, self.starts[i + 1])
+            if b > a:
+                yield i, a - self.starts[i], a - lo, b - a
+
+    def compress(self, v: torch.Tensor, lo: int, ref_cols) -> torch.Tensor:
+        """The chunk v (the rank's packed columns from `lo`) compressed
+        with the per-node statistics of the reference's tiles."""
+        slots, name = self.slots, self.cfg.quantization
+        stat = "sum" if name == "sign" else "max"
+        window = (ref_cols[0] // self.bd, -(-ref_cols[1] // self.bd))
+        segs = list(self._segments(lo, lo + v.shape[1]))
+        xs = [None] * len(self.maps)
+        starts = [0] * len(self.maps)
+        for i, l0, c0, cnt in segs:
+            xs[i], starts[i] = v[:, c0:c0 + cnt], l0
+        partial = slot_partials(xs, slots, stat, per_node=True,
+                                starts=starts, window=window)
+        scale = slot_scales(complete_slots(partial, slots, stat, self.mesh,
+                                           window), slots, name, 1, window)
+        q = torch.empty_like(v)
+        for i, l0, c0, cnt in segs:
+            k = None
+            if self.key is not None:
+                k = fold_in(self.key, i)
+                if not self.maps[i].whole:
+                    k = fold_in(k, 1 + self.m)
+                if self.rows is not None:
+                    k = fold_in(k, 1 + self.rows[0])
+            q[:, c0:c0 + cnt] = slot_compress(
+                xs[i], slots, i, scale, name, key=k, start=l0,
+                window_lo=window[0])
+        return q
+
+    def counted(self, x: torch.Tensor, lo: int) -> torch.Tensor:
+        """The columns of the chunk x (from `lo`) this rank counts in the
+        model group's sums: on a rank other than the group's first, not
+        those of leaves kept whole."""
+        if self.m == 0:
+            return x
+        keep = [x[:, c0:c0 + cnt] for i, _, c0, cnt
+                in self._segments(lo, lo + x.shape[1])
+                if not self.maps[i].whole]
+        return torch.cat(keep, 1) if keep else x[:, :0]
+
+
 def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
                          n_nodes: int, mix: Optional[MixOp] = None,
                          key: Optional[int] = None, t=None,
                          device: DeviceLike = None,
-                         pools: Optional[Pools] = None, mesh: Any = None
+                         pools: Optional[Pools] = None, mesh: Any = None,
+                         model_split: Optional[Tuple[bool, ...]] = None,
+                         layout: Layout = None
                          ) -> Tuple[Tree, Tree, torch.Tensor, torch.Tensor,
                                     torch.Tensor]:
     """Error-feedback compressed gossip: ONE pack, ONE compression, exact
@@ -434,7 +790,19 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
     gather, and keeps its residual rows: bit for bit the one process's
     rows where the mixes are. The chunks are cut from n_nodes, so every
     rank walks the same columns and its halo messages pair up; ||e'||^2
-    and ||v||^2 are summed over the ranks in one f32 all-reduce."""
+    and ||v||^2 are summed over the ranks in one f32 all-reduce.
+
+    Over a model axis the trees are the rank's blocks (placed as `layout`
+    says; `model_split` marks the split leaves for the consensus error),
+    packed in the pools' order: the reference's packed buffer holds the
+    whole leaves in that order. Each chunk is cut on the reference's
+    columns (`ef_chunk_width` of its width), so every rank of a model
+    group walks the same slots; the rank takes the per-node tile
+    statistics of its entries at their reference positions and completes
+    the tiles it shares with the group's other ranks by one f32 all-reduce
+    (`core.quantize.Slots`), compresses, mixes linearly and keeps its
+    residual blocks. ||e'||^2 and ||v||^2 sum over the model group too, a
+    leaf kept whole counted once (on the group's first rank)."""
     sharded = is_sharded(mesh)
     if mix is None:
         mix = make_gossip_mix(cfg, n_nodes, device=device,
@@ -454,27 +822,37 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
     if sharded:
         table = getattr(mix, "rows", None) or rdist.row_table(mesh, n_nodes)
         rows = (table[rdist.node_index(mesh)][0], n_nodes)
+    model = mesh if _model_axis(mesh) else None
     outs = []
     v2 = e2 = None
     for g, (b, e) in enumerate(zip(bufs, ebufs)):
         out = torch.empty_like(b)
         d = b.shape[-1]
         k = fold_in(key, g) if key is not None else None
-        width = ef_chunk_width(n_nodes if sharded else b.shape[0], d,
-                               cfg.quant_block_d)
-        for a in range(0, d, width):
-            cols = slice(a, min(a + width, d))
+        if model is None:
+            width = ef_chunk_width(n_nodes if sharded else b.shape[0], d,
+                                   cfg.quant_block_d)
+            cuts = [(a, min(a + width, d), None) for a in range(0, d, width)]
+        else:
+            ef_slots = _EFSlots(spec.groups[g], layout, model, cfg, k, rows)
+            cuts = ef_slots.chunks(n_nodes if sharded else b.shape[0])
+        for lo, hi, ref_cols in cuts:
+            cols = slice(lo, hi)
             v = b[:, cols].to(torch.float32, copy=True)
             v.add_(e[:, cols].float())
             if cfg.quantization == "none":
                 q = v
+            elif model is not None:
+                q = ef_slots.compress(v, lo, ref_cols)
             else:
                 q = tile_compress(v, cfg.quantization, cfg.quant_block_d,
                                   key=k, per_node=True, rows=rows)
             # (a ragged last tile leaves tile_compress's output a strided
             # view; the kernel takes contiguous rows)
             out[:, cols] = _mix_call(mix, q.contiguous(), t=t)
-            vv = v.square().sum()
+            count = (lambda x: x) if model is None else \
+                (lambda x, lo=lo: ef_slots.counted(x, lo))
+            vv = count(v).square().sum()
             v2 = vv if v2 is None else v2 + vv
             if q is not v:
                 v.sub_(q)  # v is now the residual e' = v - q
@@ -482,20 +860,26 @@ def ef_average_and_error(tree: Tree, ef: Tree, cfg: AveragingConfig, *,
                 v.zero_()
             e[:, cols] = v
             del v, q
-            rr = e[:, cols].float().square().sum()  # of the stored residual
+            # of the stored residual
+            rr = count(e[:, cols].float()).square().sum()
             e2 = rr if e2 is None else e2 + rr
         outs.append(out)
     dev = bufs[0].device if bufs else None
     zero = torch.zeros((), device=dev)
     e2 = zero if e2 is None else e2
     v2 = zero if v2 is None else v2
-    if sharded:
-        e2, v2 = rdist.all_reduce_(torch.stack([e2, v2]).float(),
-                                   mesh).unbind()
+    if sharded or model is not None:
+        both = torch.stack([e2, v2]).float()
+        if model is not None:
+            rdist.all_reduce_(both, mesh, axis="model")
+        if sharded:
+            rdist.all_reduce_(both, mesh)
+        e2, v2 = both.unbind()
     ef_norm = torch.sqrt(e2)
     ef_rel = ef_norm / (torch.sqrt(v2) + 1e-30)
     err = packed_consensus_error(tuple(outs), spec, pools,
-                                 mesh if sharded else None, n_nodes)
+                                 mesh if sharded or model is not None
+                                 else None, n_nodes, model_split)
     return (packing.unpack_tree(tuple(outs), spec),
             packing.unpack_tree(tuple(ebufs), espec), err, ef_norm, ef_rel)
 

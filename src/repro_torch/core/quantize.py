@@ -26,7 +26,10 @@ integer seed; `fold_in` derives per-step and per-round keys from it, as
 """
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import dataclasses
+import functools
+import math
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -236,6 +239,304 @@ def tile_compress(x: torch.Tensor, name: str, block_d: int, *,
     if pad:
         out = out[:, :d]
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Statistics at the reference's positions
+#
+# The reference mixes whole leaves: its stacked [N, n_rep, ...] leaves, or
+# the packed [N, D] buffers of them. So a statistic slot of its wire (a
+# [n, block_d] tile of "tile", a [1, block_d] tile of "node" and of error
+# feedback, a leaf of "global", a leaf segment of "segment") spans entries
+# that the port holds in other tensors: the layers of a stack are leaves of
+# their own, and over a model axis a rank holds a block of each leaf. A
+# `BlockMap` places the entries of one node row of such a tensor in the
+# reference's row; `Slots` lays the slots over the maps of one reference
+# leaf or buffer. A rank reduces its entries into the slots
+# (`slot_partials`); a slot that holds entries of more than one rank of a
+# model group (`Slots.straddling`) is then completed by one f32 all-reduce
+# over the group (`complete_slots`). A slot inside one rank's block needs
+# no message, and a leaf whose runs start and end on slot boundaries needs
+# none at all. No per-entry table is built: a position is computed from a
+# few integers where it is used.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockMap:
+    """Where the entries of one node row of a tensor lie in the reference's
+    row: local entry l sits at `offset + (l // w) * L + m * w + l % w`.
+    A leaf split over a model axis of extent L // w on one dim holds runs
+    of w entries (the dim's share times the entries under it) every L (the
+    dim's whole extent times them), at its model index m; a leaf kept
+    whole over it (or on one process) is one run, w = L = size, m = 0."""
+
+    offset: int  # the reference position of the leaf's first entry
+    size: int  # entries of one node row of the tensor
+    w: int
+    L: int
+    m: int = 0
+    whole: bool = True
+
+    @property
+    def extent(self) -> int:
+        """The ranks that split the leaf (1: kept whole)."""
+        return 1 if self.whole else self.L // self.w
+
+    @property
+    def span(self) -> int:
+        """The reference entries of the whole leaf."""
+        return self.size * self.extent
+
+    def position(self, l):
+        """The reference position of local entry l (an int or a tensor)."""
+        return self.offset + (l // self.w) * self.L + self.m * self.w \
+            + l % self.w
+
+    def before(self, p: int) -> int:
+        """How many local entries lie before reference position p."""
+        q = p - self.offset
+        if q <= 0:
+            return 0
+        if q >= self.span:
+            return self.size
+        r, c = divmod(q, self.L)
+        return min(r * self.w + min(max(c - self.m * self.w, 0), self.w),
+                   self.size)
+
+
+def block_map(shape: Sequence[int], split: Optional[int], extent: int = 1,
+              index: int = 0, offset: int = 0) -> BlockMap:
+    """The map of a rank's block of a leaf of `shape` (node axis left out)
+    that the model axis (of `extent`, this rank at `index`) splits on dim
+    `split` (None: kept whole), the leaf starting at `offset`."""
+    total = math.prod(shape)
+    if split is None or extent == 1:
+        return BlockMap(offset, total, max(total, 1), max(total, 1))
+    inner = math.prod(shape[split + 1:])
+    L = shape[split] * inner
+    return BlockMap(offset, total // extent, L // extent, L, index, False)
+
+
+def block_maps(layouts, extent: int = 1, index: int = 0,
+               offset: int = 0) -> Tuple[BlockMap, ...]:
+    """The maps of leaves laid end to end in the reference's row from
+    `offset`: `layouts` gives each one's (shape, split dim or None)."""
+    out = []
+    for shape, split in layouts:
+        bm = block_map(shape, split, extent, index, offset)
+        out.append(bm)
+        offset += bm.span
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class Slots:
+    """The statistic slots of a reference row of `width` entries (the first
+    `valid` of them real, the rest pad), whose entries the tensors of
+    `maps` hold: one slot per `bd` entries (a tile; `bd` is the reference's
+    min(block_d, width)), or with `seg` one slot per group of leaves
+    (`seg[i]`, map i's slot: "global" has one, "segment" one a leaf of the
+    reference). `index` is this rank's model index; maps of split leaves
+    carry their own."""
+
+    maps: Tuple[BlockMap, ...]
+    bd: int
+    width: int
+    valid: int
+    seg: Optional[Tuple[int, ...]] = None
+    index: int = 0
+
+    @functools.cached_property
+    def n_slots(self) -> int:
+        if self.seg is not None:
+            return max(self.seg, default=-1) + 1
+        return -(-self.width // self.bd) if self.width else 0
+
+    def slot_range(self, i: int) -> Tuple[int, int]:
+        """[first, last + 1) of the slots leaf i's entries fall in."""
+        if self.seg is not None:
+            return self.seg[i], self.seg[i] + 1
+        bm = self.maps[i]
+        if bm.span == 0:
+            return 0, 0
+        return bm.offset // self.bd, (bm.offset + bm.span - 1) // self.bd + 1
+
+    def _owners(self, i: int) -> np.ndarray:
+        """Per slot of leaf i: -1 where every rank holds the leaf's entries
+        in it (kept whole), k where rank k alone does, -2 where several."""
+        lo, hi = self.slot_range(i)
+        bm = self.maps[i]
+        if bm.whole:
+            return np.full(hi - lo, -1, np.int64)
+        if self.seg is not None:
+            return np.full(hi - lo, -2, np.int64)
+        s = np.arange(lo, hi, dtype=np.int64)
+        a = np.maximum(s * self.bd, bm.offset) - bm.offset
+        b = np.minimum((s + 1) * self.bd, bm.offset + bm.span) - bm.offset
+        same = a // bm.w == (b - 1) // bm.w
+        return np.where(same, (a // bm.w) % bm.extent, -2)
+
+    @functools.cached_property
+    def straddling(self) -> np.ndarray:
+        """The slots (ascending) that hold entries of more than one rank of
+        a model group: the slots a rank completes with the group's
+        partials. Empty on one process."""
+        label = np.full(self.n_slots, -3, np.int64)  # -3: no entry yet
+        for i in range(len(self.maps)):
+            lo, hi = self.slot_range(i)
+            own, cur = self._owners(i), label[lo:hi]
+            label[lo:hi] = np.where((cur == -3) | (cur == own), own, -2)
+        return np.flatnonzero(label == -2)
+
+    def counted_range(self, i: int) -> Tuple[int, int]:
+        """The slots leaf i adds its entries to: all of its slots, save,
+        on a rank other than the first of its model group, the slots at
+        either end of a leaf kept whole that straddle (every rank holds
+        those entries; the first rank counts them in the group's sum)."""
+        lo, hi = self.slot_range(i)
+        if not self.maps[i].whole or self.index == 0 or hi <= lo:
+            return lo, hi
+        st = self.straddling
+        inside = lambda s: bool(np.isin(s, st))
+        if inside(lo):
+            lo += 1
+        if hi > lo and inside(hi - 1):
+            hi -= 1
+        return lo, hi
+
+    def counts(self, rows: int) -> np.ndarray:
+        """The valid entries of each slot over `rows` node rows, at least 1
+        (`tile_valid_counts`'s rule; a segment's or the leaf's entries)."""
+        if self.seg is not None:
+            per = np.zeros(self.n_slots, np.int64)
+            for s, bm in zip(self.seg, self.maps):
+                per[s] += bm.span
+        else:
+            per = tile_valid_counts(self.width, self.bd, self.valid)
+        return np.maximum(per * rows, 1)
+
+    def slot_of(self, i: int, l: torch.Tensor) -> torch.Tensor:
+        """The slot of leaf i's local entries l (an int64 tensor)."""
+        if self.seg is not None:
+            return torch.full_like(l, self.seg[i])
+        return self.maps[i].position(l) // self.bd
+
+    @functools.cached_property
+    def aligned(self) -> Tuple[bool, ...]:
+        """Per leaf: whether its local [n, bd] tiles are the reference's
+        slots, entry for entry: every run starts on a slot boundary and
+        fills whole slots (a leaf kept whole may end on the row's ragged
+        last slot), and no pad lies in them. Such a leaf's statistics need
+        no other tensor and no message."""
+        if self.seg is not None:
+            return tuple(False for _ in self.maps)
+        out = []
+        for bm in self.maps:
+            run = bm.size if bm.whole else bm.w
+            end = bm.offset + bm.span
+            out.append(bm.size > 0 and bm.offset % self.bd == 0
+                       and end <= self.valid
+                       and (run % self.bd == 0
+                            or (bm.whole and end == self.width)))
+        return tuple(out)
+
+
+def slot_partials(xs: Sequence[Optional[torch.Tensor]], slots: Slots,
+                  stat: str, *, per_node: bool = False, starts=None,
+                  window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """This rank's statistics of the slots of `window` (default: every
+    slot), [rows or 1, window's slots]: the sum of |x| in f64
+    (`stat="sum"`) or the max of |x| in f32 ("max") over the entries of
+    xs[i] ([rows, cnt]: leaf i's local entries from starts[i], default 0;
+    None: none of leaf i's) that fall in the slots of
+    `slots.counted_range(i)`; over every row of xs, or each row apart with
+    `per_node`. A slot without an entry of this rank holds 0, the identity
+    of both. The plain version of `kernels.ops.quant_slot_stats`."""
+    lo_w, hi_w = window or (0, slots.n_slots)
+    live = [x for x in xs if x is not None]
+    rows = live[0].shape[0] if live else 0
+    dev = live[0].device if live else None
+    f64 = stat == "sum"
+    out = torch.zeros((rows if per_node else 1, hi_w - lo_w),
+                      dtype=torch.float64 if f64 else torch.float32,
+                      device=dev)
+    for i, x in enumerate(xs):
+        if x is None or x.shape[-1] == 0:
+            continue
+        lo, hi = slots.counted_range(i)
+        lo, hi = max(lo, lo_w), min(hi, hi_w)
+        if hi <= lo:
+            continue
+        a = x.abs().to(torch.float64 if f64 else torch.float32)
+        if not per_node:
+            a = a.sum(0, keepdim=True) if f64 else a.amax(0, keepdim=True)
+        l0 = 0 if starts is None else starts[i]
+        slot = slots.slot_of(i, torch.arange(l0, l0 + x.shape[-1],
+                                             device=dev))
+        keep = (slot >= lo) & (slot < hi)
+        idx = torch.where(keep, slot - lo_w, 0).expand_as(a)
+        a = torch.where(keep, a, 0)
+        out.scatter_reduce_(1, idx, a, "sum" if f64 else "amax")
+    return out
+
+
+def complete_slots(partial: torch.Tensor, slots: Slots, stat: str,
+                   mesh=None, window: Optional[Tuple[int, int]] = None
+                   ) -> torch.Tensor:
+    """`partial` (the slots of `window`) with its straddling slots summed
+    (`stat="sum"`) or maxed over this rank's model group: one f32
+    all-reduce of those columns, logged as "slot all-reduce"
+    (`dist.log`), none where no slot straddles or the mesh has no model
+    axis. Returns the slots' f32 statistics."""
+    from repro_torch import dist as rdist
+
+    lo, hi = window or (0, slots.n_slots)
+    st = slots.straddling
+    st = st[(st >= lo) & (st < hi)] - lo
+    if mesh is None or rdist.model_extent(mesh) == 1 or len(st) == 0:
+        return partial.float()
+    idx = torch.as_tensor(st, device=partial.device)
+    msg = partial.index_select(1, idx).float().contiguous()
+    op = torch.distributed.ReduceOp.SUM if stat == "sum" else \
+        torch.distributed.ReduceOp.MAX
+    rdist.all_reduce_(msg, mesh, op, axis="model", kind="slot all-reduce")
+    out = partial.float()
+    out.index_copy_(1, idx, msg)
+    return out
+
+
+def slot_scales(stats: torch.Tensor, slots: Slots, name: str, rows: int,
+                window: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """The f32 scale of each slot of `window` from its statistic: mean |x|
+    over the slot's valid entries on `rows` rows (sign; `tile_compress`'s
+    division), or max(max |x|, eps) / 127 (int8)."""
+    if name == "sign":
+        lo, hi = window or (0, slots.n_slots)
+        cnt = torch.as_tensor(slots.counts(rows)[lo:hi], dtype=torch.float32,
+                              device=stats.device)
+        return stats / cnt
+    return stats.clamp_min(_EPS) / stats.new_full((), 127.0)
+
+
+def slot_compress(x: torch.Tensor, slots: Slots, i: int,
+                  scale: torch.Tensor, name: str, *, key: Key = None,
+                  start: int = 0, window_lo: int = 0) -> torch.Tensor:
+    """Leaf i's local entries x [rows, cnt] (from `start`) compressed with
+    the scales of their slots (`scale` [rows or 1, slots from
+    `window_lo`]), in f32, as `tile_compress` compresses with its own."""
+    l = torch.arange(start, start + x.shape[-1], device=x.device)
+    s = scale.index_select(1, slots.slot_of(i, l) - window_lo)
+    xf = x.float()
+    if name == "sign":
+        return torch.sign(xf) * s
+    v = xf / s
+    if name == "int8":
+        return torch.clamp(torch.round(v), -127, 127) * s
+    if name == "int8_stoch":
+        u = _uniform(key, v.shape, x.device)
+        return torch.clamp(torch.floor(v + u), -127, 127) * s
+    raise ValueError(f"unknown compressor {name!r}")
 
 
 # ---------------------------------------------------------------------------

@@ -449,23 +449,25 @@ def block_reduce_scatter(x: torch.Tensor, mesh: Mesh,
 
 
 def all_reduce_(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM,
-                axis: str = "data") -> torch.Tensor:
+                axis: str = "data", kind: str = "all-reduce") -> torch.Tensor:
     """In-place all-reduce of `t` over this rank's `axis` group ("data":
-    the node axis; "model": the model axis), staged in chunks on CUDA.
-    Returns `t`; no message where the axis has one rank."""
+    the node axis; "model": the model axis), staged in chunks on CUDA,
+    logged as `kind` (the quantized wires' slot statistics log theirs as
+    "slot all-reduce", `core.quantize.complete_slots`). Returns `t`; no
+    message where the axis has one rank."""
     if not t.is_contiguous():
         raise ValueError("all_reduce_ takes a contiguous tensor")
     if axis_extent(mesh, axis) == 1:
         return t
     nbytes = _nbytes(t)
     if t.device.type == "meta":
-        _count(axis, "all-reduce", max(1, -(-nbytes // STAGE_BYTES)),
+        _count(axis, kind, max(1, -(-nbytes // STAGE_BYTES)),
                2 * nbytes, 2 * nbytes)
         return t
     group = axis_group(mesh, axis)
     if not _staged(group, t):
         dist.all_reduce(t, op=op, group=group)
-        _count(axis, "all-reduce", 1, 2 * nbytes, 0)
+        _count(axis, kind, 1, 2 * nbytes, 0)
         return t
     flat = t.view(-1)
     step = max(STAGE_BYTES // t.element_size(), 1)
@@ -477,7 +479,7 @@ def all_reduce_(t: torch.Tensor, mesh: Mesh, op=dist.ReduceOp.SUM,
         stream.synchronize()
         dist.all_reduce(buf, op=op, group=group)
         part.copy_(buf)  # synchronous: the buffer is refilled next chunk
-        _count(axis, "all-reduce", 1, 2 * _nbytes(part), 2 * _nbytes(part))
+        _count(axis, kind, 1, 2 * _nbytes(part), 2 * _nbytes(part))
     return t
 
 

@@ -46,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP, _FP = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float)
-# C entry point and argument types of each library
+# C entry point and argument types of each kernel, and its library where
+# that is not the kernel's own name
 SIGNATURES = {
     "flash_attention": ("flash_attention_launch",
                         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -65,6 +66,14 @@ SIGNATURES = {
     "krasulina_xi_gossip": ("krasulina_xi_gossip_launch",
                             [_P, _P, _I, _I, _LL, _I, _P, _P, _P, _I, _I, _I,
                              _I, _IP, _FP, _P]),
+    # the statistics at the reference's positions: two more entry points
+    # of gossip_mix_quant.cu
+    "quant_slot_stats": ("gossip_mix_quant_slot_stats_launch",
+                         [_P, _LL, _I, _LL, _LL, _LL, _LL, _LL, _LL, _LL,
+                          _LL, _LL, _P, _I, _P], "gossip_mix_quant"),
+    "quant_slot_round": ("gossip_mix_quant_slot_round_launch",
+                         [_P, _P, _I, _LL, _LL, _LL, _LL, _LL, _LL, _P, _I,
+                          _I, _IP, _FP, _P], "gossip_mix_quant"),
 }
 
 _lock = threading.Lock()
@@ -152,12 +161,13 @@ def entry(name: str) -> ctypes._CFuncPtr:
     with _lock:
         if name not in _entry:
             build_all()
-            for lib_name, (sym, argtypes) in SIGNATURES.items():
-                lib = ctypes.CDLL(str(library_path(lib_name)))
+            for kernel, (sym, argtypes, *lib_name) in SIGNATURES.items():
+                lib = ctypes.CDLL(str(library_path(
+                    lib_name[0] if lib_name else kernel)))
                 fn = getattr(lib, sym)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-                _entry[lib_name] = fn
+                _entry[kernel] = fn
     return _entry[name]
 
 

@@ -270,6 +270,64 @@ def gossip_mix_quant_cuda(x: torch.Tensor, sched, rounds: int, quant: str, *,
     return out.reshape(x.shape)
 
 
+def _slot_args(h: torch.Tensor, bm, bd: int):
+    if h.device.type != "cuda" or h.dtype != torch.float32 or h.dim() != 2:
+        raise ValueError(f"the slot kernels take an f32 [n, entries] CUDA "
+                         f"tensor, got {h.dtype} {tuple(h.shape)} on "
+                         f"{h.device}")
+    if h.stride(1) != 1:
+        raise ValueError("the slot kernels take rows of contiguous entries")
+    return (h.shape[0], h.shape[1], bm.offset, bm.w, bm.L, bm.m)
+
+
+def quant_slot_stats_cuda(h: torch.Tensor, bm, bd: int, lo: int, hi: int,
+                          partial: torch.Tensor, quant: str) -> torch.Tensor:
+    """The rank's statistics of slots [lo, hi) of one leaf's block h
+    ([n, entries] f32 on the card, rows of contiguous entries) combined
+    into `partial` ([1, slots] f64, contiguous, on h's card) in place: the
+    sum of |h| over every row for sign, the max for int8, per slot of bd
+    reference positions, the block placed by `bm` (`core.quantize.BlockMap`)."""
+    if quant not in QUANT_CODES:
+        raise ValueError(f"the slot kernels take sign or int8, got {quant!r}")
+    n, size, offset, w, L, m = _slot_args(h, bm, bd)
+    if (partial.dtype != torch.float64 or not partial.is_contiguous()
+            or partial.device != h.device or partial.shape[-1] < hi):
+        raise ValueError("partial must be a contiguous f64 [1, slots] "
+                         "tensor on h's card, slots >= hi")
+    with torch.cuda.device(h.device):
+        _cuda.call("quant_slot_stats", h.data_ptr(), h.stride(0), n, size,
+                   offset, w, L, m, bm.span, bd, lo, hi,
+                   partial.data_ptr(), QUANT_CODES[quant],
+                   _cuda.stream_of(h))
+    return partial
+
+
+def quant_slot_round_cuda(h: torch.Tensor, bm, bd: int, scale: torch.Tensor,
+                          sched, quant: str) -> torch.Tensor:
+    """One round of quantized gossip on one leaf's block h ([n, entries]
+    f32 on the card, contiguous): h' = sum_k w_k roll(C(h), s_k), the self
+    term uncompressed, each value compressed with the f32 scale of its
+    slot (`scale` [1, slots], contiguous), the block placed by `bm`."""
+    if quant not in QUANT_CODES:
+        raise ValueError(f"the slot kernels take sign or int8, got {quant!r}")
+    n, size, offset, w, L, m = _slot_args(h, bm, bd)
+    if not h.is_contiguous():
+        raise ValueError("quant_slot_round takes a contiguous block")
+    if (scale.dtype != torch.float32 or not scale.is_contiguous()
+            or scale.device != h.device):
+        raise ValueError("scale must be a contiguous f32 tensor on h's card")
+    if any(s != 0 and s % n == 0 for s, _ in sched):
+        raise ValueError(f"schedule {sched} has a non-self term that rolls "
+                         f"by a multiple of n={n}")
+    out = torch.empty_like(h)
+    n_terms, shifts, weights = _cuda.schedule_args(sched, n)
+    with torch.cuda.device(h.device):
+        _cuda.call("quant_slot_round", h.data_ptr(), out.data_ptr(), n, size,
+                   offset, w, L, m, bd, scale.data_ptr(), QUANT_CODES[quant],
+                   n_terms, shifts, weights, _cuda.stream_of(h))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Partitioning rules for a sharded node axis
 #

@@ -430,6 +430,94 @@ static int launch_quant(int quant, int design, const void* x, void* out, int n,
   return (int)cudaErrorInvalidValue;
 }
 
+
+// ------------------------------------- statistics at the reference's positions
+//
+// Over a model axis (or for a stack of layers held as leaves of their own)
+// a rank holds a block of a leaf whose [n, bd] statistic tiles the
+// reference lays over its whole row: local entry l of a node row sits at
+// reference position offset + (l / w) * L + m * w + l % w, and its tile
+// ("slot") is that position / bd. A slot may then hold entries of other
+// leaves and of other ranks, so a round takes two launches, with the
+// caller's exchange of the slots that straddle ranks between them:
+//
+//   slot_stats: the rank's sum of |h| (sign, f64) or max of |h| (int8) of
+//     each slot in [lo, hi), over every row, combined into partial[slot]
+//     (added, or maxed). One block a slot walks the slot's bd positions
+//     and reads those that fall in this rank's runs, so each slot is
+//     written by one block and the result does not depend on the launch
+//     order of other leaves' calls, which run one after another.
+//   slot_round: one round, h' = w_0 h + sum_k w_k roll(C(h), s_k), each
+//     value compressed with its slot's f32 scale; one thread an entry, in
+//     the order and roundings of the plain version (kernels/ref.py).
+//
+// Bound: bytes, as the fused kernel; the statistics read h once more, and
+// a round reads and writes h once (R launches of each a step).
+
+constexpr int kStatThreads = 256;
+
+template <int Q>
+__global__ void __launch_bounds__(kStatThreads)
+    gossip_mix_quant_slot_stats_kernel(const float* __restrict__ h,
+                                       long long ld, int n, long long size,
+                                       long long offset, long long w,
+                                       long long L, long long m,
+                                       long long span, long long bd,
+                                       long long lo,
+                                       double* __restrict__ partial) {
+  __shared__ double scratch[33];
+  const long long s = lo + blockIdx.x;
+  double sum = 0.0;
+  float mx = 0.f;
+  for (long long j = threadIdx.x; j < bd; j += blockDim.x) {
+    const long long q = s * bd + j - offset;
+    if (q < 0 || q >= span) continue;
+    const long long r = q / L;
+    const long long c = q - r * L - m * w;
+    if (c < 0 || c >= w) continue;
+    const long long l = r * w + c;
+    if (l >= size) continue;
+    for (int i = 0; i < n; ++i) {
+      const float a = fabsf(h[(long long)i * ld + l]);
+      if (Q == kSign)
+        sum += (double)a;
+      else
+        mx = fmaxf(mx, a);
+    }
+  }
+  if (Q == kSign) {
+    const double total = block_sum(sum, scratch);
+    if (threadIdx.x == 0) partial[s] += total;
+  } else {
+    const float total = block_max(mx, reinterpret_cast<float*>(scratch));
+    if (threadIdx.x == 0) partial[s] = fmax(partial[s], (double)total);
+  }
+}
+
+template <int Q>
+__global__ void gossip_mix_quant_slot_round_kernel(
+    const float* __restrict__ h, float* __restrict__ out, int n,
+    long long size, long long offset, long long w, long long L, long long m,
+    long long bd, const float* __restrict__ scale, Schedule sched) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= (long long)n * size) return;
+  const int i = (int)(e / size);
+  const long long l = e - (long long)i * size;
+  const long long pos = offset + (l / w) * L + m * w + l % w;
+  const float sc = scale[pos / bd];
+  float acc = 0.f;
+  for (int k = 0; k < sched.n_terms; ++k) {
+    const int shift = sched.shifts[k];
+    int src = i - shift;
+    if (src < 0) src += n;
+    const float v = h[(long long)src * size + l];
+    const float term =
+        __fmul_rn(sched.weights[k], shift == 0 ? v : compress<Q>(v, sc));
+    acc = k == 0 ? term : __fadd_rn(acc, term);
+  }
+  out[e] = acc;
+}
+
 }  // namespace repro
 
 // Returns 0 on success, else the CUDA error code of the launch (or
@@ -459,4 +547,67 @@ extern "C" int gossip_mix_quant_launch(const void* x, void* out, int n,
                                               cluster, valid_d, sched, rounds,
                                               s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The rank's statistics of slots [lo, hi) of one leaf's f32 block h
+// ([n, size], rows ld apart) combined into partial[slot] (f64; sum of |h|
+// for quant 0 = sign, max for 1 = int8). The block's map: local entry l
+// at reference position offset + (l / w) * L + m * w + l % w of a leaf of
+// `span` entries; slot = position / bd. Returns 0 or a CUDA error code.
+extern "C" int gossip_mix_quant_slot_stats_launch(
+    const void* h, long long ld, int n, long long size, long long offset,
+    long long w, long long L, long long m, long long span, long long bd,
+    long long lo, long long hi, void* partial, int quant, void* stream) {
+  if (n < 1 || size < 0 || w < 1 || L < w || m < 0 || bd < 1 || lo < 0 ||
+      hi < lo || ld < size || hi - lo > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (hi == lo || size == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned grid = (unsigned)(hi - lo);
+  const float* x = static_cast<const float*>(h);
+  double* p = static_cast<double*>(partial);
+  if (quant == repro::kSign)
+    repro::gossip_mix_quant_slot_stats_kernel<repro::kSign>
+        <<<grid, repro::kStatThreads, 0, s>>>(x, ld, n, size, offset, w, L,
+                                             m, span, bd, lo, p);
+  else if (quant == repro::kInt8)
+    repro::gossip_mix_quant_slot_stats_kernel<repro::kInt8>
+        <<<grid, repro::kStatThreads, 0, s>>>(x, ld, n, size, offset, w, L,
+                                             m, span, bd, lo, p);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// One round of quantized gossip on one leaf's f32 block h [n, size] into
+// out [n, size], each non-self message compressed with scale[slot] (the
+// slot from the map, as for the statistics). Returns 0 or a CUDA error.
+extern "C" int gossip_mix_quant_slot_round_launch(
+    const void* h, void* out, int n, long long size, long long offset,
+    long long w, long long L, long long m, long long bd, const void* scale,
+    int quant, int n_terms, const int* shifts, const float* weights,
+    void* stream) {
+  repro::Schedule sched;
+  if (n < 1 || size < 0 || w < 1 || L < w || m < 0 || bd < 1 ||
+      repro::make_schedule(n_terms, shifts, weights, &sched))
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)n * size;
+  if (total == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long blocks = (total + repro::kThreads - 1) / repro::kThreads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const float* x = static_cast<const float*>(h);
+  float* y = static_cast<float*>(out);
+  const float* sc = static_cast<const float*>(scale);
+  if (quant == repro::kSign)
+    repro::gossip_mix_quant_slot_round_kernel<repro::kSign>
+        <<<(unsigned)blocks, repro::kThreads, 0, s>>>(x, y, n, size, offset,
+                                                     w, L, m, bd, sc, sched);
+  else if (quant == repro::kInt8)
+    repro::gossip_mix_quant_slot_round_kernel<repro::kInt8>
+        <<<(unsigned)blocks, repro::kThreads, 0, s>>>(x, y, n, size, offset,
+                                                     w, L, m, bd, sc, sched);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

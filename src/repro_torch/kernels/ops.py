@@ -32,6 +32,8 @@ from repro_torch.kernels.consensus import (GOSSIP_DESIGNS, QUANT_CLUSTERS,
                                            gossip_mix_quant_shard,
                                            gossip_mix_shard,
                                            quant_cluster_size, quant_route,
+                                           quant_slot_round_cuda,
+                                           quant_slot_stats_cuda,
                                            quant_tile_of, shard_compatible)
 from repro_torch.kernels.flash_attention import (VARIANTS,
                                                  flash_attention_cuda, route)
@@ -45,6 +47,7 @@ from repro_torch.kernels.krasulina_update import (XI_DESIGNS,
 # kernel launches since the last `reset_launches()`, by kernel name
 launches: Dict[str, int] = {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
                             "gossip_mix": 0, "gossip_mix_quant": 0,
+                            "quant_slot_stats": 0, "quant_slot_round": 0,
                             "flash_attention": 0}
 # flash_attention launches by kernel (`flash_attention.flash_variant`); they
 # add up to launches["flash_attention"]
@@ -252,6 +255,51 @@ def quant_gossip_mix(x: torch.Tensor, sched, rounds: int, quantization: str,
     quant_launches[quant_cluster_size(quant_tile_of(x, block_d))
                    if design == "cluster-tile" else design] += 1
     _count_nodes("gossip_mix_quant", x.shape[0])
+    return out
+
+
+def quant_slot_stats(h: torch.Tensor, slots, i: int, partial: torch.Tensor,
+                     quant: str) -> torch.Tensor:
+    """Leaf i's share of one round's "tile" statistics at the reference's
+    positions (`core.quantize.Slots`): the sum (sign) or max (int8) of |h|
+    over h's rows ([n, entries] f32, the leaf's block) for each slot of
+    `slots.counted_range(i)`, combined into `partial` ([1, slots] f64) in
+    place. One launch of the `gossip_mix_quant` file's statistics kernel
+    on the card, counted under "quant_slot_stats"."""
+    lo, hi = slots.counted_range(i)
+    if hi <= lo or h.shape[-1] == 0:
+        return partial
+    bm = slots.maps[i]
+    if _on_meta(h, partial):
+        for hook in meta_hooks:
+            hook("quant_slot_stats", float(h.numel()))
+        return partial
+    if not _on_cuda(h, partial):
+        return ref.quant_slot_stats_ref(h, bm.offset, bm.w, bm.L, bm.m,
+                                        slots.bd, lo, hi, partial, quant)
+    out = quant_slot_stats_cuda(h, bm, slots.bd, lo, hi, partial, quant)
+    launches["quant_slot_stats"] += 1
+    return out
+
+
+def quant_slot_round(h: torch.Tensor, slots, i: int, scale: torch.Tensor,
+                     sched, quant: str) -> torch.Tensor:
+    """One round of the quantized wire on leaf i's block h ([n, entries]
+    f32, every node row), each message compressed with its slot's scale
+    (`scale` [1, slots] f32, the round's completed statistics). One launch
+    of the `gossip_mix_quant` file's round kernel on the card, counted
+    under "quant_slot_round"."""
+    bm = slots.maps[i]
+    if _on_meta(h, scale):
+        return _footprint("quant_slot_round",
+                          _mix_flops(h, sched, 1) + 2.0 * h.numel(),
+                          h.shape, h.dtype)
+    if not _on_cuda(h, scale):
+        return ref.quant_slot_round_ref(h, bm.offset, bm.w, bm.L, bm.m,
+                                        slots.bd, scale, sched, quant)
+    out = quant_slot_round_cuda(h, bm, slots.bd, scale.contiguous(), sched,
+                                quant)
+    launches["quant_slot_round"] += 1
     return out
 
 

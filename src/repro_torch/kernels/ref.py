@@ -91,6 +91,50 @@ def gossip_mix_quant_ref(x: torch.Tensor, sched, rounds: int, quant: str, *,
     return h.reshape(x.shape).to(x.dtype)
 
 
+def quant_slot_stats_ref(h: torch.Tensor, offset: int, w: int, L: int,
+                         m: int, bd: int, lo: int, hi: int,
+                         partial: torch.Tensor, quant: str) -> torch.Tensor:
+    """The plain version of `quant_slot_stats_cuda`: the sum of |h| in f64
+    (sign) or its max (int8) over every row of h [n, size] (a block whose
+    local entry l lies at reference position
+    offset + (l // w) * L + m * w + l % w), per slot = position // bd,
+    for the slots in [lo, hi), combined into `partial` ([1, slots] f64,
+    added or maxed) in place."""
+    l = torch.arange(h.shape[1], device=h.device)
+    slot = (offset + (l // w) * L + m * w + l % w) // bd
+    keep = (slot >= lo) & (slot < hi)
+    a = h.abs()
+    vals = a.double().sum(0) if quant == "sign" else a.amax(0).double()
+    part = torch.zeros_like(partial[0]).scatter_reduce_(
+        0, torch.where(keep, slot, 0), torch.where(keep, vals, 0),
+        "sum" if quant == "sign" else "amax")
+    if quant == "sign":
+        partial[0].add_(part)
+    else:
+        torch.maximum(partial[0], part, out=partial[0])
+    return partial
+
+
+def quant_slot_round_ref(h: torch.Tensor, offset: int, w: int, L: int,
+                         m: int, bd: int, scale: torch.Tensor, sched,
+                         quant: str) -> torch.Tensor:
+    """The plain version of `quant_slot_round_cuda`: one round of quantized
+    gossip on h [n, size] (f32), each non-self message compressed with the
+    f32 scale of its entry's slot (`scale` [1, slots]; the map as in
+    `quant_slot_stats_ref`)."""
+    l = torch.arange(h.shape[1], device=h.device)
+    s = scale[0, (offset + (l // w) * L + m * w + l % w) // bd]
+    if quant == "sign":
+        q = torch.sign(h) * s
+    else:
+        q = torch.clamp(torch.round(h / s), -127, 127) * s
+    out = None
+    for shift, wt in sched:
+        term = wt * (h if shift == 0 else torch.roll(q, shift, 0))
+        out = term if out is None else out + term
+    return out
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, window: int = 0, chunk: int = 0,
                   scale: Optional[float] = None) -> torch.Tensor:

@@ -36,8 +36,10 @@ pieces of the heads a split cuts), and every message of both axes through
 `dist.py`, whose collectives are shape-only no-ops on
 meta that count what they would move on the card (`dist.log`); the record
 carries those counts (`collectives`, the model axis's apart in
-`collectives_model`). Every other step on a model axis (the families and
-wires the trainer refuses there, and serving) keeps the model axis
+`collectives_model`; the quantized and error-feedback wires' slot
+statistics as "slot all-reduce" messages). Every other step on a model
+axis (the families the trainer refuses there, and serving) keeps the
+model axis
 planned, not executed: its temporaries are the unsplit upper bound
 (`temp_unsplit_over_model`), the Megatron split's activation all-reduces
 are planned (`collectives_planned`), and `model_axis_refused` says why.
@@ -266,7 +268,8 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
                     cfg: Optional[ModelConfig] = None,
                     shape: Optional[ShapeConfig] = None,
                     n_nodes: Optional[int] = None,
-                    membership=None) -> Lowerable:
+                    membership=None,
+                    wire: Optional[dict] = None) -> Lowerable:
     """The step of (arch x shape) on `mesh` and its meta arguments. `cfg`
     and `shape` override the registry's (a cut depth, a reduced size);
     `n_nodes` (default: the mesh's data extent) plans the port's
@@ -275,7 +278,10 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
     run's cohort step on the mesh's rank `mesh.rank`: its active rows of
     the state, the cohort's batch ([its active rows, B / m, ...]; B =
     `shape.global_batch`). Only a decentralized run over a model axis that
-    the trainer executes takes one (ValueError elsewhere)."""
+    the trainer executes takes one (ValueError elsewhere). `wire` sets
+    more of the run's `AveragingConfig` (the quantized and error-feedback
+    wires: `quantization`, `quant_stats`, `quant_block_d`, `packed`,
+    `error_feedback`, `self_weight`)."""
     cfg = cfg or get_config(arch)
     if ring_cache:
         cfg = dataclasses.replace(cfg, ring_buffer_cache=True)
@@ -292,7 +298,8 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
         run = RunConfig(model=cfg, shape=shape,
                         averaging=AveragingConfig(mode=averaging,
                                                   rounds=rounds,
-                                                  topology=topology),
+                                                  topology=topology,
+                                                  **(wire or {})),
                         optimizer="adam", param_dtype="bfloat16",
                         microbatches=1 if decentralized else mb,
                         master_weights=master_weights, remat=remat)
@@ -464,8 +471,8 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
     two norms in one all-reduce. The hierarchical mode reduce-scatters
     each pod's rows over the pod's ranks, gossips each lane's block
     between the pods over its lane (or gathers every block, where a
-    quantized wire's tiles do not lie inside the blocks) and all-gathers
-    the pod's blocks (`core.averaging._hmix_shard`). `membership` (a
+    quantized wire's tiles do not lie inside the blocks, and over a model
+    axis) and all-gathers the pod's blocks (`core.averaging._hmix_shard`). `membership` (a
     partial `core.mixing.Membership`) plans an elastic run's cohort step:
     its wire over the cohort's row table (`dist.cohort_rows`).
     `scheduled` plans a scenario's `ScheduledMixOp`: one gather per step
@@ -500,14 +507,24 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
     bufs = (_buffers(leaves) if packed else
             [(p[0].numel(), p.element_size()) for p in leaves])
     if avg.mode == "hierarchical":
+        if avg.quantization != "none" and not packed:
+            # a quantized wire's stacked layers are one leaf
+            bufs = [(sum(leaves[i][0].numel() for i in pool),
+                     leaves[pool[0]].element_size())
+                    for pool in trainer.layer_pools(params, run.model)]
         _hierarchical_wire(coll, avg, mesh, n, bufs,
                            rdist.n_local(mesh, n))
     elif avg.error_feedback != "off":
-        # each f32 column chunk of each buffer is one linear mix
+        # each f32 column chunk of each buffer is one linear mix (over a
+        # model axis cut on the reference's columns)
         linear = dataclasses.replace(avg, quantization="none")
-        chunks = [(b - a, 4) for width, _ in bufs
-                  for a, b in _ef_chunks(width, ef_chunk_width(
-                      m, width, avg.quant_block_d))]
+        if rdist.model_extent(mesh) > 1:
+            chunks = [(b - a, 4) for a, b, _ in _model_ef_chunks(
+                run, params, mesh, m)]
+        else:
+            chunks = [(b - a, 4) for width, _ in bufs
+                      for a, b in _ef_chunks(width, ef_chunk_width(
+                          m, width, avg.quant_block_d))]
         _gossip_wire(coll, linear, mesh, m, table, chunks)
         _add(coll, "all-reduce", 8, 1)  # ||e'||^2 and ||v||^2
     else:
@@ -528,6 +545,18 @@ def _ef_chunks(d: int, width: int) -> list:
     return [(a, min(a + width, d)) for a in range(0, d, width)]
 
 
+def _model_ef_chunks(run: RunConfig, params: Tree, mesh, m: int) -> list:
+    """Error feedback's chunks over a model axis, every packed group's in
+    turn: (first, last + 1 local column, reference columns), as
+    `core.averaging.ef_average_and_error` cuts them."""
+    from repro_torch.core.averaging import _EFSlots, pack
+
+    layout = trainer.leaf_layout(run.model, mesh)
+    _, spec = pack(params, trainer.layer_pools(params, run.model))
+    return [c for group in spec.groups for c in _EFSlots(
+        group, layout, mesh, run.averaging, None, None).chunks(m)]
+
+
 def _gossip_wire(coll: dict, avg: AveragingConfig, mesh, m: int, table,
                  bufs, scheduled: bool = False) -> None:
     """One mix of each (entries a node, bytes an entry) buffer of `bufs`
@@ -537,8 +566,11 @@ def _gossip_wire(coll: dict, avg: AveragingConfig, mesh, m: int, table,
     from repro_torch.core.mixing import schedule
     top = max(b - a for a, b in table)
     sched = schedule(avg.topology, m, avg.self_weight)
-    # the shard rules run the exact wire and per-node statistics
-    routable = avg.quantization == "none" or avg.quant_stats == "node"
+    # the shard rules run the exact wire and per-node statistics (over a
+    # model axis a quantized wire gathers the node rows:
+    # `core.averaging.quant_slot_mix`)
+    routable = avg.quantization == "none" or (
+        avg.quant_stats == "node" and rdist.model_extent(mesh) == 1)
     halo = (not scheduled and routable and m > 1
             and ops.node_shard_info(mesh, m, sched, table) is not None)
     if halo:
@@ -585,9 +617,10 @@ def _hierarchical_wire(coll: dict, avg: AveragingConfig, mesh, n: int,
             for a, b in rdist.column_chunks(width, lanes * k, elem):
                 _add(coll, "reduce-scatter", lanes * k * (b - a) * elem, 1)
         quantized = avg.quantization != "none"
-        if quantized and not (avg.quant_stats in ("tile", "node")
-                              and avg.quantization not in STOCHASTIC
-                              and width % min(avg.quant_block_d, d) == 0):
+        if quantized and (rdist.model_extent(mesh) > 1 or not (
+                avg.quant_stats in ("tile", "node")
+                and avg.quantization not in STOCHASTIC
+                and width % min(avg.quant_block_d, d) == 0)):
             E = rdist.n_data_nodes(mesh)
             for a, b in rdist.column_chunks(width, 1, elem):
                 _add(coll, "all-gather", (1 + E) * (b - a) * elem / 2, 1)
@@ -772,11 +805,15 @@ def plan(arch: str, shape_name: str, mesh, *, averaging: str = "exact",
          master_weights: Optional[bool] = None,
          cfg: Optional[ModelConfig] = None,
          shape: Optional[ShapeConfig] = None,
-         n_nodes: Optional[int] = None, membership=None) -> dict:
+         n_nodes: Optional[int] = None, membership=None,
+         wire: Optional[dict] = None) -> dict:
     """The dry-run record of one combination on `mesh` (`run_dryrun`'s,
     for any config, shape and mesh); with a partial `membership`, of an
     elastic run's cohort step on the rank `mesh.rank`, where
-    `build_lowerable` traces one. Training starts with f32 masters
+    `build_lowerable` traces one; `wire` as `build_lowerable`'s (the
+    quantized and error-feedback wires, whose slot all-reduces the trace
+    of a model axis counts as "slot all-reduce" messages). Training starts
+    with f32 masters
     and drops them, as the reference does, where the planned peak passes
     the card's memory (unless `master_weights` is given, or the mesh has a
     model axis)."""
@@ -803,7 +840,8 @@ def plan(arch: str, shape_name: str, mesh, *, averaging: str = "exact",
            "active_params": cfg.active_param_count(),
            "window_override": wo, "ring_cache": ring_cache}
     card = card_memory_bytes()
-    kw = dict(cfg=cfg, shape=shape, n_nodes=n_nodes, membership=membership)
+    kw = dict(cfg=cfg, shape=shape, n_nodes=n_nodes, membership=membership,
+              wire=wire)
 
     def once(master: bool):
         low = build_lowerable(arch, shape.name, mesh, averaging, rounds,

@@ -92,8 +92,13 @@ the cohort's rows (over `dist.cohort_rows` where the node axis is split),
 the consensus error sums the split leaves' squares over the model group
 and the cohort's rows, and the metrics are means over the cohort, the
 same on every rank of a model group. The quantized and error-feedback
-wires are refused there: their statistic tiles run over the whole
-flattened leaf in the reference.
+wires take their statistics at the reference's positions: each slot of
+the reference's whole leaf (or packed buffer) that a rank's block holds
+part of is reduced from the rank's entries, and the slots that straddle
+ranks are completed by one f32 all-reduce over the model group
+(`core.quantize.Slots`, `core.averaging.quant_slot_mix`,
+`ef_average_and_error`). The hierarchical mode runs each model index's
+columns over the pod and lane groups at that index.
 """
 from __future__ import annotations
 
@@ -131,27 +136,11 @@ class TrainState(NamedTuple):
 def check_supported(run, mesh) -> None:
     """Raise on what the trainer does not run over `mesh`: on a model
     axis, the families `check_model_axis` refuses (any extent runs the
-    dense family's heads, KV heads, FFN and vocab), a quantized or
-    error-feedback wire, or the hierarchical mode on a split node axis,
-    each naming its ROADMAP.md item; and error feedback outside the
-    gossip mode (ValueError, as the reference)."""
-    avg = run.averaging
+    dense family's heads, KV heads, FFN and vocab, with every wire and
+    averaging mode), naming its ROADMAP.md item; and error feedback
+    outside the gossip mode (ValueError, as the reference)."""
     if model_extent(mesh) > 1:
         check_model_axis(run.model, mesh)
-    if model_extent(mesh) > 1 and (avg.quantization != "none"
-                                   or avg.error_feedback != "off"):
-        wire = (f"the {avg.quantization} wire"
-                if avg.quantization != "none" else "error feedback")
-        raise NotImplementedError(
-            f"{wire} on a model axis: its [n, block_d] statistic tiles run "
-            f"over the whole flattened leaf, which a column shard does not "
-            f"hold (ROADMAP.md queue 1 item 3)")
-    if (model_extent(mesh) > 1 and is_sharded(mesh)
-            and avg.mode == "hierarchical"):
-        raise NotImplementedError(
-            "the hierarchical mode on a model axis: its pod means are "
-            "reduce-scattered over whole rows, which a column shard does "
-            "not hold (ROADMAP.md queue 1 item 3)")
     if run.averaging.error_feedback != "off" and run.averaging.mode != "gossip":
         raise ValueError(f"error-feedback compression (error_feedback="
                          f"{run.averaging.error_feedback!r}) requires "
@@ -188,6 +177,19 @@ def state_specs(cfg, mesh) -> Tuple[Tree, Tree, Tree]:
     return (meta, shlib.param_specs(meta, mesh),
             shlib.zero1_specs(meta, mesh,
                               n_stacked=shlib.stacked_layers(cfg)))
+
+
+def leaf_layout(cfg, mesh) -> Tuple[Tuple[Tuple[int, ...], Optional[int]],
+                                    ...]:
+    """Per leaf of `cfg`'s parameters (`tree_leaves` order): its whole
+    shape without a node axis, and the dim that `mesh`'s model axis splits
+    by the reference's placements (None: kept whole), the layout
+    `core.averaging`'s quantized wires place a rank's blocks by."""
+    meta, pspec, _ = state_specs(cfg, mesh)
+    return tuple((tuple(x.shape), sp.index(shlib.M) if shlib.M in sp
+                  else None)
+                 for x, sp in zip(tree_leaves(meta),
+                                  shlib.leaf_specs(meta, pspec)))
 
 
 def rest_specs(cfg, mesh, exact: bool, node_axis: bool = False) -> Tree:
@@ -542,12 +544,12 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
         table = rows or rdist.row_table(mesh, n_nodes)
         holder = next(i for i, (a, b) in enumerate(table) if b > a)
     pools: List[Optional[tuple]] = [None]  # from the first state's tree
-    # per leaf (`tree_leaves` order): whether the model axis splits it
-    model_split = None
+    # per leaf (`tree_leaves` order): its whole shape and the dim the
+    # model axis splits, where a quantized wire places its blocks
+    model_split = layout = None
     if model_extent(mesh) > 1:
-        meta, pspec, _ = state_specs(run.model, mesh)
-        model_split = tuple(shlib.M in sp
-                            for sp in shlib.leaf_specs(meta, pspec))
+        layout = leaf_layout(run.model, mesh)
+        model_split = tuple(split is not None for _, split in layout)
 
     def step(state: TrainState, batch, ids: Tuple[int, ...],
              idx: Optional[torch.Tensor]):
@@ -585,7 +587,8 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
                 ef = tree_map(lambda e: e.index_select(0, idx), ef)
             mixed, new_ef, cerr, ef_norm, ef_rel = ef_average_and_error(
                 grads, ef, avg, n_nodes=n_nodes, mix=mix, key=key, t=t,
-                pools=pools[0], mesh=mesh)
+                pools=pools[0], mesh=mesh, model_split=model_split,
+                layout=layout)
             # into the state's residual tensors, in place (the update rules
             # never touch them), so the packed residual buffer is freed
             # before the update's temporaries and a caller still holding
@@ -602,7 +605,8 @@ def _build_node_step(run, n_nodes: int, mix: Optional[Any],
             mixed, cerr = average_and_error(grads, avg, n_nodes=n_nodes,
                                             pods=pods, mix=mix, key=key, t=t,
                                             pools=pools[0], mesh=mesh,
-                                            model_split=model_split)
+                                            model_split=model_split,
+                                            layout=layout)
         del grads  # the unpacked gradients; `mixed` views the mixed buffer
         # the update is elementwise: run it in place on row views of each
         # contiguous run of nodes at one step (the whole leaves while every

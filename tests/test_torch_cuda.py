@@ -226,6 +226,60 @@ def test_cuda_gossip_mix_quant_matches_plain(cuda, quant, dtype, n, d, block_d,
                                                 block_d=block_d), dtype)
 
 
+# the statistics at the reference's positions: (layouts of one reference
+# row, model extent, this rank's index, block_d): wk-like runs of 16
+# columns a rank under 64-column tiles, a row split beside a kept-whole
+# leaf, and a stack of two layers whose sizes the tile does not divide
+SLOT_CASES = [([((256, 64), 1)], 4, 1, 64),
+              ([((40, 24), 0), ((7,), None), ((4, 32), 1)], 2, 1, 16),
+              ([((300, 10), None), ((300, 10), None)], 1, 0, 512)]
+
+
+@pytest.mark.parametrize("quant", ["sign", "int8"])
+@pytest.mark.parametrize("case", range(len(SLOT_CASES)))
+def test_cuda_slot_kernels_match_plain(cuda, quant, case):
+    """The two slot entry points of gossip_mix_quant.cu against their plain
+    versions on one rank's blocks: the slots' statistics (one launch a
+    leaf) and one round with given scales (one launch a leaf), each
+    counted under its own key."""
+    from repro_torch.core import quantize as tq
+
+    layouts, M, m, block_d = SLOT_CASES[case]
+    maps = tq.block_maps(layouts, M, m)
+    width = sum(bm.span for bm in maps)
+    slots = tq.Slots(maps, min(block_d, width), width, width, index=m)
+    n = 4
+    sched = tmix.schedule("ring", n)
+    hs = [torch.randn((n, bm.size), device=cuda) for bm in maps]
+    got = torch.zeros((1, slots.n_slots), dtype=torch.float64, device=cuda)
+    want = got.clone()
+    before = dict(ops.launches)
+    for i, h in enumerate(hs):
+        ops.quant_slot_stats(h, slots, i, got, quant)
+        lo, hi = slots.counted_range(i)
+        bm = maps[i]
+        tref.quant_slot_stats_ref(h, bm.offset, bm.w, bm.L, bm.m, slots.bd,
+                                  lo, hi, want, quant)
+    torch.cuda.synchronize()
+    # a leaf with no slot to count (a kept-whole leaf whose only slot
+    # straddles, on a rank after the group's first) launches nothing
+    counted = sum(1 for i in range(len(hs))
+                  if slots.counted_range(i)[1] > slots.counted_range(i)[0])
+    assert ops.launches["quant_slot_stats"] == \
+        before["quant_slot_stats"] + counted
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+    scale = tq.slot_scales(got.float(), slots, quant, n)
+    for i, h in enumerate(hs):
+        bm = maps[i]
+        out = ops.quant_slot_round(h, slots, i, scale, sched, quant)
+        torch.cuda.synchronize()
+        ref = tref.quant_slot_round_ref(h, bm.offset, bm.w, bm.L, bm.m,
+                                        slots.bd, scale, sched, quant)
+        _close_quant(out, ref, torch.float32)
+    assert ops.launches["quant_slot_round"] == \
+        before["quant_slot_round"] + len(hs)
+
+
 @pytest.mark.parametrize("quant", ["none", "sign", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_fig9_wire_matches_plain(cuda, quant, dtype):

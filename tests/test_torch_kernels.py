@@ -20,6 +20,7 @@ from repro.kernels.consensus import gossip_mix_pallas, gossip_mix_quant_pallas
 from repro.kernels.krasulina_update import (krasulina_xi_gossip_pallas,
                                             krasulina_xi_pallas)
 from repro_torch.core import mixing as tmix
+from repro_torch.core import quantize as tquant
 from repro_torch.kernels import _cuda, ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.consensus import (MAX_GOSSIP_NODES, gossip_design,
@@ -595,9 +596,14 @@ def test_cpu_tensors_take_plain_version_and_count_no_launch():
     ops.krasulina_xi_gossip(w, z, sched, 2)
     ops.gossip_mix(w, sched, 2)
     ops.quant_gossip_mix(w, sched, 2, "int8", block_d=4)
+    slots = tquant.Slots(tquant.block_maps([((8,), None)]), 4, 8, 8)
+    partial = torch.zeros((1, 2), dtype=torch.float64)
+    ops.quant_slot_stats(w, slots, 0, partial, "int8")
+    ops.quant_slot_round(w, slots, 0, torch.ones((1, 2)), sched, "int8")
     ops.attention(z[None], z[None], z[None])
     assert ops.launches == {"krasulina_xi": 0, "krasulina_xi_gossip": 0,
                             "gossip_mix": 0, "gossip_mix_quant": 0,
+                            "quant_slot_stats": 0, "quant_slot_round": 0,
                             "flash_attention": 0}
 
 
@@ -662,7 +668,15 @@ def test_schedule_args_normalise_shifts():
 
 
 def test_every_source_has_an_entry_point():
-    assert set(_cuda.SIGNATURES) == set(_cuda.SOURCES)
+    """Every source is the library of an entry point of its own name, and
+    an entry point named otherwise (the slot statistics' two of
+    gossip_mix_quant.cu) names its source."""
+    libs = {name: spec[2] if len(spec) > 2 else name
+            for name, spec in _cuda.SIGNATURES.items()}
+    assert set(_cuda.SOURCES) <= set(libs)
+    assert set(libs.values()) == set(_cuda.SOURCES)
+    assert {k for k, v in libs.items() if k != v} == {"quant_slot_stats",
+                                                      "quant_slot_round"}
     for name in _cuda.SOURCES:
         assert (_cuda.CSRC / f"{name}.cu").exists()
 

@@ -290,9 +290,6 @@ def _refusals():
     gossip = lambda **kw: AveragingConfig("gossip", 2, **kw)
     cases = [  # (arch, config changes, averaging, model extent, match)
         ("qwen2-moe-a2.7b", {}, gossip(), 2, "MoE experts"),
-        ("granite-8b", {}, gossip(quantization="int8"), 2, "int8 wire"),
-        ("granite-8b", {}, gossip(error_feedback="grads"), 2,
-         "error feedback"),
         ("minicpm3-4b", {}, gossip(), 2, "wq_b"),
         ("mamba2-2.7b", {}, gossip(), 2, "SSD"),
         ("recurrentgemma-9b", {}, gossip(), 2, "RG-LRU"),
@@ -317,8 +314,7 @@ def test_model_axis_refusals(arch, changes, avg, model, match):
     mesh = Mesh((1, model), ("data", "model"))
     with pytest.raises(NotImplementedError, match=match) as refused:
         trainer.build_train_step(run, mesh, n_nodes=N, device="cpu")
-    item = 3 if avg.quantization != "none" or avg.error_feedback != "off" \
-        else 4 if arch in ("granite-8b", "qwen2-moe-a2.7b", "minicpm3-4b") \
+    item = 4 if arch in ("granite-8b", "qwen2-moe-a2.7b", "minicpm3-4b") \
         else 5
     assert f"ROADMAP.md queue 1 item {item}" in str(refused.value)
     with pytest.raises(NotImplementedError, match=match):

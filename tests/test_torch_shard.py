@@ -269,11 +269,11 @@ def test_sharded_refusals_and_rule_coverage():
     """On a sharded node axis the hierarchical mode and error feedback
     build (the trainer's steps and the planner's wire); the hierarchical
     mode takes its pods from the mesh's "pod" axis and refuses pods that
-    the mesh does not hold; what stays refused is error feedback, the
-    quantized wires and the hierarchical mode over a model axis (queue 1
-    item 3); and the shard rules refuse a layout that `node_shard_info`
-    does not cover (a ring over two mesh axes), which `core.mixing`'s op
-    gathers instead."""
+    the mesh does not hold; error feedback, the quantized wires and the
+    hierarchical mode build over a model axis too
+    (tests/test_torch_model_axis_wires.py runs them); and the shard rules
+    refuse a layout that `node_shard_info` does not cover (a ring over two
+    mesh axes), which `core.mixing`'s op gathers instead."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
     from repro_torch.core import averaging
@@ -306,7 +306,7 @@ def test_sharded_refusals_and_rule_coverage():
     plan = dryrun.node_axis_collectives(ef, tree_map(lambda t: t[None],
                                                      params), TWO[0], 2)
     assert plan["collective-permute.count"] and plan["all-reduce.count"]
-    # over a model axis they stay refused (a model whose heads, KV heads,
+    # over a model axis they build too (a model whose heads, KV heads,
     # FFN and vocab the axis divides)
     model2 = rdist.Mesh((2, 2), ("data", "model"))
     tp = dataclasses.replace(run, model=dataclasses.replace(
@@ -314,16 +314,13 @@ def test_sharded_refusals_and_rule_coverage():
     trainer.check_supported(dataclasses.replace(
         tp, averaging=AveragingConfig(mode="gossip", rounds=2)), model2)
     ef_exact = dataclasses.replace(ef.averaging, quantization="none")
-    for avg, match in ((ef_exact, "error feedback on a model axis"),
-                       (ef.averaging, "the int8 wire on a model axis"),
-                       (AveragingConfig(mode="gossip", rounds=2,
-                                        quantization="sign"),
-                        "the sign wire on a model axis"),
-                       (hier, "the hierarchical mode on a model axis")):
-        with pytest.raises(NotImplementedError,
-                           match=f"{match}.*queue 1 item 3"):
-            trainer.check_supported(dataclasses.replace(tp, averaging=avg),
-                                    model2)
+    for avg in (ef_exact, ef.averaging,
+                AveragingConfig(mode="gossip", rounds=2, quantization="sign"),
+                hier):
+        trainer.check_supported(dataclasses.replace(tp, averaging=avg),
+                                model2)
+        assert dryrun.model_axis_refusal(
+            dataclasses.replace(tp, averaging=avg), model2) is None
     pods = rdist.Mesh((2, 2, 1), ("pod", "data", "model"))
     sched = mixing.schedule("ring", 8)
     x = torch.zeros(2, 4)

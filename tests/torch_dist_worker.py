@@ -1,5 +1,6 @@
 """Rank code of the port's multi-rank tests (tests/test_torch_shard.py,
 tests/test_torch_trainer_dist.py, tests/test_torch_model_axis.py,
+tests/test_torch_model_axis_wires.py,
 tests/test_torch_shard_elastic.py, tests/test_torch_shard_elastic_lm.py);
 not collected by pytest.
 
@@ -1476,13 +1477,106 @@ def model_elastic(mesh, inp):
     return out
 
 
+# tests/test_torch_model_axis_wires.py: the Section VI wires over a model
+# axis, (label, mesh name) of each trainer run (MW_STEPS SGD steps at MW_N
+# nodes); the wires' configs come from the parent
+MW_N, MW_STEPS, MW_K = 4, 2, 2
+MW_RUNS = [("int8 tile", "1x4"), ("sign tile", "1x4"), ("int8 node", "1x4"),
+           ("sign global", "1x4"), ("int8 segment packed", "1x4"),
+           ("int8 tile", "2x2"), ("sign global", "2x2"),
+           ("ef sign", "1x4"), ("ef int8", "1x4"), ("ef sign", "2x2"),
+           ("ef int8", "2x2"), ("hier none", "2x1x2"),
+           ("hier int8", "2x1x2")]
+MW_DROPPED = 2  # the cohort case's node out, "ef int8" on 1 x 4
+
+
+def _mw_meshes():
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    return {"1x4": make_host_mesh(model=4), "2x2": make_host_mesh(model=2),
+            "2x1x2": make_mesh((2, 1, 2), ("pod", "data", "model"))}
+
+
+def _mw_tree(state, run, mesh):
+    """The rank's node rows of the parameters and residuals gathered over
+    the model axis, on model index 0 (None elsewhere): flat f32 tensors
+    in `jax.tree.leaves` order."""
+    from repro_torch import convert, dist as rdist
+
+    tree = convert.train_tree(state, run.model, mesh)
+    if rdist.model_index(mesh):
+        return None
+    flat = lambda t: (None if isinstance(t, tuple) else [
+        torch.from_numpy(np.ascontiguousarray(x)) for x in np_leaves(t)])
+    return {"params": flat(tree["params"]),
+            "ef_residual": flat(tree["ef_residual"])}
+
+
+def model_wires(mesh, inp):
+    """tests/test_torch_model_axis_wires.py: each MW_RUNS case from the
+    reference's state cut to this rank's blocks (`convert.train_state`),
+    MW_STEPS steps (each step's metrics, messages and launches), the
+    gathered rows; the "ef int8" cohort superstep (node MW_DROPPED out) on
+    1 x 4; and an int8_stoch step run twice from the same state."""
+    from repro_torch import convert, dist as rdist
+    from repro_torch.core.mixing import Membership
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer as tr
+
+    given = torch.load(inp, weights_only=False)
+    meshes = _mw_meshes()
+    out = {"runs": {}}
+    for label, name in MW_RUNS:
+        mesh, run = meshes[name], given["runs"][label]
+        rows = rdist.node_rows(mesh, MW_N)
+        state = _local_state(convert.train_state(
+            *given["state"][given["kind"][label]], run.model, device="cpu",
+            mesh=mesh), rows)
+        ops.reset_launches()
+        state, metrics, wires = _steps(run, mesh, state, given["batches"],
+                                       MW_N, rows)
+        out["runs"][label, name] = dict(
+            _mw_tree(state, run, mesh) or {}, metrics=metrics, wires=wires,
+            rows=(rows.start, rows.stop), launches=dict(ops.launches),
+            model_index=rdist.model_index(mesh))
+    # the cohort: one superstep of K rounds over the 3 active nodes
+    mesh, run = meshes["1x4"], given["runs"]["ef int8"]
+    mem = Membership.full(MW_N).drop(MW_DROPPED)
+    state = convert.train_state(*given["state"]["ef"], run.model,
+                                device="cpu", mesh=mesh)
+    fn = tr.superstep_builder(run, mesh, n_nodes=MW_N, device="cpu")(
+        given["cohort"]["tokens"].shape[1] * given["cohort"]["tokens"]
+        .shape[2], mem)
+    batch = shard_batch({k: torch.from_numpy(v) for k, v in
+                         given["cohort"].items()}, mesh, MW_N,
+                        node_axis=True, membership=mem)
+    state, metrics = fn(state, rdist.local_ids(mesh, mem), batch)
+    out["cohort"] = dict(_mw_tree(state, run, mesh) or {},
+                         loss=metrics["loss"].numpy(), step=state.opt.step)
+    # int8_stoch: the same step twice gives the same bits
+    run = given["runs"]["int8_stoch tile"]
+    twice = []
+    for _ in range(2):
+        state = convert.train_state(*given["state"]["plain"], run.model,
+                                    device="cpu", mesh=mesh)
+        state, metrics, _ = _steps(run, mesh, state, given["batches"][:1],
+                                   MW_N, slice(0, MW_N))
+        twice.append((metrics, [t.clone() for t in
+                                _tensors_of(state)]))
+    out["stoch_same"] = twice[0][0] == twice[1][0] and all(
+        torch.equal(a, b) for a, b in zip(twice[0][1], twice[1][1]))
+    out["stoch_loss"] = twice[0][0]
+    return out
+
+
 CASES = {"rules": rules, "driver": driver, "trainer": trainer,
          "model_layers": model_layers, "model_trainer": model_trainer,
          "cohort_rules": cohort_rules, "elastic_driver": elastic_driver,
          "elastic_trainer": elastic_trainer, "shard_ef": shard_ef,
          "shard_durability": shard_durability, "model_heads": model_heads,
          "model_durability": model_durability,
-         "model_elastic": model_elastic}
+         "model_elastic": model_elastic, "model_wires": model_wires}
 
 
 def main():
