@@ -26,7 +26,7 @@
    gossip modes, 3 rounds, against the single-process card run at
    n_nodes = 4, impl="roll" ((h0)'s bounds; exact consensus error 0,
    gossip's above 0). (s2b) granite-8b at its published widths cut to 2
-   layers, 4 ranks x 1 node, 2 x 512 tokens per node, R = 2, 2 rounds per
+   layers, 4 ranks x 1 node, 2 x 512 tokens per node, R = 2, one round per
    mode through the `StreamingDriver` (training takes the plain attention,
    which has a backward: the sharded path launches no flash kernel, and
    (s2b) requires 0). Prints the time per call,
@@ -53,9 +53,10 @@
    ranks, N = 8, their scheduled operators gathering the node rows; (v3)
    the reduced granite trainer, 4 ranks x 1 node, under `death:1@1-2`
    with and without rejoin sync, at (h0)'s bounds; (v4) granite-8b at its
-   published widths cut to 2 layers, (s2b)'s node on each of 4 ranks,
-   under `death:1@1-2` with rejoin sync, one round a superstep (one round
-   at full membership, one in the cohort, one rejoining): the dead node's rows
+   published widths cut to RANK_LAYERS layers, (s2b)'s node on each of
+   4 ranks,
+   under `death:1@0-1` with rejoin sync, one round a superstep (one round
+   in the cohort, one rejoining): the dead node's rows
    unchanged bit for bit while out, within one bf16 step of the donors'
    mean after the rejoin, the planned wire equal to the ranks' to the
    byte; prints s per round at full membership and in the cohort, bytes
@@ -74,7 +75,7 @@
    continued one superstep bit for bit; the published params within f32
    reassociation of the single process's extract; the governed PCA
    driver at HIGHD resumed on the ranks bit for bit (`krasulina_xi` on
-   every rank). (w1) granite-8b at its published widths cut to 2 layers,
+   every rank). (w1) granite-8b at its published widths cut to RANK_LAYERS,
    (s2b)'s node on each rank, int8 error feedback for two rounds: s per
    round, bytes staged a round equal to the plan, `ef_rel` in (0, 1),
    each peak under a quarter of the card, and the same rounds on one
@@ -99,8 +100,9 @@
    process (the single-process card driver, while (x1)'s ranks run): the
    restored state bit for bit, round 3 at (t1)'s bounds. (x1) sixteen
    ranks, the production mesh's model extent: granite-8b at its
-   published widths cut to 2 layers on 1 x 16 (each of its 8 KV heads
-   cut in two), 4 nodes, gossip R = 2, bf16 with f32 masters, 2 rounds:
+   published widths cut to RANK_LAYERS layers on 1 x 16 (each of its 8 KV
+   heads cut in two), 4 nodes, gossip R = 2, bf16 with f32 masters, one
+   round:
    round 1 within 1e-2 of one process's, the bytes at rest, messages and
    bytes staged by axis equal to the planner's trace, each peak within
    15% of the plan's; prints s per round and (x)'s seconds.
@@ -117,16 +119,23 @@
    rounds within 1e-5 of one process, its split checkpoint restored bit
    for bit; `gossip_mix` one launch a leaf a round where the rows are
    all local (1 x 4) or gathered (2 x 2's cohort rounds), none in 2 x 2's
-   full rounds. (y1) granite-8b at its published widths cut to 2 layers on
-   2 x 2 (bf16 with f32 masters, Adam, 4 nodes of 2 x 512 tokens, ring
-   R = 2) through the driver under `death:1@1-2` with the rejoin sync, 3
-   rounds (one in the 3-node cohort): round 1 within 1e-2 of one
-   process's, the messages and bytes staged a round by axis equal to the
-   planner's traces (full membership and the cohort), the rejoin sync's
-   equal to `dryrun.rejoin_collectives`; prints s a round at full
-   membership and in the cohort, the sync's s and bytes, each rank's peak,
-   its `gossip_mix` launches a round (one a leaf in the cohort round, none
-   in the full rounds, required) and (y)'s seconds.
+   full rounds. (y1) granite-8b at its published widths cut to RANK_LAYERS
+   layers on 2 x 2 (bf16 with f32 masters, Adam, 4 nodes of 2 x 512
+   tokens, ring R = 2) through the driver under `death:1@0-1` with the
+   rejoin sync, 2 rounds (the 3-node cohort's, then the rejoin): round 1
+   within 1e-2 of one process's, the messages and bytes staged a round by
+   axis equal to the planner's traces (full membership and the cohort),
+   the rejoin sync's equal to `dryrun.rejoin_collectives`; prints s a
+   round, the sync's s and bytes, each rank's peak, its `gossip_mix`
+   launches a round (one a leaf in the cohort round, none in the full
+   round, required) and (y)'s seconds.
+   (z0)-(z1), the Section VI wires over a model axis, and (A0)-(A1), MoE
+   experts, MLA's heads and early fusion's frontend_proj over it, each
+   after the one before: four ranks in one gloo group, against one
+   process on the card (the comments above `Z_WORLD` and `A_WORLD` say
+   what each runs and requires); (A1) is qwen2-moe-a2.7b at its
+   published widths, 2 layers, on 1 x 4, its messages by kind and its
+   peak held against the planner's trace.
 3. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
@@ -454,6 +463,10 @@ SEAMLESS_B, SEAMLESS_FRAMES, SEAMLESS_P = 4, 4096, 64
 # layers
 TRAIN_N, TRAIN_R, TRAIN_K, TRAIN_SUPERSTEPS = 4, 2, 2, 4
 TRAIN_B, TRAIN_S, TRAIN_LAYERS = 8, 512, 2
+# the rank phases' granite-8b at its published widths ((s2b), (t2), (v4),
+# (w1)-(w4), (x1), (y1), (z1)): depth cut to one layer, which the
+# script's time limit forces (ranks share the card's host for staging)
+RANK_LAYERS = 1
 # the last three families through the trainer (u): (u0)'s reduced forms,
 # arch: (layers, tokens a sample, frames a sample or 0); the full-width runs,
 # (label, arch, layers or 0 for all, nodes, wires, the ring's self weight or
@@ -588,6 +601,7 @@ def compare_bf16_attention(name, got, q, k, v, masks):
 # reductions cross between ranks staged through pinned host buffers
 S_WORLD, S_TIMEOUT = 5, 420
 S_LR = 1e-4  # (s2a): (h0)'s Adam rate
+S2B_ROUNDS = 1  # (s2b): a round a mode (its checks read any one)
 S1_SUPERSTEPS, S1_DT = 6, 1e-3  # (s1): 48 rounds on a fake clock
 # (s0): (label, ranks, n, d, R, topology self-weight, kind)
 S0_CASES = [
@@ -801,7 +815,7 @@ def s_rank(rank: int, store: str, workdir: str) -> int:
     dist.barrier()
     res["seconds"]["s2a"] = time.perf_counter() - t_phase
 
-    # (s2b) granite-8b at its published widths, 2 layers, 4 ranks x 1
+    # (s2b) granite-8b at its published widths, RANK_LAYERS, 4 ranks x 1
     # node, 2 x 512 tokens per node per round, through the StreamingDriver
     # with the trainer's builder (training takes the plain attention, which
     # has a backward: no flash launch)
@@ -809,7 +823,7 @@ def s_rank(rank: int, store: str, workdir: str) -> int:
     if 4 in meshes:
         mesh = meshes[4]
         cfg_h = dataclasses.replace(get_config("granite-8b"),
-                                    num_layers=TRAIN_LAYERS)
+                                    num_layers=RANK_LAYERS)
         data = MarkovTokenStream(cfg_h.vocab_size, seed=0)
 
         def sample(rng, n):
@@ -840,7 +854,7 @@ def s_rank(rank: int, store: str, workdir: str) -> int:
                                  engine=EngineConfig(superstep=1,
                                                      prefetch_depth=2,
                                                      replan_every=0)) as drv:
-                st, hist = drv.run(2)
+                st, hist = drv.run(S2B_ROUNDS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             train_launches = dict(ops.launches)
@@ -1123,7 +1137,7 @@ def shard_phases(dev) -> dict:
         runs = [rr["s2b"][mode] for rr in res[:4]]
         r0 = runs[0]
         finite = all(math.isfinite(x) for r in runs for x in r["losses"])
-        print(f"main (s2b) granite-8b full width, {TRAIN_LAYERS} layers, "
+        print(f"main (s2b) granite-8b full width, {RANK_LAYERS} layers, "
               f"{r0['n_params']} parameters per node, 4 ranks x 1 node, "
               f"2 x {TRAIN_S} tokens per node per round, ring R={TRAIN_R}, "
               f"{mode}: losses {json.dumps(r0['losses'])}, consensus_err "
@@ -1182,13 +1196,13 @@ def t_cfgs():
     """(t0)'s reduced granite-8b at d_model 512 (8 heads, 2 KV heads);
     (t1)'s, with 4 KV heads (one a rank on 1 x 4: (x0) runs the 2, each
     cut in two); (t2)'s granite-8b at its published widths cut to
-    TRAIN_LAYERS layers."""
+    RANK_LAYERS layers."""
     from repro_torch.configs import get_config, reduced
 
     granite = get_config("granite-8b")
     r = reduced(granite, d_model=512)
     return (r, dataclasses.replace(r, num_kv_heads=4),
-            dataclasses.replace(granite, num_layers=TRAIN_LAYERS))
+            dataclasses.replace(granite, num_layers=RANK_LAYERS))
 
 
 def t_tokens(cfg, rounds, batch, seq, seed):
@@ -1315,7 +1329,7 @@ def t_rank(rank: int, store: str, workdir: str) -> int:
     dist.barrier()
     res["seconds"]["t1"] = time.perf_counter() - t_phase
 
-    # (t2) granite-8b at its published widths, TRAIN_LAYERS layers, bf16
+    # (t2) granite-8b at its published widths, RANK_LAYERS layers, bf16
     # with f32 masters, 2 x TRAIN_S tokens a node, T2_ROUNDS rounds a mode
     t_phase = time.perf_counter()
     res["t2"] = {}
@@ -1550,7 +1564,7 @@ def model_axis_phases(dev) -> dict:
                            for r in runs]
         peaks = [r["peak_bytes"] for r in runs]
         peak_ratio = [plan["peak"] / p for p in peaks]
-        print(f"main (t2) granite-8b full width, {TRAIN_LAYERS} layers, bf16 "
+        print(f"main (t2) granite-8b full width, {RANK_LAYERS} layers, bf16 "
               f"+ f32 masters, adam, {TRAIN_N} nodes x 2 x {TRAIN_S} tokens, "
               f"ring R={TRAIN_R}, {mode} on "
               f"{'x'.join(map(str, T_MESHES[mode]))}: losses by rank "
@@ -1634,10 +1648,10 @@ V2_SCENARIOS = {"tv_rte/ratelimited/drift_pca": (8, False),
 V2_K = 4
 V3_SPEC, V3_SUPERSTEPS = "death:1@1-2", 3
 # (v4): node 1 out at superstep V4_LEAVE, back at V4_REJOIN, V4_K rounds a
-# superstep: the fewest full-width rounds its checks need (one at full
-# membership, one in the cohort, one rejoining; each costs ~10 s of staged
-# halo bytes), so that (v) stays under 120 s
-V4_LEAVE, V4_REJOIN, V4_K = 1, 2, 1
+# superstep: the fewest full-width rounds its checks need (one in the
+# cohort, one rejoining; each costs ~10 s of staged halo bytes; (s2b)
+# holds the full membership's wire at this width)
+V4_LEAVE, V4_REJOIN, V4_K = 0, 1, 1
 V4_SPEC, V4_SUPERSTEPS = f"death:1@{V4_LEAVE}-{V4_REJOIN}", V4_REJOIN + 1
 
 
@@ -1965,11 +1979,11 @@ def v_rank(rank: int, store: str, workdir: str) -> int:
     dist.barrier()
     res["seconds"]["v3"] = time.perf_counter() - t_phase
 
-    # (v4) granite-8b at its published widths, 2 layers, (s2b)'s node on
+    # (v4) granite-8b at its published widths, RANK_LAYERS, (s2b)'s node on
     # each of 4 ranks, under V4_SPEC with rejoin sync
     t_phase = time.perf_counter()
     cfg_h = dataclasses.replace(get_config("granite-8b"),
-                                num_layers=TRAIN_LAYERS)
+                                num_layers=RANK_LAYERS)
     run = s2_run(cfg_h, "gossip", "bfloat16")
     data = MarkovTokenStream(cfg_h.vocab_size, seed=0)
 
@@ -2013,13 +2027,13 @@ def v_rank(rank: int, store: str, workdir: str) -> int:
                                                   / step).max()),
                               "donors": donors}
 
+    # node 1's rows as it leaves (at the start), kept on the card (two
+    # 2.5 GB host copies would hold every rank up at the next exchange)
+    if rank == 1:
+        frozen["rows"] = [p.clone() for p in tree_leaves(st.params)]
+
     def log_fn(rec):
         k = rec["superstep"]
-        # node 1's rows as it leaves, kept on the card (two 2.5 GB host
-        # copies would hold every rank up at the next exchange)
-        if rank == 1 and k == V4_LEAVE - 1:
-            frozen["rows"] = [p.clone()
-                              for p in tree_leaves(drv.state.params)]
         if rank == 1 and k == V4_REJOIN - 1:  # the last superstep it is out
             v4["frozen_equal"] = all(
                 torch.equal(a, p) for a, p in
@@ -2325,8 +2339,9 @@ def elastic_shard_phases(dev) -> dict:
         for r in runs for s in r["per_superstep"]
         if s["superstep"] < V4_REJOIN)  # the rejoin adds the sync's sum
     routes = {label: runs[0]["per_superstep"][k]["log"]
-              for label, k in (("full", 0), ("cohort", V4_LEAVE))}
-    print(f"main (v4) granite-8b full width, {TRAIN_LAYERS} layers, 4 ranks "
+              for label, k in (("cohort", V4_LEAVE),
+                               ("rejoin", V4_REJOIN))}
+    print(f"main (v4) granite-8b full width, {RANK_LAYERS} layers, 4 ranks "
           f"x 1 node, 2 x {TRAIN_S} tokens a node, ring R={TRAIN_R}, "
           f"K={V4_K}, under {V4_SPEC} with rejoin sync: membership events "
           f"{json.dumps(runs[0]['events'])}; losses {json.dumps(losses)}; "
@@ -2702,14 +2717,14 @@ def w_rank(rank: int, store: str, workdir: str) -> int:
     dist.barrier()
     res["seconds"]["w0"] = time.perf_counter() - t_phase
 
-    # (w1) granite-8b at its published widths, 2 layers, (s2b)'s node on
+    # (w1) granite-8b at its published widths, RANK_LAYERS, (s2b)'s node on
     # each rank (bf16, Adam, R = 2), the int8 wire with error feedback,
     # one round; (w2) it publishes after it; (w3) the state it starts
     # from is snapshotted first, and its round is what the resumed round
     # must give
     t_phase = time.perf_counter()
     cfg_h = dataclasses.replace(get_config("granite-8b"),
-                                num_layers=TRAIN_LAYERS)
+                                num_layers=RANK_LAYERS)
     run = w_run(cfg_h, "int8", "bfloat16")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2896,7 +2911,7 @@ def durable_shard_phases(dev) -> dict:
     os.makedirs(work)
     cfg = reduced(get_config("granite-8b"))
     cfg_h = dataclasses.replace(get_config("granite-8b"),
-                                num_layers=TRAIN_LAYERS)
+                                num_layers=RANK_LAYERS)
     one_root = os.path.join(work, "w0_one")
     host = lambda tree: [p.to("cpu", copy=True) for p in tree_leaves(tree)]
     stream = make_pca_stream(HIGHD, device=dev)
@@ -3116,7 +3131,7 @@ def durable_shard_phases(dev) -> dict:
     within = float((d <= 1e-4).float().mean())
     loss_err = max(abs(s["loss"] - b) / abs(b) for r in w1
                    for s, b in zip(r["per_superstep"], one_l))
-    print(f"main (w1) granite-8b full width, {TRAIN_LAYERS} layers, 4 ranks x "
+    print(f"main (w1) granite-8b full width, {RANK_LAYERS} layers, 4 ranks x "
           f"1 node, bf16, Adam, ring R={TRAIN_R}, int8 wire with error "
           f"feedback, {W1_ROUNDS} rounds: s per round by rank {per_round}; "
           f"bytes staged a round by rank {staged}, planned "
@@ -3227,10 +3242,10 @@ def durable_shard_phases(dev) -> dict:
 # group, as (t)'s (`model_axis_heads_phases`, spawned after (w)'s ranks
 # have exited): (x0) X0_WORLD ranks on 1 x 4 and 2 x 2, reduced granite-8b
 # at d_model 512 in f32; (x1) X1_WORLD ranks on 1 x X1_WORLD, X1_ARCH at
-# its published widths cut to TRAIN_LAYERS layers: the production mesh's
+# its published widths cut to RANK_LAYERS layers: the production mesh's
 # model extent, which cuts each of granite-8b's 8 KV heads in two
 X0_WORLD, X_TIMEOUT = 4, 300
-X1_ARCH, X1_WORLD, X1_ROUNDS = "granite-8b", 16, 2
+X1_ARCH, X1_WORLD, X1_ROUNDS = "granite-8b", 16, 1
 # (x0)'s head cases on 1 x 4: name -> changes to reduced granite-8b at
 # d_model 512 (8 heads, 2 KV heads, head dim 64, d_ff 1024)
 X0_CASES = {
@@ -3247,13 +3262,13 @@ X0_STEPS, X0_BACK, X0_SEQ = 3, 2, 64
 
 def x_cfgs():
     """(x0)'s head cases by name (the first: 2 KV heads) and (x1)'s
-    X1_ARCH at its published widths cut to TRAIN_LAYERS layers."""
+    X1_ARCH at its published widths cut to RANK_LAYERS layers."""
     from repro_torch.configs import get_config, reduced
 
     r = reduced(get_config("granite-8b"), d_model=512)
     return ({name: dataclasses.replace(r, **changes)
              for name, changes in X0_CASES.items()},
-            dataclasses.replace(get_config(X1_ARCH), num_layers=TRAIN_LAYERS))
+            dataclasses.replace(get_config(X1_ARCH), num_layers=RANK_LAYERS))
 
 
 def x_driver(dev, mesh, run, state, *, root=None, resume=None):
@@ -3767,7 +3782,7 @@ def model_axis_heads_phases(dev) -> dict:
     peaks = [rr["peak_bytes"] for rr in res1]
     peak_ratio = [plan["peak"] / p for p in peaks]
     secs = [[round(rd["s"], 3) for rd in rr["rounds"]] for rr in res1]
-    print(f"main (x1) {X1_ARCH} published widths, {TRAIN_LAYERS} layers, "
+    print(f"main (x1) {X1_ARCH} published widths, {RANK_LAYERS} layers, "
           f"bf16 + f32 masters, adam, {TRAIN_N} nodes x 2 x {TRAIN_S} "
           f"tokens, ring R={TRAIN_R}, gossip on 1x{X1_WORLD} ({X1_WORLD} "
           f"ranks on the card): losses by rank 0 "
@@ -3827,6 +3842,9 @@ def model_axis_heads_phases(dev) -> dict:
 # granite-8b at d_model 512 in f32; (y1) on 2 x 2, (t2)'s granite-8b
 Y_WORLD, Y_TIMEOUT = 4, 300
 Y_SPEC, Y_ROUNDS, Y_SEQ = "death:1@1-2", 3, 32  # node 1 out for round 1
+# (y1): node 1 out for its first round, back (the rejoin sync) for its
+# second
+Y1_SPEC, Y1_ROUNDS = "death:1@0-1", 2
 # (y0)'s driver runs (label, mesh, fault spec, governor changes); "2x2
 # sync" takes a blocking snapshot a round and is resumed from the one
 # taken in the cohort, after round Y0_BACK
@@ -3854,13 +3872,13 @@ class YClock:
 
 def y_cfgs():
     """(y0)'s reduced granite-8b at d_model 512 (8 heads, 2 KV heads), its
-    vocab-513 form, and (y1)'s granite-8b cut to TRAIN_LAYERS layers."""
+    vocab-513 form, and (y1)'s granite-8b cut to RANK_LAYERS layers."""
     from repro_torch.configs import get_config, reduced
 
     r = reduced(get_config("granite-8b"), d_model=512)
     return (r, dataclasses.replace(r, vocab_size=Y0_VOCAB),
             dataclasses.replace(get_config("granite-8b"),
-                                num_layers=TRAIN_LAYERS))
+                                num_layers=RANK_LAYERS))
 
 
 def y_vocab_run(cfg):
@@ -4061,7 +4079,7 @@ def y0_rank(dev, workdir: str, meshes) -> dict:
 
 def y1_rank(dev, mesh) -> dict:
     """(y1) on one rank of 2 x 2: (t2)'s granite-8b through the driver
-    under Y_SPEC with the rejoin sync, Y_ROUNDS rounds: each round's loss,
+    under Y1_SPEC with the rejoin sync, Y1_ROUNDS rounds: each round's loss,
     s, messages and bytes staged by axis (the rejoin sync's apart, with
     its s), the peak and the launches."""
     import torch
@@ -4106,11 +4124,11 @@ def y1_rank(dev, mesh) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     rdist.reset_stats()
-    with y_driver(dev, mesh, run, st, Y_SPEC, {}, seq=TRAIN_S,
+    with y_driver(dev, mesh, run, st, Y1_SPEC, {}, seq=TRAIN_S,
                   batch=TRAIN_B, clock=time.perf_counter,
                   cls=Driver) as drv:
         del st
-        _, hist = drv.run(Y_ROUNDS, log_fn=log_fn)
+        _, hist = drv.run(Y1_ROUNDS, log_fn=log_fn)
         out["events"] = [(e["superstep"], e["to"].active_ids, e["plan"].B)
                          for e in drv.membership_events]
     torch.cuda.synchronize()
@@ -4170,9 +4188,9 @@ def model_axis_elastic_phases(dev) -> dict:
         vlosses.append(float(m["loss"]))
     ref_vocab = (vlosses, [p.cpu() for p in tree_leaves(st.params)])
     del st, step
-    # (y1)'s round 1 on one process: the mean of each node's loss at the
-    # initial parameters on the batch the driver deals first; and the B
-    # it deals the cohort
+    # (y1)'s round 1 on one process: the mean of each active node's loss
+    # at the initial parameters on the batch the driver deals first (to
+    # the cohort); and the B it deals the cohort
     dealt = {}
 
     def capture(state, *args):  # (state, batches) or (state, ids, batches)
@@ -4181,7 +4199,7 @@ def model_axis_elastic_phases(dev) -> dict:
 
     capture.takes_ids = True
     run1 = s2_run(cfg1, "gossip", "bfloat16")
-    with y_driver(dev, None, run1, None, Y_SPEC, {}, seq=TRAIN_S,
+    with y_driver(dev, None, run1, None, Y1_SPEC, {}, seq=TRAIN_S,
                   batch=TRAIN_B, clock=time.perf_counter,
                   cls=lambda *a, **kw: StreamingDriver(
                       *a, superstep_builder=lambda B, membership=None:
@@ -4195,7 +4213,7 @@ def model_axis_elastic_phases(dev) -> dict:
     with torch.no_grad():
         ref1 = float(torch.stack([registry.loss_fn(
             params, cfg1, {k: v[0, j] for k, v in dealt.items()})[0]
-            for j in range(TRAIN_N)]).mean())
+            for j in range(next(iter(dealt.values())).shape[1])]).mean())
     del params, dealt
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t_all
@@ -4344,9 +4362,9 @@ def model_axis_elastic_phases(dev) -> dict:
                   for k, rd in enumerate(g["rounds"])] for g in y1]
     want_mix = [y_mixed((2, 2), [rd["n_active"]], y1_leaves)
                 for rd in y1[0]["rounds"]]
-    print(f"main (y1) granite-8b published widths, {TRAIN_LAYERS} layers, "
+    print(f"main (y1) granite-8b published widths, {RANK_LAYERS} layers, "
           f"bf16 + f32 masters, adam, {TRAIN_N} nodes x 2 x {TRAIN_S} "
-          f"tokens, ring R={TRAIN_R}, gossip on 2x2 under {Y_SPEC} with the "
+          f"tokens, ring R={TRAIN_R}, gossip on 2x2 under {Y1_SPEC} with the "
           f"rejoin sync ({Y_WORLD} ranks on the card): events "
           f"{y1[0]['events']}; losses by rank 0 "
           f"{[round(rd['loss'], 5) for rd in y1[0]['rounds']]} (round 1 on "
@@ -4373,7 +4391,7 @@ def model_axis_elastic_phases(dev) -> dict:
               f"{per_round[rank]} (expected {want_mix})")
     require(all(math.isfinite(rd["loss"]) for g in y1
                 for rd in g["rounds"]), "(y1): losses not finite")
-    require([rd["n_active"] for rd in y1[0]["rounds"]] == [4, 3, 4],
+    require([rd["n_active"] for rd in y1[0]["rounds"]] == [3, 4],
             f"(y1): rounds at {[rd['n_active'] for rd in y1[0]['rounds']]}"
             f" nodes")
     require(loss_err <= T2_LOSS_TOL,
@@ -4408,8 +4426,8 @@ def model_axis_elastic_phases(dev) -> dict:
 # and wv's runs of 32 columns a rank straddle them, every other leaf holds
 # whole tiles; 32-column tiles: none straddles), "node" and "global", the
 # hierarchical mode on 2 x 1 x 2 and error feedback in a cohort; (z1):
-# granite-8b at its published widths, TRAIN_LAYERS layers, bf16, one round
-# of the int8 tile wire and of error feedback int8 on 1 x 4
+# granite-8b at its published widths, RANK_LAYERS layers, bf16, one round
+# of the int8 tile wire on 1 x 4
 Z_WORLD, Z_TIMEOUT = 4, 300
 Z_STEPS, Z_BLOCK = 2, 64
 Z_WIRES = {
@@ -4437,9 +4455,7 @@ Z0_RUNS = [("ef sign", (1, 4)), ("ef int8", (1, 4)), ("ef sign", (2, 2)),
            ("int8 global", (1, 4)), ("hier none", (2, 1, 2)),
            ("hier int8", (2, 1, 2))]
 Z1_WIRES = {"int8 tile": dict(quantization="int8", quant_stats="tile",
-                              quant_block_d=512),
-            "ef int8": dict(quantization="int8", error_feedback="grads",
-                            quant_stats="tile", quant_block_d=512)}
+                              quant_block_d=512)}
 
 
 def z_run(cfg, label, dtype="float32", one_process=False, wires=Z_WIRES):
@@ -4895,7 +4911,7 @@ def model_axis_wire_phases(dev) -> dict:
         sent = [g["log"].get("model slot all-reduce", [0, 0]) for g in got]
         planned = [plans[label, min(r, 1)] for r in range(Z_WORLD)]
         aligned, straddling = got[0]["routes"]
-        print(f"main (z1) granite-8b published widths, {TRAIN_LAYERS} "
+        print(f"main (z1) granite-8b published widths, {RANK_LAYERS} "
               f"layers, bf16, sgd, {TRAIN_N} nodes x 2 x {TRAIN_S} tokens, "
               f"{label} block_d 512 on 1x4 ({Z_WORLD} ranks on the card): "
               f"loss by rank {[round(g['loss'], 5) for g in got]} (one "
@@ -4945,6 +4961,559 @@ def model_axis_wire_phases(dev) -> dict:
     return {"launches": {k: v for k, v in by_kernel.items()
                          if k in ("gossip_mix", "gossip_mix_quant")},
             "rows": slot_rows}
+
+
+# ---------------------------------------------------------------------------
+# (A) MoE experts, MLA's heads and early fusion's frontend_proj over a model
+# axis: A_WORLD rank processes share the card in one gloo group
+# (`model_axis_experts_phases`, spawned after (z)'s ranks have exited),
+# (A0) then (A1) in one spawn. (A0): the cases of
+# tests/test_torch_model_axis_experts.py in f32, against one process on the
+# card: each case's loss, gradients and dropped assignments on 1 x 4; the
+# trainer, A0_STEPS SGD steps of 8 x A0_SEQ tokens at TRAIN_N nodes, gossip
+# on 1 x 4 and exact on 2 x 2 (whose one-process run takes the 2 data
+# ranks as 2 microbatches: each data rank routes its share in its own
+# dispatch groups, ROADMAP.md queue 3), the int8 tile wire on 1 x 4, and
+# the driver under Y_SPEC with the rejoin sync (Adam). (A1): A1_ARCH at
+# its published widths cut to A1_LAYERS layers, bf16 with f32 masters,
+# Adam, A1_NODES nodes at self weight U2_SELF_WEIGHT, ring R = TRAIN_R,
+# 2 x TRAIN_S tokens a node a round, gossip on 1 x 4 (15 experts and 4
+# heads a rank), A1_ROUNDS rounds
+A_WORLD, A_TIMEOUT = 4, 300
+A0_STEPS, A0_SEQ, A0_TOL = 3, 32, 1e-6
+# (A0)'s cases: name -> (arch, layers, changes to its reduced form at
+# d_model 512, changes to its MoE config)
+A0_CASES = {
+    "one expert a rank": ("qwen2-moe-a2.7b", 2, {}, {}),
+    "within experts": ("qwen2-moe-a2.7b", 2, {},
+                       {"num_experts": 6, "top_k": 2,
+                        "capacity_factor": 1.0}),
+    "mla 2 heads a rank": ("minicpm3-4b", 2, {}, {}),
+    "mla 1.5 heads a rank": ("minicpm3-4b", 2, {"num_heads": 6,
+                                               "num_kv_heads": 6}, {}),
+    "early fusion": ("llama4-scout-17b-a16e", 4, {"chunk_attn_window": 32},
+                     {}),
+}
+A0_DROPPING, A0_PATCHES = "within experts", 8
+A0_TRAINER = ("one expert a rank", "within experts", "mla 1.5 heads a rank")
+A0_MESHES = {"gossip": (1, 4), "exact": (2, 2)}
+A0_INT8 = dict(quantization="int8", quant_stats="tile", quant_block_d=64)
+A0_WIRED = "one expert a rank"
+A1_ARCH, A1_LAYERS, A1_NODES, A1_ROUNDS = "qwen2-moe-a2.7b", 2, 2, 3
+
+
+def a_cfg(name):
+    """(A0)'s config of case `name`."""
+    from repro_torch.configs import get_config, reduced
+
+    arch, layers, changes, moe_changes = A0_CASES[name]
+    cfg = dataclasses.replace(reduced(get_config(arch), layers=layers,
+                                      d_model=512), **changes)
+    if moe_changes:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, **moe_changes))
+    return cfg
+
+
+def a1_cfg():
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(A1_ARCH), num_layers=A1_LAYERS)
+
+
+def a_batches(cfg, n, batch, seq, seed):
+    """`n` batches of `batch` x `seq` tokens (numpy), with A0_PATCHES
+    patch embeddings a sequence for an early-fusion config."""
+    out = t_tokens(cfg, n, batch, seq, seed)
+    rng = np.random.default_rng(seed + 100)
+    for b in out:
+        if cfg.frontend_embed_dim:
+            b["patches"] = rng.standard_normal(
+                (batch, A0_PATCHES, cfg.frontend_embed_dim)).astype(
+                    np.float32)
+    return out
+
+
+def a_run(name, mode, wire=None, adam=False, one_process=False):
+    """(A0)'s f32 run of case `name`: ring R = TRAIN_R, SGD at the tests'
+    rate (Adam at 1e-3 with `adam`). On one process the exact mode takes
+    (A0)'s 2 data ranks as 2 microbatches, and a quantized wire mixes
+    unpacked, as "auto" resolves over a model axis."""
+    from repro_torch.configs.base import SHAPES, AveragingConfig, RunConfig
+
+    wire = dict(wire or {})
+    if one_process and wire:
+        wire["packed"] = False
+    return RunConfig(model=a_cfg(name), shape=SHAPES["train_4k"],
+                     averaging=AveragingConfig(mode, TRAIN_R, "ring", **wire),
+                     optimizer="adam" if adam else "sgd",
+                     learning_rate=1e-3 if adam else 0.5,
+                     param_dtype="float32",
+                     microbatches=2 if one_process and mode == "exact" else 1)
+
+
+def a1_run():
+    """(A1)'s run: (u2)'s ring between 2 nodes, bf16 with f32 masters."""
+    from repro_torch.configs.base import SHAPES, AveragingConfig, RunConfig
+
+    return RunConfig(model=a1_cfg(), shape=SHAPES["train_4k"],
+                     averaging=AveragingConfig(
+                         "gossip", TRAIN_R, "ring",
+                         self_weight=U2_SELF_WEIGHT),
+                     optimizer="adam", learning_rate=3e-4,
+                     param_dtype="bfloat16", master_weights=True)
+
+
+def a_state(dev, run, mesh=None):
+    """`run`'s initial state (seed 0, drawn on the host) on the card: over
+    `mesh`, this rank's blocks (ZeRO-1 in the exact mode, its node rows'
+    model shards otherwise); TRAIN_N nodes in the decentralized mode."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import map_tensors
+    from repro_torch.train import trainer
+
+    st = trainer.init_state(run, torch.Generator().manual_seed(0), mesh)
+    if run.averaging.mode != "exact":
+        st = trainer.replicate_for_nodes(st, rdist.n_local(mesh, TRAIN_N))
+    return map_tensors(lambda t: t.to(dev), st)
+
+
+def a_params(state, run, mesh):
+    """The parameters of a (A0) rank's state gathered over the model axis
+    (and the exact mode's data axis) on the host, on model index 0 (None
+    elsewhere): every node's rows on 1 x 4, the whole leaves on 2 x 2."""
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import tree_leaves
+
+    if run.averaging.mode == "exact":
+        whole = x_gathered(state, run, mesh).params
+        return (None if rdist.model_index(mesh)
+                else [p for p in tree_leaves(whole)])
+    return y_gathered(state, run, mesh)
+
+
+def a_rank(rank: int, store: str, workdir: str) -> int:
+    """One rank of (A0) and (A1): `python3 chip_smoke.py --a-rank RANK
+    STORE DIR`. Saves its results to DIR/a_rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=A_WORLD,
+                            timeout=datetime.timedelta(seconds=240))
+    meshes = {shape: make_host_mesh(model=shape[1])
+              for shape in ((1, 4), (2, 2))}
+    res = {"seconds": {}}
+    t0 = time.perf_counter()
+    res["A0"] = a0_rank(dev, meshes)
+    dist.barrier()
+    res["seconds"]["A0"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["A1"] = a1_rank(dev, meshes[(1, 4)])
+    dist.barrier()
+    res["seconds"]["A1"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(workdir, f"a_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def a_loss_grads(dev, cfg, mesh=None):
+    """Case `cfg`'s loss and gradients (remat on) from seed 0's f32
+    parameters, over `mesh`'s model axis (the gradients gathered whole,
+    on model index 0) or on one process, on the card; and its MoE layers'
+    dropped assignments in a forward without remat."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import map_tensors, tree_leaves, tree_map
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.models import moe, registry
+    from repro_torch.models.common import mesh_rules
+    from repro_torch.train import trainer
+
+    params = registry.init_params(torch.Generator().manual_seed(0), cfg,
+                                  torch.float32)
+    if mesh is not None:
+        spec = trainer.rest_specs(cfg, mesh, exact=False)
+        params = shlib.shard_tree(params, spec, mesh)
+    params = map_tensors(lambda t: t.to(dev), params)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in a_batches(cfg, 1, 8, 64, 5)[0].items()}
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(live)
+    tree = tree_map(lambda _: next(it), params)
+    rdist.reset_stats()
+    with mesh_rules(mesh):
+        loss, _ = registry.loss_fn(tree, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, live)
+        log = z_log()
+        drops = []
+        if cfg.moe is not None:
+            with torch.no_grad(), moe.count_drops() as counts:
+                registry.loss_fn(params, cfg, batch, remat=False)
+            drops = [int(c) for c in counts]
+    if mesh is not None:
+        it = iter(grads)
+        grads = tree_leaves(shlib.gather_tree(tree_map(lambda _: next(it),
+                                                       params), spec, mesh))
+        if rdist.model_index(mesh):
+            grads = None
+    return {"loss": float(loss.detach()), "drops": drops, "log": log,
+            "grads": None if grads is None else [g.cpu() for g in grads]}
+
+
+def a0_rank(dev, meshes) -> dict:
+    """(A0) on one rank: each case's loss, gradients and drops on 1 x 4;
+    each trainer run's losses, launches and gathered parameters; the
+    driver run's events, losses and gathered parameters."""
+    from repro_torch import dist as rdist
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+
+    m14 = meshes[(1, 4)]
+    out = {"layers": {name: a_loss_grads(dev, a_cfg(name), m14)
+                      for name in A0_CASES}, "runs": {}}
+    runs = [(name, mode, None) for name in A0_TRAINER for mode in A0_MESHES]
+    runs.append((A0_WIRED, "gossip", "int8"))
+    for name, mode, wire in runs:
+        mesh = meshes[A0_MESHES[mode]]
+        run = a_run(name, mode, A0_INT8 if wire else None)
+        st = a_state(dev, run, mesh)
+        step = trainer.build_train_step(run, mesh, n_nodes=TRAIN_N,
+                                        device=dev)
+        ops.reset_launches()
+        losses = []
+        for b in a_batches(run.model, A0_STEPS, 8, A0_SEQ, 11):
+            st, m = step(st, x_batch(dev, b, mesh, mode))
+            losses.append(float(m["loss"]))
+        out["runs"][name, mode, wire] = {
+            "losses": losses, "launches": dict(ops.launches),
+            "params": a_params(st, run, mesh)}
+        del st, step
+    run = a_run(A0_WIRED, "gossip", adam=True)
+    ops.reset_launches()
+    with y_driver(dev, m14, run, a_state(dev, run, m14), Y_SPEC, {}) as drv:
+        st, hist = drv.run(Y_ROUNDS)
+        out["driver"] = {"events": [(e["superstep"], e["to"].active_ids)
+                                    for e in drv.membership_events],
+                         "losses": [r["metrics"]["loss"] for r in hist],
+                         "launches": dict(ops.launches),
+                         "params": y_gathered(st, run, m14)}
+    return out
+
+
+def a1_rank(dev, mesh) -> dict:
+    """(A1) on one rank of 1 x 4, A1_ROUNDS rounds: each round's loss, s
+    and the model axis's messages by kind; the bytes at rest, the peak and
+    the launches."""
+    import torch
+
+    from repro_torch import dist as rdist
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.kernels import ops
+    from repro_torch.train import trainer
+
+    run = a1_run()
+    cfg = run.model
+    st = trainer.replicate_for_nodes(trainer.init_state(
+        run, torch.Generator(device=dev).manual_seed(0), mesh),
+        rdist.n_local(mesh, A1_NODES))
+    opt = st.opt
+    at_rest = sum(t.numel() * t.element_size()
+                  for tree in (st.params, opt.m, opt.v, opt.master)
+                  for t in tree_leaves(tree))
+    del opt
+    step = trainer.build_train_step(run, mesh, n_nodes=A1_NODES, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    rounds = []
+    for b in t_tokens(cfg, A1_ROUNDS, 2 * A1_NODES, TRAIN_S, 2):
+        b = {k: torch.from_numpy(v)[None] for k, v in b.items()}
+        b = {k: v[0].to(dev) for k, v in trainer.make_node_batch(
+            b, A1_NODES, axis=1).items()}
+        rdist.reset_stats()
+        t0 = time.perf_counter()
+        st, m = step(st, b)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        rounds.append({"s": time.perf_counter() - t0, "loss": loss,
+                       "stats": dict(rdist.stats), "log": z_log()})
+    return {"rounds": rounds, "at_rest": at_rest,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "launches": dict(ops.launches)}
+
+
+def a_one_process(dev) -> dict:
+    """(A0)'s one-process references on the card: each case's loss,
+    gradients and drops; each trainer run's losses and final parameters
+    (every node's); the driver run's events, losses and parameters."""
+    import torch
+
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.train import trainer
+
+    ref = {"layers": {name: a_loss_grads(dev, a_cfg(name))
+                      for name in A0_CASES}, "runs": {}}
+    runs = [(name, mode, None) for name in A0_TRAINER for mode in A0_MESHES]
+    runs.append((A0_WIRED, "gossip", "int8"))
+    for name, mode, wire in runs:
+        run = a_run(name, mode, A0_INT8 if wire else None, one_process=True)
+        st = a_state(dev, run)
+        step = trainer.build_train_step(run, None, n_nodes=TRAIN_N,
+                                        device=dev)
+        losses = []
+        for b in a_batches(run.model, A0_STEPS, 8, A0_SEQ, 11):
+            if mode != "exact":
+                b = trainer.make_node_batch(b, TRAIN_N)
+            st, m = step(st, {k: torch.from_numpy(v).to(dev)
+                              for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        ref["runs"][name, mode, wire] = {
+            "losses": losses,
+            "params": [p.cpu() for p in tree_leaves(st.params)]}
+        del st, step
+    run = a_run(A0_WIRED, "gossip", adam=True)
+    with y_driver(dev, None, run, a_state(dev, run), Y_SPEC, {}) as drv:
+        st, hist = drv.run(Y_ROUNDS)
+        ref["driver"] = {"events": [(e["superstep"], e["to"].active_ids)
+                                    for e in drv.membership_events],
+                         "losses": [r["metrics"]["loss"] for r in hist],
+                         "params": [p.cpu() for p in tree_leaves(st.params)]}
+    del st
+    torch.cuda.empty_cache()
+    return ref
+
+
+def a_agree(got, want) -> tuple:
+    """(share of entries within 1e-5 rel + 1e-5, share within 1e-4 rel +
+    1e-4, max abs err) of two lists of leaves: (A0)'s parameter bounds."""
+    import torch
+
+    g = torch.cat([a.float().ravel() for a in got])
+    w = torch.cat([b.float().ravel() for b in want])
+    d = (g - w).abs()
+    return (float((d <= 1e-5 + 1e-5 * w.abs()).double().mean()),
+            float((d <= 1e-4 + 1e-4 * w.abs()).double().mean()),
+            float(d.max()))
+
+
+def model_axis_experts_phases(dev) -> dict:
+    """(A0)-(A1) on the card: the one-process references first ((A0)'s,
+    and (A1)'s round-1 loss, each freed), then A_WORLD rank processes
+    (`a_rank`), (A1)'s plan traced while they run. Prints each check and
+    (A)'s seconds; returns the ranks' launches by kernel and phase."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.models import registry
+    from repro_torch.train import trainer
+
+    t_all = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "model_axis_experts")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # (A1)'s round 1 on one process: the mean of each node's loss at the
+    # initial parameters, freed before the ranks start
+    run1 = a1_run()
+    cfg1 = run1.model
+    params = registry.init_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg1, torch.bfloat16)
+    with torch.no_grad():
+        b = {k: torch.from_numpy(v).to(dev) for k, v in
+             t_tokens(cfg1, 1, 2 * A1_NODES, TRAIN_S, 2)[0].items()}
+        nodes = trainer.make_node_batch(b, A1_NODES)
+        ref1 = float(torch.stack([registry.loss_fn(
+            params, cfg1, {k: v[j] for k, v in nodes.items()})[0]
+            for j in range(A1_NODES)]).mean())
+    n_leaves = len(tree_leaves(params))
+    del params, b, nodes
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_all
+    store = os.path.join(work, "store")
+    procs = []
+    for r in range(A_WORLD):
+        log = open(os.path.join(work, f"a_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--a-rank", str(r),
+             store, work], stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + A_TIMEOUT
+    # (A0)'s one-process references and (A1)'s plan, while the ranks run
+    ref0 = a_one_process(dev)
+    amesh = abstract_mesh((1, 4), ("data", "model"))
+    rec = dryrun.plan(A1_ARCH, "train_4k", amesh, averaging="gossip",
+                      rounds=TRAIN_R, master_weights=True, cfg=cfg1,
+                      shape=ShapeConfig("(A1)", TRAIN_S, 2 * A1_NODES,
+                                        "train"),
+                      n_nodes=A1_NODES, microbatches=1,
+                      wire=dict(self_weight=U2_SELF_WEIGHT))
+    model = rec["collectives_model"]
+    count = lambda coll: sum(v for k, v in coll.items()
+                             if k.endswith(".count"))
+    plan = {"peak": rec["memory"]["peak_gib"] * 2 ** 30,
+            "kinds": {k: [int(model[k + ".count"]), int(2 * model[k])]
+                      for k in model if not k.endswith(".count")},
+            "data_messages": count(rec["collectives"]) - count(model),
+            "unsplit": rec["temp_unsplit_over_model"],
+            "refused": rec.get("model_axis_refused")}
+    t_plan = time.perf_counter() - t_all - t_ref
+    res = x_join("a", procs, work, deadline)
+    t_ranks = time.perf_counter() - t_all - t_ref
+
+    fails = []
+    # (A0) (a): each case against one process
+    for name in A0_CASES:
+        want = ref0["layers"][name]
+        got = [rr["A0"]["layers"][name] for rr in res]
+        loss_err = max(abs(g["loss"] - want["loss"]) / abs(want["loss"])
+                       for g in got)
+        within5, within4, err = a_agree(got[0]["grads"], want["grads"])
+        drops = [g["drops"] for g in got]
+        print(f"main (A0) [{card}] {name} (reduced {A0_CASES[name][0]} d_model 512 "
+              f"f32) on 1x4: loss {got[0]['loss']:.7f} (one process "
+              f"{want['loss']:.7f}, max rel err over the ranks "
+              f"{loss_err:.2e}, limit {A0_TOL}); {len(want['grads'])} "
+              f"gradients within 1e-5 {within5:.6f} (limit >= 0.999), "
+              f"within 1e-4 {within4:.6f} (limit 1.0), max_abs_err "
+              f"{err:.3e}; dropped assignments by layer, rank 0 "
+              f"{drops[0]}, one process {want['drops']}; rank 0's "
+              f"model-axis [messages, bytes] by kind "
+              f"{json.dumps(got[0]['log'])}")
+        if loss_err > A0_TOL or within5 < 0.999 or within4 < 1.0:
+            fails.append((name, "one process"))
+        if any(d != want["drops"] for d in drops) or (
+                name == A0_DROPPING and not sum(want["drops"])):
+            fails.append((name, "dropped assignments"))
+    # (A0) (b): each trainer run, and the driver, against one process
+    for key, want in list(ref0["runs"].items()) + [
+            ("driver", ref0["driver"])]:
+        got = ([rr["A0"]["driver"] for rr in res] if key == "driver"
+               else [rr["A0"]["runs"][key] for rr in res])
+        loss_err = max(abs(a - b) / abs(b) for g in got
+                       for a, b in zip(g["losses"], want["losses"],
+                                       strict=True))
+        parts = [g["params"] for g in got if g["params"] is not None]
+        within5, within4, err = a_agree(
+            [p for part in parts for p in part],
+            [w for _ in parts for w in want["params"]])
+        launches = [g["launches"].get("gossip_mix", 0) for g in got]
+        quant = [g["launches"].get("gossip_mix_quant", 0) for g in got]
+        label = (f"driver under {Y_SPEC} with the rejoin sync, adam, "
+                 f"{A0_WIRED}" if key == "driver" else
+                 f"{key[0]}, {key[1]}" + (f", {key[2]} tile wire"
+                                          if key[2] else ""))
+        # the share within 1e-5 and the largest gap: SGD on the exact
+        # wire at (A0)'s bounds; a quantized wire at the tests' quantized
+        # ones (a level that float noise moves moves its entry by the
+        # level); Adam at tests/test_torch_model_axis_elastic.py's (it
+        # turns the sums' reassociation into O(lr) moves)
+        frac, bound = ((0.999, 6 * a_run(A0_WIRED, "gossip", adam=True)
+                        .learning_rate) if key == "driver" else
+                       (0.99, 1e-2) if key[2] else (0.999, None))
+        # the quantized wire's losses at (z0)'s and the tests' bound
+        loss_tol = 1e-4 if key != "driver" and key[2] else A0_TOL
+        shape = A0_MESHES[key[1]] if key != "driver" else (1, 4)
+        events = (f"events {got[0]['events']} (one process "
+                  f"{want['events']}); " if key == "driver" else "")
+        limits = (f"limit >= {frac}), within 1e-4 {within4:.6f} (limit "
+                  f"1.0)" if bound is None else
+                  f"limit >= {frac}), max_abs_err limit {bound:g}")
+        print(f"main (A0) [{card}] {label} on {shape[0]}x{shape[1]}: {events}losses "
+              f"{json.dumps([round(x, 7) for x in got[0]['losses']])}, max "
+              f"rel err {loss_err:.2e} (limit {loss_tol}); parameters within "
+              f"1e-5 {within5:.6f} ({limits}, max_abs_err {err:.3e}; "
+              f"gossip_mix launches by rank {launches}, gossip_mix_quant "
+              f"{quant}")
+        if loss_err > loss_tol or within5 < frac or (
+                within4 < 1.0 if bound is None else err > bound):
+            fails.append((label, "one process"))
+        if key == "driver" and got[0]["events"] != want["events"]:
+            fails.append((label, "events"))
+        if shape == (1, 4) and not (key != "driver" and key[2]) and not all(
+                n > 0 for n in launches):
+            fails.append((label, "gossip_mix did not launch"))
+        if key != "driver" and key[2] and not all(n > 0 for n in quant):
+            fails.append((label, "gossip_mix_quant did not launch"))
+    # (A1)
+    a1 = [rr["A1"] for rr in res]
+    first = [g["rounds"][0]["loss"] for g in a1]
+    loss_err = max(abs(x - ref1) / abs(ref1) for x in first)
+    peaks = [g["peak_bytes"] for g in a1]
+    peak_ratio = [plan["peak"] / p for p in peaks]
+    secs = [[round(rd["s"], 3) for rd in g["rounds"]] for g in a1]
+    kinds = [[{k.split(" ", 1)[1]: v for k, v in rd["log"].items()
+               if k.startswith("model ")} for rd in g["rounds"]] for g in a1]
+    data = [[rd["stats"]["data_messages"] for rd in g["rounds"]] for g in a1]
+    launches = [g["launches"].get("gossip_mix", 0) for g in a1]
+    want_mix = n_leaves * A1_ROUNDS
+    print(f"main (A1) [{card}] {A1_ARCH} published widths, {A1_LAYERS} layers, bf16 "
+          f"+ f32 masters, adam, {A1_NODES} nodes x 2 x {TRAIN_S} tokens, "
+          f"ring R={TRAIN_R} self weight {U2_SELF_WEIGHT}, gossip on 1x4 "
+          f"({A_WORLD} ranks on the card): losses by rank 0 "
+          f"{[round(rd['loss'], 5) for rd in a1[0]['rounds']]} (round 1 on "
+          f"one process {ref1:.5f}, max rel err over the ranks "
+          f"{loss_err:.2e}, limit {T2_LOSS_TOL}); s per round by rank "
+          f"{secs}; model-axis [messages, wire bytes] by kind, rank 0 round "
+          f"1 {json.dumps(kinds[0][0])} (planned {json.dumps(plan['kinds'])}"
+          f"); data-axis messages {sorted(set(x for xs in data for x in xs))}"
+          f"; bytes at rest by rank {sorted(set(g['at_rest'] for g in a1))};"
+          f" peak memory by rank GB {[round(p / 1e9, 3) for p in peaks]}, "
+          f"plan {plan['peak'] / 1e9:.3f} GB, plan over measured "
+          f"{min(peak_ratio):.4f}-{max(peak_ratio):.4f} (limit within "
+          f"{P1_BOUND}); gossip_mix launches by rank {launches} (by design "
+          f"{want_mix}: one a leaf a round)")
+    if plan["refused"] is not None or plan["unsplit"]:
+        fails.append(("(A1)", f"the plan kept the model axis unsplit: "
+                              f"{plan['refused']}"))
+    if not all(math.isfinite(rd["loss"]) for g in a1 for rd in g["rounds"]):
+        fails.append(("(A1)", "losses not finite"))
+    if loss_err > T2_LOSS_TOL:
+        fails.append(("(A1)", "round 1's loss disagrees with one process"))
+    if any(k != plan["kinds"] for ks in kinds for k in ks):
+        fails.append(("(A1)", "model-axis messages differ from the plan"))
+    if any(x for xs in data for x in xs) or plan["data_messages"]:
+        fails.append(("(A1)", "a data-axis message on 1 x 4"))
+    if not all(abs(x - 1) <= P1_BOUND for x in peak_ratio):
+        fails.append(("(A1)", "a rank's peak is not within the plan's bound"))
+    if any(n != want_mix for n in launches):
+        fails.append(("(A1)", "gossip_mix launches"))
+    by_kernel = {}
+    for name in ("gossip_mix", "gossip_mix_quant", "quant_slot_stats",
+                 "quant_slot_round"):
+        by_kernel[name] = {
+            "A0": [sum(g["launches"].get(name, 0)
+                       for g in list(rr["A0"]["runs"].values())
+                       + [rr["A0"]["driver"]]) for rr in res],
+            "A1": [g["launches"].get(name, 0) for g in a1]}
+    print(f"main (A) [{card}] seconds: (A1)'s one-process round {t_ref:.1f}, (A0)'s "
+          f"one-process references and (A1)'s plan {t_plan:.1f} while the "
+          f"ranks ran, the ranks {t_ranks:.1f} (rank "
+          f"0: (A0) {res[0]['seconds']['A0']:.1f}, (A1) "
+          f"{res[0]['seconds']['A1']:.1f}), all "
+          f"{time.perf_counter() - t_all:.1f} (target < 80)")
+    require(not fails, f"(A): {fails}")
+    shutil.rmtree(work, ignore_errors=True)
+    return {k: v for k, v in by_kernel.items() if any(map(sum, v.values()))}
 
 
 def main() -> int:
@@ -5031,6 +5600,9 @@ def main() -> int:
     # (z): the Section VI wires over a model axis, rank processes sharing
     # the card
     z_out = model_axis_wire_phases(dev)
+    # (A): MoE experts, MLA's heads and early fusion's frontend_proj over a
+    # model axis, rank processes sharing the card
+    a_launches = model_axis_experts_phases(dev)
     # what phase (p) holds its plans against: peaks, card times
     p_measured = {}
 
@@ -7775,6 +8347,7 @@ def main() -> int:
     one = dryrun.parse_mesh("1x1")
     cfg_p = dataclasses.replace(get_config("granite-8b"),
                                 num_layers=TRAIN_LAYERS)
+    cfg_s = dataclasses.replace(cfg_p, num_layers=RANK_LAYERS)  # (s2b)'s
     p_shapes = {"(h1)": ShapeConfig("(h1)", TRAIN_S, TRAIN_B, "train")}
     plans = {"(h1)": dryrun.plan(
         "granite-8b", "train_4k", one, averaging="gossip", rounds=TRAIN_R,
@@ -7810,7 +8383,7 @@ def main() -> int:
                 f"measured")
     for mode in ("exact", "gossip"):
         rec = dryrun.plan("granite-8b", "train_4k", dryrun.parse_mesh("4x1"),
-                          averaging=mode, rounds=TRAIN_R, cfg=cfg_p,
+                          averaging=mode, rounds=TRAIN_R, cfg=cfg_s,
                           shape=ShapeConfig("(s2b)", TRAIN_S, 2 * 4, "train"),
                           master_weights=True)
         planned, got = rec["staged_bytes"], s2b_staged[mode]
@@ -8195,11 +8768,14 @@ def main() -> int:
         key = ("launches_by_kernel" if row["name"] == "flash_attention"
                else "launches_by_nodes")
         row.setdefault(key, {})["s"] = by_phase
-    # the ranks' launches of (t1)-(t2), (v1)-(v2), (w0)-(w2), (x0)-(x1)
-    # and (y0)-(y1), by phase and rank, under "t", "v", "w", "x" and "y"
+    # the ranks' launches of (t1)-(t2), (v1)-(v2), (w0)-(w2), (x0)-(x1),
+    # (y0)-(y1), (z0)-(z1) and (A0)-(A1), by phase and rank, under "t",
+    # "v", "w", "x", "y", "z" and "A"
+    rows += z_out["rows"]
     for key, phases in (("t", t_launches), ("v", v_launches),
                         ("w", w_launches), ("x", x_launches),
-                        ("y", y_launches), ("z", z_out["launches"])):
+                        ("y", y_launches), ("z", z_out["launches"]),
+                        ("A", a_launches)):
         for row in rows:
             by_phase = phases.get(row["name"])
             if by_phase is not None:
@@ -8212,7 +8788,6 @@ def main() -> int:
                           wbar, stream.cov, stream.lambda1)),
                       ("sin2_error", lambda: sin2(wbar))):
         print(f"time metric {label} d={HIGHD.dim}: {time_ms(fn):.5f} ms")
-    rows += z_out["rows"]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           f"start of the build")
     print(json.dumps({"kernels": rows}))
@@ -8238,4 +8813,6 @@ if __name__ == "__main__":
         sys.exit(y_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--z-rank"]:
         sys.exit(z_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--a-rank"]:
+        sys.exit(a_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

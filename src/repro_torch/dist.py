@@ -25,10 +25,10 @@ P above 1 splits the node shards two ways too: the D node shards of one
 pod form its *pod group*, and the P node shards of one data index its
 *lane group* (`lane_mesh`), which the hierarchical mode's
 reduce-scatter, all-gather and gossip between the pods use; their
-messages count as node-axis ones. The LM trainer's dense family
-executes a model axis (`train/trainer.py`, `models/common.py`);
-`check_mesh` refuses one on the paths that do not (the PCA and convex
-drivers).
+messages count as node-axis ones. The LM trainer's decoder-only
+families but the SSD and RG-LRU ones execute a model axis
+(`train/trainer.py`, `models/common.py`); `check_mesh` refuses one on
+the paths that do not (the PCA and convex drivers).
 """
 from __future__ import annotations
 
@@ -75,16 +75,15 @@ class Mesh:
 
 def check_mesh(mesh: Mesh, what: str) -> None:
     """Refuse a model axis of extent above 1 on `what`, a path that does
-    not execute one: only the LM trainer's dense family does (tensor
-    parallelism and ZeRO-1, `train/trainer.py`); the PCA and convex
-    paths hold no leaf that the reference's placements split over it."""
+    not execute one: only the LM trainer does (tensor parallelism and
+    ZeRO-1, `train/trainer.py`); the PCA and convex paths hold no leaf
+    that the reference's placements split over it."""
     model = model_extent(mesh)
     if model > 1:
         raise NotImplementedError(
             f"a model axis of extent {model} on {what}: planned, not "
             f"executed there; the sharded model layouts execute in the LM "
-            f"trainer's dense family only (ROADMAP.md, the model axis's "
-            f"deviations)")
+            f"trainer only (ROADMAP.md, the model axis's deviations)")
 
 
 def model_extent(mesh) -> int:

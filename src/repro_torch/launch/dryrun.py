@@ -27,9 +27,10 @@ decentralized mode, and the batch and cache split over the data axes. The
 argument bytes are those of the planned placements (ZeRO-1 and the model
 axis included).
 
-On a model axis of extent above 1 the train step of the dense family is
-traced as each rank runs it (`train/trainer.py`), at any extent that
-divides the vocab (the production 16 x 16 included): the rank's blocks of
+On a model axis of extent above 1 the train step of every family the
+trainer executes there (the dense, MoE, MLA and early-fusion decoders) is
+traced as each rank runs it (`train/trainer.py`), at any extent (the
+production 16 x 16 included): the rank's blocks of
 the state at rest (ZeRO-1 in the exact mode, the model shards of its node
 rows in the decentralized one), its tensor-parallel layers (with the
 pieces of the heads a split cuts), and every message of both axes through

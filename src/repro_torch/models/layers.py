@@ -292,6 +292,17 @@ def _head_split(cfg: ModelConfig, mesh, p: Params) -> Optional[_Heads]:
                   if _is_block(p["wk"], -1, KH * hd) else 0)
 
 
+def _take_heads(cols: torch.Tensor, g: int, lo: int, hi: int,
+                hd: int) -> torch.Tensor:
+    """Heads [lo, hi) [B, S, hi - lo, hd] of the projection whose [B, S, c]
+    columns the rank holds, its block of g model indices holding them
+    whole (`gather_from_model`)."""
+    start = model_index(current_mesh()) // g * g * cols.shape[-1]
+    full = gather_from_model(cols, g)
+    return full[..., lo * hd - start:hi * hd - start].reshape(
+        *cols.shape[:2], -1, hd)
+
+
 def _split_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
                heads: _Heads) -> Tuple[torch.Tensor, ...]:
     """q [B, S, h1 - h0, hd] of the rank's heads and k, v [B, S, ., hd] of
@@ -304,22 +315,12 @@ def _split_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
     per head."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    i = model_index(current_mesh())
     xs = copy_to_model(x)
-
-    def take(cols: torch.Tensor, g: int, lo: int, hi: int) -> torch.Tensor:
-        """Heads [lo, hi) of the projection whose [B, S, w] columns the
-        rank holds, its block of g ranks holding them."""
-        start = i // g * g * cols.shape[-1]  # the block's first column
-        full = gather_from_model(cols, g)
-        return full[..., lo * hd - start:hi * hd - start].reshape(B, S, -1,
-                                                                  hd)
-
     (h0, h1), (k0, k1) = heads.q, heads.kv
-    q = take(xs @ p["wq"], heads.g_q, h0, h1)
+    q = _take_heads(xs @ p["wq"], heads.g_q, h0, h1, hd)
     if heads.g_kv:
-        k = take(xs @ p["wk"], heads.g_kv, k0, k1)
-        v = take(xs @ p["wv"], heads.g_kv, k0, k1)
+        k = _take_heads(xs @ p["wk"], heads.g_kv, k0, k1, hd)
+        v = _take_heads(xs @ p["wv"], heads.g_kv, k0, k1, hd)
     else:
         whole = lambda w: copy_to_model(x @ w)[..., k0 * hd:k1 * hd].reshape(
             B, S, -1, hd)
@@ -540,8 +541,25 @@ def apply_mla(
     B, S, _ = x.shape
     H = cfg.num_heads
     qk_n, qk_r, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    split = current_mesh() is not None and any(
+        _is_block(p[k], dim, H * w) for k, dim, w in (
+            ("wq_b", -1, qk_n + qk_r), ("wkv_b", -1, qk_n + dv),
+            ("wo", 0, dv)))
+    if split and cache is not None:
+        raise NotImplementedError(
+            "MLA with a cache over a model axis that splits its heads: "
+            "serving on a model axis (ROADMAP.md queue 1 item 7)")
+    rows = (0, H * dv)
+    if split and _is_block(p["wo"], 0, H * dv):
+        width = p["wo"].shape[0]
+        rows = (model_index(current_mesh()) * width,
+                (model_index(current_mesh()) + 1) * width)
+    h0, h1 = rows[0] // dv, -(-rows[1] // dv)  # the heads the rank runs
+    proj = (lambda inp, w, hd: _mla_heads(inp, w, hd, H, h0, h1)) \
+        if split else (lambda inp, w, hd: (inp @ w).reshape(
+            *inp.shape[:2], H, hd))
 
-    q = ((x @ p["wq_a"]) @ p["wq_b"]).reshape(B, S, H, qk_n + qk_r)
+    q = proj(x @ p["wq_a"], p["wq_b"], qk_n + qk_r)
     q_nope, q_rope = q[..., :qk_n], q[..., qk_n:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -567,18 +585,47 @@ def apply_mla(
         ckv, k_rope = cache["ckv"], cache["krope"]
         kv_valid, q_offset = cache_index + S, cache_index
 
-    Sk = ckv.shape[1]
     dt = torch.promote_types(ckv.dtype, p["wkv_b"].dtype)  # jnp's promotion
-    kv_up = (ckv.to(dt) @ p["wkv_b"].to(dt)).reshape(B, Sk, H, qk_n + dv)
+    kv_up = proj(ckv.to(dt), p["wkv_b"].to(dt), qk_n + dv)
+    Sk, Hr = kv_up.shape[1], kv_up.shape[2]
     k_nope, v = kv_up[..., :qk_n], kv_up[..., qk_n:]
-    k = torch.cat([k_nope, k_rope.expand(B, Sk, H, qk_r).to(k_nope.dtype)],
+    if (h0, h1) != (0, H):
+        k_rope = copy_to_model(k_rope)  # read by the rank's heads only
+    k = torch.cat([k_nope, k_rope.expand(B, Sk, Hr, qk_r).to(k_nope.dtype)],
                   dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     out = blockwise_attention(qfull, k, v, causal=True,
                               window=window if attn_mode == "window" else 0,
                               q_offset=q_offset, kv_valid=kv_valid,
                               softmax_scale=1.0 / math.sqrt(qk_n + qk_r))
-    return out.reshape(B, S, H * dv).to(p["wo"].dtype) @ p["wo"], cache
+    out = out.reshape(B, S, Hr * dv).to(p["wo"].dtype)
+    if (h0, h1) == (0, H):
+        return out @ p["wo"], cache
+    lo = rows[0] - h0 * dv
+    return _row_split(out[..., lo:lo + rows[1] - rows[0]], p["wo"]), cache
+
+
+def _mla_heads(inp: torch.Tensor, w: torch.Tensor, hd: int, H: int,
+               h0: int, h1: int) -> torch.Tensor:
+    """Heads [h0, h1) [B, S, h1 - h0, hd] of inp @ w (a projection of H
+    heads of hd columns) over an installed model axis, from the block of w
+    the rank holds. The rank runs the heads that overlap its rows of wo
+    (all H where wo is whole). A split w joins the pieces of those heads
+    from its block of g = hd / gcd(hd, columns a rank holds) model indices
+    (`_take_heads`), or, where the rank runs every head, every rank's
+    columns (`gather_columns`); a whole w is projected whole. inp enters a
+    split w, and a whole w's product a split of the heads, through
+    `copy_to_model`: each rank's gradient covers its share."""
+    B, S = inp.shape[:2]
+    every = (h0, h1) == (0, H)
+    if not _is_block(w, -1, H * hd):
+        out = inp @ w
+        out = out if every else copy_to_model(out)
+        return out[..., h0 * hd:h1 * hd].reshape(B, S, -1, hd)
+    cols = copy_to_model(inp) @ w
+    if every:
+        return gather_columns(cols).reshape(B, S, H, hd)
+    return _take_heads(cols, hd // math.gcd(hd, w.shape[-1]), h0, h1, hd)
 
 
 # ---------------------------------------------------------------------------

@@ -21,9 +21,13 @@ projection of precomputed patch embeddings; and the training loss
 
 Under an installed model axis (`models/common.py` `mesh_rules`) the
 forward and the loss run on the rank's blocks through the layers'
-tensor-parallel forms (`models/layers.py`): the dense family only, whose
-limits `check_model_axis` states; a checkpointed layer recomputes its
-forward, its two model-group reductions included, in the backward.
+tensor-parallel forms (`models/layers.py`, `models/moe.py`): GQA and MLA
+heads, dense and MoE FFNs (experts split on E, or on F where the extent
+does not divide E), the vocab, and early fusion's frontend_proj, whose
+d_model columns a rank projects and all-gathers; `check_model_axis`
+refuses the SSD, RG-LRU and encoder-decoder families. A checkpointed
+layer recomputes its forward, its model-group messages included, in the
+backward.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as SSM
-from repro_torch.models.common import dense_init, embed_init
+from repro_torch.models.common import (current_mesh, dense_init,
+                                       embed_init, gather_columns)
 
 Params = Dict[str, Any]
 
@@ -99,37 +104,31 @@ def layer_specs(cfg: ModelConfig, window_override: int = 0) -> List[LayerSpec]:
 
 
 def check_model_axis(cfg: ModelConfig, mesh) -> None:
-    """Refuse, with NotImplementedError naming it, what the port does not
-    execute over `mesh`'s model axis: every family but the dense one
-    (MoE experts, MLA's wq_b / wkv_b, SSD, RG-LRU and encoder-decoder
-    leaves, early fusion's frontend_proj), naming its ROADMAP.md item.
-    Any extent runs the dense family's heads, KV heads, FFN and vocab: a
-    split inside a head gathers its pieces, a vocab the extent does not
-    divide splits the embedding's d_model dim as the reference's
-    `_ALT_SPECS` does, and leaves the extent does not divide stay whole
-    (`models/layers.py`)."""
+    """Refuse, with NotImplementedError naming ROADMAP.md queue 1 item 5,
+    the families the port does not execute over `mesh`'s model axis: the
+    SSD, RG-LRU and encoder-decoder leaves. Any extent runs the others:
+    GQA heads and KV heads (a split inside a head gathers its pieces), MLA's
+    wq_b, wkv_b and wo (split at each projection's own head width), dense
+    FFNs, MoE experts (split on E, or on F where the extent does not
+    divide E, with the routing replicated), the vocab (its d_model columns
+    where the extent does not divide it, as the reference's `_ALT_SPECS`
+    does) and early fusion's frontend_proj; leaves the extent does not
+    divide stay whole (`models/layers.py`, `models/moe.py`)."""
     m = model_extent(mesh)
     if m == 1:
         return
     not_yet = "are not split over a model axis yet"
-    what = item = None
+    what = None
     if cfg.is_encdec:
-        what, item = f"the encoder-decoder's leaves {not_yet}", 5
+        what = f"the encoder-decoder's leaves {not_yet}"
     elif cfg.family == "ssm":
-        what, item = f"the SSD leaves {not_yet}", 5
+        what = f"the SSD leaves {not_yet}"
     elif cfg.rglru is not None:
-        what, item = f"the RG-LRU leaves {not_yet}", 5
-    elif cfg.mla is not None:
-        what, item = f"MLA's wq_b and wkv_b {not_yet}", 4
-    elif cfg.moe is not None:
-        what, item = f"MoE experts (we_gate, we_up, we_down) {not_yet}", 4
-    elif cfg.frontend_embed_dim:
-        what, item = (f"early fusion's frontend_proj and its activations "
-                      f"{not_yet}", 4)
+        what = f"the RG-LRU leaves {not_yet}"
     if what is not None:
         raise NotImplementedError(
             f"{cfg.name} on a model axis of extent {m}: {what} (ROADMAP.md "
-            f"queue 1 item {item})")
+            f"queue 1 item 5)")
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +217,10 @@ def _embed(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
     if cfg.frontend_embed_dim and "patches" in batch:
         # early fusion: precomputed modality embeddings [B, n, F] take the
         # place of the first n positions (the frontend itself is stubbed)
-        pe = batch["patches"].to(x.dtype) @ params["frontend_proj"]
+        w = params["frontend_proj"]
+        pe = batch["patches"].to(x.dtype) @ w
+        if current_mesh() is not None and L._is_block(w, 1, cfg.d_model):
+            pe = gather_columns(pe)  # the rank's d_model columns, joined
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
     return x
 

@@ -74,12 +74,14 @@ the hierarchical mode takes its pods from the mesh's "pod" axis and
 gossips between them over each rank's lane
 (`core.averaging._hmix_shard`).
 
-Over a model axis of extent above 1 (the dense family,
-`models.transformer.check_model_axis`) every rank holds blocks of the
+Over a model axis of extent above 1 (every decoder-only family but the
+SSD and RG-LRU ones, `models.transformer.check_model_axis`) every rank
+holds blocks of the
 reference's placements (`launch/sharding.py`; leaves the extent does not
 divide whole), cut by `init_state`, and computes its loss and gradient
 under `models.common.mesh_rules` (tensor-parallel layers, heads split
-inside a head joined where they are used, a vocab-parallel loss). The
+inside a head joined where they are used, MoE experts split on E or F
+with the routing replicated, a vocab-parallel loss). The
 exact mode is FSDP with ZeRO-1: at rest a rank holds its `zero1_specs`
 block of the parameters, f32 masters and moments; each step all-gathers
 its model shard's parameters over the data group, reduce-scatters the
@@ -135,10 +137,12 @@ class TrainState(NamedTuple):
 
 def check_supported(run, mesh) -> None:
     """Raise on what the trainer does not run over `mesh`: on a model
-    axis, the families `check_model_axis` refuses (any extent runs the
-    dense family's heads, KV heads, FFN and vocab, with every wire and
-    averaging mode), naming its ROADMAP.md item; and error feedback
-    outside the gossip mode (ValueError, as the reference)."""
+    axis, the families `check_model_axis` refuses (the SSD, RG-LRU and
+    encoder-decoder ones; any extent runs the others' heads, KV heads,
+    MLA projections, FFNs, MoE experts, frontend_proj and vocab, with
+    every wire and averaging mode), naming its ROADMAP.md item; and
+    error feedback outside the gossip mode (ValueError, as the
+    reference)."""
     if model_extent(mesh) > 1:
         check_model_axis(run.model, mesh)
     if run.averaging.error_feedback != "off" and run.averaging.mode != "gossip":

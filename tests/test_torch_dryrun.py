@@ -294,22 +294,20 @@ def test_prefill_argument_bytes_are_the_cpu_serve_state():
 
 def test_model_axis_is_planned_not_executed():
     """On a {data 4, model 2} mesh, for a config the trainer refuses there
-    (reduced granite-8b with an early-fusion frontend, whose
-    frontend_proj the model axis does not split yet; a vocab the axis
-    does not divide executes since its embedding splits over d_model):
-    ZeRO-1 and model placements
+    (reduced mamba2-2.7b, whose SSD leaves the model axis does not split
+    yet; MoE experts, MLA and early fusion execute:
+    tests/test_torch_model_axis_experts.py): ZeRO-1 and model placements
     shrink the arguments, the temporaries are the unsplit bound
     (flagged), and the Megatron split's activation all-reduces are
     planned: two per layer forward, times 3 with the backward and
     remat."""
-    cfg = dataclasses.replace(reduced(get_config("granite-8b")),
-                              frontend_embed_dim=128)
+    cfg = reduced(get_config("mamba2-2.7b"))
     kw = dict(cfg=cfg, shape=_tiny("train_4k"), microbatches=1)
-    one = dryrun.plan("granite-8b", "train_4k", ONE, **kw)
-    rec = dryrun.plan("granite-8b", "train_4k", dryrun.parse_mesh("4x2"),
+    one = dryrun.plan("mamba2-2.7b", "train_4k", ONE, **kw)
+    rec = dryrun.plan("mamba2-2.7b", "train_4k", dryrun.parse_mesh("4x2"),
                       **kw)
     assert rec["temp_unsplit_over_model"] is True
-    assert "frontend_proj" in rec["model_axis_refused"]
+    assert "SSD" in rec["model_axis_refused"]
     assert rec["memory"]["argument_gib"] < one["memory"]["argument_gib"] / 4
     planned = rec["collectives_planned"]
     assert planned["all-reduce.count"] == 2 * 3 * cfg.num_layers
@@ -360,14 +358,15 @@ def test_model_axis_executes_for_the_dense_family():
 
 def test_refused_families_keep_the_model_axis_planned():
     """A config the trainer refuses over the model axis keeps both flags
-    and says why: reduced qwen2-moe-a2.7b's experts on a model axis of 2
-    (reduced granite-8b's one KV head, refused before heads split inside
-    a head, now executes: tests/test_torch_model_axis_heads.py)."""
-    rec = _plan("qwen2-moe-a2.7b", "train_4k", dryrun.parse_mesh("4x2"),
+    and says why: reduced recurrentgemma-9b's RG-LRU leaves on a model
+    axis of 2 (reduced qwen2-moe-a2.7b's experts, refused before they
+    split over the model axis, now execute:
+    tests/test_torch_model_axis_experts.py)."""
+    rec = _plan("recurrentgemma-9b", "train_4k", dryrun.parse_mesh("4x2"),
                 microbatches=1)
     assert rec["temp_unsplit_over_model"] is True
     assert rec["collectives_planned"]["all-reduce.count"] > 0
-    assert "MoE experts" in rec["model_axis_refused"]
+    assert "RG-LRU" in rec["model_axis_refused"]
     assert "collectives_model" not in rec
 
 

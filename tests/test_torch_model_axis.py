@@ -26,10 +26,12 @@ numpy.
   each step's messages by axis equal the planner's trace of the same step
   (`repro_torch.launch.dryrun`): the model axis's count and bytes, the
   data axis's count.
-* (d) What the model axis does not execute raises NotImplementedError
-  naming it and its ROADMAP.md item; heads, KV heads, FFN widths and
-  vocabs the extent does not divide execute, and the planner traces the
-  dense archs on the production 16 x 16 mesh as executed.
+* (d) What the model axis does not execute (the SSD, RG-LRU and
+  encoder-decoder families) raises NotImplementedError naming it and its
+  ROADMAP.md item; MoE experts, MLA and early fusion execute, and so do
+  heads, KV heads, FFN widths and vocabs the extent does not divide; the
+  planner traces the dense archs on the production 16 x 16 mesh as
+  executed.
 """
 import dataclasses
 import shutil
@@ -289,14 +291,9 @@ def test_publish_extract_gathers_the_model_axis(trained, mode):
 def _refusals():
     gossip = lambda **kw: AveragingConfig("gossip", 2, **kw)
     cases = [  # (arch, config changes, averaging, model extent, match)
-        ("qwen2-moe-a2.7b", {}, gossip(), 2, "MoE experts"),
-        ("minicpm3-4b", {}, gossip(), 2, "wq_b"),
         ("mamba2-2.7b", {}, gossip(), 2, "SSD"),
         ("recurrentgemma-9b", {}, gossip(), 2, "RG-LRU"),
         ("seamless-m4t-medium", {}, gossip(), 2, "encoder-decoder"),
-        # early fusion on a dense decoder (llama4-scout's is MoE as well)
-        ("granite-8b", {"frontend_embed_dim": 128}, gossip(), 2,
-         "frontend_proj"),
     ]
     return cases
 
@@ -314,12 +311,32 @@ def test_model_axis_refusals(arch, changes, avg, model, match):
     mesh = Mesh((1, model), ("data", "model"))
     with pytest.raises(NotImplementedError, match=match) as refused:
         trainer.build_train_step(run, mesh, n_nodes=N, device="cpu")
-    item = 4 if arch in ("granite-8b", "qwen2-moe-a2.7b", "minicpm3-4b") \
-        else 5
-    assert f"ROADMAP.md queue 1 item {item}" in str(refused.value)
+    assert "ROADMAP.md queue 1 item 5" in str(refused.value)
     with pytest.raises(NotImplementedError, match=match):
         trainer.init_state(run, torch.Generator().manual_seed(0), mesh)
     assert match in dryrun.model_axis_refusal(run, mesh)
+
+
+@pytest.mark.parametrize("arch,changes", [
+    ("qwen2-moe-a2.7b", {}),  # MoE experts
+    ("minicpm3-4b", {}),  # MLA's wq_b and wkv_b
+    # early fusion on a dense decoder (llama4-scout's is MoE as well)
+    ("granite-8b", {"frontend_embed_dim": 128}),
+])
+def test_model_axis_executes(arch, changes):
+    """What the model axis refused before the experts, MLA's heads and
+    frontend_proj split over it now executes: the trainer's checks pass
+    and the planner's record has no refusal
+    (tests/test_torch_model_axis_experts.py holds them against the
+    reference)."""
+    cfg = dataclasses.replace(reduced(get_config(arch), d_model=512),
+                              **changes)
+    run = RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                    averaging=AveragingConfig("gossip", 2), optimizer="sgd",
+                    param_dtype="float32")
+    mesh = Mesh((1, 2), ("data", "model"))
+    trainer.check_supported(run, mesh)
+    assert dryrun.model_axis_refusal(run, mesh) is None
 
 
 @pytest.mark.parametrize("changes,model", [

@@ -290,8 +290,8 @@ def test_driver_durability_on_a_split_axis_still_raises(arg, tmp_path):
     binds to the split mesh, and rank 0 decides for the others. Over a
     model axis they run too for the families it executes
     (tests/test_torch_model_axis_durability.py); what still raises is a
-    snapshot or a resume of a family it does not execute (the MoE
-    experts: ROADMAP.md queue 1 item 4), before any process group is
+    snapshot or a resume of a family it does not execute (the SSD
+    leaves: ROADMAP.md queue 1 item 5), before any process group is
     entered."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
@@ -311,11 +311,11 @@ def test_driver_durability_on_a_split_axis_still_raises(arg, tmp_path):
         return
     value = (RunSnapshotter(str(tmp_path)) if arg == "snapshotter"
              else str(tmp_path))
-    run = RunConfig(model=reduced(get_config("qwen2-moe-a2.7b")),
+    run = RunConfig(model=reduced(get_config("mamba2-2.7b")),
                     shape=SHAPES["train_4k"],
                     averaging=AveragingConfig(mode="gossip", rounds=2))
     try:
-        with pytest.raises(NotImplementedError, match="MoE experts"):
+        with pytest.raises(NotImplementedError, match="SSD"):
             StreamingDriver(run, rdist.Mesh((1, 2), ("data", "model")), None,
                             lambda rng, n: {}, n_nodes=2, device="cpu",
                             **{arg: value})
@@ -406,8 +406,8 @@ def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path,
     both; tests/test_torch_shard_durability.py runs `--checkpoint-every`
     and `--resume` there, tests/test_torch_model_axis_durability.py over
     a model axis); `--checkpoint` and `--resume` of a family the model
-    axis does not execute still raise (the MoE experts: ROADMAP.md queue
-    1 item 4)."""
+    axis does not execute still raise (the SSD leaves: ROADMAP.md queue
+    1 item 5)."""
     from repro_torch.launch import train as launch_train
 
     if flags == ["--publish"]:
@@ -424,7 +424,7 @@ def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path,
     monkeypatch.setattr(launch_train, "make_host_mesh",
                         lambda **kw: rdist.Mesh((1, 2), ("data", "model")))
     ap = launch_train._parser()
-    args = ap.parse_args(["--arch", "qwen2-moe-a2.7b", "--reduced",
+    args = ap.parse_args(["--arch", "mamba2-2.7b", "--reduced",
                           "--device", "cpu", "--model-axis", "2", *flags])
-    with pytest.raises(NotImplementedError, match="MoE experts"):
+    with pytest.raises(NotImplementedError, match="SSD"):
         launch_train._train(ap, args, distributed=True)

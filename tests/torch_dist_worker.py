@@ -1,6 +1,6 @@
 """Rank code of the port's multi-rank tests (tests/test_torch_shard.py,
 tests/test_torch_trainer_dist.py, tests/test_torch_model_axis.py,
-tests/test_torch_model_axis_wires.py,
+tests/test_torch_model_axis_wires.py, tests/test_torch_model_axis_experts.py,
 tests/test_torch_shard_elastic.py, tests/test_torch_shard_elastic_lm.py);
 not collected by pytest.
 
@@ -386,8 +386,10 @@ def model_trainer(mesh, inp):
 
 
 def _trainer_runs(given, lean=False):
-    """The reduced granite trainer on 1 x 4 and 2 x 2 meshes, from the
-    reference's states cut to this rank's blocks
+    """The trainer cases of `given` (keyed by (mesh name, mode, ...)) on
+    1 x 4 and 2 x 2 meshes, from the
+    reference's states (or its initial parameters, `_init_state`) cut to
+    this rank's blocks
     (`convert.train_state(mesh=...)`), 3 SGD steps per mode; its bytes at
     rest and each step's messages by axis (`dist.stats`); the final state
     gathered over the model axis (`convert.train_tree(mesh=...)`: the node
@@ -405,14 +407,22 @@ def _trainer_runs(given, lean=False):
     meshes = {name: make_host_mesh(model=m)
               for name, m in MODEL_MESHES.items()}
     out = {}
-    for (name, mode), case in given.items():
-        mesh, run = meshes[name], case["run"]
+    for key, case in given.items():
+        (name, mode), run = key[:2], case["run"]
+        mesh = meshes[name]
         n = case["n_nodes"]
         decentralized = mode != "exact"
-        state = convert.train_state(*case["state"], run.model, device="cpu",
-                                    mesh=mesh)
-        if decentralized:
-            state = _local_state(state, node_rows(mesh, n))
+        if "params" in case:  # the reference's init: zero moments, step 0
+            state = _init_state(case["params"], run)
+            if decentralized:
+                state = tr.replicate_for_nodes(state, n)
+            state = _blocks(state, run, mesh,
+                            node_rows(mesh, n) if decentralized else None)
+        else:
+            state = convert.train_state(*case["state"], run.model,
+                                        device="cpu", mesh=mesh)
+            if decentralized:
+                state = _local_state(state, node_rows(mesh, n))
         at_rest = _state_bytes(state)
         step = tr.build_train_step(run, mesh, n_nodes=n, device="cpu")
         metrics, wires = [], []
@@ -434,7 +444,7 @@ def _trainer_runs(given, lean=False):
             published = [p.numpy() for p in tree_leaves(extract(
                 state, torch.ones(n)))]
         first = rdist.model_index(mesh) == 0
-        out[(name, mode)] = {
+        out[key] = {
             "published": published,
             "params": tree["params"] if first or not lean else None,
             "digest": digest(np_leaves(tree["params"])),
@@ -443,6 +453,18 @@ def _trainer_runs(given, lean=False):
             "rows": (node_rows(mesh, n).start, node_rows(mesh, n).stop),
             "model_index": rdist.model_index(mesh)}
     return out
+
+
+def _init_state(params, run):
+    """One node's TrainState of `run` from the reference's initial
+    parameters: the optimizer's zero state, as the reference's
+    `init_state` makes it (f32, no masters)."""
+    from repro_torch import convert
+    from repro_torch.optim import init_optimizer
+    from repro_torch.train import trainer as tr
+
+    params = convert.lm_params(params, device="cpu")
+    return tr.TrainState(params, init_optimizer(run.optimizer, params))
 
 
 def model_heads(mesh, inp):
@@ -1570,13 +1592,55 @@ def model_wires(mesh, inp):
     return out
 
 
+def model_experts(mesh, inp):
+    """tests/test_torch_model_axis_experts.py: (a) each case's loss and
+    gradients on 1 x world, with remat (`_layer_grads`), and each MoE
+    layer's dropped assignments in a forward without remat
+    (`models.moe.count_drops`); (b), (c) the trainer cases
+    (`_trainer_runs`) and the driver run on 1 x world under LM_SPEC with
+    the rejoin sync (`_me_driver`, `_me_tree`)."""
+    from repro_torch import convert
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe, registry
+    from repro_torch.models.common import mesh_rules
+    from repro_torch.train import trainer as tr
+
+    given = torch.load(inp, weights_only=False)
+    m14 = make_host_mesh(model=mesh.size)
+    drops = {}
+    for name, case in given["layers"].items():
+        if case["cfg"].moe is None:
+            continue
+        params = convert.lm_params(case["tree"], device="cpu", mesh=m14,
+                                   cfg=case["cfg"])
+        batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+        with torch.no_grad(), mesh_rules(m14), moe.count_drops() as counts:
+            registry.loss_fn(params, case["cfg"], batch, remat=False)
+        drops[name] = [int(c) for c in counts]
+    out = {"layers": _layer_grads(given["layers"], m14, (True,), lean=True),
+           "drops": drops,
+           "trainer": _trainer_runs(given["trainer"], lean=True)}
+    run, params = given["driver"]
+    state = _blocks(tr.replicate_for_nodes(_init_state(params, run), 4),
+                    run, m14)
+    with _me_driver(m14, run, state, LM_SPEC, {}) as drv:
+        state, hist = drv.run(LM_SUPERSTEPS)
+        out["driver"] = dict(
+            _me_tree(state, run, m14),
+            events=[(e["superstep"], e["to"].active_ids)
+                    for e in drv.membership_events],
+            metrics=[r["metrics"] for r in hist])
+    return out
+
+
 CASES = {"rules": rules, "driver": driver, "trainer": trainer,
          "model_layers": model_layers, "model_trainer": model_trainer,
          "cohort_rules": cohort_rules, "elastic_driver": elastic_driver,
          "elastic_trainer": elastic_trainer, "shard_ef": shard_ef,
          "shard_durability": shard_durability, "model_heads": model_heads,
          "model_durability": model_durability,
-         "model_elastic": model_elastic, "model_wires": model_wires}
+         "model_elastic": model_elastic, "model_wires": model_wires,
+         "model_experts": model_experts}
 
 
 def main():
