@@ -107,7 +107,8 @@
    bytes staged by axis equal to the planner's trace, each peak within
    15% of the plan's; prints s per round and (x)'s seconds.
    (y0)-(y1), elastic membership and the vocab fallback over a model
-   axis, after (x): four ranks in one gloo group. (y0) reduced granite-8b
+   axis, after (u): four ranks in one gloo group, spawned once for (y),
+   (z), (A) and (B). (y0) reduced granite-8b
    at d_model 512 in f32 (Adam, 4 nodes, 3 rounds of 8 x 32 tokens)
    through the driver under `death:1@1-2`: on 1 x 4 with the rejoin sync
    and without, on 2 x 2 with it and under the straggler policy "drop"
@@ -129,13 +130,17 @@
    round, the sync's s and bytes, each rank's peak, its `gossip_mix`
    launches a round (one a leaf in the cohort round, none in the full
    round, required) and (y)'s seconds.
-   (z0)-(z1), the Section VI wires over a model axis, and (A0)-(A1), MoE
-   experts, MLA's heads and early fusion's frontend_proj over it, each
-   after the one before: four ranks in one gloo group, against one
-   process on the card (the comments above `Z_WORLD` and `A_WORLD` say
-   what each runs and requires); (A1) is qwen2-moe-a2.7b at its
-   published widths, 2 layers, on 1 x 4, its messages by kind and its
-   peak held against the planner's trace.
+   (z0)-(z1), the Section VI wires over a model axis, (A0)-(A1), MoE
+   experts, MLA's heads and early fusion's frontend_proj over it, and
+   (B0)-(B2), the SSD, RG-LRU and encoder-decoder families over it with
+   the MoE routing of the exact mode over a split data axis, each after
+   the one before on the same four ranks, against one process on the card
+   (the comments above `Z_STEPS`, `A0_STEPS` and `B0_CASES` say what each
+   runs and requires); (A1) is qwen2-moe-a2.7b at its published widths, 2
+   layers, on 1 x 4, (B1) recurrentgemma-9b as (u2) runs it (its round 1
+   held against (u2)'s) and (B2) mamba2-2.7b and seamless-m4t-medium cut in
+   depth, each on 1 x 4, its messages by kind and its peak held against
+   the planner's trace.
 3. Holds each kernel against its plain PyTorch version on the card over a
    sweep of shapes and dtypes, printing the max error and the tolerance, and
    the whole PCA superstep on the card against the CPU's plain path;
@@ -302,8 +307,9 @@
    per prefill). Each prints prefill ms on the card and on the wall,
    decode ms per step and peak memory (and the prefill's own peak).
    (u) the last three families through the trainer: (u0) each reduced,
-   in f32 (mamba2-2.7b 2 layers at S = 128, recurrentgemma-9b 5 at S =
-   160, seamless-m4t-medium 2 + 2 at S = 64 over 64 frames), 4 nodes,
+   in f32 (mamba2-2.7b 2 layers at S = 128, recurrentgemma-9b 3 (one
+   period) at S = 160, seamless-m4t-medium 2 + 2 at S = 64 over 64
+   frames), 4 nodes,
    ring R = 2, Adam, 3 rounds of the exact and the gossip mode on the card
    and on the CPU from the same state and draws: (h0)'s bounds (the
    99.9% share within 1e-4 in each leaf too), the consensus errors
@@ -312,8 +318,9 @@
    gossip_mix and the int8 tile wires; (u2) recurrentgemma-9b cut to 3
    layers (one period: both RG-LRU layers and the local attention train),
    2 nodes, the ring's self weight 0.6 (at its default 1/2 two nodes mix
-   to the exact mean); (u3) seamless-m4t-medium whole, 4 nodes, each
-   sample with a [512, 160] standard-normal frame block. Each in bf16
+   to the exact mean); (u3) seamless-m4t-medium at its published widths
+   cut to 6 encoder and 6 decoder layers, 4 nodes, each sample with a
+   [512, 160] standard-normal frame block. Each in bf16
    with f32 masters (dropped where the round's plan passes 75 GB), Adam
    at 3e-4 (1e-3 for (u3)), 2 x 512 tokens a node a round, K = 2, 4
    supersteps through the `StreamingDriver`: finite, falling losses (and
@@ -469,18 +476,19 @@ TRAIN_B, TRAIN_S, TRAIN_LAYERS = 8, 512, 2
 RANK_LAYERS = 1
 # the last three families through the trainer (u): (u0)'s reduced forms,
 # arch: (layers, tokens a sample, frames a sample or 0); the full-width runs,
-# (label, arch, layers or 0 for all, nodes, wires, the ring's self weight or
-# 0 for its default, Adam's rate). Ring gossip over 2 nodes at the default
+# (label, arch, layers (an encoder-decoder's encoder layers too) or 0 for
+# all, nodes, wires, the ring's self weight or 0 for its default, Adam's
+# rate); the depths cut to what the script's time limit leaves. Ring gossip over 2 nodes at the default
 # self weight (1/2) is the exact mean, so (u2) weighs its own row 0.6; at
 # 3e-4 seamless's loss, from near ln(vocab), falls by less than its
 # supersteps' own spread in 8 rounds, so (u3) steps at 1e-3.
-U0_CASES = {"mamba2-2.7b": (2, 128, 0), "recurrentgemma-9b": (5, 160, 0),
+U0_CASES = {"mamba2-2.7b": (2, 128, 0), "recurrentgemma-9b": (3, 160, 0),
             "seamless-m4t-medium": (2, 64, 64)}
 U2_SELF_WEIGHT = 0.6
 U_RUNS = [("(u1)", "mamba2-2.7b", 4, 4, ("exact", "int8"), 0.0, 3e-4),
           ("(u2)", "recurrentgemma-9b", 3, 2, ("exact",), U2_SELF_WEIGHT,
            3e-4),
-          ("(u3)", "seamless-m4t-medium", 0, 4, ("exact",), 0.0, 1e-3)]
+          ("(u3)", "seamless-m4t-medium", 6, 4, ("exact",), 0.0, 1e-3)]
 # each full-width run's loss on one held batch must fall by more than this
 # over its rounds: the spread of (u3)'s four superstep losses at Adam 3e-4
 # (12.63960 to 12.66556 on an H100, PERF.md section 6)
@@ -3835,12 +3843,12 @@ def model_axis_heads_phases(dev) -> dict:
         "x1": [rr["launches"].get("gossip_mix", 0) for rr in res1]}}
 
 
-# (y) elastic membership and the vocab fallback over a model axis: Y_WORLD
-# rank processes share the card in one gloo group
-# (`model_axis_elastic_phases`, spawned after (x)'s ranks have exited),
-# (y0) then (y1) in one spawn: (y0) on 1 x 4 and 2 x 2, reduced
+# (y) elastic membership and the vocab fallback over a model axis: the
+# first of the phases whose SHARED_WORLD rank processes share the card in
+# one gloo group and one spawn with (z), (A) and (B)
+# (`model_axis_shared_phases`, after (u)), (y0) then (y1): (y0) on 1 x 4
+# and 2 x 2, reduced
 # granite-8b at d_model 512 in f32; (y1) on 2 x 2, (t2)'s granite-8b
-Y_WORLD, Y_TIMEOUT = 4, 300
 Y_SPEC, Y_ROUNDS, Y_SEQ = "death:1@1-2", 3, 32  # node 1 out for round 1
 # (y1): node 1 out for its first round, back (the rejoin sync) for its
 # second
@@ -3963,41 +3971,6 @@ def y_mixed(shape, n_active, leaves: int) -> int:
     full membership on 2 x 2)."""
     return leaves * sum(1 for n in n_active
                         if shape[0] == 1 or n < TRAIN_N)
-
-
-def y_rank(rank: int, store: str, workdir: str) -> int:
-    """One rank of (y0) and (y1): `python3 chip_smoke.py --y-rank RANK
-    STORE DIR`. Saves its results to DIR/y_rank{RANK}.pt."""
-    import datetime
-
-    import torch
-    import torch.distributed as dist
-
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"))
-    from repro_torch.launch.mesh import make_host_mesh
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dev = torch.device("cuda", 0)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=Y_WORLD,
-                            timeout=datetime.timedelta(seconds=240))
-    meshes = {shape: make_host_mesh(model=shape[1])
-              for shape in ((1, 4), (2, 2))}
-    res = {"seconds": {}}
-    t0 = time.perf_counter()
-    res["y0"] = y0_rank(dev, workdir, meshes)
-    dist.barrier()
-    res["seconds"]["y0"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res["y1"] = y1_rank(dev, meshes[(2, 2)])
-    dist.barrier()
-    res["seconds"]["y1"] = time.perf_counter() - t0
-    torch.save(res, os.path.join(workdir, f"y_rank{rank}.pt"))
-    dist.destroy_process_group()
-    return 0
 
 
 def y0_rank(dev, workdir: str, meshes) -> dict:
@@ -4137,13 +4110,14 @@ def y1_rank(dev, mesh) -> dict:
     return out
 
 
-def model_axis_elastic_phases(dev) -> dict:
-    """(y0)-(y1) on the card: the single-process references first ((y0)'s
-    driver runs and vocab rounds, (y1)'s round-1 loss, each freed), then
-    Y_WORLD rank processes (`y_rank`), the planner's traces of (y1)'s
-    rounds and rejoin sync computed while they run. Prints each check and
-    (y)'s seconds; returns the ranks' gossip_mix launches by phase and
-    rank, for the kernels line."""
+def model_axis_elastic_phases(dev):
+    """(y0)-(y1) on the card, a step of `model_axis_shared_phases`: the
+    single-process references first ((y0)'s driver runs and vocab rounds,
+    (y1)'s round-1 loss, each freed); yields, then the planner's traces of
+    (y1)'s rounds and rejoin sync while the ranks run; yields, and is sent
+    the ranks' results (`shared_rank`). Prints each check and (y)'s
+    seconds; returns the ranks' gossip_mix launches by phase and rank, for
+    the kernels line."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -4156,10 +4130,6 @@ def model_axis_elastic_phases(dev) -> dict:
     from repro_torch.train.driver import StreamingDriver
 
     t_all = time.perf_counter()
-    root = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(root, ".smoke_ckpt", "model_axis_elastic")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
     cfg, vcfg, cfg1 = y_cfgs()
     # (y0)'s one-process driver runs and vocab rounds on the card
     run = s2_run(cfg, "gossip", "float32")
@@ -4217,15 +4187,8 @@ def model_axis_elastic_phases(dev) -> dict:
     del params, dealt
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t_all
-    # the ranks; the planner's traces of (y1) beside them
-    store = os.path.join(work, "store")
-    procs = []
-    for r in range(Y_WORLD):
-        log = open(os.path.join(work, f"y_rank{r}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--y-rank", str(r),
-             store, work], stdout=log, stderr=subprocess.STDOUT), log))
-    deadline = time.monotonic() + Y_TIMEOUT
+    yield  # the ranks start; the planner's traces of (y1) beside them
+    t_all = time.perf_counter()
     cohort = Membership.full(TRAIN_N).drop(1)
     count = lambda coll: sum(v for k, v in coll.items()
                              if k.endswith(".count"))
@@ -4260,9 +4223,9 @@ def model_axis_elastic_phases(dev) -> dict:
                                "data_staged_bytes": dryrun.staged_bytes(sync),
                                "payload": sync.get("all-reduce", 0.0)}
         del low
-    t_plan = time.perf_counter() - t_all - t_ref
-    res = x_join("y", procs, work, deadline)
-    t_ranks = time.perf_counter() - t_all - t_ref
+    t_plan = time.perf_counter() - t_all
+    res = yield
+    t_all = time.perf_counter()
 
     # (y0) the driver runs against one process
     lr = run.learning_rate
@@ -4365,7 +4328,7 @@ def model_axis_elastic_phases(dev) -> dict:
     print(f"main (y1) granite-8b published widths, {RANK_LAYERS} layers, "
           f"bf16 + f32 masters, adam, {TRAIN_N} nodes x 2 x {TRAIN_S} "
           f"tokens, ring R={TRAIN_R}, gossip on 2x2 under {Y1_SPEC} with the "
-          f"rejoin sync ({Y_WORLD} ranks on the card): events "
+          f"rejoin sync ({SHARED_WORLD} ranks on the card): events "
           f"{y1[0]['events']}; losses by rank 0 "
           f"{[round(rd['loss'], 5) for rd in y1[0]['rounds']]} (round 1 on "
           f"one process {ref1:.5f}, max rel err over the ranks "
@@ -4405,21 +4368,18 @@ def model_axis_elastic_phases(dev) -> dict:
             f"(y1): gossip_mix launches by rank and round {per_round}, "
             f"expected {want_mix}")
     print(f"main (y) seconds: one-process references {t_ref:.1f}, the "
-          f"plans {t_plan:.1f} while the ranks ran, the ranks "
-          f"{t_ranks:.1f} (rank 0: (y0) "
+          f"plans {t_plan:.1f} while the ranks ran, rank 0: (y0) "
           f"{res[0]['seconds']['y0']:.1f}, (y1) "
-          f"{res[0]['seconds']['y1']:.1f}), all "
-          f"{time.perf_counter() - t_all:.1f} (target < 120)")
-    shutil.rmtree(work, ignore_errors=True)
+          f"{res[0]['seconds']['y1']:.1f}, the checks "
+          f"{time.perf_counter() - t_all:.1f}")
     return {"gossip_mix": {
         "y0": [sum(g["launches"].get("gossip_mix", 0)
                    for g in rr["y0"]["runs"].values()) for rr in res],
         "y1": [g["launches"].get("gossip_mix", 0) for g in y1]}}
 
 
-# (z) the Section VI wires over a model axis: Z_WORLD rank processes share
-# the card in one gloo group (`model_axis_wire_phases`, spawned after (y)'s
-# ranks have exited), (z0) then (z1) in one spawn. (z0): reduced granite-8b
+# (z) the Section VI wires over a model axis, in the ranks' spawn after (y)
+# (`model_axis_shared_phases`), (z0) then (z1). (z0): reduced granite-8b
 # at d_model 512 in f32, SGD, Z_STEPS steps of 8 x Y_SEQ tokens, against
 # the port's one-process run on the card (unpacked, as "auto" resolves on a
 # model axis): error feedback, the per-round wires (64-column tiles: wk's
@@ -4428,7 +4388,6 @@ def model_axis_elastic_phases(dev) -> dict:
 # hierarchical mode on 2 x 1 x 2 and error feedback in a cohort; (z1):
 # granite-8b at its published widths, RANK_LAYERS layers, bf16, one round
 # of the int8 tile wire on 1 x 4
-Z_WORLD, Z_TIMEOUT = 4, 300
 Z_STEPS, Z_BLOCK = 2, 64
 Z_WIRES = {
     "ef sign": dict(quantization="sign", error_feedback="grads",
@@ -4516,42 +4475,6 @@ def z_routes(run, mesh):
         aligned += sum(sl.aligned)
         straddling += len(pool) - sum(sl.aligned)
     return aligned, straddling
-
-
-def z_rank(rank: int, store: str, workdir: str) -> int:
-    """One rank of (z0) and (z1): `python3 chip_smoke.py --z-rank RANK
-    STORE DIR`. Saves its results to DIR/z_rank{RANK}.pt."""
-    import datetime
-
-    import torch
-    import torch.distributed as dist
-
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"))
-    from repro_torch.launch.mesh import make_host_mesh, make_mesh
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dev = torch.device("cuda", 0)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=Z_WORLD,
-                            timeout=datetime.timedelta(seconds=240))
-    meshes = {(1, 4): make_host_mesh(model=4),
-              (2, 2): make_host_mesh(model=2),
-              (2, 1, 2): make_mesh((2, 1, 2), ("pod", "data", "model"))}
-    res = {"seconds": {}}
-    t0 = time.perf_counter()
-    res["z0"] = z0_rank(dev, meshes)
-    dist.barrier()
-    res["seconds"]["z0"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res["z1"] = z1_rank(dev, meshes[(1, 4)])
-    dist.barrier()
-    res["seconds"]["z1"] = time.perf_counter() - t0
-    torch.save(res, os.path.join(workdir, f"z_rank{rank}.pt"))
-    dist.destroy_process_group()
-    return 0
 
 
 def z_log():
@@ -4733,13 +4656,14 @@ def z_slot_kernels(dev, cfg1) -> list:
     return rows
 
 
-def model_axis_wire_phases(dev) -> dict:
-    """(z0)-(z1) on the card: the one-process references first ((z0)'s
-    runs, the cohort's driver run, (z1)'s rounds, each freed), then
-    Z_WORLD rank processes (`z_rank`), the planner's traces of (z1)'s
-    rounds computed while they run. Prints each check and (z)'s seconds;
-    returns the ranks' launches by kernel and phase, and the slot kernels'
-    rows of the kernels line."""
+def model_axis_wire_phases(dev):
+    """(z0)-(z1) on the card, a step of `model_axis_shared_phases`: the
+    one-process references first ((z0)'s runs, the cohort's driver run,
+    (z1)'s rounds, each freed); yields, then the planner's traces of
+    (z1)'s rounds while the ranks run; yields, and is sent the ranks'
+    results. Prints each check and (z)'s seconds; returns the ranks'
+    launches by kernel and phase, and the slot kernels' rows of the
+    kernels line."""
     import torch
 
     from repro_torch.configs.base import ShapeConfig
@@ -4749,10 +4673,6 @@ def model_axis_wire_phases(dev) -> dict:
     from repro_torch.train import trainer
 
     t_all = time.perf_counter()
-    root = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(root, ".smoke_ckpt", "model_axis_wires")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
     cfg, _, cfg1 = y_cfgs()
     batches = t_tokens(cfg, Z_STEPS, 8, Y_SEQ, 11)
     ref0 = {}
@@ -4799,14 +4719,8 @@ def model_axis_wire_phases(dev) -> dict:
         del st, step
         torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t_all
-    store = os.path.join(work, "store")
-    procs = []
-    for r in range(Z_WORLD):
-        log = open(os.path.join(work, f"z_rank{r}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--z-rank", str(r),
-             store, work], stdout=log, stderr=subprocess.STDOUT), log))
-    deadline = time.monotonic() + Z_TIMEOUT
+    yield  # the ranks start; the planner's traces of (z1) beside them
+    t_all = time.perf_counter()
     plans = {}
     for label, wire in Z1_WIRES.items():  # ranks 1-3 send what rank 1 does
         for rank in (0, 1):
@@ -4822,9 +4736,9 @@ def model_axis_wire_phases(dev) -> dict:
             model = rec["collectives_model"]
             plans[label, rank] = [model.get("slot all-reduce.count", 0),
                                   model.get("slot all-reduce", 0)]
-    t_plan = time.perf_counter() - t_all - t_ref
-    res = x_join("z", procs, work, deadline)
-    t_ranks = time.perf_counter() - t_all - t_ref
+    t_plan = time.perf_counter() - t_all
+    res = yield
+    t_all = time.perf_counter()
 
     # (z0) against one process
     fails = []
@@ -4909,11 +4823,11 @@ def model_axis_wire_phases(dev) -> dict:
                                                    * cols] + 1e-6).float()
                                  .ravel() for r, x in enumerate(d)]).mean())
         sent = [g["log"].get("model slot all-reduce", [0, 0]) for g in got]
-        planned = [plans[label, min(r, 1)] for r in range(Z_WORLD)]
+        planned = [plans[label, min(r, 1)] for r in range(SHARED_WORLD)]
         aligned, straddling = got[0]["routes"]
         print(f"main (z1) granite-8b published widths, {RANK_LAYERS} "
               f"layers, bf16, sgd, {TRAIN_N} nodes x 2 x {TRAIN_S} tokens, "
-              f"{label} block_d 512 on 1x4 ({Z_WORLD} ranks on the card): "
+              f"{label} block_d 512 on 1x4 ({SHARED_WORLD} ranks on the card): "
               f"loss by rank {[round(g['loss'], 5) for g in got]} (one "
               f"process {want['loss']:.5f}, max rel err {loss_err:.2e}, "
               f"limit {T2_LOSS_TOL}); layer 0's wk blocks within a bf16 "
@@ -4952,12 +4866,11 @@ def model_axis_wire_phases(dev) -> dict:
     require(all(r["launches"] > 0 for r in slot_rows),
             "(z): a slot kernel was launched no time")
     print(f"main (z) seconds: one-process references {t_ref:.1f}, the "
-          f"plans {t_plan:.1f} while the ranks ran, the ranks "
-          f"{t_ranks:.1f} (rank 0: (z0) {res[0]['seconds']['z0']:.1f}, "
-          f"(z1) {res[0]['seconds']['z1']:.1f}), all "
-          f"{time.perf_counter() - t_all:.1f} (target < 100)")
+          f"plans {t_plan:.1f} while the ranks ran, rank 0: (z0) "
+          f"{res[0]['seconds']['z0']:.1f}, (z1) "
+          f"{res[0]['seconds']['z1']:.1f}, the checks "
+          f"{time.perf_counter() - t_all:.1f}")
     require(not fails, f"(z): {fails}")
-    shutil.rmtree(work, ignore_errors=True)
     return {"launches": {k: v for k, v in by_kernel.items()
                          if k in ("gossip_mix", "gossip_mix_quant")},
             "rows": slot_rows}
@@ -4965,21 +4878,18 @@ def model_axis_wire_phases(dev) -> dict:
 
 # ---------------------------------------------------------------------------
 # (A) MoE experts, MLA's heads and early fusion's frontend_proj over a model
-# axis: A_WORLD rank processes share the card in one gloo group
-# (`model_axis_experts_phases`, spawned after (z)'s ranks have exited),
-# (A0) then (A1) in one spawn. (A0): the cases of
+# axis, in the ranks' spawn after (z) (`model_axis_shared_phases`), (A0)
+# then (A1). (A0): the cases of
 # tests/test_torch_model_axis_experts.py in f32, against one process on the
 # card: each case's loss, gradients and dropped assignments on 1 x 4; the
 # trainer, A0_STEPS SGD steps of 8 x A0_SEQ tokens at TRAIN_N nodes, gossip
-# on 1 x 4 and exact on 2 x 2 (whose one-process run takes the 2 data
-# ranks as 2 microbatches: each data rank routes its share in its own
-# dispatch groups, ROADMAP.md queue 3), the int8 tile wire on 1 x 4, and
+# on 1 x 4 and exact on 2 x 2 (whose data ranks route the global batch, as
+# one process does), the int8 tile wire on 1 x 4, and
 # the driver under Y_SPEC with the rejoin sync (Adam). (A1): A1_ARCH at
 # its published widths cut to A1_LAYERS layers, bf16 with f32 masters,
 # Adam, A1_NODES nodes at self weight U2_SELF_WEIGHT, ring R = TRAIN_R,
 # 2 x TRAIN_S tokens a node a round, gossip on 1 x 4 (15 experts and 4
 # heads a rank), A1_ROUNDS rounds
-A_WORLD, A_TIMEOUT = 4, 300
 A0_STEPS, A0_SEQ, A0_TOL = 3, 32, 1e-6
 # (A0)'s cases: name -> (arch, layers, changes to its reduced form at
 # d_model 512, changes to its MoE config)
@@ -5015,53 +4925,38 @@ def a_cfg(name):
     return cfg
 
 
-def a1_cfg():
-    from repro_torch.configs import get_config
-
-    return dataclasses.replace(get_config(A1_ARCH), num_layers=A1_LAYERS)
-
-
 def a_batches(cfg, n, batch, seq, seed):
     """`n` batches of `batch` x `seq` tokens (numpy), with A0_PATCHES
-    patch embeddings a sequence for an early-fusion config."""
+    patch embeddings a sequence for an early-fusion config, and `seq`
+    standard-normal frames a sequence for an encoder-decoder (the
+    planner's frames)."""
     out = t_tokens(cfg, n, batch, seq, seed)
     rng = np.random.default_rng(seed + 100)
     for b in out:
-        if cfg.frontend_embed_dim:
+        if cfg.is_encdec:
+            b["frames"] = rng.standard_normal(
+                (batch, seq, cfg.frontend_embed_dim)).astype(np.float32)
+        elif cfg.frontend_embed_dim:
             b["patches"] = rng.standard_normal(
                 (batch, A0_PATCHES, cfg.frontend_embed_dim)).astype(
                     np.float32)
     return out
 
 
-def a_run(name, mode, wire=None, adam=False, one_process=False):
-    """(A0)'s f32 run of case `name`: ring R = TRAIN_R, SGD at the tests'
-    rate (Adam at 1e-3 with `adam`). On one process the exact mode takes
-    (A0)'s 2 data ranks as 2 microbatches, and a quantized wire mixes
-    unpacked, as "auto" resolves over a model axis."""
+def a_run(cfg, mode, wire=None, adam=False, one_process=False):
+    """(A0)'s or (B0)'s f32 run of `cfg`: ring R = TRAIN_R, SGD at the
+    tests' rate (Adam at 1e-3 with `adam`). On one process a quantized
+    wire mixes unpacked, as "auto" resolves over a model axis."""
     from repro_torch.configs.base import SHAPES, AveragingConfig, RunConfig
 
     wire = dict(wire or {})
     if one_process and wire:
         wire["packed"] = False
-    return RunConfig(model=a_cfg(name), shape=SHAPES["train_4k"],
+    return RunConfig(model=cfg, shape=SHAPES["train_4k"],
                      averaging=AveragingConfig(mode, TRAIN_R, "ring", **wire),
                      optimizer="adam" if adam else "sgd",
                      learning_rate=1e-3 if adam else 0.5,
-                     param_dtype="float32",
-                     microbatches=2 if one_process and mode == "exact" else 1)
-
-
-def a1_run():
-    """(A1)'s run: (u2)'s ring between 2 nodes, bf16 with f32 masters."""
-    from repro_torch.configs.base import SHAPES, AveragingConfig, RunConfig
-
-    return RunConfig(model=a1_cfg(), shape=SHAPES["train_4k"],
-                     averaging=AveragingConfig(
-                         "gossip", TRAIN_R, "ring",
-                         self_weight=U2_SELF_WEIGHT),
-                     optimizer="adam", learning_rate=3e-4,
-                     param_dtype="bfloat16", master_weights=True)
+                     param_dtype="float32")
 
 
 def a_state(dev, run, mesh=None):
@@ -5092,41 +4987,6 @@ def a_params(state, run, mesh):
         return (None if rdist.model_index(mesh)
                 else [p for p in tree_leaves(whole)])
     return y_gathered(state, run, mesh)
-
-
-def a_rank(rank: int, store: str, workdir: str) -> int:
-    """One rank of (A0) and (A1): `python3 chip_smoke.py --a-rank RANK
-    STORE DIR`. Saves its results to DIR/a_rank{RANK}.pt."""
-    import datetime
-
-    import torch
-    import torch.distributed as dist
-
-    sys.path.insert(0, os.path.join(os.path.dirname(
-        os.path.abspath(__file__)), "src"))
-    from repro_torch.launch.mesh import make_host_mesh
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.cuda.set_device(0)
-    dev = torch.device("cuda", 0)
-    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
-                            world_size=A_WORLD,
-                            timeout=datetime.timedelta(seconds=240))
-    meshes = {shape: make_host_mesh(model=shape[1])
-              for shape in ((1, 4), (2, 2))}
-    res = {"seconds": {}}
-    t0 = time.perf_counter()
-    res["A0"] = a0_rank(dev, meshes)
-    dist.barrier()
-    res["seconds"]["A0"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    res["A1"] = a1_rank(dev, meshes[(1, 4)])
-    dist.barrier()
-    res["seconds"]["A1"] = time.perf_counter() - t0
-    torch.save(res, os.path.join(workdir, f"a_rank{rank}.pt"))
-    dist.destroy_process_group()
-    return 0
 
 
 def a_loss_grads(dev, cfg, mesh=None):
@@ -5174,35 +5034,50 @@ def a_loss_grads(dev, cfg, mesh=None):
             "grads": None if grads is None else [g.cpu() for g in grads]}
 
 
-def a0_rank(dev, meshes) -> dict:
-    """(A0) on one rank: each case's loss, gradients and drops on 1 x 4;
-    each trainer run's losses, launches and gathered parameters; the
-    driver run's events, losses and gathered parameters."""
-    from repro_torch import dist as rdist
+def a0_spec() -> dict:
+    """(A0)'s reduced cases as `reduced_rank`, `reduced_one_process` and
+    `reduced_checks` take them: the label, the config of a case, the
+    layer cases, the trainer runs (case, mode, wire), the runs whose
+    dropped assignments are held, the driver's case and the layer case
+    that must drop."""
+    return {"label": "(A0)", "cfg": a_cfg, "cases": tuple(A0_CASES),
+            "runs": tuple((name, mode, None) for name in A0_TRAINER
+                          for mode in A0_MESHES)
+            + ((A0_WIRED, "gossip", "int8"),),
+            "drop_runs": (), "driver": A0_WIRED, "dropping": A0_DROPPING}
+
+
+def reduced_rank(dev, meshes, spec) -> dict:
+    """(A0) or (B0) on one rank: each case's loss, gradients and drops on
+    1 x 4; each trainer run's losses, launches and gathered parameters
+    (and its first batch's drops where `spec` holds them, this rank's
+    share); the driver run's events, losses and gathered parameters."""
     from repro_torch.kernels import ops
     from repro_torch.train import trainer
 
-    m14 = meshes[(1, 4)]
-    out = {"layers": {name: a_loss_grads(dev, a_cfg(name), m14)
-                      for name in A0_CASES}, "runs": {}}
-    runs = [(name, mode, None) for name in A0_TRAINER for mode in A0_MESHES]
-    runs.append((A0_WIRED, "gossip", "int8"))
-    for name, mode, wire in runs:
+    m14, cfg = meshes[(1, 4)], spec["cfg"]
+    out = {"layers": {name: a_loss_grads(dev, cfg(name), m14)
+                      for name in spec["cases"]}, "runs": {}}
+    for key in spec["runs"]:
+        name, mode, wire = key
         mesh = meshes[A0_MESHES[mode]]
-        run = a_run(name, mode, A0_INT8 if wire else None)
+        run = a_run(cfg(name), mode, A0_INT8 if wire else None)
+        batches = a_batches(run.model, A0_STEPS, 8, A0_SEQ, 11)
         st = a_state(dev, run, mesh)
         step = trainer.build_train_step(run, mesh, n_nodes=TRAIN_N,
                                         device=dev)
         ops.reset_launches()
         losses = []
-        for b in a_batches(run.model, A0_STEPS, 8, A0_SEQ, 11):
+        for b in batches:
             st, m = step(st, x_batch(dev, b, mesh, mode))
             losses.append(float(m["loss"]))
-        out["runs"][name, mode, wire] = {
+        out["runs"][key] = {
             "losses": losses, "launches": dict(ops.launches),
-            "params": a_params(st, run, mesh)}
+            "params": a_params(st, run, mesh),
+            "drops": (b_drops(dev, run, batches[0], mesh)
+                      if key in spec["drop_runs"] else None)}
         del st, step
-    run = a_run(A0_WIRED, "gossip", adam=True)
+    run = a_run(cfg(spec["driver"]), "gossip", adam=True)
     ops.reset_launches()
     with y_driver(dev, m14, run, a_state(dev, run, m14), Y_SPEC, {}) as drv:
         st, hist = drv.run(Y_ROUNDS)
@@ -5214,10 +5089,11 @@ def a0_rank(dev, meshes) -> dict:
     return out
 
 
-def a1_rank(dev, mesh) -> dict:
-    """(A1) on one rank of 1 x 4, A1_ROUNDS rounds: each round's loss, s
-    and the model axis's messages by kind; the bytes at rest, the peak and
-    the launches."""
+def full_rank(dev, mesh, run, nodes, batches) -> dict:
+    """A full-width gossip run ((A1), (B1), (B2)) on one rank of 1 x 4 from
+    seed 0's state drawn on the card, a round on each of `batches` (numpy
+    [2 * nodes, ...] leaves): each round's loss, s and the model axis's
+    messages by kind; the bytes at rest, the peak and the launches."""
     import torch
 
     from repro_torch import dist as rdist
@@ -5225,26 +5101,24 @@ def a1_rank(dev, mesh) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.train import trainer
 
-    run = a1_run()
-    cfg = run.model
     st = trainer.replicate_for_nodes(trainer.init_state(
         run, torch.Generator(device=dev).manual_seed(0), mesh),
-        rdist.n_local(mesh, A1_NODES))
+        rdist.n_local(mesh, nodes))
     opt = st.opt
     at_rest = sum(t.numel() * t.element_size()
                   for tree in (st.params, opt.m, opt.v, opt.master)
                   for t in tree_leaves(tree))
     del opt
-    step = trainer.build_train_step(run, mesh, n_nodes=A1_NODES, device=dev)
+    step = trainer.build_train_step(run, mesh, n_nodes=nodes, device=dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     rounds = []
-    for b in t_tokens(cfg, A1_ROUNDS, 2 * A1_NODES, TRAIN_S, 2):
+    for b in batches:
         b = {k: torch.from_numpy(v)[None] for k, v in b.items()}
         b = {k: v[0].to(dev) for k, v in trainer.make_node_batch(
-            b, A1_NODES, axis=1).items()}
+            b, nodes, axis=1).items()}
         rdist.reset_stats()
         t0 = time.perf_counter()
         st, m = step(st, b)
@@ -5252,41 +5126,49 @@ def a1_rank(dev, mesh) -> dict:
         torch.cuda.synchronize()
         rounds.append({"s": time.perf_counter() - t0, "loss": loss,
                        "stats": dict(rdist.stats), "log": z_log()})
-    return {"rounds": rounds, "at_rest": at_rest,
-            "peak_bytes": torch.cuda.max_memory_allocated(),
-            "launches": dict(ops.launches)}
+    out = {"rounds": rounds, "at_rest": at_rest,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": dict(ops.launches)}
+    del st, step
+    torch.cuda.empty_cache()
+    return out
 
 
-def a_one_process(dev) -> dict:
-    """(A0)'s one-process references on the card: each case's loss,
-    gradients and drops; each trainer run's losses and final parameters
-    (every node's); the driver run's events, losses and parameters."""
+def reduced_one_process(dev, spec) -> dict:
+    """(A0)'s or (B0)'s one-process references on the card: each case's
+    loss, gradients and drops; each trainer run's losses and final
+    parameters (every node's), and its first batch's drops where `spec`
+    holds them; the driver run's events, losses and parameters."""
     import torch
 
     from repro_torch.core.packing import tree_leaves
     from repro_torch.train import trainer
 
-    ref = {"layers": {name: a_loss_grads(dev, a_cfg(name))
-                      for name in A0_CASES}, "runs": {}}
-    runs = [(name, mode, None) for name in A0_TRAINER for mode in A0_MESHES]
-    runs.append((A0_WIRED, "gossip", "int8"))
-    for name, mode, wire in runs:
-        run = a_run(name, mode, A0_INT8 if wire else None, one_process=True)
+    cfg = spec["cfg"]
+    ref = {"layers": {name: a_loss_grads(dev, cfg(name))
+                      for name in spec["cases"]}, "runs": {}}
+    for key in spec["runs"]:
+        name, mode, wire = key
+        run = a_run(cfg(name), mode, A0_INT8 if wire else None,
+                    one_process=True)
+        batches = a_batches(run.model, A0_STEPS, 8, A0_SEQ, 11)
         st = a_state(dev, run)
         step = trainer.build_train_step(run, None, n_nodes=TRAIN_N,
                                         device=dev)
         losses = []
-        for b in a_batches(run.model, A0_STEPS, 8, A0_SEQ, 11):
+        for b in batches:
             if mode != "exact":
                 b = trainer.make_node_batch(b, TRAIN_N)
             st, m = step(st, {k: torch.from_numpy(v).to(dev)
                               for k, v in b.items()})
             losses.append(float(m["loss"]))
-        ref["runs"][name, mode, wire] = {
+        ref["runs"][key] = {
             "losses": losses,
-            "params": [p.cpu() for p in tree_leaves(st.params)]}
+            "params": [p.cpu() for p in tree_leaves(st.params)],
+            "drops": (b_drops(dev, run, batches[0])
+                      if key in spec["drop_runs"] else None)}
         del st, step
-    run = a_run(A0_WIRED, "gossip", adam=True)
+    run = a_run(cfg(spec["driver"]), "gossip", adam=True)
     with y_driver(dev, None, run, a_state(dev, run), Y_SPEC, {}) as drv:
         st, hist = drv.run(Y_ROUNDS)
         ref["driver"] = {"events": [(e["superstep"], e["to"].active_ids)
@@ -5296,6 +5178,105 @@ def a_one_process(dev) -> dict:
     del st
     torch.cuda.empty_cache()
     return ref
+
+
+def reduced_checks(spec, ref0, got, card, fails) -> None:
+    """(A0)'s or (B0)'s checks of the ranks' results `got` (one a rank)
+    against one process's `ref0`, each printed; what fails is added to
+    `fails`. Each case's loss within A0_TOL rel, its gradients 99.9%
+    within 1e-5 and all within 1e-4, its drops (MoE) one process's on
+    every rank; each trainer run's and the driver's losses and
+    parameters, SGD on the exact wire at those bounds, a quantized wire
+    at the tests' quantized ones (a level that float noise moves moves
+    its entry by the level), Adam at
+    tests/test_torch_model_axis_elastic.py's (it turns the sums'
+    reassociation into O(lr) moves); the held runs' drops, summed over
+    each model index's data ranks, one process's and above 0;
+    `gossip_mix` launched on 1 x 4, `gossip_mix_quant` on a quantized
+    wire."""
+    label0 = spec["label"]
+    for name in spec["cases"]:
+        want = ref0["layers"][name]
+        rank = [g["layers"][name] for g in got]
+        loss_err = max(abs(g["loss"] - want["loss"]) / abs(want["loss"])
+                       for g in rank)
+        within5, within4, err = a_agree(rank[0]["grads"], want["grads"])
+        drops = [g["drops"] for g in rank]
+        cfg = spec["cfg"](name)
+        print(f"main {label0} [{card}] {name} (reduced {cfg.name} d_model "
+              f"{cfg.d_model} f32) on 1x4: loss {rank[0]['loss']:.7f} (one "
+              f"process {want['loss']:.7f}, max rel err over the ranks "
+              f"{loss_err:.2e}, limit {A0_TOL}); {len(want['grads'])} "
+              f"gradients within 1e-5 {within5:.6f} (limit >= 0.999), "
+              f"within 1e-4 {within4:.6f} (limit 1.0), max_abs_err "
+              f"{err:.3e}; dropped assignments by layer, rank 0 "
+              f"{drops[0]}, one process {want['drops']}; rank 0's "
+              f"model-axis [messages, bytes] by kind "
+              f"{json.dumps(rank[0]['log'])}")
+        if loss_err > A0_TOL or within5 < 0.999 or within4 < 1.0:
+            fails.append((name, "one process"))
+        if any(d != want["drops"] for d in drops) or (
+                name == spec["dropping"] and not sum(want["drops"])):
+            fails.append((name, "dropped assignments"))
+    lr = a_run(spec["cfg"](spec["driver"]), "gossip",
+               adam=True).learning_rate
+    for key, want in list(ref0["runs"].items()) + [
+            ("driver", ref0["driver"])]:
+        rank = [g["driver"] if key == "driver" else g["runs"][key]
+                for g in got]
+        loss_err = max(abs(a - b) / abs(b) for g in rank
+                       for a, b in zip(g["losses"], want["losses"],
+                                       strict=True))
+        parts = [g["params"] for g in rank if g["params"] is not None]
+        within5, within4, err = a_agree(
+            [p for part in parts for p in part],
+            [w for _ in parts for w in want["params"]])
+        launches = [g["launches"].get("gossip_mix", 0) for g in rank]
+        quant = [g["launches"].get("gossip_mix_quant", 0) for g in rank]
+        label = (f"driver under {Y_SPEC} with the rejoin sync, adam, "
+                 f"{spec['driver']}" if key == "driver" else
+                 f"{key[0]}, {key[1]}" + (f", {key[2]} tile wire"
+                                          if key[2] else ""))
+        frac, bound = ((0.999, 6 * lr) if key == "driver" else
+                       (0.99, 1e-2) if key[2] else (0.999, None))
+        # the quantized wire's losses at (z0)'s and the tests' bound
+        loss_tol = 1e-4 if key != "driver" and key[2] else A0_TOL
+        shape = A0_MESHES[key[1]] if key != "driver" else (1, 4)
+        events = (f"events {rank[0]['events']} (one process "
+                  f"{want['events']}); " if key == "driver" else "")
+        limits = (f"limit >= {frac}), within 1e-4 {within4:.6f} (limit "
+                  f"1.0)" if bound is None else
+                  f"limit >= {frac}), max_abs_err limit {bound:g}")
+        drops = ""
+        if key != "driver" and want["drops"] is not None:
+            # each model index's data ranks hold the global batch's shares
+            m = shape[1]
+            by_index = [[sum(c) for c in zip(*(g["drops"]
+                                               for g in rank[j::m]))]
+                        for j in range(m)]
+            drops = (f"; dropped assignments by layer, summed over the "
+                     f"data ranks of each model index {by_index}, one "
+                     f"process {want['drops']}")
+            if any(d != want["drops"] for d in by_index) or not sum(
+                    want["drops"]):
+                fails.append((label, "dropped assignments"))
+        print(f"main {label0} [{card}] {label} on {shape[0]}x{shape[1]}: "
+              f"{events}losses "
+              f"{json.dumps([round(x, 7) for x in rank[0]['losses']])}, max "
+              f"rel err {loss_err:.2e} (limit {loss_tol}); parameters within "
+              f"1e-5 {within5:.6f} ({limits}, max_abs_err {err:.3e}; "
+              f"gossip_mix launches by rank {launches}, gossip_mix_quant "
+              f"{quant}{drops}")
+        if loss_err > loss_tol or within5 < frac or (
+                within4 < 1.0 if bound is None else err > bound):
+            fails.append((label, "one process"))
+        if key == "driver" and rank[0]["events"] != want["events"]:
+            fails.append((label, "events"))
+        if shape == (1, 4) and not (key != "driver" and key[2]) and not all(
+                n > 0 for n in launches):
+            fails.append((label, "gossip_mix did not launch"))
+        if key != "driver" and key[2] and not all(n > 0 for n in quant):
+            fails.append((label, "gossip_mix_quant did not launch"))
 
 
 def a_agree(got, want) -> tuple:
@@ -5311,192 +5292,33 @@ def a_agree(got, want) -> tuple:
             float(d.max()))
 
 
-def model_axis_experts_phases(dev) -> dict:
-    """(A0)-(A1) on the card: the one-process references first ((A0)'s,
-    and (A1)'s round-1 loss, each freed), then A_WORLD rank processes
-    (`a_rank`), (A1)'s plan traced while they run. Prints each check and
-    (A)'s seconds; returns the ranks' launches by kernel and phase."""
-    import torch
-
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.core.packing import tree_leaves
-    from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import abstract_mesh
-    from repro_torch.models import registry
-    from repro_torch.train import trainer
-
+def model_axis_experts_phases(dev):
+    """(A0)-(A1) on the card, a step of `model_axis_shared_phases`: (A1)'s
+    one-process round-1 loss first (freed); yields, then (A0)'s
+    one-process references and (A1)'s plan while the ranks run; yields,
+    and is sent the ranks' results. Prints each check and (A)'s seconds;
+    returns the ranks' launches by kernel and phase."""
     t_all = time.perf_counter()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    root = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(root, ".smoke_ckpt", "model_axis_experts")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    # (A1)'s round 1 on one process: the mean of each node's loss at the
-    # initial parameters, freed before the ranks start
-    run1 = a1_run()
-    cfg1 = run1.model
-    params = registry.init_params(torch.Generator(device=dev).manual_seed(0),
-                                  cfg1, torch.bfloat16)
-    with torch.no_grad():
-        b = {k: torch.from_numpy(v).to(dev) for k, v in
-             t_tokens(cfg1, 1, 2 * A1_NODES, TRAIN_S, 2)[0].items()}
-        nodes = trainer.make_node_batch(b, A1_NODES)
-        ref1 = float(torch.stack([registry.loss_fn(
-            params, cfg1, {k: v[j] for k, v in nodes.items()})[0]
-            for j in range(A1_NODES)]).mean())
-    n_leaves = len(tree_leaves(params))
-    del params, b, nodes
-    torch.cuda.empty_cache()
+    # (A1)'s round 1 on one process, freed before the ranks start
+    run1 = full_run(A1_ARCH, A1_LAYERS, 0)
+    ref1 = full_round_one(dev, run1, a1_batches()[0])
     t_ref = time.perf_counter() - t_all
-    store = os.path.join(work, "store")
-    procs = []
-    for r in range(A_WORLD):
-        log = open(os.path.join(work, f"a_rank{r}.log"), "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--a-rank", str(r),
-             store, work], stdout=log, stderr=subprocess.STDOUT), log))
-    deadline = time.monotonic() + A_TIMEOUT
+    yield  # the ranks start
+    t_all = time.perf_counter()
     # (A0)'s one-process references and (A1)'s plan, while the ranks run
-    ref0 = a_one_process(dev)
-    amesh = abstract_mesh((1, 4), ("data", "model"))
-    rec = dryrun.plan(A1_ARCH, "train_4k", amesh, averaging="gossip",
-                      rounds=TRAIN_R, master_weights=True, cfg=cfg1,
-                      shape=ShapeConfig("(A1)", TRAIN_S, 2 * A1_NODES,
-                                        "train"),
-                      n_nodes=A1_NODES, microbatches=1,
-                      wire=dict(self_weight=U2_SELF_WEIGHT))
-    model = rec["collectives_model"]
-    count = lambda coll: sum(v for k, v in coll.items()
-                             if k.endswith(".count"))
-    plan = {"peak": rec["memory"]["peak_gib"] * 2 ** 30,
-            "kinds": {k: [int(model[k + ".count"]), int(2 * model[k])]
-                      for k in model if not k.endswith(".count")},
-            "data_messages": count(rec["collectives"]) - count(model),
-            "unsplit": rec["temp_unsplit_over_model"],
-            "refused": rec.get("model_axis_refused")}
-    t_plan = time.perf_counter() - t_all - t_ref
-    res = x_join("a", procs, work, deadline)
-    t_ranks = time.perf_counter() - t_all - t_ref
+    ref0 = reduced_one_process(dev, a0_spec())
+    plan = full_plan(A1_ARCH, run1.model, True)
+    t_plan = time.perf_counter() - t_all
+    res = yield
+    t_all = time.perf_counter()
 
     fails = []
-    # (A0) (a): each case against one process
-    for name in A0_CASES:
-        want = ref0["layers"][name]
-        got = [rr["A0"]["layers"][name] for rr in res]
-        loss_err = max(abs(g["loss"] - want["loss"]) / abs(want["loss"])
-                       for g in got)
-        within5, within4, err = a_agree(got[0]["grads"], want["grads"])
-        drops = [g["drops"] for g in got]
-        print(f"main (A0) [{card}] {name} (reduced {A0_CASES[name][0]} d_model 512 "
-              f"f32) on 1x4: loss {got[0]['loss']:.7f} (one process "
-              f"{want['loss']:.7f}, max rel err over the ranks "
-              f"{loss_err:.2e}, limit {A0_TOL}); {len(want['grads'])} "
-              f"gradients within 1e-5 {within5:.6f} (limit >= 0.999), "
-              f"within 1e-4 {within4:.6f} (limit 1.0), max_abs_err "
-              f"{err:.3e}; dropped assignments by layer, rank 0 "
-              f"{drops[0]}, one process {want['drops']}; rank 0's "
-              f"model-axis [messages, bytes] by kind "
-              f"{json.dumps(got[0]['log'])}")
-        if loss_err > A0_TOL or within5 < 0.999 or within4 < 1.0:
-            fails.append((name, "one process"))
-        if any(d != want["drops"] for d in drops) or (
-                name == A0_DROPPING and not sum(want["drops"])):
-            fails.append((name, "dropped assignments"))
-    # (A0) (b): each trainer run, and the driver, against one process
-    for key, want in list(ref0["runs"].items()) + [
-            ("driver", ref0["driver"])]:
-        got = ([rr["A0"]["driver"] for rr in res] if key == "driver"
-               else [rr["A0"]["runs"][key] for rr in res])
-        loss_err = max(abs(a - b) / abs(b) for g in got
-                       for a, b in zip(g["losses"], want["losses"],
-                                       strict=True))
-        parts = [g["params"] for g in got if g["params"] is not None]
-        within5, within4, err = a_agree(
-            [p for part in parts for p in part],
-            [w for _ in parts for w in want["params"]])
-        launches = [g["launches"].get("gossip_mix", 0) for g in got]
-        quant = [g["launches"].get("gossip_mix_quant", 0) for g in got]
-        label = (f"driver under {Y_SPEC} with the rejoin sync, adam, "
-                 f"{A0_WIRED}" if key == "driver" else
-                 f"{key[0]}, {key[1]}" + (f", {key[2]} tile wire"
-                                          if key[2] else ""))
-        # the share within 1e-5 and the largest gap: SGD on the exact
-        # wire at (A0)'s bounds; a quantized wire at the tests' quantized
-        # ones (a level that float noise moves moves its entry by the
-        # level); Adam at tests/test_torch_model_axis_elastic.py's (it
-        # turns the sums' reassociation into O(lr) moves)
-        frac, bound = ((0.999, 6 * a_run(A0_WIRED, "gossip", adam=True)
-                        .learning_rate) if key == "driver" else
-                       (0.99, 1e-2) if key[2] else (0.999, None))
-        # the quantized wire's losses at (z0)'s and the tests' bound
-        loss_tol = 1e-4 if key != "driver" and key[2] else A0_TOL
-        shape = A0_MESHES[key[1]] if key != "driver" else (1, 4)
-        events = (f"events {got[0]['events']} (one process "
-                  f"{want['events']}); " if key == "driver" else "")
-        limits = (f"limit >= {frac}), within 1e-4 {within4:.6f} (limit "
-                  f"1.0)" if bound is None else
-                  f"limit >= {frac}), max_abs_err limit {bound:g}")
-        print(f"main (A0) [{card}] {label} on {shape[0]}x{shape[1]}: {events}losses "
-              f"{json.dumps([round(x, 7) for x in got[0]['losses']])}, max "
-              f"rel err {loss_err:.2e} (limit {loss_tol}); parameters within "
-              f"1e-5 {within5:.6f} ({limits}, max_abs_err {err:.3e}; "
-              f"gossip_mix launches by rank {launches}, gossip_mix_quant "
-              f"{quant}")
-        if loss_err > loss_tol or within5 < frac or (
-                within4 < 1.0 if bound is None else err > bound):
-            fails.append((label, "one process"))
-        if key == "driver" and got[0]["events"] != want["events"]:
-            fails.append((label, "events"))
-        if shape == (1, 4) and not (key != "driver" and key[2]) and not all(
-                n > 0 for n in launches):
-            fails.append((label, "gossip_mix did not launch"))
-        if key != "driver" and key[2] and not all(n > 0 for n in quant):
-            fails.append((label, "gossip_mix_quant did not launch"))
-    # (A1)
-    a1 = [rr["A1"] for rr in res]
-    first = [g["rounds"][0]["loss"] for g in a1]
-    loss_err = max(abs(x - ref1) / abs(ref1) for x in first)
-    peaks = [g["peak_bytes"] for g in a1]
-    peak_ratio = [plan["peak"] / p for p in peaks]
-    secs = [[round(rd["s"], 3) for rd in g["rounds"]] for g in a1]
-    kinds = [[{k.split(" ", 1)[1]: v for k, v in rd["log"].items()
-               if k.startswith("model ")} for rd in g["rounds"]] for g in a1]
-    data = [[rd["stats"]["data_messages"] for rd in g["rounds"]] for g in a1]
-    launches = [g["launches"].get("gossip_mix", 0) for g in a1]
-    want_mix = n_leaves * A1_ROUNDS
-    print(f"main (A1) [{card}] {A1_ARCH} published widths, {A1_LAYERS} layers, bf16 "
-          f"+ f32 masters, adam, {A1_NODES} nodes x 2 x {TRAIN_S} tokens, "
-          f"ring R={TRAIN_R} self weight {U2_SELF_WEIGHT}, gossip on 1x4 "
-          f"({A_WORLD} ranks on the card): losses by rank 0 "
-          f"{[round(rd['loss'], 5) for rd in a1[0]['rounds']]} (round 1 on "
-          f"one process {ref1:.5f}, max rel err over the ranks "
-          f"{loss_err:.2e}, limit {T2_LOSS_TOL}); s per round by rank "
-          f"{secs}; model-axis [messages, wire bytes] by kind, rank 0 round "
-          f"1 {json.dumps(kinds[0][0])} (planned {json.dumps(plan['kinds'])}"
-          f"); data-axis messages {sorted(set(x for xs in data for x in xs))}"
-          f"; bytes at rest by rank {sorted(set(g['at_rest'] for g in a1))};"
-          f" peak memory by rank GB {[round(p / 1e9, 3) for p in peaks]}, "
-          f"plan {plan['peak'] / 1e9:.3f} GB, plan over measured "
-          f"{min(peak_ratio):.4f}-{max(peak_ratio):.4f} (limit within "
-          f"{P1_BOUND}); gossip_mix launches by rank {launches} (by design "
-          f"{want_mix}: one a leaf a round)")
-    if plan["refused"] is not None or plan["unsplit"]:
-        fails.append(("(A1)", f"the plan kept the model axis unsplit: "
-                              f"{plan['refused']}"))
-    if not all(math.isfinite(rd["loss"]) for g in a1 for rd in g["rounds"]):
-        fails.append(("(A1)", "losses not finite"))
-    if loss_err > T2_LOSS_TOL:
-        fails.append(("(A1)", "round 1's loss disagrees with one process"))
-    if any(k != plan["kinds"] for ks in kinds for k in ks):
-        fails.append(("(A1)", "model-axis messages differ from the plan"))
-    if any(x for xs in data for x in xs) or plan["data_messages"]:
-        fails.append(("(A1)", "a data-axis message on 1 x 4"))
-    if not all(abs(x - 1) <= P1_BOUND for x in peak_ratio):
-        fails.append(("(A1)", "a rank's peak is not within the plan's bound"))
-    if any(n != want_mix for n in launches):
-        fails.append(("(A1)", "gossip_mix launches"))
+    reduced_checks(a0_spec(), ref0, [rr["A0"] for rr in res], card, fails)
+    full_check("(A1)", run1, [rr["A1"] for rr in res], ref1, plan, card,
+               fails)
     by_kernel = {}
     for name in ("gossip_mix", "gossip_mix_quant", "quant_slot_stats",
                  "quant_slot_round"):
@@ -5504,16 +5326,491 @@ def model_axis_experts_phases(dev) -> dict:
             "A0": [sum(g["launches"].get(name, 0)
                        for g in list(rr["A0"]["runs"].values())
                        + [rr["A0"]["driver"]]) for rr in res],
-            "A1": [g["launches"].get(name, 0) for g in a1]}
+            "A1": [rr["A1"]["launches"].get(name, 0) for rr in res]}
     print(f"main (A) [{card}] seconds: (A1)'s one-process round {t_ref:.1f}, (A0)'s "
           f"one-process references and (A1)'s plan {t_plan:.1f} while the "
-          f"ranks ran, the ranks {t_ranks:.1f} (rank "
-          f"0: (A0) {res[0]['seconds']['A0']:.1f}, (A1) "
-          f"{res[0]['seconds']['A1']:.1f}), all "
-          f"{time.perf_counter() - t_all:.1f} (target < 80)")
+          f"ranks ran, rank 0: (A0) {res[0]['seconds']['A0']:.1f}, (A1) "
+          f"{res[0]['seconds']['A1']:.1f}, the checks "
+          f"{time.perf_counter() - t_all:.1f}")
     require(not fails, f"(A): {fails}")
-    shutil.rmtree(work, ignore_errors=True)
     return {k: v for k, v in by_kernel.items() if any(map(sum, v.values()))}
+
+
+# ---------------------------------------------------------------------------
+# (B) the SSD, RG-LRU and encoder-decoder families over a model axis, and
+# the MoE routing of the exact mode over a split data axis, in the spawn
+# that (y), (z) and (A) share (`model_axis_shared_phases`). (B0): the cases
+# of tests/test_torch_model_axis_families.py in f32, against one process
+# on the card: each case's loss and gradients on 1 x 4; the trainer,
+# A0_STEPS SGD steps of 8 x A0_SEQ tokens at TRAIN_N nodes, gossip on 1 x 4
+# and exact on 2 x 2, the int8 tile wire on mamba2 on 1 x 4 (its 64-column
+# tiles straddle ranks in w_in), recurrentgemma through the driver under
+# Y_SPEC with the rejoin sync (Adam); and the MoE repair, one exact SGD step
+# of B0_MOE on 2 x 2, its dropped assignments summed over each model
+# index's data ranks. (B1): B1_ARCH as (u2) runs it (published widths, one
+# period of B1_LAYERS layers, U2's 2 nodes at self weight U2_SELF_WEIGHT,
+# ring R = TRAIN_R, 2 x TRAIN_S tokens a node, bf16 with (u2)'s masters,
+# Adam at 3e-4, or SGD where the 4 ranks' plans pass B1_PEAK_GB), gossip on
+# 1 x 4, B1_ROUNDS rounds, round 1 on (u2)'s round-1 batch against (u2)'s
+# one-process loss on it. (B2): each of B2_RUNS at its published widths cut
+# in depth, bf16 with f32 masters, Adam at 3e-4, the same ring and nodes,
+# TRAIN_S frames a sequence for the encoder-decoder, one round on 1 x 4
+# against one process on the card.
+B0_CASES = {  # name -> (arch, layers, d_model, changes, SSM changes)
+    "ssd 4 heads a rank": ("mamba2-2.7b", 2, 256, {}, {}),
+    "ssd 1.5 heads a rank": ("mamba2-2.7b", 2, 192, {}, {"head_dim": 64}),
+    "ssd heads kept whole": ("mamba2-2.7b", 2, 65, {},
+                             {"head_dim": 13, "state_dim": 33}),
+    "rglru one period": ("recurrentgemma-9b", 3, 256, {}, {}),
+    "encdec vocab 514": ("seamless-m4t-medium", 2, 256,
+                         {"vocab_size": 514}, {}),
+}
+B0_FAMILIES = ("ssd 4 heads a rank", "rglru one period", "encdec vocab 514")
+B0_WIRED, B0_CHURNED = "ssd 4 heads a rank", "rglru one period"
+B0_MOE = "moe 6 experts top-2"
+B0_MOE_CFG = ("qwen2-moe-a2.7b", 2, 256, {},
+              {"num_experts": 6, "top_k": 2, "capacity_factor": 1.0})
+B1_ARCH, B1_LAYERS, B1_ROUNDS, B1_PEAK_GB = "recurrentgemma-9b", 3, 2, 74
+B2_RUNS = (("mamba2-2.7b", 2, 0), ("seamless-m4t-medium", 2, 2))
+SHARED_WORLD, SHARED_TIMEOUT = 4, 900
+
+
+def b_cfg(name):
+    """(B0)'s config of case `name`."""
+    from repro_torch.configs import get_config, reduced
+
+    arch, layers, d_model, changes, inner = (B0_MOE_CFG if name == B0_MOE
+                                             else B0_CASES[name])
+    cfg = dataclasses.replace(reduced(get_config(arch), layers=layers,
+                                      d_model=d_model), **changes)
+    if inner:
+        key = "moe" if cfg.moe is not None else "ssm"
+        cfg = dataclasses.replace(cfg, **{key: dataclasses.replace(
+            getattr(cfg, key), **inner)})
+    return cfg
+
+
+def b0_spec() -> dict:
+    """(B0)'s reduced cases, as `a0_spec`'s: the MoE repair's exact step
+    on 2 x 2 holds its dropped assignments."""
+    moe = (B0_MOE, "exact", None)
+    return {"label": "(B0)", "cfg": b_cfg, "cases": tuple(B0_CASES),
+            "runs": tuple((name, mode, None) for name in B0_FAMILIES
+                          for mode in A0_MESHES)
+            + ((B0_WIRED, "gossip", "int8"), moe),
+            "drop_runs": (moe,), "driver": B0_CHURNED, "dropping": None}
+
+
+def b_drops(dev, run, b, mesh=None):
+    """The dropped assignments of each MoE layer of `run` on batch `b`
+    (numpy) from seed 0's parameters, in a forward without remat: over
+    `mesh` this rank's share in the exact mode, its model shard's blocks."""
+    import torch
+
+    from repro_torch.core.packing import map_tensors
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.models import moe, registry
+    from repro_torch.models.common import global_batch, mesh_rules
+    from repro_torch.train import trainer
+
+    params = registry.init_params(torch.Generator().manual_seed(0),
+                                  run.model, torch.float32)
+    if mesh is not None:
+        params = shlib.shard_tree(params, trainer.rest_specs(
+            run.model, mesh, exact=False), mesh)
+    params = map_tensors(lambda t: t.to(dev), params)
+    batch = (x_batch(dev, b, mesh, "exact") if mesh is not None else
+             {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+    with torch.no_grad(), mesh_rules(mesh), global_batch(mesh), \
+            moe.count_drops() as counts:
+        registry.loss_fn(params, run.model, batch, remat=False)
+    return [int(c) for c in counts]
+
+
+def full_run(arch, layers, encoder_layers, masters=True, adam=True):
+    """A full-width gossip run ((A1), (B1), (B2)): `arch` at its published
+    widths cut to `layers` (and `encoder_layers`), (u2)'s ring between
+    A1_NODES nodes, bf16, with f32 masters unless `masters` is false,
+    Adam at 3e-4 (SGD unless `adam`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES, AveragingConfig, RunConfig
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if encoder_layers:
+        cfg = dataclasses.replace(cfg, encoder_layers=encoder_layers)
+    return RunConfig(model=cfg, shape=SHAPES["train_4k"],
+                     averaging=AveragingConfig(
+                         "gossip", TRAIN_R, "ring",
+                         self_weight=U2_SELF_WEIGHT),
+                     optimizer="adam" if adam else "sgd",
+                     learning_rate=3e-4, param_dtype="bfloat16",
+                     master_weights=masters)
+
+
+def a1_batches():
+    """(A1)'s rounds' batches: 2 x TRAIN_S tokens a node (numpy)."""
+    return t_tokens(full_run(A1_ARCH, A1_LAYERS, 0).model, A1_ROUNDS,
+                    2 * A1_NODES, TRAIN_S, 2)
+
+
+def b_full_batches(cfg, seed):
+    """One round's batch of a full-width (B2) run: 2 x TRAIN_S tokens a
+    node (TRAIN_S frames a sequence for an encoder-decoder, (u3)'s)."""
+    return a_batches(cfg, 1, 2 * A1_NODES, TRAIN_S, seed)
+
+
+def b_rank(dev, meshes, workdir: str) -> dict:
+    """(B0)-(B2) on one rank; (B1)'s round-1 batch and its masters and
+    optimizer from DIR/b_input.pt (the parent's, from (u2))."""
+    import torch
+
+    given = torch.load(os.path.join(workdir, "b_input.pt"),
+                       weights_only=False)
+    out = {"seconds": {}}
+    t0 = time.perf_counter()
+    out["B0"] = reduced_rank(dev, meshes, b0_spec())
+    out["seconds"]["B0"] = time.perf_counter() - t0
+    m14 = meshes[(1, 4)]
+    t0 = time.perf_counter()
+    run = full_run(B1_ARCH, B1_LAYERS, 0, given["masters"],
+                     given["adam"])
+    batches = [given["batch"]] + t_tokens(run.model, B1_ROUNDS - 1,
+                                          2 * A1_NODES, TRAIN_S, 3)
+    out["B1"] = full_rank(dev, m14, run, A1_NODES, batches)
+    out["seconds"]["B1"] = time.perf_counter() - t0
+    for arch, layers, enc in B2_RUNS:
+        t0 = time.perf_counter()
+        run = full_run(arch, layers, enc)
+        out["B2", arch] = full_rank(dev, m14, run, A1_NODES,
+                                    b_full_batches(run.model, 5))
+        out["seconds"][arch] = time.perf_counter() - t0
+    return out
+
+
+def shared_rank(rank: int, store: str, workdir: str) -> int:
+    """One rank of (y), (z), (A) and (B), which share one spawn:
+    `python3 chip_smoke.py --shared-rank RANK STORE DIR`. Saves its
+    results to DIR/shared_rank{RANK}.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"))
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=SHARED_WORLD,
+                            timeout=datetime.timedelta(seconds=240))
+    meshes = {(1, 4): make_host_mesh(model=4),
+              (2, 2): make_host_mesh(model=2),
+              (2, 1, 2): make_mesh((2, 1, 2), ("pod", "data", "model"))}
+    res = {"seconds": {}}
+    for phase, fn in (("y0", lambda: y0_rank(dev, workdir, meshes)),
+                      ("y1", lambda: y1_rank(dev, meshes[(2, 2)])),
+                      ("z0", lambda: z0_rank(dev, meshes)),
+                      ("z1", lambda: z1_rank(dev, meshes[(1, 4)])),
+                      ("A0", lambda: reduced_rank(dev, meshes, a0_spec())),
+                      ("A1", lambda: full_rank(
+                          dev, meshes[(1, 4)], full_run(A1_ARCH, A1_LAYERS,
+                                                        0), A1_NODES,
+                          a1_batches())),
+                      ("B", lambda: b_rank(dev, meshes, workdir))):
+        t0 = time.perf_counter()
+        res[phase] = fn()
+        dist.barrier()
+        res["seconds"][phase] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    torch.save(res, os.path.join(workdir, f"shared_rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def full_plan(arch, cfg, masters):
+    """The planner's trace of a full-width (B1)/(B2) round on rank 0 of
+    1 x 4: the peak, the model axis's [messages, wire bytes] by kind, the
+    data axis's messages, and the flags."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    rec = dryrun.plan(arch, "train_4k", abstract_mesh((1, 4), ("data",
+                                                               "model")),
+                      averaging="gossip", rounds=TRAIN_R,
+                      master_weights=masters, cfg=cfg,
+                      shape=ShapeConfig("(B)", TRAIN_S, 2 * A1_NODES, "train"),
+                      n_nodes=A1_NODES, microbatches=1,
+                      wire=dict(self_weight=U2_SELF_WEIGHT))
+    model = rec["collectives_model"]
+    count = lambda coll: sum(v for k, v in coll.items()
+                             if k.endswith(".count"))
+    return {"peak": rec["memory"]["peak_gib"] * 2 ** 30,
+            "kinds": {k: [int(model[k + ".count"]), int(2 * model[k])]
+                      for k in model if not k.endswith(".count")},
+            "data_messages": count(rec["collectives"]) - count(model),
+            "unsplit": rec["temp_unsplit_over_model"],
+            "refused": rec.get("model_axis_refused")}
+
+
+def full_round_one(dev, run, batch) -> float:
+    """The mean over the nodes of each node's loss at seed 0's initial
+    parameters (drawn on the card, freed) on a round's batch (numpy
+    [2 * A1_NODES, ...] leaves): a round 1's loss on one process."""
+    import torch
+
+    from repro_torch.models import registry
+    from repro_torch.train import trainer
+
+    params = registry.init_params(torch.Generator(device=dev).manual_seed(0),
+                                  run.model, torch.bfloat16)
+    with torch.no_grad():
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        nodes = trainer.make_node_batch(b, A1_NODES)
+        loss = float(torch.stack([registry.loss_fn(
+            params, run.model, {k: v[j] for k, v in nodes.items()})[0]
+            for j in range(A1_NODES)]).mean())
+    del params, b, nodes
+    torch.cuda.empty_cache()
+    return loss
+
+
+def full_check(label, run, got, ref1, plan, card, fails):
+    """(A1)'s, (B1)'s or (B2)'s checks on the ranks' results `got` (one a
+    rank, `full_rank`'s) against the plan (`full_plan`): round 1's loss
+    within T2_LOSS_TOL of one process's `ref1`, every round's model-axis
+    messages and bytes by kind equal to the plan, no data-axis message,
+    each rank's peak within P1_BOUND of the plan's, gossip_mix launched
+    once a leaf a round; prints s per round."""
+    from repro_torch.core.packing import tree_leaves
+    from repro_torch.models import registry
+    from repro_torch.models.common import MetaGenerator
+
+    n_leaves = len(tree_leaves(registry.init_params(MetaGenerator(),
+                                                    run.model)))
+    first = [g["rounds"][0]["loss"] for g in got]
+    loss_err = max(abs(x - ref1) / abs(ref1) for x in first)
+    peaks = [g["peak_bytes"] for g in got]
+    peak_ratio = [plan["peak"] / p for p in peaks]
+    secs = [[round(rd["s"], 3) for rd in g["rounds"]] for g in got]
+    kinds = [[{k.split(" ", 1)[1]: v for k, v in rd["log"].items()
+               if k.startswith("model ")} for rd in g["rounds"]]
+             for g in got]
+    data = [[rd["stats"]["data_messages"] for rd in g["rounds"]]
+            for g in got]
+    launches = [g["launches"].get("gossip_mix", 0) for g in got]
+    rounds = len(got[0]["rounds"])
+    want_mix = n_leaves * rounds
+    cfg = run.model
+    layers = (f"{cfg.num_layers} + {cfg.encoder_layers}" if cfg.is_encdec
+              else f"{cfg.num_layers}")
+    print(f"main {label} [{card}] {cfg.name} published widths, {layers} "
+          f"layers, bf16{' + f32 masters' if run.master_weights else ''}, "
+          f"{run.optimizer}, {A1_NODES} nodes x 2 x {TRAIN_S} tokens, ring "
+          f"R={TRAIN_R} self weight {U2_SELF_WEIGHT}, gossip on 1x4 "
+          f"({SHARED_WORLD} ranks on the card): losses by rank 0 "
+          f"{[round(rd['loss'], 5) for rd in got[0]['rounds']]} (round 1 on "
+          f"one process {ref1:.5f}, max rel err over the ranks "
+          f"{loss_err:.2e}, limit {T2_LOSS_TOL}); s per round by rank "
+          f"{secs}; model-axis [messages, wire bytes] by kind, rank 0 round "
+          f"1 {json.dumps(kinds[0][0])} (planned {json.dumps(plan['kinds'])}"
+          f"); data-axis messages {sorted(set(x for xs in data for x in xs))}"
+          f"; bytes at rest by rank {sorted(set(g['at_rest'] for g in got))}"
+          f"; peak memory by rank GB {[round(p / 1e9, 3) for p in peaks]}, "
+          f"plan {plan['peak'] / 1e9:.3f} GB, plan over measured "
+          f"{min(peak_ratio):.4f}-{max(peak_ratio):.4f} (limit within "
+          f"{P1_BOUND}); gossip_mix launches by rank {launches} (by design "
+          f"{want_mix}: one a leaf a round)")
+    if plan["refused"] is not None or plan["unsplit"]:
+        fails.append((label, f"the plan kept the model axis unsplit: "
+                             f"{plan['refused']}"))
+    if not all(math.isfinite(rd["loss"]) for g in got for rd in g["rounds"]):
+        fails.append((label, "losses not finite"))
+    if loss_err > T2_LOSS_TOL:
+        fails.append((label, "round 1's loss disagrees with one process"))
+    if any(k != plan["kinds"] for ks in kinds for k in ks):
+        fails.append((label, "model-axis messages differ from the plan"))
+    if any(x for xs in data for x in xs) or plan["data_messages"]:
+        fails.append((label, "a data-axis message on 1 x 4"))
+    if not all(abs(x - 1) <= P1_BOUND for x in peak_ratio):
+        fails.append((label, "a rank's peak is not within the plan's bound"))
+    if any(n != want_mix for n in launches):
+        fails.append((label, "gossip_mix launches"))
+
+
+def model_axis_families_phases(dev, work, u2):
+    """(B0)-(B2) on the card, a step of `model_axis_shared_phases`: the
+    choice of (B1)'s masters and optimizer from (u2)'s and the 4 ranks'
+    plans, written with (u2)'s round-1 batch for the ranks, and (B2)'s
+    one-process round-1 losses (each freed); yields, then (B0)'s
+    one-process references and (B1)'s and (B2)'s plans while the ranks
+    run; yields, and is sent the ranks' results. `u2`: {"loss", "batch",
+    "masters"} of (u2)'s round 1. Prints each check and (B)'s seconds;
+    returns the ranks' launches by kernel and phase."""
+    import torch
+
+    t_all = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    # (B1): (u2)'s masters; Adam unless the 4 ranks' plans pass B1_PEAK_GB
+    run1 = full_run(B1_ARCH, B1_LAYERS, 0, u2["masters"])
+    plans = {"(B1)": full_plan(B1_ARCH, run1.model, u2["masters"])}
+    adam = SHARED_WORLD * plans["(B1)"]["peak"] / 1e9 <= B1_PEAK_GB
+    print(f"main (B1) [{card}] plan of {SHARED_WORLD} ranks: "
+          f"{SHARED_WORLD * plans['(B1)']['peak'] / 1e9:.3f} GB (limit "
+          f"{B1_PEAK_GB} GB): {'Adam' if adam else 'SGD in place of Adam'}"
+          f", f32 masters {'kept' if u2['masters'] else 'dropped'} as (u2)")
+    if not adam:
+        run1 = full_run(B1_ARCH, B1_LAYERS, 0, u2["masters"], adam=False)
+    torch.save({"batch": u2["batch"], "masters": u2["masters"],
+                "adam": adam}, os.path.join(work, "b_input.pt"))
+    # (B2)'s round 1 on one process
+    ref2 = {}
+    for arch, layers, enc in B2_RUNS:
+        run = full_run(arch, layers, enc)
+        ref2[arch] = full_round_one(dev, run, b_full_batches(run.model, 5)[0])
+    t_ref = time.perf_counter() - t_all
+    yield  # the ranks start
+    t_all = time.perf_counter()
+    ref0 = reduced_one_process(dev, b0_spec())
+    runs2 = {arch: full_run(arch, layers, enc)
+             for arch, layers, enc in B2_RUNS}
+    for arch, run in runs2.items():
+        plans[arch] = full_plan(arch, run.model, True)
+    t_plan = time.perf_counter() - t_all
+    res = yield
+    t_all = time.perf_counter()
+    b = [rr["B"] for rr in res]
+
+    fails = []
+    reduced_checks(b0_spec(), ref0, [rb["B0"] for rb in b], card, fails)
+    # (B1), (B2)
+    full_check("(B1)", run1, [rb["B1"] for rb in b], u2["loss"],
+               plans["(B1)"], card, fails)
+    for arch, run in runs2.items():
+        full_check("(B2)", run, [rb["B2", arch] for rb in b], ref2[arch],
+                   plans[arch], card, fails)
+    by_kernel = {}
+    for name in ("gossip_mix", "gossip_mix_quant", "quant_slot_stats",
+                 "quant_slot_round"):
+        by_kernel[name] = {
+            "B0": [sum(g["launches"].get(name, 0)
+                       for g in list(rb["B0"]["runs"].values())
+                       + [rb["B0"]["driver"]]) for rb in b],
+            "B1": [rb["B1"]["launches"].get(name, 0) for rb in b],
+            "B2": [sum(rb["B2", arch]["launches"].get(name, 0)
+                       for arch in runs2) for rb in b]}
+    print(f"main (B) [{card}] seconds: (B1)'s plan and (B2)'s one-process "
+          f"rounds {t_ref:.1f}, (B0)'s one-process references and (B2)'s "
+          f"plans {t_plan:.1f} while the ranks ran, rank 0: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in b[0]["seconds"].items())
+          + f", the checks {time.perf_counter() - t_all:.1f}")
+    require(not fails, f"(B): {fails}")
+    return {k: v for k, v in by_kernel.items() if any(map(sum, v.values()))}
+
+
+def model_axis_shared_phases(dev, u2=None) -> dict:
+    """(y), (z), (A) and (B) on the card in one spawn of SHARED_WORLD rank
+    processes (`shared_rank`): each phase's one-process references first
+    (each freed), then the ranks, each phase's references and plans
+    computed while they run, then each phase's checks. `u2`: (u2)'s
+    round 1 ({"loss", "batch", "masters"}), or None to compute it here
+    (a run of these phases alone). Returns each phase's launches, keyed
+    "y", "z" (with the slot kernels' rows), "A" and "B"."""
+    import torch
+
+    t_all = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, ".smoke_ckpt", "model_axis_shared")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if u2 is None:
+        u2 = b_u2_round_one(dev)
+    phases = {"y": model_axis_elastic_phases(dev),
+              "z": model_axis_wire_phases(dev),
+              "A": model_axis_experts_phases(dev),
+              "B": model_axis_families_phases(dev, work, u2)}
+    for phase in phases.values():
+        next(phase)
+    t_ref = time.perf_counter() - t_all
+    store = os.path.join(work, "store")
+    # (B1)'s four ranks take ~62 of the card's 79 GiB at their plans'
+    # peaks: segments that grow in place leave no reserved, unallocated
+    # blocks beside them
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = []
+    for r in range(SHARED_WORLD):
+        log = open(os.path.join(work, f"shared_rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shared-rank",
+             str(r), store, work], stdout=log, stderr=subprocess.STDOUT,
+            env=env), log))
+    deadline = time.monotonic() + SHARED_TIMEOUT
+    for phase in phases.values():
+        next(phase)
+    torch.cuda.empty_cache()
+    print(f"main (y-B) the references' process holds "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB of the card while "
+          f"the ranks run")
+    res = x_join("shared", procs, work, deadline)
+    t_ranks = time.perf_counter() - t_all - t_ref
+    out = {}
+    for key, phase in phases.items():
+        try:
+            phase.send(res)
+        except StopIteration as done:
+            out[key] = done.value
+    print(f"main (y-B) seconds: one-process references {t_ref:.1f}, the "
+          f"ranks {t_ranks:.1f} (rank 0: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in res[0]["seconds"].items())
+          + f"), all {time.perf_counter() - t_all:.1f}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def u_sampler(cfg, seq, frames):
+    """(u)'s sample_fn(rng, n): Markov tokens and labels of `seq` tokens
+    and, with `frames`, standard-normal [n, frames, frontend_embed_dim]
+    f32 frames (the reference's `synth_batch`), all from `rng`."""
+    from repro_torch.data.lm import MarkovTokenStream
+
+    data = MarkovTokenStream(cfg.vocab_size, seed=0)
+
+    def sample(rng, n):
+        toks = data.sample(rng, n, seq + 1)
+        out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        if frames:
+            out["frames"] = rng.standard_normal(
+                (n, frames, cfg.frontend_embed_dim)).astype(np.float32)
+        return out
+
+    return sample
+
+
+def b_u2_round_one(dev) -> dict:
+    """(u2)'s round 1 for a run of the shared phases alone: its masters
+    as `main` decides them, and its loss on its round-1 batch from seed 0's
+    parameters on one process (`main`'s (u2) computes it in its round-1
+    mix check)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    run = full_run(B1_ARCH, B1_LAYERS, 0)
+    rec = dryrun.plan(B1_ARCH, "train_4k", dryrun.parse_mesh("1x1"),
+                      averaging="gossip", rounds=TRAIN_R, cfg=run.model,
+                      shape=ShapeConfig("(u2)", TRAIN_S, 2 * A1_NODES,
+                                        "train"),
+                      n_nodes=A1_NODES, master_weights=True)
+    batch = u_sampler(run.model, TRAIN_S, 0)(np.random.default_rng(2),
+                                             2 * A1_NODES)
+    return {"loss": full_round_one(dev, run, batch), "batch": batch,
+            "masters": rec["memory"]["peak_gib"] * 2**30 / 1e9
+            <= U_MASTERS_GB}
 
 
 def main() -> int:
@@ -5594,15 +5891,6 @@ def main() -> int:
     # KV heads split inside a head) and durable model-axis runs, rank
     # processes sharing the card
     x_launches = model_axis_heads_phases(dev)
-    # (y): elastic membership and the vocab fallback over a model axis,
-    # rank processes sharing the card
-    y_launches = model_axis_elastic_phases(dev)
-    # (z): the Section VI wires over a model axis, rank processes sharing
-    # the card
-    z_out = model_axis_wire_phases(dev)
-    # (A): MoE experts, MLA's heads and early fusion's frontend_proj over a
-    # model axis, rank processes sharing the card
-    a_launches = model_axis_experts_phases(dev)
     # what phase (p) holds its plans against: peaks, card times
     p_measured = {}
 
@@ -8012,21 +8300,6 @@ def main() -> int:
     # ------------- the last three families through the trainer (u0)-(u3)
     t_u = time.perf_counter()
 
-    def u_sampler(cfg_, seq, frames):
-        """sample_fn(rng, n): Markov tokens and labels of `seq` tokens and,
-        with `frames`, standard-normal [n, frames, frontend_embed_dim] f32
-        frames (the reference's `synth_batch`), all from `rng`."""
-        data = MarkovTokenStream(cfg_.vocab_size, seed=0)
-
-        def sample(rng, n):
-            out = draw_tokens(data, rng, n, seq)
-            if frames:
-                out["frames"] = rng.standard_normal(
-                    (n, frames, cfg_.frontend_embed_dim)).astype(np.float32)
-            return out
-
-        return sample
-
     def n_buffers(params):
         """The packed gradient buffers of a step: one per dtype."""
         return len({p.dtype for p in tree_leaves(params)})
@@ -8039,13 +8312,16 @@ def main() -> int:
         bound, and the two consensus errors within U_CERR_RTOL of each
         other (the consensus error reads the deviations from the node
         mean, which a wrong weight moves where the max-scaled bound may
-        not). Returns the kernel's launches."""
+        not). Returns the kernel's launches and the round's loss (the mean
+        of the nodes' losses)."""
         params, n_ = state.params, len(state.opt.step)
         grads = tree_map(torch.empty_like, params)
+        losses = []
         for i in range(n_):
-            _, _, g = trainer.loss_and_grad(
+            loss, _, g = trainer.loss_and_grad(
                 run, tree_map(lambda p: p[i], params),
                 {k: v[i] for k, v in batch.items()})
+            losses.append(float(loss))
             for buf, gi in zip(tree_leaves(grads), tree_leaves(g)):
                 buf[i].copy_(gi)
             del g
@@ -8092,7 +8368,7 @@ def main() -> int:
         require(rel <= U_CERR_RTOL,
                 f"{label} {wire}: consensus errors of the kernel's and the "
                 f"plain mix disagree")
-        return launched
+        return launched, sum(losses) / n_
 
     def held_loss(run, state, batch):
         """The mean over nodes of each node's loss on one held batch."""
@@ -8187,8 +8463,9 @@ def main() -> int:
     u_plans = {}
     for label, arch, layers, n_u, u_wires, self_w, lr_u in U_RUNS:
         cfg_u = get_config(arch)
-        if layers:
-            cfg_u = dataclasses.replace(cfg_u, num_layers=layers)
+        if layers:  # an encoder-decoder's encoder too
+            cfg_u = dataclasses.replace(cfg_u, num_layers=layers, **(
+                {"encoder_layers": layers} if cfg_u.is_encdec else {}))
         b_u = 2 * n_u  # the round's samples, 2 a node
         shape_u = ShapeConfig(label, TRAIN_S, b_u, "train")
         plan_kw = dict(averaging="gossip", rounds=TRAIN_R, cfg=cfg_u,
@@ -8236,10 +8513,12 @@ def main() -> int:
                   f"s, {state_gb:.2f} GB (peak {init_peak:.2f})")
             # round 1's gradients through the kernel against its plain
             # version, and one held batch's loss before the rounds
-            rng = np.random.default_rng(2)
+            raw = sample(np.random.default_rng(2), b_u)
             b0 = {k: torch.from_numpy(v).to(dev) for k, v in
-                  trainer.make_node_batch(sample(rng, b_u), n_u).items()}
-            mixes = held_mix(label, wire, run, tstate, b0)
+                  trainer.make_node_batch(raw, n_u).items()}
+            mixes, round1 = held_mix(label, wire, run, tstate, b0)
+            if label == "(u2)":  # phase (B1)'s reference
+                u2 = {"loss": round1, "batch": raw, "masters": masters}
             require(mixes == bufs_u, f"{label} {wire}: round 1's mix "
                     f"launched its kernel {mixes} times, not {bufs_u}")
             del b0
@@ -8331,6 +8610,14 @@ def main() -> int:
             del tstate, drv, sup, staged, held
             torch.cuda.empty_cache()
     print(f"main (u) seconds: {time.perf_counter() - t_u:.1f}; card {smi}")
+
+    # (y), (z), (A) and (B) in one spawn of rank processes sharing the
+    # card: elastic membership and the vocab fallback, the Section VI
+    # wires, MoE experts, MLA's heads and early fusion's frontend_proj, and
+    # the SSD, RG-LRU and encoder-decoder families over a model axis, with
+    # the MoE routing of the exact mode over a split data axis; (B1) holds
+    # its round 1 against (u2)'s
+    shared = model_axis_shared_phases(dev, u2)
 
     # ------------------------------------- the planner against the card (p)
     # (p1) each plan on a 1 x 1 mesh (`launch/dryrun.py`: meta traces on the
@@ -8769,13 +9056,13 @@ def main() -> int:
                else "launches_by_nodes")
         row.setdefault(key, {})["s"] = by_phase
     # the ranks' launches of (t1)-(t2), (v1)-(v2), (w0)-(w2), (x0)-(x1),
-    # (y0)-(y1), (z0)-(z1) and (A0)-(A1), by phase and rank, under "t",
-    # "v", "w", "x", "y", "z" and "A"
-    rows += z_out["rows"]
+    # (y0)-(y1), (z0)-(z1), (A0)-(A1) and (B0)-(B2), by phase and rank,
+    # under "t", "v", "w", "x", "y", "z", "A" and "B"
+    rows += shared["z"]["rows"]
     for key, phases in (("t", t_launches), ("v", v_launches),
                         ("w", w_launches), ("x", x_launches),
-                        ("y", y_launches), ("z", z_out["launches"]),
-                        ("A", a_launches)):
+                        ("y", shared["y"]), ("z", shared["z"]["launches"]),
+                        ("A", shared["A"]), ("B", shared["B"])):
         for row in rows:
             by_phase = phases.get(row["name"])
             if by_phase is not None:
@@ -8809,10 +9096,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--x-rank"]:
         sys.exit(x_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
                         sys.argv[5], sys.argv[6]))
-    if sys.argv[1:2] == ["--y-rank"]:
-        sys.exit(y_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
-    if sys.argv[1:2] == ["--z-rank"]:
-        sys.exit(z_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
-    if sys.argv[1:2] == ["--a-rank"]:
-        sys.exit(a_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--shared-rank"]:
+        sys.exit(shared_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -25,10 +25,9 @@ P above 1 splits the node shards two ways too: the D node shards of one
 pod form its *pod group*, and the P node shards of one data index its
 *lane group* (`lane_mesh`), which the hierarchical mode's
 reduce-scatter, all-gather and gossip between the pods use; their
-messages count as node-axis ones. The LM trainer's decoder-only
-families but the SSD and RG-LRU ones execute a model axis
-(`train/trainer.py`, `models/common.py`); `check_mesh` refuses one on
-the paths that do not (the PCA and convex drivers).
+messages count as node-axis ones. The LM trainer executes a model axis
+for every family (`train/trainer.py`, `models/common.py`); `check_mesh`
+refuses one on the paths that do not (the PCA and convex drivers).
 """
 from __future__ import annotations
 

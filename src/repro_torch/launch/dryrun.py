@@ -27,10 +27,10 @@ decentralized mode, and the batch and cache split over the data axes. The
 argument bytes are those of the planned placements (ZeRO-1 and the model
 axis included).
 
-On a model axis of extent above 1 the train step of every family the
-trainer executes there (the dense, MoE, MLA and early-fusion decoders) is
-traced as each rank runs it (`train/trainer.py`), at any extent (the
-production 16 x 16 included): the rank's blocks of
+On a model axis of extent above 1 the train step of every family (the
+trainer executes them all there) is traced as each rank runs it
+(`train/trainer.py`), at any extent (the production 16 x 16 included):
+the rank's blocks of
 the state at rest (ZeRO-1 in the exact mode, the model shards of its node
 rows in the decentralized one), its tensor-parallel layers (with the
 pieces of the heads a split cuts), and every message of both axes through
@@ -38,12 +38,11 @@ pieces of the heads a split cuts), and every message of both axes through
 meta that count what they would move on the card (`dist.log`); the record
 carries those counts (`collectives`, the model axis's apart in
 `collectives_model`; the quantized and error-feedback wires' slot
-statistics as "slot all-reduce" messages). Every other step on a model
-axis (the families the trainer refuses there, and serving) keeps the
-model axis
-planned, not executed: its temporaries are the unsplit upper bound
-(`temp_unsplit_over_model`), the Megatron split's activation all-reduces
-are planned (`collectives_planned`), and `model_axis_refused` says why.
+statistics as "slot all-reduce" messages). Serving on a model axis
+keeps it planned, not executed: its temporaries are the unsplit upper
+bound (`temp_unsplit_over_model`), the Megatron split's activation
+all-reduces are planned (`collectives_planned`), and `model_axis_refused`
+says why (`model_axis_refusal`).
 
 On the node axis alone collectives are derived: what `dist.py` moves on
 each rank for the step (the exact mode's f32 gradient all-reduce; the
@@ -307,9 +306,8 @@ def build_lowerable(arch: str, shape_name: str, mesh, averaging: str = "exact",
         state = trainer.init_state(run, MetaGenerator())
         batch = _tokens_long(registry.input_specs(cfg, shape))
         N = n_nodes or ndp
-        refused = model_axis_refusal(run, mesh)
-        tp = mesh.shape.get("model", 1) > 1 and refused is None
-        info.update(run=run, n_nodes=N, refused=refused, executed=tp)
+        tp = mesh.shape.get("model", 1) > 1
+        info.update(run=run, n_nodes=N, executed=tp)
         cohort = membership is not None and not membership.is_full
         if cohort and not (decentralized and tp):
             raise ValueError("a cohort step is traced only for a "
@@ -405,17 +403,18 @@ def _cohort_step(run: RunConfig, mesh, n: int, membership, batch):
     return step, tbatch
 
 
-def model_axis_refusal(run: RunConfig, mesh) -> Optional[str]:
-    """Why the trainer does not execute `run` over `mesh`'s model axis
-    (its NotImplementedError's message), or None where it does or the
-    mesh has no model axis."""
-    if mesh.shape.get("model", 1) <= 1:
+SERVING_REFUSAL = ("serving on a model axis is planned, not executed "
+                   "(ROADMAP.md queue 1 item 7)")
+
+
+def model_axis_refusal(mode: str, mesh) -> Optional[str]:
+    """Why the port does not execute a step of `mode` ("train", "prefill"
+    or "decode") over `mesh`'s model axis, or None where it does (every
+    train step) or the mesh has no model axis: serving is planned there,
+    not executed."""
+    if mesh.shape.get("model", 1) <= 1 or mode == "train":
         return None
-    try:
-        trainer.check_supported(run, mesh)
-    except NotImplementedError as e:
-        return str(e)
-    return None
+    return SERVING_REFUSAL
 
 
 def _cache_len(cache) -> int:
@@ -446,6 +445,25 @@ def _reduce_messages(nbytes: int) -> int:
     """`dist.all_reduce_`'s messages for a tensor of `nbytes` on the card
     (chunks of STAGE_BYTES)."""
     return max(1, -(-nbytes // rdist.STAGE_BYTES))
+
+
+def _routing_gathers(coll: dict, run: RunConfig, mesh) -> None:
+    """The exact mode's MoE routing of the global batch
+    (`models/moe.py`): each MoE layer's forward, and its recompute under
+    remat, all-gathers its [groups, E] int64 counts over the data group."""
+    cfg = run.model
+    if cfg.moe is None:
+        return
+    from repro_torch.models.moe import group_size
+    from repro_torch.models.transformer import layer_specs
+    E = rdist.n_data_nodes(mesh)
+    tokens = run.shape.global_batch * run.shape.seq_len // run.microbatches
+    n = tokens // group_size(tokens) * cfg.moe.num_experts
+    calls = run.microbatches * (2 if run.remat else 1) * sum(
+        spec.has_moe for spec in layer_specs(cfg))
+    chunks = rdist.column_chunks(n, E, 8)
+    _add(coll, "all-gather", calls * (1 + E) * n * 8 / 2,
+         calls * len(chunks))
 
 
 def node_axis_collectives(run: RunConfig, params: Tree, mesh,
@@ -487,6 +505,7 @@ def node_axis_collectives(run: RunConfig, params: Tree, mesh,
             nbytes = 4 * p.numel()
             _add(coll, "all-reduce", nbytes, _reduce_messages(nbytes))
         _add(coll, "all-reduce", 4 * metrics, 1)
+        _routing_gathers(coll, run, mesh)
         return coll
     avg = run.averaging
     if avg.mode not in ("gossip", "hierarchical"):
@@ -886,9 +905,7 @@ def plan(arch: str, shape_name: str, mesh, *, averaging: str = "exact",
         rec["collectives_model"] = model_axis_collectives(low.info,
                                                           tr["log"])
     elif model > 1:
-        rec["model_axis_refused"] = (low.info.get("refused")
-                                     or "serving on a model axis is "
-                                        "planned, not executed")
+        rec["model_axis_refused"] = model_axis_refusal(shape.mode, mesh)
     rec["collectives_planned"] = ({} if executed
                                   else model_axis_collectives(low.info))
     rec["staged_bytes"] = staged_bytes(coll)

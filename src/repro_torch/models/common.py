@@ -20,6 +20,10 @@ head that a rank needs whole (the pieces joined forward, their gradients
 summed back to their owners), and `gather_columns` where a replicated
 activation is made from column blocks (the columns joined forward, the
 rank's columns of the gradient kept).
+
+`global_batch(mesh)` installs the data group of the exact mode's step:
+its ranks' batches are the consecutive shares of one global batch, which
+the MoE layers route as one (`models/moe.py`).
 `stack_init` is not ported: the port keeps one parameter dict per layer
 instead of stacked super-blocks (`models/transformer.py`).
 """
@@ -90,6 +94,30 @@ def mesh_rules(mesh):
 def current_mesh():
     """The installed mesh with a model axis above 1, else None."""
     return _MESH[0]
+
+
+_BATCH = [None]  # the mesh `global_batch` installed, when its data axis > 1
+
+
+@contextlib.contextmanager
+def global_batch(mesh):
+    """Run the layers on `mesh`'s data group's shares of one global batch:
+    data rank r holds its r-th consecutive share (`data.pipeline.shard_batch`
+    in the exact mode). Nothing changes on a mesh of one data rank, or with
+    None; the previous mesh is restored on exit."""
+    prev = _BATCH[0]
+    _BATCH[0] = (mesh if mesh is not None and rdist.n_data_nodes(mesh) > 1
+                 else None)
+    try:
+        yield
+    finally:
+        _BATCH[0] = prev
+
+
+def batch_mesh():
+    """The installed mesh whose data ranks share one global batch, else
+    None."""
+    return _BATCH[0]
 
 
 def _model_sum(x: torch.Tensor, mesh) -> torch.Tensor:

@@ -20,6 +20,15 @@ Frames are cast to the parameters' dtype before the projection (the
 reference's input specs declare them in the model's bf16; given f32 frames
 and bf16 weights, the reference would promote its whole encoder-decoder to
 f32, which the port does not).
+
+Under an installed model axis (`models/common.py` `mesh_rules`) the
+encoder's and the decoder's attention and FFNs run the dense layers'
+tensor-parallel forms; cross-attention takes the rank's q heads from the
+decoder stream and their k and v from the memory, which is replicated
+(`layers.apply_attention`); frontend_proj's d_model columns are
+projected and all-gathered, and the tied vocab takes the rank's vocab
+rows or, where the extent does not divide it, its d_model columns
+(`layers.vocab_split`).
 """
 from __future__ import annotations
 
@@ -33,7 +42,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import dense_init, embed_init
+from repro_torch.models.common import (current_mesh, dense_init,
+                                       embed_init, gather_columns)
 
 Params = Dict[str, Any]
 
@@ -90,6 +100,8 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
     `remat` (the training loss) each layer is checkpointed."""
     proj = params["frontend_proj"]
     x = frames.to(proj.dtype) @ proj
+    if current_mesh() is not None and L._is_block(proj, 1, cfg.d_model):
+        x = gather_columns(x)  # the rank's d_model columns, joined
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
     for p in params["encoder"]:
@@ -99,14 +111,6 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
         else:
             x = _enc_block(cfg, p, x, positions, train)
     return x
-
-
-def _cross_kv(cfg: ModelConfig, p: Params, memory: torch.Tensor):
-    B, S, _ = memory.shape
-    kh, hd = cfg.num_kv_heads, cfg.resolved_head_dim
-    k = (memory @ p["wk"]).reshape(B, S, kh, hd)
-    v = (memory @ p["wv"]).reshape(B, S, kh, hd)
-    return k, v
 
 
 def _dec_block(cfg: ModelConfig, p: Params, x, positions, memory, cache,
@@ -119,10 +123,8 @@ def _dec_block(cfg: ModelConfig, p: Params, x, positions, memory, cache,
                                train=train)
     x = x + out
     h = L.apply_norm(p["norm_x"], x, cfg.norm)
-    ck, cv = _cross_kv(cfg, p["cross_attn"], memory)
     out, _ = L.apply_attention(p["cross_attn"], cfg, h, positions,
-                               attn_mode="full", cross_kv=(ck, cv),
-                               train=train)
+                               attn_mode="full", memory=memory, train=train)
     x = x + out
     h = L.apply_norm(p["norm2"], x, cfg.norm)
     return x + L.apply_ffn(p["ffn"], h, cfg)
@@ -139,7 +141,8 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         memory = encode(params, cfg, batch["frames"], remat=remat,
                         train=train)
     # the reference scales in f32 (jnp.sqrt of an int32), then casts
-    x = L.embed_lookup(params["embed"], batch["tokens"])
+    emb = params["embed"]
+    x = L.embed_lookup(emb, batch["tokens"], L.vocab_split(emb, cfg))
     x = (x.float() * math.sqrt(cfg.d_model)).to(memory.dtype)
     B, Sd = batch["tokens"].shape
     base = 0 if cache_index is None else cache_index
@@ -158,7 +161,7 @@ def forward(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             x = _dec_block(cfg, p, x, positions, memory, c, cache_index,
                            window_override, train)
     x = L.apply_norm(params["final_norm"], x, cfg.norm)
-    logits = L.unembed_logits(params["embed"], x)
+    logits = L.unembed_logits(emb, x, L.vocab_split(emb, cfg))
     if cache is not None:
         cache["memory"] = memory
     return logits, torch.zeros((), dtype=torch.float32, device=x.device), cache
@@ -170,7 +173,8 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *, remat: bool = True,
     with attention on its differentiable route."""
     logits, _, _ = forward(params, cfg, batch, remat=remat, train=True,
                            window_override=window_override)
-    ce = L.cross_entropy(logits, batch["labels"])
+    ce = L.cross_entropy(logits, batch["labels"],
+                         L.vocab_split(params["embed"], cfg))
     return ce, {"ce": ce, "aux": torch.zeros((), dtype=torch.float32,
                                              device=ce.device)}
 

@@ -304,26 +304,31 @@ def _take_heads(cols: torch.Tensor, g: int, lo: int, hi: int,
 
 
 def _split_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor,
-               heads: _Heads) -> Tuple[torch.Tensor, ...]:
-    """q [B, S, h1 - h0, hd] of the rank's heads and k, v [B, S, ., hd] of
+               heads: _Heads,
+               memory: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, ...]:
+    """q [B, S, h1 - h0, hd] of the rank's heads and k, v [B, Sk, ., hd] of
     their KV heads, whole: each projected from the columns the rank holds,
-    the pieces it lacks gathered from its block (`gather_from_model`). k
-    and v kept whole are computed whole, each rank's gradient of them
-    summed over the model group (`copy_to_model` on the product). Where
-    the rank's heads do not read their KV heads as `blockwise_attention`'s
-    h // G' does (G' = its heads over its KV heads), k and v come back one
-    per head."""
-    B, S, _ = x.shape
+    the pieces it lacks gathered from its block (`gather_from_model`); k
+    and v from x, or from the encoder's `memory` (cross-attention, Sk its
+    length). k and v kept whole are computed whole, each rank's gradient
+    of them summed over the model group (`copy_to_model` on the product).
+    Where the rank's heads do not read their KV heads as
+    `blockwise_attention`'s h // G' does (G' = its heads over its KV
+    heads), k and v come back one per head."""
+    kv_in = x if memory is None else memory
+    B, Sk, _ = kv_in.shape
     hd = cfg.resolved_head_dim
     xs = copy_to_model(x)
+    kvs = xs if memory is None else copy_to_model(memory)
     (h0, h1), (k0, k1) = heads.q, heads.kv
     q = _take_heads(xs @ p["wq"], heads.g_q, h0, h1, hd)
     if heads.g_kv:
-        k = _take_heads(xs @ p["wk"], heads.g_kv, k0, k1, hd)
-        v = _take_heads(xs @ p["wv"], heads.g_kv, k0, k1, hd)
+        k = _take_heads(kvs @ p["wk"], heads.g_kv, k0, k1, hd)
+        v = _take_heads(kvs @ p["wv"], heads.g_kv, k0, k1, hd)
     else:
-        whole = lambda w: copy_to_model(x @ w)[..., k0 * hd:k1 * hd].reshape(
-            B, S, -1, hd)
+        whole = lambda w: copy_to_model(kv_in @ w)[
+            ..., k0 * hd:k1 * hd].reshape(B, Sk, -1, hd)
         k, v = whole(p["wk"]), whole(p["wv"])
     G = cfg.num_heads // cfg.num_kv_heads
     reads = [h // G - k0 for h in range(h0, h1)]
@@ -356,7 +361,7 @@ def apply_attention(
     cache: Optional[Params] = None,  # {"k","v"} [B, S_max or W, KH, hd]
     cache_index: Any = None,  # int or 0-dim (write offset of the batch), or
     # a [B] vector (per-slot decode, continuous batching; requires S == 1)
-    cross_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    memory: Optional[torch.Tensor] = None,  # cross-attention's [B, Sk, D]
     train: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Returns (out [B, S, D], cache). The cache is updated IN PLACE (the
@@ -374,38 +379,36 @@ def apply_attention(
     sliding-window layer whose cache is a ring of W <= window slots
     (`cfg.ring_buffer_cache`) takes `_ring_attention`.
 
-    Cross-attention (`cross_kv`: the encoder memory's k/v [B, Sk, KH, hd])
-    attends without a mask, RoPE, a qk-norm on k or a cache write; it is
-    fresh whatever the cache, so it routes as a prefill does."""
+    Cross-attention (the encoder's `memory` [B, Sk, D], whose k and v the
+    layer projects) attends without a mask, RoPE, a qk-norm on k or a
+    cache write; it is fresh whatever the cache, so it routes as a prefill
+    does. Over a model axis its q heads come from x and their k and v from
+    the memory, which is replicated (`_split_qkv`)."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     heads = _head_split(cfg, current_mesh(), p)
-    if heads is not None and cross_kv is not None:
-        raise NotImplementedError(
-            "cross-attention over a model axis that splits the heads")
+    cross = memory is not None
     if heads is None:  # every head on this rank
         H, KH = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
         q = (x @ p["wq"]).reshape(B, S, H, hd)
-        if cross_kv is None:
-            k = (x @ p["wk"]).reshape(B, S, KH, hd)
-            v = (x @ p["wv"]).reshape(B, S, KH, hd)
-        else:
-            k, v = cross_kv
+        kv_in = memory if cross else x
+        k = (kv_in @ p["wk"]).reshape(B, kv_in.shape[1], KH, hd)
+        v = (kv_in @ p["wv"]).reshape(B, kv_in.shape[1], KH, hd)
     else:  # the rank's heads over a model axis
-        q, k, v = _split_qkv(p, cfg, x, heads)
+        q, k, v = _split_qkv(p, cfg, x, heads, memory)
         H = q.shape[2]
     if cfg.use_qk_norm:
         q = rms_norm_headdim(q)
-        if cross_kv is None:
+        if not cross:
             k = rms_norm_headdim(k)
-    if use_rope and cross_kv is None:
+    if use_rope and not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    causal = attn_mode in ("causal", "window", "chunk") and cross_kv is None
+    causal = attn_mode in ("causal", "window", "chunk") and not cross
     eff_window = window if attn_mode == "window" else 0
     eff_chunk = window if attn_mode == "chunk" else 0
-    if cross_kv is not None:
+    if cross:
         cache = None
 
     if (cache is not None and cfg.ring_buffer_cache and attn_mode == "window"

@@ -28,6 +28,18 @@ becomes one all-reduce per layer forward. The dispatched tokens and the
 gates enter the split through `copy_to_model`, since each rank's
 gradient of them covers only its share. Experts the extent divides
 neither way stay whole on every rank, with no message.
+
+In the exact mode over D > 1 data ranks (`models/common.py`
+`global_batch`) the ranks' batches are the consecutive shares of one
+global batch, and the routing is the reference's for that batch: the
+group and the capacity come from the T * D global tokens (a group may
+straddle two ranks part-way), each assignment's queue position counts
+the assignments of the lower data ranks in its group and expert, and the
+aux loss takes f_e from the global counts. Those come from one small
+all-gather of the per-(group, expert) counts over the data group a layer
+forward. A rank adds E * sum_e f_e * mean over its tokens of P_e, so the
+mean over the ranks that the exact step takes is the reference's aux
+loss, in value and in gradient (f_e carries none).
 """
 from __future__ import annotations
 
@@ -38,9 +50,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch import dist as rdist
 from repro_torch.dist import model_index
-from repro_torch.models.common import (copy_to_model, current_mesh,
-                                       dense_init, reduce_from_model)
+from repro_torch.models.common import (batch_mesh, copy_to_model,
+                                       current_mesh, dense_init,
+                                       reduce_from_model)
 from repro_torch.models.layers import _is_block
 
 Params = Dict[str, Any]
@@ -132,8 +146,9 @@ def apply_moe(p: Params, cfg: ModelConfig,
     B, S, D = x.shape
     T = B * S
     E, K = m.num_experts, m.top_k
-    group = group_size(T)
-    G = T // group
+    data = batch_mesh()
+    n_data = 1 if data is None else rdist.n_data_nodes(data)
+    group = group_size(T * n_data)
     C = capacity(m, group)
     xt = x.reshape(T, D)
     split = expert_split(p, cfg)
@@ -144,17 +159,40 @@ def apply_moe(p: Params, cfg: ModelConfig,
     gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # queue position of each assignment in its expert's queue of its group,
-    # counted in (token, k) order; positions >= C are dropped
-    onehot = F.one_hot(expert.reshape(G, group * K), E)  # [G, t*K, E]
-    pos = ((onehot.cumsum(1) - 1) * onehot).sum(-1).reshape(T, K)
+    # counted in (token, k) order; positions >= C are dropped. The rank's
+    # tokens are global tokens [t0, t0 + T), in groups g0 .. g0 + G - 1:
+    # padded to whole groups, the first from its offset `lead`.
+    t0 = 0 if data is None else rdist.node_index(data) * T
+    g0, lead = divmod(t0, group)
+    G = -(-(lead + T) // group)
+    onehot = F.one_hot(expert.reshape(T * K), E)  # [T*K, E]
+    padded = F.pad(onehot, (0, 0, lead * K, (G * group - lead - T) * K))
+    counts = padded.reshape(G, group * K, E)
+    pos = counts.cumsum(1).reshape(G * group * K, E)
+    pos = pos[lead * K:(lead + T) * K] - 1
+    counts = counts.sum(1)  # [G, E]
+    if data is not None:
+        # the lower data ranks' assignments to each group's queues, from
+        # every rank's counts of the T * n_data global tokens' groups
+        every = counts.new_zeros((T * n_data // group, E))
+        every[g0:g0 + G] = counts
+        every = rdist.all_gather_dim(every[None], data, 0).reshape(
+            n_data, -1, E)
+        below = every[:rdist.node_index(data)].sum(0)[g0:g0 + G]
+        g_of = (lead + torch.arange(T, device=x.device)) // group
+        pos = pos + below[g_of].repeat_interleave(K, dim=0)
+        counts = every.sum((0, 1))
+    else:
+        counts = counts.sum(0)
+    pos = (pos * onehot).sum(-1).reshape(T, K)
     keep = pos < C
     gate = gate * keep
     if _DROPS[0] is not None:
         _DROPS[0].append((~keep).sum())
 
     # load-balance aux loss (Switch-style): E * sum_e f_e * P_e, every
-    # assignment counted, dropped ones too
-    frac_tokens = onehot.sum((0, 1)).float() / T
+    # assignment counted, dropped ones too; f_e over the global batch
+    frac_tokens = counts.float() / (T * n_data)
     aux = E * torch.sum(frac_tokens * probs.mean(0))
 
     # each assignment's row (e, g, c) of the experts' [E * G * C, D] buffer
@@ -168,7 +206,7 @@ def apply_moe(p: Params, cfg: ModelConfig,
     else:
         xt_in = xt
     n_exp = p["we_gate"].shape[0]
-    g_of = torch.arange(T, device=x.device)[:, None] // group
+    g_of = (lead + torch.arange(T, device=x.device))[:, None] // group
     row = (expert * G + g_of) * C + pos.clamp(max=C - 1)  # [T, K]
     rows = n_exp * G * C
     if split == 0:

@@ -16,6 +16,20 @@ the port's code is plain PyTorch.
 
 A state passed in is updated IN PLACE (the reference returns a new one):
 {"h": [B, W] f32, "conv": [B, conv_width - 1, W]}.
+
+Under an installed model axis (`models/common.py` `mesh_rules`) a rank
+holds its block of the lru channels (`launch/sharding.py`): its columns
+of w_gate_in, w_main_in, w_rec_gate, w_inp_gate and the conv, its
+entries of conv_b and lam, and its rows of w_out. The gate and main
+branches give its channels, and the depthwise conv runs on them with no
+message. Its columns of the recurrence and input gates read the whole
+conv'd main branch, which one all-gather over the model group joins
+(`gather_from_model`: each rank's gradient of it is summed back to the
+owners). The scan runs on its channels, and w_out's rows give an f32
+partial that leaves through one all-reduce, cast once
+(`layers._row_split`). A width the extent does not divide keeps the whole
+block on every rank, with no message. A state (serving) over a split
+raises.
 """
 from __future__ import annotations
 
@@ -26,7 +40,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, RGLRUConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.common import dense_init
+from repro_torch.dist import model_extent
+from repro_torch.models.common import (copy_to_model, current_mesh,
+                                       dense_init, gather_from_model)
+from repro_torch.models.layers import _is_block, _row_split
 from repro_torch.models.ssm import causal_conv
 
 Params = Dict[str, Any]
@@ -104,13 +121,24 @@ def apply_rglru(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     """x: [B, S, D] -> (out [B, S, D], state). With a state, S == 1 is the
     O(1) decode step and a longer S a prefill from the state's h; both
     write the new state in place."""
+    mesh = current_mesh()
+    split = mesh is not None and _is_block(p["lam"], 0,
+                                           cfg.rglru.lru_width or cfg.d_model)
+    if split and state is not None:
+        raise NotImplementedError(
+            "an RG-LRU state over a model axis: serving on a model axis "
+            "(ROADMAP.md queue 1 item 7)")
+    if split:
+        x = copy_to_model(x)
     gate = _gelu(x @ p["w_gate_in"])
     main, conv_tail = causal_conv(x @ p["w_main_in"], p,
                                    cfg.rglru.conv_width, state)
 
     mf = main.float()
-    rec_gate = torch.sigmoid(mf @ p["w_rec_gate"].float())
-    inp_gate = torch.sigmoid(mf @ p["w_inp_gate"].float())
+    whole = (gather_from_model(main, model_extent(mesh)).float() if split
+             else mf)
+    rec_gate = torch.sigmoid(whole @ p["w_rec_gate"].float())
+    inp_gate = torch.sigmoid(whole @ p["w_inp_gate"].float())
 
     if x.shape[1] == 1 and state is not None:
         a, beta = _gates(rec_gate[:, 0], p["lam"])
@@ -124,7 +152,7 @@ def apply_rglru(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         state["conv"].copy_(conv_tail)
 
     out = y.to(x.dtype) * gate
-    return out @ p["w_out"], state
+    return (_row_split(out, p["w_out"]) if split else out @ p["w_out"]), state
 
 
 def init_rglru_state(cfg: ModelConfig, batch: int, dtype=torch.float32, *,

@@ -21,13 +21,13 @@ projection of precomputed patch embeddings; and the training loss
 
 Under an installed model axis (`models/common.py` `mesh_rules`) the
 forward and the loss run on the rank's blocks through the layers'
-tensor-parallel forms (`models/layers.py`, `models/moe.py`): GQA and MLA
-heads, dense and MoE FFNs (experts split on E, or on F where the extent
-does not divide E), the vocab, and early fusion's frontend_proj, whose
-d_model columns a rank projects and all-gathers; `check_model_axis`
-refuses the SSD, RG-LRU and encoder-decoder families. A checkpointed
-layer recomputes its forward, its model-group messages included, in the
-backward.
+tensor-parallel forms (`models/layers.py`, `models/moe.py`,
+`models/ssm.py`, `models/rglru.py`): GQA and MLA heads, dense and MoE
+FFNs (experts split on E, or on F where the extent does not divide E),
+the SSD's heads, the RG-LRU's channels, the vocab, and early fusion's
+frontend_proj, whose d_model columns a rank projects and all-gathers. A
+checkpointed layer recomputes its forward, its model-group messages
+included, in the backward.
 """
 from __future__ import annotations
 
@@ -39,7 +39,6 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.dist import model_extent
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
@@ -101,34 +100,6 @@ def layer_specs(cfg: ModelConfig, window_override: int = 0) -> List[LayerSpec]:
     period repeated n times, then the tail."""
     period, n, tail = build_plan(cfg, window_override)
     return list(period) * n + list(tail)
-
-
-def check_model_axis(cfg: ModelConfig, mesh) -> None:
-    """Refuse, with NotImplementedError naming ROADMAP.md queue 1 item 5,
-    the families the port does not execute over `mesh`'s model axis: the
-    SSD, RG-LRU and encoder-decoder leaves. Any extent runs the others:
-    GQA heads and KV heads (a split inside a head gathers its pieces), MLA's
-    wq_b, wkv_b and wo (split at each projection's own head width), dense
-    FFNs, MoE experts (split on E, or on F where the extent does not
-    divide E, with the routing replicated), the vocab (its d_model columns
-    where the extent does not divide it, as the reference's `_ALT_SPECS`
-    does) and early fusion's frontend_proj; leaves the extent does not
-    divide stay whole (`models/layers.py`, `models/moe.py`)."""
-    m = model_extent(mesh)
-    if m == 1:
-        return
-    not_yet = "are not split over a model axis yet"
-    what = None
-    if cfg.is_encdec:
-        what = f"the encoder-decoder's leaves {not_yet}"
-    elif cfg.family == "ssm":
-        what = f"the SSD leaves {not_yet}"
-    elif cfg.rglru is not None:
-        what = f"the RG-LRU leaves {not_yet}"
-    if what is not None:
-        raise NotImplementedError(
-            f"{cfg.name} on a model axis of extent {m}: {what} (ROADMAP.md "
-            f"queue 1 item 5)")
 
 
 # ---------------------------------------------------------------------------

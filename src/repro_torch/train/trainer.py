@@ -61,8 +61,13 @@ mesh's gossip op (the shard rules: halo rows between ranks,
 keeps a replica of the parameters, takes the gradient of its share of the
 global batch and all-reduces the mean gradient (in f32), so every replica
 takes the same update (the reference's ZeRO-1 layout holds the same
-numbers in less memory: the port takes it with a model axis). The metrics
-are means over all nodes. A cohort superstep there trains each rank's
+numbers in less memory: the port takes it with a model axis). The MoE
+layers route the global batch, as the reference does
+(`models.common.global_batch`: one small all-gather over the data group
+a layer forward). At `microbatches` mb > 1 each rank slices its share in
+mb; slice j of every rank, in rank order, is the j-th microbatch the
+reference routes when its batch's rows are dealt so (ROADMAP.md). The
+metrics are means over all nodes. A cohort superstep there trains each rank's
 active rows in place and mixes over the cohort's row table
 (`dist.cohort_rows`: uneven, and a rank may hold no active row, which then
 joins every message with nothing of its own); its metrics are means over
@@ -74,14 +79,13 @@ the hierarchical mode takes its pods from the mesh's "pod" axis and
 gossips between them over each rank's lane
 (`core.averaging._hmix_shard`).
 
-Over a model axis of extent above 1 (every decoder-only family but the
-SSD and RG-LRU ones, `models.transformer.check_model_axis`) every rank
-holds blocks of the
-reference's placements (`launch/sharding.py`; leaves the extent does not
-divide whole), cut by `init_state`, and computes its loss and gradient
-under `models.common.mesh_rules` (tensor-parallel layers, heads split
-inside a head joined where they are used, MoE experts split on E or F
-with the routing replicated, a vocab-parallel loss). The
+Over a model axis of extent above 1 (every family) every rank holds
+blocks of the reference's placements (`launch/sharding.py`; leaves the
+extent does not divide whole), cut by `init_state`, and computes its loss
+and gradient under `models.common.mesh_rules` (tensor-parallel layers,
+heads split inside a head joined where they are used, MoE experts split
+on E or F with the routing replicated, the SSD's and the RG-LRU's heads
+and channels, cross-attention's heads, a vocab-parallel loss). The
 exact mode is FSDP with ZeRO-1: at rest a rank holds its `zero1_specs`
 block of the parameters, f32 masters and moments; each step all-gathers
 its model shard's parameters over the data group, reduce-scatters the
@@ -123,8 +127,8 @@ from repro_torch.dist import (is_sharded, model_extent, multi_rank,
                               n_data_nodes, n_local)
 from repro_torch.launch import sharding as shlib
 from repro_torch.models import registry
-from repro_torch.models.common import MetaGenerator, mesh_rules
-from repro_torch.models.transformer import build_plan, check_model_axis
+from repro_torch.models.common import MetaGenerator, global_batch, mesh_rules
+from repro_torch.models.transformer import build_plan
 from repro_torch.optim import OptState, init_optimizer, make_optimizer
 
 Tree = Any
@@ -135,16 +139,10 @@ class TrainState(NamedTuple):
     opt: OptState
 
 
-def check_supported(run, mesh) -> None:
-    """Raise on what the trainer does not run over `mesh`: on a model
-    axis, the families `check_model_axis` refuses (the SSD, RG-LRU and
-    encoder-decoder ones; any extent runs the others' heads, KV heads,
-    MLA projections, FFNs, MoE experts, frontend_proj and vocab, with
-    every wire and averaging mode), naming its ROADMAP.md item; and
-    error feedback outside the gossip mode (ValueError, as the
-    reference)."""
-    if model_extent(mesh) > 1:
-        check_model_axis(run.model, mesh)
+def check_supported(run) -> None:
+    """Raise on what the trainer does not run: error feedback outside the
+    gossip mode (ValueError, as the reference). Every family runs over a
+    model axis of any extent, with every wire and averaging mode."""
     if run.averaging.error_feedback != "off" and run.averaging.mode != "gossip":
         raise ValueError(f"error-feedback compression (error_feedback="
                          f"{run.averaging.error_feedback!r}) requires "
@@ -163,7 +161,6 @@ def init_state(run, gen: torch.Generator, mesh=None) -> TrainState:
     dtype = getattr(torch, run.param_dtype)
     params = registry.init_params(gen, run.model, dtype)
     if model_extent(mesh) > 1:
-        check_supported(run, mesh)
         params = shlib.shard_tree(params, rest_specs(
             run.model, mesh, run.averaging.mode == "exact"), mesh)
     use_master = run.master_weights and dtype != torch.float32
@@ -417,7 +414,7 @@ def build_train_step(run, mesh=None, *, n_nodes: Optional[int] = None,
     the same on the ranks of a model group. The hierarchical mode's pods
     are the mesh's "pod" extent, as the reference's (1 without a mesh);
     `pods` sets them on one process, which emulates the pod mesh."""
-    check_supported(run, mesh)
+    check_supported(run)
     mesh = mesh if multi_rank(mesh) else None
     if run.averaging.mode == "exact":
         return _build_exact_step(run, device, mesh)
@@ -469,7 +466,7 @@ def _build_exact_step(run, device: DeviceLike, mesh=None) -> Callable:
     def train_step(state: TrainState, batch):
         params = gather(state.params) if zero1 else state.params
         mb = run.microbatches
-        with mesh_rules(mesh):
+        with mesh_rules(mesh), global_batch(mesh):
             if mb > 1:
                 # gradient accumulation: the local mini-batch in `mb`
                 # sequential slices (paper Section II-C, compute-limited)
@@ -688,7 +685,7 @@ def build_cohort_superstep(run, n_active: int, *,
     says (`dist.cohort_rows`). Over a model axis the state is the rank's
     blocks of its node rows (every node where the node axis is not
     split), and the layers run under `mesh_rules`."""
-    check_supported(run, mesh)
+    check_supported(run)
     mesh = mesh if multi_rank(mesh) else None
     dev = resolve_device(device)
     step = _build_node_step(run, n_active, None, dev, mesh, rows)
@@ -725,7 +722,7 @@ def superstep_builder(run, mesh=None, *, n_nodes: Optional[int] = None,
     node axis is not split, over a model axis too, once per cohort size);
     and in the exact mode a B that does not split evenly over the ranks
     raises."""
-    check_supported(run, mesh)
+    check_supported(run)
     n_full = n_nodes or (n_data_nodes(mesh) if mesh is not None else 1)
     cohort_cache: Dict[Any, Callable] = {}
 

@@ -293,31 +293,28 @@ def test_prefill_argument_bytes_are_the_cpu_serve_state():
 
 
 def test_model_axis_is_planned_not_executed():
-    """On a {data 4, model 2} mesh, for a config the trainer refuses there
-    (reduced mamba2-2.7b, whose SSD leaves the model axis does not split
-    yet; MoE experts, MLA and early fusion execute:
-    tests/test_torch_model_axis_experts.py): ZeRO-1 and model placements
-    shrink the arguments, the temporaries are the unsplit bound
-    (flagged), and the Megatron split's activation all-reduces are
-    planned: two per layer forward, times 3 with the backward and
-    remat."""
+    """On a {data 4, model 2} mesh serving keeps the model axis planned
+    (ROADMAP.md queue 1 item 7; every train step executes there): a
+    reduced mamba2-2.7b prefill, forward only, places its parameters over
+    the model axis and its batch and cache over the data axes, so its
+    arguments shrink; the temporaries are the unsplit bound (flagged), and
+    the Megatron split's activation all-reduces are planned: two per
+    layer forward, of the rank's tokens in bf16."""
     cfg = reduced(get_config("mamba2-2.7b"))
-    kw = dict(cfg=cfg, shape=_tiny("train_4k"), microbatches=1)
-    one = dryrun.plan("mamba2-2.7b", "train_4k", ONE, **kw)
-    rec = dryrun.plan("mamba2-2.7b", "train_4k", dryrun.parse_mesh("4x2"),
-                      **kw)
+    kw = dict(cfg=cfg, shape=_tiny("prefill_32k"))
+    one = dryrun.plan("mamba2-2.7b", "prefill_32k", ONE, **kw)
+    rec = dryrun.plan("mamba2-2.7b", "prefill_32k",
+                      dryrun.parse_mesh("4x2"), **kw)
     assert rec["temp_unsplit_over_model"] is True
-    assert "SSD" in rec["model_axis_refused"]
-    assert rec["memory"]["argument_gib"] < one["memory"]["argument_gib"] / 4
+    assert rec["model_axis_refused"] == dryrun.SERVING_REFUSAL
+    assert "planned, not executed" in rec["model_axis_refused"]
+    assert "collectives_model" not in rec
+    assert rec["memory"]["argument_gib"] < one["memory"]["argument_gib"] / 2
     planned = rec["collectives_planned"]
-    assert planned["all-reduce.count"] == 2 * 3 * cfg.num_layers
+    assert planned["all-reduce.count"] == 2 * cfg.num_layers
     tokens = 8 // 4 * 256
-    assert planned["all-reduce"] == 6 * cfg.num_layers * tokens * \
+    assert planned["all-reduce"] == 2 * cfg.num_layers * tokens * \
         cfg.d_model * 2
-    # the exact mode's f32 gradient all-reduce over the 4 data ranks
-    leaves = tree_leaves(registry.init_params(MetaGenerator(), cfg))
-    assert rec["collectives"]["all-reduce"] == 4 * sum(
-        t.numel() for t in leaves) + 12
 
 
 def test_model_axis_executes_for_the_dense_family():
@@ -357,17 +354,21 @@ def test_model_axis_executes_for_the_dense_family():
 
 
 def test_refused_families_keep_the_model_axis_planned():
-    """A config the trainer refuses over the model axis keeps both flags
-    and says why: reduced recurrentgemma-9b's RG-LRU leaves on a model
-    axis of 2 (reduced qwen2-moe-a2.7b's experts, refused before they
-    split over the model axis, now execute:
-    tests/test_torch_model_axis_experts.py)."""
-    rec = _plan("recurrentgemma-9b", "train_4k", dryrun.parse_mesh("4x2"),
-                microbatches=1)
+    """What stays planned keeps both flags and says why: a reduced
+    recurrentgemma-9b prefill on a model axis of 2, forward only (its
+    RG-LRU and local-attention layers execute there in training:
+    tests/test_torch_model_axis_families.py)."""
+    rec = _plan("recurrentgemma-9b", "prefill_32k", dryrun.parse_mesh("4x2"))
     assert rec["temp_unsplit_over_model"] is True
-    assert rec["collectives_planned"]["all-reduce.count"] > 0
-    assert "RG-LRU" in rec["model_axis_refused"]
+    cfg = reduced(get_config("recurrentgemma-9b"))
+    assert rec["collectives_planned"]["all-reduce.count"] == \
+        2 * cfg.num_layers
+    assert rec["model_axis_refused"] == dryrun.SERVING_REFUSAL
     assert "collectives_model" not in rec
+    train = _plan("recurrentgemma-9b", "train_4k", dryrun.parse_mesh("4x2"),
+                  microbatches=1)
+    assert train["temp_unsplit_over_model"] is False
+    assert "model_axis_refused" not in train
 
 
 def test_full_width_plan_allocates_nothing():

@@ -26,10 +26,9 @@ numpy.
   each step's messages by axis equal the planner's trace of the same step
   (`repro_torch.launch.dryrun`): the model axis's count and bytes, the
   data axis's count.
-* (d) What the model axis does not execute (the SSD, RG-LRU and
-  encoder-decoder families) raises NotImplementedError naming it and its
-  ROADMAP.md item; MoE experts, MLA and early fusion execute, and so do
-  heads, KV heads, FFN widths and vocabs the extent does not divide; the
+* (d) Every family executes on the model axis (MoE experts, MLA, early
+  fusion, the SSD, the RG-LRU and the encoder-decoder), and so do heads,
+  KV heads, FFN widths and vocabs the extent does not divide; the
   planner traces the dense archs on the production 16 x 16 mesh as
   executed.
 """
@@ -62,6 +61,8 @@ from repro_torch.dist import Mesh
 from repro_torch.launch import dryrun
 from repro_torch.launch import sharding as shlib
 from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.models import registry
+from repro_torch.models.common import MetaGenerator
 from repro_torch.optim import OptState
 from repro_torch.train import trainer
 from torch_dist_worker import MODEL_MESHES, spawn
@@ -288,46 +289,22 @@ def test_publish_extract_gathers_the_model_axis(trained, mode):
             np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
 
 
-def _refusals():
-    gossip = lambda **kw: AveragingConfig("gossip", 2, **kw)
-    cases = [  # (arch, config changes, averaging, model extent, match)
-        ("mamba2-2.7b", {}, gossip(), 2, "SSD"),
-        ("recurrentgemma-9b", {}, gossip(), 2, "RG-LRU"),
-        ("seamless-m4t-medium", {}, gossip(), 2, "encoder-decoder"),
-    ]
-    return cases
-
-
-@pytest.mark.parametrize("arch,changes,avg,model,match", _refusals())
-def test_model_axis_refusals(arch, changes, avg, model, match):
-    """(d): each refusal names what it refuses and its ROADMAP.md item,
-    from the trainer, from `init_state` and in the planner's record (a
-    vocab the model axis does not divide executes: (a) holds it against
-    the reference)."""
-    cfg = dataclasses.replace(reduced(get_config(arch), d_model=512),
-                              **changes)
-    run = RunConfig(model=cfg, shape=SHAPES["train_4k"], averaging=avg,
-                    optimizer="sgd", param_dtype="float32")
-    mesh = Mesh((1, model), ("data", "model"))
-    with pytest.raises(NotImplementedError, match=match) as refused:
-        trainer.build_train_step(run, mesh, n_nodes=N, device="cpu")
-    assert "ROADMAP.md queue 1 item 5" in str(refused.value)
-    with pytest.raises(NotImplementedError, match=match):
-        trainer.init_state(run, torch.Generator().manual_seed(0), mesh)
-    assert match in dryrun.model_axis_refusal(run, mesh)
-
-
 @pytest.mark.parametrize("arch,changes", [
     ("qwen2-moe-a2.7b", {}),  # MoE experts
     ("minicpm3-4b", {}),  # MLA's wq_b and wkv_b
     # early fusion on a dense decoder (llama4-scout's is MoE as well)
     ("granite-8b", {"frontend_embed_dim": 128}),
+    ("mamba2-2.7b", {}),  # the SSD's heads
+    ("recurrentgemma-9b", {}),  # the RG-LRU's channels
+    ("seamless-m4t-medium", {}),  # cross-attention's heads
 ])
 def test_model_axis_executes(arch, changes):
-    """What the model axis refused before the experts, MLA's heads and
-    frontend_proj split over it now executes: the trainer's checks pass
+    """What the model axis refused before the experts, MLA's heads,
+    frontend_proj, the SSD, the RG-LRU and cross-attention split over it
+    now executes: the trainer's checks pass, `init_state` cuts the state
     and the planner's record has no refusal
-    (tests/test_torch_model_axis_experts.py holds them against the
+    (tests/test_torch_model_axis_experts.py and
+    tests/test_torch_model_axis_families.py hold them against the
     reference)."""
     cfg = dataclasses.replace(reduced(get_config(arch), d_model=512),
                               **changes)
@@ -335,8 +312,12 @@ def test_model_axis_executes(arch, changes):
                     averaging=AveragingConfig("gossip", 2), optimizer="sgd",
                     param_dtype="float32")
     mesh = Mesh((1, 2), ("data", "model"))
-    trainer.check_supported(run, mesh)
-    assert dryrun.model_axis_refusal(run, mesh) is None
+    trainer.check_supported(run)
+    assert dryrun.model_axis_refusal(run.shape.mode, mesh) is None
+    state = trainer.init_state(run, torch.Generator().manual_seed(0), mesh)
+    whole = registry.init_params(MetaGenerator(), cfg)
+    assert sum(t.numel() for t in tree_leaves(state.params)) < sum(
+        t.numel() for t in tree_leaves(whole))
 
 
 @pytest.mark.parametrize("changes,model", [
@@ -354,8 +335,8 @@ def test_model_axis_executes_heads_the_extent_cuts(changes, model):
                     averaging=AveragingConfig("gossip", 2), optimizer="sgd",
                     param_dtype="float32")
     mesh = Mesh((1, model), ("data", "model"))
-    trainer.check_supported(run, mesh)
-    assert dryrun.model_axis_refusal(run, mesh) is None
+    trainer.check_supported(run)
+    assert dryrun.model_axis_refusal(run.shape.mode, mesh) is None
 
 
 @pytest.mark.parametrize("arch", ["granite-8b", "phi4-mini-3.8b",

@@ -24,9 +24,9 @@ numpy:
   n_nodes = 4, against the JAX trainer at n_nodes = 4 on one device from
   the same state: both qwen2-moe cases and minicpm3's 6 heads on 1 x 4
   (gossip, ring R = 2) and on 2 x 2 (exact: FSDP with ZeRO-1 over 2, the
-  6 experts 3 a rank; the reference at 2 microbatches, as each data rank
-  routes its own share: ROADMAP.md queue 3), tests/test_torch_trainer.py's
-  bounds; the int8 tile wire (64-column
+  6 experts 3 a rank; the reference's one step, as the data ranks route
+  the global batch), tests/test_torch_trainer.py's bounds; the int8 tile
+  wire (64-column
   tiles) on the expert-parallel qwen2-moe on 1 x 4, whose statistic slots
   lie in leaves split on their first dim, at the quantized bounds; and the
   same model through the driver under `death:1@1-2` with the rejoin sync
@@ -158,10 +158,9 @@ def _trainer_runs(key):
 
 
 def _runs(name, mode, wire=None, optimizer="sgd"):
-    """The JAX package's run and the port's. The reference's exact mode
-    takes the 2 x 2 mesh's 2 data ranks as 2 microbatches: each data rank
-    routes its share of the batch in its own dispatch groups, with its own
-    aux loss (ROADMAP.md queue 3)."""
+    """The JAX package's run and the port's, one step a batch: the
+    port's exact mode over the 2 x 2 mesh's 2 data ranks routes the
+    global batch, as the reference does."""
     jcfg, tcfg = _cfgs(name, D_TRAIN)
     wire = wire or {}
     jwire = dict(wire, packed=False) if wire else {}
@@ -170,7 +169,6 @@ def _runs(name, mode, wire=None, optimizer="sgd"):
                   param_dtype="float32")
     return (JRunConfig(model=jcfg, shape=JSHAPES["train_4k"],
                        averaging=JAveragingConfig(mode, 2, **jwire),
-                       microbatches=2 if mode == "exact" else 1,
                        **common),
             RunConfig(model=tcfg, shape=SHAPES["train_4k"],
                       averaging=AveragingConfig(mode, 2, **wire), **common))

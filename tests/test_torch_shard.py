@@ -312,15 +312,13 @@ def test_sharded_refusals_and_rule_coverage():
     tp = dataclasses.replace(run, model=dataclasses.replace(
         reduced(get_config("granite-8b"), d_model=512), num_kv_heads=2))
     trainer.check_supported(dataclasses.replace(
-        tp, averaging=AveragingConfig(mode="gossip", rounds=2)), model2)
+        tp, averaging=AveragingConfig(mode="gossip", rounds=2)))
     ef_exact = dataclasses.replace(ef.averaging, quantization="none")
     for avg in (ef_exact, ef.averaging,
                 AveragingConfig(mode="gossip", rounds=2, quantization="sign"),
                 hier):
-        trainer.check_supported(dataclasses.replace(tp, averaging=avg),
-                                model2)
-        assert dryrun.model_axis_refusal(
-            dataclasses.replace(tp, averaging=avg), model2) is None
+        trainer.check_supported(dataclasses.replace(tp, averaging=avg))
+        assert dryrun.model_axis_refusal(tp.shape.mode, model2) is None
     pods = rdist.Mesh((2, 2, 1), ("pod", "data", "model"))
     sched = mixing.schedule("ring", 8)
     x = torch.zeros(2, 4)

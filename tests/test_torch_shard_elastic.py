@@ -28,9 +28,9 @@ worker run per world size), against the JAX package on one process:
   tv_rte/ratelimited/drift_pca): the same checks;
 * the launcher under `torchrun` on 2 ranks with `--scenario` and
   `--faults` together, and with `--publish`; `--checkpoint` and
-  `--resume` over a model axis of a family it does not execute raise
-  NotImplementedError naming ROADMAP.md, as the driver's snapshotter and
-  `resume_from` do.
+  `--resume` of the exact mode under churn on a model axis raise the
+  reference's ValueError, as the driver's snapshotter and `resume_from`
+  do.
 """
 import os
 import shutil
@@ -288,11 +288,12 @@ def test_driver_durability_on_a_split_axis_still_raises(arg, tmp_path):
     """Publication, snapshots and resuming run on a split node axis
     (tests/test_torch_shard_durability.py runs them on ranks): a publisher
     binds to the split mesh, and rank 0 decides for the others. Over a
-    model axis they run too for the families it executes
+    model axis they run too, for every family
     (tests/test_torch_model_axis_durability.py); what still raises is a
-    snapshot or a resume of a family it does not execute (the SSD
-    leaves: ROADMAP.md queue 1 item 5), before any process group is
-    entered."""
+    snapshot or a resume of a run the reference refuses, the exact mode
+    under churn (here the SSD family on a model axis, which passes the
+    trainer's checks), with the reference's ValueError before any process
+    group is entered."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import AveragingConfig, RunConfig, SHAPES
     from repro_torch.core.faults import FaultSchedule
@@ -313,11 +314,12 @@ def test_driver_durability_on_a_split_axis_still_raises(arg, tmp_path):
              else str(tmp_path))
     run = RunConfig(model=reduced(get_config("mamba2-2.7b")),
                     shape=SHAPES["train_4k"],
-                    averaging=AveragingConfig(mode="gossip", rounds=2))
+                    averaging=AveragingConfig(mode="exact"))
     try:
-        with pytest.raises(NotImplementedError, match="SSD"):
+        with pytest.raises(ValueError, match="decentralized node axis"):
             StreamingDriver(run, rdist.Mesh((1, 2), ("data", "model")), None,
                             lambda rng, n: {}, n_nodes=2, device="cpu",
+                            faults=FaultSchedule.parse("death:1@1-2", 2),
                             **{arg: value})
     finally:
         if arg == "snapshotter":
@@ -405,9 +407,9 @@ def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path,
     """`--publish` runs under torchrun (2 ranks, rank 0's versions on
     both; tests/test_torch_shard_durability.py runs `--checkpoint-every`
     and `--resume` there, tests/test_torch_model_axis_durability.py over
-    a model axis); `--checkpoint` and `--resume` of a family the model
-    axis does not execute still raise (the SSD leaves: ROADMAP.md queue
-    1 item 5)."""
+    a model axis, for every family); `--checkpoint` and `--resume` of a
+    run the reference refuses still raise its ValueError: the exact mode
+    under churn, here of the SSD family on a model axis."""
     from repro_torch.launch import train as launch_train
 
     if flags == ["--publish"]:
@@ -425,6 +427,8 @@ def test_launcher_durability_under_torchrun_still_raises(flags, tmp_path,
                         lambda **kw: rdist.Mesh((1, 2), ("data", "model")))
     ap = launch_train._parser()
     args = ap.parse_args(["--arch", "mamba2-2.7b", "--reduced",
-                          "--device", "cpu", "--model-axis", "2", *flags])
-    with pytest.raises(NotImplementedError, match="SSD"):
+                          "--device", "cpu", "--model-axis", "2",
+                          "--averaging", "exact", "--nodes", "2",
+                          "--faults", "death:1@1-2", *flags])
+    with pytest.raises(ValueError, match="decentralized node axis"):
         launch_train._train(ap, args, distributed=True)

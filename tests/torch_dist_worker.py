@@ -1,7 +1,7 @@
 """Rank code of the port's multi-rank tests (tests/test_torch_shard.py,
 tests/test_torch_trainer_dist.py, tests/test_torch_model_axis.py,
 tests/test_torch_model_axis_wires.py, tests/test_torch_model_axis_experts.py,
-tests/test_torch_shard_elastic.py, tests/test_torch_shard_elastic_lm.py);
+tests/test_torch_model_axis_families.py, tests/test_torch_shard_elastic.py, tests/test_torch_shard_elastic_lm.py);
 not collected by pytest.
 
     python tests/torch_dist_worker.py CASE RANK WORLD STORE OUT [INPUT]
@@ -404,11 +404,12 @@ def _trainer_runs(given, lean=False):
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import trainer as tr
 
-    meshes = {name: make_host_mesh(model=m)
-              for name, m in MODEL_MESHES.items()}
+    meshes = {}
     out = {}
     for key, case in given.items():
         (name, mode), run = key[:2], case["run"]
+        if name not in meshes:  # "DxM": D node shards, model extent M
+            meshes[name] = make_host_mesh(model=int(name.split("x")[1]))
         mesh = meshes[name]
         n = case["n_nodes"]
         decentralized = mode != "exact"
@@ -489,6 +490,8 @@ def _blocks(state, run, mesh, rows=None):
     specs = tr.state_placements(run, mesh, state)
     if rows is not None:
         state = _local_state(state, rows)
+    if specs is None:  # no model axis: the leaves whole
+        return state
     cut = lambda tree, spec: (shlib.shard_tree(tree, spec, mesh)
                               if tree != () else tree)
     opt = state.opt
@@ -1633,6 +1636,53 @@ def model_experts(mesh, inp):
     return out
 
 
+def model_families(mesh, inp):
+    """tests/test_torch_model_axis_families.py: (a) each case's loss and
+    gradients on 1 x world, with remat (`_layer_grads`); (b) the trainer
+    cases (`_trainer_runs`) and the driver run on 1 x world under LM_SPEC
+    with the rejoin sync (`_me_driver`, `_me_tree`); (c) the MoE cases'
+    dropped assignments of the first batch, each rank's share under its
+    mesh's exact mode (a forward without remat)."""
+    from repro_torch import convert
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe, registry
+    from repro_torch.models.common import global_batch, mesh_rules
+    from repro_torch.train import trainer as tr
+
+    given = torch.load(inp, weights_only=False)
+    m14 = make_host_mesh(model=mesh.size)
+    out = {"layers": _layer_grads(given["layers"], m14, (True,), lean=True),
+           "trainer": _trainer_runs(given["trainer"], lean=True),
+           "drops": {}}
+    for key, case in given["trainer"].items():
+        run = case["run"]
+        if run.model.moe is None or key[1] != "exact":
+            continue
+        dm = make_host_mesh(model=int(key[0].split("x")[1]))
+        params = convert.lm_params(case["params"], device="cpu", mesh=dm,
+                                   cfg=run.model)
+        b = {k: torch.from_numpy(v)[None]
+             for k, v in case["batches"][0].items()}
+        b = {k: v[0] for k, v in shard_batch(b, dm, case["n_nodes"],
+                                             node_axis=False).items()}
+        with torch.no_grad(), mesh_rules(dm), global_batch(dm), \
+                moe.count_drops() as counts:
+            registry.loss_fn(params, run.model, b, remat=False)
+        out["drops"][key] = [int(c) for c in counts]
+    run, params = given["driver"]
+    state = _blocks(tr.replicate_for_nodes(_init_state(params, run), 4),
+                    run, m14)
+    with _me_driver(m14, run, state, LM_SPEC, {}) as drv:
+        state, hist = drv.run(LM_SUPERSTEPS)
+        out["driver"] = dict(
+            _me_tree(state, run, m14),
+            events=[(e["superstep"], e["to"].active_ids)
+                    for e in drv.membership_events],
+            metrics=[r["metrics"] for r in hist])
+    return out
+
+
 CASES = {"rules": rules, "driver": driver, "trainer": trainer,
          "model_layers": model_layers, "model_trainer": model_trainer,
          "cohort_rules": cohort_rules, "elastic_driver": elastic_driver,
@@ -1640,7 +1690,7 @@ CASES = {"rules": rules, "driver": driver, "trainer": trainer,
          "shard_durability": shard_durability, "model_heads": model_heads,
          "model_durability": model_durability,
          "model_elastic": model_elastic, "model_wires": model_wires,
-         "model_experts": model_experts}
+         "model_experts": model_experts, "model_families": model_families}
 
 
 def main():
